@@ -1,0 +1,275 @@
+"""ConvSep separation network, inference path.
+
+Mirror of ``convsep_tpu.models.convsep`` for what separation runs:
+
+* the collapsed encoder: conv1 → conv2 → flatten → fc has no nonlinearity
+  before the post-fc ReLU, so it is ONE (B, T·F·C) @ (T·F·C, J) GEMM whose
+  weight is the tied decode chain (:func:`band_decode_wmajor` +
+  :func:`freq_decode_wmajor`) applied to the fc kernel's columns, computed
+  once per model by :meth:`ConvSep.prepare_inference`;
+* the per-source expansion dense, ReLU, and both tied InverseLayer decode
+  stages composed into one matrix (:func:`band_freq_conv_kernel`): the
+  reference's ``bandconv`` / ``bandconv_pallas`` decode, here
+  :func:`convsep_tpu_torch.models.decoder_fused_cuda.band_freq_decode`
+  (plain PyTorch or the hand-written CUDA kernel);
+* the phase merge back to frequency bins, then ``out_bias`` and ReLU in
+  ``mask_dtype`` (cast BEFORE the bias add, as the reference does).
+
+Layouts at the public functions are the reference's: NHWC (B, T, F, C)
+input, source-major (B, S, T, F) output, HWIO conv kernels. The reference's
+decision-record decoders and the conv encoder (training's) are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from convsep_tpu_torch.models.config import ConvSepConfig
+from convsep_tpu_torch.models.decoder_fused_cuda import (
+    band_freq_decode,
+    band_freq_decode_plain,
+    fused_decode_supported,
+    kernel_supported,
+    prepare_operands,
+)
+
+__all__ = ["ConvSep", "ConvSepConfig", "resolve_decoder_impl"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _band_matrix_for(kernel: torch.Tensor, Tp: int) -> torch.Tensor:
+    """(kh, 1, I, O) tied time kernel → dense (Tp·O, T·I) banded tap matrix."""
+    kh, kw, I, O = kernel.shape
+    if kw != 1:
+        raise ValueError(f"band decode expects a (kh, 1, I, O) kernel, got {tuple(kernel.shape)}")
+    T = Tp + kh - 1
+    delta = torch.arange(T)[None, :] - torch.arange(Tp)[:, None]  # (Tp, T)
+    valid = ((delta >= 0) & (delta < kh)).to(kernel.device)
+    taps = kernel[:, 0].permute(0, 2, 1)  # (kh, O, I)
+    band = taps[delta.clamp(0, kh - 1).to(kernel.device)] * valid[:, :, None, None]
+    return band.permute(0, 2, 1, 3).reshape(Tp * O, T * I)
+
+
+def band_decode_wmajor(y: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Time-stage tied decode: y (N, Tp, W, O) → (N, W, T, I), w-major."""
+    N, Tp, W, O = y.shape
+    T = Tp + kernel.shape[0] - 1
+    y2 = y.permute(0, 2, 1, 3).reshape(N * W, Tp * O)
+    return (y2 @ _band_matrix_for(kernel, Tp)).reshape(N, W, T, kernel.shape[2])
+
+
+def _freq_conv_kernel(kernel: torch.Tensor, stride: int) -> tuple[torch.Tensor, int]:
+    """(1, kw, I, O) tied kernel → phase-decomposed (ktaps, 1, O, stride·I),
+    taps flipped, out channels ordered (phase, in-channel)."""
+    _, kw, I, O = kernel.shape
+    ktaps = -(-kw // stride)
+    k = torch.nn.functional.pad(kernel, (0, 0, 0, 0, 0, ktaps * stride - kw))
+    k = k.reshape(ktaps, stride, I, O).flip(0)
+    return k.permute(0, 3, 1, 2).reshape(ktaps, 1, O, stride * I), ktaps
+
+
+def _phase_merge_tail(o: torch.Tensor, stride: int, I: int, kw: int, in_freq: int,
+                      out_freq: int) -> torch.Tensor:
+    """(N, Wo, T, stride·I) full-conv output → (N, T, F, I): merge the stride
+    phases into bins, keep the valid extent ((in_freq − 1)·stride + kw),
+    zero-pad to ``out_freq``."""
+    N, Wo, T, _ = o.shape
+    o = o.reshape(N, Wo, T, stride, I).permute(0, 2, 1, 3, 4).reshape(N, T, Wo * stride, I)
+    w_keep = min((in_freq - 1) * stride + kw, o.shape[2])
+    if out_freq < w_keep:
+        raise ValueError(f"decode output {tuple(o.shape)} exceeds target freq {out_freq}")
+    return torch.nn.functional.pad(o[:, :, :w_keep], (0, 0, 0, out_freq - w_keep))
+
+
+def freq_decode_wmajor(y: torch.Tensor, kernel: torch.Tensor, stride: int,
+                       out_freq: int) -> torch.Tensor:
+    """Freq-stage tied decode: y (N, W', T, O) → (N, T, F, I); a full conv
+    along W' written as per-tap products and shifted adds."""
+    _, kw, I, _ = kernel.shape
+    k, ktaps = _freq_conv_kernel(kernel, stride)
+    N, Wp, T, _ = y.shape
+    g = torch.einsum("nwto,uom->nwtum", y, k[:, 0])
+    o = y.new_zeros((N, Wp + ktaps - 1, T, k.shape[3]))
+    for tau in range(ktaps):
+        lo = ktaps - 1 - tau
+        o[:, lo:lo + Wp] += g[:, :, :, tau]
+    return _phase_merge_tail(o, stride, I, kw, Wp, out_freq)
+
+
+def band_freq_conv_kernel(k2: torch.Tensor, k1: torch.Tensor, Tp: int, stride: int):
+    """Both decode stages as ONE conv along W': ((ktaps, 1, Tp·O, T·M),
+    ktaps, T, M) with M = stride·C."""
+    kh2, _, I2, O2 = k2.shape
+    T = Tp + kh2 - 1
+    bm3 = _band_matrix_for(k2, Tp).reshape(Tp * O2, T, I2)
+    kc, ktaps = _freq_conv_kernel(k1, stride)
+    M = kc.shape[3]
+    KC = torch.einsum("cti,uim->uctm", bm3, kc[:, 0])
+    return KC.reshape(ktaps, 1, Tp * O2, T * M), ktaps, T, M
+
+
+def compose_collapsed_fc(kernel, bias, k1, b1, k2, b2, cfg: ConvSepConfig):
+    """(fc kernel, fc bias, conv params) → (W_eff (T·F·C, J), c (J,)): the
+    tied decode adjoint of the fc columns, with conv1/conv2 biases folded
+    through the chain."""
+    J = cfg.bottleneck
+    w4 = kernel.reshape(cfg.enc_time, cfg.enc_freq, cfg.conv2_filters, J)
+    d2wm = band_decode_wmajor(w4.permute(3, 0, 1, 2), k2)  # (J, F', T, C1)
+    weff = freq_decode_wmajor(d2wm, k1, cfg.conv1_freq_stride, cfg.feat_size)
+    w_eff = weff.reshape(J, -1).T
+    h2c = torch.einsum("hwio,i->o", k2, b1) + b2
+    return w_eff, bias + h2c @ w4.sum(dim=(0, 1))
+
+
+def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
+    """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper)
+    or "bandconv" (plain PyTorch). "auto" takes the kernel on CUDA where
+    the reference's TPU rule admits the shape and the kernel's envelope
+    holds; an explicit "bandconv_pallas" asks for the wrapper, which is
+    the plain version on CPU tensors."""
+    impl = cfg.decoder_impl
+    if impl in ("bandconv", "bandconv_pallas"):
+        return impl
+    if impl != "auto":
+        raise NotImplementedError(
+            f"decoder_impl={impl!r} is a reference decision record and is not "
+            "ported; have auto | bandconv | bandconv_pallas"
+        )
+    TpC = cfg.enc_time * cfg.conv2_filters
+    TM = cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in
+    if (
+        torch.device(device).type == "cuda"
+        and fused_decode_supported(TpC, TM, cfg.ktaps)
+        and kernel_supported(cfg.bottleneck, cfg.ktaps)
+    ):
+        return "bandconv_pallas"
+    return "bandconv"
+
+
+def _check_config(cfg: ConvSepConfig) -> None:
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError("only compute_dtype='float32' is ported")
+    if cfg.mask_dtype not in _DTYPES:
+        raise ValueError(f"unknown mask_dtype {cfg.mask_dtype!r}")
+    if cfg.encoder_impl != "collapsed":
+        raise NotImplementedError("only the collapsed encoder is ported (inference)")
+    if cfg.expand_order != "wmajor":
+        raise NotImplementedError("only expand_order='wmajor' is ported")
+    if cfg.expand_pad not in ("kernel", "output"):
+        raise ValueError(f"unknown expand_pad {cfg.expand_pad!r}")
+    if cfg.decoder_reduce not in ("first", "sum", "all"):
+        raise ValueError(f"unknown decoder_reduce {cfg.decoder_reduce!r}")
+
+
+def param_shapes(cfg: ConvSepConfig) -> dict[str, tuple[int, ...]]:
+    """Parameter names (flat, ``fc/kernel`` → ``fc_kernel``) and shapes,
+    identical to the reference's flax tree."""
+    C, S, J = cfg.channels_in, cfg.num_sources, cfg.bottleneck
+    return {
+        "conv1_kernel": (1, cfg.conv1_freq, C, cfg.conv1_filters),
+        "conv1_bias": (cfg.conv1_filters,),
+        "conv2_kernel": (cfg.conv2_time_eff, 1, cfg.conv1_filters, cfg.conv2_filters),
+        "conv2_bias": (cfg.conv2_filters,),
+        "fc_kernel": (cfg.enc_flat, J),
+        "fc_bias": (J,),
+        "fc_expand_kernel": (J, S * cfg.enc_flat),
+        "fc_expand_bias": (S * cfg.enc_flat,),
+        "out_bias": (S,),
+    }
+
+
+class ConvSep(nn.Module):
+    """Source-separation CNN, inference only; input (B, T, F, C) scaled
+    magnitude, output (B, S, T, F) nonnegative estimates in ``mask_dtype``.
+
+    Parameters are the reference's leaves under flat names
+    (:func:`param_shapes`); build them with :mod:`convsep_tpu_torch.ckpt.bridge`.
+    """
+
+    def __init__(self, cfg: ConvSepConfig, state: dict[str, torch.Tensor] | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        _check_config(cfg)
+        self.config = cfg
+        self.prepared = False
+        for name, shape in param_shapes(cfg).items():
+            if state is None:
+                t = torch.empty(shape, device=device)
+            else:
+                t = state[name].to(device=device, dtype=torch.float32)
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def _operands(self) -> dict[str, torch.Tensor]:
+        cfg = self.config
+        w_eff, c = compose_collapsed_fc(
+            self.fc_kernel, self.fc_bias, self.conv1_kernel, self.conv1_bias,
+            self.conv2_kernel, self.conv2_bias, cfg,
+        )
+        KC, _, _, _ = band_freq_conv_kernel(
+            self.conv2_kernel, self.conv1_kernel, cfg.enc_time, cfg.conv1_freq_stride
+        )
+        k4, b3, kcat = prepare_operands(
+            self.fc_expand_kernel, self.fc_expand_bias, KC, cfg.num_sources,
+            cfg.enc_freq, cfg.enc_time * cfg.conv2_filters,
+        )
+        return {"w_eff": w_eff, "bias_eff": c, "k4": k4, "b3": b3, "kcat": kcat}
+
+    @torch.no_grad()
+    def prepare_inference(self) -> "ConvSep":
+        """Compute the composed encoder weight and the decode operands once
+        (the reference's ``precompose_collapsed`` + ``prepare_inference``)
+        and drop the raw ``fc_expand_kernel``: the padded ``k4`` replaces
+        it, so the 827 MB highres4096 leaf is held once. A prepared model
+        cannot be exported back to the reference tree."""
+        if self.prepared:
+            return self
+        for name, t in self._operands().items():
+            self.register_buffer(name, t.contiguous())
+        del self.fc_expand_kernel
+        self.prepared = True
+        return self
+
+    @torch.no_grad()
+    def sources(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, F, C) → (B, S, T, F)."""
+        cfg = self.config
+        B, T, F, C = x.shape
+        if (T, F, C) != (cfg.time_context, cfg.feat_size, cfg.channels_in):
+            raise ValueError(f"input {tuple(x.shape)} does not match config {cfg}")
+        ops = (
+            {n: getattr(self, n) for n in ("w_eff", "bias_eff", "k4", "b3", "kcat")}
+            if self.prepared else self._operands()
+        )
+        fc = torch.relu(x.reshape(B, -1).float() @ ops["w_eff"] + ops["bias_eff"])
+        md = _DTYPES[cfg.mask_dtype]
+        decode = (
+            band_freq_decode
+            if resolve_decoder_impl(cfg, x.device) == "bandconv_pallas"
+            else band_freq_decode_plain
+        )
+        o4 = decode(fc, ops["k4"], ops["b3"], ops["kcat"], out_dtype=md)
+        S, W_pad = cfg.num_sources, o4.shape[2]
+        M = cfg.conv1_freq_stride * C
+        d1 = _phase_merge_tail(
+            o4.reshape(B * S, W_pad, T, M), cfg.conv1_freq_stride, C,
+            cfg.conv1_freq, cfg.enc_freq, cfg.feat_size,
+        )
+        return self._finish(d1, B, S, C)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sources(x)
+
+    def _finish(self, d1: torch.Tensor, B: int, S: int, C: int) -> torch.Tensor:
+        cfg = self.config
+        md = _DTYPES[cfg.mask_dtype]
+        bias = self.out_bias.to(md)
+        if cfg.decoder_reduce == "all":
+            y = d1.reshape(B, S, cfg.time_context, cfg.feat_size, C)
+            return torch.relu(y.to(md) + bias[:, None, None, None])
+        d = d1[..., 0] if cfg.decoder_reduce == "first" else d1.sum(dim=-1)
+        y = d.reshape(B, S, cfg.time_context, cfg.feat_size)
+        return torch.relu(y.to(md) + bias[:, None, None])
