@@ -10,6 +10,12 @@ takes the RAW tree from ``ConvSep(cfg).init``: a tree that went through
 the reference's ``prepare_inference`` lacks ``fc_expand/kernel`` and is
 refused. The derived ``enc_cache`` / ``dec_cache`` collections are
 recomputed by :meth:`ConvSep.prepare_inference`, never bridged.
+
+Training state crosses too: the parameters as the same flat dict (a
+training step takes them as they are), and the adadelta accumulators, an
+``AdadeltaState`` of two parameter-shaped trees in the reference, as
+:class:`convsep_tpu_torch.train.optim.AdadeltaState` of two flat dicts
+(:func:`opt_state_from_jax` / :func:`opt_state_to_jax`).
 """
 
 from __future__ import annotations
@@ -62,6 +68,24 @@ def to_jax_params(state: dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = t.detach().float().cpu().numpy()
     return {"params": params}
+
+
+def opt_state_from_jax(state, cfg: ConvSepConfig, device=None):
+    """Reference ``AdadeltaState`` (or anything with ``accu`` and
+    ``delta_accu`` parameter trees, leaves numpy-convertible) → the port's
+    ``AdadeltaState`` of flat float32 dicts on ``device``."""
+    from convsep_tpu_torch.train.optim import AdadeltaState
+
+    return AdadeltaState(
+        accu=from_jax_params(state.accu, cfg, device),
+        delta_accu=from_jax_params(state.delta_accu, cfg, device),
+    )
+
+
+def opt_state_to_jax(state) -> dict:
+    """Flat adadelta state → ``{"accu": tree, "delta_accu": tree}`` of
+    numpy (``AdadeltaState(**d)`` in the reference)."""
+    return {"accu": to_jax_params(state.accu), "delta_accu": to_jax_params(state.delta_accu)}
 
 
 def _glorot_uniform(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:

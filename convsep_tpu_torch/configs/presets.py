@@ -7,7 +7,10 @@ field for field). The reference module imports its flax model for
 
 Routing fields and what they mean here:
 
-* ``fft_impl``: only "matmul" is ported (every preset uses it).
+* ``fft_impl``: "matmul" everywhere; "pallas" also in training, where it
+  routes the in-step STFT of the mixture and stems to the hand-written STFT
+  kernel (``dsp/cuda/stft_kernel.py``). Separation refuses "pallas": its
+  masking and iSTFT kernels are not ported yet.
 * ``analysis``: "auto" / "matmul" run the torch DFT chain; "ct_pallas"
   (the fused forward-STFT kernel) is not ported yet.
 * ``masked_synthesis``: "auto" runs the hand-written Wiener+iSTFT kernel
@@ -49,8 +52,9 @@ class TransformConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training loop settings (mirrored for config parity; training is
-    not ported yet)."""
+    """Training loop settings. ``optimizer_impl``: "xla" runs the plain
+    adadelta formula, "fused" the hand-written one-pass kernel
+    (``train/fused_optim.py``); float32 optimizer state only."""
 
     batch_size: int = 32
     num_epochs: int = 50
@@ -67,6 +71,9 @@ class TrainConfig:
     mult_factor_out: float = 0.3
     time_context: int = 30
     overlap: int = 20
+    # the reference scans K steps in one program to save dispatches; eager
+    # PyTorch has no dispatch to save, so the Trainer always runs single
+    # steps and ignores this (the same math)
     steps_per_dispatch: int = 1
     log_every_steps: int = 50
     checkpoint_every_steps: int = 500

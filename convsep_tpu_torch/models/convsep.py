@@ -1,6 +1,7 @@
-"""ConvSep separation network, inference path.
+"""ConvSep separation network: the inference path and the training path.
 
-Mirror of ``convsep_tpu.models.convsep`` for what separation runs:
+Mirror of ``convsep_tpu.models.convsep``. What separation runs
+(``encoder_impl="collapsed"``):
 
 * the collapsed encoder: conv1 → conv2 → flatten → fc has no nonlinearity
   before the post-fc ReLU, so it is ONE (B, T·F·C) @ (T·F·C, J) GEMM whose
@@ -15,12 +16,24 @@ Mirror of ``convsep_tpu.models.convsep`` for what separation runs:
 * the phase merge back to frequency bins, then ``out_bias`` and ReLU in
   ``mask_dtype`` (cast BEFORE the bias add, as the reference does).
 
+What training runs (``encoder_impl="conv"``, the config
+:func:`trainable_config` makes; :func:`train_sources`): conv1 → conv2 →
+flatten in (T', F', C2) order → fc → ReLU → the expansion dense (no W
+padding) → ReLU → the composed decode as a full conv along W', written as
+one GEMM over all taps and shifted adds, with the composed matrix built inside
+every call from the live conv kernels, so gradients reach them through
+both the encoder and the decoder → phase merge → ``out_bias`` and ReLU in
+float32. A model on a trainable config holds parameters that require
+gradients.
+
 Layouts at the public functions are the reference's: NHWC (B, T, F, C)
 input, source-major (B, S, T, F) output, HWIO conv kernels. The reference's
-decision-record decoders and the conv encoder (training's) are not ported.
+decision-record decoders are not ported.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -30,11 +43,14 @@ from convsep_tpu_torch.models.decoder_fused_cuda import (
     band_freq_decode,
     band_freq_decode_plain,
     fused_decode_supported,
+    kcat_of,
     kernel_supported,
     prepare_operands,
+    tap_fold,
 )
 
-__all__ = ["ConvSep", "ConvSepConfig", "resolve_decoder_impl"]
+__all__ = ["ConvSep", "ConvSepConfig", "resolve_decoder_impl", "train_sources",
+           "trainable_config"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,6 +139,51 @@ def compose_collapsed_fc(kernel, bias, k1, b1, k2, b2, cfg: ConvSepConfig):
     return w_eff, bias + h2c @ w4.sum(dim=(0, 1))
 
 
+def train_sources(params: dict[str, torch.Tensor], x: torch.Tensor,
+                  cfg: ConvSepConfig) -> torch.Tensor:
+    """The trainable forward, (B, T, F, C) → (B, S, T, F) in ``mask_dtype``,
+    as a function of the flat parameter dict (:func:`param_shapes` names):
+    the reference's ``ConvSep.sources`` with ``encoder_impl="conv"`` and the
+    "bandconv" decode."""
+    B, T, F, C = x.shape
+    if (T, F, C) != (cfg.time_context, cfg.feat_size, cfg.channels_in):
+        raise ValueError(f"input {tuple(x.shape)} does not match config {cfg}")
+    k1, k2 = params["conv1_kernel"], params["conv2_kernel"]
+    s1 = cfg.conv1_freq_stride
+    # NHWC / HWIO → NCHW / OIHW for torch's conv; the arithmetic is unchanged
+    h1 = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), k1.permute(3, 2, 0, 1),
+                                    stride=(1, s1))
+    h1 = h1 + params["conv1_bias"][:, None, None]
+    h2 = torch.nn.functional.conv2d(h1, k2.permute(3, 2, 0, 1))
+    h2 = h2 + params["conv2_bias"][:, None, None]
+    # flatten in the reference's NHWC (T', F', C2) row-major order: the fc
+    # kernel's rows are laid out that way
+    flat = h2.permute(0, 2, 3, 1).reshape(B, -1)
+    fc = torch.relu(flat @ params["fc_kernel"] + params["fc_bias"])
+    S, W, TpC = cfg.num_sources, cfg.enc_freq, cfg.enc_time * cfg.conv2_filters
+    e = torch.relu(fc @ params["fc_expand_kernel"] + params["fc_expand_bias"])
+    KC, ktaps, Tt, M = band_freq_conv_kernel(k2, k1, cfg.enc_time, s1)
+    # the reference's training "bandconv" (KC as a full conv along W')
+    o = tap_fold(e.reshape(B * S, W, TpC), kcat_of(KC))
+    d1 = _phase_merge_tail(o.reshape(B * S, W + ktaps - 1, Tt, M), s1, C,
+                           cfg.conv1_freq, W, cfg.feat_size)
+    return _finish(d1, params["out_bias"], B, S, C, cfg)
+
+
+def _finish(d1: torch.Tensor, out_bias: torch.Tensor, B: int, S: int, C: int,
+            cfg: ConvSepConfig) -> torch.Tensor:
+    """(B·S, T, F, C) → channels reduced, cast to ``mask_dtype`` BEFORE the
+    ``out_bias`` add, ReLU → (B, S, T, F) (or (B, S, T, F, C) for "all")."""
+    md = _DTYPES[cfg.mask_dtype]
+    bias = out_bias.to(md)
+    if cfg.decoder_reduce == "all":
+        y = d1.reshape(B, S, cfg.time_context, cfg.feat_size, C)
+        return torch.relu(y.to(md) + bias[:, None, None, None])
+    d = d1[..., 0] if cfg.decoder_reduce == "first" else d1.sum(dim=-1)
+    y = d.reshape(B, S, cfg.time_context, cfg.feat_size)
+    return torch.relu(y.to(md) + bias[:, None, None])
+
+
 def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
     """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper)
     or "bandconv" (plain PyTorch). "auto" takes the kernel on CUDA where
@@ -148,13 +209,36 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
     return "bandconv"
 
 
+def trainable_config(cfg: ConvSepConfig) -> ConvSepConfig:
+    """The differentiable config (the reference's rule): the fused decode
+    and "auto" become the plain composed "bandconv" decode, the collapsed
+    encoder reverts to the conv chain, the expansion is not W-padded
+    (``expand_pad="output"``), and the mask tail is float32."""
+    if cfg.decoder_impl == "band_pallas":
+        cfg = dataclasses.replace(cfg, decoder_impl="band")
+    if cfg.decoder_impl in ("bandconv_pallas", "auto"):
+        cfg = dataclasses.replace(cfg, decoder_impl="bandconv")
+    if cfg.encoder_impl == "collapsed":
+        cfg = dataclasses.replace(cfg, encoder_impl="conv")
+    if cfg.expand_pad == "kernel":
+        cfg = dataclasses.replace(cfg, expand_pad="output")
+    if cfg.mask_dtype != "float32":
+        cfg = dataclasses.replace(cfg, mask_dtype="float32")
+    return cfg
+
+
 def _check_config(cfg: ConvSepConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise NotImplementedError("only compute_dtype='float32' is ported")
     if cfg.mask_dtype not in _DTYPES:
         raise ValueError(f"unknown mask_dtype {cfg.mask_dtype!r}")
-    if cfg.encoder_impl != "collapsed":
-        raise NotImplementedError("only the collapsed encoder is ported (inference)")
+    if cfg.encoder_impl not in ("collapsed", "conv"):
+        raise ValueError(f"unknown encoder_impl {cfg.encoder_impl!r}; have conv | collapsed")
+    if cfg.encoder_impl == "conv" and cfg.decoder_impl != "bandconv":
+        raise NotImplementedError(
+            "the conv (training) encoder is ported with decoder_impl='bandconv' "
+            "(trainable_config); have bandconv"
+        )
     if cfg.expand_order != "wmajor":
         raise NotImplementedError("only expand_order='wmajor' is ported")
     if cfg.expand_pad not in ("kernel", "output"):
@@ -181,11 +265,14 @@ def param_shapes(cfg: ConvSepConfig) -> dict[str, tuple[int, ...]]:
 
 
 class ConvSep(nn.Module):
-    """Source-separation CNN, inference only; input (B, T, F, C) scaled
-    magnitude, output (B, S, T, F) nonnegative estimates in ``mask_dtype``.
+    """Source-separation CNN; input (B, T, F, C) scaled magnitude, output
+    (B, S, T, F) nonnegative estimates in ``mask_dtype``.
 
     Parameters are the reference's leaves under flat names
     (:func:`param_shapes`); build them with :mod:`convsep_tpu_torch.ckpt.bridge`.
+    On a collapsed-encoder config the model is for inference (no
+    gradients); on a :func:`trainable_config` its parameters require
+    gradients and :meth:`sources` is :func:`train_sources`.
     """
 
     def __init__(self, cfg: ConvSepConfig, state: dict[str, torch.Tensor] | None = None,
@@ -194,6 +281,7 @@ class ConvSep(nn.Module):
         _check_config(cfg)
         self.config = cfg
         self.prepared = False
+        trainable = cfg.encoder_impl == "conv"
         for name, shape in param_shapes(cfg).items():
             if state is None:
                 t = torch.empty(shape, device=device)
@@ -201,7 +289,7 @@ class ConvSep(nn.Module):
                 t = state[name].to(device=device, dtype=torch.float32)
                 if tuple(t.shape) != shape:
                     raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t, requires_grad=trainable))
 
     def _operands(self) -> dict[str, torch.Tensor]:
         cfg = self.config
@@ -224,7 +312,11 @@ class ConvSep(nn.Module):
         (the reference's ``precompose_collapsed`` + ``prepare_inference``)
         and drop the raw ``fc_expand_kernel``: the padded ``k4`` replaces
         it, so the 827 MB highres4096 leaf is held once. A prepared model
-        cannot be exported back to the reference tree."""
+        cannot be exported back to the reference tree. A trainable model
+        (conv encoder) is never prepared: its training step composes the
+        decode from the live kernels."""
+        if self.config.encoder_impl != "collapsed":
+            raise ValueError("prepare_inference needs the collapsed encoder; this model trains")
         if self.prepared:
             return self
         for name, t in self._operands().items():
@@ -233,9 +325,15 @@ class ConvSep(nn.Module):
         self.prepared = True
         return self
 
-    @torch.no_grad()
     def sources(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, F, C) → (B, S, T, F)."""
+        cfg = self.config
+        if cfg.encoder_impl == "conv":
+            return train_sources({n: getattr(self, n) for n in param_shapes(cfg)}, x, cfg)
+        with torch.no_grad():
+            return self._infer(x)
+
+    def _infer(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         B, T, F, C = x.shape
         if (T, F, C) != (cfg.time_context, cfg.feat_size, cfg.channels_in):
@@ -258,18 +356,7 @@ class ConvSep(nn.Module):
             o4.reshape(B * S, W_pad, T, M), cfg.conv1_freq_stride, C,
             cfg.conv1_freq, cfg.enc_freq, cfg.feat_size,
         )
-        return self._finish(d1, B, S, C)
+        return _finish(d1, self.out_bias, B, S, C, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.sources(x)
-
-    def _finish(self, d1: torch.Tensor, B: int, S: int, C: int) -> torch.Tensor:
-        cfg = self.config
-        md = _DTYPES[cfg.mask_dtype]
-        bias = self.out_bias.to(md)
-        if cfg.decoder_reduce == "all":
-            y = d1.reshape(B, S, cfg.time_context, cfg.feat_size, C)
-            return torch.relu(y.to(md) + bias[:, None, None, None])
-        d = d1[..., 0] if cfg.decoder_reduce == "first" else d1.sum(dim=-1)
-        y = d.reshape(B, S, cfg.time_context, cfg.feat_size)
-        return torch.relu(y.to(md) + bias[:, None, None])

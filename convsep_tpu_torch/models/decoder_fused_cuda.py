@@ -52,6 +52,25 @@ def kernel_supported(J: int, ktaps: int) -> bool:
     return 4 * (8 * J + (16 + ktaps - 1) * 32 * 8 + 32 * 128) <= _SMEM_MAX
 
 
+def kcat_of(KC: torch.Tensor) -> torch.Tensor:
+    """Composed decode KC (ktaps, 1, TpC, TM) → Kcat (TpC, ktaps, TM), column
+    block i holding conv tap ktaps - 1 - i."""
+    return KC[:, 0].flip(0).permute(1, 0, 2)
+
+
+def tap_fold(e: torch.Tensor, kcat: torch.Tensor) -> torch.Tensor:
+    """The composed decode as a full conv along W: e (N, W, TpC) →
+    (N, W + ktaps - 1, TM), ``out[w + i] += e[w] @ kcat[:, i]``, one GEMM
+    for all taps and shifted adds. Differentiable in both operands."""
+    N, W, TpC = e.shape
+    _, ktaps, TM = kcat.shape
+    g = (e.reshape(N * W, TpC) @ kcat.reshape(TpC, ktaps * TM)).reshape(N, W, ktaps, TM)
+    out = e.new_zeros((N, W + ktaps - 1, TM))
+    for i in range(ktaps):
+        out[:, i:i + W] += g[:, :, i]
+    return out
+
+
 def prepare_operands(kernel: torch.Tensor, bias: torch.Tensor, KC: torch.Tensor,
                      S: int, W: int, TpC: int):
     """Raw fc_expand params ((J, S·W·TpC), (S·W·TpC,)) and the composed
@@ -63,22 +82,19 @@ def prepare_operands(kernel: torch.Tensor, bias: torch.Tensor, KC: torch.Tensor,
     W_pad = w_pad_rows(W, ktaps)
     k4 = torch.nn.functional.pad(kernel.float().reshape(J, S, W, TpC), (0, 0, 0, W_pad - W))
     b3 = torch.nn.functional.pad(bias.float().reshape(S, W, TpC), (0, 0, 0, W_pad - W))
-    kcat = KC.float()[:, 0].flip(0).permute(1, 0, 2).contiguous()
-    return k4.contiguous(), b3.contiguous(), kcat
+    return k4.contiguous(), b3.contiguous(), kcat_of(KC.float()).contiguous()
 
 
 def band_freq_decode_plain(fc: torch.Tensor, k4: torch.Tensor, b3: torch.Tensor,
                            kcat: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
-    """fc (B, J) → decode output (B, S, W_pad, TM) in ``out_dtype``."""
+    """fc (B, J) → decode output (B, S, W_pad, TM) in ``out_dtype``: the
+    full conv's rows past W_pad are dropped (the padded rows cover every
+    row the real ones reach)."""
     B, J = fc.shape
     _, S, W_pad, TpC = k4.shape
-    _, ktaps, TM = kcat.shape
     e = torch.relu(fc.float() @ k4.reshape(J, -1) + b3.reshape(-1))
-    g = (e.reshape(-1, TpC) @ kcat.reshape(TpC, ktaps * TM)).reshape(B * S, W_pad, ktaps, TM)
-    out = g[:, :, 0].clone()
-    for i in range(1, ktaps):
-        out[:, i:] += g[:, : W_pad - i, i]
-    return out.reshape(B, S, W_pad, TM).to(out_dtype)
+    out = tap_fold(e.reshape(B * S, W_pad, TpC), kcat)[:, :W_pad]
+    return out.reshape(B, S, W_pad, kcat.shape[2]).to(out_dtype)
 
 
 def band_freq_decode(fc: torch.Tensor, k4: torch.Tensor, b3: torch.Tensor,

@@ -32,3 +32,12 @@ def wiener_mask(
         yp = yp.clone()
         yp.select(axis, -1).add_(eps)
     return yp / denom
+
+
+def wiener_filter(
+    y: torch.Tensor, mix: torch.Tensor, p: float = 1.0, eps: float = 1e-8, axis: int = -1
+) -> torch.Tensor:
+    """Masked mixture estimates ``mask_i * mix``: ``mix`` is y's shape
+    without the sources axis, broadcast over it (the training loss masks
+    the mixture magnitude)."""
+    return wiener_mask(y, p=p, eps=eps, axis=axis) * mix.unsqueeze(axis)

@@ -51,7 +51,10 @@ def check_supported(preset: Preset) -> None:
     """Raise for preset features this package does not run yet."""
     t, m = preset.transform, preset.model
     if t.fft_impl != "matmul":
-        raise NotImplementedError(f"fft_impl={t.fft_impl!r} is not ported; have matmul")
+        raise NotImplementedError(
+            f"fft_impl={t.fft_impl!r} is not ported for separation; have matmul "
+            "(its mask and iSTFT kernels are ROADMAP queue 2)"
+        )
     if t.analysis not in ("auto", "matmul"):
         raise NotImplementedError(f"analysis={t.analysis!r} is not ported; have auto | matmul")
     if t.multires or m.channels_in != 1:
