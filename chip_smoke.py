@@ -34,8 +34,26 @@ result line is printed):
    fitted ones are measured too), zero accumulators and the same batch,
    at the preset's Wiener eps and at 1e-2, beside a witness (the plain
    route on the factored STFT) that shows how far two float32-correct
-   routes part; ms per step and training real-time factor on both routes.
+   routes part; ms per step and training real-time factor on both routes;
+7. the iSTFT kernel vs its plain version at the stereo highres4096 shapes
+   (8 signals, nf 1442, 2049 bins, through ``istft_ct_pallas``, float32
+   and int16) and the dsd100 pallas-route shapes (4 signals, nf 2882, 513
+   bins, through ``istft_pallas``), beside ``torch.istft``;
+8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
+   pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
+9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
+   on a 30 s stereo mixture: the kernel route ("auto": fused decode at TM
+   240, the iSTFT kernel) against the plain route, as phase 4 gates the
+   mono slice, ``complement_last``, ms per track, and the stems' copy to
+   pageable and to pinned host memory;
+10. the ``fft_impl="pallas"`` slice: ``Separator(dsd100, fft_impl="pallas")``
+   at full width through the STFT, Wiener mask and iSTFT kernels, against
+   the plain synthesis of its own y and the matmul route's stems, ms per
+   track against the matmul route.
 
+Every kernel's time comes with its bound (bytes over 3.35 TB/s or float32
+operations over 67 TFLOP/s, whichever is larger, from this run's shapes)
+and, where one PyTorch call computes the same function, that call's time.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device and when run outside the repository checkout. TF32 is off for
@@ -75,9 +93,19 @@ TOL_ROUTE = 1e-5         # relative, loss and grad_norm, kernel route vs plain r
 # tools/torch_route_study.py gives the spread over seeds and batches).
 TOL_ROUTE_GN_EPS = 1e-4   # relative, grad_norm at the preset's wiener_eps; witness 8.15e-5
 TOL_ROUTE_WEIGHTS = 3e-5  # × max|g|, weights after one step, both eps; witness 2.57e-5
+TOL_WIENER_APPLY = 0.0   # the kernel rounds every operation as the plain version, in its order
+MIN_SNR_PALLAS_DB = 70.0  # f32-tail stems, pallas route vs matmul route (their STFTs differ)
 TRAIN_STEPS = 20
 TRAIN_TRACKS = 8
 TRAIN_SECONDS = 20
+# the iSTFT kernel's shapes on the two new paths: (path, nfft, hop, nf,
+# signals, through istft_ct_pallas (else istft_pallas))
+ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True),
+                ("dsd100 pallas route", 1024, 512, 2882, 4, False))
+# the Wiener mask kernel's (path, S, nf, bins)
+WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -92,21 +120,43 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the card (CUDA events)."""
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes (each input read once, each output written once) over the memory
+    rate and the float32 operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fft_flops(frames: int, nfft: int) -> float:
+    """Operations of real FFTs, forward or inverse: 2.5 nfft log2(nfft) per
+    frame (a complex FFT, 5 N log2 N, carries two real frames)."""
+    import math
+
+    return frames * 2.5 * nfft * math.log2(nfft)
+
+
+def cuda_ms(fn, reps: int = 10, rounds: int = 5, warmup: int = 2) -> float:
+    """Milliseconds of ``fn()`` on the card: CUDA events around ``reps``
+    calls back to back, divided by ``reps``; the median of ``rounds``. A
+    call whose host work outlasts its device work still reads its host
+    time."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -137,8 +187,14 @@ def phase_decode(model, B: int, device, gen) -> dict:
         err[dt] = e
     ms = cuda_ms(lambda: band_freq_decode(fc, *ops, out_dtype=torch.bfloat16))
     plain_ms = cuda_ms(lambda: band_freq_decode_plain(fc, *ops, out_dtype=torch.bfloat16))
-    log(f"  decode bf16 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (B={B})")
-    return {"max_abs_err": err[torch.float32], "ms": ms, "plain_ms": plain_ms}
+    _, S, W_pad, TpC = model.k4.shape
+    _, ktaps, TM = model.kcat.shape
+    b = bound(4 * sum(t.numel() for t in (fc, *ops)) + 2 * B * S * W_pad * TM,
+              2 * B * S * W_pad * TpC * (J + ktaps * TM))
+    log(f"  decode bf16 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (B={B}); bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}); no single PyTorch call computes it")
+    return {"max_abs_err": err[torch.float32], "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen):
@@ -180,8 +236,11 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen) -
                 worst = max(worst, e)
     ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
-    log(f"  wiener {name} p=1 f32 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    b = bound(2 * y.numel() + 8 * re.numel() + 4 * S * L,
+              fft_flops(S * nf, nfft) + 4 * y.numel())
+    log(f"  wiener {name} p=1 f32 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 def mixture(seed: int = 0):
@@ -323,7 +382,8 @@ def phase_stft(device, gen) -> dict:
     from convsep_tpu_torch.dsp.windows import sinebell
 
     w, hop, L = sinebell(1024), 512, 14336
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    wt = torch.from_numpy(w.astype("float32")).to(device)
+    worst, ms, plain_ms, lib_ms, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     for B in (32, 128):
         x = 0.3 * torch.randn(B, L, generator=gen, device=device)
         re, im = stft_pallas(x, w, hop)
@@ -338,10 +398,19 @@ def phase_stft(device, gen) -> dict:
         worst = max(worst, e)
         t = cuda_ms(lambda: stft_pallas(x, w, hop))
         tp = cuda_ms(lambda: stft_pallas_plain(x, w, hop))
-        log(f"  stft B {B}: kernel {t:.3f} ms, plain {tp:.3f} ms")
-        ms, plain_ms = ms + t, plain_ms + tp
-    log(f"  stft per training step (B 32 + B 128): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        tl = cuda_ms(lambda: torch.stft(x, 1024, hop, window=wt, center=True,
+                                        return_complex=True))
+        log(f"  stft B {B}: kernel {t:.3f} ms, plain {tp:.3f} ms, torch.stft {tl:.3f} ms")
+        ms, plain_ms, lib_ms = ms + t, plain_ms + tp, lib_ms + tl
+        nf = re.shape[-2]
+        nbytes += 4 * x.numel() + 8 * re.numel()
+        flops += fft_flops(B * nf, 1024)  # what the transform needs, not the kernel's dense DFT
+    b = bound(nbytes, flops)
+    log(f"  stft per training step (B 32 + B 128): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.stft {lib_ms:.3f} ms (cuFFT; its framing differs: reflect padding, "
+        f"1 + L // hop = {1 + L // hop} frames against the port's {nf}); bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
 
 def phase_adadelta(device, gen) -> dict:
@@ -352,7 +421,7 @@ def phase_adadelta(device, gen) -> dict:
     from convsep_tpu_torch.train.fused_optim import fused_adadelta_leaf, fused_adadelta_plain
 
     hyper = (1.0, 0.95, 1e-6)
-    worst, ms, plain_ms, exact = 0.0, 0.0, 0.0, True
+    worst, ms, plain_ms, exact, lib_ms, n = 0.0, 0.0, 0.0, True, 0.0, 0
     for shape in ((128, 518400), (129600, 128)):
         p = 0.01 * torch.randn(shape, generator=gen, device=device)
         g = 1e-3 * torch.randn(shape, generator=gen, device=device)
@@ -380,12 +449,23 @@ def phase_adadelta(device, gen) -> dict:
             raise AssertionError(f"fused adadelta {shape} Σg² disagrees: {rel}")
         t = cuda_ms(lambda: fused_adadelta_leaf(k_t[0], g, k_t[1], k_t[2], *hyper))
         tp = cuda_ms(lambda: fused_adadelta_plain(p_t[0], g, p_t[1], p_t[2], *hyper))
-        log(f"  adadelta {shape}: kernel {t:.3f} ms, plain {tp:.3f} ms")
-        ms, plain_ms = ms + t, plain_ms + tp
-        del p, g, a, d, k_t, p_t
-    log(f"  adadelta, both leaves: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-        f"bit-exact: {exact}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        # the library's Adadelta computes the same (Lasagne) update
+        leaf = p.clone().requires_grad_()
+        leaf.grad = g
+        opt = torch.optim.Adadelta([leaf], lr=hyper[0], rho=hyper[1], eps=hyper[2],
+                                   foreach=True)
+        tl = cuda_ms(opt.step)
+        log(f"  adadelta {shape}: kernel {t:.3f} ms, plain {tp:.3f} ms, "
+            f"torch.optim.Adadelta(foreach=True).step {tl:.3f} ms")
+        ms, plain_ms, lib_ms, n = ms + t, plain_ms + tp, lib_ms + tl, n + p.numel()
+        del p, g, a, d, k_t, p_t, leaf, opt
+    # 16 bytes read (p, g, accu, delta_accu) and 12 written per element;
+    # about 18 operations each (both running sums, two square roots, the
+    # update, Σg²)
+    b = bound(28.0 * n, 18.0 * n)
+    log(f"  adadelta, both leaves: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{lib_ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); bit-exact: {exact}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
 
 def train_preset(kernels_on: bool):
@@ -627,6 +707,309 @@ def phase_train(device) -> dict:
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms}
 
 
+def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
+    """Masked STFT halves (N, nf, nfft/2 + 1) of random signals."""
+    import torch
+    from convsep_tpu_torch.dsp.dft import stft_matmul
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    L = (nf - 2) * hop
+    w = sinebell(nfft)
+    re, im = stft_matmul(0.3 * torch.randn(N, L, generator=gen, device=device), w, hop)
+    assert re.shape[-2] == nf, (re.shape, nf)
+    mask = torch.rand(re.shape, generator=gen, device=device)
+    return w, L, re * mask, im * mask
+
+
+def phase_istft(device, gen) -> dict:
+    """iSTFT kernel vs plain at path A's shapes (``istft_ct_pallas``, f32 and
+    int16) and path B's (``istft_pallas``), beside ``torch.istft``."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas, istft_ct_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain
+
+    res = {}
+    for name, nfft, hop, nf, N, ct in ISTFT_SHAPES:
+        kern, plain = ((istft_ct_pallas, istft_ct_pallas_plain) if ct
+                       else (istft_pallas, istft_pallas_plain))
+        outs = ("float32", "int16") if ct else ("float32",)
+        w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
+        err = {}
+        for out in outs:
+            kw = {"output_dtype": out} if out == "int16" else {}
+            got = kern(re, im, w, hop, L, **kw)
+            want = plain(re, im, w, hop, L, **kw)
+            torch.cuda.synchronize()
+            if got.shape != (N, L) or got.dtype != want.dtype or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"istft {name} {out}: bad output {tuple(got.shape)} {got.dtype}")
+            e = (got.float() - want.float()).abs().max().item()
+            tol = TOL_WIENER_I16 if out == "int16" else TOL_WIENER_F32
+            log(f"  istft {name} {out}: (N {N}, nf {nf}, bins {nfft // 2 + 1}) max_abs_err "
+                f"{e:.3e}{'LSB' if out == 'int16' else ''} (tol {tol})")
+            if not e <= tol:
+                raise AssertionError(f"istft kernel {name} {out} disagrees: {e} > {tol}")
+            err[out] = e
+        want = plain(re, im, w, hop, L)
+        wt = torch.from_numpy(w.astype(np.float32)).to(device)
+        spec = torch.complex(re, im).transpose(-1, -2)  # torch.istft's (..., bins, frames)
+
+        def library():
+            return torch.istft(spec, nfft, hop, window=wt, center=True, length=L)
+
+        e_lib = (library() - want).abs().max().item()
+        ms = cuda_ms(lambda: kern(re, im, w, hop, L))
+        plain_ms = cuda_ms(lambda: plain(re, im, w, hop, L))
+        lib_ms = cuda_ms(library)
+        b = bound(8 * re.numel() + 4 * N * L, fft_flops(N * nf, nfft))
+        log(f"  istft {name} f32 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.istft "
+            f"{lib_ms:.3f} ms (cuFFT; same framing and window-square normalization, its output "
+            f"{e_lib:.3e} from the plain version's); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        res[name] = {"max_abs_err": err["float32"], "ms": ms, "plain_ms": plain_ms, **b,
+                     "library_ms": lib_ms}
+        del re, im, spec, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_wiener_apply(device, gen) -> dict:
+    """Wiener mask kernel vs plain, bf16 y, p = 1 and 2: bit for bit."""
+    import torch
+    from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
+
+    res = {}
+    for name, S, nf, bins in WIENER_APPLY_SHAPES:
+        y = torch.relu(torch.randn(S, nf, bins, generator=gen, device=device))
+        y[:, : nf // 3, :8] = 0.0  # dead bins: the eps paths
+        y = y.to(torch.bfloat16)
+        re = torch.randn(nf, bins, generator=gen, device=device)
+        im = torch.randn(nf, bins, generator=gen, device=device)
+        worst = 0.0
+        for p in (1.0, 2.0):
+            got = wiener_apply_pallas(y, re, im, p=p)
+            want = wiener_apply_plain(y, re, im, p=p)
+            torch.cuda.synchronize()
+            e = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+            same = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+            log(f"  wiener_apply {name} (S {S}, nf {nf}, bins {bins}) p={p:g}: max_abs_err "
+                f"{e:.3e}, bit-exact {same} (tol {TOL_WIENER_APPLY})")
+            if not e <= TOL_WIENER_APPLY:
+                raise AssertionError(f"wiener_apply {name} p={p} disagrees: {e}")
+            worst = max(worst, e)
+        ms = cuda_ms(lambda: wiener_apply_pallas(y, re, im))
+        plain_ms = cuda_ms(lambda: wiener_apply_plain(y, re, im))
+        n = re.numel()
+        b = bound(2 * S * n + 8 * n + 8 * S * n, 5.0 * S * n)
+        log(f"  wiener_apply {name} p=1: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it")
+        res[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+        del y, re, im
+    return res
+
+
+def d2h_ms(t, reps: int = 5) -> tuple[float, float]:
+    """Median host ms of copying ``t`` to pageable memory (``.cpu()``) and
+    to pinned memory (``utils.transfer.fetch``), in turns."""
+    import torch
+    from convsep_tpu_torch.utils.transfer import fetch
+
+    times = {"pageable": [], "pinned": []}
+    for _ in range(reps + 1):
+        for name, fn in (("pageable", lambda: t.cpu().numpy()), ("pinned", lambda: fetch(t))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v[1:])[reps // 2] for k, v in times.items()}
+    return med["pageable"], med["pinned"]
+
+
+def stereo_mixture(seed: int = 0):
+    """The 30 s mixture panned slowly between the two channels."""
+    import numpy as np
+
+    mono = mixture(seed)
+    pan = 0.5 + 0.4 * np.sin(2 * np.pi * 0.1 * np.arange(len(mono)) / FS)
+    return np.stack([pan * mono, (1.0 - pan) * mono]).astype(np.float32)
+
+
+def on_factored_istft(sep):
+    """``sep`` (a StereoSeparator) with its iSTFT forced onto the plain
+    factored chain: the stereo entry reads no preset field for it and runs
+    ``istft_matmul``'s "auto", as the reference does."""
+    import functools
+    from unittest import mock
+
+    from convsep_tpu_torch.separate import stereo
+
+    factored = functools.partial(stereo.istft_matmul, algorithm="factored")
+
+    def call(audio):
+        with mock.patch.object(stereo, "istft_matmul", factored):
+            return sep(audio)
+
+    return call
+
+
+def phase_stereo(state, preset, device, audio) -> dict:
+    """StereoSeparator at full width: counters, finiteness, kernel vs plain
+    route (as phase 4), complement_last, ms per track, the D2H copy."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.dft import istft_matmul
+    from convsep_tpu_torch.models.masks import wiener_mask
+    from convsep_tpu_torch.separate import StereoSeparator, bucket_length, stereo_source_magnitudes
+    from convsep_tpu_torch.separate.pipeline import window_of
+
+    name = preset.name
+    L = audio.shape[1]
+    sep = StereoSeparator(preset, state, device=device)
+    sep(audio[:, :FS])  # first call: cuBLAS warm-up
+    kernels.reset_launches()
+    stems = sep(audio)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  {name}: stems {stems.shape} {stems.dtype}, launches {launches}")
+    S = preset.model.num_sources
+    if stems.shape != (S, L, 2) or not np.isfinite(stems).all():
+        raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
+    if not (launches["istft"] > 0 and launches["fused_decode"] > 0):
+        raise AssertionError(f"{name}: the stereo path missed a kernel: {launches}")
+    ms = time_track(sep, audio)
+    p_sep = StereoSeparator(plain_route(preset), state, device=device)
+    plain_ms = time_track(on_factored_istft(p_sep), audio)
+    del p_sep
+    log(f"  {name}: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time); plain route "
+        f"{plain_ms:.2f} ms/track ({SECONDS * 1e3 / plain_ms:.1f}x)")
+    # the f32 tail, as phase 4: y elementwise, the kernel route's stems
+    # against the plain synthesis of its own y, the two routes' stems by SNR
+    f32 = dataclasses.replace(preset, model=dataclasses.replace(preset.model, mask_dtype="float32"))
+    k32 = StereoSeparator(f32, state, device=device)
+    p32 = StereoSeparator(plain_route(f32), state, device=device)
+    Lb = bucket_length(L, preset)
+    x = torch.from_numpy(np.pad(audio, ((0, 0), (0, Lb - L)))).to(device)
+    y_k, re, im = stereo_source_magnitudes(k32.model, x, f32)
+    y_p = stereo_source_magnitudes(p32.model, x, plain_route(f32))[0]
+    scale = y_p.abs().max().item()
+    ey = (y_k - y_p).abs().max().item()
+    log(f"  {name} f32 tail: model y kernel route vs plain route max_abs_err {ey:.3e} "
+        f"(tol {TOL_SLICE_Y * scale:.3e}, max|y| {scale:.3e})")
+    if not ey <= TOL_SLICE_Y * scale:
+        raise AssertionError(f"{name}: model output of the kernel route disagrees: {ey}")
+    w, hop = window_of(preset), preset.transform.hop_size
+    stems32, plain32 = k32(audio), on_factored_istft(p32)(audio)
+    del k32, p32
+    mask = wiener_mask(y_k, p=preset.sep.wiener_p, eps=preset.sep.wiener_eps, axis=0)
+    synth = istft_matmul(mask * re, mask * im, w, hop, Lb, algorithm="factored")
+    synth = synth[:, :, :L].transpose(1, 2).cpu().numpy()
+    del mask
+    es = float(np.abs(stems32 - synth).max())
+    log(f"  {name} f32 tail: stems vs plain synthesis of the same y max_abs_err {es:.3e} "
+        f"(tol {TOL_WIENER_F32})")
+    if not es <= TOL_WIENER_F32:
+        raise AssertionError(f"{name}: kernel route synthesis disagrees: {es}")
+    snr32 = snr_db(plain32, stems32)
+    log(f"  {name} f32 tail: stems kernel route vs plain route SNR {snr32:.1f} dB "
+        f"(min {MIN_SNR_SLICE_DB}), max_abs_err {np.abs(stems32 - plain32).max():.3e}")
+    if not snr32 >= MIN_SNR_SLICE_DB:
+        raise AssertionError(f"{name}: kernel route stems disagree with plain route: {snr32} dB")
+    snr = snr_db(stems32, stems)
+    log(f"  {name} bf16 tail vs f32 tail: SNR {snr:.1f} dB (min {MIN_SNR_BF16_DB})")
+    if not snr >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: bf16 tail SNR {snr} dB")
+    # complement_last: conservative masks, the last stem derived on the host
+    comp = StereoSeparator(preset, state, device=device, complement_last=True)(audio)
+    rt = istft_matmul(re, im, w, hop, Lb, algorithm="factored")[:, :L].T.cpu().numpy()
+    ce = float(np.abs(comp.sum(0) - rt).max())
+    log(f"  {name} complement_last: |Σ stems − round-tripped mixture| max {ce:.3e} "
+        f"(tol {TOL_CONSERVE})")
+    if not ce <= TOL_CONSERVE:
+        raise AssertionError(f"{name}: complement_last stems do not add up: {ce}")
+    out = torch.empty((S, 2, Lb), device=device)
+    pageable, pinned = d2h_ms(out)
+    log(f"  {name} stems D2H ({out.numel() * 4 / 1e6:.1f} MB f32): pageable {pageable:.3f} ms, "
+        f"pinned {pinned:.3f} ms")
+    del sep, re, im, y_k, y_p, x, out
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "launches": launches,
+            "d2h_pageable_ms": pageable, "d2h_pinned_ms": pinned}
+
+
+def phase_pallas_route(state, preset, device, audio) -> dict:
+    """Separator(fft_impl="pallas") at full width: counters, finiteness, the
+    stems against the plain synthesis of the route's own y, against the
+    matmul route's stems by SNR, the bf16 tail, ms per track."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_plain
+    from convsep_tpu_torch.separate import Separator, bucket_length, source_magnitudes
+    from convsep_tpu_torch.separate.pipeline import window_of
+
+    def pallas(p):
+        return dataclasses.replace(p, transform=dataclasses.replace(p.transform, fft_impl="pallas"))
+
+    name = f"{preset.name} fft_impl=pallas"
+    sep = Separator(pallas(preset), state, device=device)
+    sep(audio[:FS])
+    kernels.reset_launches()
+    stems = sep(audio)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  {name}: stems {stems.shape} {stems.dtype}, launches {launches}")
+    S = preset.model.num_sources
+    if stems.shape != (S, len(audio)) or not np.isfinite(stems).all():
+        raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
+    if not all(launches[k] > 0 for k in ("stft", "wiener_apply", "istft")):
+        raise AssertionError(f"{name}: the pallas route missed a kernel: {launches}")
+    ms = time_track(sep, audio)
+    mm = Separator(preset, state, device=device)
+    mm_ms = time_track(mm, audio)
+    del mm
+    log(f"  {name}: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time); matmul route "
+        f"(Wiener+iSTFT kernel) {mm_ms:.2f} ms/track ({SECONDS * 1e3 / mm_ms:.1f}x)")
+    f32 = dataclasses.replace(preset, model=dataclasses.replace(preset.model, mask_dtype="float32"))
+    k32 = Separator(pallas(f32), state, device=device)
+    m32 = Separator(f32, state, device=device)
+    Lb = bucket_length(len(audio), preset)
+    x = torch.from_numpy(np.pad(audio, (0, Lb - len(audio))))[None].to(device)
+    y_k, re, im = source_magnitudes(k32.model, x, pallas(f32))
+    y_m = source_magnitudes(m32.model, x, f32)[0]
+    ey = (y_k - y_m).abs().max().item()
+    log(f"  {name} f32 tail: model y vs the matmul route's max_abs_err {ey:.3e} "
+        f"(max|y| {y_m.abs().max().item():.3e}; the STFT kernel sums in another order)")
+    stems32, mm32 = k32(audio), m32(audio)
+    del k32, m32
+    er, ei = wiener_apply_plain(y_k[0], re[0], im[0], p=preset.sep.wiener_p,
+                                eps=preset.sep.wiener_eps)
+    synth = istft_pallas_plain(er, ei, window_of(preset), preset.transform.hop_size, Lb)
+    synth = synth[:, : len(audio)].cpu().numpy()
+    es = float(np.abs(stems32 - synth).max())
+    log(f"  {name} f32 tail: stems vs plain mask + synthesis of the same y max_abs_err {es:.3e} "
+        f"(tol {TOL_WIENER_F32})")
+    if not es <= TOL_WIENER_F32:
+        raise AssertionError(f"{name}: the mask and iSTFT kernels disagree in the slice: {es}")
+    snr32 = snr_db(mm32, stems32)
+    log(f"  {name} f32 tail: stems vs the matmul route SNR {snr32:.1f} dB "
+        f"(min {MIN_SNR_PALLAS_DB}), max_abs_err {np.abs(stems32 - mm32).max():.3e}")
+    if not snr32 >= MIN_SNR_PALLAS_DB:
+        raise AssertionError(f"{name}: stems disagree with the matmul route: {snr32} dB")
+    snr = snr_db(stems32, stems)
+    log(f"  {name} bf16 tail vs f32 tail: SNR {snr:.1f} dB (min {MIN_SNR_BF16_DB})")
+    if not snr >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: bf16 tail SNR {snr} dB")
+    out = torch.empty((S, Lb), device=device)
+    pageable, pinned = d2h_ms(out)
+    log(f"  {name} stems D2H ({out.numel() * 4 / 1e6:.1f} MB f32): pageable {pageable:.3f} ms, "
+        f"pinned {pinned:.3f} ms")
+    del sep, re, im, y_k, y_m, x, er, ei, out
+    torch.cuda.empty_cache()
+    return {"ms": ms, "matmul_ms": mm_ms, "launches": launches,
+            "d2h_pageable_ms": pageable, "d2h_pinned_ms": pinned}
+
+
 def main() -> int:
     try:
         import torch
@@ -683,9 +1066,8 @@ def main() -> int:
     del hi_state
     torch.cuda.empty_cache()
     dsd_state = init_params(dsd.model, torch.Generator(device=device).manual_seed(1), device)
-    phase_slice("dsd100", dsd_state, dsd, device, audio,
-                {"fused_decode": False, "wiener_istft": True})
-    del dsd_state
+    dsd_run = phase_slice("dsd100", dsd_state, dsd, device, audio,
+                          {"fused_decode": False, "wiener_istft": True})
     torch.cuda.empty_cache()
 
     log("phase 5: training kernels vs plain (dsd100 training-step shapes)")
@@ -694,25 +1076,69 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 6: training slice, dsd100 full width, B 32, synthetic stems, seeded weights")
     train = phase_train(device)
+    torch.cuda.empty_cache()
+
+    log("phase 7: iSTFT kernel vs plain (stereo highres4096 and dsd100 pallas-route shapes)")
+    ist = phase_istft(device, gen)
+    log("phase 8: Wiener mask kernel vs plain (dsd100 pallas-route and highres4096 shapes)")
+    wap = phase_wiener_apply(device, gen)
+    torch.cuda.empty_cache()
+    log("phase 9: stereo slice, highres4096-stereo full width, 30 s stereo mixture, "
+        "seeded random weights")
+    st = get_preset("highres4096-stereo")
+    st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
+    st_run = phase_stereo(st_state, st, device, stereo_mixture(0))
+    del st_state
+    torch.cuda.empty_cache()
+    log("phase 10: fft_impl=\"pallas\" slice, dsd100 full width, the phase 4 mixture and weights")
+    pl_run = phase_pallas_route(dsd_state, dsd, device, audio)
+    del dsd_state
+    torch.cuda.empty_cache()
+
+    # each main path's counts, taken from zero just before it ran
+    paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
+             "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run}
+
+    def launched(kernel: str) -> dict:
+        by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     result = {"kernels": [
         {"name": "fused_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
-         "launches": hi_run["launches"]["fused_decode"], **dec},
+         **launched("fused_decode"), **dec},
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "launches": hi_run["launches"]["wiener_istft"], **wie},
+         **launched("wiener_istft"), **wie},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "launches": train["launches"]["stft"], **stft},
+         **launched("stft"), **stft},
         {"name": "fused_adadelta", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/fused_adadelta.cu",
          "replaces": "convsep_tpu/train/fused_optim.py:88",
-         "launches": train["launches"]["fused_adadelta"], **ada},
-    ]}
+         **launched("fused_adadelta"), **ada},
+        {"name": "istft", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         **launched("istft"), **ist["highres4096-stereo"],
+         "dsd100_pallas_route": ist["dsd100 pallas route"]},
+        {"name": "wiener_apply", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_apply.cu",
+         "replaces": "convsep_tpu/dsp/pallas/wiener_kernel.py:77",
+         **launched("wiener_apply"), **wap["dsd100 pallas route"],
+         "highres4096": wap["highres4096"]},
+    ], "slices_ms_per_track": {
+        "highres4096-stereo": {"kernel": st_run["ms"], "plain": st_run["plain_ms"]},
+        "dsd100 fft_impl=pallas": {"pallas": pl_run["ms"], "matmul": pl_run["matmul_ms"]},
+    }, "stems_d2h_ms": {
+        "highres4096-stereo": {"pageable": st_run["d2h_pageable_ms"],
+                               "pinned": st_run["d2h_pinned_ms"]},
+        "dsd100": {"pageable": pl_run["d2h_pageable_ms"], "pinned": pl_run["d2h_pinned_ms"]},
+    }}
     print(json.dumps(result), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,20 @@ field for field). The reference module imports its flax model for
 
 Routing fields and what they mean here:
 
-* ``fft_impl``: "matmul" everywhere; "pallas" also in training, where it
-  routes the in-step STFT of the mixture and stems to the hand-written STFT
-  kernel (``dsp/cuda/stft_kernel.py``). Separation refuses "pallas": its
-  masking and iSTFT kernels are not ported yet.
+* ``fft_impl``: "matmul" everywhere; "pallas" routes the in-step STFT of
+  training and mono separation's STFT, Wiener mask and iSTFT to the
+  hand-written kernels (``dsp/cuda/``); stereo separation takes the matmul
+  chain for either, as the reference does. "fft" is not ported.
 * ``analysis``: "auto" / "matmul" run the torch DFT chain; "ct_pallas"
   (the fused forward-STFT kernel) is not ported yet.
 * ``masked_synthesis``: "auto" runs the hand-written Wiener+iSTFT kernel
-  on CUDA tensors inside its envelope and the plain chain elsewhere;
-  "ct_pallas_wiener" asks for the kernel wrapper (plain on CPU tensors);
-  "direct" / "factored" force the plain chain with that iDFT algorithm.
+  on CUDA tensors inside its envelope and the mask + iSTFT chain
+  elsewhere, whose iSTFT is the hand-written iSTFT kernel where the
+  reference's rule routes it (factored, ``ct_pallas_supported``);
+  "ct_pallas_wiener" / "ct_pallas" ask for those kernels' wrappers (plain
+  on CPU tensors); "direct" / "factored" force the plain chain with that
+  iDFT algorithm. Stereo separation masks before its iSTFT and takes the
+  named iSTFT algorithm ("ct_pallas_wiener" reads as "auto" there).
 * ``dft_precision``: "highest" and "high" are both exact float32 here
   (TF32 stays off); "default", the reference's bf16x1 ablation, is not
   ported.

@@ -35,13 +35,18 @@
 // Shared memory: twiddles (N/2 float2; N for the direct sum) + the
 // spectrum buffer (N float2) + the
 // per-bin denominator (N/2+1 floats) + the accumulator (S * R * hop floats);
-// the wrapper picks R to fit.
+// the wrapper picks R to fit. The FFT, the pair packing and the PCM16 store
+// are shared with istft.cu (istft_common.cuh).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "istft_common.cuh"
+
 namespace {
+
+using namespace istft_common;
 
 constexpr int kThreads = 512;
 
@@ -81,12 +86,7 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
   const long long y_track = (long long)n * S * nf * bins;
   const long long y_src = (long long)nf * bins;
 
-  // inverse twiddles e^{+2 pi i j / N}, from double precision
-  for (int j = tid; j < tw_len; j += kThreads) {
-    double s, c;
-    sincospi(2.0 * (double)j / (double)nfft, &s, &c);
-    tw[j] = make_float2((float)c, (float)s);
-  }
+  init_twiddles(tw, tw_len, nfft, tid, kThreads);
   for (int i = tid; i < S * rows_per_block * hop; i += kThreads) acc[i] = 0.f;
 
   const int f_lo = max(0, j0 - k_ratio + 1);
@@ -121,58 +121,17 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
           br = mb * mr;
           bi = mb * mi;
         }
-        if (k == 0 || k == half) {  // irfft ignores DC / Nyquist imaginary parts
-          ai = 0.f;
-          bi = 0.f;
-        }
-        const int k0 = kPow2 ? __brev(k) >> (32 - log2n) : k;
-        buf[k0] = make_float2(ar - bi, ai + br);
-        if (k != 0 && k != half) {
-          const int k1 = kPow2 ? __brev(nfft - k) >> (32 - log2n) : nfft - k;
-          buf[k1] = make_float2(ar + bi, br - ai);
-        }
+        pack_pair<kPow2>(buf, k, nfft, log2n, ar, ai, br, bi);
       }
       __syncthreads();
-      // iterative radix-2 decimation-in-time, +i sign, natural-order output
-      // (no stages when log2n is 0: the direct sum reads buf as it is)
-      for (int lg = 1; lg <= log2n; ++lg) {
-        const int hl = 1 << (lg - 1);
-        const int tw_stride = nfft >> lg;
-        for (int b = tid; b < half; b += kThreads) {
-          const int j = b & (hl - 1);
-          const int i0 = ((b >> (lg - 1)) << lg) + j;
-          const int i1 = i0 + hl;
-          const float2 w = tw[j * tw_stride];
-          const float2 u = buf[i0];
-          const float2 v = buf[i1];
-          const float tr = v.x * w.x - v.y * w.y;
-          const float ti = v.x * w.y + v.y * w.x;
-          buf[i0] = make_float2(u.x + tr, u.y + ti);
-          buf[i1] = make_float2(u.x - tr, u.y - ti);
-        }
-        __syncthreads();
-      }
+      fft_stages(buf, tw, nfft, log2n, tid, kThreads);
       // windowed overlap-add into the owned hop rows: sample t of frame f
       // lands on hop row f + t / hop
       for (int t = tid; t < nfft; t += kThreads) {
         const int row = f + t / hop - j0;
         if (row >= 0 && row < rows) {
           const float wv = win_over_n[t];
-          float2 z;
-          if (kPow2) {
-            z = buf[t];
-          } else {  // z = sum_k buf[k] e^{+2 pi i k t / N}
-            z = make_float2(0.f, 0.f);
-            int idx = 0;
-            for (int k = 0; k < nfft; ++k) {
-              const float2 w = tw[idx];
-              const float2 u = buf[k];
-              z.x += u.x * w.x - u.y * w.y;
-              z.y += u.x * w.y + u.y * w.x;
-              idx += t;
-              if (idx >= nfft) idx -= nfft;
-            }
-          }
+          const float2 z = inverse_sample<kPow2>(buf, tw, nfft, t);
           const int off = row * hop + t % hop;
           acc[s0 * rows_per_block * hop + off] += z.x * wv;
           if (has1) acc[s1 * rows_per_block * hop + off] += z.y * wv;
@@ -193,13 +152,7 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
     const long long tpos = nabs - front;
     if (tpos < 0 || tpos >= length) continue;
     const float v = acc[(s * rows_per_block + r) * hop + q] * inv_norm[nabs];
-    const long long o = ((long long)n * S + s) * length + tpos;
-    if (out_int16) {
-      const float qv = fminf(fmaxf(rintf(v * 32768.f), -32768.f), 32767.f);
-      static_cast<int16_t*>(out)[o] = (int16_t)qv;
-    } else {
-      static_cast<float*>(out)[o] = v;
-    }
+    store_sample(out, out_int16, ((long long)n * S + s) * length + tpos, v);
   }
 }
 
@@ -212,10 +165,8 @@ extern "C" int wiener_istft_launch(
     int p2, float eps, int conserve_last, void* stream) {
   if (nfft < 2 || nfft % 2 != 0 || hop < 1 || nfft % hop != 0)
     return (int)cudaErrorInvalidValue;
-  int log2n = 0;
-  while ((1 << log2n) < nfft) ++log2n;
+  const int log2n = pow2_log(nfft);  // 0: not a power of two, the direct sum
   const int half = nfft / 2;
-  if ((1 << log2n) != nfft) log2n = 0;  // not a power of two: direct sum
   const int tw_len = log2n ? half : nfft;
   const int bins = half + 1;
   const int total_rows = nf + nfft / hop - 1;

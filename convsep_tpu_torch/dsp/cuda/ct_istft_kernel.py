@@ -1,38 +1,104 @@
-"""Fused Wiener mask + iSTFT: the CUDA kernel's wrapper and plain version.
+"""The two iSTFT kernels of ``convsep_tpu/dsp/pallas/ct_istft_kernel.py``:
+wrappers and plain versions.
 
-Replaces ``convsep_tpu/dsp/pallas/ct_istft_kernel.py::istft_ct_pallas_wiener``.
-The kernel (``csrc/wiener_istft.cu``) masks the mixture spectrum with the
-per-source magnitudes, inverse-FFTs each frame and overlap-adds it, so the
-masked spectra never reach device memory; its header says what bounds it
-on the H100 and how the design follows.
+* :func:`wiener_istft` replaces ``istft_ct_pallas_wiener``. Its kernel
+  (``csrc/wiener_istft.cu``) masks the mixture spectrum with the per-source
+  magnitudes, inverse-FFTs each frame and overlap-adds it, so the masked
+  spectra never reach device memory; its header says what bounds it on the
+  H100 and how the design follows.
+* :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
+  without the mask, through the kernel of ``csrc/istft.cu``
+  (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
+  also serves ``istft_pallas``.
 
-:func:`wiener_istft` takes the plain version only for CPU tensors. For CUDA
-tensors it launches the kernel or raises: there is no fallback.
+Each wrapper takes its plain version only for CPU tensors. For CUDA tensors
+it launches its kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.dft import _key, inverse_norm, istft_matmul
+from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+    _MAX_ROWS,
+    _max_rows,
+    check_frames,
+    istft_supported,
+    launch_istft,
+    win_over_n,
+)
+from convsep_tpu_torch.dsp.dft import _key, _use_factored, inverse_norm, istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
-_SMEM_BUDGET = 200 * 1024  # bytes of the 227 KB a block may use
-_MAX_ROWS = 16
+_LANES = 128  # the reference kernel's lane-width factor of nfft
 
 
-def _max_rows(nfft: int, hop: int, S: int) -> int:
-    """Hop rows that fit the shared-memory budget beside the twiddles, the
-    spectrum buffer and the denominator row (the launcher sizes shared
-    memory the same way)."""
-    tw_len = nfft // 2 if nfft & (nfft - 1) == 0 else nfft
-    fixed = tw_len * 8 + nfft * 8 + (nfft // 2 + 1) * 4
-    return (_SMEM_BUDGET - fixed) // (S * hop * 4)
+def _wiener_rows(nfft: int, hop: int, S: int) -> int:
+    """Hop rows of S sources that fit beside the mask's denominator row."""
+    return _max_rows(nfft, hop, S, extra=(nfft // 2 + 1) * 4)
+
+
+def ct_pallas_supported(nfft: int, win_len: int, hop: int) -> bool:
+    """The reference kernel's shapes (``ct_istft_kernel.ct_pallas_supported``):
+    nfft == win, a 128-lane factorization nfft = 128·B with B >= 2 and
+    (nfft/2)/128 dividing 128, ``win % hop == 0``, ``hop % B == 0`` and
+    ``win / hop <= 9``. Kept so "auto" routes the shapes the TPU routed."""
+    if nfft != win_len or nfft % _LANES:
+        return False
+    half, B = nfft // 2, nfft // _LANES
+    if half % _LANES or _LANES % (half // _LANES) or B < 2:
+        return False
+    return win_len % hop == 0 and hop % B == 0 and win_len // hop <= 9
+
+
+def istft_ct_supported(nfft: int, win_len: int, hop: int) -> bool:
+    """Where :func:`istft_ct_pallas` launches on CUDA: the reference's
+    shapes inside the kernel's own envelope."""
+    return ct_pallas_supported(nfft, win_len, hop) and istft_supported(nfft, win_len, hop)
+
+
+def istft_ct_pallas_plain(
+    re: torch.Tensor, im: torch.Tensor, window: np.ndarray, hop: int, length: int,
+    nfft: int | None = None, output_dtype: str = "float32",
+) -> torch.Tensor:
+    """The same function in plain PyTorch: :func:`istft_matmul`'s factored
+    route (PCM16 quantized after the synthesis)."""
+    return istft_matmul(re, im, window, hop, length, nfft=nfft, algorithm="factored",
+                        output_dtype=output_dtype)
+
+
+def istft_ct_pallas(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int | None = None,
+    output_dtype: str = "float32",
+) -> torch.Tensor:
+    """(..., nf, bins) ×2 → (..., length): :func:`istft_matmul`'s factored
+    algorithm as one kernel; leading axes flatten onto the kernel's grid.
+    ``output_dtype="int16"`` quantizes to PCM16 in the kernel's epilogue.
+
+    CPU tensors: :func:`istft_ct_pallas_plain`. CUDA tensors: the kernel."""
+    window = np.asarray(window, np.float64)
+    win_len = len(window)
+    nfft = int(nfft or 2 * (int(re.shape[-1]) - 1))
+    if not ct_pallas_supported(nfft, win_len, int(hop)):
+        raise ValueError(
+            f"istft_ct_pallas unsupported for nfft={nfft} win={win_len} hop={hop}; "
+            "use dft.istft_matmul"
+        )
+    check_frames(re, length, int(hop))
+    if output_dtype not in ("float32", "int16"):
+        raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
+    if {re.device.type, im.device.type} == {"cpu"}:
+        return istft_ct_pallas_plain(re, im, window, int(hop), int(length), nfft, output_dtype)
+    return launch_istft(re, im, window, int(hop), int(length), nfft, output_dtype)
 
 
 def wiener_istft_supported(nfft: int, win_len: int, hop: int, S: int = 1) -> bool:
@@ -46,13 +112,13 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int, S: int = 1) -> boo
         and nfft % 2 == 0
         and hop > 0
         and nfft % hop == 0
-        and _max_rows(nfft, hop, S) >= 1
+        and _wiener_rows(nfft, hop, S) >= 1
     )
 
 
 def rows_per_block(nfft: int, hop: int, S: int) -> int:
     """Hop rows a block owns: as many as fit in shared memory, up to 16."""
-    rows = min(_MAX_ROWS, _max_rows(nfft, hop, S))
+    rows = min(_MAX_ROWS, _wiener_rows(nfft, hop, S))
     if rows < 1:
         raise ValueError(f"wiener_istft: S={S} hop={hop} nfft={nfft} exceeds shared memory")
     return rows
@@ -72,21 +138,20 @@ def wiener_istft_plain(
     algorithm: str = "auto",
 ) -> torch.Tensor:
     """The same function in plain PyTorch: f32 Wiener mask × mixture (the
-    masked spectra are materialized), then :func:`istft_matmul`."""
+    masked spectra are materialized), then :func:`istft_matmul`. "auto"
+    names the plain chain's own choice (factored at nfft >= 2048, else
+    direct); "ct_pallas" sends the masked spectra through
+    :func:`istft_ct_pallas`."""
     from convsep_tpu_torch.models.masks import wiener_mask
 
+    nfft = 2 * (int(re.shape[-1]) - 1)
+    if algorithm == "auto":
+        algorithm = "factored" if _use_factored("auto", nfft) else "direct"
     mask = wiener_mask(y, p=p, eps=eps, axis=-3, conserve_last=conserve_last)
     return istft_matmul(
         mask * re.unsqueeze(-3), mask * im.unsqueeze(-3), window, hop, length,
-        nfft=2 * (int(re.shape[-1]) - 1), algorithm=algorithm,
-        output_dtype=output_dtype,
+        nfft=nfft, algorithm=algorithm, output_dtype=output_dtype,
     )
-
-
-@lru_cache(maxsize=8)
-def _win_over_n(window_key: tuple, device: str) -> torch.Tensor:
-    w = np.asarray(window_key, np.float64)
-    return torch.from_numpy((w / float(len(w))).astype(np.float32)).to(device)
 
 
 def wiener_istft(
@@ -149,7 +214,7 @@ def wiener_istft(
     y4 = y.reshape(nt, S, nf, bins).contiguous()
     re3 = re.reshape(nt, nf, bins).contiguous()
     im3 = im.reshape(nt, nf, bins).contiguous()
-    win_n = _win_over_n(_key(window), str(dev))
+    win_n = win_over_n(_key(window), nfft, str(dev))
     inv_norm = inverse_norm(_key(window.astype(np.float32)), int(hop), nf, str(dev))
     out_dt = torch.int16 if output_dtype == "int16" else torch.float32
     out = torch.empty((nt, S, length), dtype=out_dt, device=dev)

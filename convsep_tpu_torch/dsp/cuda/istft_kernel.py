@@ -1,0 +1,153 @@
+"""Windowed inverse STFT + overlap-add: the CUDA kernel's launcher, the
+``istft_pallas`` wrapper and its plain version.
+
+One kernel (``csrc/istft.cu``) replaces two TPU kernels that compute the
+same window-power-normalized iSTFT:
+``convsep_tpu/dsp/pallas/istft_kernel.py::istft_pallas`` (this module) and
+``convsep_tpu/dsp/pallas/ct_istft_kernel.py::istft_ct_pallas``
+(:mod:`convsep_tpu_torch.dsp.cuda.ct_istft_kernel`). Each wrapper keeps its
+reference's contract and calls :func:`launch_istft`; the kernel's header
+says what bounds it on the H100.
+
+The wrappers take their plain version only for CPU tensors. For CUDA
+tensors they launch the kernel or raise: there is no fallback.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from convsep_tpu_torch import kernels
+from convsep_tpu_torch.dsp.dft import _key, _window, inverse_norm, istft_matmul
+from convsep_tpu_torch.dsp.stft import num_frames
+
+_SMEM_BUDGET = 200 * 1024  # bytes of the 227 KB a block may use
+_MAX_ROWS = 16
+
+
+def _max_rows(nfft: int, hop: int, S: int = 1, extra: int = 0) -> int:
+    """Hop rows of S accumulators that fit the shared-memory budget beside
+    the twiddles, the spectrum buffer and ``extra`` bytes. The layout of
+    ``csrc/istft_common.cuh``; both launchers (``istft.cu``,
+    ``wiener_istft.cu``) size shared memory the same way."""
+    tw_len = nfft // 2 if nfft & (nfft - 1) == 0 else nfft
+    return (_SMEM_BUDGET - tw_len * 8 - nfft * 8 - extra) // (S * hop * 4)
+
+
+def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
+    """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and one
+    hop row beside the spectrum in shared memory. Powers of two take a
+    radix-2 FFT; other even sizes a direct sum per sample."""
+    return (
+        nfft % 2 == 0
+        and 2 <= win_len <= nfft
+        and hop > 0
+        and win_len % hop == 0
+        and _max_rows(nfft, hop) >= 1
+    )
+
+
+@lru_cache(maxsize=8)
+def win_over_n(window_key: bytes, nfft: int, device: str) -> torch.Tensor:
+    """window / nfft as a float32 tensor on ``device`` (the synthesis
+    window with the inverse DFT's 1/N folded in)."""
+    w = _window(window_key)
+    return torch.from_numpy((w / float(nfft)).astype(np.float32)).to(device)
+
+
+def launch_istft(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int,
+    output_dtype: str = "float32",
+) -> torch.Tensor:
+    """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
+    (..., length) float32 or int16. Raises outside the envelope."""
+    window = np.asarray(window, np.float64)
+    win_len = len(window)
+    if re.device.type != "cuda" or im.device != re.device:
+        raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32 or im.shape != re.shape:
+        raise ValueError("istft kernel: re/im must be float32 tensors of one shape")
+    if int(re.shape[-1]) != nfft // 2 + 1:
+        raise ValueError(f"istft kernel: {re.shape[-1]} bins do not match nfft={nfft}")
+    if not istft_supported(nfft, win_len, hop):
+        raise ValueError(f"istft kernel unsupported for nfft={nfft} win={win_len} hop={hop}")
+    if output_dtype not in ("float32", "int16"):
+        raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
+    lead = tuple(re.shape[:-2])
+    nf, bins = int(re.shape[-2]), int(re.shape[-1])
+    nt = int(np.prod(lead)) if lead else 1
+    dev = re.device
+    re3 = re.reshape(nt, nf, bins).contiguous()
+    im3 = im.reshape(nt, nf, bins).contiguous()
+    win_n = win_over_n(_key(window), int(nfft), str(dev))
+    inv_norm = inverse_norm(_key(window.astype(np.float32)), int(hop), nf, str(dev))
+    out_dt = torch.int16 if output_dtype == "int16" else torch.float32
+    out = torch.empty((nt, length), dtype=out_dt, device=dev)
+    rows = min(_MAX_ROWS, _max_rows(nfft, hop))
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.istft_launch(
+            re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+            out.data_ptr(), int(out_dt == torch.int16), nt, nf, int(nfft), win_len,
+            int(hop), int(length), rows, stream,
+        )
+    kernels.check(code, "istft")
+    kernels.LAUNCHES["istft"] += 1
+    return out.reshape(*lead, length)
+
+
+def check_frames(re: torch.Tensor, length: int, hop: int) -> None:
+    expect = num_frames(length, hop)
+    if int(re.shape[-2]) != expect:
+        raise ValueError(
+            f"re/im have {re.shape[-2]} frames but length={length}, hop={hop} implies {expect}"
+        )
+
+
+def istft_pallas_plain(
+    re: torch.Tensor, im: torch.Tensor, window: np.ndarray, hop: int, length: int,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """The same function in plain PyTorch: :func:`istft_matmul`'s direct
+    route (the window-folded inverse DFT matrices, then overlap-add)."""
+    return istft_matmul(re, im, window, hop, length, nfft=nfft, algorithm="direct")
+
+
+def istft_pallas(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """(nf, bins) or (N, nf, bins) ×2 → (length,) or (N, length) float32,
+    equal to :func:`istft_matmul`. The reference's contract: ``win % hop ==
+    0`` and ``win / hop <= 9``.
+
+    CPU tensors: :func:`istft_pallas_plain`. CUDA tensors: the kernel."""
+    window = np.asarray(window, np.float64)
+    win_len = len(window)
+    hop = int(hop)
+    if re.dim() not in (2, 3):
+        raise ValueError(
+            f"istft_pallas expects (frames, bins) or (N, frames, bins), got {tuple(re.shape)}"
+        )
+    if win_len % hop != 0:
+        raise ValueError(f"pallas istft requires win % hop == 0, got {win_len}/{hop}")
+    if win_len // hop > 9:
+        raise ValueError("pallas istft supports win/hop ratios up to 9")
+    nfft = int(nfft or 2 * (int(re.shape[-1]) - 1))
+    check_frames(re, length, hop)
+    if {re.device.type, im.device.type} == {"cpu"}:
+        return istft_pallas_plain(re, im, window, hop, length, nfft)
+    return launch_istft(re, im, window, hop, length, nfft)

@@ -10,7 +10,10 @@ matmul). Two algorithms, as in the reference:
 * ``factored``: the two-pass Cooley-Tukey form, O(N·(N1+N2)) MACs.
 
 ``auto`` picks factored at nfft >= 2048 (:func:`_use_factored`), so the
-port's numbers follow the reference's route for every preset.
+port's numbers follow the reference's route for every preset. On CUDA
+tensors, :func:`istft_matmul`'s "auto" takes the hand-written iSTFT kernel
+(``istft_ct_pallas``) wherever the reference's TPU rule would take its
+kernel: factored, inside ``ct_pallas_supported``.
 """
 
 from __future__ import annotations
@@ -24,14 +27,21 @@ from convsep_tpu_torch.dsp.istft import ola_norm, overlap_add
 from convsep_tpu_torch.dsp.stft import _pad_signal, frame_signal, num_frames
 
 
-def _key(window: np.ndarray) -> tuple:
-    return tuple(np.asarray(window, np.float64).tolist())
+def _key(window: np.ndarray) -> bytes:
+    """A window as a cache key: its float64 bytes (hashing a tuple of 4096
+    Python floats cost a quarter of a millisecond of host time per call)."""
+    return np.ascontiguousarray(window, np.float64).tobytes()
+
+
+def _window(window_key: bytes) -> np.ndarray:
+    """The window back from :func:`_key`, float64."""
+    return np.frombuffer(window_key, np.float64)
 
 
 @lru_cache(maxsize=16)
-def _forward_mats(nfft: int, window_key: tuple, device: str):
+def _forward_mats(nfft: int, window_key: bytes, device: str):
     """(W, bins) cos / -sin matrices with the analysis window folded in."""
-    window = np.asarray(window_key, np.float64)
+    window = _window(window_key)
     win_len = len(window)
     bins = nfft // 2 + 1
     ang = 2.0 * np.pi * np.arange(nfft)[:, None] * np.arange(bins)[None, :] / nfft
@@ -41,9 +51,9 @@ def _forward_mats(nfft: int, window_key: tuple, device: str):
 
 
 @lru_cache(maxsize=16)
-def _inverse_mats(nfft: int, window_key: tuple, device: str):
+def _inverse_mats(nfft: int, window_key: bytes, device: str):
     """(bins, W) matrices: ``re @ A + im @ B = irfft(re + i·im)[:W] · window``."""
-    window = np.asarray(window_key, np.float64)
+    window = _window(window_key)
     win_len = len(window)
     bins = nfft // 2 + 1
     ang = 2.0 * np.pi * np.arange(bins)[:, None] * np.arange(win_len)[None, :] / nfft
@@ -179,11 +189,30 @@ def stft_matmul(
 
 
 @lru_cache(maxsize=16)
-def inverse_norm(window_key: tuple, hop: int, n_frames: int, device: str) -> torch.Tensor:
+def inverse_norm(window_key: bytes, hop: int, n_frames: int, device: str) -> torch.Tensor:
     """1 / :func:`ola_norm` (synthesis = analysis window) as a float32
     tensor on ``device`` (cached: it depends only on the static shape)."""
-    w = np.asarray(window_key, np.float32)
+    w = _window(window_key).astype(np.float32)
     return torch.from_numpy(1.0 / ola_norm(w, w, hop, n_frames)).to(device)
+
+
+def resolve_istft(algorithm: str, nfft: int, win_len: int, hop: int,
+                  device: torch.device) -> str:
+    """What :func:`istft_matmul` runs: "ct_pallas" (the iSTFT kernel
+    wrapper) or the plain chain's "factored" | "direct". "auto" takes the
+    kernel only for CUDA tensors where the reference's rule holds
+    (factored, ``ct_pallas_supported``) inside the kernel's envelope; an
+    explicit "ct_pallas" asks for the wrapper, which is the plain factored
+    chain on CPU tensors."""
+    if algorithm == "ct_pallas":
+        return algorithm
+    factored = _use_factored(algorithm, nfft)
+    if algorithm == "auto" and factored and torch.device(device).type == "cuda":
+        from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_supported
+
+        if istft_ct_supported(nfft, win_len, hop):
+            return "ct_pallas"
+    return "factored" if factored else "direct"
 
 
 def istft_matmul(
@@ -198,12 +227,20 @@ def istft_matmul(
 ) -> torch.Tensor:
     """Inverse of :func:`stft_matmul`: (..., nf, bins)×2 → (..., length),
     window-power-normalized OLA with the W//2 front drop (the synthesis
-    window is also the analysis window, as on every reference path)."""
+    window is also the analysis window, as on every reference path).
+    ``algorithm``: "auto" | "direct" | "factored" | "ct_pallas"
+    (:func:`resolve_istft`)."""
     window = np.asarray(window, np.float64)
     win_len = len(window)
     nfft = int(nfft or 2 * (int(re.shape[-1]) - 1))
     if output_dtype not in ("float32", "int16"):
         raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
+    route = resolve_istft(algorithm, nfft, win_len, int(hop), re.device)
+    if route == "ct_pallas":
+        from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
+
+        return istft_ct_pallas(re, im, window, int(hop), int(length), nfft=nfft,
+                               output_dtype=output_dtype)
     expect = num_frames(length, hop)
     if int(re.shape[-2]) != expect:
         raise ValueError(
@@ -211,7 +248,7 @@ def istft_matmul(
             f"implies {expect}"
         )
     dev = str(re.device)
-    if _use_factored(algorithm, nfft):
+    if route == "factored":
         frames = _idft_frames_factored(re, im, nfft)[..., :win_len]
         frames = frames * _t(window / float(nfft), dev)
     else:
@@ -233,10 +270,10 @@ def resolve_masked_synthesis(
     device: torch.device, num_sources: int = 1,
 ) -> str:
     """What :func:`istft_wiener` runs: "ct_pallas_wiener" (the Wiener+iSTFT
-    kernel wrapper) or the plain chain's concrete algorithm ("factored" |
-    "direct"). "auto" takes the kernel only for CUDA tensors inside its
-    envelope; on the CPU it names the plain algorithm the reference's CPU
-    route runs."""
+    kernel wrapper) or the masked chain's concrete iSTFT algorithm
+    ("ct_pallas" | "factored" | "direct"). "auto" takes the Wiener kernel
+    only for CUDA tensors inside its envelope; otherwise it names what
+    :func:`istft_matmul`'s own "auto" runs (:func:`resolve_istft`)."""
     if algorithm == "ct_pallas_wiener":
         return algorithm
     if algorithm == "auto":
@@ -248,12 +285,12 @@ def resolve_masked_synthesis(
             and wiener_istft_supported(nfft, win_len, hop, num_sources)
         ):
             return "ct_pallas_wiener"
-        return "factored" if _use_factored("auto", nfft) else "direct"
-    if algorithm in ("direct", "factored"):
+        return resolve_istft("auto", nfft, win_len, hop, device)
+    if algorithm in ("ct_pallas", "direct", "factored"):
         return algorithm
     raise ValueError(
         f"unknown masked_synthesis {algorithm!r}; have auto | ct_pallas_wiener "
-        "| direct | factored"
+        "| ct_pallas | direct | factored"
     )
 
 

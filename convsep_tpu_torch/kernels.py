@@ -3,8 +3,9 @@
 The ``.cu`` sources under ``csrc/`` expose a plain C interface. On first
 CUDA use they are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 source, all started together, and linked into one shared library under
-``<checkout>/build/kernels/``, named by a content hash of the sources and
-flags, so a changed source rebuilds and an unchanged one is reused. The
+``<checkout>/build/kernels/``, named by a content hash of the sources, the
+headers they include and the flags, so a changed file rebuilds and an
+unchanged one is reused. The
 library is bound with ``ctypes``: pointers and the stream pass as
 ``c_void_p``, each C entry returns ``cudaGetLastError()`` and :func:`check`
 raises on a non-zero code.
@@ -29,7 +30,11 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu")
+SOURCES = (
+    "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
+    "istft.cu", "wiener_apply.cu",
+)
+HEADERS = ("istft_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -37,6 +42,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "wiener_istft": 0, "fused_decode": 0, "stft": 0, "fused_adadelta": 0,
+    "istft": 0, "wiener_apply": 0,
 }
 
 _lock = threading.Lock()
@@ -57,6 +63,11 @@ _SIGNATURES = {
     "stft_dft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
+    # re, im, win_over_n, inv_norm, out, out_int16, nt, nf, nfft, win, hop,
+    # length, rows_per_block, stream
+    "istft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
+    "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
 }
 
 
@@ -86,7 +97,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -8,11 +8,14 @@ Mirror of ``convsep_tpu.separate.pipeline``: the chain
 
 runs on one device with segments as the model's batch axis; track lengths
 are bucketed like the reference's, so a model sees a bounded set of shapes.
-On CUDA the two hand-written kernels carry the decode (highres-class
-geometry) and the masked resynthesis.
+On CUDA the hand-written kernels carry the decode (highres-class geometry)
+and the masked resynthesis. With ``TransformConfig.fft_impl="pallas"``
+:func:`separate_fused` takes the reference's kernel route instead: the
+STFT kernel, the Wiener mask kernel and the iSTFT kernel.
 
-Not ported yet: score gating and extra input channels (bach10, multires),
-``complement_last``, and the ``fft``/``pallas`` transform routes.
+Not ported yet: score gating and extra input channels (bach10, multires)
+and the ``fft`` transform route. Stereo presets run through
+:mod:`convsep_tpu_torch.separate.stereo`.
 """
 
 from __future__ import annotations
@@ -24,12 +27,17 @@ import torch
 
 from convsep_tpu_torch.configs.presets import Preset
 from convsep_tpu_torch.data.segment import segment_frames, unsegment_frames
+from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
+from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
+from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas
 from convsep_tpu_torch.dsp.dft import check_precision, istft_wiener, stft_matmul
 from convsep_tpu_torch.dsp.stft import scale_magnitude
 from convsep_tpu_torch.dsp.windows import hann, sinebell
 from convsep_tpu_torch.models.convsep import ConvSep
+from convsep_tpu_torch.separate.complement import derive_last_stem
 from convsep_tpu_torch.utils.device import resolve_device
-from convsep_tpu_torch.utils.pcm import quantize_pcm16_host
+from convsep_tpu_torch.utils.pcm import quantize_pcm16, quantize_pcm16_host
+from convsep_tpu_torch.utils.transfer import fetch
 
 
 def window_of(preset: Preset) -> np.ndarray:
@@ -47,18 +55,30 @@ def bucket_length(length: int, preset: Preset) -> int:
     return max(unit, int(math.ceil(length / unit)) * unit)
 
 
-def check_supported(preset: Preset) -> None:
-    """Raise for preset features this package does not run yet."""
+def check_supported(preset: Preset, stereo: bool = False) -> None:
+    """Raise for preset features this package does not run yet, and, at the
+    stereo entry (``stereo=True``), for a preset that is not stereo."""
     t, m = preset.transform, preset.model
-    if t.fft_impl != "matmul":
+    if t.fft_impl not in ("matmul", "pallas"):
         raise NotImplementedError(
-            f"fft_impl={t.fft_impl!r} is not ported for separation; have matmul "
-            "(its mask and iSTFT kernels are ROADMAP queue 2)"
+            f"fft_impl={t.fft_impl!r} is not ported for separation; have matmul | pallas"
         )
     if t.analysis not in ("auto", "matmul"):
         raise NotImplementedError(f"analysis={t.analysis!r} is not ported; have auto | matmul")
-    if t.multires or m.channels_in != 1:
-        raise NotImplementedError("extra input channels (multires, score, stereo) are not ported")
+    if t.multires:
+        raise NotImplementedError("multires input channels are not ported")
+    if stereo:
+        if m.channels_in != 2 or m.decoder_reduce != "all":
+            raise ValueError(
+                "separate_fused_stereo needs a stereo preset (channels_in=2, "
+                f"decoder_reduce='all'); got channels_in={m.channels_in}, "
+                f"decoder_reduce={m.decoder_reduce!r}"
+            )
+    elif m.channels_in != 1:
+        raise NotImplementedError(
+            "extra input channels (score, bach10) are not ported; stereo presets "
+            "run through StereoSeparator"
+        )
     check_precision(t.dft_precision)
 
 
@@ -68,9 +88,11 @@ def source_magnitudes(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The chain up to the mask: tracks (B, length) float32 → the model's
     source magnitudes per frame y (B, S, nf, bins) in ``mask_dtype`` and
-    the mixture's STFT halves re, im (B, nf, bins)."""
+    the mixture's STFT halves re, im (B, nf, bins). ``fft_impl="pallas"``
+    takes the STFT kernel's wrapper, "matmul" the plain DFT chain."""
     t, m, tr = preset.transform, preset.model, preset.train
-    re, im = stft_matmul(tracks, window_of(preset), t.hop_size, t.nfft)
+    analysis = stft_pallas if t.fft_impl == "pallas" else stft_matmul
+    re, im = analysis(tracks, window_of(preset), t.hop_size, t.nfft)
     B, nf = re.shape[:2]
     mag = scale_magnitude(torch.sqrt(re * re + im * im), t.iscale) * tr.mult_factor_in
     segs = segment_frames(mag, m.time_context)  # (B, nseg, T, F)
@@ -90,9 +112,12 @@ def separate_fused_batch(
     conserve_last: bool = False,
 ) -> torch.Tensor:
     """tracks (B, length) float32 or int16 → stems (B, S, length) float32
-    or int16, on the tracks' device."""
+    or int16, on the tracks' device. The ``fft_impl="pallas"`` route runs
+    one track at a time (:func:`separate_fused`), as in the reference."""
     check_supported(preset)
     t = preset.transform
+    if t.fft_impl == "pallas":
+        raise ValueError("separate_fused_batch: use separate_fused for fft_impl='pallas'")
     if tracks.dim() != 2 or tracks.shape[1] != length:
         raise ValueError(f"tracks {tuple(tracks.shape)} must be (B, {length})")
     if tracks.dtype == torch.int16:
@@ -106,13 +131,46 @@ def separate_fused_batch(
     )
 
 
+@torch.inference_mode()
 def separate_fused(model: ConvSep, audio: torch.Tensor, preset: Preset, length: int,
                    output_dtype: str = "float32", conserve_last: bool = False) -> torch.Tensor:
     """audio (length,) → stems (S, length): the B = 1 case of
-    :func:`separate_fused_batch`."""
-    return separate_fused_batch(
-        model, audio[None], preset, length, output_dtype, conserve_last
-    )[0]
+    :func:`separate_fused_batch`, or with ``fft_impl="pallas"`` the
+    reference's kernel route: the STFT kernel, the model, the Wiener mask
+    kernel and the iSTFT kernel (each a plain version on CPU tensors), then
+    PCM16 if asked. That route has no conservative masks."""
+    t = preset.transform
+    if t.fft_impl != "pallas":
+        return separate_fused_batch(
+            model, audio[None], preset, length, output_dtype, conserve_last
+        )[0]
+    check_supported(preset)
+    if conserve_last:
+        raise ValueError("conserve_last is not supported by the pallas mask kernel")
+    if audio.shape != (length,):
+        raise ValueError(f"audio {tuple(audio.shape)} must be ({length},)")
+    if audio.dtype == torch.int16:
+        audio = audio.float() * (1.0 / 32768.0)
+    y, re, im = source_magnitudes(model, audio[None], preset)
+    est_re, est_im = wiener_apply_pallas(
+        y[0], re[0], im[0], p=preset.sep.wiener_p, eps=preset.sep.wiener_eps
+    )
+    stems = istft_pallas(est_re, est_im, window_of(preset), t.hop_size, length, nfft=t.nfft)
+    return quantize_pcm16(stems) if output_dtype == "int16" else stems
+
+
+def check_options(preset: Preset, output_dtype: str, input_dtype: str,
+                  conserve_last: bool, complement_last: bool) -> None:
+    """The separators' option checks (the reference's)."""
+    if output_dtype not in ("float32", "int16"):
+        raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
+    if input_dtype not in ("float32", "int16"):
+        raise ValueError(f"input_dtype must be float32|int16, got {input_dtype}")
+    if complement_last and preset.model.num_sources < 2:
+        raise ValueError(
+            "complement_last requires a preset with >= 2 sources "
+            f"(got num_sources={preset.model.num_sources})"
+        )
 
 
 class Separator:
@@ -122,8 +180,13 @@ class Separator:
     >>> stems = sep(audio)   # (num_sources, len(audio)) numpy
 
     ``state``: a flat parameter dict (:mod:`convsep_tpu_torch.ckpt.bridge`).
-    ``device``: where the model and the work live; "cuda" without a GPU
-    raises (no CPU fallback).
+    ``device``: where the model and the work live; ``None`` means "cuda",
+    and "cuda" without a GPU raises (the CPU only when asked for).
+    ``conserve_last``: conservative masks (they sum to exactly 1, the last
+    stem takes the shortfall). ``complement_last`` (implies
+    ``conserve_last``): the device copies S − 1 stems and the last is the
+    mixture minus their sum, on the host (:mod:`.complement`). Neither
+    runs on the ``fft_impl="pallas"`` route.
     """
 
     def __init__(
@@ -134,18 +197,19 @@ class Separator:
         output_dtype: str = "float32",
         input_dtype: str = "float32",
         conserve_last: bool = False,
+        complement_last: bool = False,
     ):
         check_supported(preset)
-        if output_dtype not in ("float32", "int16"):
-            raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
-        if input_dtype not in ("float32", "int16"):
-            raise ValueError(f"input_dtype must be float32|int16, got {input_dtype}")
+        check_options(preset, output_dtype, input_dtype, conserve_last, complement_last)
+        if (conserve_last or complement_last) and preset.transform.fft_impl == "pallas":
+            raise ValueError("conserve_last is not supported by the pallas mask kernel")
         self.preset = preset
         self.device = resolve_device(device)
         self.model = ConvSep(preset.model, state, device=self.device).prepare_inference()
         self.output_dtype = output_dtype
         self.input_dtype = input_dtype
-        self.conserve_last = bool(conserve_last)
+        self.complement_last = bool(complement_last)
+        self.conserve_last = bool(conserve_last or complement_last)
 
     def _prepare(self, audio: np.ndarray) -> np.ndarray:
         if self.input_dtype == "int16":
@@ -154,14 +218,22 @@ class Separator:
 
     def __call__(self, audio: np.ndarray) -> np.ndarray:
         """(length,) mono audio → (num_sources, length) stems, float32 in
-        [-1, 1] or PCM16 per ``output_dtype``."""
+        [-1, 1] or PCM16 per ``output_dtype``. On a GPU the stems are a view
+        of pinned host memory (:func:`~convsep_tpu_torch.utils.transfer.fetch`):
+        a caller that keeps the stems of many tracks copies them
+        (``np.array(stems)``) so that the pinned blocks go back for reuse."""
         audio = self._prepare(np.asarray(audio))
         if audio.ndim != 1:
             raise ValueError(f"expected mono (length,) audio, got {audio.shape}")
         L = len(audio)
         Lb = bucket_length(L, self.preset)
-        padded = torch.from_numpy(np.pad(audio, (0, Lb - L))).to(self.device)
+        padded = np.pad(audio, (0, Lb - L))
         stems = separate_fused(
-            self.model, padded, self.preset, Lb, self.output_dtype, self.conserve_last
+            self.model, torch.from_numpy(padded).to(self.device), self.preset, Lb,
+            self.output_dtype, self.conserve_last,
         )
-        return stems[:, :L].cpu().numpy()
+        if self.complement_last:
+            others = fetch(stems[:-1])
+            last = derive_last_stem(others, padded, self.input_dtype, self.output_dtype)
+            return np.concatenate([others, last[None]], axis=0)[:, :L]
+        return fetch(stems)[:, :L]

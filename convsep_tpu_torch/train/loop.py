@@ -55,7 +55,8 @@ def create_train_state(
 ) -> tuple[TrainState, GradientTransformation]:
     """Seeded random parameters of the trainable model (:func:`init_params`,
     a generator on ``device``), or copies of ``params`` (e.g. bridged from
-    the reference), and a zero optimizer state."""
+    the reference), and a zero optimizer state. ``device=None`` means
+    "cuda", which raises without a GPU; the CPU only when asked for."""
     device = resolve_device(device)
     cfg = trainable_config(preset.model)
     if params is None:
@@ -183,8 +184,8 @@ class MetricsLogger:
 
 class Trainer:
     """Epoch loop over an :class:`AudioSegmentDataset` with a one-deep
-    device prefetch, on one device (``device=None``: the GPU if there is
-    one)."""
+    device prefetch, on one device (``device=None``: the GPU, which raises
+    without one; the CPU only when asked for)."""
 
     def __init__(
         self,

@@ -12,11 +12,9 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` → ``cuda`` when a GPU is present, else ``cpu``. An explicit
-    CUDA device that is not available raises ``RuntimeError``."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    """``None`` → ``cuda``. A CUDA device that is not available raises
+    ``RuntimeError``; only an explicit ``"cpu"`` gives the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not available")

@@ -48,9 +48,9 @@ def test_resolve_device_has_no_cpu_fallback():
         assert resolve_device("cuda").type == "cuda"
         assert resolve_device(None).type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            resolve_device("cuda")
-        assert resolve_device(None).type == "cpu"
+        for dev in ("cuda", None):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(dev)
     with pytest.raises(ValueError):
         resolve_device("mps")
 
@@ -88,10 +88,13 @@ def test_package_never_imports_jax():
         import numpy as np, torch
         import convsep_tpu_torch.kernels
         import convsep_tpu_torch.dsp.cuda.ct_istft_kernel
+        import convsep_tpu_torch.dsp.cuda.istft_kernel
+        import convsep_tpu_torch.dsp.cuda.wiener_kernel
         import convsep_tpu_torch.models.decoder_fused_cuda
+        import convsep_tpu_torch.utils.transfer
         from convsep_tpu_torch.ckpt import init_params, to_jax_params
         from convsep_tpu_torch.configs import TransformConfig, get_preset
-        from convsep_tpu_torch.separate import Separator
+        from convsep_tpu_torch.separate import Separator, StereoSeparator
 
         p = get_preset("highres4096")
         t = TransformConfig(fs=8000, frame_size=256, hop_size=64)
@@ -104,6 +107,14 @@ def test_package_never_imports_jax():
         x = np.random.default_rng(0).standard_normal(5000).astype(np.float32)
         y = Separator(p, state, device="cpu", output_dtype="int16")(0.1 * x)
         assert y.shape == (4, 5000) and y.dtype == np.int16
+        pl = dataclasses.replace(p, transform=dataclasses.replace(t, fft_impl="pallas"))
+        assert Separator(pl, state, device="cpu")(0.1 * x).shape == (4, 5000)
+        st = dataclasses.replace(p, model=dataclasses.replace(m, channels_in=2,
+                                                              decoder_reduce="all"))
+        st_state = init_params(st.model, torch.Generator().manual_seed(0))
+        y2 = StereoSeparator(st, st_state, device="cpu", complement_last=True)(
+            0.1 * np.stack([x, x[::-1]], axis=1))
+        assert y2.shape == (4, 5000, 2) and y2.dtype == np.float32
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "convsep_tpu")]
         assert not bad, bad

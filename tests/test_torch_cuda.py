@@ -9,17 +9,29 @@ Tolerances: float32 outputs 1e-5 absolute on stems in [-1, 1] (Wiener) and
 ±1 LSB; bf16 decode output within one bf16 ulp; spectra within 1e-5 ×
 max|X| (the STFT kernel's f32 sums run in another order than cuBLAS's);
 adadelta bit for bit (both round every operation on its own), its
-gradient square-sum within 1e-6 relative (the kernel sums in double)."""
+gradient square-sum within 1e-6 relative (the kernel sums in double); the
+iSTFT kernel 1e-5 absolute (int16 ±1 LSB); the Wiener mask kernel bit for
+bit at p in {1, 2} (both round every operation alike, in one order) and
+1e-6 relative through powf."""
 
 import dataclasses
+import functools
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
+from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
+    istft_ct_pallas,
+    istft_ct_pallas_plain,
+    wiener_istft,
+    wiener_istft_plain,
+)
+from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas, stft_pallas_plain
+from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
 from convsep_tpu_torch.dsp.dft import stft_matmul
 from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
@@ -158,7 +170,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
-    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "fused_adadelta": 0}
+    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "fused_adadelta": 0,
+                "istft": 0, "wiener_apply": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -301,3 +314,177 @@ def test_tiny_train_step_kernel_route_matches_plain(cuda):
     tol = 1e-5 * m_p["grad_norm"].item()
     for k in s_k.params:
         torch.testing.assert_close(s_k.params[k], s_p.params[k], rtol=2 ** -23, atol=tol)
+
+
+def _spectra(rng, lead, length, nfft, hop, device, win=None):
+    """Masked STFT halves of a random signal on ``device``."""
+    w = sinebell(win or nfft)
+    x = torch.from_numpy((0.3 * rng.standard_normal((*lead, length))).astype(np.float32))
+    re, im = stft_matmul(x.to(device), w, hop, nfft=nfft)
+    mask = torch.from_numpy(rng.uniform(0.0, 1.0, tuple(re.shape)).astype(np.float32)).to(device)
+    return w, re * mask, im * mask
+
+
+def _close(got, want, out):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if out == "int16":
+        assert (got.int() - want.int()).abs().max().item() <= 1
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "lead,nfft,hop,length",
+    [((3,), 256, 64, 6000), ((2, 4), 4096, 1024, 60000), ((1,), 2048, 512, 20001),
+     ((), 1024, 256, 9000), ((5,), 512, 64, 7777)],
+)
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_istft_ct_kernel_matches_plain(rng, cuda, lead, nfft, hop, length, out):
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda)
+    before = kernels.LAUNCHES["istft"]
+    got = istft_ct_pallas(re, im, w, hop, length, output_dtype=out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["istft"] == before + 1
+    want = istft_ct_pallas_plain(re, im, w, hop, length, output_dtype=out)
+    assert got.shape == (*lead, length)
+    _close(got, want, out)
+
+
+@pytest.mark.parametrize(
+    "lead,nfft,win,hop,length",
+    [((4,), 1024, 1024, 512, 30000), ((), 128, 128, 64, 3000), ((2,), 256, 128, 32, 5000),
+     ((3,), 384, 384, 96, 6000), ((2,), 1000, 1000, 250, 9000), ((1,), 4096, 4096, 1024, 40000)],
+)
+def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, length):
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
+    before = kernels.LAUNCHES["istft"]
+    got = istft_pallas(re, im, w, hop, length, nfft=nfft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["istft"] == before + 1
+    _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
+
+
+def test_istft_kernel_refuses(rng, cuda):
+    w, re, im = _spectra(rng, (2,), 6000, 256, 64, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        istft_pallas(re, im.cpu(), w, 64, 6000)
+    with pytest.raises(ValueError, match="float32"):
+        istft_ct_pallas(re.double(), im.double(), w, 64, 6000)
+    with pytest.raises(ValueError, match="unsupported"):
+        istft_ct_pallas(re, im, sinebell(256), 100, 6000)
+
+
+@pytest.mark.parametrize("shape", [(4, 2882, 513), (4, 1442, 2049), (3, 7, 9), (1, 33, 129)])
+@pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1.0, 2.0, 1.5])
+def test_wiener_apply_kernel_matches_plain(rng, cuda, shape, ydt, p):
+    y = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    y[:, : shape[1] // 3, :5] = 0.0
+    y[0, shape[1] // 2:, :3] = -1.0
+    y = torch.from_numpy(y).to(cuda).to(ydt)
+    re = torch.from_numpy(rng.standard_normal(shape[1:]).astype(np.float32)).to(cuda)
+    im = torch.from_numpy(rng.standard_normal(shape[1:]).astype(np.float32)).to(cuda)
+    before = kernels.LAUNCHES["wiener_apply"]
+    got = wiener_apply_pallas(y, re, im, p=p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wiener_apply"] == before + 1
+    want = wiener_apply_plain(y, re, im, p=p)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == shape
+        if p in (1.0, 2.0):
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="mixed devices"):
+        wiener_apply_pallas(y, re.cpu(), im)
+
+
+@pytest.mark.parametrize("B", [1, 9])
+def test_fused_decode_kernel_stereo_tm240_matches_plain(rng, cuda, B):
+    """The decode at the stereo geometry: channels_in 2 makes TM = T ·
+    stride · C = 240, two 128-column tiles per block row."""
+    cfg = dataclasses.replace(CFG, channels_in=2, num_sources=4)
+    S, J, W = cfg.num_sources, cfg.bottleneck, cfg.enc_freq
+    TpC = cfg.enc_time * cfg.conv2_filters
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+
+    KC, _, _, _ = band_freq_conv_kernel(
+        t(cfg.conv2_time_eff, 1, cfg.conv1_filters, cfg.conv2_filters, scale=0.3),
+        t(1, cfg.conv1_freq, 2, cfg.conv1_filters, scale=0.3),
+        cfg.enc_time, cfg.conv1_freq_stride,
+    )
+    assert KC.shape[-1] == 240
+    ops = prepare_operands(t(J, S * W * TpC, scale=0.2), t(S * W * TpC, scale=0.1), KC, S, W, TpC)
+    fc = torch.relu(t(B, J))
+    for dt in (torch.float32, torch.bfloat16):
+        got = band_freq_decode(fc, *ops, out_dtype=dt)
+        want = band_freq_decode_plain(fc, *ops, out_dtype=dt)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -7)
+
+
+def test_tiny_stereo_slice_kernel_route_matches_plain(cuda):
+    """Stereo on the card: the fused decode (TM 240) and the iSTFT kernel
+    (forced: at 256 points "auto" keeps the reference's direct chain)
+    against the all-plain route, float32 tail."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.configs import TransformConfig, get_preset
+    from convsep_tpu_torch.separate import StereoSeparator, stereo
+
+    def with_istft(algorithm, sep, audio):
+        forced = functools.partial(stereo.istft_matmul, algorithm=algorithm)
+        with mock.patch.object(stereo, "istft_matmul", forced):
+            return sep(audio)
+
+
+    p = get_preset("highres4096-stereo")
+    tr = TransformConfig(fs=8000, frame_size=256, hop_size=64)
+    p = dataclasses.replace(
+        p, transform=tr, sep=dataclasses.replace(p.sep, segment_bucket=2),
+        model=dataclasses.replace(p.model, feat_size=tr.bins, conv1_freq=9, conv1_filters=6,
+                                  conv2_filters=5, bottleneck=16, mask_dtype="float32"),
+    )
+    state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    mix = (0.2 * np.random.default_rng(1).standard_normal((9000, 2))).astype(np.float32)
+    kernels.reset_launches()
+    got = with_istft("ct_pallas", StereoSeparator(p, state, device=cuda), mix)
+    assert kernels.LAUNCHES["istft"] == 1 and kernels.LAUNCHES["fused_decode"] == 1
+    plain = dataclasses.replace(p, model=dataclasses.replace(p.model, decoder_impl="bandconv"))
+    want = with_istft("factored", StereoSeparator(plain, state, device=cuda), mix)
+    assert kernels.LAUNCHES["istft"] == 1 and kernels.LAUNCHES["fused_decode"] == 1
+    assert got.shape == (4, 9000, 2)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_tiny_pallas_route_slice_matches_matmul_route(cuda):
+    """``fft_impl="pallas"`` separation on the card: the STFT, Wiener mask
+    and iSTFT kernels, one launch each, against the matmul route by SNR
+    (the two STFTs sum in other orders, and the Wiener ratio amplifies
+    that where every source's estimate is near 0)."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.configs import TransformConfig, get_preset
+    from convsep_tpu_torch.separate import Separator
+
+    p = get_preset("dsd100")
+    tr = TransformConfig(fs=8000, frame_size=256, hop_size=128, fft_impl="pallas")
+    p = dataclasses.replace(
+        p, transform=tr, sep=dataclasses.replace(p.sep, segment_bucket=2),
+        model=dataclasses.replace(p.model, time_context=10, feat_size=tr.bins, conv1_freq=8,
+                                  conv1_filters=4, conv2_filters=4, bottleneck=16,
+                                  mask_dtype="float32"),
+    )
+    state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    mix = (0.2 * np.random.default_rng(2).standard_normal(9000)).astype(np.float32)
+    kernels.reset_launches()
+    got = Separator(p, state, device=cuda)(mix)
+    assert {k: kernels.LAUNCHES[k] for k in ("stft", "wiener_apply", "istft")} == {
+        "stft": 1, "wiener_apply": 1, "istft": 1}
+    mm = dataclasses.replace(p, transform=dataclasses.replace(tr, fft_impl="matmul",
+                                                              masked_synthesis="direct"))
+    want = Separator(mm, state, device=cuda)(mix).astype(np.float64)
+    snr = 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
+    assert got.shape == (4, 9000) and np.isfinite(got).all() and snr >= 70.0, snr
