@@ -49,11 +49,30 @@ result line is printed):
 10. the ``fft_impl="pallas"`` slice: ``Separator(dsd100, fft_impl="pallas")``
    at full width through the STFT, Wiener mask and iSTFT kernels, against
    the plain synthesis of its own y and the matmul route's stems, ms per
-   track against the matmul route.
+   track against the matmul route;
+11. the multires4096 kernels vs their plain versions: the forward STFT
+   kernel on one track (1, 1 474 560), 4096 pt, hop 1024, beside
+   ``torch.stft``; the Wiener+iSTFT kernel's Nyquist-row input against its
+   plain version and, bit for bit, against the same kernel fed the
+   concatenated spectrum; the band decode kernel at N 196, Tp 16, W 505,
+   C2 50, T·I 1500 beside a bf16 ``torch.matmul``; the fused decode at TM
+   360;
+12. the multires4096 slice, ``Separator(multires4096)`` at full width on
+   the phase 4 mixture, three routes: (a) "auto" (plain multires channels,
+   the fused decode at TM 360, the Wiener+iSTFT kernel) against the plain
+   route as phase 4; (b) ``analysis="ct_pallas"`` (the forward STFT kernel
+   and the Nyquist-row Wiener+iSTFT kernel) against (a) in the f32 tail;
+   (c) ``decoder_impl="band_pallas"`` (the band decode kernel) against its
+   plain band decode in the same model and against (a)'s stems by SNR;
+13. the bach10 score-informed slice: ``Separator(bach10)(audio, extra=)``
+   at full width, the score channels from ``TransformFFT.compute_file`` and
+   ``score_channels`` of fixed notes, at score_gate 0, 0.5 "mult" and 1.0
+   "blend", each against the plain route as phase 4.
 
-Every kernel's time comes with its bound (bytes over 3.35 TB/s or float32
-operations over 67 TFLOP/s, whichever is larger, from this run's shapes)
-and, where one PyTorch call computes the same function, that call's time.
+Every kernel's time comes with its bound (bytes over 3.35 TB/s or
+operations over 67 TFLOP/s in float32, 989 TFLOP/s for the bf16 band
+product, whichever is larger, from this run's shapes) and, where one
+PyTorch call computes the same function, that call's time.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device and when run outside the repository checkout. TF32 is off for
@@ -95,6 +114,14 @@ TOL_ROUTE_GN_EPS = 1e-4   # relative, grad_norm at the preset's wiener_eps; witn
 TOL_ROUTE_WEIGHTS = 3e-5  # × max|g|, weights after one step, both eps; witness 2.57e-5
 TOL_WIENER_APPLY = 0.0   # the kernel rounds every operation as the plain version, in its order
 MIN_SNR_PALLAS_DB = 70.0  # f32-tail stems, pallas route vs matmul route (their STFTs differ)
+TOL_BAND = 1e-5          # × max|out|: f32 sums of the same bf16 products in another order
+# band_pallas y vs the f32 decode's: the reference's own bound for its
+# bf16-operand band stage against the f32 "band" decode (tests/test_model.py)
+TOL_BAND_BF16 = 2e-2     # × max|y|
+# band_pallas stems vs the f32 bandconv route's: bf16 operands of an
+# 800-deep sum move y by ~3e-3 × max|y| at multires4096, 38.7 dB apart on an
+# H100 (PERF.md); y is held above, this catches only a gross break
+MIN_SNR_BAND_DB = 30.0
 TRAIN_STEPS = 20
 TRAIN_TRACKS = 8
 TRAIN_SECONDS = 20
@@ -106,6 +133,10 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True),
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 on the tensor cores, dense
+MR_SAMPLES = 1_474_560     # the phase 4 mixture bucketed at multires4096: 1442 frames
+# the band decode at one multires4096 track: (N, Tp, W, C2, kh, I)
+BAND_SHAPE = (196, 16, 505, 50, 15, 50)
 
 
 def log(msg: str) -> None:
@@ -120,12 +151,12 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> dict:
     """The least time the card could take for the work: the larger of the
     bytes (each input read once, each output written once) over the memory
-    rate and the float32 operations over the float32 rate."""
+    rate and the operations over the card's rate for their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -279,36 +310,38 @@ def snr_db(ref, est) -> float:
     return float(10 * np.log10((ref ** 2).sum() / max((err ** 2).sum(), 1e-300)))
 
 
-def time_track(sep, audio, reps: int = 5) -> float:
-    """Median host ms of a whole-track call (ends in the stems' host copy)."""
+def time_track(sep, audio, reps: int = 5, **kw) -> float:
+    """Median host ms of a whole-track call ``sep(audio, **kw)`` (ends in
+    the stems' host copy)."""
     import torch
 
-    sep(audio)
+    sep(audio, **kw)
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sep(audio)
+        sep(audio, **kw)
         times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
     return times[len(times) // 2]
 
 
-def phase_slice(name: str, state, preset, device, audio, expect: dict) -> dict:
+def phase_slice(name: str, state, preset, device, audio, expect: dict, extra=None) -> dict:
     """Separator at full width: counters, finiteness, kernel vs plain route,
-    conservation, bf16 vs f32 tail, ms per track."""
+    conservation, bf16 vs f32 tail, ms per track. ``extra``: the extra
+    input channels every call takes (bach10's score channels)."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
     from convsep_tpu_torch.dsp.dft import istft_matmul
     from convsep_tpu_torch.separate import Separator, bucket_length, source_magnitudes
-    from convsep_tpu_torch.separate.pipeline import window_of
+    from convsep_tpu_torch.separate.pipeline import fit_extra, window_of
 
     sep = Separator(preset, state, device=device)
-    sep(audio[: FS])  # first call: kernel build and cuBLAS warm-up
+    sep(audio[: FS], extra=extra)  # first call: kernel build and cuBLAS warm-up
     kernels.reset_launches()
-    stems = sep(audio)
+    stems = sep(audio, extra=extra)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     log(f"  {name}: stems {stems.shape} {stems.dtype}, launches {launches}")
@@ -319,9 +352,9 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict) -> dict:
         if (launches[k] > 0) != want:
             raise AssertionError(f"{name}: kernel {k} launched {launches[k]} times, expected "
                                  f"{'>0' if want else '0'}")
-    ms = time_track(sep, audio)
+    ms = time_track(sep, audio, extra=extra)
     plain = Separator(plain_route(preset), state, device=device)
-    plain_ms = time_track(plain, audio)
+    plain_ms = time_track(plain, audio, extra=extra)
     log(f"  {name}: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time); plain route "
         f"{plain_ms:.2f} ms/track ({SECONDS * 1e3 / plain_ms:.1f}x)")
     del plain
@@ -336,8 +369,10 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict) -> dict:
     p32 = Separator(plain_route(f32), state, device=device)
     Lb = bucket_length(len(audio), preset)
     x = torch.from_numpy(np.pad(audio, (0, Lb - len(audio))))[None].to(device)
-    y_k, re, im = source_magnitudes(k32.model, x, f32)
-    y_p = source_magnitudes(p32.model, x, plain_route(f32))[0]
+    ex = None if extra is None else torch.from_numpy(
+        fit_extra(extra, Lb, preset)).to(device)
+    y_k, re, im, _ = source_magnitudes(k32.model, x, f32, ex)
+    y_p = source_magnitudes(p32.model, x, plain_route(f32), ex)[0]
     scale = y_p.abs().max().item()
     ey = (y_k - y_p).abs().max().item()
     log(f"  {name} f32 tail: model y kernel route vs plain route max_abs_err {ey:.3e} "
@@ -346,7 +381,7 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict) -> dict:
         raise AssertionError(f"{name}: model output of the kernel route disagrees: {ey}")
     w = window_of(preset)
     hop = preset.transform.hop_size
-    stems32, plain32 = k32(audio), p32(audio)
+    stems32, plain32 = k32(audio, extra=extra), p32(audio, extra=extra)
     del k32, p32
     synth = wiener_istft_plain(y_k, re, im, w, hop, Lb, p=preset.sep.wiener_p,
                                eps=preset.sep.wiener_eps)[0, :, : len(audio)].cpu().numpy()
@@ -365,7 +400,7 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict) -> dict:
     if not snr >= MIN_SNR_BF16_DB:
         raise AssertionError(f"{name}: bf16 tail SNR {snr} dB")
     # conservation: masks sum to 1, so the stems add back to the mixture
-    cons = Separator(preset, state, device=device, conserve_last=True)(audio)
+    cons = Separator(preset, state, device=device, conserve_last=True)(audio, extra=extra)
     rt = istft_matmul(re, im, w, hop, Lb)[0, : len(audio)].cpu().numpy()
     ce = float(np.abs(cons.sum(0) - rt).max())
     log(f"  {name} conserve_last: |Σ stems − mixture| max {ce:.3e} (tol {TOL_CONSERVE})")
@@ -975,7 +1010,7 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
     m32 = Separator(f32, state, device=device)
     Lb = bucket_length(len(audio), preset)
     x = torch.from_numpy(np.pad(audio, (0, Lb - len(audio))))[None].to(device)
-    y_k, re, im = source_magnitudes(k32.model, x, pallas(f32))
+    y_k, re, im, _ = source_magnitudes(k32.model, x, pallas(f32))
     y_m = source_magnitudes(m32.model, x, f32)[0]
     ey = (y_k - y_m).abs().max().item()
     log(f"  {name} f32 tail: model y vs the matmul route's max_abs_err {ey:.3e} "
@@ -1008,6 +1043,292 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
     torch.cuda.empty_cache()
     return {"ms": ms, "matmul_ms": mm_ms, "launches": launches,
             "d2h_pageable_ms": pageable, "d2h_pinned_ms": pinned}
+
+
+def phase_ct_stft(device, gen) -> dict:
+    """The forward STFT kernel vs plain on one multires4096 track
+    (1, 1 474 560), 4096 pt, hop 1024, beside ``torch.stft`` on the same
+    (already padded) frames."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas, stft_ct_pallas_plain
+    from convsep_tpu_torch.dsp.stft import _pad_signal
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    w, hop, nfft = sinebell(4096), 1024, 4096
+    x = 0.3 * torch.randn(1, MR_SAMPLES, generator=gen, device=device)
+    got = stft_ct_pallas(x, w, hop)
+    want = stft_ct_pallas_plain(x, w, hop)
+    torch.cuda.synchronize()
+    peak = max(a.abs().max().item() for a in want)
+    e = max((g - p).abs().max().item() for g, p in zip(got, want))
+    nf = got[0].shape[1]
+    log(f"  ct_stft (1, {MR_SAMPLES}): re/im {tuple(got[0].shape)}, ny {tuple(got[2].shape)} "
+        f"max_abs_err {e:.3e} (tol {TOL_STFT * peak:.3e}, max|X| {peak:.3e})")
+    if not (e <= TOL_STFT * peak and all(torch.isfinite(a).all() for a in got)):
+        raise AssertionError(f"ct_stft kernel disagrees: {e} > {TOL_STFT * peak}")
+    padded = _pad_signal(x, nfft, hop)
+    wt = torch.from_numpy(w.astype(np.float32)).to(device)
+
+    def library():
+        return torch.stft(padded, nfft, hop, window=wt, center=False, return_complex=True)
+
+    lib = library()[0].transpose(0, 1)  # (nf, bins)
+    e_lib = max((lib.real[:, :2048] - want[0][0]).abs().max().item(),
+                (lib.imag[:, :2048] - want[1][0]).abs().max().item(),
+                (lib.real[:, 2048] - want[2][0]).abs().max().item())
+    ms = cuda_ms(lambda: stft_ct_pallas(x, w, hop))
+    plain_ms = cuda_ms(lambda: stft_ct_pallas_plain(x, w, hop))
+    lib_ms = cuda_ms(library)
+    b = bound(4 * x.numel() + 4 * sum(a.numel() for a in got), fft_flops(nf, nfft))
+    log(f"  ct_stft: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stft {lib_ms:.4f} ms "
+        f"(cuFFT on the same frames; {e_lib:.3e} from the plain version); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+
+
+def phase_wiener_ny(device, gen) -> dict:
+    """The Wiener+iSTFT kernel's Nyquist-row input at multires4096 (S 4,
+    nf 1442, bf16 y): against its plain version (p = 1 and 2,
+    conserve_last, f32 and int16) and, bit for bit, against the same
+    kernel fed the concatenated spectrum."""
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
+    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    w, hop, S = sinebell(4096), 1024, 4
+    L = MR_SAMPLES
+    re, im, ny = stft_ct_pallas(0.3 * torch.randn(1, L, generator=gen, device=device), w, hop)
+    nf = re.shape[1]
+    y = torch.randn(1, S, nf, 2049, generator=gen, device=device).abs()
+    y[..., : nf // 3, :8] = 0.0
+    y = y.to(torch.bfloat16)
+    full_re = torch.cat([re, ny[..., None]], -1)
+    full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
+    worst, same = 0.0, True
+    for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
+        for out in ("float32", "int16"):
+            got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
+            cat = wiener_istft(y, full_re, full_im, w, hop, L, output_dtype=out, **kw)
+            want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            eq = bool(torch.equal(got, cat))
+            same = same and eq
+            tol = TOL_WIENER_I16 if out == "int16" else TOL_WIENER_F32
+            log(f"  wiener ny {kw} {out}: max_abs_err {e:.3e} (tol {tol}), equal to the "
+                f"concatenated input's: {eq}")
+            if not (e <= tol and eq and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"wiener_istft ny {kw} {out}: {e}, bit-equal {eq}")
+            if out == "float32":
+                worst = max(worst, e)
+    ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L, ny=ny))
+    cat_ms = cuda_ms(lambda: wiener_istft(y, full_re, full_im, w, hop, L))
+    plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L, ny=ny))
+    b = bound(2 * y.numel() + 8 * re.numel() + 4 * ny.numel() + 4 * S * L,
+              fft_flops(S * nf, 4096) + 4 * y.numel())
+    log(f"  wiener ny p=1 f32 out: kernel {ms:.3f} ms (concatenated input {cat_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "concatenated_ms": cat_ms, "plain_ms": plain_ms,
+            **b, "library_ms": None, "bit_equal_to_concatenated": same}
+
+
+def phase_band_decode(device, gen) -> dict:
+    """The band decode kernel vs plain at one multires4096 track: z (N 196,
+    W 505, Tp·C2 800) bf16, band (16, 50, 1500), beside a bf16
+    ``torch.matmul`` of the same operands."""
+    import torch
+    from convsep_tpu_torch.models.decoder_band_cuda import (
+        band_decode_wmajor,
+        band_decode_wmajor_plain,
+        band_tensor,
+    )
+
+    N, Tp, W, C2, kh, I = BAND_SHAPE
+    T = Tp + kh - 1
+    z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
+    band = band_tensor(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+    got = band_decode_wmajor(z, band, T)
+    want = band_decode_wmajor_plain(z, band)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    e = (got - want).abs().max().item()
+    log(f"  band_decode z {tuple(z.shape)} bf16 → {tuple(got.shape)} f32: max_abs_err {e:.3e} "
+        f"(tol {TOL_BAND * scale:.3e}, max|plain| {scale:.3e})")
+    if not (e <= TOL_BAND * scale and torch.isfinite(got).all()):
+        raise AssertionError(f"band decode kernel disagrees: {e} > {TOL_BAND * scale}")
+    zb, bb = z.reshape(N * W, -1), band.reshape(Tp * C2, -1).to(torch.bfloat16)
+    ms = cuda_ms(lambda: band_decode_wmajor(z, band, T))
+    plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, band))
+    lib_ms = cuda_ms(lambda: torch.matmul(zb, bb))
+    # the band's nonzero products: each column t reads the taps h with
+    # 0 <= t - h < kh, Tp·kh (h, t) pairs of C2 × I products
+    flops = 2.0 * N * W * Tp * kh * C2 * I
+    b = bound(2 * z.numel() + 2 * band.numel() + 4 * got.numel(), flops, BF16_FLOPS)
+    log(f"  band_decode: kernel {ms:.3f} ms, plain (f32 matmul of the bf16-rounded operands) "
+        f"{plain_ms:.3f} ms, torch.matmul bf16 {lib_ms:.3f} ms (bf16 output); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {flops:.3e} operations, the dense product's "
+        f"{2.0 * N * W * Tp * C2 * T * I:.3e})")
+    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+
+
+def with_fields(preset, transform=None, model=None, sep=None):
+    """``preset`` with some fields of its transform, model or sep replaced."""
+    return dataclasses.replace(
+        preset,
+        transform=dataclasses.replace(preset.transform, **(transform or {})),
+        model=dataclasses.replace(preset.model, **(model or {})),
+        sep=dataclasses.replace(preset.sep, **(sep or {})),
+    )
+
+
+def run_route(name: str, preset, state, device, audio, expect: dict):
+    """A Separator on ``preset``: warm-up, the counted whole-track call
+    (launches from zero), finiteness, ms per track."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.separate import Separator
+
+    sep = Separator(preset, state, device=device)
+    sep(audio[:FS])
+    kernels.reset_launches()
+    stems = sep(audio)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  {name}: stems {stems.shape} {stems.dtype}, launches {launches}")
+    if stems.shape != (preset.model.num_sources, len(audio)) or not np.isfinite(stems).all():
+        raise AssertionError(f"{name}: bad stems {stems.shape}")
+    for k, want in expect.items():
+        if (launches[k] > 0) != want:
+            raise AssertionError(f"{name}: kernel {k} launched {launches[k]} times, expected "
+                                 f"{'>0' if want else '0'}")
+    ms = time_track(sep, audio)
+    log(f"  {name}: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time)")
+    del sep
+    return {"ms": ms, "launches": launches}
+
+
+def phase_multires_routes(state, preset, device, audio) -> dict:
+    """multires4096 routes (b) ``analysis="ct_pallas"`` and (c)
+    ``decoder_impl="band_pallas"``, each counted and timed, (b) against
+    the "auto" route (a) in the f32 tail, (c) against its plain band decode
+    in the same model and against (a)'s f32-tail stems."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
+    from convsep_tpu_torch.models import convsep as tconv
+    from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor_plain
+    from convsep_tpu_torch.separate import Separator, bucket_length, source_magnitudes
+    from convsep_tpu_torch.separate.pipeline import window_of
+
+    ct = with_fields(preset, transform={"analysis": "ct_pallas"})
+    bp = with_fields(preset, model={"decoder_impl": "band_pallas"})
+    runs = {
+        "ct": run_route(f"{preset.name} analysis=ct_pallas", ct, state, device, audio,
+                        {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
+                         "fused_decode": True, "band_decode": False}),
+        "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
+                          {"band_decode": True, "wiener_istft": True, "fused_decode": False,
+                           "ct_stft": False, "wiener_istft_ny": False}),
+    }
+    f32 = {"mask_dtype": "float32"}
+    Lb = bucket_length(len(audio), preset)
+    x = torch.from_numpy(np.pad(audio, (0, Lb - len(audio))))[None].to(device)
+    a32 = Separator(with_fields(preset, model=f32), state, device=device)
+    y_a = source_magnitudes(a32.model, x, a32.preset)[0]
+    stems_a = a32(audio)
+    del a32
+    # (b) against (a): the same model, only the analysis differs
+    k32 = Separator(with_fields(ct, model=f32), state, device=device)
+    y_k, re, im, ny = source_magnitudes(k32.model, x, k32.preset)
+    scale = y_a.abs().max().item()
+    ey = (y_k - y_a).abs().max().item()
+    log(f"  ct_pallas f32 tail: model y vs the auto route's max_abs_err {ey:.3e} "
+        f"(tol {TOL_SLICE_Y * scale:.3e}, max|y| {scale:.3e})")
+    if not ey <= TOL_SLICE_Y * scale:
+        raise AssertionError(f"ct_pallas route: model output disagrees with auto: {ey}")
+    stems_k = k32(audio)
+    del k32
+    synth = wiener_istft_plain(y_k, re, im, window_of(preset), preset.transform.hop_size, Lb,
+                               p=preset.sep.wiener_p, eps=preset.sep.wiener_eps, ny=ny)
+    es = float(np.abs(stems_k - synth[0, :, : len(audio)].cpu().numpy()).max())
+    snr = snr_db(stems_a, stems_k)
+    log(f"  ct_pallas f32 tail: stems vs plain synthesis of the same y (ny input) max_abs_err "
+        f"{es:.3e} (tol {TOL_WIENER_F32}); vs the auto route SNR {snr:.1f} dB "
+        f"(min {MIN_SNR_SLICE_DB}), max_abs_err {np.abs(stems_k - stems_a).max():.3e}")
+    if not (es <= TOL_WIENER_F32 and snr >= MIN_SNR_SLICE_DB):
+        raise AssertionError(f"ct_pallas route stems disagree: {es}, {snr} dB")
+    del y_k, re, im, ny, synth
+    # (c) the two-stage wiring in f32 ("band") against (a); then the kernel
+    # against its plain band decode (the same z, so the same bf16
+    # roundings), and the bf16-operand route against (a)
+    f32band = Separator(with_fields(preset, model={"decoder_impl": "band", **f32}), state,
+                        device=device)
+    ef = (source_magnitudes(f32band.model, x, f32band.preset)[0] - y_a).abs().max().item()
+    del f32band
+    scale_a = y_a.abs().max().item()
+    log(f"  band (f32 two-stage decode) f32 tail: model y vs the auto route's max_abs_err "
+        f"{ef:.3e} (tol {TOL_SLICE_Y * scale_a:.3e})")
+    if not ef <= TOL_SLICE_Y * scale_a:
+        raise AssertionError(f"the f32 band decode disagrees with bandconv: {ef}")
+    b32 = Separator(with_fields(bp, model=f32), state, device=device)
+    y_b = source_magnitudes(b32.model, x, b32.preset)[0]
+
+    def plain(z, band, T):
+        return band_decode_wmajor_plain(z, band)
+
+    with mock.patch.object(tconv, "band_decode_kernel", plain):
+        y_bp = source_magnitudes(b32.model, x, b32.preset)[0]
+    scale = y_bp.abs().max().item()
+    ey = (y_b - y_bp).abs().max().item()
+    stems_b = b32(audio)
+    del b32
+    snr = snr_db(stems_a, stems_b)
+    ey_a = (y_b - y_a).abs().max().item()
+    log(f"  band_pallas f32 tail: model y vs the plain band decode's max_abs_err {ey:.3e} "
+        f"(tol {TOL_SLICE_Y * scale:.3e}); vs the auto route's (f32 bandconv) {ey_a:.3e} "
+        f"(tol {TOL_BAND_BF16 * scale_a:.3e}); stems vs the auto route SNR {snr:.1f} dB "
+        f"(min {MIN_SNR_BAND_DB})")
+    if not (ey <= TOL_SLICE_Y * scale and ey_a <= TOL_BAND_BF16 * scale_a
+            and snr >= MIN_SNR_BAND_DB):
+        raise AssertionError(f"band_pallas route disagrees: y {ey}, {ey_a}, stems {snr} dB")
+    del y_a, y_b, y_bp, x
+    torch.cuda.empty_cache()
+    return runs
+
+
+def bach10_notes():
+    """Four voices of fixed notes over 30 s (violin, clarinet, saxophone,
+    bassoon ranges), made in the script: no annotation files."""
+    from convsep_tpu_torch.score import Note
+
+    lines = ((67, 71, 74, 76), (60, 64, 62, 67), (55, 57, 60, 59), (43, 45, 48, 50))
+    return [[Note(float(p), 0.5 + 7.25 * i, 0.5 + 7.25 * i + 6.5) for i, p in enumerate(ln)]
+            for ln in lines]
+
+
+def phase_bach10(state, preset, device, audio) -> dict:
+    """Separator(bach10)(audio, extra=) at score_gate 0, 0.5 "mult" and 1.0
+    "blend", each as phase 4 gates a slice; the score channels from
+    ``TransformFFT.compute_file`` and ``score_channels``."""
+    from convsep_tpu_torch.data.features import score_channels
+    from convsep_tpu_torch.dsp.transform import TransformFFT
+
+    t0 = time.perf_counter()
+    mag = TransformFFT(preset.transform, device=device).compute_file(audio)
+    extra = score_channels(mag, bach10_notes(), preset, "comb") * preset.train.mult_factor_in
+    log(f"  score channels {extra.shape} in {(time.perf_counter() - t0) * 1e3:.1f} ms (host)")
+    runs = {}
+    for g, mode in ((0.0, "mult"), (0.5, "mult"), (1.0, "blend")):
+        name = f"bach10 score_gate={g:g} {mode}"
+        p = with_fields(preset, sep={"score_gate": g, "score_gate_mode": mode})
+        runs[name] = phase_slice(name, state, p, device, audio,
+                                 {"wiener_istft": True, "fused_decode": False}, extra=extra)
+    return runs
 
 
 def main() -> int:
@@ -1095,9 +1416,40 @@ def main() -> int:
     del dsd_state
     torch.cuda.empty_cache()
 
+    log("phase 11: multires4096 kernels vs plain (forward STFT, Nyquist-row Wiener+iSTFT, "
+        "band decode, fused decode at TM 360)")
+    ct = phase_ct_stft(device, gen)
+    wny = phase_wiener_ny(device, gen)
+    torch.cuda.empty_cache()
+    band = phase_band_decode(device, gen)
+    torch.cuda.empty_cache()
+    mr = get_preset("multires4096")
+    mr_state = init_params(mr.model, torch.Generator(device=device).manual_seed(4), device)
+    mr_model = ConvSep(mr.model, mr_state, device=device).prepare_inference()
+    assert tuple(mr_model.kcat.shape) == (800, 8, 360), tuple(mr_model.kcat.shape)
+    dec360 = phase_decode(mr_model, 49, device, gen)
+    del mr_model
+    torch.cuda.empty_cache()
+    log("phase 12: multires4096 slice, full width, the phase 4 mixture, seeded random weights")
+    mr_run = phase_slice("multires4096", mr_state, mr, device, audio,
+                         {"fused_decode": True, "wiener_istft": True, "ct_stft": False,
+                          "band_decode": False})
+    mr_routes = phase_multires_routes(mr_state, mr, device, audio)
+    del mr_state
+    torch.cuda.empty_cache()
+    log("phase 13: bach10 score-informed slice, full width, the phase 4 mixture, seeded "
+        "random weights")
+    b10 = get_preset("bach10")
+    b10_state = init_params(b10.model, torch.Generator(device=device).manual_seed(5), device)
+    b10_runs = phase_bach10(b10_state, b10, device, audio)
+    del b10_state
+    torch.cuda.empty_cache()
+
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
-             "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run}
+             "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run,
+             "multires4096": mr_run, "multires4096 analysis=ct_pallas": mr_routes["ct"],
+             "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs}
 
     def launched(kernel: str) -> dict:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
@@ -1107,11 +1459,12 @@ def main() -> int:
         {"name": "fused_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
-         **launched("fused_decode"), **dec},
+         **launched("fused_decode"), **dec, "multires4096_tm360": dec360},
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         **launched("wiener_istft"), **wie},
+         **launched("wiener_istft"), **wie,
+         "ny": {**launched("wiener_istft_ny"), **wny}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
@@ -1131,9 +1484,21 @@ def main() -> int:
          "replaces": "convsep_tpu/dsp/pallas/wiener_kernel.py:77",
          **launched("wiener_apply"), **wap["dsd100 pallas route"],
          "highres4096": wap["highres4096"]},
+        {"name": "ct_stft", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/ct_stft.cu",
+         "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
+         **launched("ct_stft"), **ct},
+        {"name": "band_decode", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/band_decode.cu",
+         "replaces": "convsep_tpu/models/decoder_pallas.py:80",
+         **launched("band_decode"), **band},
     ], "slices_ms_per_track": {
         "highres4096-stereo": {"kernel": st_run["ms"], "plain": st_run["plain_ms"]},
         "dsd100 fft_impl=pallas": {"pallas": pl_run["ms"], "matmul": pl_run["matmul_ms"]},
+        "multires4096": {"auto": mr_run["ms"], "plain": mr_run["plain_ms"],
+                         "analysis=ct_pallas": mr_routes["ct"]["ms"],
+                         "decoder_impl=band_pallas": mr_routes["band"]["ms"]},
+        **{k: {"kernel": r["ms"], "plain": r["plain_ms"]} for k, r in b10_runs.items()},
     }, "stems_d2h_ms": {
         "highres4096-stereo": {"pageable": st_run["d2h_pageable_ms"],
                                "pinned": st_run["d2h_pinned_ms"]},

@@ -11,8 +11,10 @@ Routing fields and what they mean here:
   training and mono separation's STFT, Wiener mask and iSTFT to the
   hand-written kernels (``dsp/cuda/``); stereo separation takes the matmul
   chain for either, as the reference does. "fft" is not ported.
-* ``analysis``: "auto" / "matmul" run the torch DFT chain; "ct_pallas"
-  (the fused forward-STFT kernel) is not ported yet.
+* ``analysis``: "auto" / "matmul" run the torch DFT chain; "ct_pallas" runs
+  the fused forward-STFT kernel (``dsp/cuda/ct_stft_kernel.py``; nfft >=
+  2048, hop a multiple of 1024), whose Nyquist-separate spectra the
+  Wiener+iSTFT kernel reads as they are. Mono separation reads it.
 * ``masked_synthesis``: "auto" runs the hand-written Wiener+iSTFT kernel
   on CUDA tensors inside its envelope and the mask + iSTFT chain
   elsewhere, whose iSTFT is the hand-written iSTFT kernel where the

@@ -10,6 +10,12 @@
 //   stem_s       = OLA(frame_s, hop) * inv_norm, W/2 front trim,
 //                  optional PCM16 epilogue (rintf + clip)
 //
+// The mixture comes either as re/im of nfft/2 + 1 bins, or (ny given) as
+// the forward STFT kernel's nfft/2-bin bodies plus its real Nyquist row
+// ny[n, f] (ct_stft.cu; the reference's has_ny input): bin nfft/2 of the
+// mixture is then ny with imaginary part 0, while y keeps all nfft/2 + 1
+// bins. No concatenated spectrum is ever built.
+//
 // What bounds it on the H100: device-memory reads of y (S rows per frame,
 // f32 or bf16) and of the mixture re/im. The point of the kernel is that
 // the masked spectra mask*re, mask*im never reach device memory: each
@@ -64,7 +70,7 @@ __device__ __forceinline__ float relu_pow(float v, int p2) {
 template <bool kPow2>
 __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
     const void* __restrict__ y, int y_bf16,
-    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ re, const float* __restrict__ im, const float* __restrict__ ny,
     const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
     void* __restrict__ out, int out_int16,
     int S, int nf, int nfft, int log2n, int tw_len, int hop, int length, int rows_per_block,
@@ -92,7 +98,8 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
   const int f_lo = max(0, j0 - k_ratio + 1);
   const int f_hi = min(nf - 1, j0 + rows - 1);
   for (int f = f_lo; f <= f_hi; ++f) {
-    const long long mix = ((long long)n * nf + f) * bins;
+    const long long frame = (long long)n * nf + f;     // ny index of the frame
+    const long long mix = frame * (ny ? half : bins);  // its re/im row
     const long long yf = y_track + (long long)f * bins;
     __syncthreads();  // previous frame's readers of den / buf are done
     for (int k = tid; k < bins; k += kThreads) {
@@ -107,8 +114,9 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
       // masked spectra of s0 (A) and s1 (B), hermitian-extended into
       // Z = A + iB, stored at bit-reversed positions for the FFT
       for (int k = tid; k <= half; k += kThreads) {
-        const float mr = re[mix + k];
-        const float mi = im[mix + k];
+        const bool nyq = ny && k == half;
+        const float mr = nyq ? ny[frame] : re[mix + k];
+        const float mi = nyq ? 0.f : im[mix + k];
         const float dk = den[k];
         float ya = relu_pow(load_y(y, y_bf16, yf + s0 * y_src + k), p2);
         if (conserve_last && s0 == S - 1) ya += eps;
@@ -159,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) wiener_istft_kernel(
 }  // namespace
 
 extern "C" int wiener_istft_launch(
-    const void* y, int y_bf16, const void* re, const void* im,
+    const void* y, int y_bf16, const void* re, const void* im, const void* ny,
     const void* win_over_n, const void* inv_norm, void* out, int out_int16,
     int nt, int S, int nf, int nfft, int hop, int length, int rows_per_block,
     int p2, float eps, int conserve_last, void* stream) {
@@ -181,8 +189,8 @@ extern "C" int wiener_istft_launch(
   dim3 grid(nblk, nt);
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       y, y_bf16, static_cast<const float*>(re), static_cast<const float*>(im),
-      static_cast<const float*>(win_over_n), static_cast<const float*>(inv_norm),
-      out, out_int16, S, nf, nfft, log2n, tw_len, hop, length, rows_per_block, p2, eps,
-      conserve_last);
+      static_cast<const float*>(ny), static_cast<const float*>(win_over_n),
+      static_cast<const float*>(inv_norm), out, out_int16, S, nf, nfft, log2n, tw_len, hop,
+      length, rows_per_block, p2, eps, conserve_last);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ wrappers and plain versions.
   (``csrc/wiener_istft.cu``) masks the mixture spectrum with the per-source
   magnitudes, inverse-FFTs each frame and overlap-adds it, so the masked
   spectra never reach device memory; its header says what bounds it on the
-  H100 and how the design follows.
+  H100 and how the design follows. Like the reference (``has_ny``) it also
+  takes the mixture as the forward STFT kernel's Nyquist-separate pair.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -136,14 +137,20 @@ def wiener_istft_plain(
     conserve_last: bool = False,
     output_dtype: str = "float32",
     algorithm: str = "auto",
+    ny: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The same function in plain PyTorch: f32 Wiener mask × mixture (the
     masked spectra are materialized), then :func:`istft_matmul`. "auto"
     names the plain chain's own choice (factored at nfft >= 2048, else
     direct); "ct_pallas" sends the masked spectra through
-    :func:`istft_ct_pallas`."""
+    :func:`istft_ct_pallas`. With ``ny`` the Nyquist column is concatenated
+    back onto re (and a zero one onto im), as the reference's XLA route
+    does."""
     from convsep_tpu_torch.models.masks import wiener_mask
 
+    if ny is not None:
+        re = torch.cat([re, ny.unsqueeze(-1)], dim=-1)
+        im = torch.cat([im, torch.zeros_like(ny).unsqueeze(-1)], dim=-1)
     nfft = 2 * (int(re.shape[-1]) - 1)
     if algorithm == "auto":
         algorithm = "factored" if _use_factored("auto", nfft) else "direct"
@@ -165,21 +172,33 @@ def wiener_istft(
     eps: float = 1e-8,
     conserve_last: bool = False,
     output_dtype: str = "float32",
+    ny: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y (..., S, nf, bins) nonnegative magnitudes (f32 or bf16) + re/im
     (..., nf, bins) mixture halves → stems (..., S, length), f32 or int16.
 
+    ``ny``: (..., nf) real Nyquist row when re/im are the forward STFT
+    kernel's (..., nf, nfft/2) bodies (:func:`~convsep_tpu_torch.dsp.cuda.
+    ct_stft_kernel.stft_ct_pallas`); y still has nfft/2 + 1 bins. The
+    kernel reads it in place of a concatenated spectrum and counts under
+    ``wiener_istft_ny``.
+
     CPU tensors: :func:`wiener_istft_plain`. CUDA tensors: the kernel."""
     window = np.asarray(window, np.float64)
     win_len = len(window)
-    nfft = 2 * (int(re.shape[-1]) - 1)
+    has_ny = ny is not None
+    bins = int(re.shape[-1]) + int(has_ny)
+    nfft = 2 * (bins - 1)
     lead = tuple(re.shape[:-2])
     if tuple(y.shape[:len(lead)]) != lead or y.dim() != len(lead) + 3 \
-            or tuple(y.shape[-2:]) != tuple(re.shape[-2:]) or im.shape != re.shape:
+            or tuple(y.shape[-2:]) != (int(re.shape[-2]), bins) or im.shape != re.shape:
         raise ValueError(
             f"y {tuple(y.shape)} must be re/im's shape {tuple(re.shape)} with "
             "one sources axis inserted at -3"
+            + (" and the Nyquist bin appended" if has_ny else "")
         )
+    if has_ny and tuple(ny.shape) != tuple(re.shape[:-1]):
+        raise ValueError(f"ny {tuple(ny.shape)} must be re's {tuple(re.shape)} without bins")
     if output_dtype not in ("float32", "int16"):
         raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
     expect = num_frames(length, hop)
@@ -188,13 +207,14 @@ def wiener_istft(
             f"re/im have {re.shape[-2]} frames but length={length}, hop={hop} "
             f"implies {expect}"
         )
-    devices = {t.device.type for t in (y, re, im)}
+    tensors = (y, re, im, ny) if has_ny else (y, re, im)
+    devices = {t.device.type for t in tensors}
     if devices == {"cpu"}:
         return wiener_istft_plain(
             y, re, im, window, hop, length, p=p, eps=eps,
-            conserve_last=conserve_last, output_dtype=output_dtype,
+            conserve_last=conserve_last, output_dtype=output_dtype, ny=ny,
         )
-    if devices != {"cuda"} or len({t.device for t in (y, re, im)}) != 1:
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"wiener_istft: tensors on mixed devices {devices}")
     S = int(y.shape[-3])
     if not wiener_istft_supported(nfft, win_len, hop, S):
@@ -205,15 +225,15 @@ def wiener_istft(
         raise ValueError(f"wiener_istft kernel supports p in (1, 2), got {p}")
     if y.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"y must be float32 or bfloat16, got {y.dtype}")
-    if re.dtype != torch.float32 or im.dtype != torch.float32:
-        raise ValueError("re/im must be float32")
+    if any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise ValueError("re/im (and ny) must be float32")
     nf = int(re.shape[-2])
-    bins = int(re.shape[-1])
     nt = int(np.prod(lead)) if lead else 1
     dev = y.device
     y4 = y.reshape(nt, S, nf, bins).contiguous()
-    re3 = re.reshape(nt, nf, bins).contiguous()
-    im3 = im.reshape(nt, nf, bins).contiguous()
+    re3 = re.reshape(nt, nf, -1).contiguous()
+    im3 = im.reshape(nt, nf, -1).contiguous()
+    ny2 = ny.reshape(nt, nf).contiguous() if has_ny else None
     win_n = win_over_n(_key(window), nfft, str(dev))
     inv_norm = inverse_norm(_key(window.astype(np.float32)), int(hop), nf, str(dev))
     out_dt = torch.int16 if output_dtype == "int16" else torch.float32
@@ -224,10 +244,12 @@ def wiener_istft(
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.wiener_istft_launch(
             y4.data_ptr(), int(y4.dtype == torch.bfloat16), re3.data_ptr(),
-            im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(), out.data_ptr(),
-            int(out_dt == torch.int16), nt, S, nf, nfft, int(hop), int(length), rows,
-            int(p == 2.0), ctypes.c_float(eps), int(conserve_last), stream,
+            im3.data_ptr(), ny2.data_ptr() if has_ny else None, win_n.data_ptr(),
+            inv_norm.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
+            nfft, int(hop), int(length), rows, int(p == 2.0), ctypes.c_float(eps),
+            int(conserve_last), stream,
         )
-    kernels.check(code, "wiener_istft")
-    kernels.LAUNCHES["wiener_istft"] += 1
+    name = "wiener_istft_ny" if has_ny else "wiener_istft"
+    kernels.check(code, name)
+    kernels.LAUNCHES[name] += 1
     return out.reshape(*lead, S, length)

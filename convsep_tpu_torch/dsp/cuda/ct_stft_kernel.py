@@ -1,0 +1,136 @@
+"""Fused forward STFT with the Nyquist bin kept apart: the CUDA kernel's
+wrapper, its plain version and the reference's routing rules.
+
+:func:`stft_ct_pallas` replaces
+``convsep_tpu/dsp/pallas/ct_stft_kernel.py::stft_ct_pallas``. Its kernel
+(``csrc/ct_stft.cu``) pads, frames, windows and FFTs the signal in shared
+memory, so the (nf, W) frames tensor never exists, and writes the
+half-spectrum bins 0 … nfft/2 − 1 in natural order with the real Nyquist bin
+as a row of its own; the Wiener+iSTFT kernel reads that pair as it is
+(``wiener_istft(..., ny=)``). The kernel's header says what bounds it on
+the H100.
+
+The wrapper takes its plain version only for CPU tensors. For CUDA tensors
+it launches the kernel or raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from convsep_tpu_torch import kernels
+from convsep_tpu_torch.dsp.dft import _key, _window, stft_matmul
+from convsep_tpu_torch.dsp.stft import num_frames
+
+_B = 128  # the reference kernel's lane-width sample factor: n = 128·a + b
+_SMEM_MAX = 227 * 1024
+_FRAMES = 8  # frames per block: four complex FFTs over one shared signal span
+
+
+def ct_stft_supported(nfft: int, win_len: int, hop: int) -> bool:
+    """The reference kernel's shapes (``ct_stft_kernel.ct_stft_supported``):
+    nfft == win, whole 128-sample sub-rows per hop (a multiple of 1024),
+    A2 = nfft/128 >= 8 dividing 128 and K2 = nfft/256 >= 8 (nfft >= 2048),
+    ``win % hop == 0``. Kept so ``analysis="ct_pallas"`` refuses what the
+    reference refused."""
+    if nfft != win_len or nfft % _B or hop % _B:
+        return False
+    A2, K2 = nfft // _B, nfft // (2 * _B)
+    return (A2 >= 8 and K2 >= 8 and 128 % A2 == 0
+            and (hop // _B) % 8 == 0 and win_len % hop == 0)
+
+
+def resolve_analysis(analysis: str) -> str:
+    """What the separation pipeline's analysis runs: "ct_pallas" (this
+    wrapper) or "matmul" (:func:`stft_matmul`). "auto" means "matmul", as in
+    the reference, whose kernel lost its A/B to the XLA chain on the TPU."""
+    if analysis in ("auto", "matmul"):
+        return "matmul"
+    if analysis == "ct_pallas":
+        return "ct_pallas"
+    raise ValueError(f"unknown analysis {analysis!r}; have auto | ct_pallas | matmul")
+
+
+def _frames_per_block(nfft: int, hop: int) -> int:
+    """Frames a block transforms (even, at most 8) so that the twiddles, the
+    FFT buffer and the frames' signal span fit in shared memory; 0 if none."""
+    for r in range(_FRAMES, 0, -2):
+        if 12 * nfft + 4 * ((r - 1) * hop + nfft) <= _SMEM_MAX:
+            return r
+    return 0
+
+
+def kernel_supported(nfft: int, hop: int) -> bool:
+    """The CUDA kernel's own envelope: a power-of-two nfft (its radix-2 FFT)
+    whose buffers fit in shared memory (nfft <= 8192 at hop 1024)."""
+    return nfft >= 2 and nfft & (nfft - 1) == 0 and hop > 0 and _frames_per_block(nfft, hop) > 0
+
+
+def stft_ct_pallas_plain(signal: torch.Tensor, window: np.ndarray, hop: int,
+                         nfft: int | None = None):
+    """The same function in plain PyTorch: :func:`stft_matmul` (factored at
+    nfft >= 2048) split at the Nyquist bin."""
+    nfft = int(nfft or len(window))
+    half = nfft // 2
+    re, im = stft_matmul(signal, window, hop, nfft)
+    return re[..., :half], im[..., :half], re[..., half]
+
+
+@lru_cache(maxsize=8)
+def _window_f32(window_key: bytes, device: str) -> torch.Tensor:
+    return torch.from_numpy(_window(window_key).astype(np.float32)).to(device)
+
+
+def stft_ct_pallas(
+    signal: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    nfft: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, L) or (L,) signal → (re, im, ny): half-spectra without the
+    Nyquist bin ((…, nf, nfft/2), natural bin order) and the real Nyquist
+    row (…, nf). ``cat([re, ny[..., None]], -1)`` is :func:`stft_matmul`'s
+    re up to float reassociation; im's Nyquist bin is 0.
+
+    CPU tensors: :func:`stft_ct_pallas_plain`. CUDA tensors: the kernel."""
+    window = np.asarray(window, np.float64)
+    win_len = len(window)
+    nfft = int(nfft or win_len)
+    hop = int(hop)
+    if not ct_stft_supported(nfft, win_len, hop):
+        raise ValueError(
+            f"stft_ct_pallas unsupported for nfft={nfft} win={win_len} hop={hop}; "
+            "use dft.stft_matmul"
+        )
+    if signal.dim() not in (1, 2):
+        raise ValueError(f"stft_ct_pallas expects (L,) or (B, L), got {tuple(signal.shape)}")
+    if signal.device.type == "cpu":
+        return stft_ct_pallas_plain(signal, window, hop, nfft)
+    if signal.device.type != "cuda":
+        raise ValueError(f"stft_ct_pallas: unsupported device {signal.device}")
+    if not kernel_supported(nfft, hop):
+        raise ValueError(f"stft_ct_pallas kernel unsupported for nfft={nfft} hop={hop}")
+    x = signal.float().reshape(-1, signal.shape[-1]).contiguous()
+    B, L = x.shape
+    nf = num_frames(L, hop)
+    half = nfft // 2
+    dev = x.device
+    re = torch.empty((B, nf, half), dtype=torch.float32, device=dev)
+    im = torch.empty_like(re)
+    ny = torch.empty((B, nf), dtype=torch.float32, device=dev)
+    win = _window_f32(_key(window), str(dev))
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ct_stft_launch(
+            x.data_ptr(), win.data_ptr(), re.data_ptr(), im.data_ptr(), ny.data_ptr(),
+            B, L, nfft, hop, nf, _frames_per_block(nfft, hop), stream,
+        )
+    kernels.check(code, "ct_stft")
+    kernels.LAUNCHES["ct_stft"] += 1
+    if signal.dim() == 1:
+        return re[0], im[0], ny[0]
+    return re, im, ny

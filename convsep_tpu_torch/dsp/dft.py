@@ -317,14 +317,21 @@ def istft_wiener(
     p: float = 1.0,
     eps: float = 1e-8,
     conserve_last: bool = False,
+    ny: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked resynthesis: y (..., S, nf, bins) source magnitudes, re/im
     (..., nf, bins) mixture halves → stems (..., S, length); semantically
     ``istft_matmul(mask·re, mask·im)`` with ``mask = wiener_mask(y, p, eps,
-    axis=-3, conserve_last)``."""
+    axis=-3, conserve_last)``.
+
+    ``ny``: (..., nf) real Nyquist row when re/im are the forward STFT
+    kernel's (..., nf, nfft/2) bodies (``analysis="ct_pallas"``). The
+    Wiener+iSTFT kernel reads it as it is, on "auto" too (the reference's
+    "auto" rebuilt the concatenated spectrum and took its XLA chain); the
+    plain chain concatenates it back."""
     check_precision(precision)
     window = np.asarray(window, np.float64)
-    nfft = int(nfft or 2 * (int(re.shape[-1]) - 1))
+    nfft = int(nfft or 2 * (int(re.shape[-1]) - (0 if ny is not None else 1)))
     route = resolve_masked_synthesis(
         algorithm, nfft, len(window), int(hop), p, re.device, int(y.shape[-3])
     )
@@ -336,9 +343,9 @@ def istft_wiener(
     if route == "ct_pallas_wiener":
         return wiener_istft(
             y, re, im, window, int(hop), int(length), p=p, eps=eps,
-            conserve_last=conserve_last, output_dtype=output_dtype,
+            conserve_last=conserve_last, output_dtype=output_dtype, ny=ny,
         )
     return wiener_istft_plain(
         y, re, im, window, int(hop), int(length), p=p, eps=eps,
-        conserve_last=conserve_last, output_dtype=output_dtype, algorithm=route,
+        conserve_last=conserve_last, output_dtype=output_dtype, algorithm=route, ny=ny,
     )

@@ -53,3 +53,12 @@ def scale_magnitude(mag: torch.Tensor, iscale: str = "lin", kappa: float = 1e4) 
     if iscale == "log":
         return torch.log1p(kappa * mag) / np.log(10.0)
     raise ValueError(f"unknown iscale {iscale!r}")
+
+
+def unscale_magnitude(mag: torch.Tensor, iscale: str = "lin", kappa: float = 1e4) -> torch.Tensor:
+    """Inverse of :func:`scale_magnitude`."""
+    if iscale == "lin":
+        return mag
+    if iscale == "log":
+        return torch.expm1(mag * np.log(10.0)) / kappa
+    raise ValueError(f"unknown iscale {iscale!r}")

@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
-    "istft.cu", "wiener_apply.cu",
+    "istft.cu", "wiener_apply.cu", "ct_stft.cu", "band_decode.cu",
 )
 HEADERS = ("istft_common.cuh",)
 NVCC_FLAGS = (
@@ -41,8 +41,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: dict[str, int] = {
-    "wiener_istft": 0, "fused_decode": 0, "stft": 0, "fused_adadelta": 0,
-    "istft": 0, "wiener_apply": 0,
+    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0,
+    "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
 }
 
 _lock = threading.Lock()
@@ -52,9 +52,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # y, y_bf16, re, im, win_over_n, inv_norm, out, out_int16, nt, S, nf,
-    # nfft, hop, length, rows_per_block, p2, eps, conserve_last, stream
-    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, out, out_int16,
+    # nt, S, nf, nfft, hop, length, rows_per_block, p2, eps, conserve_last, stream
+    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _P),
     # fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM, stream
     "fused_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -68,6 +68,10 @@ _SIGNATURES = {
     "istft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
+    # x, win, re, im, ny, B, L, nfft, hop, nf, frames_per_block, stream
+    "ct_stft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # z, band_t, out, M, K, NC, Tp, C2, I, stream
+    "band_decode_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
 
 

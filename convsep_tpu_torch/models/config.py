@@ -31,8 +31,10 @@ class ConvSepConfig:
     # dtype of the decode output / mask-magnitude tail; the Wiener ratio
     # always divides in float32
     mask_dtype: str = "float32"
-    # "auto" | "bandconv" | "bandconv_pallas" (the fused decode kernel);
-    # the reference's decision-record decoders are not ported
+    # "auto" | "bandconv" | "bandconv_pallas" (the fused decode kernel) |
+    # "band" (two-stage, f32 GEMM) | "band_pallas" (two-stage, the band
+    # decode kernel, bf16 operands); the reference's other decision-record
+    # decoders are not ported
     decoder_impl: str = "bandconv"
     expand_order: str = "wmajor"
     encoder_impl: str = "collapsed"

@@ -16,6 +16,12 @@ Mirror of ``convsep_tpu.models.convsep``. What separation runs
 * the phase merge back to frequency bins, then ``out_bias`` and ReLU in
   ``mask_dtype`` (cast BEFORE the bias add, as the reference does).
 
+``decoder_impl="band"`` / ``"band_pallas"`` decode in two stages instead:
+the expansion dense (no W padding) and ReLU, viewed w-major as (B·S, W',
+Tp·C2); the banded time stage, a float32 GEMM (``band``) or the bf16
+operand kernel of :mod:`convsep_tpu_torch.models.decoder_band_cuda`
+(``band_pallas``, the reference's numbers); then :func:`freq_decode_wmajor`.
+
 What training runs (``encoder_impl="conv"``, the config
 :func:`trainable_config` makes; :func:`train_sources`): conv1 → conv2 →
 flatten in (T', F', C2) order → fc → ReLU → the expansion dense (no W
@@ -39,6 +45,8 @@ import torch
 from torch import nn
 
 from convsep_tpu_torch.models.config import ConvSepConfig
+from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor as band_decode_kernel
+from convsep_tpu_torch.models.decoder_band_cuda import band_tensor
 from convsep_tpu_torch.models.decoder_fused_cuda import (
     band_freq_decode,
     band_freq_decode_plain,
@@ -53,6 +61,7 @@ __all__ = ["ConvSep", "ConvSepConfig", "resolve_decoder_impl", "train_sources",
            "trainable_config"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_BAND = ("band", "band_pallas")  # the two-stage decodes: no composed operands
 
 
 def _band_matrix_for(kernel: torch.Tensor, Tp: int) -> torch.Tensor:
@@ -185,18 +194,19 @@ def _finish(d1: torch.Tensor, out_bias: torch.Tensor, B: int, S: int, C: int,
 
 
 def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
-    """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper)
-    or "bandconv" (plain PyTorch). "auto" takes the kernel on CUDA where
-    the reference's TPU rule admits the shape and the kernel's envelope
-    holds; an explicit "bandconv_pallas" asks for the wrapper, which is
-    the plain version on CPU tensors."""
+    """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper),
+    "bandconv" (plain PyTorch), or the two-stage "band_pallas" (the band
+    kernel's wrapper) and "band" (a float32 GEMM). "auto" takes the fused
+    kernel on CUDA where the reference's TPU rule admits the shape and the
+    kernel's envelope holds; an explicit kernel route asks for the wrapper,
+    which is the plain version on CPU tensors."""
     impl = cfg.decoder_impl
-    if impl in ("bandconv", "bandconv_pallas"):
+    if impl in ("bandconv", "bandconv_pallas", *_BAND):
         return impl
     if impl != "auto":
         raise NotImplementedError(
             f"decoder_impl={impl!r} is a reference decision record and is not "
-            "ported; have auto | bandconv | bandconv_pallas"
+            "ported; have auto | bandconv | bandconv_pallas | band | band_pallas"
         )
     TpC = cfg.enc_time * cfg.conv2_filters
     TM = cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in
@@ -292,11 +302,15 @@ class ConvSep(nn.Module):
             self.register_parameter(name, nn.Parameter(t, requires_grad=trainable))
 
     def _operands(self) -> dict[str, torch.Tensor]:
+        """The composed encoder weight and, for the composed decodes, their
+        operands (the two-stage band decodes read the raw expansion)."""
         cfg = self.config
         w_eff, c = compose_collapsed_fc(
             self.fc_kernel, self.fc_bias, self.conv1_kernel, self.conv1_bias,
             self.conv2_kernel, self.conv2_bias, cfg,
         )
+        if cfg.decoder_impl in _BAND:
+            return {"w_eff": w_eff, "bias_eff": c}
         KC, _, _, _ = band_freq_conv_kernel(
             self.conv2_kernel, self.conv1_kernel, cfg.enc_time, cfg.conv1_freq_stride
         )
@@ -311,7 +325,8 @@ class ConvSep(nn.Module):
         """Compute the composed encoder weight and the decode operands once
         (the reference's ``precompose_collapsed`` + ``prepare_inference``)
         and drop the raw ``fc_expand_kernel``: the padded ``k4`` replaces
-        it, so the 827 MB highres4096 leaf is held once. A prepared model
+        it, so the 827 MB highres4096 leaf is held once. The band decodes
+        keep the raw leaf and build no ``k4``. A prepared model
         cannot be exported back to the reference tree. A trainable model
         (conv encoder) is never prepared: its training step composes the
         decode from the live kernels."""
@@ -319,10 +334,13 @@ class ConvSep(nn.Module):
             raise ValueError("prepare_inference needs the collapsed encoder; this model trains")
         if self.prepared:
             return self
-        for name, t in self._operands().items():
+        ops = self._operands()
+        for name, t in ops.items():
             self.register_buffer(name, t.contiguous())
-        del self.fc_expand_kernel
+        if "k4" in ops:
+            del self.fc_expand_kernel
         self.prepared = True
+        self._prepared_ops = tuple(ops)
         return self
 
     def sources(self, x: torch.Tensor) -> torch.Tensor:
@@ -339,16 +357,15 @@ class ConvSep(nn.Module):
         if (T, F, C) != (cfg.time_context, cfg.feat_size, cfg.channels_in):
             raise ValueError(f"input {tuple(x.shape)} does not match config {cfg}")
         ops = (
-            {n: getattr(self, n) for n in ("w_eff", "bias_eff", "k4", "b3", "kcat")}
+            {n: getattr(self, n) for n in self._prepared_ops}
             if self.prepared else self._operands()
         )
         fc = torch.relu(x.reshape(B, -1).float() @ ops["w_eff"] + ops["bias_eff"])
+        route = resolve_decoder_impl(cfg, x.device)
+        if route in _BAND:
+            return self._band_decode(fc, route, B, C)
         md = _DTYPES[cfg.mask_dtype]
-        decode = (
-            band_freq_decode
-            if resolve_decoder_impl(cfg, x.device) == "bandconv_pallas"
-            else band_freq_decode_plain
-        )
+        decode = band_freq_decode if route == "bandconv_pallas" else band_freq_decode_plain
         o4 = decode(fc, ops["k4"], ops["b3"], ops["kcat"], out_dtype=md)
         S, W_pad = cfg.num_sources, o4.shape[2]
         M = cfg.conv1_freq_stride * C
@@ -356,6 +373,22 @@ class ConvSep(nn.Module):
             o4.reshape(B * S, W_pad, T, M), cfg.conv1_freq_stride, C,
             cfg.conv1_freq, cfg.enc_freq, cfg.feat_size,
         )
+        return _finish(d1, self.out_bias, B, S, C, cfg)
+
+    def _band_decode(self, fc: torch.Tensor, route: str, B: int, C: int) -> torch.Tensor:
+        """The two-stage decode (the reference's w-major "band" and
+        "band_pallas"): expansion + ReLU viewed (B·S, W', Tp·C2), the banded
+        time stage, the frequency stage, the tail."""
+        cfg = self.config
+        S, W, Tp, T = cfg.num_sources, cfg.enc_freq, cfg.enc_time, cfg.time_context
+        e = torch.addmm(self.fc_expand_bias, fc, self.fc_expand_kernel).relu_()
+        e = e.reshape(B * S, W, Tp * cfg.conv2_filters)
+        if route == "band_pallas":
+            d2 = band_decode_kernel(e, band_tensor(self.conv2_kernel, T), T)
+        else:
+            d2 = e.reshape(B * S * W, -1) @ _band_matrix_for(self.conv2_kernel, Tp)
+        d1 = freq_decode_wmajor(d2.reshape(B * S, W, T, cfg.conv1_filters), self.conv1_kernel,
+                                cfg.conv1_freq_stride, cfg.feat_size)
         return _finish(d1, self.out_bias, B, S, C, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,11 @@ adadelta bit for bit (both round every operation on its own), its
 gradient square-sum within 1e-6 relative (the kernel sums in double); the
 iSTFT kernel 1e-5 absolute (int16 ±1 LSB); the Wiener mask kernel bit for
 bit at p in {1, 2} (both round every operation alike, in one order) and
-1e-6 relative through powf."""
+1e-6 relative through powf; the forward STFT kernel 1e-5 × max|X| (an FFT
+against the factored DFT's sums); the Wiener+iSTFT kernel's Nyquist-row
+input bit for bit against the same kernel fed the concatenated spectrum;
+the band decode kernel 1e-5 × max|out| against the f32 product of the
+same bf16-rounded operands."""
 
 import dataclasses
 import functools
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from convsep_tpu_torch import kernels
+from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas, stft_ct_pallas_plain
 from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     istft_ct_pallas,
     istft_ct_pallas_plain,
@@ -36,6 +41,12 @@ from convsep_tpu_torch.dsp.dft import stft_matmul
 from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.convsep import band_freq_conv_kernel
+from convsep_tpu_torch.models.decoder_band_cuda import (
+    band_decode_pallas,
+    band_decode_wmajor,
+    band_decode_wmajor_plain,
+    band_tensor,
+)
 from convsep_tpu_torch.models.decoder_fused_cuda import (
     band_freq_decode,
     band_freq_decode_plain,
@@ -171,7 +182,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
     launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "fused_adadelta": 0,
-                "istft": 0, "wiener_apply": 0}
+                "istft": 0, "wiener_apply": 0, "wiener_istft_ny": 0, "ct_stft": 0,
+                "band_decode": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -488,3 +500,155 @@ def test_tiny_pallas_route_slice_matches_matmul_route(cuda):
     want = Separator(mm, state, device=cuda)(mix).astype(np.float64)
     snr = 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
     assert got.shape == (4, 9000) and np.isfinite(got).all() and snr >= 70.0, snr
+
+
+@pytest.mark.parametrize(
+    "nfft,B,length",
+    [
+        (4096, 1, 1_474_560),   # one 30 s multires4096 track: nf 1442
+        (4096, 3, 60_001),      # nf 61: an odd last frame pairs with zeros
+        (4096, 1, 1),           # one sample: 3 frames
+        (2048, 2, 33_333),
+        (8192, 2, 100_000),
+    ],
+)
+def test_ct_stft_kernel_matches_plain(rng, cuda, nfft, B, length):
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
+    w = sinebell(nfft)
+    before = kernels.LAUNCHES["ct_stft"]
+    got = stft_ct_pallas(x, w, 1024)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ct_stft"] == before + 1
+    want = stft_ct_pallas_plain(x, w, 1024)
+    nf = -(-length // 1024) + 2
+    assert got[0].shape == (B, nf, nfft // 2) and got[2].shape == (B, nf)
+    peak = max(a.abs().max().item() for a in want)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, atol=1e-5 * peak, rtol=0)
+    for g, one in zip(got, stft_ct_pallas(x[0], w, 1024)):  # unbatched
+        assert torch.equal(g[0], one)
+
+
+def test_ct_stft_kernel_refuses(cuda):
+    x = torch.zeros(2, 5000, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        stft_ct_pallas(x, sinebell(4096), 512)
+    with pytest.raises(ValueError, match="kernel unsupported"):
+        stft_ct_pallas(torch.zeros(2, 50000, device=cuda), sinebell(16384), 1024)
+
+
+@pytest.mark.parametrize("S,kw", [(4, {}), (4, {"p": 2.0}), (3, {"conserve_last": True}),
+                                  (4, {"output_dtype": "int16"})])
+@pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
+def test_wiener_istft_ny_input(rng, cuda, S, kw, ydt):
+    """The Nyquist-row input against the plain version and, bit for bit,
+    against the same kernel fed the concatenated spectrum."""
+    w, length = sinebell(4096), 60_000
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, length))).astype(np.float32)).to(cuda)
+    re, im, ny = stft_ct_pallas(x, w, 1024)
+    y = np.abs(rng.standard_normal((2, S, re.shape[1], 2049))).astype(np.float32)
+    y[..., : re.shape[1] // 3, :8] = 0.0
+    y = torch.from_numpy(y).to(cuda).to(ydt)
+    full_re = torch.cat([re, ny[..., None]], -1)
+    full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
+    before = dict(kernels.LAUNCHES)
+    got = wiener_istft(y, re, im, w, 1024, length, ny=ny, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wiener_istft_ny"] == before["wiener_istft_ny"] + 1
+    assert kernels.LAUNCHES["wiener_istft"] == before["wiener_istft"]
+    assert torch.equal(got, wiener_istft(y, full_re, full_im, w, 1024, length, **kw))
+    _close(got, wiener_istft_plain(y, re, im, w, 1024, length, ny=ny, **kw),
+           kw.get("output_dtype", "float32"))
+
+
+@pytest.mark.parametrize(
+    "N,Tp,W,C2,kh,I",
+    [
+        (196, 16, 505, 50, 15, 50),   # one multires4096 track: depth 800, 1500 columns
+        (3, 16, 13, 8, 15, 6),
+        (2, 6, 9, 8, 5, 3),
+        (5, 1, 7, 16, 1, 130),        # one tap: the band is block-diagonal
+        (1, 4, 200, 10, 9, 7),
+    ],
+)
+def test_band_decode_kernel_matches_plain(rng, cuda, N, Tp, W, C2, kh, I):
+    T = Tp + kh - 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((N, W, Tp * C2)).astype(np.float32))).to(cuda)
+    k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32)).to(cuda)
+    band = band_tensor(k, T)
+    before = kernels.LAUNCHES["band_decode"]
+    got = band_decode_wmajor(z, band, T)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_decode"] == before + 1
+    want = band_decode_wmajor_plain(z, band)
+    assert got.shape == want.shape == (N, W, T * I) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    assert torch.equal(band_decode_wmajor(z.to(torch.bfloat16), band, T), got)
+    zt = z.reshape(N, W, Tp, C2).permute(0, 2, 1, 3)  # the reference's (N, Tp, W, O)
+    assert torch.equal(band_decode_pallas(zt, k, T), got)
+
+
+def test_band_decode_kernel_refuses(cuda):
+    band = band_tensor(torch.zeros(3, 1, 2, 5, device=cuda), 6)
+    with pytest.raises(ValueError, match="Tp·O % 8"):
+        band_decode_wmajor(torch.zeros(2, 3, 20, device=cuda), band, 6)
+    with pytest.raises(ValueError, match="mixed devices"):
+        band_decode_wmajor(torch.zeros(2, 3, 20), band, 6)
+
+
+def _tiny_multires(**model_kw):
+    """multires4096's transform (4096 pt, hop 1024, channels at 1024 and
+    2048 points) and model geometry, cut in width, f32 tail."""
+    from convsep_tpu_torch.configs import get_preset
+
+    p = get_preset("multires4096")
+    return dataclasses.replace(
+        p, sep=dataclasses.replace(p.sep, segment_bucket=1),
+        model=dataclasses.replace(p.model, conv1_freq=9, conv1_filters=4, conv2_filters=4,
+                                  bottleneck=8, mask_dtype="float32", **model_kw),
+    )
+
+
+def test_tiny_multires_ct_route_matches_matmul_route(cuda):
+    """``analysis="ct_pallas"`` on the card: the forward STFT kernel and the
+    Nyquist-row Wiener+iSTFT kernel, one launch each, against the matmul
+    route by SNR (the two analyses sum in other orders)."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.separate import Separator
+
+    p = _tiny_multires(decoder_impl="bandconv")
+    ct = dataclasses.replace(p, transform=dataclasses.replace(p.transform, analysis="ct_pallas"))
+    state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    mix = (0.2 * np.random.default_rng(3).standard_normal(40_000)).astype(np.float32)
+    kernels.reset_launches()
+    got = Separator(ct, state, device=cuda)(mix)
+    assert {k: kernels.LAUNCHES[k] for k in ("ct_stft", "wiener_istft_ny", "wiener_istft")} == {
+        "ct_stft": 1, "wiener_istft_ny": 1, "wiener_istft": 0}
+    want = Separator(p, state, device=cuda)(mix).astype(np.float64)
+    snr = 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
+    assert got.shape == (4, 40_000) and np.isfinite(got).all() and snr >= 70.0, snr
+
+
+def test_tiny_multires_band_pallas_matches_plain_band(cuda):
+    """``decoder_impl="band_pallas"`` on the card: the band decode kernel
+    against its plain version in the same model (the same z, so the same
+    bf16 roundings), on the model's output y."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.models import convsep as tconv
+    from convsep_tpu_torch.separate import Separator, source_magnitudes
+
+    p = _tiny_multires(decoder_impl="band_pallas")
+    state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    sep = Separator(p, state, device=cuda)
+    x = torch.from_numpy((0.2 * np.random.default_rng(4).standard_normal((1, 30 * 1024)))
+                         .astype(np.float32)).to(cuda)
+    kernels.reset_launches()
+    y = source_magnitudes(sep.model, x, p)[0]
+    assert kernels.LAUNCHES["band_decode"] == 1 and kernels.LAUNCHES["fused_decode"] == 0
+    def plain(z, band, T):
+        return band_decode_wmajor_plain(z, band)
+
+    with mock.patch.object(tconv, "band_decode_kernel", plain):
+        y_p = source_magnitudes(sep.model, x, p)[0]
+    assert kernels.LAUNCHES["band_decode"] == 1
+    torch.testing.assert_close(y, y_p, atol=1e-5 * y_p.abs().max().item(), rtol=0)

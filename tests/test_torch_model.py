@@ -140,6 +140,6 @@ def test_decoder_routing():
     assert tconv.resolve_decoder_impl(cfg, cpu) == "bandconv"
     assert tconv.resolve_decoder_impl(dataclasses.replace(cfg, decoder_impl="bandconv_pallas"), cpu) == "bandconv_pallas"
     with pytest.raises(NotImplementedError):
-        tconv.resolve_decoder_impl(dataclasses.replace(cfg, decoder_impl="band"), cpu)
+        tconv.resolve_decoder_impl(dataclasses.replace(cfg, decoder_impl="band_einsum"), cpu)
     with pytest.raises(NotImplementedError):
         ConvSep(dataclasses.replace(cfg, encoder_impl="conv"))

@@ -3,12 +3,15 @@
 copied to pinned and to pageable host memory, or where the device time
 goes (convsep_tpu_torch; no JAX).
 
-    python3 tools/torch_time_separate.py [--profile] [--out FILE]
+    python3 tools/torch_time_separate.py [--profile] [--only NAME ...] [--out FILE]
 
-Four slices at full width with seeded random weights on the 30 s mixture
+Eight slices at full width with seeded random weights on the 30 s mixture
 of ``chip_smoke.py`` (its stereo mixture for the stereo preset):
 highres4096 and dsd100 (``Separator``, matmul route), dsd100 with
-``fft_impl="pallas"``, and highres4096-stereo (``StereoSeparator``).
+``fft_impl="pallas"``, highres4096-stereo (``StereoSeparator``),
+multires4096 on its three routes ("auto", ``analysis="ct_pallas"``,
+``decoder_impl="band_pallas"``) and bach10 with ``chip_smoke.py``'s score
+channels at score_gate 0.5 "mult". ``--only`` keeps the named slices.
 
 Without ``--profile``: the host clock around each call (it ends in the
 stems' host copy), median of 5 after one warm-up, in turns pageable,
@@ -23,7 +26,6 @@ the two modes as two processes. ``--out`` writes the numbers as JSON.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -44,22 +46,40 @@ from convsep_tpu_torch.utils.transfer import fetch  # noqa: E402
 from tools.torch_profile_train import device_rows  # noqa: E402
 
 
-def slices(dev):
-    """(name, separator, audio) for each slice, built one at a time."""
-    def with_impl(p, impl):
-        return dataclasses.replace(
-            p, transform=dataclasses.replace(p.transform, fft_impl=impl))
+def bach10_extra(preset, audio, dev):
+    """The score channels ``chip_smoke.py`` feeds bach10 (its fixed notes)."""
+    from convsep_tpu_torch.data.features import score_channels
+    from convsep_tpu_torch.dsp.transform import TransformFFT
 
+    mag = TransformFFT(preset.transform, device=dev).compute_file(audio)
+    return score_channels(mag, cs.bach10_notes(), preset, "comb") * preset.train.mult_factor_in
+
+
+def slices(dev, only=None):
+    """(name, separator, audio, call kwargs) for each slice, built one at a
+    time."""
+    mono, mr, b10 = cs.mixture(0), get_preset("multires4096"), get_preset("bach10")
+    b10 = cs.with_fields(b10, sep={"score_gate": 0.5, "score_gate_mode": "mult"})
     for name, preset, cls, audio in (
-        ("highres4096", get_preset("highres4096"), Separator, cs.mixture(0)),
-        ("dsd100", get_preset("dsd100"), Separator, cs.mixture(0)),
-        ("dsd100 fft_impl=pallas", with_impl(get_preset("dsd100"), "pallas"), Separator,
-         cs.mixture(0)),
+        ("highres4096", get_preset("highres4096"), Separator, mono),
+        ("dsd100", get_preset("dsd100"), Separator, mono),
+        ("dsd100 fft_impl=pallas", cs.with_fields(get_preset("dsd100"),
+                                                  transform={"fft_impl": "pallas"}),
+         Separator, mono),
         ("highres4096-stereo", get_preset("highres4096-stereo"), StereoSeparator,
          cs.stereo_mixture(0)),
+        ("multires4096", mr, Separator, mono),
+        ("multires4096 analysis=ct_pallas", cs.with_fields(mr, transform={"analysis": "ct_pallas"}),
+         Separator, mono),
+        ("multires4096 decoder_impl=band_pallas",
+         cs.with_fields(mr, model={"decoder_impl": "band_pallas"}), Separator, mono),
+        ("bach10 score_gate=0.5 mult", b10, Separator, mono),
     ):
+        if only and name not in only:
+            continue
         state = init_params(preset.model, torch.Generator(device=dev).manual_seed(0), dev)
-        yield name, cls(preset, state, device=dev), audio
+        kw = {"extra": bach10_extra(preset, audio, dev)} if preset.name == "bach10" else {}
+        yield name, cls(preset, state, device=dev), audio, kw
         del state
         torch.cuda.empty_cache()
 
@@ -76,6 +96,7 @@ def pageable(t: torch.Tensor):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--only", nargs="*", default=None, help="slice names to run")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,15 +106,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     out = {"smi": cs.smi_line()}
-    for name, sep, audio in slices(dev):
+    for name, sep, audio, kw in slices(dev, args.only):
         if args.profile:
             for _ in range(3):
-                sep(audio)
+                sep(audio, **kw)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(3):
-                    sep(audio)
+                    sep(audio, **kw)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / 3
             rows = device_rows(prof, 3)
@@ -107,7 +128,7 @@ def main() -> int:
             times = {"pageable": [], "pinned": []}
             for mode in ("pageable", "pinned", "pinned", "pageable"):
                 set_fetch(pageable if mode == "pageable" else fetch)
-                times[mode].append(cs.time_track(sep, audio))
+                times[mode].append(cs.time_track(sep, audio, **kw))
             set_fetch(fetch)
             print(f"{name}: ms per track, stems to pageable memory {times['pageable']}, "
                   f"to pinned memory {times['pinned']}")
