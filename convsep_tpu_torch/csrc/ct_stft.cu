@@ -1,5 +1,5 @@
 // Fused forward STFT: W/2 front padding, framing, window and half-spectrum
-// DFT, with the Nyquist bin as a row of its own, for Hopper (sm_90a).
+// FFT, with the Nyquist bin as a row of its own, for Hopper (sm_90a).
 //
 // Replaces convsep_tpu/dsp/pallas/ct_stft_kernel.py::stft_ct_pallas (_kernel
 // and the XLA-side Nyquist dots of _impl). For every track n and frame f,
@@ -11,106 +11,99 @@
 //
 // What bounds it on the H100: device-memory bytes. Per 30 s track
 // (1 474 560 samples, nfft 4096, hop 1024) it reads 5.9 MB of signal and
-// writes 23.6 MB of spectra; the FFT's ~1.1e8 operations are far below that.
+// writes 23.6 MB of spectra, 8.8 us at 3.35 TB/s; the FFT's 1.8e8
+// operations are 2.7 us at 67 TFLOP/s in float32.
 //
-// Design, and how it differs from the TPU kernel. The TPU kernel split
-// n = 128 a + b into 128-lane matmuls with block-diagonal stage matrices and
-// identity-dot transposes for Mosaic; what it computes is kept, not how:
-// * one block per (run of R frames, track); it loads the frames' span of the
-//   signal, (R - 1) hop + nfft samples, into shared memory once, so
-//   overlapping frames share it, and applies the front padding there;
-// * two real frames ride one complex radix-2 FFT (z = a + i b, the FFT of
-//   istft_common.cuh with the forward twiddles); A[k] = (Z[k] + conj(Z[-k]))/2
-//   and B[k] = (Z[k] - conj(Z[-k]))/2i split them again;
-// * bins 0 .. nfft/2 - 1 are written in natural order, the Nyquist bin to ny.
+// Design: the TPU kernel split n = 128 a + b into 128-lane matmuls with
+// block-diagonal stage matrices and identity-dot transposes for Mosaic; what
+// it computes is kept, not how. The FFT core of fft_common.cuh, shared with
+// stft_dft.cu: a block loads the signal span of its 2 G frames once with
+// 16-byte loads (front padding by guards), each of its G groups of nfft / 16
+// threads runs a register-resident Stockham FFT of two real frames (log16
+// passes, an exchange through shared memory between them, each behind a
+// barrier of that group alone) with twiddles from a float32 quarter table
+// made once on the host and held in shared memory, and splits them into
+// bins 0 .. nfft/2 - 1 in natural order,
+// written coalesced, and the Nyquist bin to ny. At 4096 points a group is
+// 256 threads and a block two groups (four frames): one track is 361 blocks
+// (fft_plan.stft_plan). So no pass waits on a block-wide barrier, no frame
+// pair waits on another, no store scatters to bit-reversed slots, and no
+// block computes twiddles.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "istft_common.cuh"
+#include "fft_common.cuh"
 
 namespace {
 
-using namespace istft_common;
+using namespace fft_common;
 
-constexpr int kThreads = 512;
-
-__global__ void __launch_bounds__(kThreads) ct_stft_kernel(
-    const float* __restrict__ x, const float* __restrict__ win, float* __restrict__ re,
-    float* __restrict__ im, float* __restrict__ ny, int L, int nfft, int log2n, int hop,
-    int nf, int frames_per_block) {
-  extern __shared__ float2 smem2[];
-  const int half = nfft / 2;
-  float2* tw = smem2;                                   // half
-  float2* buf = tw + half;                              // nfft
-  float* span = reinterpret_cast<float*>(buf + nfft);   // (R - 1) hop + nfft
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int f0 = blockIdx.x * frames_per_block;
-  const int nfr = min(frames_per_block, nf - f0);
-  const int span_len = (nfr - 1) * hop + nfft;
-  // signal index of span[0]: padded position f0 hop, less the front padding
-  const long long s0 = (long long)f0 * hop - half;
-  const float* xs = x + (long long)n * L;
-
-  init_twiddles(tw, half, nfft, tid, kThreads, -1.f);
-  for (int i = tid; i < span_len; i += kThreads) {
-    const long long s = s0 + i;
-    span[i] = (s >= 0 && s < L) ? xs[s] : 0.f;
+// re / im rows (B nf, nfft / 2) below Nyquist, and ny (B nf)
+struct HalfRows {
+  float* re;
+  float* im;
+  float* ny;
+  int half;
+  __device__ __forceinline__ void operator()(long long row, bool has_b, int k, float2 a,
+                                             float2 b) const {
+    if (k == half) {  // A[N/2] = Re Z[N/2], B[N/2] = Im Z[N/2]: both real
+      ny[row] = a.x;
+      if (has_b) ny[row + 1] = b.x;
+      return;
+    }
+    const long long o = row * half + k;
+    re[o] = a.x;
+    im[o] = a.y;
+    if (has_b) {
+      re[o + half] = b.x;
+      im[o + half] = b.y;
+    }
   }
-  __syncthreads();
-  for (int r = 0; r < nfr; r += 2) {
-    const bool has1 = r + 1 < nfr;
-    const float* a = span + r * hop;
-    const float* b = a + hop;
-    // windowed frames r (real part) and r + 1 (imaginary part), stored at
-    // bit-reversed slots for the decimation-in-time FFT
-    for (int t = tid; t < nfft; t += kThreads) {
-      const float wv = win[t];
-      buf[bin_slot<true>(t, log2n)] = make_float2(a[t] * wv, has1 ? b[t] * wv : 0.f);
-    }
-    __syncthreads();
-    fft_stages(buf, tw, nfft, log2n, tid, kThreads);
-    const long long oa = ((long long)n * nf + f0 + r) * half;
-    const long long ob = oa + half;
-    for (int k = tid; k < half; k += kThreads) {
-      const float2 z = buf[k];
-      const float2 w = buf[(nfft - k) & (nfft - 1)];
-      re[oa + k] = 0.5f * (z.x + w.x);
-      im[oa + k] = 0.5f * (z.y - w.y);
-      if (has1) {
-        re[ob + k] = 0.5f * (z.y + w.y);
-        im[ob + k] = 0.5f * (w.x - z.x);
-      }
-    }
-    if (tid == 0) {
-      const float2 z = buf[half];  // A[N/2] = Re Z[N/2], B[N/2] = Im Z[N/2]
-      const long long o = (long long)n * nf + f0 + r;
-      ny[o] = z.x;
-      if (has1) ny[o + 1] = z.y;
-    }
-    __syncthreads();  // buf is read before the next pair overwrites it
-  }
+};
+
+template <int LOG2N>
+__global__ void __launch_bounds__(kMaxThreads) ct_stft_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    float* __restrict__ re, float* __restrict__ im, float* __restrict__ ny, int L, int hop,
+    int nf) {
+  stft_block<LOG2N>(x, win, tw, L, 1 << LOG2N, hop, nf,
+                    HalfRows{re, im, ny, (1 << LOG2N) / 2});
+}
+
+template <int LOG2N>
+cudaError_t launch(const float* x, const float* win, const float2* tw, float* re, float* im,
+                   float* ny, int B, int L, int hop, int nf, int ffts, cudaStream_t stream) {
+  const size_t smem = smem_bytes(LOG2N, 1 << LOG2N, hop, ffts);
+  cudaError_t err = cudaFuncSetAttribute(ct_stft_kernel<LOG2N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * ((nf + 2 * ffts - 1) / (2 * ffts));
+  ct_stft_kernel<LOG2N><<<(unsigned)blocks, ffts * fft_threads(LOG2N), smem, stream>>>(
+      x, win, tw, re, im, ny, L, hop, nf);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ct_stft_launch(const void* x, const void* win, void* re, void* im, void* ny,
-                              int B, int L, int nfft, int hop, int nf, int frames_per_block,
-                              void* stream) {
-  const int log2n = pow2_log(nfft);
-  if (B < 1 || L < 1 || nf < 1 || hop < 1 || log2n < 1 || frames_per_block < 2 ||
-      frames_per_block % 2 != 0)
+// nfft = window, a power of two in [2^11, 2^13]; `ffts` complex FFTs (2 ffts
+// frames) per block, from fft_plan.stft_plan.
+extern "C" int ct_stft_launch(const void* x, const void* win, const void* tw, void* re,
+                              void* im, void* ny, int B, int L, int nfft, int hop, int nf,
+                              int ffts, void* stream) {
+  const int log2n = plan_log2(nfft);
+  if (B < 1 || L < 1 || nf < 1 || hop < 1 || log2n < 11 || ffts < 1 || ffts > 8 ||
+      ffts * fft_threads(log2n) > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(nfft / 2) * sizeof(float2) + (size_t)nfft * sizeof(float2) +
-                      (size_t)((frames_per_block - 1) * hop + nfft) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(ct_stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((nf + frames_per_block - 1) / frames_per_block, B);
-  ct_stft_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(win), static_cast<float*>(re),
-      static_cast<float*>(im), static_cast<float*>(ny), L, nfft, log2n, hop, nf,
-      frames_per_block);
-  return (int)cudaGetLastError();
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(win);
+  const auto* t = static_cast<const float2*>(tw);
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  auto* n = static_cast<float*>(ny);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (log2n) {
+    case 11: return (int)launch<11>(xs, w, t, r, i, n, B, L, hop, nf, ffts, s);
+    case 12: return (int)launch<12>(xs, w, t, r, i, n, B, L, hop, nf, ffts, s);
+    default: return (int)launch<13>(xs, w, t, r, i, n, B, L, hop, nf, ffts, s);
+  }
 }

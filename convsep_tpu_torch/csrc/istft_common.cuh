@@ -1,5 +1,4 @@
-// Shared device code of the inverse-STFT kernels (wiener_istft.cu, istft.cu);
-// the forward STFT kernel (ct_stft.cu) takes the twiddles and the FFT.
+// Shared device code of the inverse-STFT kernels (wiener_istft.cu, istft.cu).
 //
 // A block inverse-transforms frames one complex FFT at a time in shared
 // memory: two real frames A, B (hermitian half-spectra) ride one transform
@@ -23,16 +22,14 @@ inline int pow2_log(int nfft) {
   return (1 << lg) == nfft ? lg : 0;
 }
 
-// twiddles tw[j] = e^{sign 2 pi i j / nfft}, j < tw_len, from double
-// precision (tw_len is nfft / 2 for the FFT, nfft for the direct sum);
-// sign +1 (the default) for the inverse transforms, -1 for the forward one
-// (ct_stft.cu). fft_stages runs either sign.
+// twiddles tw[j] = e^{+2 pi i j / nfft}, j < tw_len, from double precision
+// (tw_len is nfft / 2 for the FFT, nfft for the direct sum)
 __device__ __forceinline__ void init_twiddles(float2* tw, int tw_len, int nfft, int tid,
-                                              int nthreads, float sign = 1.f) {
+                                              int nthreads) {
   for (int j = tid; j < tw_len; j += nthreads) {
     double s, c;
     sincospi(2.0 * (double)j / (double)nfft, &s, &c);
-    tw[j] = make_float2((float)c, sign * (float)s);
+    tw[j] = make_float2((float)c, (float)s);
   }
 }
 
@@ -55,7 +52,7 @@ __device__ __forceinline__ void pack_pair(float2* buf, int k, int nfft, int log2
   if (k != 0 && k != half) buf[bin_slot<kPow2>(nfft - k, log2n)] = make_float2(ar + bi, br - ai);
 }
 
-// Iterative radix-2 decimation in time, the twiddles' sign, in place over buf. Every
+// Iterative radix-2 decimation in time, in place over buf. Every
 // thread of the block must call it; each stage ends in __syncthreads. No
 // stages when log2n is 0 (the direct sum reads buf as it is).
 __device__ __forceinline__ void fft_stages(float2* buf, const float2* tw, int nfft, int log2n,

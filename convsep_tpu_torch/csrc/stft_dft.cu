@@ -1,40 +1,96 @@
-// Fused framing + windowed dense DFT (the STFT), for Hopper (sm_90a).
+// The STFT of the training step and the fft_impl="pallas" separation route,
+// for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
+// (stft_fft_kernel), and the dense DFT (stft_dft_kernel) for the sizes the
+// FFT core does not plan.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
-// signal b, frame f and bin c:
+// signal b, frame f and bin c < nfft / 2 + 1:
 //
-//   re[b, f, c] = sum_n x[b, f * hop + n - W / 2] * cosw[n, c]
-//   im[b, f, c] = sum_n x[b, f * hop + n - W / 2] * sinw[n, c]
+//   X[b, f, c] = sum_{t < W} x[b, f hop + t - W / 2] win[t] e^{-2 pi i c t / nfft}
 //
-// with cosw / sinw the (W, bins) window-folded DFT matrices (sinw carries the
-// minus sign) and x read as zero outside [0, L): that is the W / 2 front pad
-// and the tail pad of stft_matmul's framing, applied by the guard instead of
-// a padded copy.
+// with x read as zero outside [0, L): the W / 2 front pad and the tail pad of
+// stft_matmul's framing, applied by guards instead of a padded copy.
 //
-// What bounds it on the H100: arithmetic. The dsd100 training step takes the
-// STFT of 32 mixtures and 128 stems of 14 336 samples (nf 30, W 1024, bins
-// 513): 4 * 160 * 30 * 1024 * 513 = 10.1 GFLOP, here in float32 on the CUDA
-// cores (no TF32). The signals (9 MB) and the matrices (4.2 MB) stay in L2.
+// What bounds it on the H100: device-memory bytes. The dsd100 training step
+// takes the STFT of 32 mixtures and 128 stems of 14 336 samples (nf 30, W
+// 1024, 513 bins): 9.2 MB read and 19.7 MB written, 8.6 us at 3.35 TB/s,
+// while the FFT's 1.2e8 operations are 1.8 us at 67 TFLOP/s in float32. The
+// dense DFT this file first held did 10.1 GFLOP for the same step (0.15 ms
+// at best on the CUDA cores) and read 4.2 MB of window-folded cos / sin
+// matrices: no tiling of it comes near the bound.
 //
-// Design: as on the TPU, frames are never written to device memory. Sample
-// n = i * hop + h of frame f lies in hop row f + i, column h, so a tile of TF
-// frames reads hop rows [f0, f0 + TF + k - 1), k = W / hop. A block owns TF
-// frames x TB bins of one signal. It walks the hop columns in chunks of HC:
-// it stages that column chunk of its TF + k - 1 hop rows in shared memory,
-// then for each row offset i stages the HC x TB tiles of cosw and sinw (rows
-// i * hop + h) and every thread accumulates 2 frames x 4 bins of re and of
-// im in registers. Frames past nf and bins past `bins` are computed from
-// zeros and never stored.
+// Design (stft_fft_kernel, powers of two 2^4 .. 2^13): fft_common.cuh. A
+// block loads the signal span of its 2 G frames once with 16-byte loads
+// (guards give the pads and the zeros past W), and each of its G groups of
+// nfft / 16 threads runs one register-resident Stockham FFT that carries two
+// frames, then writes both frames' rows, Nyquist bin included, coalesced by
+// bin. The twiddles come from a float32 quarter table made once on the host
+// and copied into shared memory by each block. G is
+// chosen on the host (fft_plan.stft_plan) so that a shape fills the card:
+// B 32 x 30 frames at 1024 points runs one FFT per block (480 blocks), B 128
+// four (512 blocks), the dsd100 separation track's 2882 frames four (361).
+//
+// stft_dft_kernel (any other nfft: no preset uses one) multiplies frames
+// built from hop rows staged in shared memory by the (W, bins) window-folded
+// cos / -sin matrices: a block owns 32 frames x 64 bins of one signal and
+// every thread accumulates 2 frames x 4 bins of re and of im in registers.
 
 #include <cuda_runtime.h>
 
+#include "fft_common.cuh"
+
 namespace {
+
+using namespace fft_common;
+
+// re / im rows (B nf, nfft / 2 + 1), the Nyquist bin included
+struct FullRows {
+  float* re;
+  float* im;
+  int bins;
+  __device__ __forceinline__ void operator()(long long row, bool has_b, int k, float2 a,
+                                             float2 b) const {
+    const long long o = row * bins + k;
+    re[o] = a.x;
+    im[o] = a.y;
+    if (has_b) {
+      re[o + bins] = b.x;
+      im[o + bins] = b.y;
+    }
+  }
+};
+
+template <int LOG2N>
+__global__ void __launch_bounds__(kMaxThreads) stft_fft_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    float* __restrict__ re, float* __restrict__ im, int L, int W, int hop, int nf) {
+  stft_block<LOG2N>(x, win, tw, L, W, hop, nf, FullRows{re, im, (1 << LOG2N) / 2 + 1});
+}
+
+template <int LOG2N>
+cudaError_t launch_fft(const float* x, const float* win, const float2* tw, float* re, float* im,
+                       int B, int L, int W, int hop, int nf, int ffts, cudaStream_t stream) {
+  const size_t smem = smem_bytes(LOG2N, W, hop, ffts);
+  cudaError_t err = cudaFuncSetAttribute(stft_fft_kernel<LOG2N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * ((nf + 2 * ffts - 1) / (2 * ffts));
+  stft_fft_kernel<LOG2N><<<(unsigned)blocks, ffts * fft_threads(LOG2N), smem, stream>>>(
+      x, win, tw, re, im, L, W, hop, nf);
+  return cudaGetLastError();
+}
 
 constexpr int kThreads = 256;
 constexpr int kTF = 32;  // frames per block: 16 thread rows of 2
 constexpr int kTB = 64;  // bins per block: 16 thread columns of 4
 constexpr int kHC = 32;  // hop columns per chunk
 
+// Sample n = i * hop + h of frame f lies in hop row f + i, column h, so a
+// tile of TF frames reads hop rows [f0, f0 + TF + k - 1), k = W / hop. The
+// block walks the hop columns in chunks of HC: it stages that column chunk
+// of its hop rows in shared memory, then for each row offset i the HC x TB
+// tiles of cosw and sinw (rows i * hop + h). Frames past nf and bins past
+// `bins` are computed from zeros and never stored.
 __global__ void __launch_bounds__(kThreads) stft_dft_kernel(
     const float* __restrict__ x, const float* __restrict__ cosw,
     const float* __restrict__ sinw, float* __restrict__ re, float* __restrict__ im,
@@ -116,6 +172,39 @@ __global__ void __launch_bounds__(kThreads) stft_dft_kernel(
 
 }  // namespace
 
+// The FFT route: nfft a power of two in [2^4, 2^13], W <= nfft, `ffts`
+// complex FFTs (2 ffts frames) per block, from fft_plan.stft_plan.
+extern "C" int stft_fft_launch(const void* x, const void* win, const void* tw, void* re,
+                               void* im, int B, int L, int W, int hop, int nf, int nfft,
+                               int ffts, void* stream) {
+  const int log2n = plan_log2(nfft);
+  const int threads = log2n ? ffts * fft_threads(log2n) : 0;
+  if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !log2n ||
+      ffts < 1 || threads > kMaxThreads || threads % 32 != 0 ||
+      (fft_threads(log2n) > 32 && ffts > 8))
+    return (int)cudaErrorInvalidValue;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(win);
+  const auto* t = static_cast<const float2*>(tw);
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (log2n) {
+    case 4: return (int)launch_fft<4>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 5: return (int)launch_fft<5>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 6: return (int)launch_fft<6>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 7: return (int)launch_fft<7>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 8: return (int)launch_fft<8>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 9: return (int)launch_fft<9>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 10: return (int)launch_fft<10>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 11: return (int)launch_fft<11>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    case 12: return (int)launch_fft<12>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+    default: return (int)launch_fft<13>(xs, w, t, r, i, B, L, W, hop, nf, ffts, s);
+  }
+}
+
+// The dense route: any nfft >= W (the wrapper sends it only what the FFT
+// route does not plan).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

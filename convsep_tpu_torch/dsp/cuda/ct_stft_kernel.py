@@ -3,12 +3,14 @@ wrapper, its plain version and the reference's routing rules.
 
 :func:`stft_ct_pallas` replaces
 ``convsep_tpu/dsp/pallas/ct_stft_kernel.py::stft_ct_pallas``. Its kernel
-(``csrc/ct_stft.cu``) pads, frames, windows and FFTs the signal in shared
-memory, so the (nf, W) frames tensor never exists, and writes the
-half-spectrum bins 0 … nfft/2 − 1 in natural order with the real Nyquist bin
-as a row of its own; the Wiener+iSTFT kernel reads that pair as it is
-(``wiener_istft(..., ny=)``). The kernel's header says what bounds it on
-the H100.
+(``csrc/ct_stft.cu``, on the FFT core ``csrc/fft_common.cuh`` that it
+shares with the training STFT kernel) pads, frames, windows and FFTs the
+signal in registers and shared memory, so the (nf, W) frames tensor never
+exists, and writes the half-spectrum bins 0 … nfft/2 − 1 in natural order
+with the real Nyquist bin as a row of its own; the Wiener+iSTFT kernel
+reads that pair as it is (``wiener_istft(..., ny=)``). The launch plan,
+twiddle table and window copy come from :mod:`.fft_plan`; the kernel's
+header says what bounds it on the H100.
 
 The wrapper takes its plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises: there is no fallback.
@@ -16,18 +18,15 @@ it launches the kernel or raises: there is no fallback.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.dft import _key, _window, stft_matmul
+from convsep_tpu_torch.dsp.cuda.fft_plan import fft_supported, stft_plan, twiddles, window_f32
+from convsep_tpu_torch.dsp.dft import stft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
 _B = 128  # the reference kernel's lane-width sample factor: n = 128·a + b
-_SMEM_MAX = 227 * 1024
-_FRAMES = 8  # frames per block: four complex FFTs over one shared signal span
 
 
 def ct_stft_supported(nfft: int, win_len: int, hop: int) -> bool:
@@ -54,19 +53,10 @@ def resolve_analysis(analysis: str) -> str:
     raise ValueError(f"unknown analysis {analysis!r}; have auto | ct_pallas | matmul")
 
 
-def _frames_per_block(nfft: int, hop: int) -> int:
-    """Frames a block transforms (even, at most 8) so that the twiddles, the
-    FFT buffer and the frames' signal span fit in shared memory; 0 if none."""
-    for r in range(_FRAMES, 0, -2):
-        if 12 * nfft + 4 * ((r - 1) * hop + nfft) <= _SMEM_MAX:
-            return r
-    return 0
-
-
 def kernel_supported(nfft: int, hop: int) -> bool:
-    """The CUDA kernel's own envelope: a power-of-two nfft (its radix-2 FFT)
-    whose buffers fit in shared memory (nfft <= 8192 at hop 1024)."""
-    return nfft >= 2 and nfft & (nfft - 1) == 0 and hop > 0 and _frames_per_block(nfft, hop) > 0
+    """The CUDA kernel's own envelope: a power of two from 2048 to 8192
+    (the FFT core's template instances in ``ct_stft.cu``)."""
+    return 2048 <= nfft and fft_supported(nfft) and hop > 0
 
 
 def stft_ct_pallas_plain(signal: torch.Tensor, window: np.ndarray, hop: int,
@@ -77,11 +67,6 @@ def stft_ct_pallas_plain(signal: torch.Tensor, window: np.ndarray, hop: int,
     half = nfft // 2
     re, im = stft_matmul(signal, window, hop, nfft)
     return re[..., :half], im[..., :half], re[..., half]
-
-
-@lru_cache(maxsize=8)
-def _window_f32(window_key: bytes, device: str) -> torch.Tensor:
-    return torch.from_numpy(_window(window_key).astype(np.float32)).to(device)
 
 
 def stft_ct_pallas(
@@ -118,16 +103,19 @@ def stft_ct_pallas(
     nf = num_frames(L, hop)
     half = nfft // 2
     dev = x.device
-    re = torch.empty((B, nf, half), dtype=torch.float32, device=dev)
-    im = torch.empty_like(re)
-    ny = torch.empty((B, nf), dtype=torch.float32, device=dev)
-    win = _window_f32(_key(window), str(dev))
+    out = torch.empty(B * nf * (2 * half + 1), dtype=torch.float32, device=dev)  # one allocation
+    re, im, ny = (out[: B * nf * half].view(B, nf, half),
+                  out[B * nf * half: 2 * B * nf * half].view(B, nf, half),
+                  out[2 * B * nf * half:].view(B, nf))
+    plan = stft_plan(B, nf, nfft, win_len, hop)
+    where = str(dev)
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with kernels.on_device(dev):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
         code = lib.ct_stft_launch(
-            x.data_ptr(), win.data_ptr(), re.data_ptr(), im.data_ptr(), ny.data_ptr(),
-            B, L, nfft, hop, nf, _frames_per_block(nfft, hop), stream,
+            x.data_ptr(), window_f32(window, where).data_ptr(),
+            twiddles(nfft, where).data_ptr(), re.data_ptr(), im.data_ptr(), ny.data_ptr(),
+            B, L, nfft, hop, nf, plan.ffts_per_block, stream,
         )
     kernels.check(code, "ct_stft")
     kernels.LAUNCHES["ct_stft"] += 1

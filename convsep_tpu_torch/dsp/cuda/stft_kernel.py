@@ -1,18 +1,25 @@
-"""Fused framing + windowed dense DFT: the CUDA kernel's wrapper and plain
+"""Fused framing + windowed real FFT: the CUDA kernels' wrapper and plain
 version.
 
 Replaces ``convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas``, which the
 from-audio training step runs for the mixture and every stem when
-``TransformConfig.fft_impl="pallas"``. The kernel (``csrc/stft_dft.cu``)
-builds each frame from hop rows staged in shared memory, so the
-(frames × W) array never reaches device memory, and multiplies it by the
-window-folded (W, bins) cos / -sin matrices of :func:`_forward_mats`; its
-header says what bounds it on the H100.
+``TransformConfig.fft_impl="pallas"``, as does the ``fft_impl="pallas"``
+separation route. ``csrc/stft_dft.cu`` holds two kernels, and the wrapper
+dispatches on the shape:
+
+* nfft a power of two in [16, 8192] (every preset): the FFT kernel of the
+  shared core ``csrc/fft_common.cuh`` (launch plan, twiddles and window
+  from :mod:`.fft_plan`), counted as ``LAUNCHES["stft"]``;
+* any other nfft: the dense DFT kernel over the window-folded cos / -sin
+  matrices of :func:`_forward_mats`, counted as ``LAUNCHES["stft_dft"]``.
+
+Both build each frame in shared memory, so the (frames × W) array never
+reaches device memory; the file's header says what bounds them on the H100.
 
 The contract is the reference's: (L,) or (B, L) signals, ``win % hop ==
 0``, the W//2 front pad and tail pad of :func:`_pad_signal`, and
 :func:`num_frames` frames. :func:`stft_pallas` takes the plain version
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+only for CPU tensors; for CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
+from convsep_tpu_torch.dsp.cuda.fft_plan import fft_supported, stft_plan, twiddles, window_f32
 from convsep_tpu_torch.dsp.dft import _forward_mats, _key, stft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
@@ -48,7 +56,8 @@ def stft_pallas(
     """STFT of (L,) or (B, L) → (re, im), each (..., nf, nfft//2 + 1)
     float32, equal to :func:`stft_matmul`.
 
-    CPU tensors: :func:`stft_pallas_plain`. CUDA tensors: the kernel."""
+    CPU tensors: :func:`stft_pallas_plain`. CUDA tensors: the FFT kernel
+    where :func:`fft_supported`, else the dense DFT kernel."""
     window = np.asarray(window, np.float64)
     win_len = len(window)
     hop = int(hop)
@@ -65,16 +74,27 @@ def stft_pallas(
     B, L = x.shape
     nf = num_frames(L, hop)
     bins = nfft // 2 + 1
-    cos_m, sin_m = _forward_mats(nfft, _key(window), str(x.device))
-    re = torch.empty((B, nf, bins), dtype=torch.float32, device=x.device)
-    im = torch.empty_like(re)
+    dev = x.device
+    re, im = torch.empty((2, B, nf, bins), dtype=torch.float32, device=dev)  # one allocation
     lib = kernels.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.stft_dft_launch(
-            x.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), re.data_ptr(),
-            im.data_ptr(), B, L, win_len, hop, nf, bins, stream,
-        )
-    kernels.check(code, "stft")
-    kernels.LAUNCHES["stft"] += 1
+    with kernels.on_device(dev):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
+        if fft_supported(nfft):
+            name = "stft"
+            plan = stft_plan(B, nf, nfft, win_len, hop)
+            where = str(dev)
+            code = lib.stft_fft_launch(
+                x.data_ptr(), window_f32(window, where).data_ptr(),
+                twiddles(nfft, where).data_ptr(), re.data_ptr(), im.data_ptr(),
+                B, L, win_len, hop, nf, nfft, plan.ffts_per_block, stream,
+            )
+        else:
+            name = "stft_dft"
+            cos_m, sin_m = _forward_mats(nfft, _key(window), str(dev))
+            code = lib.stft_dft_launch(
+                x.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), re.data_ptr(),
+                im.data_ptr(), B, L, win_len, hop, nf, bins, stream,
+            )
+    kernels.check(code, name)
+    kernels.LAUNCHES[name] += 1
     return (re, im) if batched else (re[0], im[0])

@@ -20,6 +20,7 @@ nowhere else, so a run can show which kernels its main path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,19 +30,21 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
     "istft.cu", "wiener_apply.cu", "ct_stft.cu", "band_decode.cu",
 )
-HEADERS = ("istft_common.cuh",)
+HEADERS = ("istft_common.cuh", "fft_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 LAUNCHES: dict[str, int] = {
-    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0,
+    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_dft": 0,
     "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
 }
 
@@ -61,6 +64,8 @@ _SIGNATURES = {
                             _I, _I, _P),
     # x, cosw, sinw, re, im, B, L, W, hop, nf, bins, stream
     "stft_dft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, re, im, B, L, W, hop, nf, nfft, ffts_per_block, stream
+    "stft_fft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
     # re, im, win_over_n, inv_norm, out, out_int16, nt, nf, nfft, win, hop,
@@ -68,8 +73,8 @@ _SIGNATURES = {
     "istft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
-    # x, win, re, im, ny, B, L, nfft, hop, nf, frames_per_block, stream
-    "ct_stft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream
+    "ct_stft_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # z, band_t, out, M, K, NC, Tp, C2, I, stream
     "band_decode_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
@@ -156,6 +161,15 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device for a
+    launch: nothing to enter when it already is (entering costs host time
+    on every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(code: int, name: str) -> None:

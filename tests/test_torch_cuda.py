@@ -181,9 +181,9 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
-    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "fused_adadelta": 0,
-                "istft": 0, "wiener_apply": 0, "wiener_istft_ny": 0, "ct_stft": 0,
-                "band_decode": 0}
+    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_dft": 0,
+                "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "wiener_istft_ny": 0,
+                "ct_stft": 0, "band_decode": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -206,15 +206,24 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
         (4096, 2048, 2, 60000),   # nf 32
         (4096, 1024, 4, 60001),   # nf 61, hop = W/4
         (1024, 512, 1, 1),        # one sample: 3 frames
+        (1024, 512, 1, 1_474_560),  # the dsd100 fft_impl="pallas" track: nf 2882
+        (1024, 512, 128, 14336),  # the training step's stems
+        (8192, 2048, 2, 60000),   # nf 32, the FFT core's largest size
+        (768, 256, 3, 20000),     # not a power of two: the dense DFT kernel
+        (1000, 250, 2, 9001),
     ],
 )
 def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
+    """Powers of two launch the FFT kernel ("stft"), other sizes the dense
+    DFT kernel ("stft_dft"), each exactly once."""
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
-    before = kernels.LAUNCHES["stft"]
+    used, other = ("stft", "stft_dft") if nfft & (nfft - 1) == 0 else ("stft_dft", "stft")
+    before = dict(kernels.LAUNCHES)
     re, im = stft_pallas(x, w, hop)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["stft"] == before + 1
+    assert kernels.LAUNCHES[used] == before[used] + 1
+    assert kernels.LAUNCHES[other] == before[other]
     re_p, im_p = stft_pallas_plain(x, w, hop)
     assert re.shape == re_p.shape == (B, -(-length // hop) + 2, nfft // 2 + 1)
     peak = max(re_p.abs().max().item(), im_p.abs().max().item())

@@ -1,0 +1,282 @@
+"""The host side of the forward-STFT FFT core (``csrc/fft_common.cuh``), on
+CPU: the launch plan (``dsp/cuda/fft_plan.py``) for every shape the CUDA
+tests, ``chip_smoke.py`` and the presets launch; the twiddle table; and a
+torch mirror of the core's pass structure (the same radix order, Stockham
+exchange slots and twiddle table as the kernel) against ``torch.fft.fft``
+and, through the two-frame split, against the plain versions of both STFT
+kernels.
+
+Tolerances: the twiddle table within one float32 ulp of numpy's float64;
+the mirror in complex128 within 1e-6 × max|Z| of ``torch.fft.fft`` (the
+float32 twiddles' rounding, ~6e-8 relative, over log2 N stages); in
+complex64 within 1e-5 × max|X| of the plain STFTs (float32 sums in another
+order, the CUDA tests' tolerance)."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from convsep_tpu_torch.configs.presets import PRESETS, get_preset
+from convsep_tpu_torch.data.audio_dataset import segment_samples
+from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas_plain
+from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
+from convsep_tpu_torch.dsp.stft import _pad_signal, frame_signal, num_frames
+from convsep_tpu_torch.dsp.windows import sinebell
+from convsep_tpu_torch.separate import bucket_length
+
+# (signals, length, nfft, win, hop) of every power-of-two launch: the CUDA
+# tests' cases, chip_smoke.py's phases 5, 6, 10 and 11, and each preset's
+# separation track and training step
+LAUNCHES = [
+    (1, 3000, 256, 256, 128), (7, 3001, 256, 256, 64), (160, 14336, 512, 512, 256),
+    (32, 14336, 1024, 1024, 512), (3, 20000, 1024, 1024, 256), (5, 33333, 2048, 2048, 1024),
+    (2, 60000, 4096, 4096, 2048), (4, 60001, 4096, 4096, 1024), (1, 1, 1024, 1024, 512),
+    (1, 1_474_560, 1024, 1024, 512), (3, 5000, 1024, 512, 128), (1, 1_000_000, 8192, 8192, 1024),
+    (4, 1024, 256, 256, 128), (16, 1024, 256, 256, 128),
+    (1, 1_474_560, 4096, 4096, 1024), (3, 60_001, 4096, 4096, 1024), (1, 1, 4096, 4096, 1024),
+    (2, 33_333, 2048, 2048, 1024), (2, 100_000, 8192, 8192, 1024), (2, 60_000, 4096, 4096, 1024),
+    (32, 14336, 1024, 1024, 512), (128, 14336, 1024, 1024, 512),
+    (16, 1 << 14, 16, 16, 8), (3, 999, 32, 32, 16), (2, 4000, 128, 128, 64),
+] + [
+    (n, length, p.transform.nfft or p.transform.frame_size, p.transform.frame_size,
+     p.transform.hop_size)
+    for name in PRESETS
+    for p in [get_preset(name)]
+    for n, length in ((1, bucket_length(30 * 44100, p)),
+                      (p.train.batch_size, segment_samples(p)),
+                      (p.train.batch_size * p.model.num_sources, segment_samples(p)))
+]
+
+
+@pytest.mark.parametrize("signals,length,nfft,win,hop", LAUNCHES)
+def test_launch_plan(signals, length, nfft, win, hop):
+    nf = num_frames(length, hop)
+    plan = fp.stft_plan(signals, nf, nfft, win, hop)
+    rad = fp.radices(nfft)
+    assert math.prod(rad) == nfft and set(rad[1:]) <= {16} and rad[0] in (2, 4, 8, 16)
+    t = fp.threads_per_fft(nfft)
+    assert t * fp.POINTS == nfft
+    g = plan.ffts_per_block
+    assert g & (g - 1) == 0 and plan.threads == g * t
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    assert t <= 32 or g <= fp.MAX_NAMED_GROUPS  # named barriers 1 … g
+    assert plan.smem_bytes == fp.smem_bytes(nfft, win, hop, g) <= fp.SMEM_MAX
+    # the span holds every sample of the block's 2g frames, shifted by up to
+    # three floats to 16-byte alignment and read in whole float4s
+    span = fp.span_floats(2 * g, win, hop)
+    assert span % 4 == 0 and span >= (2 * g - 1) * hop + win + 3 + 3
+    # the grid covers every frame, with no block wholly past the last
+    per = plan.blocks_per_signal
+    assert per * 2 * g >= nf > (per - 1) * 2 * g
+    assert plan.blocks == signals * per
+    # two blocks per SM wherever a plan with more FFTs per block would not
+    # give them; otherwise the most blocks
+    if plan.blocks < 2 * fp.SMS:
+        assert g == max(1, 32 // t)
+
+
+@pytest.mark.parametrize("signals,length,nfft,hop,ffts,blocks", [
+    (32, 14336, 1024, 512, 1, 480),      # training step, mixtures
+    (128, 14336, 1024, 512, 4, 512),     # training step, stems
+    (1, 1_474_560, 1024, 512, 4, 361),   # dsd100 fft_impl="pallas" track
+    (1, 1_474_560, 4096, 1024, 2, 361),  # multires4096 analysis="ct_pallas" track
+])
+def test_main_path_plans(signals, length, nfft, hop, ffts, blocks):
+    plan = fp.stft_plan(signals, num_frames(length, hop), nfft, nfft, hop)
+    assert (plan.ffts_per_block, plan.blocks) == (ffts, blocks)
+    assert plan.blocks >= 2 * fp.SMS
+
+
+def test_plan_refusals():
+    for n in (8, 1000, 16384):
+        assert not fp.fft_supported(n)
+        with pytest.raises(ValueError, match="no FFT plan"):
+            fp.stft_plan(1, 10, n, n, n // 2)
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192])
+def test_twiddle_table(nfft):
+    tab = fp.twiddle_table(nfft)
+    assert tab.shape == (nfft, 2) and tab.dtype == np.float32
+    # numpy's float64 on the angle reduced to the first quadrant, where a
+    # quarter turn's cosine is 0 exactly (not cos(pi/2) = 6e-17)
+    m = np.arange(nfft)
+    r = 2 * np.pi * (m % (nfft // 4)) / nfft
+    turns = [(np.cos(r), -np.sin(r)), (-np.sin(r), -np.cos(r)),
+             (-np.cos(r), np.sin(r)), (np.sin(r), np.cos(r))]
+    q = m // (nfft // 4)
+    want = np.stack([np.choose(q, [t[i] for t in turns]) for i in (0, 1)], -1)
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    assert np.all(np.abs(tab - want) <= ulp)
+    full = np.exp(-2j * np.pi * m / nfft)
+    assert np.abs(tab[:, 0] + 1j * tab[:, 1] - full).max() < 1e-7
+    quarter = fp.twiddles(nfft, "cpu")
+    assert quarter is fp.twiddles(nfft, "cpu")  # made once
+    assert np.array_equal(quarter.numpy(), tab[: nfft // 4])
+
+
+def test_window_copy_is_found_by_value():
+    a = fp.window_f32(sinebell(1024), "cpu")
+    assert fp.window_f32(sinebell(1024), "cpu") is a  # a fresh array, the same bytes
+    assert torch.equal(a, torch.from_numpy(sinebell(1024).astype(np.float32)))
+    b = fp.window_f32(sinebell(1024) * 0.5, "cpu")
+    assert b is not a and torch.equal(b, 0.5 * a)
+
+
+# -- the mirror -----------------------------------------------------------
+
+
+def _roots16(dtype):
+    e = np.arange(8)
+    return torch.from_numpy(np.exp(-2j * np.pi * e / 16).astype(np.complex64)).to(dtype)
+
+
+def _dft(u, r):
+    """fft_common.cuh::dft<r>: radix-2 decimation in time over the last axis
+    (the registers), bit-reversed in, natural order out."""
+    bits = r.bit_length() - 1
+    rev = [int(f"{i:0{bits}b}"[::-1], 2) if bits else 0 for i in range(r)]
+    u = u[..., rev].clone()
+    roots = _roots16(u.dtype)
+    size = 2
+    while size <= r:
+        for i in range(0, r, size):
+            for k in range(size // 2):
+                a = u[..., i + k].clone()
+                b = u[..., i + k + size // 2] * roots[k * (16 // size)]
+                u[..., i + k] = a + b
+                u[..., i + k + size // 2] = a - b
+        size *= 2
+    return u
+
+
+def core_fft(z: torch.Tensor) -> torch.Tensor:
+    """fft_common.cuh::Fft<log2 N>::run on (..., N) complex: thread j holds
+    v[m] = element j + T m; each pass twiddles, runs 16 / r radix-r DFTs on
+    registers q + s (16 / r) and writes them to the Stockham slots of a
+    padded exchange buffer, which the next pass reads at j + T m."""
+    N = z.shape[-1]
+    T = fp.threads_per_fft(N)
+    tw = torch.from_numpy(fp.twiddle_table(N).astype(np.float64)).to(z.dtype.to_real())
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    j = torch.arange(T)
+    at_jm = j[:, None] + T * torch.arange(fp.POINTS)[None, :]  # (T, 16)
+    buf = torch.full((*z.shape[:-1], fp.exchange_entries(N)), float("nan"), dtype=z.dtype)
+    v = z[..., at_jm]
+    ns = 1
+    for p, r in enumerate(fp.radices(N)):
+        if p:
+            v = buf[..., fp.exchange_slot(at_jm)]
+        nb = fp.POINTS // r
+        s = torch.arange(r)
+        for q in range(nb):
+            b = j + q * T
+            u = v[..., q + s * nb]  # (..., T, r)
+            if ns > 1:
+                u = u * tw[((b % ns)[:, None] * s[None, :]) * (N // (ns * r))]
+            u = _dft(u, r)
+            base = (b - b % ns) * r + b % ns
+            buf[..., fp.exchange_slot(base[:, None] + s[None, :] * ns)] = u
+        ns *= r
+    return buf[..., fp.exchange_slot(torch.arange(N))]
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192])
+def test_core_matches_torch_fft(rng, nfft):
+    z = rng.standard_normal((3, nfft)) + 1j * rng.standard_normal((3, nfft))
+    got = core_fft(torch.from_numpy(z))
+    want = torch.fft.fft(torch.from_numpy(z))
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+def core_stft(x: torch.Tensor, window: np.ndarray, hop: int, nfft: int) -> torch.Tensor:
+    """stft_block in float32: frames f hop − W/2 + t of the zero-padded
+    signal, windowed, zero-padded to nfft; frames 2g and 2g + 1 ride one
+    transform (a zero frame after an odd last one) and split again.
+    Returns (B, nf, nfft/2 + 1) complex64."""
+    W = len(window)
+    nf = num_frames(x.shape[-1], hop)
+    frames = frame_signal(_pad_signal(x, W, hop), W, hop, nf)
+    frames = frames * torch.from_numpy(window.astype(np.float32))
+    frames = torch.nn.functional.pad(frames, (0, nfft - W))
+    if nf % 2:
+        frames = torch.nn.functional.pad(frames, (0, 0, 0, 1))
+    zz = core_fft(torch.complex(frames[..., 0::2, :], frames[..., 1::2, :]))
+    k = torch.arange(nfft // 2 + 1)
+    z, w = zz[..., k], zz[..., (nfft - k) % nfft].conj()
+    a, b = 0.5 * (z + w), -0.5j * (z - w)
+    out = torch.stack([a, b], -2).flatten(-3, -2)  # frames back in order
+    return out[..., :nf, :]
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length", [
+    (1024, 1024, 512, 3, 14336),   # the training step's framing
+    (1024, 1024, 512, 1, 9001),    # nf odd: the last frame pairs with zeros
+    (256, 256, 64, 2, 3001),
+    (1024, 512, 128, 2, 5000),     # nfft past the window
+    (128, 128, 64, 1, 1),
+])
+def test_core_stft_matches_stft_pallas_plain(rng, nfft, win, hop, B, length):
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32))
+    w = sinebell(win)
+    got = core_stft(x, w, hop, nfft)
+    re, im = stft_pallas_plain(x, w, hop, nfft)
+    peak = max(re.abs().max().item(), im.abs().max().item())
+    torch.testing.assert_close(got.real, re, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(got.imag, im, atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,B,length", [(4096, 1, 60_001), (2048, 2, 33_333),
+                                           (8192, 1, 40_000)])
+def test_core_stft_matches_stft_ct_pallas_plain(rng, nfft, B, length):
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32))
+    w = sinebell(nfft)
+    got = core_stft(x, w, 1024, nfft)
+    re, im, ny = stft_ct_pallas_plain(x, w, 1024)
+    peak = max(re.abs().max().item(), im.abs().max().item(), ny.abs().max().item())
+    half = nfft // 2
+    torch.testing.assert_close(got.real[..., :half], re, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(got.imag[..., :half], im, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(got.real[..., half], ny, atol=1e-5 * peak, rtol=0)
+    assert got.imag[..., half].abs().max().item() == 0.0
+
+
+def _ways(slots, banks):
+    """Most distinct 8-byte words in one bank among one access's slots."""
+    by_bank = {}
+    for s in set(slots):
+        by_bank.setdefault(s % banks, set()).add(s)
+    return max(len(v) for v in by_bank.values())
+
+
+@pytest.mark.parametrize("nfft", [512, 1024, 2048, 4096, 8192])
+def test_exchange_slots_avoid_bank_conflicts(nfft):
+    """The header's claim: with slot i + i/16, every pass's float2 reads
+    and writes meet distinct banks in each half-warp (32 banks of 4 bytes:
+    16 float2 per transaction), and the split's mirrored read at most two
+    ways. Threads j of one warp are consecutive."""
+    T = fp.threads_per_fft(nfft)
+    ns, worst = 1, 1
+    for p, r in enumerate(fp.radices(nfft)):
+        nb = fp.POINTS // r
+        for q in range(nb):
+            for s in range(r):
+                for h in range(0, T, 16):
+                    js = np.arange(h, h + 16)
+                    b = js + q * T
+                    wr = fp.exchange_slot((b - b % ns) * r + b % ns + s * ns)
+                    worst = max(worst, _ways(wr.tolist(), 16))
+                    if p:
+                        rd = fp.exchange_slot(js + T * (q + s * nb))
+                        worst = max(worst, _ways(rd.tolist(), 16))
+        ns *= r
+    assert worst == 1
+    split = 1
+    for q in range(fp.POINTS // 2):
+        for h in range(0, T, 16):
+            k = np.arange(h, h + 16) + T * q
+            split = max(split, _ways(fp.exchange_slot((nfft - k) % nfft).tolist(), 16))
+    assert split <= 2

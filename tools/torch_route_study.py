@@ -8,16 +8,18 @@ For each seed, from the seeded random init and from the weights after
 ``Trainer.fit(max_steps=20)`` on synthetic stems, on each of ``--batches``
 B 32 batches, at ``wiener_eps`` 1e-8 (the preset's) and 1e-2:
 ``chip_smoke.route_check``, i.e. one step of the kernel route
-(``fft_impl="pallas"``, ``optimizer_impl="fused"``) and of the witness
-(the plain route on the factored STFT), each against the plain route
-(direct STFT, plain optimizer), from the same weights, zero accumulators
-and the same batch. Prints one line per case and, per wiener_eps and
-pair, the median and max of each gap (loss and grad_norm relative,
-gradients and weights in units of max|g|, the mixture spectrum in units
-of its peak), then the card's name and power limit. ``--out`` also
-writes every case as JSON. ``chip_smoke.py``'s route gates
-(``TOL_ROUTE_GN_EPS``, ``TOL_ROUTE_WEIGHTS``) come from the witness's
-spread here.
+(``fft_impl="pallas"``, ``optimizer_impl="fused"``) and of the two
+witnesses (the plain route on the factored STFT, "witness", and on
+``torch.fft.rfft`` of the same frames, "rfft"), each against the plain
+route (direct STFT, plain optimizer), from the same weights, zero
+accumulators and the same batch. Prints one line per case and, per
+wiener_eps and pair, the median and max of each gap (loss and grad_norm
+relative, gradients and weights in units of max|g|, the mixture spectrum
+in units of its peak), then the card's name and power limit. ``--out``
+also writes every case as JSON. ``chip_smoke.py``'s route gates
+(``TOL_ROUTE_GN_EPS``, ``TOL_ROUTE_WEIGHTS``) sit above the larger
+witness's reading at the smoke's case (seed 0, init, batch 0), and the
+spread here shows how far such readings range.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from convsep_tpu_torch.data.pipeline import to_device  # noqa: E402
 from convsep_tpu_torch.train.loop import Trainer, create_train_state  # noqa: E402
 
 GAPS = ("loss", "grad_norm", "grads", "weights", "stft")
+ROUTES = ("kernel", "witness", "rfft")
 
 
 def main() -> int:
@@ -80,12 +83,12 @@ def main() -> int:
                                   **r})
                     print(f"seed {seed} {state:6s} batch {b} eps {eps:g}: " + "; ".join(
                         f"{name} " + " ".join(f"{g} {r[name][g]:.2e}" for g in GAPS)
-                        for name in ("kernel", "witness")) + f"; exact {r['exact']}",
+                        for name in ROUTES) + f"; exact {r['exact']}",
                         flush=True)
         del init, fitted
         torch.cuda.empty_cache()
     for eps in (preset.sep.wiener_eps, 1e-2):
-        for name in ("kernel", "witness"):
+        for name in ROUTES:
             rows = np.array([[c[name][g] for g in GAPS] for c in cases if c["wiener_eps"] == eps])
             print(f"eps {eps:g} {name:7s} vs plain, n {len(rows)}: " + "; ".join(
                 f"{g} median {np.median(rows[:, i]):.2e} max {rows[:, i].max():.2e}"
