@@ -9,9 +9,13 @@ result line is printed):
 
 1. device: the card's name and power limit (nvidia-smi); build every CUDA
    kernel from ``convsep_tpu_torch/csrc`` and print the build time;
-2. fused decode kernel vs its plain PyTorch version at highres4096 shapes
-   (B 49, S 4, J 128, W 505, TpC 800, ktaps 8, TM 120), float32 and bf16
-   output;
+2. fused decode kernel (forced) vs its plain PyTorch version at highres4096
+   shapes (B 49, S 4, J 128, W 505, TpC 800, ktaps 8, TM 120), float32 and
+   bf16 output, with its bound on the tensor cores (3xTF32) beside the
+   float32-SIMT one, and the launcher's plan (cluster, active clusters); it
+   fails if "auto" routes a TM (``FUSED_DECODE_WON_TM``) where the kernel
+   is slower than the plain decode by more than the run-to-run spread
+   (``DECODE_SPREAD``);
 3. Wiener+iSTFT kernel vs its plain version at highres4096 (nfft 4096,
    hop 1024, nf 1442, bf16 y) and dsd100 (nfft 1024, hop 512, nf 2882):
    p = 1 and 2, conserve_last, float32 and int16 output;
@@ -44,14 +48,16 @@ result line is printed):
 7. the iSTFT kernel vs its plain version at the stereo highres4096 shapes
    (8 signals, nf 1442, 2049 bins, through ``istft_ct_pallas``, float32
    and int16) and the dsd100 pallas-route shapes (4 signals, nf 2882, 513
-   bins, through ``istft_pallas``), beside ``torch.istft``;
+   bins, through ``istft_pallas``), beside ``torch.istft``, with both
+   device times (in a child) and the wrapper's host time;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
    on a 30 s stereo mixture: the kernel route ("auto": fused decode at TM
-   240, the iSTFT kernel) against the plain route, as phase 4 gates the
-   mono slice, ``complement_last``, ms per track, and the stems' copy to
-   pageable and to pinned host memory;
+   240 where it won, the iSTFT kernel) against the plain route, as phase 4
+   gates the mono slice, ``complement_last``, ms per track, and the stems'
+   copy to pageable and to pinned host memory; then the fused decode
+   (forced) at TM 240 as phase 2;
 10. the ``fft_impl="pallas"`` slice: ``Separator(dsd100, fft_impl="pallas")``
    at full width through the STFT (one FFT launch, no dense one), Wiener
    mask and iSTFT kernels, against the plain synthesis of its own y and the
@@ -75,7 +81,13 @@ result line is printed):
 13. the bach10 score-informed slice: ``Separator(bach10)(audio, extra=)``
    at full width, the score channels from ``TransformFFT.compute_file`` and
    ``score_channels`` of fixed notes, at score_gate 0, 0.5 "mult" and 1.0
-   "blend", each against the plain route as phase 4.
+   "blend", each against the plain route as phase 4;
+14. device times (``torch.profiler``, in a child) of the fused decode and
+   its plain version at TM 120 and 360, and of the Wiener+iSTFT, Wiener
+   mask, band decode and fused adadelta kernels.
+
+Each slice expects the fused decode launched exactly where "auto" routes it
+(``models/decoder_fused_cuda.py::FUSED_DECODE_WON_TM``).
 
 Every kernel's time comes with its bound (bytes over 3.35 TB/s or
 operations over 67 TFLOP/s in float32, 989 TFLOP/s for the bf16 band
@@ -86,10 +98,10 @@ the last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device and when run outside the repository checkout. TF32 is off for
 every parity comparison (matmul and cuDNN).
 
-    python3 chip_smoke.py --device-times stft|ct_stft
+    python3 chip_smoke.py --device-times stft|ct_stft|istft|decode|others[,...]
 
-is the child that phases 5 and 11 start: it prints one JSON line of
-device times.
+is the child that phases 5, 7, 11 and 14 start: it prints one JSON line of
+device times, keyed by kind.
 """
 
 from __future__ import annotations
@@ -97,6 +109,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -150,12 +163,20 @@ WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4,
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 on the tensor cores, dense
+TF32_FLOPS = 495e12        # H100 SXM TF32 on the tensor cores, dense
 MR_SAMPLES = 1_474_560     # the phase 4 mixture bucketed at multires4096: 1442 frames
 # the band decode at one multires4096 track: (N, Tp, W, C2, kh, I)
 BAND_SHAPE = (196, 16, 505, 50, 15, 50)
 
 
+CARD: str | None = None  # the nvidia-smi line, once phase 1 has read it
+
+
 def log(msg: str) -> None:
+    """Print a line; one that reports a time carries the card's name and
+    power limit (nvidia-smi) beside it."""
+    if CARD and re.search(r"\d ms\b|ms/track|us per call| us\b", msg):
+        msg = f"{msg} | {CARD}"
     print(msg, flush=True)
 
 
@@ -254,7 +275,8 @@ def ms_str(v: float | None) -> str:
 
 def device_times(kind: str) -> dict:
     """:func:`child_device_times` in a child process, so that the profiler
-    does not slow the host of the later phases that time it."""
+    does not slow the host of the later phases that time it; ``kind`` may
+    name several, comma-separated, measured in one child."""
     out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--device-times", kind],
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
@@ -294,6 +316,12 @@ def child_device_times(kind: str) -> dict:
         return {"device_ms": k["device_ms"], "kernels": k["by_kernel"],
                 "library_device_ms": lib["device_ms"], "library_kernels": lib["by_kernel"]}
 
+    if kind == "istft":
+        return child_istft_times(device, gen, pair)
+    if kind == "decode":
+        return child_decode_times(device, pair)
+    if kind == "others":
+        return child_other_times(device, gen)
     if kind == "ct_stft":
         w = sinebell(4096)
         x = 0.3 * torch.randn(1, MR_SAMPLES, generator=gen, device=device)
@@ -317,17 +345,128 @@ def child_device_times(kind: str) -> dict:
     return res
 
 
-def phase_decode(model, B: int, device, gen) -> dict:
-    """Fused decode kernel vs plain at the model's operand shapes."""
+def decode_bounds(fc, ops) -> dict:
+    """The decode's bounds: float32 parity on the tensor cores takes three
+    TF32 products per product (3xTF32), 3 × operations / 495 TFLOP/s, less
+    than the operations over 67 TFLOP/s on the CUDA cores; so the least time
+    the card could take is the tensor-core one, and the row's bound. The
+    float32-SIMT bound is kept beside it."""
+    k4, b3, kcat = ops
+    B, J = fc.shape
+    _, S, W_pad, TpC = k4.shape
+    _, ktaps, TM = kcat.shape
+    nbytes = 4 * sum(t.numel() for t in (fc, *ops)) + 2 * B * S * W_pad * TM
+    flops = 2.0 * B * S * W_pad * TpC * (J + ktaps * TM)
+    simt = bound(nbytes, flops)
+    return {**bound(nbytes, 3 * flops, TF32_FLOPS), "operations": flops,
+            "f32_simt_bound_ms": simt["bound_ms"]}
+
+
+def child_istft_times(device, gen, pair) -> dict:
+    """Device ms of the iSTFT kernel at phase 7's shapes beside
+    ``torch.istft`` on the same spectra."""
+    import numpy as np
     import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
+
+    res = {}
+    for name, nfft, hop, nf, N, ct in ISTFT_SHAPES:
+        w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
+        kern = istft_ct_pallas if ct else istft_pallas
+        wt = torch.from_numpy(w.astype(np.float32)).to(device)
+        spec = torch.complex(re, im).transpose(-1, -2)
+        res[name] = pair(lambda: kern(re, im, w, hop, L),
+                         lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
+    return res
+
+
+def child_decode_times(device, pair) -> dict:
+    """Device ms of the fused decode kernel (forced) and of its plain
+    version at TM 120 (highres4096) and TM 360 (multires4096), B 49."""
+    import torch
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.models import ConvSep
     from convsep_tpu_torch.models.decoder_fused_cuda import (
         band_freq_decode,
         band_freq_decode_plain,
     )
 
+    res = {}
+    for preset, seed in (("highres4096", 0), ("multires4096", 4)):
+        cfg = get_preset(preset).model
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = ConvSep(cfg, init_params(cfg, gen, device), device=device).prepare_inference()
+        fc = torch.relu(torch.randn(49, model.k4.shape[0], generator=gen, device=device))
+        ops = (model.k4, model.b3, model.kcat)
+        r = pair(lambda: band_freq_decode(fc, *ops, out_dtype=torch.bfloat16),
+                 lambda: band_freq_decode_plain(fc, *ops, out_dtype=torch.bfloat16))
+        res[f"TM {model.kcat.shape[2]}"] = {"device_ms": r["device_ms"], "kernels": r["kernels"],
+                                            "plain_device_ms": r["library_device_ms"],
+                                            "plain_kernels": r["library_kernels"]}
+        del model, ops, fc
+        torch.cuda.empty_cache()
+    return res
+
+
+def child_other_times(device, gen) -> dict:
+    """Device ms of the kernels whose rows had none: the Wiener+iSTFT kernel
+    (highres4096, phase 3's inputs), the Wiener mask kernel (the dsd100
+    pallas route's shape), the band decode kernel (phase 11's shape) and the
+    fused adadelta kernel (phase 5's two leaves)."""
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft
+    from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas
+    from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor, band_tensor
+    from convsep_tpu_torch.train.fused_optim import fused_adadelta_leaf
+
+    res = {}
+    w, L, y, re, im = wiener_inputs(4096, 1024, 1442, 4, device, gen)
+    res["wiener_istft"] = profile_ms(lambda: wiener_istft(y, re, im, w, 1024, L))["device_ms"]
+    del y, re, im
+    _, S, nf, bins = WIENER_APPLY_SHAPES[0]
+    ya = torch.relu(torch.randn(S, nf, bins, generator=gen, device=device)).to(torch.bfloat16)
+    ra = torch.randn(nf, bins, generator=gen, device=device)
+    ia = torch.randn(nf, bins, generator=gen, device=device)
+    res["wiener_apply"] = profile_ms(lambda: wiener_apply_pallas(ya, ra, ia))["device_ms"]
+    N, Tp, W, C2, kh, I = BAND_SHAPE
+    T = Tp + kh - 1
+    z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
+    band = band_tensor(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+    res["band_decode"] = profile_ms(lambda: band_decode_wmajor(z, band, T))["device_ms"]
+    del z, band
+    total = 0.0
+    for shape in ((128, 518400), (129600, 128)):
+        p = 0.01 * torch.randn(shape, generator=gen, device=device)
+        g = 1e-3 * torch.randn(shape, generator=gen, device=device)
+        a = 1e-6 * torch.rand(shape, generator=gen, device=device)
+        d = 1e-6 * torch.rand(shape, generator=gen, device=device)
+        total += profile_ms(lambda: fused_adadelta_leaf(p, g, a, d, 1.0, 0.95, 1e-6))["device_ms"]
+    res["fused_adadelta"] = total
+    return res
+
+
+# The spread of the decode's kernel-over-plain time ratio between runs on
+# the H100 (up to 3 % at one TM, by events): "auto" may route a TM where one
+# run reads the kernel this much slower.
+DECODE_SPREAD = 0.05
+
+
+def phase_decode(model, B: int, device, gen) -> dict:
+    """Fused decode kernel (forced) vs plain at the model's operand shapes."""
+    import torch
+    from convsep_tpu_torch.models.decoder_fused_cuda import (
+        FUSED_DECODE_WON_TM,
+        band_freq_decode,
+        band_freq_decode_plain,
+        card_plan,
+    )
+
     J = model.k4.shape[0]
     fc = torch.relu(torch.randn(B, J, generator=gen, device=device))
     ops = (model.k4, model.b3, model.kcat)
+    TM = model.kcat.shape[2]
     err = {}
     for dt in (torch.float32, torch.bfloat16):
         got = band_freq_decode(fc, *ops, out_dtype=dt).float()
@@ -336,21 +475,30 @@ def phase_decode(model, B: int, device, gen) -> dict:
         scale = want.abs().max().item()
         tol = (TOL_DECODE_F32 if dt == torch.float32 else TOL_DECODE_BF16) * scale
         e = (got - want).abs().max().item()
-        log(f"  decode {str(dt)[6:]}: shape {tuple(got.shape)} max_abs_err {e:.3e} "
+        log(f"  decode TM {TM} {str(dt)[6:]}: shape {tuple(got.shape)} max_abs_err {e:.3e} "
             f"(tol {tol:.3e}, max|plain| {scale:.3e})")
-        if not e <= tol:
-            raise AssertionError(f"fused decode {dt} disagrees: {e} > {tol}")
+        if not (e <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"fused decode TM {TM} {dt} disagrees: {e} > {tol}")
         err[dt] = e
     ms = cuda_ms(lambda: band_freq_decode(fc, *ops, out_dtype=torch.bfloat16))
     plain_ms = cuda_ms(lambda: band_freq_decode_plain(fc, *ops, out_dtype=torch.bfloat16))
-    _, S, W_pad, TpC = model.k4.shape
-    _, ktaps, TM = model.kcat.shape
-    b = bound(4 * sum(t.numel() for t in (fc, *ops)) + 2 * B * S * W_pad * TM,
-              2 * B * S * W_pad * TpC * (J + ktaps * TM))
-    log(f"  decode bf16 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (B={B}); bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}); no single PyTorch call computes it")
-    return {"max_abs_err": err[torch.float32], "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+    b = decode_bounds(fc, ops)
+    plan = card_plan(B, J, *model.k4.shape[1:], *model.kcat.shape[1:])
+    won = ms < plain_ms
+    log(f"  decode TM {TM} bf16 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (B={B}; the "
+        f"kernel {'wins' if won else 'loses'}); bound {b['bound_ms']:.3f} ms (3xTF32 on the "
+        f"tensor cores, {b['bound_by']}), float32-SIMT bound {b['f32_simt_bound_ms']:.3f} ms; "
+        f"no single PyTorch call computes it")
+    log(f"  decode TM {TM} plan: {plan['mi']} x {plan['ni']} m16 x n8 tiles a warp, clusters of "
+        f"{plan['cluster']} blocks, {plan['wb']} output rows a block, "
+        f"{plan['active_clusters']} clusters at once, {plan['smem_bytes']} B shared memory")
+    # "auto" takes the kernel only at TMs where it won (models/convsep.py)
+    if TM in FUSED_DECODE_WON_TM and ms > (1 + DECODE_SPREAD) * plain_ms:
+        raise AssertionError(f"FUSED_DECODE_WON_TM routes TM {TM}, where the kernel loses: "
+                             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    return {"max_abs_err": err[torch.float32], "max_abs_err_bf16": err[torch.bfloat16],
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "TM": TM,
+            "won": won, "auto_routes": TM in FUSED_DECODE_WON_TM, "plan": plan}
 
 
 def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen):
@@ -583,7 +731,7 @@ def phase_stft(device, gen) -> tuple[dict, dict]:
         b = bound(nbytes, flops)
         out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
                      "library_ms": lib_ms, "host_us": us}
-    dev = device_times("stft")
+    dev = device_times("stft")["stft"]
     for name, what in (("stft", "per training step (B 32 + B 128)"), ("stft_dft", "B 32")):
         r, d = out[name], dev[name]
         r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"])
@@ -978,14 +1126,23 @@ def phase_istft(device, gen) -> dict:
         ms = cuda_ms(lambda: kern(re, im, w, hop, L))
         plain_ms = cuda_ms(lambda: plain(re, im, w, hop, L))
         lib_ms = cuda_ms(library)
+        us = host_us(lambda: kern(re, im, w, hop, L))
         b = bound(8 * re.numel() + 4 * N * L, fft_flops(N * nf, nfft))
-        log(f"  istft {name} f32 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.istft "
-            f"{lib_ms:.3f} ms (cuFFT; same framing and window-square normalization, its output "
-            f"{e_lib:.3e} from the plain version's); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        res[name] = {"max_abs_err": err["float32"], "ms": ms, "plain_ms": plain_ms, **b,
-                     "library_ms": lib_ms}
+        log(f"  istft {name} f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.istft "
+            f"{lib_ms:.4f} ms (cuFFT; same framing and window-square normalization, its output "
+            f"{e_lib:.3e} from the plain version's); bound {b['bound_ms']:.4f} ms ({b['bound_by']});"
+            f" wrapper host {us:.1f} us per call")
+        res[name] = {"max_abs_err": err["float32"], "max_abs_err_int16": err.get("int16"),
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "host_us": us}
         del re, im, spec, want
         torch.cuda.empty_cache()
+    dev = device_times("istft")["istft"]
+    for name, r in res.items():
+        d = dev[name]
+        r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"])
+        log(f"  istft {name}: device {ms_str(d['device_ms'])} (torch.istft device "
+            f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms")
+    log(f"  device kernels: {json.dumps(dev)}")
     return res
 
 
@@ -1091,7 +1248,7 @@ def phase_stereo(state, preset, device, audio) -> dict:
     S = preset.model.num_sources
     if stems.shape != (S, L, 2) or not np.isfinite(stems).all():
         raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
-    if not (launches["istft"] > 0 and launches["fused_decode"] > 0):
+    if not (launches["istft"] > 0 and (launches["fused_decode"] > 0) == auto_fused(preset)):
         raise AssertionError(f"{name}: the stereo path missed a kernel: {launches}")
     ms = time_track(sep, audio)
     p_sep = StereoSeparator(plain_route(preset), state, device=device)
@@ -1264,7 +1421,7 @@ def phase_ct_stft(device, gen) -> dict:
     plain_ms = cuda_ms(lambda: stft_ct_pallas_plain(x, w, hop))
     lib_ms = cuda_ms(library)
     us = host_us(lambda: stft_ct_pallas(x, w, hop))
-    dev = device_times("ct_stft")["ct_stft"]
+    dev = device_times("ct_stft")["ct_stft"]["ct_stft"]
     b = bound(4 * x.numel() + 4 * sum(a.numel() for a in got), fft_flops(nf, nfft))
     log(f"  ct_stft: kernel {ms:.4f} ms (device {ms_str(dev['device_ms'])}), plain "
         f"{plain_ms:.4f} ms, torch.stft {lib_ms:.4f} ms (device "
@@ -1363,6 +1520,15 @@ def phase_band_decode(device, gen) -> dict:
     return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
 
+def auto_fused(preset) -> bool:
+    """Whether "auto" routes ``preset``'s decode to the fused kernel on the
+    card: only at the TMs where it won (``FUSED_DECODE_WON_TM``)."""
+    import torch
+    from convsep_tpu_torch.models.convsep import resolve_decoder_impl
+
+    return resolve_decoder_impl(preset.model, torch.device("cuda")) == "bandconv_pallas"
+
+
 def with_fields(preset, transform=None, model=None, sep=None):
     """``preset`` with some fields of its transform, model or sep replaced."""
     return dataclasses.replace(
@@ -1420,7 +1586,7 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
     runs = {
         "ct": run_route(f"{preset.name} analysis=ct_pallas", ct, state, device, audio,
                         {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
-                         "fused_decode": True, "band_decode": False, "stft": False,
+                         "fused_decode": auto_fused(preset), "band_decode": False, "stft": False,
                          "stft_dft": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
@@ -1553,7 +1719,7 @@ def main(argv: list[str]) -> int:
     if code:
         return code
     if argv[:1] == ["--device-times"]:
-        print(json.dumps(child_device_times(argv[1])), flush=True)
+        print(json.dumps({k: child_device_times(k) for k in argv[1].split(",")}), flush=True)
         return 0
     import torch
     from convsep_tpu_torch import kernels
@@ -1564,6 +1730,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    global CARD
     smi = smi_line()
     log(f"phase 1: device {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1571,6 +1738,7 @@ def main(argv: list[str]) -> int:
     lib = kernels.build(verbose=True)
     kernels.library()
     log(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    CARD = smi
 
     hi = get_preset("highres4096")
     dsd = get_preset("dsd100")
@@ -1590,7 +1758,7 @@ def main(argv: list[str]) -> int:
     log("phase 4: separation slice, 30 s 44.1 kHz mixture, seeded random weights")
     audio = mixture(0)
     hi_run = phase_slice("highres4096", hi_state, hi, device, audio,
-                         {"fused_decode": True, "wiener_istft": True})
+                         {"fused_decode": auto_fused(hi), "wiener_istft": True})
     del hi_state
     torch.cuda.empty_cache()
     dsd_state = init_params(dsd.model, torch.Generator(device=device).manual_seed(1), device)
@@ -1616,7 +1784,10 @@ def main(argv: list[str]) -> int:
     st = get_preset("highres4096-stereo")
     st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
     st_run = phase_stereo(st_state, st, device, stereo_mixture(0))
-    del st_state
+    st_model = ConvSep(st.model, st_state, device=device).prepare_inference()
+    assert tuple(st_model.kcat.shape) == (800, 8, 240), tuple(st_model.kcat.shape)
+    dec240 = phase_decode(st_model, 49, device, gen)
+    del st_state, st_model
     torch.cuda.empty_cache()
     log("phase 10: fft_impl=\"pallas\" slice, dsd100 full width, the phase 4 mixture and weights")
     pl_run = phase_pallas_route(dsd_state, dsd, device, audio)
@@ -1639,7 +1810,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     log("phase 12: multires4096 slice, full width, the phase 4 mixture, seeded random weights")
     mr_run = phase_slice("multires4096", mr_state, mr, device, audio,
-                         {"fused_decode": True, "wiener_istft": True, "ct_stft": False,
+                         {"fused_decode": auto_fused(mr), "wiener_istft": True, "ct_stft": False,
                           "band_decode": False})
     mr_routes = phase_multires_routes(mr_state, mr, device, audio)
     del mr_state
@@ -1651,6 +1822,23 @@ def main(argv: list[str]) -> int:
     b10_runs = phase_bach10(b10_state, b10, device, audio)
     del b10_state
     torch.cuda.empty_cache()
+
+    log("phase 14: device times (torch.profiler, in a child) of the fused decode at TM 120 "
+        "and 360, the Wiener+iSTFT, Wiener mask, band decode and adadelta kernels")
+    dev = device_times("decode,others")
+    for key, r in (("TM 120", dec), ("TM 360", dec360)):
+        d = dev["decode"][key]
+        r.update(device_ms=d["device_ms"], plain_device_ms=d["plain_device_ms"])
+        log(f"  fused decode {key}: device {ms_str(d['device_ms'])}, plain device "
+            f"{ms_str(d['plain_device_ms'])}; bound {r['bound_ms']:.3f} ms (3xTF32), "
+            f"{r['f32_simt_bound_ms']:.3f} ms (float32 SIMT)")
+    others = dev["others"]
+    for name, r in (("wiener_istft", wie), ("wiener_apply", wap["dsd100 pallas route"]),
+                    ("band_decode", band), ("fused_adadelta", ada)):
+        r["device_ms"] = others[name]
+        log(f"  {name}: device {ms_str(others[name])} (events {r['ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms")
+    log(f"  device kernels: {json.dumps(dev)}")
 
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
@@ -1671,7 +1859,7 @@ def main(argv: list[str]) -> int:
         {"name": "fused_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
-         **launched("fused_decode"), **dec, "multires4096_tm360": dec360},
+         **launched("fused_decode"), **dec, "stereo_tm240": dec240, "multires4096_tm360": dec360},
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",

@@ -1,6 +1,8 @@
-// The forward-STFT FFT core shared by stft_dft.cu and ct_stft.cu, for Hopper
-// (sm_90a): framing, window, a register-resident complex FFT that carries two
-// real frames, and the split back into the two half-spectra.
+// The FFT core shared by the forward STFT kernels (stft_dft.cu, ct_stft.cu)
+// and the inverse STFT kernel (istft.cu), for Hopper (sm_90a): framing,
+// window, a register-resident complex FFT that carries two real frames, the
+// split back into the two half-spectra, and the inverse direction by
+// conjugation (inverse_input, below).
 //
 // Plan (dsp/cuda/fft_plan.py mirrors every number here and sizes the launch):
 // * a complex FFT of N = 2^LOG2N points (16 <= N <= 8192) belongs to one
@@ -235,6 +237,38 @@ struct Fft {
     later_passes<1>(v, buf, tw, j, group);
   }
 };
+
+// The inverse direction, by conjugation: ifft(Z) = conj(FFT(conj Z)) / N, so
+// the forward passes above serve it unchanged. Two real frames a, b with
+// half-spectra A, B (bins 0 .. N/2) ride one transform as Z = A + i B, whose
+// inverse is a + i b; Z's bins past N/2 come from the mirrored bins, Z[N - k]
+// = conj A[k] + i conj B[k]. irfft ignores the imaginary parts of DC and
+// Nyquist. inverse_input fills thread j's first-pass points v[m] = conj Z[k],
+// k = j + T m, straight from the spectrum rows (row_a, row_b: the frames'
+// first bins; null for a frame that is zero): bins k <= N/2 are read as they
+// are, and the rest at N - k, so each warp reads whole runs of consecutive
+// bins, forward or backward. After Fft<LOG2N>::run, buf[slot(t)] holds
+// N conj(a[t] + i b[t]): a[t] = x / N, b[t] = -y / N.
+template <int LOG2N>
+__device__ __forceinline__ void inverse_input(float2 (&v)[kPoints], const float* re_a,
+                                              const float* im_a, const float* re_b,
+                                              const float* im_b, int j) {
+  constexpr int N = 1 << LOG2N;
+  constexpr int T = fft_threads(LOG2N);
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) {
+    const int k = j + T * m;
+    const bool mirrored = k > N / 2;
+    const int kk = mirrored ? N - k : k;
+    const bool edge = kk == 0 || kk == N / 2;
+    const float ar = re_a ? __ldg(re_a + kk) : 0.f;
+    const float ai = re_a && !edge ? __ldg(im_a + kk) : 0.f;
+    const float br = re_b ? __ldg(re_b + kk) : 0.f;
+    const float bi = re_b && !edge ? __ldg(im_b + kk) : 0.f;
+    // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
+    v[m] = mirrored ? make_float2(ar + bi, ai - br) : make_float2(ar - bi, -(ai + br));
+  }
+}
 
 // span[e] = xs[s0 + e] for 0 <= s0 + e < L, else 0, for 0 <= e < len; the
 // block reads whole aligned float4s (16-byte loads) and stores them at

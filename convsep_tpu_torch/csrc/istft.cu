@@ -13,95 +13,184 @@
 //               samples, float32 or PCM16 (rintf + clip)
 //
 // What bounds it on the H100: device-memory bytes. Each spectrum is read
-// once (8 bytes per bin) and each sample written once; the transforms are
-// about 2.5 nfft log2(nfft) flops per frame, two orders of magnitude below
-// what the card's float32 rate would need to matter.
+// once (8 bytes per bin) and each sample written once: 236 MB, 0.0705 ms,
+// for 8 signals of 1442 frames of 4096 points; the transforms are about
+// 2.5 nfft log2(nfft) flops per frame, an order of magnitude below what the
+// card's float32 rate would need to matter.
 //
-// Design, and how it differs from the TPU kernels:
-// * The TPU kernels walked frame blocks in order and carried (or spilled)
-//   the overlap-add tail from one block to the next. Blocks here run in no
-//   order, so overlap-add is a gather: block (r, n) owns hop rows
-//   [j0, j0 + R) of signal n and transforms every frame that touches them,
-//   i.e. the win/hop - 1 frames before j0 as well. The recomputed share is
-//   (win/hop - 1) / R of the transforms; the sum is deterministic, with no
-//   atomics.
-// * The inverse DFT is the radix-2 FFT in shared memory of wiener_istft.cu
-//   (istft_common.cuh) for power-of-two nfft, a direct sum for other even
-//   nfft. Without a mask to apply, consecutive frames f and f + 1 share one
-//   complex transform (Z = A + iB). Their windowed samples land on the
-//   same hop rows one hop apart, so a thread adds sample u of frame f and
-//   sample u - hop of frame f + 1 into position u of the pair: one write
-//   per position, no race.
-// Shared memory: twiddles (nfft/2 float2; nfft for the direct sum) + the
-// spectrum buffer (nfft float2) + the accumulator (R * hop floats); the
-// wrapper picks R to fit.
+// Design (powers of two, 16 ... 8192 points): the FFT core of
+// fft_common.cuh, run backwards by conjugation. A group of nfft / 16
+// threads transforms two frames (Z = A + i B) with 16 points a thread in
+// registers, each thread loading its points straight from the spectrum rows
+// (the mirrored bin past Nyquist), Stockham passes through a padded exchange
+// buffer behind barriers of the group alone, twiddles from the host's
+// float32 quarter table in shared memory. A block of G groups walks its
+// frames in rounds of 2G; the TPU kernels carried the overlap-add tail from
+// one frame block to the next in order, and blocks here run in no order, so
+// block (n, r) owns R hop rows [j0, j0 + R) of signal n and transforms the
+// win/hop - 1 frames before j0 as well (the recomputed share (win/hop - 1) /
+// R is at most 3/16). After a round's transforms (one block barrier, outside
+// any transform) every output row that the round completes is a gather: a
+// thread owns a column u of the hop rows and adds, for each row, the carry of
+// the earlier rounds and the round's frames in frame order, so each sample
+// sums its win/hop frames in one fixed order, with no atomics, and writes it
+// normalized; the k - 1 rows the next round still adds to stay in a carry of
+// (win/hop - 1) hop floats, read and written by the same thread.
+// fft_plan.istft_plan picks G and the rounds (2 blocks per SM where shared
+// memory allows) and mirrors this launcher's numbers.
+//
+// Other even sizes take a direct O(nfft) sum per output sample in one
+// 512-thread block, a pair of frames at a time (no preset uses one), with
+// the host's float64-made table of e^{-2 pi i m / nfft}.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "istft_common.cuh"
+#include "fft_common.cuh"
 
 namespace {
 
-using namespace istft_common;
+using namespace fft_common;
 
-constexpr int kThreads = 512;
+constexpr int kDirectThreads = 512;
 
-template <bool kPow2>
-__global__ void __launch_bounds__(kThreads) istft_kernel(
+// out[o] = v as float32, or as PCM16: round to nearest even, clipped
+__device__ __forceinline__ void store_sample(void* out, int out_int16, long long o, float v) {
+  if (out_int16) {
+    const float qv = fminf(fmaxf(rintf(v * 32768.f), -32768.f), 32767.f);
+    static_cast<int16_t*>(out)[o] = (int16_t)qv;
+  } else {
+    static_cast<float*>(out)[o] = v;
+  }
+}
+
+template <int LOG2N>
+__global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
     const float* __restrict__ re, const float* __restrict__ im,
     const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
-    void* __restrict__ out, int out_int16, int nf, int nfft, int log2n, int tw_len, int win,
-    int hop, int length, int rows_per_block) {
-  extern __shared__ float2 smem2[];
-  const int half = nfft / 2;
-  const int bins = half + 1;
-  const int k_ratio = win / hop;
-  float2* tw = smem2;                                  // tw_len
-  float2* buf = tw + tw_len;                           // nfft
-  float* acc = reinterpret_cast<float*>(buf + nfft);   // R * hop
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int j0 = blockIdx.x * rows_per_block;
-  const int total_rows = nf + k_ratio - 1;
-  const int rows = min(rows_per_block, total_rows - j0);
+    const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int win,
+    int hop, int length, int rounds, int rows, int per_signal) {
+  using F = Fft<LOG2N>;
+  constexpr int N = F::N;
+  constexpr int bins = N / 2 + 1;
+  extern __shared__ float4 smem4[];
+  const int groups = blockDim.x / F::T;
+  const int group = threadIdx.x / F::T;
+  const int j = threadIdx.x - group * F::T;
+  const int k = win / hop;       // frames that overlap one hop row
+  const int f2 = 2 * groups;     // frames per round
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* bufs = tws + twiddle_len(LOG2N);
+  float* carry = reinterpret_cast<float*>(bufs + groups * exchange_len(LOG2N));  // (k-1) hop
+  const int n = blockIdx.x / per_signal;
+  const int j0 = (blockIdx.x - n * per_signal) * rows;  // first hop row of the block
+  const int total_rows = nf + k - 1;
+  const int j_end = min(j0 + rows, total_rows);
   const long long track = (long long)n * nf * bins;
+  const float* re_n = re + track;
+  const float* im_n = im + track;
+  const long long front = win / 2;
 
-  init_twiddles(tw, tw_len, nfft, tid, kThreads);
-  for (int i = tid; i < rows_per_block * hop; i += kThreads) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < N / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + i);
+  for (int i = threadIdx.x; i < (k - 1) * hop; i += blockDim.x) carry[i] = 0.f;
+  __syncthreads();
 
-  const int f_lo = max(0, j0 - k_ratio + 1);
-  const int f_hi = min(nf - 1, j0 + rows - 1);
+  float2* buf = bufs + group * exchange_len(LOG2N);
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + r * f2;  // first frame of the round
+    const int fa = fr + 2 * group, fb = fa + 1;
+    const bool ha = fa >= 0 && fa < nf, hb = fb >= 0 && fb < nf;
+    float2 v[kPoints];
+    inverse_input<LOG2N>(v, ha ? re_n + (long long)fa * bins : nullptr,
+                         ha ? im_n + (long long)fa * bins : nullptr,
+                         hb ? re_n + (long long)fb * bins : nullptr,
+                         hb ? im_n + (long long)fb * bins : nullptr, j);
+    F::run(v, buf, tws, j, group);
+    __syncthreads();  // every group's frames are in its buffer
+    // rows fr .. fr + f2 + k - 2 meet the round's frames; rows below fr + f2
+    // are complete after it, the k - 1 above carry on to the next round
+    for (int u = threadIdx.x; u < hop; u += blockDim.x) {
+      for (int i = 0; i < f2 + k - 1; ++i) {
+        const int row = fr + i;
+        float acc = i < k - 1 ? carry[i * hop + u] : 0.f;
+        const int f_lo = max(fr, row - k + 1), f_hi = min(fr + f2 - 1, row);
+        for (int f = f_lo; f <= f_hi; ++f) {
+          const int t = (row - f) * hop + u;
+          const float2 z = bufs[((f - fr) >> 1) * exchange_len(LOG2N) + slot(t)];
+          acc += __ldg(win_over_n + t) * (((f - fr) & 1) ? -z.y : z.x);
+        }
+        if (i >= f2) {
+          carry[(i - f2) * hop + u] = acc;
+        } else if (row >= j0 && row < j_end) {
+          const long long nabs = (long long)row * hop + u;
+          const long long tpos = nabs - front;
+          if (tpos >= 0 && tpos < length)
+            store_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
+        }
+      }
+    }
+    __syncthreads();  // the buffers are read; the next round's first pass rewrites them
+  }
+}
+
+// nfft even but not a power of two in [16, 8192]: z[t] = sum_k Z[k]
+// e^{+2 pi i k t / N} per sample, a pair of frames at a time, accumulated in
+// shared memory over the block's R hop rows.
+__global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ table, void* __restrict__ out, int out_int16, int nf, int nfft,
+    int win, int hop, int length, int rows, int per_signal) {
+  extern __shared__ float4 smem4[];
+  const int half = nfft / 2, bins = half + 1, k_ratio = win / hop;
+  float2* tw = reinterpret_cast<float2*>(smem4);     // nfft: e^{-2 pi i m / N}
+  float2* buf = tw + nfft;                             // nfft: Z in natural order
+  float* acc = reinterpret_cast<float*>(buf + nfft);  // rows * hop
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x / per_signal;
+  const int j0 = (blockIdx.x - n * per_signal) * rows;
+  const int nrows = min(rows, nf + k_ratio - 1 - j0);
+  const long long track = (long long)n * nf * bins;
+  for (int i = tid; i < nfft; i += kDirectThreads) tw[i] = __ldg(table + i);
+  for (int i = tid; i < rows * hop; i += kDirectThreads) acc[i] = 0.f;
+  const int f_lo = max(0, j0 - k_ratio + 1), f_hi = min(nf - 1, j0 + nrows - 1);
   for (int f = f_lo; f <= f_hi; f += 2) {
     const bool has1 = f + 1 <= f_hi;
-    const long long fa = track + (long long)f * bins;
-    const long long fb = fa + bins;
+    const long long fa = track + (long long)f * bins, fb = fa + bins;
     __syncthreads();  // the previous pair's readers of buf are done
-    for (int k = tid; k <= half; k += kThreads) {
-      const float ar = re[fa + k], ai = im[fa + k];
-      const float br = has1 ? re[fb + k] : 0.f;
-      const float bi = has1 ? im[fb + k] : 0.f;
-      pack_pair<kPow2>(buf, k, nfft, log2n, ar, ai, br, bi);
+    for (int kk = tid; kk <= half; kk += kDirectThreads) {
+      const bool edge = kk == 0 || kk == half;
+      const float ar = re[fa + kk], ai = edge ? 0.f : im[fa + kk];
+      const float br = has1 ? re[fb + kk] : 0.f, bi = has1 && !edge ? im[fb + kk] : 0.f;
+      buf[kk] = make_float2(ar - bi, ai + br);
+      if (!edge) buf[nfft - kk] = make_float2(ar + bi, br - ai);
     }
     __syncthreads();
-    fft_stages(buf, tw, nfft, log2n, tid, kThreads);
-    // position u of the pair is sample f * hop + u of the signal: sample u
-    // of frame f (real part) plus sample u - hop of frame f + 1 (imaginary)
     const int span = win + (has1 ? hop : 0);
-    for (int u = tid; u < span; u += kThreads) {
+    for (int u = tid; u < span; u += kDirectThreads) {
       const int row = f + u / hop - j0;
-      if (row < 0 || row >= rows) continue;
+      if (row < 0 || row >= nrows) continue;
       float v = 0.f;
-      if (u < win) v = inverse_sample<kPow2>(buf, tw, nfft, u).x * win_over_n[u];
-      if (has1 && u >= hop) v += inverse_sample<kPow2>(buf, tw, nfft, u - hop).y * win_over_n[u - hop];
+      for (int part = 0; part < 2; ++part) {  // sample u of frame f, u - hop of f + 1
+        const int t = part ? u - hop : u;
+        if (part ? !(has1 && u >= hop) : u >= win) continue;
+        float zr = 0.f, zi = 0.f;
+        int idx = 0;
+        for (int kk = 0; kk < nfft; ++kk) {  // Z[kk] conj(tw[kk t mod N])
+          const float2 w = tw[idx], z = buf[kk];
+          zr += z.x * w.x + z.y * w.y;
+          zi += z.y * w.x - z.x * w.y;
+          idx += t;
+          if (idx >= nfft) idx -= nfft;
+        }
+        v += win_over_n[t] * (part ? zi : zr);
+      }
       acc[row * hop + u % hop] += v;
     }
   }
   __syncthreads();
-  // epilogue: window-power normalization, win/2 front trim, optional PCM16
   const long long front = win / 2;
-  for (int i = tid; i < rows * hop; i += kThreads) {
+  for (int i = tid; i < nrows * hop; i += kDirectThreads) {
     const long long nabs = (long long)j0 * hop + i;
     const long long tpos = nabs - front;
     if (tpos < 0 || tpos >= length) continue;
@@ -109,29 +198,66 @@ __global__ void __launch_bounds__(kThreads) istft_kernel(
   }
 }
 
+template <int LOG2N>
+cudaError_t launch_fft(const float* re, const float* im, const float* wn, const float* inv,
+                       const float2* tw, void* out, int out_int16, int nt, int nf, int win,
+                       int hop, int length, int groups, int rounds, cudaStream_t stream) {
+  const int k = win / hop;
+  const int rows = rounds * 2 * groups - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (nf + k - 1 + rows - 1) / rows;
+  const size_t smem = (size_t)(twiddle_len(LOG2N) + groups * exchange_len(LOG2N)) * sizeof(float2) +
+                      (size_t)(k - 1) * hop * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(istft_fft_kernel<LOG2N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  istft_fft_kernel<LOG2N><<<(unsigned)((long long)nt * per_signal), groups * fft_threads(LOG2N),
+                            smem, stream>>>(re, im, wn, inv, tw, out, out_int16, nf, win, hop,
+                                            length, rounds, rows, per_signal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
+// [16, 8192], else the full table e^{-2 pi i m / nfft} (fft_plan.dft_table).
+// groups, rounds: fft_plan.istft_plan (groups = 0: the direct sum, with
+// rounds hop rows per block).
 extern "C" int istft_launch(const void* re, const void* im, const void* win_over_n,
-                            const void* inv_norm, void* out, int out_int16, int nt, int nf,
-                            int nfft, int win, int hop, int length, int rows_per_block,
-                            void* stream) {
+                            const void* inv_norm, const void* tw, void* out, int out_int16,
+                            int nt, int nf, int nfft, int win, int hop, int length, int groups,
+                            int rounds, void* stream) {
   if (nfft < 2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 || win % hop != 0 ||
-      nt < 1 || nf < 1 || rows_per_block < 1)
+      nt < 1 || nf < 1 || rounds < 1 || groups < 0)
     return (int)cudaErrorInvalidValue;
-  const int log2n = pow2_log(nfft);  // 0: not a power of two, the direct sum
-  const int tw_len = log2n ? nfft / 2 : nfft;
-  const int total_rows = nf + win / hop - 1;
-  const int nblk = (total_rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = (size_t)tw_len * sizeof(float2) + (size_t)nfft * sizeof(float2) +
-                      (size_t)rows_per_block * hop * sizeof(float);
-  auto kern = log2n ? istft_kernel<true> : istft_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nblk, nt);
-  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(re), static_cast<const float*>(im),
-      static_cast<const float*>(win_over_n), static_cast<const float*>(inv_norm), out,
-      out_int16, nf, nfft, log2n, tw_len, win, hop, length, rows_per_block);
-  return (int)cudaGetLastError();
+  const auto* r = static_cast<const float*>(re);
+  const auto* i = static_cast<const float*>(im);
+  const auto* wn = static_cast<const float*>(win_over_n);
+  const auto* inv = static_cast<const float*>(inv_norm);
+  const auto* t = static_cast<const float2*>(tw);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int log2n = plan_log2(nfft);
+  if (groups == 0) {  // the direct sum
+    if (log2n) return (int)cudaErrorInvalidValue;
+    const int rows = rounds;
+    const int per_signal = (nf + win / hop - 1 + rows - 1) / rows;
+    const size_t smem = (size_t)2 * nfft * sizeof(float2) + (size_t)rows * hop * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(istft_direct_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    istft_direct_kernel<<<(unsigned)((long long)nt * per_signal), kDirectThreads, smem, s>>>(
+        r, i, wn, inv, t, out, out_int16, nf, nfft, win, hop, length, rows, per_signal);
+    return (int)cudaGetLastError();
+  }
+  if (!log2n || groups * fft_threads(log2n) > kMaxThreads ||
+      groups * fft_threads(log2n) % 32 != 0 || (fft_threads(log2n) > 32 && groups > 8))
+    return (int)cudaErrorInvalidValue;
+  switch (log2n) {
+#define CASE(L) \
+  case L: return (int)launch_fft<L>(r, i, wn, inv, t, out, out_int16, nt, nf, win, hop, length, groups, rounds, s);
+    CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
+    default: return (int)launch_fft<13>(r, i, wn, inv, t, out, out_int16, nt, nf, win, hop,
+                                        length, groups, rounds, s);
+#undef CASE
+  }
 }

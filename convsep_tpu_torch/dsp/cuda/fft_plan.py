@@ -1,5 +1,6 @@
-"""Host side of the forward-STFT FFT core (``csrc/fft_common.cuh``): the
-launch plan, the twiddle table and the device copies of the window.
+"""Host side of the FFT core (``csrc/fft_common.cuh``): the launch plans of
+the forward STFT kernels and of the inverse STFT kernel, the twiddle tables
+and the device copies of the windows.
 
 The two forward STFT kernels (``csrc/stft_dft.cu``, ``csrc/ct_stft.cu``)
 run one complex FFT of nfft points, carrying two real frames, on a group of
@@ -10,6 +11,10 @@ of the radices :func:`radices` gives, with one exchange buffer of
 loads the signal span of their 2 · ``ffts_per_block`` frames.
 :func:`stft_plan` chooses that number for a shape, and computes the block's
 threads, shared memory and the grid exactly as the C launchers do.
+
+The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
+(by conjugation) on groups of a block that walk the block's frames in rounds
+and overlap-add them by a gather; :func:`istft_plan` sizes it.
 """
 
 from __future__ import annotations
@@ -22,12 +27,22 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from convsep_tpu_torch.dsp.dft import _key, inverse_norm
+
 SMS = 132                # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 227 * 1024    # dynamic shared memory a block may use
 MAX_THREADS = 512        # fft_common::kMaxThreads
 POINTS = 16              # complex points a thread holds
 MAX_NAMED_GROUPS = 8     # groups per block that synchronize on named barriers
 MIN_NFFT, MAX_NFFT = 2 ** 4, 2 ** 13
+SM_SMEM = 228 * 1024     # shared memory of one SM
+BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
+SM_THREADS = 2048        # resident threads per SM
+SM_BLOCKS = 32           # resident blocks per SM
+MAX_HALO = 3 / 16        # the inverse kernel's recomputed share of transforms
+DIRECT_THREADS = 512     # the inverse kernel's direct sum (other sizes)
+DIRECT_SMEM_BUDGET = 200 * 1024
+DIRECT_MAX_ROWS = 16
 
 
 def fft_supported(nfft: int) -> bool:
@@ -105,6 +120,77 @@ def stft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> StftPlan:
                     smem_bytes(nfft, win, hop, g))
 
 
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of ``threads`` with ``smem`` bytes that one SM holds at once,
+    by shared memory and threads (registers: ptxas decides; see PERF.md)."""
+    return min(SM_SMEM // (smem + BLOCK_RESERVED), SM_THREADS // threads, SM_BLOCKS)
+
+
+def istft_smem_bytes(nfft: int, win: int, hop: int, groups: int) -> int:
+    """The inverse kernel's dynamic shared memory: the quarter twiddle
+    table, one exchange buffer per group, the carry of win/hop − 1 hop rows."""
+    return 8 * (twiddle_entries(nfft) + groups * exchange_entries(nfft)) + 4 * (win // hop - 1) * hop
+
+
+@dataclass(frozen=True)
+class IstftPlan:
+    nfft: int
+    groups: int           # FFT groups per block (2 frames each); 0: the direct sum
+    threads: int          # per block
+    rounds: int           # rounds of 2·groups frames per block (1 for the direct sum)
+    rows: int             # hop rows a block owns
+    blocks_per_signal: int
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int    # by shared memory and threads
+    halo: float           # recomputed share of the transforms: (win/hop − 1) / rows
+    note: str             # why a block has an SM to itself, where it does
+
+
+@lru_cache(maxsize=64)
+def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
+    """The inverse kernel's launch, as ``csrc/istft.cu::istft_launch``
+    computes it. Powers of two: the most groups per block (a power of two,
+    whole warps, at most 8 named-barrier groups, 512 threads) that still
+    leaves two blocks per SM by shared memory (else the fewest that fit, and
+    the note says so), then the fewest rounds of 2·groups frames whose rows
+    (2·groups·rounds − (win/hop − 1)) keep the recomputed share at or under
+    3/16. Other sizes: the direct sum, up to 16 hop rows per block."""
+    k = win // hop
+    if not fft_supported(nfft):
+        rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (4 * hop))
+        if rows < 1:
+            raise ValueError(f"no iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
+        smem = 16 * nfft + 4 * rows * hop
+        per = -(-(nf + k - 1) // rows)
+        return IstftPlan(nfft, 0, DIRECT_THREADS, 1, rows, per, signals * per, smem,
+                         blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum")
+    t = threads_per_fft(nfft)
+    g_min = max(1, 32 // t)
+    g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
+    fits = [1 << e for e in range(int(math.log2(g_max)), int(math.log2(g_min)) - 1, -1)
+            if istft_smem_bytes(nfft, win, hop, 1 << e) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"no iSTFT plan fits shared memory: nfft={nfft} win={win} hop={hop}")
+    two = [g for g in fits if blocks_per_sm(istft_smem_bytes(nfft, win, hop, g), g * t) >= 2]
+    need = max(1, math.ceil((k - 1) / MAX_HALO))
+
+    def plan(g: int) -> IstftPlan:
+        smem = istft_smem_bytes(nfft, win, hop, g)
+        rounds = -(-(need + k - 1) // (2 * g))
+        rows = 2 * g * rounds - (k - 1)
+        per = -(-(nf + k - 1) // rows)
+        note = "" if two else (f"one block per SM: {smem} bytes of shared memory (the "
+                               f"exchange buffer and the {k - 1}-row carry)")
+        return IstftPlan(nfft, g, g * t, rounds, rows, per, signals * per, smem,
+                         blocks_per_sm(smem, g * t), (k - 1) / rows, note)
+
+    # the most groups whose grid still gives every SM two blocks; else the
+    # fewest (the most blocks)
+    plans = [plan(g) for g in (two or fits[-1:])]
+    return next((p for p in plans if p.blocks >= 2 * SMS), plans[-1])
+
+
 def twiddle_table(nfft: int) -> np.ndarray:
     """(nfft, 2) float32: e^{−2πi m / nfft} = (cos, −sin). The first
     quadrant (m < nfft/4) is computed in float64 and rounded once; the
@@ -123,6 +209,15 @@ def twiddles(nfft: int, device: str) -> torch.Tensor:
     kernels copy into shared memory, on ``device``, made once per (nfft,
     device)."""
     return torch.from_numpy(np.ascontiguousarray(twiddle_table(nfft)[: nfft // 4])).to(device)
+
+
+@lru_cache(maxsize=8)
+def dft_table(nfft: int, device: str) -> torch.Tensor:
+    """(nfft, 2) float32 e^{−2πi m / nfft}, m < nfft, made in float64: the
+    inverse kernel's direct sum for sizes that are not powers of two."""
+    ang = 2.0 * np.pi * np.arange(nfft) / nfft
+    tab = np.stack([np.cos(ang), -np.sin(ang)], -1).astype(np.float32)
+    return torch.from_numpy(tab).to(device)
 
 
 _windows: list[tuple[bytes, str, torch.Tensor]] = []
@@ -144,3 +239,29 @@ def window_f32(window: np.ndarray, device: str) -> torch.Tensor:
         _windows.insert(0, (key, device, t))
         del _windows[8:]
         return t
+
+
+_synthesis: list[tuple[bytes, tuple, tuple[torch.Tensor, torch.Tensor]]] = []
+
+
+def synthesis_tables(window: np.ndarray, nfft: int, hop: int, nf: int,
+                     device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(window / nfft, 1 / window-power envelope of nf frames) as float32 on
+    ``device``: the inverse kernel's two tables, made once per window and
+    shape. A call's window is found again by comparing its float64 bytes
+    with the last few (no conversion to float32, no second key per call)."""
+    key = np.ascontiguousarray(window, np.float64).tobytes()
+    shape = (nfft, hop, nf, device)
+    with _windows_lock:
+        for i, (k, s, tabs) in enumerate(_synthesis):
+            if s == shape and k == key:
+                if i:
+                    _synthesis.insert(0, _synthesis.pop(i))
+                return tabs
+    w = np.frombuffer(key, np.float64)
+    tabs = (torch.from_numpy((w / float(nfft)).astype(np.float32)).to(device),
+            inverse_norm(_key(w.astype(np.float32)), hop, nf, device))
+    with _windows_lock:
+        _synthesis.insert(0, (key, shape, tabs))
+        del _synthesis[8:]
+    return tabs

@@ -1,8 +1,10 @@
 """Windowed inverse STFT + overlap-add: the CUDA kernel's launcher, the
 ``istft_pallas`` wrapper and its plain version.
 
-One kernel (``csrc/istft.cu``) replaces two TPU kernels that compute the
-same window-power-normalized iSTFT:
+One kernel (``csrc/istft.cu``, on the FFT core ``csrc/fft_common.cuh``
+run backwards, launched by :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
+istft_plan`) replaces two TPU kernels that compute the same
+window-power-normalized iSTFT:
 ``convsep_tpu/dsp/pallas/istft_kernel.py::istft_pallas`` (this module) and
 ``convsep_tpu/dsp/pallas/ct_istft_kernel.py::istft_ct_pallas``
 (:mod:`convsep_tpu_torch.dsp.cuda.ct_istft_kernel`). Each wrapper keeps its
@@ -15,13 +17,15 @@ tensors they launch the kernel or raise: there is no fallback.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.dft import _key, _window, inverse_norm, istft_matmul
+from convsep_tpu_torch.dsp.cuda.fft_plan import dft_table, istft_plan, synthesis_tables, twiddles
+from convsep_tpu_torch.dsp.dft import _window, istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
 _SMEM_BUDGET = 200 * 1024  # bytes of the 227 KB a block may use
@@ -30,30 +34,32 @@ _MAX_ROWS = 16
 
 def _max_rows(nfft: int, hop: int, S: int = 1, extra: int = 0) -> int:
     """Hop rows of S accumulators that fit the shared-memory budget beside
-    the twiddles, the spectrum buffer and ``extra`` bytes. The layout of
-    ``csrc/istft_common.cuh``; both launchers (``istft.cu``,
-    ``wiener_istft.cu``) size shared memory the same way."""
+    the twiddles, the spectrum buffer and ``extra`` bytes: the layout of
+    ``csrc/istft_common.cuh``, which ``wiener_istft.cu``'s launcher sizes
+    the same way."""
     tw_len = nfft // 2 if nfft & (nfft - 1) == 0 else nfft
     return (_SMEM_BUDGET - tw_len * 8 - nfft * 8 - extra) // (S * hop * 4)
 
 
 def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
-    """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and one
-    hop row beside the spectrum in shared memory. Powers of two take a
-    radix-2 FFT; other even sizes a direct sum per sample."""
-    return (
-        nfft % 2 == 0
-        and 2 <= win_len <= nfft
-        and hop > 0
-        and win_len % hop == 0
-        and _max_rows(nfft, hop) >= 1
-    )
+    """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and a
+    launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
+    within shared memory. Powers of two from 16 to 8192 run on the FFT core;
+    other even sizes a direct sum per sample."""
+    if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
+        return False
+    try:
+        istft_plan(1, 1, nfft, win_len, hop)
+    except ValueError:
+        return False
+    return True
 
 
 @lru_cache(maxsize=8)
 def win_over_n(window_key: bytes, nfft: int, device: str) -> torch.Tensor:
     """window / nfft as a float32 tensor on ``device`` (the synthesis
-    window with the inverse DFT's 1/N folded in)."""
+    window with the inverse DFT's 1/N folded in): the Wiener+iSTFT kernel's
+    table."""
     w = _window(window_key)
     return torch.from_numpy((w / float(nfft)).astype(np.float32)).to(device)
 
@@ -68,9 +74,9 @@ def launch_istft(
     output_dtype: str = "float32",
 ) -> torch.Tensor:
     """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
-    (..., length) float32 or int16. Raises outside the envelope."""
-    window = np.asarray(window, np.float64)
-    win_len = len(window)
+    (..., length) float32 or int16. Raises outside the envelope. The window's
+    tables, the twiddles and the plan are found again per call, not made."""
+    win_len, hop, length = len(window), int(hop), int(length)
     if re.device.type != "cuda" or im.device != re.device:
         raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
     if re.dtype != torch.float32 or im.dtype != torch.float32 or im.shape != re.shape:
@@ -83,22 +89,23 @@ def launch_istft(
         raise ValueError(f"output_dtype must be float32|int16, got {output_dtype}")
     lead = tuple(re.shape[:-2])
     nf, bins = int(re.shape[-2]), int(re.shape[-1])
-    nt = int(np.prod(lead)) if lead else 1
+    nt = math.prod(lead)
     dev = re.device
+    where = str(dev)
     re3 = re.reshape(nt, nf, bins).contiguous()
     im3 = im.reshape(nt, nf, bins).contiguous()
-    win_n = win_over_n(_key(window), int(nfft), str(dev))
-    inv_norm = inverse_norm(_key(window.astype(np.float32)), int(hop), nf, str(dev))
-    out_dt = torch.int16 if output_dtype == "int16" else torch.float32
-    out = torch.empty((nt, length), dtype=out_dt, device=dev)
-    rows = min(_MAX_ROWS, _max_rows(nfft, hop))
+    win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
+    plan = istft_plan(nt, nf, nfft, win_len, hop)
+    tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
+    int16 = output_dtype == "int16"
+    out = torch.empty((nt, length), dtype=torch.int16 if int16 else torch.float32, device=dev)
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with kernels.on_device(dev):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
         code = lib.istft_launch(
             re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
-            out.data_ptr(), int(out_dt == torch.int16), nt, nf, int(nfft), win_len,
-            int(hop), int(length), rows, stream,
+            tw.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+            plan.groups, plan.rounds if plan.groups else plan.rows, stream,
         )
     kernels.check(code, "istft")
     kernels.LAUNCHES["istft"] += 1

@@ -62,15 +62,17 @@ _SIGNATURES = {
     # fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM, stream
     "fused_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P),
+    # B, J, S, W_pad, TpC, ktaps, TM, info (9 ints out)
+    "fused_decode_plan": (_I, _I, _I, _I, _I, _I, _I, _P),
     # x, cosw, sinw, re, im, B, L, W, hop, nf, bins, stream
     "stft_dft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, re, im, B, L, W, hop, nf, nfft, ffts_per_block, stream
     "stft_fft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
-    # re, im, win_over_n, inv_norm, out, out_int16, nt, nf, nfft, win, hop,
-    # length, rows_per_block, stream
-    "istft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # re, im, win_over_n, inv_norm, tw, out, out_int16, nt, nf, nfft, win, hop,
+    # length, groups, rounds (rows for the direct sum), stream
+    "istft_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
     # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream

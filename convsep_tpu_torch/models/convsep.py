@@ -48,6 +48,7 @@ from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor as band_decode_kernel
 from convsep_tpu_torch.models.decoder_band_cuda import band_tensor
 from convsep_tpu_torch.models.decoder_fused_cuda import (
+    FUSED_DECODE_WON_TM,
     band_freq_decode,
     band_freq_decode_plain,
     fused_decode_supported,
@@ -56,6 +57,7 @@ from convsep_tpu_torch.models.decoder_fused_cuda import (
     prepare_operands,
     tap_fold,
 )
+from convsep_tpu_torch.utils.precision import float32_exact
 
 __all__ = ["ConvSep", "ConvSepConfig", "resolve_decoder_impl", "train_sources",
            "trainable_config"]
@@ -148,12 +150,14 @@ def compose_collapsed_fc(kernel, bias, k1, b1, k2, b2, cfg: ConvSepConfig):
     return w_eff, bias + h2c @ w4.sum(dim=(0, 1))
 
 
+@float32_exact()
 def train_sources(params: dict[str, torch.Tensor], x: torch.Tensor,
                   cfg: ConvSepConfig) -> torch.Tensor:
     """The trainable forward, (B, T, F, C) → (B, S, T, F) in ``mask_dtype``,
     as a function of the flat parameter dict (:func:`param_shapes` names):
     the reference's ``ConvSep.sources`` with ``encoder_impl="conv"`` and the
-    "bandconv" decode."""
+    "bandconv" decode. Its convolutions run without TF32 (cuDNN's default
+    for float32); the training step scopes the backward the same way."""
     B, T, F, C = x.shape
     if (T, F, C) != (cfg.time_context, cfg.feat_size, cfg.channels_in):
         raise ValueError(f"input {tuple(x.shape)} does not match config {cfg}")
@@ -197,9 +201,11 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
     """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper),
     "bandconv" (plain PyTorch), or the two-stage "band_pallas" (the band
     kernel's wrapper) and "band" (a float32 GEMM). "auto" takes the fused
-    kernel on CUDA where the reference's TPU rule admits the shape and the
-    kernel's envelope holds; an explicit kernel route asks for the wrapper,
-    which is the plain version on CPU tensors."""
+    kernel on CUDA only where the reference's TPU rule admits the shape, the
+    kernel's envelope holds and the kernel won its A/B against the plain
+    decode at that TM on the card (``FUSED_DECODE_WON_TM``): the reference's
+    rule that "auto" only ever picks the winning branch. An explicit kernel
+    route asks for the wrapper, which is the plain version on CPU tensors."""
     impl = cfg.decoder_impl
     if impl in ("bandconv", "bandconv_pallas", *_BAND):
         return impl
@@ -213,7 +219,8 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
     if (
         torch.device(device).type == "cuda"
         and fused_decode_supported(TpC, TM, cfg.ktaps)
-        and kernel_supported(cfg.bottleneck, cfg.ktaps)
+        and kernel_supported(cfg.bottleneck, cfg.ktaps, TM)
+        and TM in FUSED_DECODE_WON_TM
     ):
         return "bandconv_pallas"
     return "bandconv"

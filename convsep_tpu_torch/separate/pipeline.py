@@ -45,6 +45,7 @@ from convsep_tpu_torch.models.convsep import ConvSep
 from convsep_tpu_torch.separate.complement import derive_last_stem
 from convsep_tpu_torch.utils.device import resolve_device
 from convsep_tpu_torch.utils.pcm import quantize_pcm16, quantize_pcm16_host
+from convsep_tpu_torch.utils.precision import float32_exact
 from convsep_tpu_torch.utils.transfer import fetch
 
 
@@ -123,6 +124,7 @@ def score_gate(y: torch.Tensor, extra: torch.Tensor | None, mag: torch.Tensor,
     return y * ((1.0 - g) + g * gate)
 
 
+@float32_exact()
 @torch.inference_mode()
 def source_magnitudes(
     model: ConvSep, tracks: torch.Tensor, preset: Preset, extra: torch.Tensor | None = None
@@ -168,6 +170,7 @@ def source_magnitudes(
     return y, re, im, ny
 
 
+@float32_exact()
 @torch.inference_mode()
 def separate_fused_batch(
     model: ConvSep,
@@ -200,6 +203,7 @@ def separate_fused_batch(
     )
 
 
+@float32_exact()
 @torch.inference_mode()
 def separate_fused(model: ConvSep, audio: torch.Tensor, preset: Preset, length: int,
                    output_dtype: str = "float32", conserve_last: bool = False,

@@ -36,9 +36,11 @@ from convsep_tpu_torch.separate.pipeline import (
 )
 from convsep_tpu_torch.utils.device import resolve_device
 from convsep_tpu_torch.utils.pcm import quantize_pcm16_host
+from convsep_tpu_torch.utils.precision import float32_exact
 from convsep_tpu_torch.utils.transfer import fetch
 
 
+@float32_exact()
 @torch.inference_mode()
 def stereo_source_magnitudes(
     model: ConvSep, audio: torch.Tensor, preset: Preset
@@ -55,6 +57,7 @@ def stereo_source_magnitudes(
     return unsegment_frames(y.permute(1, 4, 0, 2, 3), nf), re, im
 
 
+@float32_exact()
 @torch.inference_mode()
 def separate_fused_stereo(
     model: ConvSep,

@@ -33,6 +33,7 @@ from convsep_tpu_torch.models.convsep import trainable_config
 from convsep_tpu_torch.train import e2e
 from convsep_tpu_torch.train.optim import GradientTransformation, global_norm, make_optimizer
 from convsep_tpu_torch.utils.device import resolve_device
+from convsep_tpu_torch.utils.precision import float32_exact
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 
@@ -99,6 +100,7 @@ def step_from_loss(
     if apply_fn is None:
         apply_fn = _apply_from_opt(opt)
 
+    @float32_exact()  # the backward's convolutions and products too
     def train_step(state: TrainState, x, y):
         names = list(state.params)
         loss = loss_fn(state.params, x, y)
@@ -155,7 +157,7 @@ def make_eval_step(preset: Preset, from_audio: bool = False) -> Callable:
     loss."""
     if not from_audio:
         raise NotImplementedError(f"feature-file training (SegmentDataset) is {_ROADMAP}")
-    return torch.no_grad()(e2e.make_audio_loss_fn(preset))
+    return float32_exact()(torch.no_grad()(e2e.make_audio_loss_fn(preset)))
 
 
 class MetricsLogger:

@@ -34,10 +34,10 @@ from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     wiener_istft,
     wiener_istft_plain,
 )
-from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain
+from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain, launch_istft
 from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas, stft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
-from convsep_tpu_torch.dsp.dft import stft_matmul
+from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
 from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.convsep import band_freq_conv_kernel
@@ -50,6 +50,8 @@ from convsep_tpu_torch.models.decoder_band_cuda import (
 from convsep_tpu_torch.models.decoder_fused_cuda import (
     band_freq_decode,
     band_freq_decode_plain,
+    card_plan,
+    decode_plan,
     prepare_operands,
 )
 from convsep_tpu_torch.train.fused_optim import (
@@ -164,8 +166,10 @@ def test_fused_decode_kernel_matches_plain(rng, cuda, B, conv1_freq):
 
 
 def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
-    """The slice on the card: "auto" routing takes both kernels for the
-    highres-shaped model and agrees with the all-plain route (f32 tail)."""
+    """The slice on the card: the kernel route (the fused decode forced, as
+    "auto" takes it only at the TMs where it won on the card; the
+    Wiener+iSTFT kernel by "auto") agrees with the all-plain route (f32
+    tail)."""
     from convsep_tpu_torch.ckpt import init_params
     from convsep_tpu_torch.configs import TransformConfig, get_preset
     from convsep_tpu_torch.separate import Separator
@@ -175,7 +179,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     p = dataclasses.replace(
         p, transform=tr, sep=dataclasses.replace(p.sep, segment_bucket=2),
         model=dataclasses.replace(p.model, feat_size=tr.bins, conv1_freq=9, conv1_filters=6,
-                                  conv2_filters=5, bottleneck=16, mask_dtype="float32"),
+                                  conv2_filters=5, bottleneck=16, mask_dtype="float32",
+                                  decoder_impl="bandconv_pallas"),
     )
     state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
@@ -449,9 +454,9 @@ def test_fused_decode_kernel_stereo_tm240_matches_plain(rng, cuda, B):
 
 
 def test_tiny_stereo_slice_kernel_route_matches_plain(cuda):
-    """Stereo on the card: the fused decode (TM 240) and the iSTFT kernel
-    (forced: at 256 points "auto" keeps the reference's direct chain)
-    against the all-plain route, float32 tail."""
+    """Stereo on the card: the fused decode (TM 240, forced) and the iSTFT
+    kernel (forced: at 256 points "auto" keeps the reference's direct
+    chain) against the all-plain route, float32 tail."""
     from convsep_tpu_torch.ckpt import init_params
     from convsep_tpu_torch.configs import TransformConfig, get_preset
     from convsep_tpu_torch.separate import StereoSeparator, stereo
@@ -467,7 +472,8 @@ def test_tiny_stereo_slice_kernel_route_matches_plain(cuda):
     p = dataclasses.replace(
         p, transform=tr, sep=dataclasses.replace(p.sep, segment_bucket=2),
         model=dataclasses.replace(p.model, feat_size=tr.bins, conv1_freq=9, conv1_filters=6,
-                                  conv2_filters=5, bottleneck=16, mask_dtype="float32"),
+                                  conv2_filters=5, bottleneck=16, mask_dtype="float32",
+                                  decoder_impl="bandconv_pallas"),
     )
     state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
     mix = (0.2 * np.random.default_rng(1).standard_normal((9000, 2))).astype(np.float32)
@@ -661,3 +667,101 @@ def test_tiny_multires_band_pallas_matches_plain_band(cuda):
         y_p = source_magnitudes(sep.model, x, p)[0]
     assert kernels.LAUNCHES["band_decode"] == 1
     torch.testing.assert_close(y, y_p, atol=1e-5 * y_p.abs().max().item(), rtol=0)
+
+
+# -- the redesigned decode (3xTF32 on the tensor cores) and iSTFT (FFT core)
+
+
+def _decode_operands(rng, device, B, TM, ktaps, J=32, S=2, W_pad=40, TpC=100):
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
+
+    fc = torch.relu(t(B, J))
+    return fc, (t(J, S, W_pad, TpC, scale=0.2), t(S, W_pad, TpC, scale=0.1),
+                t(TpC, ktaps, TM, scale=0.1))
+
+
+@pytest.mark.parametrize("ktaps", [2, 8, 17])
+@pytest.mark.parametrize("TM", [90, 120, 240, 360, 384])
+@pytest.mark.parametrize("B", [1, 49, 64, 65])
+def test_fused_decode_tiles(rng, cuda, B, TM, ktaps):
+    """Across the fc row tile's edge (64, 65), the cluster's column tiles
+    (3 to 8 blocks of 32 or 48 columns) and the halo's depth (ktaps):
+    float32 output within chip_smoke.py's 1e-5 × max|plain| (3xTF32 keeps
+    float32 parity), bf16 within one ulp."""
+    fc, ops = _decode_operands(rng, cuda, B, TM, ktaps)
+    for dt in (torch.float32, torch.bfloat16):
+        got = band_freq_decode(fc, *ops, out_dtype=dt).float()
+        want = band_freq_decode_plain(fc, *ops, out_dtype=dt).float()
+        scale = want.abs().max().item()
+        tol = (1e-5 if dt == torch.float32 else 2 ** -7) * scale
+        assert got.shape == want.shape == (B, 2, 40, TM)
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_istft_kernel_every_size(rng, cuda, nfft, out):
+    """The iSTFT kernel at every power of two its FFT core takes and at two
+    sizes that take the direct sum, win = nfft, hop = nfft / 4, float32
+    within 1e-5 and PCM16 within one LSB of the plain synthesis."""
+    hop = nfft // 4
+    length = 37 * hop + 5
+    w, re, im = _spectra(rng, (3,), length, nfft, hop, cuda)
+    before = kernels.LAUNCHES["istft"]
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["istft"] == before + 1
+    want = istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct", output_dtype=out)
+    _close(got, want, out)
+
+
+# ptxas's stack frame (bytes) of every iSTFT FFT-kernel instance the tests
+# launch, by log2 of the FFT size, as measured on an H100 build (sm_90a,
+# 128 registers a thread at 512 threads a block): the preset sizes (1024,
+# 4096 points) keep their register arrays off the stack; 32, 512 and 8192
+# points spill a few. A larger frame is a regression.
+ISTFT_STACK_CEILING = {4: 0, 5: 88, 6: 0, 7: 0, 8: 0, 9: 16, 10: 0, 11: 0, 12: 0, 13: 8}
+
+
+# the same for the fused decode kernel's two instances (MI, NI, warps): the
+# 16-warp instance keeps its registers off the stack; the 12-warp one (96
+# accumulators a thread at 168 registers) spills a few bytes.
+DECODE_STACK_CEILING = {"ILi3ELi4ELi16E": 0, "ILi4ELi6ELi12E": 40}
+
+
+def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
+    """ptxas's stack frames for the two redesigned kernels: each fused
+    decode and iSTFT FFT-kernel instance at most its recorded frame
+    (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``)."""
+    import re as regex
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA toolkit of a machine with a card")
+    frames = {}
+    for src in ("decoder_fused.cu", "istft.cu"):
+        out = subprocess.run(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c", str(kernels.CSRC / src),
+             "-o", str(tmp_path / "k.o")], capture_output=True, text=True, check=True)
+        frames.update({m[0]: int(m[1]) for m in regex.findall(
+            r"Function properties for (\S+)\n\s+(\d+) bytes stack frame", out.stdout + out.stderr)})
+    for inst, most in DECODE_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if "fused_decode_kernel" + inst in k]
+        assert len(hits) == 1 and hits[0] <= most, (inst, frames)
+    for log2n, most in ISTFT_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if f"istft_fft_kernelILi{log2n}E" in k]
+        assert hits and max(hits) <= most, (log2n, frames)
+
+
+@pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),
+                                   (49, 128, 4, 512, 800, 8, 360), (65, 32, 2, 40, 100, 17, 360),
+                                   (1, 32, 2, 40, 100, 2, 90)])
+def test_fused_decode_plan_mirrors_the_launcher(cuda, shape):
+    """decode_plan (the CPU tests' mirror) is the launcher's own plan, and
+    the card runs at least one of its clusters."""
+    got = card_plan(*shape)
+    p = decode_plan(*shape)
+    assert (got["mi"], got["ni"], got["cluster"], got["bp"], got["wb"], got["rc"], got["es"],
+            got["smem_bytes"]) == (p.mi, p.ni, p.cluster, p.bp, p.wb, p.rc, p.es, p.smem_bytes)
+    assert got["active_clusters"] >= 1

@@ -68,6 +68,7 @@ def test_envelopes():
     assert fused_decode_supported(16 * 50, 120, 8)      # highres4096
     assert not fused_decode_supported(16 * 50, 90, 10)  # dsd100
     assert not fused_decode_supported(16 * 50, 30, 30)  # ikala
-    assert kernel_supported(128, 8) and kernel_supported(128, 30)
-    assert not kernel_supported(8192, 8)  # fc rows exceed shared memory
+    assert kernel_supported(128, 8, 120) and kernel_supported(128, 14, 120)
+    assert not kernel_supported(128, 30, 120)  # the Kcat tiles outgrow 227 KB
+    assert not kernel_supported(8192, 8, 120)  # fc rows exceed shared memory
 

@@ -280,3 +280,172 @@ def test_exchange_slots_avoid_bank_conflicts(nfft):
             k = np.arange(h, h + 16) + T * q
             split = max(split, _ways(fp.exchange_slot((nfft - k) % nfft).tolist(), 16))
     assert split <= 2
+
+
+# -- the forward mirror's bits, before and after the inverse direction ------
+
+# sha256 (first 16 hex digits) of core_fft on fixed complex64 inputs, taken
+# from the forward mirror as it was before fft_common.cuh gained the inverse
+# direction: the forward passes must give the same bits
+FORWARD_DIGESTS = {16: "1762398c0f6c32bc", 256: "b77c76d9182ff21e",
+                   1024: "03536b271c804858", 4096: "6f8d0e98ecdbce29"}
+
+
+@pytest.mark.parametrize("nfft", sorted(FORWARD_DIGESTS))
+def test_forward_mirror_bits_unchanged(nfft):
+    import hashlib
+
+    r = np.random.default_rng(nfft)
+    z = (r.standard_normal((2, nfft)) + 1j * r.standard_normal((2, nfft))).astype(np.complex64)
+    out = core_fft(torch.from_numpy(z)).numpy().tobytes()
+    assert hashlib.sha256(out).hexdigest()[:16] == FORWARD_DIGESTS[nfft]
+
+
+# -- the inverse kernel (csrc/istft.cu) ----------------------------------------
+
+
+def inverse_input(re_a, im_a, re_b, im_b):
+    """fft_common.cuh::inverse_input for every point at once: conj Z[k] of
+    Z = A + iB, bins past Nyquist from the mirrored bin, DC and Nyquist
+    imaginary parts ignored. (..., bins) float → (..., N) complex."""
+    bins = re_a.shape[-1]
+    N = 2 * (bins - 1)
+    k = torch.arange(N)
+    mirrored = k > N // 2
+    kk = torch.where(mirrored, N - k, k)
+    edge = (kk == 0) | (kk == N // 2)
+    ar, br = re_a[..., kk], re_b[..., kk]
+    ai = torch.where(edge, 0.0, im_a[..., kk])
+    bi = torch.where(edge, 0.0, im_b[..., kk])
+    return torch.where(mirrored, torch.complex(ar + bi, ai - br),
+                       torch.complex(ar - bi, -(ai + br)))
+
+
+def core_istft(re, im, window, hop, length, nfft):
+    """istft_fft_kernel in float32: frames f, f + 1 ride one transform run
+    backwards through the forward core (conjugated in and out), windowed
+    with window / nfft; each output sample sums its frames in ascending
+    frame order (the carry plus a round's frames, left to right), times the
+    inverse window-power envelope, win/2 front trim. (B, nf, bins) → (B, L)."""
+    from convsep_tpu_torch.dsp.dft import _key, inverse_norm
+
+    W = len(window)
+    k = W // hop
+    B, nf, _ = re.shape
+    pad = nf % 2
+    re2 = torch.nn.functional.pad(re, (0, 0, 0, pad))
+    im2 = torch.nn.functional.pad(im, (0, 0, 0, pad))
+    zz = core_fft(inverse_input(re2[:, 0::2], im2[:, 0::2], re2[:, 1::2], im2[:, 1::2]))
+    wn = torch.from_numpy((np.asarray(window, np.float64) / nfft).astype(np.float32))
+    frames = torch.stack([zz.real[..., :W] * wn, -zz.imag[..., :W] * wn], 2)
+    frames = frames.flatten(1, 2)[:, :nf]  # (B, nf, W)
+    rows = nf + k - 1
+    acc = torch.zeros(B, rows, hop)
+    for i in range(k - 1, -1, -1):  # frame f = row - i: ascending f
+        acc[:, i:i + nf] += frames[..., i * hop:(i + 1) * hop]
+    inv = inverse_norm(_key(np.asarray(window, np.float32)), hop, nf, "cpu")
+    out = acc.reshape(B, -1) * inv
+    return out[:, W // 2:W // 2 + length]
+
+
+@pytest.mark.parametrize("nfft", [16, 64, 256, 1024, 4096])
+def test_inverse_core_matches_irfft(rng, nfft):
+    bins = nfft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((2, 3, bins)))
+    im = torch.from_numpy(rng.standard_normal((2, 3, bins)))
+    zz = core_fft(inverse_input(re[0], im[0], re[1], im[1]))
+    a = torch.fft.irfft(torch.complex(re[0], im[0]), n=nfft)  # ignores DC/Nyquist imag
+    b = torch.fft.irfft(torch.complex(re[1], im[1]), n=nfft)
+    scale = a.abs().max().item() * nfft
+    torch.testing.assert_close(zz.real / nfft, a, atol=1e-6 * scale / nfft, rtol=0)
+    torch.testing.assert_close(-zz.imag / nfft, b, atol=1e-6 * scale / nfft, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,nf,ct", [
+    (256, 256, 64, 9, True), (256, 256, 128, 8, False), (1024, 1024, 512, 7, False),
+    (1024, 1024, 256, 10, True), (4096, 4096, 1024, 7, True), (4096, 4096, 1024, 6, False),
+    (256, 128, 32, 9, False),
+])
+def test_core_istft_matches_plain(rng, nfft, win, hop, nf, ct):
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(win)
+    bins = nfft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    got = core_istft(re, im, w, hop, length, nfft)
+    if ct:
+        want = istft_ct_pallas_plain(re, im, w, hop, length)
+    else:
+        want = istft_pallas_plain(re, im, w, hop, length, nfft=nfft)
+    peak = want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=1e-5 * peak, rtol=0)
+
+
+# (signals, nf, nfft, win, hop) of every iSTFT launch: the CUDA tests'
+# cases, chip_smoke.py's phase 7 and both slices (stereo highres4096's 8
+# signals, the dsd100 pallas route's 4), and each preset's whole track
+ISTFT_LAUNCHES = [
+    (3, num_frames(6000, 64), 256, 256, 64), (8, num_frames(60000, 1024), 4096, 4096, 1024),
+    (1, num_frames(20001, 512), 2048, 2048, 512), (1, num_frames(9000, 256), 1024, 1024, 256),
+    (5, num_frames(7777, 64), 512, 512, 64), (4, num_frames(30000, 512), 1024, 1024, 512),
+    (1, num_frames(3000, 64), 128, 128, 64), (2, num_frames(5000, 32), 256, 128, 32),
+    (3, num_frames(6000, 96), 384, 384, 96), (2, num_frames(9000, 250), 1000, 1000, 250),
+    (1, num_frames(40000, 1024), 4096, 4096, 1024),
+    (8, 1442, 4096, 4096, 1024), (4, 2882, 1024, 1024, 512),
+] + [(2, num_frames(8 * n, n // 4), n, n, n // 4) for n in (16, 32, 64, 128, 256, 512,
+                                                          1024, 2048, 4096, 8192)] + [
+    (s * p.model.num_sources,
+     num_frames(bucket_length(30 * 44100, p), p.transform.hop_size),
+     p.transform.nfft or p.transform.frame_size, p.transform.frame_size, p.transform.hop_size)
+    for name in PRESETS for p in [get_preset(name)] for s in (1, 2)
+]
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", ISTFT_LAUNCHES)
+def test_istft_plan(signals, nf, nfft, win, hop):
+    plan = fp.istft_plan(signals, nf, nfft, win, hop)
+    k = win // hop
+    assert plan.smem_bytes <= fp.SMEM_MAX
+    assert plan.rows >= 1 and plan.blocks == signals * plan.blocks_per_signal
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1 > (plan.blocks_per_signal - 1) * plan.rows
+    assert plan.halo == (k - 1) / plan.rows
+    if plan.groups == 0:  # the direct sum: other sizes
+        assert not fp.fft_supported(nfft) and plan.rows <= fp.DIRECT_MAX_ROWS
+        assert plan.smem_bytes == 16 * nfft + 4 * plan.rows * hop
+        return
+    t = fp.threads_per_fft(nfft)
+    g = plan.groups
+    assert g & (g - 1) == 0 and plan.threads == g * t
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    assert t <= 32 or g <= fp.MAX_NAMED_GROUPS
+    assert plan.smem_bytes == fp.istft_smem_bytes(nfft, win, hop, g)
+    # a block's rounds of 2g frames cover its rows and the k - 1 before
+    assert plan.rows == 2 * g * plan.rounds - (k - 1)
+    assert plan.halo <= fp.MAX_HALO
+    assert plan.rounds == 1 or 2 * g * (plan.rounds - 1) - (k - 1) < (k - 1) / fp.MAX_HALO
+    assert plan.blocks_per_sm == fp.blocks_per_sm(plan.smem_bytes, plan.threads)
+    assert plan.blocks_per_sm >= 2 or plan.note
+
+
+@pytest.mark.parametrize("signals,nf,nfft,hop,groups,rounds,rows,blocks,per_sm", [
+    (8, 1442, 4096, 1024, 2, 5, 17, 680, 2),   # highres4096-stereo, 8 signals
+    (4, 2882, 1024, 512, 8, 1, 15, 772, 3),    # dsd100 fft_impl="pallas", 4 stems
+])
+def test_istft_main_path_plans(signals, nf, nfft, hop, groups, rounds, rows, blocks, per_sm):
+    plan = fp.istft_plan(signals, nf, nfft, nfft, hop)
+    assert (plan.groups, plan.rounds, plan.rows, plan.blocks, plan.blocks_per_sm) == (
+        groups, rounds, rows, blocks, per_sm)
+    assert plan.halo <= 3 / 16 and plan.note == ""
+
+
+def test_synthesis_tables_found_by_value():
+    a = fp.synthesis_tables(sinebell(256), 256, 64, 20, "cpu")
+    assert fp.synthesis_tables(sinebell(256), 256, 64, 20, "cpu") is a
+    assert fp.synthesis_tables(sinebell(256), 256, 64, 21, "cpu") is not a
+    torch.testing.assert_close(a[0], torch.from_numpy((sinebell(256) / 256).astype(np.float32)))
+    tab = fp.dft_table(1000, "cpu").double()
+    m = np.arange(1000)
+    assert np.abs(tab[:, 0].numpy() + 1j * tab[:, 1].numpy() - np.exp(-2j * np.pi * m / 1000)).max() < 1e-7
