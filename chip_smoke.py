@@ -18,7 +18,9 @@ result line is printed):
    (``DECODE_SPREAD``);
 3. Wiener+iSTFT kernel vs its plain version at highres4096 (nfft 4096,
    hop 1024, nf 1442, bf16 y) and dsd100 (nfft 1024, hop 512, nf 2882):
-   p = 1 and 2, conserve_last, float32 and int16 output;
+   p = 1 and 2, conserve_last, float32 and int16 output; at both shapes its
+   time, the plain version's, the bound, the wrapper's host time and the
+   launch plan (``fft_plan.wiener_plan``);
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
    right shape, kernel launch counters above zero, the kernel route
@@ -68,8 +70,10 @@ result line is printed):
    host time; the Wiener+iSTFT kernel's Nyquist-row input against its
    plain version and, bit for bit, against the same kernel fed the
    concatenated spectrum; the band decode kernel at N 196, Tp 16, W 505,
-   C2 50, T·I 1500 beside a bf16 ``torch.matmul``; the fused decode at TM
-   360;
+   C2 50, T·I 1500 on the operand the model builds once (band and packed
+   taps) beside a bf16 ``torch.matmul``, with the operations it runs (its
+   plan) beside the band's, and its wrapper's host time; the fused decode
+   at TM 360;
 12. the multires4096 slice, ``Separator(multires4096)`` at full width on
    the phase 4 mixture, three routes: (a) "auto" (plain multires channels,
    the fused decode at TM 360, the Wiener+iSTFT kernel) against the plain
@@ -83,8 +87,8 @@ result line is printed):
    ``score_channels`` of fixed notes, at score_gate 0, 0.5 "mult" and 1.0
    "blend", each against the plain route as phase 4;
 14. device times (``torch.profiler``, in a child) of the fused decode and
-   its plain version at TM 120 and 360, and of the Wiener+iSTFT, Wiener
-   mask, band decode and fused adadelta kernels.
+   its plain version at TM 120 and 360, and of the Wiener+iSTFT (both phase
+   3 shapes), Wiener mask, band decode and fused adadelta kernels.
 
 Each slice expects the fused decode launched exactly where "auto" routes it
 (``models/decoder_fused_cuda.py::FUSED_DECODE_WON_TM``).
@@ -412,19 +416,22 @@ def child_decode_times(device, pair) -> dict:
 
 def child_other_times(device, gen) -> dict:
     """Device ms of the kernels whose rows had none: the Wiener+iSTFT kernel
-    (highres4096, phase 3's inputs), the Wiener mask kernel (the dsd100
-    pallas route's shape), the band decode kernel (phase 11's shape) and the
-    fused adadelta kernel (phase 5's two leaves)."""
+    (highres4096 and dsd100, phase 3's inputs), the Wiener mask kernel (the
+    dsd100 pallas route's shape), the band decode kernel (phase 11's shape,
+    the prepared operand) and the fused adadelta kernel (phase 5's two
+    leaves)."""
     import torch
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft
     from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas
-    from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor, band_tensor
+    from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor, band_operand
     from convsep_tpu_torch.train.fused_optim import fused_adadelta_leaf
 
     res = {}
-    w, L, y, re, im = wiener_inputs(4096, 1024, 1442, 4, device, gen)
-    res["wiener_istft"] = profile_ms(lambda: wiener_istft(y, re, im, w, 1024, L))["device_ms"]
-    del y, re, im
+    for key, nfft, hop, nf in (("wiener_istft", 4096, 1024, 1442),
+                               ("wiener_istft dsd100", 1024, 512, 2882)):
+        w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
+        res[key] = profile_ms(lambda: wiener_istft(y, re, im, w, hop, L))["device_ms"]
+        del y, re, im
     _, S, nf, bins = WIENER_APPLY_SHAPES[0]
     ya = torch.relu(torch.randn(S, nf, bins, generator=gen, device=device)).to(torch.bfloat16)
     ra = torch.randn(nf, bins, generator=gen, device=device)
@@ -433,7 +440,7 @@ def child_other_times(device, gen) -> dict:
     N, Tp, W, C2, kh, I = BAND_SHAPE
     T = Tp + kh - 1
     z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
-    band = band_tensor(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+    band = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
     res["band_decode"] = profile_ms(lambda: band_decode_wmajor(z, band, T))["device_ms"]
     del z, band
     total = 0.0
@@ -519,6 +526,7 @@ def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen):
 def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen) -> dict:
     """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16."""
     import torch
+    from convsep_tpu_torch.dsp.cuda import fft_plan
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
 
     w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen)
@@ -540,11 +548,17 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen) -
                 worst = max(worst, e)
     ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
+    us = host_us(lambda: wiener_istft(y, re, im, w, hop, L))
+    plan = fft_plan.wiener_plan(1, S, nf, nfft, hop)
     b = bound(2 * y.numel() + 8 * re.numel() + 4 * S * L,
               fft_flops(S * nf, nfft) + 4 * y.numel())
-    log(f"  wiener {name} p=1 f32 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    log(f"  wiener {name} p=1 f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it; "
+        f"wrapper host {us:.1f} us per call; plan: {plan.groups} groups x {plan.rounds} rounds, "
+        f"{plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
+        f"{plan.smem_bytes} B shared memory")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "host_us": us, "plan": dataclasses.asdict(plan)}
 
 
 def mixture(seed: int = 0):
@@ -1483,21 +1497,24 @@ def phase_wiener_ny(device, gen) -> dict:
 
 def phase_band_decode(device, gen) -> dict:
     """The band decode kernel vs plain at one multires4096 track: z (N 196,
-    W 505, Tp·C2 800) bf16, band (16, 50, 1500), beside a bf16
-    ``torch.matmul`` of the same operands."""
+    W 505, Tp·C2 800) bf16 and the time kernel's operand as the model builds
+    it once (the band (16, 50, 1500) and its packed taps), beside a bf16
+    ``torch.matmul`` of the same operands; the operations the kernel runs
+    (its plan) beside the band's."""
     import torch
     from convsep_tpu_torch.models.decoder_band_cuda import (
         band_decode_wmajor,
         band_decode_wmajor_plain,
-        band_tensor,
+        band_operand,
+        band_plan,
     )
 
     N, Tp, W, C2, kh, I = BAND_SHAPE
     T = Tp + kh - 1
     z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
-    band = band_tensor(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
-    got = band_decode_wmajor(z, band, T)
-    want = band_decode_wmajor_plain(z, band)
+    op = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+    got = band_decode_wmajor(z, op, T)
+    want = band_decode_wmajor_plain(z, op)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
     e = (got - want).abs().max().item()
@@ -1505,19 +1522,25 @@ def phase_band_decode(device, gen) -> dict:
         f"(tol {TOL_BAND * scale:.3e}, max|plain| {scale:.3e})")
     if not (e <= TOL_BAND * scale and torch.isfinite(got).all()):
         raise AssertionError(f"band decode kernel disagrees: {e} > {TOL_BAND * scale}")
-    zb, bb = z.reshape(N * W, -1), band.reshape(Tp * C2, -1).to(torch.bfloat16)
-    ms = cuda_ms(lambda: band_decode_wmajor(z, band, T))
-    plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, band))
+    zb, bb = z.reshape(N * W, -1), op.band.reshape(Tp * C2, -1).to(torch.bfloat16)
+    ms = cuda_ms(lambda: band_decode_wmajor(z, op, T))
+    plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, op))
     lib_ms = cuda_ms(lambda: torch.matmul(zb, bb))
+    us = host_us(lambda: band_decode_wmajor(z, op, T))
+    plan = band_plan(N * W, Tp, C2, kh, I, torch.cuda.get_device_properties(0).multi_processor_count)
     # the band's nonzero products: each column t reads the taps h with
     # 0 <= t - h < kh, Tp·kh (h, t) pairs of C2 × I products
     flops = 2.0 * N * W * Tp * kh * C2 * I
-    b = bound(2 * z.numel() + 2 * band.numel() + 4 * got.numel(), flops, BF16_FLOPS)
-    log(f"  band_decode: kernel {ms:.3f} ms, plain (f32 matmul of the bf16-rounded operands) "
+    b = bound(2 * z.numel() + 2 * kh * C2 * I + 4 * got.numel(), flops, BF16_FLOPS)
+    log(f"  band_decode: kernel {ms:.4f} ms, plain (f32 matmul of the bf16-rounded operands) "
         f"{plain_ms:.3f} ms, torch.matmul bf16 {lib_ms:.3f} ms (bf16 output); bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {flops:.3e} operations, the dense product's "
-        f"{2.0 * N * W * Tp * C2 * T * I:.3e})")
-    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+        f"{2.0 * N * W * Tp * C2 * T * I:.3e}); the kernel runs {plan.executed_ops:.4e} "
+        f"operations (its plan: {plan.row_tiles} row tiles on {plan.grid} blocks, columns padded "
+        f"to {plan.ip}, depth to {plan.c2p} a tap, {plan.smem_bytes} B shared memory); wrapper "
+        f"host {us:.1f} us per call")
+    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+            "operations": flops, "executed_operations": plan.executed_ops, "host_us": us}
 
 
 def auto_fused(preset) -> bool:
@@ -1752,7 +1775,7 @@ def main(argv: list[str]) -> int:
     del hi_model
     log("phase 3: Wiener+iSTFT kernel vs plain")
     wie = phase_wiener("highres4096", 4096, 1024, 1442, 4, device, gen)
-    phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen)
+    wie_dsd = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen)
     torch.cuda.empty_cache()
 
     log("phase 4: separation slice, 30 s 44.1 kHz mixture, seeded random weights")
@@ -1824,7 +1847,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 14: device times (torch.profiler, in a child) of the fused decode at TM 120 "
-        "and 360, the Wiener+iSTFT, Wiener mask, band decode and adadelta kernels")
+        "and 360, the Wiener+iSTFT (highres4096, dsd100), Wiener mask, band decode and "
+        "adadelta kernels")
     dev = device_times("decode,others")
     for key, r in (("TM 120", dec), ("TM 360", dec360)):
         d = dev["decode"][key]
@@ -1833,8 +1857,9 @@ def main(argv: list[str]) -> int:
             f"{ms_str(d['plain_device_ms'])}; bound {r['bound_ms']:.3f} ms (3xTF32), "
             f"{r['f32_simt_bound_ms']:.3f} ms (float32 SIMT)")
     others = dev["others"]
-    for name, r in (("wiener_istft", wie), ("wiener_apply", wap["dsd100 pallas route"]),
-                    ("band_decode", band), ("fused_adadelta", ada)):
+    for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
+                    ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
+                    ("fused_adadelta", ada)):
         r["device_ms"] = others[name]
         log(f"  {name}: device {ms_str(others[name])} (events {r['ms']:.4f} ms), bound "
             f"{r['bound_ms']:.4f} ms")
@@ -1863,7 +1888,7 @@ def main(argv: list[str]) -> int:
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         **launched("wiener_istft"), **wie,
+         **launched("wiener_istft"), **wie, "dsd100": wie_dsd,
          "ny": {**launched("wiener_istft_ny"), **wny}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",

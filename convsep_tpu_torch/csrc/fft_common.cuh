@@ -1,8 +1,8 @@
 // The FFT core shared by the forward STFT kernels (stft_dft.cu, ct_stft.cu)
-// and the inverse STFT kernel (istft.cu), for Hopper (sm_90a): framing,
-// window, a register-resident complex FFT that carries two real frames, the
-// split back into the two half-spectra, and the inverse direction by
-// conjugation (inverse_input, below).
+// and the inverse STFT kernels (istft.cu, wiener_istft.cu), for Hopper
+// (sm_90a): framing, window, a register-resident complex FFT that carries two
+// real frames, the split back into the two half-spectra, and the inverse
+// direction by conjugation (inverse_points, below).
 //
 // Plan (dsp/cuda/fft_plan.py mirrors every number here and sizes the launch):
 // * a complex FFT of N = 2^LOG2N points (16 <= N <= 8192) belongs to one
@@ -243,16 +243,15 @@ struct Fft {
 // half-spectra A, B (bins 0 .. N/2) ride one transform as Z = A + i B, whose
 // inverse is a + i b; Z's bins past N/2 come from the mirrored bins, Z[N - k]
 // = conj A[k] + i conj B[k]. irfft ignores the imaginary parts of DC and
-// Nyquist. inverse_input fills thread j's first-pass points v[m] = conj Z[k],
-// k = j + T m, straight from the spectrum rows (row_a, row_b: the frames'
-// first bins; null for a frame that is zero): bins k <= N/2 are read as they
-// are, and the rest at N - k, so each warp reads whole runs of consecutive
-// bins, forward or backward. After Fft<LOG2N>::run, buf[slot(t)] holds
-// N conj(a[t] + i b[t]): a[t] = x / N, b[t] = -y / N.
-template <int LOG2N>
-__device__ __forceinline__ void inverse_input(float2 (&v)[kPoints], const float* re_a,
-                                              const float* im_a, const float* re_b,
-                                              const float* im_b, int j) {
+// Nyquist. inverse_points fills thread j's first-pass points v[m] = conj Z[k],
+// k = j + T m, from bin(kk, edge), which returns (Re A, Im A, Re B, Im B) at
+// bin kk <= N/2 (edge: kk is DC or Nyquist, and the imaginary parts must be
+// 0): bins k <= N/2 are asked for as they are, the rest at N - k, so each
+// warp reads whole runs of consecutive bins, forward or backward. After
+// Fft<LOG2N>::run, buf[slot(t)] holds N conj(a[t] + i b[t]): a[t] = x / N,
+// b[t] = -y / N.
+template <int LOG2N, class Bin>
+__device__ __forceinline__ void inverse_points(float2 (&v)[kPoints], int j, Bin bin) {
   constexpr int N = 1 << LOG2N;
   constexpr int T = fft_threads(LOG2N);
 #pragma unroll
@@ -260,14 +259,23 @@ __device__ __forceinline__ void inverse_input(float2 (&v)[kPoints], const float*
     const int k = j + T * m;
     const bool mirrored = k > N / 2;
     const int kk = mirrored ? N - k : k;
-    const bool edge = kk == 0 || kk == N / 2;
-    const float ar = re_a ? __ldg(re_a + kk) : 0.f;
-    const float ai = re_a && !edge ? __ldg(im_a + kk) : 0.f;
-    const float br = re_b ? __ldg(re_b + kk) : 0.f;
-    const float bi = re_b && !edge ? __ldg(im_b + kk) : 0.f;
+    const float4 ab = bin(kk, kk == 0 || kk == N / 2);
     // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
-    v[m] = mirrored ? make_float2(ar + bi, ai - br) : make_float2(ar - bi, -(ai + br));
+    v[m] = mirrored ? make_float2(ab.x + ab.w, ab.y - ab.z)
+                    : make_float2(ab.x - ab.w, -(ab.y + ab.z));
   }
+}
+
+// inverse_points straight from the spectrum rows of two frames (re_a, im_a,
+// re_b, im_b: the rows at bin 0; re_a or re_b null for a frame that is zero).
+template <int LOG2N>
+__device__ __forceinline__ void inverse_input(float2 (&v)[kPoints], const float* re_a,
+                                              const float* im_a, const float* re_b,
+                                              const float* im_b, int j) {
+  inverse_points<LOG2N>(v, j, [&](int kk, bool edge) {
+    return make_float4(re_a ? __ldg(re_a + kk) : 0.f, re_a && !edge ? __ldg(im_a + kk) : 0.f,
+                       re_b ? __ldg(re_b + kk) : 0.f, re_b && !edge ? __ldg(im_b + kk) : 0.f);
+  });
 }
 
 // span[e] = xs[s0 + e] for 0 <= s0 + e < L, else 0, for 0 <= e < len; the

@@ -2,11 +2,14 @@
 wrappers and plain versions.
 
 * :func:`wiener_istft` replaces ``istft_ct_pallas_wiener``. Its kernel
-  (``csrc/wiener_istft.cu``) masks the mixture spectrum with the per-source
-  magnitudes, inverse-FFTs each frame and overlap-adds it, so the masked
-  spectra never reach device memory; its header says what bounds it on the
-  H100 and how the design follows. Like the reference (``has_ny``) it also
-  takes the mixture as the forward STFT kernel's Nyquist-separate pair.
+  (``csrc/wiener_istft.cu``, on the FFT core ``csrc/fft_common.cuh`` run
+  backwards, launched by :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
+  wiener_plan`) masks the mixture spectrum with the per-source magnitudes
+  as it loads each frame's points, inverse-FFTs the frame and overlap-adds
+  it, so the masked spectra never reach device memory; its header says what
+  bounds it on the H100 and how the design follows. Like the reference
+  (``has_ny``) it also takes the mixture as the forward STFT kernel's
+  Nyquist-separate pair.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -19,28 +22,23 @@ it launches its kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.istft_kernel import (
-    _MAX_ROWS,
-    _max_rows,
-    check_frames,
-    istft_supported,
-    launch_istft,
-    win_over_n,
+from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    dft_table,
+    synthesis_tables,
+    twiddles,
+    wiener_plan,
 )
-from convsep_tpu_torch.dsp.dft import _key, _use_factored, inverse_norm, istft_matmul
+from convsep_tpu_torch.dsp.cuda.istft_kernel import check_frames, istft_supported, launch_istft
+from convsep_tpu_torch.dsp.dft import _use_factored, istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
 _LANES = 128  # the reference kernel's lane-width factor of nfft
-
-
-def _wiener_rows(nfft: int, hop: int, S: int) -> int:
-    """Hop rows of S sources that fit beside the mask's denominator row."""
-    return _max_rows(nfft, hop, S, extra=(nfft // 2 + 1) * 4)
 
 
 def ct_pallas_supported(nfft: int, win_len: int, hop: int) -> bool:
@@ -102,27 +100,21 @@ def istft_ct_pallas(
     return launch_istft(re, im, window, int(hop), int(length), nfft, output_dtype)
 
 
-def wiener_istft_supported(nfft: int, win_len: int, hop: int, S: int = 1) -> bool:
+def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     """The kernel's envelope: ``win == nfft``, nfft even in [16, 8192],
-    ``nfft % hop == 0``, and one hop row of S sources in shared memory.
-    Powers of two (every preset) take a radix-2 FFT; other even sizes a
-    direct sum per sample."""
-    return (
-        win_len == nfft
-        and 16 <= nfft <= 8192
-        and nfft % 2 == 0
-        and hop > 0
-        and nfft % hop == 0
-        and _wiener_rows(nfft, hop, S) >= 1
-    )
-
-
-def rows_per_block(nfft: int, hop: int, S: int) -> int:
-    """Hop rows a block owns: as many as fit in shared memory, up to 16."""
-    rows = min(_MAX_ROWS, _wiener_rows(nfft, hop, S))
-    if rows < 1:
-        raise ValueError(f"wiener_istft: S={S} hop={hop} nfft={nfft} exceeds shared memory")
-    return rows
+    ``nfft % hop == 0``, and a launch plan within shared memory
+    (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_plan`; a block
+    holds two sources, so their number does not bound it). Powers of two
+    (every preset) run on the FFT core; other even sizes a direct sum per
+    sample."""
+    if not (win_len == nfft and 16 <= nfft <= 8192 and nfft % 2 == 0 and hop > 0
+            and nfft % hop == 0):
+        return False
+    try:
+        wiener_plan(1, 1, 1, nfft, hop)
+    except ValueError:
+        return False
+    return True
 
 
 def wiener_istft_plain(
@@ -217,10 +209,8 @@ def wiener_istft(
     if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"wiener_istft: tensors on mixed devices {devices}")
     S = int(y.shape[-3])
-    if not wiener_istft_supported(nfft, win_len, hop, S):
-        raise ValueError(
-            f"wiener_istft kernel unsupported for nfft={nfft} win={win_len} hop={hop} S={S}"
-        )
+    if not wiener_istft_supported(nfft, win_len, hop):
+        raise ValueError(f"wiener_istft kernel unsupported for nfft={nfft} win={win_len} hop={hop}")
     if p not in (1.0, 2.0):
         raise ValueError(f"wiener_istft kernel supports p in (1, 2), got {p}")
     if y.dtype not in (torch.float32, torch.bfloat16):
@@ -228,25 +218,27 @@ def wiener_istft(
     if any(t.dtype != torch.float32 for t in tensors[1:]):
         raise ValueError("re/im (and ny) must be float32")
     nf = int(re.shape[-2])
-    nt = int(np.prod(lead)) if lead else 1
+    nt = math.prod(lead)
     dev = y.device
+    where = str(dev)
     y4 = y.reshape(nt, S, nf, bins).contiguous()
     re3 = re.reshape(nt, nf, -1).contiguous()
     im3 = im.reshape(nt, nf, -1).contiguous()
     ny2 = ny.reshape(nt, nf).contiguous() if has_ny else None
-    win_n = win_over_n(_key(window), nfft, str(dev))
-    inv_norm = inverse_norm(_key(window.astype(np.float32)), int(hop), nf, str(dev))
+    win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
+    plan = wiener_plan(nt, S, nf, nfft, hop)
+    tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
     out_dt = torch.int16 if output_dtype == "int16" else torch.float32
     out = torch.empty((nt, S, length), dtype=out_dt, device=dev)
-    rows = rows_per_block(nfft, hop, S)
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with kernels.on_device(dev):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
         code = lib.wiener_istft_launch(
             y4.data_ptr(), int(y4.dtype == torch.bfloat16), re3.data_ptr(),
             im3.data_ptr(), ny2.data_ptr() if has_ny else None, win_n.data_ptr(),
-            inv_norm.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
-            nfft, int(hop), int(length), rows, int(p == 2.0), ctypes.c_float(eps),
+            inv_norm.data_ptr(), tw.data_ptr(), out.data_ptr(), int(out_dt == torch.int16),
+            nt, S, nf, nfft, int(hop), int(length), plan.groups,
+            plan.rounds if plan.groups else plan.rows, int(p == 2.0), ctypes.c_float(eps),
             int(conserve_last), stream,
         )
     name = "wiener_istft_ny" if has_ny else "wiener_istft"

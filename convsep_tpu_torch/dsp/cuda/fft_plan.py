@@ -14,7 +14,10 @@ threads, shared memory and the grid exactly as the C launchers do.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
-and overlap-add them by a gather; :func:`istft_plan` sizes it.
+and overlap-add them by a gather; :func:`istft_plan` sizes it. The
+Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
+sources a block, the mask formed as the points load; :func:`wiener_plan`
+sizes it.
 """
 
 from __future__ import annotations
@@ -43,6 +46,11 @@ MAX_HALO = 3 / 16        # the inverse kernel's recomputed share of transforms
 DIRECT_THREADS = 512     # the inverse kernel's direct sum (other sizes)
 DIRECT_SMEM_BUDGET = 200 * 1024
 DIRECT_MAX_ROWS = 16
+# registers a thread may hold at 512 threads a block (__launch_bounds__(512));
+# the inverse kernels' FFT instances use them all (ptxas, PERF.md)
+REGS_PER_THREAD = 128
+SM_REGS = 65536
+MAX_ROUNDS = 256         # the most rounds wiener_plan weighs
 
 
 def fft_supported(nfft: int) -> bool:
@@ -189,6 +197,94 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     # fewest (the most blocks)
     plans = [plan(g) for g in (two or fits[-1:])]
     return next((p for p in plans if p.blocks >= 2 * SMS), plans[-1])
+
+
+def wiener_smem_bytes(nfft: int, hop: int, groups: int) -> int:
+    """The Wiener+iSTFT kernel's dynamic shared memory: the quarter twiddle
+    table, one exchange buffer per group, the carry of nfft/hop − 1 hop rows
+    for each of the block's two sources."""
+    return (8 * (twiddle_entries(nfft) + groups * exchange_entries(nfft))
+            + 8 * (nfft // hop - 1) * hop)
+
+
+def wiener_direct_smem_bytes(nfft: int, hop: int, rows: int) -> int:
+    """The direct sum's: the e^{−2πi m/N} table, the spectrum, two sources'
+    accumulators of ``rows`` hop rows."""
+    return 16 * nfft + 8 * rows * hop
+
+
+@dataclass(frozen=True)
+class WienerPlan:
+    nfft: int
+    groups: int           # FFT groups per block (one frame each); 0: the direct sum
+    threads: int          # per block
+    rounds: int           # rounds of ``groups`` frames per block (1 for the direct sum)
+    rows: int             # hop rows a block owns
+    pairs: int            # blocks per row range: one pair of sources each
+    blocks_per_signal: int  # row ranges per track
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int    # by shared memory, threads and registers
+    waves: int            # blocks over blocks_per_sm · SMS, rounded up
+    halo: float           # recomputed share of the transforms: (nfft/hop − 1) / rows
+
+
+@lru_cache(maxsize=64)
+def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
+    """The Wiener+iSTFT kernel's launch, as ``csrc/wiener_istft.cu::
+    wiener_istft_launch`` computes it. A block owns one pair of sources
+    (ceil(S/2) blocks per row range) and R hop rows, transformed in rounds
+    of G frames (R = G·rounds − (k − 1), k = nfft/hop). Powers of two: over
+    G (a power of two, whole warps, at most 8 named-barrier groups, 512
+    threads, within shared memory) and rounds (R >= 1, up to one row range
+    a track or ``MAX_ROUNDS``), the plan with the least waves × rounds, each
+    SM holding as many blocks as shared memory, threads and
+    ``REGS_PER_THREAD`` registers allow; ties go to fewer transforms, then
+    more groups. Other sizes: the direct sum, up to 16 hop rows per block."""
+    k = nfft // hop
+    pairs = -(-S // 2)
+    total_rows = nf + k - 1
+    if not fft_supported(nfft):
+        rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (8 * hop))
+        if rows < 1:
+            raise ValueError(f"no Wiener+iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
+        smem = wiener_direct_smem_bytes(nfft, hop, rows)
+        per = -(-total_rows // rows)
+        bps = wiener_blocks_per_sm(smem, DIRECT_THREADS)
+        blocks = signals * per * pairs
+        return WienerPlan(nfft, 0, DIRECT_THREADS, 1, rows, pairs, per, blocks, smem, bps,
+                          -(-blocks // (bps * SMS)), (k - 1) / rows)
+    t = threads_per_fft(nfft)
+    g_min = max(1, 32 // t)
+    g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
+    best = None
+    for e in range(int(math.log2(g_min)), int(math.log2(g_max)) + 1):
+        g = 1 << e
+        smem = wiener_smem_bytes(nfft, hop, g)
+        if smem > SMEM_MAX:
+            continue
+        bps = wiener_blocks_per_sm(smem, g * t)
+        # from the fewest rounds (R >= 1) to those of one row range a track
+        fewest = -(-k // g)
+        for rounds in range(fewest, max(fewest, min(-(-(total_rows + k - 1) // g), MAX_ROUNDS)) + 1):
+            rows = g * rounds - (k - 1)
+            if rows < 1:
+                continue
+            per = -(-total_rows // rows)
+            blocks = signals * per * pairs
+            waves = -(-blocks // (bps * SMS))
+            key = (waves * rounds, blocks * rounds * g, -g)
+            if best is None or key < best[0]:
+                best = (key, WienerPlan(nfft, g, g * t, rounds, rows, pairs, per, blocks, smem,
+                                        bps, waves, (k - 1) / rows))
+    if best is None:
+        raise ValueError(f"no Wiener+iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
+    return best[1]
+
+
+def wiener_blocks_per_sm(smem: int, threads: int) -> int:
+    """:func:`blocks_per_sm` with the registers too, at ``REGS_PER_THREAD``."""
+    return max(1, min(blocks_per_sm(smem, threads), SM_REGS // (threads * REGS_PER_THREAD)))
 
 
 def twiddle_table(nfft: int) -> np.ndarray:

@@ -18,27 +18,14 @@ tensors they launch the kernel or raise: there is no fallback.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.dsp.cuda.fft_plan import dft_table, istft_plan, synthesis_tables, twiddles
-from convsep_tpu_torch.dsp.dft import _window, istft_matmul
+from convsep_tpu_torch.dsp.dft import istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
-
-_SMEM_BUDGET = 200 * 1024  # bytes of the 227 KB a block may use
-_MAX_ROWS = 16
-
-
-def _max_rows(nfft: int, hop: int, S: int = 1, extra: int = 0) -> int:
-    """Hop rows of S accumulators that fit the shared-memory budget beside
-    the twiddles, the spectrum buffer and ``extra`` bytes: the layout of
-    ``csrc/istft_common.cuh``, which ``wiener_istft.cu``'s launcher sizes
-    the same way."""
-    tw_len = nfft // 2 if nfft & (nfft - 1) == 0 else nfft
-    return (_SMEM_BUDGET - tw_len * 8 - nfft * 8 - extra) // (S * hop * 4)
 
 
 def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
@@ -53,15 +40,6 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     except ValueError:
         return False
     return True
-
-
-@lru_cache(maxsize=8)
-def win_over_n(window_key: bytes, nfft: int, device: str) -> torch.Tensor:
-    """window / nfft as a float32 tensor on ``device`` (the synthesis
-    window with the inverse DFT's 1/N folded in): the Wiener+iSTFT kernel's
-    table."""
-    w = _window(window_key)
-    return torch.from_numpy((w / float(nfft)).astype(np.float32)).to(device)
 
 
 def launch_istft(

@@ -1,9 +1,10 @@
 """DFT-as-matmul STFT / iSTFT and the masked-resynthesis dispatcher.
 
 Mirror of ``convsep_tpu.dsp.dft``. The transforms are plain large
-products, so they stay ``torch.matmul`` / ``einsum`` (cuBLAS on the GPU,
-in exact float32: TF32 must be off, which is PyTorch's default for
-matmul). Two algorithms, as in the reference:
+products, so they stay ``torch.matmul`` / ``einsum`` (cuBLAS on the GPU),
+in exact float32 whatever precision the caller set: the three public
+transforms run inside :class:`~convsep_tpu_torch.utils.precision.
+float32_exact`. Two algorithms, as in the reference:
 
 * ``direct``: frames @ (W, bins) cos / -sin matrices with the window
   folded in;
@@ -25,6 +26,7 @@ import torch
 
 from convsep_tpu_torch.dsp.istft import ola_norm, overlap_add
 from convsep_tpu_torch.dsp.stft import _pad_signal, frame_signal, num_frames
+from convsep_tpu_torch.utils.precision import float32_exact
 
 
 def _key(window: np.ndarray) -> bytes:
@@ -164,6 +166,7 @@ def _idft_frames_factored(re: torch.Tensor, im: torch.Tensor, nfft: int) -> torc
     return x.reshape(*x.shape[:-2], a * b)
 
 
+@float32_exact()
 def stft_matmul(
     signal: torch.Tensor,
     window: np.ndarray,
@@ -215,6 +218,7 @@ def resolve_istft(algorithm: str, nfft: int, win_len: int, hop: int,
     return "factored" if factored else "direct"
 
 
+@float32_exact()
 def istft_matmul(
     re: torch.Tensor,
     im: torch.Tensor,
@@ -266,8 +270,7 @@ def istft_matmul(
 
 
 def resolve_masked_synthesis(
-    algorithm: str, nfft: int, win_len: int, hop: int, p: float,
-    device: torch.device, num_sources: int = 1,
+    algorithm: str, nfft: int, win_len: int, hop: int, p: float, device: torch.device,
 ) -> str:
     """What :func:`istft_wiener` runs: "ct_pallas_wiener" (the Wiener+iSTFT
     kernel wrapper) or the masked chain's concrete iSTFT algorithm
@@ -282,7 +285,7 @@ def resolve_masked_synthesis(
         if (
             torch.device(device).type == "cuda"
             and p in (1.0, 2.0)
-            and wiener_istft_supported(nfft, win_len, hop, num_sources)
+            and wiener_istft_supported(nfft, win_len, hop)
         ):
             return "ct_pallas_wiener"
         return resolve_istft("auto", nfft, win_len, hop, device)
@@ -303,6 +306,7 @@ def check_precision(precision: str) -> None:
         )
 
 
+@float32_exact()
 def istft_wiener(
     y: torch.Tensor,
     re: torch.Tensor,
@@ -332,9 +336,7 @@ def istft_wiener(
     check_precision(precision)
     window = np.asarray(window, np.float64)
     nfft = int(nfft or 2 * (int(re.shape[-1]) - (0 if ny is not None else 1)))
-    route = resolve_masked_synthesis(
-        algorithm, nfft, len(window), int(hop), p, re.device, int(y.shape[-3])
-    )
+    route = resolve_masked_synthesis(algorithm, nfft, len(window), int(hop), p, re.device)
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
         wiener_istft,
         wiener_istft_plain,

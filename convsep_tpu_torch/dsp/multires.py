@@ -14,6 +14,7 @@ import torch
 
 from convsep_tpu_torch.dsp.dft import stft_matmul
 from convsep_tpu_torch.dsp.windows import hann, sinebell
+from convsep_tpu_torch.utils.precision import float32_exact
 
 
 @lru_cache(maxsize=16)
@@ -40,6 +41,7 @@ def _window(name: str, n: int) -> np.ndarray:
     return sinebell(n) if name == "sinebell" else hann(n)
 
 
+@float32_exact()
 def multires_channels(audio: torch.Tensor, t) -> torch.Tensor:
     """(..., length) → (..., n_frames, bins, len(t.multires)) extra
     magnitude channels on the main analysis grid (same hop ⇒ same

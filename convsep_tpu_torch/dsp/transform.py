@@ -2,7 +2,9 @@
 
 Mirror of ``convsep_tpu.dsp.transform.TransformFFT`` (``compute_file``
 and ``compute_inverse``) on this package's :func:`stft_matmul` /
-:func:`istft_matmul`; numpy in, numpy out, the transforms on ``device``.
+:func:`istft_matmul`; numpy in, numpy out, the transforms on ``device``,
+their products in full float32 whatever the caller's matmul precision
+(:class:`~convsep_tpu_torch.utils.precision.float32_exact`).
 ``compute_transform`` (feature files on disk) is not ported: this package
 has no feature-file writer yet.
 """
@@ -16,6 +18,7 @@ from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
 from convsep_tpu_torch.dsp.stft import scale_magnitude, unscale_magnitude
 from convsep_tpu_torch.dsp.windows import hann, sinebell
 from convsep_tpu_torch.utils.device import resolve_device
+from convsep_tpu_torch.utils.precision import float32_exact
 
 
 class TransformFFT:
@@ -44,6 +47,7 @@ class TransformFFT:
     def bins(self) -> int:
         return self.config.bins
 
+    @float32_exact()
     @torch.inference_mode()
     def compute_file(
         self, audio: np.ndarray, phase: bool = False
@@ -60,6 +64,7 @@ class TransformFFT:
             return mag, torch.atan2(im, re).cpu().numpy()
         return mag
 
+    @float32_exact()
     @torch.inference_mode()
     def compute_inverse(
         self, mag: np.ndarray, phase: np.ndarray, length: int | None = None

@@ -37,7 +37,7 @@ SOURCES = (
     "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
     "istft.cu", "wiener_apply.cu", "ct_stft.cu", "band_decode.cu",
 )
-HEADERS = ("istft_common.cuh", "fft_common.cuh")
+HEADERS = ("fft_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -55,10 +55,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, out, out_int16,
-    # nt, S, nf, nfft, hop, length, rows_per_block, p2, eps, conserve_last, stream
-    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _P),
+    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw, out, out_int16,
+    # nt, S, nf, nfft, hop, length, groups, rounds (rows for the direct sum),
+    # p2, eps, conserve_last, stream
+    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM, stream
     "fused_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P),
@@ -77,7 +78,7 @@ _SIGNATURES = {
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
     # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream
     "ct_stft_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # z, band_t, out, M, K, NC, Tp, C2, I, stream
+    # z, packed taps, out, M, Tp, C2, kh, I, grid, stream
     "band_decode_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
 

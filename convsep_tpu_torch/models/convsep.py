@@ -45,8 +45,8 @@ import torch
 from torch import nn
 
 from convsep_tpu_torch.models.config import ConvSepConfig
+from convsep_tpu_torch.models.decoder_band_cuda import BandOperand, band_operand
 from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor as band_decode_kernel
-from convsep_tpu_torch.models.decoder_band_cuda import band_tensor
 from convsep_tpu_torch.models.decoder_fused_cuda import (
     FUSED_DECODE_WON_TM,
     band_freq_decode,
@@ -316,6 +316,9 @@ class ConvSep(nn.Module):
             self.fc_kernel, self.fc_bias, self.conv1_kernel, self.conv1_bias,
             self.conv2_kernel, self.conv2_bias, cfg,
         )
+        if cfg.decoder_impl == "band_pallas":  # the band and the kernel's packed taps
+            op = band_operand(self.conv2_kernel, cfg.time_context)
+            return {"w_eff": w_eff, "bias_eff": c, "band": op.band, "band_taps": op.packed}
         if cfg.decoder_impl in _BAND:
             return {"w_eff": w_eff, "bias_eff": c}
         KC, _, _, _ = band_freq_conv_kernel(
@@ -370,7 +373,7 @@ class ConvSep(nn.Module):
         fc = torch.relu(x.reshape(B, -1).float() @ ops["w_eff"] + ops["bias_eff"])
         route = resolve_decoder_impl(cfg, x.device)
         if route in _BAND:
-            return self._band_decode(fc, route, B, C)
+            return self._band_decode(fc, route, B, C, ops)
         md = _DTYPES[cfg.mask_dtype]
         decode = band_freq_decode if route == "bandconv_pallas" else band_freq_decode_plain
         o4 = decode(fc, ops["k4"], ops["b3"], ops["kcat"], out_dtype=md)
@@ -382,16 +385,19 @@ class ConvSep(nn.Module):
         )
         return _finish(d1, self.out_bias, B, S, C, cfg)
 
-    def _band_decode(self, fc: torch.Tensor, route: str, B: int, C: int) -> torch.Tensor:
+    def _band_decode(self, fc: torch.Tensor, route: str, B: int, C: int,
+                     ops: dict[str, torch.Tensor]) -> torch.Tensor:
         """The two-stage decode (the reference's w-major "band" and
         "band_pallas"): expansion + ReLU viewed (B·S, W', Tp·C2), the banded
-        time stage, the frequency stage, the tail."""
+        time stage (on "band_pallas" from the band and packed taps that
+        :meth:`prepare_inference` builds once), the frequency stage, the
+        tail."""
         cfg = self.config
         S, W, Tp, T = cfg.num_sources, cfg.enc_freq, cfg.enc_time, cfg.time_context
         e = torch.addmm(self.fc_expand_bias, fc, self.fc_expand_kernel).relu_()
         e = e.reshape(B * S, W, Tp * cfg.conv2_filters)
         if route == "band_pallas":
-            d2 = band_decode_kernel(e, band_tensor(self.conv2_kernel, T), T)
+            d2 = band_decode_kernel(e, BandOperand(ops["band"], ops["band_taps"]), T)
         else:
             d2 = e.reshape(B * S * W, -1) @ _band_matrix_for(self.conv2_kernel, Tp)
         d1 = freq_decode_wmajor(d2.reshape(B * S, W, T, cfg.conv1_filters), self.conv1_kernel,

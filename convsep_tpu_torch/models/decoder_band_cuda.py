@@ -6,11 +6,15 @@ tied decoder's time stage is, per expansion row (n, w),
     out[n, w, (t, i)] = Σ_{h, c} z[n, w, h, c] · band[h, c, (t, i)]
 
 with ``band`` the banded tap tensor of the time kernel
-(:func:`band_tensor`). As in the reference, z and the band are rounded to
-bfloat16 and the products summed in float32 (the reference's XLA-default
-GEMM precision, kept by its kernel); a float32 decode would not match it.
-The kernel (``csrc/band_decode.cu``) reads z in the expansion's own
-w-major layout (N, W, Tp·C2); its header says what bounds it on the H100.
+(:func:`band_tensor`): ``band[h, c, (t, i)] = kernel[t − h, 0, i, c]``
+inside the band, 0 outside. As in the reference, z and the band are rounded
+to bfloat16 and the products summed in float32 (the reference's
+XLA-default GEMM precision, kept by its kernel); a float32 decode would not
+match it. The kernel (``csrc/band_decode.cu``) reads z in the expansion's
+own w-major layout (N, W, Tp·C2) and, in place of the band, its kh taps
+packed once per weight tensor (:func:`band_operand`, :func:`pack_taps`),
+which it keeps in shared memory; :func:`band_plan` mirrors its launcher.
+Its header says what bounds it on the H100.
 
 :func:`band_decode_wmajor` takes the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises.
@@ -18,9 +22,19 @@ for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import lru_cache
+
 import torch
 
 from convsep_tpu_torch import kernels
+
+ROWS = 64                 # rows of a tile (csrc/band_decode.cu: kRows)
+THREADS = 256             # two consumer warpgroups
+SMEM_MAX = 232_448        # dynamic shared memory a block may use
+SM_SMEM = 228 * 1024      # shared memory of one SM
+BLOCK_RESERVED = 1024     # shared memory the runtime keeps per resident block
+QUADS = 25                # register path: quads of 16-byte chunks a lane holds (kQuads)
 
 
 def band_tensor(kernel: torch.Tensor, time_context: int) -> torch.Tensor:
@@ -39,46 +53,146 @@ def band_tensor(kernel: torch.Tensor, time_context: int) -> torch.Tensor:
     return band.permute(0, 2, 1, 3).reshape(Tp, O, T * I)
 
 
-def band_decode_wmajor_plain(z: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
-    """z (N, W, Tp·O) and band (Tp, O, T·I) → (N, W, T·I) float32: both
-    rounded to bfloat16, the product in float32 (each bf16 × bf16 product
-    is exact in float32)."""
+def taps_of_band(band: torch.Tensor, time_context: int) -> torch.Tensor:
+    """(Tp, C2, T·I) band → its (kh, C2, I) taps: ``taps[d, c, i] =
+    band[0, c, d·I + i]`` (tap d at h = 0, t = d)."""
+    Tp, C2, TI = band.shape
+    I = TI // time_context
+    kh = time_context - Tp + 1
+    return band[0, :, : kh * I].reshape(C2, kh, I).permute(1, 0, 2)
+
+
+def pack_taps(taps: torch.Tensor) -> torch.Tensor:
+    """(kh, C2, I) taps → the kernel's bf16 operand: rows ρ = (kh − 1 − d)·C2p
+    + c (C2p = C2 rounded up to 8; 8 zero rows after tap 0), columns i < Ip
+    (I rounded up to 8), in wgmma's K-major core matrices: element (ρ, i) at
+    (ρ // 8)·8·Ip + (i // 8)·64 + (i % 8)·8 + ρ % 8. Column block t then
+    reads taps t − h_lo .. t − h_hi as one run of rows."""
+    kh, C2, I = taps.shape
+    c2p, ip = -(-C2 // 8) * 8, -(-I // 8) * 8
+    dense = torch.zeros(kh, c2p, ip, dtype=torch.float32, device=taps.device)
+    dense[:, :C2, :I] = taps.float()
+    dense = torch.cat([dense.flip(0).reshape(kh * c2p, ip),
+                       torch.zeros(8, ip, device=taps.device)])
+    rows = dense.shape[0]
+    return (dense.reshape(rows // 8, 8, ip // 8, 8).permute(0, 2, 3, 1).reshape(-1)
+            .to(torch.bfloat16).contiguous())
+
+
+@dataclass(frozen=True)
+class BandOperand:
+    """A time kernel's band (:func:`band_tensor`, float32: the plain
+    version's operand) beside its taps packed for the kernel
+    (:func:`pack_taps`), built together once per weight tensor."""
+
+    band: torch.Tensor
+    packed: torch.Tensor
+
+
+def band_operand(kernel: torch.Tensor, time_context: int) -> BandOperand:
+    """(kh, 1, I, O) tied kernel → :class:`BandOperand`."""
+    band = band_tensor(kernel, time_context)
+    return BandOperand(band, pack_taps(kernel[:, 0].permute(0, 2, 1)))
+
+
+def h_range(t: int, Tp: int, kh: int) -> tuple[int, int]:
+    """The taps h of column block t: the h with 0 <= t − h < kh, h < Tp."""
+    return max(0, t - kh + 1), min(Tp - 1, t)
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    c2p: int              # C2 rounded up to 8
+    ip: int               # I rounded up to 8
+    nw: int               # columns of one product (a multiple of 8 dividing ip, <= 64)
+    vec: int              # z's loads: 0 through registers a tile ahead, 2 pairs by
+                          # cp.async, 1 thread stores (C2 odd)
+    row_tiles: int
+    grid: int             # persistent blocks
+    smem_bytes: int
+    steps: tuple          # 16-deep products of column block t, per t
+    executed_ops: float   # 2 · multiply-adds the tensor cores run (padded rows, columns, depth)
+
+
+def band_plan(M: int, Tp: int, C2: int, kh: int, I: int, sms: int = 132) -> BandPlan:
+    """The kernel's launch, as ``csrc/band_decode.cu::band_decode_launch``
+    computes it: a 64-row tile of z (padded depth Tp·C2p + 8), the packed
+    taps ((kh·C2p + 8) × Ip) and 8 staging rows a warp in shared memory, one
+    persistent block per ``blocks per SM × sms``; column block t runs
+    ceil(taps(t)·C2p / 16) products of depth 16 over Ip columns."""
+    c2p, ip = -(-C2 // 8) * 8, -(-I // 8) * 8
+    nw = next(w for w in range(64, 0, -8) if ip % w == 0)
+    K = Tp * C2
+    vec = 0 if C2 % 2 == 0 and K % 8 == 0 and K <= 32 * QUADS else 2 if C2 % 2 == 0 else 1
+    stage = nw + (24 - nw) % 32  # floats a staging row takes
+    smem = 2 * ROWS * (Tp * c2p + 8) + 2 * (kh * c2p + 8) * ip + 4 * (THREADS // 32) * 8 * stage
+    if smem > SMEM_MAX:
+        raise ValueError(f"band decode kernel: {smem} bytes of shared memory for Tp={Tp} "
+                         f"C2={C2} kh={kh} I={I} exceed {SMEM_MAX}")
+    row_tiles = -(-M // ROWS)
+    per_sm = min(SM_SMEM // (smem + BLOCK_RESERVED), 2048 // THREADS)
+    T = Tp + kh - 1
+    steps = tuple(-(-(hi - lo + 1) * c2p // 16) for lo, hi in (h_range(t, Tp, kh) for t in range(T)))
+    ops = 2.0 * ROWS * row_tiles * 16 * ip * sum(steps)
+    return BandPlan(c2p, ip, nw, vec, row_tiles, min(row_tiles, per_sm * sms), smem, steps, ops)
+
+
+@lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def band_decode_wmajor_plain(z: torch.Tensor, band: torch.Tensor | BandOperand) -> torch.Tensor:
+    """z (N, W, Tp·O) and band (Tp, O, T·I) (or a :class:`BandOperand`) →
+    (N, W, T·I) float32: both rounded to bfloat16, the product in float32
+    (each bf16 × bf16 product is exact in float32)."""
+    if isinstance(band, BandOperand):
+        band = band.band
     Tp, O, TI = band.shape
     zb = z.to(torch.bfloat16).float()
     return zb @ band.to(torch.bfloat16).float().reshape(Tp * O, TI)
 
 
-def band_decode_wmajor(z: torch.Tensor, band: torch.Tensor, time_context: int) -> torch.Tensor:
+def band_decode_wmajor(z: torch.Tensor, band: torch.Tensor | BandOperand,
+                       time_context: int) -> torch.Tensor:
     """The decode on the w-major fold: z (N, W, Tp·O) (float32 or bf16; a
-    float32 z is rounded to bf16 first) and band (Tp, O, T·I), a
-    :func:`band_tensor` (the kernel skips its structural zeros), T the time
-    context → (N, W, T·I) float32. CPU tensors:
-    :func:`band_decode_wmajor_plain`. CUDA tensors: the kernel."""
-    Tp, O, TI = band.shape
+    float32 z is rounded to bf16 first) and the band (Tp, O, T·I), a
+    :func:`band_tensor`, or better a :class:`BandOperand` (its taps packed
+    once; a bare band is packed on every call), T the time context →
+    (N, W, T·I) float32. CPU tensors: :func:`band_decode_wmajor_plain`.
+    CUDA tensors: the kernel."""
+    op = band if isinstance(band, BandOperand) else None
+    dense = op.band if op else band
+    Tp, O, TI = dense.shape
     if z.dim() != 3 or z.shape[-1] != Tp * O or TI % time_context or time_context < Tp:
         raise ValueError(
-            f"band_decode: z {tuple(z.shape)} and band {tuple(band.shape)} do not align "
+            f"band_decode: z {tuple(z.shape)} and band {tuple(dense.shape)} do not align "
             f"(time context {time_context})"
         )
-    devices = {z.device.type, band.device.type}
+    devices = {z.device.type, dense.device.type}
     if devices == {"cpu"}:
-        return band_decode_wmajor_plain(z, band)
-    if devices != {"cuda"} or z.device != band.device:
+        return band_decode_wmajor_plain(z, dense)
+    if devices != {"cuda"} or z.device != dense.device:
         raise ValueError(f"band_decode: tensors on mixed devices {devices}")
     if z.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"band_decode: z must be float32 or bfloat16, got {z.dtype}")
     N, W, K = z.shape
-    if K % 8:
-        raise ValueError(f"band_decode kernel needs Tp·O % 8 == 0, got {K}")
+    T = time_context
+    kh, I = T - Tp + 1, TI // T
+    dev = z.device
+    plan = band_plan(N * W, Tp, O, kh, I, _sms(dev.index if dev.index is not None
+                                               else torch.cuda.current_device()))
+    packed = op.packed if op else pack_taps(taps_of_band(dense, T))
+    if (packed.device != dev or packed.dtype != torch.bfloat16
+            or packed.numel() != (kh * plan.c2p + 8) * plan.ip):
+        raise ValueError("band_decode: the packed taps do not match the band")
     zb = z.to(torch.bfloat16).contiguous()
-    # the band transposed, depth contiguous: the kernel's B operand
-    bt = band.reshape(K, TI).t().to(torch.bfloat16).contiguous()
-    out = torch.empty((N, W, TI), dtype=torch.float32, device=z.device)
+    out = torch.empty((N, W, TI), dtype=torch.float32, device=dev)
     lib = kernels.library()
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        code = lib.band_decode_launch(zb.data_ptr(), bt.data_ptr(), out.data_ptr(), N * W, K,
-                                      TI, Tp, O, TI // time_context, stream)
+    with kernels.on_device(dev):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
+        code = lib.band_decode_launch(zb.data_ptr(), packed.data_ptr(), out.data_ptr(), N * W,
+                                      Tp, O, kh, I, plan.grid, stream)
     kernels.check(code, "band_decode")
     kernels.LAUNCHES["band_decode"] += 1
     return out
@@ -90,4 +204,4 @@ def band_decode_pallas(z: torch.Tensor, kernel: torch.Tensor, time_context: int)
     ``freq_decode_wmajor`` takes)."""
     N, Tp, W, O = z.shape
     zw = z.permute(0, 2, 1, 3).reshape(N, W, Tp * O)
-    return band_decode_wmajor(zw, band_tensor(kernel, time_context), time_context)
+    return band_decode_wmajor(zw, band_operand(kernel, time_context), time_context)

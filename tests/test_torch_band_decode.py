@@ -136,3 +136,128 @@ def test_band_routes_resolve_and_refuse_training():
         assert tconv.trainable_config(c).decoder_impl in ("band", "bandconv")
         with pytest.raises(NotImplementedError, match="bandconv"):
             ConvSep(tconv.trainable_config(c))
+
+
+# -- the kernel's host side: the packed taps, the depth ranges, the plan ------
+
+
+def unpack_taps(packed, kh, C2, I):
+    """pack_taps' core-matrix order back to its (kh·C2p + 8, Ip) rows."""
+    c2p, ip = -(-C2 // 8) * 8, -(-I // 8) * 8
+    rows = kh * c2p + 8
+    return packed.float().reshape(rows // 8, ip // 8, 8, 8).permute(0, 3, 1, 2).reshape(rows, ip)
+
+
+def kernel_emulation(z, packed, Tp, C2, kh, I):
+    """band_decode_kernel's arithmetic in float32: z's depth padded per tap
+    to C2p (8 zero rows after the last); column block t multiplies depth
+    h_lo·C2p .. + 16·steps of it by the same run of the packed taps' rows
+    from tap t − h_lo, over Ip columns, keeping the first I."""
+    M = z.shape[0]
+    T = Tp + kh - 1
+    plan = tdb.band_plan(M, Tp, C2, kh, I)
+    c2p = plan.c2p
+    a = torch.zeros(M, Tp * c2p + 8)
+    a[:, : Tp * c2p].view(M, Tp, c2p)[..., :C2] = z.to(torch.bfloat16).float().view(M, Tp, C2)
+    b = unpack_taps(packed, kh, C2, I)
+    out = torch.empty(M, T * I)
+    for t in range(T):
+        lo, hi = tdb.h_range(t, Tp, kh)
+        depth = 16 * plan.steps[t]
+        rho = (kh - 1 - (t - lo)) * c2p
+        out[:, t * I:(t + 1) * I] = (a[:, lo * c2p:lo * c2p + depth] @ b[rho:rho + depth])[:, :I]
+    return out
+
+
+BAND_SHAPES = [(196 * 505, 16, 50, 15, 50), (3 * 13, 16, 8, 15, 6), (2 * 9, 6, 8, 5, 3),
+               (5 * 7, 1, 16, 1, 130), (1 * 200, 4, 10, 9, 7), (70, 8, 5, 5, 9), (64, 30, 2, 1, 8)]
+
+
+@pytest.mark.parametrize("M,Tp,C2,kh,I", BAND_SHAPES)
+def test_band_tile_depth_is_exactly_its_taps(rng, M, Tp, C2, kh, I):
+    """Column block t's depth range [h_lo, h_hi] is exactly the taps h at
+    which the band's columns of t have a nonzero, and the plan's products
+    cover it with less than 16 rows to spare."""
+    T = Tp + kh - 1
+    k = torch.from_numpy(rng.uniform(0.5, 1.0, (kh, 1, I, C2)).astype(np.float32))
+    band = tdb.band_tensor(k, T)
+    plan = tdb.band_plan(M, Tp, C2, kh, I)
+    for t in range(T):
+        lo, hi = tdb.h_range(t, Tp, kh)
+        nonzero = [h for h in range(Tp) if band[h, :, t * I:(t + 1) * I].abs().sum() > 0]
+        assert nonzero == list(range(lo, hi + 1))
+        assert 0 <= 16 * plan.steps[t] - (hi - lo + 1) * plan.c2p < 16
+
+
+@pytest.mark.parametrize("M,Tp,C2,kh,I", BAND_SHAPES)
+def test_band_plan_mirrors_the_launcher(M, Tp, C2, kh, I):
+    plan = tdb.band_plan(M, Tp, C2, kh, I)
+    assert plan.c2p % 8 == 0 and C2 <= plan.c2p < C2 + 8
+    assert plan.ip % 8 == 0 and I <= plan.ip < I + 8
+    assert plan.nw % 8 == 0 and plan.nw <= 64 and plan.ip % plan.nw == 0
+    if plan.vec == 0:  # the register path: 16-byte loads, pairs inside one tap
+        assert C2 % 2 == 0 and Tp * C2 % 8 == 0 and Tp * C2 <= 32 * tdb.QUADS
+    else:
+        assert plan.vec == (2 if C2 % 2 == 0 else 1)
+    stage = plan.nw + (24 - plan.nw) % 32
+    assert stage % 32 == 24 and plan.nw <= stage < plan.nw + 32
+    assert plan.smem_bytes == (2 * 64 * (Tp * plan.c2p + 8) + 2 * (kh * plan.c2p + 8) * plan.ip
+                               + 4 * 8 * 8 * stage)
+    assert plan.smem_bytes <= 232_448
+    assert plan.row_tiles == -(-M // 64) and 1 <= plan.grid <= plan.row_tiles
+    assert plan.executed_ops == 2.0 * 64 * plan.row_tiles * 16 * plan.ip * sum(plan.steps)
+    needed = 2.0 * M * C2 * I * sum(hi - lo + 1 for lo, hi in
+                                    (tdb.h_range(t, Tp, kh) for t in range(Tp + kh - 1)))
+    assert plan.executed_ops >= needed
+
+
+def test_band_plan_at_multires4096():
+    """One multires4096 track: 1547 row tiles on 132 persistent blocks, 220
+    KB of shared memory, 1.505e11 operations run for the band's 1.188e11."""
+    plan = tdb.band_plan(196 * 505, 16, 50, 15, 50)
+    assert (plan.c2p, plan.ip, plan.nw, plan.vec, plan.row_tiles, plan.grid) == (
+        56, 56, 56, 0, 1547, 132)
+    assert plan.smem_bytes == 225_024 and plan.executed_ops == 150_454_140_928.0
+    with pytest.raises(ValueError, match="shared memory"):
+        tdb.band_plan(100, 64, 50, 15, 50)
+
+
+@pytest.mark.parametrize("M,Tp,C2,kh,I", BAND_SHAPES[1:])
+def test_kernel_emulation_matches_plain(rng, M, Tp, C2, kh, I):
+    """The packed taps read as the kernel reads them (per t, one run of
+    rows from tap t − h_lo against z's padded depth) give the plain
+    version's output within 1e-5 × max|out| (f32 sums in another order)."""
+    T = Tp + kh - 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((M, Tp * C2)).astype(np.float32)))
+    k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32))
+    op = tdb.band_operand(k, T)
+    got = kernel_emulation(z, op.packed, Tp, C2, kh, I)
+    want = tdb.band_decode_wmajor_plain(z[None], op)[0]
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("shape", ["multires", "s2"])
+def test_prepared_band_operand_equals_band_tensor(rng, shape):
+    """The operand the model builds once (prepare_inference) is band_tensor
+    of its weights, and its packed taps, read as the kernel reads them,
+    are that band in bf16 at every (h, c, t, i)."""
+    cfg = ConvSepConfig(**MODELS[shape], decoder_impl="band_pallas")
+    x = np.abs(rng.standard_normal((1, cfg.time_context, cfg.feat_size, cfg.channels_in)))
+    params = JaxConvSep(JaxConfig(**MODELS[shape], decoder_impl="band_pallas")).init(
+        jax.random.PRNGKey(2), jnp.asarray(x.astype(np.float32)))
+    model = ConvSep(cfg, from_jax_params(params, cfg)).prepare_inference()
+    T, Tp, C2 = cfg.time_context, cfg.enc_time, cfg.conv2_filters
+    kh = T - Tp + 1
+    I = model.conv2_kernel.shape[2]
+    want = tdb.band_tensor(model.conv2_kernel, T)
+    assert torch.equal(model.band, want)
+    b = unpack_taps(model.band_taps, kh, C2, I)
+    c2p = -(-C2 // 8) * 8
+    got = torch.zeros_like(want)
+    for h in range(Tp):
+        for t in range(T):
+            if 0 <= t - h < kh:
+                rho = (kh - 1 - (t - h)) * c2p
+                got[h, :, t * I:(t + 1) * I] = b[rho:rho + C2, :I]
+    assert torch.equal(got, want.to(torch.bfloat16).float())
+    assert b[kh * c2p:].abs().sum() == 0  # the zero rows after tap 0

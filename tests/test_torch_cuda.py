@@ -42,7 +42,9 @@ from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.convsep import band_freq_conv_kernel
 from convsep_tpu_torch.models.decoder_band_cuda import (
+    BandOperand,
     band_decode_pallas,
+    band_operand,
     band_decode_wmajor,
     band_decode_wmajor_plain,
     band_tensor,
@@ -116,6 +118,28 @@ def test_wiener_istft_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, 
             assert (got.int() - want.int()).abs().max().item() <= 1
         else:
             torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000])
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+def test_wiener_istft_kernel_every_size(rng, cuda, nfft, S):
+    """Every power of two of the FFT core and two sizes that take the
+    direct sum, S from 1 to 4 (an odd S: the last pair has no second
+    source), hop nfft/4 and a length whose last round is ragged; bf16 y at
+    odd S, f32 at even; float32 within 1e-5 and PCM16 within one LSB of the
+    plain version, one launch each."""
+    hop = nfft // 4
+    length = 37 * hop + 5
+    w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda, lead=(1,))
+    if S % 2:
+        y = y.to(torch.bfloat16)
+    for out in ("float32", "int16"):
+        before = kernels.LAUNCHES["wiener_istft"]
+        got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, p=2.0 if S == 3 else 1.0)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["wiener_istft"] == before + 1
+        _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out,
+                                       p=2.0 if S == 3 else 1.0), out)
 
 
 def test_wiener_istft_kernel_refuses(rng, cuda):
@@ -604,11 +628,45 @@ def test_band_decode_kernel_matches_plain(rng, cuda, N, Tp, W, C2, kh, I):
 
 
 def test_band_decode_kernel_refuses(cuda):
+    band = band_tensor(torch.zeros(15, 1, 50, 400, device=cuda), 30)  # depth 16 x 400
+    with pytest.raises(ValueError, match="shared memory"):
+        band_decode_wmajor(torch.zeros(2, 3, 6400, device=cuda), band, 30)
     band = band_tensor(torch.zeros(3, 1, 2, 5, device=cuda), 6)
-    with pytest.raises(ValueError, match="Tp·O % 8"):
-        band_decode_wmajor(torch.zeros(2, 3, 20, device=cuda), band, 6)
     with pytest.raises(ValueError, match="mixed devices"):
         band_decode_wmajor(torch.zeros(2, 3, 20), band, 6)
+    with pytest.raises(ValueError, match="packed taps"):
+        band_decode_wmajor(torch.zeros(2, 3, 20, device=cuda),
+                           BandOperand(band, torch.zeros(8, device=cuda, dtype=torch.bfloat16)), 6)
+
+
+@pytest.mark.parametrize(
+    "N,Tp,W,C2,kh,I",
+    [
+        (3, 10, 21, 8, 1, 12),     # kh 1: Tp = T, the band is block-diagonal
+        (2, 1, 33, 6, 12, 10),     # Tp 1: kh = T, one depth block
+        (1, 5, 77, 5, 4, 9),       # C2 odd (thread stores), I odd, M 77 (a ragged row tile)
+        (4, 16, 50, 50, 15, 50),   # multires4096's geometry, M 200
+        (1, 3, 300, 12, 6, 64),    # one 64-column product a t
+        (2, 2, 70, 4, 3, 72),      # 9 products of 8 columns a t
+    ],
+)
+def test_band_decode_kernel_shapes(rng, cuda, N, Tp, W, C2, kh, I):
+    """Row tiles not a multiple of 64, the band's two extremes, odd C2 and
+    I, and product widths from 8 to 64 columns: the prepared operand
+    within 1e-5 × max|out| of the plain version, one launch, bit-equal to
+    the bare band (packed on the call)."""
+    T = Tp + kh - 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((N, W, Tp * C2)).astype(np.float32))).to(cuda)
+    k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32)).to(cuda)
+    op = band_operand(k, T)
+    before = kernels.LAUNCHES["band_decode"]
+    got = band_decode_wmajor(z, op, T)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_decode"] == before + 1
+    want = band_decode_wmajor_plain(z, op)
+    assert got.shape == want.shape == (N, W, T * I)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    assert torch.equal(band_decode_wmajor(z, op.band, T), got)
 
 
 def _tiny_multires(**model_kw):
@@ -731,21 +789,28 @@ DECODE_STACK_CEILING = {"ILi3ELi4ELi16E": 0, "ILi4ELi6ELi12E": 40}
 
 
 def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
-    """ptxas's stack frames for the two redesigned kernels: each fused
-    decode and iSTFT FFT-kernel instance at most its recorded frame
-    (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``)."""
+    """ptxas's stack frames for the redesigned kernels: each fused decode
+    and iSTFT FFT-kernel instance at most its recorded frame
+    (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``), every Wiener+iSTFT
+    and band decode instance none; and no band decode instance has its
+    wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
     import subprocess
 
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA toolkit of a machine with a card")
-    frames = {}
-    for src in ("decoder_fused.cu", "istft.cu"):
+    frames, logs = {}, {}
+    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu"):
         out = subprocess.run(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c", str(kernels.CSRC / src),
              "-o", str(tmp_path / "k.o")], capture_output=True, text=True, check=True)
+        logs[src] = out.stdout + out.stderr
         frames.update({m[0]: int(m[1]) for m in regex.findall(
-            r"Function properties for (\S+)\n\s+(\d+) bytes stack frame", out.stdout + out.stderr)})
+            r"Function properties for (\S+)\n\s+(\d+) bytes stack frame", logs[src])})
+    for name in ("wiener_fft_kernel", "wiener_direct_kernel", "band_decode_kernel"):
+        hits = [v for k, v in frames.items() if name in k]
+        assert hits and max(hits) == 0, (name, frames)
+    assert "C7520" not in logs["band_decode.cu"]
     for inst, most in DECODE_STACK_CEILING.items():
         hits = [v for k, v in frames.items() if "fused_decode_kernel" + inst in k]
         assert len(hits) == 1 and hits[0] <= most, (inst, frames)

@@ -449,3 +449,161 @@ def test_synthesis_tables_found_by_value():
     tab = fp.dft_table(1000, "cpu").double()
     m = np.arange(1000)
     assert np.abs(tab[:, 0].numpy() + 1j * tab[:, 1].numpy() - np.exp(-2j * np.pi * m / 1000)).max() < 1e-7
+
+
+# -- the Wiener+iSTFT kernel (csrc/wiener_istft.cu) ------------------------------
+
+# (signals, S, nf, nfft, hop) of every Wiener+iSTFT launch: the CUDA tests'
+# cases, chip_smoke.py's phases 3 and 11, and each preset's whole track
+WIENER_LAUNCHES = [
+    (2, 4, num_frames(6000, 64), 256, 64), (2, 2, num_frames(7000, 128), 256, 128),
+    (2, 3, num_frames(9000, 128), 512, 128), (2, 4, num_frames(30000, 512), 1024, 512),
+    (2, 5, num_frames(60000, 1024), 4096, 1024), (2, 1, num_frames(60000, 1024), 4096, 1024),
+    (2, 3, num_frames(6000, 96), 384, 96), (2, 2, num_frames(9000, 250), 1000, 250),
+    (1, 4, 1442, 4096, 1024), (1, 4, 2882, 1024, 512), (3, 4, 40, 8192, 8192),
+] + [(2, s, num_frames(37 * n // 4 + 5, n // 4), n, n // 4)
+     for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192) for s in (1, 4)] + [
+    (1, p.model.num_sources, num_frames(bucket_length(30 * 44100, p), p.transform.hop_size),
+     p.transform.nfft or p.transform.frame_size, p.transform.hop_size)
+    for name in PRESETS for p in [get_preset(name)]
+]
+
+
+@pytest.mark.parametrize("signals,S,nf,nfft,hop", WIENER_LAUNCHES)
+def test_wiener_plan(signals, S, nf, nfft, hop):
+    """wiener_plan is the launcher's arithmetic: a block per pair of
+    sources and row range, the rows its rounds cover, within shared memory
+    and the block limits."""
+    plan = fp.wiener_plan(signals, S, nf, nfft, hop)
+    k = nfft // hop
+    assert plan.smem_bytes <= fp.SMEM_MAX == 232_448
+    assert plan.pairs == (S + 1) // 2 and plan.rows >= 1
+    assert plan.blocks == signals * plan.blocks_per_signal * plan.pairs
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1 > (plan.blocks_per_signal - 1) * plan.rows
+    assert plan.halo == (k - 1) / plan.rows
+    assert plan.waves == -(-plan.blocks // (plan.blocks_per_sm * fp.SMS))
+    if plan.groups == 0:  # the direct sum: other sizes
+        assert not fp.fft_supported(nfft) and plan.rows <= fp.DIRECT_MAX_ROWS
+        assert plan.smem_bytes == fp.wiener_direct_smem_bytes(nfft, hop, plan.rows)
+        assert plan.threads == fp.DIRECT_THREADS and plan.rounds == 1
+        return
+    t = fp.threads_per_fft(nfft)
+    g = plan.groups
+    assert g & (g - 1) == 0 and plan.threads == g * t
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    assert t <= 32 or g <= fp.MAX_NAMED_GROUPS
+    assert plan.smem_bytes == fp.wiener_smem_bytes(nfft, hop, g)
+    assert 1 <= plan.rounds <= max(-(-k // g), fp.MAX_ROUNDS)
+    assert plan.rows == g * plan.rounds - (k - 1)
+    assert plan.blocks_per_sm == fp.wiener_blocks_per_sm(plan.smem_bytes, plan.threads)
+
+
+def test_wiener_plan_every_size():
+    """Every power of two of the FFT core and every hop that divides it,
+    and even sizes off the core, have a plan within the limits."""
+    for e in range(4, 14):
+        n = 1 << e
+        for hop in (n, n // 2, n // 4, n // 8, n // 16):
+            for S in (1, 2, 3, 4, 5):
+                test_wiener_plan(1, S, 1442, n, hop)
+    for n, hop in ((16 + 2, 9), (384, 96), (1000, 250), (6000, 1500), (8190, 8190)):
+        test_wiener_plan(2, 3, 500, n, hop)
+
+
+def masked_bins(y, re, im, s0, p, eps, conserve_last, ny=None):
+    """wiener_istft.cu::masked_bin for every frame and bin 0 .. N/2 at once:
+    the masked half-spectra A (source s0) and B (s0 + 1; zero past S) of
+    the mixture, the denominator summed in source order then + eps. With
+    ``ny`` the mixture rows hold N/2 bins and bin N/2 is ny (imaginary 0)."""
+    S = y.shape[-3]
+    yf = y.float()
+    q = torch.where(yf > 0, yf, torch.zeros(()))
+    if p == 2.0:
+        q = q * q
+    d = q[..., 0, :, :]
+    for s in range(1, S):
+        d = d + q[..., s, :, :]
+    d = d + eps
+    if ny is not None:
+        re = torch.cat([re, ny[..., None]], -1)
+        im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
+
+    def mask(s):
+        if s >= S:
+            return torch.zeros_like(d)
+        num = q[..., s, :, :] + (eps if conserve_last and s == S - 1 else 0.0)
+        return num / d
+
+    ma, mb = mask(s0), mask(s0 + 1)
+    return ma * re, ma * im, mb * re, mb * im
+
+
+def core_wiener_istft(y, re, im, window, hop, length, p=1.0, eps=1e-8, conserve_last=False,
+                      ny=None):
+    """wiener_fft_kernel in float32: per pair of sources, each frame's
+    conj Z = conj(A + iB) loaded point by point (the mirrored bins past
+    Nyquist), run through the forward core, windowed with window / N; each
+    sample sums its frames in ascending order; inverse window-power
+    envelope, N/2 front trim. (B, S, nf, bins) y → (B, S, L) stems."""
+    from convsep_tpu_torch.dsp.dft import _key, inverse_norm
+
+    B, S, nf, bins = y.shape
+    N = 2 * (bins - 1)
+    k = N // hop
+    wn = torch.from_numpy((np.asarray(window, np.float64) / N).astype(np.float32))
+    inv = inverse_norm(_key(np.asarray(window, np.float32)), hop, nf, "cpu")
+    stems = []
+    for s0 in range(0, S, 2):
+        ar, ai, br, bi = masked_bins(y, re, im, s0, p, eps, conserve_last, ny)
+        zz = core_fft(inverse_input(ar, ai, br, bi))  # (B, nf, N)
+        for src, frames in ((s0, zz.real * wn), (s0 + 1, -zz.imag * wn)):
+            if src >= S:
+                continue
+            acc = torch.zeros(B, nf + k - 1, hop)
+            for i in range(k - 1, -1, -1):  # frame f = row - i: ascending f
+                acc[:, i:i + nf] += frames[..., i * hop:(i + 1) * hop]
+            stems.append((acc.reshape(B, -1) * inv)[:, N // 2:N // 2 + length])
+    return torch.stack(stems, 1)
+
+
+@pytest.mark.parametrize("nfft,hop,nf,S,kw,ny,bf16", [
+    (256, 64, 9, 4, {}, False, False),
+    (256, 128, 8, 3, {"p": 2.0}, False, True),
+    (1024, 512, 7, 1, {"conserve_last": True}, False, False),
+    (1024, 256, 10, 2, {"p": 2.0, "conserve_last": True}, False, True),
+    (4096, 1024, 7, 4, {"conserve_last": True}, True, True),
+    (4096, 1024, 6, 5, {"eps": 1e-4}, True, False),
+    (16, 4, 12, 3, {}, False, False),
+])
+def test_core_wiener_istft_matches_plain(rng, nfft, hop, nf, S, kw, ny, bf16):
+    """The kernel's Wiener point loading (conj Z of each pair, the mirrored
+    bins, the Nyquist row, odd S) through the core against
+    wiener_istft_plain, within the CUDA tests' 1e-5 absolute."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(nfft)
+    bins = nfft // 2 + 1
+    y = np.abs(rng.standard_normal((2, S, nf, bins))).astype(np.float32)
+    y[..., : nf // 3, :8] = 0.0  # dead bins: the eps paths
+    y = torch.from_numpy(y)
+    if bf16:
+        y = y.to(torch.bfloat16)
+    cols = bins - 1 if ny else bins
+    re = torch.from_numpy(rng.standard_normal((2, nf, cols)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((2, nf, cols)).astype(np.float32))
+    nyq = torch.from_numpy(rng.standard_normal((2, nf)).astype(np.float32)) if ny else None
+    got = core_wiener_istft(y, re, im, w, hop, length, ny=nyq, **kw)
+    want = wiener_istft_plain(y, re, im, w, hop, length, ny=nyq, **kw)
+    assert got.shape == want.shape == (2, S, length)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("signals,S,nf,nfft,hop,groups,rounds,rows,blocks", [
+    (1, 4, 1442, 4096, 1024, 2, 13, 23, 126),  # highres4096, multires4096, bach10: one wave
+    (1, 4, 2882, 1024, 512, 8, 6, 47, 124),    # dsd100: one wave
+])
+def test_wiener_main_path_plans(signals, S, nf, nfft, hop, groups, rounds, rows, blocks):
+    plan = fp.wiener_plan(signals, S, nf, nfft, hop)
+    assert (plan.groups, plan.rounds, plan.rows, plan.blocks, plan.waves) == (
+        groups, rounds, rows, blocks, 1)

@@ -112,11 +112,11 @@ def test_istft_routes():
     with pytest.raises(ValueError):
         r("bogus", 4096, 4096, 1024, CUDA)
     m = tdft.resolve_masked_synthesis
-    assert m("auto", 4096, 4096, 1024, 1.0, CUDA, 4) == "ct_pallas_wiener"
-    assert m("auto", 4096, 4096, 1024, 1.5, CUDA, 4) == "ct_pallas"  # p outside {1, 2}
-    assert m("auto", 4096, 4096, 1024, 1.5, CPU, 4) == "factored"
-    assert m("auto", 1024, 1024, 512, 1.5, CUDA, 4) == "direct"
-    assert m("ct_pallas", 4096, 4096, 1024, 1.0, CPU, 4) == "ct_pallas"
+    assert m("auto", 4096, 4096, 1024, 1.0, CUDA) == "ct_pallas_wiener"
+    assert m("auto", 4096, 4096, 1024, 1.5, CUDA) == "ct_pallas"  # p outside {1, 2}
+    assert m("auto", 4096, 4096, 1024, 1.5, CPU) == "factored"
+    assert m("auto", 1024, 1024, 512, 1.5, CUDA) == "direct"
+    assert m("ct_pallas", 4096, 4096, 1024, 1.0, CPU) == "ct_pallas"
     assert istft_supported(4096, 4096, 1024) and istft_supported(1024, 1024, 512)
     assert istft_supported(384, 384, 96)  # even, not a power of two: the direct sum
     assert not istft_supported(255, 255, 85) and not istft_supported(256, 512, 128)

@@ -1,11 +1,13 @@
 """The float32 contract inside the package (``utils/precision.py``): the
 training forward and backward run their convolutions with cuDNN's TF32 off
-and float32 products at "highest" precision, and the separation entry points
-their products, whatever the caller set; the caller's flags come back after
-the call. On CPU the flags do not change any number, so the test reads them
+and float32 products at "highest" precision, and the separation and public
+DSP entry points their products, whatever the caller set; the caller's flags
+come back after the call, also when scopes overlap from two threads. On CPU the flags do not change any number, so the test reads them
 where the convolutions run: ``conv2d`` is patched to record them in the
 forward and, through an identity autograd function on its output, in the
 backward."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -118,3 +120,85 @@ def test_separator_multiplies_at_highest(lowered, monkeypatch):
     stems = sep(np.zeros(4 * p.transform.hop_size * cfg.time_context, np.float32))
     assert stems.shape[0] == cfg.num_sources and seen
     assert set(seen) == {(False, "highest")} and flags() == lowered
+
+
+@pytest.fixture
+def products(monkeypatch):
+    """Record the flags at every float32 product (``@`` and ``einsum``)."""
+    seen = []
+    real_matmul, real_einsum = torch.Tensor.__matmul__, torch.einsum
+
+    def matmul(a, b):
+        seen.append(flags())
+        return real_matmul(a, b)
+
+    def einsum(*args, **kwargs):
+        seen.append(flags())
+        return real_einsum(*args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", matmul)
+    monkeypatch.setattr(torch, "einsum", einsum)
+    return seen
+
+
+@pytest.mark.parametrize("nfft", [256, 4096])  # the direct and the factored DFT
+def test_transform_fft_multiplies_at_highest(lowered, products, nfft):
+    from convsep_tpu_torch.configs.presets import TransformConfig
+    from convsep_tpu_torch.dsp.transform import TransformFFT
+
+    t = TransformFFT(TransformConfig(frame_size=nfft, hop_size=nfft // 4), device="cpu")
+    audio = np.random.default_rng(0).standard_normal(3 * nfft).astype(np.float32)
+    mag, phase = t.compute_file(audio, phase=True)
+    assert products and set(products) == {(False, "highest")} and flags() == lowered
+    products.clear()
+    assert t.compute_inverse(mag, phase, length=len(audio)).shape == audio.shape
+    assert products and set(products) == {(False, "highest")} and flags() == lowered
+
+
+def test_dsp_entry_points_multiply_at_highest(lowered, products):
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.dsp.dft import istft_matmul, istft_wiener, stft_matmul
+    from convsep_tpu_torch.dsp.multires import multires_channels
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    w = sinebell(512)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    re, im = stft_matmul(x, w, 128)
+    out = istft_matmul(re, im, w, 128, 4096)
+    y = torch.rand(2, *re.shape)
+    stems = istft_wiener(y, re, im, w, 128, 4096)
+    t = get_preset("multires4096").transform
+    chans = multires_channels(torch.zeros(4 * t.hop_size), t)
+    assert out.shape == (4096,) and stems.shape == (2, 4096) and chans.shape[-1] == len(t.multires)
+    assert products and set(products) == {(False, "highest")} and flags() == lowered
+
+
+def test_scopes_overlapping_from_two_threads_restore_the_callers_flags(lowered):
+    """Thread a opens a scope, thread b opens one, a closes first: b's body
+    still runs at "highest", and the caller's flags come back only when b
+    closes (a save and restore per scope gave b the lowered flags)."""
+    a_open, b_open, a_closed, b_checked = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def a():
+        with float32_exact():
+            a_open.set()
+            b_open.wait(10)
+        a_closed.set()
+
+    def b():
+        a_open.wait(10)
+        with float32_exact():
+            b_open.set()
+            a_closed.wait(10)
+            seen["b after a closed"] = flags()
+        b_checked.set()
+
+    threads = [threading.Thread(target=f) for f in (a, b)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(20)
+    assert b_checked.is_set()
+    assert seen["b after a closed"] == (False, "highest")
+    assert flags() == lowered

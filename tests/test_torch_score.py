@@ -112,6 +112,21 @@ def test_transform_fft_matches_jax(rng, iscale):
         np.testing.assert_allclose(back, audio, atol=1e-5)
 
 
+@pytest.mark.parametrize("iscale", ["lin", "log"])
+def test_transform_fft_matches_jax_at_lowered_precision(rng, iscale):
+    """The same bounds with the caller's float32 matmul precision lowered to
+    "medium" (on a CPU with bf16 matrix units a float32 product then runs in
+    bf16): TransformFFT computes at "highest" whatever the caller set, and
+    gives the caller's setting back."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        test_transform_fft_matches_jax(rng, iscale)
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
 @pytest.mark.parametrize("mode,g", [("mult", 0.5), ("mult", 1.0), ("blend", 0.3),
                                     ("blend", 1.0), ("mult", 0.0)])
 def test_score_gate_matches_jax(rng, mode, g):

@@ -13,11 +13,8 @@ import torch
 
 from convsep_tpu.dsp.dft import stft_matmul as jax_stft
 from convsep_tpu.dsp.pallas.ct_istft_kernel import istft_ct_pallas_wiener
-from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
-    rows_per_block,
-    wiener_istft,
-    wiener_istft_supported,
-)
+from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_supported
+from convsep_tpu_torch.dsp.cuda.fft_plan import wiener_plan
 from convsep_tpu_torch.dsp.windows import sinebell
 
 
@@ -75,7 +72,9 @@ def test_rejects_bad_shapes(rng):
     assert not wiener_istft_supported(1001, 1001, 91)   # odd
     assert not wiener_istft_supported(1000, 1000, 300)  # nfft % hop != 0
     assert not wiener_istft_supported(1024, 512, 256)   # win != nfft
-    assert rows_per_block(4096, 1024, 4) == 8 and rows_per_block(1024, 512, 4) == 16
-    assert rows_per_block(1000, 250, 4) == 16
-    assert not wiener_istft_supported(8192, 8192, 8192, S=4)  # one row exceeds shared memory
+    assert wiener_plan(1, 4, 1442, 4096, 1024).groups == 2      # the FFT core
+    assert wiener_plan(1, 4, 2882, 1000, 250).groups == 0       # the direct sum
+    assert wiener_plan(1, 4, 2882, 1000, 250).rows == 16
+    assert wiener_istft_supported(8192, 8192, 8192)  # a block holds two sources, any S
+    assert not wiener_istft_supported(16384, 16384, 4096)  # beyond the FFT core's 8192
 
