@@ -13,14 +13,16 @@ result line is printed):
    shapes (B 49, S 4, J 128, W 505, TpC 800, ktaps 8, TM 120), float32 and
    bf16 output, with its bound on the tensor cores (3xTF32) beside the
    float32-SIMT one, and the launcher's plan (cluster, active clusters); it
-   fails if "auto" routes a TM (``FUSED_DECODE_WON_TM``) where the kernel
-   is slower than the plain decode by more than the run-to-run spread
-   (``DECODE_SPREAD``);
+   fails if "auto" routes that TM and batch (``FUSED_DECODE_WON``) where the
+   kernel is slower than the plain decode by more than the run-to-run
+   spread (``DECODE_SPREAD``);
 3. Wiener+iSTFT kernel vs its plain version at highres4096 (nfft 4096,
    hop 1024, nf 1442, bf16 y) and dsd100 (nfft 1024, hop 512, nf 2882):
    p = 1 and 2, conserve_last, float32 and int16 output; at both shapes its
    time, the plain version's, the bound, the wrapper's host time and the
-   launch plan (``fft_plan.wiener_plan``);
+   launch plan (``fft_plan.wiener_plan``); then the same at the stream
+   path's batches (phase 17): 2 and 8 tracks a launch, each track its own
+   random mixture and magnitudes;
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
    right shape, kernel launch counters above zero, the kernel route
@@ -88,10 +90,42 @@ result line is printed):
    "blend", each against the plain route as phase 4;
 14. device times (``torch.profiler``, in a child) of the fused decode and
    its plain version at TM 120 and 360, and of the Wiener+iSTFT (both phase
-   3 shapes), Wiener mask, band decode and fused adadelta kernels.
+   3 shapes), Wiener mask, band decode and fused adadelta kernels;
+15. chunked: ``ChunkedSeparator`` (chunk_segments 32) for highres4096 (2
+   chunks of 960 frames) and dsd100 (4 chunks) on the phase 4 mixture,
+   against ``Separator`` as phase 4 holds two routes (the f32 tail's model
+   output elementwise chunk by chunk and its stems by SNR, the bf16 tail by
+   SNR), ``complement_last`` stems summing to the mixture, PCM16 in and out,
+   the fused decode launched once a chunk where "auto" routes B 32 and no
+   Wiener+iSTFT launch (a chunk synthesizes by products, as the reference
+   does), ms per track (PCM16, plain and complement) beside the whole
+   track's, and the upload and download bytes;
+16. online: ``OnlineSeparator(chunk_segments=8)`` for dsd100 and
+   highres4096, the mixture pushed in 16 384-sample blocks, then flushed:
+   the stems equal ``ChunkedSeparator(chunk_segments=8)``'s bit for bit,
+   and again after ``reset()``; the latency and ms per track;
+17. stream: ``StreamSeparator`` (PCM16 in and out, plain and
+   ``complement_last``) for dsd100 and highres4096 on 6 tracks (the PCM16
+   mixture + i % 3), batch_size 2: each track against ``Separator``'s (its
+   LSB difference printed; the f32 tail's model output elementwise and its
+   stems by SNR, the bf16 tail by SNR), a batch of two clearly different
+   tracks (the mixtures of seeds 0 and 1, the second reversed in time)
+   against ``Separator`` per track, one Wiener+iSTFT launch a batch and
+   the fused decode where "auto" routes B 98, ms per track, and a batch of
+   8 tracks (its peak device memory, its stems against the batches of 2); then dsd100
+   with ``fft_impl="pallas"`` (the STFT, Wiener mask and iSTFT kernels once
+   a track, no dense DFT) and highres4096-stereo (the iSTFT kernel), each
+   track against its whole-track separator;
+18. the fused decode (forced) against plain at TM 120 with B 8, 32 and 98,
+   the batches of the online, chunked and stream paths, as phase 2 (the
+   routing check included);
+19. service: ``WatchService(dsd100)`` on a temporary directory of 3 wav
+   mixtures: a sweep writes every stem wav, equal to ``StreamSeparator``'s
+   for the same tracks; a file that is still growing waits for the next
+   sweep.
 
 Each slice expects the fused decode launched exactly where "auto" routes it
-(``models/decoder_fused_cuda.py::FUSED_DECODE_WON_TM``).
+(``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by TM and batch).
 
 Every kernel's time comes with its bound (bytes over 3.35 TB/s or
 operations over 67 TFLOP/s in float32, 989 TFLOP/s for the bf16 band
@@ -173,6 +207,12 @@ MR_SAMPLES = 1_474_560     # the phase 4 mixture bucketed at multires4096: 1442 
 BAND_SHAPE = (196, 16, 505, 50, 15, 50)
 
 
+CHUNK_SEGMENTS = 32       # ChunkedSeparator's default (the reference bench's chunked rows)
+ONLINE_SEGMENTS = 8       # OnlineSeparator's default
+ONLINE_BLOCK = 16384      # samples a push (the reference bench's capture blocks)
+STREAM_TRACKS = 6         # the reference bench's streaming rows: the mixture + i % 3
+STREAM_BATCH = 2
+TOL_STREAM_LSB_SUM = 1    # LSB: complement_last stems add back to the PCM16 mixture (one rounding)
 CARD: str | None = None  # the nvidia-smi line, once phase 1 has read it
 
 
@@ -464,10 +504,10 @@ def phase_decode(model, B: int, device, gen) -> dict:
     """Fused decode kernel (forced) vs plain at the model's operand shapes."""
     import torch
     from convsep_tpu_torch.models.decoder_fused_cuda import (
-        FUSED_DECODE_WON_TM,
         band_freq_decode,
         band_freq_decode_plain,
         card_plan,
+        fused_decode_won,
     )
 
     J = model.k4.shape[0]
@@ -499,37 +539,46 @@ def phase_decode(model, B: int, device, gen) -> dict:
     log(f"  decode TM {TM} plan: {plan['mi']} x {plan['ni']} m16 x n8 tiles a warp, clusters of "
         f"{plan['cluster']} blocks, {plan['wb']} output rows a block, "
         f"{plan['active_clusters']} clusters at once, {plan['smem_bytes']} B shared memory")
-    # "auto" takes the kernel only at TMs where it won (models/convsep.py)
-    if TM in FUSED_DECODE_WON_TM and ms > (1 + DECODE_SPREAD) * plain_ms:
-        raise AssertionError(f"FUSED_DECODE_WON_TM routes TM {TM}, where the kernel loses: "
+    # "auto" takes the kernel only at the TMs and batches where it won
+    # (models/convsep.py)
+    routes = fused_decode_won(TM, B)
+    log(f"  decode TM {TM} B {B}: \"auto\" routes {'the kernel' if routes else 'the plain decode'}")
+    if routes and ms > (1 + DECODE_SPREAD) * plain_ms:
+        raise AssertionError(f"FUSED_DECODE_WON routes TM {TM} B {B}, where the kernel loses: "
                              f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
     return {"max_abs_err": err[torch.float32], "max_abs_err_bf16": err[torch.bfloat16],
-            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "TM": TM,
-            "won": won, "auto_routes": TM in FUSED_DECODE_WON_TM, "plan": plan}
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "TM": TM, "B": B,
+            "won": won, "auto_routes": routes, "plan": plan}
 
 
-def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen):
+def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1):
+    """A batch of B tracks, each its own random mixture and magnitudes, so
+    a kernel that reads another track's spectrum or y disagrees."""
     import torch
     from convsep_tpu_torch.dsp.dft import stft_matmul
     from convsep_tpu_torch.dsp.windows import sinebell
 
     L = (nf - 2) * hop
     w = sinebell(nfft)
-    x = 0.3 * torch.randn(1, L, generator=gen, device=device)
+    x = 0.3 * torch.randn(B, L, generator=gen, device=device)
     re, im = stft_matmul(x, w, hop)
     assert re.shape[-2] == nf, (re.shape, nf)
-    y = torch.randn(1, S, nf, nfft // 2 + 1, generator=gen, device=device).abs()
+    y = torch.randn(B, S, nf, nfft // 2 + 1, generator=gen, device=device).abs()
     y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
     return w, L, y.to(torch.bfloat16), re, im
 
 
-def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen) -> dict:
-    """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16."""
+def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
+                 B: int = 1) -> dict:
+    """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16,
+    on B tracks at once (the stream path's batches)."""
     import torch
     from convsep_tpu_torch.dsp.cuda import fft_plan
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
 
-    w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen)
+    w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen, B)
+    if B > 1:
+        name = f"{name} B {B}"
     worst = 0.0
     for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
         for out in ("float32", "int16"):
@@ -549,16 +598,16 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen) -
     ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
     us = host_us(lambda: wiener_istft(y, re, im, w, hop, L))
-    plan = fft_plan.wiener_plan(1, S, nf, nfft, hop)
-    b = bound(2 * y.numel() + 8 * re.numel() + 4 * S * L,
-              fft_flops(S * nf, nfft) + 4 * y.numel())
+    plan = fft_plan.wiener_plan(B, S, nf, nfft, hop)
+    b = bound(2 * y.numel() + 8 * re.numel() + 4 * B * S * L,
+              fft_flops(B * S * nf, nfft) + 4 * y.numel())
     log(f"  wiener {name} p=1 f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it; "
         f"wrapper host {us:.1f} us per call; plan: {plan.groups} groups x {plan.rounds} rounds, "
         f"{plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
         f"{plan.smem_bytes} B shared memory")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "host_us": us, "plan": dataclasses.asdict(plan)}
+            "host_us": us, "B": B, "plan": dataclasses.asdict(plan)}
 
 
 def mixture(seed: int = 0):
@@ -1262,7 +1311,8 @@ def phase_stereo(state, preset, device, audio) -> dict:
     S = preset.model.num_sources
     if stems.shape != (S, L, 2) or not np.isfinite(stems).all():
         raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
-    if not (launches["istft"] > 0 and (launches["fused_decode"] > 0) == auto_fused(preset)):
+    if not (launches["istft"] > 0
+            and (launches["fused_decode"] > 0) == auto_fused(preset, track_segments(preset, L))):
         raise AssertionError(f"{name}: the stereo path missed a kernel: {launches}")
     ms = time_track(sep, audio)
     p_sep = StereoSeparator(plain_route(preset), state, device=device)
@@ -1543,13 +1593,25 @@ def phase_band_decode(device, gen) -> dict:
             "operations": flops, "executed_operations": plan.executed_ops, "host_us": us}
 
 
-def auto_fused(preset) -> bool:
-    """Whether "auto" routes ``preset``'s decode to the fused kernel on the
-    card: only at the TMs where it won (``FUSED_DECODE_WON_TM``)."""
+def auto_fused(preset, batch: int) -> bool:
+    """Whether "auto" routes ``preset``'s decode of ``batch`` fc rows
+    (segments in one model call) to the fused kernel on the card: only at
+    the TMs and batches where it won (``FUSED_DECODE_WON``)."""
     import torch
     from convsep_tpu_torch.models.convsep import resolve_decoder_impl
 
-    return resolve_decoder_impl(preset.model, torch.device("cuda")) == "bandconv_pallas"
+    return resolve_decoder_impl(preset.model, torch.device("cuda"), batch) == "bandconv_pallas"
+
+
+def track_segments(preset, n_samples: int) -> int:
+    """The segments of one whole ``n_samples`` track (bucketed): the batch
+    of its decode."""
+    from convsep_tpu_torch.data.segment import segment_count
+    from convsep_tpu_torch.dsp.stft import num_frames
+    from convsep_tpu_torch.separate import bucket_length
+
+    nf = num_frames(bucket_length(n_samples, preset), preset.transform.hop_size)
+    return segment_count(nf, preset.model.time_context)
 
 
 def with_fields(preset, transform=None, model=None, sep=None):
@@ -1609,7 +1671,8 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
     runs = {
         "ct": run_route(f"{preset.name} analysis=ct_pallas", ct, state, device, audio,
                         {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
-                         "fused_decode": auto_fused(preset), "band_decode": False, "stft": False,
+                         "fused_decode": auto_fused(preset, track_segments(preset, len(audio))),
+                         "band_decode": False, "stft": False,
                          "stft_dft": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
@@ -1714,6 +1777,388 @@ def phase_bach10(state, preset, device, audio) -> dict:
     return runs
 
 
+def phase_chunked(state, preset, device, audio) -> dict:
+    """ChunkedSeparator at full width against Separator (see the module
+    docstring, phase 15)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.dft import istft_matmul
+    from convsep_tpu_torch.separate import (
+        ChunkedSeparator,
+        Separator,
+        bucket_length,
+        source_magnitudes,
+    )
+    from convsep_tpu_torch.dsp.stft import num_frames
+    from convsep_tpu_torch.separate.chunked import chunk_source_magnitudes, padded_chunks
+    from convsep_tpu_torch.separate.pipeline import window_of
+    from convsep_tpu_torch.utils.pcm import quantize_pcm16_host
+
+    name = f"{preset.name} chunked"
+    cs, L = CHUNK_SEGMENTS, len(audio)
+    t, m = preset.transform, preset.model
+    S, Fc, nf = m.num_sources, m.time_context * cs, num_frames(L, t.hop_size)
+    slices = padded_chunks(audio, preset, cs)[1]
+    nc = len(slices)
+    sep = ChunkedSeparator(preset, state, chunk_segments=cs, device=device)
+    sep(audio[:FS])
+    kernels.reset_launches()
+    stems = sep(audio)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  {name}: {nc} chunks of {Fc} frames, stems {stems.shape} {stems.dtype}, "
+        f"launches {launches}")
+    if stems.shape != (S, L) or not np.isfinite(stems).all():
+        raise AssertionError(f"{name}: bad stems {stems.shape}")
+    # the decode sees chunk_segments rows a chunk; the chunk synthesizes by
+    # products, as the reference's chunk program does
+    want = {"fused_decode": nc if auto_fused(preset, cs) else 0, "wiener_istft": 0,
+            "wiener_istft_ny": 0, "stft_dft": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    del sep
+    whole = Separator(preset, state, device=device)
+    ref = np.array(whole(audio))
+    del whole
+    snr = snr_db(ref, stems)
+    log(f"  {name} bf16 tail vs Separator: SNR {snr:.1f} dB (min {MIN_SNR_BF16_DB}), "
+        f"max_abs_err {np.abs(stems - ref).max():.3e}")
+    if not snr >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: stems disagree with the whole track: {snr} dB")
+    # f32 tail, as phase 4 holds two routes: the model output chunk by chunk
+    # against the whole track's, elementwise; the stems by SNR
+    f32 = dataclasses.replace(preset, model=dataclasses.replace(m, mask_dtype="float32"))
+    c32 = ChunkedSeparator(f32, state, chunk_segments=cs, device=device)
+    w32 = Separator(f32, state, device=device)
+    y_c = torch.cat([chunk_source_magnitudes(c32.model, torch.from_numpy(s).to(device), f32,
+                                             cs)[0] for s in slices], dim=1)[:, :nf]
+    Lb = bucket_length(L, preset)
+    x = torch.from_numpy(np.pad(audio, (0, Lb - L)))[None].to(device)
+    y_w, re, im, _ = source_magnitudes(w32.model, x, f32)
+    y_w = y_w[0, :, :nf]
+    scale = y_w.abs().max().item()
+    ey = (y_c - y_w).abs().max().item()
+    log(f"  {name} f32 tail: model y chunk by chunk vs the whole track's max_abs_err {ey:.3e} "
+        f"(tol {TOL_SLICE_Y * scale:.3e}, max|y| {scale:.3e})")
+    if not ey <= TOL_SLICE_Y * scale:
+        raise AssertionError(f"{name}: the chunks' model output disagrees: {ey}")
+    s32_c, s32_w = c32(audio), w32(audio)
+    del c32, w32, y_c, y_w, x
+    snr32 = snr_db(s32_w, s32_c)
+    log(f"  {name} f32 tail: stems vs Separator SNR {snr32:.1f} dB (min {MIN_SNR_SLICE_DB}), "
+        f"max_abs_err {np.abs(s32_c - s32_w).max():.3e}")
+    if not snr32 >= MIN_SNR_SLICE_DB:
+        raise AssertionError(f"{name}: f32-tail stems disagree with the whole track: {snr32} dB")
+    # complement_last: conservative masks, each chunk's last stem derived on
+    # the host; the stems add back to the STFT round trip of the mixture
+    comp = ChunkedSeparator(preset, state, chunk_segments=cs, complement_last=True,
+                            device=device)(audio)
+    rt = istft_matmul(re, im, window_of(preset), t.hop_size, Lb)[0, :L].cpu().numpy()
+    del re, im
+    ce = float(np.abs(comp.sum(0) - rt).max())
+    log(f"  {name} complement_last: |Σ stems − round-tripped mixture| max {ce:.3e} "
+        f"(tol {TOL_CONSERVE})")
+    if not ce <= TOL_CONSERVE:
+        raise AssertionError(f"{name}: complement_last stems do not add up: {ce}")
+    # PCM16 in and out, plain and complement, timed as the reference bench
+    # times its chunked rows; the whole track's PCM16 time beside them
+    pcm = quantize_pcm16_host(audio)
+    kw = dict(chunk_segments=cs, output_dtype="int16", input_dtype="int16", device=device)
+    ci = ChunkedSeparator(preset, state, **kw)
+    cc = ChunkedSeparator(preset, state, complement_last=True, **kw)
+    wi = Separator(preset, state, device=device, output_dtype="int16", input_dtype="int16")
+    got_i, ref_i = ci(pcm), np.array(wi(pcm))
+    if got_i.dtype != np.int16:
+        raise AssertionError(f"{name}: PCM16 out gave {got_i.dtype}")
+    lsb = int(np.abs(got_i.astype(np.int32) - ref_i.astype(np.int32)).max())
+    snr_i = snr_db(ref_i, got_i)
+    ms, comp_ms, whole_ms = (time_track(s, pcm) for s in (ci, cc, wi))
+    del ci, cc, wi
+    torch.cuda.empty_cache()
+    nbytes = {"up_mb": (nc * Fc * t.hop_size + t.frame_size - t.hop_size) * 2 / 1e6,
+              "down_mb_plain": S * nc * Fc * t.hop_size * 2 / 1e6,
+              "down_mb_complement": (S - 1) * nc * Fc * t.hop_size * 2 / 1e6, "n_chunks": nc}
+    log(f"  {name} PCM16: vs Separator max {lsb} LSB, SNR {snr_i:.1f} dB (min "
+        f"{MIN_SNR_BF16_DB}); {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time), "
+        f"complement_last {comp_ms:.2f} ms/track ({SECONDS * 1e3 / comp_ms:.1f}x), whole track "
+        f"{whole_ms:.2f} ms/track ({SECONDS * 1e3 / whole_ms:.1f}x); bytes {nbytes}")
+    if not snr_i >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: PCM16 stems disagree with the whole track: {snr_i} dB")
+    return {"ms": ms, "complement_ms": comp_ms, "whole_track_ms": whole_ms,
+            "launches": launches, "bytes": nbytes, "snr_db": snr, "snr_f32_db": snr32,
+            "pcm16_max_lsb": lsb}
+
+
+def phase_online(state, preset, device, audio) -> dict:
+    """OnlineSeparator against ChunkedSeparator at the same chunk size, bit
+    for bit (phase 16)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.separate import ChunkedSeparator, OnlineSeparator
+    from convsep_tpu_torch.separate.chunked import padded_chunks
+
+    name = f"{preset.name} online"
+    cs = ONLINE_SEGMENTS
+    osep = OnlineSeparator(preset, state, chunk_segments=cs, device=device)
+
+    def run(_audio=None):
+        outs = [osep.push(audio[i:i + ONLINE_BLOCK]) for i in range(0, len(audio), ONLINE_BLOCK)]
+        outs.append(osep.flush())
+        osep.reset()
+        return np.concatenate(outs, axis=-1)
+
+    run()
+    kernels.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    nc = len(padded_chunks(audio, preset, cs)[1])
+    log(f"  {name}: {nc} chunks, stems {got.shape} {got.dtype}, launches {launches}")
+    S = preset.model.num_sources
+    if got.shape != (S, len(audio)) or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: bad stems {got.shape}")
+    want = {"fused_decode": nc if auto_fused(preset, cs) else 0, "wiener_istft": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    again = run()
+    ref = ChunkedSeparator(preset, state, chunk_segments=cs, device=device)(audio)
+    same, repeat = np.array_equal(got, ref), np.array_equal(again, got)
+    log(f"  {name}: equal to ChunkedSeparator(chunk_segments={cs}) bit for bit: {same} "
+        f"(max_abs_err {np.abs(got - ref).max():.3e}); after reset(): {repeat}")
+    if not (same and repeat):
+        raise AssertionError(f"{name}: online stems differ from the chunked ones")
+    ms = time_track(run, audio)
+    latency = osep.latency_samples
+    osep.close()
+    del osep
+    torch.cuda.empty_cache()
+    log(f"  {name}: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time) in {ONLINE_BLOCK}-"
+        f"sample pushes; latency {latency} samples ({latency / FS * 1e3:.1f} ms of audio)")
+    return {"ms": ms, "launches": launches, "latency_samples": latency, "chunks": nc}
+
+
+def stream_tracks(audio):
+    """The reference bench's streaming tracks: the PCM16 mixture + i % 3."""
+    import numpy as np
+    from convsep_tpu_torch.utils.pcm import quantize_pcm16_host
+
+    pcm = quantize_pcm16_host(audio)
+    return [pcm + np.int16(i % 3) for i in range(STREAM_TRACKS)]
+
+
+def phase_stream(state, preset, device, audio) -> dict:
+    """StreamSeparator, PCM16 in and out, against Separator per track
+    (phase 17)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.separate import (
+        Separator,
+        StreamSeparator,
+        bucket_length,
+        source_magnitudes,
+    )
+    from convsep_tpu_torch.utils.pcm import quantize_pcm16_host
+
+    name = f"{preset.name} stream"
+    S = preset.model.num_sources
+    tracks = stream_tracks(audio)
+    kw = dict(output_dtype="int16", input_dtype="int16", device=device)
+    ss = StreamSeparator(preset, state, **kw)
+    ssc = StreamSeparator(preset, state, complement_last=True, **kw)
+    for s in (ss, ssc):
+        list(s.stream(iter(tracks[:STREAM_BATCH]), batch_size=STREAM_BATCH))
+    kernels.reset_launches()
+    outs = [np.array(o) for b in ss.stream(iter(tracks), batch_size=STREAM_BATCH) for o in b]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    batches = -(-len(tracks) // STREAM_BATCH)
+    B = STREAM_BATCH * track_segments(preset, len(audio))
+    log(f"  {name}: {len(outs)} tracks in batches of {STREAM_BATCH} (decode B {B}), "
+        f"launches {launches}")
+    want = {"wiener_istft": batches, "fused_decode": batches if auto_fused(preset, B) else 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    comp = [np.array(o) for b in ssc.stream(iter(tracks), batch_size=STREAM_BATCH) for o in b]
+    single = Separator(preset, state, **kw)
+    lsb, snrs, sums, copied = [], [], [], []
+    for t, o, c in zip(tracks, outs, comp):
+        if o.shape != (S, len(t)) or o.dtype != np.int16 or c.shape != o.shape:
+            raise AssertionError(f"{name}: bad stems {o.shape} {o.dtype}, {c.shape}")
+        ref = np.array(single(t))
+        lsb.append(int(np.abs(o.astype(np.int32) - ref.astype(np.int32)).max()))
+        snrs.append(snr_db(ref, o))
+        # the copied stems: conservative masks change only the last mask's
+        # numerator, so they are the plain stems up to the rounding of the
+        # kernel's conserve path
+        copied.append(int(np.abs(c[:-1].astype(np.int32) - o[:-1].astype(np.int32)).max()))
+        sums.append(int(np.abs(c.astype(np.int32).sum(0) - t.astype(np.int32)).max()))
+    # a batch of two clearly different tracks: a kernel that reads the
+    # other track's spectra or magnitudes moves its stems by far more than
+    # the LSBs between the mixture + i % 3 tracks
+    distinct = [quantize_pcm16_host(mixture(0)), quantize_pcm16_host(mixture(1)[::-1].copy())]
+    got = [np.array(o) for b in ss.stream(iter(distinct), batch_size=STREAM_BATCH) for o in b]
+    snr_distinct = [snr_db(np.array(single(t)), o) for t, o in zip(distinct, got)]
+    cross = snr_db(np.array(single(distinct[0])), np.array(single(distinct[1])))
+    log(f"  {name} a batch of two different tracks vs Separator per track: SNR "
+        f"{[round(v, 1) for v in snr_distinct]} dB (min {MIN_SNR_BF16_DB}); the two tracks' "
+        f"stems apart: {cross:.1f} dB")
+    if len(got) != 2 or not min(snr_distinct) >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: a batch of different tracks disagrees with Separator: "
+                             f"{snr_distinct} dB")
+    del single
+    log(f"  {name} PCM16 vs Separator per track: max LSB {lsb}, SNR {min(snrs):.1f} dB at worst "
+        f"(min {MIN_SNR_BF16_DB}); complement_last: copied stems vs plain max {max(copied)} LSB "
+        f"(tol {TOL_WIENER_I16}), |Σ stems − mixture| max {max(sums)} LSB "
+        f"(tol {TOL_STREAM_LSB_SUM})")
+    if not (min(snrs) >= MIN_SNR_BF16_DB and max(copied) <= TOL_WIENER_I16
+            and max(sums) <= TOL_STREAM_LSB_SUM):
+        raise AssertionError(f"{name}: stems disagree: {snrs} dB, {copied}, {sums} LSB")
+    # f32 tail, the first batch: the batch's model output against each
+    # track's alone elementwise, its stems by SNR
+    f32 = dataclasses.replace(preset, model=dataclasses.replace(preset.model,
+                                                                mask_dtype="float32"))
+    s32 = StreamSeparator(f32, state, device=device)
+    w32 = Separator(f32, state, device=device)
+    first = [t.astype(np.float32) / 32768.0 for t in tracks[:STREAM_BATCH]]
+    Lb = bucket_length(len(audio), preset)
+    x = torch.from_numpy(np.stack([np.pad(t, (0, Lb - len(t))) for t in first])).to(device)
+    y_b = source_magnitudes(s32.model, x, f32)[0]
+    ey, scale = 0.0, 0.0
+    for i in range(STREAM_BATCH):
+        y_1 = source_magnitudes(w32.model, x[i:i + 1], f32)[0]
+        scale = max(scale, y_1.abs().max().item())
+        ey = max(ey, (y_b[i] - y_1[0]).abs().max().item())
+    del y_b, y_1, x
+    snr32 = min(snr_db(w32(t), o) for t, o in zip(first, s32.separate_many(first)))
+    del s32, w32
+    log(f"  {name} f32 tail, batch vs one track at a time: model y max_abs_err {ey:.3e} "
+        f"(tol {TOL_SLICE_Y * scale:.3e}); stems SNR {snr32:.1f} dB (min {MIN_SNR_SLICE_DB})")
+    if not (ey <= TOL_SLICE_Y * scale and snr32 >= MIN_SNR_SLICE_DB):
+        raise AssertionError(f"{name}: the batch disagrees with one track at a time: {ey}, "
+                             f"{snr32} dB")
+    # per-track time, plain and complement in turns, as the reference bench
+    times = {"plain": [], "complement": []}
+    for _ in range(3):
+        for key, s in (("plain", ss), ("complement", ssc)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(len(b) for b in s.stream(iter(tracks), batch_size=STREAM_BATCH))
+            times[key].append((time.perf_counter() - t0) * 1e3 / n)
+    ms, comp_ms = (sorted(v)[1] for v in (times["plain"], times["complement"]))
+    log(f"  {name} PCM16: {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time), "
+        f"complement_last {comp_ms:.2f} ms/track ({SECONDS * 1e3 / comp_ms:.1f}x)")
+    # a batch of 8 tracks: its memory, and its stems against the batches of 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    eight = tracks + tracks[:8 - len(tracks)]
+    big = [np.array(o) for b in ss.stream(iter(eight), batch_size=8) for o in b]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    snr8 = min(snr_db(o, g) for o, g in zip(outs + outs[:2], big))
+    log(f"  {name} batch_size 8: {len(big)} tracks, peak device memory {peak:.2f} GiB; stems vs "
+        f"the batches of 2 SNR {snr8:.1f} dB at worst (min {MIN_SNR_BF16_DB})")
+    if len(big) != 8 or not snr8 >= MIN_SNR_BF16_DB:
+        raise AssertionError(f"{name}: a batch of 8 gave {len(big)} tracks, {snr8} dB")
+    del ss, ssc
+    torch.cuda.empty_cache()
+    return {"ms": ms, "complement_ms": comp_ms, "launches": launches, "decode_batch": B,
+            "max_lsb": lsb, "snr_db_min": min(snrs), "snr_f32_db": snr32,
+            "snr_distinct_db": snr_distinct,
+            "batch8_peak_gib": peak}
+
+
+def phase_stream_route(name: str, stream, single, tracks, want: dict) -> dict:
+    """A StreamSeparator route that runs one track at a time (the pallas
+    route, stereo): exact launch counts, and each track's stems against
+    the whole-track separator's (the same program per track)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+
+    list(stream.stream(iter(tracks[:STREAM_BATCH]), batch_size=STREAM_BATCH))
+    kernels.reset_launches()
+    outs = [np.array(o) for b in stream.stream(iter(tracks), batch_size=STREAM_BATCH) for o in b]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  {name}: {len(outs)} tracks in batches of {STREAM_BATCH}, launches {launches}")
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    err = 0.0
+    for t, o in zip(tracks, outs):
+        ref = single(t)
+        ref = ref.transpose(0, 2, 1) if ref.ndim == 3 else ref  # stereo: (S, L, 2) → (S, 2, L)
+        if o.shape != ref.shape or not np.isfinite(o).all():
+            raise AssertionError(f"{name}: bad stems {o.shape} vs {ref.shape}")
+        err = max(err, float(np.abs(o - ref).max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(len(b) for b in stream.stream(iter(tracks), batch_size=STREAM_BATCH))
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    log(f"  {name}: stems vs the whole-track separator max_abs_err {err:.3e} (tol "
+        f"{TOL_WIENER_F32}); {ms:.2f} ms/track ({SECONDS * 1e3 / ms:.1f}x real time)")
+    if not err <= TOL_WIENER_F32:
+        raise AssertionError(f"{name}: stems disagree with the whole-track separator: {err}")
+    return {"ms": ms, "launches": launches}
+
+
+def phase_service(state, preset, device, audio) -> dict:
+    """WatchService on a temporary directory of wav mixtures (phase 19)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.data.io import read_wav, write_wav
+    from convsep_tpu_torch.separate import StreamSeparator, WatchService
+
+    tracks = stream_tracks(audio)[:3]
+    with tempfile.TemporaryDirectory(prefix="convsep-serve-") as tmp:
+        inp, out = os.path.join(tmp, "incoming"), os.path.join(tmp, "done")
+        os.makedirs(inp)
+        names = [f"mix{i}" for i in range(len(tracks))]
+        for n, t in zip(names, tracks):
+            write_wav(os.path.join(inp, n + ".wav"), FS, t)
+        svc = WatchService(preset, state, inp, out, poll_s=0.0, device=device)
+        first = svc.sweep()  # records the sizes: no file is known to be complete yet
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        done = svc.sweep()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        log(f"  service: first sweep {first} tracks, second {done} tracks in {ms:.1f} ms "
+            f"(wav reads and writes included), launches {launches}")
+        if first != 0 or done != len(tracks) or launches["wiener_istft"] != 1:
+            raise AssertionError(f"service: sweeps gave {first}, {done}; launches {launches}")
+        wavs = [read_wav(os.path.join(inp, n + ".wav"))[1] for n in names]
+        ref = StreamSeparator(preset, state, output_dtype="int16", input_dtype="int16",
+                              device=device).separate_many(wavs)
+        for n, r in zip(names, ref):
+            for s, stem in zip(preset.sources, r):
+                fs, got = read_wav(os.path.join(out, n, f"{s}.wav"))
+                got = np.rint(got * 32768.0).astype(np.int16)
+                if fs != FS or not np.array_equal(got, stem):
+                    raise AssertionError(f"service: {n}/{s}.wav differs from StreamSeparator's")
+        late = os.path.join(inp, "late.wav")
+        third = len(tracks[0]) // 3
+        write_wav(late, FS, tracks[0][:third])
+        seen = svc.sweep()
+        write_wav(late, FS, tracks[0][: 2 * third])  # still being written
+        growing = svc.sweep()
+        settled = svc.sweep()
+        log(f"  service: a growing file: sweeps {seen}, {growing} while it grows, {settled} once "
+            f"its size held; stems equal StreamSeparator's bit for bit")
+        if (seen, growing, settled) != (0, 0, 1) or not svc._done("late"):
+            raise AssertionError(f"service: the growing file gave {seen}, {growing}, {settled}")
+    del svc
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tracks": len(tracks), "launches": launches}
+
+
 def setup() -> int:
     """0 when torch sees a CUDA device and the checkout's own
     convsep_tpu_torch imports; else an exit code, with the reason."""
@@ -1744,11 +2189,13 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--device-times"]:
         print(json.dumps({k: child_device_times(k) for k in argv[1].split(",")}), flush=True)
         return 0
+    import numpy as np
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.ckpt import init_params
     from convsep_tpu_torch.configs import get_preset
     from convsep_tpu_torch.models import ConvSep
+    from convsep_tpu_torch.separate import Separator, StereoSeparator, StreamSeparator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1777,11 +2224,19 @@ def main(argv: list[str]) -> int:
     wie = phase_wiener("highres4096", 4096, 1024, 1442, 4, device, gen)
     wie_dsd = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen)
     torch.cuda.empty_cache()
+    # the stream path's batches (phase 17): STREAM_BATCH tracks, and 8
+    wie_batches = {}
+    for B in (STREAM_BATCH, 8):
+        wie_batches[f"highres4096 B {B}"] = phase_wiener("highres4096", 4096, 1024, 1442, 4,
+                                                         device, gen, B)
+        wie_batches[f"dsd100 B {B}"] = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, B)
+        torch.cuda.empty_cache()
 
     log("phase 4: separation slice, 30 s 44.1 kHz mixture, seeded random weights")
     audio = mixture(0)
     hi_run = phase_slice("highres4096", hi_state, hi, device, audio,
-                         {"fused_decode": auto_fused(hi), "wiener_istft": True})
+                         {"fused_decode": auto_fused(hi, track_segments(hi, len(audio))),
+                          "wiener_istft": True})
     del hi_state
     torch.cuda.empty_cache()
     dsd_state = init_params(dsd.model, torch.Generator(device=device).manual_seed(1), device)
@@ -1833,7 +2288,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     log("phase 12: multires4096 slice, full width, the phase 4 mixture, seeded random weights")
     mr_run = phase_slice("multires4096", mr_state, mr, device, audio,
-                         {"fused_decode": auto_fused(mr), "wiener_istft": True, "ct_stft": False,
+                         {"fused_decode": auto_fused(mr, track_segments(mr, len(audio))),
+                          "wiener_istft": True, "ct_stft": False,
                           "band_decode": False})
     mr_routes = phase_multires_routes(mr_state, mr, device, audio)
     del mr_state
@@ -1865,11 +2321,54 @@ def main(argv: list[str]) -> int:
             f"{r['bound_ms']:.4f} ms")
     log(f"  device kernels: {json.dumps(dev)}")
 
+    # the separation modes that stream: each state re-made from its seed
+    log("phase 15: chunked, ChunkedSeparator(chunk_segments=32) at full width, the phase 4 "
+        "mixture, seeded random weights")
+    hi_state = init_params(hi.model, torch.Generator(device=device).manual_seed(0), device)
+    dsd_state = init_params(dsd.model, torch.Generator(device=device).manual_seed(1), device)
+    chunked = {"highres4096": phase_chunked(hi_state, hi, device, audio),
+               "dsd100": phase_chunked(dsd_state, dsd, device, audio)}
+    log("phase 16: online, OnlineSeparator(chunk_segments=8), 16 384-sample pushes")
+    online = {"dsd100": phase_online(dsd_state, dsd, device, audio),
+              "highres4096": phase_online(hi_state, hi, device, audio)}
+    log("phase 17: stream, StreamSeparator, 6 tracks in batches of 2")
+    stream = {"dsd100": phase_stream(dsd_state, dsd, device, audio),
+              "highres4096": phase_stream(hi_state, hi, device, audio)}
+    pallas = with_fields(dsd, transform={"fft_impl": "pallas"})
+    n = STREAM_TRACKS
+    stream["dsd100 fft_impl=pallas"] = phase_stream_route(
+        "dsd100 fft_impl=pallas stream", StreamSeparator(pallas, dsd_state, device=device),
+        Separator(pallas, dsd_state, device=device),
+        [audio + np.float32(i % 3 / 32768.0) for i in range(n)],
+        {"stft": n, "wiener_apply": n, "istft": n, "stft_dft": 0, "wiener_istft": 0})
+    st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
+    st_mix = stereo_mixture(0)
+    stream["highres4096-stereo"] = phase_stream_route(
+        "highres4096-stereo stream", StreamSeparator(st, st_state, device=device),
+        StereoSeparator(st, st_state, device=device), [st_mix, 0.5 * st_mix],
+        {"istft": 2, "wiener_istft": 0,
+         "fused_decode": 2 if auto_fused(st, track_segments(st, st_mix.shape[1])) else 0})
+    del st_state
+    torch.cuda.empty_cache()
+    log("phase 18: fused decode kernel vs plain at TM 120, B 8, 32 and 98 (the online, "
+        "chunked and stream batches)")
+    hi_model = ConvSep(hi.model, hi_state, device=device).prepare_inference()
+    dec_batches = {B: phase_decode(hi_model, B, device, gen) for B in (8, 32, 98)}
+    del hi_model, hi_state
+    torch.cuda.empty_cache()
+    log("phase 19: service, WatchService(dsd100) on a temporary directory of 3 wav mixtures")
+    service = phase_service(dsd_state, dsd, device, audio)
+    del dsd_state
+    torch.cuda.empty_cache()
+
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
              "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run,
              "multires4096": mr_run, "multires4096 analysis=ct_pallas": mr_routes["ct"],
-             "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs}
+             "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs,
+             **{f"{k} chunked": r for k, r in chunked.items()},
+             **{f"{k} online": r for k, r in online.items()},
+             **{f"{k} stream": r for k, r in stream.items()}, "dsd100 service": service}
 
     def launched(kernel: str) -> dict:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
@@ -1884,11 +2383,12 @@ def main(argv: list[str]) -> int:
         {"name": "fused_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
-         **launched("fused_decode"), **dec, "stereo_tm240": dec240, "multires4096_tm360": dec360},
+         **launched("fused_decode"), **dec, "stereo_tm240": dec240, "multires4096_tm360": dec360,
+         "tm120_batches": {str(B): r for B, r in dec_batches.items()}},
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         **launched("wiener_istft"), **wie, "dsd100": wie_dsd,
+         **launched("wiener_istft"), **wie, "dsd100": wie_dsd, "batches": wie_batches,
          "ny": {**launched("wiener_istft_ny"), **wny}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",
@@ -1929,7 +2429,15 @@ def main(argv: list[str]) -> int:
                          "analysis=ct_pallas": mr_routes["ct"]["ms"],
                          "decoder_impl=band_pallas": mr_routes["band"]["ms"]},
         **{k: {"kernel": r["ms"], "plain": r["plain_ms"]} for k, r in b10_runs.items()},
-    }, "stems_d2h_ms": {
+        "chunked": {k: {"pcm16": r["ms"], "pcm16_complement": r["complement_ms"],
+                        "whole_track_pcm16": r["whole_track_ms"]} for k, r in chunked.items()},
+        "online": {k: {"float32": r["ms"], "latency_samples": r["latency_samples"]}
+                   for k, r in online.items()},
+        "stream": {k: {"ms": r["ms"], **({"pcm16_complement": r["complement_ms"]}
+                                         if "complement_ms" in r else {})}
+                   for k, r in stream.items()},
+        "service": {"dsd100 sweep of 3 tracks": service["ms"]},
+    }, "chunked_bytes": {k: r["bytes"] for k, r in chunked.items()}, "stems_d2h_ms": {
         "highres4096-stereo": {"pageable": st_run["d2h_pageable_ms"],
                                "pinned": st_run["d2h_pinned_ms"]},
         "dsd100": {"pageable": pl_run["d2h_pageable_ms"], "pinned": pl_run["d2h_pinned_ms"]},

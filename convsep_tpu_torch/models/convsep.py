@@ -48,10 +48,10 @@ from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.decoder_band_cuda import BandOperand, band_operand
 from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor as band_decode_kernel
 from convsep_tpu_torch.models.decoder_fused_cuda import (
-    FUSED_DECODE_WON_TM,
     band_freq_decode,
     band_freq_decode_plain,
     fused_decode_supported,
+    fused_decode_won,
     kcat_of,
     kernel_supported,
     prepare_operands,
@@ -197,15 +197,18 @@ def _finish(d1: torch.Tensor, out_bias: torch.Tensor, B: int, S: int, C: int,
     return torch.relu(y.to(md) + bias[:, None, None])
 
 
-def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
+def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device,
+                         batch: int | None = None) -> str:
     """The decode route: "bandconv_pallas" (the fused CUDA kernel wrapper),
     "bandconv" (plain PyTorch), or the two-stage "band_pallas" (the band
     kernel's wrapper) and "band" (a float32 GEMM). "auto" takes the fused
     kernel on CUDA only where the reference's TPU rule admits the shape, the
     kernel's envelope holds and the kernel won its A/B against the plain
-    decode at that TM on the card (``FUSED_DECODE_WON_TM``): the reference's
-    rule that "auto" only ever picks the winning branch. An explicit kernel
-    route asks for the wrapper, which is the plain version on CPU tensors."""
+    decode at that TM and ``batch`` (the decode's fc rows, B · segments) on
+    the card (``FUSED_DECODE_WON``): the reference's rule that "auto" only
+    ever picks the winning branch. An unknown batch (None) takes the plain
+    decode. An explicit kernel route asks for the wrapper, which is the
+    plain version on CPU tensors."""
     impl = cfg.decoder_impl
     if impl in ("bandconv", "bandconv_pallas", *_BAND):
         return impl
@@ -218,9 +221,10 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device) -> str:
     TM = cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in
     if (
         torch.device(device).type == "cuda"
+        and batch is not None
         and fused_decode_supported(TpC, TM, cfg.ktaps)
         and kernel_supported(cfg.bottleneck, cfg.ktaps, TM)
-        and TM in FUSED_DECODE_WON_TM
+        and fused_decode_won(TM, batch)
     ):
         return "bandconv_pallas"
     return "bandconv"
@@ -308,9 +312,11 @@ class ConvSep(nn.Module):
                     raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
             self.register_parameter(name, nn.Parameter(t, requires_grad=trainable))
 
+    @float32_exact()
     def _operands(self) -> dict[str, torch.Tensor]:
         """The composed encoder weight and, for the composed decodes, their
-        operands (the two-stage band decodes read the raw expansion)."""
+        operands (the two-stage band decodes read the raw expansion), with
+        their products in float32 whatever precision the caller set."""
         cfg = self.config
         w_eff, c = compose_collapsed_fc(
             self.fc_kernel, self.fc_bias, self.conv1_kernel, self.conv1_bias,
@@ -371,7 +377,7 @@ class ConvSep(nn.Module):
             if self.prepared else self._operands()
         )
         fc = torch.relu(x.reshape(B, -1).float() @ ops["w_eff"] + ops["bias_eff"])
-        route = resolve_decoder_impl(cfg, x.device)
+        route = resolve_decoder_impl(cfg, x.device, B)
         if route in _BAND:
             return self._band_decode(fc, route, B, C, ops)
         md = _DTYPES[cfg.mask_dtype]

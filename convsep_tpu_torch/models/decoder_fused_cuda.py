@@ -35,20 +35,37 @@ from convsep_tpu_torch import kernels
 _WPAD = 8  # expansion rows are padded to a multiple of this (as the reference)
 _SMEM_MAX = 227 * 1024
 
-# The TMs (output columns T·stride·C) at which the kernel beat
-# band_freq_decode_plain on the card; "auto" routes the fused decode only at
-# these (models/convsep.py::resolve_decoder_impl), and chip_smoke.py fails
-# where a routed TM loses by more than the run-to-run spread. Set from
-# chip_smoke.py's decode timings (phases 2, 9 and 11: B 49, bf16 out, by
-# events; H100 80GB HBM3, 700 W): 5.061 / 8.719 / 11.081 ms against the plain
-# decode's 5.189 / 8.874 / 13.189 at TM 120 / 240 / 360 (highres4096, its
-# stereo preset, multires4096); PERF.md, row 2, names the run.
-FUSED_DECODE_WON_TM = frozenset({120, 240, 360})
+# Where the kernel beat band_freq_decode_plain on the card: for each TM
+# (output columns T·stride·C) the runs (first, last) of fc rows B (segments
+# in one call) at which "auto" routes the fused decode (models/convsep.py::
+# resolve_decoder_impl). Every B in a run was timed and won: tools/
+# torch_decode_batches.py timed every B from 1 to 64 and its ``BEYOND``
+# batches, kernel and plain in turns, and a B won when both kernel times
+# were below both plain times (bf16 out, by events; H100 80GB HBM3, 700 W;
+# PERF.md, row 2, names the run). An untimed B takes the plain decode.
+# kernel / plain swings with B mod 4 to 8 (the kernel pads fc rows to a
+# multiple of 4, cuBLAS picks its tiles by B): at TM 120 B 8 1.82, 32 0.84,
+# 33 1.09, 49 0.97, 56 1.03, 64 0.92; past one 64-row tile the launcher pads
+# every tile to 64 rows (B 65 1.59, 98 1.13 at TM 120). chip_smoke.py fails
+# where a routed (TM, B) loses by more than the run-to-run spread.
+FUSED_DECODE_WON = {
+    120: ((20, 20), (29, 32), (38, 40), (47, 49), (51, 52), (58, 64), (128, 128)),
+    240: ((14, 16), (19, 20), (29, 36), (40, 40), (43, 52), (54, 56), (59, 64), (112, 112),
+          (128, 128)),
+    360: ((13, 20), (22, 24), (26, 64), (98, 98), (112, 112), (128, 128), (196, 196)),
+}
 
 # the kernel's tile (csrc/decoder_fused.cu)
 BT = 64              # fc rows per row tile
 TC = 8               # t per chunk: one TF32 k-step
 MAX_CLUSTER = 8      # blocks per cluster (the portable limit)
+
+
+def fused_decode_won(TM: int, B: int) -> bool:
+    """Whether the kernel won its A/B against the plain decode at TM
+    columns and B fc rows: B lies in one of the TM's runs of won batches
+    (``FUSED_DECODE_WON``)."""
+    return any(lo <= B <= hi for lo, hi in FUSED_DECODE_WON.get(TM, ()))
 
 
 def w_pad_rows(W: int, ktaps: int) -> int:

@@ -830,3 +830,114 @@ def test_fused_decode_plan_mirrors_the_launcher(cuda, shape):
     assert (got["mi"], got["ni"], got["cluster"], got["bp"], got["wb"], got["rc"], got["es"],
             got["smem_bytes"]) == (p.mi, p.ni, p.cluster, p.bp, p.wb, p.rc, p.es, p.smem_bytes)
     assert got["active_clusters"] >= 1
+
+
+def _tiny(name: str, **model_kw):
+    """A preset's model geometry (T, stride, sources) at 8 kHz, W 256, cut
+    in width, f32 tail."""
+    from convsep_tpu_torch.configs import TransformConfig, get_preset
+
+    p = get_preset(name)
+    tr = TransformConfig(fs=8000, frame_size=256, hop_size=64 if "highres" in name else 128)
+    return dataclasses.replace(
+        p, transform=tr, sep=dataclasses.replace(p.sep, segment_bucket=2),
+        model=dataclasses.replace(p.model, feat_size=tr.bins, conv1_freq=9, conv1_filters=6,
+                                  conv2_filters=5, bottleneck=16, mask_dtype="float32",
+                                  **model_kw),
+    )
+
+
+def _snr(ref, est):
+    ref = ref.astype(np.float64)
+    return 10 * np.log10((ref ** 2).sum() / max(((est - ref) ** 2).sum(), 1e-300))
+
+
+def test_tiny_chunked_online_stream_on_the_card(cuda):
+    """The chunked, online and stream separators on the card against the
+    whole-track Separator (f32 tail; by SNR, as chip_smoke.py holds two
+    routes: the whole track synthesizes with the Wiener+iSTFT kernel, a
+    chunk by products), online against chunked bit for bit, and reset()
+    and close() with copies in flight."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.separate import (
+        ChunkedSeparator,
+        OnlineSeparator,
+        Separator,
+        StreamSeparator,
+    )
+
+    p = _tiny("dsd100", time_context=10)
+    state = init_params(p.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(3)
+    mix = (0.2 * rng.standard_normal(20_000)).astype(np.float32)
+    whole = Separator(p, state, device=cuda)
+    ref = whole(mix)
+    chunked = ChunkedSeparator(p, state, chunk_segments=3, device=cuda)(mix)
+    assert chunked.shape == ref.shape and _snr(ref, chunked) >= 70.0
+    osep = OnlineSeparator(p, state, chunk_segments=3, max_pending=2, device=cuda)
+    outs = [osep.push(mix[i:i + 777]) for i in range(0, len(mix), 777)]
+    online = np.concatenate(outs + [osep.flush()], axis=-1)
+    np.testing.assert_array_equal(online, chunked)
+    osep.reset()
+    osep.push(mix[: 3 * osep.latency_samples])
+    assert osep._pending
+    osep.reset()  # waits for the copies in flight
+    assert not osep._pending
+    osep.push(mix[: 3 * osep.latency_samples])
+    osep.close()
+    assert osep._copy is None and not osep._pending
+    tracks = [mix, mix[:13_000], 0.5 * mix[:17_000]]
+    got = [o for b in StreamSeparator(p, state, device=cuda).stream(iter(tracks), 2) for o in b]
+    for t, o in zip(tracks, got):
+        assert o.shape == (4, len(t)) and _snr(whole(t), o) >= 70.0
+
+
+@pytest.mark.parametrize("B", [8, 32, 98])
+def test_auto_decode_rule_by_batch_on_the_card(cuda, B):
+    """"auto" launches the fused decode at TM 120 only for a batch inside
+    FUSED_DECODE_WON: the online chunks (B 8) and a stream batch of two
+    30 s tracks (B 98) take the plain decode, chunks of 32 segments the
+    kernel."""
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.models import ConvSep
+    from convsep_tpu_torch.models.decoder_fused_cuda import fused_decode_won
+
+    p = _tiny("highres4096")
+    cfg = p.model
+    assert cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in == 120
+    model = ConvSep(cfg, init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda),
+                    device=cuda).prepare_inference()
+    x = torch.rand(B, cfg.time_context, cfg.feat_size, 1, device=cuda)
+    kernels.reset_launches()
+    y = model.sources(x)
+    torch.cuda.synchronize()
+    assert y.shape == (B, cfg.num_sources, cfg.time_context, cfg.feat_size)
+    assert kernels.LAUNCHES["fused_decode"] == int(fused_decode_won(120, B))
+    assert fused_decode_won(120, B) == (B == 32)
+
+
+def test_async_copies_on_a_side_stream(cuda):
+    """fetch_async's host tensor equals ``.cpu()`` once its event completes,
+    also when the copy is enqueued behind work still running; an upload on
+    the side stream is ordered before its use on the current stream."""
+    from convsep_tpu_torch.utils.transfer import (
+        fetch_async,
+        host_array,
+        stage_pinned,
+        upload_async,
+        wait_upload,
+    )
+
+    side = torch.cuda.Stream(cuda)
+    a = torch.randn(2048, 2048, device=cuda)
+    for _ in range(3):
+        t = a @ a  # still running when the copy is enqueued
+        host, done = fetch_async(t, side)
+        assert host.is_pinned() and done is not None
+        np.testing.assert_array_equal(host_array(host, done), t.cpu().numpy())
+    arr = np.random.default_rng(0).standard_normal((3, 100_000)).astype(np.float32)
+    staged = stage_pinned(arr, cuda)
+    assert staged.is_pinned()
+    dev, ev = upload_async(staged, cuda, side)
+    out = wait_upload(dev, ev) * 2.0
+    np.testing.assert_array_equal(out.cpu().numpy(), arr * 2.0)

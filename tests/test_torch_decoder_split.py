@@ -11,8 +11,8 @@
   shapes: the block tile and cluster, shared memory, the halo, the
   recomputed share of stage 1, the K4 reads, the fc row padding; and
   ``kernel_supported``'s envelope.
-* The repair around it: "auto" takes the kernel only at the TMs it won on
-  the card (``FUSED_DECODE_WON_TM``). (The other repair, the float32
+* The repair around it: "auto" takes the kernel only at the TMs and
+  batches at which it won on the card (``FUSED_DECODE_WON``). (The other repair, the float32
   contract, is ``test_torch_precision.py``'s.)
 """
 
@@ -180,19 +180,48 @@ def test_kernel_envelope():
 
 @pytest.mark.parametrize("preset,TM", [("highres4096", 120), ("highres4096-stereo", 240),
                                        ("multires4096", 360)])
-@pytest.mark.parametrize("won", [frozenset(), frozenset({120, 240, 360}), frozenset({120})])
+@pytest.mark.parametrize("won", [{}, {120: ((1, 64),), 240: ((1, 64),), 360: ((1, 64),)},
+                                 {120: ((1, 30), (40, 64))}])
 def test_auto_routes_the_kernel_only_where_it_won(monkeypatch, preset, TM, won):
     cfg = get_preset(preset).model
     assert cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in == TM
-    monkeypatch.setattr(tconv, "FUSED_DECODE_WON_TM", won)
+    monkeypatch.setattr(dfc, "FUSED_DECODE_WON", won)
     cuda = torch.device("cuda")
     want = "bandconv_pallas" if TM in won else "bandconv"
-    assert tconv.resolve_decoder_impl(cfg, cuda) == want
-    assert tconv.resolve_decoder_impl(cfg, torch.device("cpu")) == "bandconv"
+    assert tconv.resolve_decoder_impl(cfg, cuda, 49) == want
+    between = "bandconv_pallas" if TM in won and len(won[TM]) == 1 else "bandconv"
+    assert tconv.resolve_decoder_impl(cfg, cuda, 35) == between  # between two won runs
+    assert tconv.resolve_decoder_impl(cfg, cuda, 65) == "bandconv"
+    assert tconv.resolve_decoder_impl(cfg, cuda) == "bandconv"  # the batch not known
+    assert tconv.resolve_decoder_impl(cfg, torch.device("cpu"), 49) == "bandconv"
     forced = dataclasses.replace(cfg, decoder_impl="bandconv_pallas")
-    assert tconv.resolve_decoder_impl(forced, cuda) == "bandconv_pallas"
+    assert tconv.resolve_decoder_impl(forced, cuda, 8) == "bandconv_pallas"
+
+
+@pytest.mark.parametrize("B,routed", [(8, False), (16, False), (20, True), (32, True),
+                                      (36, False), (49, True), (56, False), (64, True),
+                                      (65, False), (98, False), (128, True), (129, False)])
+def test_auto_routes_by_batch_at_tm120(B, routed):
+    """The separation paths' batches at TM 120 (highres4096): online chunks of
+    8 segments, chunks of 32, a 30 s track of 49, a stream batch of two
+    tracks, 98. The kernel lost at 8, 36, 56 and 98 (tools/
+    torch_decode_batches.py), so "auto" takes the plain decode there; 129 was
+    not timed."""
+    cfg = get_preset("highres4096").model
+    want = "bandconv_pallas" if routed else "bandconv"
+    assert tconv.resolve_decoder_impl(cfg, torch.device("cuda"), B) == want
+    assert dfc.fused_decode_won(120, B) == routed
 
 
 def test_won_tms_are_inside_the_reference_rule():
-    for TM in dfc.FUSED_DECODE_WON_TM:
+    """Each TM's runs are sorted, disjoint and maximal, and hold only batches
+    the sweep timed: every B of one row tile, and its ``BEYOND`` batches
+    (one-point runs, since they are not consecutive)."""
+    from tools.torch_decode_batches import BEYOND
+
+    for TM, runs in dfc.FUSED_DECODE_WON.items():
         assert dfc.fused_decode_supported(800, TM, 8)
+        assert runs and all(1 <= lo <= hi for lo, hi in runs)
+        assert all(a[1] + 1 < b[0] for a, b in zip(runs, runs[1:]))
+        for lo, hi in runs:
+            assert hi <= dfc.BT or (lo == hi and lo in BEYOND)

@@ -141,6 +141,18 @@ def products(monkeypatch):
     return seen
 
 
+def test_prepare_inference_multiplies_at_highest(lowered, products):
+    """The composed encoder weight and decode operands, built once when a
+    separator is made, are float32 products too: at a lowered precision
+    they were computed in bf16 on a CPU with bf16 matrix units (the stems
+    then 2e-2 off)."""
+    from convsep_tpu_torch.configs import get_preset
+
+    p = get_preset("dsd100")
+    Separator(p, init_params(p.model, torch.Generator().manual_seed(1), "cpu"), device="cpu")
+    assert products and set(products) == {(False, "highest")} and flags() == lowered
+
+
 @pytest.mark.parametrize("nfft", [256, 4096])  # the direct and the factored DFT
 def test_transform_fft_multiplies_at_highest(lowered, products, nfft):
     from convsep_tpu_torch.configs.presets import TransformConfig
