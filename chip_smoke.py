@@ -122,7 +122,21 @@ result line is printed):
 19. service: ``WatchService(dsd100)`` on a temporary directory of 3 wav
    mixtures: a sweep writes every stem wav, equal to ``StreamSeparator``'s
    for the same tracks; a file that is still growing waits for the next
-   sweep.
+   sweep;
+20. feature-file training: the phase 6 tracks through
+   ``compute_features(dsd100)`` on the card (ms per track; one mixture
+   file against the CPU route of the same ``TransformFFT``), a
+   ``SegmentDataset`` (T 30, overlap 20; the native gather's host ms per
+   batch against numpy's; it fails unless the native gather is in use),
+   ``Trainer(dsd100, optimizer_impl="fused").fit(max_steps=20)`` at full
+   width, B 32, seeded random weights: a finite, falling loss, two
+   adadelta launches a step and no STFT; a run with a ``workdir`` stopped
+   at step 10, restored bit for bit at (epoch 0, batch 10) and resumed on
+   exactly the uninterrupted run's batches 10-19, its final weights
+   against that run's; a full-state save and restore timed; one feature
+   step of the fused route against the plain route from the seeded init
+   (the fused update bit for bit on the same gradients); ms per step and
+   rtf_train on both routes.
 
 Each slice expects the fused decode launched exactly where "auto" routes it
 (``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by TM and batch).
@@ -213,6 +227,9 @@ ONLINE_BLOCK = 16384      # samples a push (the reference bench's capture blocks
 STREAM_TRACKS = 6         # the reference bench's streaming rows: the mixture + i % 3
 STREAM_BATCH = 2
 TOL_STREAM_LSB_SUM = 1    # LSB: complement_last stems add back to the PCM16 mixture (one rounding)
+TOL_FEATURES = 1e-5       # × peak: a feature file vs the CPU route's DFT products, another sum order
+TOL_FEATURE_LOSS = 1e-6   # relative, the loss of one feature step, fused vs plain route (one forward)
+TOL_FEATURE_WEIGHTS = 1e-5  # × max|g|, weights after one feature step, fused vs plain route
 CARD: str | None = None  # the nvidia-smi line, once phase 1 has read it
 
 
@@ -2159,6 +2176,245 @@ def phase_service(state, preset, device, audio) -> dict:
     return {"ms": ms, "tracks": len(tracks), "launches": launches}
 
 
+def feature_route_step(preset, params, x, y, device) -> dict:
+    """One feature train step of ``preset``'s route from ``params`` with
+    zero accumulators (:func:`route_step` for the feature path): loss,
+    gradients, the parameters after the update and, on the fused route,
+    whether the update equals the plain optimizer's on the same gradients
+    bit for bit."""
+    import torch
+    from convsep_tpu_torch.train.loop import (
+        _apply_from_opt,
+        _feature_loss_fn,
+        _preset_apply_fn,
+        create_train_state,
+    )
+
+    s, opt = create_train_state(preset, 0, device, params=params)
+    loss = _feature_loss_fn(preset)(s.params, x, y)
+    g = dict(zip(s.params, torch.autograd.grad(loss, list(s.params.values()))))
+    fused = _preset_apply_fn(preset)
+    out = {"loss": loss.item(), "grads": g}
+    if fused is not None:
+        ref, _ = create_train_state(preset, 0, device, params=s.params)
+        _apply_from_opt(opt)(ref.params, g, ref.opt_state)
+    _, _, gn = (fused or _apply_from_opt(opt))(s.params, g, s.opt_state)
+    out.update(grad_norm=gn.item(), params=s.params)
+    if fused is not None:
+        out["exact"] = all(torch.equal(s.params[k], ref.params[k]) for k in s.params)
+    return out
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_feature_train(device) -> dict:
+    """Feature files, the native batch gather, feature-file training with
+    the fused adadelta kernel, one step against the plain route, and a
+    checkpointed run resumed mid-epoch, at full dsd100 width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.ckpt import CheckpointManager
+    from convsep_tpu_torch.data import fastbatch
+    from convsep_tpu_torch.data.features import compute_features
+    from convsep_tpu_torch.data.io import load_tensor, read_wav
+    from convsep_tpu_torch.data.pipeline import SegmentDataset, to_device
+    from convsep_tpu_torch.dsp.transform import TransformFFT
+    from convsep_tpu_torch.train.loop import Trainer, create_train_state, make_train_step
+
+    preset, plain = train_preset(True), train_preset(False)
+    tr = preset.train
+    with tempfile.TemporaryDirectory() as root:
+        audio_dir, feat_dir = os.path.join(root, "audio"), os.path.join(root, "features")
+        write_tracks(audio_dir, preset.sources)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        names = compute_features(audio_dir, feat_dir, preset, device=device)
+        torch.cuda.synchronize()
+        feat_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+        feat_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        log(f"  compute_features: {len(names)} tracks of {TRAIN_SECONDS} s (mixture + "
+            f"{len(preset.sources)} stems each) in {feat_ms:.1f} ms/track; kernel launches "
+            f"{feat_launches or 'none'} (TransformFFT's DFT products)")
+        # the mixture as the walker builds it, through the same TransformFFT on the CPU
+        stems = [read_wav(os.path.join(audio_dir, names[0], f"{s}.wav"))[1]
+                 for s in preset.sources]
+        want = TransformFFT(preset.transform, device="cpu").compute_file(np.sum(stems, axis=0))
+        got = np.asarray(load_tensor(os.path.join(feat_dir, f"{names[0]}.mix.data")))
+        err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        log(f"  {names[0]}.mix.data {got.shape} vs the CPU route: max err {err:.3e} × peak "
+            f"(tol {TOL_FEATURES})")
+        if got.shape != want.shape or not err <= TOL_FEATURES:
+            raise AssertionError(f"feature file disagrees with the CPU route: {err}")
+
+        ds = SegmentDataset(feat_dir, preset.sources, time_context=tr.time_context,
+                            overlap=tr.overlap, mult_factor_in=tr.mult_factor_in,
+                            mult_factor_out=tr.mult_factor_out)
+        if not fastbatch.available():
+            raise AssertionError("the native batch gather (native/fastbatch.cpp) is not in use")
+        idx_all = list(ds.batch_indices(tr.batch_size, seed=tr.seed))
+        gather = {}
+        for native in (True, False):
+            ts = []
+            for idx in idx_all[:12]:
+                t0 = time.perf_counter()
+                xb, yb = ds._assemble(idx, native=native)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            gather["native" if native else "numpy"] = float(np.median(ts[2:]))
+        xn, yn = ds._assemble(idx_all[0], native=True)
+        xp, yp = ds._assemble(idx_all[0], native=False)
+        if not (np.array_equal(xn, xp) and np.array_equal(yn, yp)):
+            raise AssertionError("native and numpy batches differ")
+        log(f"  SegmentDataset: {len(ds)} segments (T {tr.time_context}, overlap "
+            f"{tr.overlap}), {len(idx_all)} batches of {tr.batch_size} an epoch, x "
+            f"{xn.shape}; host ms per batch: native gather {gather['native']:.3f}, numpy "
+            f"{gather['numpy']:.3f} (equal bytes)")
+
+        seen: list = []
+        assemble = ds._assemble
+
+        def recording(idx, native=None):
+            seen.append([int(i) for i in idx])
+            return assemble(idx, native)
+
+        ds._assemble = recording
+
+        def fit(trainer, max_steps):
+            # the prefetch assembles one batch past the last step: keep the trained ones
+            seen.clear()
+            step0 = trainer.state.step
+            trainer.fit(ds, max_steps=max_steps, metrics_path=metrics)
+            torch.cuda.synchronize()
+            return list(seen[: trainer.state.step - step0])
+
+        metrics = os.path.join(root, "metrics.jsonl")
+        # The resume check needs every run to repeat its arithmetic: with
+        # cuDNN's default algorithms two runs from one seed part by step 7
+        # and end 7e-3 × max|p| apart at step 20 (PERF.md), so the training
+        # runs of this phase take cuDNN's deterministic algorithms, and the
+        # resumed run must then equal the uninterrupted one bit for bit; the
+        # step times at the end of the phase take the default ones.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        ref = Trainer(preset, device=device, seed=0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ref_idx = fit(ref, TRAIN_STEPS)
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(metrics) as f:
+            recs = [json.loads(line) for line in f]
+        steps = [r for r in recs if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        log(f"  fit: {ref.state.step} steps in {fit_s:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"  losses by logged step: {[round(v, 6) for v in losses]}")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"  mean loss, first 5 logged steps {first:.6f}, last 5 {last:.6f}")
+        if ref.state.step != TRAIN_STEPS or len(losses) < 10:
+            raise AssertionError(f"fit took {ref.state.step} steps, logged {len(losses)}")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"feature training loss is not finite and falling: {losses}")
+        # two adadelta launches a step (fc_expand_kernel, fc_kernel); no STFT in the step
+        if not (launches["fused_adadelta"] == 2 * TRAIN_STEPS and launches["stft"] == 0
+                and launches["stft_dft"] == 0):
+            raise AssertionError(f"feature training path launched {launches}")
+        fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
+        fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
+        log(f"  fit: median step_time_ms {fit_ms:.3f}, rtf_train {fit_rtf:.1f} (the Trainer's "
+            f"log; {tr.batch_size * tr.time_context * preset.transform.hop_size / FS:.2f} s "
+            f"of audio a step)")
+
+        # the same seed with a workdir, stopped at step 10 (saved there), resumed
+        wd = os.path.join(root, "run")
+        t1 = Trainer(preset, workdir=wd, device=device, seed=0)
+        t1_idx = fit(t1, TRAIN_STEPS // 2)
+        t2 = Trainer(preset, workdir=wd, device=device, seed=0)
+        t0 = time.perf_counter()
+        step = t2.restore()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(t1.state.params[k], t2.state.params[k])
+                   and torch.equal(t1.state.opt_state.accu[k], t2.state.opt_state.accu[k])
+                   and torch.equal(t1.state.opt_state.delta_accu[k],
+                                   t2.state.opt_state.delta_accu[k]) for k in t1.state.params)
+        pos = t2.data_position
+        log(f"  restore: step {step}, data position epoch {pos['epoch']} batch "
+            f"{pos['batch_in_epoch']}, state bit for bit: {same}")
+        if not (same and step == TRAIN_STEPS // 2 and t2.state.step == step
+                and (pos["epoch"], pos["batch_in_epoch"]) == (0, TRAIN_STEPS // 2)):
+            raise AssertionError(f"restore: step {step}, position {pos}, equal {same}")
+        t2_idx = fit(t2, TRAIN_STEPS)
+        if not (t1_idx == ref_idx[: TRAIN_STEPS // 2] and t2_idx == ref_idx[TRAIN_STEPS // 2:]):
+            raise AssertionError("the resumed run did not train on exactly the unseen batches")
+        pmax = max(p.abs().max().item() for p in ref.state.params.values())
+        resume_err = max((t2.state.params[k] - p).abs().max().item()
+                         for k, p in ref.state.params.items()) / pmax
+        resume_exact = all(torch.equal(t2.state.params[k], p)
+                           for k, p in ref.state.params.items())
+        log(f"  resumed run: batches {TRAIN_STEPS // 2}-{TRAIN_STEPS - 1} of the uninterrupted "
+            f"run's (segment indices equal); final parameters vs the uninterrupted run: max "
+            f"err {resume_err:.3e} × max|p|, bit for bit: {resume_exact} (gated bit for bit)")
+        torch.backends.cudnn.deterministic = deterministic
+        if not resume_exact:
+            raise AssertionError(f"resumed parameters differ: {resume_err} × max|p|")
+        del t1
+        # one full-state save and one restore, timed alone
+        mgr = CheckpointManager(os.path.join(root, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(t2.state.step, t2.state, extra=t2.data_position)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = dir_bytes(os.path.join(root, "timed"))
+        t0 = time.perf_counter()
+        mgr.restore_latest(t2.state)
+        torch.cuda.synchronize()
+        restore_alone_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  checkpoint, full state: {nbytes} bytes; save {save_ms:.1f} ms, restore "
+            f"{restore_alone_ms:.1f} ms (the Trainer's restore {restore_ms:.1f} ms)")
+        x, y = to_device(ds._assemble(idx_all[0]), device)
+        del ref, t2, ds
+        torch.cuda.empty_cache()
+
+    # one step of each route from the seeded init, zero accumulators, the same batch
+    init = create_train_state(preset, 0, device)[0].params
+    k = feature_route_step(preset, init, x, y, device)
+    p = feature_route_step(plain, init, x, y, device)
+    torch.cuda.synchronize()
+    gmax = max(g.abs().max().item() for g in p["grads"].values())
+    route = {"loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+             "grad_norm": abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
+             "weights": max((k["params"][n] - w).abs().max().item()
+                            for n, w in p["params"].items()) / gmax,
+             "exact": k["exact"]}
+    log(f"  one step, fused vs plain route: loss {route['loss']:.3e} (tol {TOL_FEATURE_LOSS}), "
+        f"grad_norm {route['grad_norm']:.3e}, weights {route['weights']:.3e} × max|g| (tol "
+        f"{TOL_FEATURE_WEIGHTS}); the fused update = the plain one on the same gradients: "
+        f"{route['exact']}")
+    if not (route["loss"] <= TOL_FEATURE_LOSS and route["weights"] <= TOL_FEATURE_WEIGHTS
+            and route["exact"]):
+        raise AssertionError(f"the fused feature step disagrees with the plain route: {route}")
+    del init, k, p
+    s_k, opt = create_train_state(preset, 0, device)
+    s_p, _ = create_train_state(plain, 0, device)
+    ms = time_steps(make_train_step(preset, opt), s_k, x, y)
+    plain_ms = time_steps(make_train_step(plain, opt), s_p, x, y)
+    audio_s = tr.batch_size * tr.time_context * preset.transform.hop_size / FS
+    log(f"  feature train step B {tr.batch_size}: fused {ms:.3f} ms (rtf_train "
+        f"{audio_s * 1e3 / ms:.1f}), plain {plain_ms:.3f} ms (rtf_train "
+        f"{audio_s * 1e3 / plain_ms:.1f})")
+    return {"launches": launches, "features_ms_per_track": feat_ms, "gather_ms": gather,
+            "fit_step_ms": fit_ms, "fit_rtf_train": fit_rtf, "ms": ms, "plain_ms": plain_ms,
+            "route": route, "resume_err": resume_err, "resume_exact": resume_exact,
+            "checkpoint_bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_alone_ms}
+
+
 def setup() -> int:
     """0 when torch sees a CUDA device and the checkout's own
     convsep_tpu_torch imports; else an exit code, with the reason."""
@@ -2360,9 +2616,16 @@ def main(argv: list[str]) -> int:
     service = phase_service(dsd_state, dsd, device, audio)
     del dsd_state
     torch.cuda.empty_cache()
+    log("phase 20: feature-file training, dsd100 full width: compute_features, "
+        "SegmentDataset, Trainer(from_audio=False) with the fused adadelta kernel, resume")
+    t0 = time.perf_counter()
+    feature_train = phase_feature_train(device)
+    torch.cuda.empty_cache()
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
+             "dsd100 feature training": feature_train,
              "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run,
              "multires4096": mr_run, "multires4096 analysis=ct_pallas": mr_routes["ct"],
              "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs,
@@ -2437,7 +2700,7 @@ def main(argv: list[str]) -> int:
                                          if "complement_ms" in r else {})}
                    for k, r in stream.items()},
         "service": {"dsd100 sweep of 3 tracks": service["ms"]},
-    }, "chunked_bytes": {k: r["bytes"] for k, r in chunked.items()}, "stems_d2h_ms": {
+    }, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"}, "chunked_bytes": {k: r["bytes"] for k, r in chunked.items()}, "stems_d2h_ms": {
         "highres4096-stereo": {"pageable": st_run["d2h_pageable_ms"],
                                "pinned": st_run["d2h_pinned_ms"]},
         "dsd100": {"pageable": pl_run["d2h_pageable_ms"], "pinned": pl_run["d2h_pinned_ms"]},

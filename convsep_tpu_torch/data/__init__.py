@@ -1,2 +1,4 @@
-"""Data: spectrogram segmentation, wav I/O, synthetic fixtures, the
-from-audio training dataset and the device prefetch."""
+"""Data: wav, tensor-feature and pickle files, spectrogram segmentation,
+synthetic fixtures, offline feature computation, the feature-file and
+from-audio training datasets (with the native batch gather) and the device
+prefetch."""

@@ -94,14 +94,21 @@ class AudioSegmentDataset:
         return mix, stems
 
     def batches(
-        self, batch_size: int, shuffle: bool = True, seed: int = 0
+        self,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_remainder: bool = True,
+        start: int = 0,
     ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """(mix (B, seg), stems (B, S, seg)) float32 batches; the last
-        partial batch is dropped."""
+        """(mix (B, seg), stems (B, S, seg)) float32 batches. ``start``
+        skips the first ``start`` batches unassembled (mid-epoch resume);
+        with ``drop_remainder=False`` the last batch may be short."""
         order = np.arange(len(self._index))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
-        for b0 in range(0, len(order) - batch_size + 1, batch_size):
+        stop = len(order) - batch_size + 1 if drop_remainder else len(order)
+        for b0 in range(start * batch_size, max(stop, 0), batch_size):
             idx = order[b0 : b0 + batch_size]
             xs, ys = zip(*(self.get(int(i)) for i in idx))
             yield np.stack(xs), np.stack(ys)

@@ -1,15 +1,18 @@
-"""Overlap-add and its window-power normalization.
+"""Overlap-add, its window-power normalization, and the complex iSTFT.
 
 Mirror of ``convsep_tpu.dsp.istft``: frames are overlap-added at the hop
 and divided by the overlap-added product of synthesis and analysis
-windows (zeros replaced by 1); the first W//2 samples are then dropped by
-the caller.
+windows (zeros replaced by 1); the first W//2 samples are then dropped.
+:func:`istft` inverts :func:`~convsep_tpu_torch.dsp.stft.stft` with
+``torch.fft.irfft``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from convsep_tpu_torch.dsp.stft import num_frames
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
@@ -44,3 +47,33 @@ def ola_norm(
         norm[n * hop : n * hop + win_length] += prod
     norm[norm == 0.0] = 1.0
     return norm.astype(np.float32)
+
+
+def istft(
+    spec: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    analysis_window: np.ndarray | None = None,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """Inverse STFT of (..., n_frames, nfft//2+1) complex → (..., length)
+    float32, on the spectrum's device. ``spec`` must have the reference
+    framing's ``ceil(length / hop) + 2`` frames; ``analysis_window``
+    defaults to ``window``."""
+    window = np.asarray(window, np.float32)
+    analysis_window = window if analysis_window is None else np.asarray(analysis_window,
+                                                                        np.float32)
+    nfft = 2 * (int(spec.shape[-1]) - 1) if nfft is None else int(nfft)
+    expect = num_frames(length, hop)
+    if int(spec.shape[-2]) != expect:
+        raise ValueError(
+            f"spec has {spec.shape[-2]} frames but length={length}, hop={hop} "
+            f"implies {expect} (reference framing)"
+        )
+    win = int(window.shape[-1])
+    frames = torch.fft.irfft(spec, n=nfft, dim=-1)[..., :win]
+    frames = frames * torch.from_numpy(window).to(spec.device)
+    inv = torch.from_numpy(1.0 / ola_norm(window, analysis_window, int(hop), expect))
+    data = overlap_add(frames, int(hop)) * inv.to(spec.device)
+    return data[..., win // 2: win // 2 + int(length)].float()

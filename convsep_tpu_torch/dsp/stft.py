@@ -1,8 +1,11 @@
-"""STFT framing with the reference's conventions.
+"""STFT framing with the reference's conventions, and the complex STFT.
 
 Mirror of ``convsep_tpu.dsp.stft``: the signal is front-padded with
 ``W//2`` zeros and back-padded so that ``ceil(L / hop) + 2`` frames of
-length ``W`` at stride ``hop`` tile it exactly.
+length ``W`` at stride ``hop`` tile it exactly; :func:`stft` windows the
+frames and takes ``torch.fft.rfft`` of each (the complex-spectrum API;
+the separation and training paths take the DFT products of
+:mod:`convsep_tpu_torch.dsp.dft` or the CUDA kernels instead).
 """
 
 from __future__ import annotations
@@ -44,6 +47,21 @@ def frame_signal(padded: torch.Tensor, win_length: int, hop: int, n_frames: int)
     if padded.shape[-1] < need:
         raise ValueError(f"padded length {padded.shape[-1]} < required {need}")
     return padded[..., :need].unfold(-1, win_length, hop)
+
+
+def stft(signal, window: np.ndarray, hop: int, nfft: int | None = None) -> torch.Tensor:
+    """STFT of a (..., length) signal → (..., num_frames, nfft//2+1)
+    complex64, on the signal's device (a numpy signal: the CPU)."""
+    x = torch.as_tensor(signal, dtype=torch.float32)
+    w = torch.from_numpy(np.asarray(window, np.float32)).to(x.device)
+    win, hop = int(w.shape[-1]), int(hop)
+    frames = frame_signal(_pad_signal(x, win, hop), win, hop, num_frames(x.shape[-1], hop))
+    return torch.fft.rfft(frames * w, n=int(nfft or win), dim=-1)
+
+
+def magphase(spec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex spectrogram → (float32 magnitude, float32 phase)."""
+    return spec.abs().float(), spec.angle().float()
 
 
 def scale_magnitude(mag: torch.Tensor, iscale: str = "lin", kappa: float = 1e4) -> torch.Tensor:

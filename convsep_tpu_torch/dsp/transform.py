@@ -1,19 +1,21 @@
 """TransformFFT: the user-facing analysis/resynthesis object.
 
-Mirror of ``convsep_tpu.dsp.transform.TransformFFT`` (``compute_file``
-and ``compute_inverse``) on this package's :func:`stft_matmul` /
-:func:`istft_matmul`; numpy in, numpy out, the transforms on ``device``,
-their products in full float32 whatever the caller's matmul precision
+Mirror of ``convsep_tpu.dsp.transform.TransformFFT`` (``compute_file``,
+``compute_inverse`` and ``compute_transform``, which writes feature files)
+on this package's :func:`stft_matmul` / :func:`istft_matmul`; numpy in,
+numpy out, the transforms on ``device``, their products in full float32
+whatever the caller's matmul precision
 (:class:`~convsep_tpu_torch.utils.precision.float32_exact`).
-``compute_transform`` (feature files on disk) is not ported: this package
-has no feature-file writer yet.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from convsep_tpu_torch.data.io import save_tensor
 from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
 from convsep_tpu_torch.dsp.stft import scale_magnitude, unscale_magnitude
 from convsep_tpu_torch.dsp.windows import hann, sinebell
@@ -79,3 +81,14 @@ class TransformFFT:
         out = istft_matmul(m * torch.cos(ph), m * torch.sin(ph), self.window,
                            self.config.hop_size, int(length), nfft=self.config.nfft)
         return out.cpu().numpy()
+
+    def compute_transform(self, audio: np.ndarray, out_path: str, phase: bool = False) -> None:
+        """Audio → feature file(s): ``<out_path>.data`` (+ ``.phase.data``);
+        ``out_path`` excludes the ``.data`` suffix."""
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        if phase:
+            mag, ph = self.compute_file(audio, phase=True)
+            save_tensor(ph, out_path + ".phase.data")
+        else:
+            mag = self.compute_file(audio)
+        save_tensor(mag, out_path + ".data")

@@ -25,7 +25,7 @@ from convsep_tpu_torch.dsp.stft import scale_magnitude
 from convsep_tpu_torch.dsp.windows import hann, sinebell
 from convsep_tpu_torch.models.convsep import train_sources, trainable_config
 from convsep_tpu_torch.models.masks import wiener_filter
-from convsep_tpu_torch.train.losses import interference_matrix, separation_loss
+from convsep_tpu_torch.train.losses import interference_on_device, separation_loss
 from convsep_tpu_torch.train.optim import GradientTransformation
 
 
@@ -43,15 +43,7 @@ def make_audio_loss_fn(preset: Preset) -> Callable:
         )
     win = (sinebell if t.window == "sinebell" else hann)(t.frame_size)
     seg = segment_samples(preset)
-    interf_np = interference_matrix(
-        m.num_sources,
-        alpha=tr.alpha,
-        beta=tr.beta,
-        beta_voc=tr.beta_voc,
-        vocals_idx=tr.vocals_idx,
-        other_idx=tr.other_idx,
-    )
-    interf: dict[torch.device, torch.Tensor] = {}  # one copy per device, made once
+    interf = interference_on_device(preset)
 
     def mag_of(audio):  # (..., seg) → (..., T, F) scaled magnitude
         if t.fft_impl == "pallas":
@@ -66,8 +58,6 @@ def make_audio_loss_fn(preset: Preset) -> Callable:
         B = mix.shape[0]
         if mix.shape[-1] != seg:
             raise ValueError(f"segment length {mix.shape[-1]} != required {seg}")
-        if mix.device not in interf:
-            interf[mix.device] = torch.as_tensor(interf_np, device=mix.device)
         x = mag_of(mix) * tr.mult_factor_in  # (B, T, F)
         # stem magnitudes land source-major (B, S, T, F): the model's layout
         y_t = (
@@ -76,7 +66,7 @@ def make_audio_loss_fn(preset: Preset) -> Callable:
         )
         out = train_sources(params, x[..., None], m)
         est = wiener_filter(out, x, eps=preset.sep.wiener_eps, axis=1)
-        return separation_loss(est, y_t, interf[mix.device], source_axis=1)
+        return separation_loss(est, y_t, interf(mix.device), source_axis=1)
 
     return loss_fn
 

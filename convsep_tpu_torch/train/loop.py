@@ -1,24 +1,32 @@
-"""Training engine: the train step and the epoch loop.
+"""Training engine: the train step, the epoch loop, checkpoints and resume.
 
-Mirror of ``convsep_tpu.train.loop`` for from-audio training on one device.
-A train step is the loss (:func:`convsep_tpu_torch.train.e2e.make_audio_loss_fn`),
-its gradients by ``torch.autograd.grad``, and the adadelta update: the
-plain formula (``optimizer_impl="xla"``) or the fused CUDA kernel
-(``"fused"``). The reference's step is one jitted program over donated
-buffers; here the state's tensors are updated in place and the same
-:class:`TrainState` object is returned. Metrics stay on the device and are
-read only at the logging cadence, one step late, so the host does not wait
-on the device every step.
+Mirror of ``convsep_tpu.train.loop`` on one device. A train step is the
+loss — on feature-file batches (:func:`make_train_step`, the masked
+estimate of the mixture magnitude against the stems') or on raw audio
+(:func:`convsep_tpu_torch.train.e2e.make_audio_loss_fn`, the STFT inside
+the step) — its gradients by ``torch.autograd.grad``, and the adadelta
+update: the plain formula (``optimizer_impl="xla"``) or the fused CUDA
+kernel (``"fused"``). The reference's step is one jitted program over
+donated buffers; here the state's tensors are updated in place and the
+same :class:`TrainState` object is returned. Metrics stay on the device
+and are read only at the logging cadence, one step late, so the host does
+not wait on the device every step.
 
-Not ported yet (ROADMAP queue 1): the feature-file path (``SegmentDataset``,
-``make_train_step``), checkpoints (``workdir``, ``restore``), grain
-loading, device meshes, tensorboard.
+With a ``workdir`` the :class:`Trainer` checkpoints (ckpt/checkpoint.py)
+every ``checkpoint_every_steps`` steps, every ``checkpoint_every_epochs``
+epochs, after the last epoch and at ``max_steps``; each checkpoint carries
+the data position, so a :meth:`Trainer.restore` continues mid-epoch on
+exactly the batches the interrupted run never trained on.
+
+Not ported yet (ROADMAP queue 1): grain loading, device meshes,
+tensorboard.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from functools import partial
 from typing import Any, Callable
@@ -26,11 +34,14 @@ from typing import Any, Callable
 import torch
 
 from convsep_tpu_torch.ckpt.bridge import init_params
+from convsep_tpu_torch.ckpt.checkpoint import CheckpointManager
 from convsep_tpu_torch.configs.presets import Preset
 from convsep_tpu_torch.data.audio_dataset import segment_samples
 from convsep_tpu_torch.data.pipeline import prefetch_to_device, to_device
-from convsep_tpu_torch.models.convsep import trainable_config
+from convsep_tpu_torch.models.convsep import train_sources, trainable_config
+from convsep_tpu_torch.models.masks import wiener_filter
 from convsep_tpu_torch.train import e2e
+from convsep_tpu_torch.train.losses import interference_on_device, separation_loss
 from convsep_tpu_torch.train.optim import GradientTransformation, global_norm, make_optimizer
 from convsep_tpu_torch.utils.device import resolve_device
 from convsep_tpu_torch.utils.precision import float32_exact
@@ -74,6 +85,22 @@ def create_train_state(
         kw["state_dtype"] = preset.train.optimizer_state_dtype
     opt = make_optimizer(preset.train.optimizer, learning_rate=preset.train.learning_rate, **kw)
     return TrainState(step=0, params=params, opt_state=opt.init(params)), opt
+
+
+def _feature_loss_fn(preset: Preset) -> Callable:
+    """(params, x (B, T, F, C), y (B, S, T, F)) → loss, shared by the train
+    and eval steps: the trainable model's source magnitudes, the Wiener
+    mask of the mixture channel x[..., 0], the interference loss against
+    the targets (source-major throughout, the model's output layout)."""
+    cfg = trainable_config(preset.model)
+    interf = interference_on_device(preset)
+
+    def loss_fn(params, x, y):
+        out = train_sources(params, x, cfg)
+        est = wiener_filter(out, x[..., 0], p=1.0, eps=preset.sep.wiener_eps, axis=1)
+        return separation_loss(est, y, interf(x.device), source_axis=1)
+
+    return loss_fn
 
 
 def _apply_from_opt(opt: GradientTransformation) -> Callable:
@@ -152,12 +179,24 @@ def _preset_apply_fn(preset: Preset) -> Callable | None:
     return partial(fused_adadelta_apply, learning_rate=preset.train.learning_rate)
 
 
+def make_train_step(preset: Preset, opt: GradientTransformation) -> Callable:
+    """The feature-file train step: (state, x (B, T, F, C), y (B, S, T, F))
+    → (state, metrics); forward, backward and update, the state updated in
+    place."""
+    return step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset))
+
+
+def make_train_step_multi(preset: Preset, opt: GradientTransformation) -> Callable:
+    """K feature-file steps per call: (state, xs (K, B, …), ys (K, B, …))
+    → (state, {"loss": (K,), "grad_norm": (K,)})."""
+    return multi_step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset))
+
+
 def make_eval_step(preset: Preset, from_audio: bool = False) -> Callable:
     """Loss-only step (no update, no gradients) sharing the train step's
-    loss."""
-    if not from_audio:
-        raise NotImplementedError(f"feature-file training (SegmentDataset) is {_ROADMAP}")
-    return float32_exact()(torch.no_grad()(e2e.make_audio_loss_fn(preset)))
+    loss: on feature batches, or on raw audio with ``from_audio``."""
+    loss_fn = e2e.make_audio_loss_fn(preset) if from_audio else _feature_loss_fn(preset)
+    return float32_exact()(torch.no_grad()(loss_fn))
 
 
 class MetricsLogger:
@@ -185,9 +224,13 @@ class MetricsLogger:
 
 
 class Trainer:
-    """Epoch loop over an :class:`AudioSegmentDataset` with a one-deep
-    device prefetch, on one device (``device=None``: the GPU, which raises
-    without one; the CPU only when asked for)."""
+    """Epoch loop with a one-deep device prefetch, checkpoints and resume,
+    on one device (``device=None``: the GPU, which raises without one; the
+    CPU only when asked for). ``from_audio=False`` trains on a feature-file
+    :class:`~convsep_tpu_torch.data.pipeline.SegmentDataset`, ``True`` on
+    an :class:`~convsep_tpu_torch.data.audio_dataset.AudioSegmentDataset`
+    (the STFT inside the step). With ``workdir``, checkpoints go to
+    ``<workdir>/checkpoints`` and metrics to ``<workdir>/metrics.jsonl``."""
 
     def __init__(
         self,
@@ -200,23 +243,62 @@ class Trainer:
     ):
         if mesh is not None:
             raise NotImplementedError(f"training on a device mesh is {_ROADMAP}")
-        if workdir is not None:
-            raise NotImplementedError(f"checkpointing to a workdir is {_ROADMAP}")
-        if not from_audio:
-            raise NotImplementedError(f"feature-file training (SegmentDataset) is {_ROADMAP}")
         self.preset = preset
+        self.workdir = workdir
         self.from_audio = from_audio
         self.device = resolve_device(device)
         seed = preset.train.seed if seed is None else seed
         self.state, self.opt = create_train_state(preset, seed, self.device)
-        self.train_step = e2e.make_audio_train_step(preset, self.opt)
+        make = e2e.make_audio_train_step if from_audio else make_train_step
+        self.train_step = make(preset, self.opt)
         self._eval_step = None
+        self._ckpt = None
+        # the data position riding along with every checkpoint (mid-epoch
+        # resume); "grain" is the reference's loader state, always None here
+        self._data_pos: dict = {"epoch": 0, "batch_in_epoch": 0, "grain": None}
+        self._resume: dict = {}
+        if workdir:
+            os.makedirs(workdir, exist_ok=True)
+            self._ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+
+    def _save_view(self):
+        """What a checkpoint holds: the whole state, or only the step and
+        parameters (``checkpoint_optimizer_state=False``, a third of the
+        bytes; a restore then starts the accumulators from zero)."""
+        if self.preset.train.checkpoint_optimizer_state:
+            return self.state
+        return {"step": self.state.step, "params": self.state.params}
+
+    def _save(self, step: int) -> None:
+        self._ckpt.save(step, self._save_view(), extra=self._data_pos)
 
     def restore(self) -> int:
-        raise NotImplementedError(f"checkpoint restore is {_ROADMAP}")
+        """Resume from the latest checkpoint if there is one; returns the
+        step. The data position comes back too (epoch, batch in epoch), so
+        the next :meth:`fit` continues mid-epoch on exactly the batches the
+        interrupted run never trained on."""
+        if self._ckpt is not None:
+            restored = self._ckpt.restore_latest(self._save_view())
+            if restored is not None:
+                st, meta = restored
+                if self.preset.train.checkpoint_optimizer_state:
+                    self.state = st
+                else:  # the optimizer accumulators restart from zero
+                    self.state = dataclasses.replace(self.state, step=st["step"],
+                                                     params=st["params"])
+                self._resume = dict(meta or {})
+        return int(self.state.step)
+
+    @property
+    def data_position(self) -> dict:
+        """(epoch, batch in epoch) where the next :meth:`fit` starts: the
+        restored checkpoint's, else where the last fit stopped."""
+        return dict(self._resume or self._data_pos)
 
     def evaluate(self, dataset, max_batches: int | None = None) -> float:
-        """Mean loss over a (validation) dataset without updating params."""
+        """Mean loss over a (validation) dataset without updating params:
+        a ``SegmentDataset``, or an ``AudioSegmentDataset`` with
+        ``from_audio``."""
         if self._eval_step is None:
             self._eval_step = make_eval_step(self.preset, from_audio=self.from_audio)
         losses = []
@@ -238,8 +320,10 @@ class Trainer:
         val_dataset=None,
         max_steps: int | None = None,
     ) -> list[float]:
-        """Run the epoch loop; returns per-epoch mean losses. ``max_steps``
-        stops after that many cumulative steps (mid-epoch). Every step is a
+        """Run the epoch loop; returns per-epoch mean losses. ``num_epochs``
+        is the total budget: after :meth:`restore` the loop starts at the
+        checkpoint's epoch and batch. ``max_steps`` stops (with a
+        checkpoint) after that many cumulative steps. Every step is a
         single step (``steps_per_dispatch`` is ignored: the same math)."""
         if use_grain or grain_workers:
             raise NotImplementedError(f"grain data loading is {_ROADMAP}")
@@ -247,28 +331,48 @@ class Trainer:
             raise NotImplementedError(f"tensorboard logging is {_ROADMAP}")
         tr = self.preset.train
         num_epochs = tr.num_epochs if num_epochs is None else num_epochs
+        if metrics_path is None and self.workdir:
+            metrics_path = os.path.join(self.workdir, "metrics.jsonl")
         logger = MetricsLogger(metrics_path, print_every=tr.log_every_steps)
         epoch_losses = []
         step = int(self.state.step)
+        start_epoch = int(self._resume.get("epoch", 0))
+        resume_batch = int(self._resume.get("batch_in_epoch", 0))
+        self._resume = {}
         # training RTF: audio-seconds consumed per step
-        audio_sec_per_step = tr.batch_size * segment_samples(self.preset) / self.preset.transform.fs
+        t_cfg = self.preset.transform
+        if self.from_audio:
+            seg_sec = segment_samples(self.preset) / t_cfg.fs
+        else:
+            seg_sec = tr.time_context * t_cfg.hop_size / t_cfg.fs
+        audio_sec_per_step = tr.batch_size * seg_sec
 
         try:
-            for epoch in range(num_epochs):
+            for epoch in range(start_epoch, num_epochs):
                 t0 = time.perf_counter()
                 losses, gnorms = [], []
-                batches = dataset.batches(tr.batch_size, shuffle=True, seed=tr.seed + epoch)
+                skip = resume_batch if epoch == start_epoch else 0
+                batches = dataset.batches(tr.batch_size, shuffle=True, seed=tr.seed + epoch,
+                                          start=skip)
+                consumed = skip
                 stop = False
                 t_win = time.perf_counter()
                 steps_win = 0
                 for x, y in prefetch_to_device(batches, self.device):
+                    prev_step = step
                     self.state, m = self.train_step(self.state, x, y)
                     step += 1
+                    consumed += 1
                     steps_win += 1
                     losses.append(m["loss"])
                     gnorms.append(m["grad_norm"])
+                    self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed, "grain": None}
                     if tr.debug_nans and not bool(torch.isfinite(losses[-1])):
                         raise FloatingPointError(f"non-finite loss at step {step}")
+                    if self._ckpt is not None and (
+                        step // tr.checkpoint_every_steps > prev_step // tr.checkpoint_every_steps
+                    ):
+                        self._save(step)
                     # read the previous step's metrics, at the print cadence
                     # only: the current one may still be running
                     if step % logger.print_every == 0 and len(losses) >= 2:
@@ -286,6 +390,8 @@ class Trainer:
                         stop = True
                         break
                 if stop:
+                    if self._ckpt is not None:
+                        self._save(step)
                     break
                 mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
                 epoch_losses.append(mean_loss)
@@ -294,6 +400,13 @@ class Trainer:
                 if val_dataset is not None:
                     epoch_kv["val_loss"] = self.evaluate(val_dataset)
                 logger.log(**epoch_kv)
+                self._data_pos = {"epoch": epoch + 1, "batch_in_epoch": 0, "grain": None}
+                if self._ckpt is not None and (
+                    epoch == num_epochs - 1 or (epoch + 1) % tr.checkpoint_every_epochs == 0
+                ):
+                    self._save(step)
         finally:
+            if self._ckpt is not None:
+                self._ckpt.wait()
             logger.close()
         return epoch_losses

@@ -10,6 +10,8 @@ diagonal):
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -31,6 +33,23 @@ def interference_matrix(
         w[:, vocals_idx] = beta_voc
     np.fill_diagonal(w, 0.0)
     return w
+
+
+def interference_on_device(preset) -> Callable[[torch.device], torch.Tensor]:
+    """The preset's interference matrix (its ``train`` weights) as a
+    function of the device it is wanted on, each device's copy made once."""
+    tr = preset.train
+    w = interference_matrix(preset.model.num_sources, alpha=tr.alpha, beta=tr.beta,
+                            beta_voc=tr.beta_voc, vocals_idx=tr.vocals_idx,
+                            other_idx=tr.other_idx)
+    copies: dict[torch.device, torch.Tensor] = {}
+
+    def on(device: torch.device) -> torch.Tensor:
+        if device not in copies:
+            copies[device] = torch.as_tensor(w, device=device)
+        return copies[device]
+
+    return on
 
 
 def separation_loss(

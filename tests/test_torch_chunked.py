@@ -43,6 +43,19 @@ from tests.test_chunked import _params, tiny_preset
 TOL = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intraop_thread():
+    """torch's CPU operations on one thread while this module runs, the
+    caller's count restored after: the bit-for-bit comparisons between two
+    separators then hold their arithmetic to one partition of the work,
+    whatever the load on the machine. Modules that import this fixture
+    get it too."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def port(jax_preset, params):
     """The port's preset and bridged weights for a JAX preset and tree."""
     pp = preset_from_dict(dataclasses.asdict(jax_preset))

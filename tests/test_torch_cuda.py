@@ -941,3 +941,76 @@ def test_async_copies_on_a_side_stream(cuda):
     dev, ev = upload_async(staged, cuda, side)
     out = wait_upload(dev, ev) * 2.0
     np.testing.assert_array_equal(out.cpu().numpy(), arr * 2.0)
+
+
+def test_feature_step_fused_matches_plain_route(cuda):
+    """One dsd100 feature step at full width (B 4): the fused route (two
+    adadelta launches, fc_expand_kernel and fc_kernel) against the plain
+    route from the same parameters, zero accumulators and batch: the loss
+    within 1e-6 relative (the same forward), the updated weights within
+    1e-5 × max|g| (cuDNN's weight-gradient convolutions need not repeat bit
+    for bit); on the same gradients the fused update is the plain one bit
+    for bit."""
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import loop
+
+    p = get_preset("dsd100")
+    fused = dataclasses.replace(p, train=dataclasses.replace(p.train, optimizer_impl="fused"))
+    m = p.model
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = 0.3 * torch.rand(4, m.time_context, m.feat_size, 1, device=cuda, generator=gen)
+    y = 0.3 * torch.rand(4, m.num_sources, m.time_context, m.feat_size, device=cuda,
+                         generator=gen)
+    sf, opt = loop.create_train_state(fused, 0, cuda)
+    sp, _ = loop.create_train_state(p, 0, cuda, params=sf.params)
+    kernels.reset_launches()
+    sf, mf = loop.make_train_step(fused, opt)(sf, x, y)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_adadelta"] == 2
+    kernels.reset_launches()
+    sp, mp = loop.make_train_step(p, opt)(sp, x, y)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_adadelta"] == 0
+    np.testing.assert_allclose(mf["loss"].item(), mp["loss"].item(), rtol=1e-6)
+    init, _ = loop.create_train_state(p, 0, cuda)
+    loss = loop._feature_loss_fn(p)(init.params, x, y)
+    g = dict(zip(init.params, torch.autograd.grad(loss, list(init.params.values()))))
+    gmax = max(v.abs().max().item() for v in g.values())
+    for k in sf.params:
+        err = (sf.params[k] - sp.params[k]).abs().max().item()
+        assert err <= 1e-5 * gmax, (k, err, gmax)
+    a, opt_a = loop.create_train_state(fused, 0, cuda, params=init.params)
+    b, _ = loop.create_train_state(p, 0, cuda, params=init.params)
+    _, sa, _ = loop._preset_apply_fn(fused)(a.params, g, a.opt_state)
+    _, sb, _ = loop._apply_from_opt(opt_a)(b.params, g, b.opt_state)
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+        assert torch.equal(sa.accu[k], sb.accu[k]), k
+        assert torch.equal(sa.delta_accu[k], sb.delta_accu[k]), k
+
+
+def test_checkpoint_round_trip_of_a_cuda_state(cuda, tmp_path):
+    """A dsd100 train state on the card (random accumulators) saved and
+    restored into a fresh state on the card: every leaf bit for bit, on
+    the card, the parameters trainable leaves."""
+    from convsep_tpu_torch.ckpt import CheckpointManager
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import loop
+
+    p = get_preset("dsd100")
+    s, _ = loop.create_train_state(p, 0, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for k in s.params:
+            s.opt_state.accu[k].copy_(torch.rand(s.params[k].shape, device=cuda, generator=gen))
+    s.step = 7
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.save(7, s, extra={"epoch": 1, "batch_in_epoch": 3})
+    fresh, _ = loop.create_train_state(p, 1, cuda)
+    got, meta = mgr.restore_latest(fresh)
+    assert meta == {"epoch": 1, "batch_in_epoch": 3} and got.step == 7
+    for k in s.params:
+        for a, b in ((s.params[k], got.params[k]), (s.opt_state.accu[k], got.opt_state.accu[k]),
+                     (s.opt_state.delta_accu[k], got.opt_state.delta_accu[k])):
+            assert b.device.type == "cuda" and torch.equal(a, b), k
+        assert got.params[k].requires_grad and got.params[k].is_leaf

@@ -20,7 +20,7 @@ from convsep_tpu.dsp.stft import num_frames
 from convsep_tpu.separate import OnlineSeparator as JaxOnline
 from convsep_tpu_torch.separate import ChunkedSeparator, OnlineSeparator, Separator
 from tests.test_chunked import _params, tiny_preset
-from tests.test_torch_chunked import noise, port
+from tests.test_torch_chunked import noise, one_intraop_thread, port  # noqa: F401
 
 TOL = 2e-5
 

@@ -40,7 +40,7 @@ from convsep_tpu_torch.separate import (
 )
 from convsep_tpu_torch.separate.stream import separate_batch_vmap
 from tests.test_chunked import _params, tiny_preset
-from tests.test_torch_chunked import noise, port
+from tests.test_torch_chunked import noise, one_intraop_thread, port  # noqa: F401
 
 TOL = 1e-4
 
