@@ -136,7 +136,23 @@ result line is printed):
    against that run's; a full-state save and restore timed; one feature
    step of the fused route against the plain route from the seeded init
    (the fused update bit for bit on the same gradients); ms per step and
-   rtf_train on both routes.
+   rtf_train on both routes;
+21. the CLI on the card, each verb a subprocess of ``python3 -m
+   convsep_tpu_torch.cli --launches`` in a temporary directory (its wall
+   time and launch counts logged): seeded reference pickles for
+   highres4096 and dsd100 through ``convert``; ``separate --preset
+   highres4096`` on the phase 4 mixture from the checkpoint and from the
+   pickle, both bit for bit the PCM16 stems of an in-process
+   ``Separator``, one fused decode and one Wiener+iSTFT launch each;
+   ``evaluate --oracle`` on those stems against the mixture's true stems
+   (finite, the oracle's SDR above the model's; the first 5 s on the card
+   against ``--device cpu``, and in process within 1e-4 dB);
+   ``compute-features`` and ``train --epochs 1 --optimizer-impl fused`` on
+   the phase 20 tracks (two adadelta launches a step); ``bench --preset
+   dsd100 --seconds 30 --runs 3`` (one JSON line, value > 0, mfu_bf16 in
+   (0, 1], no section skipped, the pallas-impl section through the STFT,
+   Wiener mask and iSTFT kernels); ``profile --preset highres4096`` (the
+   fused decode kernel on top).
 
 Each slice expects the fused decode launched exactly where "auto" routes it
 (``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by TM and batch).
@@ -199,6 +215,8 @@ TOL_BAND = 1e-5          # × max|out|: f32 sums of the same bf16 products in an
 # band_pallas y vs the f32 decode's: the reference's own bound for its
 # bf16-operand band stage against the f32 "band" decode (tests/test_model.py)
 TOL_BAND_BF16 = 2e-2     # × max|y|
+TOL_BF16_COMPUTE = 3e-2  # × max|y|: compute_dtype bf16, kernel route (expansion unrounded)
+#                          vs the plain bf16 decode; the bound tests/test_torch_model.py holds
 # band_pallas stems vs the f32 bandconv route's: bf16 operands of an
 # 800-deep sum move y by ~3e-3 × max|y| at multires4096, 38.7 dB apart on an
 # H100 (PERF.md); y is held above, this catches only a gross break
@@ -566,6 +584,48 @@ def phase_decode(model, B: int, device, gen) -> dict:
     return {"max_abs_err": err[torch.float32], "max_abs_err_bf16": err[torch.bfloat16],
             "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "TM": TM, "B": B,
             "won": won, "auto_routes": routes, "plan": plan}
+
+
+def phase_bf16_compute(state, preset, B: int, device, gen) -> dict:
+    """compute_dtype="bfloat16" at B segments: "auto" routes as in float32
+    (the fused kernel at highres4096 B 49, its bf16 operands passed as
+    float32); the model's sources against the plain bf16 decode's
+    (decoder_impl="bandconv") on the same random magnitudes."""
+    import dataclasses
+
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.models import ConvSep
+    from convsep_tpu_torch.models.convsep import resolve_decoder_impl
+
+    cfg = dataclasses.replace(preset.model, compute_dtype="bfloat16")
+    route = resolve_decoder_impl(cfg, device, B)
+    if route != resolve_decoder_impl(preset.model, device, B) or route != "bandconv_pallas":
+        raise AssertionError(f"bf16 compute routes {route} at B {B}, float32 "
+                             f"{resolve_decoder_impl(preset.model, device, B)}")
+    model = ConvSep(cfg, state, device=device).prepare_inference()
+    plain = ConvSep(dataclasses.replace(cfg, decoder_impl="bandconv"), state,
+                    device=device).prepare_inference()
+    x = torch.rand((B, cfg.time_context, cfg.feat_size, cfg.channels_in), generator=gen,
+                   device=device)
+    kernels.reset_launches()
+    got = model.sources(x).float()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = plain.sources(x).float()
+    scale = want.abs().max().item()
+    e = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: model.sources(x))
+    plain_ms = cuda_ms(lambda: plain.sources(x))
+    log(f"  bf16 compute B {B}: route {route}, launches {launches['fused_decode']}; sources vs "
+        f"the plain bf16 decode max_abs_err {e:.3e} (tol {TOL_BF16_COMPUTE * scale:.3e}); "
+        f"forward {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms")
+    if launches["fused_decode"] != 1 or not (e <= TOL_BF16_COMPUTE * scale
+                                             and torch.isfinite(got).all()):
+        raise AssertionError(f"bf16 compute B {B}: launches {launches}, error {e} "
+                             f"(tol {TOL_BF16_COMPUTE * scale})")
+    return {"launches": launches, "max_abs_err": e, "max_abs_plain": scale, "ms": ms,
+            "plain_ms": plain_ms, "B": B}
 
 
 def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1):
@@ -2415,6 +2475,217 @@ def phase_feature_train(device) -> dict:
             "checkpoint_bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_alone_ms}
 
 
+CLI_EVAL_SECONDS = 5         # the head the card's evaluation is held to the CPU's on
+TOL_EVAL_DB = 1e-4           # dB, BSS Eval on the card vs the CPU route (float64 both)
+TOL_EVAL_JSON_DB = 1.5e-3    # dB, the same through the CLI, whose JSON rounds to 1e-3
+
+
+def mixture_stems(seed: int = 0):
+    """The four stems of :func:`mixture` (the same draws): three tones, and
+    the fourth tone with the noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SECONDS * FS)) / FS
+    stems = [0.15 * np.sin(2 * np.pi * f * t + 0.5 * np.sin(2 * np.pi * 5 * t + rng.uniform(0, 6)))
+             for f in (110.0, 440.0, 1320.0, 3520.0)]
+    stems[3] = stems[3] + 0.02 * rng.standard_normal(t.shape)
+    return np.stack(stems).astype(np.float32)
+
+
+def run_cli(verb_args: list[str], cwd: str, timeout: float = 600) -> dict:
+    """``python3 -m convsep_tpu_torch.cli --launches <verb> ...`` in ``cwd``
+    with this checkout's package; raises with its output unless it exits
+    0. Returns its stdout, the launch counts it printed (its own process,
+    from zero) and its wall seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(HERE), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "convsep_tpu_torch.cli", "--launches", *verb_args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"convsep-torch {' '.join(verb_args)} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-5000:]}")
+    m = re.search(r"^kernel launches: (\{.*\})$", out.stderr, re.M)
+    if m is None:
+        raise AssertionError(f"convsep-torch {verb_args[0]} printed no launch counts")
+    launches = json.loads(m.group(1))
+    log(f"  convsep-torch {verb_args[0]}: {wall * 1e3:.0f} ms wall (process start included), "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    return {"stdout": out.stdout, "stderr": out.stderr, "launches": launches, "wall_s": wall}
+
+
+def write_pickle(preset, seed: int, path: str, device) -> None:
+    """A seeded random parameter set in the reference pickle format (its
+    list of arrays; protocol 4: the reference's protocol 2 stores each
+    array as latin-1 text, which takes half a minute a GB to read back)."""
+    import pickle
+
+    import torch
+    from convsep_tpu_torch.ckpt import export_reference_params, init_params
+
+    state = init_params(preset.model, torch.Generator(device=device).manual_seed(seed), device)
+    with open(path, "wb") as f:
+        pickle.dump(export_reference_params(state, preset.model), f, protocol=4)
+
+
+def phase_cli(device) -> dict:
+    """Phase 21: each verb as a subprocess of ``python3 -m
+    convsep_tpu_torch.cli`` at full width, in a temporary directory."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.ckpt import convert_reference_checkpoint
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.data.io import read_wav, write_wav
+    from convsep_tpu_torch.eval import bss_eval_sources
+    from convsep_tpu_torch.separate import Separator
+
+    hi, dsd = get_preset("highres4096"), get_preset("dsd100")
+    walls, paths = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        def at(*p):
+            return os.path.join(root, *p)
+
+        # (a) seeded reference pickles, converted to checkpoint directories
+        write_pickle(hi, 21, at("hi.pkl"), device)
+        write_pickle(dsd, 22, at("dsd.pkl"), device)
+        torch.cuda.empty_cache()
+        for name, pkl in (("highres4096", "hi.pkl"), ("dsd100", "dsd.pkl")):
+            r = run_cli(["convert", "--preset", name, "--input", at(pkl), "--out",
+                         at(pkl[:-4] + "_ckpt")], root)
+            walls[f"convert {name}"] = r["wall_s"]
+
+        # (b) separate highres4096 from the checkpoint and from the pickle
+        audio = mixture(0)
+        write_wav(at("mix.wav"), FS, audio)
+        stems_by = {}
+        for how, params in (("checkpoint", at("hi_ckpt")), ("pickle", at("hi.pkl"))):
+            r = run_cli(["separate", "--preset", "highres4096", "--params", params,
+                         "-i", at("mix.wav"), "-o", at(f"est_{how}")], root)
+            walls[f"separate highres4096 ({how})"] = r["wall_s"]
+            paths[f"highres4096 CLI separate ({how})"] = {"launches": r["launches"]}
+            if r["launches"]["fused_decode"] != 1 or r["launches"]["wiener_istft"] != 1:
+                raise AssertionError(f"CLI separate ({how}): launches {r['launches']}, "
+                                     "expected fused_decode 1 and wiener_istft 1")
+            stems_by[how] = np.stack([read_wav(at(f"est_{how}", f"{s}.wav"))[1]
+                                      for s in hi.sources])
+        _, pcm = read_wav(at("mix.wav"))
+        want = Separator(hi, convert_reference_checkpoint(at("hi.pkl"), hi.model), device=device,
+                         output_dtype="int16", input_dtype="int16")(pcm)
+        torch.cuda.empty_cache()
+        for how, got in stems_by.items():
+            got16 = np.round(got * 32768.0).astype(np.int16)
+            if got16.shape != want.shape or not np.array_equal(got16, want):
+                raise AssertionError(
+                    f"CLI separate ({how}) stems differ from Separator's: max "
+                    f"{np.abs(got16.astype(np.int32) - want).max()} LSB")
+        log("  separate: checkpoint and pickle stems equal to Separator's PCM16 stems bit "
+            "for bit")
+
+        # (c) evaluate --oracle on those stems against the true stems
+        true = mixture_stems(0)
+        if not np.abs(true.sum(0) - audio).max() <= 1e-6:
+            raise AssertionError("mixture_stems does not add up to mixture")
+        for tag, n in (("", len(audio)), ("_head", CLI_EVAL_SECONDS * FS)):
+            os.makedirs(at("ref" + tag))
+            os.makedirs(at("est" + tag))
+            for s, name in enumerate(hi.sources):
+                write_wav(at("ref" + tag, f"{name}.wav"), FS, true[s, :n])
+                write_wav(at("est" + tag, f"{name}.wav"), FS,
+                          np.round(stems_by["checkpoint"][s, :n] * 32768).astype(np.int16))
+            write_wav(at(f"mix{tag}.wav"), FS, audio[:n])
+        ev, solves = {}, {}
+        for tag, dev in (("", "cuda"), ("_head", "cuda"), ("_head", "cpu")):
+            r = run_cli(["evaluate", "--ref-dir", at("ref" + tag), "--est-dir", at("est" + tag),
+                         "--oracle", "--mix", at(f"mix{tag}.wav"), "--preset", "highres4096",
+                         "--device", dev], root)
+            walls[f"evaluate {tag or 'full'} {dev}"] = r["wall_s"]
+            ev[tag + dev] = json.loads(r["stdout"])
+            m = re.search(r"^bss_eval solves: (\{.*\})$", r["stderr"], re.M)
+            if m is None:
+                raise AssertionError("evaluate printed no solve routes")
+            solves[f"{tag or 'full'} {dev}"] = json.loads(m.group(1))
+        log(f"  evaluate: Gram solves by route (cholesky on the device, lstsq_host where it "
+            f"failed): {json.dumps(solves)}")
+        log(f"  evaluate (30 s, card): {json.dumps(ev['cuda'])}")
+        for name in hi.sources:
+            row = ev["cuda"][name]
+            if not all(np.isfinite(list(row.values()))):
+                raise AssertionError(f"evaluate: non-finite metrics {row}")
+            if not row["oracle_SDR"] > row["SDR"]:
+                raise AssertionError(f"evaluate: oracle SDR not above the model's: {row}")
+            d = max(abs(ev["_headcuda"][name][k] - ev["_headcpu"][name][k])
+                    for k in ev["_headcpu"][name])
+            if not d <= TOL_EVAL_JSON_DB:
+                raise AssertionError(f"evaluate {name}: card vs CPU {d} dB")
+        refs = np.stack([read_wav(at("ref_head", f"{s}.wav"))[1] for s in hi.sources])
+        ests = np.stack([read_wav(at("est_head", f"{s}.wav"))[1] for s in hi.sources])
+        got = bss_eval_sources(refs, ests, device=device)
+        ref_cpu = bss_eval_sources(refs, ests, device="cpu")
+        eval_err = max(float(np.abs(g - w).max()) for g, w in zip(got[:3], ref_cpu[:3]))
+        log(f"  evaluate: first {CLI_EVAL_SECONDS} s, card vs CPU: {eval_err:.3e} dB in process "
+            f"(tol {TOL_EVAL_DB}), JSON within {TOL_EVAL_JSON_DB}")
+        if not eval_err <= TOL_EVAL_DB:
+            raise AssertionError(f"BSS Eval on the card vs the CPU: {eval_err} dB")
+
+        # (d) compute-features then train one epoch at dsd100
+        write_tracks(at("audio"), dsd.sources)
+        r = run_cli(["compute-features", "--preset", "dsd100", "--audio-dir", at("audio"),
+                     "--out", at("features")], root)
+        walls["compute-features dsd100"] = r["wall_s"]
+        r = run_cli(["train", "--preset", "dsd100", "--features", at("features"), "--workdir",
+                     at("run"), "--epochs", "1", "--optimizer-impl", "fused"], root, timeout=900)
+        walls["train dsd100 1 epoch"] = r["wall_s"]
+        with open(at("run", "metrics.jsonl")) as f:
+            steps = [json.loads(ln) for ln in f if "epoch_loss" in ln][-1]["step"]
+        if r["launches"]["fused_adadelta"] != 2 * steps or r["launches"]["stft"]:
+            raise AssertionError(f"CLI train: launches {r['launches']}, expected fused_adadelta "
+                                 f"2 x {steps} steps and no STFT")
+        paths["dsd100 CLI train"] = {"launches": r["launches"]}
+        log(f"  train: {steps} steps, fused_adadelta {r['launches']['fused_adadelta']} launches")
+
+        # (e) bench at dsd100
+        r = run_cli(["bench", "--preset", "dsd100", "--seconds", "30", "--runs", "3"], root,
+                    timeout=900)
+        walls["bench dsd100"] = r["wall_s"]
+        lines = [ln for ln in r["stdout"].splitlines() if ln.strip()]
+        if len(lines) != 1:
+            raise AssertionError(f"bench printed {len(lines)} lines")
+        bench = json.loads(lines[0])
+        d = bench["detail"]
+        if not (bench["value"] > 0 and 0 < d["mfu_bf16"] <= 1 and not d["sections_skipped"]):
+            raise AssertionError(f"bench: value {bench['value']}, mfu_bf16 {d['mfu_bf16']}, "
+                                 f"skipped {d['sections_skipped']}")
+        pl = d["launches"].get("pallas-impl", {})
+        if not all(pl.get(k, 0) > 0 for k in ("stft", "wiener_apply", "istft")):
+            raise AssertionError(f"bench pallas-impl launched {pl}")
+        bench_launches = {}
+        for sec in d["launches"].values():
+            for k, v in sec.items():
+                bench_launches[k] = bench_launches.get(k, 0) + v
+        paths["dsd100 CLI bench"] = {"launches": {**{k: 0 for k in r["launches"]},
+                                                  **bench_launches}}
+        headline = {k: v for k, v in d.items() if k.startswith("rtf_")}
+        log(f"  bench dsd100: value {bench['value']} ({bench['unit']}), mfu_bf16 "
+            f"{d['mfu_bf16']}, tflops {d['tflops']}, batched {d['batched_per_track_s'] * 1e3:.3f} "
+            f"ms/track, {json.dumps(headline)}, launches by section {json.dumps(d['launches'])}")
+
+        # (f) profile highres4096: the fused decode kernel on top
+        r = run_cli(["profile", "--preset", "highres4096", "--top", "10", "--logdir",
+                     at("trace")], root)
+        walls["profile highres4096"] = r["wall_s"]
+        rows = json.loads(r["stdout"][: r["stdout"].rindex("]") + 1])
+        log(f"  profile: top rows {json.dumps(rows[:4])}")
+        if "fused_decode_kernel" not in rows[0]["name"]:
+            raise AssertionError(f"profile: top row {rows[0]}")
+        paths["highres4096 CLI profile"] = {"launches": r["launches"]}
+    return {"walls_s": walls, "paths": paths, "bench": bench, "eval_card_vs_cpu_db": eval_err,
+            "evaluate": ev["cuda"], "evaluate_solves": solves, "profile_top": rows[:3]}
+
+
 def setup() -> int:
     """0 when torch sees a CUDA device and the checkout's own
     convsep_tpu_torch imports; else an exit code, with the reason."""
@@ -2476,6 +2747,10 @@ def main(argv: list[str]) -> int:
     assert tuple(hi_model.kcat.shape) == (800, 8, 120), tuple(hi_model.kcat.shape)
     dec = phase_decode(hi_model, 49, device, gen)
     del hi_model
+    torch.cuda.empty_cache()
+    log("phase 2b: compute_dtype=bfloat16 at highres4096, B 49 (the fused kernel's route)")
+    bf16 = phase_bf16_compute(hi_state, hi, 49, device, gen)
+    torch.cuda.empty_cache()
     log("phase 3: Wiener+iSTFT kernel vs plain")
     wie = phase_wiener("highres4096", 4096, 1024, 1442, 4, device, gen)
     wie_dsd = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen)
@@ -2623,15 +2898,23 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 21: the CLI on the card, each verb a subprocess: convert, separate "
+        "(highres4096), evaluate --oracle, compute-features + train (dsd100), bench, profile")
+    t0 = time.perf_counter()
+    cli_run = phase_cli(device)
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
              "dsd100 feature training": feature_train,
              "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run,
              "multires4096": mr_run, "multires4096 analysis=ct_pallas": mr_routes["ct"],
              "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs,
+             "highres4096 compute_dtype=bfloat16 (B 49)": bf16,
              **{f"{k} chunked": r for k, r in chunked.items()},
              **{f"{k} online": r for k, r in online.items()},
-             **{f"{k} stream": r for k, r in stream.items()}, "dsd100 service": service}
+             **{f"{k} stream": r for k, r in stream.items()}, "dsd100 service": service,
+             **cli_run["paths"]}
 
     def launched(kernel: str) -> dict:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
@@ -2647,6 +2930,7 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
          **launched("fused_decode"), **dec, "stereo_tm240": dec240, "multires4096_tm360": dec360,
+         "bf16_compute_b49": {k: v for k, v in bf16.items() if k != "launches"},
          "tm120_batches": {str(B): r for B, r in dec_batches.items()}},
         {"name": "wiener_istft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
@@ -2700,7 +2984,11 @@ def main(argv: list[str]) -> int:
                                          if "complement_ms" in r else {})}
                    for k, r in stream.items()},
         "service": {"dsd100 sweep of 3 tracks": service["ms"]},
-    }, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"}, "chunked_bytes": {k: r["bytes"] for k, r in chunked.items()}, "stems_d2h_ms": {
+    }, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"},
+        "cli": {k: v for k, v in cli_run.items() if k not in ("paths", "bench")},
+        "bench": {"value": cli_run["bench"]["value"],
+                  **{k: v for k, v in cli_run["bench"]["detail"].items()
+                     if k.startswith("rtf_") or k in ("mfu_bf16", "tflops", "launches")}}, "chunked_bytes": {k: r["bytes"] for k, r in chunked.items()}, "stems_d2h_ms": {
         "highres4096-stereo": {"pageable": st_run["d2h_pageable_ms"],
                                "pinned": st_run["d2h_pinned_ms"]},
         "dsd100": {"pageable": pl_run["d2h_pageable_ms"], "pinned": pl_run["d2h_pinned_ms"]},

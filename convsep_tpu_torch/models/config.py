@@ -26,7 +26,8 @@ class ConvSepConfig:
     bottleneck: int = 128
     # "first" | "sum" | "all": how the decoder collapses input channels
     decoder_reduce: str = "first"
-    # dtype of the encoder/decoder GEMMs; only "float32" is ported
+    # dtype of the encoder/decoder GEMMs: "float32", or "bfloat16" (inference
+    # on the composed decode: operands composed in float32, rounded)
     compute_dtype: str = "float32"
     # dtype of the decode output / mask-magnitude tail; the Wiener ratio
     # always divides in float32

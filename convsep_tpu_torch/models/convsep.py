@@ -207,8 +207,11 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device,
     decode at that TM and ``batch`` (the decode's fc rows, B · segments) on
     the card (``FUSED_DECODE_WON``): the reference's rule that "auto" only
     ever picks the winning branch. An unknown batch (None) takes the plain
-    decode. An explicit kernel route asks for the wrapper, which is the
-    plain version on CPU tensors."""
+    decode. ``compute_dtype="bfloat16"`` routes by the same table, as the
+    reference runs its kernel on bf16 operands: the float32 kernel gets the
+    bf16 operands as float32, and there the plain decode, on bf16 GEMMs,
+    is the faster one (PERF.md). An explicit kernel route asks for the
+    wrapper, which is the plain version on CPU tensors."""
     impl = cfg.decoder_impl
     if impl in ("bandconv", "bandconv_pallas", *_BAND):
         return impl
@@ -249,8 +252,16 @@ def trainable_config(cfg: ConvSepConfig) -> ConvSepConfig:
 
 
 def _check_config(cfg: ConvSepConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported")
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+    if cfg.compute_dtype != "float32" and (
+        cfg.encoder_impl != "collapsed"
+        or cfg.decoder_impl not in ("auto", "bandconv", "bandconv_pallas")
+    ):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is ported for inference on the composed "
+            "decode (encoder_impl='collapsed', decoder_impl auto | bandconv | bandconv_pallas)"
+        )
     if cfg.mask_dtype not in _DTYPES:
         raise ValueError(f"unknown mask_dtype {cfg.mask_dtype!r}")
     if cfg.encoder_impl not in ("collapsed", "conv"):
@@ -334,7 +345,10 @@ class ConvSep(nn.Module):
             self.fc_expand_kernel, self.fc_expand_bias, KC, cfg.num_sources,
             cfg.enc_freq, cfg.enc_time * cfg.conv2_filters,
         )
-        return {"w_eff": w_eff, "bias_eff": c, "k4": k4, "b3": b3, "kcat": kcat}
+        ops = {"w_eff": w_eff, "bias_eff": c, "k4": k4, "b3": b3, "kcat": kcat}
+        # compute_dtype: the operands composed in float32, then rounded
+        dt = _DTYPES[cfg.compute_dtype]
+        return {k: v.to(dt) for k, v in ops.items()}
 
     @torch.no_grad()
     def prepare_inference(self) -> "ConvSep":
@@ -376,13 +390,19 @@ class ConvSep(nn.Module):
             {n: getattr(self, n) for n in self._prepared_ops}
             if self.prepared else self._operands()
         )
-        fc = torch.relu(x.reshape(B, -1).float() @ ops["w_eff"] + ops["bias_eff"])
+        fc = torch.relu(x.reshape(B, -1).to(ops["w_eff"].dtype) @ ops["w_eff"] + ops["bias_eff"])
         route = resolve_decoder_impl(cfg, x.device, B)
         if route in _BAND:
             return self._band_decode(fc, route, B, C, ops)
         md = _DTYPES[cfg.mask_dtype]
-        decode = band_freq_decode if route == "bandconv_pallas" else band_freq_decode_plain
-        o4 = decode(fc, ops["k4"], ops["b3"], ops["kcat"], out_dtype=md)
+        if route == "bandconv_pallas":
+            # bf16 operands are exact in float32 and so are their products:
+            # the float32 kernel does the bf16 decode's work (its expansion
+            # unrounded, where the reference rounds it to bf16)
+            o4 = band_freq_decode(fc.float(), ops["k4"].float(), ops["b3"].float(),
+                                  ops["kcat"].float(), out_dtype=md)
+        else:
+            o4 = band_freq_decode_plain(fc, ops["k4"], ops["b3"], ops["kcat"], out_dtype=md)
         S, W_pad = cfg.num_sources, o4.shape[2]
         M = cfg.conv1_freq_stride * C
         d1 = _phase_merge_tail(

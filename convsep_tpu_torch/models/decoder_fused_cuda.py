@@ -221,10 +221,11 @@ def band_freq_decode_plain(fc: torch.Tensor, k4: torch.Tensor, b3: torch.Tensor,
                            kcat: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """fc (B, J) → decode output (B, S, W_pad, TM) in ``out_dtype``: the
     full conv's rows past W_pad are dropped (the padded rows cover every
-    row the real ones reach)."""
+    row the real ones reach). The products run in the operands' dtype
+    (float32, or bfloat16 for ``compute_dtype="bfloat16"``)."""
     B, J = fc.shape
     _, S, W_pad, TpC = k4.shape
-    e = torch.relu(fc.float() @ k4.reshape(J, -1) + b3.reshape(-1))
+    e = torch.relu(fc.to(k4.dtype) @ k4.reshape(J, -1) + b3.reshape(-1))
     out = tap_fold(e.reshape(B * S, W_pad, TpC), kcat)[:, :W_pad]
     return out.reshape(B, S, W_pad, kcat.shape[2]).to(out_dtype)
 

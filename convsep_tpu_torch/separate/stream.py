@@ -15,7 +15,8 @@ memory, which a PyTorch loop does not have; its loop is kept as
 route take one track at a time, as the reference's kernels do.
 
 Not ported: ``mesh=`` (ROADMAP queue 1 item 9, distributed) and
-``apply_fn=`` (queue 1 item 7, the bench); both raise.
+``apply_fn=`` (no caller of the reference passes it; ROADMAP.md, "Also left
+out"); both raise.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ from convsep_tpu_torch.utils.transfer import (
 def _no_apply_fn(apply_fn) -> None:
     if apply_fn is not None:
         raise NotImplementedError(
-            "apply_fn= (a model override for the bench) is not ported; "
-            "ROADMAP queue 1 item 7 (CLI and bench)"
+            "apply_fn= (a model override) is not ported: no caller of the reference "
+            "passes it, its bench and CLI included (ROADMAP.md, \"Also left out\")"
         )
 
 

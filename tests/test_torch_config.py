@@ -92,6 +92,8 @@ def test_package_never_imports_jax():
         import convsep_tpu_torch.dsp.cuda.wiener_kernel
         import convsep_tpu_torch.models.decoder_fused_cuda
         import convsep_tpu_torch.utils.transfer
+        import convsep_tpu_torch.benchmark, convsep_tpu_torch.cli, convsep_tpu_torch.eval
+        import convsep_tpu_torch.utils.flops, convsep_tpu_torch.utils.profiling
         from convsep_tpu_torch.ckpt import init_params, to_jax_params
         from convsep_tpu_torch.configs import TransformConfig, get_preset
         from convsep_tpu_torch.separate import Separator, StereoSeparator

@@ -1014,3 +1014,76 @@ def test_checkpoint_round_trip_of_a_cuda_state(cuda, tmp_path):
                      (s.opt_state.delta_accu[k], got.opt_state.delta_accu[k])):
             assert b.device.type == "cuda" and torch.equal(a, b), k
         assert got.params[k].requires_grad and got.params[k].is_leaf
+
+
+def test_bss_eval_on_the_card_matches_cpu(cuda):
+    """BSS Eval in float64 on the card against the CPU route, within 1e-4
+    dB, at flen 512 (2048² Grams): four noise sources, whose Grams the card
+    factors and solves itself (Cholesky), and four sources of which three
+    are tones, a Gram singular to rounding that both routes solve by
+    LAPACK's least squares on the host (``SOLVES`` says which ran); a
+    stereo pair of the latter."""
+    from convsep_tpu_torch.eval import bss_eval_sources, bss_eval_stereo, sdr_only
+    from convsep_tpu_torch.eval.bss_eval import SOLVES
+
+    rng = np.random.default_rng(5)
+    n = 3 * 8000
+    t = np.arange(n) / 8000
+    refs = np.stack([np.sin(2 * np.pi * f * t) * (1 + 0.3 * np.sin(2 * np.pi * 0.7 * t))
+                     for f in (220.0, 440.0, 1760.0)] + [0.2 * rng.standard_normal(n)])
+    mix = np.array([[0.8, 0.1, 0.05, 0.1], [0.1, 0.7, 0.1, 0.0], [0.0, 0.2, 0.9, 0.1],
+                    [0.1, 0.0, 0.0, 0.6]])
+    ests = mix @ refs + 0.02 * rng.standard_normal(refs.shape)
+    noise = 0.2 * rng.standard_normal((4, n))
+    noise_ests = mix @ noise + 0.02 * rng.standard_normal(noise.shape)
+    for r, e, singular in ((noise, noise_ests, False), (refs, ests, True)):
+        for compute_permutation in (False, True):
+            SOLVES.clear()
+            got = bss_eval_sources(r, e, flen=512, compute_permutation=compute_permutation,
+                                   device=cuda)
+            assert bool(SOLVES["lstsq_host"]) == singular, dict(SOLVES)
+            assert SOLVES["cholesky"] > 0
+            want = bss_eval_sources(r, e, flen=512, compute_permutation=compute_permutation,
+                                    device="cpu")
+            for g, w in zip(got[:3], want[:3]):
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+            np.testing.assert_array_equal(got[3], want[3])
+    st_refs = np.stack([refs[:2], refs[2:]])
+    st_ests = np.stack([ests[:2], ests[2:]])
+    for g, w in zip(bss_eval_stereo(st_refs, st_ests, flen=512, device=cuda),
+                    bss_eval_stereo(st_refs, st_ests, flen=512, device="cpu")):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    assert abs(sdr_only(refs[0], ests[0], device=cuda)
+               - sdr_only(refs[0], ests[0], device="cpu")) <= 1e-4
+
+
+def test_cli_separate_on_the_card_equals_separator(cuda, tmp_path, monkeypatch):
+    """``convsep-torch separate`` on the card (a seeded reference pickle)
+    writes the PCM16 stems of an in-process ``Separator`` with the same
+    weights, bit for bit, through the Wiener+iSTFT kernel."""
+    import pickle
+
+    from convsep_tpu_torch import cli
+    from convsep_tpu_torch.ckpt import export_reference_params, init_params
+    from convsep_tpu_torch.configs import presets
+    from convsep_tpu_torch.data.io import read_wav, write_wav
+    from convsep_tpu_torch.separate import Separator
+
+    p = _tiny("dsd100", time_context=10)
+    monkeypatch.setitem(presets.PRESETS, "tinydsd", lambda: p)
+    state = init_params(p.model, torch.Generator().manual_seed(3))
+    pkl = str(tmp_path / "m.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(export_reference_params(state, p.model), f, protocol=2)
+    mix = (0.2 * np.random.default_rng(4).standard_normal(20_000)).astype(np.float32)
+    wav = str(tmp_path / "mix.wav")
+    write_wav(wav, p.transform.fs, mix)
+    kernels.reset_launches()
+    assert cli.main(["separate", "--preset", "tinydsd", "--params", pkl, "-i", wav,
+                     "-o", str(tmp_path / "est"), "--device", "cuda"]) == 0
+    assert kernels.LAUNCHES["wiener_istft"] == 1
+    _, pcm = read_wav(wav)
+    want = Separator(p, state, device=cuda, output_dtype="int16", input_dtype="int16")(pcm)
+    for i, name in enumerate(p.sources):
+        got = read_wav(str(tmp_path / "est" / f"{name}.wav"))[1]
+        np.testing.assert_array_equal(np.round(got * 32768).astype(np.int16), want[i])

@@ -71,6 +71,56 @@ def test_sources_match_jax(rng, shape, mask_dtype):
                                        atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("shape", ["highres", "dsd"])
+def test_bf16_compute_matches_jax(rng, shape):
+    """compute_dtype="bfloat16": the reference composes the operands in
+    bf16, the port in float32 and rounds them, and both run the products
+    on bf16 operands; held at 3e-2 × max|y| (a few bf16 ulps of the
+    largest outputs)."""
+    kw = dict(SHAPES[shape], compute_dtype="bfloat16", mask_dtype="bfloat16")
+    jcfg, tcfg = JaxConfig(**kw), ConvSepConfig(**kw)
+    params = _jax_params(jcfg)
+    x = _x(rng, jcfg, 5)
+    want = np.asarray(
+        JaxConvSep(jcfg).apply(params, jnp.asarray(x), method=JaxConvSep.sources)
+        .astype(jnp.float32)
+    )
+    model = ConvSep(tcfg, from_jax_params(params, tcfg)).prepare_inference()
+    assert model.k4.dtype == model.w_eff.dtype == torch.bfloat16
+    f32 = dataclasses.replace(tcfg, compute_dtype="float32")
+    for B in (8, 49):  # "auto" routes bf16 as float32: the fused kernel where it won
+        assert (tconv.resolve_decoder_impl(tcfg, torch.device("cuda"), B)
+                == tconv.resolve_decoder_impl(f32, torch.device("cuda"), B))
+    got = model.sources(torch.from_numpy(x)).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-2 * np.abs(want).max())
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        ConvSep(dataclasses.replace(tcfg, decoder_impl="band_pallas"))
+
+
+@pytest.mark.parametrize("shape", ["highres", "dsd"])
+def test_bf16_compute_fused_route_matches_jax(rng, shape):
+    """compute_dtype="bfloat16" on the fused route: the kernel's wrapper
+    gets the bf16 operands as float32 (on CPU tensors its plain version,
+    the expansion unrounded); held to the JAX model and to the plain bf16
+    decode at 3e-2 × max|y|, as the plain route."""
+    kw = dict(SHAPES[shape], compute_dtype="bfloat16", mask_dtype="bfloat16")
+    jcfg = JaxConfig(**kw)
+    params = _jax_params(jcfg)
+    x = _x(rng, jcfg, 5)
+    want = np.asarray(
+        JaxConvSep(jcfg).apply(params, jnp.asarray(x), method=JaxConvSep.sources)
+        .astype(jnp.float32)
+    )
+    got = {}
+    for impl in ("bandconv_pallas", "bandconv"):
+        tcfg = ConvSepConfig(**{**kw, "decoder_impl": impl})
+        model = ConvSep(tcfg, from_jax_params(params, tcfg)).prepare_inference()
+        got[impl] = model.sources(torch.from_numpy(x)).float().numpy()
+    tol = 3e-2 * np.abs(want).max()
+    np.testing.assert_allclose(got["bandconv_pallas"], want, rtol=0, atol=tol)
+    np.testing.assert_allclose(got["bandconv_pallas"], got["bandconv"], rtol=0, atol=tol)
+
+
 def test_composition_pieces_match_jax(rng):
     jcfg, tcfg = JaxConfig(**HIGHRES), ConvSepConfig(**HIGHRES)
     p = _jax_params(jcfg)["params"]
