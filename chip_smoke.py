@@ -15,7 +15,10 @@ result line is printed):
    float32-SIMT one, and the launcher's plan (cluster, active clusters); it
    fails if "auto" routes that TM and batch (``FUSED_DECODE_WON``) where the
    kernel is slower than the plain decode by more than the run-to-run
-   spread (``DECODE_SPREAD``);
+   spread (``DECODE_SPREAD``); 2b: ``compute_dtype="bfloat16"`` at B 49,
+   where "auto" must take the plain bf16 decode (float32 the kernel), the
+   kernel forced (``decoder_impl="bandconv_pallas"``: one launch) against
+   it within ``TOL_BF16_COMPUTE``, and both forward times;
 3. Wiener+iSTFT kernel vs its plain version at highres4096 (nfft 4096,
    hop 1024, nf 1442, bf16 y) and dsd100 (nfft 1024, hop 512, nf 2882):
    p = 1 and 2, conserve_last, float32 and int16 output; at both shapes its
@@ -32,9 +35,12 @@ result line is printed):
 5. the training kernels vs their plain versions at the dsd100 training
    step's shapes: the FFT STFT kernel on (32, 14 336) and (128, 14 336)
    signals (W 1024, hop 512) beside ``torch.stft(center=False)`` on the
-   same padded signal, the dense DFT kernel (non-power-of-two sizes) at W
-   768, hop 256, each with its device time from ``torch.profiler`` (in a
-   child process: a profiler session slows its process's host for good)
+   same padded signal; the split STFT kernel (m · 2^a sizes) on (32, 14
+   336) at W 768, hop 256 and W 1280, hop 320, beside the dense DFT kernel
+   forced at the same shapes; the dense DFT kernel where it serves (W
+   1000, hop 250); each call launching its kernel once and no other
+   (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
+   a child process: a profiler session slows its process's host for good)
    and its wrapper's host time per call; the fused adadelta kernel on
    leaves the size of ``fc_expand_kernel`` and ``fc_kernel``;
 6. the training slice: 8 synthetic 4-stem tracks of 20 s written to a
@@ -53,7 +59,9 @@ result line is printed):
    (8 signals, nf 1442, 2049 bins, through ``istft_ct_pallas``, float32
    and int16) and the dsd100 pallas-route shapes (4 signals, nf 2882, 513
    bins, through ``istft_pallas``), beside ``torch.istft``, with both
-   device times (in a child) and the wrapper's host time;
+   device times (in a child) and the wrapper's host time; and its direct
+   sum at W 768, hop 256 (4 stems of a 30 s track); 7b: the Wiener+iSTFT
+   kernel's direct sum at the same shape, as phase 3;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -90,7 +98,8 @@ result line is printed):
    "blend", each against the plain route as phase 4;
 14. device times (``torch.profiler``, in a child) of the fused decode and
    its plain version at TM 120 and 360, and of the Wiener+iSTFT (both phase
-   3 shapes), Wiener mask, band decode and fused adadelta kernels;
+   3 shapes and phase 7b's), Wiener mask, band decode and fused adadelta
+   kernels;
 15. chunked: ``ChunkedSeparator`` (chunk_segments 32) for highres4096 (2
    chunks of 960 frames) and dsd100 (4 chunks) on the phase 4 mixture,
    against ``Separator`` as phase 4 holds two routes (the f32 tail's model
@@ -155,7 +164,8 @@ result line is printed):
    fused decode kernel on top).
 
 Each slice expects the fused decode launched exactly where "auto" routes it
-(``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by TM and batch).
+(``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by compute dtype, TM
+and batch).
 
 Every kernel's time comes with its bound (bytes over 3.35 TB/s or
 operations over 67 TFLOP/s in float32, 989 TFLOP/s for the bf16 band
@@ -224,10 +234,14 @@ MIN_SNR_BAND_DB = 30.0
 TRAIN_STEPS = 20
 TRAIN_TRACKS = 8
 TRAIN_SECONDS = 20
+# the 4 stems of a 30 s track at W 768, hop 256: the direct sums of the
+# inverse kernels (sizes that are not powers of two), timed, no main path
+W768_NF = 5170
 # the iSTFT kernel's shapes on the two new paths: (path, nfft, hop, nf,
 # signals, through istft_ct_pallas (else istft_pallas))
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True),
-                ("dsd100 pallas route", 1024, 512, 2882, 4, False))
+                ("dsd100 pallas route", 1024, 512, 2882, 4, False),
+                ("W 768 direct sum", 768, 256, W768_NF, 4, False))
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -364,6 +378,25 @@ def device_times(kind: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+# phase 5's STFT launches: (key, the kernel it must launch, W, hop, batches,
+# forced dense). The split kernel at m = 3 and 5, and the dense kernel there
+# too (forced: the time the split replaces) and where it still serves (W 1000).
+STFT_SHAPES = (
+    ("stft", "stft", 1024, 512, (32, 128), False),
+    ("stft_split", "stft_split", 768, 256, (32,), False),
+    ("stft_split W 1280", "stft_split", 1280, 320, (32,), False),
+    ("stft_dft", "stft_dft", 1000, 250, (32,), False),
+    ("stft_dft W 768", "stft_dft", 768, 256, (32,), True),
+    ("stft_dft W 1280", "stft_dft", 1280, 320, (32,), True),
+)
+
+
+def stft_fn(dense: bool):
+    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas
+
+    return stft_dft_pallas if dense else stft_pallas
+
+
 def stft_inputs(B: int, win: int, hop: int, device, gen):
     """A (B, 14 336) signal (one training segment each), its window and the
     padded signal ``torch.stft(center=False)`` takes for the same frames."""
@@ -378,12 +411,11 @@ def stft_inputs(B: int, win: int, hop: int, device, gen):
 
 
 def child_device_times(kind: str) -> dict:
-    """Device ms of phase 5's ("stft") or phase 11's ("ct_stft") kernels and
-    of ``torch.stft`` on the same frames, at their shapes, by
-    :func:`profile_ms`."""
+    """Device ms of phase 5's ("stft": every ``STFT_SHAPES`` launch) or
+    phase 11's ("ct_stft") kernels and of ``torch.stft`` on the same frames,
+    at their shapes, by :func:`profile_ms`."""
     import torch
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
-    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
     from convsep_tpu_torch.dsp.stft import _pad_signal
     from convsep_tpu_torch.dsp.windows import sinebell
 
@@ -410,11 +442,12 @@ def child_device_times(kind: str) -> dict:
                                 lambda: torch.stft(padded, 4096, 1024, window=wt, center=False,
                                                    return_complex=True))}
     res = {}
-    for name, win, hop, batches in (("stft", 1024, 512, (32, 128)), ("stft_dft", 768, 256, (32,))):
+    for name, _, win, hop, batches, dense in STFT_SHAPES:
         per_b = {}
+        fn = stft_fn(dense)
         for B in batches:
             x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
-            per_b[B] = pair(lambda: stft_pallas(x, w, hop),
+            per_b[B] = pair(lambda: fn(x, w, hop),
                             lambda: torch.stft(padded, win, hop, window=wt, center=False,
                                                return_complex=True))
         total = {k: sum(r[k] for r in per_b.values()) if all(r[k] is not None for r in
@@ -491,7 +524,8 @@ def child_decode_times(device, pair) -> dict:
 
 def child_other_times(device, gen) -> dict:
     """Device ms of the kernels whose rows had none: the Wiener+iSTFT kernel
-    (highres4096 and dsd100, phase 3's inputs), the Wiener mask kernel (the
+    (highres4096 and dsd100, phase 3's inputs; its direct sum at phase 7b's
+    W 768), the Wiener mask kernel (the
     dsd100 pallas route's shape), the band decode kernel (phase 11's shape,
     the prepared operand) and the fused adadelta kernel (phase 5's two
     leaves)."""
@@ -526,6 +560,11 @@ def child_other_times(device, gen) -> dict:
         d = 1e-6 * torch.rand(shape, generator=gen, device=device)
         total += profile_ms(lambda: fused_adadelta_leaf(p, g, a, d, 1.0, 0.95, 1e-6))["device_ms"]
     res["fused_adadelta"] = total
+    del p, g, a, d
+    # last: measured before the Wiener mask kernel, it left that kernel's
+    # profiler session with no device work recorded (device_ms None)
+    w, L, y, re, im = wiener_inputs(768, 256, W768_NF, 4, device, gen)
+    res["wiener_istft W 768"] = profile_ms(lambda: wiener_istft(y, re, im, w, 256, L))["device_ms"]
     return res
 
 
@@ -587,10 +626,12 @@ def phase_decode(model, B: int, device, gen) -> dict:
 
 
 def phase_bf16_compute(state, preset, B: int, device, gen) -> dict:
-    """compute_dtype="bfloat16" at B segments: "auto" routes as in float32
-    (the fused kernel at highres4096 B 49, its bf16 operands passed as
-    float32); the model's sources against the plain bf16 decode's
-    (decoder_impl="bandconv") on the same random magnitudes."""
+    """compute_dtype="bfloat16" at B segments: "auto" takes the plain bf16
+    decode (the bf16 won table is empty), while float32 takes the fused
+    kernel at highres4096 B 49; then the fused kernel forced
+    (decoder_impl="bandconv_pallas", its bf16 operands passed as float32),
+    its sources against the plain bf16 decode's (decoder_impl="bandconv")
+    on the same random magnitudes, and both forward times."""
     import dataclasses
 
     import torch
@@ -599,11 +640,13 @@ def phase_bf16_compute(state, preset, B: int, device, gen) -> dict:
     from convsep_tpu_torch.models.convsep import resolve_decoder_impl
 
     cfg = dataclasses.replace(preset.model, compute_dtype="bfloat16")
-    route = resolve_decoder_impl(cfg, device, B)
-    if route != resolve_decoder_impl(preset.model, device, B) or route != "bandconv_pallas":
-        raise AssertionError(f"bf16 compute routes {route} at B {B}, float32 "
-                             f"{resolve_decoder_impl(preset.model, device, B)}")
-    model = ConvSep(cfg, state, device=device).prepare_inference()
+    auto = resolve_decoder_impl(cfg, device, B)
+    f32 = resolve_decoder_impl(preset.model, device, B)
+    if auto != "bandconv" or f32 != "bandconv_pallas":
+        raise AssertionError(f"\"auto\" routes bf16 compute to {auto} at B {B} (want "
+                             f"bandconv), float32 to {f32} (want bandconv_pallas)")
+    forced = dataclasses.replace(cfg, decoder_impl="bandconv_pallas")
+    model = ConvSep(forced, state, device=device).prepare_inference()
     plain = ConvSep(dataclasses.replace(cfg, decoder_impl="bandconv"), state,
                     device=device).prepare_inference()
     x = torch.rand((B, cfg.time_context, cfg.feat_size, cfg.channels_in), generator=gen,
@@ -617,15 +660,16 @@ def phase_bf16_compute(state, preset, B: int, device, gen) -> dict:
     e = (got - want).abs().max().item()
     ms = cuda_ms(lambda: model.sources(x))
     plain_ms = cuda_ms(lambda: plain.sources(x))
-    log(f"  bf16 compute B {B}: route {route}, launches {launches['fused_decode']}; sources vs "
-        f"the plain bf16 decode max_abs_err {e:.3e} (tol {TOL_BF16_COMPUTE * scale:.3e}); "
-        f"forward {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms")
+    log(f"  bf16 compute B {B}: \"auto\" {auto} (float32 {f32}); forced bandconv_pallas, "
+        f"launches {launches['fused_decode']}; sources vs the plain bf16 decode max_abs_err "
+        f"{e:.3e} (tol {TOL_BF16_COMPUTE * scale:.3e}); forward forced kernel {ms:.3f} ms, "
+        f"plain bf16 (\"auto\") {plain_ms:.3f} ms")
     if launches["fused_decode"] != 1 or not (e <= TOL_BF16_COMPUTE * scale
                                              and torch.isfinite(got).all()):
         raise AssertionError(f"bf16 compute B {B}: launches {launches}, error {e} "
                              f"(tol {TOL_BF16_COMPUTE * scale})")
     return {"launches": launches, "max_abs_err": e, "max_abs_plain": scale, "ms": ms,
-            "plain_ms": plain_ms, "B": B}
+            "plain_ms": plain_ms, "B": B, "auto_route": auto}
 
 
 def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1):
@@ -822,28 +866,34 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict, extra=Non
     return {"ms": ms, "plain_ms": plain_ms, "launches": launches}
 
 
-def phase_stft(device, gen) -> tuple[dict, dict]:
-    """The STFT kernels vs plain: the FFT kernel at the training step's
-    shapes (mixtures B 32, stems B 128; 14 336 samples, W 1024, hop 512 → 30
-    frames × 513 bins) and the dense DFT kernel at W 768, hop 256 (B 32, 58
-    frames × 385 bins), each beside ``torch.stft(center=False)`` on the same
-    padded signal (the same frames), with device and host times."""
+def phase_stft(device, gen) -> dict:
+    """The STFT kernels vs plain, each beside ``torch.stft(center=False)`` on
+    the same padded signal (the same frames), with device and host times:
+    the FFT kernel at the training step's shapes (mixtures B 32, stems B
+    128; 14 336 samples, W 1024, hop 512 → 30 frames × 513 bins), the
+    split kernel at W 768, hop 256 (3 · 256: 58 frames × 385 bins) and W
+    1280, hop 320 (5 · 256: 47 × 641), the dense DFT kernel where it still
+    serves (W 1000 = 8 · 125, hop 250) and, forced, at the split's two
+    shapes. Each call must launch its kernel once and no other STFT
+    kernel."""
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas, stft_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
 
+    names = ("stft", "stft_split", "stft_dft")
     out = {}
-    for name, win, hop, batches in (("stft", 1024, 512, (32, 128)), ("stft_dft", 768, 256, (32,))):
+    for key, kernel, win, hop, batches, dense in STFT_SHAPES:
+        fn = stft_fn(dense)
         worst, ms, plain_ms, lib_ms, us, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
         for B in batches:
             x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
             before = dict(kernels.LAUNCHES)
-            re, im = stft_pallas(x, w, hop)
+            re, im = fn(x, w, hop)
             re_p, im_p = stft_pallas_plain(x, w, hop)
             torch.cuda.synchronize()
-            moved = {k: kernels.LAUNCHES[k] - before[k] for k in ("stft", "stft_dft")}
-            if moved != {"stft": int(name == "stft"), "stft_dft": int(name == "stft_dft")}:
-                raise AssertionError(f"{name} B {B}: launched {moved}")
+            moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+            if moved != {k: int(k == kernel) for k in names}:
+                raise AssertionError(f"{key} B {B}: launched {moved}, want one {kernel}")
             peak = max(re_p.abs().max().item(), im_p.abs().max().item())
             e = max((re - re_p).abs().max().item(), (im - im_p).abs().max().item())
 
@@ -852,35 +902,44 @@ def phase_stft(device, gen) -> tuple[dict, dict]:
 
             lib = library().transpose(-1, -2)  # (B, nf, bins)
             e_lib = max((lib.real - re_p).abs().max().item(), (lib.imag - im_p).abs().max().item())
-            log(f"  {name} B {B}: re/im {tuple(re.shape)} max_abs_err {e:.3e} "
+            log(f"  {key} B {B}: re/im {tuple(re.shape)} max_abs_err {e:.3e} "
                 f"(tol {TOL_STFT * peak:.3e}, max|X| {peak:.3e}); torch.stft {e_lib:.3e} from "
                 f"the plain version")
             if not (e <= TOL_STFT * peak and torch.isfinite(re).all() and torch.isfinite(im).all()):
-                raise AssertionError(f"{name} kernel B {B} disagrees: {e} > {TOL_STFT * peak}")
+                raise AssertionError(f"{key} kernel B {B} disagrees: {e} > {TOL_STFT * peak}")
             worst = max(worst, e)
-            t = cuda_ms(lambda: stft_pallas(x, w, hop))
+            t = cuda_ms(lambda: fn(x, w, hop))
             tp = cuda_ms(lambda: stft_pallas_plain(x, w, hop))
             tl = cuda_ms(library)
-            h = host_us(lambda: stft_pallas(x, w, hop))
-            log(f"  {name} B {B}: kernel {t:.4f} ms, plain {tp:.4f} ms, torch.stft {tl:.4f} ms; "
+            h = host_us(lambda: fn(x, w, hop))
+            log(f"  {key} B {B}: kernel {t:.4f} ms, plain {tp:.4f} ms, torch.stft {tl:.4f} ms; "
                 f"wrapper host {h:.1f} us per call")
             ms, plain_ms, lib_ms, us = ms + t, plain_ms + tp, lib_ms + tl, us + h
             nf = re.shape[-2]
             nbytes += 4 * x.numel() + 8 * re.numel()
             flops += fft_flops(B * nf, win)  # what the transform needs, whatever the kernel runs
         b = bound(nbytes, flops)
-        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
-                     "library_ms": lib_ms, "host_us": us}
+        out[key] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": lib_ms, "host_us": us, "W": win, "hop": hop,
+                    "B": list(batches)}
     dev = device_times("stft")["stft"]
-    for name, what in (("stft", "per training step (B 32 + B 128)"), ("stft_dft", "B 32")):
-        r, d = out[name], dev[name]
+    for key, *_ in STFT_SHAPES:
+        r, d = out[key], dev[key]
         r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"])
-        log(f"  {name} {what}: kernel {r['ms']:.4f} ms (device {ms_str(d['device_ms'])}), plain "
-            f"{r['plain_ms']:.4f} ms, torch.stft {r['library_ms']:.4f} ms (device "
+        what = ("per training step (B 32 + B 128)" if key == "stft"
+                else f"W {r['W']}, hop {r['hop']}, B 32")
+        log(f"  {key.split()[0]} {what}: kernel {r['ms']:.4f} ms (device "
+            f"{ms_str(d['device_ms'])}), plain {r['plain_ms']:.4f} ms, torch.stft {r['library_ms']:.4f} ms (device "
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); wrapper host {r['host_us']:.1f} us")
+    for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280")):
+        r, d = out[key], out[dense]
+        r["dense_ms"], r["dense_device_ms"] = d["ms"], d["device_ms"]
+        log(f"  {key}: the split {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
+            f"dense DFT kernel's {d['ms']:.4f} ms (device {ms_str(d['device_ms'])}) and "
+            f"torch.stft's {r['library_ms']:.4f} ms (device {ms_str(r['library_device_ms'])})")
     log(f"  device kernels: {json.dumps(dev)}")
-    return out["stft"], out["stft_dft"]
+    return out
 
 
 def phase_adadelta(device, gen) -> dict:
@@ -1148,8 +1207,8 @@ def phase_train(device) -> dict:
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError(f"training loss is not finite and falling: {losses}")
     # two STFTs a step (the mixtures, the stems), all on the FFT kernel
-    if not (launches["stft"] == 2 * TRAIN_STEPS and launches["stft_dft"] == 0
-            and launches["fused_adadelta"] > 0):
+    if not (launches["stft"] == 2 * TRAIN_STEPS and launches["stft_split"] == 0
+            and launches["stft_dft"] == 0 and launches["fused_adadelta"] > 0):
         raise AssertionError(f"training path missed a kernel: {launches}")
     fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
     fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -1478,7 +1537,8 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
     if stems.shape != (S, len(audio)) or not np.isfinite(stems).all():
         raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
     if not (all(launches[k] > 0 for k in ("wiener_apply", "istft"))
-            and launches["stft"] == 1 and launches["stft_dft"] == 0):
+            and launches["stft"] == 1 and launches["stft_split"] == 0
+            and launches["stft_dft"] == 0):
         raise AssertionError(f"{name}: the pallas route missed a kernel: {launches}")
     ms = time_track(sep, audio)
     mm = Separator(preset, state, device=device)
@@ -1750,7 +1810,7 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
                         {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
                          "fused_decode": auto_fused(preset, track_segments(preset, len(audio))),
                          "band_decode": False, "stft": False,
-                         "stft_dft": False}),
+                         "stft_split": False, "stft_dft": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
                            "ct_stft": False, "wiener_istft_ny": False}),
@@ -1891,7 +1951,7 @@ def phase_chunked(state, preset, device, audio) -> dict:
     # the decode sees chunk_segments rows a chunk; the chunk synthesizes by
     # products, as the reference's chunk program does
     want = {"fused_decode": nc if auto_fused(preset, cs) else 0, "wiener_istft": 0,
-            "wiener_istft_ny": 0, "stft_dft": 0}
+            "wiener_istft_ny": 0, "stft_split": 0, "stft_dft": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     del sep
@@ -2383,7 +2443,7 @@ def phase_feature_train(device) -> dict:
             raise AssertionError(f"feature training loss is not finite and falling: {losses}")
         # two adadelta launches a step (fc_expand_kernel, fc_kernel); no STFT in the step
         if not (launches["fused_adadelta"] == 2 * TRAIN_STEPS and launches["stft"] == 0
-                and launches["stft_dft"] == 0):
+                and launches["stft_split"] == 0 and launches["stft_dft"] == 0):
             raise AssertionError(f"feature training path launched {launches}")
         fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
         fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -2748,7 +2808,8 @@ def main(argv: list[str]) -> int:
     dec = phase_decode(hi_model, 49, device, gen)
     del hi_model
     torch.cuda.empty_cache()
-    log("phase 2b: compute_dtype=bfloat16 at highres4096, B 49 (the fused kernel's route)")
+    log("phase 2b: compute_dtype=bfloat16 at highres4096, B 49 (\"auto\" takes the plain bf16 "
+        "decode; the fused kernel forced)")
     bf16 = phase_bf16_compute(hi_state, hi, 49, device, gen)
     torch.cuda.empty_cache()
     log("phase 3: Wiener+iSTFT kernel vs plain")
@@ -2776,7 +2837,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 5: training kernels vs plain (dsd100 training-step shapes)")
-    stft, stft_dft = phase_stft(device, gen)
+    stft_all = phase_stft(device, gen)
     ada = phase_adadelta(device, gen)
     torch.cuda.empty_cache()
     log("phase 6: training slice, dsd100 full width, B 32, synthetic stems, seeded weights")
@@ -2785,6 +2846,12 @@ def main(argv: list[str]) -> int:
 
     log("phase 7: iSTFT kernel vs plain (stereo highres4096 and dsd100 pallas-route shapes)")
     ist = phase_istft(device, gen)
+    log("phase 7b: the Wiener+iSTFT kernel's direct sum at W 768, hop 256 (4 stems, nf "
+        f"{W768_NF}), beside torch.istft of the same spectra (phase 7)")
+    wie768 = phase_wiener("W 768 direct sum", 768, 256, W768_NF, 4, device, gen)
+    wie768.update(library_ms=ist["W 768 direct sum"]["library_ms"],
+                  library="torch.istft of the 4 masked spectra (the synthesis alone)")
+    torch.cuda.empty_cache()
     log("phase 8: Wiener mask kernel vs plain (dsd100 pallas-route and highres4096 shapes)")
     wap = phase_wiener_apply(device, gen)
     torch.cuda.empty_cache()
@@ -2834,7 +2901,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 14: device times (torch.profiler, in a child) of the fused decode at TM 120 "
-        "and 360, the Wiener+iSTFT (highres4096, dsd100), Wiener mask, band decode and "
+        "and 360, the Wiener+iSTFT (highres4096, dsd100, W 768), Wiener mask, band decode and "
         "adadelta kernels")
     dev = device_times("decode,others")
     for key, r in (("TM 120", dec), ("TM 360", dec360)):
@@ -2845,6 +2912,7 @@ def main(argv: list[str]) -> int:
             f"{r['f32_simt_bound_ms']:.3f} ms (float32 SIMT)")
     others = dev["others"]
     for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
+                    ("wiener_istft W 768", wie768),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
                     ("fused_adadelta", ada)):
         r["device_ms"] = others[name]
@@ -2871,7 +2939,8 @@ def main(argv: list[str]) -> int:
         "dsd100 fft_impl=pallas stream", StreamSeparator(pallas, dsd_state, device=device),
         Separator(pallas, dsd_state, device=device),
         [audio + np.float32(i % 3 / 32768.0) for i in range(n)],
-        {"stft": n, "wiener_apply": n, "istft": n, "stft_dft": 0, "wiener_istft": 0})
+        {"stft": n, "wiener_apply": n, "istft": n, "stft_split": 0, "stft_dft": 0,
+         "wiener_istft": 0})
     st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
     st_mix = stereo_mixture(0)
     stream["highres4096-stereo"] = phase_stream_route(
@@ -2910,7 +2979,7 @@ def main(argv: list[str]) -> int:
              "highres4096-stereo": st_run, "dsd100 fft_impl=pallas": pl_run,
              "multires4096": mr_run, "multires4096 analysis=ct_pallas": mr_routes["ct"],
              "multires4096 decoder_impl=band_pallas": mr_routes["band"], **b10_runs,
-             "highres4096 compute_dtype=bfloat16 (B 49)": bf16,
+             "highres4096 compute_dtype=bfloat16, bandconv_pallas forced (B 49)": bf16,
              **{f"{k} chunked": r for k, r in chunked.items()},
              **{f"{k} online": r for k, r in online.items()},
              **{f"{k} stream": r for k, r in stream.items()}, "dsd100 service": service,
@@ -2920,10 +2989,11 @@ def main(argv: list[str]) -> int:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    # every path's STFT runs on the FFT core: the dense DFT kernel serves
-    # only sizes that no preset uses
-    if launched("stft_dft")["launches"]:
-        raise AssertionError(f"a main path ran the dense DFT kernel: {launched('stft_dft')}")
+    # every path's STFT runs on the FFT core: the split and the dense DFT
+    # kernel serve only sizes that no preset uses
+    for kernel in ("stft_split", "stft_dft"):
+        if launched(kernel)["launches"]:
+            raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
     result = {"kernels": [
         {"name": "fused_decode", "route": "cuda",
@@ -2936,16 +3006,26 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
          **launched("wiener_istft"), **wie, "dsd100": wie_dsd, "batches": wie_batches,
+         "w768_direct": wie768,
          "ny": {**launched("wiener_istft_ny"), **wny}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         **launched("stft"), **stft, "route_check": train["route"]},
+         **launched("stft"), **stft_all["stft"], "route_check": train["route"]},
+        {"name": "stft_split", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_split_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
+         "serves": "nfft = m 2^a, m in 3, 5, 9, 15, 2^a >= 16, nfft <= 8192; no preset",
+         **launched("stft_split"), **stft_all["stft_split"],
+         "w1280_hop320": stft_all["stft_split W 1280"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "nfft not a power of two in [16, 8192]; no preset",
-         **launched("stft_dft"), **stft_dft},
+         "serves": "the sizes neither the FFT core nor its split plans (1000 = 8 125); "
+                   "no preset",
+         **launched("stft_dft"), **stft_all["stft_dft"],
+         "forced_w768": stft_all["stft_dft W 768"],
+         "forced_w1280": stft_all["stft_dft W 1280"]},
         {"name": "fused_adadelta", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/fused_adadelta.cu",
          "replaces": "convsep_tpu/train/fused_optim.py:88",
@@ -2955,7 +3035,8 @@ def main(argv: list[str]) -> int:
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
          **launched("istft"), **ist["highres4096-stereo"],
-         "dsd100_pallas_route": ist["dsd100 pallas route"]},
+         "dsd100_pallas_route": ist["dsd100 pallas route"],
+         "w768_direct": ist["W 768 direct sum"]},
         {"name": "wiener_apply", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_apply.cu",
          "replaces": "convsep_tpu/dsp/pallas/wiener_kernel.py:77",

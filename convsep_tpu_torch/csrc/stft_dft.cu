@@ -1,7 +1,7 @@
 // The STFT of the training step and the fft_impl="pallas" separation route,
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
-// (stft_fft_kernel), and the dense DFT (stft_dft_kernel) for the sizes the
-// FFT core does not plan.
+// (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
+// {3, 5, 9, 15}), and the dense DFT (stft_dft_kernel) for the other sizes.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
 // signal b, frame f and bin c < nfft / 2 + 1:
@@ -30,7 +30,20 @@
 // B 32 x 30 frames at 1024 points runs one FFT per block (480 blocks), B 128
 // four (512 blocks), the dsd100 separation track's 2882 frames four (361).
 //
-// stft_dft_kernel (any other nfft: no preset uses one) multiplies frames
+// stft_split_kernel (nfft = m 2^a, m in {3, 5, 9, 15}, 2^a >= 16, nfft <=
+// 8192: frame sizes such as 768, 1280, 1536, 2304, 3072; no preset uses one)
+// is the same design on the core's mixed-radix split (fft_common.cuh::
+// stft_split_block): m interleaved 2^a-point FFTs read at stride m from the
+// staged span, the twiddles e^{-2 pi i n1 k1 / nfft} from a second quarter
+// table in shared memory, 2^a m-point DFTs in registers across the exchange
+// buffer. A transform is a group of nfft / 16 threads; the block (whole
+// warps, fft_plan.split_plan) synchronizes as a whole. At W 768, hop 256, B
+// 32 (58 frames x 385 bins) it does about 0.04 GFLOP against the dense
+// DFT's 2.2 and is bound by its 7.5 MB of device-memory bytes (2.2 us); on
+// an H100 at 700 W it takes 8.5 us, against torch.stft's 12.8 and the dense
+// kernel's 170 (PERF.md, row 6').
+//
+// stft_dft_kernel (any other nfft, e.g. 1000 = 8 x 125) multiplies frames
 // built from hop rows staged in shared memory by the (W, bins) window-folded
 // cos / -sin matrices: a block owns 32 frames x 64 bins of one signal and
 // every thread accumulates 2 frames x 4 bins of re and of im in registers.
@@ -78,6 +91,44 @@ cudaError_t launch_fft(const float* x, const float* win, const float2* tw, float
   stft_fft_kernel<LOG2N><<<(unsigned)blocks, ffts * fft_threads(LOG2N), smem, stream>>>(
       x, win, tw, re, im, L, W, hop, nf);
   return cudaGetLastError();
+}
+
+template <int LOG2P, int M>
+__global__ void __launch_bounds__(kMaxThreads) stft_split_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw_p,
+    const float2* __restrict__ tw_n, float* __restrict__ re, float* __restrict__ im, int L,
+    int W, int hop, int nf) {
+  stft_split_block<LOG2P, M>(x, win, tw_p, tw_n, L, W, hop, nf,
+                             FullRows{re, im, (M << LOG2P) / 2 + 1});
+}
+
+template <int LOG2P, int M>
+cudaError_t launch_split(const float* x, const float* win, const float2* tw_p,
+                         const float2* tw_n, float* re, float* im, int B, int L, int W, int hop,
+                         int nf, int ffts, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes(LOG2P, M, W, hop, ffts);
+  cudaError_t err = cudaFuncSetAttribute(stft_split_kernel<LOG2P, M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * ((nf + 2 * ffts - 1) / (2 * ffts));
+  stft_split_kernel<LOG2P, M><<<(unsigned)blocks, ffts * M * fft_threads(LOG2P), smem, stream>>>(
+      x, win, tw_p, tw_n, re, im, L, W, hop, nf);
+  return cudaGetLastError();
+}
+
+// The split's instances: every 2^a (16 <= 2^a, m 2^a <= 8192) for each m.
+template <int M, int LOG2P = kMinLog2>
+cudaError_t dispatch_split(int log2p, const float* x, const float* win, const float2* tw_p,
+                           const float2* tw_n, float* re, float* im, int B, int L, int W,
+                           int hop, int nf, int ffts, cudaStream_t stream) {
+  if constexpr ((M << LOG2P) > (1 << kMaxLog2)) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log2p == LOG2P)
+      return launch_split<LOG2P, M>(x, win, tw_p, tw_n, re, im, B, L, W, hop, nf, ffts, stream);
+    return dispatch_split<M, LOG2P + 1>(log2p, x, win, tw_p, tw_n, re, im, B, L, W, hop, nf,
+                                        ffts, stream);
+  }
 }
 
 constexpr int kThreads = 256;
@@ -203,8 +254,41 @@ extern "C" int stft_fft_launch(const void* x, const void* win, const void* tw, v
   }
 }
 
-// The dense route: any nfft >= W (the wrapper sends it only what the FFT
-// route does not plan).
+// The split route: nfft = m 2^a (m in {3, 5, 9, 15}, 16 <= 2^a, nfft <= 8192),
+// W <= nfft, `ffts` transforms (2 ffts frames) per block, from
+// fft_plan.split_plan; tw_p and tw_n the quarter tables of 2^a and nfft.
+extern "C" int stft_split_launch(const void* x, const void* win, const void* tw_p,
+                                 const void* tw_n, void* re, void* im, int B, int L, int W,
+                                 int hop, int nf, int nfft, int ffts, void* stream) {
+  int m = nfft > 0 ? nfft : 1, log2p = 0;
+  while (m % 2 == 0) {
+    m /= 2;
+    ++log2p;
+  }
+  const bool sized = (m == 3 || m == 5 || m == 9 || m == 15) && log2p >= kMinLog2 &&
+                     nfft <= (1 << kMaxLog2);
+  const int threads = sized ? ffts * (nfft / kPoints) : 0;
+  if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !sized ||
+      ffts < 1 || threads > kMaxThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(win);
+  const auto* tp = static_cast<const float2*>(tw_p);
+  const auto* tn = static_cast<const float2*>(tw_n);
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 3: return (int)dispatch_split<3>(log2p, xs, w, tp, tn, r, i, B, L, W, hop, nf, ffts, s);
+    case 5: return (int)dispatch_split<5>(log2p, xs, w, tp, tn, r, i, B, L, W, hop, nf, ffts, s);
+    case 9: return (int)dispatch_split<9>(log2p, xs, w, tp, tn, r, i, B, L, W, hop, nf, ffts, s);
+    default:
+      return (int)dispatch_split<15>(log2p, xs, w, tp, tn, r, i, B, L, W, hop, nf, ffts, s);
+  }
+}
+
+// The dense route: any nfft >= W (the wrapper sends it only what neither the
+// FFT route nor the split plans, or what stft_dft_pallas forces).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

@@ -5,28 +5,26 @@ the overlapped ``time_context``-frame segments of a directory of feature
 files (data/io.py; memory-mapped, never read whole) and assembles
 scaled batches on the host, through the native gather (data/fastbatch.py)
 where it is built, else numpy (the same bytes). ``prefetch_to_device`` is
-a one-deep prefetch on the caller's thread: batch i + 1 is assembled on
-the host and its copy enqueued while the device still runs step i
-(PyTorch returns from a step before the device finishes it). Arrays go
-through pinned host buffers and ``non_blocking`` copies to an explicit
-device; the caching host allocator keeps a pinned buffer alive until its
-copy is done.
+the reference's prefetch thread: one daemon producer assembles the batches
+and uploads them at most ``size`` ahead of the consumer, through page-locked
+host buffers it reuses and a copy stream of its own, so a step's host work
+overlaps the previous step's device work; errors surface on the consumer's
+side. ``to_device`` is the one-off upload (a fresh pinned buffer a call).
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from dataclasses import dataclass, field
-from typing import Any, Iterator
+from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
 
 from convsep_tpu_torch.data.io import load_tensor
 from convsep_tpu_torch.data.segment import segment_count
-
-_EMPTY = object()
-
 
 @dataclass
 class SegmentDataset:
@@ -172,15 +170,149 @@ def to_device(item: Any, device: torch.device) -> Any:
     return item.to(device)
 
 
-def prefetch_to_device(iterator: Iterator, device: str | torch.device) -> Iterator:
-    """Yield the iterator's items on ``device``, one item ahead: each item's
-    copy is enqueued before the previous item is handed out."""
+class _Raised:
+    """An exception raised in the producer, carried to the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+_STAGING = object()  # a pool entry taken by the batch being staged
+
+
+class _Uploader:
+    """The producer's side of :func:`prefetch_to_device`: numpy arrays and
+    host tensors in nested tuples / lists become tensors on ``device``.
+    For a CUDA device each leaf is copied into a page-locked buffer of a
+    pool kept per (shape, dtype) and uploaded on the copy stream; one event
+    recorded after the batch's copies marks the batch, and a buffer is
+    written again only once the event of its last copy has completed. On
+    the CPU a leaf becomes a tensor over the same memory (no copy)."""
+
+    def __init__(self, device: torch.device, depth: int):
+        self.device = device
+        self.depth = depth  # buffers a key may hold: the batches in flight, and one
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._pools: dict[tuple, list[list]] = {}  # key → [[pinned buffer, event | None]]
+
+    def _buffer(self, shape: tuple, dtype: torch.dtype) -> list:
+        """A free buffer of the key, marked as taken by the batch being staged."""
+        pool = self._pools.setdefault((shape, dtype), [])
+        entry = next((e for e in pool if e[1] is None
+                      or (e[1] is not _STAGING and e[1].query())), None)
+        if entry is None and len(pool) >= self.depth and pool[0][1] is not _STAGING:
+            entry = pool.pop(0)  # the oldest copy: wait for it, then reuse its buffer
+            entry[1].synchronize()
+            pool.append(entry)
+        if entry is None:
+            entry = [torch.empty(shape, dtype=dtype, pin_memory=True), None]
+            pool.append(entry)
+        entry[1] = _STAGING
+        return entry
+
+    def stage(self, item: Any) -> tuple[Any, torch.cuda.Event | None]:
+        """``item`` on the device, its copies enqueued; the event after them."""
+        if self.stream is None:
+            return _tensors(item), None
+        used = []
+        with torch.cuda.stream(self.stream):
+            out = self._upload(item, used)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        for entry in used:
+            entry[1] = done
+        return out, done
+
+    def _upload(self, item: Any, used: list) -> Any:
+        if isinstance(item, (tuple, list)):
+            return type(item)(self._upload(x, used) for x in item)
+        item = _tensors(item)
+        if not isinstance(item, torch.Tensor):
+            return item
+        if item.device.type != "cpu":
+            return item.to(self.device)
+        entry = self._buffer(tuple(item.shape), item.dtype)
+        entry[0].copy_(item)
+        used.append(entry)
+        return entry[0].to(self.device, non_blocking=True)
+
+
+def _tensors(item: Any) -> Any:
+    """numpy arrays in nested tuples / lists → CPU tensors over their memory."""
+    if isinstance(item, (tuple, list)):
+        return type(item)(_tensors(x) for x in item)
+    if isinstance(item, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(item))
+    return item
+
+
+def _ready(item: Any, done: torch.cuda.Event | None) -> Any:
+    """Order the consumer's current stream after the batch's copies and
+    tell the caching allocator that stream uses each device tensor."""
+    if done is None:
+        return item
+    leaves = [item]
+    while leaves:
+        x = leaves.pop()
+        if isinstance(x, (tuple, list)):
+            leaves.extend(x)
+        elif isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            current = torch.cuda.current_stream(x.device)
+            current.wait_event(done)
+            x.record_stream(current)
+    return item
+
+
+_END = object()
+
+
+def prefetch_to_device(iterator: Iterable, device: str | torch.device, size: int = 2
+                       ) -> Iterator:
+    """Yield the iterator's items on ``device``, each leaf a tensor, with
+    one daemon producer thread pulling, assembling and uploading them at
+    most ``size`` items ahead of the consumer (the reference's bounded
+    prefetch queue). An exception in the producer is raised here, in the
+    consumer. Closing the generator early (a ``break`` out of the loop, an
+    exception in its body) stops the producer and waits for it: no thread
+    outlives the loop. See :class:`_Uploader` for the copies."""
+    if size < 1:
+        raise ValueError(f"prefetch size must be at least 1, got {size}")
     device = torch.device(device)
-    pending = _EMPTY
-    for item in iterator:
-        item = to_device(item, device)
-        if pending is not _EMPTY:
-            yield pending
-        pending = item
-    if pending is not _EMPTY:
-        yield pending
+    uploader = _Uploader(device, size + 1)
+    source = iter(iterator)
+    slots = threading.Semaphore(size)  # items pulled and not yet taken
+    stop = threading.Event()
+    q: queue.Queue = queue.Queue(maxsize=size + 1)  # the items and the end (or an error)
+
+    def producer():
+        try:
+            if device.type == "cuda" and device.index is not None:
+                torch.cuda.set_device(device)
+            while True:
+                slots.acquire()
+                if stop.is_set():
+                    return
+                try:
+                    item = next(source)
+                except StopIteration:
+                    q.put(_END)
+                    return
+                q.put(uploader.stage(item))
+        except Exception as e:  # surface pipeline errors on the consumer side
+            q.put(_Raised(e))
+
+    thread = threading.Thread(target=producer, name="prefetch_to_device", daemon=True)
+    thread.start()
+    try:
+        while True:
+            got = q.get()
+            if got is _END:
+                return
+            if isinstance(got, _Raised):
+                raise got.error
+            slots.release()
+            yield _ready(*got)
+    finally:
+        stop.set()
+        slots.release()  # wake a producer waiting for a slot
+        thread.join()

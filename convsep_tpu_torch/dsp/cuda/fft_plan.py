@@ -12,6 +12,13 @@ loads the signal span of their 2 · ``ffts_per_block`` frames.
 :func:`stft_plan` chooses that number for a shape, and computes the block's
 threads, shared memory and the grid exactly as the C launchers do.
 
+Sizes m · 2^a that are not powers of two (m in 3, 5, 9, 15) take the
+mixed-radix split of the same core (``stft_split_block``): m interleaved
+2^a-point FFTs, the twiddles e^{−2πi n1 k1 / N} from the N-point quarter
+table, then 2^a m-point DFTs in registers across the exchange buffer;
+:func:`split_factors` names the sizes and :func:`split_plan` sizes the
+launch.
+
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
 and overlap-add them by a gather; :func:`istft_plan` sizes it. The
@@ -38,6 +45,7 @@ MAX_THREADS = 512        # fft_common::kMaxThreads
 POINTS = 16              # complex points a thread holds
 MAX_NAMED_GROUPS = 8     # groups per block that synchronize on named barriers
 MIN_NFFT, MAX_NFFT = 2 ** 4, 2 ** 13
+SPLIT_ODD = (3, 5, 9, 15)  # the split's odd factors: its m-point DFTs (radix 3 and 5)
 SM_SMEM = 228 * 1024     # shared memory of one SM
 BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
 SM_THREADS = 2048        # resident threads per SM
@@ -56,6 +64,21 @@ MAX_ROUNDS = 256         # the most rounds wiener_plan weighs
 def fft_supported(nfft: int) -> bool:
     """A power of two that the FFT core's template covers (16 … 8192)."""
     return MIN_NFFT <= nfft <= MAX_NFFT and nfft & (nfft - 1) == 0
+
+
+def split_factors(nfft: int) -> tuple[int, int] | None:
+    """(m, P) with nfft = m · P, m in ``SPLIT_ODD`` and P a power of two that
+    the core plans (P >= 16), nfft <= 8192: the sizes of the mixed-radix
+    split (``fft_common.cuh::stft_split_block``); None for any other size."""
+    if not MIN_NFFT <= nfft <= MAX_NFFT:
+        return None
+    p = nfft & -nfft  # the largest power of two dividing nfft
+    m = nfft // p
+    return (m, p) if m in SPLIT_ODD and p >= MIN_NFFT else None
+
+
+def split_supported(nfft: int) -> bool:
+    return split_factors(nfft) is not None
 
 
 def radices(nfft: int) -> tuple[int, ...]:
@@ -126,6 +149,56 @@ def stft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> StftPlan:
     per_signal = -(-nf // (2 * g))
     return StftPlan(nfft, g, g * t, per_signal, signals * per_signal,
                     smem_bytes(nfft, win, hop, g))
+
+
+def split_smem_bytes(nfft: int, win: int, hop: int, ffts: int) -> int:
+    """The split kernel's dynamic shared memory: the span of 2 · ``ffts``
+    frames, the P-point quarter twiddle table of stage 1, the nfft-point
+    quarter table of the split's twiddles, one exchange buffer of nfft
+    points per transform."""
+    _, p = split_factors(nfft)
+    return (4 * span_floats(2 * ffts, win, hop)
+            + 8 * (twiddle_entries(p) + twiddle_entries(nfft) + ffts * exchange_entries(nfft)))
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    nfft: int
+    m: int                # odd factor: stage 2's m-point DFTs
+    p: int                # power-of-two factor: stage 1's P-point FFTs
+    ffts_per_block: int   # transforms (nfft points, 2 frames each) per block
+    threads: int          # per block: ffts_per_block · m · P/16
+    blocks_per_signal: int
+    blocks: int
+    smem_bytes: int
+
+
+@lru_cache(maxsize=64)
+def split_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> SplitPlan:
+    """The split kernel's launch, as ``csrc/stft_dft.cu::stft_split_launch``
+    checks it. A transform of nfft = m · P points is one group of m · P/16
+    threads: stage 1 runs m P-point FFTs of P/16 threads each (the core's
+    passes), stage 2 P m-point DFTs over the same threads, and the block
+    synchronizes as a whole, so groups may share warps. m is odd, so a
+    block of G groups is whole warps when G · P/16 is a multiple of 32:
+    G a power of two from max(1, 32 / (P/16)) up to 512 threads. Of those
+    that fit shared memory, the most that still give two blocks per SM,
+    else the fewest (as :func:`stft_plan`)."""
+    f = split_factors(nfft)
+    if f is None:
+        raise ValueError(f"no split plan for nfft={nfft}: m · 2^a with m in {SPLIT_ODD}, "
+                         f"2^a >= {MIN_NFFT}, at most {MAX_NFFT}")
+    m, p = f
+    t = nfft // POINTS
+    g_min = max(1, 32 // threads_per_fft(p))
+    choices = [g for g in (1 << e for e in range(10)) if g >= g_min and g * t <= MAX_THREADS
+               and split_smem_bytes(nfft, win, hop, g) <= SMEM_MAX][::-1]
+    if not choices:
+        raise ValueError(f"no split plan fits: nfft={nfft} win={win} hop={hop}")
+    g = next((c for c in choices if signals * -(-nf // (2 * c)) >= 2 * SMS), choices[-1])
+    per_signal = -(-nf // (2 * g))
+    return SplitPlan(nfft, m, p, g, g * t, per_signal, signals * per_signal,
+                     split_smem_bytes(nfft, win, hop, g))
 
 
 def blocks_per_sm(smem: int, threads: int) -> int:
@@ -288,10 +361,10 @@ def wiener_blocks_per_sm(smem: int, threads: int) -> int:
 
 
 def twiddle_table(nfft: int) -> np.ndarray:
-    """(nfft, 2) float32: e^{−2πi m / nfft} = (cos, −sin). The first
-    quadrant (m < nfft/4) is computed in float64 and rounded once; the
-    others are it times (−i)^q, exact swaps and negations, as the kernels
-    turn it (``Fft::twiddle``)."""
+    """(nfft, 2) float32: e^{−2πi m / nfft} = (cos, −sin), 4 | nfft. The
+    first quadrant (m < nfft/4) is computed in float64 and rounded once;
+    the others are it times (−i)^q, exact swaps and negations, as the
+    kernels turn it (``Fft::twiddle``, ``quarter_twiddle``)."""
     q = nfft // 4
     ang = 2.0 * np.pi * np.arange(q) / nfft
     c, s = np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
@@ -303,7 +376,8 @@ def twiddle_table(nfft: int) -> np.ndarray:
 def twiddles(nfft: int, device: str) -> torch.Tensor:
     """The first quadrant of :func:`twiddle_table` (nfft/4 rows), which the
     kernels copy into shared memory, on ``device``, made once per (nfft,
-    device)."""
+    device): a power of two for the core, and for the split both its P and
+    its nfft (the split's twiddles e^{−2πi n1 k1 / nfft})."""
     return torch.from_numpy(np.ascontiguousarray(twiddle_table(nfft)[: nfft // 4])).to(device)
 
 

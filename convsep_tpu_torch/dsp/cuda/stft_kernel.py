@@ -4,16 +4,21 @@ version.
 Replaces ``convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas``, which the
 from-audio training step runs for the mixture and every stem when
 ``TransformConfig.fft_impl="pallas"``, as does the ``fft_impl="pallas"``
-separation route. ``csrc/stft_dft.cu`` holds two kernels, and the wrapper
-dispatches on the shape:
+separation route. ``csrc/stft_dft.cu`` holds three kernels, and the
+wrapper dispatches on the shape:
 
 * nfft a power of two in [16, 8192] (every preset): the FFT kernel of the
   shared core ``csrc/fft_common.cuh`` (launch plan, twiddles and window
   from :mod:`.fft_plan`), counted as ``LAUNCHES["stft"]``;
-* any other nfft: the dense DFT kernel over the window-folded cos / -sin
-  matrices of :func:`_forward_mats`, counted as ``LAUNCHES["stft_dft"]``.
+* nfft = m · 2^a, m in (3, 5, 9, 15), 2^a >= 16, nfft <= 8192 (768, 1280,
+  1536, 2304, 3072, 6144, …): the core's mixed-radix split
+  (:func:`.fft_plan.split_plan`), counted as ``LAUNCHES["stft_split"]``;
+* any other nfft (1000 = 8 · 125, a factor 7, past 8192): the dense DFT
+  kernel over the window-folded cos / -sin matrices of
+  :func:`_forward_mats`, counted as ``LAUNCHES["stft_dft"]``;
+  :func:`stft_dft_pallas` forces it at any size, to hold and time it.
 
-Both build each frame in shared memory, so the (frames × W) array never
+All build each frame in shared memory, so the (frames × W) array never
 reaches device memory; the file's header says what bounds them on the H100.
 
 The contract is the reference's: (L,) or (B, L) signals, ``win % hop ==
@@ -28,7 +33,14 @@ import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.fft_plan import fft_supported, stft_plan, twiddles, window_f32
+from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    fft_supported,
+    split_plan,
+    split_supported,
+    stft_plan,
+    twiddles,
+    window_f32,
+)
 from convsep_tpu_torch.dsp.dft import _forward_mats, _key, stft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
@@ -57,7 +69,22 @@ def stft_pallas(
     float32, equal to :func:`stft_matmul`.
 
     CPU tensors: :func:`stft_pallas_plain`. CUDA tensors: the FFT kernel
-    where :func:`fft_supported`, else the dense DFT kernel."""
+    where :func:`fft_supported`, the split kernel where
+    :func:`split_supported`, else the dense DFT kernel. A failed build or
+    launch raises."""
+    return _stft(signal, window, hop, nfft, dense=False)
+
+
+def stft_dft_pallas(
+    signal: torch.Tensor, window: np.ndarray, hop: int, nfft: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stft_pallas` through the dense DFT kernel at any nfft (CUDA
+    tensors), so that it can be held to the plain version and timed beside
+    the FFT kernels at their sizes. CPU tensors: the plain version."""
+    return _stft(signal, window, hop, nfft, dense=True)
+
+
+def _stft(signal, window, hop, nfft, dense: bool):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     hop = int(hop)
@@ -77,20 +104,30 @@ def stft_pallas(
     dev = x.device
     re, im = torch.empty((2, B, nf, bins), dtype=torch.float32, device=dev)  # one allocation
     lib = kernels.library()
+    where = str(dev)
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        if fft_supported(nfft):
-            name = "stft"
+        if dense or not (fft_supported(nfft) or split_supported(nfft)):
+            name = "stft_dft"
+        else:
+            name = "stft" if fft_supported(nfft) else "stft_split"
+        if name == "stft":
             plan = stft_plan(B, nf, nfft, win_len, hop)
-            where = str(dev)
             code = lib.stft_fft_launch(
                 x.data_ptr(), window_f32(window, where).data_ptr(),
                 twiddles(nfft, where).data_ptr(), re.data_ptr(), im.data_ptr(),
                 B, L, win_len, hop, nf, nfft, plan.ffts_per_block, stream,
             )
+        elif name == "stft_split":
+            plan = split_plan(B, nf, nfft, win_len, hop)
+            code = lib.stft_split_launch(
+                x.data_ptr(), window_f32(window, where).data_ptr(),
+                twiddles(plan.p, where).data_ptr(), twiddles(nfft, where).data_ptr(),
+                re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft,
+                plan.ffts_per_block, stream,
+            )
         else:
-            name = "stft_dft"
-            cos_m, sin_m = _forward_mats(nfft, _key(window), str(dev))
+            cos_m, sin_m = _forward_mats(nfft, _key(window), where)
             code = lib.stft_dft_launch(
                 x.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), re.data_ptr(),
                 im.data_ptr(), B, L, win_len, hop, nf, bins, stream,

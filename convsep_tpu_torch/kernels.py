@@ -44,8 +44,9 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: dict[str, int] = {
-    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_dft": 0,
-    "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
+    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
+    "stft_dft": 0, "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "ct_stft": 0,
+    "band_decode": 0,
 }
 
 _lock = threading.Lock()
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "stft_dft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, re, im, B, L, W, hop, nf, nfft, ffts_per_block, stream
     "stft_fft_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw_p, tw_n, re, im, B, L, W, hop, nf, nfft, ffts_per_block, stream
+    "stft_split_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
     # re, im, win_over_n, inv_norm, tw, out, out_int16, nt, nf, nfft, win, hop,

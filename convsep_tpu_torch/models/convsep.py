@@ -207,11 +207,12 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device,
     decode at that TM and ``batch`` (the decode's fc rows, B · segments) on
     the card (``FUSED_DECODE_WON``): the reference's rule that "auto" only
     ever picks the winning branch. An unknown batch (None) takes the plain
-    decode. ``compute_dtype="bfloat16"`` routes by the same table, as the
-    reference runs its kernel on bf16 operands: the float32 kernel gets the
-    bf16 operands as float32, and there the plain decode, on bf16 GEMMs,
-    is the faster one (PERF.md). An explicit kernel route asks for the
-    wrapper, which is the plain version on CPU tensors."""
+    decode. The table is keyed on ``cfg.compute_dtype``: under
+    ``"bfloat16"`` the plain decode runs bf16 GEMMs, the float32 kernel
+    gets the bf16 operands as float32 and lost its A/B (PERF.md), and the
+    bf16 table is empty, so "auto" takes "bandconv". An explicit kernel
+    route asks for the wrapper, which is the plain version on CPU tensors
+    (``decoder_impl="bandconv_pallas"`` still runs the kernel under bf16)."""
     impl = cfg.decoder_impl
     if impl in ("bandconv", "bandconv_pallas", *_BAND):
         return impl
@@ -227,7 +228,7 @@ def resolve_decoder_impl(cfg: ConvSepConfig, device: torch.device,
         and batch is not None
         and fused_decode_supported(TpC, TM, cfg.ktaps)
         and kernel_supported(cfg.bottleneck, cfg.ktaps, TM)
-        and fused_decode_won(TM, batch)
+        and fused_decode_won(TM, batch, cfg.compute_dtype)
     ):
         return "bandconv_pallas"
     return "bandconv"

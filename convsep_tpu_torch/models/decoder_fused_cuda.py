@@ -35,24 +35,32 @@ from convsep_tpu_torch import kernels
 _WPAD = 8  # expansion rows are padded to a multiple of this (as the reference)
 _SMEM_MAX = 227 * 1024
 
-# Where the kernel beat band_freq_decode_plain on the card: for each TM
-# (output columns T·stride·C) the runs (first, last) of fc rows B (segments
-# in one call) at which "auto" routes the fused decode (models/convsep.py::
-# resolve_decoder_impl). Every B in a run was timed and won: tools/
-# torch_decode_batches.py timed every B from 1 to 64 and its ``BEYOND``
-# batches, kernel and plain in turns, and a B won when both kernel times
-# were below both plain times (bf16 out, by events; H100 80GB HBM3, 700 W;
-# PERF.md, row 2, names the run). An untimed B takes the plain decode.
-# kernel / plain swings with B mod 4 to 8 (the kernel pads fc rows to a
-# multiple of 4, cuBLAS picks its tiles by B): at TM 120 B 8 1.82, 32 0.84,
-# 33 1.09, 49 0.97, 56 1.03, 64 0.92; past one 64-row tile the launcher pads
-# every tile to 64 rows (B 65 1.59, 98 1.13 at TM 120). chip_smoke.py fails
-# where a routed (TM, B) loses by more than the run-to-run spread.
+# Where the kernel beat band_freq_decode_plain on the card, by the model's
+# compute dtype: for each TM (output columns T·stride·C) the runs (first,
+# last) of fc rows B (segments in one call) at which "auto" routes the fused
+# decode (models/convsep.py::resolve_decoder_impl). Every B in a run was
+# timed and won: tools/torch_decode_batches.py timed every B from 1 to 64
+# and its ``BEYOND`` batches, kernel and plain in turns, and a B won when
+# both kernel times were below both plain times (bf16 out, by events; H100
+# 80GB HBM3, 700 W; PERF.md, row 2, names the run). An untimed B takes the
+# plain decode. kernel / plain swings with B mod 4 to 8 (the kernel pads fc
+# rows to a multiple of 4, cuBLAS picks its tiles by B): at TM 120 B 8 1.82,
+# 32 0.84, 33 1.09, 49 0.97, 56 1.03, 64 0.92; past one 64-row tile the
+# launcher pads every tile to 64 rows (B 65 1.59, 98 1.13 at TM 120).
+# chip_smoke.py fails where a routed (TM, B) loses by more than the
+# run-to-run spread. The sweep ran the float32 model. Under
+# compute_dtype="bfloat16" the plain decode runs bf16 GEMMs and the kernel
+# still does 3xTF32 work on the bf16 operands: it lost its one timed A/B
+# (highres4096 B 49, 5.956 ms against 1.410; PERF.md), so no bf16 batch is
+# routed until a kernel wins one.
 FUSED_DECODE_WON = {
-    120: ((20, 20), (29, 32), (38, 40), (47, 49), (51, 52), (58, 64), (128, 128)),
-    240: ((14, 16), (19, 20), (29, 36), (40, 40), (43, 52), (54, 56), (59, 64), (112, 112),
-          (128, 128)),
-    360: ((13, 20), (22, 24), (26, 64), (98, 98), (112, 112), (128, 128), (196, 196)),
+    "float32": {
+        120: ((20, 20), (29, 32), (38, 40), (47, 49), (51, 52), (58, 64), (128, 128)),
+        240: ((14, 16), (19, 20), (29, 36), (40, 40), (43, 52), (54, 56), (59, 64),
+              (112, 112), (128, 128)),
+        360: ((13, 20), (22, 24), (26, 64), (98, 98), (112, 112), (128, 128), (196, 196)),
+    },
+    "bfloat16": {},
 }
 
 # the kernel's tile (csrc/decoder_fused.cu)
@@ -61,11 +69,12 @@ TC = 8               # t per chunk: one TF32 k-step
 MAX_CLUSTER = 8      # blocks per cluster (the portable limit)
 
 
-def fused_decode_won(TM: int, B: int) -> bool:
+def fused_decode_won(TM: int, B: int, compute_dtype: str = "float32") -> bool:
     """Whether the kernel won its A/B against the plain decode at TM
-    columns and B fc rows: B lies in one of the TM's runs of won batches
-    (``FUSED_DECODE_WON``)."""
-    return any(lo <= B <= hi for lo, hi in FUSED_DECODE_WON.get(TM, ()))
+    columns and B fc rows for a model of ``compute_dtype``: B lies in one
+    of the TM's runs of won batches (``FUSED_DECODE_WON[compute_dtype]``)."""
+    runs = FUSED_DECODE_WON[compute_dtype].get(TM, ())
+    return any(lo <= B <= hi for lo, hi in runs)
 
 
 def w_pad_rows(W: int, ktaps: int) -> int:

@@ -24,6 +24,7 @@ tensorboard.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -224,9 +225,10 @@ class MetricsLogger:
 
 
 class Trainer:
-    """Epoch loop with a one-deep device prefetch, checkpoints and resume,
-    on one device (``device=None``: the GPU, which raises without one; the
-    CPU only when asked for). ``from_audio=False`` trains on a feature-file
+    """Epoch loop fed by a prefetch thread (``prefetch_to_device``), with
+    checkpoints and resume, on one device (``device=None``: the GPU, which
+    raises without one; the CPU only when asked for). ``from_audio=False``
+    trains on a feature-file
     :class:`~convsep_tpu_torch.data.pipeline.SegmentDataset`, ``True`` on
     an :class:`~convsep_tpu_torch.data.audio_dataset.AudioSegmentDataset`
     (the STFT inside the step). With ``workdir``, checkpoints go to
@@ -358,37 +360,37 @@ class Trainer:
                 stop = False
                 t_win = time.perf_counter()
                 steps_win = 0
-                for x, y in prefetch_to_device(batches, self.device):
-                    prev_step = step
-                    self.state, m = self.train_step(self.state, x, y)
-                    step += 1
-                    consumed += 1
-                    steps_win += 1
-                    losses.append(m["loss"])
-                    gnorms.append(m["grad_norm"])
-                    self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed, "grain": None}
-                    if tr.debug_nans and not bool(torch.isfinite(losses[-1])):
-                        raise FloatingPointError(f"non-finite loss at step {step}")
-                    if self._ckpt is not None and (
-                        step // tr.checkpoint_every_steps > prev_step // tr.checkpoint_every_steps
-                    ):
-                        self._save(step)
-                    # read the previous step's metrics, at the print cadence
-                    # only: the current one may still be running
-                    if step % logger.print_every == 0 and len(losses) >= 2:
-                        now = time.perf_counter()
-                        step_s = (now - t_win) / steps_win
-                        logger.log(
-                            step=step - 1, epoch=epoch, loss=float(losses[-2]),
-                            grad_norm=float(gnorms[-2]),
-                            step_time_ms=round(step_s * 1e3, 3),
-                            rtf_train=round(audio_sec_per_step / step_s, 1),
-                        )
-                        t_win = now
-                        steps_win = 0
-                    if max_steps is not None and step >= max_steps:
-                        stop = True
-                        break
+                with contextlib.closing(prefetch_to_device(batches, self.device)) as fed:
+                    for x, y in fed:
+                        prev_step = step
+                        self.state, m = self.train_step(self.state, x, y)
+                        step += 1
+                        consumed += 1
+                        steps_win += 1
+                        losses.append(m["loss"])
+                        gnorms.append(m["grad_norm"])
+                        self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed, "grain": None}
+                        if tr.debug_nans and not bool(torch.isfinite(losses[-1])):
+                            raise FloatingPointError(f"non-finite loss at step {step}")
+                        every = tr.checkpoint_every_steps
+                        if self._ckpt is not None and step // every > prev_step // every:
+                            self._save(step)
+                        # read the previous step's metrics, at the print cadence
+                        # only: the current one may still be running
+                        if step % logger.print_every == 0 and len(losses) >= 2:
+                            now = time.perf_counter()
+                            step_s = (now - t_win) / steps_win
+                            logger.log(
+                                step=step - 1, epoch=epoch, loss=float(losses[-2]),
+                                grad_norm=float(gnorms[-2]),
+                                step_time_ms=round(step_s * 1e3, 3),
+                                rtf_train=round(audio_sec_per_step / step_s, 1),
+                            )
+                            t_win = now
+                            steps_win = 0
+                        if max_steps is not None and step >= max_steps:
+                            stop = True
+                            break
                 if stop:
                     if self._ckpt is not None:
                         self._save(step)

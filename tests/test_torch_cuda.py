@@ -35,7 +35,7 @@ from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     wiener_istft_plain,
 )
 from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain, launch_istft
-from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas, stft_pallas_plain
+from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas, stft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
 from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
 from convsep_tpu_torch.dsp.windows import sinebell
@@ -210,7 +210,7 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
-    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_dft": 0,
+    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0, "stft_dft": 0,
                 "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "wiener_istft_ny": 0,
                 "ct_stft": 0, "band_decode": 0}
     assert kernels.LAUNCHES == launched
@@ -238,21 +238,34 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
         (1024, 512, 1, 1_474_560),  # the dsd100 fft_impl="pallas" track: nf 2882
         (1024, 512, 128, 14336),  # the training step's stems
         (8192, 2048, 2, 60000),   # nf 32, the FFT core's largest size
-        (768, 256, 3, 20000),     # not a power of two: the dense DFT kernel
-        (1000, 250, 2, 9001),
+        (768, 256, 3, 20000),     # 3 · 256: the mixed-radix split
+        (1536, 384, 2, 20000),    # 3 · 512
+        (1280, 320, 3, 14336),    # 5 · 256
+        (3072, 768, 2, 40000),    # 3 · 1024
+        (2304, 576, 2, 30000),    # 9 · 256
+        (48, 16, 2, 999),         # 3 · 16: groups of 3 threads share warps
+        (240, 60, 2, 5000),       # 15 · 16
+        (6144, 1536, 1, 60000),   # 3 · 2048, the split's largest P
+        (1000, 250, 2, 9001),     # 8 · 125: the dense DFT kernel
     ],
 )
 def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
-    """Powers of two launch the FFT kernel ("stft"), other sizes the dense
-    DFT kernel ("stft_dft"), each exactly once."""
+    """Powers of two launch the FFT kernel ("stft"), m · 2^a (m 3, 5, 9,
+    15) the split kernel ("stft_split"), other sizes the dense DFT kernel
+    ("stft_dft"), each exactly once and no other."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
+
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
-    used, other = ("stft", "stft_dft") if nfft & (nfft - 1) == 0 else ("stft_dft", "stft")
+    used = ("stft" if nfft & (nfft - 1) == 0 else "stft_split" if split_supported(nfft)
+            else "stft_dft")
+    assert used != "stft_split" or nfft in (768, 1536, 1280, 3072, 2304, 48, 240, 6144)
+    names = ("stft", "stft_split", "stft_dft")
     before = dict(kernels.LAUNCHES)
     re, im = stft_pallas(x, w, hop)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[used] == before[used] + 1
-    assert kernels.LAUNCHES[other] == before[other]
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in names} == {k: int(k == used)
+                                                                    for k in names}
     re_p, im_p = stft_pallas_plain(x, w, hop)
     assert re.shape == re_p.shape == (B, -(-length // hop) + 2, nfft // 2 + 1)
     peak = max(re_p.abs().max().item(), im_p.abs().max().item())
@@ -261,6 +274,36 @@ def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     r1, i1 = stft_pallas(x[0], w, hop)  # unbatched
     torch.testing.assert_close(r1, re[0], atol=0, rtol=0)
     torch.testing.assert_close(i1, im[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,hop", [(768, 256), (1280, 320)])
+def test_dense_stft_kernel_forced_at_split_sizes(rng, cuda, nfft, hop):
+    """stft_dft_pallas runs the dense kernel where the wrapper would take the
+    split: both held to the plain version, one launch each."""
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, 14336))).astype(np.float32)).to(cuda)
+    w = sinebell(nfft)
+    re_p, im_p = stft_pallas_plain(x, w, hop)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    for fn, name in ((stft_dft_pallas, "stft_dft"), (stft_pallas, "stft_split")):
+        before = kernels.LAUNCHES[name]
+        re, im = fn(x, w, hop)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
+        torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
+
+
+def test_stft_split_nfft_past_window(rng, cuda):
+    x = torch.from_numpy(rng.standard_normal((3, 5000)).astype(np.float32)).to(cuda)
+    w = sinebell(640)
+    before = kernels.LAUNCHES["stft_split"]
+    re, im = stft_pallas(x, w, 160, nfft=768)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_split"] == before + 1
+    re_p, im_p = stft_pallas_plain(x, w, 160, nfft=768)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
 
 
 def test_stft_kernel_nfft_past_window(rng, cuda):
@@ -987,6 +1030,92 @@ def test_feature_step_fused_matches_plain_route(cuda):
         assert torch.equal(a.params[k], b.params[k]), k
         assert torch.equal(sa.accu[k], sb.accu[k]), k
         assert torch.equal(sa.delta_accu[k], sb.delta_accu[k]), k
+
+
+class _Batches:
+    """A feature dataset's ``batches`` of seeded random host arrays."""
+
+    def __init__(self, preset, n: int):
+        self.preset, self.n = preset, n
+
+    def batches(self, batch_size, shuffle=True, seed=0, start=0):
+        m = self.preset.model
+        rng = np.random.default_rng(seed)
+        for _ in range(start, self.n):
+            x = 0.3 * rng.random((batch_size, m.time_context, m.feat_size, 1), np.float32)
+            y = 0.3 * rng.random((batch_size, m.num_sources, m.time_context, m.feat_size),
+                                 np.float32)
+            yield x, y
+
+
+def _pinned_buffers():
+    """Patch the prefetch's pinned pool to record every buffer it hands out."""
+    from convsep_tpu_torch.data import pipeline
+
+    seen = []
+    real = pipeline._Uploader._buffer
+
+    def record(self, shape, dtype):
+        entry = real(self, shape, dtype)
+        seen.append((shape, entry[0].data_ptr(), entry[0].is_pinned()))
+        return entry
+
+    return mock.patch.object(pipeline._Uploader, "_buffer", record), seen
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """prefetch_to_device with a CUDA device: every batch arrives on the
+    card equal to its host arrays, in order, behind work still running on
+    the consumer's stream; the producer stages through at most size + 1
+    pinned buffers per leaf shape, reused, and ends with the loop."""
+    import threading
+
+    from convsep_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [(rng.standard_normal((64, 1000)).astype(np.float32),
+             rng.standard_normal(300).astype(np.float32)) for _ in range(10)]
+    patch, seen = _pinned_buffers()
+    a = torch.randn(2048, 2048, device=cuda)
+    with patch:
+        for i, (x, y) in enumerate(prefetch_to_device(iter(host), cuda, size=2)):
+            busy = a @ a  # the step: device work the next upload overlaps
+            assert x.device.type == "cuda" and y.device.type == "cuda"
+            np.testing.assert_array_equal((x * 1.0).cpu().numpy(), host[i][0])
+            np.testing.assert_array_equal(y.cpu().numpy(), host[i][1])
+            del busy
+    assert i == 9 and len(seen) == 20 and all(p for _, _, p in seen)
+    for shape in ((64, 1000), (300,)):
+        assert len({ptr for s, ptr, _ in seen if s == shape}) <= 3
+    assert not [t for t in threading.enumerate() if t.name == "prefetch_to_device"]
+
+
+def test_trainer_fit_on_the_card_with_the_prefetch_thread(cuda):
+    """Trainer(dsd100, feature files' batches).fit(max_steps=6) on the card:
+    batches come through the prefetch thread and its pinned pool (reused),
+    two adadelta launches a step, a finite loss, and no thread left after
+    each of two fits."""
+    import threading
+
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import loop
+
+    p = get_preset("dsd100")
+    p = dataclasses.replace(p, train=dataclasses.replace(p.train, optimizer_impl="fused",
+                                                         batch_size=4, log_every_steps=2))
+    trainer = loop.Trainer(p, device=cuda)
+    patch, seen = _pinned_buffers()
+    kernels.reset_launches()
+    with patch:
+        for stop in (3, 6):
+            losses = trainer.fit(_Batches(p, 50), num_epochs=1, max_steps=stop)
+            assert int(trainer.state.step) == stop and losses == []
+            assert not [t for t in threading.enumerate() if t.name == "prefetch_to_device"]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_adadelta"] == 2 * 6
+    assert all(pinned for _, _, pinned in seen) and len(seen) >= 2 * 6
+    assert len({ptr for _, ptr, _ in seen}) <= 2 * 2 * 3  # two fits, two leaves, 3 each
+    assert all(torch.isfinite(v).all() for v in trainer.state.params.values())
 
 
 def test_checkpoint_round_trip_of_a_cuda_state(cuda, tmp_path):

@@ -12,7 +12,8 @@
   recomputed share of stage 1, the K4 reads, the fc row padding; and
   ``kernel_supported``'s envelope.
 * The repair around it: "auto" takes the kernel only at the TMs and
-  batches at which it won on the card (``FUSED_DECODE_WON``). (The other repair, the float32
+  batches at which it won on the card (``FUSED_DECODE_WON``, keyed on the
+  compute dtype; the bf16 entry is empty). (The other repair, the float32
   contract, is ``test_torch_precision.py``'s.)
 """
 
@@ -185,7 +186,7 @@ def test_kernel_envelope():
 def test_auto_routes_the_kernel_only_where_it_won(monkeypatch, preset, TM, won):
     cfg = get_preset(preset).model
     assert cfg.time_context * cfg.conv1_freq_stride * cfg.channels_in == TM
-    monkeypatch.setattr(dfc, "FUSED_DECODE_WON", won)
+    monkeypatch.setattr(dfc, "FUSED_DECODE_WON", {"float32": won, "bfloat16": {}})
     cuda = torch.device("cuda")
     want = "bandconv_pallas" if TM in won else "bandconv"
     assert tconv.resolve_decoder_impl(cfg, cuda, 49) == want
@@ -196,6 +197,8 @@ def test_auto_routes_the_kernel_only_where_it_won(monkeypatch, preset, TM, won):
     assert tconv.resolve_decoder_impl(cfg, torch.device("cpu"), 49) == "bandconv"
     forced = dataclasses.replace(cfg, decoder_impl="bandconv_pallas")
     assert tconv.resolve_decoder_impl(forced, cuda, 8) == "bandconv_pallas"
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")  # the bf16 table is empty
+    assert tconv.resolve_decoder_impl(bf16, cuda, 49) == "bandconv"
 
 
 @pytest.mark.parametrize("B,routed", [(8, False), (16, False), (20, True), (32, True),
@@ -219,9 +222,28 @@ def test_won_tms_are_inside_the_reference_rule():
     (one-point runs, since they are not consecutive)."""
     from tools.torch_decode_batches import BEYOND
 
-    for TM, runs in dfc.FUSED_DECODE_WON.items():
+    assert set(dfc.FUSED_DECODE_WON) == {"float32", "bfloat16"}
+    assert dfc.FUSED_DECODE_WON["bfloat16"] == {}  # no kernel has won a bf16 A/B
+    for TM, runs in dfc.FUSED_DECODE_WON["float32"].items():
         assert dfc.fused_decode_supported(800, TM, 8)
         assert runs and all(1 <= lo <= hi for lo, hi in runs)
         assert all(a[1] + 1 < b[0] for a, b in zip(runs, runs[1:]))
         for lo, hi in runs:
             assert hi <= dfc.BT or (lo == hi and lo in BEYOND)
+
+
+@pytest.mark.parametrize("B", [8, 32, 49, 64])
+def test_auto_routes_bf16_compute_to_the_plain_decode(B):
+    """Under compute_dtype="bfloat16" "auto" takes the plain bf16 decode at
+    every batch (the bf16 won table is empty); float32 keeps its routes, and
+    an explicit "bandconv_pallas" stays the kernel. The CUDA device is a
+    value only: no card is touched."""
+    cuda = torch.device("cuda")
+    cfg = get_preset("highres4096").model
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    assert tconv.resolve_decoder_impl(bf16, cuda, B) == "bandconv"
+    assert not dfc.fused_decode_won(120, B, "bfloat16")
+    want = "bandconv_pallas" if dfc.fused_decode_won(120, B) else "bandconv"
+    assert tconv.resolve_decoder_impl(cfg, cuda, B) == want
+    forced = dataclasses.replace(bf16, decoder_impl="bandconv_pallas")
+    assert tconv.resolve_decoder_impl(forced, cuda, B) == "bandconv_pallas"

@@ -196,6 +196,20 @@ def test_trainer_fits_port_features(port_features, tmp_path):
     np.testing.assert_allclose(v, want, rtol=1e-6)
 
 
+def test_trainer_fits_leave_no_prefetch_thread(port_features):
+    """``fit(max_steps=)`` stops inside an epoch: the prefetch generator is
+    closed and its producer ends, so repeated fits do not pile up threads."""
+    import threading
+
+    pp = port(_with(PRESETS["ikala_tiny"](num_epochs=4, log_every_steps=1)))
+    ds = _dataset(port_features, "train", pp)
+    trainer = loop.Trainer(pp, device="cpu")
+    for stop in (1, 2, 3):
+        trainer.fit(ds, max_steps=stop)
+        assert int(trainer.state.step) == stop
+        assert not [t for t in threading.enumerate() if t.name == "prefetch_to_device"]
+
+
 def test_feature_training_never_imports_jax(tmp_path):
     """compute_features, SegmentDataset, a checkpointed feature-file fit
     and its restore leave jax, flax and the JAX package out of

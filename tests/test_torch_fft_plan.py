@@ -97,7 +97,8 @@ def test_plan_refusals():
             fp.stft_plan(1, 10, n, n, n // 2)
 
 
-@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                                  48, 80, 768, 1280, 2304, 6144])  # and the split's
 def test_twiddle_table(nfft):
     tab = fp.twiddle_table(nfft)
     assert tab.shape == (nfft, 2) and tab.dtype == np.float32
@@ -192,11 +193,12 @@ def test_core_matches_torch_fft(rng, nfft):
     torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
 
 
-def core_stft(x: torch.Tensor, window: np.ndarray, hop: int, nfft: int) -> torch.Tensor:
-    """stft_block in float32: frames f hop − W/2 + t of the zero-padded
-    signal, windowed, zero-padded to nfft; frames 2g and 2g + 1 ride one
-    transform (a zero frame after an odd last one) and split again.
-    Returns (B, nf, nfft/2 + 1) complex64."""
+def core_stft(x: torch.Tensor, window: np.ndarray, hop: int, nfft: int,
+              fft=core_fft) -> torch.Tensor:
+    """stft_block in float32 (``fft``: split_fft for stft_split_block):
+    frames f hop − W/2 + t of the zero-padded signal, windowed, zero-padded
+    to nfft; frames 2g and 2g + 1 ride one transform (a zero frame after an
+    odd last one) and split again. Returns (B, nf, nfft/2 + 1) complex64."""
     W = len(window)
     nf = num_frames(x.shape[-1], hop)
     frames = frame_signal(_pad_signal(x, W, hop), W, hop, nf)
@@ -204,7 +206,7 @@ def core_stft(x: torch.Tensor, window: np.ndarray, hop: int, nfft: int) -> torch
     frames = torch.nn.functional.pad(frames, (0, nfft - W))
     if nf % 2:
         frames = torch.nn.functional.pad(frames, (0, 0, 0, 1))
-    zz = core_fft(torch.complex(frames[..., 0::2, :], frames[..., 1::2, :]))
+    zz = fft(torch.complex(frames[..., 0::2, :], frames[..., 1::2, :]))
     k = torch.arange(nfft // 2 + 1)
     z, w = zz[..., k], zz[..., (nfft - k) % nfft].conj()
     a, b = 0.5 * (z + w), -0.5j * (z - w)
@@ -280,6 +282,199 @@ def test_exchange_slots_avoid_bank_conflicts(nfft):
             k = np.arange(h, h + 16) + T * q
             split = max(split, _ways(fp.exchange_slot((nfft - k) % nfft).tolist(), 16))
     assert split <= 2
+
+
+# -- the mixed-radix split (fft_common.cuh::stft_split_block) ---------------
+
+SPLIT_SIZES = [48, 80, 768, 1280, 1536, 2304, 3072, 6144]
+
+
+def _root(M: int, e, dtype):
+    """e^{−2πi e / M} rounded once to the working precision: the kernel's
+    literal roots (``root<M>``), or its float32 twiddle table's entries."""
+    w = np.complex64(np.exp(-2j * np.pi * e / M))
+    return torch.tensor(complex(w), dtype=dtype)
+
+
+def _radix3(u0, u1, u2):
+    s3 = float(np.float32(np.sqrt(3) / 2))
+    t1 = u1 + u2
+    t2 = u0 - 0.5 * t1
+    d = (u1 - u2) * s3  # X1 = t2 − i d, X2 = t2 + i d
+    return [u0 + t1, t2 - 1j * d, t2 + 1j * d]
+
+
+def _radix5(u0, u1, u2, u3, u4):
+    c1, c2 = (float(np.float32(np.cos(a))) for a in (2 * np.pi / 5, 4 * np.pi / 5))
+    s1, s2 = (float(np.float32(np.sin(a))) for a in (2 * np.pi / 5, 4 * np.pi / 5))
+    a1, b1, a2, b2 = u1 + u4, u1 - u4, u2 + u3, u2 - u3
+    r1, r2 = u0 + c1 * a1 + c2 * a2, u0 + c2 * a1 + c1 * a2
+    i1, i2 = s1 * b1 + s2 * b2, s2 * b1 - s1 * b2
+    return [u0 + a1 + a2, r1 - 1j * i1, r2 - 1j * i2, r2 + 1j * i2, r1 + 1j * i1]
+
+
+def dft_odd(u: list, M: int) -> list:
+    """fft_common.cuh::dft_odd<M> on a list of M tensors (the registers):
+    the radix-3 and radix-5 butterflies; 9 = 3 × 3 and 15 = 3 × 5 by
+    Cooley–Tukey (R1 = 3 sub-DFTs of R2 points at stride 3, the literal
+    twiddles e^{−2πi n1 k1 / M}, R2 DFTs of 3), output in natural order."""
+    dtype = u[0].dtype
+    if M == 3:
+        return _radix3(*u)
+    if M == 5:
+        return _radix5(*u)
+    r1, r2 = 3, M // 3
+    t = {}
+    for n1 in range(r1):
+        sub = dft_odd([u[r1 * n2 + n1] for n2 in range(r2)], r2)
+        for k1 in range(r2):
+            t[n1, k1] = sub[k1] * _root(M, n1 * k1, dtype) if n1 * k1 else sub[k1]
+    out = [None] * M
+    for k1 in range(r2):
+        col = dft_odd([t[n1, k1] for n1 in range(r1)], r1)
+        for k2 in range(r1):
+            out[k1 + r2 * k2] = col[k2]
+    return out
+
+
+def split_fft(z: torch.Tensor) -> torch.Tensor:
+    """stft_split_block's transform on (..., N) complex, N = m · P: stage 1
+    runs the core on the m sub-sequences n1 (points m n2 + n1) into the
+    group's exchange buffer, sub-FFT n1's bin k1 at slot(n1 P + k1); stage
+    2, for each column k1, reads slot(n P + k1) for n < m, multiplies by
+    e^{−2πi n k1 / N} from the N-point float32 table, runs dft_odd<m> and
+    writes bin k1 + P k2 back to slot(k2 P + k1): Z in natural order."""
+    N = z.shape[-1]
+    m, P = fp.split_factors(N)
+    buf = torch.full((*z.shape[:-1], fp.exchange_entries(N)), float("nan"), dtype=z.dtype)
+    k1 = torch.arange(P)
+    for n1 in range(m):
+        buf[..., fp.exchange_slot(n1 * P + k1)] = core_fft(z[..., n1::m])
+    tw = torch.from_numpy(fp.twiddle_table(N).astype(np.float64)).to(z.dtype.to_real())
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    u = [buf[..., fp.exchange_slot(n * P + k1)] for n in range(m)]
+    u = [u[0]] + [u[n] * tw[n * k1] for n in range(1, m)]
+    for k2, col in enumerate(dft_odd(u, m)):
+        buf[..., fp.exchange_slot(k2 * P + k1)] = col
+    return buf[..., fp.exchange_slot(torch.arange(N))]
+
+
+@pytest.mark.parametrize("nfft", SPLIT_SIZES)
+def test_split_matches_torch_fft(rng, nfft):
+    z = rng.standard_normal((3, nfft)) + 1j * rng.standard_normal((3, nfft))
+    got = split_fft(torch.from_numpy(z))
+    want = torch.fft.fft(torch.from_numpy(z))
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("m", [3, 5, 9, 15])
+def test_odd_dfts_match_torch_fft(rng, m):
+    z = torch.from_numpy(rng.standard_normal((4, m)) + 1j * rng.standard_normal((4, m)))
+    got = torch.stack(dft_odd(list(z.unbind(-1)), m), -1)
+    want = torch.fft.fft(z)
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length", [
+    (n, n, n // 4, 2, 7 * n + 123) for n in SPLIT_SIZES] + [
+    (768, 640, 160, 2, 5000),      # nfft past the window
+    (768, 768, 256, 1, 14336),     # the smoke's shape, nf 58
+    (1280, 1280, 320, 1, 14336),   # m = 5
+    (48, 48, 16, 1, 1),            # one sample
+])
+def test_split_stft_matches_stft_pallas_plain(rng, nfft, win, hop, B, length):
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32))
+    w = sinebell(win)
+    got = core_stft(x, w, hop, nfft, fft=split_fft)
+    re, im = stft_pallas_plain(x, w, hop, nfft)
+    peak = max(re.abs().max().item(), im.abs().max().item())
+    torch.testing.assert_close(got.real, re, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(got.imag, im, atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("signals,length,nfft,win,hop", [
+    (32, 14336, 768, 768, 256), (32, 14336, 1280, 1280, 320), (2, 20000, 1536, 1536, 384),
+    (2, 30000, 3072, 3072, 768), (2, 20000, 2304, 2304, 576), (3, 40000, 6144, 6144, 1536),
+    (1, 1, 48, 48, 16), (5, 999, 80, 80, 40), (2, 5000, 240, 240, 60), (1, 60000, 7680, 7680, 1920),
+    (1, 1_474_560, 768, 768, 256), (3, 5000, 768, 640, 160),
+])
+def test_split_plan(signals, length, nfft, win, hop):
+    nf = num_frames(length, hop)
+    plan = fp.split_plan(signals, nf, nfft, win, hop)
+    m, p = fp.split_factors(nfft)
+    assert (plan.m, plan.p) == (m, p) and m * p == nfft and m in fp.SPLIT_ODD
+    assert fp.fft_supported(p) and not fp.fft_supported(nfft)
+    g = plan.ffts_per_block
+    assert g & (g - 1) == 0 and plan.threads == g * m * fp.threads_per_fft(p)
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS  # whole warps
+    assert plan.smem_bytes == fp.split_smem_bytes(nfft, win, hop, g) <= fp.SMEM_MAX
+    per = plan.blocks_per_signal
+    assert per * 2 * g >= nf > (per - 1) * 2 * g and plan.blocks == signals * per
+    if plan.blocks < 2 * fp.SMS:
+        assert plan.threads == max(1, 32 // fp.threads_per_fft(p)) * nfft // fp.POINTS
+
+
+def test_split_main_shapes():
+    """The smoke's shapes, W 768 / hop 256 and W 1280 / hop 320 at B 32 (58
+    and 47 frames): two transforms a block, 480 and 384 blocks."""
+    a = fp.split_plan(32, num_frames(14336, 256), 768, 768, 256)
+    b = fp.split_plan(32, num_frames(14336, 320), 1280, 1280, 320)
+    assert (a.ffts_per_block, a.threads, a.blocks) == (2, 96, 480)
+    assert (b.ffts_per_block, b.threads, b.blocks) == (2, 160, 384)
+
+
+def test_split_refusals():
+    """Powers of two go to the core's own kernel; 1000 = 8 · 125 (2^a < 16
+    and 125 is not a split factor), 7 · 256 (a factor 7), 3 · 8 (2^a < 16)
+    and sizes past 8192 stay on the dense DFT kernel."""
+    for n in (1000, 1024, 7 * 256, 24, 16, 8192, 3 * 4096, 25 * 64, 27 * 16):
+        assert not fp.split_supported(n)
+        with pytest.raises(ValueError, match="no split plan"):
+            fp.split_plan(1, 10, n, n, n // 2)
+    assert all(fp.split_supported(m * p) for m in fp.SPLIT_ODD
+               for p in (16, 32, 64, 128, 256, 512) if m * p <= 8192)
+
+
+@pytest.mark.parametrize("nfft", [48, 80, 240, 768, 1280, 2304, 3072, 6144, 7680])
+def test_split_slots_avoid_bank_conflicts(nfft):
+    """The split's own accesses, with the block's threads laid out as the
+    kernel lays them (group g = tid / T, T = nfft/16; its exchange buffer at
+    g (N + N/16)): stage 2's reads and writes of column k1 = jj + T q at
+    slot(n P + k1) meet distinct banks in each half-warp; stage 1's loads of
+    the span (floats at stride m within a sub-FFT: a group reads m · P/16
+    consecutive floats a register, of which a warp holds a part) meet at
+    most two ways within each group of a warp (where groups share a warp
+    their spans sit 2 hop floats apart, which depends on hop); the split's
+    mirrored read is at most two-way."""
+    m, p = fp.split_factors(nfft)
+    plan = fp.split_plan(64, 100, nfft, nfft, nfft // 4)
+    T, t1, E = nfft // fp.POINTS, fp.threads_per_fft(p), fp.exchange_entries(nfft)
+    tid = np.arange(plan.threads)
+    g, jj = tid // T, tid % T
+    worst = split = span = 1
+    for h in range(0, plan.threads, 16):
+        gh, jh = g[h:h + 16], jj[h:h + 16]
+        for q in range(-(-p // T)):
+            k1 = jh + T * q
+            live = k1 < p
+            for n in range(m):
+                slots = (gh * E + fp.exchange_slot(n * p + k1))[live]
+                if slots.size:
+                    worst = max(worst, _ways(slots.tolist(), 16))
+        for q in range(fp.POINTS // 2 + 1):
+            k = jh + T * q
+            live = (k <= nfft // 2) & ((q < fp.POINTS // 2) | (jh == 0))
+            mir = (gh * E + fp.exchange_slot((nfft - k) % nfft))[live]
+            if mir.size:
+                split = max(split, _ways(mir.tolist(), 16))
+    for w in range(0, plan.threads, 32):  # floats: 32 banks of 4 bytes a warp
+        gw, jw = g[w:w + 32], jj[w:w + 32]
+        for mm in range(fp.POINTS):
+            t = m * (jw % t1 + t1 * mm) + jw // t1
+            for gg in set(gw.tolist()):
+                span = max(span, _ways(t[gw == gg].tolist(), 32))
+    assert worst == 1
+    assert span <= 2 and split <= 2
 
 
 # -- the forward mirror's bits, before and after the inverse direction ------

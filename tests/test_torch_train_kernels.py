@@ -37,6 +37,8 @@ from convsep_tpu_torch.train.optim import AdadeltaState, global_norm, lasagne_ad
         (256, 64, None, (2,)),
         (512, 128, 1024, (2,)),
         (128, 128, None, ()),
+        (768, 256, None, (2,)),   # 3 · 256: the mixed-radix split on the card
+        (1280, 320, None, (2,)),  # 5 · 256
     ],
 )
 def test_stft_pallas_matches_jax(rng, nfft, hop, nfft_pad, lead):

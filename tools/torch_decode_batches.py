@@ -16,7 +16,8 @@ events around 10 calls, median of 5 rounds), kernel and plain in turns:
 plain, kernel, kernel, plain. A point is won when both kernel times are
 below both plain times. The tool prints, per TM, the won batches as
 ranges of consecutive timed points: the literal of
-``models/decoder_fused_cuda.py::FUSED_DECODE_WON``. ``--out`` writes the
+``models/decoder_fused_cuda.py::FUSED_DECODE_WON["float32"]`` (the sweep runs
+the float32 model). ``--out`` writes the
 numbers as JSON. Prints the card's name and power limit (nvidia-smi).
 """
 
@@ -97,7 +98,7 @@ def main() -> int:
         print(f"TM {TM} won: {rule[TM]}", flush=True)
         del model, ops
         torch.cuda.empty_cache()
-    print(f"FUSED_DECODE_WON = {rule}", flush=True)
+    print(f'FUSED_DECODE_WON["float32"] = {rule}', flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card, "won": {str(k): v for k, v in
