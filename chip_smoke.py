@@ -36,9 +36,10 @@ result line is printed):
    step's shapes: the FFT STFT kernel on (32, 14 336) and (128, 14 336)
    signals (W 1024, hop 512) beside ``torch.stft(center=False)`` on the
    same padded signal; the split STFT kernel (m · 2^a sizes) on (32, 14
-   336) at W 768, hop 256 and W 1280, hop 320, beside the dense DFT kernel
-   forced at the same shapes; the dense DFT kernel where it serves (W
-   1000, hop 250); each call launching its kernel once and no other
+   336) at W 768, hop 256 and W 1280, hop 320, and the Bluestein kernel at
+   W 1000, hop 250, beside the dense DFT kernel forced at the same shapes;
+   the dense DFT kernel where it serves (W 6000, hop 1500); each call
+   launching its kernel once and no other
    (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
    a child process: a profiler session slows its process's host for good)
    and its wrapper's host time per call; the fused adadelta kernel on
@@ -55,13 +56,14 @@ result line is printed):
    on ``torch.fft.rfft`` of the same frames) that show how far
    float32-correct routes part; ms per step and training real-time factor
    on both routes;
-7. the iSTFT kernel vs its plain version at the stereo highres4096 shapes
-   (8 signals, nf 1442, 2049 bins, through ``istft_ct_pallas``, float32
-   and int16) and the dsd100 pallas-route shapes (4 signals, nf 2882, 513
-   bins, through ``istft_pallas``), beside ``torch.istft``, with both
-   device times (in a child) and the wrapper's host time; and its direct
-   sum at W 768, hop 256 (4 stems of a 30 s track); 7b: the Wiener+iSTFT
-   kernel's direct sum at the same shape, as phase 3;
+7. the iSTFT kernels vs their plain version, float32 and int16, at the
+   stereo highres4096 shapes (8 signals, nf 1442, 2049 bins, through
+   ``istft_ct_pallas``) and the dsd100 pallas-route shapes (4 signals, nf
+   2882, 513 bins, through ``istft_pallas``), beside ``torch.istft``, with
+   both device times (in a child) and the wrapper's host time; the split
+   run backwards at W 768, hop 256 and the direct sum at W 1000, hop 250
+   (4 stems of a 30 s track each); each call launching its kernel once and
+   no other; 7b: the Wiener+iSTFT kernel's direct sum at W 768, as phase 3;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -234,14 +236,18 @@ MIN_SNR_BAND_DB = 30.0
 TRAIN_STEPS = 20
 TRAIN_TRACKS = 8
 TRAIN_SECONDS = 20
-# the 4 stems of a 30 s track at W 768, hop 256: the direct sums of the
-# inverse kernels (sizes that are not powers of two), timed, no main path
+# the 4 stems of a 30 s track at W 768, hop 256 (the split, run backwards
+# by the iSTFT; the Wiener+iSTFT kernel's direct sum) and at W 1000, hop 250
+# (the iSTFT's direct sum): sizes that are not powers of two, timed, no
+# main path
 W768_NF = 5170
-# the iSTFT kernel's shapes on the two new paths: (path, nfft, hop, nf,
-# signals, through istft_ct_pallas (else istft_pallas))
-ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True),
-                ("dsd100 pallas route", 1024, 512, 2882, 4, False),
-                ("W 768 direct sum", 768, 256, W768_NF, 4, False))
+W1000_NF = 5294
+# the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
+# istft_ct_pallas (else istft_pallas), the kernel it must launch)
+ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
+                ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
+                ("W 768 split", 768, 256, W768_NF, 4, False, "istft_split"),
+                ("W 1000 direct sum", 1000, 250, W1000_NF, 4, False, "istft"))
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -379,15 +385,18 @@ def device_times(kind: str) -> dict:
 
 
 # phase 5's STFT launches: (key, the kernel it must launch, W, hop, batches,
-# forced dense). The split kernel at m = 3 and 5, and the dense kernel there
-# too (forced: the time the split replaces) and where it still serves (W 1000).
+# forced dense). The split kernel at m = 3 and 5 and Bluestein at W 1000,
+# the dense kernel at their shapes (forced: the time each replaces) and
+# where it still serves (W 6000: past 4096, not a split size).
 STFT_SHAPES = (
     ("stft", "stft", 1024, 512, (32, 128), False),
     ("stft_split", "stft_split", 768, 256, (32,), False),
     ("stft_split W 1280", "stft_split", 1280, 320, (32,), False),
-    ("stft_dft", "stft_dft", 1000, 250, (32,), False),
+    ("stft_bluestein", "stft_bluestein", 1000, 250, (32,), False),
+    ("stft_dft", "stft_dft", 6000, 1500, (32,), False),
     ("stft_dft W 768", "stft_dft", 768, 256, (32,), True),
     ("stft_dft W 1280", "stft_dft", 1280, 320, (32,), True),
+    ("stft_dft W 1000", "stft_dft", 1000, 250, (32,), True),
 )
 
 
@@ -483,7 +492,7 @@ def child_istft_times(device, gen, pair) -> dict:
     from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
 
     res = {}
-    for name, nfft, hop, nf, N, ct in ISTFT_SHAPES:
+    for name, nfft, hop, nf, N, ct, _ in ISTFT_SHAPES:
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
         kern = istft_ct_pallas if ct else istft_pallas
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
@@ -872,15 +881,15 @@ def phase_stft(device, gen) -> dict:
     the FFT kernel at the training step's shapes (mixtures B 32, stems B
     128; 14 336 samples, W 1024, hop 512 → 30 frames × 513 bins), the
     split kernel at W 768, hop 256 (3 · 256: 58 frames × 385 bins) and W
-    1280, hop 320 (5 · 256: 47 × 641), the dense DFT kernel where it still
-    serves (W 1000 = 8 · 125, hop 250) and, forced, at the split's two
-    shapes. Each call must launch its kernel once and no other STFT
-    kernel."""
+    1280, hop 320 (5 · 256: 47 × 641), Bluestein at W 1000, hop 250 (8 ·
+    125: 60 × 501), the dense DFT kernel where it still serves (W 6000, hop
+    1500: 12 × 3001) and, forced, at the split's and Bluestein's shapes.
+    Each call must launch its kernel once and no other STFT kernel."""
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
 
-    names = ("stft", "stft_split", "stft_dft")
+    names = ("stft", "stft_split", "stft_bluestein", "stft_dft")
     out = {}
     for key, kernel, win, hop, batches, dense in STFT_SHAPES:
         fn = stft_fn(dense)
@@ -932,10 +941,11 @@ def phase_stft(device, gen) -> dict:
             f"{ms_str(d['device_ms'])}), plain {r['plain_ms']:.4f} ms, torch.stft {r['library_ms']:.4f} ms (device "
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); wrapper host {r['host_us']:.1f} us")
-    for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280")):
+    for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280"),
+                       ("stft_bluestein", "stft_dft W 1000")):
         r, d = out[key], out[dense]
         r["dense_ms"], r["dense_device_ms"] = d["ms"], d["device_ms"]
-        log(f"  {key}: the split {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
+        log(f"  {key}: {key.split()[0]} {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
             f"dense DFT kernel's {d['ms']:.4f} ms (device {ms_str(d['device_ms'])}) and "
             f"torch.stft's {r['library_ms']:.4f} ms (device {ms_str(r['library_device_ms'])})")
     log(f"  device kernels: {json.dumps(dev)}")
@@ -1208,7 +1218,8 @@ def phase_train(device) -> dict:
         raise AssertionError(f"training loss is not finite and falling: {losses}")
     # two STFTs a step (the mixtures, the stems), all on the FFT kernel
     if not (launches["stft"] == 2 * TRAIN_STEPS and launches["stft_split"] == 0
-            and launches["stft_dft"] == 0 and launches["fused_adadelta"] > 0):
+            and launches["stft_bluestein"] == 0 and launches["stft_dft"] == 0
+            and launches["fused_adadelta"] > 0):
         raise AssertionError(f"training path missed a kernel: {launches}")
     fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
     fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -1286,25 +1297,44 @@ def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
 
 
 def phase_istft(device, gen) -> dict:
-    """iSTFT kernel vs plain at path A's shapes (``istft_ct_pallas``, f32 and
-    int16) and path B's (``istft_pallas``), beside ``torch.istft``."""
+    """The iSTFT kernels vs plain, float32 and int16, beside ``torch.istft``:
+    path A's shapes (``istft_ct_pallas``), path B's (``istft_pallas``; its
+    int16 through ``launch_istft``, against the direct synthesis quantized),
+    the split run backwards at W 768 and the direct sum at W 1000. Each
+    float32 call must launch its kernel once and no other iSTFT kernel."""
     import numpy as np
     import torch
+    from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas, istft_ct_pallas_plain
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+        istft_pallas,
+        istft_pallas_plain,
+        launch_istft,
+    )
+    from convsep_tpu_torch.dsp.dft import istft_matmul
 
+    names = ("istft", "istft_split")
     res = {}
-    for name, nfft, hop, nf, N, ct in ISTFT_SHAPES:
+    for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
         kern, plain = ((istft_ct_pallas, istft_ct_pallas_plain) if ct
                        else (istft_pallas, istft_pallas_plain))
-        outs = ("float32", "int16") if ct else ("float32",)
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
         err = {}
-        for out in outs:
-            kw = {"output_dtype": out} if out == "int16" else {}
-            got = kern(re, im, w, hop, L, **kw)
-            want = plain(re, im, w, hop, L, **kw)
+        for out in ("float32", "int16"):
+            before = dict(kernels.LAUNCHES)
+            if out == "float32":
+                got, want = kern(re, im, w, hop, L), plain(re, im, w, hop, L)
+            elif ct:
+                got = kern(re, im, w, hop, L, output_dtype=out)
+                want = plain(re, im, w, hop, L, output_dtype=out)
+            else:
+                got = launch_istft(re, im, w, hop, L, nfft, out)
+                want = istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
+                                    output_dtype=out)
             torch.cuda.synchronize()
+            moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+            if moved != {k: int(k == kernel) for k in names}:
+                raise AssertionError(f"istft {name} {out}: launched {moved}, want one {kernel}")
             if got.shape != (N, L) or got.dtype != want.dtype or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"istft {name} {out}: bad output {tuple(got.shape)} {got.dtype}")
             e = (got.float() - want.float()).abs().max().item()
@@ -1342,6 +1372,9 @@ def phase_istft(device, gen) -> dict:
         log(f"  istft {name}: device {ms_str(d['device_ms'])} (torch.istft device "
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms")
     log(f"  device kernels: {json.dumps(dev)}")
+    r, d = res["W 768 split"], res["W 1000 direct sum"]
+    log(f"  istft W 768 split: device {ms_str(r['device_ms'])} against torch.istft's "
+        f"{ms_str(r['library_device_ms'])} and the W 1000 direct sum's {ms_str(d['device_ms'])}")
     return res
 
 
@@ -1538,7 +1571,8 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
         raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
     if not (all(launches[k] > 0 for k in ("wiener_apply", "istft"))
             and launches["stft"] == 1 and launches["stft_split"] == 0
-            and launches["stft_dft"] == 0):
+            and launches["stft_bluestein"] == 0 and launches["stft_dft"] == 0
+            and launches["istft_split"] == 0):
         raise AssertionError(f"{name}: the pallas route missed a kernel: {launches}")
     ms = time_track(sep, audio)
     mm = Separator(preset, state, device=device)
@@ -1810,7 +1844,8 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
                         {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
                          "fused_decode": auto_fused(preset, track_segments(preset, len(audio))),
                          "band_decode": False, "stft": False,
-                         "stft_split": False, "stft_dft": False}),
+                         "stft_split": False, "stft_bluestein": False, "stft_dft": False,
+                         "istft": False, "istft_split": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
                            "ct_stft": False, "wiener_istft_ny": False}),
@@ -1951,7 +1986,8 @@ def phase_chunked(state, preset, device, audio) -> dict:
     # the decode sees chunk_segments rows a chunk; the chunk synthesizes by
     # products, as the reference's chunk program does
     want = {"fused_decode": nc if auto_fused(preset, cs) else 0, "wiener_istft": 0,
-            "wiener_istft_ny": 0, "stft_split": 0, "stft_dft": 0}
+            "wiener_istft_ny": 0, "stft_split": 0, "stft_bluestein": 0, "stft_dft": 0,
+            "istft_split": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     del sep
@@ -2443,7 +2479,8 @@ def phase_feature_train(device) -> dict:
             raise AssertionError(f"feature training loss is not finite and falling: {losses}")
         # two adadelta launches a step (fc_expand_kernel, fc_kernel); no STFT in the step
         if not (launches["fused_adadelta"] == 2 * TRAIN_STEPS and launches["stft"] == 0
-                and launches["stft_split"] == 0 and launches["stft_dft"] == 0):
+                and launches["stft_split"] == 0 and launches["stft_bluestein"] == 0
+                and launches["stft_dft"] == 0):
             raise AssertionError(f"feature training path launched {launches}")
         fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
         fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -2844,12 +2881,13 @@ def main(argv: list[str]) -> int:
     train = phase_train(device)
     torch.cuda.empty_cache()
 
-    log("phase 7: iSTFT kernel vs plain (stereo highres4096 and dsd100 pallas-route shapes)")
+    log("phase 7: iSTFT kernels vs plain (stereo highres4096 and dsd100 pallas-route shapes, "
+        "the split at W 768, the direct sum at W 1000)")
     ist = phase_istft(device, gen)
     log("phase 7b: the Wiener+iSTFT kernel's direct sum at W 768, hop 256 (4 stems, nf "
         f"{W768_NF}), beside torch.istft of the same spectra (phase 7)")
     wie768 = phase_wiener("W 768 direct sum", 768, 256, W768_NF, 4, device, gen)
-    wie768.update(library_ms=ist["W 768 direct sum"]["library_ms"],
+    wie768.update(library_ms=ist["W 768 split"]["library_ms"],
                   library="torch.istft of the 4 masked spectra (the synthesis alone)")
     torch.cuda.empty_cache()
     log("phase 8: Wiener mask kernel vs plain (dsd100 pallas-route and highres4096 shapes)")
@@ -2939,14 +2977,14 @@ def main(argv: list[str]) -> int:
         "dsd100 fft_impl=pallas stream", StreamSeparator(pallas, dsd_state, device=device),
         Separator(pallas, dsd_state, device=device),
         [audio + np.float32(i % 3 / 32768.0) for i in range(n)],
-        {"stft": n, "wiener_apply": n, "istft": n, "stft_split": 0, "stft_dft": 0,
-         "wiener_istft": 0})
+        {"stft": n, "wiener_apply": n, "istft": n, "stft_split": 0, "stft_bluestein": 0,
+         "stft_dft": 0, "istft_split": 0, "wiener_istft": 0})
     st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
     st_mix = stereo_mixture(0)
     stream["highres4096-stereo"] = phase_stream_route(
         "highres4096-stereo stream", StreamSeparator(st, st_state, device=device),
         StereoSeparator(st, st_state, device=device), [st_mix, 0.5 * st_mix],
-        {"istft": 2, "wiener_istft": 0,
+        {"istft": 2, "istft_split": 0, "wiener_istft": 0,
          "fused_decode": 2 if auto_fused(st, track_segments(st, st_mix.shape[1])) else 0})
     del st_state
     torch.cuda.empty_cache()
@@ -2989,9 +3027,10 @@ def main(argv: list[str]) -> int:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    # every path's STFT runs on the FFT core: the split and the dense DFT
-    # kernel serve only sizes that no preset uses
-    for kernel in ("stft_split", "stft_dft"):
+    # every path's STFT and iSTFT runs on the FFT core: the split (both
+    # directions), Bluestein and the dense DFT kernel serve only sizes that
+    # no preset uses
+    for kernel in ("stft_split", "stft_bluestein", "stft_dft", "istft_split"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -3018,14 +3057,21 @@ def main(argv: list[str]) -> int:
          "serves": "nfft = m 2^a, m in 3, 5, 9, 15, 2^a >= 16, nfft <= 8192; no preset",
          **launched("stft_split"), **stft_all["stft_split"],
          "w1280_hop320": stft_all["stft_split W 1280"]},
+        {"name": "stft_bluestein", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_bluestein_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
+         "serves": "nfft <= 4096 that neither the FFT core nor its split plans (1000 = 8 125, "
+                   "a factor 7, odd sizes); no preset",
+         **launched("stft_bluestein"), **stft_all["stft_bluestein"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "the sizes neither the FFT core nor its split plans (1000 = 8 125); "
-                   "no preset",
+         "serves": "the sizes none of the FFT core, its split and Bluestein plans (past "
+                   "4096 off the split, past 8192); no preset",
          **launched("stft_dft"), **stft_all["stft_dft"],
          "forced_w768": stft_all["stft_dft W 768"],
-         "forced_w1280": stft_all["stft_dft W 1280"]},
+         "forced_w1280": stft_all["stft_dft W 1280"],
+         "forced_w1000": stft_all["stft_dft W 1000"]},
         {"name": "fused_adadelta", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/fused_adadelta.cu",
          "replaces": "convsep_tpu/train/fused_optim.py:88",
@@ -3036,7 +3082,13 @@ def main(argv: list[str]) -> int:
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
          **launched("istft"), **ist["highres4096-stereo"],
          "dsd100_pallas_route": ist["dsd100 pallas route"],
-         "w768_direct": ist["W 768 direct sum"]},
+         "w1000_direct": ist["W 1000 direct sum"]},
+        {"name": "istft_split", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_split_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "nfft = m 2^a, m in 3, 5, 9, 15, 2^a >= 16, nfft <= 8192; no preset",
+         **launched("istft_split"), **ist["W 768 split"]},
         {"name": "wiener_apply", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_apply.cu",
          "replaces": "convsep_tpu/dsp/pallas/wiener_kernel.py:77",

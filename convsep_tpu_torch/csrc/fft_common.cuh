@@ -51,7 +51,21 @@
 // DFTs' roots are literals (radix-3 and radix-5 butterflies; 9 and 15 by
 // Cooley-Tukey over them). A group is not a whole warp when P < 512, so the
 // block synchronizes as a whole; fft_plan.split_plan makes the block whole
-// warps. The two-real-frames split is the same for any even N.
+// warps. The two-real-frames split is the same for any even N. Stages 1
+// and 2 are one function, split_run, which the inverse split
+// (istft_split_block) runs backwards by conjugation as the core's inverse
+// does, its points filled by split_inverse_points.
+//
+// Bluestein's chirp-z (stft_bluestein_block) takes any other N <= 4096 onto
+// the power-of-two core: with c_n = e^{i pi n^2 / N},
+//
+//   X[k] = conj c_k sum_{t < N} (x_t conj c_t) c_{k-t},
+//
+// a cyclic convolution of M = 2^ceil(log2(2N - 1)) points: the core's FFT of
+// the pre-chirped frames, times the FFT of the wrapped chirp (c_n at n and
+// M - n, made on the host in float64 with 1/M folded in), the core again
+// run backwards by conjugation, then the post-chirp and the two-real-frames
+// split at the partner N - k.
 
 #pragma once
 
@@ -281,20 +295,23 @@ struct Fft {
 // warp reads whole runs of consecutive bins, forward or backward. After
 // Fft<LOG2N>::run, buf[slot(t)] holds N conj(a[t] + i b[t]): a[t] = x / N,
 // b[t] = -y / N.
+//
+// conj Z[k] of N points at k from bin(kk, edge), kk = k or its mirror N - k.
+template <int N, class Bin>
+__device__ __forceinline__ float2 inverse_point(int k, Bin bin) {
+  const bool mirrored = k > N / 2;
+  const int kk = mirrored ? N - k : k;
+  const float4 ab = bin(kk, kk == 0 || kk == N / 2);
+  // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
+  return mirrored ? make_float2(ab.x + ab.w, ab.y - ab.z)
+                  : make_float2(ab.x - ab.w, -(ab.y + ab.z));
+}
+
 template <int LOG2N, class Bin>
 __device__ __forceinline__ void inverse_points(float2 (&v)[kPoints], int j, Bin bin) {
-  constexpr int N = 1 << LOG2N;
   constexpr int T = fft_threads(LOG2N);
 #pragma unroll
-  for (int m = 0; m < kPoints; ++m) {
-    const int k = j + T * m;
-    const bool mirrored = k > N / 2;
-    const int kk = mirrored ? N - k : k;
-    const float4 ab = bin(kk, kk == 0 || kk == N / 2);
-    // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
-    v[m] = mirrored ? make_float2(ab.x + ab.w, ab.y - ab.z)
-                    : make_float2(ab.x - ab.w, -(ab.y + ab.z));
-  }
+  for (int m = 0; m < kPoints; ++m) v[m] = inverse_point<1 << LOG2N>(j + T * m, bin);
 }
 
 // inverse_points straight from the spectrum rows of two frames (re_a, im_a,
@@ -498,6 +515,19 @@ __host__ __device__ constexpr int quarter_len(int n) { return n / 4 + n / 64; }
 // float2 entries of an N-point exchange buffer (one pad per 16)
 __host__ __device__ constexpr int split_exchange_len(int n) { return n + n / 16; }
 
+// nfft = m 2^log2p with m in {3, 5, 9, 15}, 2^log2p >= 16 and nfft <= 8192:
+// the split's sizes (fft_plan.split_factors). Sets m and log2p.
+inline bool split_sizes(int nfft, int* m, int* log2p) {
+  *m = nfft > 0 ? nfft : 1;
+  *log2p = 0;
+  while (*m % 2 == 0) {
+    *m /= 2;
+    ++*log2p;
+  }
+  return (*m == 3 || *m == 5 || *m == 9 || *m == 15) && *log2p >= kMinLog2 &&
+         nfft <= (1 << kMaxLog2);
+}
+
 // Dynamic shared memory of a split block of `ffts` groups: the span of their
 // 2 * ffts frames, the P-point quarter table (stage 1), the N-point quarter
 // table (the split's twiddles), one N-point exchange buffer per group.
@@ -506,6 +536,42 @@ inline size_t split_smem_bytes(int log2p, int m, int win, int hop, int ffts) {
   return (size_t)span_floats(2 * ffts, win, hop) * sizeof(float) +
          ((size_t)twiddle_len(log2p) + (size_t)quarter_len(n) +
           (size_t)ffts * split_exchange_len(n)) * sizeof(float2);
+}
+
+// The split's transform of N = M 2^LOG2P points by the M P / 16 threads of
+// one group (thread jj of the group is thread j = jj % (P / 16) of stage 1's
+// sub-FFT n1 = jj / (P / 16)): v holds stage 1's input, point M (j + T1 m) +
+// n1 in v[m]; tw_p the P-point quarter table, tw_n the N-point one, both in
+// shared memory. On return, after a block barrier, buf[slot(k)] holds Z[k]
+// in natural order for the whole group.
+template <int LOG2P, int M>
+__device__ __forceinline__ void split_run(float2 (&v)[kPoints], float2* buf,
+                                          const float2* tw_p, const float2* tw_n, int jj,
+                                          int group) {
+  using F = Fft<LOG2P, true>;
+  constexpr int P = F::N;
+  constexpr int N = M * P;
+  constexpr int T1 = F::T;     // threads of one sub-FFT
+  constexpr int T = M * T1;    // threads of one transform (N / 16)
+  const int n1 = jj / T1;
+  F::run(v, buf + n1 * exchange_len(LOG2P), tw_p, jj - n1 * T1, group);
+
+  // stage 2: column k1 = jj + T q, twiddled, one M-point DFT, in place
+#pragma unroll
+  for (int q = 0; q < (P + T - 1) / T; ++q) {
+    const int k1 = jj + T * q;
+    if (k1 < P) {
+      float2 u[M];
+#pragma unroll
+      for (int n = 0; n < M; ++n) u[n] = buf[slot(n * P + k1)];
+#pragma unroll
+      for (int n = 1; n < M; ++n) u[n] = cmul(u[n], quarter_twiddle<N>(tw_n, n * k1));
+      dft_odd<M>(u);
+#pragma unroll
+      for (int n = 0; n < M; ++n) buf[slot(n * P + k1)] = u[n];
+    }
+  }
+  __syncthreads();
 }
 
 // stft_block for N = M 2^LOG2P (M odd): the frames' span and the windows as
@@ -519,11 +585,10 @@ __device__ __forceinline__ void stft_split_block(const float* __restrict__ x,
                                                  const float2* __restrict__ tw_p,
                                                  const float2* __restrict__ tw_n, int L, int W,
                                                  int hop, int nf, Out out) {
-  using F = Fft<LOG2P, true>;
-  constexpr int P = F::N;
+  constexpr int P = 1 << LOG2P;
   constexpr int N = M * P;
-  constexpr int T1 = F::T;     // threads of one sub-FFT
-  constexpr int T = M * T1;    // threads of one transform (N / 16)
+  constexpr int T1 = fft_threads(LOG2P);  // threads of one sub-FFT
+  constexpr int T = M * T1;               // threads of one transform (N / 16)
   extern __shared__ float4 smem4[];
   const int groups = blockDim.x / T;
   const int group = threadIdx.x / T;
@@ -545,8 +610,8 @@ __device__ __forceinline__ void stft_split_block(const float* __restrict__ x,
   for (int i = threadIdx.x; i < N / 4; i += blockDim.x) twn[slot(i)] = __ldg(tw_n + i);
   __syncthreads();
 
-  // stage 1: sub-FFT n1 of frame a (real) and frame b (imaginary), points
-  // t = M n2 + n1, n2 = j + T1 m, windowed
+  // stage 1's input: sub-FFT n1 of frame a (real) and frame b (imaginary),
+  // points t = M n2 + n1, n2 = j + T1 m, windowed
   const float* fa = span + 2 * group * hop;
   const float* fb = fa + hop;
   float2 v[kPoints];
@@ -560,24 +625,7 @@ __device__ __forceinline__ void stft_split_block(const float* __restrict__ x,
       v[m] = make_float2(0.f, 0.f);
     }
   }
-  F::run(v, buf + n1 * exchange_len(LOG2P), twp, j, group);
-
-  // stage 2: column k1 = jj + T q, twiddled, one M-point DFT, in place
-#pragma unroll
-  for (int q = 0; q < (P + T - 1) / T; ++q) {
-    const int k1 = jj + T * q;
-    if (k1 < P) {
-      float2 u[M];
-#pragma unroll
-      for (int n = 0; n < M; ++n) u[n] = buf[slot(n * P + k1)];
-#pragma unroll
-      for (int n = 1; n < M; ++n) u[n] = cmul(u[n], quarter_twiddle<N>(twn, n * k1));
-      dft_odd<M>(u);
-#pragma unroll
-      for (int n = 0; n < M; ++n) buf[slot(n * P + k1)] = u[n];
-    }
-  }
-  __syncthreads();
+  split_run<LOG2P, M>(v, buf, twp, twn, jj, group);
 
   const int frame_a = f0 + 2 * group;
   if (frame_a >= nf) return;
@@ -589,6 +637,213 @@ __device__ __forceinline__ void stft_split_block(const float* __restrict__ x,
     if (q == kPoints / 2 && jj != 0) break;
     const float2 z = buf[slot(k)];
     const float2 w = buf[slot(k ? N - k : 0)];
+    out((long long)sig * nf + frame_a, has_b, k,
+        make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
+        make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
+  }
+}
+
+// ---- the inverse split ------------------------------------------------------
+
+// inverse_points for the split: thread jj of a group (thread j of stage 1's
+// sub-FFT n1, as split_run numbers them) fills v[m] = conj Z[k], k = M (j +
+// T1 m) + n1, from bin(kk, edge) as inverse_points does. After split_run,
+// buf[slot(t)] holds N conj(a[t] + i b[t]).
+template <int LOG2P, int M, class Bin>
+__device__ __forceinline__ void split_inverse_points(float2 (&v)[kPoints], int jj, Bin bin) {
+  constexpr int T1 = fft_threads(LOG2P);
+  const int n1 = jj / T1;
+  const int j = jj - n1 * T1;
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) v[m] = inverse_point<(M << LOG2P)>(M * (j + T1 * m) + n1, bin);
+}
+
+// out[o] = v as float32, or as PCM16: round to nearest even, clipped
+__device__ __forceinline__ void write_sample(void* out, int out_int16, long long o, float v) {
+  if (out_int16) {
+    const float qv = fminf(fmaxf(rintf(v * 32768.f), -32768.f), 32767.f);
+    static_cast<int16_t*>(out)[o] = (int16_t)qv;
+  } else {
+    static_cast<float*>(out)[o] = v;
+  }
+}
+
+// Dynamic shared memory of an inverse split block of `groups` groups: the
+// P-point and N-point quarter tables, one N-point exchange buffer per group,
+// the carry of (win/hop - 1) hop rows.
+inline size_t istft_split_smem_bytes(int log2p, int m, int win, int hop, int groups) {
+  const int n = m << log2p;
+  return ((size_t)twiddle_len(log2p) + (size_t)quarter_len(n) +
+          (size_t)groups * split_exchange_len(n)) * sizeof(float2) +
+         (size_t)(win / hop - 1) * hop * sizeof(float);
+}
+
+// istft.cu's istft_fft_kernel for N = M 2^LOG2P (M odd): block (n, r) owns
+// hop rows [j0, j0 + rows) of signal n and walks frames j0 - (win/hop - 1)
+// on in rounds of 2 G (G groups of M P / 16 threads, each group two frames
+// a round). A round loads each thread's points straight from its pair's
+// spectrum rows (inverse_input's loads at the split's points: the M
+// sub-FFTs' threads of a warp read interleaved bins, so a warp's loads
+// cover whole runs of bins between them), runs split_run backwards and,
+// after its block barrier, gathers the rows the round completes: each
+// sample sums the carry of earlier rounds and its frames in ascending
+// order, times win_over_n and inv_norm, the win/2 front trim, written by
+// write_sample. Every thread runs every round (a frame outside [0, nf)
+// loads zeros) and every barrier.
+template <int LOG2P, int M>
+__device__ __forceinline__ void istft_split_block(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw_p, const float2* __restrict__ tw_n, void* __restrict__ out,
+    int out_int16, int nf, int win, int hop, int length, int rounds, int rows, int per_signal) {
+  constexpr int P = 1 << LOG2P;
+  constexpr int N = M * P;
+  constexpr int T = N / kPoints;   // threads of one transform
+  constexpr int bins = N / 2 + 1;
+  constexpr int E = split_exchange_len(N);
+  extern __shared__ float4 smem4[];
+  const int groups = blockDim.x / T;
+  const int group = threadIdx.x / T;
+  const int jj = threadIdx.x - group * T;
+  const int k = win / hop;       // frames that overlap one hop row
+  const int f2 = 2 * groups;     // frames per round
+  float2* twp = reinterpret_cast<float2*>(smem4);
+  float2* twn = twp + twiddle_len(LOG2P);
+  float2* bufs = twn + quarter_len(N);
+  float* carry = reinterpret_cast<float*>(bufs + groups * E);  // (k - 1) hop
+  const int n = blockIdx.x / per_signal;
+  const int j0 = (blockIdx.x - n * per_signal) * rows;  // first hop row of the block
+  const int total_rows = nf + k - 1;
+  const int j_end = min(j0 + rows, total_rows);
+  const long long track = (long long)n * nf * bins;
+  const long long front = win / 2;
+
+  for (int i = threadIdx.x; i < P / 4; i += blockDim.x) twp[slot(i)] = __ldg(tw_p + i);
+  for (int i = threadIdx.x; i < N / 4; i += blockDim.x) twn[slot(i)] = __ldg(tw_n + i);
+  for (int i = threadIdx.x; i < (k - 1) * hop; i += blockDim.x) carry[i] = 0.f;
+  __syncthreads();
+
+  float2* buf = bufs + group * E;
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + r * f2;  // first frame of the round
+    const int fa = fr + 2 * group, fb = fa + 1;
+    const bool ha = fa >= 0 && fa < nf, hb = fb >= 0 && fb < nf;
+    const float* ra = ha ? re + track + (long long)fa * bins : nullptr;
+    const float* ia = ha ? im + track + (long long)fa * bins : nullptr;
+    const float* rb = hb ? re + track + (long long)fb * bins : nullptr;
+    const float* ib = hb ? im + track + (long long)fb * bins : nullptr;
+    float2 v[kPoints];
+    split_inverse_points<LOG2P, M>(v, jj, [&](int kk, bool edge) {
+      return make_float4(ra ? __ldg(ra + kk) : 0.f, ra && !edge ? __ldg(ia + kk) : 0.f,
+                         rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
+    });
+    split_run<LOG2P, M>(v, buf, twp, twn, jj, group);
+    // rows fr .. fr + f2 + k - 2 meet the round's frames; rows below fr + f2
+    // are complete after it, the k - 1 above carry on to the next round
+    for (int u = threadIdx.x; u < hop; u += blockDim.x) {
+      for (int i = 0; i < f2 + k - 1; ++i) {
+        const int row = fr + i;
+        float acc = i < k - 1 ? carry[i * hop + u] : 0.f;
+        const int f_lo = max(fr, row - k + 1), f_hi = min(fr + f2 - 1, row);
+        for (int f = f_lo; f <= f_hi; ++f) {
+          const int t = (row - f) * hop + u;
+          const float2 z = bufs[((f - fr) >> 1) * E + slot(t)];
+          acc += __ldg(win_over_n + t) * (((f - fr) & 1) ? -z.y : z.x);
+        }
+        if (i >= f2) {
+          carry[(i - f2) * hop + u] = acc;
+        } else if (row >= j0 && row < j_end) {
+          const long long nabs = (long long)row * hop + u;
+          const long long tpos = nabs - front;
+          if (tpos >= 0 && tpos < length)
+            write_sample(out, out_int16, (long long)n * length + tpos,
+                         acc * __ldg(inv_norm + nabs));
+        }
+      }
+    }
+    __syncthreads();  // the buffers are read; the next round's first pass rewrites them
+  }
+}
+
+// ---- Bluestein -------------------------------------------------------------
+
+// M = 2^ceil(log2(2 N - 1)), at least 16: Bluestein's convolution length
+// for N points (fft_plan.bluestein_size); 0 past the core's 8192.
+inline int bluestein_log2(int n) {
+  int lg = kMinLog2;
+  while ((1 << lg) < 2 * n - 1) ++lg;
+  return lg <= kMaxLog2 ? lg : 0;
+}
+
+// stft_block for any N <= 4096 by Bluestein over the core's M = 2^LOG2M
+// points (M >= 2N - 1): each group of M / 16 threads carries frames f0 + 2 g
+// and f0 + 2 g + 1 of the block's span as z = a + i b (windowed, t < W),
+// multiplies them by chirp[t] = conj c_t, runs the core, multiplies by
+// chat[k] (the FFT of the wrapped chirp, over M), runs the core backwards by
+// conjugation, and gives Z[k] = chirp[k] conj(buf[k]); then A and B at bins
+// k <= N/2 from Z[k] and its partner Z[N - k]. chirp (N) and chat (M) are
+// read from global memory (through L1; copying them into shared memory
+// measured slower, PERF.md row 6″). tw is the M-point quarter table. Calls
+// out(frame_a, has_b, k, A, B) as stft_block. kBlockSync: the transforms
+// synchronize the whole block (the host emulation, which has only
+// __syncthreads); the card synchronizes each group alone.
+template <int LOG2M, bool kBlockSync, class Out>
+__device__ __forceinline__ void stft_bluestein_block(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ chat, int L, int W, int hop,
+    int nf, int N, Out out) {
+  using F = Fft<LOG2M, kBlockSync>;
+  constexpr int M = F::N;
+  extern __shared__ float4 smem4[];
+  const int groups = blockDim.x / F::T;
+  const int group = threadIdx.x / F::T;
+  const int j = threadIdx.x - group * F::T;
+  const int frames = 2 * groups;
+  const int per_signal = (nf + frames - 1) / frames;
+  const int sig = blockIdx.x / per_signal;
+  const int f0 = (blockIdx.x - sig * per_signal) * frames;
+  const int span_len = (frames - 1) * hop + W;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float2* tws = reinterpret_cast<float2*>(smem + span_floats(frames, W, hop));
+  float2* buf = tws + twiddle_len(LOG2M) + group * exchange_len(LOG2M);
+  const float* span =
+      load_span(smem, x + (long long)sig * L, L, (long long)f0 * hop - W / 2, span_len);
+  for (int i = threadIdx.x; i < M / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + i);
+  __syncthreads();
+
+  // frame a (real) and frame b (imaginary), windowed, times conj c_t
+  const float* fa = span + 2 * group * hop;
+  const float* fb = fa + hop;
+  float2 v[kPoints];
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) {
+    const int t = j + F::T * m;
+    if (t < W) {
+      const float w = __ldg(win + t);
+      v[m] = cmul(make_float2(fa[t] * w, fb[t] * w), __ldg(chirp + t));
+    } else {
+      v[m] = make_float2(0.f, 0.f);
+    }
+  }
+  F::run(v, buf, tws, j, group);
+  // the inverse's input: conj(FFT times chat)
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) {
+    const int k = j + F::T * m;
+    const float2 p = cmul(buf[slot(k)], __ldg(chat + k));
+    v[m] = make_float2(p.x, -p.y);
+  }
+  F::sync(group);  // every point is read; the first pass rewrites buf
+  F::run(v, buf, tws, j, group);
+
+  const int frame_a = f0 + 2 * group;
+  if (frame_a >= nf) return;
+  const bool has_b = frame_a + 1 < nf;
+  for (int k = j; k <= N / 2; k += F::T) {
+    const int kp = k ? N - k : 0;  // the partner bin
+    const float2 zb = buf[slot(k)], wb = buf[slot(kp)];
+    const float2 z = cmul(__ldg(chirp + k), make_float2(zb.x, -zb.y));
+    const float2 w = cmul(__ldg(chirp + kp), make_float2(wb.x, -wb.y));
     out((long long)sig * nf + frame_a, has_b, k,
         make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
         make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));

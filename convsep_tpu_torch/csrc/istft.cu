@@ -39,9 +39,23 @@
 // fft_plan.istft_plan picks G and the rounds (2 blocks per SM where shared
 // memory allows) and mirrors this launcher's numbers.
 //
-// Other even sizes take a direct O(nfft) sum per output sample in one
-// 512-thread block, a pair of frames at a time (no preset uses one), with
-// the host's float64-made table of e^{-2 pi i m / nfft}.
+// istft_split_kernel (nfft = m 2^a, m in {3, 5, 9, 15}, 2^a >= 16, nfft <=
+// 8192: 768, 1280, 1536, 2304, ...; no preset uses one) is the same design
+// on the core's mixed-radix split run backwards (fft_common.cuh::
+// istft_split_block): its bound is bytes too, 85 MB and 0.0253 ms for 4
+// signals of 5170 frames at 768 points, hop 256. The split's points sit at
+// stride m in the spectrum rows, but the m sub-FFTs' threads of a warp read
+// interleaved bins, so each thread loads its points straight from the rows
+// (a copy of the rows in the exchange buffer, loaded coalesced, measured
+// slower: PERF.md row 3′); split_run transforms them, and the gather, carry
+// and epilogue are the power-of-two kernel's. Groups of m 2^a / 16 threads
+// share warps, so the block synchronizes as a whole (fft_plan.istft_plan
+// makes it whole warps, the fewest groups: measured fastest).
+//
+// Other even sizes (1000, a factor 7, past 8192) take a direct O(nfft) sum
+// per output sample in one 512-thread block, a pair of frames at a time (no
+// preset uses one), with the host's float64-made table of e^{-2 pi i m /
+// nfft}.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,16 +67,6 @@ namespace {
 using namespace fft_common;
 
 constexpr int kDirectThreads = 512;
-
-// out[o] = v as float32, or as PCM16: round to nearest even, clipped
-__device__ __forceinline__ void store_sample(void* out, int out_int16, long long o, float v) {
-  if (out_int16) {
-    const float qv = fminf(fmaxf(rintf(v * 32768.f), -32768.f), 32767.f);
-    static_cast<int16_t*>(out)[o] = (int16_t)qv;
-  } else {
-    static_cast<float*>(out)[o] = v;
-  }
-}
 
 template <int LOG2N>
 __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
@@ -125,7 +129,7 @@ __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
           const long long nabs = (long long)row * hop + u;
           const long long tpos = nabs - front;
           if (tpos >= 0 && tpos < length)
-            store_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
+            write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
         }
       }
     }
@@ -194,7 +198,7 @@ __global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
     const long long nabs = (long long)j0 * hop + i;
     const long long tpos = nabs - front;
     if (tpos < 0 || tpos >= length) continue;
-    store_sample(out, out_int16, (long long)n * length + tpos, acc[i] * inv_norm[nabs]);
+    write_sample(out, out_int16, (long long)n * length + tpos, acc[i] * inv_norm[nabs]);
   }
 }
 
@@ -217,12 +221,58 @@ cudaError_t launch_fft(const float* re, const float* im, const float* wn, const 
   return cudaGetLastError();
 }
 
+template <int LOG2P, int M>
+__global__ void __launch_bounds__(kMaxThreads) istft_split_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw_p, const float2* __restrict__ tw_n, void* __restrict__ out,
+    int out_int16, int nf, int win, int hop, int length, int rounds, int rows, int per_signal) {
+  istft_split_block<LOG2P, M>(re, im, win_over_n, inv_norm, tw_p, tw_n, out, out_int16, nf, win,
+                              hop, length, rounds, rows, per_signal);
+}
+
+struct SplitArgs {
+  const float *re, *im, *wn, *inv;
+  const float2 *tw_p, *tw_n;
+  void* out;
+  int out_int16, nt, nf, win, hop, length, groups, rounds;
+  cudaStream_t stream;
+};
+
+template <int LOG2P, int M>
+cudaError_t launch_split(const SplitArgs& a) {
+  const int k = a.win / a.hop;
+  const int rows = a.rounds * 2 * a.groups - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
+  const size_t smem = istft_split_smem_bytes(LOG2P, M, a.win, a.hop, a.groups);
+  cudaError_t err = cudaFuncSetAttribute(istft_split_kernel<LOG2P, M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  istft_split_kernel<LOG2P, M><<<(unsigned)((long long)a.nt * per_signal),
+                                 a.groups * M * fft_threads(LOG2P), smem, a.stream>>>(
+      a.re, a.im, a.wn, a.inv, a.tw_p, a.tw_n, a.out, a.out_int16, a.nf, a.win, a.hop, a.length,
+      a.rounds, rows, per_signal);
+  return cudaGetLastError();
+}
+
+// The split's instances: every 2^a (16 <= 2^a, m 2^a <= 8192) for each m.
+template <int M, int LOG2P = kMinLog2>
+cudaError_t dispatch_split(int log2p, const SplitArgs& a) {
+  if constexpr ((M << LOG2P) > (1 << kMaxLog2)) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log2p == LOG2P) return launch_split<LOG2P, M>(a);
+    return dispatch_split<M, LOG2P + 1>(log2p, a);
+  }
+}
+
 }  // namespace
 
 // tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
 // [16, 8192], else the full table e^{-2 pi i m / nfft} (fft_plan.dft_table).
 // groups, rounds: fft_plan.istft_plan (groups = 0: the direct sum, with
-// rounds hop rows per block).
+// rounds hop rows per block). The split's sizes go to istft_split_launch.
 extern "C" int istft_launch(const void* re, const void* im, const void* win_over_n,
                             const void* inv_norm, const void* tw, void* out, int out_int16,
                             int nt, int nf, int nfft, int win, int hop, int length, int groups,
@@ -259,5 +309,31 @@ extern "C" int istft_launch(const void* re, const void* im, const void* win_over
     default: return (int)launch_fft<13>(r, i, wn, inv, t, out, out_int16, nt, nf, win, hop,
                                         length, groups, rounds, s);
 #undef CASE
+  }
+}
+
+// The split route: nfft = m 2^a (m in {3, 5, 9, 15}, 16 <= 2^a, nfft <= 8192);
+// tw_p and tw_n the quarter tables of 2^a and nfft (fft_plan.twiddles);
+// groups, rounds from fft_plan.istft_plan (whole warps, at most 512 threads).
+extern "C" int istft_split_launch(const void* re, const void* im, const void* win_over_n,
+                                  const void* inv_norm, const void* tw_p, const void* tw_n,
+                                  void* out, int out_int16, int nt, int nf, int nfft, int win,
+                                  int hop, int length, int groups, int rounds, void* stream) {
+  int m, log2p;
+  const bool sized = split_sizes(nfft, &m, &log2p);
+  const int threads = sized ? groups * (nfft / kPoints) : 0;
+  if (!sized || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nf < 1 ||
+      rounds < 1 || groups < 1 || threads > kMaxThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs a{static_cast<const float*>(re), static_cast<const float*>(im),
+                    static_cast<const float*>(win_over_n), static_cast<const float*>(inv_norm),
+                    static_cast<const float2*>(tw_p), static_cast<const float2*>(tw_n), out,
+                    out_int16, nt, nf, win, hop, length, groups, rounds,
+                    static_cast<cudaStream_t>(stream)};
+  switch (m) {
+    case 3: return (int)dispatch_split<3>(log2p, a);
+    case 5: return (int)dispatch_split<5>(log2p, a);
+    case 9: return (int)dispatch_split<9>(log2p, a);
+    default: return (int)dispatch_split<15>(log2p, a);
   }
 }

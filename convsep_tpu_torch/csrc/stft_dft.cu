@@ -1,7 +1,8 @@
 // The STFT of the training step and the fft_impl="pallas" separation route,
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
 // (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
-// {3, 5, 9, 15}), and the dense DFT (stft_dft_kernel) for the other sizes.
+// {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 4096), and the
+// dense DFT (stft_dft_kernel) for the sizes past those.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
 // signal b, frame f and bin c < nfft / 2 + 1:
@@ -43,10 +44,26 @@
 // an H100 at 700 W it takes 8.5 us, against torch.stft's 12.8 and the dense
 // kernel's 170 (PERF.md, row 6').
 //
-// stft_dft_kernel (any other nfft, e.g. 1000 = 8 x 125) multiplies frames
-// built from hop rows staged in shared memory by the (W, bins) window-folded
-// cos / -sin matrices: a block owns 32 frames x 64 bins of one signal and
-// every thread accumulates 2 frames x 4 bins of re and of im in registers.
+// stft_bluestein_kernel (nfft <= 4096 that neither the core nor the split
+// takes: 1000 = 8 x 125, 7 x 256, 25 x 64, odd sizes; no preset uses one)
+// is Bluestein's chirp-z over the core (fft_common.cuh::
+// stft_bluestein_block): per pair of frames a forward and an inverse FFT of
+// M = 2^ceil(log2(2 nfft - 1)) points and two chirp products. At W 1000,
+// hop 250, B 32 (60 frames x 501 bins) its bound is bytes: 9.5 MB, 2.84 us,
+// where the dense DFT below does 3.8 GFLOP and reads 4.0 MB of matrices. The
+// design keeps the bytes at the bound's: the span is loaded once a block
+// with 16-byte loads, the chirp (nfft float2) and the convolution's chirp
+// spectrum (M float2) are made once on the host in float64
+// (fft_plan.bluestein_tables) and read through L1 (16 + 32 KB at W 1000,
+// shared by every block; a copy in shared memory measured slower), the rows
+// are written coalesced by bin; the two transforms' points cross threads
+// only in shared memory, behind each group's own barriers.
+//
+// stft_dft_kernel (the sizes past those: nfft > 4096 off the split, nfft >
+// 8192; and any nfft through stft_dft_pallas) multiplies frames built from
+// hop rows staged in shared memory by the (W, bins) window-folded cos / -sin
+// matrices: a block owns 32 frames x 64 bins of one signal and every thread
+// accumulates 2 frames x 4 bins of re and of im in registers.
 
 #include <cuda_runtime.h>
 
@@ -129,6 +146,30 @@ cudaError_t dispatch_split(int log2p, const float* x, const float* win, const fl
     return dispatch_split<M, LOG2P + 1>(log2p, x, win, tw_p, tw_n, re, im, B, L, W, hop, nf,
                                         ffts, stream);
   }
+}
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kMaxThreads) stft_bluestein_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ chat, float* __restrict__ re,
+    float* __restrict__ im, int L, int W, int hop, int nf, int nfft) {
+  stft_bluestein_block<LOG2M, false>(x, win, tw, chirp, chat, L, W, hop, nf, nfft,
+                                     FullRows{re, im, nfft / 2 + 1});
+}
+
+template <int LOG2M>
+cudaError_t launch_bluestein(const float* x, const float* win, const float2* tw,
+                             const float2* chirp, const float2* chat, float* re, float* im, int B,
+                             int L, int W, int hop, int nf, int nfft, int ffts,
+                             cudaStream_t stream) {
+  const size_t smem = smem_bytes(LOG2M, W, hop, ffts);  // stft_block's at M points
+  cudaError_t err = cudaFuncSetAttribute(stft_bluestein_kernel<LOG2M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * ((nf + 2 * ffts - 1) / (2 * ffts));
+  stft_bluestein_kernel<LOG2M><<<(unsigned)blocks, ffts * fft_threads(LOG2M), smem, stream>>>(
+      x, win, tw, chirp, chat, re, im, L, W, hop, nf, nfft);
+  return cudaGetLastError();
 }
 
 constexpr int kThreads = 256;
@@ -260,13 +301,8 @@ extern "C" int stft_fft_launch(const void* x, const void* win, const void* tw, v
 extern "C" int stft_split_launch(const void* x, const void* win, const void* tw_p,
                                  const void* tw_n, void* re, void* im, int B, int L, int W,
                                  int hop, int nf, int nfft, int ffts, void* stream) {
-  int m = nfft > 0 ? nfft : 1, log2p = 0;
-  while (m % 2 == 0) {
-    m /= 2;
-    ++log2p;
-  }
-  const bool sized = (m == 3 || m == 5 || m == 9 || m == 15) && log2p >= kMinLog2 &&
-                     nfft <= (1 << kMaxLog2);
+  int m, log2p;
+  const bool sized = split_sizes(nfft, &m, &log2p);
   const int threads = sized ? ffts * (nfft / kPoints) : 0;
   if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !sized ||
       ffts < 1 || threads > kMaxThreads || threads % 32 != 0)
@@ -287,8 +323,40 @@ extern "C" int stft_split_launch(const void* x, const void* win, const void* tw_
   }
 }
 
-// The dense route: any nfft >= W (the wrapper sends it only what neither the
-// FFT route nor the split plans, or what stft_dft_pallas forces).
+// The Bluestein route: nfft <= 4096 (M = 2^ceil(log2(2 nfft - 1)) <= 8192),
+// W <= nfft, `ffts` transforms (2 ffts frames) per block
+// (fft_plan.bluestein_plan), chirp (nfft) and chat (M) from
+// fft_plan.bluestein_tables, tw the M-point quarter table.
+extern "C" int stft_bluestein_launch(const void* x, const void* win, const void* tw,
+                                     const void* chirp, const void* chat, void* re, void* im,
+                                     int B, int L, int W, int hop, int nf, int nfft, int ffts,
+                                     void* stream) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  const int t = log2m ? fft_threads(log2m) : 0;
+  if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !log2m ||
+      ffts < 1 || ffts * t > kMaxThreads || ffts * t % 32 != 0 || (t > 32 && ffts > 8))
+    return (int)cudaErrorInvalidValue;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(win);
+  const auto* tws = static_cast<const float2*>(tw);
+  const auto* cc = static_cast<const float2*>(chirp);
+  const auto* ch = static_cast<const float2*>(chat);
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (log2m) {
+#define CASE(LG) \
+  case LG: return (int)launch_bluestein<LG>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, ffts, s);
+    CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
+#undef CASE
+    default:
+      return (int)launch_bluestein<13>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, ffts,
+                                       s);
+  }
+}
+
+// The dense route: any nfft >= W (the wrapper sends it only what none of
+// the FFT, split and Bluestein routes plans, or what stft_dft_pallas forces).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

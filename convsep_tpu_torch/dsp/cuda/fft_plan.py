@@ -17,11 +17,15 @@ mixed-radix split of the same core (``stft_split_block``): m interleaved
 2^a-point FFTs, the twiddles e^{−2πi n1 k1 / N} from the N-point quarter
 table, then 2^a m-point DFTs in registers across the exchange buffer;
 :func:`split_factors` names the sizes and :func:`split_plan` sizes the
-launch.
+launch. Any other size up to 4096 takes Bluestein's chirp-z over the core
+(``stft_bluestein_block``): two M-point transforms, M = 2^⌈log2(2N − 1)⌉
+(:func:`bluestein_size`), and the chirp tables of :func:`bluestein_tables`;
+:func:`bluestein_plan` sizes the launch.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
-and overlap-add them by a gather; :func:`istft_plan` sizes it. The
+and overlap-add them by a gather, at the split's sizes on the split run
+backwards; :func:`istft_plan` sizes both. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it.
@@ -79,6 +83,20 @@ def split_factors(nfft: int) -> tuple[int, int] | None:
 
 def split_supported(nfft: int) -> bool:
     return split_factors(nfft) is not None
+
+
+def bluestein_size(nfft: int) -> int:
+    """M = 2^⌈log2(2 nfft − 1)⌉, at least 16: the cyclic convolution that
+    Bluestein's chirp-z runs on the core for nfft points
+    (``fft_common.cuh::bluestein_log2``)."""
+    return max(MIN_NFFT, 1 << (2 * nfft - 2).bit_length())
+
+
+def bluestein_supported(nfft: int) -> bool:
+    """A size the core takes by Bluestein (M <= 8192, so nfft <= 4096) and
+    neither by its own passes nor by the split."""
+    return (2 <= nfft and bluestein_size(nfft) <= MAX_NFFT and not fft_supported(nfft)
+            and not split_supported(nfft))
 
 
 def radices(nfft: int) -> tuple[int, ...]:
@@ -201,6 +219,38 @@ def split_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> SplitPla
                      split_smem_bytes(nfft, win, hop, g))
 
 
+@dataclass(frozen=True)
+class BluesteinPlan:
+    nfft: int
+    m: int                # the convolution's power-of-two length
+    ffts_per_block: int   # transforms (2 frames each) per block
+    threads: int          # per block: ffts_per_block · M/16
+    blocks_per_signal: int
+    blocks: int
+    smem_bytes: int
+
+
+@lru_cache(maxsize=64)
+def bluestein_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> BluesteinPlan:
+    """The Bluestein kernel's launch, as ``csrc/stft_dft.cu::
+    stft_bluestein_launch`` checks it: groups of M/16 threads, the fewest
+    a block that make it whole warps (one transform a block from M 512 on),
+    its shared memory :func:`smem_bytes` at M points (the chirp tables stay
+    in global memory). One transform a block measured fastest at W 1000,
+    1792 and 4000 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md)."""
+    if not bluestein_supported(nfft):
+        raise ValueError(f"no Bluestein plan for nfft={nfft}: at most 4096, neither a power "
+                         f"of two nor a split size")
+    m = bluestein_size(nfft)
+    t = threads_per_fft(m)
+    g = max(1, 32 // t)
+    smem = smem_bytes(m, win, hop, g)
+    if smem > SMEM_MAX:
+        raise ValueError(f"no Bluestein plan fits: nfft={nfft} win={win} hop={hop}")
+    per_signal = -(-nf // (2 * g))
+    return BluesteinPlan(nfft, m, g, g * t, per_signal, signals * per_signal, smem)
+
+
 def blocks_per_sm(smem: int, threads: int) -> int:
     """Blocks of ``threads`` with ``smem`` bytes that one SM holds at once,
     by shared memory and threads (registers: ptxas decides; see PERF.md)."""
@@ -209,8 +259,11 @@ def blocks_per_sm(smem: int, threads: int) -> int:
 
 def istft_smem_bytes(nfft: int, win: int, hop: int, groups: int) -> int:
     """The inverse kernel's dynamic shared memory: the quarter twiddle
-    table, one exchange buffer per group, the carry of win/hop − 1 hop rows."""
-    return 8 * (twiddle_entries(nfft) + groups * exchange_entries(nfft)) + 4 * (win // hop - 1) * hop
+    table (on the split, the P-point one and the nfft-point one), one
+    exchange buffer per group, the carry of win/hop − 1 hop rows."""
+    split = split_factors(nfft)
+    tables = twiddle_entries(nfft) + (twiddle_entries(split[1]) if split else 0)
+    return 8 * (tables + groups * exchange_entries(nfft)) + 4 * (win // hop - 1) * hop
 
 
 @dataclass(frozen=True)
@@ -230,15 +283,21 @@ class IstftPlan:
 
 @lru_cache(maxsize=64)
 def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
-    """The inverse kernel's launch, as ``csrc/istft.cu::istft_launch``
-    computes it. Powers of two: the most groups per block (a power of two,
-    whole warps, at most 8 named-barrier groups, 512 threads) that still
-    leaves two blocks per SM by shared memory (else the fewest that fit, and
-    the note says so), then the fewest rounds of 2·groups frames whose rows
-    (2·groups·rounds − (win/hop − 1)) keep the recomputed share at or under
-    3/16. Other sizes: the direct sum, up to 16 hop rows per block."""
+    """The inverse kernel's launch, as ``csrc/istft.cu::istft_launch`` and
+    ``istft_split_launch`` compute it. Powers of two: the most groups per
+    block (a power of two, whole warps, at most 8 named-barrier groups, 512
+    threads) that still leaves two blocks per SM by shared memory (else the
+    fewest that fit, and the note says so), then the fewest rounds of
+    2·groups frames whose rows (2·groups·rounds − (win/hop − 1)) keep the
+    recomputed share at or under 3/16. The split's sizes (m · P): the
+    fewest groups of m · P/16 threads that make the block whole warps
+    (G · P/16 a multiple of 32: m is odd; they synchronize as a block), the
+    rounds by the same rule; the fewest groups measured fastest at 768 and
+    1280 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md). Other
+    sizes: the direct sum, up to 16 hop rows per block."""
     k = win // hop
-    if not fft_supported(nfft):
+    split = split_factors(nfft)
+    if not (fft_supported(nfft) or split):
         rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (4 * hop))
         if rows < 1:
             raise ValueError(f"no iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
@@ -247,8 +306,11 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
         return IstftPlan(nfft, 0, DIRECT_THREADS, 1, rows, per, signals * per, smem,
                          blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum")
     t = threads_per_fft(nfft)
-    g_min = max(1, 32 // t)
-    g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
+    if split:
+        g_min = g_max = max(1, 32 // threads_per_fft(split[1]))
+    else:
+        g_min = max(1, 32 // t)
+        g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
     fits = [1 << e for e in range(int(math.log2(g_max)), int(math.log2(g_min)) - 1, -1)
             if istft_smem_bytes(nfft, win, hop, 1 << e) <= SMEM_MAX]
     if not fits:
@@ -379,6 +441,27 @@ def twiddles(nfft: int, device: str) -> torch.Tensor:
     device): a power of two for the core, and for the split both its P and
     its nfft (the split's twiddles e^{−2πi n1 k1 / nfft})."""
     return torch.from_numpy(np.ascontiguousarray(twiddle_table(nfft)[: nfft // 4])).to(device)
+
+
+@lru_cache(maxsize=8)
+def bluestein_tables(nfft: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(conj c_t for t < nfft, Ĉ / M) as (n, 2) float32 on ``device``, made
+    once per (nfft, device): c_t = e^{iπ t²/nfft}, its angle π ((t² mod 2
+    nfft) / nfft) from the integer t², so the phase is exact before the one
+    rounding to float32; Ĉ the M-point FFT of the wrapped chirp (c_n at n <
+    nfft and at M − n, 0 < n < nfft), in float64."""
+    m = bluestein_size(nfft)
+    t = np.arange(nfft, dtype=np.int64)
+    c = np.exp(1j * np.pi * ((t * t) % (2 * nfft)) / nfft)
+    wrapped = np.zeros(m, np.complex128)
+    wrapped[:nfft] = c
+    wrapped[m - nfft + 1:] = c[1:][::-1]
+    chat = np.fft.fft(wrapped) / m
+
+    def pairs(z):
+        return torch.from_numpy(np.stack([z.real, z.imag], -1).astype(np.float32)).to(device)
+
+    return pairs(np.conj(c)), pairs(chat)
 
 
 @lru_cache(maxsize=8)

@@ -1,15 +1,19 @@
 """Windowed inverse STFT + overlap-add: the CUDA kernel's launcher, the
 ``istft_pallas`` wrapper and its plain version.
 
-One kernel (``csrc/istft.cu``, on the FFT core ``csrc/fft_common.cuh``
+The kernels of ``csrc/istft.cu`` (on the FFT core ``csrc/fft_common.cuh``
 run backwards, launched by :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
-istft_plan`) replaces two TPU kernels that compute the same
+istft_plan`) replace two TPU kernels that compute the same
 window-power-normalized iSTFT:
 ``convsep_tpu/dsp/pallas/istft_kernel.py::istft_pallas`` (this module) and
 ``convsep_tpu/dsp/pallas/ct_istft_kernel.py::istft_ct_pallas``
 (:mod:`convsep_tpu_torch.dsp.cuda.ct_istft_kernel`). Each wrapper keeps its
-reference's contract and calls :func:`launch_istft`; the kernel's header
-says what bounds it on the H100.
+reference's contract and calls :func:`launch_istft`, which takes the FFT
+kernel for powers of two 16–8192 (counted as ``LAUNCHES["istft"]``), the
+split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
+``LAUNCHES["istft_split"]``) and a direct sum per sample for the other even
+sizes (``LAUNCHES["istft"]``); the kernels' header says what bounds them on
+the H100.
 
 The wrappers take their plain version only for CPU tensors. For CUDA
 tensors they launch the kernel or raise: there is no fallback.
@@ -23,7 +27,13 @@ import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.fft_plan import dft_table, istft_plan, synthesis_tables, twiddles
+from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    dft_table,
+    istft_plan,
+    split_factors,
+    synthesis_tables,
+    twiddles,
+)
 from convsep_tpu_torch.dsp.dft import istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
@@ -31,8 +41,9 @@ from convsep_tpu_torch.dsp.stft import num_frames
 def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and a
     launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
-    within shared memory. Powers of two from 16 to 8192 run on the FFT core;
-    other even sizes a direct sum per sample."""
+    within shared memory. Powers of two from 16 to 8192 run on the FFT core,
+    m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split; other even
+    sizes a direct sum per sample."""
     if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
         return False
     try:
@@ -74,19 +85,30 @@ def launch_istft(
     im3 = im.reshape(nt, nf, bins).contiguous()
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
     plan = istft_plan(nt, nf, nfft, win_len, hop)
-    tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
+    split = split_factors(nfft) if plan.groups else None
     int16 = output_dtype == "int16"
     out = torch.empty((nt, length), dtype=torch.int16 if int16 else torch.float32, device=dev)
     lib = kernels.library()
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        code = lib.istft_launch(
-            re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
-            tw.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
-            plan.groups, plan.rounds if plan.groups else plan.rows, stream,
-        )
-    kernels.check(code, "istft")
-    kernels.LAUNCHES["istft"] += 1
+        if split:
+            name = "istft_split"
+            code = lib.istft_split_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                twiddles(split[1], where).data_ptr(), twiddles(nfft, where).data_ptr(),
+                out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length, plan.groups,
+                plan.rounds, stream,
+            )
+        else:
+            name = "istft"
+            tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
+            code = lib.istft_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                tw.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+                plan.groups, plan.rounds if plan.groups else plan.rows, stream,
+            )
+    kernels.check(code, name)
+    kernels.LAUNCHES[name] += 1
     return out.reshape(*lead, length)
 
 

@@ -4,7 +4,7 @@ version.
 Replaces ``convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas``, which the
 from-audio training step runs for the mixture and every stem when
 ``TransformConfig.fft_impl="pallas"``, as does the ``fft_impl="pallas"``
-separation route. ``csrc/stft_dft.cu`` holds three kernels, and the
+separation route. ``csrc/stft_dft.cu`` holds four kernels, and the
 wrapper dispatches on the shape:
 
 * nfft a power of two in [16, 8192] (every preset): the FFT kernel of the
@@ -13,10 +13,14 @@ wrapper dispatches on the shape:
 * nfft = m · 2^a, m in (3, 5, 9, 15), 2^a >= 16, nfft <= 8192 (768, 1280,
   1536, 2304, 3072, 6144, …): the core's mixed-radix split
   (:func:`.fft_plan.split_plan`), counted as ``LAUNCHES["stft_split"]``;
-* any other nfft (1000 = 8 · 125, a factor 7, past 8192): the dense DFT
-  kernel over the window-folded cos / -sin matrices of
-  :func:`_forward_mats`, counted as ``LAUNCHES["stft_dft"]``;
-  :func:`stft_dft_pallas` forces it at any size, to hold and time it.
+* any other nfft up to 4096 (1000 = 8 · 125, a factor 7, odd sizes):
+  Bluestein's chirp-z over the core (:func:`.fft_plan.bluestein_plan`,
+  the chirp tables of :func:`.fft_plan.bluestein_tables`), counted as
+  ``LAUNCHES["stft_bluestein"]``;
+* the rest (past 4096 off the split, past 8192): the dense DFT kernel over
+  the window-folded cos / -sin matrices of :func:`_forward_mats`, counted
+  as ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any
+  size, to hold and time it.
 
 All build each frame in shared memory, so the (frames × W) array never
 reaches device memory; the file's header says what bounds them on the H100.
@@ -34,6 +38,9 @@ import torch
 
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    bluestein_plan,
+    bluestein_supported,
+    bluestein_tables,
     fft_supported,
     split_plan,
     split_supported,
@@ -70,8 +77,9 @@ def stft_pallas(
 
     CPU tensors: :func:`stft_pallas_plain`. CUDA tensors: the FFT kernel
     where :func:`fft_supported`, the split kernel where
-    :func:`split_supported`, else the dense DFT kernel. A failed build or
-    launch raises."""
+    :func:`split_supported`, the Bluestein kernel where
+    :func:`bluestein_supported`, else the dense DFT kernel. A failed build
+    or launch raises."""
     return _stft(signal, window, hop, nfft, dense=False)
 
 
@@ -107,10 +115,14 @@ def _stft(signal, window, hop, nfft, dense: bool):
     where = str(dev)
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        if dense or not (fft_supported(nfft) or split_supported(nfft)):
+        if dense:
             name = "stft_dft"
+        elif fft_supported(nfft):
+            name = "stft"
+        elif split_supported(nfft):
+            name = "stft_split"
         else:
-            name = "stft" if fft_supported(nfft) else "stft_split"
+            name = "stft_bluestein" if bluestein_supported(nfft) else "stft_dft"
         if name == "stft":
             plan = stft_plan(B, nf, nfft, win_len, hop)
             code = lib.stft_fft_launch(
@@ -123,6 +135,15 @@ def _stft(signal, window, hop, nfft, dense: bool):
             code = lib.stft_split_launch(
                 x.data_ptr(), window_f32(window, where).data_ptr(),
                 twiddles(plan.p, where).data_ptr(), twiddles(nfft, where).data_ptr(),
+                re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft,
+                plan.ffts_per_block, stream,
+            )
+        elif name == "stft_bluestein":
+            plan = bluestein_plan(B, nf, nfft, win_len, hop)
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.stft_bluestein_launch(
+                x.data_ptr(), window_f32(window, where).data_ptr(),
+                twiddles(plan.m, where).data_ptr(), chirp.data_ptr(), chat.data_ptr(),
                 re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft,
                 plan.ffts_per_block, stream,
             )

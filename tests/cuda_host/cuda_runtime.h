@@ -2,10 +2,11 @@
 // code of convsep_tpu_torch/csrc/fft_common.cuh to compile with g++ and run
 // on CPU threads, one std::thread per CUDA thread, one barrier a block
 // (__syncthreads). __syncwarp is not emulated, so only code that
-// synchronizes whole blocks runs here (the mixed-radix split). Used by
-// tests/test_torch_fft_host.py.
+// synchronizes whole blocks runs here (the mixed-radix split, forward and
+// inverse, and Bluestein at kBlockSync). Used by tests/test_torch_fft_host.py.
 #pragma once
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <functional>
 #include <thread>
@@ -28,6 +29,8 @@ inline std::barrier<>* block_barrier = nullptr;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 inline void __syncwarp() {}
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 

@@ -8,32 +8,15 @@
 // writes DIR/out.bin: re then im, each (B, NF, N/2 + 1) float32, N = M 2^LOG2P,
 // with FFTS transforms a block, as stft_dft.cu::stft_split_kernel launches it.
 #include <cmath>
-#include <cstdio>
-#include <cstdlib>
-#include <vector>
 
 #include "cuda_runtime.h"
 #include "fft_common.cuh"
+#include "host_io.h"
 
 namespace fft_common {
 alignas(16) float4 smem4[1 << 16];  // the block's dynamic shared memory
 }
 using namespace fft_common;
-
-struct FullRows {  // stft_dft.cu's output rows
-  float* re;
-  float* im;
-  int bins;
-  void operator()(long long row, bool has_b, int k, float2 a, float2 b) const {
-    const long long o = row * bins + k;
-    re[o] = a.x;
-    im[o] = a.y;
-    if (has_b) {
-      re[o + bins] = b.x;
-      im[o + bins] = b.y;
-    }
-  }
-};
 
 template <int LOG2P, int M>
 void run(const float* x, const float* win, const float2* twp, const float2* twn, float* re,
@@ -43,19 +26,6 @@ void run(const float* x, const float* win, const float2* twp, const float2* twn,
     stft_split_block<LOG2P, M>(x, win, twp, twn, L, W, hop, nf,
                                FullRows{re, im, (M << LOG2P) / 2 + 1});
   });
-}
-
-static std::vector<char> slurp(const char* dir, const char* name) {
-  char path[1024];
-  snprintf(path, sizeof path, "%s/%s", dir, name);
-  FILE* f = fopen(path, "rb");
-  if (!f) exit(2);
-  fseek(f, 0, SEEK_END);
-  std::vector<char> v(ftell(f));
-  fseek(f, 0, SEEK_SET);
-  if (fread(v.data(), 1, v.size(), f) != v.size()) exit(2);
-  fclose(f);
-  return v;
 }
 
 int main(int argc, char** argv) {
@@ -79,11 +49,6 @@ int main(int argc, char** argv) {
   CASE(3, 4) CASE(5, 4) CASE(9, 4) CASE(15, 4) CASE(3, 8) CASE(5, 8) CASE(9, 8) CASE(3, 9)
   else ran = false;
   if (!ran) return 3;
-  char path[1024];
-  snprintf(path, sizeof path, "%s/out.bin", dir);
-  FILE* f = fopen(path, "wb");
-  fwrite(re.data(), 4, re.size(), f);
-  fwrite(im.data(), 4, im.size(), f);
-  fclose(f);
+  spill<float>(dir, {&re, &im});
   return 0;
 }

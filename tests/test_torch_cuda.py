@@ -210,9 +210,10 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
-    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0, "stft_dft": 0,
-                "fused_adadelta": 0, "istft": 0, "wiener_apply": 0, "wiener_istft_ny": 0,
-                "ct_stft": 0, "band_decode": 0}
+    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0,
+                "stft_bluestein": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
+                "istft_split": 0, "wiener_apply": 0, "wiener_istft_ny": 0, "ct_stft": 0,
+                "band_decode": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -246,21 +247,31 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
         (48, 16, 2, 999),         # 3 · 16: groups of 3 threads share warps
         (240, 60, 2, 5000),       # 15 · 16
         (6144, 1536, 1, 60000),   # 3 · 2048, the split's largest P
-        (1000, 250, 2, 9001),     # 8 · 125: the dense DFT kernel
+        (1000, 250, 2, 9001),     # 8 · 125: Bluestein, M 2048
+        (1000, 250, 32, 14336),   # the smoke's shape
+        (1001, 143, 2, 9001),     # odd
+        (1792, 448, 2, 20000),    # 7 · 256: M 4096
+        (1600, 400, 2, 20000),    # 25 · 64
+        (432, 108, 3, 9001),      # 27 · 16
+        (18, 9, 3, 999),          # M 64: groups of 4 threads share warps
+        (4000, 1000, 2, 30000),   # M 8192: 512 threads a transform
+        (6000, 1500, 1, 30000),   # past 4096 and not a split size: the dense DFT kernel
     ],
 )
 def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     """Powers of two launch the FFT kernel ("stft"), m · 2^a (m 3, 5, 9,
-    15) the split kernel ("stft_split"), other sizes the dense DFT kernel
-    ("stft_dft"), each exactly once and no other."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
+    15) the split kernel ("stft_split"), other sizes up to 4096 Bluestein
+    ("stft_bluestein"), the rest the dense DFT kernel ("stft_dft"), each
+    exactly once and no other."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import bluestein_supported, split_supported
 
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
     used = ("stft" if nfft & (nfft - 1) == 0 else "stft_split" if split_supported(nfft)
-            else "stft_dft")
+            else "stft_bluestein" if bluestein_supported(nfft) else "stft_dft")
     assert used != "stft_split" or nfft in (768, 1536, 1280, 3072, 2304, 48, 240, 6144)
-    names = ("stft", "stft_split", "stft_dft")
+    assert (used == "stft_dft") == (nfft == 6000)
+    names = ("stft", "stft_split", "stft_bluestein", "stft_dft")
     before = dict(kernels.LAUNCHES)
     re, im = stft_pallas(x, w, hop)
     torch.cuda.synchronize()
@@ -291,6 +302,36 @@ def test_dense_stft_kernel_forced_at_split_sizes(rng, cuda, nfft, hop):
         assert kernels.LAUNCHES[name] == before + 1
         torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
         torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1001, 143)])
+def test_dense_stft_kernel_forced_at_bluestein_sizes(rng, cuda, nfft, hop):
+    """stft_dft_pallas runs the dense kernel where the wrapper takes
+    Bluestein: both held to the plain version, one launch each."""
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, 14336))).astype(np.float32)).to(cuda)
+    w = sinebell(nfft)
+    re_p, im_p = stft_pallas_plain(x, w, hop)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    for fn, name in ((stft_dft_pallas, "stft_dft"), (stft_pallas, "stft_bluestein")):
+        before = kernels.LAUNCHES[name]
+        re, im = fn(x, w, hop)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
+        torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
+
+
+def test_stft_bluestein_nfft_past_window(rng, cuda):
+    x = torch.from_numpy(rng.standard_normal((3, 5000)).astype(np.float32)).to(cuda)
+    w = sinebell(800)
+    before = kernels.LAUNCHES["stft_bluestein"]
+    re, im = stft_pallas(x, w, 200, nfft=1000)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_bluestein"] == before + 1
+    re_p, im_p = stft_pallas_plain(x, w, 200, nfft=1000)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
 
 
 def test_stft_split_nfft_past_window(rng, cuda):
@@ -446,14 +487,21 @@ def test_istft_ct_kernel_matches_plain(rng, cuda, lead, nfft, hop, length, out):
 @pytest.mark.parametrize(
     "lead,nfft,win,hop,length",
     [((4,), 1024, 1024, 512, 30000), ((), 128, 128, 64, 3000), ((2,), 256, 128, 32, 5000),
-     ((3,), 384, 384, 96, 6000), ((2,), 1000, 1000, 250, 9000), ((1,), 4096, 4096, 1024, 40000)],
+     ((3,), 384, 384, 96, 6000), ((2,), 1000, 1000, 250, 9000), ((1,), 4096, 4096, 1024, 40000),
+     ((4,), 768, 768, 256, 30000), ((2,), 768, 640, 160, 9000)],
 )
 def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, length):
+    """The FFT kernel at powers of two and the direct sum at 1000 count as
+    "istft"; the split's sizes (384 = 3 · 128, 768) as "istft_split"."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
+
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
-    before = kernels.LAUNCHES["istft"]
+    name = "istft_split" if split_supported(nfft) else "istft"
+    before = {k: kernels.LAUNCHES[k] for k in ("istft", "istft_split")}
     got = istft_pallas(re, im, w, hop, length, nfft=nfft)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["istft"] == before + 1
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == name) for k in before}
     _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
 
 
@@ -800,19 +848,25 @@ def test_fused_decode_tiles(rng, cuda, B, TM, ktaps):
         assert (got - want).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000])
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000,
+                                  48, 80, 240, 768, 1280, 2304, 3072, 6144, 7680])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_istft_kernel_every_size(rng, cuda, nfft, out):
-    """The iSTFT kernel at every power of two its FFT core takes and at two
-    sizes that take the direct sum, win = nfft, hop = nfft / 4, float32
-    within 1e-5 and PCM16 within one LSB of the plain synthesis."""
+    """The iSTFT kernels at every power of two the FFT core takes, at split
+    sizes of every m (3, 5, 9, 15; 384 = 3 · 128 among them) and at 1000,
+    which takes the direct sum, win = nfft, hop = nfft / 4, float32 within
+    1e-5 and PCM16 within one LSB of the plain synthesis; the split's sizes
+    count as "istft_split", the others as "istft"."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
+
     hop = nfft // 4
     length = 37 * hop + 5
     w, re, im = _spectra(rng, (3,), length, nfft, hop, cuda)
-    before = kernels.LAUNCHES["istft"]
+    name = "istft_split" if split_supported(nfft) else "istft"
+    before = kernels.LAUNCHES[name]
     got = launch_istft(re, im, w, hop, length, nfft, out)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["istft"] == before + 1
+    assert kernels.LAUNCHES[name] == before + 1
     want = istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct", output_dtype=out)
     _close(got, want, out)
 
@@ -824,6 +878,19 @@ def test_istft_kernel_every_size(rng, cuda, nfft, out):
 # points spill a few. A larger frame is a regression.
 ISTFT_STACK_CEILING = {4: 0, 5: 88, 6: 0, 7: 0, 8: 0, 9: 16, 10: 0, 11: 0, 12: 0, 13: 8}
 
+# the same for the inverse split's instances, by (log2 P, m), and for
+# Bluestein's, by log2 M, on the same build: at 128 registers the inverse
+# split holds four floats of spectrum a point beside its 16 points and
+# spills 0-296 bytes (768 = 3 · 256, the smoke's, 16); Bluestein none but
+# at M 512.
+ISTFT_SPLIT_STACK_CEILING = {
+    (4, 3): 0, (4, 5): 0, (4, 9): 0, (4, 15): 152, (5, 3): 168, (5, 5): 144, (5, 9): 192,
+    (5, 15): 232, (6, 3): 152, (6, 5): 8, (6, 9): 16, (6, 15): 240, (7, 3): 184, (7, 5): 8,
+    (7, 9): 24, (7, 15): 232, (8, 3): 16, (8, 5): 24, (8, 9): 32, (8, 15): 200, (9, 3): 136,
+    (9, 5): 168, (9, 9): 160, (9, 15): 296, (10, 3): 144, (10, 5): 176, (11, 3): 136,
+}
+BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 0, 7: 0, 8: 0, 9: 8, 10: 0, 11: 0, 12: 0, 13: 0}
+
 
 # the same for the fused decode kernel's two instances (MI, NI, warps): the
 # 16-warp instance keeps its registers off the stack; the 12-warp one (96
@@ -833,17 +900,18 @@ DECODE_STACK_CEILING = {"ILi3ELi4ELi16E": 0, "ILi4ELi6ELi12E": 40}
 
 def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     """ptxas's stack frames for the redesigned kernels: each fused decode
-    and iSTFT FFT-kernel instance at most its recorded frame
-    (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``), every Wiener+iSTFT
-    and band decode instance none; and no band decode instance has its
-    wgmma chains serialized by ptxas (warning C7520)."""
+    and iSTFT FFT-kernel, inverse-split and Bluestein instance at most its
+    recorded frame (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``,
+    ``ISTFT_SPLIT_STACK_CEILING``, ``BLUESTEIN_STACK_CEILING``), every
+    Wiener+iSTFT and band decode instance none; and no band decode instance
+    has its wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
     import subprocess
 
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA toolkit of a machine with a card")
     frames, logs = {}, {}
-    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu"):
+    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu", "stft_dft.cu"):
         out = subprocess.run(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c", str(kernels.CSRC / src),
              "-o", str(tmp_path / "k.o")], capture_output=True, text=True, check=True)
@@ -860,6 +928,12 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     for log2n, most in ISTFT_STACK_CEILING.items():
         hits = [v for k, v in frames.items() if f"istft_fft_kernelILi{log2n}E" in k]
         assert hits and max(hits) <= most, (log2n, frames)
+    for (log2p, m), most in ISTFT_SPLIT_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if f"istft_split_kernelILi{log2p}ELi{m}E" in k]
+        assert len(hits) == 1 and hits[0] <= most, (log2p, m, frames)
+    for log2m, most in BLUESTEIN_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if f"stft_bluestein_kernelILi{log2m}E" in k]
+        assert len(hits) == 1 and hits[0] <= most, (log2m, frames)
 
 
 @pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),

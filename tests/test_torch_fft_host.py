@@ -1,12 +1,22 @@
-"""The mixed-radix split of the FFT core, its CUDA source run on the CPU:
-``csrc/fft_common.cuh::stft_split_block`` compiled with g++ against a
-stand-in ``cuda_runtime.h`` (``tests/cuda_host/``: one std::thread per
-CUDA thread, a barrier a block for ``__syncthreads``) and launched as
-``stft_dft.cu::stft_split_kernel`` launches it, with the plan of
-``fft_plan.split_plan``. The kernel's own index maps, twiddle reads,
-radix-3/5 butterflies, block barriers and output guards, held against
-``stft_pallas_plain`` within 1e-5 × max|X| (float32 sums in another
-order). Built once per test session under pytest's temporary directory."""
+"""Device bodies of ``csrc/fft_common.cuh`` run on the CPU: compiled with
+g++ against a stand-in ``cuda_runtime.h`` (``tests/cuda_host/``: one
+std::thread per CUDA thread, a barrier a block for ``__syncthreads``) and
+launched as the kernels launch them, with the plans of ``fft_plan``:
+
+* ``stft_split_block`` (``stft_dft.cu::stft_split_kernel``), against
+  ``stft_pallas_plain`` within 1e-5 × max|X| (float32 sums in another
+  order);
+* ``istft_split_block`` (``istft.cu::istft_split_kernel``: the split run
+  backwards, the staged rows, the rounds, carry and gather), against
+  ``istft_pallas_plain`` within 1e-5 × max|out|, and as PCM16 against the
+  plain synthesis quantized within ±1 LSB;
+* ``stft_bluestein_block`` (``stft_dft.cu::stft_bluestein_kernel``, its
+  transforms synchronizing the block, ``kBlockSync``), against
+  ``stft_pallas_plain`` within 1e-5 × max|X|.
+
+The kernels' own index maps, twiddle and chirp reads, butterflies, block
+barriers and output guards. Built once per module under pytest's temporary
+directory, the three programs at once."""
 
 import shutil
 import subprocess
@@ -17,24 +27,36 @@ import pytest
 import torch
 
 from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
+from convsep_tpu_torch.dsp.dft import istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 from convsep_tpu_torch.dsp.windows import sinebell
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
+PROGRAMS = ("split_stft", "split_istft", "bluestein_stft")
 
 
 @pytest.fixture(scope="module")
-def split_stft(tmp_path_factory):
+def host(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the host emulation")
-    exe = tmp_path_factory.mktemp("cuda_host") / "split_stft"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", f"-I{HERE / 'cuda_host'}",
-                    f"-I{CSRC}", str(HERE / "cuda_host" / "split_stft.cpp"), "-o", str(exe)],
-                   check=True, capture_output=True, timeout=300)
-    return exe
+    out = tmp_path_factory.mktemp("cuda_host")
+    procs = {name: subprocess.Popen(
+        [gxx, "-std=c++20", "-O1", "-pthread", f"-I{HERE / 'cuda_host'}", f"-I{CSRC}",
+         str(HERE / "cuda_host" / f"{name}.cpp"), "-o", str(out / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in PROGRAMS}
+    for name, p in procs.items():
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, f"g++ {name}.cpp failed:\n{log}"
+    return {name: out / name for name in PROGRAMS}
+
+
+@pytest.fixture(scope="module")
+def split_stft(host):
+    return host["split_stft"]
 
 
 @pytest.mark.parametrize("nfft,win,hop,B,length", [
@@ -57,6 +79,82 @@ def test_split_kernel_source_matches_plain(tmp_path, split_stft, rng, nfft, win,
     fp.twiddles(nfft, "cpu").numpy().tofile(tmp_path / "twn.bin")
     args = [plan.m, plan.p.bit_length() - 1, B, length, win, hop, nf, plan.ffts_per_block]
     subprocess.run([str(split_stft), str(tmp_path), *map(str, args)], check=True, timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", np.float32).reshape(2, B, nf, nfft // 2 + 1)
+    re, im = stft_pallas_plain(torch.from_numpy(x), w, hop, nfft)
+    peak = max(re.abs().max().item(), im.abs().max().item())
+    assert np.isfinite(out).all()  # every bin of every frame written
+    np.testing.assert_allclose(out[0], re.numpy(), atol=1e-5 * peak, rtol=0)
+    np.testing.assert_allclose(out[1], im.numpy(), atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,nt,length,out", [
+    (768, 768, 256, 2, 3000, "float32"),   # 3 · 256, the smoke's W and hop
+    (768, 768, 256, 1, 3000, "int16"),
+    (768, 640, 160, 1, 2000, "float32"),   # nfft past the window
+    (1280, 1280, 320, 1, 3001, "float32"),  # 5 · 256
+    (2304, 2304, 576, 1, 5000, "float32"),  # 9 · 256
+    (240, 240, 60, 1, 1500, "int16"),      # 15 · 16: groups of 15 threads share warps
+    (48, 48, 12, 1, 300, "float32"),       # 3 · 16
+    (80, 80, 40, 2, 400, "float32"),       # 5 · 16, hop = W/2
+    (6144, 6144, 1536, 1, 12000, "float32"),  # 3 · 2048, the split's largest P
+])
+def test_split_istft_source_matches_plain(tmp_path, host, rng, nfft, win, hop, nt, length, out):
+    """istft_split_block at fft_plan.istft_plan's groups and rounds: every
+    sample of every signal written, equal to the plain synthesis."""
+    nf = num_frames(length, hop)
+    bins = nfft // 2 + 1
+    re = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    im = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    w = sinebell(win)
+    plan = fp.istft_plan(nt, nf, nfft, win, hop)
+    m, p = fp.split_factors(nfft)
+    assert plan.groups and plan.threads == plan.groups * nfft // fp.POINTS
+    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
+    for name, arr in (("re", re), ("im", im), ("wn", wn.numpy()), ("inv", inv.numpy()),
+                      ("twp", fp.twiddles(p, "cpu").numpy()),
+                      ("twn", fp.twiddles(nfft, "cpu").numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    int16 = out == "int16"
+    args = [m, p.bit_length() - 1, nt, nf, win, hop, length, plan.groups, plan.rounds, int(int16)]
+    subprocess.run([str(host["split_istft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32).reshape(nt, length)
+    ret, imt = torch.from_numpy(re), torch.from_numpy(im)
+    if int16:
+        want = istft_matmul(ret, imt, w, hop, length, nfft=nfft, algorithm="direct",
+                            output_dtype="int16").numpy()
+        assert want.dtype == np.int16 and (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        want = istft_pallas_plain(ret, imt, w, hop, length, nfft=nfft).numpy()
+        assert np.isfinite(got).all()  # every sample written
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length,ffts", [
+    (1000, 1000, 250, 1, 3000, None),     # 8 · 125: M 2048, one transform a block
+    (1000, 1000, 250, 2, 3000, 2),        # two transforms a block
+    (1001, 1001, 143, 1, 2000, None),     # odd
+    (1000, 800, 200, 1, 2500, None),      # nfft past the window
+    (18, 18, 9, 2, 200, None),            # M 64: 8 transforms of 4 threads a block
+    (1792, 1792, 448, 1, 4000, None),     # 7 · 256: M 4096
+    (4000, 4000, 1000, 1, 6000, None),    # M 8192, 512 threads
+])
+def test_bluestein_source_matches_plain(tmp_path, host, rng, nfft, win, hop, B, length, ffts):
+    """stft_bluestein_block at fft_plan.bluestein_plan's launch (or ``ffts``
+    transforms a block): every bin of every frame written, equal to the
+    plain STFT."""
+    x = (0.3 * rng.standard_normal((B, length))).astype(np.float32)
+    w = sinebell(win)
+    nf = num_frames(length, hop)
+    plan = fp.bluestein_plan(B, nf, nfft, win, hop)
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    for name, arr in (("x", x), ("w", w), ("tw", fp.twiddles(plan.m, "cpu").numpy()),
+                      ("chirp", chirp.numpy()), ("chat", chat.numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    args = [plan.m.bit_length() - 1, B, length, win, hop, nf, nfft, ffts or plan.ffts_per_block]
+    subprocess.run([str(host["bluestein_stft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
     out = np.fromfile(tmp_path / "out.bin", np.float32).reshape(2, B, nf, nfft // 2 + 1)
     re, im = stft_pallas_plain(torch.from_numpy(x), w, hop, nfft)
     peak = max(re.abs().max().item(), im.abs().max().item())

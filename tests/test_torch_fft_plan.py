@@ -424,9 +424,10 @@ def test_split_main_shapes():
 
 
 def test_split_refusals():
-    """Powers of two go to the core's own kernel; 1000 = 8 · 125 (2^a < 16
-    and 125 is not a split factor), 7 · 256 (a factor 7), 3 · 8 (2^a < 16)
-    and sizes past 8192 stay on the dense DFT kernel."""
+    """Powers of two go to the core's own kernel; the split refuses 1000 =
+    8 · 125 (2^a < 16 and 125 is not a split factor), 7 · 256 (a factor 7),
+    3 · 8 (2^a < 16) and sizes past 8192: up to 4096 they go to Bluestein
+    (:func:`test_bluestein_routing`), past it to the dense DFT kernel."""
     for n in (1000, 1024, 7 * 256, 24, 16, 8192, 3 * 4096, 25 * 64, 27 * 16):
         assert not fp.split_supported(n)
         with pytest.raises(ValueError, match="no split plan"):
@@ -477,6 +478,113 @@ def test_split_slots_avoid_bank_conflicts(nfft):
     assert span <= 2 and split <= 2
 
 
+# -- Bluestein (fft_common.cuh::stft_bluestein_block) ------------------------
+
+BLUESTEIN_SIZES = [18, 432, 1000, 1001, 1792, 4000]
+
+
+def bluestein_fft(z: torch.Tensor) -> torch.Tensor:
+    """stft_bluestein_block's transform on (..., N) complex: times the
+    float32 conj chirp, zero-padded to M, the core's FFT, times Ĉ / M, then
+    conjugated through the core again (the inverse by conjugation), and
+    Z[k] = conj c_k · conj(buf[k]) for k < N."""
+    N = z.shape[-1]
+    M = fp.bluestein_size(N)
+    chirp, chat = (torch.complex(t[:, 0], t[:, 1]).to(z.dtype) for t in fp.bluestein_tables(N, "cpu"))
+    a = torch.nn.functional.pad(z * chirp, (0, M - N))
+    buf = core_fft((core_fft(a) * chat).conj())
+    return chirp * buf[..., :N].conj()
+
+
+@pytest.mark.parametrize("nfft", BLUESTEIN_SIZES)
+def test_bluestein_matches_torch_fft(rng, nfft):
+    z = rng.standard_normal((3, nfft)) + 1j * rng.standard_normal((3, nfft))
+    got = bluestein_fft(torch.from_numpy(z))
+    want = torch.fft.fft(torch.from_numpy(z))
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length", [
+    (18, 18, 9, 2, 300), (432, 432, 108, 1, 4000), (1000, 1000, 250, 2, 14336),
+    (1001, 1001, 143, 1, 3000),   # odd: the partner of bin k is N - k
+    (1792, 1792, 448, 1, 9000), (4000, 4000, 1000, 1, 12001),
+    (1000, 800, 200, 1, 5000),    # nfft past the window
+])
+def test_bluestein_stft_matches_stft_pallas_plain(rng, nfft, win, hop, B, length):
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32))
+    w = sinebell(win)
+    got = core_stft(x, w, hop, nfft, fft=bluestein_fft)
+    re, im = stft_pallas_plain(x, w, hop, nfft)
+    peak = max(re.abs().max().item(), im.abs().max().item())
+    torch.testing.assert_close(got.real, re, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(got.imag, im, atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("nfft", BLUESTEIN_SIZES)
+def test_bluestein_tables(nfft):
+    """The chirp within one float32 rounding of float64 np.exp (its phase
+    reduced exactly from the integer t²), Ĉ / M within float32 rounding of
+    the float64 FFT of the wrapped chirp; made once per (nfft, device)."""
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    assert fp.bluestein_tables(nfft, "cpu")[0] is chirp
+    M = fp.bluestein_size(nfft)
+    assert chirp.shape == (nfft, 2) and chat.shape == (M, 2) and chirp.dtype == torch.float32
+    assert M >= 2 * nfft - 1 and M // 2 < 2 * nfft - 1 and M & (M - 1) == 0
+    t = np.arange(nfft)
+    c = np.exp(1j * np.pi * t.astype(np.float64) ** 2 / nfft)
+    got = chirp[:, 0].double().numpy() + 1j * chirp[:, 1].double().numpy()
+    assert np.abs(got - np.conj(c)).max() < 1.2e-7
+    wrapped = np.zeros(M, np.complex128)
+    wrapped[:nfft], wrapped[M - nfft + 1:] = c, c[1:][::-1]
+    want = np.fft.fft(wrapped) / M
+    ghat = chat[:, 0].double().numpy() + 1j * chat[:, 1].double().numpy()
+    assert np.abs(ghat - want).max() <= 1e-7 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (32, 60, 1000, 1000, 250), (1, 3, 1000, 1000, 250), (2, 40, 1001, 1001, 143),
+    (4, 200, 18, 18, 9), (32, 60, 432, 432, 108), (2, 30, 1792, 1792, 448),
+    (3, 20, 4000, 4000, 1000), (64, 500, 4000, 4000, 1000), (5, 50, 1000, 800, 200),
+])
+def test_bluestein_plan(signals, nf, nfft, win, hop):
+    """bluestein_plan mirrors stft_bluestein_launch: groups of M/16 threads,
+    the fewest that make the block whole warps (one from M 512 on), shared
+    memory the launcher's (stft_block's smem_bytes at M points),
+    within the card's; the grid covers every frame pair."""
+    plan = fp.bluestein_plan(signals, nf, nfft, win, hop)
+    M = plan.m
+    assert M == fp.bluestein_size(nfft) and M >= 2 * nfft - 1
+    t = fp.threads_per_fft(M)
+    g = plan.ffts_per_block
+    assert g == max(1, 32 // t) and plan.threads == g * t
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    span = fp.span_floats(2 * g, win, hop)
+    assert plan.smem_bytes == 4 * span + 8 * (M // 4 + M // 64 + g * (M + M // 16))
+    assert plan.smem_bytes == fp.smem_bytes(M, win, hop, g) <= fp.SMEM_MAX
+    per = plan.blocks_per_signal
+    assert per * 2 * g >= nf > (per - 1) * 2 * g and plan.blocks == signals * per
+
+
+def test_bluestein_main_plan():
+    """The smoke's W 1000, hop 250, B 32 (60 frames): M 2048, one transform
+    of 128 threads a block, 960 blocks."""
+    plan = fp.bluestein_plan(32, num_frames(14336, 250), 1000, 1000, 250)
+    assert (plan.m, plan.ffts_per_block, plan.threads, plan.blocks) == (2048, 1, 128, 960)
+
+
+def test_bluestein_routing():
+    """The sizes the split refuses up to 4096 go to Bluestein (1000, 7 · 256,
+    25 · 64, 27 · 16, odd sizes); powers of two, split sizes and sizes past
+    4096 do not (3 · 4096 and 6000 stay on the dense DFT kernel)."""
+    for n in (1000, 7 * 256, 25 * 64, 27 * 16, 1001, 18, 4000, 4095):
+        assert fp.bluestein_supported(n) and not fp.split_supported(n)
+        assert not fp.fft_supported(n)
+    for n in (3 * 4096, 6000, 4097, 1024, 768, 8192, 48):
+        assert not fp.bluestein_supported(n)
+        with pytest.raises(ValueError, match="no Bluestein plan"):
+            fp.bluestein_plan(1, 10, n, n, n // 2)
+
+
 # -- the forward mirror's bits, before and after the inverse direction ------
 
 # sha256 (first 16 hex digits) of core_fft on fixed complex64 inputs, taken
@@ -516,8 +624,10 @@ def inverse_input(re_a, im_a, re_b, im_b):
                        torch.complex(ar - bi, -(ai + br)))
 
 
-def core_istft(re, im, window, hop, length, nfft):
-    """istft_fft_kernel in float32: frames f, f + 1 ride one transform run
+def core_istft(re, im, window, hop, length, nfft, fft=core_fft):
+    """istft_fft_kernel in float32 (``fft``: split_fft for
+    istft_split_block, whose staged rows change where the points are read
+    from, not their values): frames f, f + 1 ride one transform run
     backwards through the forward core (conjugated in and out), windowed
     with window / nfft; each output sample sums its frames in ascending
     frame order (the carry plus a round's frames, left to right), times the
@@ -530,7 +640,7 @@ def core_istft(re, im, window, hop, length, nfft):
     pad = nf % 2
     re2 = torch.nn.functional.pad(re, (0, 0, 0, pad))
     im2 = torch.nn.functional.pad(im, (0, 0, 0, pad))
-    zz = core_fft(inverse_input(re2[:, 0::2], im2[:, 0::2], re2[:, 1::2], im2[:, 1::2]))
+    zz = fft(inverse_input(re2[:, 0::2], im2[:, 0::2], re2[:, 1::2], im2[:, 1::2]))
     wn = torch.from_numpy((np.asarray(window, np.float64) / nfft).astype(np.float32))
     frames = torch.stack([zz.real[..., :W] * wn, -zz.imag[..., :W] * wn], 2)
     frames = frames.flatten(1, 2)[:, :nf]  # (B, nf, W)
@@ -579,6 +689,26 @@ def test_core_istft_matches_plain(rng, nfft, win, hop, nf, ct):
     torch.testing.assert_close(got, want, atol=1e-5 * peak, rtol=0)
 
 
+@pytest.mark.parametrize("nfft,win,hop,nf", [
+    (48, 48, 12, 9), (240, 240, 60, 8), (768, 768, 256, 7), (768, 640, 160, 8),
+    (1280, 1280, 320, 6), (2304, 2304, 576, 7), (6144, 6144, 1536, 6),
+])
+def test_split_istft_matches_plain(rng, nfft, win, hop, nf):
+    """istft_split_block's transform (the split run backwards by
+    conjugation on inverse_input's points) and the rounds' gather, against
+    istft_pallas_plain within 1e-5 × max|out|."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(win)
+    bins = nfft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    got = core_istft(re, im, w, hop, length, nfft, fft=split_fft)
+    want = istft_pallas_plain(re, im, w, hop, length, nfft=nfft)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
 # (signals, nf, nfft, win, hop) of every iSTFT launch: the CUDA tests'
 # cases, chip_smoke.py's phase 7 and both slices (stereo highres4096's 8
 # signals, the dsd100 pallas route's 4), and each preset's whole track
@@ -588,7 +718,10 @@ ISTFT_LAUNCHES = [
     (5, num_frames(7777, 64), 512, 512, 64), (4, num_frames(30000, 512), 1024, 1024, 512),
     (1, num_frames(3000, 64), 128, 128, 64), (2, num_frames(5000, 32), 256, 128, 32),
     (3, num_frames(6000, 96), 384, 384, 96), (2, num_frames(9000, 250), 1000, 1000, 250),
-    (1, num_frames(40000, 1024), 4096, 4096, 1024),
+    (1, num_frames(40000, 1024), 4096, 4096, 1024), (4, 5170, 768, 768, 256),
+    (4, 5170, 1000, 1000, 250), (3, num_frames(20000, 320), 1280, 1280, 320),
+    (3, num_frames(20000, 576), 2304, 2304, 576), (1, num_frames(60000, 1536), 6144, 6144, 1536),
+    (3, num_frames(5000, 12), 48, 48, 12), (2, num_frames(3000, 60), 240, 240, 60),
     (8, 1442, 4096, 4096, 1024), (4, 2882, 1024, 1024, 512),
 ] + [(2, num_frames(8 * n, n // 4), n, n, n // 4) for n in (16, 32, 64, 128, 256, 512,
                                                           1024, 2048, 4096, 8192)] + [
@@ -634,6 +767,39 @@ def test_istft_main_path_plans(signals, nf, nfft, hop, groups, rounds, rows, blo
     assert (plan.groups, plan.rounds, plan.rows, plan.blocks, plan.blocks_per_sm) == (
         groups, rounds, rows, blocks, per_sm)
     assert plan.halo <= 3 / 16 and plan.note == ""
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (4, 5170, 768, 768, 256), (3, num_frames(6000, 96), 384, 384, 96), (1, 9, 48, 48, 12),
+    (2, 500, 240, 240, 60), (3, 70, 1280, 1280, 320), (2, 60, 2304, 2304, 576),
+    (1, 42, 6144, 6144, 1536), (2, 80, 7680, 7680, 960), (4, 90, 768, 384, 96),
+])
+def test_istft_split_plan(signals, nf, nfft, win, hop):
+    """istft_plan at the split's sizes mirrors istft_split_launch: the
+    fewest groups of m · P/16 threads in whole warps (G · P/16 a multiple
+    of 32), at most 512 threads, the P- and nfft-point quarter tables, the
+    exchange buffers and the carry within shared memory."""
+    plan = fp.istft_plan(signals, nf, nfft, win, hop)
+    m, p = fp.split_factors(nfft)
+    g, k = plan.groups, win // hop
+    assert g == max(1, 32 // fp.threads_per_fft(p))
+    assert plan.threads == g * m * fp.threads_per_fft(p)
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    assert (g * fp.threads_per_fft(p)) % 32 == 0  # m is odd
+    tables = (p // 4 + p // 64) + (nfft // 4 + nfft // 64)  # twiddle_len(P) + quarter_len(N)
+    assert plan.smem_bytes == 8 * (tables + g * (nfft + nfft // 16)) + 4 * (k - 1) * hop
+    assert plan.smem_bytes <= fp.SMEM_MAX
+    assert plan.rows == 2 * g * plan.rounds - (k - 1) >= 1 and plan.halo <= fp.MAX_HALO
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+
+
+def test_istft_split_main_plan():
+    """The smoke's W 768, hop 256 iSTFT (4 signals, nf 5170): 2 transforms
+    of 48 threads a block, four rounds of 4 frames for 14 rows, 1480
+    blocks, twelve a SM by shared memory and threads."""
+    plan = fp.istft_plan(4, 5170, 768, 768, 256)
+    assert (plan.groups, plan.threads, plan.rounds, plan.rows, plan.blocks,
+            plan.blocks_per_sm) == (2, 96, 4, 14, 1480, 12)
 
 
 def test_synthesis_tables_found_by_value():

@@ -58,7 +58,9 @@ def test_istft_ct_pallas_matches_jax(rng, lead, out):
 
 @pytest.mark.parametrize(
     "lead,nfft,win,hop",
-    [((3,), 256, 256, 64), ((), 128, 128, 64), ((2,), 256, 128, 32), ((4,), 64, 64, 8)],
+    [((3,), 256, 256, 64), ((), 128, 128, 64), ((2,), 256, 128, 32), ((4,), 64, 64, 8),
+     ((2,), 768, 768, 256),     # 3 · 256: the split run backwards on the card
+     ((2,), 1000, 1000, 250)],  # the direct sum on the card
 )
 def test_istft_pallas_matches_jax(rng, lead, nfft, win, hop):
     length = 2500
@@ -118,7 +120,8 @@ def test_istft_routes():
     assert m("auto", 1024, 1024, 512, 1.5, CUDA) == "direct"
     assert m("ct_pallas", 4096, 4096, 1024, 1.0, CPU) == "ct_pallas"
     assert istft_supported(4096, 4096, 1024) and istft_supported(1024, 1024, 512)
-    assert istft_supported(384, 384, 96)  # even, not a power of two: the direct sum
+    assert istft_supported(384, 384, 96)  # 3 · 128: the split run backwards
+    assert istft_supported(1000, 1000, 250)  # even, off the split: the direct sum
     assert not istft_supported(255, 255, 85) and not istft_supported(256, 512, 128)
     assert not istft_supported(4096, 4096, 1000)
 

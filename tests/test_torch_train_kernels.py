@@ -39,6 +39,8 @@ from convsep_tpu_torch.train.optim import AdadeltaState, global_norm, lasagne_ad
         (128, 128, None, ()),
         (768, 256, None, (2,)),   # 3 · 256: the mixed-radix split on the card
         (1280, 320, None, (2,)),  # 5 · 256
+        (1000, 250, None, (2,)),  # 8 · 125: Bluestein on the card
+        (1001, 143, None, (2,)),  # odd, Bluestein
     ],
 )
 def test_stft_pallas_matches_jax(rng, nfft, hop, nfft_pad, lead):
