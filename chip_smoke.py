@@ -37,9 +37,10 @@ result line is printed):
    signals (W 1024, hop 512) beside ``torch.stft(center=False)`` on the
    same padded signal; the split STFT kernel (m · 2^a sizes) on (32, 14
    336) at W 768, hop 256 and W 1280, hop 320, and the Bluestein kernel at
-   W 1000, hop 250, beside the dense DFT kernel forced at the same shapes;
-   the dense DFT kernel where it serves (W 6000, hop 1500); each call
-   launching its kernel once and no other
+   W 1000, hop 250 and, on the 16 384-point level, at W 6000, hop 1500,
+   beside the dense DFT kernel forced at the same shapes; the dense DFT
+   kernel where it serves (W 12 288, hop 3072); each call launching its
+   kernel once and no other
    (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
    a child process: a profiler session slows its process's host for good)
    and its wrapper's host time per call; the fused adadelta kernel on
@@ -61,9 +62,11 @@ result line is printed):
    ``istft_ct_pallas``) and the dsd100 pallas-route shapes (4 signals, nf
    2882, 513 bins, through ``istft_pallas``), beside ``torch.istft``, with
    both device times (in a child) and the wrapper's host time; the split
-   run backwards at W 768, hop 256 and the direct sum at W 1000, hop 250
-   (4 stems of a 30 s track each); each call launching its kernel once and
-   no other; 7b: the Wiener+iSTFT kernel's direct sum at W 768, as phase 3;
+   run backwards at W 768, hop 256, Bluestein run backwards at W 1000, hop
+   250 (beside the direct sum forced there) and on the level at W 6000, hop
+   1500 (4 stems of a 30 s track each), the direct sum where it serves (W
+   10 000, hop 2500, one stem); each call launching its kernel once and no
+   other; 7b: the Wiener+iSTFT kernel's direct sum at W 768, as phase 3;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -236,18 +239,26 @@ MIN_SNR_BAND_DB = 30.0
 TRAIN_STEPS = 20
 TRAIN_TRACKS = 8
 TRAIN_SECONDS = 20
-# the 4 stems of a 30 s track at W 768, hop 256 (the split, run backwards
-# by the iSTFT; the Wiener+iSTFT kernel's direct sum) and at W 1000, hop 250
-# (the iSTFT's direct sum): sizes that are not powers of two, timed, no
-# main path
+# the stems of a 30 s track at W 768, hop 256 (the split, run backwards
+# by the iSTFT; the Wiener+iSTFT kernel's direct sum), at W 1000, hop 250
+# and W 6000, hop 1500 (Bluestein run backwards, on the core and on the
+# level) and at W 10 000, hop 2500 (the iSTFT's direct sum): sizes that are
+# not powers of two, timed, no main path
 W768_NF = 5170
 W1000_NF = 5294
+W6000_NF = 884
+W10000_NF = 532
 # the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
-# istft_ct_pallas (else istft_pallas), the kernel it must launch)
+# istft_ct_pallas (else istft_pallas, or istft_direct_pallas where the
+# kernel is "istft_direct"), the kernel it must launch)
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
                 ("W 768 split", 768, 256, W768_NF, 4, False, "istft_split"),
-                ("W 1000 direct sum", 1000, 250, W1000_NF, 4, False, "istft"))
+                ("W 1000 Bluestein", 1000, 250, W1000_NF, 4, False, "istft_bluestein"),
+                ("W 1000 direct sum", 1000, 250, W1000_NF, 4, False, "istft_direct"),
+                ("W 6000 Bluestein", 6000, 1500, W6000_NF, 4, False, "istft_bluestein"),
+                ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"))
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_direct")
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -385,18 +396,20 @@ def device_times(kind: str) -> dict:
 
 
 # phase 5's STFT launches: (key, the kernel it must launch, W, hop, batches,
-# forced dense). The split kernel at m = 3 and 5 and Bluestein at W 1000,
-# the dense kernel at their shapes (forced: the time each replaces) and
-# where it still serves (W 6000: past 4096, not a split size).
+# forced dense). The split kernel at m = 3 and 5 and Bluestein at W 1000
+# and, on the level, W 6000, the dense kernel at their shapes (forced: the
+# time each replaces) and where it still serves (W 12 288: past 8192).
 STFT_SHAPES = (
     ("stft", "stft", 1024, 512, (32, 128), False),
     ("stft_split", "stft_split", 768, 256, (32,), False),
     ("stft_split W 1280", "stft_split", 1280, 320, (32,), False),
     ("stft_bluestein", "stft_bluestein", 1000, 250, (32,), False),
-    ("stft_dft", "stft_dft", 6000, 1500, (32,), False),
+    ("stft_bluestein W 6000", "stft_bluestein", 6000, 1500, (32,), False),
+    ("stft_dft", "stft_dft", 12288, 3072, (32,), False),
     ("stft_dft W 768", "stft_dft", 768, 256, (32,), True),
     ("stft_dft W 1280", "stft_dft", 1280, 320, (32,), True),
     ("stft_dft W 1000", "stft_dft", 1000, 250, (32,), True),
+    ("stft_dft W 6000", "stft_dft", 6000, 1500, (32,), True),
 )
 
 
@@ -488,13 +501,10 @@ def child_istft_times(device, gen, pair) -> dict:
     ``torch.istft`` on the same spectra."""
     import numpy as np
     import torch
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
-
     res = {}
-    for name, nfft, hop, nf, N, ct, _ in ISTFT_SHAPES:
+    for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
-        kern = istft_ct_pallas if ct else istft_pallas
+        kern = istft_fn(ct, kernel)
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
         spec = torch.complex(re, im).transpose(-1, -2)
         res[name] = pair(lambda: kern(re, im, w, hop, L),
@@ -882,8 +892,9 @@ def phase_stft(device, gen) -> dict:
     128; 14 336 samples, W 1024, hop 512 → 30 frames × 513 bins), the
     split kernel at W 768, hop 256 (3 · 256: 58 frames × 385 bins) and W
     1280, hop 320 (5 · 256: 47 × 641), Bluestein at W 1000, hop 250 (8 ·
-    125: 60 × 501), the dense DFT kernel where it still serves (W 6000, hop
-    1500: 12 × 3001) and, forced, at the split's and Bluestein's shapes.
+    125: 60 × 501) and on the level at W 6000, hop 1500 (12 × 3001), the
+    dense DFT kernel where it still serves (W 12 288, hop 3072: 7 × 6145)
+    and, forced, at the split's and Bluestein's shapes.
     Each call must launch its kernel once and no other STFT kernel."""
     import torch
     from convsep_tpu_torch import kernels
@@ -942,7 +953,8 @@ def phase_stft(device, gen) -> dict:
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); wrapper host {r['host_us']:.1f} us")
     for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280"),
-                       ("stft_bluestein", "stft_dft W 1000")):
+                       ("stft_bluestein", "stft_dft W 1000"),
+                       ("stft_bluestein W 6000", "stft_dft W 6000")):
         r, d = out[key], out[dense]
         r["dense_ms"], r["dense_device_ms"] = d["ms"], d["device_ms"]
         log(f"  {key}: {key.split()[0]} {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
@@ -1282,6 +1294,15 @@ def phase_train(device) -> dict:
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "route": route}
 
 
+def istft_fn(ct: bool, kernel: str):
+    """The wrapper an ``ISTFT_SHAPES`` row calls: ``istft_ct_pallas``, the
+    direct sum forced (``istft_direct_pallas``) or ``istft_pallas``."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_direct_pallas, istft_pallas
+
+    return istft_ct_pallas if ct else istft_direct_pallas if kernel == "istft_direct" else istft_pallas
+
+
 def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
     """Masked STFT halves (N, nf, nfft/2 + 1) of random signals."""
     import torch
@@ -1300,24 +1321,21 @@ def phase_istft(device, gen) -> dict:
     """The iSTFT kernels vs plain, float32 and int16, beside ``torch.istft``:
     path A's shapes (``istft_ct_pallas``), path B's (``istft_pallas``; its
     int16 through ``launch_istft``, against the direct synthesis quantized),
-    the split run backwards at W 768 and the direct sum at W 1000. Each
-    float32 call must launch its kernel once and no other iSTFT kernel."""
+    the split run backwards at W 768, Bluestein run backwards at W 1000 and
+    W 6000 (the level), the direct sum forced at W 1000 (the time Bluestein
+    replaces) and where it serves, W 10 000. Each call must launch its
+    kernel once and no other iSTFT kernel."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas, istft_ct_pallas_plain
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import (
-        istft_pallas,
-        istft_pallas_plain,
-        launch_istft,
-    )
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain, launch_istft
     from convsep_tpu_torch.dsp.dft import istft_matmul
 
-    names = ("istft", "istft_split")
+    names = ISTFT_NAMES
     res = {}
     for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
-        kern, plain = ((istft_ct_pallas, istft_ct_pallas_plain) if ct
-                       else (istft_pallas, istft_pallas_plain))
+        kern, plain = istft_fn(ct, kernel), istft_ct_pallas_plain if ct else istft_pallas_plain
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
         err = {}
         for out in ("float32", "int16"):
@@ -1328,7 +1346,7 @@ def phase_istft(device, gen) -> dict:
                 got = kern(re, im, w, hop, L, output_dtype=out)
                 want = plain(re, im, w, hop, L, output_dtype=out)
             else:
-                got = launch_istft(re, im, w, hop, L, nfft, out)
+                got = launch_istft(re, im, w, hop, L, nfft, out, direct=kernel == "istft_direct")
                 want = istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
                                     output_dtype=out)
             torch.cuda.synchronize()
@@ -1372,9 +1390,12 @@ def phase_istft(device, gen) -> dict:
         log(f"  istft {name}: device {ms_str(d['device_ms'])} (torch.istft device "
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms")
     log(f"  device kernels: {json.dumps(dev)}")
-    r, d = res["W 768 split"], res["W 1000 direct sum"]
-    log(f"  istft W 768 split: device {ms_str(r['device_ms'])} against torch.istft's "
-        f"{ms_str(r['library_device_ms'])} and the W 1000 direct sum's {ms_str(d['device_ms'])}")
+    for key, direct in (("W 768 split", "W 1000 direct sum"),
+                        ("W 1000 Bluestein", "W 1000 direct sum")):
+        r, d = res[key], res[direct]
+        log(f"  istft {key}: device {ms_str(r['device_ms'])} against torch.istft's "
+            f"{ms_str(r['library_device_ms'])} and the W 1000 direct sum's "
+            f"{ms_str(d['device_ms'])}")
     return res
 
 
@@ -1572,7 +1593,8 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
     if not (all(launches[k] > 0 for k in ("wiener_apply", "istft"))
             and launches["stft"] == 1 and launches["stft_split"] == 0
             and launches["stft_bluestein"] == 0 and launches["stft_dft"] == 0
-            and launches["istft_split"] == 0):
+            and launches["istft_split"] == 0 and launches["istft_bluestein"] == 0
+            and launches["istft_direct"] == 0):
         raise AssertionError(f"{name}: the pallas route missed a kernel: {launches}")
     ms = time_track(sep, audio)
     mm = Separator(preset, state, device=device)
@@ -1845,7 +1867,8 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
                          "fused_decode": auto_fused(preset, track_segments(preset, len(audio))),
                          "band_decode": False, "stft": False,
                          "stft_split": False, "stft_bluestein": False, "stft_dft": False,
-                         "istft": False, "istft_split": False}),
+                         "istft": False, "istft_split": False, "istft_bluestein": False,
+                         "istft_direct": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
                            "ct_stft": False, "wiener_istft_ny": False}),
@@ -2882,7 +2905,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 7: iSTFT kernels vs plain (stereo highres4096 and dsd100 pallas-route shapes, "
-        "the split at W 768, the direct sum at W 1000)")
+        "the split at W 768, Bluestein at W 1000 and 6000, the direct sum at W 1000 forced and "
+        "at W 10 000)")
     ist = phase_istft(device, gen)
     log("phase 7b: the Wiener+iSTFT kernel's direct sum at W 768, hop 256 (4 stems, nf "
         f"{W768_NF}), beside torch.istft of the same spectra (phase 7)")
@@ -2978,13 +3002,15 @@ def main(argv: list[str]) -> int:
         Separator(pallas, dsd_state, device=device),
         [audio + np.float32(i % 3 / 32768.0) for i in range(n)],
         {"stft": n, "wiener_apply": n, "istft": n, "stft_split": 0, "stft_bluestein": 0,
-         "stft_dft": 0, "istft_split": 0, "wiener_istft": 0})
+         "stft_dft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0,
+         "wiener_istft": 0})
     st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
     st_mix = stereo_mixture(0)
     stream["highres4096-stereo"] = phase_stream_route(
         "highres4096-stereo stream", StreamSeparator(st, st_state, device=device),
         StereoSeparator(st, st_state, device=device), [st_mix, 0.5 * st_mix],
-        {"istft": 2, "istft_split": 0, "wiener_istft": 0,
+        {"istft": 2, "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0,
+         "wiener_istft": 0,
          "fused_decode": 2 if auto_fused(st, track_segments(st, st_mix.shape[1])) else 0})
     del st_state
     torch.cuda.empty_cache()
@@ -3027,10 +3053,11 @@ def main(argv: list[str]) -> int:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    # every path's STFT and iSTFT runs on the FFT core: the split (both
-    # directions), Bluestein and the dense DFT kernel serve only sizes that
-    # no preset uses
-    for kernel in ("stft_split", "stft_bluestein", "stft_dft", "istft_split"):
+    # every path's STFT and iSTFT runs on the FFT core: the split and
+    # Bluestein (both directions), the dense DFT and the direct sum serve
+    # only sizes that no preset uses
+    for kernel in ("stft_split", "stft_bluestein", "stft_dft", "istft_split", "istft_bluestein",
+                   "istft_direct"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -3060,18 +3087,21 @@ def main(argv: list[str]) -> int:
         {"name": "stft_bluestein", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_bluestein_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "nfft <= 4096 that neither the FFT core nor its split plans (1000 = 8 125, "
-                   "a factor 7, odd sizes); no preset",
-         **launched("stft_bluestein"), **stft_all["stft_bluestein"]},
+         "serves": "nfft <= 8192 that neither the FFT core nor its split plans (1000 = 8 125, "
+                   "a factor 7, odd sizes; past 4096 on the 16 384-point level, as 6000); "
+                   "no preset",
+         **launched("stft_bluestein"), **stft_all["stft_bluestein"],
+         "w6000_hop1500": stft_all["stft_bluestein W 6000"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
          "serves": "the sizes none of the FFT core, its split and Bluestein plans (past "
-                   "4096 off the split, past 8192); no preset",
+                   "8192, as 12 288); no preset",
          **launched("stft_dft"), **stft_all["stft_dft"],
          "forced_w768": stft_all["stft_dft W 768"],
          "forced_w1280": stft_all["stft_dft W 1280"],
-         "forced_w1000": stft_all["stft_dft W 1000"]},
+         "forced_w1000": stft_all["stft_dft W 1000"],
+         "forced_w6000": stft_all["stft_dft W 6000"]},
         {"name": "fused_adadelta", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/fused_adadelta.cu",
          "replaces": "convsep_tpu/train/fused_optim.py:88",
@@ -3081,14 +3111,29 @@ def main(argv: list[str]) -> int:
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
          **launched("istft"), **ist["highres4096-stereo"],
-         "dsd100_pallas_route": ist["dsd100 pallas route"],
-         "w1000_direct": ist["W 1000 direct sum"]},
+         "dsd100_pallas_route": ist["dsd100 pallas route"]},
         {"name": "istft_split", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_split_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
          "serves": "nfft = m 2^a, m in 3, 5, 9, 15, 2^a >= 16, nfft <= 8192; no preset",
          **launched("istft_split"), **ist["W 768 split"]},
+        {"name": "istft_bluestein", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_bluestein_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "even nfft <= 8192 that neither the FFT core nor its split plans (1000 = "
+                   "8 125, a factor 7; past 4096 on the 16 384-point level, as 6000); no preset",
+         **launched("istft_bluestein"), **ist["W 1000 Bluestein"],
+         "w6000_hop1500": ist["W 6000 Bluestein"]},
+        {"name": "istft_direct", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_direct_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "even nfft past 8192 off the split (10 000); istft_direct_pallas forces it; "
+                   "no preset",
+         **launched("istft_direct"), **ist["W 10000 direct sum"],
+         "forced_w1000": ist["W 1000 direct sum"]},
         {"name": "wiener_apply", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_apply.cu",
          "replaces": "convsep_tpu/dsp/pallas/wiener_kernel.py:77",

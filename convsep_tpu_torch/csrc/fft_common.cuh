@@ -56,8 +56,8 @@
 // (istft_split_block) runs backwards by conjugation as the core's inverse
 // does, its points filled by split_inverse_points.
 //
-// Bluestein's chirp-z (stft_bluestein_block) takes any other N <= 4096 onto
-// the power-of-two core: with c_n = e^{i pi n^2 / N},
+// Bluestein's chirp-z (Chirp, stft_bluestein_block) takes any other N <=
+// 8192 onto the power-of-two core: with c_n = e^{i pi n^2 / N},
 //
 //   X[k] = conj c_k sum_{t < N} (x_t conj c_t) c_{k-t},
 //
@@ -65,7 +65,11 @@
 // the pre-chirped frames, times the FFT of the wrapped chirp (c_n at n and
 // M - n, made on the host in float64 with 1/M folded in), the core again
 // run backwards by conjugation, then the post-chirp and the two-real-frames
-// split at the partner N - k.
+// split at the partner N - k. Past N = 4096, M is 16 384: the level (Level),
+// two 8192-point runs of the core on one 512-thread group and a radix-2
+// stage. The inverse STFT at any other even N <= 8192
+// (istft_bluestein_block) is the same convolution run backwards: the
+// inverse DFT is conj(DFT_N(conj Z)) / N.
 
 #pragma once
 
@@ -296,15 +300,21 @@ struct Fft {
 // Fft<LOG2N>::run, buf[slot(t)] holds N conj(a[t] + i b[t]): a[t] = x / N,
 // b[t] = -y / N.
 //
-// conj Z[k] of N points at k from bin(kk, edge), kk = k or its mirror N - k.
-template <int N, class Bin>
-__device__ __forceinline__ float2 inverse_point(int k, Bin bin) {
-  const bool mirrored = k > N / 2;
-  const int kk = mirrored ? N - k : k;
-  const float4 ab = bin(kk, kk == 0 || kk == N / 2);
+// conj Z[k] of n points (n even) at k from bin(kk, edge), kk = k or its
+// mirror n - k.
+template <class Bin>
+__device__ __forceinline__ float2 inverse_point(int k, int n, Bin bin) {
+  const bool mirrored = k > n / 2;
+  const int kk = mirrored ? n - k : k;
+  const float4 ab = bin(kk, kk == 0 || kk == n / 2);
   // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
   return mirrored ? make_float2(ab.x + ab.w, ab.y - ab.z)
                   : make_float2(ab.x - ab.w, -(ab.y + ab.z));
+}
+
+template <int N, class Bin>
+__device__ __forceinline__ float2 inverse_point(int k, Bin bin) {
+  return inverse_point(k, N, bin);
 }
 
 template <int LOG2N, class Bin>
@@ -668,6 +678,48 @@ __device__ __forceinline__ void write_sample(void* out, int out_int16, long long
   }
 }
 
+// The inverse kernels' overlap-add of one round, after its transforms and a
+// block barrier: the round's f2 frames start at frame fr, and rows fr .. fr
+// + f2 + k - 2 (k = win / hop) meet them; rows below fr + f2 are complete
+// after it, the k - 1 above carry on to the next round. A thread owns
+// columns u of the hop rows and sums, for each row, the carry of earlier
+// rounds and the round's frames in ascending order (each sample its win/hop
+// frames in one fixed order, no atomics); sample(g, t) is the float2 at
+// sample t of group g's transform, N conj(a[t] + i b[t]) for its frames a =
+// fr + 2 g and b = a + 1. A complete row of signal n in [j0, j_end) is
+// written times inv_norm, the win/2 front trim, by write_sample. The
+// power-of-two and Bluestein inverse kernels use it; istft_split_block
+// keeps the same loop written out.
+template <class Sample>
+__device__ __forceinline__ void gather_round(Sample sample, float* carry,
+                                             const float* __restrict__ win_over_n,
+                                             const float* __restrict__ inv_norm,
+                                             void* __restrict__ out, int out_int16, int n, int fr,
+                                             int f2, int k, int hop, int j0, int j_end,
+                                             int length) {
+  const long long front = (long long)k * hop / 2;
+  for (int u = threadIdx.x; u < hop; u += blockDim.x) {
+    for (int i = 0; i < f2 + k - 1; ++i) {
+      const int row = fr + i;
+      float acc = i < k - 1 ? carry[i * hop + u] : 0.f;
+      const int f_lo = max(fr, row - k + 1), f_hi = min(fr + f2 - 1, row);
+      for (int f = f_lo; f <= f_hi; ++f) {
+        const int t = (row - f) * hop + u;
+        const float2 z = sample((f - fr) >> 1, t);
+        acc += __ldg(win_over_n + t) * (((f - fr) & 1) ? -z.y : z.x);
+      }
+      if (i >= f2) {
+        carry[(i - f2) * hop + u] = acc;
+      } else if (row >= j0 && row < j_end) {
+        const long long nabs = (long long)row * hop + u;
+        const long long tpos = nabs - front;
+        if (tpos >= 0 && tpos < length)
+          write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
+      }
+    }
+  }
+}
+
 // Dynamic shared memory of an inverse split block of `groups` groups: the
 // P-point and N-point quarter tables, one N-point exchange buffer per group,
 // the carry of (win/hop - 1) hop rows.
@@ -738,8 +790,8 @@ __device__ __forceinline__ void istft_split_block(
                          rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
     });
     split_run<LOG2P, M>(v, buf, twp, twn, jj, group);
-    // rows fr .. fr + f2 + k - 2 meet the round's frames; rows below fr + f2
-    // are complete after it, the k - 1 above carry on to the next round
+    // gather_round's loop, written out: through the helper ptxas gives some
+    // of the split's instances larger stack frames
     for (int u = threadIdx.x; u < hop; u += blockDim.x) {
       for (int i = 0; i < f2 + k - 1; ++i) {
         const int row = fr + i;
@@ -765,88 +817,341 @@ __device__ __forceinline__ void istft_split_block(
   }
 }
 
+// ---- the 16 384-point level -------------------------------------------------
+
+constexpr int kLevelLog2 = kMaxLog2 + 1;  // the level's 2 x 8192 points
+
+// One complex FFT of 16 384 points by one group of 512 threads (the whole
+// block), each thread holding 16 points in registers at a time: split_run's
+// structure with m = 2, its two 8192-point sub-FFTs run one after the other
+// on the same threads. The group's exchange buffer is exchange_len(14)
+// float2, two 8192-point buffers back to back: slot(8192 + k) is slot k of
+// the second half. tw13 is the 8192-point quarter table, tw14 the 16
+// 384-point one, both in shared memory; w = e^{-2 pi i / 16384}.
+//
+// forward (decimation in time), from point(t), the input point t: Fft<13>
+// on the even points into half 0, then on the odd points into half 1 (the
+// first run's last pass has left half 0 whole behind its barrier, and the
+// second writes only half 1), then 8192 radix-2 butterflies in place, Z[k1]
+// = Y0[k1] + w^k1 Y1[k1] and Z[k1 + 8192] = Y0[k1] - w^k1 Y1[k1], thread j
+// taking the columns k1 = j + 512 m: Z in natural order at slot(k).
+//
+// forward_dif (decimation in frequency) takes its input u[n] = pre(n,
+// buf[slot(n)]) in natural order from the buffer instead (the forward
+// transform's output): a[n] = u[n] + u[n + 8192] stays in registers as the
+// first run's points, b[n] = (u[n] - u[n + 8192]) w^n goes to half 1's
+// column n; Fft<13> on a into half 0 and on b into half 1 gives Z[2k] at
+// slot(k) and Z[2k + 1] at slot(8192 + k) (dif_slot).
+template <bool kBlockSync>
+struct Level {
+  using F = Fft<kMaxLog2, kBlockSync>;
+  static constexpr int H = F::N;  // 8192, a half
+  static constexpr int N = 2 * H;
+  static constexpr int T = F::T;  // 512
+  static constexpr int E = exchange_len(kMaxLog2);  // slot(H): the first of half 1
+
+  __device__ __forceinline__ static int dif_slot(int k) { return (k & 1) * E + slot(k >> 1); }
+
+  template <class Point>
+  __device__ __forceinline__ static void forward(Point point, float2* buf, const float2* tw13,
+                                                 const float2* tw14, int j) {
+    float2 v[kPoints];
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int m = 0; m < kPoints; ++m) v[m] = point(2 * (j + T * m) + h);
+      F::run(v, buf + h * E, tw13, j, 0);
+    }
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int k1 = j + T * m;
+      const float2 y0 = buf[slot(k1)];
+      const float2 y1 = cmul(buf[E + slot(k1)], quarter_twiddle<N>(tw14, k1));
+      buf[slot(k1)] = make_float2(y0.x + y1.x, y0.y + y1.y);
+      buf[E + slot(k1)] = make_float2(y0.x - y1.x, y0.y - y1.y);
+    }
+    F::sync(0);
+  }
+
+  template <class Pre>
+  __device__ __forceinline__ static void forward_dif(Pre pre, float2* buf, const float2* tw13,
+                                                     const float2* tw14, int j) {
+    float2 v[kPoints];
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int n = j + T * m;
+      const float2 a = pre(n, buf[slot(n)]);
+      const float2 b = pre(n + H, buf[E + slot(n)]);
+      v[m] = make_float2(a.x + b.x, a.y + b.y);
+      buf[E + slot(n)] = cmul(make_float2(a.x - b.x, a.y - b.y), quarter_twiddle<N>(tw14, n));
+    }
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      if (h) {
+#pragma unroll
+        for (int m = 0; m < kPoints; ++m) v[m] = buf[E + slot(j + T * m)];
+      }
+      F::sync(0);  // every thread has read this half; the first pass rewrites it
+      F::run(v, buf + h * E, tw13, j, 0);
+    }
+  }
+};
+
 // ---- Bluestein -------------------------------------------------------------
 
 // M = 2^ceil(log2(2 N - 1)), at least 16: Bluestein's convolution length
-// for N points (fft_plan.bluestein_size); 0 past the core's 8192.
+// for N points (fft_plan.bluestein_size); 0 past the level's 16 384.
 inline int bluestein_log2(int n) {
   int lg = kMinLog2;
   while ((1 << lg) < 2 * n - 1) ++lg;
-  return lg <= kMaxLog2 ? lg : 0;
+  return lg <= kLevelLog2 ? lg : 0;
 }
 
-// stft_block for any N <= 4096 by Bluestein over the core's M = 2^LOG2M
-// points (M >= 2N - 1): each group of M / 16 threads carries frames f0 + 2 g
-// and f0 + 2 g + 1 of the block's span as z = a + i b (windowed, t < W),
-// multiplies them by chirp[t] = conj c_t, runs the core, multiplies by
-// chat[k] (the FFT of the wrapped chirp, over M), runs the core backwards by
-// conjugation, and gives Z[k] = chirp[k] conj(buf[k]); then A and B at bins
-// k <= N/2 from Z[k] and its partner Z[N - k]. chirp (N) and chat (M) are
-// read from global memory (through L1; copying them into shared memory
-// measured slower, PERF.md row 6″). tw is the M-point quarter table. Calls
-// out(frame_a, has_b, k, A, B) as stft_block. kBlockSync: the transforms
+// Threads of one Bluestein transform: M / 16 on the core, 512 on the level.
+__host__ __device__ constexpr int bluestein_threads(int log2m) {
+  return log2m > kMaxLog2 ? kMaxThreads : fft_threads(log2m);
+}
+
+// float2 slots of a Bluestein block's twiddle tables in shared memory: the
+// M-point quarter table on the core; on the level the 8192-point one (its
+// halves' passes) and the 16 384-point one (its radix-2 stage).
+__host__ __device__ constexpr int bluestein_tables_len(int log2m) {
+  return log2m > kMaxLog2 ? twiddle_len(kMaxLog2) + quarter_len(1 << log2m) : twiddle_len(log2m);
+}
+
+// Dynamic shared memory of a forward Bluestein block of `ffts` groups: on
+// the core stft_block's at M points (the span, the table, one exchange
+// buffer a group); on the level the two tables and one exchange buffer,
+// 191 488 bytes, the frames read straight from global memory (a span of
+// two frames of up to 8192 samples does not fit beside them).
+inline size_t bluestein_smem_bytes(int log2m, int win, int hop, int ffts) {
+  if (log2m <= kMaxLog2) return smem_bytes(log2m, win, hop, ffts);
+  return ((size_t)bluestein_tables_len(log2m) + (size_t)exchange_len(log2m)) * sizeof(float2);
+}
+
+// Dynamic shared memory of an inverse Bluestein block of `groups` groups:
+// the tables, one exchange buffer per group, the carry of (win/hop - 1) hop
+// rows.
+inline size_t istft_bluestein_smem_bytes(int log2m, int win, int hop, int groups) {
+  return ((size_t)bluestein_tables_len(log2m) + (size_t)groups * exchange_len(log2m)) *
+             sizeof(float2) +
+         (size_t)(win / hop - 1) * hop * sizeof(float);
+}
+
+// Bluestein's cyclic convolution of M = 2^LOG2M points for one group: with
+// c_n = e^{i pi n^2 / N},
+//
+//   X[k] = conj c_k sum_{t < N} (x_t conj c_t) c_{k-t},
+//
+// the pre-chirped points v_t = point(t) (0 for N <= t < M), the FFT of v,
+// times chat (the FFT of the wrapped chirp, c_n at n and M - n, made on the
+// host in float64 with 1/M folded in), conjugated, the FFT again: the
+// inverse by conjugation. On return, behind the group's barrier, buf[at(k)]
+// holds conj((v * c)[k]). The core's Fft<LOG2M> (M <= 8192, M / 16 threads)
+// runs both transforms, or the level (M 16 384, 512 threads): forward, then
+// forward_dif with the product and conjugation as its input's pre. chat is
+// read from global memory through L1 (copying the chirp tables into shared
+// memory measured slower, PERF.md row 6″). kBlockSync: the core's transforms
 // synchronize the whole block (the host emulation, which has only
 // __syncthreads); the card synchronizes each group alone.
+template <int LOG2M, bool kBlockSync>
+struct Chirp {
+  static constexpr bool kLevel = LOG2M > kMaxLog2;
+  static constexpr int M = 1 << LOG2M;
+  static constexpr int T = bluestein_threads(LOG2M);
+  static constexpr int E = exchange_len(LOG2M);  // a group's exchange buffer
+  static constexpr int TABLES = bluestein_tables_len(LOG2M);
+  using F = Fft<kLevel ? kMaxLog2 : LOG2M, kBlockSync>;
+  using Lv = Level<kBlockSync>;
+
+  // tws (shared) from tw, the M-point quarter table (fft_plan.twiddles); on
+  // the level the 8192-point table first, as tw's even entries: the same
+  // float64 angles, rounded once.
+  __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw) {
+    if constexpr (kLevel) {
+      for (int i = threadIdx.x; i < Lv::H / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + 2 * i);
+      float2* tw14 = tws + twiddle_len(kMaxLog2);
+      for (int i = threadIdx.x; i < M / 4; i += blockDim.x) tw14[slot(i)] = __ldg(tw + i);
+    } else {
+      for (int i = threadIdx.x; i < M / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + i);
+    }
+  }
+
+  // where point k of the convolution lies in the group's buffer
+  __device__ __forceinline__ static int at(int k) {
+    if constexpr (kLevel) {
+      return Lv::dif_slot(k);
+    } else {
+      return slot(k);
+    }
+  }
+
+  template <class Point>
+  __device__ __forceinline__ static void convolve(Point point, float2* buf, const float2* tws,
+                                                  const float2* __restrict__ chat, int j,
+                                                  int group) {
+    if constexpr (kLevel) {
+      const float2* tw14 = tws + twiddle_len(kMaxLog2);
+      Lv::forward(point, buf, tws, tw14, j);
+      Lv::forward_dif(
+          [&](int n, float2 z) {
+            const float2 p = cmul(z, __ldg(chat + n));
+            return make_float2(p.x, -p.y);
+          },
+          buf, tws, tw14, j);
+    } else {
+      float2 v[kPoints];
+#pragma unroll
+      for (int m = 0; m < kPoints; ++m) v[m] = point(j + T * m);
+      F::run(v, buf, tws, j, group);
+      // the inverse's input: conj(FFT times chat)
+#pragma unroll
+      for (int m = 0; m < kPoints; ++m) {
+        const int k = j + T * m;
+        const float2 p = cmul(buf[slot(k)], __ldg(chat + k));
+        v[m] = make_float2(p.x, -p.y);
+      }
+      F::sync(group);  // every point is read; the first pass rewrites buf
+      F::run(v, buf, tws, j, group);
+    }
+  }
+};
+
+// stft_block for any N <= 8192 by Bluestein (Chirp) over M = 2^LOG2M >= 2N
+// - 1 points: each group carries frames f0 + 2 g and f0 + 2 g + 1 as z = a +
+// i b (windowed, t < W) times chirp[t] = conj c_t, convolves, and gives Z[k]
+// = chirp[k] conj(buf[at(k)]); then A and B at bins k <= N/2 from Z[k] and
+// its partner Z[N - k], so odd N works. On the core the block stages its
+// frames' span in shared memory; on the level (one group of two frames a
+// block) it reads them straight from global memory, thread j's points t = 2
+// (j + 512 m) + h coalesced across a warp. chirp (N) and chat (M) are read
+// through L1. Calls out(frame_a, has_b, k, A, B) as stft_block.
 template <int LOG2M, bool kBlockSync, class Out>
 __device__ __forceinline__ void stft_bluestein_block(
     const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
     const float2* __restrict__ chirp, const float2* __restrict__ chat, int L, int W, int hop,
     int nf, int N, Out out) {
-  using F = Fft<LOG2M, kBlockSync>;
-  constexpr int M = F::N;
+  using C = Chirp<LOG2M, kBlockSync>;
   extern __shared__ float4 smem4[];
-  const int groups = blockDim.x / F::T;
-  const int group = threadIdx.x / F::T;
-  const int j = threadIdx.x - group * F::T;
+  const int groups = blockDim.x / C::T;
+  const int group = threadIdx.x / C::T;
+  const int j = threadIdx.x - group * C::T;
   const int frames = 2 * groups;
   const int per_signal = (nf + frames - 1) / frames;
   const int sig = blockIdx.x / per_signal;
   const int f0 = (blockIdx.x - sig * per_signal) * frames;
-  const int span_len = (frames - 1) * hop + W;
+  const float* xs = x + (long long)sig * L;
+  const long long s0 = (long long)f0 * hop - W / 2;  // the block's first sample
   float* smem = reinterpret_cast<float*>(smem4);
-  float2* tws = reinterpret_cast<float2*>(smem + span_floats(frames, W, hop));
-  float2* buf = tws + twiddle_len(LOG2M) + group * exchange_len(LOG2M);
-  const float* span =
-      load_span(smem, x + (long long)sig * L, L, (long long)f0 * hop - W / 2, span_len);
-  for (int i = threadIdx.x; i < M / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + i);
+  float2* tws = reinterpret_cast<float2*>(smem);
+  const float* span = nullptr;
+  if constexpr (!C::kLevel) {
+    tws = reinterpret_cast<float2*>(smem + span_floats(frames, W, hop));
+    span = load_span(smem, xs, L, s0, (frames - 1) * hop + W);
+  }
+  float2* buf = tws + C::TABLES + group * C::E;
+  C::load_tables(tws, tw);
   __syncthreads();
 
   // frame a (real) and frame b (imaginary), windowed, times conj c_t
-  const float* fa = span + 2 * group * hop;
-  const float* fb = fa + hop;
-  float2 v[kPoints];
-#pragma unroll
-  for (int m = 0; m < kPoints; ++m) {
-    const int t = j + F::T * m;
-    if (t < W) {
-      const float w = __ldg(win + t);
-      v[m] = cmul(make_float2(fa[t] * w, fb[t] * w), __ldg(chirp + t));
-    } else {
-      v[m] = make_float2(0.f, 0.f);
-    }
-  }
-  F::run(v, buf, tws, j, group);
-  // the inverse's input: conj(FFT times chat)
-#pragma unroll
-  for (int m = 0; m < kPoints; ++m) {
-    const int k = j + F::T * m;
-    const float2 p = cmul(buf[slot(k)], __ldg(chat + k));
-    v[m] = make_float2(p.x, -p.y);
-  }
-  F::sync(group);  // every point is read; the first pass rewrites buf
-  F::run(v, buf, tws, j, group);
+  const int off = 2 * group * hop;  // frame a's first sample in the span
+  C::convolve(
+      [&](int t) {
+        if (t >= W) return make_float2(0.f, 0.f);
+        const float w = __ldg(win + t);
+        float a, b;
+        if constexpr (C::kLevel) {
+          const long long s = s0 + t;
+          a = s >= 0 && s < L ? __ldg(xs + s) : 0.f;
+          b = s + hop >= 0 && s + hop < L ? __ldg(xs + s + hop) : 0.f;
+        } else {
+          a = span[off + t];
+          b = span[off + hop + t];
+        }
+        return cmul(make_float2(a * w, b * w), __ldg(chirp + t));
+      },
+      buf, tws, chat, j, group);
 
   const int frame_a = f0 + 2 * group;
   if (frame_a >= nf) return;
   const bool has_b = frame_a + 1 < nf;
-  for (int k = j; k <= N / 2; k += F::T) {
+  for (int k = j; k <= N / 2; k += C::T) {
     const int kp = k ? N - k : 0;  // the partner bin
-    const float2 zb = buf[slot(k)], wb = buf[slot(kp)];
+    const float2 zb = buf[C::at(k)], wb = buf[C::at(kp)];
     const float2 z = cmul(__ldg(chirp + k), make_float2(zb.x, -zb.y));
     const float2 w = cmul(__ldg(chirp + kp), make_float2(wb.x, -wb.y));
     out((long long)sig * nf + frame_a, has_b, k,
         make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
         make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
+  }
+}
+
+// The iSTFT at any even N <= 8192 by Bluestein run backwards: istft.cu's
+// istft_fft_kernel with Chirp in place of the core. The inverse N-point DFT
+// of Z = A + i B is conj(DFT_N(conj Z)) / N, so a round's group fills v_t =
+// conj Z[t] conj c_t for t < N from its pair's spectrum rows (inverse_point,
+// the mirrored bin past Nyquist), convolves, and leaves Y[t] = conj c_t
+// conj(buf[at(t)]) = N conj(a[t] + i b[t]) in place for t < win, as the
+// core's inverse leaves its buffer; then istft_fft_kernel's gather, carry
+// and epilogue (gather_round). Block (n, r) owns hop rows [j0, j0 + rows) of
+// signal n and walks frames j0 - (win/hop - 1) on in rounds of 2 G; every
+// thread runs every round and every barrier (a frame outside [0, nf) loads
+// zeros). tw is the M-point quarter table, chirp (N) and chat (M) the
+// forward kernel's tables (fft_plan.bluestein_tables).
+template <int LOG2M, bool kBlockSync>
+__device__ __forceinline__ void istft_bluestein_block(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ chat, void* __restrict__ out, int out_int16, int nf, int N,
+    int win, int hop, int length, int rounds, int rows, int per_signal) {
+  using C = Chirp<LOG2M, kBlockSync>;
+  const int bins = N / 2 + 1;
+  extern __shared__ float4 smem4[];
+  const int groups = blockDim.x / C::T;
+  const int group = threadIdx.x / C::T;
+  const int j = threadIdx.x - group * C::T;
+  const int k = win / hop;    // frames that overlap one hop row
+  const int f2 = 2 * groups;  // frames per round
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* bufs = tws + C::TABLES;
+  float* carry = reinterpret_cast<float*>(bufs + groups * C::E);  // (k - 1) hop
+  const int n = blockIdx.x / per_signal;
+  const int j0 = (blockIdx.x - n * per_signal) * rows;  // first hop row of the block
+  const int j_end = min(j0 + rows, nf + k - 1);
+  const long long track = (long long)n * nf * bins;
+
+  C::load_tables(tws, tw);
+  for (int i = threadIdx.x; i < (k - 1) * hop; i += blockDim.x) carry[i] = 0.f;
+  __syncthreads();
+
+  float2* buf = bufs + group * C::E;
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + r * f2;  // first frame of the round
+    const int fa = fr + 2 * group, fb = fa + 1;
+    const bool ha = fa >= 0 && fa < nf, hb = fb >= 0 && fb < nf;
+    const float* ra = ha ? re + track + (long long)fa * bins : nullptr;
+    const float* ia = ha ? im + track + (long long)fa * bins : nullptr;
+    const float* rb = hb ? re + track + (long long)fb * bins : nullptr;
+    const float* ib = hb ? im + track + (long long)fb * bins : nullptr;
+    C::convolve(
+        [&](int t) {
+          if (t >= N) return make_float2(0.f, 0.f);
+          const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+            return make_float4(ra ? __ldg(ra + kk) : 0.f, ra && !edge ? __ldg(ia + kk) : 0.f,
+                               rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
+          });
+          return cmul(z, __ldg(chirp + t));
+        },
+        buf, tws, chat, j, group);
+    for (int t = j; t < win; t += C::T) {  // each thread its own points: in place
+      const float2 z = buf[C::at(t)];
+      buf[C::at(t)] = cmul(__ldg(chirp + t), make_float2(z.x, -z.y));
+    }
+    __syncthreads();  // every group's frames are in its buffer
+    gather_round([&](int g, int t) { return bufs[g * C::E + C::at(t)]; }, carry, win_over_n,
+                 inv_norm, out, out_int16, n, fr, f2, k, hop, j0, j_end, length);
+    __syncthreads();  // the buffers are read; the next round's first pass rewrites them
   }
 }
 

@@ -52,10 +52,20 @@
 // share warps, so the block synchronizes as a whole (fft_plan.istft_plan
 // makes it whole warps, the fewest groups: measured fastest).
 //
-// Other even sizes (1000, a factor 7, past 8192) take a direct O(nfft) sum
-// per output sample in one 512-thread block, a pair of frames at a time (no
-// preset uses one), with the host's float64-made table of e^{-2 pi i m /
-// nfft}.
+// istft_bluestein_kernel (the other even sizes up to 8192: 1000 = 8 x 125,
+// a factor 7, 6000; no preset uses one) is the same design on Bluestein's
+// chirp-z run backwards (fft_common.cuh::istft_bluestein_block): per pair
+// of frames two transforms of M = 2^ceil(log2(2 nfft - 1)) points, on the
+// core up to M 8192 and past 4096 points on the 16 384-point level (one
+// 512-thread group a block, 191 KB of tables and exchange beside the
+// carry), then the power-of-two kernel's gather. At 1000 points, hop 250, 4
+// signals of 5294 frames its bound is bytes, 106 MB and 0.0317 ms, where the
+// direct sum below did 2.1e10 complex products.
+//
+// Even sizes past 8192 off the split (10 000, 12 288) take a direct
+// O(nfft) sum per output sample in one 512-thread block, a pair of frames
+// at a time (no preset uses one), with the host's float64-made table of
+// e^{-2 pi i m / nfft}; istft_direct_pallas forces it at any even size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +103,6 @@ __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
   const long long track = (long long)n * nf * bins;
   const float* re_n = re + track;
   const float* im_n = im + track;
-  const long long front = win / 2;
 
   for (int i = threadIdx.x; i < N / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + i);
   for (int i = threadIdx.x; i < (k - 1) * hop; i += blockDim.x) carry[i] = 0.f;
@@ -111,33 +120,15 @@ __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
                          hb ? im_n + (long long)fb * bins : nullptr, j);
     F::run(v, buf, tws, j, group);
     __syncthreads();  // every group's frames are in its buffer
-    // rows fr .. fr + f2 + k - 2 meet the round's frames; rows below fr + f2
-    // are complete after it, the k - 1 above carry on to the next round
-    for (int u = threadIdx.x; u < hop; u += blockDim.x) {
-      for (int i = 0; i < f2 + k - 1; ++i) {
-        const int row = fr + i;
-        float acc = i < k - 1 ? carry[i * hop + u] : 0.f;
-        const int f_lo = max(fr, row - k + 1), f_hi = min(fr + f2 - 1, row);
-        for (int f = f_lo; f <= f_hi; ++f) {
-          const int t = (row - f) * hop + u;
-          const float2 z = bufs[((f - fr) >> 1) * exchange_len(LOG2N) + slot(t)];
-          acc += __ldg(win_over_n + t) * (((f - fr) & 1) ? -z.y : z.x);
-        }
-        if (i >= f2) {
-          carry[(i - f2) * hop + u] = acc;
-        } else if (row >= j0 && row < j_end) {
-          const long long nabs = (long long)row * hop + u;
-          const long long tpos = nabs - front;
-          if (tpos >= 0 && tpos < length)
-            write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
-        }
-      }
-    }
+    gather_round(
+        [&](int g, int t) { return bufs[g * exchange_len(LOG2N) + slot(t)]; }, carry, win_over_n,
+        inv_norm, out, out_int16, n, fr, f2, k, hop, j0, j_end, length);
     __syncthreads();  // the buffers are read; the next round's first pass rewrites them
   }
 }
 
-// nfft even but not a power of two in [16, 8192]: z[t] = sum_k Z[k]
+// nfft even past 8192 that neither the core nor its split takes (and any
+// even size through istft_direct_pallas): z[t] = sum_k Z[k]
 // e^{+2 pi i k t / N} per sample, a pair of frames at a time, accumulated in
 // shared memory over the block's R hop rows.
 __global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
@@ -267,12 +258,61 @@ cudaError_t dispatch_split(int log2p, const SplitArgs& a) {
   }
 }
 
+template <int LOG2M>
+__global__ void __launch_bounds__(kMaxThreads) istft_bluestein_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ chat, void* __restrict__ out, int out_int16, int nf, int nfft,
+    int win, int hop, int length, int rounds, int rows, int per_signal) {
+  istft_bluestein_block<LOG2M, false>(re, im, win_over_n, inv_norm, tw, chirp, chat, out,
+                                      out_int16, nf, nfft, win, hop, length, rounds, rows,
+                                      per_signal);
+}
+
+struct BluesteinArgs {
+  const float *re, *im, *wn, *inv;
+  const float2 *tw, *chirp, *chat;
+  void* out;
+  int out_int16, nt, nf, nfft, win, hop, length, groups, rounds;
+  cudaStream_t stream;
+};
+
+template <int LOG2M>
+cudaError_t launch_bluestein(const BluesteinArgs& a) {
+  const int k = a.win / a.hop;
+  const int rows = a.rounds * 2 * a.groups - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
+  const size_t smem = istft_bluestein_smem_bytes(LOG2M, a.win, a.hop, a.groups);
+  cudaError_t err = cudaFuncSetAttribute(istft_bluestein_kernel<LOG2M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  istft_bluestein_kernel<LOG2M><<<(unsigned)((long long)a.nt * per_signal),
+                                  a.groups * bluestein_threads(LOG2M), smem, a.stream>>>(
+      a.re, a.im, a.wn, a.inv, a.tw, a.chirp, a.chat, a.out, a.out_int16, a.nf, a.nfft, a.win,
+      a.hop, a.length, a.rounds, rows, per_signal);
+  return cudaGetLastError();
+}
+
+// Bluestein's instances: every M from 16 on the core to 16 384 on the level.
+template <int LOG2M = kMinLog2>
+cudaError_t dispatch_bluestein(int log2m, const BluesteinArgs& a) {
+  if constexpr (LOG2M > kLevelLog2) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log2m == LOG2M) return launch_bluestein<LOG2M>(a);
+    return dispatch_bluestein<LOG2M + 1>(log2m, a);
+  }
+}
+
 }  // namespace
 
 // tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
 // [16, 8192], else the full table e^{-2 pi i m / nfft} (fft_plan.dft_table).
 // groups, rounds: fft_plan.istft_plan (groups = 0: the direct sum, with
-// rounds hop rows per block). The split's sizes go to istft_split_launch.
+// rounds hop rows per block). The split's sizes go to istft_split_launch,
+// the other even sizes up to 8192 to istft_bluestein_launch.
 extern "C" int istft_launch(const void* re, const void* im, const void* win_over_n,
                             const void* inv_norm, const void* tw, void* out, int out_int16,
                             int nt, int nf, int nfft, int win, int hop, int length, int groups,
@@ -336,4 +376,33 @@ extern "C" int istft_split_launch(const void* re, const void* im, const void* wi
     case 9: return (int)dispatch_split<9>(log2p, a);
     default: return (int)dispatch_split<15>(log2p, a);
   }
+}
+
+// The Bluestein route: even nfft <= 8192 (M = 2^ceil(log2(2 nfft - 1)) <=
+// 16 384); tw the M-point quarter table (fft_plan.twiddles), chirp (nfft)
+// and chat (M) from fft_plan.bluestein_tables; groups, rounds from
+// fft_plan.istft_plan (the fewest groups of M/16 threads in whole warps; on
+// the level one group of 512 threads).
+extern "C" int istft_bluestein_launch(const void* re, const void* im, const void* win_over_n,
+                                      const void* inv_norm, const void* tw, const void* chirp,
+                                      const void* chat, void* out, int out_int16, int nt, int nf,
+                                      int nfft, int win, int hop, int length, int groups,
+                                      int rounds, void* stream) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  const int t = log2m ? bluestein_threads(log2m) : 0;
+  if (!log2m || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 ||
+      nf < 1 || rounds < 1 || groups < 1 || groups * t > kMaxThreads || groups * t % 32 != 0 ||
+      (t > 32 && groups > 8))
+    return (int)cudaErrorInvalidValue;
+  const BluesteinArgs a{static_cast<const float*>(re),
+                        static_cast<const float*>(im),
+                        static_cast<const float*>(win_over_n),
+                        static_cast<const float*>(inv_norm),
+                        static_cast<const float2*>(tw),
+                        static_cast<const float2*>(chirp),
+                        static_cast<const float2*>(chat),
+                        out,
+                        out_int16, nt, nf, nfft, win, hop, length, groups, rounds,
+                        static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_bluestein(log2m, a);
 }

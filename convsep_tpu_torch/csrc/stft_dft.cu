@@ -1,7 +1,7 @@
 // The STFT of the training step and the fft_impl="pallas" separation route,
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
 // (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
-// {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 4096), and the
+// {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 8192), and the
 // dense DFT (stft_dft_kernel) for the sizes past those.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
@@ -44,11 +44,15 @@
 // an H100 at 700 W it takes 8.5 us, against torch.stft's 12.8 and the dense
 // kernel's 170 (PERF.md, row 6').
 //
-// stft_bluestein_kernel (nfft <= 4096 that neither the core nor the split
-// takes: 1000 = 8 x 125, 7 x 256, 25 x 64, odd sizes; no preset uses one)
-// is Bluestein's chirp-z over the core (fft_common.cuh::
+// stft_bluestein_kernel (nfft <= 8192 that neither the core nor the split
+// takes: 1000 = 8 x 125, 7 x 256, 25 x 64, 6000, odd sizes; no preset uses
+// one) is Bluestein's chirp-z over the core (fft_common.cuh::
 // stft_bluestein_block): per pair of frames a forward and an inverse FFT of
-// M = 2^ceil(log2(2 nfft - 1)) points and two chirp products. At W 1000,
+// M = 2^ceil(log2(2 nfft - 1)) points and two chirp products; past 4096
+// points M is 16 384, the level (fft_common.cuh::Level: one 512-thread group
+// a block, two 8192-point runs of the core and a radix-2 stage a transform,
+// the frames read straight from global memory, as the span no longer fits
+// beside the tables and the exchange buffer). At W 1000,
 // hop 250, B 32 (60 frames x 501 bins) its bound is bytes: 9.5 MB, 2.84 us,
 // where the dense DFT below does 3.8 GFLOP and reads 4.0 MB of matrices. The
 // design keeps the bytes at the bound's: the span is loaded once a block
@@ -59,8 +63,8 @@
 // are written coalesced by bin; the two transforms' points cross threads
 // only in shared memory, behind each group's own barriers.
 //
-// stft_dft_kernel (the sizes past those: nfft > 4096 off the split, nfft >
-// 8192; and any nfft through stft_dft_pallas) multiplies frames built from
+// stft_dft_kernel (the sizes past those: nfft > 8192 off the split; and
+// any nfft through stft_dft_pallas) multiplies frames built from
 // hop rows staged in shared memory by the (W, bins) window-folded cos / -sin
 // matrices: a block owns 32 frames x 64 bins of one signal and every thread
 // accumulates 2 frames x 4 bins of re and of im in registers.
@@ -162,12 +166,13 @@ cudaError_t launch_bluestein(const float* x, const float* win, const float2* tw,
                              const float2* chirp, const float2* chat, float* re, float* im, int B,
                              int L, int W, int hop, int nf, int nfft, int ffts,
                              cudaStream_t stream) {
-  const size_t smem = smem_bytes(LOG2M, W, hop, ffts);  // stft_block's at M points
+  const size_t smem = bluestein_smem_bytes(LOG2M, W, hop, ffts);
   cudaError_t err = cudaFuncSetAttribute(stft_bluestein_kernel<LOG2M>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * ((nf + 2 * ffts - 1) / (2 * ffts));
-  stft_bluestein_kernel<LOG2M><<<(unsigned)blocks, ffts * fft_threads(LOG2M), smem, stream>>>(
+  stft_bluestein_kernel<LOG2M><<<(unsigned)blocks, ffts * bluestein_threads(LOG2M), smem,
+                                 stream>>>(
       x, win, tw, chirp, chat, re, im, L, W, hop, nf, nfft);
   return cudaGetLastError();
 }
@@ -323,16 +328,17 @@ extern "C" int stft_split_launch(const void* x, const void* win, const void* tw_
   }
 }
 
-// The Bluestein route: nfft <= 4096 (M = 2^ceil(log2(2 nfft - 1)) <= 8192),
-// W <= nfft, `ffts` transforms (2 ffts frames) per block
-// (fft_plan.bluestein_plan), chirp (nfft) and chat (M) from
-// fft_plan.bluestein_tables, tw the M-point quarter table.
+// The Bluestein route: nfft <= 8192 (M = 2^ceil(log2(2 nfft - 1)) <= 16
+// 384: the core up to 8192, the level at 16 384), W <= nfft, `ffts`
+// transforms (2 ffts frames) per block (fft_plan.bluestein_plan; one on the
+// level), chirp (nfft) and chat (M) from fft_plan.bluestein_tables, tw the
+// M-point quarter table.
 extern "C" int stft_bluestein_launch(const void* x, const void* win, const void* tw,
                                      const void* chirp, const void* chat, void* re, void* im,
                                      int B, int L, int W, int hop, int nf, int nfft, int ffts,
                                      void* stream) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
-  const int t = log2m ? fft_threads(log2m) : 0;
+  const int t = log2m ? bluestein_threads(log2m) : 0;
   if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !log2m ||
       ffts < 1 || ffts * t > kMaxThreads || ffts * t % 32 != 0 || (t > 32 && ffts > 8))
     return (int)cudaErrorInvalidValue;
@@ -347,16 +353,17 @@ extern "C" int stft_bluestein_launch(const void* x, const void* win, const void*
   switch (log2m) {
 #define CASE(LG) \
   case LG: return (int)launch_bluestein<LG>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, ffts, s);
-    CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
+    CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12) CASE(13)
 #undef CASE
     default:
-      return (int)launch_bluestein<13>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, ffts,
-                                       s);
+      return (int)launch_bluestein<kLevelLog2>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft,
+                                               ffts, s);
   }
 }
 
 // The dense route: any nfft >= W (the wrapper sends it only what none of
-// the FFT, split and Bluestein routes plans, or what stft_dft_pallas forces).
+// the FFT, split and Bluestein routes plans, nfft past 8192 off the split,
+// or what stft_dft_pallas forces).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

@@ -17,15 +17,18 @@ mixed-radix split of the same core (``stft_split_block``): m interleaved
 2^a-point FFTs, the twiddles e^{−2πi n1 k1 / N} from the N-point quarter
 table, then 2^a m-point DFTs in registers across the exchange buffer;
 :func:`split_factors` names the sizes and :func:`split_plan` sizes the
-launch. Any other size up to 4096 takes Bluestein's chirp-z over the core
-(``stft_bluestein_block``): two M-point transforms, M = 2^⌈log2(2N − 1)⌉
-(:func:`bluestein_size`), and the chirp tables of :func:`bluestein_tables`;
-:func:`bluestein_plan` sizes the launch.
+launch. Any other size up to 8192 takes Bluestein's chirp-z over the core
+(``Chirp``, ``stft_bluestein_block``): two M-point transforms, M =
+2^⌈log2(2N − 1)⌉ (:func:`bluestein_size`), and the chirp tables of
+:func:`bluestein_tables`; :func:`bluestein_plan` sizes the launch. Past 4096
+points M is 16 384, the level (``Level``): one group of 512 threads runs
+two 8192-point transforms of the core and a radix-2 stage.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
 and overlap-add them by a gather, at the split's sizes on the split run
-backwards; :func:`istft_plan` sizes both. The
+backwards, at the other even sizes up to 8192 on Bluestein run backwards;
+:func:`istft_plan` sizes all three. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it.
@@ -49,6 +52,7 @@ MAX_THREADS = 512        # fft_common::kMaxThreads
 POINTS = 16              # complex points a thread holds
 MAX_NAMED_GROUPS = 8     # groups per block that synchronize on named barriers
 MIN_NFFT, MAX_NFFT = 2 ** 4, 2 ** 13
+LEVEL_NFFT = 2 ** 14     # the level: Bluestein's largest convolution (fft_common.cuh::Level)
 SPLIT_ODD = (3, 5, 9, 15)  # the split's odd factors: its m-point DFTs (radix 3 and 5)
 SM_SMEM = 228 * 1024     # shared memory of one SM
 BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
@@ -93,10 +97,34 @@ def bluestein_size(nfft: int) -> int:
 
 
 def bluestein_supported(nfft: int) -> bool:
-    """A size the core takes by Bluestein (M <= 8192, so nfft <= 4096) and
-    neither by its own passes nor by the split."""
-    return (2 <= nfft and bluestein_size(nfft) <= MAX_NFFT and not fft_supported(nfft)
+    """A size the core takes by Bluestein (M <= 16 384, so nfft <= 8192)
+    and neither by its own passes nor by the split."""
+    return (2 <= nfft and bluestein_size(nfft) <= LEVEL_NFFT and not fft_supported(nfft)
             and not split_supported(nfft))
+
+
+def bluestein_threads(m: int) -> int:
+    """Threads of one Bluestein transform of M points: M/16 on the core, one
+    512-thread group on the level (``fft_common.cuh::bluestein_threads``)."""
+    return MAX_THREADS if m > MAX_NFFT else threads_per_fft(m)
+
+
+def bluestein_table_entries(m: int) -> int:
+    """float2 slots of a Bluestein block's twiddle tables in shared memory:
+    the M-point quarter table; on the level the 8192-point one and the 16
+    384-point one (``fft_common.cuh::bluestein_tables_len``)."""
+    return (twiddle_entries(MAX_NFFT) + twiddle_entries(m) if m > MAX_NFFT
+            else twiddle_entries(m))
+
+
+def bluestein_smem_bytes(nfft: int, win: int, hop: int, ffts: int) -> int:
+    """The forward Bluestein kernel's dynamic shared memory: :func:`smem_bytes`
+    at M points on the core; on the level the two tables and one exchange
+    buffer, the frames read from global memory (191 488 bytes)."""
+    m = bluestein_size(nfft)
+    if m <= MAX_NFFT:
+        return smem_bytes(m, win, hop, ffts)
+    return 8 * (bluestein_table_entries(m) + exchange_entries(m))
 
 
 def radices(nfft: int) -> tuple[int, ...]:
@@ -233,18 +261,19 @@ class BluesteinPlan:
 @lru_cache(maxsize=64)
 def bluestein_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> BluesteinPlan:
     """The Bluestein kernel's launch, as ``csrc/stft_dft.cu::
-    stft_bluestein_launch`` checks it: groups of M/16 threads, the fewest
-    a block that make it whole warps (one transform a block from M 512 on),
-    its shared memory :func:`smem_bytes` at M points (the chirp tables stay
-    in global memory). One transform a block measured fastest at W 1000,
-    1792 and 4000 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md)."""
+    stft_bluestein_launch`` checks it: groups of :func:`bluestein_threads`,
+    the fewest a block that make it whole warps (one transform a block from
+    M 512 on), its shared memory :func:`bluestein_smem_bytes` (the chirp
+    tables stay in global memory). One transform a block measured fastest
+    at W 1000, 1792 and 4000 on an H100 (``tools/torch_fft_plan_study.py``,
+    PERF.md)."""
     if not bluestein_supported(nfft):
-        raise ValueError(f"no Bluestein plan for nfft={nfft}: at most 4096, neither a power "
+        raise ValueError(f"no Bluestein plan for nfft={nfft}: at most 8192, neither a power "
                          f"of two nor a split size")
     m = bluestein_size(nfft)
-    t = threads_per_fft(m)
+    t = bluestein_threads(m)
     g = max(1, 32 // t)
-    smem = smem_bytes(m, win, hop, g)
+    smem = bluestein_smem_bytes(nfft, win, hop, g)
     if smem > SMEM_MAX:
         raise ValueError(f"no Bluestein plan fits: nfft={nfft} win={win} hop={hop}")
     per_signal = -(-nf // (2 * g))
@@ -259,11 +288,18 @@ def blocks_per_sm(smem: int, threads: int) -> int:
 
 def istft_smem_bytes(nfft: int, win: int, hop: int, groups: int) -> int:
     """The inverse kernel's dynamic shared memory: the quarter twiddle
-    table (on the split, the P-point one and the nfft-point one), one
-    exchange buffer per group, the carry of win/hop − 1 hop rows."""
+    table (on the split, the P-point one and the nfft-point one; on
+    Bluestein, :func:`bluestein_table_entries` at M), one exchange buffer
+    per group (of M points on Bluestein), the carry of win/hop − 1 hop
+    rows."""
     split = split_factors(nfft)
-    tables = twiddle_entries(nfft) + (twiddle_entries(split[1]) if split else 0)
-    return 8 * (tables + groups * exchange_entries(nfft)) + 4 * (win // hop - 1) * hop
+    if fft_supported(nfft) or split:
+        tables = twiddle_entries(nfft) + (twiddle_entries(split[1]) if split else 0)
+        points = nfft
+    else:
+        points = bluestein_size(nfft)
+        tables = bluestein_table_entries(points)
+    return 8 * (tables + groups * exchange_entries(points)) + 4 * (win // hop - 1) * hop
 
 
 @dataclass(frozen=True)
@@ -293,22 +329,26 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     fewest groups of m · P/16 threads that make the block whole warps
     (G · P/16 a multiple of 32: m is odd; they synchronize as a block), the
     rounds by the same rule; the fewest groups measured fastest at 768 and
-    1280 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md). Other
-    sizes: the direct sum, up to 16 hop rows per block."""
+    1280 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md). The other
+    even sizes up to 8192 (Bluestein run backwards,
+    ``istft_bluestein_launch``): the fewest groups of
+    :func:`bluestein_threads` that make the block whole warps, as
+    :func:`bluestein_plan`, one on the level, the rounds by the same rule.
+    Other sizes: the direct sum, up to 16 hop rows per block. A plan that
+    does not fit shared memory raises ``ValueError``."""
     k = win // hop
     split = split_factors(nfft)
-    if not (fft_supported(nfft) or split):
-        rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (4 * hop))
-        if rows < 1:
-            raise ValueError(f"no iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
-        smem = 16 * nfft + 4 * rows * hop
-        per = -(-(nf + k - 1) // rows)
-        return IstftPlan(nfft, 0, DIRECT_THREADS, 1, rows, per, signals * per, smem,
-                         blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum")
-    t = threads_per_fft(nfft)
+    blue = not (fft_supported(nfft) or split) and bluestein_supported(nfft)
+    if not (fft_supported(nfft) or split or blue):
+        return istft_direct_plan(signals, nf, nfft, win, hop)
     if split:
+        t = threads_per_fft(nfft)
         g_min = g_max = max(1, 32 // threads_per_fft(split[1]))
+    elif blue:
+        t = bluestein_threads(bluestein_size(nfft))
+        g_min = g_max = max(1, 32 // t)
     else:
+        t = threads_per_fft(nfft)
         g_min = max(1, 32 // t)
         g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
     fits = [1 << e for e in range(int(math.log2(g_max)), int(math.log2(g_min)) - 1, -1)
@@ -332,6 +372,23 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     # fewest (the most blocks)
     plans = [plan(g) for g in (two or fits[-1:])]
     return next((p for p in plans if p.blocks >= 2 * SMS), plans[-1])
+
+
+@lru_cache(maxsize=16)
+def istft_direct_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
+    """The direct sum's launch (``istft_launch`` with groups 0): one
+    512-thread block a range of up to 16 hop rows, the e^{−2πi m/N} table,
+    the spectrum and the rows' accumulators in shared memory. :func:`istft_plan`
+    takes it for even sizes past 8192 off the split; ``istft_direct_pallas``
+    forces it at any even size."""
+    k = win // hop
+    rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (4 * hop))
+    if rows < 1:
+        raise ValueError(f"no iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
+    smem = 16 * nfft + 4 * rows * hop
+    per = -(-(nf + k - 1) // rows)
+    return IstftPlan(nfft, 0, DIRECT_THREADS, 1, rows, per, signals * per, smem,
+                     blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum")
 
 
 def wiener_smem_bytes(nfft: int, hop: int, groups: int) -> int:

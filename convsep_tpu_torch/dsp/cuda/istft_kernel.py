@@ -11,9 +11,11 @@ window-power-normalized iSTFT:
 reference's contract and calls :func:`launch_istft`, which takes the FFT
 kernel for powers of two 16–8192 (counted as ``LAUNCHES["istft"]``), the
 split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
-``LAUNCHES["istft_split"]``) and a direct sum per sample for the other even
-sizes (``LAUNCHES["istft"]``); the kernels' header says what bounds them on
-the H100.
+``LAUNCHES["istft_split"]``), Bluestein run backwards for the other even
+sizes up to 8192 (``LAUNCHES["istft_bluestein"]``) and a direct sum per
+sample past that (``LAUNCHES["istft_direct"]``); :func:`istft_direct_pallas`
+forces the direct sum at any even size, to hold and time it. The kernels'
+header says what bounds them on the H100.
 
 The wrappers take their plain version only for CPU tensors. For CUDA
 tensors they launch the kernel or raise: there is no fallback.
@@ -28,7 +30,12 @@ import torch
 
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    bluestein_size,
+    bluestein_supported,
+    bluestein_tables,
     dft_table,
+    fft_supported,
+    istft_direct_plan,
     istft_plan,
     split_factors,
     synthesis_tables,
@@ -42,8 +49,9 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and a
     launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
     within shared memory. Powers of two from 16 to 8192 run on the FFT core,
-    m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split; other even
-    sizes a direct sum per sample."""
+    m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split, the other
+    even sizes up to 8192 on Bluestein run backwards; past 8192 a direct sum
+    per sample."""
     if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
         return False
     try:
@@ -61,10 +69,12 @@ def launch_istft(
     length: int,
     nfft: int,
     output_dtype: str = "float32",
+    direct: bool = False,
 ) -> torch.Tensor:
     """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
     (..., length) float32 or int16. Raises outside the envelope. The window's
-    tables, the twiddles and the plan are found again per call, not made."""
+    tables, the twiddles and the plan are found again per call, not made.
+    ``direct``: the direct sum (:func:`istft_direct_pallas`)."""
     win_len, hop, length = len(window), int(hop), int(length)
     if re.device.type != "cuda" or im.device != re.device:
         raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
@@ -84,23 +94,34 @@ def launch_istft(
     re3 = re.reshape(nt, nf, bins).contiguous()
     im3 = im.reshape(nt, nf, bins).contiguous()
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
-    plan = istft_plan(nt, nf, nfft, win_len, hop)
-    split = split_factors(nfft) if plan.groups else None
+    plan = (istft_direct_plan if direct else istft_plan)(nt, nf, nfft, win_len, hop)
+    if not plan.groups:
+        name = "istft_direct"
+    elif fft_supported(nfft):
+        name = "istft"
+    else:
+        name = "istft_bluestein" if bluestein_supported(nfft) else "istft_split"
     int16 = output_dtype == "int16"
     out = torch.empty((nt, length), dtype=torch.int16 if int16 else torch.float32, device=dev)
     lib = kernels.library()
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        if split:
-            name = "istft_split"
+        if name == "istft_split":
             code = lib.istft_split_launch(
                 re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
-                twiddles(split[1], where).data_ptr(), twiddles(nfft, where).data_ptr(),
-                out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length, plan.groups,
-                plan.rounds, stream,
+                twiddles(split_factors(nfft)[1], where).data_ptr(),
+                twiddles(nfft, where).data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft,
+                win_len, hop, length, plan.groups, plan.rounds, stream,
+            )
+        elif name == "istft_bluestein":
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.istft_bluestein_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
+                chat.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+                plan.groups, plan.rounds, stream,
             )
         else:
-            name = "istft"
             tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
             code = lib.istft_launch(
                 re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
@@ -142,6 +163,26 @@ def istft_pallas(
     0`` and ``win / hop <= 9``.
 
     CPU tensors: :func:`istft_pallas_plain`. CUDA tensors: the kernel."""
+    return _istft(re, im, window, hop, length, nfft, direct=False)
+
+
+def istft_direct_pallas(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """:func:`istft_pallas` through the direct sum at any even nfft that is
+    not a power of two (CUDA tensors), so that it can be held to the plain
+    version and timed beside the split and Bluestein kernels at their sizes
+    (PCM16: ``launch_istft(..., direct=True)``). CPU tensors: the plain
+    version."""
+    return _istft(re, im, window, hop, length, nfft, direct=True)
+
+
+def _istft(re, im, window, hop, length, nfft, direct: bool):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     hop = int(hop)
@@ -157,4 +198,4 @@ def istft_pallas(
     check_frames(re, length, hop)
     if {re.device.type, im.device.type} == {"cpu"}:
         return istft_pallas_plain(re, im, window, hop, length, nfft)
-    return launch_istft(re, im, window, hop, length, nfft)
+    return launch_istft(re, im, window, hop, length, nfft, direct=direct)

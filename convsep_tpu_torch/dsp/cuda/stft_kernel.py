@@ -13,17 +13,19 @@ wrapper dispatches on the shape:
 * nfft = m · 2^a, m in (3, 5, 9, 15), 2^a >= 16, nfft <= 8192 (768, 1280,
   1536, 2304, 3072, 6144, …): the core's mixed-radix split
   (:func:`.fft_plan.split_plan`), counted as ``LAUNCHES["stft_split"]``;
-* any other nfft up to 4096 (1000 = 8 · 125, a factor 7, odd sizes):
-  Bluestein's chirp-z over the core (:func:`.fft_plan.bluestein_plan`,
-  the chirp tables of :func:`.fft_plan.bluestein_tables`), counted as
+* any other nfft up to 8192 (1000 = 8 · 125, a factor 7, odd sizes; past
+  4096 on the core's 16 384-point level, as 6000): Bluestein's chirp-z
+  over the core (:func:`.fft_plan.bluestein_plan`, the chirp tables of
+  :func:`.fft_plan.bluestein_tables`), counted as
   ``LAUNCHES["stft_bluestein"]``;
-* the rest (past 4096 off the split, past 8192): the dense DFT kernel over
+* the rest (past 8192 off the core, as 12 288): the dense DFT kernel over
   the window-folded cos / -sin matrices of :func:`_forward_mats`, counted
   as ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any
   size, to hold and time it.
 
-All build each frame in shared memory, so the (frames × W) array never
-reaches device memory; the file's header says what bounds them on the H100.
+All keep the (frames × W) array out of device memory (the level reads its
+frames from global memory into registers, the others stage them in shared
+memory); the file's header says what bounds them on the H100.
 
 The contract is the reference's: (L,) or (B, L) signals, ``win % hop ==
 0``, the W//2 front pad and tail pad of :func:`_pad_signal`, and

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
     "stft_bluestein": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0, "istft_split": 0,
-    "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
+    "istft_bluestein": 0, "istft_direct": 0, "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
 }
 
 _lock = threading.Lock()
@@ -82,6 +82,10 @@ _SIGNATURES = {
     # re, im, win_over_n, inv_norm, tw_p, tw_n, out, out_int16, nt, nf, nfft,
     # win, hop, length, groups, rounds, stream
     "istft_split_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # re, im, win_over_n, inv_norm, tw, chirp, chat, out, out_int16, nt, nf,
+    # nfft, win, hop, length, groups, rounds, stream
+    "istft_bluestein_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
     # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream

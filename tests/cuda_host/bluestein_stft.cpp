@@ -1,7 +1,8 @@
 // stft_bluestein_block (convsep_tpu_torch/csrc/fft_common.cuh) run on CPU
 // threads through the stand-in cuda_runtime.h beside this file, its
 // transforms synchronizing the whole block (kBlockSync: the stand-in has
-// only __syncthreads; the card's kernel synchronizes each group alone).
+// only __syncthreads; the card's kernel synchronizes each group alone), on
+// the core (LOG2M <= 13) or on the 16 384-point level (LOG2M 14).
 //
 //   bluestein_stft DIR LOG2M B L W HOP NF NFFT FFTS
 //
@@ -25,7 +26,7 @@ void run(const float* x, const float* win, const float2* tw, const float2* chirp
          const float2* chat, float* re, float* im, int B, int L, int W, int hop, int nf,
          int nfft, int ffts) {
   const int blocks = B * ((nf + 2 * ffts - 1) / (2 * ffts));
-  emulate(blocks, ffts * fft_threads(LOG2M), [&] {
+  emulate(blocks, ffts * bluestein_threads(LOG2M), [&] {
     stft_bluestein_block<LOG2M, true>(x, win, tw, chirp, chat, L, W, hop, nf, nfft,
                                       FullRows{re, im, nfft / 2 + 1});
   });
@@ -48,7 +49,7 @@ int main(int argc, char** argv) {
   switch (lm) {
 #define CASE(LG) \
   case LG: run<LG>(x, w, tw, chirp, chat, re.data(), im.data(), B, L, W, hop, nf, nfft, ffts); break;
-    CASE(6) CASE(10) CASE(11) CASE(12) CASE(13)
+    CASE(6) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14)
 #undef CASE
     default: return 3;
   }

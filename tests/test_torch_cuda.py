@@ -34,7 +34,12 @@ from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     wiener_istft,
     wiener_istft_plain,
 )
-from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_pallas_plain, launch_istft
+from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+    istft_direct_pallas,
+    istft_pallas,
+    istft_pallas_plain,
+    launch_istft,
+)
 from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas, stft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
 from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
@@ -212,7 +217,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     got = Separator(p, state, device=cuda)(mix)
     launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0,
                 "stft_bluestein": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
-                "istft_split": 0, "wiener_apply": 0, "wiener_istft_ny": 0, "ct_stft": 0,
+                "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0, "wiener_apply": 0,
+                "wiener_istft_ny": 0, "ct_stft": 0,
                 "band_decode": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
@@ -255,14 +261,19 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
         (432, 108, 3, 9001),      # 27 · 16
         (18, 9, 3, 999),          # M 64: groups of 4 threads share warps
         (4000, 1000, 2, 30000),   # M 8192: 512 threads a transform
-        (6000, 1500, 1, 30000),   # past 4096 and not a split size: the dense DFT kernel
+        (6000, 1500, 1, 30000),   # past 4096: Bluestein on the 16 384-point level
+        (6000, 1500, 32, 14336),  # the smoke's shape
+        (4097, 241, 2, 9001),     # the level's smallest size
+        (8190, 2730, 2, 30000),   # and its largest even one
+        (8191, 8191, 1, 20000),   # odd
+        (12288, 3072, 1, 30000),  # 3 · 4096, past 8192: the dense DFT kernel
     ],
 )
 def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     """Powers of two launch the FFT kernel ("stft"), m · 2^a (m 3, 5, 9,
-    15) the split kernel ("stft_split"), other sizes up to 4096 Bluestein
-    ("stft_bluestein"), the rest the dense DFT kernel ("stft_dft"), each
-    exactly once and no other."""
+    15) the split kernel ("stft_split"), other sizes up to 8192 Bluestein
+    ("stft_bluestein"; past 4096 on the level), the rest the dense DFT
+    kernel ("stft_dft"), each exactly once and no other."""
     from convsep_tpu_torch.dsp.cuda.fft_plan import bluestein_supported, split_supported
 
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
@@ -270,7 +281,7 @@ def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     used = ("stft" if nfft & (nfft - 1) == 0 else "stft_split" if split_supported(nfft)
             else "stft_bluestein" if bluestein_supported(nfft) else "stft_dft")
     assert used != "stft_split" or nfft in (768, 1536, 1280, 3072, 2304, 48, 240, 6144)
-    assert (used == "stft_dft") == (nfft == 6000)
+    assert (used == "stft_dft") == (nfft > 8192)
     names = ("stft", "stft_split", "stft_bluestein", "stft_dft")
     before = dict(kernels.LAUNCHES)
     re, im = stft_pallas(x, w, hop)
@@ -304,7 +315,7 @@ def test_dense_stft_kernel_forced_at_split_sizes(rng, cuda, nfft, hop):
         torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
 
 
-@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1001, 143)])
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1001, 143), (6000, 1500)])
 def test_dense_stft_kernel_forced_at_bluestein_sizes(rng, cuda, nfft, hop):
     """stft_dft_pallas runs the dense kernel where the wrapper takes
     Bluestein: both held to the plain version, one launch each."""
@@ -488,21 +499,94 @@ def test_istft_ct_kernel_matches_plain(rng, cuda, lead, nfft, hop, length, out):
     "lead,nfft,win,hop,length",
     [((4,), 1024, 1024, 512, 30000), ((), 128, 128, 64, 3000), ((2,), 256, 128, 32, 5000),
      ((3,), 384, 384, 96, 6000), ((2,), 1000, 1000, 250, 9000), ((1,), 4096, 4096, 1024, 40000),
-     ((4,), 768, 768, 256, 30000), ((2,), 768, 640, 160, 9000)],
+     ((4,), 768, 768, 256, 30000), ((2,), 768, 640, 160, 9000), ((2,), 1000, 800, 200, 9000),
+     ((2,), 6000, 6000, 1500, 40000), ((1,), 10000, 10000, 2500, 30000)],
 )
 def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, length):
-    """The FFT kernel at powers of two and the direct sum at 1000 count as
-    "istft"; the split's sizes (384 = 3 · 128, 768) as "istft_split"."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
-
+    """The FFT kernel at powers of two counts as "istft", the split's sizes
+    (384 = 3 · 128, 768) as "istft_split", Bluestein (1000; 6000 on the
+    level) as "istft_bluestein", the direct sum past 8192 (10 000) as
+    "istft_direct"."""
+    name = _istft_name(nfft)
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
-    name = "istft_split" if split_supported(nfft) else "istft"
-    before = {k: kernels.LAUNCHES[k] for k in ("istft", "istft_split")}
+    before = {k: kernels.LAUNCHES[k] for k in ISTFT_NAMES}
     got = istft_pallas(re, im, w, hop, length, nfft=nfft)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         k: int(k == name) for k in before}
     _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
+
+
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_direct")
+
+
+def _istft_name(nfft: int) -> str:
+    """The iSTFT kernel launch_istft takes at nfft."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import bluestein_supported, split_supported
+
+    return ("istft" if nfft & (nfft - 1) == 0 else "istft_split" if split_supported(nfft)
+            else "istft_bluestein" if bluestein_supported(nfft) else "istft_direct")
+
+
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1792, 448), (4000, 1000), (6000, 1500),
+                                      (18, 9), (8190, 910)])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_istft_bluestein_kernel_matches_plain(rng, cuda, nfft, hop, out):
+    """Bluestein run backwards (M 2048, 4096, 8192, the level's 16 384 at
+    6000 and at 8190 with hop nfft / 9, M 64 at 18) at win = nfft, float32
+    within 1e-5 and PCM16 within one LSB of the plain synthesis, one
+    "istft_bluestein" launch and no other iSTFT kernel."""
+    length = 23 * hop + 7
+    w, re, im = _spectra(rng, (3,), length, nfft, hop, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == "istft_bluestein") for k in ISTFT_NAMES}
+    _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct",
+                             output_dtype=out), out)
+
+
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (768, 256), (6000, 1500)])
+def test_istft_direct_sum_forced(rng, cuda, nfft, hop):
+    """istft_direct_pallas runs the direct sum where the wrapper takes
+    Bluestein or the split; launch_istft(direct=True) its PCM16: both held
+    to the plain version, one "istft_direct" launch each, and the wrapper's
+    own kernel beside it."""
+    length = 19 * hop + 3
+    w, re, im = _spectra(rng, (2,), length, nfft, hop, cuda)
+    for fn, name in ((istft_direct_pallas, "istft_direct"), (istft_pallas, _istft_name(nfft))):
+        before = dict(kernels.LAUNCHES)
+        got = fn(re, im, w, hop, length)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+            k: int(k == name) for k in ISTFT_NAMES}
+        _close(got, istft_pallas_plain(re, im, w, hop, length), "float32")
+    got = launch_istft(re, im, w, hop, length, nfft, "int16", direct=True)
+    _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct",
+                             output_dtype="int16"), "int16")
+    with pytest.raises(RuntimeError, match="istft_direct"):  # no direct sum at a power of two
+        istft_direct_pallas(*_spectra(rng, (1,), 3000, 256, 64, cuda)[1:], sinebell(256), 64,
+                            3000)
+
+
+def test_kernel_routes_count_bluestein_not_dense(rng, cuda):
+    """The launch counts: the STFT at W 6000 launches "stft_bluestein" and
+    the iSTFT at W 1000 "istft_bluestein", with no "stft_dft" or
+    "istft_direct" unless forced."""
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, 14336))).astype(np.float32)).to(cuda)
+    kernels.reset_launches()
+    stft_pallas(x, sinebell(6000), 1500)
+    w, re, im = _spectra(rng, (2,), 9000, 1000, 250, cuda)
+    istft_pallas(re, im, w, 250, 9000)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_bluestein"] == 1 and kernels.LAUNCHES["istft_bluestein"] == 1
+    assert kernels.LAUNCHES["stft_dft"] == 0 and kernels.LAUNCHES["istft_direct"] == 0
+    stft_dft_pallas(x, sinebell(6000), 1500)
+    istft_direct_pallas(re, im, w, 250, 9000)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stft_dft"] == 1 and kernels.LAUNCHES["istft_direct"] == 1
+    assert kernels.LAUNCHES["stft_bluestein"] == 1 and kernels.LAUNCHES["istft_bluestein"] == 1
 
 
 def test_istft_kernel_refuses(rng, cuda):
@@ -849,20 +933,18 @@ def test_fused_decode_tiles(rng, cuda, B, TM, ktaps):
 
 
 @pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000,
-                                  48, 80, 240, 768, 1280, 2304, 3072, 6144, 7680])
+                                  48, 80, 240, 768, 1280, 2304, 3072, 6144, 7680, 10_000])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_istft_kernel_every_size(rng, cuda, nfft, out):
     """The iSTFT kernels at every power of two the FFT core takes, at split
-    sizes of every m (3, 5, 9, 15; 384 = 3 · 128 among them) and at 1000,
-    which takes the direct sum, win = nfft, hop = nfft / 4, float32 within
-    1e-5 and PCM16 within one LSB of the plain synthesis; the split's sizes
-    count as "istft_split", the others as "istft"."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import split_supported
-
+    sizes of every m (3, 5, 9, 15; 384 = 3 · 128 among them), at 1000
+    (Bluestein) and at 10 000 (past 8192: the direct sum), win =
+    nfft, hop = nfft / 4, float32 within 1e-5 and PCM16 within one LSB of
+    the plain synthesis; each counts under its own kernel's name."""
     hop = nfft // 4
     length = 37 * hop + 5
     w, re, im = _spectra(rng, (3,), length, nfft, hop, cuda)
-    name = "istft_split" if split_supported(nfft) else "istft"
+    name = _istft_name(nfft)
     before = kernels.LAUNCHES[name]
     got = launch_istft(re, im, w, hop, length, nfft, out)
     torch.cuda.synchronize()
@@ -881,15 +963,19 @@ ISTFT_STACK_CEILING = {4: 0, 5: 88, 6: 0, 7: 0, 8: 0, 9: 16, 10: 0, 11: 0, 12: 0
 # the same for the inverse split's instances, by (log2 P, m), and for
 # Bluestein's, by log2 M, on the same build: at 128 registers the inverse
 # split holds four floats of spectrum a point beside its 16 points and
-# spills 0-296 bytes (768 = 3 · 256, the smoke's, 16); Bluestein none but
-# at M 512.
+# spills 0-296 bytes (768 = 3 · 256, the smoke's, 16); forward Bluestein
+# none but at M 512 and on the 16 384-point level (M 2^14, 192); inverse
+# Bluestein 0-120 bytes.
 ISTFT_SPLIT_STACK_CEILING = {
     (4, 3): 0, (4, 5): 0, (4, 9): 0, (4, 15): 152, (5, 3): 168, (5, 5): 144, (5, 9): 192,
     (5, 15): 232, (6, 3): 152, (6, 5): 8, (6, 9): 16, (6, 15): 240, (7, 3): 184, (7, 5): 8,
     (7, 9): 24, (7, 15): 232, (8, 3): 16, (8, 5): 24, (8, 9): 32, (8, 15): 200, (9, 3): 136,
     (9, 5): 168, (9, 9): 160, (9, 15): 296, (10, 3): 144, (10, 5): 176, (11, 3): 136,
 }
-BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 0, 7: 0, 8: 0, 9: 8, 10: 0, 11: 0, 12: 0, 13: 0}
+BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 0, 7: 0, 8: 0, 9: 8, 10: 0, 11: 0, 12: 0, 13: 0,
+                           14: 192}
+ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11: 0, 12: 120,
+                                 13: 120, 14: 120}
 
 
 # the same for the fused decode kernel's two instances (MI, NI, warps): the
@@ -900,9 +986,10 @@ DECODE_STACK_CEILING = {"ILi3ELi4ELi16E": 0, "ILi4ELi6ELi12E": 40}
 
 def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     """ptxas's stack frames for the redesigned kernels: each fused decode
-    and iSTFT FFT-kernel, inverse-split and Bluestein instance at most its
-    recorded frame (``DECODE_STACK_CEILING``, ``ISTFT_STACK_CEILING``,
-    ``ISTFT_SPLIT_STACK_CEILING``, ``BLUESTEIN_STACK_CEILING``), every
+    and iSTFT FFT-kernel, inverse-split and Bluestein (both directions)
+    instance at most its recorded frame (``DECODE_STACK_CEILING``,
+    ``ISTFT_STACK_CEILING``, ``ISTFT_SPLIT_STACK_CEILING``,
+    ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``), every
     Wiener+iSTFT and band decode instance none; and no band decode instance
     has its wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
@@ -931,9 +1018,12 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     for (log2p, m), most in ISTFT_SPLIT_STACK_CEILING.items():
         hits = [v for k, v in frames.items() if f"istft_split_kernelILi{log2p}ELi{m}E" in k]
         assert len(hits) == 1 and hits[0] <= most, (log2p, m, frames)
-    for log2m, most in BLUESTEIN_STACK_CEILING.items():
-        hits = [v for k, v in frames.items() if f"stft_bluestein_kernelILi{log2m}E" in k]
-        assert len(hits) == 1 and hits[0] <= most, (log2m, frames)
+    for kernel, ceiling in (("stft_bluestein_kernel", BLUESTEIN_STACK_CEILING),
+                            ("istft_bluestein_kernel", ISTFT_BLUESTEIN_STACK_CEILING)):
+        for log2m, most in ceiling.items():  # the mangled name's length prefix tells them apart
+            inst = f"{len(kernel)}{kernel}ILi{log2m}E"
+            hits = [v for k, v in frames.items() if inst in k]
+            assert len(hits) == 1 and hits[0] <= most, (inst, frames)
 
 
 @pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),

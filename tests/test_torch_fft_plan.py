@@ -426,7 +426,7 @@ def test_split_main_shapes():
 def test_split_refusals():
     """Powers of two go to the core's own kernel; the split refuses 1000 =
     8 · 125 (2^a < 16 and 125 is not a split factor), 7 · 256 (a factor 7),
-    3 · 8 (2^a < 16) and sizes past 8192: up to 4096 they go to Bluestein
+    3 · 8 (2^a < 16) and sizes past 8192: up to 8192 they go to Bluestein
     (:func:`test_bluestein_routing`), past it to the dense DFT kernel."""
     for n in (1000, 1024, 7 * 256, 24, 16, 8192, 3 * 4096, 25 * 64, 27 * 16):
         assert not fp.split_supported(n)
@@ -480,20 +480,84 @@ def test_split_slots_avoid_bank_conflicts(nfft):
 
 # -- Bluestein (fft_common.cuh::stft_bluestein_block) ------------------------
 
-BLUESTEIN_SIZES = [18, 432, 1000, 1001, 1792, 4000]
+BLUESTEIN_SIZES = [18, 432, 1000, 1001, 1792, 4000, 4097, 6000, 8190, 8191]
+LEVEL = 2 * fp.MAX_NFFT  # the level's 16 384 points
+
+
+def _level_twiddles(dtype):
+    """w^n = e^{−2πi n / 16384}, n < 8192, from the level's float32 table."""
+    tw = torch.from_numpy(fp.twiddle_table(LEVEL)[: LEVEL // 2].astype(np.float64))
+    return torch.complex(tw[:, 0], tw[:, 1]).to(dtype)
+
+
+def level_fft(z: torch.Tensor) -> torch.Tensor:
+    """fft_common.cuh::Level::forward on (..., 16384) complex: the core on
+    the even points (half 0) and on the odd points (half 1), then the
+    radix-2 butterflies Z[k1] = Y0 + w^k1 Y1, Z[k1 + 8192] = Y0 − w^k1 Y1:
+    Z in natural order."""
+    y0, y1 = core_fft(z[..., 0::2]), core_fft(z[..., 1::2]) * _level_twiddles(z.dtype)
+    return torch.cat([y0 + y1, y0 - y1], -1)
+
+
+def level_fft_dif(u: torch.Tensor) -> torch.Tensor:
+    """Level::forward_dif on (..., 16384) complex in natural order: a = u[n]
+    + u[n + 8192], b = (u[n] − u[n + 8192]) w^n, the core on a (half 0) and
+    on b (half 1). Returns the buffer: Z[2k] at k, Z[2k + 1] at 8192 + k
+    (``Level::dif_slot``)."""
+    h = LEVEL // 2
+    a = u[..., :h] + u[..., h:]
+    b = (u[..., :h] - u[..., h:]) * _level_twiddles(u.dtype)
+    return torch.cat([core_fft(a), core_fft(b)], -1)
+
+
+def dif_order(n: int) -> torch.Tensor:
+    """Where level_fft_dif leaves point k: (k & 1) · 8192 + k / 2."""
+    k = torch.arange(n)
+    return (k & 1) * (LEVEL // 2) + (k >> 1)
 
 
 def bluestein_fft(z: torch.Tensor) -> torch.Tensor:
-    """stft_bluestein_block's transform on (..., N) complex: times the
-    float32 conj chirp, zero-padded to M, the core's FFT, times Ĉ / M, then
-    conjugated through the core again (the inverse by conjugation), and
-    Z[k] = conj c_k · conj(buf[k]) for k < N."""
+    """Chirp::convolve and the post-chirp on (..., N) complex: times the
+    float32 conj chirp, zero-padded to M, the FFT, times Ĉ / M, then
+    conjugated through the FFT again (the inverse by conjugation), and Z[k]
+    = conj c_k · conj(buf[at(k)]) for k < N. The core runs both transforms
+    up to M 8192; the level runs the first by decimation in time and the
+    second by decimation in frequency, which leaves its output in
+    ``dif_order``."""
     N = z.shape[-1]
     M = fp.bluestein_size(N)
     chirp, chat = (torch.complex(t[:, 0], t[:, 1]).to(z.dtype) for t in fp.bluestein_tables(N, "cpu"))
     a = torch.nn.functional.pad(z * chirp, (0, M - N))
-    buf = core_fft((core_fft(a) * chat).conj())
-    return chirp * buf[..., :N].conj()
+    if M <= fp.MAX_NFFT:
+        buf = core_fft((core_fft(a) * chat).conj())[..., :N]
+    else:
+        buf = level_fft_dif((level_fft(a) * chat).conj())[..., dif_order(N)]
+    return chirp * buf.conj()
+
+
+def test_level_matches_torch_fft(rng):
+    """Both directions of the level at 16 384 points against torch.fft.fft:
+    decimation in time in natural order, decimation in frequency in
+    dif_order; and the level's 8192-point table, which each block takes
+    from the even entries of the 16 384-point one, is the 8192-point
+    twiddle table bit for bit (the same float64 angles, rounded once)."""
+    z = torch.from_numpy(rng.standard_normal((2, LEVEL)) + 1j * rng.standard_normal((2, LEVEL)))
+    want = torch.fft.fft(z)
+    tol = 1e-6 * want.abs().max().item()
+    torch.testing.assert_close(level_fft(z), want, atol=tol, rtol=0)
+    torch.testing.assert_close(level_fft_dif(z)[..., dif_order(LEVEL)], want, atol=tol, rtol=0)
+    assert np.array_equal(fp.twiddle_table(LEVEL)[::2], fp.twiddle_table(fp.MAX_NFFT))
+    assert torch.equal(fp.twiddles(LEVEL, "cpu")[::2], fp.twiddles(fp.MAX_NFFT, "cpu"))
+
+
+def test_level_float32_matches_torch_fft(rng):
+    """The level in complex64 as the kernel runs it, against torch.fft.fft
+    in float64: within 3e-6 of the peak (two more stages of rounding than
+    the core's 8192 points)."""
+    z = rng.standard_normal((2, LEVEL)) + 1j * rng.standard_normal((2, LEVEL))
+    want = torch.fft.fft(torch.from_numpy(z))
+    got = level_fft(torch.from_numpy(z.astype(np.complex64))).to(torch.complex128)
+    assert (got - want).abs().max().item() <= 3e-6 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("nfft", BLUESTEIN_SIZES)
@@ -509,6 +573,10 @@ def test_bluestein_matches_torch_fft(rng, nfft):
     (1001, 1001, 143, 1, 3000),   # odd: the partner of bin k is N - k
     (1792, 1792, 448, 1, 9000), (4000, 4000, 1000, 1, 12001),
     (1000, 800, 200, 1, 5000),    # nfft past the window
+    (4097, 4097, 241, 1, 2000),   # M 16 384: the level
+    (6000, 6000, 1500, 1, 6000),  # the smoke's W and hop
+    (8190, 8190, 2730, 1, 5000),
+    (8191, 8191, 1, 1, 3),        # odd, the level's largest
 ])
 def test_bluestein_stft_matches_stft_pallas_plain(rng, nfft, win, hop, B, length):
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32))
@@ -553,7 +621,7 @@ def test_bluestein_plan(signals, nf, nfft, win, hop):
     within the card's; the grid covers every frame pair."""
     plan = fp.bluestein_plan(signals, nf, nfft, win, hop)
     M = plan.m
-    assert M == fp.bluestein_size(nfft) and M >= 2 * nfft - 1
+    assert M == fp.bluestein_size(nfft) and M >= 2 * nfft - 1 and M <= fp.MAX_NFFT
     t = fp.threads_per_fft(M)
     g = plan.ffts_per_block
     assert g == max(1, 32 // t) and plan.threads == g * t
@@ -573,16 +641,45 @@ def test_bluestein_main_plan():
 
 
 def test_bluestein_routing():
-    """The sizes the split refuses up to 4096 go to Bluestein (1000, 7 · 256,
-    25 · 64, 27 · 16, odd sizes); powers of two, split sizes and sizes past
-    4096 do not (3 · 4096 and 6000 stay on the dense DFT kernel)."""
-    for n in (1000, 7 * 256, 25 * 64, 27 * 16, 1001, 18, 4000, 4095):
+    """The sizes the split refuses up to 8192 go to Bluestein (1000, 7 · 256,
+    25 · 64, 27 · 16, odd sizes; past 4096 on the level: 4097, 6000, 8191);
+    powers of two and split sizes go to their own kernels, and sizes past
+    8192 (3 · 4096, 8193) stay on the dense DFT kernel."""
+    for n in (1000, 7 * 256, 25 * 64, 27 * 16, 1001, 18, 4000, 4095, 4097, 6000, 8190, 8191):
         assert fp.bluestein_supported(n) and not fp.split_supported(n)
         assert not fp.fft_supported(n)
-    for n in (3 * 4096, 6000, 4097, 1024, 768, 8192, 48):
+        assert (fp.bluestein_size(n) == 2 * fp.MAX_NFFT) == (n > 4096)
+    for n in (3 * 4096, 8193, 10_000, 1024, 768, 8192, 48, 6144):
         assert not fp.bluestein_supported(n)
         with pytest.raises(ValueError, match="no Bluestein plan"):
             fp.bluestein_plan(1, 10, n, n, n // 2)
+    assert fp.split_supported(6144) and fp.fft_supported(8192)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (32, 12, 6000, 6000, 1500), (1, 3, 4097, 4097, 241), (2, 40, 8191, 8191, 8191),
+    (3, 20, 8190, 4095, 5), (64, 500, 6000, 3000, 1500),
+])
+def test_bluestein_level_plan(signals, nf, nfft, win, hop):
+    """bluestein_plan on the level mirrors stft_bluestein_launch: one group
+    of 512 threads a block, two frames, shared memory the 8192- and 16
+    384-point quarter tables and one 16 384-point exchange buffer (191 488
+    bytes, whatever the window and hop: the frames are read from global
+    memory), one block an SM."""
+    plan = fp.bluestein_plan(signals, nf, nfft, win, hop)
+    assert plan.m == 2 * fp.MAX_NFFT and fp.bluestein_threads(plan.m) == fp.MAX_THREADS
+    assert (plan.ffts_per_block, plan.threads) == (1, 512)
+    assert plan.smem_bytes == 8 * ((2048 + 128) + (4096 + 256) + (16384 + 1024)) == 191_488
+    assert plan.smem_bytes == fp.bluestein_smem_bytes(nfft, win, hop, 1) <= fp.SMEM_MAX
+    assert fp.blocks_per_sm(plan.smem_bytes, plan.threads) == 1
+    assert plan.blocks_per_signal == -(-nf // 2) and plan.blocks == signals * plan.blocks_per_signal
+
+
+def test_bluestein_level_main_plan():
+    """The smoke's W 6000, hop 1500, B 32 (12 frames): 6 pairs a signal,
+    192 blocks of 512 threads."""
+    plan = fp.bluestein_plan(32, num_frames(14336, 1500), 6000, 6000, 1500)
+    assert (plan.m, plan.ffts_per_block, plan.threads, plan.blocks) == (16384, 1, 512, 192)
 
 
 # -- the forward mirror's bits, before and after the inverse direction ------
@@ -709,6 +806,27 @@ def test_split_istft_matches_plain(rng, nfft, win, hop, nf):
     torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
 
 
+@pytest.mark.parametrize("nfft,win,hop,nf", [
+    (18, 18, 9, 9), (1000, 1000, 250, 8), (1000, 800, 200, 9), (1792, 1792, 448, 7),
+    (4000, 4000, 1000, 6), (6000, 6000, 1500, 6), (8190, 8190, 2730, 5),
+])
+def test_bluestein_istft_matches_plain(rng, nfft, win, hop, nf):
+    """istft_bluestein_block's transform (Bluestein run backwards: the DFT
+    of inverse_input's conj Z, on the core up to M 8192 and on the level
+    past 4096 points) and the rounds' gather, against istft_pallas_plain
+    within 1e-5 × max|out|."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(win)
+    bins = nfft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    got = core_istft(re, im, w, hop, length, nfft, fft=bluestein_fft)
+    want = istft_pallas_plain(re, im, w, hop, length, nfft=nfft)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
 # (signals, nf, nfft, win, hop) of every iSTFT launch: the CUDA tests'
 # cases, chip_smoke.py's phase 7 and both slices (stereo highres4096's 8
 # signals, the dsd100 pallas route's 4), and each preset's whole track
@@ -723,6 +841,9 @@ ISTFT_LAUNCHES = [
     (3, num_frames(20000, 576), 2304, 2304, 576), (1, num_frames(60000, 1536), 6144, 6144, 1536),
     (3, num_frames(5000, 12), 48, 48, 12), (2, num_frames(3000, 60), 240, 240, 60),
     (8, 1442, 4096, 4096, 1024), (4, 2882, 1024, 1024, 512),
+    (4, 884, 6000, 6000, 1500), (4, 530, 10000, 10000, 2500), (2, num_frames(20000, 448), 1792,
+                                                               1792, 448),
+    (3, num_frames(9000, 9), 18, 18, 9), (1, 40, 8190, 8190, 910), (2, 60, 4000, 4000, 1000),
 ] + [(2, num_frames(8 * n, n // 4), n, n, n // 4) for n in (16, 32, 64, 128, 256, 512,
                                                           1024, 2048, 4096, 8192)] + [
     (s * p.model.num_sources,
@@ -740,11 +861,13 @@ def test_istft_plan(signals, nf, nfft, win, hop):
     assert plan.rows >= 1 and plan.blocks == signals * plan.blocks_per_signal
     assert plan.blocks_per_signal * plan.rows >= nf + k - 1 > (plan.blocks_per_signal - 1) * plan.rows
     assert plan.halo == (k - 1) / plan.rows
-    if plan.groups == 0:  # the direct sum: other sizes
+    if plan.groups == 0:  # the direct sum: even sizes past 8192 off the split
         assert not fp.fft_supported(nfft) and plan.rows <= fp.DIRECT_MAX_ROWS
+        assert nfft > fp.MAX_NFFT and not fp.bluestein_supported(nfft)
         assert plan.smem_bytes == 16 * nfft + 4 * plan.rows * hop
         return
-    t = fp.threads_per_fft(nfft)
+    blue = fp.bluestein_supported(nfft)
+    t = fp.bluestein_threads(fp.bluestein_size(nfft)) if blue else fp.threads_per_fft(nfft)
     g = plan.groups
     assert g & (g - 1) == 0 and plan.threads == g * t
     assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
@@ -800,6 +923,75 @@ def test_istft_split_main_plan():
     plan = fp.istft_plan(4, 5170, 768, 768, 256)
     assert (plan.groups, plan.threads, plan.rounds, plan.rows, plan.blocks,
             plan.blocks_per_sm) == (2, 96, 4, 14, 1480, 12)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (4, 5294, 1000, 1000, 250), (2, 50, 18, 18, 9), (3, 70, 1792, 1792, 448),
+    (2, 60, 4000, 4000, 1000), (4, 884, 6000, 6000, 1500), (1, 40, 8190, 8190, 910),
+    (2, 30, 4098, 4098, 2049), (3, 90, 1000, 800, 200), (1, 10, 6000, 3000, 1500),
+])
+def test_istft_bluestein_plan(signals, nf, nfft, win, hop):
+    """istft_plan at the Bluestein sizes mirrors istft_bluestein_launch: the
+    fewest groups of bluestein_threads(M) in whole warps (one group of 512
+    threads on the level), the tables (the M-point quarter table; on the
+    level the 8192- and 16 384-point ones), the exchange buffers of M
+    points and the carry within shared memory; the rounds by the 3/16 rule."""
+    plan = fp.istft_plan(signals, nf, nfft, win, hop)
+    M, k = fp.bluestein_size(nfft), win // hop
+    assert fp.bluestein_supported(nfft) and M >= 2 * nfft - 1
+    t = fp.bluestein_threads(M)
+    assert plan.groups == max(1, 32 // t) and plan.threads == plan.groups * t
+    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    tables = (2048 + 128) + (M // 4 + M // 64) if M > fp.MAX_NFFT else M // 4 + M // 64
+    assert plan.smem_bytes == 8 * (tables + plan.groups * (M + M // 16)) + 4 * (k - 1) * hop
+    assert plan.smem_bytes == fp.istft_smem_bytes(nfft, win, hop, plan.groups) <= fp.SMEM_MAX
+    assert plan.rows == 2 * plan.groups * plan.rounds - (k - 1) >= 1
+    assert plan.halo <= fp.MAX_HALO and plan.blocks_per_signal * plan.rows >= nf + k - 1
+    if M > fp.MAX_NFFT:
+        assert plan.groups == 1 and plan.blocks_per_sm == 1 and plan.note
+
+
+def test_istft_bluestein_main_plans():
+    """The smoke's W 1000, hop 250 (4 signals, nf 5294): one group of 128
+    threads, ten rounds of 2 frames for 17 rows, 1248 blocks; W 6000, hop
+    1500 (4 signals, nf 884) on the level: one group of 512 threads, 209
+    488 bytes, ten rounds, 212 blocks, one a SM."""
+    a = fp.istft_plan(4, 5294, 1000, 1000, 250)
+    assert (a.groups, a.threads, a.rounds, a.rows, a.blocks, a.smem_bytes) == (
+        1, 128, 10, 17, 1248, 24_760)
+    b = fp.istft_plan(4, 884, 6000, 6000, 1500)
+    assert (b.groups, b.threads, b.rounds, b.rows, b.blocks, b.smem_bytes, b.blocks_per_sm) == (
+        1, 512, 10, 17, 212, 209_488, 1)
+
+
+def test_istft_level_fits_every_window():
+    """On the level the tables and the exchange take 191 488 bytes, and the
+    carry (win/hop − 1) hop floats is under 32 KB for any win <= 8192: every
+    (win, hop) with win/hop <= 9 fits, so no Bluestein size is refused."""
+    worst = max(fp.istft_smem_bytes(8190, win, win // k, 1)
+                for win in range(4098, 8191, 2) for k in range(1, 10) if win % k == 0)
+    assert worst == 191_488 + 4 * 8 * 910 <= fp.SMEM_MAX
+
+
+def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
+    """istft_plan raises, and istft_supported says no, where a plan does not
+    fit shared memory: the direct sum past 12 800 points (its table and
+    spectrum alone), and, with the card's limit cut below the level's
+    191 488 bytes, the level."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
+
+    for n in (13_000, 20_000):
+        assert not fp.bluestein_supported(n) and not istft_supported(n, n, n // 4)
+        with pytest.raises(ValueError, match="no iSTFT plan fits"):
+            fp.istft_plan(1, 10, n, n, n // 4)
+    fp.istft_plan.cache_clear()
+    monkeypatch.setattr(fp, "SMEM_MAX", 190_000)
+    try:
+        with pytest.raises(ValueError, match="no iSTFT plan fits"):
+            fp.istft_plan(1, 10, 6000, 6000, 1500)
+        assert not istft_supported(6000, 6000, 1500) and istft_supported(1000, 1000, 250)
+    finally:
+        fp.istft_plan.cache_clear()
 
 
 def test_synthesis_tables_found_by_value():

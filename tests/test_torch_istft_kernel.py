@@ -60,7 +60,10 @@ def test_istft_ct_pallas_matches_jax(rng, lead, out):
     "lead,nfft,win,hop",
     [((3,), 256, 256, 64), ((), 128, 128, 64), ((2,), 256, 128, 32), ((4,), 64, 64, 8),
      ((2,), 768, 768, 256),     # 3 · 256: the split run backwards on the card
-     ((2,), 1000, 1000, 250)],  # the direct sum on the card
+     ((2,), 1000, 1000, 250),   # Bluestein run backwards on the card
+     # the same on the 16 384-point level: 7 · 1024 (the reference's
+     # large-window path needs win and hop multiples of 256, so not 6000)
+     ((2,), 7168, 7168, 1792)],
 )
 def test_istft_pallas_matches_jax(rng, lead, nfft, win, hop):
     length = 2500
@@ -121,7 +124,8 @@ def test_istft_routes():
     assert m("ct_pallas", 4096, 4096, 1024, 1.0, CPU) == "ct_pallas"
     assert istft_supported(4096, 4096, 1024) and istft_supported(1024, 1024, 512)
     assert istft_supported(384, 384, 96)  # 3 · 128: the split run backwards
-    assert istft_supported(1000, 1000, 250)  # even, off the split: the direct sum
+    assert istft_supported(1000, 1000, 250)  # even, off the split: Bluestein
+    assert istft_supported(10_000, 10_000, 2500)  # past 8192: the direct sum
     assert not istft_supported(255, 255, 85) and not istft_supported(256, 512, 128)
     assert not istft_supported(4096, 4096, 1000)
 

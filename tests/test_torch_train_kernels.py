@@ -41,6 +41,7 @@ from convsep_tpu_torch.train.optim import AdadeltaState, global_norm, lasagne_ad
         (1280, 320, None, (2,)),  # 5 · 256
         (1000, 250, None, (2,)),  # 8 · 125: Bluestein on the card
         (1001, 143, None, (2,)),  # odd, Bluestein
+        (6000, 1500, None, (2,)),  # Bluestein on the 16 384-point level
     ],
 )
 def test_stft_pallas_matches_jax(rng, nfft, hop, nfft_pad, lead):
