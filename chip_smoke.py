@@ -37,9 +37,10 @@ result line is printed):
    signals (W 1024, hop 512) beside ``torch.stft(center=False)`` on the
    same padded signal; the split STFT kernel (m · 2^a sizes) on (32, 14
    336) at W 768, hop 256 and W 1280, hop 320, and the Bluestein kernel at
-   W 1000, hop 250 and, on the 16 384-point level, at W 6000, hop 1500,
-   beside the dense DFT kernel forced at the same shapes; the dense DFT
-   kernel where it serves (W 12 288, hop 3072); each call launching its
+   W 1000, hop 250, on the 16 384-point level at W 6000, hop 1500, and on
+   a thread-block cluster at W 12 288, hop 3072 (4 blocks) and W 20 000,
+   hop 5000 (8 blocks), beside the dense DFT kernel forced at the split's,
+   Bluestein's and the cluster's W 12 288 shapes; each call launching its
    kernel once and no other
    (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
    a child process: a profiler session slows its process's host for good)
@@ -64,9 +65,11 @@ result line is printed):
    both device times (in a child) and the wrapper's host time; the split
    run backwards at W 768, hop 256, Bluestein run backwards at W 1000, hop
    250 (beside the direct sum forced there) and on the level at W 6000, hop
-   1500 (4 stems of a 30 s track each), the direct sum where it serves (W
-   10 000, hop 2500, one stem); each call launching its kernel once and no
-   other; 7b: the Wiener+iSTFT kernel's direct sum at W 768, as phase 3;
+   1500 (4 stems of a 30 s track each), on a cluster at W 10 000, hop 2500
+   (beside the direct sum forced there) and W 20 000, hop 5000 (one stem
+   each; the plan beside the clusters the card holds at once); each call
+   launching its kernel once and no other; 7b: the Wiener+iSTFT kernel's
+   direct sum at W 768, as phase 3;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -242,12 +245,14 @@ TRAIN_SECONDS = 20
 # the stems of a 30 s track at W 768, hop 256 (the split, run backwards
 # by the iSTFT; the Wiener+iSTFT kernel's direct sum), at W 1000, hop 250
 # and W 6000, hop 1500 (Bluestein run backwards, on the core and on the
-# level) and at W 10 000, hop 2500 (the iSTFT's direct sum): sizes that are
-# not powers of two, timed, no main path
+# level), at W 10 000, hop 2500 and W 20 000, hop 5000 (Bluestein on a
+# thread-block cluster of 4 and of 8 blocks, and at W 10 000 the direct sum
+# it replaces): sizes that are not powers of two, timed, no main path
 W768_NF = 5170
 W1000_NF = 5294
 W6000_NF = 884
 W10000_NF = 532
+W20000_NF = 267
 # the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
 # istft_ct_pallas (else istft_pallas, or istft_direct_pallas where the
 # kernel is "istft_direct"), the kernel it must launch)
@@ -257,8 +262,10 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 1000 Bluestein", 1000, 250, W1000_NF, 4, False, "istft_bluestein"),
                 ("W 1000 direct sum", 1000, 250, W1000_NF, 4, False, "istft_direct"),
                 ("W 6000 Bluestein", 6000, 1500, W6000_NF, 4, False, "istft_bluestein"),
-                ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"))
-ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_direct")
+                ("W 10000 cluster", 10000, 2500, W10000_NF, 1, False, "istft_cluster"),
+                ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"),
+                ("W 20000 cluster", 20000, 5000, W20000_NF, 1, False, "istft_cluster"))
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -396,16 +403,19 @@ def device_times(kind: str) -> dict:
 
 
 # phase 5's STFT launches: (key, the kernel it must launch, W, hop, batches,
-# forced dense). The split kernel at m = 3 and 5 and Bluestein at W 1000
-# and, on the level, W 6000, the dense kernel at their shapes (forced: the
-# time each replaces) and where it still serves (W 12 288: past 8192).
+# forced dense). The split kernel at m = 3 and 5, Bluestein at W 1000, on
+# the level at W 6000 and on a cluster at W 12 288 (4 blocks) and W 20 000
+# (8 blocks), the dense kernel at their shapes (forced: the time each
+# replaces; it still serves past 32 768).
 STFT_SHAPES = (
     ("stft", "stft", 1024, 512, (32, 128), False),
     ("stft_split", "stft_split", 768, 256, (32,), False),
     ("stft_split W 1280", "stft_split", 1280, 320, (32,), False),
     ("stft_bluestein", "stft_bluestein", 1000, 250, (32,), False),
     ("stft_bluestein W 6000", "stft_bluestein", 6000, 1500, (32,), False),
-    ("stft_dft", "stft_dft", 12288, 3072, (32,), False),
+    ("stft_cluster", "stft_cluster", 12288, 3072, (32,), False),
+    ("stft_cluster W 20000", "stft_cluster", 20000, 5000, (32,), False),
+    ("stft_dft W 12288", "stft_dft", 12288, 3072, (32,), True),
     ("stft_dft W 768", "stft_dft", 768, 256, (32,), True),
     ("stft_dft W 1280", "stft_dft", 1280, 320, (32,), True),
     ("stft_dft W 1000", "stft_dft", 1000, 250, (32,), True),
@@ -892,15 +902,16 @@ def phase_stft(device, gen) -> dict:
     128; 14 336 samples, W 1024, hop 512 → 30 frames × 513 bins), the
     split kernel at W 768, hop 256 (3 · 256: 58 frames × 385 bins) and W
     1280, hop 320 (5 · 256: 47 × 641), Bluestein at W 1000, hop 250 (8 ·
-    125: 60 × 501) and on the level at W 6000, hop 1500 (12 × 3001), the
-    dense DFT kernel where it still serves (W 12 288, hop 3072: 7 × 6145)
-    and, forced, at the split's and Bluestein's shapes.
+    125: 60 × 501), on the level at W 6000, hop 1500 (12 × 3001), on a
+    cluster at W 12 288, hop 3072 (7 × 6145) and W 20 000, hop 5000 (5 ×
+    10 001), and the dense DFT kernel, forced, at the split's, Bluestein's
+    and the cluster's W 12 288.
     Each call must launch its kernel once and no other STFT kernel."""
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
 
-    names = ("stft", "stft_split", "stft_bluestein", "stft_dft")
+    names = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_dft")
     out = {}
     for key, kernel, win, hop, batches, dense in STFT_SHAPES:
         fn = stft_fn(dense)
@@ -954,7 +965,8 @@ def phase_stft(device, gen) -> dict:
             f"({r['bound_by']}); wrapper host {r['host_us']:.1f} us")
     for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280"),
                        ("stft_bluestein", "stft_dft W 1000"),
-                       ("stft_bluestein W 6000", "stft_dft W 6000")):
+                       ("stft_bluestein W 6000", "stft_dft W 6000"),
+                       ("stft_cluster", "stft_dft W 12288")):
         r, d = out[key], out[dense]
         r["dense_ms"], r["dense_device_ms"] = d["ms"], d["device_ms"]
         log(f"  {key}: {key.split()[0]} {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
@@ -1230,8 +1242,8 @@ def phase_train(device) -> dict:
         raise AssertionError(f"training loss is not finite and falling: {losses}")
     # two STFTs a step (the mixtures, the stems), all on the FFT kernel
     if not (launches["stft"] == 2 * TRAIN_STEPS and launches["stft_split"] == 0
-            and launches["stft_bluestein"] == 0 and launches["stft_dft"] == 0
-            and launches["fused_adadelta"] > 0):
+            and launches["stft_bluestein"] == 0 and launches["stft_cluster"] == 0
+            and launches["stft_dft"] == 0 and launches["fused_adadelta"] > 0):
         raise AssertionError(f"training path missed a kernel: {launches}")
     fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
     fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -1317,14 +1329,34 @@ def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
     return w, L, re * mask, im * mask
 
 
+def cluster_plan_check(N: int, nf: int, nfft: int, hop: int) -> dict:
+    """The iSTFT cluster plan at a phase 7 shape beside the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters), which the plan's
+    waves assume: a plan past the card's count runs a second wave."""
+    import ctypes
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    plan = fp.istft_plan(N, nf, nfft, nfft, hop)
+    active = ctypes.c_int(0)
+    kernels.check(kernels.library().istft_cluster_occupancy(nfft, nfft, hop, ctypes.byref(active)),
+                  "istft_cluster_occupancy")
+    out = {"cluster": plan.cluster, "rounds": plan.rounds, "rows": plan.rows,
+           "clusters": N * plan.blocks_per_signal, "clusters_at_once_plan":
+           fp.CLUSTERS_AT_ONCE[plan.cluster], "clusters_at_once_card": active.value}
+    log(f"  istft cluster plan W {nfft}: {json.dumps(out)}")
+    return out
+
+
 def phase_istft(device, gen) -> dict:
     """The iSTFT kernels vs plain, float32 and int16, beside ``torch.istft``:
     path A's shapes (``istft_ct_pallas``), path B's (``istft_pallas``; its
     int16 through ``launch_istft``, against the direct synthesis quantized),
-    the split run backwards at W 768, Bluestein run backwards at W 1000 and
-    W 6000 (the level), the direct sum forced at W 1000 (the time Bluestein
-    replaces) and where it serves, W 10 000. Each call must launch its
-    kernel once and no other iSTFT kernel."""
+    the split run backwards at W 768, Bluestein run backwards at W 1000, W
+    6000 (the level), W 10 000 and W 20 000 (a cluster of 4 and of 8
+    blocks), the direct sum forced at W 1000 and W 10 000 (the times
+    Bluestein and the cluster replace). Each call must launch its kernel
+    once and no other iSTFT kernel."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
@@ -1381,6 +1413,8 @@ def phase_istft(device, gen) -> dict:
             f" wrapper host {us:.1f} us per call")
         res[name] = {"max_abs_err": err["float32"], "max_abs_err_int16": err.get("int16"),
                      "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "host_us": us}
+        if kernel == "istft_cluster":
+            res[name]["plan"] = cluster_plan_check(N, nf, nfft, hop)
         del re, im, spec, want
         torch.cuda.empty_cache()
     dev = device_times("istft")["istft"]
@@ -1391,11 +1425,11 @@ def phase_istft(device, gen) -> dict:
             f"{ms_str(d['library_device_ms'])}); bound {r['bound_ms']:.4f} ms")
     log(f"  device kernels: {json.dumps(dev)}")
     for key, direct in (("W 768 split", "W 1000 direct sum"),
-                        ("W 1000 Bluestein", "W 1000 direct sum")):
+                        ("W 1000 Bluestein", "W 1000 direct sum"),
+                        ("W 10000 cluster", "W 10000 direct sum")):
         r, d = res[key], res[direct]
         log(f"  istft {key}: device {ms_str(r['device_ms'])} against torch.istft's "
-            f"{ms_str(r['library_device_ms'])} and the W 1000 direct sum's "
-            f"{ms_str(d['device_ms'])}")
+            f"{ms_str(r['library_device_ms'])} and the {direct}'s {ms_str(d['device_ms'])}")
     return res
 
 
@@ -1592,8 +1626,9 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
         raise AssertionError(f"{name}: bad stems {stems.shape}, finite={np.isfinite(stems).all()}")
     if not (all(launches[k] > 0 for k in ("wiener_apply", "istft"))
             and launches["stft"] == 1 and launches["stft_split"] == 0
-            and launches["stft_bluestein"] == 0 and launches["stft_dft"] == 0
-            and launches["istft_split"] == 0 and launches["istft_bluestein"] == 0
+            and launches["stft_bluestein"] == 0 and launches["stft_cluster"] == 0
+            and launches["stft_dft"] == 0 and launches["istft_split"] == 0
+            and launches["istft_bluestein"] == 0 and launches["istft_cluster"] == 0
             and launches["istft_direct"] == 0):
         raise AssertionError(f"{name}: the pallas route missed a kernel: {launches}")
     ms = time_track(sep, audio)
@@ -1866,8 +1901,9 @@ def phase_multires_routes(state, preset, device, audio) -> dict:
                         {"ct_stft": True, "wiener_istft_ny": True, "wiener_istft": False,
                          "fused_decode": auto_fused(preset, track_segments(preset, len(audio))),
                          "band_decode": False, "stft": False,
-                         "stft_split": False, "stft_bluestein": False, "stft_dft": False,
-                         "istft": False, "istft_split": False, "istft_bluestein": False,
+                         "stft_split": False, "stft_bluestein": False, "stft_cluster": False,
+                         "stft_dft": False, "istft": False, "istft_split": False,
+                         "istft_bluestein": False, "istft_cluster": False,
                          "istft_direct": False}),
         "band": run_route(f"{preset.name} decoder_impl=band_pallas", bp, state, device, audio,
                           {"band_decode": True, "wiener_istft": True, "fused_decode": False,
@@ -2009,8 +2045,8 @@ def phase_chunked(state, preset, device, audio) -> dict:
     # the decode sees chunk_segments rows a chunk; the chunk synthesizes by
     # products, as the reference's chunk program does
     want = {"fused_decode": nc if auto_fused(preset, cs) else 0, "wiener_istft": 0,
-            "wiener_istft_ny": 0, "stft_split": 0, "stft_bluestein": 0, "stft_dft": 0,
-            "istft_split": 0}
+            "wiener_istft_ny": 0, "stft_split": 0, "stft_bluestein": 0, "stft_cluster": 0,
+            "stft_dft": 0, "istft_split": 0, "istft_cluster": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     del sep
@@ -2503,7 +2539,7 @@ def phase_feature_train(device) -> dict:
         # two adadelta launches a step (fc_expand_kernel, fc_kernel); no STFT in the step
         if not (launches["fused_adadelta"] == 2 * TRAIN_STEPS and launches["stft"] == 0
                 and launches["stft_split"] == 0 and launches["stft_bluestein"] == 0
-                and launches["stft_dft"] == 0):
+                and launches["stft_cluster"] == 0 and launches["stft_dft"] == 0):
             raise AssertionError(f"feature training path launched {launches}")
         fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
         fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
@@ -2905,8 +2941,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 7: iSTFT kernels vs plain (stereo highres4096 and dsd100 pallas-route shapes, "
-        "the split at W 768, Bluestein at W 1000 and 6000, the direct sum at W 1000 forced and "
-        "at W 10 000)")
+        "the split at W 768, Bluestein at W 1000 and 6000, on a cluster at W 10 000 and 20 000, "
+        "the direct sum forced at W 1000 and 10 000)")
     ist = phase_istft(device, gen)
     log("phase 7b: the Wiener+iSTFT kernel's direct sum at W 768, hop 256 (4 stems, nf "
         f"{W768_NF}), beside torch.istft of the same spectra (phase 7)")
@@ -3002,14 +3038,16 @@ def main(argv: list[str]) -> int:
         Separator(pallas, dsd_state, device=device),
         [audio + np.float32(i % 3 / 32768.0) for i in range(n)],
         {"stft": n, "wiener_apply": n, "istft": n, "stft_split": 0, "stft_bluestein": 0,
-         "stft_dft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0,
+         "stft_cluster": 0, "stft_dft": 0, "istft_split": 0, "istft_bluestein": 0,
+         "istft_cluster": 0, "istft_direct": 0,
          "wiener_istft": 0})
     st_state = init_params(st.model, torch.Generator(device=device).manual_seed(2), device)
     st_mix = stereo_mixture(0)
     stream["highres4096-stereo"] = phase_stream_route(
         "highres4096-stereo stream", StreamSeparator(st, st_state, device=device),
         StereoSeparator(st, st_state, device=device), [st_mix, 0.5 * st_mix],
-        {"istft": 2, "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0,
+        {"istft": 2, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
+         "istft_direct": 0,
          "wiener_istft": 0,
          "fused_decode": 2 if auto_fused(st, track_segments(st, st_mix.shape[1])) else 0})
     del st_state
@@ -3053,11 +3091,11 @@ def main(argv: list[str]) -> int:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    # every path's STFT and iSTFT runs on the FFT core: the split and
-    # Bluestein (both directions), the dense DFT and the direct sum serve
-    # only sizes that no preset uses
-    for kernel in ("stft_split", "stft_bluestein", "stft_dft", "istft_split", "istft_bluestein",
-                   "istft_direct"):
+    # every path's STFT and iSTFT runs on the FFT core: the split,
+    # Bluestein and its cluster (both directions), the dense DFT and the
+    # direct sum serve only sizes that no preset uses
+    for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_dft", "istft_split",
+                   "istft_bluestein", "istft_cluster", "istft_direct"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -3092,12 +3130,19 @@ def main(argv: list[str]) -> int:
                    "no preset",
          **launched("stft_bluestein"), **stft_all["stft_bluestein"],
          "w6000_hop1500": stft_all["stft_bluestein W 6000"]},
+        {"name": "stft_cluster", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_cluster_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
+         "serves": "8192 < nfft <= 32 768 (12 288, 20 000, odd sizes): Bluestein on a "
+                   "thread-block cluster of 4 or 8 blocks; no preset",
+         **launched("stft_cluster"), **stft_all["stft_cluster"],
+         "w20000_hop5000": stft_all["stft_cluster W 20000"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "the sizes none of the FFT core, its split and Bluestein plans (past "
-                   "8192, as 12 288); no preset",
-         **launched("stft_dft"), **stft_all["stft_dft"],
+         "serves": "nfft past 32 768; stft_dft_pallas forces it at any size (timed forced at W "
+                   "12 288, the cluster's shape); no preset",
+         **launched("stft_dft"), **stft_all["stft_dft W 12288"],
          "forced_w768": stft_all["stft_dft W 768"],
          "forced_w1280": stft_all["stft_dft W 1280"],
          "forced_w1000": stft_all["stft_dft W 1000"],
@@ -3126,12 +3171,20 @@ def main(argv: list[str]) -> int:
                    "8 125, a factor 7; past 4096 on the 16 384-point level, as 6000); no preset",
          **launched("istft_bluestein"), **ist["W 1000 Bluestein"],
          "w6000_hop1500": ist["W 6000 Bluestein"]},
+        {"name": "istft_cluster", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_cluster_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "even 8192 < nfft <= 32 768 (10 000, 20 000): Bluestein run backwards on a "
+                   "thread-block cluster of 4 or 8 blocks; no preset",
+         **launched("istft_cluster"), **ist["W 10000 cluster"],
+         "w20000_hop5000": ist["W 20000 cluster"]},
         {"name": "istft_direct", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_direct_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even nfft past 8192 off the split (10 000); istft_direct_pallas forces it; "
-                   "no preset",
+         "serves": "even nfft past 32 768; istft_direct_pallas forces it at any even size "
+                   "(timed forced at W 10 000, the cluster's shape); no preset",
          **launched("istft_direct"), **ist["W 10000 direct sum"],
          "forced_w1000": ist["W 1000 direct sum"]},
         {"name": "wiener_apply", "route": "cuda",

@@ -70,11 +70,31 @@
 // stage. The inverse STFT at any other even N <= 8192
 // (istft_bluestein_block) is the same convolution run backwards: the
 // inverse DFT is conj(DFT_N(conj Z)) / N.
+//
+// Past 8192 points (N <= 32 768) Bluestein's M = 8192 C points (C 4 or 8)
+// live across the C blocks of a thread-block cluster (ClusterChirp,
+// stft_cluster_block, istft_cluster_block): each block runs the core's
+// 8192-point transform on its part, and the one exchange between them is
+// read through distributed shared memory (peer) where it is consumed.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cooperative_groups.h>
+
+// Distributed shared memory: p's address in block `rank` of the cluster.
+// The host emulation (tests/cuda_host/cuda_runtime.h) defines its own.
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+// A barrier of the cluster's blocks: shared-memory writes before it are
+// visible to every block of the cluster after it.
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+#endif
 
 namespace fft_common {
 
@@ -899,12 +919,16 @@ struct Level {
 
 // ---- Bluestein -------------------------------------------------------------
 
+constexpr int kClusterLog2 = kMaxLog2 + 3;  // 65 536 points: a cluster of 8 blocks of 8192
+
 // M = 2^ceil(log2(2 N - 1)), at least 16: Bluestein's convolution length
-// for N points (fft_plan.bluestein_size); 0 past the level's 16 384.
+// for N points (fft_plan.bluestein_size); 0 past a cluster's 65 536. Up to
+// the level's 16 384 one block holds a transform (stft_bluestein_block),
+// past it a cluster (stft_cluster_block).
 inline int bluestein_log2(int n) {
   int lg = kMinLog2;
   while ((1 << lg) < 2 * n - 1) ++lg;
-  return lg <= kLevelLog2 ? lg : 0;
+  return lg <= kClusterLog2 ? lg : 0;
 }
 
 // Threads of one Bluestein transform: M / 16 on the core, 512 on the level.
@@ -1152,6 +1176,278 @@ __device__ __forceinline__ void istft_bluestein_block(
     gather_round([&](int g, int t) { return bufs[g * C::E + C::at(t)]; }, carry, win_over_n,
                  inv_norm, out, out_int16, n, fr, f2, k, hop, j0, j_end, length);
     __syncthreads();  // the buffers are read; the next round's first pass rewrites them
+  }
+}
+
+// ---- Bluestein over a thread-block cluster ----------------------------------
+
+// e^{-2 pi i e / M}, 0 <= e < M, from the M-point quarter table tw in global
+// memory (fft_plan.twiddles, M/4 entries): quadrant q multiplies by (-i)^q.
+template <int M>
+__device__ __forceinline__ float2 ldg_twiddle(const float2* __restrict__ tw, int e) {
+  constexpr int Q = M / 4;
+  const int q = e / Q;
+  const float2 w = __ldg(tw + (e - q * Q));
+  switch (q) {
+    case 0: return w;
+    case 1: return make_float2(w.y, -w.x);
+    case 2: return make_float2(-w.x, -w.y);
+    default: return make_float2(-w.y, w.x);
+  }
+}
+
+// Dynamic shared memory of a cluster's block (one group of fft_threads(P)
+// threads): the P-point quarter table, one P-point exchange buffer and
+// `carry` floats (the inverse's carry of its columns). 87 040 bytes at P
+// 8192 and no carry.
+inline size_t cluster_smem_bytes(int log2p, int carry) {
+  return ((size_t)twiddle_len(log2p) + (size_t)exchange_len(log2p)) * sizeof(float2) +
+         (size_t)carry * sizeof(float);
+}
+// the hop columns each block of a cluster of c owns in the inverse's gather
+__host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop + c - 1) / c; }
+
+// Bluestein's cyclic convolution of M = C P points (P = 2^LOG2P, C = 2, 4
+// or 8) on the C blocks of a cluster, one group of P / 16 threads a block,
+// each block holding one P-point exchange buffer: Chirp::convolve with the
+// points spread over the cluster. With w = e^{-2 pi i / M} and W = w^P =
+// e^{-2 pi i / C}, block r (its rank):
+//
+// 1. forward, decimation in frequency, the first stage fed from the point
+//    functor (global memory): b_r[n] = w^{r n} sum_q u[n + P q] W^{r q},
+//    n < P (u is 0 from M/2 on, so q < C/2), then the core's Fft<LOG2P> on
+//    b_r leaves Y[C k + r] at slot(k): no exchange;
+// 2. times chat[C k + r] (the FFT of the wrapped chirp with 1/M folded in),
+//    conjugated, in place;
+// 3. the inverse by conjugation, decimation in time: block r holds the
+//    points = r (mod C), Fft<LOG2P> gives V_r[k1], and the owner applies
+//    the combine's twiddle, w^{r k1} V_r[k1], in place; a cluster barrier;
+// 4. the radix-C combine, computed where it is consumed (point):
+//    Z[k1 + P q] = sum_r W^{r q} w^{r k1} V_r[k1], read from the C blocks'
+//    buffers through distributed shared memory (peer). Z = conj(u * c), as
+//    Chirp leaves its buffer.
+//
+// A block's buffer is read by its peers until the cluster's next barrier,
+// which the caller places before the buffer is written again or the block
+// exits. tw is the M-point quarter table in global memory (the P-point
+// table in shared memory is its entries at stride C, bit for bit: the same
+// float64 angles), read through L1 as chat is. The core's transforms
+// synchronize the whole block (it is one group), so the host emulation runs
+// the same code.
+template <int LOG2P, int C>
+struct ClusterChirp {
+  static_assert(C == 2 || C == 4 || C == 8, "a cluster of 2, 4 or 8 blocks");
+  static constexpr int P = 1 << LOG2P;
+  static constexpr int M = C * P;
+  static constexpr int T = fft_threads(LOG2P);
+  static constexpr int TABLES = twiddle_len(LOG2P);
+  using F = Fft<LOG2P, true>;
+
+  __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw) {
+    for (int i = threadIdx.x; i < P / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + C * i);
+  }
+
+  template <class Point>
+  __device__ __forceinline__ static void convolve(Point point, float2* buf, const float2* tws,
+                                                  const float2* __restrict__ tw,
+                                                  const float2* __restrict__ chat, int rank,
+                                                  int j) {
+    const float2 wr = ldg_twiddle<M>(tw, P * rank);  // W^r
+    float2 v[kPoints];
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int n = j + T * m;
+      float2 s = point(n + P * (C / 2 - 1));  // Horner in W^r over q
+#pragma unroll
+      for (int q = C / 2 - 2; q >= 0; --q) {
+        const float2 a = point(n + P * q), b = cmul(s, wr);
+        s = make_float2(a.x + b.x, a.y + b.y);
+      }
+      v[m] = rank ? cmul(s, ldg_twiddle<M>(tw, rank * n)) : s;
+    }
+    F::run(v, buf, tws, j, 0);
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int k = j + T * m;
+      const float2 p = cmul(buf[slot(k)], __ldg(chat + C * k + rank));
+      v[m] = make_float2(p.x, -p.y);
+    }
+    F::sync(0);  // every point is read; the first pass rewrites buf
+    F::run(v, buf, tws, j, 0);
+    if (rank) {
+#pragma unroll
+      for (int m = 0; m < kPoints; ++m) {
+        const int k1 = j + T * m;
+        buf[slot(k1)] = cmul(buf[slot(k1)], ldg_twiddle<M>(tw, rank * k1));
+      }
+    }
+    cluster_sync();
+  }
+
+  // Z[t], t < M, after convolve: the radix-C sum over the C buffers, by
+  // Horner in W^q
+  __device__ __forceinline__ static float2 point(const float2* buf,
+                                                 const float2* __restrict__ tw, int t) {
+    const int k1 = t & (P - 1);
+    const float2 wq = ldg_twiddle<M>(tw, P * (t >> LOG2P));
+    float2 v[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) v[r] = peer(buf, r)[slot(k1)];
+    float2 z = v[C - 1];
+#pragma unroll
+    for (int r = C - 2; r >= 0; --r) {
+      const float2 b = cmul(z, wq);
+      z = make_float2(v[r].x + b.x, v[r].y + b.y);
+    }
+    return z;
+  }
+};
+
+// stft_bluestein_block for 8192 < N <= 32 768 (M = 8192 C) on a cluster of C
+// blocks (ClusterChirp at P = 2^LOG2P): cluster p = blockIdx.x / C (its
+// blocks are consecutive in x) carries frames 2 p' and 2 p' + 1 of its
+// signal as z = a + i b (windowed, t < W) times chirp[t], every block reading
+// the points of its first stage straight from global memory (from L2 after
+// the first); after the convolution block r takes the r-th 1/C of the bins k
+// <= N/2, each from Z[k] and its partner Z[N - k] read across the cluster
+// (so odd N works), and calls out(frame_a, has_b, k, A, B) as stft_block.
+// smem4 is the block's dynamic shared memory (cluster_smem_bytes).
+template <int LOG2P, int C, class Out>
+__device__ __forceinline__ void stft_cluster_block(
+    float4* smem4, const float* __restrict__ x, const float* __restrict__ win,
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ chat, int L, int W, int hop, int nf, int N, Out out) {
+  using CC = ClusterChirp<LOG2P, C>;
+  const int rank = blockIdx.x % C;
+  const int pair = blockIdx.x / C;
+  const int per_signal = (nf + 1) / 2;
+  const int sig = pair / per_signal;
+  const int f0 = (pair - sig * per_signal) * 2;
+  const float* xs = x + (long long)sig * L;
+  const long long s0 = (long long)f0 * hop - W / 2;  // frame a's first sample
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + CC::TABLES;
+  const int j = threadIdx.x;
+  CC::load_tables(tws, tw);
+  __syncthreads();
+
+  CC::convolve(
+      [&](int t) {
+        if (t >= W) return make_float2(0.f, 0.f);
+        const float w = __ldg(win + t);
+        const long long s = s0 + t;
+        const float a = s >= 0 && s < L ? __ldg(xs + s) : 0.f;
+        const float b = s + hop >= 0 && s + hop < L ? __ldg(xs + s + hop) : 0.f;
+        return cmul(make_float2(a * w, b * w), __ldg(chirp + t));
+      },
+      buf, tws, tw, chat, rank, j);
+
+  const bool has_b = f0 + 1 < nf;
+  const int bins = N / 2 + 1, share = (bins + C - 1) / C;
+  const int k_end = min(bins, (rank + 1) * share);
+  for (int k = rank * share + j; k < k_end; k += CC::T) {
+    const int kp = k ? N - k : 0;  // the partner bin
+    const float2 zb = CC::point(buf, tw, k), wb = CC::point(buf, tw, kp);
+    const float2 z = cmul(__ldg(chirp + k), make_float2(zb.x, -zb.y));
+    const float2 w = cmul(__ldg(chirp + kp), make_float2(wb.x, -wb.y));
+    out((long long)sig * nf + f0, has_b, k, make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
+        make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
+  }
+  cluster_sync();  // the peers have read this block's buffer
+}
+
+// istft_bluestein_block for even 8192 < N <= 32 768 on a cluster of C
+// blocks: cluster q = blockIdx.x / C owns hop rows [j0, j0 + rows) of
+// signal n and walks frames j0 - (win/hop - 1) on in rounds of one pair (a
+// block is one group): each block loads the points of its first stage
+// straight from the pair's spectrum rows (conj Z[t] conj c_t, inverse_point,
+// the mirrored bin past Nyquist), the cluster convolves, and block r gathers
+// the r-th 1/C of every hop row's columns (cluster_columns): each frame
+// sample t it adds is chirp[t] conj(Z[t]) = N conj(a[t] + i b[t]), Z read
+// across the cluster as it is consumed; the carry of its columns stays in
+// its shared memory. A cluster barrier ends each round (the peers have read
+// the buffers the next round rewrites). Every thread runs every round and
+// every barrier (a frame outside [0, nf) loads zeros).
+template <int LOG2P, int C>
+__device__ __forceinline__ void istft_cluster_block(
+    float4* smem4, const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ chat, void* __restrict__ out, int out_int16, int nf, int N,
+    int win, int hop, int length, int rounds, int rows, int per_signal) {
+  using CC = ClusterChirp<LOG2P, C>;
+  const int bins = N / 2 + 1;
+  const int rank = blockIdx.x % C;
+  const int cl = blockIdx.x / C;
+  const int j = threadIdx.x;
+  const int k = win / hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(hop, C);
+  const int u0 = rank * cols;
+  const int ncols = max(0, min(cols, hop - u0));
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + CC::TABLES;
+  float* carry = reinterpret_cast<float*>(buf + exchange_len(LOG2P));  // (k - 1) cols
+  const int n = cl / per_signal;
+  const int j0 = (cl - n * per_signal) * rows;  // first hop row of the cluster
+  const int j_end = min(j0 + rows, nf + k - 1);
+  const long long track = (long long)n * nf * bins;
+
+  CC::load_tables(tws, tw);
+  for (int i = threadIdx.x; i < (k - 1) * cols; i += blockDim.x) carry[i] = 0.f;
+  __syncthreads();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + 2 * r;  // the round's pair: frames fr, fr + 1
+    const bool ha = fr >= 0 && fr < nf, hb = fr + 1 >= 0 && fr + 1 < nf;
+    const float* ra = ha ? re + track + (long long)fr * bins : nullptr;
+    const float* ia = ha ? im + track + (long long)fr * bins : nullptr;
+    const float* rb = hb ? re + track + (long long)(fr + 1) * bins : nullptr;
+    const float* ib = hb ? im + track + (long long)(fr + 1) * bins : nullptr;
+    CC::convolve(
+        [&](int t) {
+          if (t >= N) return make_float2(0.f, 0.f);
+          const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+            return make_float4(ra ? __ldg(ra + kk) : 0.f, ra && !edge ? __ldg(ia + kk) : 0.f,
+                               rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
+          });
+          return cmul(z, __ldg(chirp + t));
+        },
+        buf, tws, tw, chat, rank, j);
+    // gather_round for one pair, on this block's columns: row fr + i takes
+    // frame a's sample t = i hop + u and frame b's t - hop, so each Z[t],
+    // read across the cluster once, serves frame a at row fr + i and frame
+    // b at row fr + i + 1; a row sums the carry, frame a, then frame b
+    // (ascending frames, as gather_round); rows fr and fr + 1 complete,
+    // the k - 1 above carry on
+    for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+      const int u = u0 + c;
+      float b_term = 0.f;  // frame b's term of row fr + i, from Z[(i - 1) hop + u]
+      for (int i = 0; i <= k; ++i) {
+        const int row = fr + i;
+        float acc = i < k - 1 ? carry[i * cols + c] : 0.f;
+        float b_next = 0.f;
+        if (i < k) {
+          const int t = i * hop + u;
+          const float2 zb = CC::point(buf, tw, t);
+          const float2 z = cmul(__ldg(chirp + t), make_float2(zb.x, -zb.y));
+          const float w = __ldg(win_over_n + t);
+          acc += w * z.x;
+          b_next = w * -z.y;
+        }
+        if (i >= 1) acc += b_term;
+        b_term = b_next;
+        if (i >= 2) {
+          carry[(i - 2) * cols + c] = acc;
+        } else if (row >= j0 && row < j_end) {
+          const long long nabs = (long long)row * hop + u;
+          const long long tpos = nabs - win / 2;
+          if (tpos >= 0 && tpos < length)
+            write_sample(out, out_int16, (long long)n * length + tpos,
+                         acc * __ldg(inv_norm + nabs));
+        }
+      }
+    }
+    cluster_sync();  // the peers have read this round's buffers
   }
 }
 

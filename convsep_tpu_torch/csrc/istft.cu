@@ -62,10 +62,24 @@
 // signals of 5294 frames its bound is bytes, 106 MB and 0.0317 ms, where the
 // direct sum below did 2.1e10 complex products.
 //
-// Even sizes past 8192 off the split (10 000, 12 288) take a direct
-// O(nfft) sum per output sample in one 512-thread block, a pair of frames
-// at a time (no preset uses one), with the host's float64-made table of
-// e^{-2 pi i m / nfft}; istft_direct_pallas forces it at any even size.
+// istft_cluster_kernel (even 8192 < nfft <= 32 768: 10 000, 20 000; no
+// preset uses one) is Bluestein run backwards on a thread-block cluster of
+// 4 or 8 blocks (fft_common.cuh::istft_cluster_block, the forward kernel's
+// ClusterChirp): a cluster owns R hop rows of a signal and walks them one
+// pair of frames a round, each block loading its first stage's points
+// straight from the spectrum rows; in the gather each block owns 1/C of
+// every hop row's columns and their carry, and reads each frame sample
+// across the cluster through distributed shared memory as it adds it. A
+// signal of 532 frames (W 10 000, hop 2500) gives few clusters, so
+// fft_plan.istft_cluster_plan weighs waves against rounds. Its bound is
+// bytes: 26.6 MB, 7.9 us, at W 10 000 for one signal of 532 frames.
+//
+// istft_direct_kernel, a direct O(nfft) sum per output sample in one
+// 512-thread block, a pair of frames at a time, with the host's
+// float64-made table of e^{-2 pi i m / nfft}, serves no size of the
+// wrapper now: its table and spectrum fit shared memory only up to 12 800
+// points, so fft_plan.istft_plan refuses even sizes past 32 768;
+// istft_direct_pallas forces it at any even size up to there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,8 +141,7 @@ __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
   }
 }
 
-// nfft even past 8192 that neither the core nor its split takes (and any
-// even size through istft_direct_pallas): z[t] = sum_k Z[k]
+// any even size up to 12 800 through istft_direct_pallas: z[t] = sum_k Z[k]
 // e^{+2 pi i k t / N} per sample, a pair of frames at a time, accumulated in
 // shared memory over the block's R hop rows.
 __global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
@@ -306,6 +319,53 @@ cudaError_t dispatch_bluestein(int log2m, const BluesteinArgs& a) {
   }
 }
 
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads) istft_cluster_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, const float2* __restrict__ chirp,
+    const float2* __restrict__ chat, void* __restrict__ out, int out_int16, int nf, int nfft,
+    int win, int hop, int length, int rounds, int rows, int per_signal) {
+  extern __shared__ float4 smem4[];
+  istft_cluster_block<kMaxLog2, C>(smem4, re, im, win_over_n, inv_norm, tw, chirp, chat, out,
+                                   out_int16, nf, nfft, win, hop, length, rounds, rows,
+                                   per_signal);
+}
+
+// clusters of C blocks, each owning `rows` hop rows of a signal, the blocks
+// of a cluster consecutive in x; with `active`, launches nothing and sets
+// how many such clusters the card holds at once
+template <int C>
+cudaError_t launch_cluster(const BluesteinArgs& a, int* active = nullptr) {
+  const int k = a.win / a.hop;
+  const int rows = 2 * a.rounds - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
+  const size_t smem = cluster_smem_bytes(kMaxLog2, (k - 1) * cluster_columns(a.hop, C));
+  auto kern = istft_cluster_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)a.nt * per_signal * C));
+  cfg.blockDim = dim3(fft_threads(kMaxLog2));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr) return cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kern, a.re, a.im, a.wn, a.inv, a.tw, a.chirp,
+                           a.chat, a.out, a.out_int16, a.nf, a.nfft, a.win, a.hop, a.length,
+                           a.rounds, rows, per_signal);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
@@ -390,7 +450,8 @@ extern "C" int istft_bluestein_launch(const void* re, const void* im, const void
                                       int rounds, void* stream) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
   const int t = log2m ? bluestein_threads(log2m) : 0;
-  if (!log2m || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 ||
+  if (!log2m || log2m > kLevelLog2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 ||
+      win % hop != 0 || nt < 1 ||
       nf < 1 || rounds < 1 || groups < 1 || groups * t > kMaxThreads || groups * t % 32 != 0 ||
       (t > 32 && groups > 8))
     return (int)cudaErrorInvalidValue;
@@ -405,4 +466,46 @@ extern "C" int istft_bluestein_launch(const void* re, const void* im, const void
                         out_int16, nt, nf, nfft, win, hop, length, groups, rounds,
                         static_cast<cudaStream_t>(stream)};
   return (int)dispatch_bluestein(log2m, a);
+}
+
+// The cluster route: even 8192 < nfft <= 32 768 (M 32 768 or 65 536: a
+// cluster of 4 or 8 blocks of 512 threads, one pair of frames a round);
+// tw the M-point quarter table (fft_plan.twiddles), chirp (nfft) and chat
+// (M) from fft_plan.bluestein_tables; rounds from fft_plan.istft_plan
+// (istft_cluster_plan).
+extern "C" int istft_cluster_launch(const void* re, const void* im, const void* win_over_n,
+                                    const void* inv_norm, const void* tw, const void* chirp,
+                                    const void* chat, void* out, int out_int16, int nt, int nf,
+                                    int nfft, int win, int hop, int length, int rounds,
+                                    void* stream) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  if (log2m <= kLevelLog2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 ||
+      win % hop != 0 || nt < 1 || nf < 1 || rounds < 1)
+    return (int)cudaErrorInvalidValue;
+  const BluesteinArgs a{static_cast<const float*>(re),
+                        static_cast<const float*>(im),
+                        static_cast<const float*>(win_over_n),
+                        static_cast<const float*>(inv_norm),
+                        static_cast<const float2*>(tw),
+                        static_cast<const float2*>(chirp),
+                        static_cast<const float2*>(chat),
+                        out,
+                        out_int16, nt, nf, nfft, win, hop, length, 1, rounds,
+                        static_cast<cudaStream_t>(stream)};
+  return (int)(log2m == kLevelLog2 + 1 ? launch_cluster<4>(a) : launch_cluster<8>(a));
+}
+
+// How many clusters of istft_cluster_kernel a launch at (nfft, win, hop)
+// finds room for at once (cudaOccupancyMaxActiveClusters: one block an SM,
+// the clusters' blocks within one GPC); fft_plan.CLUSTERS_AT_ONCE is this
+// reading. Launches nothing.
+extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int* active) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  if (log2m <= kLevelLog2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || !active)
+    return (int)cudaErrorInvalidValue;
+  const int k = win / hop;
+  const BluesteinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        0, 1, 1, nfft, win, hop, 1, 1, k, nullptr};
+  return (int)(log2m == kLevelLog2 + 1 ? launch_cluster<4>(a, active)
+                                       : launch_cluster<8>(a, active));
 }

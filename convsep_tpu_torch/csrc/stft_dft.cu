@@ -1,8 +1,9 @@
 // The STFT of the training step and the fft_impl="pallas" separation route,
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
 // (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
-// {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 8192), and the
-// dense DFT (stft_dft_kernel) for the sizes past those.
+// {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 8192,
+// stft_cluster_kernel past 8192 up to 32 768), and the dense DFT
+// (stft_dft_kernel) for the sizes past those.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
 // signal b, frame f and bin c < nfft / 2 + 1:
@@ -63,8 +64,24 @@
 // are written coalesced by bin; the two transforms' points cross threads
 // only in shared memory, behind each group's own barriers.
 //
-// stft_dft_kernel (the sizes past those: nfft > 8192 off the split; and
-// any nfft through stft_dft_pallas) multiplies frames built from
+// stft_cluster_kernel (8192 < nfft <= 32 768: 12 288, 20 000, odd sizes;
+// no preset uses one) is Bluestein over a thread-block cluster
+// (fft_common.cuh::stft_cluster_block): M = 32 768 or 65 536 points no
+// longer fit one block's 227 KB, so a cluster of C = M / 8192 blocks (4 or
+// 8, the portable limit) holds them, each block one 512-thread group
+// running the core's 8192-point transform on its part in 87 KB of shared
+// memory. The forward transform is decimation in frequency with its radix-C
+// first stage fed straight from the frames in global memory, so its output
+// Y[C k + r] is already in block r; the product with the chirp spectrum is
+// in place; the inverse is decimation in time over each block's own points,
+// and its radix-C combine is read through distributed shared memory where
+// it is consumed (by the bins' writers): one exchange a transform pair,
+// one cluster barrier before it and one before the blocks exit. At W 12
+// 288, hop 3072, B 32 (7 frames x 6145 bins) the bound is bytes, 12.8 MB
+// and 3.8 us, where the dense kernel below reads 604 MB of matrices.
+//
+// stft_dft_kernel (the sizes past those: nfft > 32 768; and any nfft
+// through stft_dft_pallas) multiplies frames built from
 // hop rows staged in shared memory by the (W, bins) window-folded cos / -sin
 // matrices: a block owns 32 frames x 64 bins of one signal and every thread
 // accumulates 2 frames x 4 bins of re and of im in registers.
@@ -174,6 +191,45 @@ cudaError_t launch_bluestein(const float* x, const float* win, const float2* tw,
   stft_bluestein_kernel<LOG2M><<<(unsigned)blocks, ffts * bluestein_threads(LOG2M), smem,
                                  stream>>>(
       x, win, tw, chirp, chat, re, im, L, W, hop, nf, nfft);
+  return cudaGetLastError();
+}
+
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads) stft_cluster_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ chat, float* __restrict__ re,
+    float* __restrict__ im, int L, int W, int hop, int nf, int nfft) {
+  extern __shared__ float4 smem4[];
+  stft_cluster_block<kMaxLog2, C>(smem4, x, win, tw, chirp, chat, L, W, hop, nf, nfft,
+                                  FullRows{re, im, nfft / 2 + 1});
+}
+
+// one cluster of C blocks a pair of frames, the blocks of a cluster
+// consecutive in x
+template <int C>
+cudaError_t launch_cluster(const float* x, const float* win, const float2* tw,
+                           const float2* chirp, const float2* chat, float* re, float* im, int B,
+                           int L, int W, int hop, int nf, int nfft, cudaStream_t stream) {
+  const size_t smem = cluster_smem_bytes(kMaxLog2, 0);
+  auto kern = stft_cluster_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)B * ((nf + 1) / 2) * C));
+  cfg.blockDim = dim3(fft_threads(kMaxLog2));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, x, win, tw, chirp, chat, re, im, L, W,
+                           hop, nf, nfft);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -340,6 +396,7 @@ extern "C" int stft_bluestein_launch(const void* x, const void* win, const void*
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
   const int t = log2m ? bluestein_threads(log2m) : 0;
   if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !log2m ||
+      log2m > kLevelLog2 ||
       ffts < 1 || ffts * t > kMaxThreads || ffts * t % 32 != 0 || (t > 32 && ffts > 8))
     return (int)cudaErrorInvalidValue;
   const auto* xs = static_cast<const float*>(x);
@@ -359,6 +416,30 @@ extern "C" int stft_bluestein_launch(const void* x, const void* win, const void*
       return (int)launch_bluestein<kLevelLog2>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft,
                                                ffts, s);
   }
+}
+
+// The cluster route: 8192 < nfft <= 32 768 (M = 2^ceil(log2(2 nfft - 1)),
+// 32 768 or 65 536: a cluster of 4 or 8 blocks of 512 threads a pair of
+// frames, fft_plan.cluster_plan), W <= nfft, chirp (nfft) and chat (M) from
+// fft_plan.bluestein_tables, tw the M-point quarter table.
+extern "C" int stft_cluster_launch(const void* x, const void* win, const void* tw,
+                                   const void* chirp, const void* chat, void* re, void* im, int B,
+                                   int L, int W, int hop, int nf, int nfft, void* stream) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 ||
+      log2m <= kLevelLog2)
+    return (int)cudaErrorInvalidValue;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const float*>(win);
+  const auto* tws = static_cast<const float2*>(tw);
+  const auto* cc = static_cast<const float2*>(chirp);
+  const auto* ch = static_cast<const float2*>(chat);
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (log2m == kLevelLog2 + 1)
+    return (int)launch_cluster<4>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
+  return (int)launch_cluster<8>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
 }
 
 // The dense route: any nfft >= W (the wrapper sends it only what none of

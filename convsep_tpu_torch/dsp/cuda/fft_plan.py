@@ -22,13 +22,18 @@ launch. Any other size up to 8192 takes Bluestein's chirp-z over the core
 2^⌈log2(2N − 1)⌉ (:func:`bluestein_size`), and the chirp tables of
 :func:`bluestein_tables`; :func:`bluestein_plan` sizes the launch. Past 4096
 points M is 16 384, the level (``Level``): one group of 512 threads runs
-two 8192-point transforms of the core and a radix-2 stage.
+two 8192-point transforms of the core and a radix-2 stage. Past 8192
+points, up to :data:`CLUSTER_NFFT`, M is 32 768 or 65 536 and its points
+live across a thread-block cluster of M / 8192 blocks (``ClusterChirp``,
+``stft_cluster_block``), each running the core's 8192-point transform on
+its part; :func:`cluster_plan` sizes that launch.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
 and overlap-add them by a gather, at the split's sizes on the split run
-backwards, at the other even sizes up to 8192 on Bluestein run backwards;
-:func:`istft_plan` sizes all three. The
+backwards, at the other even sizes up to 8192 on Bluestein run backwards,
+past 8192 on the cluster run backwards (:func:`istft_cluster_plan`);
+:func:`istft_plan` sizes all four. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it.
@@ -52,7 +57,9 @@ MAX_THREADS = 512        # fft_common::kMaxThreads
 POINTS = 16              # complex points a thread holds
 MAX_NAMED_GROUPS = 8     # groups per block that synchronize on named barriers
 MIN_NFFT, MAX_NFFT = 2 ** 4, 2 ** 13
-LEVEL_NFFT = 2 ** 14     # the level: Bluestein's largest convolution (fft_common.cuh::Level)
+LEVEL_NFFT = 2 ** 14     # the level: Bluestein's largest convolution on one block (fft_common.cuh::Level)
+CLUSTER_PART = 2 ** 13   # the points of one block of a cluster: the core's transform
+CLUSTER_NFFT = 2 ** 15   # the cluster's largest nfft: M 65 536 on 8 blocks (the portable limit)
 SPLIT_ODD = (3, 5, 9, 15)  # the split's odd factors: its m-point DFTs (radix 3 and 5)
 SM_SMEM = 228 * 1024     # shared memory of one SM
 BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
@@ -101,6 +108,61 @@ def bluestein_supported(nfft: int) -> bool:
     and neither by its own passes nor by the split."""
     return (2 <= nfft and bluestein_size(nfft) <= LEVEL_NFFT and not fft_supported(nfft)
             and not split_supported(nfft))
+
+
+def cluster_supported(nfft: int) -> bool:
+    """A size past 8192 that Bluestein takes on a thread-block cluster: M =
+    :func:`bluestein_size` is 32 768 (nfft up to 16 384, 4 blocks) or 65
+    536 (up to :data:`CLUSTER_NFFT`, 8 blocks)."""
+    return MAX_NFFT < nfft <= CLUSTER_NFFT
+
+
+def cluster_blocks(nfft: int) -> int:
+    """Blocks of one cluster transform: M / 8192 (``ClusterChirp``'s C)."""
+    return bluestein_size(nfft) // CLUSTER_PART
+
+
+def cluster_smem_bytes(carry: int = 0) -> int:
+    """Dynamic shared memory of a cluster's block: the 8192-point quarter
+    table, one 8192-point exchange buffer and ``carry`` floats (the
+    inverse's carry of its columns) (``fft_common.cuh::cluster_smem_bytes``:
+    87 040 bytes without a carry)."""
+    return 8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)) + 4 * carry
+
+
+# Clusters of 4 and of 8 blocks an H100 SXM holds at once: one block an SM
+# (512 threads at 128 registers take an SM's 65 536), a cluster's blocks in
+# one GPC, which leaves 12 of the 132 SMs idle (cudaOccupancyMaxActiveClusters
+# through csrc/istft.cu::istft_cluster_occupancy; tests/test_torch_cuda.py
+# holds the card to it).
+CLUSTERS_AT_ONCE = {4: 30, 8: 15}
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    nfft: int
+    m: int                # the convolution's power-of-two length: 32 768 or 65 536
+    cluster: int          # blocks of a cluster: M / 8192
+    threads: int          # per block: 512, one core transform
+    clusters: int         # one a pair of frames
+    blocks: int
+    smem_bytes: int
+
+
+@lru_cache(maxsize=64)
+def cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> ClusterPlan:
+    """The forward cluster kernel's launch, as ``csrc/stft_dft.cu::
+    stft_cluster_launch`` computes it: a cluster of M / 8192 blocks of 512
+    threads a pair of frames, its blocks consecutive in the grid, each
+    block's shared memory :func:`cluster_smem_bytes` (the frames are read
+    from global memory)."""
+    if not cluster_supported(nfft) or win > nfft:
+        raise ValueError(f"no cluster plan for nfft={nfft}: past {MAX_NFFT}, at most "
+                         f"{CLUSTER_NFFT}, and at least the window")
+    c = cluster_blocks(nfft)
+    clusters = signals * -(-nf // 2)
+    return ClusterPlan(nfft, bluestein_size(nfft), c, threads_per_fft(CLUSTER_PART), clusters,
+                       clusters * c, cluster_smem_bytes())
 
 
 def bluestein_threads(m: int) -> int:
@@ -315,6 +377,7 @@ class IstftPlan:
     blocks_per_sm: int    # by shared memory and threads
     halo: float           # recomputed share of the transforms: (win/hop − 1) / rows
     note: str             # why a block has an SM to itself, where it does
+    cluster: int = 1      # blocks of a cluster that share one transform (1: none)
 
 
 @lru_cache(maxsize=64)
@@ -334,8 +397,11 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     ``istft_bluestein_launch``): the fewest groups of
     :func:`bluestein_threads` that make the block whole warps, as
     :func:`bluestein_plan`, one on the level, the rounds by the same rule.
+    Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`.
     Other sizes: the direct sum, up to 16 hop rows per block. A plan that
     does not fit shared memory raises ``ValueError``."""
+    if cluster_supported(nfft):
+        return istft_cluster_plan(signals, nf, nfft, win, hop)
     k = win // hop
     split = split_factors(nfft)
     blue = not (fft_supported(nfft) or split) and bluestein_supported(nfft)
@@ -374,12 +440,47 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     return next((p for p in plans if p.blocks >= 2 * SMS), plans[-1])
 
 
+@lru_cache(maxsize=64)
+def istft_cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
+    """The inverse cluster kernel's launch, as ``csrc/istft.cu::
+    istft_cluster_launch`` computes it: a cluster of C = M / 8192 blocks of
+    512 threads owns R hop rows of a signal and transforms one pair of
+    frames a round, R = 2 · rounds − (k − 1), k = win/hop; each block
+    gathers its 1/C of every row's columns and keeps their carry. A
+    signal of few frames gives few clusters, and the 3/16 halo rule of
+    :func:`istft_plan` would spill two of its 32 clusters of 4 (W 10 000,
+    hop 2500, 532 frames) into a second wave, so the rounds are weighed as
+    :func:`wiener_plan` weighs them: over every rounds with R >= 1, up to
+    one row range a signal or ``MAX_ROUNDS``, the least waves × rounds
+    (:data:`CLUSTERS_AT_ONCE` a wave), ties to fewer transforms."""
+    if not cluster_supported(nfft) or nfft % 2 or win > nfft:
+        raise ValueError(f"no iSTFT cluster plan for nfft={nfft}: even, past {MAX_NFFT}, at "
+                         f"most {CLUSTER_NFFT}, and at least the window")
+    k = win // hop
+    c = cluster_blocks(nfft)
+    total_rows = nf + k - 1
+    smem = cluster_smem_bytes((k - 1) * -(-hop // c))  # at most 116 KB: win/hop <= 9
+    fewest = -(-k // 2)  # the fewest rounds with R >= 1
+    best = None
+    for rounds in range(fewest, max(fewest, min(-(-(total_rows + k - 1) // 2), MAX_ROUNDS)) + 1):
+        rows = 2 * rounds - (k - 1)
+        per = -(-total_rows // rows)
+        waves = -(-signals * per // CLUSTERS_AT_ONCE[c])
+        key = (waves * rounds, signals * per * rounds)
+        if best is None or key < best[0]:
+            best = (key, IstftPlan(nfft, 1, threads_per_fft(CLUSTER_PART), rounds, rows, per,
+                                   signals * per * c, smem, 1, (k - 1) / rows,
+                                   "one block per SM: 512 threads at 128 registers", c))
+    return best[1]
+
+
 @lru_cache(maxsize=16)
 def istft_direct_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
     """The direct sum's launch (``istft_launch`` with groups 0): one
     512-thread block a range of up to 16 hop rows, the e^{−2πi m/N} table,
     the spectrum and the rows' accumulators in shared memory. :func:`istft_plan`
-    takes it for even sizes past 8192 off the split; ``istft_direct_pallas``
+    takes it for even sizes past the cluster's 32 768 (where its table and
+    spectrum no longer fit: it refuses them); ``istft_direct_pallas``
     forces it at any even size."""
     k = win // hop
     rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (4 * hop))
@@ -506,7 +607,9 @@ def bluestein_tables(nfft: int, device: str) -> tuple[torch.Tensor, torch.Tensor
     once per (nfft, device): c_t = e^{iπ t²/nfft}, its angle π ((t² mod 2
     nfft) / nfft) from the integer t², so the phase is exact before the one
     rounding to float32; Ĉ the M-point FFT of the wrapped chirp (c_n at n <
-    nfft and at M − n, 0 < n < nfft), in float64."""
+    nfft and at M − n, 0 < n < nfft), in float64. Any nfft: up to 8192 for
+    the one-block kernels, up to :data:`CLUSTER_NFFT` (M 65 536) for the
+    cluster's."""
     m = bluestein_size(nfft)
     t = np.arange(nfft, dtype=np.int64)
     c = np.exp(1j * np.pi * ((t * t) % (2 * nfft)) / nfft)

@@ -12,10 +12,13 @@ reference's contract and calls :func:`launch_istft`, which takes the FFT
 kernel for powers of two 16–8192 (counted as ``LAUNCHES["istft"]``), the
 split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
 ``LAUNCHES["istft_split"]``), Bluestein run backwards for the other even
-sizes up to 8192 (``LAUNCHES["istft_bluestein"]``) and a direct sum per
-sample past that (``LAUNCHES["istft_direct"]``); :func:`istft_direct_pallas`
-forces the direct sum at any even size, to hold and time it. The kernels'
-header says what bounds them on the H100.
+sizes up to 8192 (``LAUNCHES["istft_bluestein"]``) and Bluestein over a
+thread-block cluster run backwards past 8192, up to 32 768
+(``LAUNCHES["istft_cluster"]``); past that it refuses, as the direct sum
+per sample (``LAUNCHES["istft_direct"]``) fits shared memory only up to
+12 800 points. :func:`istft_direct_pallas` forces the direct sum at any
+even size up to there, to hold and time it. The kernels' header says what
+bounds them on the H100.
 
 The wrappers take their plain version only for CPU tensors. For CUDA
 tensors they launch the kernel or raise: there is no fallback.
@@ -33,6 +36,7 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_size,
     bluestein_supported,
     bluestein_tables,
+    cluster_supported,
     dft_table,
     fft_supported,
     istft_direct_plan,
@@ -50,8 +54,9 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
     within shared memory. Powers of two from 16 to 8192 run on the FFT core,
     m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split, the other
-    even sizes up to 8192 on Bluestein run backwards; past 8192 a direct sum
-    per sample."""
+    even sizes up to 8192 on Bluestein run backwards, up to 32 768 on
+    Bluestein over a thread-block cluster; past that none (the direct sum
+    per sample fits shared memory only up to 12 800 points)."""
     if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
         return False
     try:
@@ -99,6 +104,8 @@ def launch_istft(
         name = "istft_direct"
     elif fft_supported(nfft):
         name = "istft"
+    elif cluster_supported(nfft):
+        name = "istft_cluster"
     else:
         name = "istft_bluestein" if bluestein_supported(nfft) else "istft_split"
     int16 = output_dtype == "int16"
@@ -120,6 +127,14 @@ def launch_istft(
                 twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
                 chat.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
                 plan.groups, plan.rounds, stream,
+            )
+        elif name == "istft_cluster":
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.istft_cluster_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
+                chat.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+                plan.rounds, stream,
             )
         else:
             tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
@@ -176,7 +191,8 @@ def istft_direct_pallas(
 ) -> torch.Tensor:
     """:func:`istft_pallas` through the direct sum at any even nfft that is
     not a power of two (CUDA tensors), so that it can be held to the plain
-    version and timed beside the split and Bluestein kernels at their sizes
+    version and timed beside the split, Bluestein and cluster kernels at
+    their sizes
     (PCM16: ``launch_istft(..., direct=True)``). CPU tensors: the plain
     version."""
     return _istft(re, im, window, hop, length, nfft, direct=True)

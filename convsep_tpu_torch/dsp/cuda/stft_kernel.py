@@ -18,14 +18,19 @@ wrapper dispatches on the shape:
   over the core (:func:`.fft_plan.bluestein_plan`, the chirp tables of
   :func:`.fft_plan.bluestein_tables`), counted as
   ``LAUNCHES["stft_bluestein"]``;
-* the rest (past 8192 off the core, as 12 288): the dense DFT kernel over
-  the window-folded cos / -sin matrices of :func:`_forward_mats`, counted
-  as ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any
-  size, to hold and time it.
+* past 8192, up to 32 768 (12 288, 20 000, odd sizes): Bluestein over a
+  thread-block cluster of the core (:func:`.fft_plan.cluster_plan`: M /
+  8192 blocks a pair of frames, M 32 768 or 65 536), counted as
+  ``LAUNCHES["stft_cluster"]``;
+* the rest (past 32 768): the dense DFT kernel over the window-folded
+  cos / -sin matrices of :func:`_forward_mats`, counted as
+  ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any size,
+  to hold and time it.
 
-All keep the (frames × W) array out of device memory (the level reads its
-frames from global memory into registers, the others stage them in shared
-memory); the file's header says what bounds them on the H100.
+All keep the (frames × W) array out of device memory (the level and the
+cluster read their frames from global memory into registers, the others
+stage them in shared memory); the file's header says what bounds them on
+the H100.
 
 The contract is the reference's: (L,) or (B, L) signals, ``win % hop ==
 0``, the W//2 front pad and tail pad of :func:`_pad_signal`, and
@@ -43,6 +48,8 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_plan,
     bluestein_supported,
     bluestein_tables,
+    cluster_plan,
+    cluster_supported,
     fft_supported,
     split_plan,
     split_supported,
@@ -80,8 +87,9 @@ def stft_pallas(
     CPU tensors: :func:`stft_pallas_plain`. CUDA tensors: the FFT kernel
     where :func:`fft_supported`, the split kernel where
     :func:`split_supported`, the Bluestein kernel where
-    :func:`bluestein_supported`, else the dense DFT kernel. A failed build
-    or launch raises."""
+    :func:`bluestein_supported`, the cluster kernel where
+    :func:`cluster_supported`, else the dense DFT kernel. A failed build or
+    launch raises."""
     return _stft(signal, window, hop, nfft, dense=False)
 
 
@@ -123,8 +131,10 @@ def _stft(signal, window, hop, nfft, dense: bool):
             name = "stft"
         elif split_supported(nfft):
             name = "stft_split"
+        elif bluestein_supported(nfft):
+            name = "stft_bluestein"
         else:
-            name = "stft_bluestein" if bluestein_supported(nfft) else "stft_dft"
+            name = "stft_cluster" if cluster_supported(nfft) else "stft_dft"
         if name == "stft":
             plan = stft_plan(B, nf, nfft, win_len, hop)
             code = lib.stft_fft_launch(
@@ -148,6 +158,14 @@ def _stft(signal, window, hop, nfft, dense: bool):
                 twiddles(plan.m, where).data_ptr(), chirp.data_ptr(), chat.data_ptr(),
                 re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft,
                 plan.ffts_per_block, stream,
+            )
+        elif name == "stft_cluster":
+            plan = cluster_plan(B, nf, nfft, win_len, hop)
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.stft_cluster_launch(
+                x.data_ptr(), window_f32(window, where).data_ptr(),
+                twiddles(plan.m, where).data_ptr(), chirp.data_ptr(), chat.data_ptr(),
+                re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft, stream,
             )
         else:
             cos_m, sin_m = _forward_mats(nfft, _key(window), where)

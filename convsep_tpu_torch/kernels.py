@@ -45,8 +45,9 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
-    "stft_bluestein": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0, "istft_split": 0,
-    "istft_bluestein": 0, "istft_direct": 0, "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
+    "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
+    "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_direct": 0,
+    "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
 }
 
 _lock = threading.Lock()
@@ -74,6 +75,8 @@ _SIGNATURES = {
     "stft_split_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, chirp, chat, re, im, B, L, W, hop, nf, nfft, ffts_per_block, stream
     "stft_bluestein_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, chirp, chat, re, im, B, L, W, hop, nf, nfft, stream
+    "stft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
     # re, im, win_over_n, inv_norm, tw, out, out_int16, nt, nf, nfft, win, hop,
@@ -86,6 +89,12 @@ _SIGNATURES = {
     # nfft, win, hop, length, groups, rounds, stream
     "istft_bluestein_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P),
+    # re, im, win_over_n, inv_norm, tw, chirp, chat, out, out_int16, nt, nf,
+    # nfft, win, hop, length, rounds, stream
+    "istft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
+    # nfft, win, hop, active (1 int out)
+    "istft_cluster_occupancy": (_I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
     # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream

@@ -1,0 +1,58 @@
+"""The STFT and iSTFT past 8192 points, port against reference, on CPU: the
+port's ``stft_pallas`` and ``istft_pallas`` (their plain versions, as CPU
+tensors take; on a card these sizes run Bluestein on a thread-block
+cluster, ``stft_cluster`` / ``istft_cluster``) against the JAX package's
+``stft_pallas`` and ``istft_pallas`` in Pallas interpret mode, on the same
+numpy inputs.
+
+Tolerances: spectra 1e-5 × the peak magnitude (float32 sums of an
+8000-long DFT in another order), signals 2e-5 × the peak sample (the
+inverse's sums of 4000 bins, then the overlap-add)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convsep_tpu.dsp.pallas import stft_pallas as jax_stft_pallas
+from convsep_tpu.dsp.pallas.istft_kernel import istft_pallas as jax_istft_pallas
+from convsep_tpu.dsp.windows import sinebell
+from convsep_tpu_torch.dsp.cuda.fft_plan import cluster_blocks, cluster_supported
+from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
+from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
+
+
+@pytest.mark.parametrize("nfft,hop,lead,length", [
+    (8200, 2050, (2,), 9000),   # M 32 768: a cluster of 4
+    (8193, 8193, (), 12000),    # odd, the cluster's smallest size
+    (8448, 2816, (2,), 9000),   # 33 · 256
+])
+def test_stft_past_8192_matches_jax(rng, nfft, hop, lead, length):
+    assert cluster_supported(nfft) and cluster_blocks(nfft) == 4
+    x = (0.3 * rng.standard_normal((*lead, length))).astype(np.float32)
+    w = sinebell(nfft)
+    re_j, im_j = (np.asarray(a) for a in jax_stft_pallas(jnp.asarray(x), w, hop,
+                                                         interpret=True))
+    re_t, im_t = stft_pallas(torch.from_numpy(x), w, hop)
+    assert re_t.shape == re_j.shape == (*lead, -(-length // hop) + 2, nfft // 2 + 1)
+    peak = max(np.abs(re_j).max(), np.abs(im_j).max())
+    np.testing.assert_allclose(re_t.numpy(), re_j, atol=1e-5 * peak, rtol=0)
+    np.testing.assert_allclose(im_t.numpy(), im_j, atol=1e-5 * peak, rtol=0)
+
+
+def test_istft_past_8192_matches_jax(rng):
+    """W 8448 = 33 · 256, hop 2816: the reference kernel's large path takes
+    a window and hop in whole 256-sample blocks; the port's kernel takes it
+    on a cluster of 4 blocks."""
+    nfft, hop, length = 8448, 2816, 12000
+    assert cluster_supported(nfft) and cluster_blocks(nfft) == 4
+    w = sinebell(nfft)
+    x = (0.3 * rng.standard_normal((2, length))).astype(np.float32)
+    re, im = (np.asarray(a) for a in jax_stft_pallas(jnp.asarray(x), w, hop, interpret=True))
+    mask = rng.uniform(0.0, 1.0, re.shape).astype(np.float32)
+    re, im = re * mask, im * mask
+    want = np.asarray(jax_istft_pallas(jnp.asarray(re), jnp.asarray(im), w, hop, length,
+                                       interpret=True))
+    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
+    assert got.shape == want.shape == (2, length)
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(), rtol=0)

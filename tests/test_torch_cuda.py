@@ -216,8 +216,9 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
     launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0,
-                "stft_bluestein": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
-                "istft_split": 0, "istft_bluestein": 0, "istft_direct": 0, "wiener_apply": 0,
+                "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0,
+                "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
+                "istft_direct": 0, "wiener_apply": 0,
                 "wiener_istft_ny": 0, "ct_stft": 0,
                 "band_decode": 0}
     assert kernels.LAUNCHES == launched
@@ -266,23 +267,21 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
         (4097, 241, 2, 9001),     # the level's smallest size
         (8190, 2730, 2, 30000),   # and its largest even one
         (8191, 8191, 1, 20000),   # odd
-        (12288, 3072, 1, 30000),  # 3 · 4096, past 8192: the dense DFT kernel
+        (12288, 3072, 1, 30000),  # 3 · 4096, past 8192: Bluestein on a cluster of 4
     ],
 )
 def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     """Powers of two launch the FFT kernel ("stft"), m · 2^a (m 3, 5, 9,
     15) the split kernel ("stft_split"), other sizes up to 8192 Bluestein
-    ("stft_bluestein"; past 4096 on the level), the rest the dense DFT
-    kernel ("stft_dft"), each exactly once and no other."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import bluestein_supported, split_supported
-
+    ("stft_bluestein"; past 4096 on the level), past 8192 up to 32 768
+    Bluestein on a cluster ("stft_cluster"), each exactly once and no
+    other."""
+    used = _stft_name(nfft)
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
-    used = ("stft" if nfft & (nfft - 1) == 0 else "stft_split" if split_supported(nfft)
-            else "stft_bluestein" if bluestein_supported(nfft) else "stft_dft")
     assert used != "stft_split" or nfft in (768, 1536, 1280, 3072, 2304, 48, 240, 6144)
-    assert (used == "stft_dft") == (nfft > 8192)
-    names = ("stft", "stft_split", "stft_bluestein", "stft_dft")
+    assert (used == "stft_cluster") == (nfft > 8192)
+    names = STFT_NAMES
     before = dict(kernels.LAUNCHES)
     re, im = stft_pallas(x, w, hop)
     torch.cuda.synchronize()
@@ -296,6 +295,46 @@ def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     r1, i1 = stft_pallas(x[0], w, hop)  # unbatched
     torch.testing.assert_close(r1, re[0], atol=0, rtol=0)
     torch.testing.assert_close(i1, im[0], atol=0, rtol=0)
+
+
+STFT_NAMES = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_dft")
+
+
+def _stft_name(nfft: int) -> str:
+    """The STFT kernel stft_pallas takes at nfft."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import (bluestein_supported, cluster_supported,
+                                                     split_supported)
+
+    return ("stft" if nfft & (nfft - 1) == 0 and nfft <= 8192 else "stft_split"
+            if split_supported(nfft) else "stft_bluestein" if bluestein_supported(nfft)
+            else "stft_cluster" if cluster_supported(nfft) else "stft_dft")
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length", [
+    (8193, 8193, 2731, 2, 30000),     # the cluster's smallest size, odd: C 4
+    (10000, 10000, 2500, 2, 30000),
+    (12288, 12288, 3072, 32, 14336),  # the smoke's shape
+    (16384, 16384, 4096, 2, 40000),   # C 4's largest: M 32 768
+    (20000, 20000, 5000, 3, 50000),   # C 8: M 65 536
+    (20000, 16000, 4000, 1, 30000),   # nfft past the window
+    (32768, 16384, 4096, 1, 40000),   # C 8's largest (a half window keeps the plain tables small)
+])
+def test_cluster_stft_kernel_matches_plain(rng, cuda, nfft, win, hop, B, length):
+    """Bluestein on a thread-block cluster (M 32 768 on 4 blocks, 65 536 on
+    8) against the plain STFT within 1e-5 × max|X|: one "stft_cluster"
+    launch and no other STFT kernel."""
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
+    w = sinebell(win)
+    before = dict(kernels.LAUNCHES)
+    re, im = stft_pallas(x, w, hop, nfft)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in STFT_NAMES} == {
+        k: int(k == "stft_cluster") for k in STFT_NAMES}
+    re_p, im_p = stft_pallas_plain(x, w, hop, nfft)
+    assert re.shape == re_p.shape == (B, -(-length // hop) + 2, nfft // 2 + 1)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
 
 
 @pytest.mark.parametrize("nfft,hop", [(768, 256), (1280, 320)])
@@ -315,15 +354,16 @@ def test_dense_stft_kernel_forced_at_split_sizes(rng, cuda, nfft, hop):
         torch.testing.assert_close(im, im_p, atol=1e-5 * peak, rtol=0)
 
 
-@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1001, 143), (6000, 1500)])
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (1001, 143), (6000, 1500), (12288, 3072)])
 def test_dense_stft_kernel_forced_at_bluestein_sizes(rng, cuda, nfft, hop):
     """stft_dft_pallas runs the dense kernel where the wrapper takes
-    Bluestein: both held to the plain version, one launch each."""
+    Bluestein, on one block or (12 288) on a cluster: both held to the plain
+    version, one launch each."""
     x = torch.from_numpy((0.3 * rng.standard_normal((2, 14336))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
     re_p, im_p = stft_pallas_plain(x, w, hop)
     peak = max(re_p.abs().max().item(), im_p.abs().max().item())
-    for fn, name in ((stft_dft_pallas, "stft_dft"), (stft_pallas, "stft_bluestein")):
+    for fn, name in ((stft_dft_pallas, "stft_dft"), (stft_pallas, _stft_name(nfft))):
         before = kernels.LAUNCHES[name]
         re, im = fn(x, w, hop)
         torch.cuda.synchronize()
@@ -505,8 +545,8 @@ def test_istft_ct_kernel_matches_plain(rng, cuda, lead, nfft, hop, length, out):
 def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, length):
     """The FFT kernel at powers of two counts as "istft", the split's sizes
     (384 = 3 · 128, 768) as "istft_split", Bluestein (1000; 6000 on the
-    level) as "istft_bluestein", the direct sum past 8192 (10 000) as
-    "istft_direct"."""
+    level) as "istft_bluestein", Bluestein on a cluster past 8192 (10 000)
+    as "istft_cluster"."""
     name = _istft_name(nfft)
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = {k: kernels.LAUNCHES[k] for k in ISTFT_NAMES}
@@ -517,15 +557,41 @@ def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, leng
     _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
 
 
-ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_direct")
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
 
 
 def _istft_name(nfft: int) -> str:
     """The iSTFT kernel launch_istft takes at nfft."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import bluestein_supported, split_supported
+    from convsep_tpu_torch.dsp.cuda.fft_plan import (bluestein_supported, cluster_supported,
+                                                     split_supported)
 
-    return ("istft" if nfft & (nfft - 1) == 0 else "istft_split" if split_supported(nfft)
-            else "istft_bluestein" if bluestein_supported(nfft) else "istft_direct")
+    return ("istft" if nfft & (nfft - 1) == 0 and nfft <= 8192 else "istft_split"
+            if split_supported(nfft) else "istft_bluestein" if bluestein_supported(nfft)
+            else "istft_cluster" if cluster_supported(nfft) else "istft_direct")
+
+
+@pytest.mark.parametrize("nfft,win,hop,lead,length", [
+    (8194, 8194, 4097, (2,), 40000),    # the cluster's smallest even size: C 4
+    (10000, 10000, 2500, (1,), 60000),  # the smoke's W and hop, a part of the track
+    (12288, 12288, 3072, (2,), 50000),
+    (16384, 16384, 2048, (1,), 60000),  # C 4's largest, k 8
+    (20000, 20000, 5000, (3,), 80000),  # C 8
+    (20000, 16000, 4000, (1,), 50000),  # nfft past the window
+    (32768, 16384, 4096, (1,), 60000),  # C 8's largest (a half window keeps the plain tables small)
+])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_cluster_istft_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
+    """Bluestein on a thread-block cluster run backwards, float32 within
+    1e-5 and PCM16 within one LSB of the plain synthesis: one
+    "istft_cluster" launch and no other iSTFT kernel."""
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == "istft_cluster") for k in ISTFT_NAMES}
+    _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct",
+                             output_dtype=out), out)
 
 
 @pytest.mark.parametrize("nfft,hop", [(1000, 250), (1792, 448), (4000, 1000), (6000, 1500),
@@ -547,10 +613,28 @@ def test_istft_bluestein_kernel_matches_plain(rng, cuda, nfft, hop, out):
                              output_dtype=out), out)
 
 
-@pytest.mark.parametrize("nfft,hop", [(1000, 250), (768, 256), (6000, 1500)])
+@pytest.mark.parametrize("nfft,win,hop", [(10000, 10000, 2500), (20000, 20000, 5000),
+                                          (16384, 16384, 2048), (32768, 16384, 4096)])
+def test_cluster_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
+    """istft_cluster_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE clusters:
+    the card's own cudaOccupancyMaxActiveClusters for the kernel's launch
+    (on an H100 SXM 30 clusters of 4 and 15 of 8)."""
+    import ctypes
+
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    active = ctypes.c_int(0)
+    kernels.check(kernels.library().istft_cluster_occupancy(nfft, win, hop,
+                                                            ctypes.byref(active)),
+                  "istft_cluster_occupancy")
+    assert active.value == fp.CLUSTERS_AT_ONCE[fp.cluster_blocks(nfft)]
+
+
+@pytest.mark.parametrize("nfft,hop", [(1000, 250), (768, 256), (6000, 1500), (10000, 2500)])
 def test_istft_direct_sum_forced(rng, cuda, nfft, hop):
     """istft_direct_pallas runs the direct sum where the wrapper takes
-    Bluestein or the split; launch_istft(direct=True) its PCM16: both held
+    Bluestein (on a cluster at 10 000) or the split; launch_istft(direct=True)
+    its PCM16: both held
     to the plain version, one "istft_direct" launch each, and the wrapper's
     own kernel beside it."""
     length = 19 * hop + 3
@@ -938,7 +1022,7 @@ def test_fused_decode_tiles(rng, cuda, B, TM, ktaps):
 def test_istft_kernel_every_size(rng, cuda, nfft, out):
     """The iSTFT kernels at every power of two the FFT core takes, at split
     sizes of every m (3, 5, 9, 15; 384 = 3 · 128 among them), at 1000
-    (Bluestein) and at 10 000 (past 8192: the direct sum), win =
+    (Bluestein) and at 10 000 (past 8192: Bluestein on a cluster), win =
     nfft, hop = nfft / 4, float32 within 1e-5 and PCM16 within one LSB of
     the plain synthesis; each counts under its own kernel's name."""
     hop = nfft // 4
@@ -976,6 +1060,10 @@ BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 0, 7: 0, 8: 0, 9: 8, 10: 0, 11: 0, 12:
                            14: 192}
 ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11: 0, 12: 120,
                                  13: 120, 14: 120}
+# the same for Bluestein on a thread-block cluster, by kernel and blocks a
+# cluster (an 8192-point part a block, 128 registers)
+CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
+                         ("istft_cluster_kernel", 4): 192, ("istft_cluster_kernel", 8): 192}
 
 
 # the same for the fused decode kernel's two instances (MI, NI, warps): the
@@ -989,7 +1077,8 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     and iSTFT FFT-kernel, inverse-split and Bluestein (both directions)
     instance at most its recorded frame (``DECODE_STACK_CEILING``,
     ``ISTFT_STACK_CEILING``, ``ISTFT_SPLIT_STACK_CEILING``,
-    ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``), every
+    ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``, and
+    the cluster's ``CLUSTER_STACK_CEILING``), every
     Wiener+iSTFT and band decode instance none; and no band decode instance
     has its wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
@@ -1024,6 +1113,10 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
             inst = f"{len(kernel)}{kernel}ILi{log2m}E"
             hits = [v for k, v in frames.items() if inst in k]
             assert len(hits) == 1 and hits[0] <= most, (inst, frames)
+    for (kernel, c), most in CLUSTER_STACK_CEILING.items():
+        inst = f"{len(kernel)}{kernel}ILi{c}E"
+        hits = [v for k, v in frames.items() if inst in k]
+        assert len(hits) == 1 and hits[0] <= most, (inst, frames)
 
 
 @pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),

@@ -17,11 +17,17 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
 * ``istft_bluestein_block`` (``istft.cu::istft_bluestein_kernel``:
   Bluestein run backwards, the rounds, carry and gather), on the core and
   on the level, against ``istft_pallas_plain`` within 1e-5 × max|out|, and
-  as PCM16 against the plain synthesis quantized within ±1 LSB.
+  as PCM16 against the plain synthesis quantized within ±1 LSB;
+* ``stft_cluster_block`` and ``istft_cluster_block``
+  (``stft_dft.cu::stft_cluster_kernel``, ``istft.cu::istft_cluster_kernel``:
+  Bluestein over a thread-block cluster, its C blocks at once with their
+  own shared memory, ``cluster_sync`` and ``peer``) at parts of 64 and 512
+  points (C 2, 4 and 8) and once at the card's 8192 (C 4), against the
+  plain STFT and iSTFT at the same tolerances.
 
 The kernels' own index maps, twiddle and chirp reads, butterflies, block
-barriers and output guards. Built once per module under pytest's temporary
-directory, the four programs at once."""
+and cluster barriers and output guards. Built once per module under
+pytest's temporary directory, the six programs at once."""
 
 import shutil
 import subprocess
@@ -40,7 +46,8 @@ from convsep_tpu_torch.dsp.windows import sinebell
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
-PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft")
+PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft", "cluster_stft",
+            "cluster_istft")
 
 
 @pytest.fixture(scope="module")
@@ -200,6 +207,93 @@ def test_bluestein_istft_source_matches_plain(tmp_path, host, rng, nfft, win, ho
     args = [m.bit_length() - 1, nt, nf, nfft, win, hop, length, plan.groups, plan.rounds,
             int(int16)]
     subprocess.run([str(host["bluestein_istft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32).reshape(nt, length)
+    ret, imt = torch.from_numpy(re), torch.from_numpy(im)
+    if int16:
+        want = istft_matmul(ret, imt, w, hop, length, nfft=nfft, algorithm="direct",
+                            output_dtype="int16").numpy()
+        assert want.dtype == np.int16 and (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        want = istft_pallas_plain(ret, imt, w, hop, length, nfft=nfft).numpy()
+        assert np.isfinite(got).all()  # every sample written
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+# (nfft, win, hop, B, length, log2 of a block's part): C = M / 2^LOG2P blocks
+# a cluster, M = bluestein_size(nfft)
+CLUSTER_STFT_CASES = [
+    (50, 50, 25, 2, 300, 6),        # M 128: C 2
+    (100, 100, 25, 1, 400, 6),      # M 256: C 4
+    (101, 101, 101, 2, 700, 6),     # odd
+    (200, 160, 40, 1, 600, 6),      # M 512: C 8; nfft past the window
+    (300, 300, 75, 1, 900, 9),      # M 1024: C 2, a block of 32 threads
+    (1000, 1000, 250, 2, 2000, 9),  # M 2048: C 4
+    (1801, 1801, 1801, 1, 2000, 9),  # M 4096: C 8, odd
+    (10000, 10000, 2500, 1, 3000, 13),  # the card's part, 8192: C 4, 2 clusters
+]
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length,log2p", CLUSTER_STFT_CASES)
+def test_cluster_stft_source_matches_plain(tmp_path, host, rng, nfft, win, hop, B, length, log2p):
+    """stft_cluster_block as stft_cluster_kernel launches it (a cluster of
+    C blocks a pair of frames): every bin of every frame written, equal to
+    the plain STFT within 1e-5 × max|X|."""
+    x = (0.3 * rng.standard_normal((B, length))).astype(np.float32)
+    w = sinebell(win)
+    nf = num_frames(length, hop)
+    m = fp.bluestein_size(nfft)
+    c = m >> log2p
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    for name, arr in (("x", x), ("w", w), ("tw", fp.twiddles(m, "cpu").numpy()),
+                      ("chirp", chirp.numpy()), ("chat", chat.numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    args = [log2p, c, B, length, win, hop, nf, nfft]
+    subprocess.run([str(host["cluster_stft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", np.float32).reshape(2, B, nf, nfft // 2 + 1)
+    re, im = stft_pallas_plain(torch.from_numpy(x), w, hop, nfft)
+    peak = max(re.abs().max().item(), im.abs().max().item())
+    assert np.isfinite(out).all()  # every bin of every frame written, no unwritten point read
+    np.testing.assert_allclose(out[0], re.numpy(), atol=1e-5 * peak, rtol=0)
+    np.testing.assert_allclose(out[1], im.numpy(), atol=1e-5 * peak, rtol=0)
+
+
+# (nfft, win, hop, nt, length, log2p, rounds, out)
+CLUSTER_ISTFT_CASES = [
+    (50, 50, 25, 2, 300, 6, 3, "float32"),    # C 2; rounds of a pair, 5 rows a cluster
+    (100, 100, 25, 1, 500, 6, 3, "float32"),  # C 4: k 4, 3 rows a cluster
+    (100, 100, 25, 1, 500, 6, 2, "int16"),    # one row a cluster
+    (200, 160, 40, 2, 900, 6, 5, "float32"),  # C 8; nfft past the window
+    (202, 202, 101, 1, 700, 6, 4, "float32"),  # C 8: 101 columns over 8 blocks (13 a block)
+    (1000, 1000, 250, 1, 3000, 9, 4, "int16"),  # C 4
+    (1800, 1800, 200, 1, 5000, 9, 7, "float32"),  # C 8, k 9
+    (10000, 10000, 2500, 1, 9000, 13, 3, "float32"),  # the card's part: C 4, 3 clusters
+]
+
+
+@pytest.mark.parametrize("nfft,win,hop,nt,length,log2p,rounds,out", CLUSTER_ISTFT_CASES)
+def test_cluster_istft_source_matches_plain(tmp_path, host, rng, nfft, win, hop, nt, length,
+                                            log2p, rounds, out):
+    """istft_cluster_block as istft_cluster_kernel launches it: every
+    sample of every signal written, equal to the plain synthesis within
+    1e-5 × max|out|, PCM16 within ±1 LSB."""
+    nf = num_frames(length, hop)
+    bins = nfft // 2 + 1
+    re = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    im = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    w = sinebell(win)
+    m = fp.bluestein_size(nfft)
+    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    for name, arr in (("re", re), ("im", im), ("wn", wn.numpy()), ("inv", inv.numpy()),
+                      ("tw", fp.twiddles(m, "cpu").numpy()), ("chirp", chirp.numpy()),
+                      ("chat", chat.numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    int16 = out == "int16"
+    args = [log2p, m >> log2p, nt, nf, nfft, win, hop, length, rounds, int(int16)]
+    subprocess.run([str(host["cluster_istft"]), str(tmp_path), *map(str, args)], check=True,
                    timeout=300)
     got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32).reshape(nt, length)
     ret, imt = torch.from_numpy(re), torch.from_numpy(im)

@@ -530,9 +530,191 @@ def bluestein_fft(z: torch.Tensor) -> torch.Tensor:
     a = torch.nn.functional.pad(z * chirp, (0, M - N))
     if M <= fp.MAX_NFFT:
         buf = core_fft((core_fft(a) * chat).conj())[..., :N]
-    else:
+    elif M == LEVEL:
         buf = level_fft_dif((level_fft(a) * chat).conj())[..., dif_order(N)]
+    else:
+        buf = cluster_fft(a, M // fp.CLUSTER_PART, chat)[..., :N]
     return chirp * buf.conj()
+
+
+# -- Bluestein over a thread-block cluster (fft_common.cuh::ClusterChirp) ------
+
+
+def _powers(M: int, dtype) -> torch.Tensor:
+    """w^e = e^{−2πi e / M}, e < M, from the float32 M-point table, as the
+    cluster's blocks read it (``ldg_twiddle``)."""
+    tw = torch.from_numpy(fp.twiddle_table(M).astype(np.float64))
+    return torch.complex(tw[:, 0], tw[:, 1]).to(dtype)
+
+
+def _part_fft(z: torch.Tensor) -> torch.Tensor:
+    """A block's transform of its part: the core, or the level past 8192."""
+    return core_fft(z) if z.shape[-1] <= fp.MAX_NFFT else level_fft(z)
+
+
+def cluster_dif(u: torch.Tensor, c: int, terms: int | None = None) -> torch.Tensor:
+    """ClusterChirp::convolve's first transform on (..., M) complex, M = c P:
+    block r forms b_r[n] = w^{r n} Σ_{q < terms} u[n + P q] W^{r q} (Horner
+    in W^r = w^{P r}; the kernel's terms are c / 2, u vanishing from M/2 on)
+    and runs its part's transform: Y[c k + r] at [..., r, k]."""
+    M = u.shape[-1]
+    P = M // c
+    terms = terms or c
+    w = _powers(M, u.dtype)
+    n = torch.arange(P)
+    parts = []
+    for r in range(c):
+        s = u[..., n + P * (terms - 1)]
+        for q in range(terms - 2, -1, -1):
+            s = u[..., n + P * q] + s * w[P * r]
+        parts.append(_part_fft(s * w[r * n] if r else s))
+    return torch.stack(parts, -2)
+
+
+def cluster_dit(v: torch.Tensor, c: int) -> torch.Tensor:
+    """ClusterChirp::convolve's second transform and ClusterChirp::point on
+    (..., c, P), point c k + r at [..., r, k]: block r transforms its part,
+    V_r, and multiplies by w^{r k1} in place; Z[k1 + P q] = Σ_r (W^q)^r ·
+    that, by Horner in W^q, read across the blocks. (..., M) natural order."""
+    P = v.shape[-1]
+    M = c * P
+    w = _powers(M, v.dtype)
+    k1 = torch.arange(P)
+    parts = [_part_fft(v[..., r, :]) * (w[r * k1] if r else 1) for r in range(c)]
+    out = []
+    for q in range(c):
+        z = parts[c - 1]
+        for r in range(c - 2, -1, -1):
+            z = parts[r] + z * w[P * q]
+        out.append(z)
+    return torch.cat(out, -1)
+
+
+def cluster_fft(u: torch.Tensor, c: int, chat: torch.Tensor | None = None) -> torch.Tensor:
+    """Steps 1–4 of ClusterChirp::convolve on (..., M) complex: the first
+    transform (``cluster_dif``, c/2 terms where ``chat`` is given, as
+    Bluestein's u vanishes from M/2 on), then, with ``chat``, its product
+    with Ĉ[c k + r] conjugated, then the second transform and the combine
+    (``cluster_dit``): conj(u ⊛ c) as Chirp leaves it. Without ``chat`` the
+    two transforms compose to M · u[−n mod M]."""
+    M = u.shape[-1]
+    y = cluster_dif(u, c, c // 2 if chat is not None else None)
+    if chat is not None:
+        y = (y * chat.reshape(M // c, c).T).conj()
+    return cluster_dit(y, c)
+
+
+@pytest.mark.parametrize("M", [256, 2048, 32768])
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_cluster_transforms_match_torch_fft(rng, M, c):
+    """Both of the cluster's transforms against torch.fft.fft, with the
+    kernel's index maps: the first leaves Y[c k + r] in block r's slot k,
+    the second takes point c k + r from there and gives natural order; the
+    two composed (cluster_fft without Ĉ) give M · u[−n mod M]."""
+    z = torch.from_numpy(rng.standard_normal((2, M)) + 1j * rng.standard_normal((2, M)))
+    want = torch.fft.fft(z)
+    tol = 1e-6 * want.abs().max().item()
+    P = M // c
+    torch.testing.assert_close(cluster_dif(z, c), want.reshape(2, P, c).transpose(-1, -2),
+                               atol=tol, rtol=0)
+    torch.testing.assert_close(cluster_dit(z.reshape(2, P, c).transpose(-1, -2), c), want,
+                               atol=tol, rtol=0)
+    back = cluster_fft(z, c)
+    torch.testing.assert_close(back, M * z[..., (-torch.arange(M)) % M],
+                               atol=1e-6 * back.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft", [8193, 10_000, 12_288, 16_384, 20_000])
+def test_cluster_bluestein_matches_the_dft(rng, nfft):
+    """Bluestein on the cluster (bluestein_fft past M 16 384: C = M / 8192
+    blocks, 4 up to 16 384 points, 8 past) against the plain DFT (torch.fft.fft
+    in float64): within 1e-6 × max|Z|."""
+    assert fp.cluster_supported(nfft) and fp.cluster_blocks(nfft) == (4 if nfft <= 16384 else 8)
+    z = rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))
+    got = bluestein_fft(torch.from_numpy(z))
+    want = torch.fft.fft(torch.from_numpy(z))
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (32, 7, 12288, 12288, 3072), (32, 5, 20000, 20000, 5000), (1, 1, 8193, 8193, 8193),
+    (2, 40, 32768, 16384, 4096), (3, 20, 16384, 16384, 2048), (1, 9, 16385, 16385, 3277),
+])
+def test_cluster_plan(signals, nf, nfft, win, hop):
+    """cluster_plan mirrors stft_cluster_launch: M / 8192 blocks a cluster
+    (4 up to 16 384 points, 8 past; the portable limit), one cluster a pair
+    of frames, 512 threads and 87 040 bytes a block (the 8192-point quarter
+    table and exchange buffer; the frames come from global memory)."""
+    plan = fp.cluster_plan(signals, nf, nfft, win, hop)
+    assert plan.m == fp.bluestein_size(nfft) == plan.cluster * fp.CLUSTER_PART
+    assert plan.cluster == (4 if nfft <= 16384 else 8) <= 8
+    assert plan.threads == fp.MAX_THREADS
+    assert plan.clusters == signals * -(-nf // 2) and plan.blocks == plan.clusters * plan.cluster
+    assert plan.smem_bytes == 8 * ((2048 + 128) + (8192 + 512)) == 87_040 <= fp.SMEM_MAX
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (1, 532, 10000, 10000, 2500), (1, 267, 20000, 20000, 5000), (1, 10, 10000, 10000, 2500),
+    (4, 530, 10000, 10000, 2500), (2, 40, 8194, 8194, 4097), (1, 60, 32768, 32768, 4096),
+    (3, 90, 16384, 16384, 2048), (1, 300, 20000, 16000, 4000),
+])
+def test_istft_cluster_plan(signals, nf, nfft, win, hop):
+    """istft_cluster_plan mirrors istft_cluster_launch (one pair a round, a
+    cluster owning 2 · rounds − (k − 1) hop rows, each block the carry of
+    its 1/C of the columns, within shared memory) and takes the fewest
+    waves × rounds (CLUSTERS_AT_ONCE a wave) over every rounds it may."""
+    plan = fp.istft_plan(signals, nf, nfft, win, hop)
+    k = win // hop
+    c = fp.cluster_blocks(nfft)
+    assert plan == fp.istft_cluster_plan(signals, nf, nfft, win, hop)
+    assert plan.cluster == c and plan.groups == 1 and plan.threads == 512
+    assert plan.rows == 2 * plan.rounds - (k - 1) >= 1
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+    assert plan.blocks == signals * plan.blocks_per_signal * c
+    assert plan.smem_bytes == 87_040 + 4 * (k - 1) * -(-hop // c) <= fp.SMEM_MAX
+
+    def cost(rounds):
+        rows = 2 * rounds - (k - 1)
+        per = -(-(nf + k - 1) // rows)
+        return -(-signals * per // fp.CLUSTERS_AT_ONCE[c]) * rounds
+
+    assert all(cost(plan.rounds) <= cost(r) for r in range(-(-k // 2), 300)
+               if 2 * r - (k - 1) >= 1)
+
+
+def test_istft_cluster_main_plans():
+    """The smoke's W 10 000, hop 2500 (one signal, nf 532): eleven rounds for
+    19 rows, 29 clusters of 4, one wave of the card's 30; W 20 000, hop 5000
+    (nf 267): 15 clusters of 8, the card's 15, eleven rounds."""
+    a = fp.istft_plan(1, 532, 10000, 10000, 2500)
+    assert (a.cluster, a.rounds, a.rows, a.blocks_per_signal, a.blocks) == (4, 11, 19, 29, 116)
+    b = fp.istft_plan(1, 267, 20000, 20000, 5000)
+    assert (b.cluster, b.rounds, b.rows, b.blocks_per_signal, b.blocks) == (8, 11, 19, 15, 120)
+
+
+def test_cluster_envelope():
+    """The cluster takes 8193–32 768 points (M 32 768 on 4 blocks up to 16
+    384, 65 536 on 8 past it), both directions; 8192 stays on the FFT core
+    and past 32 768 the dense DFT (forward) serves and the direct sum
+    (inverse) refuses: its table and spectrum do not fit shared memory."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
+
+    assert not fp.cluster_supported(8192) and fp.fft_supported(8192)
+    assert fp.cluster_supported(8193) and fp.cluster_supported(32768)
+    assert not fp.cluster_supported(32769)
+    assert [fp.cluster_blocks(n) for n in (8193, 16384, 16385, 32768)] == [4, 4, 8, 8]
+    for n in (8192, 32769, 40000):
+        with pytest.raises(ValueError, match="no cluster plan"):
+            fp.cluster_plan(1, 4, n, n, n)
+    with pytest.raises(ValueError, match="no cluster plan"):
+        fp.cluster_plan(1, 4, 10000, 10001, 10001)  # a window past nfft
+    assert fp.istft_plan(1, 4, 8192, 8192, 2048).cluster == 1
+    assert fp.istft_plan(1, 4, 8194, 8194, 4097).cluster == 4
+    assert fp.istft_plan(1, 4, 32768, 32768, 4096).cluster == 8
+    assert istft_supported(8194, 8194, 4097) and istft_supported(32768, 32768, 4096)
+    assert not istft_supported(32770, 32770, 16385)
+    with pytest.raises(ValueError, match="no iSTFT cluster plan"):
+        fp.istft_cluster_plan(1, 4, 8193 * 4, 8192, 2048)
 
 
 def test_level_matches_torch_fft(rng):
@@ -644,13 +826,15 @@ def test_bluestein_routing():
     """The sizes the split refuses up to 8192 go to Bluestein (1000, 7 · 256,
     25 · 64, 27 · 16, odd sizes; past 4096 on the level: 4097, 6000, 8191);
     powers of two and split sizes go to their own kernels, and sizes past
-    8192 (3 · 4096, 8193) stay on the dense DFT kernel."""
+    8192 (3 · 4096, 8193) to Bluestein on a cluster, not to the one-block
+    kernel."""
     for n in (1000, 7 * 256, 25 * 64, 27 * 16, 1001, 18, 4000, 4095, 4097, 6000, 8190, 8191):
         assert fp.bluestein_supported(n) and not fp.split_supported(n)
         assert not fp.fft_supported(n)
         assert (fp.bluestein_size(n) == 2 * fp.MAX_NFFT) == (n > 4096)
     for n in (3 * 4096, 8193, 10_000, 1024, 768, 8192, 48, 6144):
         assert not fp.bluestein_supported(n)
+        assert fp.cluster_supported(n) == (n > 8192)
         with pytest.raises(ValueError, match="no Bluestein plan"):
             fp.bluestein_plan(1, 10, n, n, n // 2)
     assert fp.split_supported(6144) and fp.fft_supported(8192)
@@ -858,14 +1042,21 @@ def test_istft_plan(signals, nf, nfft, win, hop):
     plan = fp.istft_plan(signals, nf, nfft, win, hop)
     k = win // hop
     assert plan.smem_bytes <= fp.SMEM_MAX
-    assert plan.rows >= 1 and plan.blocks == signals * plan.blocks_per_signal
+    assert plan.rows >= 1 and plan.blocks == signals * plan.blocks_per_signal * plan.cluster
     assert plan.blocks_per_signal * plan.rows >= nf + k - 1 > (plan.blocks_per_signal - 1) * plan.rows
     assert plan.halo == (k - 1) / plan.rows
-    if plan.groups == 0:  # the direct sum: even sizes past 8192 off the split
+    if plan.groups == 0:  # the direct sum: even sizes past the cluster's 32 768
         assert not fp.fft_supported(nfft) and plan.rows <= fp.DIRECT_MAX_ROWS
-        assert nfft > fp.MAX_NFFT and not fp.bluestein_supported(nfft)
+        assert nfft > fp.CLUSTER_NFFT and not fp.bluestein_supported(nfft)
         assert plan.smem_bytes == 16 * nfft + 4 * plan.rows * hop
         return
+    if plan.cluster > 1:  # Bluestein on a cluster: even sizes past 8192
+        assert fp.cluster_supported(nfft) and plan.cluster == fp.cluster_blocks(nfft) <= 8
+        assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
+        assert plan.rows == 2 * plan.rounds - (k - 1)
+        assert plan.smem_bytes == fp.cluster_smem_bytes((k - 1) * -(-hop // plan.cluster))
+        return
+    assert plan.cluster == 1
     blue = fp.bluestein_supported(nfft)
     t = fp.bluestein_threads(fp.bluestein_size(nfft)) if blue else fp.threads_per_fft(nfft)
     g = plan.groups
@@ -976,12 +1167,18 @@ def test_istft_level_fits_every_window():
 def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
     """istft_plan raises, and istft_supported says no, where a plan does not
     fit shared memory: the direct sum past 12 800 points (its table and
-    spectrum alone), and, with the card's limit cut below the level's
-    191 488 bytes, the level."""
+    spectrum alone), which serves only past the cluster's 32 768 (13 000
+    and 20 000 run on a cluster), and, with the card's limit cut below the
+    level's 191 488 bytes, the level."""
     from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
 
     for n in (13_000, 20_000):
-        assert not fp.bluestein_supported(n) and not istft_supported(n, n, n // 4)
+        assert fp.cluster_supported(n) and istft_supported(n, n, n // 4)
+        assert fp.istft_plan(1, 10, n, n, n // 4).cluster == fp.cluster_blocks(n)
+        with pytest.raises(ValueError, match="no iSTFT plan fits"):
+            fp.istft_direct_plan(1, 10, n, n, n // 4)
+    for n in (32_770, 40_000):
+        assert not fp.cluster_supported(n) and not istft_supported(n, n, n // 4)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_plan(1, 10, n, n, n // 4)
     fp.istft_plan.cache_clear()

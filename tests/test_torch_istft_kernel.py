@@ -125,7 +125,7 @@ def test_istft_routes():
     assert istft_supported(4096, 4096, 1024) and istft_supported(1024, 1024, 512)
     assert istft_supported(384, 384, 96)  # 3 · 128: the split run backwards
     assert istft_supported(1000, 1000, 250)  # even, off the split: Bluestein
-    assert istft_supported(10_000, 10_000, 2500)  # past 8192: the direct sum
+    assert istft_supported(10_000, 10_000, 2500)  # past 8192: Bluestein on a cluster
     assert not istft_supported(255, 255, 85) and not istft_supported(256, 512, 128)
     assert not istft_supported(4096, 4096, 1000)
 
