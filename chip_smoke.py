@@ -25,7 +25,12 @@ result line is printed):
    time, the plain version's, the bound, the wrapper's host time and the
    launch plan (``fft_plan.wiener_plan``); then the same at the stream
    path's batches (phase 17): 2 and 8 tracks a launch, each track its own
-   random mixture and magnitudes;
+   random mixture and magnitudes; 3c: past 8192 points on a thread-block
+   cluster at the reference kernel's 16 384 (hop 2048) and 32 768 (hop
+   4096), 4 stems of a 30 s track, bf16 and f32 y and the Nyquist-row
+   input (at 16 384 the forward STFT kernel's own pair), also against the
+   float64 synthesis, and the A/B against the masked chain that keys
+   "auto" (``WIENER_CLUSTER_WON``);
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
    right shape, kernel launch counters above zero, the kernel route
@@ -38,10 +43,12 @@ result line is printed):
    same padded signal; the split STFT kernel (m · 2^a sizes) on (32, 14
    336) at W 768, hop 256 and W 1280, hop 320, and the Bluestein kernel at
    W 1000, hop 250, on the 16 384-point level at W 6000, hop 1500, and on
-   a thread-block cluster at W 12 288, hop 3072 (4 blocks) and W 20 000,
-   hop 5000 (8 blocks), beside the dense DFT kernel forced at the split's,
-   Bluestein's and the cluster's W 12 288 shapes; each call launching its
-   kernel once and no other
+   a thread-block cluster at W 12 288, hop 3072 (4 blocks), W 20 000,
+   hop 5000 (8 blocks), W 40 000, hop 10 000 and W 65 536, hop 16 384 (16
+   blocks; the plain version there the float64 STFT, the direct matrices
+   passing 6 GB; every cluster row also held to it), beside the dense DFT
+   kernel forced at the split's, Bluestein's and the cluster's W 12 288 and
+   W 40 000 shapes; each call launching its kernel once and no other
    (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
    a child process: a profiler session slows its process's host for good)
    and its wrapper's host time per call; the fused adadelta kernel on
@@ -66,10 +73,13 @@ result line is printed):
    run backwards at W 768, hop 256, Bluestein run backwards at W 1000, hop
    250 (beside the direct sum forced there) and on the level at W 6000, hop
    1500 (4 stems of a 30 s track each), on a cluster at W 10 000, hop 2500
-   (beside the direct sum forced there) and W 20 000, hop 5000 (one stem
-   each; the plan beside the clusters the card holds at once); each call
+   (beside the direct sum forced there), W 20 000, hop 5000, W 40 000, hop
+   10 000 and W 65 536, hop 16 384 (one stem each; the plan beside the
+   clusters the card holds at once; past 32 768 the plain version is the
+   float64 synthesis, and every cluster row is also held to it); each call
    launching its kernel once and no other; 7b: the Wiener+iSTFT kernel's
-   direct sum at W 768, as phase 3;
+   direct sum at W 768 (forced: "auto" takes the masked chain there), as
+   phase 3;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -83,9 +93,10 @@ result line is printed):
    mask and iSTFT kernels, against the plain synthesis of its own y and the
    matmul route's stems, ms per track against the matmul route;
 11. the multires4096 kernels vs their plain versions: the forward STFT
-   kernel on one track (1, 1 474 560), 4096 pt, hop 1024, beside
-   ``torch.stft``, with both device times (as phase 5) and the wrapper's
-   host time; the Wiener+iSTFT kernel's Nyquist-row input against its
+   kernel on one track (1, 1 474 560), 4096 pt, hop 1024, and its cluster
+   at the reference's 16 384 pt, hop 4096 (also against the float64 STFT),
+   beside ``torch.stft``, with both device times (as phase 5) and the
+   wrapper's host time; the Wiener+iSTFT kernel's Nyquist-row input against its
    plain version and, bit for bit, against the same kernel fed the
    concatenated spectrum; the band decode kernel at N 196, Tp 16, W 505,
    C2 50, T·I 1500 on the operand the model builds once (band and packed
@@ -106,8 +117,8 @@ result line is printed):
    "blend", each against the plain route as phase 4;
 14. device times (``torch.profiler``, in a child) of the fused decode and
    its plain version at TM 120 and 360, and of the Wiener+iSTFT (both phase
-   3 shapes and phase 7b's), Wiener mask, band decode and fused adadelta
-   kernels;
+   3 shapes, phase 3c's and phase 7b's), Wiener mask, band decode and fused
+   adadelta kernels;
 15. chunked: ``ChunkedSeparator`` (chunk_segments 32) for highres4096 (2
    chunks of 960 frames) and dsd100 (4 chunks) on the phase 4 mixture,
    against ``Separator`` as phase 4 holds two routes (the f32 tail's model
@@ -253,6 +264,25 @@ W1000_NF = 5294
 W6000_NF = 884
 W10000_NF = 532
 W20000_NF = 267
+# past 32 768 points (W 40 000, hop 10 000 and W 65 536, hop 16 384: 16 blocks
+# a cluster) the frames of a 30 s track; the Wiener+iSTFT's cluster at the
+# reference's 16 384 (hop 2048) and 32 768 (hop 4096)
+W40000_NF = 135
+W65536_NF = 83
+W16384_NF = 648
+W32768_NF = 325
+# Past 32 768 points the plain versions' direct DFT matrices pass 6 GB (W 40
+# 000: 40 000 × 20 001 floats, twice, a direction), so there the plain
+# version is the float64 transform of the same frames (rfft64_stft,
+# istft64); every kernel past 8192 is held to that float64 version too, at
+# the bounds below, beside the float32 plain version's own tolerance.
+DIRECT_MAX_NFFT = 32768
+TOL_CLUSTER_STFT = 3e-6  # × max|X|: Bluestein on a cluster (float32) against the float64 STFT
+TOL_CLUSTER_F32 = 2e-6   # × max|out|: the cluster iSTFT and Wiener+iSTFT against float64
+# The spread of the Wiener+iSTFT cluster's time against the masked chain's
+# between runs: "auto" may take the kernel where one run reads it this much
+# slower (ct_istft_kernel.WIENER_CLUSTER_WON, as DECODE_SPREAD for the decode).
+WIENER_SPREAD = 0.05
 # the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
 # istft_ct_pallas (else istft_pallas, or istft_direct_pallas where the
 # kernel is "istft_direct"), the kernel it must launch)
@@ -264,7 +294,9 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 6000 Bluestein", 6000, 1500, W6000_NF, 4, False, "istft_bluestein"),
                 ("W 10000 cluster", 10000, 2500, W10000_NF, 1, False, "istft_cluster"),
                 ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"),
-                ("W 20000 cluster", 20000, 5000, W20000_NF, 1, False, "istft_cluster"))
+                ("W 20000 cluster", 20000, 5000, W20000_NF, 1, False, "istft_cluster"),
+                ("W 40000 cluster", 40000, 10000, W40000_NF, 1, False, "istft_cluster"),
+                ("W 65536 cluster", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
@@ -404,9 +436,10 @@ def device_times(kind: str) -> dict:
 
 # phase 5's STFT launches: (key, the kernel it must launch, W, hop, batches,
 # forced dense). The split kernel at m = 3 and 5, Bluestein at W 1000, on
-# the level at W 6000 and on a cluster at W 12 288 (4 blocks) and W 20 000
-# (8 blocks), the dense kernel at their shapes (forced: the time each
-# replaces; it still serves past 32 768).
+# the level at W 6000 and on a cluster at W 12 288 (4 blocks), W 20 000 (8
+# blocks), W 40 000 and W 65 536 (16 blocks), the dense kernel at their
+# shapes (forced: the time each replaces; it still serves past 65 536; at W
+# 40 000 its matrices are 6.4 GB, so that row is timed in fewer calls).
 STFT_SHAPES = (
     ("stft", "stft", 1024, 512, (32, 128), False),
     ("stft_split", "stft_split", 768, 256, (32,), False),
@@ -415,7 +448,10 @@ STFT_SHAPES = (
     ("stft_bluestein W 6000", "stft_bluestein", 6000, 1500, (32,), False),
     ("stft_cluster", "stft_cluster", 12288, 3072, (32,), False),
     ("stft_cluster W 20000", "stft_cluster", 20000, 5000, (32,), False),
+    ("stft_cluster W 40000", "stft_cluster", 40000, 10000, (32,), False),
+    ("stft_cluster W 65536", "stft_cluster", 65536, 16384, (32,), False),
     ("stft_dft W 12288", "stft_dft", 12288, 3072, (32,), True),
+    ("stft_dft W 40000", "stft_dft", 40000, 10000, (32,), True),
     ("stft_dft W 768", "stft_dft", 768, 256, (32,), True),
     ("stft_dft W 1280", "stft_dft", 1280, 320, (32,), True),
     ("stft_dft W 1000", "stft_dft", 1000, 250, (32,), True),
@@ -466,22 +502,32 @@ def child_device_times(kind: str) -> dict:
     if kind == "others":
         return child_other_times(device, gen)
     if kind == "ct_stft":
-        w = sinebell(4096)
         x = 0.3 * torch.randn(1, MR_SAMPLES, generator=gen, device=device)
-        padded = _pad_signal(x, 4096, 1024)
-        wt = torch.from_numpy(w.astype("float32")).to(device)
-        return {"ct_stft": pair(lambda: stft_ct_pallas(x, w, 1024),
-                                lambda: torch.stft(padded, 4096, 1024, window=wt, center=False,
-                                                   return_complex=True))}
+        res = {}
+        for key, nfft, hop, _ in CT_STFT_SHAPES:
+            w = sinebell(nfft)
+            padded = _pad_signal(x, nfft, hop)
+            wt = torch.from_numpy(w.astype("float32")).to(device)
+            res[key] = pair(lambda: stft_ct_pallas(x, w, hop),
+                            lambda: torch.stft(padded, nfft, hop, window=wt, center=False,
+                                               return_complex=True))
+        return res
     res = {}
     for name, _, win, hop, batches, dense in STFT_SHAPES:
         per_b = {}
         fn = stft_fn(dense)
+        # the dense kernel past DIRECT_MAX_NFFT (0.15 s a call, 6.4 GB of
+        # matrices made on the host first) is not profiled: its events time
+        # (phase 5) stands, its device time is "not measured"
+        huge = dense and win > DIRECT_MAX_NFFT
         for B in batches:
             x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
-            per_b[B] = pair(lambda: fn(x, w, hop),
-                            lambda: torch.stft(padded, win, hop, window=wt, center=False,
-                                               return_complex=True))
+            k = {"device_ms": None, "by_kernel": {}} if huge else profile_ms(lambda: fn(x, w, hop))
+            lib = profile_ms(lambda: torch.stft(padded, win, hop, window=wt, center=False,
+                                                return_complex=True))
+            per_b[B] = {"device_ms": k["device_ms"], "kernels": k["by_kernel"],
+                        "library_device_ms": lib["device_ms"],
+                        "library_kernels": lib["by_kernel"]}
         total = {k: sum(r[k] for r in per_b.values()) if all(r[k] is not None for r in
                                                               per_b.values()) else None
                  for k in ("device_ms", "library_device_ms")}
@@ -590,6 +636,12 @@ def child_other_times(device, gen) -> dict:
         total += profile_ms(lambda: fused_adadelta_leaf(p, g, a, d, 1.0, 0.95, 1e-6))["device_ms"]
     res["fused_adadelta"] = total
     del p, g, a, d
+    # past 8192 points: the cluster (phase 3c's shapes)
+    for nfft, hop, nf in ((16384, 2048, W16384_NF), (32768, 4096, W32768_NF)):
+        w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
+        res[f"wiener_istft W {nfft}"] = profile_ms(
+            lambda: wiener_istft(y, re, im, w, hop, L))["device_ms"]
+        del y, re, im
     # last: measured before the Wiener mask kernel, it left that kernel's
     # profiler session with no device work recorded (device_ms None)
     w, L, y, re, im = wiener_inputs(768, 256, W768_NF, 4, device, gen)
@@ -701,9 +753,11 @@ def phase_bf16_compute(state, preset, B: int, device, gen) -> dict:
             "plain_ms": plain_ms, "B": B, "auto_route": auto}
 
 
-def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1):
-    """A batch of B tracks, each its own random mixture and magnitudes, so
-    a kernel that reads another track's spectrum or y disagrees."""
+def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1,
+                  ydt: str = "bfloat16"):
+    """A batch of B tracks, each its own random mixture and magnitudes
+    (``ydt``: bf16, the model's mask tail, or float32), so a kernel that
+    reads another track's spectrum or y disagrees."""
     import torch
     from convsep_tpu_torch.dsp.dft import stft_matmul
     from convsep_tpu_torch.dsp.windows import sinebell
@@ -715,26 +769,38 @@ def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1)
     assert re.shape[-2] == nf, (re.shape, nf)
     y = torch.randn(B, S, nf, nfft // 2 + 1, generator=gen, device=device).abs()
     y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
-    return w, L, y.to(torch.bfloat16), re, im
+    return w, L, y.to(getattr(torch, ydt)), re, im
+
+
+WIENER_NAMES = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster",
+                "wiener_istft_ny_cluster")
 
 
 def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
-                 B: int = 1) -> dict:
+                 B: int = 1, ydt: str = "bfloat16", kernel: str = "wiener_istft") -> dict:
     """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16,
-    on B tracks at once (the stream path's batches)."""
+    on B tracks at once (the stream path's batches); each call one launch
+    of ``kernel``. On a cluster (past 8192 points) also against the float64
+    synthesis of the same float32 masks (:func:`wiener64`) within
+    ``TOL_CLUSTER_F32`` × max|stem|."""
     import torch
+    from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda import fft_plan
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
 
-    w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen, B)
+    w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen, B, ydt)
     if B > 1:
         name = f"{name} B {B}"
-    worst = 0.0
+    worst, worst64 = 0.0, None
     for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
         for out in ("float32", "int16"):
+            before = dict(kernels.LAUNCHES)
             got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, **kw)
             want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, **kw)
             torch.cuda.synchronize()
+            moved = {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES}
+            if moved != {k: int(k == kernel) for k in WIENER_NAMES}:
+                raise AssertionError(f"wiener_istft {name}: launched {moved}, want one {kernel}")
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"wiener_istft {name} {kw} {out}: non-finite output")
             e = (got.float() - want.float()).abs().max().item()
@@ -743,21 +809,120 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
             log(f"  wiener {name} {kw} {out}: max_abs_err {e:.3e}{unit} (tol {tol})")
             if not e <= tol:
                 raise AssertionError(f"wiener_istft {name} {kw} {out}: {e} > {tol}")
+            if kernel.endswith("_cluster"):
+                ref = wiener64(y, re, im, w, hop, L, output_dtype=out, **kw)
+                e64 = (got.float() - ref.float()).abs().max().item()
+                tol64 = (TOL_WIENER_I16 if out == "int16"
+                         else TOL_CLUSTER_F32 * ref.abs().max().item())
+                log(f"  wiener {name} {kw} {out}: {e64:.3e}{unit} from the float64 synthesis "
+                    f"(tol {tol64:.3e})")
+                if not e64 <= tol64:
+                    raise AssertionError(f"wiener_istft {name} {kw} {out}: {e64} > {tol64} from "
+                                         f"the float64 synthesis")
+                if out == "float32":
+                    worst64 = max(worst64 or 0.0, e64 / ref.abs().max().item())
+                del ref
             if out == "float32":
                 worst = max(worst, e)
     ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
     us = host_us(lambda: wiener_istft(y, re, im, w, hop, L))
     plan = fft_plan.wiener_plan(B, S, nf, nfft, hop)
-    b = bound(2 * y.numel() + 8 * re.numel() + 4 * B * S * L,
+    b = bound(y.element_size() * y.numel() + 8 * re.numel() + 4 * B * S * L,
               fft_flops(B * S * nf, nfft) + 4 * y.numel())
     log(f"  wiener {name} p=1 f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it; "
         f"wrapper host {us:.1f} us per call; plan: {plan.groups} groups x {plan.rounds} rounds, "
         f"{plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
         f"{plan.smem_bytes} B shared memory")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "host_us": us, "B": B, "plan": dataclasses.asdict(plan)}
+    return {"max_abs_err": worst, "rel_err_float64": worst64, "ms": ms, "plain_ms": plain_ms,
+            **b, "library_ms": None, "host_us": us, "B": B, "y": ydt,
+            "plan": dataclasses.asdict(plan)}
+
+
+def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str) -> float:
+    """The Wiener+iSTFT kernel's Nyquist-row input against its plain version
+    (p = 1 and 2, conserve_last, f32 and int16) and, bit for bit, against
+    the same kernel fed the concatenated spectrum; each call one launch of
+    ``kernel``. Returns the worst float32 error."""
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
+
+    full_re = torch.cat([re, ny[..., None]], -1)
+    full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
+    worst = 0.0
+    for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
+        for out in ("float32", "int16"):
+            before = dict(kernels.LAUNCHES)
+            got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
+            torch.cuda.synchronize()
+            moved = {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES}
+            if moved != {k: int(k == kernel) for k in WIENER_NAMES}:
+                raise AssertionError(f"wiener ny {name}: launched {moved}, want one {kernel}")
+            cat = wiener_istft(y, full_re, full_im, w, hop, L, output_dtype=out, **kw)
+            want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            eq = bool(torch.equal(got, cat))
+            tol = TOL_WIENER_I16 if out == "int16" else TOL_WIENER_F32
+            log(f"  wiener ny {name} {kw} {out}: max_abs_err {e:.3e} (tol {tol}), equal to the "
+                f"concatenated input's: {eq}")
+            if not (e <= tol and eq and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"wiener_istft ny {name} {kw} {out}: {e}, bit-equal {eq}")
+            if out == "float32":
+                worst = max(worst, e)
+    return worst
+
+
+def phase_wiener_cluster(device, gen) -> dict:
+    """The Wiener+iSTFT past 8192 points, at the reference kernel's 16 384
+    (hop 2048) and 32 768 (hop 4096), 4 stems of a 30 s track: bf16 and f32
+    y as phase 3 (one "wiener_istft_cluster" launch a call, also held to the
+    float64 synthesis), the Nyquist-row input (at 16 384 the forward STFT
+    kernel's own pair) as phase 11 (one "wiener_istft_ny_cluster" launch),
+    and the A/B that keys "auto": the kernel against the masked chain
+    "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
+    "auto", the iSTFT kernel on a cluster). It fails if a plan in
+    ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_CLUSTER_WON, wiener_istft
+    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
+    from convsep_tpu_torch.dsp.dft import istft_wiener, resolve_istft, resolve_masked_synthesis
+
+    res = {}
+    for nfft, hop, nf in ((16384, 2048, W16384_NF), (32768, 4096, W32768_NF)):
+        key = f"W {nfft}"
+        r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel="wiener_istft_cluster")
+        r["float32_y"] = phase_wiener(key + " f32 y", nfft, hop, nf, 4, device, gen, ydt="float32",
+                                      kernel="wiener_istft_cluster")
+        w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
+        if nfft == 16384:  # the forward STFT kernel's own Nyquist-separate pair
+            x = 0.3 * torch.randn(1, L, generator=gen, device=device)
+            re_b, im_b, ny = stft_ct_pallas(x, w, hop)
+        else:  # past the forward kernel's 16 384: the bodies cut from the full spectrum
+            re_b, im_b, ny = (re[..., :-1].contiguous(), im[..., :-1].contiguous(),
+                              re[..., -1].contiguous())
+        r["ny_max_abs_err"] = wiener_ny_check(key, w, hop, L, y, re_b, im_b, ny,
+                                              "wiener_istft_ny_cluster")
+        # the A/B: what "auto" runs on these shapes without the kernel
+        chain = resolve_istft("auto", nfft, nfft, hop, device)
+        auto = resolve_masked_synthesis("auto", nfft, nfft, hop, 1.0, device)
+        r["chain_ms"] = cuda_ms(lambda: istft_wiener(y, re, im, w, hop, L, algorithm=chain))
+        r["ms_ab"] = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
+        r.update(chain=chain, auto_route=auto, won=r["ms_ab"] < r["chain_ms"])
+        log(f"  wiener {key} A/B: kernel {r['ms_ab']:.4f} ms against the masked chain "
+            f"(mask + {chain}) {r['chain_ms']:.4f} ms: {'won' if r['won'] else 'lost'}; "
+            f"\"auto\" takes {auto}")
+        if (nfft, hop) in WIENER_CLUSTER_WON and r["ms_ab"] > (1 + WIENER_SPREAD) * r["chain_ms"]:
+            raise AssertionError(f"\"auto\" takes the Wiener+iSTFT cluster at {key}, hop {hop}, "
+                                 f"where it lost: {r['ms_ab']} ms > {r['chain_ms']} ms")
+        if (auto == "ct_pallas_wiener") != ((nfft, hop) in WIENER_CLUSTER_WON):
+            raise AssertionError(f"\"auto\" at {key}: {auto}, WIENER_CLUSTER_WON says otherwise")
+        res[key] = r
+        del y, re, im, re_b, im_b, ny
+        torch.cuda.empty_cache()
+    return res
 
 
 def mixture(seed: int = 0):
@@ -895,6 +1060,67 @@ def phase_slice(name: str, state, preset, device, audio, expect: dict, extra=Non
     return {"ms": ms, "plain_ms": plain_ms, "launches": launches}
 
 
+def rfft64_stft(signal, window, hop: int):
+    """``stft_pallas``'s function in float64: ``torch.fft.rfft`` of the same
+    zero-padded frames times the float32 window, then rounded to float32
+    (the plain version past ``DIRECT_MAX_NFFT`` and the reference every
+    cluster STFT is held to)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.stft import _pad_signal, frame_signal, num_frames
+
+    win, hop = len(window), int(hop)
+    x = signal.double()
+    frames = frame_signal(_pad_signal(x, win, hop), win, hop, num_frames(x.shape[-1], hop))
+    w = torch.from_numpy(np.asarray(window, np.float32).astype(np.float64)).to(x.device)
+    spec = torch.fft.rfft(frames * w)
+    return spec.real.float(), spec.imag.float()
+
+
+def istft64(re, im, window, hop: int, length: int, output_dtype: str = "float32"):
+    """``istft_pallas``'s function in float64 (nfft = the window): the
+    inverse real FFT of the float32 spectra, times the window, overlap-add,
+    the window-power normalization and the W/2 front trim, rounded to
+    float32 or PCM16 once at the end (the plain version past
+    ``DIRECT_MAX_NFFT`` and the reference every cluster iSTFT is held to)."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.istft import ola_norm, overlap_add
+    from convsep_tpu_torch.utils.pcm import quantize_pcm16
+
+    win, hop, nf = len(window), int(hop), int(re.shape[-2])
+    w32 = np.asarray(window, np.float32)
+    w = torch.from_numpy(w32.astype(np.float64)).to(re.device)
+    frames = torch.fft.irfft(torch.complex(re.double(), im.double()), n=win) * w
+    norm = torch.from_numpy(ola_norm(w32, w32, hop, nf).astype(np.float64)).to(re.device)
+    out = (overlap_add(frames, hop) / norm)[..., win // 2: win // 2 + int(length)].float()
+    return quantize_pcm16(out) if output_dtype == "int16" else out
+
+
+def wiener64(y, re, im, window, hop: int, length: int, p: float = 1.0,
+             conserve_last: bool = False, output_dtype: str = "float32", ny=None):
+    """``wiener_istft``'s function with the synthesis in float64: the
+    float32 Wiener mask (models/masks.py, as the kernel forms it) times the
+    mixture, then :func:`istft64` per stem."""
+    import torch
+    from convsep_tpu_torch.models.masks import wiener_mask
+
+    if ny is not None:
+        re = torch.cat([re, ny.unsqueeze(-1)], -1)
+        im = torch.cat([im, torch.zeros_like(ny).unsqueeze(-1)], -1)
+    mask = wiener_mask(y, p=p, eps=1e-8, axis=-3, conserve_last=conserve_last)
+    return istft64(mask * re.unsqueeze(-3), mask * im.unsqueeze(-3), window, hop, length,
+                   output_dtype)
+
+
+def stft_plain(x, w, hop: int):
+    """The STFT's plain version at a phase 5 row: ``stft_pallas_plain`` up to
+    ``DIRECT_MAX_NFFT``, the float64 transform past it."""
+    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
+
+    return stft_pallas_plain(x, w, hop) if len(w) <= DIRECT_MAX_NFFT else rfft64_stft(x, w, hop)
+
+
 def phase_stft(device, gen) -> dict:
     """The STFT kernels vs plain, each beside ``torch.stft(center=False)`` on
     the same padded signal (the same frames), with device and host times:
@@ -906,21 +1132,24 @@ def phase_stft(device, gen) -> dict:
     cluster at W 12 288, hop 3072 (7 × 6145) and W 20 000, hop 5000 (5 ×
     10 001), and the dense DFT kernel, forced, at the split's, Bluestein's
     and the cluster's W 12 288.
-    Each call must launch its kernel once and no other STFT kernel."""
+    Each call must launch its kernel once and no other STFT kernel. Past
+    ``DIRECT_MAX_NFFT`` the plain version is the float64 STFT, and every
+    cluster row is also held to it within ``TOL_CLUSTER_STFT``."""
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas_plain
+    from convsep_tpu_torch.dsp.dft import _forward_mats
 
     names = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_dft")
     out = {}
     for key, kernel, win, hop, batches, dense in STFT_SHAPES:
         fn = stft_fn(dense)
+        huge = dense and win > DIRECT_MAX_NFFT  # 6.4 GB of matrices: fewer timed calls
         worst, ms, plain_ms, lib_ms, us, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
         for B in batches:
             x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
             before = dict(kernels.LAUNCHES)
             re, im = fn(x, w, hop)
-            re_p, im_p = stft_pallas_plain(x, w, hop)
+            re_p, im_p = stft_plain(x, w, hop)
             torch.cuda.synchronize()
             moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
             if moved != {k: int(k == kernel) for k in names}:
@@ -938,11 +1167,21 @@ def phase_stft(device, gen) -> dict:
                 f"the plain version")
             if not (e <= TOL_STFT * peak and torch.isfinite(re).all() and torch.isfinite(im).all()):
                 raise AssertionError(f"{key} kernel B {B} disagrees: {e} > {TOL_STFT * peak}")
+            if kernel == "stft_cluster":
+                r64, i64 = rfft64_stft(x, w, hop)
+                e64 = max((re - r64).abs().max().item(), (im - i64).abs().max().item())
+                log(f"  {key} B {B}: {e64:.3e} from the float64 STFT (tol "
+                    f"{TOL_CLUSTER_STFT * peak:.3e})")
+                if not e64 <= TOL_CLUSTER_STFT * peak:
+                    raise AssertionError(f"{key} B {B}: {e64} > {TOL_CLUSTER_STFT * peak} from "
+                                         f"the float64 STFT")
+                del r64, i64
             worst = max(worst, e)
-            t = cuda_ms(lambda: fn(x, w, hop))
-            tp = cuda_ms(lambda: stft_pallas_plain(x, w, hop))
+            reps = dict(reps=1, rounds=3, warmup=0) if huge else {}
+            t = cuda_ms(lambda: fn(x, w, hop), **reps)
+            tp = cuda_ms(lambda: stft_plain(x, w, hop), **reps)
             tl = cuda_ms(library)
-            h = host_us(lambda: fn(x, w, hop))
+            h = host_us(lambda: fn(x, w, hop), reps=3 if huge else 200)
             log(f"  {key} B {B}: kernel {t:.4f} ms, plain {tp:.4f} ms, torch.stft {tl:.4f} ms; "
                 f"wrapper host {h:.1f} us per call")
             ms, plain_ms, lib_ms, us = ms + t, plain_ms + tp, lib_ms + tl, us + h
@@ -953,6 +1192,10 @@ def phase_stft(device, gen) -> dict:
         out[key] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
                     "library_ms": lib_ms, "host_us": us, "W": win, "hop": hop,
                     "B": list(batches)}
+        if huge:
+            _forward_mats.cache_clear()
+            del re, im, re_p, im_p
+            torch.cuda.empty_cache()
     dev = device_times("stft")["stft"]
     for key, *_ in STFT_SHAPES:
         r, d = out[key], dev[key]
@@ -966,7 +1209,8 @@ def phase_stft(device, gen) -> dict:
     for key, dense in (("stft_split", "stft_dft W 768"), ("stft_split W 1280", "stft_dft W 1280"),
                        ("stft_bluestein", "stft_dft W 1000"),
                        ("stft_bluestein W 6000", "stft_dft W 6000"),
-                       ("stft_cluster", "stft_dft W 12288")):
+                       ("stft_cluster", "stft_dft W 12288"),
+                       ("stft_cluster W 40000", "stft_dft W 40000")):
         r, d = out[key], out[dense]
         r["dense_ms"], r["dense_device_ms"] = d["ms"], d["device_ms"]
         log(f"  {key}: {key.split()[0]} {r['ms']:.4f} ms (device {ms_str(r['device_ms'])}) against the "
@@ -1368,6 +1612,8 @@ def phase_istft(device, gen) -> dict:
     res = {}
     for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
         kern, plain = istft_fn(ct, kernel), istft_ct_pallas_plain if ct else istft_pallas_plain
+        if nfft > DIRECT_MAX_NFFT:  # the direct matrices pass 6 GB: the float64 synthesis
+            plain = istft64
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
         err = {}
         for out in ("float32", "int16"):
@@ -1379,8 +1625,9 @@ def phase_istft(device, gen) -> dict:
                 want = plain(re, im, w, hop, L, output_dtype=out)
             else:
                 got = launch_istft(re, im, w, hop, L, nfft, out, direct=kernel == "istft_direct")
-                want = istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
-                                    output_dtype=out)
+                want = (istft64(re, im, w, hop, L, out) if nfft > DIRECT_MAX_NFFT else
+                        istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
+                                     output_dtype=out))
             torch.cuda.synchronize()
             moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
             if moved != {k: int(k == kernel) for k in names}:
@@ -1394,6 +1641,16 @@ def phase_istft(device, gen) -> dict:
             if not e <= tol:
                 raise AssertionError(f"istft kernel {name} {out} disagrees: {e} > {tol}")
             err[out] = e
+            if kernel == "istft_cluster" and out == "float32":
+                ref = want if nfft > DIRECT_MAX_NFFT else istft64(re, im, w, hop, L)
+                peak = ref.abs().max().item()
+                e64 = (got - ref).abs().max().item()
+                log(f"  istft {name}: {e64:.3e} from the float64 synthesis (tol "
+                    f"{TOL_CLUSTER_F32 * peak:.3e})")
+                if not e64 <= TOL_CLUSTER_F32 * peak:
+                    raise AssertionError(f"istft {name}: {e64} > {TOL_CLUSTER_F32 * peak} from "
+                                         f"the float64 synthesis")
+                err["rel_float64"] = e64 / peak
         want = plain(re, im, w, hop, L)
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
         spec = torch.complex(re, im).transpose(-1, -2)  # torch.istft's (..., bins, frames)
@@ -1412,6 +1669,7 @@ def phase_istft(device, gen) -> dict:
             f"{e_lib:.3e} from the plain version's); bound {b['bound_ms']:.4f} ms ({b['bound_by']});"
             f" wrapper host {us:.1f} us per call")
         res[name] = {"max_abs_err": err["float32"], "max_abs_err_int16": err.get("int16"),
+                     "rel_err_float64": err.get("rel_float64"),
                      "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "host_us": us}
         if kernel == "istft_cluster":
             res[name]["plan"] = cluster_plan_check(N, nf, nfft, hop)
@@ -1677,60 +1935,91 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
             "d2h_pageable_ms": pageable, "d2h_pinned_ms": pinned}
 
 
+# phase 11's forward STFT kernel: (key, nfft = W, hop, the kernel it must
+# launch): multires4096's 4096 points on the FFT core, and the reference's
+# largest, 16 384, on a thread-block cluster of 4 blocks
+CT_STFT_SHAPES = (("ct_stft", 4096, 1024, "ct_stft"),
+                  ("ct_stft W 16384", 16384, 4096, "ct_stft_cluster"))
+
+
 def phase_ct_stft(device, gen) -> dict:
-    """The forward STFT kernel vs plain on one multires4096 track
-    (1, 1 474 560), 4096 pt, hop 1024, beside ``torch.stft`` on the same
-    (already padded) frames."""
+    """The forward STFT kernels vs plain on one multires4096 track
+    (1, 1 474 560) at ``CT_STFT_SHAPES``, beside ``torch.stft`` on the same
+    (already padded) frames; each call one launch of its kernel. The
+    cluster is also held to the float64 STFT within ``TOL_CLUSTER_STFT``."""
     import numpy as np
     import torch
+    from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas, stft_ct_pallas_plain
     from convsep_tpu_torch.dsp.stft import _pad_signal
     from convsep_tpu_torch.dsp.windows import sinebell
 
-    w, hop, nfft = sinebell(4096), 1024, 4096
     x = 0.3 * torch.randn(1, MR_SAMPLES, generator=gen, device=device)
-    got = stft_ct_pallas(x, w, hop)
-    want = stft_ct_pallas_plain(x, w, hop)
-    torch.cuda.synchronize()
-    peak = max(a.abs().max().item() for a in want)
-    e = max((g - p).abs().max().item() for g, p in zip(got, want))
-    nf = got[0].shape[1]
-    log(f"  ct_stft (1, {MR_SAMPLES}): re/im {tuple(got[0].shape)}, ny {tuple(got[2].shape)} "
-        f"max_abs_err {e:.3e} (tol {TOL_STFT * peak:.3e}, max|X| {peak:.3e})")
-    if not (e <= TOL_STFT * peak and all(torch.isfinite(a).all() for a in got)):
-        raise AssertionError(f"ct_stft kernel disagrees: {e} > {TOL_STFT * peak}")
-    padded = _pad_signal(x, nfft, hop)
-    wt = torch.from_numpy(w.astype(np.float32)).to(device)
+    dev_all = device_times("ct_stft")["ct_stft"]
+    res = {}
+    for key, nfft, hop, kernel in CT_STFT_SHAPES:
+        w = sinebell(nfft)
+        half = nfft // 2
+        before = dict(kernels.LAUNCHES)
+        got = stft_ct_pallas(x, w, hop)
+        torch.cuda.synchronize()
+        moved = {k: kernels.LAUNCHES[k] - before[k] for k in ("ct_stft", "ct_stft_cluster")}
+        if moved != {k: int(k == kernel) for k in moved}:
+            raise AssertionError(f"{key}: launched {moved}, want one {kernel}")
+        want = stft_ct_pallas_plain(x, w, hop)
+        peak = max(a.abs().max().item() for a in want)
+        e = max((g - p).abs().max().item() for g, p in zip(got, want))
+        nf = got[0].shape[1]
+        log(f"  {key} (1, {MR_SAMPLES}): re/im {tuple(got[0].shape)}, ny {tuple(got[2].shape)} "
+            f"max_abs_err {e:.3e} (tol {TOL_STFT * peak:.3e}, max|X| {peak:.3e})")
+        if not (e <= TOL_STFT * peak and all(torch.isfinite(a).all() for a in got)):
+            raise AssertionError(f"{key} kernel disagrees: {e} > {TOL_STFT * peak}")
+        e64 = None
+        if kernel == "ct_stft_cluster":
+            r64, i64 = rfft64_stft(x, w, hop)
+            e64 = max((got[0] - r64[..., :half]).abs().max().item(),
+                      (got[1] - i64[..., :half]).abs().max().item(),
+                      (got[2] - r64[..., half]).abs().max().item())
+            log(f"  {key}: {e64:.3e} from the float64 STFT (tol {TOL_CLUSTER_STFT * peak:.3e})")
+            if not e64 <= TOL_CLUSTER_STFT * peak:
+                raise AssertionError(f"{key}: {e64} > {TOL_CLUSTER_STFT * peak} from the float64 "
+                                     f"STFT")
+            del r64, i64
+        padded = _pad_signal(x, nfft, hop)
+        wt = torch.from_numpy(w.astype(np.float32)).to(device)
 
-    def library():
-        return torch.stft(padded, nfft, hop, window=wt, center=False, return_complex=True)
+        def library():
+            return torch.stft(padded, nfft, hop, window=wt, center=False, return_complex=True)
 
-    lib = library()[0].transpose(0, 1)  # (nf, bins)
-    e_lib = max((lib.real[:, :2048] - want[0][0]).abs().max().item(),
-                (lib.imag[:, :2048] - want[1][0]).abs().max().item(),
-                (lib.real[:, 2048] - want[2][0]).abs().max().item())
-    ms = cuda_ms(lambda: stft_ct_pallas(x, w, hop))
-    plain_ms = cuda_ms(lambda: stft_ct_pallas_plain(x, w, hop))
-    lib_ms = cuda_ms(library)
-    us = host_us(lambda: stft_ct_pallas(x, w, hop))
-    dev = device_times("ct_stft")["ct_stft"]["ct_stft"]
-    b = bound(4 * x.numel() + 4 * sum(a.numel() for a in got), fft_flops(nf, nfft))
-    log(f"  ct_stft: kernel {ms:.4f} ms (device {ms_str(dev['device_ms'])}), plain "
-        f"{plain_ms:.4f} ms, torch.stft {lib_ms:.4f} ms (device "
-        f"{ms_str(dev['library_device_ms'])}; cuFFT on the same frames; {e_lib:.3e} from the "
-        f"plain version); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); wrapper host "
-        f"{us:.1f} us per call")
-    log(f"  device kernels: {json.dumps(dev)}")
-    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
-            "device_ms": dev["device_ms"], "library_device_ms": dev["library_device_ms"],
-            "host_us": us}
+        lib = library()[0].transpose(0, 1)  # (nf, bins)
+        e_lib = max((lib.real[:, :half] - want[0][0]).abs().max().item(),
+                    (lib.imag[:, :half] - want[1][0]).abs().max().item(),
+                    (lib.real[:, half] - want[2][0]).abs().max().item())
+        ms = cuda_ms(lambda: stft_ct_pallas(x, w, hop))
+        plain_ms = cuda_ms(lambda: stft_ct_pallas_plain(x, w, hop))
+        lib_ms = cuda_ms(library)
+        us = host_us(lambda: stft_ct_pallas(x, w, hop))
+        dev = dev_all[key]
+        b = bound(4 * x.numel() + 4 * sum(a.numel() for a in got), fft_flops(nf, nfft))
+        log(f"  {key}: kernel {ms:.4f} ms (device {ms_str(dev['device_ms'])}), plain "
+            f"{plain_ms:.4f} ms, torch.stft {lib_ms:.4f} ms (device "
+            f"{ms_str(dev['library_device_ms'])}; cuFFT on the same frames; {e_lib:.3e} from the "
+            f"plain version); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); wrapper host "
+            f"{us:.1f} us per call")
+        log(f"  device kernels: {json.dumps(dev)}")
+        res[key] = {"max_abs_err": e, "rel_err_float64": None if e64 is None else e64 / peak,
+                    "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+                    "device_ms": dev["device_ms"], "library_device_ms": dev["library_device_ms"],
+                    "host_us": us, "W": nfft, "hop": hop}
+        del got, want, lib, padded
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_wiener_ny(device, gen) -> dict:
     """The Wiener+iSTFT kernel's Nyquist-row input at multires4096 (S 4,
-    nf 1442, bf16 y): against its plain version (p = 1 and 2,
-    conserve_last, f32 and int16) and, bit for bit, against the same
-    kernel fed the concatenated spectrum."""
+    nf 1442, bf16 y): :func:`wiener_ny_check` (its plain version, and bit
+    for bit the same kernel fed the concatenated spectrum)."""
     import torch
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
@@ -1745,23 +2034,7 @@ def phase_wiener_ny(device, gen) -> dict:
     y = y.to(torch.bfloat16)
     full_re = torch.cat([re, ny[..., None]], -1)
     full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
-    worst, same = 0.0, True
-    for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
-        for out in ("float32", "int16"):
-            got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
-            cat = wiener_istft(y, full_re, full_im, w, hop, L, output_dtype=out, **kw)
-            want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
-            torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            eq = bool(torch.equal(got, cat))
-            same = same and eq
-            tol = TOL_WIENER_I16 if out == "int16" else TOL_WIENER_F32
-            log(f"  wiener ny {kw} {out}: max_abs_err {e:.3e} (tol {tol}), equal to the "
-                f"concatenated input's: {eq}")
-            if not (e <= tol and eq and torch.isfinite(got.float()).all()):
-                raise AssertionError(f"wiener_istft ny {kw} {out}: {e}, bit-equal {eq}")
-            if out == "float32":
-                worst = max(worst, e)
+    worst = wiener_ny_check("multires4096", w, hop, L, y, re, im, ny, "wiener_istft_ny")
     ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L, ny=ny))
     cat_ms = cuda_ms(lambda: wiener_istft(y, full_re, full_im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L, ny=ny))
@@ -1770,7 +2043,7 @@ def phase_wiener_ny(device, gen) -> dict:
     log(f"  wiener ny p=1 f32 out: kernel {ms:.3f} ms (concatenated input {cat_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": worst, "ms": ms, "concatenated_ms": cat_ms, "plain_ms": plain_ms,
-            **b, "library_ms": None, "bit_equal_to_concatenated": same}
+            **b, "library_ms": None, "bit_equal_to_concatenated": True}
 
 
 def phase_band_decode(device, gen) -> dict:
@@ -2919,6 +3192,11 @@ def main(argv: list[str]) -> int:
                                                          device, gen, B)
         wie_batches[f"dsd100 B {B}"] = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, B)
         torch.cuda.empty_cache()
+    log("phase 3c: the Wiener+iSTFT past 8192 points on a thread-block cluster (W 16 384, hop "
+        "2048 and W 32 768, hop 4096; 4 stems of a 30 s track; bf16 and f32 y, the Nyquist-row "
+        "input), and its A/B against the masked chain")
+    wie_cl = phase_wiener_cluster(device, gen)
+    torch.cuda.empty_cache()
 
     log("phase 4: separation slice, 30 s 44.1 kHz mixture, seeded random weights")
     audio = mixture(0)
@@ -3011,6 +3289,8 @@ def main(argv: list[str]) -> int:
     others = dev["others"]
     for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
                     ("wiener_istft W 768", wie768),
+                    ("wiener_istft W 16384", wie_cl["W 16384"]),
+                    ("wiener_istft W 32768", wie_cl["W 32768"]),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
                     ("fused_adadelta", ada)):
         r["device_ms"] = others[name]
@@ -3092,10 +3372,12 @@ def main(argv: list[str]) -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     # every path's STFT and iSTFT runs on the FFT core: the split,
-    # Bluestein and its cluster (both directions), the dense DFT and the
-    # direct sum serve only sizes that no preset uses
+    # Bluestein and its cluster (both directions, and the Wiener+iSTFT's and
+    # the forward STFT's clusters), the dense DFT and the direct sum serve
+    # only sizes that no preset uses
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_dft", "istft_split",
-                   "istft_bluestein", "istft_cluster", "istft_direct"):
+                   "istft_bluestein", "istft_cluster", "istft_direct", "wiener_istft_cluster",
+                   "wiener_istft_ny_cluster", "ct_stft_cluster"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -3112,6 +3394,17 @@ def main(argv: list[str]) -> int:
          **launched("wiener_istft"), **wie, "dsd100": wie_dsd, "batches": wie_batches,
          "w768_direct": wie768,
          "ny": {**launched("wiener_istft_ny"), **wny}},
+        {"name": "wiener_istft_cluster", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "even 8192 < nfft <= 32 768, the reference kernel's 16 384 and 32 768: "
+                   "Bluestein run backwards on a thread-block cluster of 4 or 8 blocks, a pair "
+                   "of sources a cluster; no preset",
+         **launched("wiener_istft_cluster"), **wie_cl["W 16384"],
+         "w32768_hop4096": wie_cl["W 32768"],
+         "ny": {**launched("wiener_istft_ny_cluster"),
+                "max_abs_err_16384": wie_cl["W 16384"]["ny_max_abs_err"],
+                "max_abs_err_32768": wie_cl["W 32768"]["ny_max_abs_err"]}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
@@ -3133,16 +3426,19 @@ def main(argv: list[str]) -> int:
         {"name": "stft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "8192 < nfft <= 32 768 (12 288, 20 000, odd sizes): Bluestein on a "
-                   "thread-block cluster of 4 or 8 blocks; no preset",
+         "serves": "8192 < nfft <= 65 536 (12 288, 20 000, 40 000, odd sizes): Bluestein on a "
+                   "thread-block cluster of 4, 8 or 16 blocks; no preset",
          **launched("stft_cluster"), **stft_all["stft_cluster"],
-         "w20000_hop5000": stft_all["stft_cluster W 20000"]},
+         "w20000_hop5000": stft_all["stft_cluster W 20000"],
+         "w40000_hop10000": stft_all["stft_cluster W 40000"],
+         "w65536_hop16384": stft_all["stft_cluster W 65536"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "nfft past 32 768; stft_dft_pallas forces it at any size (timed forced at W "
-                   "12 288, the cluster's shape); no preset",
+         "serves": "nfft past 65 536; stft_dft_pallas forces it at any size (timed forced at W "
+                   "12 288 and 40 000, the cluster's shapes); no preset",
          **launched("stft_dft"), **stft_all["stft_dft W 12288"],
+         "forced_w40000": stft_all["stft_dft W 40000"],
          "forced_w768": stft_all["stft_dft W 768"],
          "forced_w1280": stft_all["stft_dft W 1280"],
          "forced_w1000": stft_all["stft_dft W 1000"],
@@ -3175,16 +3471,18 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even 8192 < nfft <= 32 768 (10 000, 20 000): Bluestein run backwards on a "
-                   "thread-block cluster of 4 or 8 blocks; no preset",
+         "serves": "even 8192 < nfft <= 65 536 (10 000, 20 000, 40 000): Bluestein run "
+                   "backwards on a thread-block cluster of 4, 8 or 16 blocks; no preset",
          **launched("istft_cluster"), **ist["W 10000 cluster"],
-         "w20000_hop5000": ist["W 20000 cluster"]},
+         "w20000_hop5000": ist["W 20000 cluster"],
+         "w40000_hop10000": ist["W 40000 cluster"],
+         "w65536_hop16384": ist["W 65536 cluster"]},
         {"name": "istft_direct", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_direct_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even nfft past 32 768; istft_direct_pallas forces it at any even size "
-                   "(timed forced at W 10 000, the cluster's shape); no preset",
+         "serves": "no size of istft_pallas; istft_direct_pallas forces it at any even size "
+                   "up to 12 800 (timed forced at W 10 000, the cluster's shape); no preset",
          **launched("istft_direct"), **ist["W 10000 direct sum"],
          "forced_w1000": ist["W 1000 direct sum"]},
         {"name": "wiener_apply", "route": "cuda",
@@ -3195,7 +3493,13 @@ def main(argv: list[str]) -> int:
         {"name": "ct_stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/ct_stft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
-         **launched("ct_stft"), **ct},
+         **launched("ct_stft"), **ct["ct_stft"]},
+        {"name": "ct_stft_cluster", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/ct_stft.cu", "entry": "ct_stft_cluster_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
+         "serves": "nfft 16 384, the reference kernel's largest: Bluestein on a thread-block "
+                   "cluster of 4 blocks; no preset",
+         **launched("ct_stft_cluster"), **ct["ct_stft W 16384"]},
         {"name": "band_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/band_decode.cu",
          "replaces": "convsep_tpu/models/decoder_pallas.py:80",

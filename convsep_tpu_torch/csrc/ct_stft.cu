@@ -29,6 +29,15 @@
 // (fft_plan.stft_plan). So no pass waits on a block-wide barrier, no frame
 // pair waits on another, no store scatters to bit-reversed slots, and no
 // block computes twiddles.
+//
+// ct_stft_cluster_kernel takes the reference's largest size, 16 384 points,
+// past the core's 8192: Bluestein's chirp-z over a thread-block cluster of
+// 4 blocks (M 32 768, fft_common.cuh::stft_cluster_block, stft_dft.cu's
+// cluster kernel with these output rows), one cluster a pair of frames,
+// the frames read from global memory. At hop 4096, one 30 s track (325
+// frames) its bound is bytes: 5.3 MB of signal and 21.3 MB of spectra, 7.9
+// us. A direct 16 384-point transform on the core's level would need one
+// transform instead of Bluestein's two of twice the points.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +92,15 @@ cudaError_t launch(const float* x, const float* win, const float2* tw, float* re
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kMaxThreads) ct_stft_cluster_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float2* __restrict__ chat, float* __restrict__ re,
+    float* __restrict__ im, float* __restrict__ ny, int L, int nfft, int hop, int nf) {
+  extern __shared__ float4 smem4[];
+  stft_cluster_block<kMaxLog2, 4>(smem4, x, win, tw, chirp, chat, L, nfft, hop, nf, nfft,
+                                  HalfRows{re, im, ny, nfft / 2});
+}
+
 }  // namespace
 
 // nfft = window, a power of two in [2^11, 2^13]; `ffts` complex FFTs (2 ffts
@@ -106,4 +124,24 @@ extern "C" int ct_stft_launch(const void* x, const void* win, const void* tw, vo
     case 12: return (int)launch<12>(xs, w, t, r, i, n, B, L, hop, nf, ffts, s);
     default: return (int)launch<13>(xs, w, t, r, i, n, B, L, hop, nf, ffts, s);
   }
+}
+
+// nfft = window, even, past the core's 8192 up to 16 384 (Bluestein's M 32
+// 768: a cluster of 4 blocks of 512 threads a pair of frames); tw the
+// M-point quarter table (fft_plan.twiddles), chirp (nfft) and chat (M) from
+// fft_plan.bluestein_tables.
+extern "C" int ct_stft_cluster_launch(const void* x, const void* win, const void* tw,
+                                      const void* chirp, const void* chat, void* re, void* im,
+                                      void* ny, int B, int L, int nfft, int hop, int nf,
+                                      void* stream) {
+  if (B < 1 || L < 1 || nf < 1 || hop < 1 || nfft % 2 != 0 || nfft <= (1 << kMaxLog2) ||
+      bluestein_log2(nfft) != kMaxLog2 + 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_clusters<4>(
+      ct_stft_cluster_kernel, (long long)B * ((nf + 1) / 2), cluster_smem_bytes(kMaxLog2, 0),
+      static_cast<cudaStream_t>(stream), nullptr, static_cast<const float*>(x),
+      static_cast<const float*>(win), static_cast<const float2*>(tw),
+      static_cast<const float2*>(chirp), static_cast<const float2*>(chat),
+      static_cast<float*>(re), static_cast<float*>(im), static_cast<float*>(ny), L, nfft, hop,
+      nf);
 }

@@ -71,11 +71,13 @@
 // (istft_bluestein_block) is the same convolution run backwards: the
 // inverse DFT is conj(DFT_N(conj Z)) / N.
 //
-// Past 8192 points (N <= 32 768) Bluestein's M = 8192 C points (C 4 or 8)
-// live across the C blocks of a thread-block cluster (ClusterChirp,
-// stft_cluster_block, istft_cluster_block): each block runs the core's
-// 8192-point transform on its part, and the one exchange between them is
-// read through distributed shared memory (peer) where it is consumed.
+// Past 8192 points (N <= 65 536) Bluestein's M = 8192 C points (C 4, 8 or
+// 16; 16 is past the portable cluster size) live across the C blocks of a
+// thread-block cluster (ClusterChirp, stft_cluster_block,
+// istft_cluster_block, and wiener_common.cuh's wiener_cluster_block): each
+// block runs the core's 8192-point transform on its part, and the one
+// exchange between them is read through distributed shared memory (peer)
+// where it is consumed. launch_clusters launches them.
 
 #pragma once
 
@@ -919,10 +921,10 @@ struct Level {
 
 // ---- Bluestein -------------------------------------------------------------
 
-constexpr int kClusterLog2 = kMaxLog2 + 3;  // 65 536 points: a cluster of 8 blocks of 8192
+constexpr int kClusterLog2 = kMaxLog2 + 4;  // 131 072 points: a cluster of 16 blocks of 8192
 
 // M = 2^ceil(log2(2 N - 1)), at least 16: Bluestein's convolution length
-// for N points (fft_plan.bluestein_size); 0 past a cluster's 65 536. Up to
+// for N points (fft_plan.bluestein_size); 0 past a cluster's 131 072. Up to
 // the level's 16 384 one block holds a transform (stft_bluestein_block),
 // past it a cluster (stft_cluster_block).
 inline int bluestein_log2(int n) {
@@ -1207,8 +1209,8 @@ inline size_t cluster_smem_bytes(int log2p, int carry) {
 // the hop columns each block of a cluster of c owns in the inverse's gather
 __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop + c - 1) / c; }
 
-// Bluestein's cyclic convolution of M = C P points (P = 2^LOG2P, C = 2, 4
-// or 8) on the C blocks of a cluster, one group of P / 16 threads a block,
+// Bluestein's cyclic convolution of M = C P points (P = 2^LOG2P, C = 2, 4,
+// 8 or 16) on the C blocks of a cluster, one group of P / 16 threads a block,
 // each block holding one P-point exchange buffer: Chirp::convolve with the
 // points spread over the cluster. With w = e^{-2 pi i / M} and W = w^P =
 // e^{-2 pi i / C}, block r (its rank):
@@ -1216,7 +1218,10 @@ __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop 
 // 1. forward, decimation in frequency, the first stage fed from the point
 //    functor (global memory): b_r[n] = w^{r n} sum_q u[n + P q] W^{r q},
 //    n < P (u is 0 from M/2 on, so q < C/2), then the core's Fft<LOG2P> on
-//    b_r leaves Y[C k + r] at slot(k): no exchange;
+//    b_r leaves Y[C k + r] at slot(k): no exchange. Block r needs only its
+//    own output r of the radix-C DFT, so it sums by Horner in W^r (C/2 - 1
+//    products a point) where a whole dft<C> would cost C log2 C and discard
+//    C - 1 of its outputs;
 // 2. times chat[C k + r] (the FFT of the wrapped chirp with 1/M folded in),
 //    conjugated, in place;
 // 3. the inverse by conjugation, decimation in time: block r holds the
@@ -1224,8 +1229,8 @@ __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop 
 //    the combine's twiddle, w^{r k1} V_r[k1], in place; a cluster barrier;
 // 4. the radix-C combine, computed where it is consumed (point):
 //    Z[k1 + P q] = sum_r W^{r q} w^{r k1} V_r[k1], read from the C blocks'
-//    buffers through distributed shared memory (peer). Z = conj(u * c), as
-//    Chirp leaves its buffer.
+//    buffers through distributed shared memory (peer), summed by Horner in
+//    W^q. Z = conj(u * c), as Chirp leaves its buffer.
 //
 // A block's buffer is read by its peers until the cluster's next barrier,
 // which the caller places before the buffer is written again or the block
@@ -1236,7 +1241,7 @@ __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop 
 // the same code.
 template <int LOG2P, int C>
 struct ClusterChirp {
-  static_assert(C == 2 || C == 4 || C == 8, "a cluster of 2, 4 or 8 blocks");
+  static_assert(C == 2 || C == 4 || C == 8 || C == 16, "a cluster of 2, 4, 8 or 16 blocks");
   static constexpr int P = 1 << LOG2P;
   static constexpr int M = C * P;
   static constexpr int T = fft_threads(LOG2P);
@@ -1303,7 +1308,7 @@ struct ClusterChirp {
   }
 };
 
-// stft_bluestein_block for 8192 < N <= 32 768 (M = 8192 C) on a cluster of C
+// stft_bluestein_block for 8192 < N <= 65 536 (M = 8192 C) on a cluster of C
 // blocks (ClusterChirp at P = 2^LOG2P): cluster p = blockIdx.x / C (its
 // blocks are consecutive in x) carries frames 2 p' and 2 p' + 1 of its
 // signal as z = a + i b (windowed, t < W) times chirp[t], every block reading
@@ -1356,7 +1361,7 @@ __device__ __forceinline__ void stft_cluster_block(
   cluster_sync();  // the peers have read this block's buffer
 }
 
-// istft_bluestein_block for even 8192 < N <= 32 768 on a cluster of C
+// istft_bluestein_block for even 8192 < N <= 65 536 on a cluster of C
 // blocks: cluster q = blockIdx.x / C owns hop rows [j0, j0 + rows) of
 // signal n and walks frames j0 - (win/hop - 1) on in rounds of one pair (a
 // block is one group): each block loads the points of its first stage
@@ -1450,5 +1455,40 @@ __device__ __forceinline__ void istft_cluster_block(
     cluster_sync();  // the peers have read this round's buffers
   }
 }
+
+#ifdef __CUDACC__
+// Launch kern(args...) as `clusters` clusters of C blocks of kMaxThreads
+// threads, the blocks of a cluster consecutive in x, each with `smem` bytes
+// of dynamic shared memory. A cluster of 16 is past the portable size of 8:
+// the kernel must allow it (cudaFuncAttributeNonPortableClusterSizeAllowed).
+// With `active`, launches nothing and sets how many such clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters: at 512 threads and 128
+// registers one block an SM, a cluster's blocks within one GPC).
+template <int C, class... Params, class... Args>
+cudaError_t launch_clusters(void (*kern)(Params...), long long clusters, size_t smem,
+                            cudaStream_t stream, int* active, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * C));
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr) return cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+#endif
 
 }  // namespace fft_common

@@ -62,10 +62,10 @@
 // signals of 5294 frames its bound is bytes, 106 MB and 0.0317 ms, where the
 // direct sum below did 2.1e10 complex products.
 //
-// istft_cluster_kernel (even 8192 < nfft <= 32 768: 10 000, 20 000; no
-// preset uses one) is Bluestein run backwards on a thread-block cluster of
-// 4 or 8 blocks (fft_common.cuh::istft_cluster_block, the forward kernel's
-// ClusterChirp): a cluster owns R hop rows of a signal and walks them one
+// istft_cluster_kernel (even 8192 < nfft <= 65 536: 10 000, 20 000, 40
+// 000; no preset uses one) is Bluestein run backwards on a thread-block
+// cluster of 4, 8 or 16 blocks (fft_common.cuh::istft_cluster_block, the
+// forward kernel's ClusterChirp): a cluster owns R hop rows of a signal and walks them one
 // pair of frames a round, each block loading its first stage's points
 // straight from the spectrum rows; in the gather each block owns 1/C of
 // every hop row's columns and their carry, and reads each frame sample
@@ -78,7 +78,7 @@
 // 512-thread block, a pair of frames at a time, with the host's
 // float64-made table of e^{-2 pi i m / nfft}, serves no size of the
 // wrapper now: its table and spectrum fit shared memory only up to 12 800
-// points, so fft_plan.istft_plan refuses even sizes past 32 768;
+// points, so fft_plan.istft_plan refuses even sizes past 65 536;
 // istft_direct_pallas forces it at any even size up to there.
 
 #include <cuda_runtime.h>
@@ -341,29 +341,21 @@ cudaError_t launch_cluster(const BluesteinArgs& a, int* active = nullptr) {
   const int rows = 2 * a.rounds - (k - 1);
   if (rows < 1) return cudaErrorInvalidValue;
   const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
-  const size_t smem = cluster_smem_bytes(kMaxLog2, (k - 1) * cluster_columns(a.hop, C));
-  auto kern = istft_cluster_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((long long)a.nt * per_signal * C));
-  cfg.blockDim = dim3(fft_threads(kMaxLog2));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (active != nullptr) return cudaOccupancyMaxActiveClusters(active, kern, &cfg);
-  err = cudaLaunchKernelEx(&cfg, kern, a.re, a.im, a.wn, a.inv, a.tw, a.chirp,
-                           a.chat, a.out, a.out_int16, a.nf, a.nfft, a.win, a.hop, a.length,
-                           a.rounds, rows, per_signal);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_clusters<C>(istft_cluster_kernel<C>, (long long)a.nt * per_signal,
+                            cluster_smem_bytes(kMaxLog2, (k - 1) * cluster_columns(a.hop, C)),
+                            a.stream, active, a.re, a.im, a.wn, a.inv, a.tw, a.chirp, a.chat,
+                            a.out, a.out_int16, a.nf, a.nfft, a.win, a.hop, a.length, a.rounds,
+                            rows, per_signal);
+}
+
+// the cluster instance for Bluestein's M = 2^log2m: C = M / 8192
+cudaError_t dispatch_cluster(int log2m, const BluesteinArgs& a, int* active = nullptr) {
+  switch (log2m - kMaxLog2) {
+    case 2: return launch_cluster<4>(a, active);
+    case 3: return launch_cluster<8>(a, active);
+    case 4: return launch_cluster<16>(a, active);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -468,8 +460,9 @@ extern "C" int istft_bluestein_launch(const void* re, const void* im, const void
   return (int)dispatch_bluestein(log2m, a);
 }
 
-// The cluster route: even 8192 < nfft <= 32 768 (M 32 768 or 65 536: a
-// cluster of 4 or 8 blocks of 512 threads, one pair of frames a round);
+// The cluster route: even 8192 < nfft <= 65 536 (M 32 768, 65 536 or 131
+// 072: a cluster of 4, 8 or 16 blocks of 512 threads, one pair of frames a
+// round);
 // tw the M-point quarter table (fft_plan.twiddles), chirp (nfft) and chat
 // (M) from fft_plan.bluestein_tables; rounds from fft_plan.istft_plan
 // (istft_cluster_plan).
@@ -492,7 +485,7 @@ extern "C" int istft_cluster_launch(const void* re, const void* im, const void* 
                         out,
                         out_int16, nt, nf, nfft, win, hop, length, 1, rounds,
                         static_cast<cudaStream_t>(stream)};
-  return (int)(log2m == kLevelLog2 + 1 ? launch_cluster<4>(a) : launch_cluster<8>(a));
+  return (int)dispatch_cluster(log2m, a);
 }
 
 // How many clusters of istft_cluster_kernel a launch at (nfft, win, hop)
@@ -506,6 +499,5 @@ extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int* active) 
   const int k = win / hop;
   const BluesteinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         0, 1, 1, nfft, win, hop, 1, 1, k, nullptr};
-  return (int)(log2m == kLevelLog2 + 1 ? launch_cluster<4>(a, active)
-                                       : launch_cluster<8>(a, active));
+  return (int)dispatch_cluster(log2m, a, active);
 }

@@ -2,7 +2,7 @@
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
 // (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
 // {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 8192,
-// stft_cluster_kernel past 8192 up to 32 768), and the dense DFT
+// stft_cluster_kernel past 8192 up to 65 536), and the dense DFT
 // (stft_dft_kernel) for the sizes past those.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
@@ -64,11 +64,12 @@
 // are written coalesced by bin; the two transforms' points cross threads
 // only in shared memory, behind each group's own barriers.
 //
-// stft_cluster_kernel (8192 < nfft <= 32 768: 12 288, 20 000, odd sizes;
-// no preset uses one) is Bluestein over a thread-block cluster
-// (fft_common.cuh::stft_cluster_block): M = 32 768 or 65 536 points no
-// longer fit one block's 227 KB, so a cluster of C = M / 8192 blocks (4 or
-// 8, the portable limit) holds them, each block one 512-thread group
+// stft_cluster_kernel (8192 < nfft <= 65 536: 12 288, 20 000, 40 000, odd
+// sizes; no preset uses one) is Bluestein over a thread-block cluster
+// (fft_common.cuh::stft_cluster_block): M = 32 768, 65 536 or 131 072
+// points no longer fit one block's 227 KB, so a cluster of C = M / 8192
+// blocks (4, 8 or 16: 16 past the portable limit, which the kernel allows
+// before its launch) holds them, each block one 512-thread group
 // running the core's 8192-point transform on its part in 87 KB of shared
 // memory. The forward transform is decimation in frequency with its radix-C
 // first stage fed straight from the frames in global memory, so its output
@@ -78,9 +79,11 @@
 // it is consumed (by the bins' writers): one exchange a transform pair,
 // one cluster barrier before it and one before the blocks exit. At W 12
 // 288, hop 3072, B 32 (7 frames x 6145 bins) the bound is bytes, 12.8 MB
-// and 3.8 us, where the dense kernel below reads 604 MB of matrices.
+// and 3.8 us, where the dense kernel below reads 604 MB of matrices; at W
+// 40 000, hop 10 000, B 32 (4 frames x 20 001 bins, 16 blocks a cluster)
+// 12.0 MB and 3.6 us, where the dense kernel reads 6.4 GB.
 //
-// stft_dft_kernel (the sizes past those: nfft > 32 768; and any nfft
+// stft_dft_kernel (the sizes past those: nfft > 65 536; and any nfft
 // through stft_dft_pallas) multiplies frames built from
 // hop rows staged in shared memory by the (W, bins) window-folded cos / -sin
 // matrices: a block owns 32 frames x 64 bins of one signal and every thread
@@ -210,27 +213,9 @@ template <int C>
 cudaError_t launch_cluster(const float* x, const float* win, const float2* tw,
                            const float2* chirp, const float2* chat, float* re, float* im, int B,
                            int L, int W, int hop, int nf, int nfft, cudaStream_t stream) {
-  const size_t smem = cluster_smem_bytes(kMaxLog2, 0);
-  auto kern = stft_cluster_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((long long)B * ((nf + 1) / 2) * C));
-  cfg.blockDim = dim3(fft_threads(kMaxLog2));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, x, win, tw, chirp, chat, re, im, L, W,
-                           hop, nf, nfft);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_clusters<C>(stft_cluster_kernel<C>, (long long)B * ((nf + 1) / 2),
+                            cluster_smem_bytes(kMaxLog2, 0), stream, nullptr, x, win, tw, chirp,
+                            chat, re, im, L, W, hop, nf, nfft);
 }
 
 constexpr int kThreads = 256;
@@ -418,10 +403,10 @@ extern "C" int stft_bluestein_launch(const void* x, const void* win, const void*
   }
 }
 
-// The cluster route: 8192 < nfft <= 32 768 (M = 2^ceil(log2(2 nfft - 1)),
-// 32 768 or 65 536: a cluster of 4 or 8 blocks of 512 threads a pair of
-// frames, fft_plan.cluster_plan), W <= nfft, chirp (nfft) and chat (M) from
-// fft_plan.bluestein_tables, tw the M-point quarter table.
+// The cluster route: 8192 < nfft <= 65 536 (M = 2^ceil(log2(2 nfft - 1)),
+// 32 768, 65 536 or 131 072: a cluster of 4, 8 or 16 blocks of 512 threads
+// a pair of frames, fft_plan.cluster_plan), W <= nfft, chirp (nfft) and chat
+// (M) from fft_plan.bluestein_tables, tw the M-point quarter table.
 extern "C" int stft_cluster_launch(const void* x, const void* win, const void* tw,
                                    const void* chirp, const void* chat, void* re, void* im, int B,
                                    int L, int W, int hop, int nf, int nfft, void* stream) {
@@ -437,14 +422,16 @@ extern "C" int stft_cluster_launch(const void* x, const void* win, const void* t
   auto* r = static_cast<float*>(re);
   auto* i = static_cast<float*>(im);
   auto s = static_cast<cudaStream_t>(stream);
-  if (log2m == kLevelLog2 + 1)
-    return (int)launch_cluster<4>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
-  return (int)launch_cluster<8>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
+  switch (log2m - kMaxLog2) {
+    case 2: return (int)launch_cluster<4>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
+    case 3: return (int)launch_cluster<8>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
+    default: return (int)launch_cluster<16>(xs, w, tws, cc, ch, r, i, B, L, W, hop, nf, nfft, s);
+  }
 }
 
 // The dense route: any nfft >= W (the wrapper sends it only what none of
-// the FFT, split and Bluestein routes plans, nfft past 8192 off the split,
-// or what stft_dft_pallas forces).
+// the FFT, split, Bluestein and cluster routes plans, nfft past 65 536, or
+// what stft_dft_pallas forces).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

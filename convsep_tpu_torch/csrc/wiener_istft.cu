@@ -42,105 +42,34 @@
 // block transforms the k - 1 frames before j0 too (the halo); block counts
 // and rounds come from fft_plan.wiener_plan, which mirrors this launcher.
 //
+// Even sizes past 8192, up to the reference's 32 768 (wiener_cluster_kernel,
+// wiener_common.cuh::wiener_cluster_block; no preset uses one): Bluestein
+// run backwards on a thread-block cluster of 4 or 8 blocks (M 32 768 or
+// 65 536, fft_common.cuh::ClusterChirp), istft.cu's istft_cluster_kernel
+// with the mask in the point loads: a cluster owns one pair of sources and
+// R hop rows of a track and transforms one frame of the pair a round, each
+// block loading its first stage's masked points straight from y and the
+// mixture; each block gathers its 1/C of every hop row's columns for both
+// sources, two carries in its shared memory. The plan
+// (fft_plan.wiener_cluster_plan) weighs waves of the clusters the card holds
+// at once against rounds. At W 16 384, hop 2048, 4 stems of a 30 s track
+// (648 frames, f32 y) its bound is bytes: 85 MB of y, 42 MB of mixture and
+// 21 MB of stems, 0.044 ms.
+//
 // Other even sizes in [16, 8192] take a direct O(N) sum per output sample in
 // one 512-thread block per pair and row range (no preset uses one), with the
 // host's float64-made table of e^{-2 pi i m / N}.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "fft_common.cuh"
+#include "wiener_common.cuh"
 
 namespace {
 
-using namespace fft_common;
+using namespace wiener;
 
 constexpr int kDirectThreads = 512;
-
-// out[o] = v as float32, or as PCM16: round to nearest even, clipped
-__device__ __forceinline__ void store_sample(void* out, int out_int16, long long o, float v) {
-  if (out_int16) {
-    const float qv = fminf(fmaxf(rintf(v * 32768.f), -32768.f), 32767.f);
-    static_cast<int16_t*>(out)[o] = (int16_t)qv;
-  } else {
-    static_cast<float*>(out)[o] = v;
-  }
-}
-
-__device__ __forceinline__ float relu_pow(float v, int p2) {
-  v = v > 0.f ? v : 0.f;
-  return p2 ? v * v : v;
-}
-
-struct Args {
-  const void* y;
-  const float* re;
-  const float* im;
-  const float* ny;  // null: re/im carry all N/2 + 1 bins
-  const float* win_over_n;
-  const float* inv_norm;
-  const float2* tw;
-  void* out;
-  int y_bf16, out_int16, S, nf, hop, length, p2, conserve_last;
-  float eps;
-  int rows, per_signal, pairs;
-};
-
-// The block's place: track n, its pair of sources and its first hop row.
-struct Place {
-  int n, s0, j0;
-  bool has1;
-};
-
-__device__ __forceinline__ Place place(const Args& a) {
-  const int pair = blockIdx.x % a.pairs;  // the pairs of a row range run together
-  const int rest = blockIdx.x / a.pairs;
-  const int n = rest / a.per_signal;
-  return {n, 2 * pair, (rest - n * a.per_signal) * a.rows, 2 * pair + 1 < a.S};
-}
-
-// The masked half-spectra of sources s0 (A) and s1 (B) at bin kk of frame f
-// of track n, as (Re A, Im A, Re B, Im B); imaginary parts 0 at the edges.
-// The ratio follows models/masks.py::wiener_mask: the denominator sums the
-// sources in order, then adds eps; conserve_last adds eps to the last
-// source's numerator.
-__device__ __forceinline__ float4 masked_bin(const Args& a, const Place& pl, int N, int f,
-                                             int kk, bool edge) {
-  const int half = N / 2, bins = half + 1;
-  const long long frame = (long long)pl.n * a.nf + f;
-  const long long mix = frame * (a.ny ? half : bins) + kk;
-  const float mr = a.ny && kk == half ? __ldg(a.ny + frame) : __ldg(a.re + mix);
-  const float mi = edge ? 0.f : __ldg(a.im + mix);
-  const long long src = (long long)a.nf * bins;
-  const long long y0 = ((long long)pl.n * a.S * a.nf + f) * bins + kk;
-  float d = 0.f, ya = 0.f, yb = 0.f;
-  for (int s = 0; s < a.S; ++s) {
-    const long long i = y0 + s * src;
-    const float q = relu_pow(a.y_bf16 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(a.y) + i))
-                                      : __ldg(static_cast<const float*>(a.y) + i), a.p2);
-    d += q;
-    ya = s == pl.s0 ? q : ya;
-    yb = s == pl.s0 + 1 ? q : yb;
-  }
-  d += a.eps;
-  if (a.conserve_last && pl.s0 == a.S - 1) ya += a.eps;
-  if (a.conserve_last && pl.s0 + 1 == a.S - 1) yb += a.eps;
-  const float ma = ya / d, mb = pl.has1 ? yb / d : 0.f;
-  return make_float4(ma * mr, ma * mi, mb * mr, mb * mi);
-}
-
-// A finished sample of sources s0 and s1 at hop row `row`, column u.
-__device__ __forceinline__ void store_pair(const Args& a, const Place& pl, int row, int u,
-                                           int win, float v0, float v1) {
-  const long long nabs = (long long)row * a.hop + u;
-  const long long tpos = nabs - win / 2;
-  if (tpos < 0 || tpos >= a.length) return;
-  const float inv = __ldg(a.inv_norm + nabs);
-  const long long o = ((long long)pl.n * a.S + pl.s0) * a.length + tpos;
-  store_sample(a.out, a.out_int16, o, v0 * inv);
-  if (pl.has1) store_sample(a.out, a.out_int16, o + a.length, v1 * inv);
-}
 
 template <int LOG2N>
 __global__ void __launch_bounds__(kMaxThreads) wiener_fft_kernel(Args a, int rounds) {
@@ -156,7 +85,7 @@ __global__ void __launch_bounds__(kMaxThreads) wiener_fft_kernel(Args a, int rou
   float2* bufs = tws + twiddle_len(LOG2N);
   float* carry = reinterpret_cast<float*>(bufs + groups * exchange_len(LOG2N));  // 2 (k-1) hop
   float* carry1 = carry + (k - 1) * hop;
-  const Place pl = place(a);
+  const Place pl = place(a, blockIdx.x);
   const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
 
   for (int i = threadIdx.x; i < N / 4; i += blockDim.x) tws[slot(i)] = __ldg(a.tw + i);
@@ -212,7 +141,7 @@ __global__ void __launch_bounds__(kDirectThreads) wiener_direct_kernel(Args a, i
   float* acc = reinterpret_cast<float*>(buf + N);     // 2 R hop
   float* acc1 = acc + a.rows * hop;
   const int tid = threadIdx.x;
-  const Place pl = place(a);
+  const Place pl = place(a, blockIdx.x);
   const int nrows = min(a.rows, a.nf + k - 1 - pl.j0);
   for (int i = tid; i < N; i += kDirectThreads) tab[i] = __ldg(a.tw + i);
   for (int i = tid; i < 2 * a.rows * hop; i += kDirectThreads) acc[i] = 0.f;
@@ -259,6 +188,31 @@ cudaError_t launch_fft(const Args& a, unsigned blocks, int groups, int rounds,
   if (err != cudaSuccess) return err;
   wiener_fft_kernel<LOG2N><<<blocks, groups * fft_threads(LOG2N), smem, stream>>>(a, rounds);
   return cudaGetLastError();
+}
+
+// One block an SM by its launch bound, so each instance may hold 128
+// registers: under the bound of 512 threads alone ptxas gave the C 8
+// instance 64 and 648 bytes of stack, 1.1x slower at 32 768 points on an
+// H100 (PERF.md row 1″).
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_kernel(
+    Args a, const float2* __restrict__ chirp, const float2* __restrict__ chat, int nfft,
+    int rounds) {
+  extern __shared__ float4 smem4[];
+  wiener_cluster_block<kMaxLog2, C>(smem4, a, chirp, chat, nfft, rounds);
+}
+
+// clusters of C blocks, one pair of sources and a.rows hop rows of a track
+// each, a.pairs clusters a row range; with `active`, launches nothing and
+// sets how many such clusters the card holds at once
+template <int C>
+cudaError_t launch_wiener_cluster(const Args& a, const float2* chirp, const float2* chat,
+                                  long long clusters, int nfft, int rounds, cudaStream_t stream,
+                                  int* active) {
+  const int k = nfft / a.hop;
+  return launch_clusters<C>(wiener_cluster_kernel<C>, clusters,
+                            cluster_smem_bytes(kMaxLog2, 2 * (k - 1) * cluster_columns(a.hop, C)),
+                            stream, active, a, chirp, chat, nfft, rounds);
 }
 
 }  // namespace
@@ -308,4 +262,39 @@ extern "C" int wiener_istft_launch(
     default: return (int)launch_fft<13>(a, blocks, groups, rounds, s);
 #undef CASE
   }
+}
+
+
+// The cluster route: even 8192 < nfft <= 32 768 (Bluestein's M = 32 768 or
+// 65 536: a cluster of 4 or 8 blocks of 512 threads a pair of sources, one
+// frame a round); tw the M-point quarter table (fft_plan.twiddles), chirp
+// (nfft) and chat (M) from fft_plan.bluestein_tables; rounds from
+// fft_plan.wiener_plan (wiener_cluster_plan), each cluster owning rounds -
+// (nfft/hop - 1) hop rows. With `active` (y and the other arrays may then
+// be null), launches nothing and sets how many clusters of the launch the
+// card holds at once (cudaOccupancyMaxActiveClusters).
+extern "C" int wiener_cluster_launch(
+    const void* y, int y_bf16, const void* re, const void* im, const void* ny,
+    const void* win_over_n, const void* inv_norm, const void* tw, const void* chirp,
+    const void* chat, void* out, int out_int16, int nt, int S, int nf, int nfft, int hop,
+    int length, int rounds, int p2, float eps, int conserve_last, int* active, void* stream) {
+  const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
+  if (nfft <= (1 << kMaxLog2) || nfft % 2 != 0 || log2m < kMaxLog2 + 2 || log2m > kMaxLog2 + 3 ||
+      hop < 1 || nfft % hop != 0 || nt < 1 || S < 1 || nf < 1)
+    return (int)cudaErrorInvalidValue;
+  const int k = nfft / hop;
+  Args a{y, static_cast<const float*>(re), static_cast<const float*>(im),
+         static_cast<const float*>(ny), static_cast<const float*>(win_over_n),
+         static_cast<const float*>(inv_norm), static_cast<const float2*>(tw), out, y_bf16,
+         out_int16, S, nf, hop, length, p2, conserve_last, eps, rounds - (k - 1), 0,
+         (S + 1) / 2};
+  if (a.rows < 1) return (int)cudaErrorInvalidValue;
+  a.per_signal = (nf + k - 1 + a.rows - 1) / a.rows;
+  const long long clusters = (long long)nt * a.per_signal * a.pairs;
+  const auto* cc = static_cast<const float2*>(chirp);
+  const auto* ch = static_cast<const float2*>(chat);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (log2m == kMaxLog2 + 2)
+    return (int)launch_wiener_cluster<4>(a, cc, ch, clusters, nfft, rounds, s, active);
+  return (int)launch_wiener_cluster<8>(a, cc, ch, clusters, nfft, rounds, s, active);
 }

@@ -9,7 +9,10 @@ wrappers and plain versions.
   it, so the masked spectra never reach device memory; its header says what
   bounds it on the H100 and how the design follows. Like the reference
   (``has_ny``) it also takes the mixture as the forward STFT kernel's
-  Nyquist-separate pair.
+  Nyquist-separate pair. Past 8192 points, up to the reference's 32 768,
+  the same kernel runs Bluestein backwards on a thread-block cluster
+  (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_plan`),
+  counted as ``wiener_istft_cluster`` (``wiener_istft_ny_cluster``).
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -29,7 +32,11 @@ import torch
 
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    WIENER_CLUSTER_NFFT,
+    bluestein_size,
+    bluestein_tables,
     dft_table,
+    fft_supported,
     synthesis_tables,
     twiddles,
     wiener_plan,
@@ -39,6 +46,12 @@ from convsep_tpu_torch.dsp.dft import _use_factored, istft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
 _LANES = 128  # the reference kernel's lane-width factor of nfft
+
+# The cluster plans' (nfft, hop) at which the Wiener+iSTFT kernel beat the
+# plain masked chain (the mask, then the iSTFT "auto" takes) in a timed A/B
+# on an H100 (chip_smoke.py phase 3c, PERF.md row 1″): "auto" takes the
+# kernel past 8192 only there, as FUSED_DECODE_WON keys the decode.
+WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset()
 
 
 def ct_pallas_supported(nfft: int, win_len: int, hop: int) -> bool:
@@ -101,13 +114,15 @@ def istft_ct_pallas(
 
 
 def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
-    """The kernel's envelope: ``win == nfft``, nfft even in [16, 8192],
+    """The kernel's envelope: ``win == nfft``, nfft even in [16, 32 768],
     ``nfft % hop == 0``, and a launch plan within shared memory
     (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_plan`; a block
-    holds two sources, so their number does not bound it). Powers of two
-    (every preset) run on the FFT core; other even sizes a direct sum per
-    sample."""
-    if not (win_len == nfft and 16 <= nfft <= 8192 and nfft % 2 == 0 and hop > 0
+    holds two sources, so their number does not bound it). Powers of two up
+    to 8192 (every preset) run on the FFT core, other even sizes up to 8192
+    a direct sum per sample, even sizes past 8192 Bluestein run backwards
+    on a thread-block cluster. It holds every shape of the reference's
+    :func:`ct_pallas_supported`."""
+    if not (win_len == nfft and 16 <= nfft <= WIENER_CLUSTER_NFFT and nfft % 2 == 0 and hop > 0
             and nfft % hop == 0):
         return False
     try:
@@ -115,6 +130,17 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     except ValueError:
         return False
     return True
+
+
+def wiener_auto_supported(nfft: int, win_len: int, hop: int) -> bool:
+    """Where :func:`istft_wiener`'s "auto" takes the kernel: inside
+    :func:`wiener_istft_supported`, on the FFT core (powers of two up to
+    8192) or at a cluster plan that won its A/B (``WIENER_CLUSTER_WON``).
+    The direct sum of the other even sizes up to 8192 lost its A/B to the
+    plain chain (PERF.md row 1′) and stays only selectable
+    (``masked_synthesis="ct_pallas_wiener"``)."""
+    return wiener_istft_supported(nfft, win_len, hop) and (
+        fft_supported(nfft) or (nfft, hop) in WIENER_CLUSTER_WON)
 
 
 def wiener_istft_plain(
@@ -173,7 +199,8 @@ def wiener_istft(
     kernel's (..., nf, nfft/2) bodies (:func:`~convsep_tpu_torch.dsp.cuda.
     ct_stft_kernel.stft_ct_pallas`); y still has nfft/2 + 1 bins. The
     kernel reads it in place of a concatenated spectrum and counts under
-    ``wiener_istft_ny``.
+    ``wiener_istft_ny``; past 8192 points the kernel counts under
+    ``wiener_istft_cluster`` (``wiener_istft_ny_cluster``).
 
     CPU tensors: :func:`wiener_istft_plain`. CUDA tensors: the kernel."""
     window = np.asarray(window, np.float64)
@@ -227,21 +254,31 @@ def wiener_istft(
     ny2 = ny.reshape(nt, nf).contiguous() if has_ny else None
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
     plan = wiener_plan(nt, S, nf, nfft, hop)
-    tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
     out_dt = torch.int16 if output_dtype == "int16" else torch.float32
     out = torch.empty((nt, S, length), dtype=out_dt, device=dev)
     lib = kernels.library()
+    args = (y4.data_ptr(), int(y4.dtype == torch.bfloat16), re3.data_ptr(), im3.data_ptr(),
+            ny2.data_ptr() if has_ny else None, win_n.data_ptr(), inv_norm.data_ptr())
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        code = lib.wiener_istft_launch(
-            y4.data_ptr(), int(y4.dtype == torch.bfloat16), re3.data_ptr(),
-            im3.data_ptr(), ny2.data_ptr() if has_ny else None, win_n.data_ptr(),
-            inv_norm.data_ptr(), tw.data_ptr(), out.data_ptr(), int(out_dt == torch.int16),
-            nt, S, nf, nfft, int(hop), int(length), plan.groups,
-            plan.rounds if plan.groups else plan.rows, int(p == 2.0), ctypes.c_float(eps),
-            int(conserve_last), stream,
-        )
-    name = "wiener_istft_ny" if has_ny else "wiener_istft"
+        if plan.cluster > 1:
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.wiener_cluster_launch(
+                *args, twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
+                chat.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf, nfft,
+                int(hop), int(length), plan.rounds, int(p == 2.0), ctypes.c_float(eps),
+                int(conserve_last), None, stream,
+            )
+        else:
+            tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
+            code = lib.wiener_istft_launch(
+                *args, tw.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
+                nfft, int(hop), int(length), plan.groups,
+                plan.rounds if plan.groups else plan.rows, int(p == 2.0), ctypes.c_float(eps),
+                int(conserve_last), stream,
+            )
+    name = ("wiener_istft_ny" if has_ny else "wiener_istft") + (
+        "_cluster" if plan.cluster > 1 else "")
     kernels.check(code, name)
     kernels.LAUNCHES[name] += 1
     return out.reshape(*lead, S, length)

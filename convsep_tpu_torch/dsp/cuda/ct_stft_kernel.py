@@ -8,9 +8,12 @@ shares with the training STFT kernel) pads, frames, windows and FFTs the
 signal in registers and shared memory, so the (nf, W) frames tensor never
 exists, and writes the half-spectrum bins 0 … nfft/2 − 1 in natural order
 with the real Nyquist bin as a row of its own; the Wiener+iSTFT kernel
-reads that pair as it is (``wiener_istft(..., ny=)``). The launch plan,
-twiddle table and window copy come from :mod:`.fft_plan`; the kernel's
-header says what bounds it on the H100.
+reads that pair as it is (``wiener_istft(..., ny=)``). At the reference's
+largest size, 16 384 points, past the core's 8192, the same file's cluster
+kernel runs Bluestein's chirp-z on a thread-block cluster of 4 blocks
+(counted as ``ct_stft_cluster``). The launch plan, twiddle and chirp
+tables and window copy come from :mod:`.fft_plan`; the kernel's header
+says what bounds it on the H100.
 
 The wrapper takes its plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises: there is no fallback.
@@ -22,7 +25,15 @@ import numpy as np
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.fft_plan import fft_supported, stft_plan, twiddles, window_f32
+from convsep_tpu_torch.dsp.cuda.fft_plan import (
+    MAX_NFFT,
+    bluestein_size,
+    bluestein_tables,
+    fft_supported,
+    stft_plan,
+    twiddles,
+    window_f32,
+)
 from convsep_tpu_torch.dsp.dft import stft_matmul
 from convsep_tpu_torch.dsp.stft import num_frames
 
@@ -54,9 +65,11 @@ def resolve_analysis(analysis: str) -> str:
 
 
 def kernel_supported(nfft: int, hop: int) -> bool:
-    """The CUDA kernel's own envelope: a power of two from 2048 to 8192
-    (the FFT core's template instances in ``ct_stft.cu``)."""
-    return 2048 <= nfft and fft_supported(nfft) and hop > 0
+    """The CUDA kernels' own envelope: a power of two from 2048 to 16 384,
+    every size :func:`ct_stft_supported` admits (the FFT core's template
+    instances in ``ct_stft.cu`` up to 8192, Bluestein on a cluster of 4
+    blocks at 16 384)."""
+    return hop > 0 and (2048 <= nfft and fft_supported(nfft) or nfft == 2 * MAX_NFFT)
 
 
 def stft_ct_pallas_plain(signal: torch.Tensor, window: np.ndarray, hop: int,
@@ -107,18 +120,28 @@ def stft_ct_pallas(
     re, im, ny = (out[: B * nf * half].view(B, nf, half),
                   out[B * nf * half: 2 * B * nf * half].view(B, nf, half),
                   out[2 * B * nf * half:].view(B, nf))
-    plan = stft_plan(B, nf, nfft, win_len, hop)
     where = str(dev)
+    win_d = window_f32(window, where).data_ptr()
     lib = kernels.library()
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        code = lib.ct_stft_launch(
-            x.data_ptr(), window_f32(window, where).data_ptr(),
-            twiddles(nfft, where).data_ptr(), re.data_ptr(), im.data_ptr(), ny.data_ptr(),
-            B, L, nfft, hop, nf, plan.ffts_per_block, stream,
-        )
-    kernels.check(code, "ct_stft")
-    kernels.LAUNCHES["ct_stft"] += 1
+        if fft_supported(nfft):
+            name = "ct_stft"
+            plan = stft_plan(B, nf, nfft, win_len, hop)
+            code = lib.ct_stft_launch(
+                x.data_ptr(), win_d, twiddles(nfft, where).data_ptr(), re.data_ptr(),
+                im.data_ptr(), ny.data_ptr(), B, L, nfft, hop, nf, plan.ffts_per_block, stream,
+            )
+        else:
+            name = "ct_stft_cluster"
+            chirp, chat = bluestein_tables(nfft, where)
+            code = lib.ct_stft_cluster_launch(
+                x.data_ptr(), win_d, twiddles(bluestein_size(nfft), where).data_ptr(),
+                chirp.data_ptr(), chat.data_ptr(), re.data_ptr(), im.data_ptr(), ny.data_ptr(),
+                B, L, nfft, hop, nf, stream,
+            )
+    kernels.check(code, name)
+    kernels.LAUNCHES[name] += 1
     if signal.dim() == 1:
         return re[0], im[0], ny[0]
     return re, im, ny

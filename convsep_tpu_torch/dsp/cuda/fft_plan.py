@@ -23,10 +23,10 @@ launch. Any other size up to 8192 takes Bluestein's chirp-z over the core
 :func:`bluestein_tables`; :func:`bluestein_plan` sizes the launch. Past 4096
 points M is 16 384, the level (``Level``): one group of 512 threads runs
 two 8192-point transforms of the core and a radix-2 stage. Past 8192
-points, up to :data:`CLUSTER_NFFT`, M is 32 768 or 65 536 and its points
-live across a thread-block cluster of M / 8192 blocks (``ClusterChirp``,
-``stft_cluster_block``), each running the core's 8192-point transform on
-its part; :func:`cluster_plan` sizes that launch.
+points, up to :data:`CLUSTER_NFFT`, M is 32 768, 65 536 or 131 072 and its
+points live across a thread-block cluster of M / 8192 blocks (4, 8 or 16:
+``ClusterChirp``, ``stft_cluster_block``), each running the core's
+8192-point transform on its part; :func:`cluster_plan` sizes that launch.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
@@ -36,7 +36,8 @@ past 8192 on the cluster run backwards (:func:`istft_cluster_plan`);
 :func:`istft_plan` sizes all four. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
-sizes it.
+sizes it, past 8192 on the cluster run backwards (:func:`wiener_cluster_plan`,
+up to :data:`WIENER_CLUSTER_NFFT`, the reference kernel's largest size).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ MAX_NAMED_GROUPS = 8     # groups per block that synchronize on named barriers
 MIN_NFFT, MAX_NFFT = 2 ** 4, 2 ** 13
 LEVEL_NFFT = 2 ** 14     # the level: Bluestein's largest convolution on one block (fft_common.cuh::Level)
 CLUSTER_PART = 2 ** 13   # the points of one block of a cluster: the core's transform
-CLUSTER_NFFT = 2 ** 15   # the cluster's largest nfft: M 65 536 on 8 blocks (the portable limit)
+CLUSTER_NFFT = 2 ** 16   # the cluster's largest nfft: M 131 072 on 16 blocks (non-portable)
+WIENER_CLUSTER_NFFT = 2 ** 15  # the Wiener+iSTFT cluster's: the reference kernel's 32 768
 SPLIT_ODD = (3, 5, 9, 15)  # the split's odd factors: its m-point DFTs (radix 3 and 5)
 SM_SMEM = 228 * 1024     # shared memory of one SM
 BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
@@ -112,8 +114,9 @@ def bluestein_supported(nfft: int) -> bool:
 
 def cluster_supported(nfft: int) -> bool:
     """A size past 8192 that Bluestein takes on a thread-block cluster: M =
-    :func:`bluestein_size` is 32 768 (nfft up to 16 384, 4 blocks) or 65
-    536 (up to :data:`CLUSTER_NFFT`, 8 blocks)."""
+    :func:`bluestein_size` is 32 768 (nfft up to 16 384, 4 blocks), 65 536
+    (up to 32 768, 8 blocks) or 131 072 (up to :data:`CLUSTER_NFFT`, 16
+    blocks)."""
     return MAX_NFFT < nfft <= CLUSTER_NFFT
 
 
@@ -130,18 +133,18 @@ def cluster_smem_bytes(carry: int = 0) -> int:
     return 8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)) + 4 * carry
 
 
-# Clusters of 4 and of 8 blocks an H100 SXM holds at once: one block an SM
+# Clusters of 4, 8 and 16 blocks an H100 SXM holds at once: one block an SM
 # (512 threads at 128 registers take an SM's 65 536), a cluster's blocks in
-# one GPC, which leaves 12 of the 132 SMs idle (cudaOccupancyMaxActiveClusters
-# through csrc/istft.cu::istft_cluster_occupancy; tests/test_torch_cuda.py
-# holds the card to it).
-CLUSTERS_AT_ONCE = {4: 30, 8: 15}
+# one GPC, which leaves 12 of the 132 SMs idle at 4 and 8
+# (cudaOccupancyMaxActiveClusters through csrc/istft.cu::
+# istft_cluster_occupancy; tests/test_torch_cuda.py holds the card to it).
+CLUSTERS_AT_ONCE = {4: 30, 8: 15, 16: 7}
 
 
 @dataclass(frozen=True)
 class ClusterPlan:
     nfft: int
-    m: int                # the convolution's power-of-two length: 32 768 or 65 536
+    m: int                # the convolution's power-of-two length: 32 768, 65 536 or 131 072
     cluster: int          # blocks of a cluster: M / 8192
     threads: int          # per block: 512, one core transform
     clusters: int         # one a pair of frames
@@ -152,7 +155,8 @@ class ClusterPlan:
 @lru_cache(maxsize=64)
 def cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> ClusterPlan:
     """The forward cluster kernel's launch, as ``csrc/stft_dft.cu::
-    stft_cluster_launch`` computes it: a cluster of M / 8192 blocks of 512
+    stft_cluster_launch`` (and ``csrc/ct_stft.cu::ct_stft_cluster_launch``)
+    computes it: a cluster of M / 8192 blocks of 512
     threads a pair of frames, its blocks consecutive in the grid, each
     block's shared memory :func:`cluster_smem_bytes` (the frames are read
     from global memory)."""
@@ -479,7 +483,7 @@ def istft_direct_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> I
     """The direct sum's launch (``istft_launch`` with groups 0): one
     512-thread block a range of up to 16 hop rows, the e^{−2πi m/N} table,
     the spectrum and the rows' accumulators in shared memory. :func:`istft_plan`
-    takes it for even sizes past the cluster's 32 768 (where its table and
+    takes it for even sizes past the cluster's 65 536 (where its table and
     spectrum no longer fit: it refuses them); ``istft_direct_pallas``
     forces it at any even size."""
     k = win // hop
@@ -520,6 +524,7 @@ class WienerPlan:
     blocks_per_sm: int    # by shared memory, threads and registers
     waves: int            # blocks over blocks_per_sm · SMS, rounded up
     halo: float           # recomputed share of the transforms: (nfft/hop − 1) / rows
+    cluster: int = 1      # blocks of a cluster that share one transform (1: none)
 
 
 @lru_cache(maxsize=64)
@@ -533,7 +538,10 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     a track or ``MAX_ROUNDS``), the plan with the least waves × rounds, each
     SM holding as many blocks as shared memory, threads and
     ``REGS_PER_THREAD`` registers allow; ties go to fewer transforms, then
-    more groups. Other sizes: the direct sum, up to 16 hop rows per block."""
+    more groups. Even sizes past 8192: :func:`wiener_cluster_plan`. Other
+    sizes: the direct sum, up to 16 hop rows per block."""
+    if MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT:
+        return wiener_cluster_plan(signals, S, nf, nfft, hop)
     k = nfft // hop
     pairs = -(-S // 2)
     total_rows = nf + k - 1
@@ -575,6 +583,42 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     return best[1]
 
 
+@lru_cache(maxsize=64)
+def wiener_cluster_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
+    """The Wiener+iSTFT cluster kernel's launch, as ``csrc/wiener_istft.cu::
+    wiener_cluster_launch`` computes it: even nfft past 8192 up to
+    :data:`WIENER_CLUSTER_NFFT`, a cluster of C = M / 8192 blocks (4 or 8)
+    of 512 threads owns one pair of sources and R hop rows of a track and
+    transforms one frame of the pair a round, R = rounds − (k − 1), k =
+    nfft/hop; each block keeps the two sources' carries of its 1/C of the
+    columns. The grid is tracks × row ranges × pairs clusters, and the
+    rounds are weighed as :func:`istft_cluster_plan` weighs them: over
+    every rounds with R >= 1, up to one row range a track or
+    ``MAX_ROUNDS``, the least waves × rounds (:data:`CLUSTERS_AT_ONCE` a
+    wave: one block an SM, as the kernel's launch bound of one block an SM
+    lets each instance take 128 registers), ties to fewer transforms.
+    ``blocks`` counts blocks, ``waves`` clusters over the card's count."""
+    if not MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT or nfft % 2 or hop < 1 or nfft % hop:
+        raise ValueError(f"no Wiener+iSTFT cluster plan for nfft={nfft} hop={hop}: even, past "
+                         f"{MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, a multiple of the hop")
+    k = nfft // hop
+    c = cluster_blocks(nfft)
+    pairs = -(-S // 2)
+    total_rows = nf + k - 1
+    smem = cluster_smem_bytes(2 * (k - 1) * -(-hop // c))
+    best = None
+    for rounds in range(k, max(k, min(total_rows + k - 1, MAX_ROUNDS)) + 1):
+        rows = rounds - (k - 1)
+        per = -(-total_rows // rows)
+        clusters = signals * per * pairs
+        waves = -(-clusters // CLUSTERS_AT_ONCE[c])
+        key = (waves * rounds, clusters * rounds)
+        if best is None or key < best[0]:
+            best = (key, WienerPlan(nfft, 1, threads_per_fft(CLUSTER_PART), rounds, rows, pairs,
+                                    per, clusters * c, smem, 1, waves, (k - 1) / rows, c))
+    return best[1]
+
+
 def wiener_blocks_per_sm(smem: int, threads: int) -> int:
     """:func:`blocks_per_sm` with the registers too, at ``REGS_PER_THREAD``."""
     return max(1, min(blocks_per_sm(smem, threads), SM_REGS // (threads * REGS_PER_THREAD)))
@@ -608,7 +652,7 @@ def bluestein_tables(nfft: int, device: str) -> tuple[torch.Tensor, torch.Tensor
     nfft) / nfft) from the integer t², so the phase is exact before the one
     rounding to float32; Ĉ the M-point FFT of the wrapped chirp (c_n at n <
     nfft and at M − n, 0 < n < nfft), in float64. Any nfft: up to 8192 for
-    the one-block kernels, up to :data:`CLUSTER_NFFT` (M 65 536) for the
+    the one-block kernels, up to :data:`CLUSTER_NFFT` (M 131 072) for the
     cluster's."""
     m = bluestein_size(nfft)
     t = np.arange(nfft, dtype=np.int64)

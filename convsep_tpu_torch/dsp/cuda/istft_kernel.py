@@ -13,7 +13,7 @@ kernel for powers of two 16–8192 (counted as ``LAUNCHES["istft"]``), the
 split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
 ``LAUNCHES["istft_split"]``), Bluestein run backwards for the other even
 sizes up to 8192 (``LAUNCHES["istft_bluestein"]``) and Bluestein over a
-thread-block cluster run backwards past 8192, up to 32 768
+thread-block cluster run backwards past 8192, up to 65 536
 (``LAUNCHES["istft_cluster"]``); past that it refuses, as the direct sum
 per sample (``LAUNCHES["istft_direct"]``) fits shared memory only up to
 12 800 points. :func:`istft_direct_pallas` forces the direct sum at any
@@ -54,7 +54,7 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
     within shared memory. Powers of two from 16 to 8192 run on the FFT core,
     m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split, the other
-    even sizes up to 8192 on Bluestein run backwards, up to 32 768 on
+    even sizes up to 8192 on Bluestein run backwards, up to 65 536 on
     Bluestein over a thread-block cluster; past that none (the direct sum
     per sample fits shared memory only up to 12 800 points)."""
     if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):

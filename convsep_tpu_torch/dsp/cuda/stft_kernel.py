@@ -18,11 +18,11 @@ wrapper dispatches on the shape:
   over the core (:func:`.fft_plan.bluestein_plan`, the chirp tables of
   :func:`.fft_plan.bluestein_tables`), counted as
   ``LAUNCHES["stft_bluestein"]``;
-* past 8192, up to 32 768 (12 288, 20 000, odd sizes): Bluestein over a
+* past 8192, up to 65 536 (12 288, 20 000, 40 000, odd sizes): Bluestein over a
   thread-block cluster of the core (:func:`.fft_plan.cluster_plan`: M /
-  8192 blocks a pair of frames, M 32 768 or 65 536), counted as
+  8192 blocks a pair of frames, M 32 768, 65 536 or 131 072), counted as
   ``LAUNCHES["stft_cluster"]``;
-* the rest (past 32 768): the dense DFT kernel over the window-folded
+* the rest (past 65 536): the dense DFT kernel over the window-folded
   cos / -sin matrices of :func:`_forward_mats`, counted as
   ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any size,
   to hold and time it.

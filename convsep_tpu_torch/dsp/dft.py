@@ -275,17 +275,21 @@ def resolve_masked_synthesis(
     """What :func:`istft_wiener` runs: "ct_pallas_wiener" (the Wiener+iSTFT
     kernel wrapper) or the masked chain's concrete iSTFT algorithm
     ("ct_pallas" | "factored" | "direct"). "auto" takes the Wiener kernel
-    only for CUDA tensors inside its envelope; otherwise it names what
-    :func:`istft_matmul`'s own "auto" runs (:func:`resolve_istft`)."""
+    only for CUDA tensors where it won its A/B against the masked chain
+    (``ct_istft_kernel.wiener_auto_supported``: the FFT core's powers of
+    two, and the cluster plans in ``WIENER_CLUSTER_WON``; never the direct
+    sum, which an explicit "ct_pallas_wiener" still reaches); otherwise it
+    names what :func:`istft_matmul`'s own "auto" runs
+    (:func:`resolve_istft`)."""
     if algorithm == "ct_pallas_wiener":
         return algorithm
     if algorithm == "auto":
-        from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_supported
+        from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_auto_supported
 
         if (
             torch.device(device).type == "cuda"
             and p in (1.0, 2.0)
-            and wiener_istft_supported(nfft, win_len, hop)
+            and wiener_auto_supported(nfft, win_len, hop)
         ):
             return "ct_pallas_wiener"
         return resolve_istft("auto", nfft, win_len, hop, device)

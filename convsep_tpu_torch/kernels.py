@@ -37,17 +37,18 @@ SOURCES = (
     "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
     "istft.cu", "wiener_apply.cu", "ct_stft.cu", "band_decode.cu",
 )
-HEADERS = ("fft_common.cuh",)
+HEADERS = ("fft_common.cuh", "wiener_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 LAUNCHES: dict[str, int] = {
-    "wiener_istft": 0, "wiener_istft_ny": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
+    "wiener_istft": 0, "wiener_istft_ny": 0, "wiener_istft_cluster": 0,
+    "wiener_istft_ny_cluster": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_direct": 0,
-    "wiener_apply": 0, "ct_stft": 0, "band_decode": 0,
+    "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
 }
 
 _lock = threading.Lock()
@@ -62,6 +63,11 @@ _SIGNATURES = {
     # p2, eps, conserve_last, stream
     "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw, chirp, chat, out,
+    # out_int16, nt, S, nf, nfft, hop, length, rounds, p2, eps, conserve_last,
+    # active (NULL, or 1 int out: launches nothing), stream
+    "wiener_cluster_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _I, _P, _P),
     # fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM, stream
     "fused_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P),
@@ -99,6 +105,8 @@ _SIGNATURES = {
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),
     # x, win, tw, re, im, ny, B, L, nfft, hop, nf, ffts_per_block, stream
     "ct_stft_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, chirp, chat, re, im, ny, B, L, nfft, hop, nf, stream
+    "ct_stft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # z, packed taps, out, M, Tp, C2, kh, I, grid, stream
     "band_decode_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }

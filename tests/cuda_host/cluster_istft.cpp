@@ -1,7 +1,7 @@
 // istft_cluster_block (convsep_tpu_torch/csrc/fft_common.cuh) run on CPU
 // threads through the stand-in cuda_runtime.h beside this file: a cluster's
 // C blocks at once, each with its own shared memory, at a part of 2^LOG2P
-// points (the card runs 8192; here also 64 and 512).
+// points (the card runs 8192; here also 64 and 512), C 2, 4, 8 or 16.
 //
 //   cluster_istft DIR LOG2P C NT NF NFFT WIN HOP LENGTH ROUNDS INT16
 //
@@ -53,10 +53,11 @@ int main(int argc, char** argv) {
   const auto* tw = reinterpret_cast<const float2*>(tv.data());
   const auto* chirp = reinterpret_cast<const float2*>(cv.data());
   const auto* chat = reinterpret_cast<const float2*>(hv.data());
-  switch (lp * 16 + c) {
+  switch (lp * 32 + c) {
 #define CASE(LP, C) \
-  case LP * 16 + C: run<LP, C>(re, im, wn, inv, tw, chirp, chat, out, int16, nt, nf, nfft, win, hop, length, rounds); break;
-    CASE(6, 2) CASE(6, 4) CASE(6, 8) CASE(9, 2) CASE(9, 4) CASE(9, 8) CASE(13, 4)
+  case LP * 32 + C: run<LP, C>(re, im, wn, inv, tw, chirp, chat, out, int16, nt, nf, nfft, win, hop, length, rounds); break;
+    CASE(6, 2) CASE(6, 4) CASE(6, 8) CASE(6, 16) CASE(9, 2) CASE(9, 4) CASE(9, 8) CASE(9, 16)
+    CASE(13, 4) CASE(13, 16)
 #undef CASE
     default: return 3;
   }

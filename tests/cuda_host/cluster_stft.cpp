@@ -2,7 +2,7 @@
 // threads through the stand-in cuda_runtime.h beside this file: a cluster's
 // C blocks at once, each with its own shared memory, at a part of 2^LOG2P
 // points (the card runs 8192; here also 64 and 512, so that small sizes
-// take every code path).
+// take every code path), C 2, 4, 8 or 16.
 //
 //   cluster_stft DIR LOG2P C B L W HOP NF NFFT
 //
@@ -44,10 +44,11 @@ int main(int argc, char** argv) {
   const auto* tw = reinterpret_cast<const float2*>(tv.data());
   const auto* chirp = reinterpret_cast<const float2*>(cv.data());
   const auto* chat = reinterpret_cast<const float2*>(hv.data());
-  switch (lp * 16 + c) {
+  switch (lp * 32 + c) {
 #define CASE(LP, C) \
-  case LP * 16 + C: run<LP, C>(x, w, tw, chirp, chat, re.data(), im.data(), B, L, W, hop, nf, nfft); break;
-    CASE(6, 2) CASE(6, 4) CASE(6, 8) CASE(9, 2) CASE(9, 4) CASE(9, 8) CASE(13, 4)
+  case LP * 32 + C: run<LP, C>(x, w, tw, chirp, chat, re.data(), im.data(), B, L, W, hop, nf, nfft); break;
+    CASE(6, 2) CASE(6, 4) CASE(6, 8) CASE(6, 16) CASE(9, 2) CASE(9, 4) CASE(9, 8) CASE(9, 16)
+    CASE(13, 4) CASE(13, 16)
 #undef CASE
     default: return 3;
   }

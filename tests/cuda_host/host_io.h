@@ -1,5 +1,5 @@
 // File I/O and the forward kernels' output rows for the host emulations
-// beside this file (split_stft.cpp, bluestein_stft.cpp, split_istft.cpp).
+// beside this file (split_stft.cpp, bluestein_stft.cpp, split_istft.cpp, ...).
 #pragma once
 #include <cstdio>
 #include <cstdlib>

@@ -68,4 +68,23 @@ def test_refusals():
     with pytest.raises(ValueError, match="unsupported"):
         tct.stft_ct_pallas(torch.zeros(9000), sinebell(4096), 512)
     assert tct.kernel_supported(4096, 1024) and tct.kernel_supported(8192, 1024)
-    assert not tct.kernel_supported(16384, 1024)
+    assert tct.kernel_supported(16384, 1024)  # the reference's largest: a thread-block cluster
+    assert not tct.kernel_supported(32768, 1024) and not tct.kernel_supported(12288, 1024)
+
+
+@pytest.mark.parametrize("hop,B,L", [(4096, 1, 5 * 4096 + 7), (2048, 2, 3 * 4096)])
+def test_plain_matches_jax_interpret_at_16384(rng, hop, B, L):
+    """At the reference kernel's largest size, 16 384 points (on the card a
+    thread-block cluster of 4 blocks), within 1e-5 × max|X| of JAX's
+    stft_ct_pallas in interpret mode."""
+    nfft = 16384
+    w = sinebell(nfft)
+    sig = (0.1 * rng.standard_normal((B, L))).astype(np.float32)
+    want = [np.asarray(a) for a in jct.stft_ct_pallas(sig, w, hop, nfft=nfft, interpret=True)]
+    got = [a.numpy() for a in tct.stft_ct_pallas(torch.from_numpy(sig), w, hop, nfft=nfft)]
+    nf = -(-L // hop) + 2
+    assert got[0].shape == want[0].shape == (B, nf, nfft // 2)
+    assert got[2].shape == want[2].shape == (B, nf)
+    scale = max(np.abs(a).max() for a in want)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g, x, atol=1e-5 * scale, rtol=0)

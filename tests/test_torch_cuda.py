@@ -147,6 +147,76 @@ def test_wiener_istft_kernel_every_size(rng, cuda, nfft, S):
                                        p=2.0 if S == 3 else 1.0), out)
 
 
+@pytest.mark.parametrize("nfft,hop,length,S,kw,ydt", [
+    (16384, 2048, 60000, 4, {}, torch.float32),    # the reference's 16 384: C 4, k 8
+    (16384, 4096, 50000, 3, {"p": 2.0, "conserve_last": True}, torch.bfloat16),  # S odd
+    (32768, 4096, 90000, 4, {}, torch.bfloat16),   # the reference's 32 768: C 8
+    (10000, 2500, 40000, 2, {"p": 2.0}, torch.float32),  # even, not a power of two
+    (20000, 5000, 60000, 5, {"conserve_last": True}, torch.float32),  # C 8, S odd
+])
+def test_wiener_istft_cluster_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, ydt):
+    """The Wiener+iSTFT past 8192 points (Bluestein run backwards on a
+    thread-block cluster, a pair of sources a cluster), float32 within 1e-5
+    and PCM16 within one LSB of the plain version: one
+    "wiener_istft_cluster" launch each, no other Wiener launch."""
+    w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
+    y = y.to(ydt)
+    names = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster", "wiener_istft_ny_cluster")
+    for out in ("float32", "int16"):
+        before = dict(kernels.LAUNCHES)
+        got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in names} == {
+            k: int(k == "wiener_istft_cluster") for k in names}
+        _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+
+
+@pytest.mark.parametrize("nfft,hop", [(16384, 2048), (32768, 4096)])
+def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
+    """The cluster kernel's Nyquist-row input (the forward STFT kernel's
+    pair at 16 384; the bodies cut from the full spectrum at 32 768): bit
+    for bit the same kernel fed the concatenated spectrum, within 1e-5 of
+    the plain version, counted as "wiener_istft_ny_cluster"."""
+    S, length = 4, 70000
+    w = sinebell(nfft)
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, length))).astype(np.float32)).to(cuda)
+    if nfft == 16384:
+        re, im, ny = stft_ct_pallas(x, w, hop)
+    else:
+        fr, fi = stft_matmul(x, w, hop)
+        re, im, ny = fr[..., :-1].contiguous(), fi[..., :-1].contiguous(), fr[..., -1].contiguous()
+    y = np.abs(rng.standard_normal((2, S, re.shape[1], nfft // 2 + 1))).astype(np.float32)
+    y[..., : re.shape[1] // 3, :8] = 0.0
+    y = torch.from_numpy(y).to(cuda).to(torch.bfloat16)
+    full_re = torch.cat([re, ny[..., None]], -1)
+    full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
+    before = kernels.LAUNCHES["wiener_istft_ny_cluster"]
+    got = wiener_istft(y, re, im, w, hop, length, ny=ny, p=2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wiener_istft_ny_cluster"] == before + 1
+    assert torch.equal(got, wiener_istft(y, full_re, full_im, w, hop, length, p=2.0))
+    _close(got, wiener_istft_plain(y, re, im, w, hop, length, ny=ny, p=2.0), "float32")
+
+
+def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
+    """wiener_cluster_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
+    clusters: the card's own cudaOccupancyMaxActiveClusters for the Wiener
+    cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points, one
+    block an SM (the kernel's launch bound)."""
+    import ctypes
+
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    for nfft, hop in ((16384, 2048), (32768, 4096), (32768, 2048)):
+        plan = fp.wiener_plan(1, 4, 648, nfft, hop)
+        active = ctypes.c_int(0)
+        kernels.check(kernels.library().wiener_cluster_launch(
+            None, 0, None, None, None, None, None, None, None, None, None, 0, 1, 4, 648, nfft,
+            hop, 1, plan.rounds, 0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None),
+            "wiener_cluster_launch")
+        assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, active.value)
+
+
 def test_wiener_istft_kernel_refuses(rng, cuda):
     w, y, re, im = _wiener_inputs(rng, 2, 6000, 256, 64, cuda)
     with pytest.raises(ValueError, match="p in"):
@@ -219,8 +289,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0,
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
                 "istft_direct": 0, "wiener_apply": 0,
-                "wiener_istft_ny": 0, "ct_stft": 0,
-                "band_decode": 0}
+                "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
+                "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -300,6 +370,20 @@ def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
 STFT_NAMES = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_dft")
 
 
+def _rfft_stft(x, w, hop, nfft):
+    """The plain STFT in float64 (torch.fft.rfft of the same padded, windowed
+    frames), rounded to float32: the reference where the direct chain's
+    matrices would pass 6 GB."""
+    from convsep_tpu_torch.dsp.stft import _pad_signal, frame_signal, num_frames
+
+    win = len(w)
+    nf = num_frames(x.shape[-1], hop)
+    frames = frame_signal(_pad_signal(x.double(), win, hop), win, hop, nf)
+    z = torch.fft.rfft(frames * torch.from_numpy(w.astype(np.float32)).double().to(x.device),
+                       n=nfft)
+    return z.real.float(), z.imag.float()
+
+
 def _stft_name(nfft: int) -> str:
     """The STFT kernel stft_pallas takes at nfft."""
     from convsep_tpu_torch.dsp.cuda.fft_plan import (bluestein_supported, cluster_supported,
@@ -318,11 +402,16 @@ def _stft_name(nfft: int) -> str:
     (20000, 20000, 5000, 3, 50000),   # C 8: M 65 536
     (20000, 16000, 4000, 1, 30000),   # nfft past the window
     (32768, 16384, 4096, 1, 40000),   # C 8's largest (a half window keeps the plain tables small)
+    (40000, 40000, 10000, 2, 60000),  # C 16: M 131 072
+    (65536, 65536, 16384, 1, 50000),  # C 16's largest
+    (50001, 40000, 8000, 1, 30000),   # C 16, odd, nfft past the window
 ])
 def test_cluster_stft_kernel_matches_plain(rng, cuda, nfft, win, hop, B, length):
     """Bluestein on a thread-block cluster (M 32 768 on 4 blocks, 65 536 on
-    8) against the plain STFT within 1e-5 × max|X|: one "stft_cluster"
-    launch and no other STFT kernel."""
+    8, 131 072 on 16) against the plain STFT within 1e-5 × max|X|: one
+    "stft_cluster" launch and no other STFT kernel. Past 32 768 points the
+    plain version is the factored chain (the direct one's matrices pass 6
+    GB)."""
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(win)
     before = dict(kernels.LAUNCHES)
@@ -330,7 +419,10 @@ def test_cluster_stft_kernel_matches_plain(rng, cuda, nfft, win, hop, B, length)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in STFT_NAMES} == {
         k: int(k == "stft_cluster") for k in STFT_NAMES}
-    re_p, im_p = stft_pallas_plain(x, w, hop, nfft)
+    if nfft > 32768:
+        re_p, im_p = _rfft_stft(x, w, hop, nfft)
+    else:
+        re_p, im_p = stft_pallas_plain(x, w, hop, nfft)
     assert re.shape == re_p.shape == (B, -(-length // hop) + 2, nfft // 2 + 1)
     peak = max(re_p.abs().max().item(), im_p.abs().max().item())
     torch.testing.assert_close(re, re_p, atol=1e-5 * peak, rtol=0)
@@ -578,19 +670,25 @@ def _istft_name(nfft: int) -> str:
     (20000, 20000, 5000, (3,), 80000),  # C 8
     (20000, 16000, 4000, (1,), 50000),  # nfft past the window
     (32768, 16384, 4096, (1,), 60000),  # C 8's largest (a half window keeps the plain tables small)
+    (40000, 40000, 10000, (1,), 150000),  # C 16: M 131 072
+    (65536, 65536, 16384, (2,), 120000),  # C 16's largest
+    (40002, 30000, 7500, (1,), 80000),   # C 16, nfft past the window
 ])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_cluster_istft_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
     """Bluestein on a thread-block cluster run backwards, float32 within
     1e-5 and PCM16 within one LSB of the plain synthesis: one
-    "istft_cluster" launch and no other iSTFT kernel."""
+    "istft_cluster" launch and no other iSTFT kernel. Past 32 768 points
+    the plain synthesis is the factored chain (the direct one's matrices
+    pass 6 GB)."""
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = dict(kernels.LAUNCHES)
     got = launch_istft(re, im, w, hop, length, nfft, out)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
         k: int(k == "istft_cluster") for k in ISTFT_NAMES}
-    _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft, algorithm="direct",
+    _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft,
+                             algorithm="factored" if nfft > 32768 else "direct",
                              output_dtype=out), out)
 
 
@@ -614,11 +712,13 @@ def test_istft_bluestein_kernel_matches_plain(rng, cuda, nfft, hop, out):
 
 
 @pytest.mark.parametrize("nfft,win,hop", [(10000, 10000, 2500), (20000, 20000, 5000),
-                                          (16384, 16384, 2048), (32768, 16384, 4096)])
+                                          (16384, 16384, 2048), (32768, 16384, 4096),
+                                          (40000, 40000, 10000), (65536, 65536, 16384)])
 def test_cluster_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     """istft_cluster_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE clusters:
     the card's own cudaOccupancyMaxActiveClusters for the kernel's launch
-    (on an H100 SXM 30 clusters of 4 and 15 of 8)."""
+    (on an H100 SXM 30 clusters of 4, 15 of 8 and CLUSTERS_AT_ONCE[16] of
+    16)."""
     import ctypes
 
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
@@ -827,12 +927,39 @@ def test_ct_stft_kernel_matches_plain(rng, cuda, nfft, B, length):
         assert torch.equal(g[0], one)
 
 
+@pytest.mark.parametrize("hop,B,length", [(4096, 1, 1_474_560), (2048, 2, 60_001),
+                                          (1024, 1, 1), (16384, 3, 100_000)])
+def test_ct_stft_cluster_kernel_matches_plain(rng, cuda, hop, B, length):
+    """The fused forward STFT at the reference's 16 384 points (Bluestein on
+    a cluster of 4 blocks) within 1e-5 × max|X| of the plain version, the
+    Nyquist row apart: one "ct_stft_cluster" launch, no "ct_stft"."""
+    nfft = 16384
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
+    w = sinebell(nfft)
+    before = dict(kernels.LAUNCHES)
+    got = stft_ct_pallas(x, w, hop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ct_stft_cluster"] == before["ct_stft_cluster"] + 1
+    assert kernels.LAUNCHES["ct_stft"] == before["ct_stft"]
+    want = stft_ct_pallas_plain(x, w, hop)
+    nf = -(-length // hop) + 2
+    assert got[0].shape == (B, nf, nfft // 2) and got[2].shape == (B, nf)
+    peak = max(a.abs().max().item() for a in want)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, atol=1e-5 * peak, rtol=0)
+
+
 def test_ct_stft_kernel_refuses(cuda):
+    """Outside the reference's shapes the wrapper refuses; at its largest,
+    16 384 points, the cluster kernel serves."""
     x = torch.zeros(2, 5000, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         stft_ct_pallas(x, sinebell(4096), 512)
-    with pytest.raises(ValueError, match="kernel unsupported"):
-        stft_ct_pallas(torch.zeros(2, 50000, device=cuda), sinebell(16384), 1024)
+    with pytest.raises(ValueError, match="unsupported"):
+        stft_ct_pallas(torch.zeros(2, 50000, device=cuda), sinebell(32768), 1024)
+    re, im, ny = stft_ct_pallas(torch.zeros(2, 50000, device=cuda), sinebell(16384), 1024)
+    torch.cuda.synchronize()
+    assert re.shape == (2, 51, 8192) and ny.shape == (2, 51)
 
 
 @pytest.mark.parametrize("S,kw", [(4, {}), (4, {"p": 2.0}), (3, {"conserve_last": True}),
@@ -1063,7 +1190,11 @@ ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
 # cluster (an 8192-point part a block, 128 registers)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
-                         ("istft_cluster_kernel", 4): 192, ("istft_cluster_kernel", 8): 192}
+                         ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
+                         ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
+                         ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280}
+# the fused forward STFT's cluster kernel at 16 384 points (C 4)
+CT_STFT_CLUSTER_STACK_CEILING = 8
 
 
 # the same for the fused decode kernel's two instances (MI, NI, warps): the
@@ -1079,7 +1210,7 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     ``ISTFT_STACK_CEILING``, ``ISTFT_SPLIT_STACK_CEILING``,
     ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``, and
     the cluster's ``CLUSTER_STACK_CEILING``), every
-    Wiener+iSTFT and band decode instance none; and no band decode instance
+    Wiener+iSTFT (on the core) and band decode instance none; and no band decode instance
     has its wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
     import subprocess
@@ -1087,7 +1218,8 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA toolkit of a machine with a card")
     frames, logs = {}, {}
-    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu", "stft_dft.cu"):
+    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu", "stft_dft.cu",
+                "ct_stft.cu"):
         out = subprocess.run(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c", str(kernels.CSRC / src),
              "-o", str(tmp_path / "k.o")], capture_output=True, text=True, check=True)
@@ -1117,6 +1249,8 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
         inst = f"{len(kernel)}{kernel}ILi{c}E"
         hits = [v for k, v in frames.items() if inst in k]
         assert len(hits) == 1 and hits[0] <= most, (inst, frames)
+    hits = [v for k, v in frames.items() if "22ct_stft_cluster_kernelE" in k]
+    assert len(hits) == 1 and hits[0] <= CT_STFT_CLUSTER_STACK_CEILING, frames
 
 
 @pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),

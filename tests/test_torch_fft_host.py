@@ -22,12 +22,19 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
   (``stft_dft.cu::stft_cluster_kernel``, ``istft.cu::istft_cluster_kernel``:
   Bluestein over a thread-block cluster, its C blocks at once with their
   own shared memory, ``cluster_sync`` and ``peer``) at parts of 64 and 512
-  points (C 2, 4 and 8) and once at the card's 8192 (C 4), against the
-  plain STFT and iSTFT at the same tolerances.
+  points (C 2, 4, 8 and 16) and at the card's 8192 (C 4; and C 16, M 131
+  072, on one transform pair against numpy's float64 FFT), against the
+  plain STFT and iSTFT at the same tolerances;
+* ``wiener_common.cuh::wiener_cluster_block``
+  (``wiener_istft.cu::wiener_cluster_kernel``: the masked loads of every
+  source, bf16 or f32 y, p 1 or 2, ``conserve_last``, the ``ny`` row, and
+  the two sources' carries and gather) at parts of 64 and 512 points and at
+  the card's 8192 (N 10 000 and 16 384), against ``wiener_istft_plain``
+  within 1e-5 × max|out|, PCM16 within ±1 LSB.
 
 The kernels' own index maps, twiddle and chirp reads, butterflies, block
 and cluster barriers and output guards. Built once per module under
-pytest's temporary directory, the six programs at once."""
+pytest's temporary directory, the seven programs at once."""
 
 import shutil
 import subprocess
@@ -47,7 +54,7 @@ from convsep_tpu_torch.dsp.windows import sinebell
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
 PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft", "cluster_stft",
-            "cluster_istft")
+            "cluster_istft", "wiener_cluster")
 
 
 @pytest.fixture(scope="module")
@@ -232,6 +239,9 @@ CLUSTER_STFT_CASES = [
     (1000, 1000, 250, 2, 2000, 9),  # M 2048: C 4
     (1801, 1801, 1801, 1, 2000, 9),  # M 4096: C 8, odd
     (10000, 10000, 2500, 1, 3000, 13),  # the card's part, 8192: C 4, 2 clusters
+    (300, 300, 75, 2, 900, 6),      # M 1024: C 16
+    (511, 400, 100, 1, 700, 6),     # C 16, odd, nfft past the window
+    (3000, 3000, 750, 1, 3000, 9),  # M 8192: C 16, a block of 32 threads
 ]
 
 
@@ -270,6 +280,9 @@ CLUSTER_ISTFT_CASES = [
     (1000, 1000, 250, 1, 3000, 9, 4, "int16"),  # C 4
     (1800, 1800, 200, 1, 5000, 9, 7, "float32"),  # C 8, k 9
     (10000, 10000, 2500, 1, 9000, 13, 3, "float32"),  # the card's part: C 4, 3 clusters
+    (400, 400, 100, 2, 1500, 6, 4, "float32"),  # C 16: 100 columns over 16 blocks (7 a block)
+    (300, 240, 60, 1, 1200, 6, 3, "int16"),     # C 16, nfft past the window
+    (3000, 3000, 750, 1, 6000, 9, 4, "float32"),  # M 8192: C 16
 ]
 
 
@@ -305,4 +318,101 @@ def test_cluster_istft_source_matches_plain(tmp_path, host, rng, nfft, win, hop,
     else:
         want = istft_pallas_plain(ret, imt, w, hop, length, nfft=nfft).numpy()
         assert np.isfinite(got).all()  # every sample written
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_cluster16_stft_source_matches_numpy(tmp_path, host, rng):
+    """stft_cluster_block<13, 16>, the card's instance for 32 768 < nfft <=
+    65 536 (M 131 072 on 16 blocks of 8192 points, 8192 threads at once
+    here), on one transform pair: frames 0 and 1 of a W 40 000 signal
+    against numpy's float64 FFT of the same windowed frames, within 1e-5 ×
+    max|X|."""
+    nfft = hop = 40_000
+    length, nf = 50_000, 2
+    assert fp.bluestein_size(nfft) == 16 * fp.CLUSTER_PART == 131_072
+    x = (0.3 * rng.standard_normal((1, length))).astype(np.float32)
+    w = sinebell(nfft)
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    for name, arr in (("x", x), ("w", w), ("tw", fp.twiddles(131_072, "cpu").numpy()),
+                      ("chirp", chirp.numpy()), ("chat", chat.numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    args = [13, 16, 1, length, nfft, hop, nf, nfft]
+    subprocess.run([str(host["cluster_stft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", np.float32).reshape(2, nf, nfft // 2 + 1)
+    padded = np.concatenate([np.zeros(nfft // 2), x[0].astype(np.float64), np.zeros(nfft)])
+    want = np.fft.rfft(np.stack([padded[f * hop:f * hop + nfft] for f in range(nf)])
+                       * w.astype(np.float32).astype(np.float64))
+    peak = np.abs(want).max()
+    assert np.isfinite(out).all()  # every bin of both frames written
+    np.testing.assert_allclose(out[0], want.real, atol=1e-5 * peak, rtol=0)
+    np.testing.assert_allclose(out[1], want.imag, atol=1e-5 * peak, rtol=0)
+
+
+# (nfft, hop, nt, S, length, log2p, rounds (None: fft_plan.wiener_plan's),
+# y dtype, keyword arguments of wiener_istft, out): C = M / 2^LOG2P blocks
+WIENER_CLUSTER_CASES = [
+    (100, 25, 1, 4, 500, 6, 5, "float32", {}, "float32"),  # M 256: C 4; 2 rows a cluster
+    (200, 50, 2, 3, 900, 6, 6, "bfloat16", {"p": 2.0}, "float32"),  # C 8; S odd: no s1
+    (128, 32, 1, 2, 600, 6, 4, "float32", {"conserve_last": True, "ny": True}, "int16"),
+    (1000, 250, 1, 4, 3000, 9, 7, "bfloat16", {"conserve_last": True}, "int16"),  # C 4
+    (2000, 500, 1, 5, 4000, 9, 9, "float32", {"p": 2.0, "ny": True}, "float32"),  # C 8
+    (10_000, 2500, 1, 4, 12_000, 13, None, "float32", {}, "float32"),  # the card's part: C 4
+    (16_384, 2048, 1, 4, 6144, 13, None, "bfloat16",  # the reference's 16 384: 5 frames
+     {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),
+]
+
+
+@pytest.mark.parametrize("nfft,hop,nt,S,length,log2p,rounds,ydt,kw,out", WIENER_CLUSTER_CASES)
+def test_wiener_cluster_source_matches_plain(tmp_path, host, rng, nfft, hop, nt, S, length,
+                                             log2p, rounds, ydt, kw, out):
+    """wiener_cluster_block as wiener_cluster_kernel launches it (a cluster
+    a pair of sources and a row range, one frame a round): every sample of
+    every stem written, equal to wiener_istft_plain within 1e-5 ×
+    max|out|, PCM16 within ±1 LSB."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
+    from convsep_tpu_torch.dsp.dft import stft_matmul
+
+    kw = dict(kw)
+    has_ny = kw.pop("ny", False)
+    w = sinebell(nfft)
+    x = torch.from_numpy((0.3 * rng.standard_normal((nt, length))).astype(np.float32))
+    re, im = stft_matmul(x, w, hop)
+    nf = re.shape[-2]
+    y = np.abs(rng.standard_normal((nt, S, nf, nfft // 2 + 1))).astype(np.float32)
+    y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
+    y = torch.from_numpy(y).to(torch.bfloat16 if ydt == "bfloat16" else torch.float32)
+    ny = None
+    if has_ny:
+        re, im, ny = re[..., :-1].contiguous(), im[..., :-1].contiguous(), re[..., -1].contiguous()
+    m = fp.bluestein_size(nfft)
+    c = m >> log2p
+    if rounds is None:
+        plan = fp.wiener_plan(nt, S, nf, nfft, hop)
+        assert (plan.cluster, plan.threads) == (c, 512)
+        rounds = plan.rounds
+    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    y_bits = y.view(torch.int16).numpy() if ydt == "bfloat16" else y.numpy()
+    for name, arr in (("re", re.numpy()), ("im", im.numpy()), ("wn", wn.numpy()),
+                      ("inv", inv.numpy()), ("tw", fp.twiddles(m, "cpu").numpy()),
+                      ("chirp", chirp.numpy()), ("chat", chat.numpy()),
+                      *([("ny", ny.numpy())] if has_ny else [])):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    np.ascontiguousarray(y_bits).tofile(tmp_path / "y.bin")
+    int16 = out == "int16"
+    p, eps = kw.get("p", 1.0), 1e-8
+    args = [log2p, c, nt, S, nf, nfft, hop, length, rounds, int(ydt == "bfloat16"),
+            int(p == 2.0), repr(eps), int(kw.get("conserve_last", False)), int(has_ny),
+            int(int16)]
+    subprocess.run([str(host["wiener_cluster"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32)
+    got = got.reshape(nt, S, length)
+    want = wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, ny=ny, **kw).numpy()
+    if int16:
+        assert want.dtype == np.int16 and (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        assert np.isfinite(got).all()  # every sample of every stem written
         np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

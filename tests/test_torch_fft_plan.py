@@ -605,7 +605,7 @@ def cluster_fft(u: torch.Tensor, c: int, chat: torch.Tensor | None = None) -> to
 
 
 @pytest.mark.parametrize("M", [256, 2048, 32768])
-@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("c", [2, 4, 8, 16])
 def test_cluster_transforms_match_torch_fft(rng, M, c):
     """Both of the cluster's transforms against torch.fft.fft, with the
     kernel's index maps: the first leaves Y[c k + r] in block r's slot k,
@@ -624,12 +624,13 @@ def test_cluster_transforms_match_torch_fft(rng, M, c):
                                atol=1e-6 * back.abs().max().item(), rtol=0)
 
 
-@pytest.mark.parametrize("nfft", [8193, 10_000, 12_288, 16_384, 20_000])
+@pytest.mark.parametrize("nfft", [8193, 10_000, 12_288, 16_384, 20_000, 40_000, 65_536])
 def test_cluster_bluestein_matches_the_dft(rng, nfft):
     """Bluestein on the cluster (bluestein_fft past M 16 384: C = M / 8192
-    blocks, 4 up to 16 384 points, 8 past) against the plain DFT (torch.fft.fft
-    in float64): within 1e-6 × max|Z|."""
-    assert fp.cluster_supported(nfft) and fp.cluster_blocks(nfft) == (4 if nfft <= 16384 else 8)
+    blocks, 4 up to 16 384 points, 8 up to 32 768, 16 past) against the
+    plain DFT (torch.fft.fft in float64): within 1e-6 × max|Z|."""
+    assert fp.cluster_supported(nfft) and fp.cluster_blocks(nfft) == (
+        4 if nfft <= 16384 else 8 if nfft <= 32768 else 16)
     z = rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))
     got = bluestein_fft(torch.from_numpy(z))
     want = torch.fft.fft(torch.from_numpy(z))
@@ -639,15 +640,17 @@ def test_cluster_bluestein_matches_the_dft(rng, nfft):
 @pytest.mark.parametrize("signals,nf,nfft,win,hop", [
     (32, 7, 12288, 12288, 3072), (32, 5, 20000, 20000, 5000), (1, 1, 8193, 8193, 8193),
     (2, 40, 32768, 16384, 4096), (3, 20, 16384, 16384, 2048), (1, 9, 16385, 16385, 3277),
+    (32, 4, 40000, 40000, 10000), (32, 3, 65536, 65536, 16384), (1, 9, 32769, 32769, 32769),
 ])
 def test_cluster_plan(signals, nf, nfft, win, hop):
     """cluster_plan mirrors stft_cluster_launch: M / 8192 blocks a cluster
-    (4 up to 16 384 points, 8 past; the portable limit), one cluster a pair
-    of frames, 512 threads and 87 040 bytes a block (the 8192-point quarter
-    table and exchange buffer; the frames come from global memory)."""
+    (4 up to 16 384 points, 8 up to 32 768, the portable limit, 16 past),
+    one cluster a pair of frames, 512 threads and 87 040 bytes a block (the
+    8192-point quarter table and exchange buffer; the frames come from
+    global memory)."""
     plan = fp.cluster_plan(signals, nf, nfft, win, hop)
     assert plan.m == fp.bluestein_size(nfft) == plan.cluster * fp.CLUSTER_PART
-    assert plan.cluster == (4 if nfft <= 16384 else 8) <= 8
+    assert plan.cluster == (4 if nfft <= 16384 else 8 if nfft <= 32768 else 16)
     assert plan.threads == fp.MAX_THREADS
     assert plan.clusters == signals * -(-nf // 2) and plan.blocks == plan.clusters * plan.cluster
     assert plan.smem_bytes == 8 * ((2048 + 128) + (8192 + 512)) == 87_040 <= fp.SMEM_MAX
@@ -656,7 +659,8 @@ def test_cluster_plan(signals, nf, nfft, win, hop):
 @pytest.mark.parametrize("signals,nf,nfft,win,hop", [
     (1, 532, 10000, 10000, 2500), (1, 267, 20000, 20000, 5000), (1, 10, 10000, 10000, 2500),
     (4, 530, 10000, 10000, 2500), (2, 40, 8194, 8194, 4097), (1, 60, 32768, 32768, 4096),
-    (3, 90, 16384, 16384, 2048), (1, 300, 20000, 16000, 4000),
+    (3, 90, 16384, 16384, 2048), (1, 300, 20000, 16000, 4000), (1, 134, 40000, 40000, 10000),
+    (1, 83, 65536, 65536, 16384), (2, 300, 50000, 40000, 5000), (1, 5, 32770, 32770, 16385),
 ])
 def test_istft_cluster_plan(signals, nf, nfft, win, hop):
     """istft_cluster_plan mirrors istft_cluster_launch (one pair a round, a
@@ -693,17 +697,19 @@ def test_istft_cluster_main_plans():
 
 
 def test_cluster_envelope():
-    """The cluster takes 8193–32 768 points (M 32 768 on 4 blocks up to 16
-    384, 65 536 on 8 past it), both directions; 8192 stays on the FFT core
-    and past 32 768 the dense DFT (forward) serves and the direct sum
-    (inverse) refuses: its table and spectrum do not fit shared memory."""
+    """The cluster takes 8193–65 536 points (M 32 768 on 4 blocks up to 16
+    384, 65 536 on 8 up to 32 768, 131 072 on 16 past it), both directions;
+    8192 stays on the FFT core and past 65 536 the dense DFT (forward)
+    serves and the direct sum (inverse) refuses: its table and spectrum do
+    not fit shared memory."""
     from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
 
     assert not fp.cluster_supported(8192) and fp.fft_supported(8192)
-    assert fp.cluster_supported(8193) and fp.cluster_supported(32768)
-    assert not fp.cluster_supported(32769)
-    assert [fp.cluster_blocks(n) for n in (8193, 16384, 16385, 32768)] == [4, 4, 8, 8]
-    for n in (8192, 32769, 40000):
+    assert fp.cluster_supported(8193) and fp.cluster_supported(65536)
+    assert not fp.cluster_supported(65537)
+    assert [fp.cluster_blocks(n) for n in (8193, 16384, 16385, 32768, 32769, 65536)] == [
+        4, 4, 8, 8, 16, 16]
+    for n in (8192, 65537, 80000):
         with pytest.raises(ValueError, match="no cluster plan"):
             fp.cluster_plan(1, 4, n, n, n)
     with pytest.raises(ValueError, match="no cluster plan"):
@@ -711,10 +717,13 @@ def test_cluster_envelope():
     assert fp.istft_plan(1, 4, 8192, 8192, 2048).cluster == 1
     assert fp.istft_plan(1, 4, 8194, 8194, 4097).cluster == 4
     assert fp.istft_plan(1, 4, 32768, 32768, 4096).cluster == 8
+    assert fp.istft_plan(1, 4, 32770, 32770, 16385).cluster == 16
+    assert fp.istft_plan(1, 4, 65536, 65536, 16384).cluster == 16
     assert istft_supported(8194, 8194, 4097) and istft_supported(32768, 32768, 4096)
-    assert not istft_supported(32770, 32770, 16385)
+    assert istft_supported(32770, 32770, 16385) and istft_supported(65536, 65536, 16384)
+    assert not istft_supported(65538, 65538, 32769)
     with pytest.raises(ValueError, match="no iSTFT cluster plan"):
-        fp.istft_cluster_plan(1, 4, 8193 * 4, 8192, 2048)
+        fp.istft_cluster_plan(1, 4, 8193 * 8, 8192, 2048)
 
 
 def test_level_matches_torch_fft(rng):
@@ -1051,7 +1060,7 @@ def test_istft_plan(signals, nf, nfft, win, hop):
         assert plan.smem_bytes == 16 * nfft + 4 * plan.rows * hop
         return
     if plan.cluster > 1:  # Bluestein on a cluster: even sizes past 8192
-        assert fp.cluster_supported(nfft) and plan.cluster == fp.cluster_blocks(nfft) <= 8
+        assert fp.cluster_supported(nfft) and plan.cluster == fp.cluster_blocks(nfft) <= 16
         assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
         assert plan.rows == 2 * plan.rounds - (k - 1)
         assert plan.smem_bytes == fp.cluster_smem_bytes((k - 1) * -(-hop // plan.cluster))
@@ -1167,17 +1176,17 @@ def test_istft_level_fits_every_window():
 def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
     """istft_plan raises, and istft_supported says no, where a plan does not
     fit shared memory: the direct sum past 12 800 points (its table and
-    spectrum alone), which serves only past the cluster's 32 768 (13 000
-    and 20 000 run on a cluster), and, with the card's limit cut below the
-    level's 191 488 bytes, the level."""
+    spectrum alone), which serves only past the cluster's 65 536 (13 000,
+    20 000 and 40 000 run on a cluster), and, with the card's limit cut
+    below the level's 191 488 bytes, the level."""
     from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
 
-    for n in (13_000, 20_000):
+    for n in (13_000, 20_000, 40_000):
         assert fp.cluster_supported(n) and istft_supported(n, n, n // 4)
         assert fp.istft_plan(1, 10, n, n, n // 4).cluster == fp.cluster_blocks(n)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_direct_plan(1, 10, n, n, n // 4)
-    for n in (32_770, 40_000):
+    for n in (65_538, 80_000):
         assert not fp.cluster_supported(n) and not istft_supported(n, n, n // 4)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_plan(1, 10, n, n, n // 4)
@@ -1258,6 +1267,53 @@ def test_wiener_plan_every_size():
                 test_wiener_plan(1, S, 1442, n, hop)
     for n, hop in ((16 + 2, 9), (384, 96), (1000, 250), (6000, 1500), (8190, 8190)):
         test_wiener_plan(2, 3, 500, n, hop)
+
+
+@pytest.mark.parametrize("signals,S,nf,nfft,hop", [
+    (1, 4, 648, 16384, 2048), (1, 4, 414, 32768, 4096), (1, 4, 648, 16384, 16384),
+    (2, 3, 40, 10000, 2500), (1, 5, 90, 20000, 5000), (3, 2, 7, 8194, 4097),
+    (1, 1, 5, 32768, 32768), (1, 4, 3000, 16384, 4096),
+])
+def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
+    """wiener_plan past 8192 is wiener_cluster_plan, the launcher's
+    arithmetic: a cluster of M / 8192 blocks (4 up to 16 384 points, 8 up to
+    32 768) of 512 threads a pair of sources and row range, one frame a
+    round (R = rounds − (k − 1) rows), the two sources' carries of a block's
+    1/C of the columns within shared memory, the fewest waves × rounds over
+    every rounds it may (CLUSTERS_AT_ONCE a wave: one block an SM)."""
+    plan = fp.wiener_plan(signals, S, nf, nfft, hop)
+    k, c = nfft // hop, fp.cluster_blocks(nfft)
+    assert plan == fp.wiener_cluster_plan(signals, S, nf, nfft, hop)
+    assert plan.cluster == c == (4 if nfft <= 16384 else 8)
+    assert plan.smem_bytes == 87_040 + 8 * (k - 1) * -(-hop // c) <= fp.SMEM_MAX
+    at_once = fp.CLUSTERS_AT_ONCE[c]
+    assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
+    assert plan.pairs == (S + 1) // 2 and plan.rows == plan.rounds - (k - 1) >= 1
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+    clusters = signals * plan.blocks_per_signal * plan.pairs
+    assert plan.blocks == clusters * c
+    assert plan.waves == -(-clusters // at_once)
+
+    def cost(rounds):
+        per = -(-(nf + k - 1) // (rounds - (k - 1)))
+        return -(-signals * per * plan.pairs // at_once) * rounds
+
+    assert all(cost(plan.rounds) <= cost(r) for r in range(k, nf + 2 * k))
+
+
+def test_wiener_cluster_envelope():
+    """The Wiener+iSTFT cluster plans every even size past 8192 up to the
+    reference's 32 768, at any hop that divides it, and nothing else; the
+    smoke's highres-like shape (4 stems of a 30 s track at W 16 384, hop
+    2048) fills one wave of clusters of 4."""
+    assert fp.wiener_plan(1, 4, 648, 16384, 2048).waves == 1
+    for n in (8194, 10_000, 16_384, 20_000, 32_768):
+        for hop in (n, n // 2):
+            assert fp.wiener_plan(1, 4, 100, n, hop).cluster == fp.cluster_blocks(n)
+    for n, hop in ((8192, 2048), (32_770, 16_385), (65_536, 16_384), (16_385, 16_385),
+                   (16_384, 3000)):
+        with pytest.raises(ValueError, match="no Wiener.iSTFT cluster plan"):
+            fp.wiener_cluster_plan(1, 4, 100, n, hop)
 
 
 def masked_bins(y, re, im, s0, p, eps, conserve_last, ny=None):

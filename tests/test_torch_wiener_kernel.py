@@ -76,5 +76,41 @@ def test_rejects_bad_shapes(rng):
     assert wiener_plan(1, 4, 2882, 1000, 250).groups == 0       # the direct sum
     assert wiener_plan(1, 4, 2882, 1000, 250).rows == 16
     assert wiener_istft_supported(8192, 8192, 8192)  # a block holds two sources, any S
-    assert not wiener_istft_supported(16384, 16384, 4096)  # beyond the FFT core's 8192
+    assert wiener_istft_supported(16384, 16384, 4096)  # past the core: a thread-block cluster
+    assert wiener_istft_supported(32768, 32768, 4096) and wiener_istft_supported(10000, 10000, 2500)
+    assert not wiener_istft_supported(65536, 65536, 16384)  # past the reference's 32 768
+    assert wiener_plan(1, 4, 648, 16384, 2048).cluster == 4
+
+
+# (kw, output dtype, through the ny input): the reference kernel at its
+# 16 384 points, about 6 frames, 4 sources
+CASES_16K = [({"p": 1.0}, "float32", False), ({"p": 2.0}, "int16", False),
+             ({"p": 1.0, "conserve_last": True}, "float32", False),
+             ({"p": 2.0, "conserve_last": True}, "float32", True)]
+
+
+@pytest.mark.parametrize("kw,out,has_ny", CASES_16K)
+def test_plain_matches_jax_kernel_at_16384(rng, kw, out, has_ny):
+    """At the reference kernel's 16 384 points (which the port's card runs on
+    a thread-block cluster), the port's wiener_istft on CPU tensors against
+    istft_ct_pallas_wiener in interpret mode: float32 at the JAX tests' atol
+    1e-5, PCM16 within one LSB; with ``ny`` both take the Nyquist-separate
+    pair."""
+    nfft, hop, length, S = 16384, 2048, 4 * 2048, 4
+    w, re, im, y = _mk(rng, S, length, nfft, hop)
+    assert re.shape[-2] == 6
+    ny = None
+    if has_ny:
+        re, im, ny = re[..., :-1], im[..., :-1], re[..., -1]
+    want = np.asarray(istft_ct_pallas_wiener(
+        jnp.asarray(y), re, im, w, hop, length, nfft=nfft, interpret=True, output_dtype=out,
+        ny=None if ny is None else jnp.asarray(ny), **kw))
+    got = wiener_istft(*_torch(y, re, im), w, hop, length, output_dtype=out,
+                       ny=None if ny is None else torch.from_numpy(np.ascontiguousarray(ny)),
+                       **kw).numpy()
+    assert got.shape == want.shape == (S, length) and got.dtype == want.dtype
+    if out == "int16":
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5)
 
