@@ -52,7 +52,14 @@ result line is printed):
    (``STFT_SHAPES``), each with its device time from ``torch.profiler`` (in
    a child process: a profiler session slows its process's host for good)
    and its wrapper's host time per call; the fused adadelta kernel on
-   leaves the size of ``fc_expand_kernel`` and ``fc_kernel``;
+   leaves the size of ``fc_expand_kernel`` and ``fc_kernel``; 5b: the second
+   level past 65 536 points (Bluestein's M 262 144 or 524 288 over two
+   passes through device memory): ``stft_pallas`` at W 70 000, 131 072 and
+   99 999 on B 32 segments and ``istft_pallas`` (float32 and PCM16) at the
+   same W on a 30 s track's frames, against the float64 transforms, beside
+   ``torch.stft`` / ``torch.istft``, their device times in a child, and the
+   dense DFT kernel forced at W 70 000 (its 19.6 GB of matrices made on the
+   card and freed at once);
 6. the training slice: 8 synthetic 4-stem tracks of 20 s written to a
    temporary directory, ``Trainer(dsd100, fft_impl="pallas",
    optimizer_impl="fused", from_audio=True).fit(max_steps=20)`` at full
@@ -79,7 +86,11 @@ result line is printed):
    float64 synthesis, and every cluster row is also held to it); each call
    launching its kernel once and no other; 7b: the Wiener+iSTFT kernel's
    direct sum at W 768 (forced: "auto" takes the masked chain there), as
-   phase 3;
+   phase 3; 7c: the iSTFT at odd nfft (no Nyquist bin): Bluestein run
+   backwards at W 1001, hop 143 and W 999, hop 333, on a cluster at W 9999,
+   hop 1111 and W 39 999, hop 13 333, on a 30 s track's frames, float32
+   against the float64 synthesis (``TOL_ODD_ISTFT``) and PCM16 within one
+   LSB;
 8. the Wiener mask kernel vs its plain version (bit for bit) at the dsd100
    pallas-route shapes and highres4096's, bf16 y, p = 1 and 2;
 9. the stereo slice: ``StereoSeparator(highres4096-stereo)`` at full width
@@ -93,8 +104,9 @@ result line is printed):
    mask and iSTFT kernels, against the plain synthesis of its own y and the
    matmul route's stems, ms per track against the matmul route;
 11. the multires4096 kernels vs their plain versions: the forward STFT
-   kernel on one track (1, 1 474 560), 4096 pt, hop 1024, and its cluster
-   at the reference's 16 384 pt, hop 4096 (also against the float64 STFT),
+   kernel on one track (1, 1 474 560), 4096 pt, hop 1024, its level at the
+   reference's 16 384 pt, hop 4096, and the cluster kernel it replaced
+   there, forced (both also against the float64 STFT),
    beside ``torch.stft``, with both device times (as phase 5) and the
    wrapper's host time; the Wiener+iSTFT kernel's Nyquist-row input against its
    plain version and, bit for bit, against the same kernel fed the
@@ -102,7 +114,11 @@ result line is printed):
    C2 50, T·I 1500 on the operand the model builds once (band and packed
    taps) beside a bf16 ``torch.matmul``, with the operations it runs (its
    plan) beside the band's, and its wrapper's host time; the fused decode
-   at TM 360;
+   at TM 360; 11b: the fused decode at the reference rule's edges (J 128
+   with ktaps 17 at TM 120 and ktaps 16 at TM 360, J 100 padded to 104; B
+   49, random operands), the launcher's plan against its mirror; the band
+   decode past one block's shared memory, in pieces (multires4096's
+   geometry at 100 channels each way);
 12. the multires4096 slice, ``Separator(multires4096)`` at full width on
    the phase 4 mixture, three routes: (a) "auto" (plain multires channels,
    the fused decode at TM 360, the Wiener+iSTFT kernel) against the plain
@@ -195,9 +211,9 @@ the last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 CUDA device and when run outside the repository checkout. TF32 is off for
 every parity comparison (matmul and cuDNN).
 
-    python3 chip_smoke.py --device-times stft|ct_stft|istft|decode|others[,...]
+    python3 chip_smoke.py --device-times stft|ct_stft|istft|level2|decode|others[,...]
 
-is the child that phases 5, 7, 11 and 14 start: it prints one JSON line of
+is the child that phases 5, 5b, 7, 11 and 14 start: it prints one JSON line of
 device times, keyed by kind.
 """
 
@@ -279,6 +295,10 @@ W32768_NF = 325
 DIRECT_MAX_NFFT = 32768
 TOL_CLUSTER_STFT = 3e-6  # × max|X|: Bluestein on a cluster (float32) against the float64 STFT
 TOL_CLUSTER_F32 = 2e-6   # × max|out|: the cluster iSTFT and Wiener+iSTFT against float64
+TOL_LEVEL_STFT = 1e-6    # × max|X|: one 16 384-point transform a pair (the level) against float64
+TOL_LEVEL2 = 2e-6        # × max|X| or max|out|: the second level, both directions, against float64
+TOL_ODD_ISTFT = 1e-6     # × max|out|: odd-nfft iSTFT (Bluestein run backwards) against float64
+MAX_CORE_NFFT = 8192     # the FFT core's largest transform (fft_common.cuh::kMaxLog2)
 # The spread of the Wiener+iSTFT cluster's time against the masked chain's
 # between runs: "auto" may take the kernel where one run reads it this much
 # slower (ct_istft_kernel.WIENER_CLUSTER_WON, as DECODE_SPREAD for the decode).
@@ -483,7 +503,6 @@ def child_device_times(kind: str) -> dict:
     phase 11's ("ct_stft") kernels and of ``torch.stft`` on the same frames,
     at their shapes, by :func:`profile_ms`."""
     import torch
-    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
     from convsep_tpu_torch.dsp.stft import _pad_signal
     from convsep_tpu_torch.dsp.windows import sinebell
 
@@ -501,14 +520,17 @@ def child_device_times(kind: str) -> dict:
         return child_decode_times(device, pair)
     if kind == "others":
         return child_other_times(device, gen)
+    if kind == "level2":
+        return child_level2_times(device, gen, pair)
     if kind == "ct_stft":
         x = 0.3 * torch.randn(1, MR_SAMPLES, generator=gen, device=device)
         res = {}
-        for key, nfft, hop, _ in CT_STFT_SHAPES:
+        for key, nfft, hop, kernel in CT_STFT_SHAPES:
             w = sinebell(nfft)
             padded = _pad_signal(x, nfft, hop)
             wt = torch.from_numpy(w.astype("float32")).to(device)
-            res[key] = pair(lambda: stft_ct_pallas(x, w, hop),
+            fn = ct_fn(kernel)
+            res[key] = pair(lambda: fn(x, w, hop),
                             lambda: torch.stft(padded, nfft, hop, window=wt, center=False,
                                                return_complex=True))
         return res
@@ -1939,18 +1961,30 @@ def phase_pallas_route(state, preset, device, audio) -> dict:
 # launch): multires4096's 4096 points on the FFT core, and the reference's
 # largest, 16 384, on a thread-block cluster of 4 blocks
 CT_STFT_SHAPES = (("ct_stft", 4096, 1024, "ct_stft"),
-                  ("ct_stft W 16384", 16384, 4096, "ct_stft_cluster"))
+                  ("ct_stft W 16384", 16384, 4096, "ct_stft_level"),
+                  ("ct_stft_cluster W 16384", 16384, 4096, "ct_stft_cluster"))
+CT_STFT_NAMES = ("ct_stft", "ct_stft_level", "ct_stft_cluster")
+
+
+def ct_fn(kernel: str):
+    """The wrapper a ``CT_STFT_SHAPES`` row calls: ``stft_ct_pallas``, or at
+    16 384 points the cluster kernel forced (``stft_ct_cluster_pallas``, the
+    design the level replaced, timed beside it in the same run)."""
+    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_cluster_pallas, stft_ct_pallas
+
+    return stft_ct_cluster_pallas if kernel == "ct_stft_cluster" else stft_ct_pallas
 
 
 def phase_ct_stft(device, gen) -> dict:
     """The forward STFT kernels vs plain on one multires4096 track
     (1, 1 474 560) at ``CT_STFT_SHAPES``, beside ``torch.stft`` on the same
-    (already padded) frames; each call one launch of its kernel. The
-    cluster is also held to the float64 STFT within ``TOL_CLUSTER_STFT``."""
+    (already padded) frames; each call one launch of its kernel. At 16 384
+    points the level (the route) and the cluster (forced) are also held to
+    the float64 STFT within ``TOL_LEVEL_STFT`` and ``TOL_CLUSTER_STFT``."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas, stft_ct_pallas_plain
+    from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas_plain
     from convsep_tpu_torch.dsp.stft import _pad_signal
     from convsep_tpu_torch.dsp.windows import sinebell
 
@@ -1960,10 +1994,11 @@ def phase_ct_stft(device, gen) -> dict:
     for key, nfft, hop, kernel in CT_STFT_SHAPES:
         w = sinebell(nfft)
         half = nfft // 2
+        fn = ct_fn(kernel)
         before = dict(kernels.LAUNCHES)
-        got = stft_ct_pallas(x, w, hop)
+        got = fn(x, w, hop)
         torch.cuda.synchronize()
-        moved = {k: kernels.LAUNCHES[k] - before[k] for k in ("ct_stft", "ct_stft_cluster")}
+        moved = {k: kernels.LAUNCHES[k] - before[k] for k in CT_STFT_NAMES}
         if moved != {k: int(k == kernel) for k in moved}:
             raise AssertionError(f"{key}: launched {moved}, want one {kernel}")
         want = stft_ct_pallas_plain(x, w, hop)
@@ -1975,15 +2010,15 @@ def phase_ct_stft(device, gen) -> dict:
         if not (e <= TOL_STFT * peak and all(torch.isfinite(a).all() for a in got)):
             raise AssertionError(f"{key} kernel disagrees: {e} > {TOL_STFT * peak}")
         e64 = None
-        if kernel == "ct_stft_cluster":
+        if nfft > MAX_CORE_NFFT:
+            tol64 = TOL_CLUSTER_STFT if kernel == "ct_stft_cluster" else TOL_LEVEL_STFT
             r64, i64 = rfft64_stft(x, w, hop)
             e64 = max((got[0] - r64[..., :half]).abs().max().item(),
                       (got[1] - i64[..., :half]).abs().max().item(),
                       (got[2] - r64[..., half]).abs().max().item())
-            log(f"  {key}: {e64:.3e} from the float64 STFT (tol {TOL_CLUSTER_STFT * peak:.3e})")
-            if not e64 <= TOL_CLUSTER_STFT * peak:
-                raise AssertionError(f"{key}: {e64} > {TOL_CLUSTER_STFT * peak} from the float64 "
-                                     f"STFT")
+            log(f"  {key}: {e64:.3e} from the float64 STFT (tol {tol64 * peak:.3e})")
+            if not e64 <= tol64 * peak:
+                raise AssertionError(f"{key}: {e64} > {tol64 * peak} from the float64 STFT")
             del r64, i64
         padded = _pad_signal(x, nfft, hop)
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
@@ -1995,10 +2030,10 @@ def phase_ct_stft(device, gen) -> dict:
         e_lib = max((lib.real[:, :half] - want[0][0]).abs().max().item(),
                     (lib.imag[:, :half] - want[1][0]).abs().max().item(),
                     (lib.real[:, half] - want[2][0]).abs().max().item())
-        ms = cuda_ms(lambda: stft_ct_pallas(x, w, hop))
+        ms = cuda_ms(lambda: fn(x, w, hop))
         plain_ms = cuda_ms(lambda: stft_ct_pallas_plain(x, w, hop))
         lib_ms = cuda_ms(library)
-        us = host_us(lambda: stft_ct_pallas(x, w, hop))
+        us = host_us(lambda: fn(x, w, hop))
         dev = dev_all[key]
         b = bound(4 * x.numel() + 4 * sum(a.numel() for a in got), fft_flops(nf, nfft))
         log(f"  {key}: kernel {ms:.4f} ms (device {ms_str(dev['device_ms'])}), plain "
@@ -2092,6 +2127,342 @@ def phase_band_decode(device, gen) -> dict:
         f"host {us:.1f} us per call")
     return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
             "operations": flops, "executed_operations": plan.executed_ops, "host_us": us}
+
+
+# odd-nfft iSTFT rows (phase 7c): (key, nfft, hop, nf, signals, kernel), nf
+# a 30 s track's (1 323 000 samples) frames
+ODD_ISTFT_SHAPES = (("W 1001 odd", 1001, 143, 9254, 4, "istft_bluestein"),
+                    ("W 999 odd", 999, 333, 3975, 4, "istft_bluestein"),
+                    ("W 9999 odd cluster", 9999, 1111, 1193, 1, "istft_cluster"),
+                    ("W 39999 odd cluster", 39999, 13333, 101, 1, "istft_cluster"))
+# the second level's rows (phase 5b): STFT (key, nfft, hop, B) on B training
+# segments of 14 336 samples; iSTFT (key, nfft, hop, nf, signals), nf a 30 s
+# track's frames
+LEVEL2_STFT_SHAPES = (("stft_level2", 70000, 17500, 32),
+                      ("stft_level2 W 131072", 131072, 32768, 32),
+                      ("stft_level2 W 99999", 99999, 33333, 32))
+LEVEL2_ISTFT_SHAPES = (("istft_level2", 70000, 17500, 78, 1),
+                       ("istft_level2 W 131072", 131072, 32768, 43, 1),
+                       ("istft_level2 W 99999", 99999, 33333, 42, 1))
+
+
+def random_spectra(nfft: int, hop: int, nf: int, N: int, device, gen):
+    """Random half-spectra (N, nf, nfft//2 + 1) and the signal length whose
+    frames they are (the kernels' function does not depend on them being an
+    STFT's; the direct matrices that would make one pass 6 GB past 32 768)."""
+    import torch
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    bins = nfft // 2 + 1
+    re = torch.randn(N, nf, bins, generator=gen, device=device)
+    im = torch.randn(N, nf, bins, generator=gen, device=device)
+    return sinebell(nfft), (nf - 2) * hop, re, im
+
+
+def istft_row(name: str, kernel: str, nfft: int, hop: int, w, L: int, re, im, plain, tol64,
+              device) -> dict:
+    """One iSTFT row: ``istft_pallas`` (float32) and ``launch_istft``
+    (PCM16) against the float64 synthesis (float32 within ``tol64`` ×
+    max|out|, PCM16 within ``TOL_WIENER_I16``), one launch of ``kernel``
+    and no other iSTFT kernel; the kernel, ``plain`` and ``torch.istft``
+    timed; the bound."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, launch_istft
+
+    names = ISTFT_NAMES
+    N = re.shape[0]
+    err = {}
+    for out in ("float32", "int16"):
+        before = dict(kernels.LAUNCHES)
+        got = (istft_pallas(re, im, w, hop, L, nfft=nfft) if out == "float32"
+               else launch_istft(re, im, w, hop, L, nfft, out))
+        want = istft64(re, im, w, hop, L, out)
+        torch.cuda.synchronize()
+        moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+        if moved != {k: int(k == kernel) for k in names}:
+            raise AssertionError(f"istft {name} {out}: launched {moved}, want one {kernel}")
+        if got.shape != (N, L) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"istft {name} {out}: bad output {tuple(got.shape)}")
+        e = (got.float() - want.float()).abs().max().item()
+        tol = TOL_WIENER_I16 if out == "int16" else tol64 * want.abs().max().item()
+        log(f"  istft {name} {out}: (N {N}, nf {re.shape[1]}, bins {re.shape[2]}) {e:.3e}"
+            f"{' LSB' if out == 'int16' else ''} from the float64 synthesis (tol {tol:.3e})")
+        if not e <= tol:
+            raise AssertionError(f"istft {name} {out}: {e} > {tol} from the float64 synthesis")
+        err[out] = e
+        if out == "float32":
+            err["rel"] = e / want.abs().max().item()
+        if out == "float32" and plain is not istft64:
+            ep = (got - plain(re, im, w, hop, L, nfft=nfft)).abs().max().item()
+            log(f"  istft {name}: {ep:.3e} from the plain version (tol {TOL_WIENER_F32})")
+            if not ep <= TOL_WIENER_F32:
+                raise AssertionError(f"istft {name}: {ep} > {TOL_WIENER_F32} from plain")
+            err["plain"] = ep
+    wt = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+    spec = torch.complex(re, im).transpose(-1, -2)
+    ms = cuda_ms(lambda: istft_pallas(re, im, w, hop, L, nfft=nfft))
+    plain_ms = cuda_ms(lambda: plain(re, im, w, hop, L, **({} if plain is istft64 else
+                                                           {"nfft": nfft})))
+    lib_ms = cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
+    us = host_us(lambda: istft_pallas(re, im, w, hop, L, nfft=nfft), reps=20)
+    b = bound(8 * re.numel() + 4 * N * L, fft_flops(N * re.shape[1], nfft))
+    log(f"  istft {name} f32 out: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"({'float64' if plain is istft64 else 'the direct matrices'}), torch.istft "
+        f"{lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); wrapper host "
+        f"{us:.1f} us per call")
+    return {"max_abs_err": err.get("plain", err["float32"]), "rel_err_float64": err["rel"],
+            "max_abs_err_int16": err["int16"], "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_ms, "host_us": us, "W": nfft, "hop": hop, "nf": re.shape[1],
+            "signals": N}
+
+
+def phase_odd_istft(device, gen) -> dict:
+    """The iSTFT at odd nfft (no Nyquist bin, every bin but DC twice, as the
+    reference's inverse matrices weight them), on one 30 s track's frames
+    (``ODD_ISTFT_SHAPES``): Bluestein run backwards at W 1001, hop 143 and
+    W 999, hop 333; on a cluster at W 9999, hop 1111 (4 blocks) and W 39
+    999, hop 13 333 (16 blocks); float32 within ``TOL_ODD_ISTFT`` of the
+    float64 synthesis (and ``TOL_WIENER_F32`` of the plain version up to
+    32 768 points), PCM16 within one LSB."""
+    import torch
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+
+    res = {}
+    for name, nfft, hop, nf, N, kernel in ODD_ISTFT_SHAPES:
+        w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
+        plain = istft_pallas_plain if nfft <= DIRECT_MAX_NFFT else istft64
+        res[name] = {"kernel": kernel, **istft_row(name, kernel, nfft, hop, w, L, re, im, plain,
+                                                   TOL_ODD_ISTFT, device)}
+        del re, im
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_level2(device, gen) -> dict:
+    """The second level (Bluestein's M 262 144 or 524 288 over two passes
+    through device memory, past 65 536 points): ``stft_pallas`` at
+    ``LEVEL2_STFT_SHAPES`` on B 32 training segments and ``istft_pallas``
+    at ``LEVEL2_ISTFT_SHAPES`` on one 30 s track's frames, one odd size
+    each way, against the float64 transforms within ``TOL_LEVEL2``, beside
+    ``torch.stft`` / ``torch.istft``; then the dense DFT kernel forced at W
+    70 000 (its 19.6 GB of matrices made on the card and freed at once), the
+    time the level replaces. Device times from a profiler child."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda.fft_plan import level2_plan
+    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas
+    from convsep_tpu_torch.dsp.dft import _forward_mats
+
+    names = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft")
+    res = {}
+    for key, win, hop, B in LEVEL2_STFT_SHAPES:
+        x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
+        before = dict(kernels.LAUNCHES)
+        re, im = stft_pallas(x, w, hop)
+        torch.cuda.synchronize()
+        moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+        if moved != {k: int(k == "stft_level2") for k in names}:
+            raise AssertionError(f"{key}: launched {moved}, want one stft_level2")
+        r64, i64 = rfft64_stft(x, w, hop)
+        peak = max(r64.abs().max().item(), i64.abs().max().item())
+        e = max((re - r64).abs().max().item(), (im - i64).abs().max().item())
+        log(f"  {key} B {B}: re/im {tuple(re.shape)} {e:.3e} from the float64 STFT (tol "
+            f"{TOL_LEVEL2 * peak:.3e}, max|X| {peak:.3e})")
+        if not (e <= TOL_LEVEL2 * peak and torch.isfinite(re).all() and torch.isfinite(im).all()):
+            raise AssertionError(f"{key}: {e} > {TOL_LEVEL2 * peak} from the float64 STFT")
+
+        def library():
+            return torch.stft(padded, win, hop, window=wt, center=False, return_complex=True)
+
+        ms = cuda_ms(lambda: stft_pallas(x, w, hop))
+        plain_ms = cuda_ms(lambda: rfft64_stft(x, w, hop))
+        lib_ms = cuda_ms(library)
+        us = host_us(lambda: stft_pallas(x, w, hop), reps=20)
+        nf = re.shape[-2]
+        b = bound(4 * x.numel() + 8 * re.numel(), fft_flops(B * nf, win))
+        plan = level2_plan(B, nf, win, win, hop)
+        log(f"  {key}: kernel {ms:.4f} ms, plain (float64 STFT) {plain_ms:.4f} ms, torch.stft "
+            f"{lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); wrapper host "
+            f"{us:.1f} us; plan: M {plan.m}, R {plan.radix}, {plan.pairs} pairs in "
+            f"{plan.rounds} rounds of {plan.pairs_per_round}, {plan.scratch_bytes} B of scratch")
+        res[key] = {"max_abs_err": e, "rel_err_float64": e / peak, "ms": ms, "plain_ms": plain_ms,
+                    **b, "library_ms": lib_ms, "host_us": us, "W": win, "hop": hop, "B": B,
+                    "nf": nf, "plan": {"m": plan.m, "radix": plan.radix, "pairs": plan.pairs,
+                                       "pairs_per_round": plan.pairs_per_round,
+                                       "rounds": plan.rounds,
+                                       "scratch_bytes": plan.scratch_bytes}}
+        if key == "stft_level2":  # the dense kernel it replaces, forced, at the same shape
+            before = dict(kernels.LAUNCHES)
+            dr, di = stft_dft_pallas(x, w, hop)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["stft_dft"] != before["stft_dft"] + 1:
+                raise AssertionError("the forced dense kernel did not launch stft_dft")
+            ed = max((dr - r64).abs().max().item(), (di - i64).abs().max().item())
+            del dr, di
+            dense_ms = cuda_ms(lambda: stft_dft_pallas(x, w, hop), reps=1, rounds=3, warmup=0)
+            log(f"  {key}: the dense DFT kernel forced {dense_ms:.4f} ms ({ed:.3e} from the "
+                f"float64 STFT; its matrices {8 * win * (win // 2 + 1) / 1e9:.1f} GB)")
+            if not ed <= TOL_STFT * peak:
+                raise AssertionError(f"the dense kernel at W {win}: {ed} > {TOL_STFT * peak}")
+            res[key].update(dense_ms=dense_ms, dense_max_abs_err=ed)
+            _forward_mats.cache_clear()
+        del re, im, r64, i64, x, padded
+        torch.cuda.empty_cache()
+    for key, nfft, hop, nf, N in LEVEL2_ISTFT_SHAPES:
+        w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
+        res[key] = istft_row(key, "istft_level2", nfft, hop, w, L, re, im, istft64, TOL_LEVEL2,
+                             device)
+        del re, im
+        torch.cuda.empty_cache()
+    dev = device_times("level2")["level2"]
+    for key, r in res.items():
+        d = dev.get(key)
+        if d:
+            r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"])
+            log(f"  {key}: device {ms_str(d['device_ms'])} (torch's device "
+                f"{ms_str(d['library_device_ms'])}); kernels {json.dumps(d['kernels'])}")
+    return res
+
+
+def child_level2_times(device, gen, pair) -> dict:
+    """Device ms of the second level at the first row of each direction
+    (W 70 000, hop 17 500) beside ``torch.stft`` / ``torch.istft``."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
+    from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
+
+    key, win, hop, B = LEVEL2_STFT_SHAPES[0]
+    x, w, padded, wt = stft_inputs(B, win, hop, device, gen)
+    res = {key: pair(lambda: stft_pallas(x, w, hop),
+                     lambda: torch.stft(padded, win, hop, window=wt, center=False,
+                                        return_complex=True))}
+    key, nfft, hop, nf, N = LEVEL2_ISTFT_SHAPES[0]
+    w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
+    wt = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+    spec = torch.complex(re, im).transpose(-1, -2)
+    res[key] = pair(lambda: istft_pallas(re, im, w, hop, L),
+                    lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
+    return res
+
+
+# the fused decode at the reference rule's edges (phase 11b): (key, J,
+# ktaps, TM) at B 49, S 4, W_pad 512, TpC 800 (highres4096's other widths)
+DECODE_EDGE_SHAPES = (("J 128 ktaps 17 TM 120", 128, 17, 120),
+                      ("J 128 ktaps 16 TM 360", 128, 16, 360),
+                      ("J 100 ktaps 8 TM 120", 100, 8, 120))
+# a band decode past one block's shared memory (phase 11b): multires4096's
+# geometry (N 196, Tp 16, W 505, kh 15) at 128 input channels and 64 output
+# channels (8 pieces of 4 depths × 8 or 7 taps; 64 columns a product)
+BAND_PIECES_SHAPE = (196, 16, 505, 128, 15, 64)
+
+
+def phase_decode_edges(device, gen) -> dict:
+    """The fused decode kernel at ``DECODE_EDGE_SHAPES`` (the reference's
+    largest ktaps, at TM 120 and 360; a J padded to the mma depth 8) on
+    random operands, forced: float32 and bf16 within the decode's
+    tolerances of the plain version, one launch each, the launcher's plan
+    equal to its mirror (``decode_plan``), kernel and plain times."""
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.models.decoder_fused_cuda import (
+        band_freq_decode,
+        band_freq_decode_plain,
+        card_plan,
+        decode_plan,
+    )
+
+    res = {}
+    B, S, W_pad, TpC = 49, 4, 512, 800
+    for key, J, ktaps, TM in DECODE_EDGE_SHAPES:
+        fc = torch.relu(torch.randn(B, J, generator=gen, device=device))
+        ops = (0.2 * torch.randn(J, S, W_pad, TpC, generator=gen, device=device),
+               0.1 * torch.randn(S, W_pad, TpC, generator=gen, device=device),
+               0.1 * torch.randn(TpC, ktaps, TM, generator=gen, device=device))
+        err = {}
+        for dt in (torch.float32, torch.bfloat16):
+            before = kernels.LAUNCHES["fused_decode"]
+            got = band_freq_decode(fc, *ops, out_dtype=dt).float()
+            want = band_freq_decode_plain(fc, *ops, out_dtype=dt).float()
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["fused_decode"] != before + 1:
+                raise AssertionError(f"decode {key}: no fused_decode launch")
+            scale = want.abs().max().item()
+            tol = (TOL_DECODE_F32 if dt == torch.float32 else TOL_DECODE_BF16) * scale
+            e = (got - want).abs().max().item()
+            log(f"  decode {key} {str(dt)[6:]}: max_abs_err {e:.3e} (tol {tol:.3e})")
+            if not (e <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"fused decode {key} {dt} disagrees: {e} > {tol}")
+            err[dt] = e
+        shape = (B, J, S, W_pad, TpC, ktaps, TM)
+        plan, mirror = card_plan(*shape), decode_plan(*shape)
+        if (plan["bt"], plan["kc_bufs"], plan["k4_bufs"], plan["wb"], plan["smem_bytes"]) != (
+                mirror.bt, mirror.kc_bufs, mirror.k4_bufs, mirror.wb, mirror.smem_bytes):
+            raise AssertionError(f"decode {key}: the launcher's plan {plan} is not its mirror "
+                                 f"{mirror}")
+        ms = cuda_ms(lambda: band_freq_decode(fc, *ops, out_dtype=torch.bfloat16))
+        plain_ms = cuda_ms(lambda: band_freq_decode_plain(fc, *ops, out_dtype=torch.bfloat16))
+        b = decode_bounds(fc, ops)
+        log(f"  decode {key} B {B} bf16 out: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{b['bound_ms']:.3f} ms (3xTF32); plan: row tiles of {plan['bt']} fc rows (bp "
+            f"{plan['bp']}), {plan['kc_bufs']} Kcat and {plan['k4_bufs']} K4 buffers, "
+            f"{plan['wb']} output rows a block (halo {mirror.halo:.2f}), clusters of "
+            f"{plan['cluster']}, {plan['active_clusters']} at once, {plan['smem_bytes']} B")
+        res[key] = {"max_abs_err": err[torch.float32], "max_abs_err_bf16": err[torch.bfloat16],
+                    "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "B": B, "J": J,
+                    "ktaps": ktaps, "TM": TM, "plan": plan}
+        del fc, ops, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_band_pieces(device, gen) -> dict:
+    """The band decode kernel on a band its taps and z tile do not fit one
+    block's shared memory for (``BAND_PIECES_SHAPE``): cut by band_pieces,
+    each piece added into its columns, within ``TOL_BAND`` of the plain
+    version, one count; its time beside the plain version's and a bf16
+    ``torch.matmul``."""
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.models.decoder_band_cuda import (
+        band_decode_wmajor,
+        band_decode_wmajor_plain,
+        band_operand,
+        band_pieces,
+    )
+
+    N, Tp, W, C2, kh, I = BAND_PIECES_SHAPE
+    T = Tp + kh - 1
+    split = band_pieces(Tp, C2, kh, I)
+    z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
+    op = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+    before = kernels.LAUNCHES["band_decode"]
+    got = band_decode_wmajor(z, op, T)
+    want = band_decode_wmajor_plain(z, op)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["band_decode"] != before + 1:
+        raise AssertionError("band pieces: no band_decode count")
+    scale = want.abs().max().item()
+    e = (got - want).abs().max().item()
+    log(f"  band_decode pieces z {tuple(z.shape)}: {len(split.pieces)} pieces of at most "
+        f"{split.tp} depths x {split.kh} taps ({split.smem_bytes} B); max_abs_err {e:.3e} (tol "
+        f"{TOL_BAND * scale:.3e})")
+    if not (e <= TOL_BAND * scale and torch.isfinite(got).all()):
+        raise AssertionError(f"band decode pieces disagree: {e} > {TOL_BAND * scale}")
+    zb, bb = z.reshape(N * W, -1), op.band.reshape(Tp * C2, -1).to(torch.bfloat16)
+    ms = cuda_ms(lambda: band_decode_wmajor(z, op, T))
+    plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, op))
+    lib_ms = cuda_ms(lambda: torch.matmul(zb, bb))
+    flops = 2.0 * N * W * Tp * kh * C2 * I
+    b = bound(2 * z.numel() + 2 * kh * C2 * I + 4 * got.numel(), flops, BF16_FLOPS)
+    log(f"  band_decode pieces: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.matmul bf16 "
+        f"{lib_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+            "pieces": len(split.pieces), "piece_depths": split.tp, "piece_taps": split.kh,
+            "shape": list(BAND_PIECES_SHAPE)}
 
 
 def auto_fused(preset, batch: int) -> bool:
@@ -3214,6 +3585,11 @@ def main(argv: list[str]) -> int:
     stft_all = phase_stft(device, gen)
     ada = phase_adadelta(device, gen)
     torch.cuda.empty_cache()
+    log("phase 5b: the second level past 65 536 points (stft_pallas at W 70 000, 131 072 and "
+        "99 999 on B 32 segments; istft_pallas at the same W on a 30 s track's frames), against "
+        "float64, and the dense DFT kernel forced at W 70 000")
+    lvl2 = phase_level2(device, gen)
+    torch.cuda.empty_cache()
     log("phase 6: training slice, dsd100 full width, B 32, synthetic stems, seeded weights")
     train = phase_train(device)
     torch.cuda.empty_cache()
@@ -3227,6 +3603,10 @@ def main(argv: list[str]) -> int:
     wie768 = phase_wiener("W 768 direct sum", 768, 256, W768_NF, 4, device, gen)
     wie768.update(library_ms=ist["W 768 split"]["library_ms"],
                   library="torch.istft of the 4 masked spectra (the synthesis alone)")
+    torch.cuda.empty_cache()
+    log("phase 7c: the iSTFT at odd nfft (W 1001, 999 Bluestein; 9999, 39 999 on a cluster), "
+        "against float64")
+    odd = phase_odd_istft(device, gen)
     torch.cuda.empty_cache()
     log("phase 8: Wiener mask kernel vs plain (dsd100 pallas-route and highres4096 shapes)")
     wap = phase_wiener_apply(device, gen)
@@ -3252,6 +3632,11 @@ def main(argv: list[str]) -> int:
     wny = phase_wiener_ny(device, gen)
     torch.cuda.empty_cache()
     band = phase_band_decode(device, gen)
+    torch.cuda.empty_cache()
+    log("phase 11b: the fused decode at the reference rule's edges (ktaps 17 at TM 120, 16 at "
+        "TM 360, J 100) and the band decode past one block's shared memory (in pieces)")
+    dec_edges = phase_decode_edges(device, gen)
+    band_split = phase_band_pieces(device, gen)
     torch.cuda.empty_cache()
     mr = get_preset("multires4096")
     mr_state = init_params(mr.model, torch.Generator(device=device).manual_seed(4), device)
@@ -3375,9 +3760,10 @@ def main(argv: list[str]) -> int:
     # Bluestein and its cluster (both directions, and the Wiener+iSTFT's and
     # the forward STFT's clusters), the dense DFT and the direct sum serve
     # only sizes that no preset uses
-    for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_dft", "istft_split",
-                   "istft_bluestein", "istft_cluster", "istft_direct", "wiener_istft_cluster",
-                   "wiener_istft_ny_cluster", "ct_stft_cluster"):
+    for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
+                   "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
+                   "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
+                   "ct_stft_level", "ct_stft_cluster"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -3386,6 +3772,7 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/decoder_fused.cu",
          "replaces": "convsep_tpu/models/decoder_fused_pallas.py:194",
          **launched("fused_decode"), **dec, "stereo_tm240": dec240, "multires4096_tm360": dec360,
+         "envelope_edges": dec_edges,
          "bf16_compute_b49": {k: v for k, v in bf16.items() if k != "launches"},
          "tm120_batches": {str(B): r for B, r in dec_batches.items()}},
         {"name": "wiener_istft", "route": "cuda",
@@ -3432,13 +3819,27 @@ def main(argv: list[str]) -> int:
          "w20000_hop5000": stft_all["stft_cluster W 20000"],
          "w40000_hop10000": stft_all["stft_cluster W 40000"],
          "w65536_hop16384": stft_all["stft_cluster W 65536"]},
+        {"name": "stft_level2", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/stft_dft.cu",
+         "entry": "stft_level2_first_kernel, stft_level2_middle_kernel, stft_level2_last_kernel, "
+                  "stft_level2_split_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
+         "serves": "65 536 < nfft <= 262 144 (70 000, 131 072, odd sizes): Bluestein on the "
+                   "second level, M 262 144 or 524 288 over two passes through a scratch in "
+                   "device memory; one count a call (four phase launches a round); no preset",
+         **launched("stft_level2"), **lvl2["stft_level2"],
+         "w131072_hop32768": lvl2["stft_level2 W 131072"],
+         "w99999_hop33333": lvl2["stft_level2 W 99999"]},
         {"name": "stft_dft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_dft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",
-         "serves": "nfft past 65 536; stft_dft_pallas forces it at any size (timed forced at W "
-                   "12 288 and 40 000, the cluster's shapes); no preset",
+         "serves": "nfft past 262 144; stft_dft_pallas forces it at any size (timed forced at W "
+                   "12 288, 40 000 and 70 000, the cluster's and the second level's shapes); no "
+                   "preset",
          **launched("stft_dft"), **stft_all["stft_dft W 12288"],
          "forced_w40000": stft_all["stft_dft W 40000"],
+         "forced_w70000": {"ms": lvl2["stft_level2"]["dense_ms"],
+                           "max_abs_err": lvl2["stft_level2"]["dense_max_abs_err"]},
          "forced_w768": stft_all["stft_dft W 768"],
          "forced_w1280": stft_all["stft_dft W 1280"],
          "forced_w1000": stft_all["stft_dft W 1000"],
@@ -3466,7 +3867,8 @@ def main(argv: list[str]) -> int:
          "serves": "even nfft <= 8192 that neither the FFT core nor its split plans (1000 = "
                    "8 125, a factor 7; past 4096 on the 16 384-point level, as 6000); no preset",
          **launched("istft_bluestein"), **ist["W 1000 Bluestein"],
-         "w6000_hop1500": ist["W 6000 Bluestein"]},
+         "w6000_hop1500": ist["W 6000 Bluestein"],
+         "odd_w1001_hop143": odd["W 1001 odd"], "odd_w999_hop333": odd["W 999 odd"]},
         {"name": "istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
@@ -3476,7 +3878,21 @@ def main(argv: list[str]) -> int:
          **launched("istft_cluster"), **ist["W 10000 cluster"],
          "w20000_hop5000": ist["W 20000 cluster"],
          "w40000_hop10000": ist["W 40000 cluster"],
-         "w65536_hop16384": ist["W 65536 cluster"]},
+         "w65536_hop16384": ist["W 65536 cluster"],
+         "odd_w9999_hop1111": odd["W 9999 odd cluster"],
+         "odd_w39999_hop13333": odd["W 39999 odd cluster"]},
+        {"name": "istft_level2", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu",
+         "entry": "istft_level2_first_kernel, istft_level2_middle_kernel, "
+                  "istft_level2_last_kernel, istft_level2_ola_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "65 536 < nfft <= 262 144, any parity: Bluestein run backwards on the second "
+                   "level, then an overlap-add of the frames' samples; one count a call; no "
+                   "preset",
+         **launched("istft_level2"), **lvl2["istft_level2"],
+         "w131072_hop32768": lvl2["istft_level2 W 131072"],
+         "w99999_hop33333": lvl2["istft_level2 W 99999"]},
         {"name": "istft_direct", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_direct_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
@@ -3494,16 +3910,22 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/ct_stft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
          **launched("ct_stft"), **ct["ct_stft"]},
+        {"name": "ct_stft_level", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/ct_stft.cu", "entry": "ct_stft_level_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
+         "serves": "nfft 16 384, the reference kernel's largest: one 16 384-point transform a "
+                   "pair of frames on the FFT core's level; no preset",
+         **launched("ct_stft_level"), **ct["ct_stft W 16384"]},
         {"name": "ct_stft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/ct_stft.cu", "entry": "ct_stft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_stft_kernel.py:187",
-         "serves": "nfft 16 384, the reference kernel's largest: Bluestein on a thread-block "
-                   "cluster of 4 blocks; no preset",
-         **launched("ct_stft_cluster"), **ct["ct_stft W 16384"]},
+         "serves": "no route: stft_ct_cluster_pallas forces it at 16 384 (Bluestein on a "
+                   "thread-block cluster of 4 blocks), timed beside the level that replaced it",
+         **launched("ct_stft_cluster"), **ct["ct_stft_cluster W 16384"]},
         {"name": "band_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/band_decode.cu",
          "replaces": "convsep_tpu/models/decoder_pallas.py:80",
-         **launched("band_decode"), **band},
+         **launched("band_decode"), **band, "pieces": band_split},
     ], "slices_ms_per_track": {
         "highres4096-stereo": {"kernel": st_run["ms"], "plain": st_run["plain_ms"]},
         "dsd100 fft_impl=pallas": {"pallas": pl_run["ms"], "matmul": pl_run["matmul_ms"]},

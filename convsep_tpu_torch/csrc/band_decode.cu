@@ -44,6 +44,15 @@
 // one 200-byte row piece an instruction; the other warpgroup's products run
 // meanwhile too. The output's row pieces (I floats of 8448 rows in flight at
 // once) are what bounds it now, not the products.
+//
+// A band whose taps and 64-row z tile do not fit one block's shared memory
+// at once (the presets take 225 KB of 227; twice their channels do not
+// fit) runs in pieces (decoder_band_cuda.py::band_pieces,
+// band_decode_piece_launch): each piece a band decode of z's depths h0 ..
+// h1 - 1 (z read with the whole band's row stride) against its own packed
+// taps d0 .. d1 - 1, added into output columns h0 + d0 on (the output's
+// row stride the whole band's, read and written back), one launch a piece
+// on one stream.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -178,14 +187,17 @@ __device__ __forceinline__ void wg_mma(float (&d)[32], uint64_t a, uint64_t b, i
 }
 
 struct Args {
-  const __nv_bfloat16* z;   // (M, Tp C2) row-major
+  const __nv_bfloat16* z;   // (M, Tp C2), row r at z + r zs
   const __nv_bfloat16* taps;  // the packed operand: (kh C2p + 8) rows x Ip columns, core matrices
-  float* out;               // (M, T I)
+  float* out;               // (M, T I), row r at out + r os
   long long M;
   int Tp, C2, C2p, kh, I, Ip, T, chunks, row_tiles;
+  int zs, os;               // the rows' strides: Tp C2 and T I, or a whole band's (a piece)
 };
 
-template <int NW, int VEC>
+// ACC: add into out instead of storing (a piece of a band cut by
+// decoder_band_cuda.band_pieces; its z rows by pairs or thread stores)
+template <int NW, int VEC, bool ACC>
 __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
   extern __shared__ float4 smem4[];
   constexpr int NA = NW / 2;  // accumulators a thread holds per unit
@@ -201,7 +213,8 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int lane = tid & 31, warp = (tid / 32) & 3;
   const int g = lane >> 2, q = lane & 3;
-  const int K = a.Tp * a.C2, NC = a.T * a.I;
+  const int K = a.Tp * a.C2;
+  const int NC = a.os;
   const uint32_t lbo_b = a.Ip * 16;
 
   // A's padding (c >= C2 and the 8 rows past the last tap) stays zero: the
@@ -241,7 +254,9 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
   auto store = [&](const float (&acc)[NA], int u, long long r0) {
     const int t = u / a.chunks, ch = u - t * a.chunks;
     const int n0 = ch * NW, cols = min(NW, a.I - n0);
-    const bool pairs = ((a.I | NC) & 1) == 0;  // float2 stores stay 8-byte aligned
+    // float2 stores stay 8-byte aligned (a piece's out starts at a column)
+    const bool pairs = ((a.I | NC) & 1) == 0 &&
+                       (!ACC || reinterpret_cast<uintptr_t>(a.out) % 8 == 0);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       __syncwarp();  // the previous rows are read
@@ -255,13 +270,20 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
       if (pairs) {
         for (int rr = 0; rr < 8; ++rr)
           for (int c = 2 * lane; c < cols; c += 64)
-            if (row0 + rr < a.M)
-              __stcs(reinterpret_cast<float2*>(o + rr * NC + c),
-                     *reinterpret_cast<const float2*>(stage + rr * kSS + c));
+            if (row0 + rr < a.M) {
+              float2 v = *reinterpret_cast<const float2*>(stage + rr * kSS + c);
+              float2* dst = reinterpret_cast<float2*>(o + rr * NC + c);
+              if constexpr (ACC) {
+                const float2 p = *dst;
+                v = make_float2(p.x + v.x, p.y + v.y);
+              }
+              __stcs(dst, v);
+            }
       } else {
         for (int rr = 0; rr < 8; ++rr)
           for (int c = lane; c < cols; c += 32)
-            if (row0 + rr < a.M) __stcs(o + rr * NC + c, stage[rr * kSS + c]);
+            if (row0 + rr < a.M)
+              __stcs(o + rr * NC + c, stage[rr * kSS + c] + (ACC ? o[rr * NC + c] : 0.f));
       }
     }
   };
@@ -278,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
     for (int v = 0; v < (VEC == 0 ? kQuads : 0); ++v) {
       const int m = 8 * (tid / 32) + (lane >> 2), chunk = 4 * v + (lane & 3);
       const bool ok = v < quads && chunk < K / 8 && r0 + m < a.M;
-      zr[v] = ld_nc(ok ? a.z + (r0 + m) * K + 8 * chunk : a.z, ok);
+      zr[v] = ld_nc(ok ? a.z + (r0 + m) * a.zs + 8 * chunk : a.z, ok);
     }
   };
   auto put = [&]() {
@@ -312,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
         const int m = i / per_row, kv = (i - m * per_row) * VEC;
         const int h = kv / a.C2, kp = h * a.C2p + (kv - h * a.C2);
         const bool ok = r0 + m < a.M;
-        const __nv_bfloat16* src = ok ? a.z + (r0 + m) * K + kv : a.z;
+        const __nv_bfloat16* src = ok ? a.z + (r0 + m) * a.zs + kv : a.z;
         char* dst = reinterpret_cast<char*>(As) + (kp / 8) * kAGroup + (m / 8) * 128 +
                     (m & 7) * 16 + (kp & 7) * 2;
         if constexpr (VEC == 1) {
@@ -359,13 +381,48 @@ __global__ void __launch_bounds__(kThreads, 1) band_decode_kernel(Args a) {
 }
 
 template <int NW>
-cudaError_t launch_nw(const Args& a, int vec, int grid, size_t smem, cudaStream_t s) {
-  auto kern = vec == 0 ? band_decode_kernel<NW, 0>
-              : vec == 2 ? band_decode_kernel<NW, 2> : band_decode_kernel<NW, 1>;
+cudaError_t launch_nw(const Args& a, int vec, bool acc, int grid, size_t smem, cudaStream_t s) {
+  auto kern = acc ? (vec == 2 ? band_decode_kernel<NW, 2, true> : band_decode_kernel<NW, 1, true>)
+              : vec == 0 ? band_decode_kernel<NW, 0, false>
+              : vec == 2 ? band_decode_kernel<NW, 2, false> : band_decode_kernel<NW, 1, false>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+cudaError_t run(const void* z, const void* taps, void* out, long long M, int Tp, int C2, int kh,
+                int I, long long zs, long long os, int accumulate, int grid, cudaStream_t s) {
+  if (M < 1 || Tp < 1 || C2 < 1 || kh < 1 || I < 1 || grid < 1 || zs < (long long)Tp * C2 ||
+      os < (long long)(Tp + kh - 1) * I || zs > INT32_MAX || os > INT32_MAX)
+    return cudaErrorInvalidValue;
+  Args a{static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(taps),
+         static_cast<float*>(out), M, Tp, C2, (C2 + 7) / 8 * 8, kh, I, (I + 7) / 8 * 8,
+         Tp + kh - 1, 0, (int)((M + kRows - 1) / kRows), (int)zs, (int)os};
+  int nw = 64;  // the widest chunk (a multiple of 8, at most 64) that divides Ip
+  while (a.Ip % nw) nw -= 8;
+  a.chunks = a.Ip / nw;
+  // z's loads: 0 the register path (Tp C2 a multiple of 8 and at most 32
+  // kQuads, C2 even; not for a piece), else pairs by cp.async (C2 even, rows
+  // 4-byte aligned) or thread stores
+  const int K = Tp * C2;
+  const uintptr_t zp = reinterpret_cast<uintptr_t>(z);
+  const int vec = !accumulate && C2 % 2 == 0 && K % 8 == 0 && K <= 32 * kQuads ? 0
+                  : C2 % 2 == 0 && zs % 2 == 0 && zp % 4 == 0 ? 2
+                                                              : 1;
+  const size_t smem = (size_t)kRows * (Tp * a.C2p + 8) * 2 + (size_t)(kh * a.C2p + 8) * a.Ip * 2 +
+                      (size_t)kThreads / 32 * 8 * stage_floats(nw) * 4;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  switch (nw) {
+    case 8: return launch_nw<8>(a, vec, accumulate, grid, smem, s);
+    case 16: return launch_nw<16>(a, vec, accumulate, grid, smem, s);
+    case 24: return launch_nw<24>(a, vec, accumulate, grid, smem, s);
+    case 32: return launch_nw<32>(a, vec, accumulate, grid, smem, s);
+    case 40: return launch_nw<40>(a, vec, accumulate, grid, smem, s);
+    case 48: return launch_nw<48>(a, vec, accumulate, grid, smem, s);
+    case 56: return launch_nw<56>(a, vec, accumulate, grid, smem, s);
+    default: return launch_nw<64>(a, vec, accumulate, grid, smem, s);
+  }
 }
 
 }  // namespace
@@ -375,30 +432,19 @@ cudaError_t launch_nw(const Args& a, int vec, int grid, size_t smem, cudaStream_
 // f32; grid: persistent blocks (decoder_band_cuda.band_plan).
 extern "C" int band_decode_launch(const void* z, const void* taps, void* out, long long M,
                                   int Tp, int C2, int kh, int I, int grid, void* stream) {
-  if (M < 1 || Tp < 1 || C2 < 1 || kh < 1 || I < 1 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(taps),
-         static_cast<float*>(out), M, Tp, C2, (C2 + 7) / 8 * 8, kh, I, (I + 7) / 8 * 8,
-         Tp + kh - 1, 0, (int)((M + kRows - 1) / kRows)};
-  int nw = 64;  // the widest chunk (a multiple of 8, at most 64) that divides Ip
-  while (a.Ip % nw) nw -= 8;
-  a.chunks = a.Ip / nw;
-  // z's loads: 0 the register path (Tp C2 a multiple of 8 and at most 32
-  // kQuads, C2 even), else pairs by cp.async (C2 even) or thread stores
-  const int K = Tp * C2;
-  const int vec = C2 % 2 == 0 && K % 8 == 0 && K <= 32 * kQuads ? 0 : C2 % 2 == 0 ? 2 : 1;
-  const size_t smem = (size_t)kRows * (Tp * a.C2p + 8) * 2 + (size_t)(kh * a.C2p + 8) * a.Ip * 2 +
-                      (size_t)kThreads / 32 * 8 * stage_floats(nw) * 4;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (nw) {
-    case 8: return (int)launch_nw<8>(a, vec, grid, smem, s);
-    case 16: return (int)launch_nw<16>(a, vec, grid, smem, s);
-    case 24: return (int)launch_nw<24>(a, vec, grid, smem, s);
-    case 32: return (int)launch_nw<32>(a, vec, grid, smem, s);
-    case 40: return (int)launch_nw<40>(a, vec, grid, smem, s);
-    case 48: return (int)launch_nw<48>(a, vec, grid, smem, s);
-    case 56: return (int)launch_nw<56>(a, vec, grid, smem, s);
-    default: return (int)launch_nw<64>(a, vec, grid, smem, s);
-  }
+  return (int)run(z, taps, out, M, Tp, C2, kh, I, (long long)Tp * C2,
+                  (long long)(Tp + kh - 1) * I, 0, grid, static_cast<cudaStream_t>(stream));
+}
+
+// One piece of a band whose taps and z tile do not fit shared memory at
+// once (decoder_band_cuda.band_pieces): depths h0 .. h0 + Tp - 1 of z (z
+// points at depth h0 of row 0, rows zs elements apart) against taps d0 ..
+// d0 + kh - 1 (their own packed operand), added to output columns h0 + d0
+// .. (out points at column (h0 + d0) I of row 0, rows os floats apart) when
+// accumulate is 1.
+extern "C" int band_decode_piece_launch(const void* z, const void* taps, void* out, long long M,
+                                        int Tp, int C2, int kh, int I, long long zs,
+                                        long long os, int accumulate, int grid, void* stream) {
+  return (int)run(z, taps, out, M, Tp, C2, kh, I, zs, os, accumulate, grid,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -30,14 +30,21 @@
 // pair waits on another, no store scatters to bit-reversed slots, and no
 // block computes twiddles.
 //
-// ct_stft_cluster_kernel takes the reference's largest size, 16 384 points,
-// past the core's 8192: Bluestein's chirp-z over a thread-block cluster of
-// 4 blocks (M 32 768, fft_common.cuh::stft_cluster_block, stft_dft.cu's
-// cluster kernel with these output rows), one cluster a pair of frames,
-// the frames read from global memory. At hop 4096, one 30 s track (325
-// frames) its bound is bytes: 5.3 MB of signal and 21.3 MB of spectra, 7.9
-// us. A direct 16 384-point transform on the core's level would need one
-// transform instead of Bluestein's two of twice the points.
+// ct_stft_level_kernel takes the reference's largest size, 16 384 points,
+// past the core's 8192: one direct 16 384-point transform a pair of frames
+// on the core's level (fft_common.cuh::stft_level_block: two 8192-point
+// runs of the core and a radix-2 stage on one 512-thread block, 191 488
+// bytes of tables and exchange), the points win x_a + i win x_b read from
+// global memory as the level asks for them, split as stft_block splits
+// them. At hop 4096, one 30 s track (362 frames, 181 blocks) its bound is
+// bytes: 5.9 MB of signal and 23.7 MB of spectra, 8.8 us.
+//
+// ct_stft_cluster_kernel, the design it replaced and that only
+// stft_ct_cluster_pallas reaches now: Bluestein's chirp-z over a
+// thread-block cluster of 4 blocks (M 32 768, fft_common.cuh::
+// stft_cluster_block, stft_dft.cu's cluster kernel with these output
+// rows), one cluster a pair of frames: two transforms of twice the points
+// where the level runs one.
 
 #include <cuda_runtime.h>
 
@@ -101,6 +108,15 @@ __global__ void __launch_bounds__(kMaxThreads) ct_stft_cluster_kernel(
                                   HalfRows{re, im, ny, nfft / 2});
 }
 
+__global__ void __launch_bounds__(kMaxThreads) ct_stft_level_kernel(
+    const float* __restrict__ x, const float* __restrict__ win, const float2* __restrict__ tw,
+    float* __restrict__ re, float* __restrict__ im, float* __restrict__ ny, int L, int hop,
+    int nf) {
+  extern __shared__ float4 smem4[];
+  stft_level_block<false>(smem4, x, win, tw, L, 1 << kLevelLog2, hop, nf,
+                          HalfRows{re, im, ny, 1 << kMaxLog2});
+}
+
 }  // namespace
 
 // nfft = window, a power of two in [2^11, 2^13]; `ffts` complex FFTs (2 ffts
@@ -144,4 +160,24 @@ extern "C" int ct_stft_cluster_launch(const void* x, const void* win, const void
       static_cast<const float2*>(chirp), static_cast<const float2*>(chat),
       static_cast<float*>(re), static_cast<float*>(im), static_cast<float*>(ny), L, nfft, hop,
       nf);
+}
+
+// nfft = window = 16 384: one 16 384-point transform a pair of frames on
+// the level (fft_common.cuh::stft_level_block), one 512-thread block a pair;
+// tw the 16 384-point quarter table (fft_plan.twiddles).
+extern "C" int ct_stft_level_launch(const void* x, const void* win, const void* tw, void* re,
+                                    void* im, void* ny, int B, int L, int nfft, int hop, int nf,
+                                    void* stream) {
+  if (B < 1 || L < 1 || nf < 1 || hop < 1 || nfft != 1 << kLevelLog2)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bluestein_smem_bytes(kLevelLog2, nfft, hop, 1);
+  cudaError_t err = cudaFuncSetAttribute(ct_stft_level_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ct_stft_level_kernel<<<(unsigned)((long long)B * ((nf + 1) / 2)), kMaxThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(win),
+      static_cast<const float2*>(tw), static_cast<float*>(re), static_cast<float*>(im),
+      static_cast<float*>(ny), L, hop, nf);
+  return (int)cudaGetLastError();
 }

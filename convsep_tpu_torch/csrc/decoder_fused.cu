@@ -66,6 +66,14 @@
 //     into a buffer only once every reader is done with it (e, the K4 rows
 //     and the split Kcat tiles are double-buffered). No cluster barrier is
 //     in the loop, so a block may run up to a chunk ahead of the others.
+// Every shape the reference's rule admits (ktaps <= 17, TM 90-384) has a
+// plan: where the double-buffered 64-row tile does not keep stage 1's halo
+// at or under 2 in shared memory (ktaps 16-17, or J past 128), the split
+// Kcat tiles take one buffer (the tile of c + 1 split after stage 2 of c,
+// behind a block barrier), then the K4 rows too (the rows of c + 2 copied
+// once stage 1 of c + 1 has read them), and the row tile 32, 16 or 8 fc
+// rows (make_plan). The launcher takes J a multiple of the mma depth 8: the
+// wrapper pads fc with zero columns and K4 with zero rows (exact).
 // decoder_fused_cuda.py::decode_plan mirrors the plan (fused_decode_plan).
 
 #include <cooperative_groups.h>
@@ -79,7 +87,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBT = 64;                   // fc rows per row tile
+constexpr int kBT = 64;                   // fc rows per row tile, at most
 constexpr int kTC = 8;                    // t per chunk: one k-step
 constexpr int kMaxCluster = 8;  // blocks of a cluster (the portable limit)
 constexpr size_t kSmemMax = 227 * 1024;
@@ -258,9 +266,12 @@ struct Args {
   void* out;
   int out_bf16, B, J, S, W_pad, TpC, ktaps, TM;
   int b_tiles, BP, FS, WB, RC, ES, vec_k4, vec_kc;
+  int BT;  // fc rows a row tile holds (64 where KC is 2)
 };
 
-template <int MI, int NI, int kWarps>
+// KC, K4: buffers of the split Kcat tiles and of the K4 rows (2, or 1 where
+// shared memory holds one: make_plan)
+template <int MI, int NI, int kWarps, int KC, int K4>
 __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args a) {
   constexpr int kThreads = kWarps * 32;
   constexpr int kKS = 8 * NI + 8;  // floats of a (tap, t) row of the Kcat tile as copied, padded
@@ -268,16 +279,18 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int J = a.J, ktaps = a.ktaps, TpC = a.TpC, TM = a.TM, BP = a.BP, ES = a.ES;
+  const int BT = KC == 2 ? kBT : a.BT;  // the double-buffered plans take whole 64-row tiles
   const int R = a.WB + ktaps - 1;  // expansion rows of the w block: its rows + the halo
   const int rows = a.WB * BP;      // output rows (wo, b), flattened wo-major (<= 16 * 16 MI)
   const int MB1 = (BP + 15) / 16;  // stage 1's m16 tiles of fc rows
 
   constexpr int kCan = 64 * NI;                   // floats of a split Kcat k8 tile (one tap)
   extern __shared__ float4 smem4[];
-  float* kcan = reinterpret_cast<float*>(smem4);  // [2][hi, lo][ktaps][kCan], wgmma layout
-  float* fcs = kcan + 4 * ktaps * kCan;            // [J][FS]
-  float* k4s = fcs + J * a.FS;                     // [2][RC][J][kTC]
-  float* es = k4s + 2 * a.RC * J * kTC;            // [2][kTC][ES]
+  // kcan: [kc_bufs][hi, lo][ktaps][kCan], wgmma layout
+  float* kcan = reinterpret_cast<float*>(smem4);
+  float* fcs = kcan + 2 * KC * ktaps * kCan;  // [J][FS]
+  float* k4s = fcs + J * a.FS;                // [K4][RC][J][kTC]
+  float* es = k4s + K4 * a.RC * J * kTC;      // [2][kTC][ES]
   // e is followed by 16 W MI floats of room: tiles past the block's rows
   // (their products are dropped) read there
   float* kcs = es + 2 * kTC * ES + 16 * kWarps * MI;  // [ktaps][kTC][kKS], as copied
@@ -292,8 +305,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   const int q = lane & 3;
   const int bt = blockIdx.z % a.b_tiles;
   const int s = blockIdx.z / a.b_tiles;
-  const int b0 = bt * kBT;
-  const int Bt = min(kBT, a.B - b0);  // real fc rows of the tile
+  const int b0 = bt * BT;
+  const int Bt = min(BT, a.B - b0);  // real fc rows of the tile
   const int w0 = blockIdx.y * a.WB;
   const int wlo = w0 - (ktaps - 1);   // expansion row of e row 0
   const int m0 = rank * 8 * NI;
@@ -308,7 +321,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[mi][ni][v] = 0.f;
 
-  // chunk c's K4 rows (this block's share of stage 1) into buffer c & 1.
+  // The buffer of chunk c's K4 rows and of its split Kcat tile: c & 1 when
+  // double-buffered, else the one. (Written out where used: as two helper
+  // lambdas ptxas gave the presets' instance 24 bytes of stack.)
+
+  // chunk c's K4 rows (this block's share of stage 1) into its buffer.
   // Each thread copies the same (j, half) of every kq-th row: kp is its
   // 16-byte piece of a row (2 J of them), kq0 its first row.
   const int klanes = a.vec_k4 ? 2 * J : kTC * J;
@@ -316,7 +333,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   const int kp0 = tid % klanes, kq0 = tid < kq * klanes ? tid / klanes : a.RC;
   auto fetch_k4 = [&](int c) {
     const int t0 = c * kTC;
-    float* kd = k4s + (c & 1) * a.RC * J * kTC;  // [k][j][t]
+    float* kd = k4s + (K4 == 2 ? (c & 1) : 0) * a.RC * J * kTC;  // [k][j][t]
     for (int k = kq0; k < a.RC; k += kq) {
       const int r = rank * a.RC + k, w = wlo + r;
       const bool row = r < R && w >= 0 && w < a.W_pad;
@@ -358,7 +375,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   };
 
   // stage 1 of chunk c: this block's e rows r = RC rank + k (k < own_rows)
-  // from K4 buffer c & 1 into e buffer c & 1. A job is 16 fc rows of one e
+  // from chunk c's K4 buffer into e buffer c & 1. A job is 16 fc rows of one e
   // row, or of two where that still leaves a job for every warp: then each fc
   // fragment is read and split once for both (shared-memory bandwidth bounds
   // stage 1). The three products run in three chains of J / 8 (16 at J 128)
@@ -367,7 +384,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   auto stage1_jobs = [&](int c, auto rows_per_job) {
     constexpr int RJ = decltype(rows_per_job)::value;
     const int t0 = c * kTC;
-    const float* kt = k4s + (c & 1) * a.RC * J * kTC;
+    const float* kt = k4s + (K4 == 2 ? (c & 1) : 0) * a.RC * J * kTC;
     float* ed = es + (c & 1) * kTC * ES;
     for (int job = kWarps - 1 - warp; job < (own_rows + RJ - 1) / RJ * MB1; job += kWarps) {
       const int k0 = RJ * (job / MB1), mb = job - (job / MB1) * MB1;
@@ -433,11 +450,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
                  cluster_addr(reinterpret_cast<const float*>(mbar + (c & 1)), peer));
   };
 
-  // chunk c's Kcat tile, as copied, split into the wgmma layout of buffer c & 1:
+  // chunk c's Kcat tile, as copied, split into the wgmma layout of its buffer:
   // tap i, column n, t -> core matrix (n / 8, t / 4), row n % 8, element t % 4
   auto split_kcat = [&](int c) {
     const float* src = kcs;
-    float* hi = kcan + (c & 1) * 2 * ktaps * kCan;
+    float* hi = kcan + (KC == 2 ? (c & 1) : 0) * 2 * ktaps * kCan;
     float* lo = hi + ktaps * kCan;
     for (int p = tid; p < ktaps * kTC * 8 * NI; p += kThreads) {
       const int it = p / (8 * NI), n = p - it * (8 * NI);  // it = i * kTC + t
@@ -451,12 +468,12 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   };
 
   // stage 2 of chunk c: out[(wo, b)] += e[(wo - i, b), chunk] @ Kcat[chunk, i, m]
-  // for all taps, from e buffer c & 1 and the split Kcat buffer c & 1. Warpgroup
+  // for all taps, from e buffer c & 1 and chunk c's split Kcat buffer. Warpgroup
   // wg holds the m64 tiles at rows 64 wg + 16 W mi (W warps). Each (tap, tile)
   // is three products into a fresh partial, folded into its accumulators.
   auto stage2 = [&](int c) {
     const float* ec = es + (c & 1) * kTC * ES;
-    const float* hi = kcan + (c & 1) * 2 * ktaps * kCan;
+    const float* hi = kcan + (KC == 2 ? (c & 1) : 0) * 2 * ktaps * kCan;
     const float* lo = hi + ktaps * kCan;
     for (int i = 0; i < ktaps; ++i) {
       const uint64_t bh = b_desc(hi + i * kCan), bl = b_desc(lo + i * kCan);
@@ -500,9 +517,16 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   // one of c + 1 is split). A block barrier ends it; the
   // blocks of a cluster wait for each other only through mbarriers: for the
   // e rows they send, and before sending into a buffer, for its readers.
+  // Where shared memory holds one buffer of the split Kcat tiles (KC 1),
+  // the tile of c + 1 is split after stage 2 of c, behind a block barrier,
+  // and the tile of c + 2 copied after that; where it holds one buffer of K4
+  // rows (K4 1), the rows of c + 2 are copied once stage 1 of c + 1 has read
+  // them, behind its barrier.
   fetch_k4(0);
   fetch_kcat(0);
-  if (chunks > 1) fetch_k4(1);
+  if constexpr (K4 == 2) {
+    if (chunks > 1) fetch_k4(1);
+  }
   cp_async_commit();
   for (int p = tid; p < J * a.FS; p += kThreads) {
     const int b = p / J, j = p - b * J;
@@ -523,20 +547,28 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
   // through the asynchronous proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  if (chunks > 1) fetch_kcat(1);
+  if (chunks > 1) {
+    fetch_kcat(1);
+    if constexpr (K4 == 1) fetch_k4(1);  // stage 1 of 0 has read the buffer
+  }
   cp_async_commit();
   send(0);
   cp_async_wait_all();
-  __syncthreads();  // the Kcat tile of chunk 1 is in
+  __syncthreads();  // the Kcat tile and the K4 rows of chunk 1 are in
   for (int c = 0; c < chunks; ++c) {
-    if (c + 2 < chunks) fetch_k4(c + 2);  // into the buffer stage 1 of c read
+    if constexpr (K4 == 2) {
+      if (c + 2 < chunks) fetch_k4(c + 2);  // into the buffer stage 1 of c read
+    }
     cp_async_commit();
     if (c + 1 < chunks) {
-      split_kcat(c + 1);  // into the buffer stage 2 of c - 1 read
+      if constexpr (KC == 2) split_kcat(c + 1);  // into the buffer stage 2 of c - 1 read
       stage1(c + 1);      // into the e buffer stage 2 of c - 1 read
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();    // this block's rows of c + 1 are in; the Kcat tile is split
-      if (c + 2 < chunks) fetch_kcat(c + 2);
+      if (c + 2 < chunks) {
+        if constexpr (KC == 2) fetch_kcat(c + 2);
+        if constexpr (K4 == 1) fetch_k4(c + 2);  // stage 1 of c + 1 read them
+      }
       cp_async_commit();
       send(c + 1);
     }
@@ -549,6 +581,13 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
       if (tid < C - 1)
         mbar_arrive_remote(cluster_addr(reinterpret_cast<const float*>(mbar + 2 + (c & 1)),
                                         (rank + 1 + tid) % C));
+      if constexpr (KC == 1) {
+        split_kcat(c + 1);  // into the buffer stage 2 of c read
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();    // split; the copied tile is free
+        if (c + 2 < chunks) fetch_kcat(c + 2);
+        cp_async_commit();
+      }
     }
   }
   cluster.sync();  // the other blocks' copies out of this block's shared memory are done
@@ -584,19 +623,43 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fused_decode_kernel(const Args
 
 struct Plan {
   int MI, NI, W, C, BP, FS, WB, RC, ES;  // W: warps a block
+  int BT, kc_bufs, k4_bufs;
   size_t smem;
 };
 
-size_t plan_smem(int J, int ktaps, int MI, int NI, int W, int FS, int RC, int ES) {
-  return sizeof(float) * (4 * (size_t)ktaps * 64 * NI + (size_t)J * FS +
-                          2 * (size_t)RC * J * kTC + 2 * (size_t)kTC * ES + 16 * (size_t)W * MI +
-                          (size_t)ktaps * kTC * (8 * NI + 8)) +
+size_t plan_smem(int J, int ktaps, int MI, int NI, int W, int FS, int RC, int ES, int kc_bufs,
+                 int k4_bufs) {
+  return sizeof(float) * (2 * (size_t)kc_bufs * ktaps * 64 * NI + (size_t)J * FS +
+                          (size_t)k4_bufs * RC * J * kTC + 2 * (size_t)kTC * ES +
+                          16 * (size_t)W * MI + (size_t)ktaps * kTC * (8 * NI + 8)) +
          4 * sizeof(uint64_t);
 }
 
+// The most expansion rows per block (WB) that shared memory holds for a row
+// tile of BT fc rows and the given buffers; false if not even one.
+bool fit_rows(int B, int J, int W_pad, int ktaps, Plan& p) {
+  p.BP = (min(B, p.BT) + 3) / 4 * 4;
+  // fc's row stride: 16 fc rows of a fragment read from one stride = 8 or 24
+  // mod 32 are free of bank conflicts (rows past BP read the next j's: junk rows)
+  p.FS = (p.BP + 7) / 8 * 8;
+  if (p.FS % 16 == 0) p.FS += 8;
+  for (p.WB = min(p.W * p.MI * 16 / p.BP, W_pad); p.WB >= 1; --p.WB) {
+    const int R = p.WB + ktaps - 1;
+    p.RC = (R + p.C - 1) / p.C;
+    p.ES = (R * p.BP + 16 + 15) / 16 * 16 + 8;  // = 8 or 24 mod 32: fragment reads conflict-free
+    p.smem = plan_smem(J, ktaps, p.MI, p.NI, p.W, p.FS, p.RC, p.ES, p.kc_bufs, p.k4_bufs);
+    if (p.smem <= kSmemMax) return true;
+  }
+  return false;
+}
+
 // The launch for a shape (decoder_fused_cuda.py::decode_plan): the column
-// tile (NI column groups of 8) and cluster size, the padded fc rows, and the
-// most expansion rows per block that shared memory holds. False if none fits.
+// tile (NI column groups of 8) and cluster size, then the first of these
+// (row tile, split Kcat buffers, K4 buffers) whose most expansion rows per
+// block keep stage 1's halo (WB + ktaps - 1) / WB at or under 2: (64, 2, 2),
+// (64, 1, 2), (64, 1, 1), (32, 1, 2), (32, 1, 1), (16, 1, 1), (8, 1, 1);
+// where none does, the one with the least halo (the earliest of equals).
+// Every preset takes the first. False if none fits.
 bool make_plan(int B, int J, int W_pad, int ktaps, int TM, Plan& p) {
   // 32 columns a block in clusters of up to 8 (TM <= 256): 16 warps of 3 x 4
   // tiles; else 48 columns, 12 warps of 4 x 6 (up to 168 registers a thread)
@@ -606,24 +669,31 @@ bool make_plan(int B, int J, int W_pad, int ktaps, int TM, Plan& p) {
   p.W = wide ? 12 : 16;
   p.C = (TM + 8 * p.NI - 1) / (8 * p.NI);
   if (p.C > kMaxCluster) return false;
-  p.BP = (min(B, kBT) + 3) / 4 * 4;
-  // fc's row stride: 16 fc rows of a fragment read from one stride = 8 or 24
-  // mod 32 are free of bank conflicts (rows past BP read the next j's: junk rows)
-  p.FS = (p.BP + 7) / 8 * 8;
-  if (p.FS % 16 == 0) p.FS += 8;
-  for (p.WB = min(p.W * p.MI * 16 / p.BP, W_pad); p.WB >= 1; --p.WB) {
-    const int R = p.WB + ktaps - 1;
-    p.RC = (R + p.C - 1) / p.C;
-    p.ES = (R * p.BP + 16 + 15) / 16 * 16 + 8;  // = 8 or 24 mod 32: fragment reads conflict-free
-    p.smem = plan_smem(J, ktaps, p.MI, p.NI, p.W, p.FS, p.RC, p.ES);
-    if (p.smem <= kSmemMax) return true;
+  constexpr int kOptions[7][3] = {{64, 2, 2}, {64, 1, 2}, {64, 1, 1}, {32, 1, 2},
+                                  {32, 1, 1}, {16, 1, 1}, {8, 1, 1}};
+  Plan best{};
+  bool found = false;
+  for (const auto& o : kOptions) {
+    Plan q = p;
+    q.BT = o[0];
+    q.kc_bufs = o[1];
+    q.k4_bufs = o[2];
+    if (!fit_rows(B, J, W_pad, ktaps, q)) continue;
+    if (q.WB >= ktaps - 1) {  // halo <= 2
+      p = q;
+      return true;
+    }
+    // the least halo: (WB + ktaps - 1) / WB is least where WB is largest
+    if (!found || q.WB > best.WB) best = q;
+    found = true;
   }
-  return false;
+  if (found) p = best;
+  return found;
 }
 
-template <int MI, int NI, int W>
+template <int MI, int NI, int W, int KC, int K4>
 cudaError_t launch(const Args& a, const Plan& p, cudaStream_t stream, int* active) {
-  auto kern = fused_decode_kernel<MI, NI, W>;
+  auto kern = fused_decode_kernel<MI, NI, W, KC, K4>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
@@ -653,11 +723,19 @@ cudaError_t run(const float* fc, const float* k4, const float* bias, const float
   if (!make_plan(B, J, W_pad, ktaps, TM, p)) return cudaErrorInvalidValue;
   if (plan_out != nullptr) *plan_out = p;
   Args a{fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM,
-         (B + kBT - 1) / kBT, p.BP, p.FS, p.WB, p.RC, p.ES,
+         (B + p.BT - 1) / p.BT, p.BP, p.FS, p.WB, p.RC, p.ES,
          (TpC % 4 == 0 && reinterpret_cast<uintptr_t>(k4) % 16 == 0) ? 1 : 0,
-         (TM % 4 == 0 && reinterpret_cast<uintptr_t>(kcat) % 16 == 0) ? 1 : 0};
-  cudaError_t err = p.NI == 4 ? launch<3, 4, 16>(a, p, static_cast<cudaStream_t>(stream), active)
-                              : launch<4, 6, 12>(a, p, static_cast<cudaStream_t>(stream), active);
+         (TM % 4 == 0 && reinterpret_cast<uintptr_t>(kcat) % 16 == 0) ? 1 : 0,
+         p.BT};
+  auto s = static_cast<cudaStream_t>(stream);
+  const int bufs = p.kc_bufs * 2 + p.k4_bufs;  // (2, 2) 6, (1, 2) 4, (1, 1) 3
+  cudaError_t err =
+      p.NI == 4 ? (bufs == 6 ? launch<3, 4, 16, 2, 2>(a, p, s, active)
+                   : bufs == 4 ? launch<3, 4, 16, 1, 2>(a, p, s, active)
+                               : launch<3, 4, 16, 1, 1>(a, p, s, active))
+                : (bufs == 6 ? launch<4, 6, 12, 2, 2>(a, p, s, active)
+                   : bufs == 4 ? launch<4, 6, 12, 1, 2>(a, p, s, active)
+                               : launch<4, 6, 12, 1, 1>(a, p, s, active));
   if (err != cudaSuccess || active != nullptr) return err;
   return cudaGetLastError();
 }
@@ -674,15 +752,16 @@ extern "C" int fused_decode_launch(const void* fc, const void* k4, const void* b
 }
 
 // The plan of a shape as the launcher makes it, and how many of its clusters
-// the card runs at once: info = {NI, C, BP, WB, RC, ES, smem bytes, active
-// clusters} with {MI, ...} in front. Launches nothing.
+// the card runs at once: info = {MI, NI, C, BP, WB, RC, ES, smem bytes,
+// active clusters, BT, kc_bufs, k4_bufs}. Launches nothing.
 extern "C" int fused_decode_plan(int B, int J, int S, int W_pad, int TpC, int ktaps, int TM,
                                  int* info) {
   Plan p{};
   int active = 0;
   const cudaError_t err = run(nullptr, nullptr, nullptr, nullptr, nullptr, 0, B, J, S, W_pad,
                               TpC, ktaps, TM, nullptr, &p, &active);
-  const int v[9] = {p.MI, p.NI, p.C, p.BP, p.WB, p.RC, p.ES, (int)p.smem, active};
-  for (int i = 0; i < 9; ++i) info[i] = v[i];
+  const int v[12] = {p.MI, p.NI, p.C, p.BP, p.WB, p.RC, p.ES, (int)p.smem, active,
+                     p.BT, p.kc_bufs, p.k4_bufs};
+  for (int i = 0; i < 12; ++i) info[i] = v[i];
   return (int)err;
 }

@@ -78,6 +78,13 @@
 // block runs the core's 8192-point transform on its part, and the one
 // exchange between them is read through distributed shared memory (peer)
 // where it is consumed. launch_clusters launches them.
+//
+// Past 65 536 points (N <= 262 144) Bluestein's M = 262 144 or 524 288 lives
+// in a scratch in device memory: the second level (level2_first,
+// level2_middle, level2_last), ClusterChirp's factorization with two passes
+// through that scratch in place of distributed shared memory. The fused
+// forward STFT's 16 384 points run as one transform a pair of frames on the
+// level itself (stft_level_block), without a chirp.
 
 #pragma once
 
@@ -322,13 +329,17 @@ struct Fft {
 // Fft<LOG2N>::run, buf[slot(t)] holds N conj(a[t] + i b[t]): a[t] = x / N,
 // b[t] = -y / N.
 //
-// conj Z[k] of n points (n even) at k from bin(kk, edge), kk = k or its
-// mirror n - k.
-template <class Bin>
+// conj Z[k] of n points at k from bin(kk, edge), kk = k or its mirror n - k.
+// kAnyParity: n may be odd, which has no Nyquist bin: its last bin (n - 1) /
+// 2 is mirrored like any other, so every bin but DC counts twice, as the
+// reference's inverse matrices weight it (dsp/dft.py::_inverse_mats). The
+// callers that take even n only keep the even test (the Wiener cluster's
+// registers move with it).
+template <bool kAnyParity = false, class Bin>
 __device__ __forceinline__ float2 inverse_point(int k, int n, Bin bin) {
   const bool mirrored = k > n / 2;
   const int kk = mirrored ? n - k : k;
-  const float4 ab = bin(kk, kk == 0 || kk == n / 2);
+  const float4 ab = bin(kk, kk == 0 || (kAnyParity ? 2 * kk == n : kk == n / 2));
   // conj Z[k] = (ar - bi) - i (ai + br); conj Z[N - kk] = (ar + bi) + i (ai - br)
   return mirrored ? make_float2(ab.x + ab.w, ab.y - ab.z)
                   : make_float2(ab.x - ab.w, -(ab.y + ab.z));
@@ -1163,7 +1174,7 @@ __device__ __forceinline__ void istft_bluestein_block(
     C::convolve(
         [&](int t) {
           if (t >= N) return make_float2(0.f, 0.f);
-          const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+          const float2 z = inverse_point<true>(t, N, [&](int kk, bool edge) {
             return make_float4(ra ? __ldg(ra + kk) : 0.f, ra && !edge ? __ldg(ia + kk) : 0.f,
                                rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
           });
@@ -1411,7 +1422,7 @@ __device__ __forceinline__ void istft_cluster_block(
     CC::convolve(
         [&](int t) {
           if (t >= N) return make_float2(0.f, 0.f);
-          const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+          const float2 z = inverse_point<true>(t, N, [&](int kk, bool edge) {
             return make_float4(ra ? __ldg(ra + kk) : 0.f, ra && !edge ? __ldg(ia + kk) : 0.f,
                                rb ? __ldg(rb + kk) : 0.f, rb && !edge ? __ldg(ib + kk) : 0.f);
           });
@@ -1454,6 +1465,271 @@ __device__ __forceinline__ void istft_cluster_block(
     }
     cluster_sync();  // the peers have read this round's buffers
   }
+}
+
+// ---- the direct 16 384-point STFT on the level ------------------------------
+
+// stft_block for N = 16 384 on the level (one 512-thread block a pair of
+// frames): frame a = f0 and b = f0 + 1 of signal sig ride one transform as
+// z = win (x_a + i x_b), the points read straight from global memory as
+// Level::forward asks for them (t = 2 (j + 512 m) + h), then A and B at bins
+// k <= N/2 from Z[k] and Z[N - k] as stft_block splits them. No chirp: one
+// transform of N points a pair where Bluestein runs two of 2N. smem4 holds
+// the level's two quarter tables (tw is the 16 384-point one;
+// Chirp::load_tables takes its even entries for the halves) and one
+// 16 384-point exchange buffer: 191 488 bytes. Calls out(frame_a, has_b, k,
+// A, B) as stft_block.
+template <bool kBlockSync, class Out>
+__device__ __forceinline__ void stft_level_block(float4* smem4, const float* __restrict__ x,
+                                                 const float* __restrict__ win,
+                                                 const float2* __restrict__ tw, int L, int W,
+                                                 int hop, int nf, Out out) {
+  using C = Chirp<kLevelLog2, kBlockSync>;
+  using Lv = Level<kBlockSync>;
+  constexpr int N = Lv::N;
+  const int per_signal = (nf + 1) / 2;
+  const int sig = blockIdx.x / per_signal;
+  const int f0 = (blockIdx.x - sig * per_signal) * 2;
+  const float* xs = x + (long long)sig * L;
+  const long long s0 = (long long)f0 * hop - W / 2;  // frame a's first sample
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + C::TABLES;
+  C::load_tables(tws, tw);
+  __syncthreads();
+  Lv::forward(
+      [&](int t) {
+        if (t >= W) return make_float2(0.f, 0.f);
+        const float w = __ldg(win + t);
+        const long long s = s0 + t;
+        const float a = s >= 0 && s < L ? __ldg(xs + s) : 0.f;
+        const float b = s + hop >= 0 && s + hop < L ? __ldg(xs + s + hop) : 0.f;
+        return make_float2(a * w, b * w);
+      },
+      buf, tws, tws + twiddle_len(kMaxLog2), threadIdx.x);
+  const bool has_b = f0 + 1 < nf;
+  for (int k = threadIdx.x; k <= N / 2; k += Lv::T) {
+    const float2 z = buf[slot(k)];
+    const float2 w = buf[slot((N - k) & (N - 1))];
+    out((long long)sig * nf + f0, has_b, k, make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
+        make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
+  }
+}
+
+// ---- the second level: Bluestein past 65 536 points ------------------------
+//
+// Past a cluster's 131 072 points, Bluestein's M = R P (P = 8192, R = 32 or
+// 64: M 262 144 up to 131 072 points, 524 288 up to 262 144) lives in device
+// memory, a scratch of M float2 for each pair of frames in flight
+// (fft_plan.level2_plan keeps the scratch of a round within the L2). It is
+// ClusterChirp's factorization with the cluster's distributed shared memory
+// replaced by two passes through that scratch; w = e^{-2 pi i / M}, W_R =
+// e^{-2 pi i / R}:
+//
+// A. (level2_first) for each n1 < P, one thread: the points u[n1 + P q]
+//    (q < R/2: u is 0 from M/2 on, as N <= M/2) from the point functor, a
+//    radix-R DFT over q in registers (dft_wide), times w^{r n1}: b_r[n1] at
+//    scratch[r P + n1];
+// B/C. (level2_middle) for each r, one 512-thread block: Fft<13> of b_r
+//    leaves the forward transform's Y[R k + r] at slot(k); times chat[R k +
+//    r] (fft_plan.level2_chat stores it at r P + k), conjugated; Fft<13>
+//    again, the inverse's decimation in time over the points = r (mod R),
+//    gives V_r[k1]; times w^{r k1}, back to scratch[r P + k1] (the block
+//    reads and writes only its own row);
+// D. (level2_last) for each k1 < P, one thread: the radix-R combine over r,
+//    Z[k1 + P q] = sum_r W_R^{r q} (w^{r k1} V_r[k1]), q < R/2 (t < M/2
+//    covers every t < N): Z = conj(u * c) at t, as Chirp leaves its buffer,
+//    handed to store(t, Z[t]).
+//
+// The point functor of A carries the pre-chirp, D's store the post-chirp;
+// the inverse STFT is the same convolution run backwards (conjugation), as
+// on the core. The phases are separate launches on one stream (the
+// grid-wide exchange between them has no other barrier).
+
+constexpr int kLevel2MinLog2 = kMaxLog2 + 5;  // M 262 144 = 32 x 8192
+constexpr int kLevel2MaxLog2 = kMaxLog2 + 6;  // M 524 288 = 64 x 8192
+constexpr int kLevel2Threads = 256;           // threads of a block of phases A and D
+
+// log2 of Bluestein's M for n points when the second level takes it (M 262
+// 144 or 524 288: 65 536 < n <= 262 144), else 0
+inline int level2_log2(int n) {
+  int lg = kMinLog2;
+  while ((1 << lg) < 2 * n - 1 && lg <= kLevel2MaxLog2) ++lg;
+  return lg >= kLevel2MinLog2 && lg <= kLevel2MaxLog2 ? lg : 0;
+}
+
+// In-register forward DFT of R = 16 B points (B = 2 or 4), natural order in
+// and out: B DFTs of 16 points over x[B m + j] (literal roots), the twiddles
+// W_R^{j k} from the M-point quarter table tw in global memory (read through
+// L1: W_R^e = w^{e M / R}), then 16 DFTs of B points: X[k + 16 l].
+template <int R, int LOG2M>
+__device__ __forceinline__ void dft_wide(float2 (&x)[R], const float2* __restrict__ tw) {
+  constexpr int B = R / 16;
+  constexpr int M = 1 << LOG2M;
+  static_assert(B == 2 || B == 4, "R = 32 or 64");
+  float2 y[R];
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    float2 u[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) u[m] = x[B * m + j];
+    dft<16>(u);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      y[j * 16 + k] = j * k ? cmul(u[k], ldg_twiddle<M>(tw, j * k * (M / R))) : u[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    float2 c[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) c[j] = y[j * 16 + k];
+    dft<B>(c);
+#pragma unroll
+    for (int l = 0; l < B; ++l) x[k + 16 * l] = c[l];
+  }
+}
+
+// Phase A for column n1 of one pair's scratch (M float2): point(t), t < M/2.
+template <int LOG2M, class Point>
+__device__ __forceinline__ void level2_first(Point point, float2* __restrict__ scratch,
+                                             const float2* __restrict__ tw, int n1) {
+  constexpr int M = 1 << LOG2M, P = 1 << kMaxLog2, R = M / P;
+  float2 u[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) u[q] = q < R / 2 ? point(n1 + P * q) : make_float2(0.f, 0.f);
+  dft_wide<R, LOG2M>(u, tw);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    scratch[r * P + n1] = r ? cmul(u[r], ldg_twiddle<M>(tw, r * n1)) : u[r];
+}
+
+// Dynamic shared memory of a phase B/C block: the 8192-point quarter table
+// and one 8192-point exchange buffer (87 040 bytes).
+__host__ __device__ constexpr int level2_middle_smem() {
+  return (twiddle_len(kMaxLog2) + exchange_len(kMaxLog2)) * (int)sizeof(float2);
+}
+
+// Phase B/C for row r of one pair's scratch: one block of 512 threads; row
+// = scratch + r P, chat_r = level2_chat + r P. tw is the M-point quarter
+// table (the 8192-point one is its entries at stride R, bit for bit).
+template <int LOG2M>
+__device__ __forceinline__ void level2_middle(float4* smem4, float2* __restrict__ row,
+                                              const float2* __restrict__ tw,
+                                              const float2* __restrict__ chat_r, int r) {
+  using F = Fft<kMaxLog2, true>;
+  constexpr int M = 1 << LOG2M, P = F::N, R = M / P, T = F::T;
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + twiddle_len(kMaxLog2);
+  const int j = threadIdx.x;
+  for (int i = j; i < P / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + R * i);
+  float2 v[kPoints];
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) v[m] = row[j + T * m];
+  __syncthreads();  // the table is in
+  F::run(v, buf, tws, j, 0);
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) {
+    const int k = j + T * m;
+    const float2 p = cmul(buf[slot(k)], __ldg(chat_r + k));
+    v[m] = make_float2(p.x, -p.y);
+  }
+  F::sync(0);  // every point is read; the first pass rewrites buf
+  F::run(v, buf, tws, j, 0);
+#pragma unroll
+  for (int m = 0; m < kPoints; ++m) {
+    const int k1 = j + T * m;
+    const float2 z = buf[slot(k1)];
+    row[k1] = r ? cmul(z, ldg_twiddle<M>(tw, r * k1)) : z;
+  }
+}
+
+// Phase D for column k1 of one pair's scratch: store(t, Z[t]) for t = k1 +
+// P q, q < R/2. Column k1's entries are read before any is stored, and no
+// other thread touches them, so store may write them in place.
+template <int LOG2M, class Store>
+__device__ __forceinline__ void level2_last(const float2* scratch,
+                                            const float2* __restrict__ tw, int k1, Store store) {
+  constexpr int M = 1 << LOG2M, P = 1 << kMaxLog2, R = M / P;
+  float2 u[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) u[r] = scratch[r * P + k1];
+  dft_wide<R, LOG2M>(u, tw);
+#pragma unroll
+  for (int q = 0; q < R / 2; ++q) store(k1 + P * q, u[q]);
+}
+
+// The forward STFT's points of a pair on the second level: frames g and g +
+// 1 of the flattened (signals x nf) frames (frame b absent past `frames`),
+// windowed, times chirp[t] = conj c_t; 0 from W on.
+struct Level2Frames {
+  const float* x;
+  const float* win;
+  const float2* chirp;
+  int L, W, hop, nf, frames;
+  __device__ __forceinline__ float sample(int g, int t) const {
+    if (g >= frames) return 0.f;
+    const int sig = g / nf;
+    const long long s = (long long)(g - sig * nf) * hop - W / 2 + t;
+    return s >= 0 && s < L ? __ldg(x + (long long)sig * L + s) : 0.f;
+  }
+  __device__ __forceinline__ float2 operator()(int g, int t) const {
+    if (t >= W) return make_float2(0.f, 0.f);
+    const float w = __ldg(win + t);
+    return cmul(make_float2(sample(g, t) * w, sample(g + 1, t) * w), __ldg(chirp + t));
+  }
+};
+
+// The forward STFT's last phase after D stored X[t] = chirp[t] conj Z[t]
+// (t < N) at scratch[t]: A and B of the pair's frames at bin k from X[k] and
+// its partner X[N - k] (so odd N works), handed to out(g, has_b, k, A, B).
+template <class Out>
+__device__ __forceinline__ void level2_split(const float2* __restrict__ xs, int N, int k, int g,
+                                             bool has_b, Out out) {
+  const float2 z = xs[k], w = xs[k ? N - k : 0];
+  out((long long)g, has_b, k, make_float2(0.5f * (z.x + w.x), 0.5f * (z.y - w.y)),
+      make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
+}
+
+// The inverse STFT's points of a pair on the second level: conj Z[t] conj
+// c_t of frames g and g + 1 of the flattened (signals x nf) spectrum rows
+// (inverse_point, the mirrored bin past N/2; frame b absent past `frames`).
+struct Level2Spectra {
+  const float* re;
+  const float* im;
+  const float2* chirp;
+  int N, frames;
+  __device__ __forceinline__ float2 operator()(int g, int t) const {
+    if (t >= N) return make_float2(0.f, 0.f);
+    const long long bins = N / 2 + 1;
+    const float* ra = re + g * bins;
+    const float* ia = im + g * bins;
+    const bool hb = g + 1 < frames;
+    const float2 z = inverse_point<true>(t, N, [&](int kk, bool edge) {
+      return make_float4(__ldg(ra + kk), edge ? 0.f : __ldg(ia + kk),
+                         hb ? __ldg(ra + bins + kk) : 0.f,
+                         hb && !edge ? __ldg(ia + bins + kk) : 0.f);
+    });
+    return cmul(z, __ldg(chirp + t));
+  }
+};
+
+// The inverse STFT's overlap-add after every frame's samples are in
+// `frames` (row g = n nf + f: sample t < win of frame f of signal n, times
+// win / N): out[n, tpos] = inv_norm[s] sum_f frames[n nf + f, s - f hop],
+// s = tpos + win / 2, the frames f with 0 <= s - f hop < win in ascending
+// order, written by write_sample.
+__device__ __forceinline__ void level2_overlap_add(const float* __restrict__ frames,
+                                                   const float* __restrict__ inv_norm,
+                                                   void* __restrict__ out, int out_int16, int n,
+                                                   int nf, int win, int hop, int length,
+                                                   int tpos) {
+  const long long s = (long long)tpos + win / 2;
+  const int f_hi = min(nf - 1, (int)(s / hop));
+  const long long lo = (s - win + hop) / hop;  // ceil((s - win + 1) / hop) where positive
+  const int f_lo = lo > 0 ? (int)lo : 0;
+  float acc = 0.f;
+  for (int f = f_lo; f <= f_hi; ++f)
+    acc += __ldg(frames + ((long long)n * nf + f) * win + (s - (long long)f * hop));
+  write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + s));
 }
 
 #ifdef __CUDACC__

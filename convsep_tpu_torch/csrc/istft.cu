@@ -52,8 +52,9 @@
 // share warps, so the block synchronizes as a whole (fft_plan.istft_plan
 // makes it whole warps, the fewest groups: measured fastest).
 //
-// istft_bluestein_kernel (the other even sizes up to 8192: 1000 = 8 x 125,
-// a factor 7, 6000; no preset uses one) is the same design on Bluestein's
+// istft_bluestein_kernel (the other sizes up to 8192: 1000 = 8 x 125, a
+// factor 7, 6000, every odd size; no preset uses one) is the same design on
+// Bluestein's
 // chirp-z run backwards (fft_common.cuh::istft_bluestein_block): per pair
 // of frames two transforms of M = 2^ceil(log2(2 nfft - 1)) points, on the
 // core up to M 8192 and past 4096 points on the 16 384-point level (one
@@ -62,8 +63,8 @@
 // signals of 5294 frames its bound is bytes, 106 MB and 0.0317 ms, where the
 // direct sum below did 2.1e10 complex products.
 //
-// istft_cluster_kernel (even 8192 < nfft <= 65 536: 10 000, 20 000, 40
-// 000; no preset uses one) is Bluestein run backwards on a thread-block
+// istft_cluster_kernel (8192 < nfft <= 65 536: 10 000, 20 000, 40 000, odd
+// sizes; no preset uses one) is Bluestein run backwards on a thread-block
 // cluster of 4, 8 or 16 blocks (fft_common.cuh::istft_cluster_block, the
 // forward kernel's ClusterChirp): a cluster owns R hop rows of a signal and walks them one
 // pair of frames a round, each block loading its first stage's points
@@ -74,12 +75,28 @@
 // fft_plan.istft_cluster_plan weighs waves against rounds. Its bound is
 // bytes: 26.6 MB, 7.9 us, at W 10 000 for one signal of 532 frames.
 //
+// An odd nfft has no Nyquist bin: inverse_point mirrors its last bin (N -
+// 1) / 2 as any other, so every bin but DC counts twice, as the reference's
+// inverse matrices weight them (convsep_tpu/dsp/dft.py::_inverse_mats).
+//
+// The istft_level2_* kernels (65 536 < nfft <= 262 144, any parity: 70
+// 000, 131 072; no preset uses one) are the second level run backwards
+// (fft_common.cuh::level2_first, level2_middle, level2_last): Bluestein's M
+// = 262 144 or 524 288 points of a pair of frames in a scratch in device
+// memory, R = M / 8192 rows of the core's transform between two radix-R
+// passes in registers, the pairs in rounds whose scratch stays within half
+// the L2 (fft_plan.level2_plan); phase D writes each frame's samples times
+// win / N into a frames buffer, and istft_level2_ola_kernel sums every
+// sample's frames in ascending order. Its bound is bytes: one 30 s signal
+// at W 70 000, hop 17 500 (78 frames) reads 21.8 MB of spectra and writes
+// 5.3 MB of samples, 8.1 us.
+//
 // istft_direct_kernel, a direct O(nfft) sum per output sample in one
 // 512-thread block, a pair of frames at a time, with the host's
 // float64-made table of e^{-2 pi i m / nfft}, serves no size of the
 // wrapper now: its table and spectrum fit shared memory only up to 12 800
-// points, so fft_plan.istft_plan refuses even sizes past 65 536;
-// istft_direct_pallas forces it at any even size up to there.
+// points, so fft_plan.istft_plan refuses sizes past the second level's 262
+// 144; istft_direct_pallas forces it at any size up to 12 800.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,7 +158,7 @@ __global__ void __launch_bounds__(kMaxThreads) istft_fft_kernel(
   }
 }
 
-// any even size up to 12 800 through istft_direct_pallas: z[t] = sum_k Z[k]
+// any size up to 12 800 through istft_direct_pallas: z[t] = sum_k Z[k]
 // e^{+2 pi i k t / N} per sample, a pair of frames at a time, accumulated in
 // shared memory over the block's R hop rows.
 __global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
@@ -167,7 +184,7 @@ __global__ void __launch_bounds__(kDirectThreads) istft_direct_kernel(
     const long long fa = track + (long long)f * bins, fb = fa + bins;
     __syncthreads();  // the previous pair's readers of buf are done
     for (int kk = tid; kk <= half; kk += kDirectThreads) {
-      const bool edge = kk == 0 || kk == half;
+      const bool edge = kk == 0 || 2 * kk == nfft;  // odd nfft: no Nyquist bin
       const float ar = re[fa + kk], ai = edge ? 0.f : im[fa + kk];
       const float br = has1 ? re[fb + kk] : 0.f, bi = has1 && !edge ? im[fb + kk] : 0.f;
       buf[kk] = make_float2(ar - bi, ai + br);
@@ -358,19 +375,97 @@ cudaError_t dispatch_cluster(int log2m, const BluesteinArgs& a, int* active = nu
   }
 }
 
+// ---- the second level (nfft past 65 536): fft_common.cuh's phases --------
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kLevel2Threads) istft_level2_first_kernel(
+    const Level2Spectra sp, const float2* __restrict__ tw, float2* __restrict__ scratch,
+    int pair0) {
+  const int g = 2 * (pair0 + (int)blockIdx.y);  // the pair's frame a
+  level2_first<LOG2M>([&](int t) { return sp(g, t); },
+                      scratch + ((long long)blockIdx.y << LOG2M), tw,
+                      blockIdx.x * kLevel2Threads + threadIdx.x);
+}
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kMaxThreads) istft_level2_middle_kernel(
+    float2* __restrict__ scratch, const float2* __restrict__ tw,
+    const float2* __restrict__ chat) {
+  extern __shared__ float4 smem4[];
+  const long long row = (long long)blockIdx.x << kMaxLog2;  // r P
+  level2_middle<LOG2M>(smem4, scratch + ((long long)blockIdx.y << LOG2M) + row, tw, chat + row,
+                       blockIdx.x);
+}
+
+// D, then the pair's samples t < win, chirp[t] conj Z[t] = N conj(a[t] + i
+// b[t]) times win / N, into rows g and g + 1 of `frames`
+template <int LOG2M>
+__global__ void __launch_bounds__(kLevel2Threads) istft_level2_last_kernel(
+    const float2* __restrict__ scratch, const float2* __restrict__ tw,
+    const float2* __restrict__ chirp, const float* __restrict__ win_over_n,
+    float* __restrict__ frames, int win, int nframes, int pair0) {
+  const int g = 2 * (pair0 + (int)blockIdx.y);
+  const bool hb = g + 1 < nframes;
+  float* fa = frames + (long long)g * win;
+  level2_last<LOG2M>(scratch + ((long long)blockIdx.y << LOG2M), tw,
+                     blockIdx.x * kLevel2Threads + threadIdx.x, [&](int t, float2 z) {
+                       if (t >= win) return;
+                       const float2 y = cmul(__ldg(chirp + t), make_float2(z.x, -z.y));
+                       const float w = __ldg(win_over_n + t);
+                       fa[t] = w * y.x;
+                       if (hb) fa[win + t] = -w * y.y;
+                     });
+}
+
+__global__ void __launch_bounds__(kLevel2Threads) istft_level2_ola_kernel(
+    const float* __restrict__ frames, const float* __restrict__ inv_norm, void* __restrict__ out,
+    int out_int16, int nf, int win, int hop, int length) {
+  const int tpos = blockIdx.x * kLevel2Threads + threadIdx.x;
+  if (tpos < length)
+    level2_overlap_add(frames, inv_norm, out, out_int16, blockIdx.y, nf, win, hop, length, tpos);
+}
+
+template <int LOG2M>
+cudaError_t launch_level2(const Level2Spectra& sp, const float2* tw, const float2* chirp,
+                          const float2* chat, const float* wn, const float* inv,
+                          float2* scratch, float* frames, void* out, int out_int16, int nt,
+                          int nf, int win, int hop, int length, int per_round,
+                          cudaStream_t stream) {
+  constexpr int P = 1 << kMaxLog2, R = (1 << LOG2M) / P;
+  cudaError_t err = cudaFuncSetAttribute(istft_level2_middle_kernel<LOG2M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         level2_middle_smem());
+  if (err != cudaSuccess) return err;
+  const int pairs = (sp.frames + 1) / 2;
+  for (int p0 = 0; p0 < pairs; p0 += per_round) {
+    const unsigned n = (unsigned)min(per_round, pairs - p0);
+    istft_level2_first_kernel<LOG2M><<<dim3(P / kLevel2Threads, n), kLevel2Threads, 0, stream>>>(
+        sp, tw, scratch, p0);
+    istft_level2_middle_kernel<LOG2M><<<dim3(R, n), kMaxThreads, level2_middle_smem(), stream>>>(
+        scratch, tw, chat);
+    istft_level2_last_kernel<LOG2M><<<dim3(P / kLevel2Threads, n), kLevel2Threads, 0, stream>>>(
+        scratch, tw, chirp, wn, frames, win, sp.frames, p0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  istft_level2_ola_kernel<<<dim3((length + kLevel2Threads - 1) / kLevel2Threads, nt),
+                            kLevel2Threads, 0, stream>>>(frames, inv, out, out_int16, nf, win,
+                                                         hop, length);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
 // [16, 8192], else the full table e^{-2 pi i m / nfft} (fft_plan.dft_table).
 // groups, rounds: fft_plan.istft_plan (groups = 0: the direct sum, with
 // rounds hop rows per block). The split's sizes go to istft_split_launch,
-// the other even sizes up to 8192 to istft_bluestein_launch.
+// the other sizes up to 8192 to istft_bluestein_launch.
 extern "C" int istft_launch(const void* re, const void* im, const void* win_over_n,
                             const void* inv_norm, const void* tw, void* out, int out_int16,
                             int nt, int nf, int nfft, int win, int hop, int length, int groups,
                             int rounds, void* stream) {
-  if (nfft < 2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 || win % hop != 0 ||
-      nt < 1 || nf < 1 || rounds < 1 || groups < 0)
+  if (nfft < 2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nf < 1 ||
+      rounds < 1 || groups < 0)
     return (int)cudaErrorInvalidValue;
   const auto* r = static_cast<const float*>(re);
   const auto* i = static_cast<const float*>(im);
@@ -430,7 +525,7 @@ extern "C" int istft_split_launch(const void* re, const void* im, const void* wi
   }
 }
 
-// The Bluestein route: even nfft <= 8192 (M = 2^ceil(log2(2 nfft - 1)) <=
+// The Bluestein route: nfft <= 8192, any parity (M = 2^ceil(log2(2 nfft - 1)) <=
 // 16 384); tw the M-point quarter table (fft_plan.twiddles), chirp (nfft)
 // and chat (M) from fft_plan.bluestein_tables; groups, rounds from
 // fft_plan.istft_plan (the fewest groups of M/16 threads in whole warps; on
@@ -442,9 +537,8 @@ extern "C" int istft_bluestein_launch(const void* re, const void* im, const void
                                       int rounds, void* stream) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
   const int t = log2m ? bluestein_threads(log2m) : 0;
-  if (!log2m || log2m > kLevelLog2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 ||
-      win % hop != 0 || nt < 1 ||
-      nf < 1 || rounds < 1 || groups < 1 || groups * t > kMaxThreads || groups * t % 32 != 0 ||
+  if (!log2m || log2m > kLevelLog2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 ||
+      nt < 1 || nf < 1 || rounds < 1 || groups < 1 || groups * t > kMaxThreads || groups * t % 32 != 0 ||
       (t > 32 && groups > 8))
     return (int)cudaErrorInvalidValue;
   const BluesteinArgs a{static_cast<const float*>(re),
@@ -460,7 +554,7 @@ extern "C" int istft_bluestein_launch(const void* re, const void* im, const void
   return (int)dispatch_bluestein(log2m, a);
 }
 
-// The cluster route: even 8192 < nfft <= 65 536 (M 32 768, 65 536 or 131
+// The cluster route: 8192 < nfft <= 65 536, any parity (M 32 768, 65 536 or 131
 // 072: a cluster of 4, 8 or 16 blocks of 512 threads, one pair of frames a
 // round);
 // tw the M-point quarter table (fft_plan.twiddles), chirp (nfft) and chat
@@ -472,8 +566,8 @@ extern "C" int istft_cluster_launch(const void* re, const void* im, const void* 
                                     int nfft, int win, int hop, int length, int rounds,
                                     void* stream) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
-  if (log2m <= kLevelLog2 || nfft % 2 != 0 || win < 1 || win > nfft || hop < 1 ||
-      win % hop != 0 || nt < 1 || nf < 1 || rounds < 1)
+  if (log2m <= kLevelLog2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 ||
+      nf < 1 || rounds < 1)
     return (int)cudaErrorInvalidValue;
   const BluesteinArgs a{static_cast<const float*>(re),
                         static_cast<const float*>(im),
@@ -486,6 +580,39 @@ extern "C" int istft_cluster_launch(const void* re, const void* im, const void* 
                         out_int16, nt, nf, nfft, win, hop, length, 1, rounds,
                         static_cast<cudaStream_t>(stream)};
   return (int)dispatch_cluster(log2m, a);
+}
+
+// The second level: 65 536 < nfft <= 262 144, any parity (Bluestein's M
+// 262 144 or 524 288 over two passes through device memory, fft_common.cuh's
+// level2_*): the pairs of the flattened (nt x nf) frames in rounds of
+// `per_round` (fft_plan.level2_plan), each pair's samples times win / nfft
+// into `frames` (nt nf win floats), then the overlap-add of every signal.
+// tw the M-point quarter table, chirp (nfft) from fft_plan.bluestein_tables,
+// chat (M) from fft_plan.level2_chat, scratch `per_round` M float2.
+extern "C" int istft_level2_launch(const void* re, const void* im, const void* win_over_n,
+                                   const void* inv_norm, const void* tw, const void* chirp,
+                                   const void* chat, void* scratch, void* frames, void* out,
+                                   int out_int16, int nt, int nf, int nfft, int win, int hop,
+                                   int length, int per_round, void* stream) {
+  const int log2m = level2_log2(nfft);
+  if (!log2m || win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nt > 65535 ||
+      nf < 1 || length < 1 || per_round < 1 || (long long)nt * nf > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const Level2Spectra sp{static_cast<const float*>(re), static_cast<const float*>(im),
+                         static_cast<const float2*>(chirp), nfft, nt * nf};
+  const auto* t = static_cast<const float2*>(tw);
+  const auto* c = static_cast<const float2*>(chirp);
+  const auto* h = static_cast<const float2*>(chat);
+  const auto* wn = static_cast<const float*>(win_over_n);
+  const auto* inv = static_cast<const float*>(inv_norm);
+  auto* sc = static_cast<float2*>(scratch);
+  auto* fr = static_cast<float*>(frames);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(log2m == kLevel2MinLog2
+                   ? launch_level2<kLevel2MinLog2>(sp, t, c, h, wn, inv, sc, fr, out, out_int16,
+                                                   nt, nf, win, hop, length, per_round, s)
+                   : launch_level2<kLevel2MaxLog2>(sp, t, c, h, wn, inv, sc, fr, out, out_int16,
+                                                   nt, nf, win, hop, length, per_round, s));
 }
 
 // How many clusters of istft_cluster_kernel a launch at (nfft, win, hop)

@@ -2,8 +2,8 @@
 // for Hopper (sm_90a): framing with the W/2 front pad, window and a real FFT
 // (stft_fft_kernel for powers of two, stft_split_kernel for m 2^a, m in
 // {3, 5, 9, 15}, stft_bluestein_kernel for any other nfft <= 8192,
-// stft_cluster_kernel past 8192 up to 65 536), and the dense DFT
-// (stft_dft_kernel) for the sizes past those.
+// stft_cluster_kernel past 8192 up to 65 536, the stft_level2_* kernels up
+// to 262 144), and the dense DFT (stft_dft_kernel) for the sizes past those.
 //
 // Replaces convsep_tpu/dsp/pallas/stft_kernel.py::stft_pallas (_kernel). For
 // signal b, frame f and bin c < nfft / 2 + 1:
@@ -83,7 +83,22 @@
 // 40 000, hop 10 000, B 32 (4 frames x 20 001 bins, 16 blocks a cluster)
 // 12.0 MB and 3.6 us, where the dense kernel reads 6.4 GB.
 //
-// stft_dft_kernel (the sizes past those: nfft > 65 536; and any nfft
+// The stft_level2_* kernels (65 536 < nfft <= 262 144: 70 000, 131 072,
+// odd sizes; no preset uses one) are Bluestein on the core's second level
+// (fft_common.cuh::level2_first, level2_middle, level2_last): M = 262 144 or
+// 524 288 points no cluster holds, so a pair's convolution lives in a
+// scratch of M float2 in device memory, R = M / 8192 rows: phase A a
+// radix-R DFT in registers a column (the pre-chirped frames read straight
+// from the signal), phase B/C one 512-thread block a row (the core's
+// 8192-point transform, the chirp spectrum's product, the transform again),
+// phase D the radix-R combine a column (the post-chirp on the stores), then
+// the split into the two frames' bins; four launches a round of pairs, the
+// round's scratch within half the L2 (fft_plan.level2_plan), so each
+// phase reads back from the L2 what the one before wrote. At W 70 000, hop
+// 17 500, B 32 (96 frames x 35 001 bins) its bound is bytes, 28.7 MB and
+// 8.6 us, where the dense kernel reads 19.6 GB of matrices.
+//
+// stft_dft_kernel (the sizes past those: nfft > 262 144; and any nfft
 // through stft_dft_pallas) multiplies frames built from
 // hop rows staged in shared memory by the (W, bins) window-folded cos / -sin
 // matrices: a block owns 32 frames x 64 bins of one signal and every thread
@@ -216,6 +231,75 @@ cudaError_t launch_cluster(const float* x, const float* win, const float2* tw,
   return launch_clusters<C>(stft_cluster_kernel<C>, (long long)B * ((nf + 1) / 2),
                             cluster_smem_bytes(kMaxLog2, 0), stream, nullptr, x, win, tw, chirp,
                             chat, re, im, L, W, hop, nf, nfft);
+}
+
+// ---- the second level (nfft past 65 536): fft_common.cuh's phases --------
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kLevel2Threads) stft_level2_first_kernel(
+    const Level2Frames fr, const float2* __restrict__ tw, float2* __restrict__ scratch,
+    int pair0) {
+  const int g = 2 * (pair0 + (int)blockIdx.y);  // the pair's frame a
+  level2_first<LOG2M>([&](int t) { return fr(g, t); },
+                      scratch + ((long long)blockIdx.y << LOG2M), tw,
+                      blockIdx.x * kLevel2Threads + threadIdx.x);
+}
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kMaxThreads) stft_level2_middle_kernel(
+    float2* __restrict__ scratch, const float2* __restrict__ tw,
+    const float2* __restrict__ chat) {
+  extern __shared__ float4 smem4[];
+  const long long row = (long long)blockIdx.x << kMaxLog2;  // r P
+  level2_middle<LOG2M>(smem4, scratch + ((long long)blockIdx.y << LOG2M) + row, tw, chat + row,
+                       blockIdx.x);
+}
+
+// D, then X[t] = chirp[t] conj Z[t] for t < N in place
+template <int LOG2M>
+__global__ void __launch_bounds__(kLevel2Threads) stft_level2_last_kernel(
+    float2* scratch, const float2* __restrict__ tw, const float2* __restrict__ chirp, int N) {
+  float2* xs = scratch + ((long long)blockIdx.y << LOG2M);
+  level2_last<LOG2M>(xs, tw, blockIdx.x * kLevel2Threads + threadIdx.x, [&](int t, float2 z) {
+    if (t < N) xs[t] = cmul(__ldg(chirp + t), make_float2(z.x, -z.y));
+  });
+}
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kLevel2Threads) stft_level2_split_kernel(
+    const float2* __restrict__ scratch, FullRows out, int N, int frames, int pair0) {
+  const int k = blockIdx.x * kLevel2Threads + threadIdx.x;
+  const int g = 2 * (pair0 + (int)blockIdx.y);
+  if (k <= N / 2)
+    level2_split(scratch + ((long long)blockIdx.y << LOG2M), N, k, g, g + 1 < frames, out);
+}
+
+// the pairs in rounds of `per_round`, each round's four phases on one stream,
+// one scratch of M float2 a pair of the round
+template <int LOG2M>
+cudaError_t launch_level2(const Level2Frames& fr, const float2* tw, const float2* chirp,
+                          const float2* chat, float2* scratch, FullRows out, int N,
+                          int per_round, cudaStream_t stream) {
+  constexpr int P = 1 << kMaxLog2, R = (1 << LOG2M) / P;
+  cudaError_t err = cudaFuncSetAttribute(stft_level2_middle_kernel<LOG2M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         level2_middle_smem());
+  if (err != cudaSuccess) return err;
+  const int pairs = (fr.frames + 1) / 2;
+  const unsigned split_blocks = (N / 2 + kLevel2Threads) / kLevel2Threads;
+  for (int p0 = 0; p0 < pairs; p0 += per_round) {
+    const unsigned n = (unsigned)min(per_round, pairs - p0);
+    stft_level2_first_kernel<LOG2M><<<dim3(P / kLevel2Threads, n), kLevel2Threads, 0, stream>>>(
+        fr, tw, scratch, p0);
+    stft_level2_middle_kernel<LOG2M><<<dim3(R, n), kMaxThreads, level2_middle_smem(), stream>>>(
+        scratch, tw, chat);
+    stft_level2_last_kernel<LOG2M><<<dim3(P / kLevel2Threads, n), kLevel2Threads, 0, stream>>>(
+        scratch, tw, chirp, N);
+    stft_level2_split_kernel<LOG2M><<<dim3(split_blocks, n), kLevel2Threads, 0, stream>>>(
+        scratch, out, N, fr.frames, p0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 constexpr int kThreads = 256;
@@ -429,9 +513,36 @@ extern "C" int stft_cluster_launch(const void* x, const void* win, const void* t
   }
 }
 
+// The second level: 65 536 < nfft <= 262 144 (Bluestein's M 262 144 or 524
+// 288 over two passes through device memory, fft_common.cuh's level2_*),
+// W <= nfft; tw the M-point quarter table (fft_plan.twiddles), chirp (nfft)
+// from fft_plan.bluestein_tables, chat (M) from fft_plan.level2_chat (the
+// chirp spectrum at r P + k), scratch `per_round` M float2
+// (fft_plan.level2_plan: the pairs of frames a round).
+extern "C" int stft_level2_launch(const void* x, const void* win, const void* tw,
+                                  const void* chirp, const void* chat, void* scratch, void* re,
+                                  void* im, int B, int L, int W, int hop, int nf, int nfft,
+                                  int per_round, void* stream) {
+  const int log2m = level2_log2(nfft);
+  if (B < 1 || L < 1 || W < 2 || W > nfft || hop < 1 || W % hop != 0 || nf < 1 || !log2m ||
+      per_round < 1 || (long long)B * nf > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const Level2Frames fr{static_cast<const float*>(x), static_cast<const float*>(win),
+                        static_cast<const float2*>(chirp), L, W, hop, nf, B * nf};
+  const FullRows out{static_cast<float*>(re), static_cast<float*>(im), nfft / 2 + 1};
+  const auto* t = static_cast<const float2*>(tw);
+  const auto* c = static_cast<const float2*>(chirp);
+  const auto* h = static_cast<const float2*>(chat);
+  auto* sc = static_cast<float2*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(log2m == kLevel2MinLog2
+                   ? launch_level2<kLevel2MinLog2>(fr, t, c, h, sc, out, nfft, per_round, s)
+                   : launch_level2<kLevel2MaxLog2>(fr, t, c, h, sc, out, nfft, per_round, s));
+}
+
 // The dense route: any nfft >= W (the wrapper sends it only what none of
-// the FFT, split, Bluestein and cluster routes plans, nfft past 65 536, or
-// what stft_dft_pallas forces).
+// the FFT, split, Bluestein, cluster and second-level routes plans, nfft
+// past 262 144, or what stft_dft_pallas forces).
 extern "C" int stft_dft_launch(const void* x, const void* cosw, const void* sinw, void* re,
                                void* im, int B, int L, int W, int hop, int nf, int bins,
                                void* stream) {

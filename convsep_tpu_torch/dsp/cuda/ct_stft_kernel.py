@@ -9,11 +9,14 @@ signal in registers and shared memory, so the (nf, W) frames tensor never
 exists, and writes the half-spectrum bins 0 … nfft/2 − 1 in natural order
 with the real Nyquist bin as a row of its own; the Wiener+iSTFT kernel
 reads that pair as it is (``wiener_istft(..., ny=)``). At the reference's
-largest size, 16 384 points, past the core's 8192, the same file's cluster
-kernel runs Bluestein's chirp-z on a thread-block cluster of 4 blocks
-(counted as ``ct_stft_cluster``). The launch plan, twiddle and chirp
-tables and window copy come from :mod:`.fft_plan`; the kernel's header
-says what bounds it on the H100.
+largest size, 16 384 points, past the core's 8192, the same file's level
+kernel runs one 16 384-point transform a pair of frames on the core's level
+(one 512-thread block a pair, counted as ``ct_stft_level``);
+:func:`stft_ct_cluster_pallas` forces the earlier design there, Bluestein's
+chirp-z on a thread-block cluster of 4 blocks (counted as
+``ct_stft_cluster``), to hold and time it beside the level. The launch
+plan, twiddle and chirp tables and window copy come from :mod:`.fft_plan`;
+the kernel's header says what bounds it on the H100.
 
 The wrapper takes its plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises: there is no fallback.
@@ -67,8 +70,7 @@ def resolve_analysis(analysis: str) -> str:
 def kernel_supported(nfft: int, hop: int) -> bool:
     """The CUDA kernels' own envelope: a power of two from 2048 to 16 384,
     every size :func:`ct_stft_supported` admits (the FFT core's template
-    instances in ``ct_stft.cu`` up to 8192, Bluestein on a cluster of 4
-    blocks at 16 384)."""
+    instances in ``ct_stft.cu`` up to 8192, the core's level at 16 384)."""
     return hop > 0 and (2048 <= nfft and fft_supported(nfft) or nfft == 2 * MAX_NFFT)
 
 
@@ -94,6 +96,23 @@ def stft_ct_pallas(
     re up to float reassociation; im's Nyquist bin is 0.
 
     CPU tensors: :func:`stft_ct_pallas_plain`. CUDA tensors: the kernel."""
+    return _stft_ct(signal, window, hop, nfft, cluster=False)
+
+
+def stft_ct_cluster_pallas(
+    signal: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    nfft: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`stft_ct_pallas` at 16 384 points through the cluster kernel
+    (Bluestein on a cluster of 4 blocks) in place of the level's direct
+    transform (CUDA tensors), so that the two can be held to each other and
+    timed in one run. Other sizes and CPU tensors: :func:`stft_ct_pallas`."""
+    return _stft_ct(signal, window, hop, nfft, cluster=True)
+
+
+def _stft_ct(signal, window, hop, nfft, cluster: bool):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     nfft = int(nfft or win_len)
@@ -131,6 +150,12 @@ def stft_ct_pallas(
             code = lib.ct_stft_launch(
                 x.data_ptr(), win_d, twiddles(nfft, where).data_ptr(), re.data_ptr(),
                 im.data_ptr(), ny.data_ptr(), B, L, nfft, hop, nf, plan.ffts_per_block, stream,
+            )
+        elif not cluster:
+            name = "ct_stft_level"
+            code = lib.ct_stft_level_launch(
+                x.data_ptr(), win_d, twiddles(nfft, where).data_ptr(), re.data_ptr(),
+                im.data_ptr(), ny.data_ptr(), B, L, nfft, hop, nf, stream,
             )
         else:
             name = "ct_stft_cluster"

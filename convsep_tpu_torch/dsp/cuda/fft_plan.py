@@ -27,13 +27,22 @@ points, up to :data:`CLUSTER_NFFT`, M is 32 768, 65 536 or 131 072 and its
 points live across a thread-block cluster of M / 8192 blocks (4, 8 or 16:
 ``ClusterChirp``, ``stft_cluster_block``), each running the core's
 8192-point transform on its part; :func:`cluster_plan` sizes that launch.
+Past that, up to :data:`LEVEL2_NFFT`, M is 262 144 or 524 288, R = M / 8192
+rows of the core's transform in a scratch in device memory, two passes of
+radix-R DFTs in registers around one pass of the core
+(``fft_common.cuh::level2_first``, ``level2_middle``, ``level2_last``);
+:func:`level2_plan` sizes its rounds so that a round's scratch stays in the
+L2, and :func:`level2_chat` orders the chirp spectrum for it. The fused
+forward STFT's 16 384 points (``ct_stft.cu``) are one transform a pair of
+frames on the level (``stft_level_block``), without a chirp.
 
 The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
 and overlap-add them by a gather, at the split's sizes on the split run
-backwards, at the other even sizes up to 8192 on Bluestein run backwards,
-past 8192 on the cluster run backwards (:func:`istft_cluster_plan`);
-:func:`istft_plan` sizes all four. The
+backwards, at the other sizes up to 8192 (odd ones too) on Bluestein run
+backwards, past 8192 on the cluster run backwards (:func:`istft_cluster_plan`),
+past 65 536 on the second level run backwards (:func:`level2_plan`);
+:func:`istft_plan` sizes all five. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it, past 8192 on the cluster run backwards (:func:`wiener_cluster_plan`,
@@ -62,6 +71,10 @@ LEVEL_NFFT = 2 ** 14     # the level: Bluestein's largest convolution on one blo
 CLUSTER_PART = 2 ** 13   # the points of one block of a cluster: the core's transform
 CLUSTER_NFFT = 2 ** 16   # the cluster's largest nfft: M 131 072 on 16 blocks (non-portable)
 WIENER_CLUSTER_NFFT = 2 ** 15  # the Wiener+iSTFT cluster's: the reference kernel's 32 768
+LEVEL2_NFFT = 2 ** 18    # the second level's largest nfft: M 524 288 = 64 × 8192 in device memory
+L2_BYTES = 50 * 2 ** 20  # the H100 SXM's L2 cache
+LEVEL2_SCRATCH_BYTES = 24 * 2 ** 20  # the second level's scratch a round: within half the L2
+LEVEL2_THREADS = 256     # fft_common::kLevel2Threads: a block of the radix-R phases
 SPLIT_ODD = (3, 5, 9, 15)  # the split's odd factors: its m-point DFTs (radix 3 and 5)
 SM_SMEM = 228 * 1024     # shared memory of one SM
 BLOCK_RESERVED = 1024    # shared memory the runtime keeps per resident block
@@ -118,6 +131,45 @@ def cluster_supported(nfft: int) -> bool:
     (up to 32 768, 8 blocks) or 131 072 (up to :data:`CLUSTER_NFFT`, 16
     blocks)."""
     return MAX_NFFT < nfft <= CLUSTER_NFFT
+
+
+def level2_supported(nfft: int) -> bool:
+    """A size past the cluster's 65 536 that the second level takes:
+    Bluestein's M = :func:`bluestein_size` is 262 144 (nfft up to 131 072)
+    or 524 288 (up to :data:`LEVEL2_NFFT`), R = M / 8192 = 32 or 64 rows of
+    the core's transform, over two passes through device memory
+    (``fft_common.cuh::level2_first``, ``level2_middle``, ``level2_last``)."""
+    return CLUSTER_NFFT < nfft <= LEVEL2_NFFT
+
+
+@dataclass(frozen=True)
+class Level2Plan:
+    nfft: int
+    m: int                # the convolution's length: 262 144 or 524 288
+    radix: int            # R = M / 8192: phase A's and D's in-register DFTs, phase B/C's blocks a pair
+    pairs: int            # pairs of the flattened (signals × nf) frames
+    pairs_per_round: int  # pairs whose scratch is in flight at once
+    rounds: int           # rounds of four (STFT) or three (iSTFT) phase launches
+    scratch_bytes: int    # M float2 a pair of a round
+    middle_smem_bytes: int  # phase B/C's block: the 8192-point table and exchange buffer
+
+
+@lru_cache(maxsize=64)
+def level2_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> Level2Plan:
+    """The second level's launch, as ``csrc/stft_dft.cu::stft_level2_launch``
+    and ``csrc/istft.cu::istft_level2_launch`` run it: the frames of every
+    signal, flattened, in pairs; each pair takes M float2 of scratch, and a
+    round holds as many pairs as :data:`LEVEL2_SCRATCH_BYTES` (half the L2)
+    allows, 12 at M 262 144 and 6 at 524 288, so that each phase's reads of
+    the scratch the previous one wrote come from the L2."""
+    if not level2_supported(nfft) or win > nfft:
+        raise ValueError(f"no second-level plan for nfft={nfft}: past {CLUSTER_NFFT}, at most "
+                         f"{LEVEL2_NFFT}, and at least the window")
+    m = bluestein_size(nfft)
+    pairs = -(-signals * nf // 2)
+    per = max(1, min(pairs, LEVEL2_SCRATCH_BYTES // (8 * m)))
+    return Level2Plan(nfft, m, m // CLUSTER_PART, pairs, per, -(-pairs // per), per * 8 * m,
+                      8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)))
 
 
 def cluster_blocks(nfft: int) -> int:
@@ -397,15 +449,18 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     (G · P/16 a multiple of 32: m is odd; they synchronize as a block), the
     rounds by the same rule; the fewest groups measured fastest at 768 and
     1280 on an H100 (``tools/torch_fft_plan_study.py``, PERF.md). The other
-    even sizes up to 8192 (Bluestein run backwards,
+    sizes up to 8192, odd ones too (Bluestein run backwards,
     ``istft_bluestein_launch``): the fewest groups of
     :func:`bluestein_threads` that make the block whole warps, as
     :func:`bluestein_plan`, one on the level, the rounds by the same rule.
-    Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`.
-    Other sizes: the direct sum, up to 16 hop rows per block. A plan that
+    Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`; up to
+    :data:`LEVEL2_NFFT`: the second level's :func:`level2_plan`. Other
+    sizes: the direct sum, up to 16 hop rows per block. A plan that
     does not fit shared memory raises ``ValueError``."""
     if cluster_supported(nfft):
         return istft_cluster_plan(signals, nf, nfft, win, hop)
+    if level2_supported(nfft):
+        return level2_plan(signals, nf, nfft, win, hop)
     k = win // hop
     split = split_factors(nfft)
     blue = not (fft_supported(nfft) or split) and bluestein_supported(nfft)
@@ -457,9 +512,9 @@ def istft_cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> 
     :func:`wiener_plan` weighs them: over every rounds with R >= 1, up to
     one row range a signal or ``MAX_ROUNDS``, the least waves × rounds
     (:data:`CLUSTERS_AT_ONCE` a wave), ties to fewer transforms."""
-    if not cluster_supported(nfft) or nfft % 2 or win > nfft:
-        raise ValueError(f"no iSTFT cluster plan for nfft={nfft}: even, past {MAX_NFFT}, at "
-                         f"most {CLUSTER_NFFT}, and at least the window")
+    if not cluster_supported(nfft) or win > nfft:
+        raise ValueError(f"no iSTFT cluster plan for nfft={nfft}: past {MAX_NFFT}, at most "
+                         f"{CLUSTER_NFFT}, and at least the window")
     k = win // hop
     c = cluster_blocks(nfft)
     total_rows = nf + k - 1
@@ -653,7 +708,8 @@ def bluestein_tables(nfft: int, device: str) -> tuple[torch.Tensor, torch.Tensor
     rounding to float32; Ĉ the M-point FFT of the wrapped chirp (c_n at n <
     nfft and at M − n, 0 < n < nfft), in float64. Any nfft: up to 8192 for
     the one-block kernels, up to :data:`CLUSTER_NFFT` (M 131 072) for the
-    cluster's."""
+    cluster's, up to :data:`LEVEL2_NFFT` (M 524 288) for the second level's
+    (which reads Ĉ through :func:`level2_chat`)."""
     m = bluestein_size(nfft)
     t = np.arange(nfft, dtype=np.int64)
     c = np.exp(1j * np.pi * ((t * t) % (2 * nfft)) / nfft)
@@ -666,6 +722,17 @@ def bluestein_tables(nfft: int, device: str) -> tuple[torch.Tensor, torch.Tensor
         return torch.from_numpy(np.stack([z.real, z.imag], -1).astype(np.float32)).to(device)
 
     return pairs(np.conj(c)), pairs(chat)
+
+
+@lru_cache(maxsize=4)
+def level2_chat(nfft: int, device: str) -> torch.Tensor:
+    """The second level's chirp spectrum: :func:`bluestein_tables`' Ĉ / M
+    (M float2) with entry R k + r stored at r · 8192 + k, so that phase
+    B/C's block r reads its row of it in order."""
+    m = bluestein_size(nfft)
+    r = m // CLUSTER_PART
+    chat = bluestein_tables(nfft, "cpu")[1]
+    return chat.reshape(CLUSTER_PART, r, 2).transpose(0, 1).reshape(m, 2).to(device)
 
 
 @lru_cache(maxsize=8)

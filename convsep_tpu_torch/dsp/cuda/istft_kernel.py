@@ -11,14 +11,17 @@ window-power-normalized iSTFT:
 reference's contract and calls :func:`launch_istft`, which takes the FFT
 kernel for powers of two 16–8192 (counted as ``LAUNCHES["istft"]``), the
 split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
-``LAUNCHES["istft_split"]``), Bluestein run backwards for the other even
-sizes up to 8192 (``LAUNCHES["istft_bluestein"]``) and Bluestein over a
+``LAUNCHES["istft_split"]``), Bluestein run backwards for the other sizes up
+to 8192, odd ones too (``LAUNCHES["istft_bluestein"]``), Bluestein over a
 thread-block cluster run backwards past 8192, up to 65 536
-(``LAUNCHES["istft_cluster"]``); past that it refuses, as the direct sum
-per sample (``LAUNCHES["istft_direct"]``) fits shared memory only up to
-12 800 points. :func:`istft_direct_pallas` forces the direct sum at any
-even size up to there, to hold and time it. The kernels' header says what
-bounds them on the H100.
+(``LAUNCHES["istft_cluster"]``), and Bluestein on the core's second level
+run backwards past that, up to 262 144 (``LAUNCHES["istft_level2"]``, one
+count a call: its phases are several launches). An odd nfft has no Nyquist
+bin: every bin but DC counts twice, as in the reference's inverse matrices.
+The direct sum per sample (``LAUNCHES["istft_direct"]``) serves no size of
+the wrapper: :func:`istft_direct_pallas` forces it up to 12 800 points (its
+table fits shared memory up to there), to hold and time it. The kernels'
+header says what bounds them on the H100.
 
 The wrappers take their plain version only for CPU tensors. For CUDA
 tensors they launch the kernel or raise: there is no fallback.
@@ -41,6 +44,8 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     fft_supported,
     istft_direct_plan,
     istft_plan,
+    level2_chat,
+    level2_supported,
     split_factors,
     synthesis_tables,
     twiddles,
@@ -50,14 +55,15 @@ from convsep_tpu_torch.dsp.stft import num_frames
 
 
 def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
-    """The kernel's envelope: even nfft >= win, ``win % hop == 0``, and a
-    launch plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`)
-    within shared memory. Powers of two from 16 to 8192 run on the FFT core,
-    m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split, the other
-    even sizes up to 8192 on Bluestein run backwards, up to 65 536 on
-    Bluestein over a thread-block cluster; past that none (the direct sum
-    per sample fits shared memory only up to 12 800 points)."""
-    if not (nfft % 2 == 0 and 2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
+    """The kernels' envelope: nfft >= win, ``win % hop == 0``, and a launch
+    plan (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.istft_plan`) within
+    shared memory, at any parity: powers of two from 16 to 8192 run on the
+    FFT core, m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split,
+    the other sizes up to 8192 on Bluestein run backwards, up to 65 536 on
+    Bluestein over a thread-block cluster, up to 262 144 on the core's
+    second level; past that none (the direct sum per sample fits shared
+    memory only up to 12 800 points)."""
+    if not (2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
         return False
     try:
         istft_plan(1, 1, nfft, win_len, hop)
@@ -100,8 +106,10 @@ def launch_istft(
     im3 = im.reshape(nt, nf, bins).contiguous()
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
     plan = (istft_direct_plan if direct else istft_plan)(nt, nf, nfft, win_len, hop)
-    if not plan.groups:
+    if direct:
         name = "istft_direct"
+    elif level2_supported(nfft):
+        name = "istft_level2"
     elif fft_supported(nfft):
         name = "istft"
     elif cluster_supported(nfft):
@@ -135,6 +143,17 @@ def launch_istft(
                 twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
                 chat.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
                 plan.rounds, stream,
+            )
+        elif name == "istft_level2":
+            chirp, _ = bluestein_tables(nfft, where)
+            scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev)
+            frames = torch.empty(nt * nf * win_len, dtype=torch.float32, device=dev)
+            code = lib.istft_level2_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                twiddles(plan.m, where).data_ptr(), chirp.data_ptr(),
+                level2_chat(nfft, where).data_ptr(), scratch.data_ptr(), frames.data_ptr(),
+                out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+                plan.pairs_per_round, stream,
             )
         else:
             tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
@@ -189,12 +208,11 @@ def istft_direct_pallas(
     length: int,
     nfft: int | None = None,
 ) -> torch.Tensor:
-    """:func:`istft_pallas` through the direct sum at any even nfft that is
-    not a power of two (CUDA tensors), so that it can be held to the plain
-    version and timed beside the split, Bluestein and cluster kernels at
-    their sizes
-    (PCM16: ``launch_istft(..., direct=True)``). CPU tensors: the plain
-    version."""
+    """:func:`istft_pallas` through the direct sum at any nfft that is not
+    a power of two, up to 12 800 (CUDA tensors), so that it can be held to
+    the plain version and timed beside the split, Bluestein and cluster
+    kernels at their sizes (PCM16: ``launch_istft(..., direct=True)``). CPU
+    tensors: the plain version."""
     return _istft(re, im, window, hop, length, nfft, direct=True)
 
 

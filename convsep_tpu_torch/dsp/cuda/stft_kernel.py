@@ -22,15 +22,22 @@ wrapper dispatches on the shape:
   thread-block cluster of the core (:func:`.fft_plan.cluster_plan`: M /
   8192 blocks a pair of frames, M 32 768, 65 536 or 131 072), counted as
   ``LAUNCHES["stft_cluster"]``;
-* the rest (past 65 536): the dense DFT kernel over the window-folded
+* past 65 536, up to 262 144 (70 000, 131 072, odd sizes): Bluestein on the
+  core's second level (:func:`.fft_plan.level2_plan`: M 262 144 or 524 288
+  over two passes through a scratch in device memory, a round of pairs
+  within half the L2), counted as ``LAUNCHES["stft_level2"]`` (one count a
+  call: each round is four launches of its phases);
+* the rest (past 262 144): the dense DFT kernel over the window-folded
   cos / -sin matrices of :func:`_forward_mats`, counted as
   ``LAUNCHES["stft_dft"]``; :func:`stft_dft_pallas` forces it at any size,
-  to hold and time it.
+  to hold and time it. Its matrices take nfft × (nfft/2 + 1) × 8 bytes of
+  device memory, which passes the card's 80 GB near nfft 140 000: past
+  there only the second level computes the function on the card.
 
-All keep the (frames × W) array out of device memory (the level and the
-cluster read their frames from global memory into registers, the others
-stage them in shared memory); the file's header says what bounds them on
-the H100.
+All keep the (frames × W) array out of device memory (the level, the
+cluster and the second level read their frames from global memory into
+registers, the others stage them in shared memory); the file's header says
+what bounds them on the H100.
 
 The contract is the reference's: (L,) or (B, L) signals, ``win % hop ==
 0``, the W//2 front pad and tail pad of :func:`_pad_signal`, and
@@ -51,6 +58,9 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     cluster_plan,
     cluster_supported,
     fft_supported,
+    level2_chat,
+    level2_plan,
+    level2_supported,
     split_plan,
     split_supported,
     stft_plan,
@@ -88,7 +98,8 @@ def stft_pallas(
     where :func:`fft_supported`, the split kernel where
     :func:`split_supported`, the Bluestein kernel where
     :func:`bluestein_supported`, the cluster kernel where
-    :func:`cluster_supported`, else the dense DFT kernel. A failed build or
+    :func:`cluster_supported`, the second level where
+    :func:`level2_supported`, else the dense DFT kernel. A failed build or
     launch raises."""
     return _stft(signal, window, hop, nfft, dense=False)
 
@@ -133,8 +144,10 @@ def _stft(signal, window, hop, nfft, dense: bool):
             name = "stft_split"
         elif bluestein_supported(nfft):
             name = "stft_bluestein"
+        elif cluster_supported(nfft):
+            name = "stft_cluster"
         else:
-            name = "stft_cluster" if cluster_supported(nfft) else "stft_dft"
+            name = "stft_level2" if level2_supported(nfft) else "stft_dft"
         if name == "stft":
             plan = stft_plan(B, nf, nfft, win_len, hop)
             code = lib.stft_fft_launch(
@@ -166,6 +179,16 @@ def _stft(signal, window, hop, nfft, dense: bool):
                 x.data_ptr(), window_f32(window, where).data_ptr(),
                 twiddles(plan.m, where).data_ptr(), chirp.data_ptr(), chat.data_ptr(),
                 re.data_ptr(), im.data_ptr(), B, L, win_len, hop, nf, nfft, stream,
+            )
+        elif name == "stft_level2":
+            plan = level2_plan(B, nf, nfft, win_len, hop)
+            chirp, _ = bluestein_tables(nfft, where)
+            scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev)
+            code = lib.stft_level2_launch(
+                x.data_ptr(), window_f32(window, where).data_ptr(),
+                twiddles(plan.m, where).data_ptr(), chirp.data_ptr(),
+                level2_chat(nfft, where).data_ptr(), scratch.data_ptr(), re.data_ptr(),
+                im.data_ptr(), B, L, win_len, hop, nf, nfft, plan.pairs_per_round, stream,
             )
         else:
             cos_m, sin_m = _forward_mats(nfft, _key(window), where)

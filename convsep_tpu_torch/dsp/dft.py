@@ -40,12 +40,33 @@ def _window(window_key: bytes) -> np.ndarray:
     return np.frombuffer(window_key, np.float64)
 
 
+# matrices past this many entries are made on a CUDA device itself, a block of
+# rows at a time: the host's float64 temporaries pass 50 GB at nfft 70 000
+_DEVICE_MATS = 2 ** 28
+
+
 @lru_cache(maxsize=16)
 def _forward_mats(nfft: int, window_key: bytes, device: str):
-    """(W, bins) cos / -sin matrices with the analysis window folded in."""
+    """(W, bins) cos / -sin matrices with the analysis window folded in, in
+    float64 rounded once to float32 (on the host, or past
+    :data:`_DEVICE_MATS` entries on a CUDA ``device``, in the same order of
+    operations)."""
     window = _window(window_key)
     win_len = len(window)
     bins = nfft // 2 + 1
+    if torch.device(device).type == "cuda" and win_len * bins > _DEVICE_MATS:
+        w = torch.from_numpy(window.copy()).to(device)
+        k = torch.arange(bins, dtype=torch.float64, device=device)
+        cos_m = torch.empty((win_len, bins), dtype=torch.float32, device=device)
+        sin_m = torch.empty_like(cos_m)
+        step = max(1, _DEVICE_MATS // 4 // bins)
+        for r0 in range(0, win_len, step):
+            r1 = min(r0 + step, win_len)
+            n = torch.arange(r0, r1, dtype=torch.float64, device=device)[:, None]
+            ang = 2.0 * np.pi * n * k / nfft
+            cos_m[r0:r1] = w[r0:r1, None] * torch.cos(ang)
+            sin_m[r0:r1] = w[r0:r1, None] * -torch.sin(ang)
+        return cos_m, sin_m
     ang = 2.0 * np.pi * np.arange(nfft)[:, None] * np.arange(bins)[None, :] / nfft
     cos_m = (window[:, None] * np.cos(ang)[:win_len]).astype(np.float32)
     sin_m = (window[:, None] * -np.sin(ang)[:win_len]).astype(np.float32)

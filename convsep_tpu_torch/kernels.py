@@ -49,6 +49,7 @@ LAUNCHES: dict[str, int] = {
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_direct": 0,
     "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
+    "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0,
 }
 
 _lock = threading.Lock()
@@ -83,6 +84,8 @@ _SIGNATURES = {
     "stft_bluestein_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, chirp, chat, re, im, B, L, W, hop, nf, nfft, stream
     "stft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, chirp, chat, scratch, re, im, B, L, W, hop, nf, nfft, per_round, stream
+    "stft_level2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # p, g, accu, delta_accu, n, lr, rho, one_minus_rho, eps, partial, sq, stream
     "fused_adadelta_launch": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P, _P, _P),
     # re, im, win_over_n, inv_norm, tw, out, out_int16, nt, nf, nfft, win, hop,
@@ -99,6 +102,10 @@ _SIGNATURES = {
     # nfft, win, hop, length, rounds, stream
     "istft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    # re, im, win_over_n, inv_norm, tw, chirp, chat, scratch, frames, out, out_int16,
+    # nt, nf, nfft, win, hop, length, per_round, stream
+    "istft_level2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
     # nfft, win, hop, active (1 int out)
     "istft_cluster_occupancy": (_I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
@@ -107,8 +114,13 @@ _SIGNATURES = {
     "ct_stft_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, chirp, chat, re, im, ny, B, L, nfft, hop, nf, stream
     "ct_stft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, re, im, ny, B, L, nfft, hop, nf, stream
+    "ct_stft_level_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # z, packed taps, out, M, Tp, C2, kh, I, grid, stream
     "band_decode_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # z, packed taps, out, M, Tp, C2, kh, I, z row stride, out row stride, accumulate,
+    # grid, stream
+    "band_decode_piece_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _I, _I, _P),
 }
 
 

@@ -124,8 +124,7 @@ def band_plan(M: int, Tp: int, C2: int, kh: int, I: int, sms: int = 132) -> Band
     nw = next(w for w in range(64, 0, -8) if ip % w == 0)
     K = Tp * C2
     vec = 0 if C2 % 2 == 0 and K % 8 == 0 and K <= 32 * QUADS else 2 if C2 % 2 == 0 else 1
-    stage = nw + (24 - nw) % 32  # floats a staging row takes
-    smem = 2 * ROWS * (Tp * c2p + 8) + 2 * (kh * c2p + 8) * ip + 4 * (THREADS // 32) * 8 * stage
+    smem = _band_smem(Tp, C2, kh, I)
     if smem > SMEM_MAX:
         raise ValueError(f"band decode kernel: {smem} bytes of shared memory for Tp={Tp} "
                          f"C2={C2} kh={kh} I={I} exceed {SMEM_MAX}")
@@ -135,6 +134,54 @@ def band_plan(M: int, Tp: int, C2: int, kh: int, I: int, sms: int = 132) -> Band
     steps = tuple(-(-(hi - lo + 1) * c2p // 16) for lo, hi in (h_range(t, Tp, kh) for t in range(T)))
     ops = 2.0 * ROWS * row_tiles * 16 * ip * sum(steps)
     return BandPlan(c2p, ip, nw, vec, row_tiles, min(row_tiles, per_sm * sms), smem, steps, ops)
+
+
+@dataclass(frozen=True)
+class BandPieces:
+    """A band whose taps and 64-row z tile do not fit one block's shared
+    memory at once, cut into pieces that do: z's depths h0 .. h1 − 1
+    against the taps d0 .. d1 − 1, each a band decode of its own
+    (``csrc/band_decode.cu::band_decode_piece_launch``) added into output
+    columns h0 + d0 .. h1 + d1 − 2."""
+
+    tp: int               # z's depths a piece takes (at most)
+    kh: int               # the taps a piece takes (at most)
+    pieces: tuple         # (h0, h1, d0, d1) each
+    smem_bytes: int       # the largest piece's
+
+
+@lru_cache(maxsize=64)
+def band_pieces(Tp: int, C2: int, kh: int, I: int) -> BandPieces:
+    """The fewest pieces (ties: the most taps a piece) whose largest fits
+    shared memory (:func:`band_plan`'s rule): for each count of taps a
+    piece, the most depths that fit beside them. One piece where the whole
+    band fits. Raises ``ValueError`` where not even one depth and one tap
+    fit (C2 and I past about 700)."""
+    best = None
+    for khp in range(kh, 0, -1):
+        tp = next((t for t in range(Tp, 0, -1) if _band_smem(t, C2, khp, I) <= SMEM_MAX), 0)
+        if not tp:
+            continue
+        key = (-(-Tp // tp) * -(-kh // khp), -khp)
+        if best is None or key < best[0]:
+            best = (key, tp, khp)
+    if best is None:
+        raise ValueError(f"band decode kernel: no piece of Tp={Tp} C2={C2} kh={kh} I={I} "
+                         f"fits {SMEM_MAX} bytes of shared memory")
+    _, tp, khp = best
+    pieces = tuple((h0, min(h0 + tp, Tp), d0, min(d0 + khp, kh))
+                   for h0 in range(0, Tp, tp) for d0 in range(0, kh, khp))
+    return BandPieces(tp, khp, pieces, _band_smem(tp, C2, khp, I))
+
+
+def _band_smem(Tp: int, C2: int, kh: int, I: int) -> int:
+    """The launcher's shared memory (bytes): the 64-row z tile (depth Tp ·
+    C2p + 8), the packed taps ((kh · C2p + 8) × Ip) and 8 staging rows a
+    warp, in bf16 and float32."""
+    c2p, ip = -(-C2 // 8) * 8, -(-I // 8) * 8
+    nw = next(w for w in range(64, 0, -8) if ip % w == 0)
+    stage = nw + (24 - nw) % 32  # floats a staging row takes
+    return 2 * ROWS * (Tp * c2p + 8) + 2 * (kh * c2p + 8) * ip + 4 * (THREADS // 32) * 8 * stage
 
 
 @lru_cache(maxsize=8)
@@ -180,15 +227,31 @@ def band_decode_wmajor(z: torch.Tensor, band: torch.Tensor | BandOperand,
     T = time_context
     kh, I = T - Tp + 1, TI // T
     dev = z.device
-    plan = band_plan(N * W, Tp, O, kh, I, _sms(dev.index if dev.index is not None
-                                               else torch.cuda.current_device()))
+    sms = _sms(dev.index if dev.index is not None else torch.cuda.current_device())
+    split = band_pieces(Tp, O, kh, I)
+    zb = z.to(torch.bfloat16).contiguous()
+    lib = kernels.library()
+    if len(split.pieces) > 1:  # each piece adds its columns into the zeroed output
+        taps = taps_of_band(dense, T)
+        out = torch.zeros((N, W, TI), dtype=torch.float32, device=dev)
+        with kernels.on_device(dev):
+            stream = torch.cuda.current_stream(dev.index).cuda_stream
+            for h0, h1, d0, d1 in split.pieces:
+                plan = band_plan(N * W, h1 - h0, O, d1 - d0, I, sms)
+                packed = pack_taps(taps[d0:d1])
+                code = lib.band_decode_piece_launch(
+                    zb.data_ptr() + 2 * h0 * O, packed.data_ptr(),
+                    out.data_ptr() + 4 * (h0 + d0) * I, N * W, h1 - h0, O, d1 - d0, I, K, TI, 1,
+                    plan.grid, stream)
+                kernels.check(code, "band_decode")
+        kernels.LAUNCHES["band_decode"] += 1
+        return out
+    plan = band_plan(N * W, Tp, O, kh, I, sms)
     packed = op.packed if op else pack_taps(taps_of_band(dense, T))
     if (packed.device != dev or packed.dtype != torch.bfloat16
             or packed.numel() != (kh * plan.c2p + 8) * plan.ip):
         raise ValueError("band_decode: the packed taps do not match the band")
-    zb = z.to(torch.bfloat16).contiguous()
     out = torch.empty((N, W, TI), dtype=torch.float32, device=dev)
-    lib = kernels.library()
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
         code = lib.band_decode_launch(zb.data_ptr(), packed.data_ptr(), out.data_ptr(), N * W,

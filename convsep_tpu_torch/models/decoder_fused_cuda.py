@@ -64,9 +64,14 @@ FUSED_DECODE_WON = {
 }
 
 # the kernel's tile (csrc/decoder_fused.cu)
-BT = 64              # fc rows per row tile
+BT = 64              # fc rows per row tile, at most
 TC = 8               # t per chunk: one TF32 k-step
 MAX_CLUSTER = 8      # blocks per cluster (the portable limit)
+# (row tile, split Kcat buffers, K4 buffers) in the order the launcher tries
+# them (``make_plan``): it takes the first whose most expansion rows a block
+# keep stage 1's halo at or under 2, else the one with the least halo
+PLAN_OPTIONS = ((64, 2, 2), (64, 1, 2), (64, 1, 1), (32, 1, 2), (32, 1, 1), (16, 1, 1),
+                (8, 1, 1))
 
 
 def fused_decode_won(TM: int, B: int, compute_dtype: str = "float32") -> bool:
@@ -105,15 +110,17 @@ def block_tile(TM: int) -> tuple[int, int, int, int]:
     return 4, 6, -(-TM // 48), 12
 
 
-def smem_bytes(J: int, ktaps: int, MI: int, NI: int, W: int, FS: int, RC: int, ES: int) -> int:
+def smem_bytes(J: int, ktaps: int, MI: int, NI: int, W: int, FS: int, RC: int, ES: int,
+               kc_bufs: int = 2, k4_bufs: int = 2) -> int:
     """Dynamic shared memory of a block (the launcher's ``plan_smem``): the
-    split Kcat tiles in wgmma's layout (2 buffers × hi, lo × ktaps × 8 t ×
-    8 NI), fc (J × FS), the double-buffered K4 rows of its share of stage 1
-    (2 × RC × J × 8 t), e (2 × 8 t × ES) and 16 W MI floats of room after it
-    (the dropped tiles past a block's rows read there), the Kcat tile as
-    copied (ktaps × 8 t × (8 NI + 8)) and four 8-byte mbarriers."""
-    return 4 * (4 * ktaps * 64 * NI + J * FS + 2 * RC * J * TC + 2 * TC * ES + 16 * W * MI
-                + ktaps * TC * (8 * NI + 8)) + 32
+    split Kcat tiles in wgmma's layout (``kc_bufs`` buffers × hi, lo × ktaps
+    × 8 t × 8 NI), fc (J × FS, J padded to 8), the K4 rows of its share of
+    stage 1 (``k4_bufs`` × RC × J × 8 t), e (2 × 8 t × ES) and 16 W MI floats
+    of room after it (the dropped tiles past a block's rows read there), the
+    Kcat tile as copied (ktaps × 8 t × (8 NI + 8)) and four 8-byte
+    mbarriers."""
+    return 4 * (2 * kc_bufs * ktaps * 64 * NI + J * FS + k4_bufs * RC * J * TC + 2 * TC * ES
+                + 16 * W * MI + ktaps * TC * (8 * NI + 8)) + 32
 
 
 @dataclass(frozen=True)
@@ -122,7 +129,7 @@ class DecodePlan:
     mi: int              # m16 tiles of output rows per warp
     ni: int              # column groups of 8 per block
     cluster: int         # blocks per cluster: the column tiles, sharing stage 1
-    b_tiles: int         # fc row tiles of 64
+    b_tiles: int         # fc row tiles of ``bt``
     bp: int              # fc rows of a tile padded to a multiple of 4
     wb: int              # output rows w per block
     rows_e: int          # expansion rows per w block: wb + ktaps − 1
@@ -135,31 +142,60 @@ class DecodePlan:
     halo: float          # expansion rows computed per output row: rows_e / wb
     stage1_recompute: float  # stage 1's work over the expansion's (column tiles share it)
     k4_reads: float      # K4 reads from device memory over its size: b_tiles × halo
-    row_padding: float   # stage 2's fc rows over the real ones: bp / min(B, 64)
+    row_padding: float   # stage 2's fc rows over the real ones: bp / min(B, bt)
+    bt: int = BT         # fc rows a row tile holds, at most (64, 32, 16 or 8)
+    kc_bufs: int = 2     # buffers of the split Kcat tiles (1: split after stage 2)
+    k4_bufs: int = 2     # buffers of the K4 rows (1: copied after stage 1 read them)
+    j_pad: int = 0       # fc's columns padded with zeros to the mma depth 8
 
 
-def _plan_rows(B: int, J: int, W_pad: int, ktaps: int, MI: int, NI: int, C: int, W: int):
-    """(BP, WB, RC, ES, smem) as the launcher's ``make_plan``: the most
+def _fit_rows(B: int, J: int, W_pad: int, ktaps: int, MI: int, NI: int, C: int, W: int,
+              bt: int = BT, kc_bufs: int = 2, k4_bufs: int = 2):
+    """(BP, WB, RC, ES, smem) as the launcher's ``fit_rows``: the most
     expansion rows a block takes (16 W MI output rows at most) that shared
-    memory holds, or None."""
-    BP = -(-min(B, BT) // 4) * 4
+    memory holds for a row tile of ``bt`` fc rows, or None."""
+    BP = -(-min(B, bt) // 4) * 4
     FS = -(-BP // 8) * 8   # fc's row stride: 8 or 24 mod 32 (conflict-free fragment reads)
     FS += 8 if FS % 16 == 0 else 0
     for WB in range(min(W * MI * 16 // BP, W_pad), 0, -1):
         R = WB + ktaps - 1
         RC = -(-R // C)
         ES = -(-(R * BP + 16) // 16) * 16 + 8   # 8 or 24 mod 32: conflict-free fragment reads
-        smem = smem_bytes(J, ktaps, MI, NI, W, FS, RC, ES)
+        smem = smem_bytes(J, ktaps, MI, NI, W, FS, RC, ES, kc_bufs, k4_bufs)
         if smem <= _SMEM_MAX:
             return BP, WB, RC, ES, smem
     return None
 
 
+def _plan_rows(B: int, J: int, W_pad: int, ktaps: int, MI: int, NI: int, C: int, W: int):
+    """((bt, kc_bufs, k4_bufs), (BP, WB, RC, ES, smem)) as the launcher's
+    ``make_plan``: the first of :data:`PLAN_OPTIONS` whose rows keep the halo
+    (WB + ktaps − 1) / WB at or under 2, else the one with the least halo
+    (the earliest of equals); None if none fits. J is padded to 8."""
+    J = -(-J // 8) * 8
+    best = None
+    for opt in PLAN_OPTIONS:
+        rows = _fit_rows(B, J, W_pad, ktaps, MI, NI, C, W, *opt)
+        if rows is None:
+            continue
+        if rows[1] >= ktaps - 1:
+            return opt, rows
+        if best is None or rows[1] > best[1][1]:
+            best = (opt, rows)
+    return best
+
+
 def kernel_supported(J: int, ktaps: int, TM: int) -> bool:
-    """The CUDA kernel's own envelope: J a multiple of 8 (the mma's depth),
-    TM within 8 blocks of 48 columns (384), and a plan whose shared memory
-    fits a block's 227 KB for a full row tile (ktaps ≤ 16 at J 128, TM 120)."""
-    if not (J >= 8 and J % 8 == 0 and ktaps >= 1 and 1 <= TM <= MAX_CLUSTER * 48):
+    """The CUDA kernel's own envelope: any J (the wrapper pads fc with zero
+    columns and K4 with zero rows to the mma depth 8, a copy of K4 a call
+    where J is not a multiple of 8), TM within 8 blocks of 48 columns
+    (384), and a plan whose
+    shared memory fits a block's 227 KB for a full row tile (past the
+    double-buffered 64-row tile the launcher single-buffers the split Kcat
+    tiles and the K4 rows and takes 32, 16 or 8 fc rows a tile): every
+    shape :func:`fused_decode_supported` admits (ktaps ≤ 17, TM 90–384) up
+    to J 512 and past it."""
+    if not (J >= 1 and ktaps >= 1 and 1 <= TM <= MAX_CLUSTER * 48):
         return False
     MI, NI, C, W = block_tile(TM)
     return _plan_rows(BT, J, 1, ktaps, MI, NI, C, W) is not None
@@ -173,12 +209,13 @@ def decode_plan(B: int, J: int, S: int, W_pad: int, TpC: int, ktaps: int, TM: in
     if not kernel_supported(J, ktaps, TM):
         raise ValueError(f"fused decode kernel unsupported for J={J} ktaps={ktaps} TM={TM}")
     mi, ni, C, W = block_tile(TM)
-    BP, WB, RC, ES, smem = _plan_rows(B, J, W_pad, ktaps, mi, ni, C, W)
-    bt = -(-B // BT)
+    (bt, kc, k4), (BP, WB, RC, ES, smem) = _plan_rows(B, J, W_pad, ktaps, mi, ni, C, W)
+    tiles = -(-B // bt)
     wb = -(-W_pad // WB)
     halo = (WB + ktaps - 1) / WB
-    return DecodePlan(W, mi, ni, C, bt, BP, WB, WB + ktaps - 1, RC, ES, wb, bt * wb * S,
-                      C * bt * wb * S, smem, halo, halo, bt * halo, BP / min(B, BT))
+    return DecodePlan(W, mi, ni, C, tiles, BP, WB, WB + ktaps - 1, RC, ES, wb, tiles * wb * S,
+                      C * tiles * wb * S, smem, halo, halo, tiles * halo, BP / min(B, bt),
+                      bt, kc, k4, -(-J // 8) * 8)
 
 
 def card_plan(B: int, J: int, S: int, W_pad: int, TpC: int, ktaps: int, TM: int) -> dict:
@@ -186,10 +223,12 @@ def card_plan(B: int, J: int, S: int, W_pad: int, TpC: int, ktaps: int, TM: int)
     card runs at once (``cudaOccupancyMaxActiveClusters``); needs the card."""
     import ctypes
 
-    info = (ctypes.c_int * 9)()
-    code = kernels.library().fused_decode_plan(B, J, S, W_pad, TpC, ktaps, TM, info)
+    info = (ctypes.c_int * 12)()
+    code = kernels.library().fused_decode_plan(B, -(-J // 8) * 8, S, W_pad, TpC, ktaps, TM,
+                                               info)
     kernels.check(code, "fused_decode_plan")
-    keys = ("mi", "ni", "cluster", "bp", "wb", "rc", "es", "smem_bytes", "active_clusters")
+    keys = ("mi", "ni", "cluster", "bp", "wb", "rc", "es", "smem_bytes", "active_clusters",
+            "bt", "kc_bufs", "k4_bufs")
     return dict(zip(keys, list(info)))
 
 
@@ -266,6 +305,11 @@ def band_freq_decode(fc: torch.Tensor, k4: torch.Tensor, b3: torch.Tensor,
         raise ValueError(f"band_freq_decode kernel unsupported for J={J} ktaps={ktaps} TM={TM}")
     fc = fc.contiguous()
     k4, b3, kcat = k4.contiguous(), b3.contiguous(), kcat.contiguous()
+    if J % 8:  # the mma's depth: zero columns of fc against zero rows of K4 (exact)
+        pad = -J % 8
+        fc = torch.nn.functional.pad(fc, (0, pad))
+        k4 = torch.nn.functional.pad(k4, (0, 0, 0, 0, 0, 0, 0, pad))
+        J += pad
     out = torch.empty((B, S, W_pad, TM), dtype=out_dtype, device=fc.device)
     lib = kernels.library()
     with kernels.on_device(fc.device):

@@ -261,3 +261,30 @@ def test_prepared_band_operand_equals_band_tensor(rng, shape):
                 got[h, :, t * I:(t + 1) * I] = b[rho:rho + C2, :I]
     assert torch.equal(got, want.to(torch.bfloat16).float())
     assert b[kh * c2p:].abs().sum() == 0  # the zero rows after tap 0
+
+
+@pytest.mark.parametrize("M,Tp,C2,kh,I", [(70, 30, 128, 1, 128), (64, 1, 128, 30, 100),
+                                          (40, 12, 100, 9, 128)])
+def test_band_pieces_emulation_matches_plain(rng, M, Tp, C2, kh, I):
+    """A band too large for one block's shared memory, cut by band_pieces:
+    each piece (z's depths h0 .. h1 − 1 against its own packed taps d0 ..
+    d1 − 1, read as the kernel reads them) added into output columns h0 +
+    d0 on, as band_decode_wmajor launches band_decode_piece_launch, gives
+    the plain version's output within 1e-5 × max|out|."""
+    T = Tp + kh - 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tdb.band_plan(M, Tp, C2, kh, I)
+    split = tdb.band_pieces(Tp, C2, kh, I)
+    assert len(split.pieces) > 1 and split.smem_bytes <= tdb.SMEM_MAX
+    k = torch.from_numpy((0.3 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((M, Tp * C2)).astype(np.float32))
+    band = tdb.band_tensor(k, T)
+    taps = tdb.taps_of_band(band, T)
+    out = torch.zeros(M, T * I)
+    for h0, h1, d0, d1 in split.pieces:
+        part = kernel_emulation(z[:, h0 * C2:h1 * C2], tdb.pack_taps(taps[d0:d1]), h1 - h0, C2,
+                                d1 - d0, I)
+        out[:, (h0 + d0) * I:(h1 + d1 - 1) * I] += part
+    want = tdb.band_decode_wmajor_plain(z[None], band)[0]
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5 * want.abs().max().item(),
+                               rtol=0)

@@ -27,7 +27,11 @@ import pytest
 import torch
 
 from convsep_tpu_torch import kernels
-from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas, stft_ct_pallas_plain
+from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import (
+    stft_ct_cluster_pallas,
+    stft_ct_pallas,
+    stft_ct_pallas_plain,
+)
 from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     istft_ct_pallas,
     istft_ct_pallas_plain,
@@ -290,7 +294,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
                 "istft_direct": 0, "wiener_apply": 0,
                 "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
-                "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0}
+                "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "stft_level2": 0,
+                "istft_level2": 0, "ct_stft_level": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -367,7 +372,7 @@ def test_stft_kernel_matches_plain(rng, cuda, nfft, hop, B, length):
     torch.testing.assert_close(i1, im[0], atol=0, rtol=0)
 
 
-STFT_NAMES = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_dft")
+STFT_NAMES = ("stft", "stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft")
 
 
 def _rfft_stft(x, w, hop, nfft):
@@ -649,7 +654,8 @@ def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, leng
     _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
 
 
-ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
+               "istft_direct")
 
 
 def _istft_name(nfft: int) -> str:
@@ -659,7 +665,8 @@ def _istft_name(nfft: int) -> str:
 
     return ("istft" if nfft & (nfft - 1) == 0 and nfft <= 8192 else "istft_split"
             if split_supported(nfft) else "istft_bluestein" if bluestein_supported(nfft)
-            else "istft_cluster" if cluster_supported(nfft) else "istft_direct")
+            else "istft_cluster" if cluster_supported(nfft) else "istft_level2"
+            if 65536 < nfft <= 262144 else "istft_direct")
 
 
 @pytest.mark.parametrize("nfft,win,hop,lead,length", [
@@ -930,17 +937,20 @@ def test_ct_stft_kernel_matches_plain(rng, cuda, nfft, B, length):
 @pytest.mark.parametrize("hop,B,length", [(4096, 1, 1_474_560), (2048, 2, 60_001),
                                           (1024, 1, 1), (16384, 3, 100_000)])
 def test_ct_stft_cluster_kernel_matches_plain(rng, cuda, hop, B, length):
-    """The fused forward STFT at the reference's 16 384 points (Bluestein on
-    a cluster of 4 blocks) within 1e-5 × max|X| of the plain version, the
-    Nyquist row apart: one "ct_stft_cluster" launch, no "ct_stft"."""
+    """The fused forward STFT at the reference's 16 384 points through the
+    cluster kernel, forced (Bluestein on a cluster of 4 blocks; the route
+    takes the level), within 1e-5 × max|X| of the plain version, the
+    Nyquist row apart: one "ct_stft_cluster" launch, no "ct_stft" and no
+    "ct_stft_level"."""
     nfft = 16384
     x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
     w = sinebell(nfft)
     before = dict(kernels.LAUNCHES)
-    got = stft_ct_pallas(x, w, hop)
+    got = stft_ct_cluster_pallas(x, w, hop)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ct_stft_cluster"] == before["ct_stft_cluster"] + 1
     assert kernels.LAUNCHES["ct_stft"] == before["ct_stft"]
+    assert kernels.LAUNCHES["ct_stft_level"] == before["ct_stft_level"]
     want = stft_ct_pallas_plain(x, w, hop)
     nf = -(-length // hop) + 2
     assert got[0].shape == (B, nf, nfft // 2) and got[2].shape == (B, nf)
@@ -951,7 +961,7 @@ def test_ct_stft_cluster_kernel_matches_plain(rng, cuda, hop, B, length):
 
 def test_ct_stft_kernel_refuses(cuda):
     """Outside the reference's shapes the wrapper refuses; at its largest,
-    16 384 points, the cluster kernel serves."""
+    16 384 points, the level kernel serves."""
     x = torch.zeros(2, 5000, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         stft_ct_pallas(x, sinebell(4096), 512)
@@ -1014,9 +1024,10 @@ def test_band_decode_kernel_matches_plain(rng, cuda, N, Tp, W, C2, kh, I):
 
 
 def test_band_decode_kernel_refuses(cuda):
-    band = band_tensor(torch.zeros(15, 1, 50, 400, device=cuda), 30)  # depth 16 x 400
+    # depth 16 x 1000: not even one depth's z tile and one tap fit shared memory
+    band = band_tensor(torch.zeros(15, 1, 50, 1000, device=cuda), 30)
     with pytest.raises(ValueError, match="shared memory"):
-        band_decode_wmajor(torch.zeros(2, 3, 6400, device=cuda), band, 30)
+        band_decode_wmajor(torch.zeros(2, 3, 16000, device=cuda), band, 30)
     band = band_tensor(torch.zeros(3, 1, 2, 5, device=cuda), 6)
     with pytest.raises(ValueError, match="mixed devices"):
         band_decode_wmajor(torch.zeros(2, 3, 20), band, 6)
@@ -1193,14 +1204,25 @@ CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel",
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
                          ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280}
-# the fused forward STFT's cluster kernel at 16 384 points (C 4)
+# the fused forward STFT's cluster kernel at 16 384 points (C 4), and its
+# level kernel
 CT_STFT_CLUSTER_STACK_CEILING = 8
+CT_STFT_LEVEL_STACK_CEILING = 0
+# the second level's phases, both directions, at M 2^18 and 2^19: the
+# radix-R phases keep their R points in registers (up to 255 a thread at 256
+# threads); phase B/C (Fft<13> on 512 threads at 128 registers) spills
+LEVEL2_STACK_CEILING = {"level2_first_kernel": 0, "level2_middle_kernel": 144,
+                        "level2_last_kernel": 0, "level2_split_kernel": 0}
 
 
-# the same for the fused decode kernel's two instances (MI, NI, warps): the
-# 16-warp instance keeps its registers off the stack; the 12-warp one (96
-# accumulators a thread at 168 registers) spills a few bytes.
-DECODE_STACK_CEILING = {"ILi3ELi4ELi16E": 0, "ILi4ELi6ELi12E": 40}
+# the same for the fused decode kernel's instances (MI, NI, warps, split
+# Kcat buffers, K4 buffers): the presets' 16-warp double-buffered instance
+# keeps its registers off the stack; the 12-warp one (96 accumulators a
+# thread at 168 registers) spills a few bytes; the single-buffered ones
+# (the reference rule's edges, no preset) a few more or none.
+DECODE_STACK_CEILING = {"ILi3ELi4ELi16ELi2ELi2E": 0, "ILi4ELi6ELi12ELi2ELi2E": 40,
+                        "ILi3ELi4ELi16ELi1ELi2E": 0, "ILi3ELi4ELi16ELi1ELi1E": 16,
+                        "ILi4ELi6ELi12ELi1ELi2E": 16, "ILi4ELi6ELi12ELi1ELi1E": 8}
 
 
 def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
@@ -1251,11 +1273,31 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
         assert len(hits) == 1 and hits[0] <= most, (inst, frames)
     hits = [v for k, v in frames.items() if "22ct_stft_cluster_kernelE" in k]
     assert len(hits) == 1 and hits[0] <= CT_STFT_CLUSTER_STACK_CEILING, frames
+    hits = [v for k, v in frames.items() if "20ct_stft_level_kernelE" in k]
+    assert len(hits) == 1 and hits[0] <= CT_STFT_LEVEL_STACK_CEILING, frames
+    for phase, most in LEVEL2_STACK_CEILING.items():
+        for log2m in (18, 19):
+            hits = [v for k, v in frames.items() if f"{phase}ILi{log2m}E" in k]
+            assert len(hits) == (1 if phase == "level2_split_kernel" else 2), (phase, frames)
+            assert max(hits) <= most, (phase, log2m, frames)
+    hits = [v for k, v in frames.items() if "istft_level2_ola_kernel" in k]
+    assert len(hits) == 1 and hits[0] == 0, frames
 
 
-@pytest.mark.parametrize("shape", [(49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),
-                                   (49, 128, 4, 512, 800, 8, 360), (65, 32, 2, 40, 100, 17, 360),
-                                   (1, 32, 2, 40, 100, 2, 90)])
+# (B, J, S, W_pad, TpC, ktaps, TM): the presets' three TMs, and the
+# envelope's plans: 32-row tiles with one buffer of split Kcat tiles (ktaps
+# 16-17), J padded to 8 (100, 127), 8-row tiles with one buffer of each (J
+# 512), 32-row tiles with one of each, a 64-row tile with one of each
+DECODE_PLAN_SHAPES = [
+    (49, 128, 4, 512, 800, 8, 120), (49, 128, 4, 512, 800, 8, 240),
+    (49, 128, 4, 512, 800, 8, 360), (65, 32, 2, 40, 100, 17, 360), (1, 32, 2, 40, 100, 2, 90),
+    (49, 128, 4, 512, 800, 17, 120), (49, 128, 4, 512, 800, 16, 360),
+    (49, 100, 4, 512, 800, 8, 120), (49, 127, 4, 512, 800, 10, 120),
+    (64, 512, 2, 64, 100, 17, 384), (65, 256, 2, 64, 100, 17, 240), (9, 512, 2, 40, 100, 17, 384),
+]
+
+
+@pytest.mark.parametrize("shape", DECODE_PLAN_SHAPES)
 def test_fused_decode_plan_mirrors_the_launcher(cuda, shape):
     """decode_plan (the CPU tests' mirror) is the launcher's own plan, and
     the card runs at least one of its clusters."""
@@ -1263,7 +1305,187 @@ def test_fused_decode_plan_mirrors_the_launcher(cuda, shape):
     p = decode_plan(*shape)
     assert (got["mi"], got["ni"], got["cluster"], got["bp"], got["wb"], got["rc"], got["es"],
             got["smem_bytes"]) == (p.mi, p.ni, p.cluster, p.bp, p.wb, p.rc, p.es, p.smem_bytes)
+    assert (got["bt"], got["kc_bufs"], got["k4_bufs"]) == (p.bt, p.kc_bufs, p.k4_bufs)
     assert got["active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("shape", DECODE_PLAN_SHAPES[5:])
+def test_fused_decode_envelope_plans_match_plain(rng, cuda, shape):
+    """The fused decode at the envelope's plans (the reference's ktaps 17
+    and TM 384, J not a multiple of 8 and up to 512; row tiles of 32 and
+    8, one buffer of split Kcat tiles or of K4 rows): float32 within 1e-5
+    × max|plain|, bf16 within one ulp, one launch."""
+    B, J, S, W_pad, TpC, ktaps, TM = shape
+    fc, ops = _decode_operands(rng, cuda, B, TM, ktaps, J=J, S=S, W_pad=W_pad, TpC=TpC)
+    for dt in (torch.float32, torch.bfloat16):
+        before = kernels.LAUNCHES["fused_decode"]
+        got = band_freq_decode(fc, *ops, out_dtype=dt).float()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fused_decode"] == before + 1
+        want = band_freq_decode_plain(fc, *ops, out_dtype=dt).float()
+        tol = (1e-5 if dt == torch.float32 else 2 ** -7) * want.abs().max().item()
+        assert got.shape == want.shape == (B, S, W_pad, TM)
+        assert (got - want).abs().max().item() <= tol
+
+
+def _istft64(re, im, w, hop, length, nfft, out="float32"):
+    """istft_pallas's function in float64 (numpy's inverse real FFT of the
+    float32 spectra, the window, overlap-add, the window-power
+    normalization, the W/2 trim), rounded once: the reference past the
+    direct chain's sizes."""
+    from convsep_tpu_torch.dsp.istft import ola_norm, overlap_add
+    from convsep_tpu_torch.utils.pcm import quantize_pcm16
+
+    win, nf = len(w), int(re.shape[-2])
+    w32 = np.asarray(w, np.float32)
+    wd = torch.from_numpy(w32.astype(np.float64)).to(re.device)
+    frames = torch.fft.irfft(torch.complex(re.double(), im.double()), n=nfft)[..., :win] * wd
+    norm = torch.from_numpy(ola_norm(w32, w32, hop, nf).astype(np.float64)).to(re.device)
+    y = (overlap_add(frames, hop) / norm)[..., win // 2: win // 2 + length].float()
+    return quantize_pcm16(y) if out == "int16" else y
+
+
+@pytest.mark.parametrize("nfft,hop,lead,length,name", [
+    (1001, 143, (2,), 30000, "istft_bluestein"),   # odd: no Nyquist bin
+    (999, 333, (3,), 20000, "istft_bluestein"),
+    (5001, 1667, (1,), 40000, "istft_bluestein"),  # odd on the level
+    (9999, 1111, (1,), 60000, "istft_cluster"),    # odd on a cluster of 4
+    (39999, 13333, (1,), 150000, "istft_cluster"),  # odd on a cluster of 16
+])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_odd_istft_kernel_matches_plain(rng, cuda, nfft, hop, lead, length, name, out):
+    """Odd nfft, which the reference's istft_pallas takes: Bluestein (on
+    the core, the level or a cluster) run backwards, every bin but DC twice,
+    float32 within 1e-6 × max|y| of the float64 synthesis (and 1e-5 of the
+    plain version up to 32 768 points), PCM16 within one LSB; one launch of
+    its kernel, no other."""
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == name) for k in ISTFT_NAMES}
+    want = _istft64(re, im, w, hop, length, nfft, out)
+    if out == "int16":
+        _close(got, want, out)
+    else:
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+        if nfft <= 32768:
+            _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), out)
+
+
+@pytest.mark.parametrize("nfft,win,hop,B,length", [
+    (70_000, 70_000, 17_500, 32, 14_336),    # M 262 144: 96 frames, 48 pairs, 4 rounds
+    (131_072, 131_072, 32_768, 4, 14_336),   # the largest on M 262 144
+    (99_999, 99_999, 33_333, 3, 200_000),    # odd, M 262 144
+    (262_144, 262_144, 65_536, 2, 300_000),  # M 524 288: R 64, the level's largest
+    (100_000, 80_000, 20_000, 2, 120_000),   # nfft past the window
+])
+def test_level2_stft_kernel_matches_float64(rng, cuda, nfft, win, hop, B, length):
+    """Bluestein on the second level (M 262 144 or 524 288 over two passes
+    through a scratch in device memory) against the float64 STFT within 2e-6
+    × max|X|: one "stft_level2" count, no other STFT kernel."""
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
+    w = sinebell(win)
+    before = dict(kernels.LAUNCHES)
+    re, im = stft_pallas(x, w, hop, nfft)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in STFT_NAMES} == {
+        k: int(k == "stft_level2") for k in STFT_NAMES}
+    re_p, im_p = _rfft_stft(x, w, hop, nfft)
+    assert re.shape == re_p.shape == (B, -(-length // hop) + 2, nfft // 2 + 1)
+    peak = max(re_p.abs().max().item(), im_p.abs().max().item())
+    torch.testing.assert_close(re, re_p, atol=2e-6 * peak, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=2e-6 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("nfft,win,hop,lead,length", [
+    (70_000, 70_000, 17_500, (1,), 1_323_000),  # one 30 s signal at 44.1 kHz: 78 frames
+    (70_001, 70_001, 70_001, (2,), 300_000),    # odd, k 1
+    (131_072, 131_072, 32_768, (1,), 400_000),
+    (262_144, 262_143, 29_127, (1,), 500_000),  # M 524 288, k 9 (a window of 9 hops)
+    (100_000, 80_000, 20_000, (2,), 150_000),   # nfft past the window
+])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_level2_istft_kernel_matches_float64(rng, cuda, nfft, win, hop, lead, length, out):
+    """The second level run backwards (every parity) against the float64
+    synthesis within 2e-6 × max|y|, PCM16 within one LSB: one
+    "istft_level2" count, no other iSTFT kernel."""
+    w = sinebell(win)
+    nf = -(-length // hop) + 2
+    re = torch.randn(*lead, nf, nfft // 2 + 1, device=cuda)
+    im = torch.randn(*lead, nf, nfft // 2 + 1, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == "istft_level2") for k in ISTFT_NAMES}
+    want = _istft64(re, im, w, hop, length, nfft, out)
+    if out == "int16":
+        _close(got, want, out)
+    else:
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("hop,B,length", [(4096, 1, 1_474_560), (2048, 2, 60_001),
+                                          (1024, 1, 1), (16384, 3, 100_000)])
+def test_ct_stft_level_kernel_matches_plain(rng, cuda, hop, B, length):
+    """The fused forward STFT at 16 384 points on the level (one 16
+    384-point transform a pair of frames): within 1e-6 × max|X| of the
+    float64 STFT and 1e-5 of the plain version, the Nyquist row apart, and
+    within 1e-6 × max|X| of the cluster kernel forced on the same input;
+    one "ct_stft_level" launch, no "ct_stft_cluster"."""
+    nfft = 16384
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, length))).astype(np.float32)).to(cuda)
+    w = sinebell(nfft)
+    before = dict(kernels.LAUNCHES)
+    got = stft_ct_pallas(x, w, hop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ct_stft_level"] == before["ct_stft_level"] + 1
+    assert kernels.LAUNCHES["ct_stft_cluster"] == before["ct_stft_cluster"]
+    r64, i64 = _rfft_stft(x, w, hop, nfft)
+    want64 = (r64[..., :nfft // 2], i64[..., :nfft // 2], r64[..., nfft // 2])
+    peak = max(r64.abs().max().item(), i64.abs().max().item())
+    for g, p, c in zip(got, want64, stft_ct_cluster_pallas(x, w, hop)):
+        torch.testing.assert_close(g, p, atol=1e-6 * peak, rtol=0)
+        torch.testing.assert_close(g, c, atol=1e-6 * peak, rtol=0)
+    for g, p in zip(got, stft_ct_pallas_plain(x, w, hop)):
+        torch.testing.assert_close(g, p, atol=1e-5 * peak, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "N,Tp,W,C2,kh,I",
+    [
+        (2, 30, 40, 128, 1, 128),   # 30 depths of 128 channels: 3 pieces of 10 depths
+        (1, 1, 64, 128, 30, 100),   # 30 taps of 128 × 100: 5 pieces of at most 7 taps
+        (2, 12, 20, 100, 9, 128),   # both cut
+        (3, 16, 13, 64, 15, 64),    # the presets' time context at 64 channels
+    ],
+)
+def test_band_decode_pieces_match_plain(rng, cuda, N, Tp, W, C2, kh, I):
+    """A band whose taps and z tile do not fit one block's shared memory:
+    band_pieces cuts it, each piece adds its columns
+    (band_decode_piece_launch), within 1e-5 × max|out| of the plain version,
+    one "band_decode" count a call."""
+    from convsep_tpu_torch.models.decoder_band_cuda import band_pieces, band_plan
+
+    T = Tp + kh - 1
+    with pytest.raises(ValueError, match="shared memory"):
+        band_plan(N * W, Tp, C2, kh, I)
+    assert len(band_pieces(Tp, C2, kh, I).pieces) > 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((N, W, Tp * C2)).astype(np.float32))).to(cuda)
+    k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32)).to(cuda)
+    op = band_operand(k, T)
+    before = kernels.LAUNCHES["band_decode"]
+    got = band_decode_wmajor(z, op, T)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_decode"] == before + 1
+    want = band_decode_wmajor_plain(z, op)
+    assert got.shape == want.shape == (N, W, T * I)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
 
 
 def _tiny(name: str, **model_kw):

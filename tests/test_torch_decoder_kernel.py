@@ -69,6 +69,52 @@ def test_envelopes():
     assert not fused_decode_supported(16 * 50, 90, 10)  # dsd100
     assert not fused_decode_supported(16 * 50, 30, 30)  # ikala
     assert kernel_supported(128, 8, 120) and kernel_supported(128, 14, 120)
-    assert not kernel_supported(128, 30, 120)  # the Kcat tiles outgrow 227 KB
+    assert kernel_supported(128, 30, 120)  # one buffer of split Kcat tiles fits 227 KB
+    assert not kernel_supported(128, 60, 120)  # even one outgrows it
     assert not kernel_supported(8192, 8, 120)  # fc rows exceed shared memory
 
+
+
+@pytest.mark.parametrize("bottleneck", [128, 100])
+def test_plain_matches_jax_kernel_at_the_envelope_edge(rng, bottleneck):
+    """The reference's largest tap count, ktaps 17 (conv1_freq 65, stride 4:
+    TM 120), at J 128, the presets' bottleneck, and at J 100, which the card
+    pads with zero columns to the mma depth: the reference's weights carried
+    across by the bridge (``from_jax_params``), the port's composed decode
+    and operands from them, the plain version against
+    ``band_freq_decode_pallas`` in interpret mode on the same fc rows,
+    within 1e-5 × max|out| (float32 sums in another order). The card's
+    kernel takes both shapes (``kernel_supported``)."""
+    import jax
+
+    from convsep_tpu.models import ConvSep as JaxConvSep
+    from convsep_tpu.models import ConvSepConfig as JaxConfig
+    from convsep_tpu_torch.ckpt import from_jax_params
+    from convsep_tpu_torch.models import convsep as tconv
+
+    kw = dict(time_context=30, feat_size=129, channels_in=1, num_sources=2, conv1_filters=6,
+              conv1_freq=65, conv1_freq_stride=4, conv2_filters=5, bottleneck=bottleneck)
+    jcfg, tcfg = JaxConfig(**kw), ConvSepConfig(**kw)
+    params = JaxConvSep(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, jcfg.time_context, jcfg.feat_size, 1)))
+    p = params["params"]
+    S, W, TpC = tcfg.num_sources, tcfg.enc_freq, tcfg.enc_time * tcfg.conv2_filters
+    KCj, ktaps, _, _ = jax_bfck(p["conv2_kernel"], p["conv1_kernel"], jcfg.enc_time,
+                                jcfg.conv1_freq_stride)
+    TM = KCj.shape[3]
+    assert (ktaps, TM) == (17, 120) and fused_decode_supported(TpC, TM, ktaps)
+    assert kernel_supported(bottleneck, ktaps, TM)
+    fc = np.maximum(rng.standard_normal((9, bottleneck)), 0).astype(np.float32)
+    want, W_pad = band_freq_decode_pallas(
+        jnp.asarray(fc), p["fc_expand"]["kernel"], p["fc_expand"]["bias"], KCj, ktaps, S, W,
+        TpC, jnp.float32, interpret=True)
+    state = from_jax_params(params, tcfg)
+    KC, _, _, _ = tconv.band_freq_conv_kernel(state["conv2_kernel"], state["conv1_kernel"],
+                                              tcfg.enc_time, tcfg.conv1_freq_stride)
+    k4, b3, kcat = prepare_operands(state["fc_expand_kernel"], state["fc_expand_bias"], KC, S, W,
+                                    TpC)
+    assert W_pad == k4.shape[2] and k4.shape[0] == bottleneck
+    got = band_freq_decode(torch.from_numpy(fc), k4, b3, kcat).numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape == (9, S, W_pad, TM)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

@@ -126,6 +126,10 @@ PLAN_SHAPES = [
     (7, 16, 3, 24, 75, 2, 360),
     (16, 128, 2, 64, 800, 16, 240),
     (65, 32, 2, 40, 100, 17, 360),
+    (49, 128, 4, 512, 800, 17, 120),   # the reference's largest ktaps: 32-row tiles
+    (49, 128, 4, 512, 800, 16, 360),
+    (49, 100, 4, 512, 800, 8, 120),    # J not a multiple of 8: padded to 104
+    (49, 512, 4, 512, 800, 17, 384),   # 8-row tiles, one buffer of each
 ]
 
 
@@ -133,9 +137,18 @@ PLAN_SHAPES = [
 def test_decode_plan(B, J, S, W_pad, TpC, ktaps, TM):
     p = decode_plan(B, J, S, W_pad, TpC, ktaps, TM)
     assert p.smem_bytes <= 227 * 1024
-    # a row tile holds all fc rows up to 64, padded to a multiple of 4
-    assert p.b_tiles == -(-B // 64) and p.bp == -(-min(B, 64) // 4) * 4
-    assert p.row_padding == p.bp / min(B, 64)
+    # a row tile holds all fc rows up to bt (64 where shared memory allows),
+    # padded to a multiple of 4
+    assert p.bt in (64, 32, 16, 8) and (p.kc_bufs, p.k4_bufs) in ((2, 2), (1, 2), (1, 1))
+    assert (p.bt, p.kc_bufs, p.k4_bufs) == (64, 2, 2) or p.kc_bufs == 1
+    assert p.b_tiles == -(-B // p.bt) and p.bp == -(-min(B, p.bt) // 4) * 4
+    assert p.row_padding == p.bp / min(B, p.bt)
+    assert p.j_pad == -(-J // 8) * 8
+    assert p.smem_bytes == dfc.smem_bytes(
+        p.j_pad, ktaps, p.mi, p.ni, p.warps, p.bp + 8 if p.bp % 16 == 0 else -(-p.bp // 8) * 8,
+        p.rc, p.es, p.kc_bufs, p.k4_bufs)
+    # the first buffers and row tile whose halo is at most 2, else the least halo
+    assert p.halo <= 2 or p.bt == 8 or ktaps > 17
     # 16 warps of 3 x 4 tiles (TM <= 256) or 12 warps of 4 x 6: MI m16 row
     # tiles a warp x NI column groups of 8 a block
     assert (p.warps, p.mi, p.ni) == ((16, 3, 4) if TM <= 256 else (12, 4, 6))
@@ -171,12 +184,13 @@ def test_main_path_plans():
 def test_kernel_envelope():
     assert kernel_supported(128, 8, 120) and kernel_supported(128, 14, 120)
     assert kernel_supported(16, 3, 120) and kernel_supported(32, 17, 384)
-    assert not kernel_supported(128, 30, 120)  # the Kcat tiles outgrow 227 KB
-    assert not kernel_supported(12, 8, 120)    # J not a multiple of the mma depth 8
+    assert kernel_supported(128, 30, 120)      # one buffer of split Kcat tiles fits 227 KB
+    assert not kernel_supported(128, 60, 120)  # even one outgrows it
+    assert kernel_supported(12, 8, 120)        # J padded with zero columns to the mma depth 8
     assert not kernel_supported(8192, 8, 120)  # fc rows exceed shared memory
     assert not kernel_supported(128, 8, 385)   # more than 8 blocks of 48 columns
     with pytest.raises(ValueError, match="unsupported"):
-        decode_plan(1, 128, 1, 16, 8, 30, 120)
+        decode_plan(1, 8192, 1, 16, 8, 8, 120)
 
 
 @pytest.mark.parametrize("preset,TM", [("highres4096", 120), ("highres4096-stereo", 240),

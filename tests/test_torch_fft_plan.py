@@ -721,7 +721,9 @@ def test_cluster_envelope():
     assert fp.istft_plan(1, 4, 65536, 65536, 16384).cluster == 16
     assert istft_supported(8194, 8194, 4097) and istft_supported(32768, 32768, 4096)
     assert istft_supported(32770, 32770, 16385) and istft_supported(65536, 65536, 16384)
-    assert not istft_supported(65538, 65538, 32769)
+    assert istft_supported(8193, 8193, 8193) and istft_supported(65535, 65535, 13107)  # odd
+    assert not fp.cluster_supported(65538) and fp.level2_supported(65538)
+    assert istft_supported(65538, 65538, 32769)  # the second level
     with pytest.raises(ValueError, match="no iSTFT cluster plan"):
         fp.istft_cluster_plan(1, 4, 8193 * 8, 8192, 2048)
 
@@ -1186,8 +1188,11 @@ def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
         assert fp.istft_plan(1, 10, n, n, n // 4).cluster == fp.cluster_blocks(n)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_direct_plan(1, 10, n, n, n // 4)
-    for n in (65_538, 80_000):
-        assert not fp.cluster_supported(n) and not istft_supported(n, n, n // 4)
+    for n in (65_540, 80_000):  # past the cluster: the second level, no shared-memory table
+        assert not fp.cluster_supported(n) and istft_supported(n, n, n // 4)
+        assert fp.istft_plan(1, 10, n, n, n // 4) == fp.level2_plan(1, 10, n, n, n // 4)
+    for n in (262_148, 300_000):  # past the second level: the direct sum's table does not fit
+        assert not fp.level2_supported(n) and not istft_supported(n, n, n // 4)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_plan(1, 10, n, n, n // 4)
     fp.istft_plan.cache_clear()
@@ -1413,3 +1418,71 @@ def test_wiener_main_path_plans(signals, S, nf, nfft, hop, groups, rounds, rows,
     plan = fp.wiener_plan(signals, S, nf, nfft, hop)
     assert (plan.groups, plan.rounds, plan.rows, plan.blocks, plan.waves) == (
         groups, rounds, rows, blocks, 1)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (32, 3, 70_000, 70_000, 17_500),      # the smoke's STFT: 96 frames, 48 pairs, M 262 144
+    (1, 78, 70_000, 70_000, 17_500),      # the smoke's iSTFT: one 30 s signal
+    (32, 3, 131_072, 131_072, 32_768),    # the largest on M 262 144
+    (32, 3, 131_073, 131_073, 131_073),   # odd, M 524 288
+    (4, 7, 262_144, 262_144, 65_536),     # the level's largest
+    (1, 1, 65_537, 65_537, 65_537),       # its smallest: one frame, one pair
+    (3, 5, 100_000, 80_000, 20_000),      # nfft past the window
+])
+def test_level2_plan(signals, nf, nfft, win, hop):
+    """level2_plan mirrors stft_level2_launch and istft_level2_launch: the
+    flattened frames in pairs, M = 2^⌈log2(2 nfft − 1)⌉ = R · 8192 with R 32
+    or 64, and as many pairs a round as keep the round's scratch (M float2
+    a pair) within LEVEL2_SCRATCH_BYTES, which is half the card's L2: the
+    phases read back what the one before wrote from the L2."""
+    plan = fp.level2_plan(signals, nf, nfft, win, hop)
+    m = fp.bluestein_size(nfft)
+    assert fp.level2_supported(nfft) and not fp.cluster_supported(nfft)
+    assert plan.m == m in (262_144, 524_288) and plan.radix == m // 8192 in (32, 64)
+    assert plan.pairs == -(-signals * nf // 2)
+    assert plan.pairs_per_round == min(plan.pairs, fp.LEVEL2_SCRATCH_BYTES // (8 * m))
+    assert plan.rounds * plan.pairs_per_round >= plan.pairs
+    assert (plan.rounds - 1) * plan.pairs_per_round < plan.pairs
+    assert plan.scratch_bytes == 8 * m * plan.pairs_per_round
+    assert plan.scratch_bytes <= fp.LEVEL2_SCRATCH_BYTES <= fp.L2_BYTES // 2
+    assert plan.middle_smem_bytes == 87_040 <= fp.SMEM_MAX
+    assert fp.istft_plan(signals, nf, nfft, win, hop) == plan
+
+
+def test_level2_rounds_fit_the_l2():
+    """12 pairs a round at M 262 144 (24 MiB of scratch), 6 at 524 288: the
+    smoke's STFT (48 pairs) runs in 4 rounds, its iSTFT (39 pairs) in 4."""
+    a = fp.level2_plan(32, 3, 70_000, 70_000, 17_500)
+    assert (a.pairs, a.pairs_per_round, a.rounds, a.scratch_bytes) == (48, 12, 4, 24 * 2 ** 20)
+    b = fp.level2_plan(1, 78, 70_000, 70_000, 17_500)
+    assert (b.pairs, b.pairs_per_round, b.rounds) == (39, 12, 4)
+    c = fp.level2_plan(32, 3, 200_000, 200_000, 50_000)
+    assert (c.m, c.pairs_per_round, c.rounds, c.scratch_bytes) == (524_288, 6, 8, 24 * 2 ** 20)
+
+
+def test_level2_envelope():
+    """The second level takes 65 537–262 144 points, any parity; the
+    cluster ends at 65 536 and past 262 144 no plan exists."""
+    assert not fp.level2_supported(65_536) and fp.cluster_supported(65_536)
+    assert fp.level2_supported(65_537) and fp.level2_supported(fp.LEVEL2_NFFT)
+    assert not fp.level2_supported(fp.LEVEL2_NFFT + 1)
+    assert fp.bluestein_size(131_072) == 262_144 and fp.bluestein_size(131_073) == 524_288
+    for n in (65_536, 262_145, 300_000):
+        with pytest.raises(ValueError, match="no second-level plan"):
+            fp.level2_plan(1, 4, n, n, n)
+    with pytest.raises(ValueError, match="no second-level plan"):
+        fp.level2_plan(1, 4, 70_000, 70_001, 70_001)  # a window past nfft
+
+
+@pytest.mark.parametrize("nfft", [70_000, 131_073])
+def test_level2_chat_by_rows(nfft):
+    """level2_chat stores the chirp spectrum's entry R k + r at r · 8192 +
+    k (phase B/C's block r reads its row in order), bit for bit the float32
+    table of bluestein_tables."""
+    _, chat = fp.bluestein_tables(nfft, "cpu")
+    rows = fp.level2_chat(nfft, "cpu")
+    r = fp.bluestein_size(nfft) // 8192
+    assert rows.shape == chat.shape == (8192 * r, 2)
+    k = torch.arange(8192)
+    for q in (0, 1, r // 2, r - 1):
+        assert torch.equal(rows[q * 8192 + k], chat[r * k + q])

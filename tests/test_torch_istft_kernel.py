@@ -126,7 +126,8 @@ def test_istft_routes():
     assert istft_supported(384, 384, 96)  # 3 · 128: the split run backwards
     assert istft_supported(1000, 1000, 250)  # even, off the split: Bluestein
     assert istft_supported(10_000, 10_000, 2500)  # past 8192: Bluestein on a cluster
-    assert not istft_supported(255, 255, 85) and not istft_supported(256, 512, 128)
+    assert istft_supported(255, 255, 85)  # odd: Bluestein run backwards, no Nyquist bin
+    assert not istft_supported(256, 512, 128)  # a window past nfft
     assert not istft_supported(4096, 4096, 1000)
 
 
@@ -141,3 +142,22 @@ def test_istft_matmul_ct_pallas_matches_jax(rng, out):
     got = tdft.istft_matmul(torch.from_numpy(re), torch.from_numpy(im), w, hop, length,
                             algorithm="ct_pallas", output_dtype=out).numpy()
     _check(got, want, out)
+
+
+@pytest.mark.parametrize("nfft,hop,lead", [(1001, 143, (2,)), (999, 333, ())])
+def test_odd_istft_pallas_matches_jax(rng, nfft, hop, lead):
+    """An odd nfft (no Nyquist bin: the reference's inverse matrices weight
+    the last bin 2, as every bin but DC), which the reference's
+    ``istft_pallas`` admits (win % hop == 0, win/hop <= 9) and whose card
+    route is Bluestein run backwards: the port's plain version against the
+    JAX kernel in interpret mode on the same spectra, within 2e-6 ×
+    max|y|, and the card's envelope takes the shape."""
+    length = 4 * nfft
+    w, re, im = _spectra(rng, lead, length, nfft, hop)
+    assert re.shape[-1] == nfft // 2 + 1
+    want = np.asarray(jax_istft_pallas(re, im, w, hop, length, nfft=nfft, interpret=True))
+    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length,
+                       nfft=nfft).numpy()
+    assert got.shape == want.shape == (*lead, length)
+    np.testing.assert_allclose(got, want, atol=2e-6 * np.abs(want).max(), rtol=0)
+    assert istft_supported(nfft, nfft, hop)
