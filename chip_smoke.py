@@ -84,9 +84,15 @@ result line is printed):
    10 000 and W 65 536, hop 16 384 (one stem each; the plan beside the
    clusters the card holds at once; past 32 768 the plain version is the
    float64 synthesis, and every cluster row is also held to it); each call
-   launching its kernel once and no other; 7b: the Wiener+iSTFT kernel's
-   direct sum at W 768 (forced: "auto" takes the masked chain there), as
-   phase 3; 7c: the iSTFT at odd nfft (no Nyquist bin): Bluestein run
+   launching its kernel once and no other; 7b: the Wiener+iSTFT at even
+   sizes up to 8192 that are not powers of two, 4 stems of a 30 s track, as
+   phase 3: the split at W 768 and 1280, Bluestein run backwards at W 1000,
+   on the level at W 6000 and with frame pairs at W 8190, hop 910, the
+   direct sum they replaced forced at W 768 and 1000, each beside
+   ``torch.istft`` of the masked spectra and, but the direct sum, the A/B
+   against the masked chain that keys "auto"
+   (``WIENER_SPLIT_BLUESTEIN_WON``); the Nyquist-row input at W 768 and
+   8190; 7c: the iSTFT at odd nfft (no Nyquist bin): Bluestein run
    backwards at W 1001, hop 143 and W 999, hop 333, on a cluster at W 9999,
    hop 1111 and W 39 999, hop 13 333, on a 30 s track's frames, float32
    against the float64 synthesis (``TOL_ODD_ISTFT``) and PCM16 within one
@@ -276,7 +282,9 @@ TRAIN_SECONDS = 20
 # thread-block cluster of 4 and of 8 blocks, and at W 10 000 the direct sum
 # it replaces): sizes that are not powers of two, timed, no main path
 W768_NF = 5170
+W1280_NF = 4137
 W1000_NF = 5294
+W8190_NF = 1456
 W6000_NF = 884
 W10000_NF = 532
 W20000_NF = 267
@@ -318,6 +326,21 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 40000 cluster", 40000, 10000, W40000_NF, 1, False, "istft_cluster"),
                 ("W 65536 cluster", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
+# phase 7b: the Wiener+iSTFT at even sizes up to 8192 that are not powers
+# of two, 4 stems of a 30 s track, bf16 y: (key, nfft, hop, nf, the kernel
+# it must launch). The split at W 768 and 1280, Bluestein run backwards at W
+# 1000, on the level at W 6000 and with frame pairs at W 8190, hop 910 (two
+# carries do not fit beside the level's tables), the direct sum they
+# replaced forced at W 768 and 1000.
+WIENER_OFFCORE_SHAPES = (
+    ("W 768 split", 768, 256, W768_NF, "wiener_istft_split"),
+    ("W 1280 split", 1280, 320, W1280_NF, "wiener_istft_split"),
+    ("W 1000 Bluestein", 1000, 250, W1000_NF, "wiener_istft_bluestein"),
+    ("W 6000 Bluestein", 6000, 1500, W6000_NF, "wiener_istft_bluestein"),
+    ("W 8190 Bluestein frame pairs", 8190, 910, W8190_NF, "wiener_istft_bluestein"),
+    ("W 768 direct sum", 768, 256, W768_NF, "wiener_istft_direct"),
+    ("W 1000 direct sum", 1000, 250, W1000_NF, "wiener_istft_direct"),
+)
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -621,13 +644,13 @@ def child_decode_times(device, pair) -> dict:
 
 def child_other_times(device, gen) -> dict:
     """Device ms of the kernels whose rows had none: the Wiener+iSTFT kernel
-    (highres4096 and dsd100, phase 3's inputs; its direct sum at phase 7b's
-    W 768), the Wiener mask kernel (the
+    (highres4096 and dsd100, phase 3's inputs; the cluster, phase 3c's;
+    phase 7b's split, Bluestein and forced direct sum), the Wiener mask kernel (the
     dsd100 pallas route's shape), the band decode kernel (phase 11's shape,
     the prepared operand) and the fused adadelta kernel (phase 5's two
     leaves)."""
     import torch
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_direct_pallas, wiener_istft
     from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas
     from convsep_tpu_torch.models.decoder_band_cuda import band_decode_wmajor, band_operand
     from convsep_tpu_torch.train.fused_optim import fused_adadelta_leaf
@@ -664,10 +687,14 @@ def child_other_times(device, gen) -> dict:
         res[f"wiener_istft W {nfft}"] = profile_ms(
             lambda: wiener_istft(y, re, im, w, hop, L))["device_ms"]
         del y, re, im
-    # last: measured before the Wiener mask kernel, it left that kernel's
-    # profiler session with no device work recorded (device_ms None)
-    w, L, y, re, im = wiener_inputs(768, 256, W768_NF, 4, device, gen)
-    res["wiener_istft W 768"] = profile_ms(lambda: wiener_istft(y, re, im, w, 256, L))["device_ms"]
+    # last: measured before the Wiener mask kernel, the direct sum at W 768
+    # left that kernel's profiler session with no device work recorded
+    # (device_ms None)
+    for key, nfft, hop, nf, kernel in WIENER_OFFCORE_SHAPES:
+        fn = wiener_direct_pallas if kernel == "wiener_istft_direct" else wiener_istft
+        w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
+        res[f"wiener_istft {key}"] = profile_ms(lambda: fn(y, re, im, w, hop, L))["device_ms"]
+        del y, re, im
     return res
 
 
@@ -795,21 +822,29 @@ def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1,
 
 
 WIENER_NAMES = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster",
-                "wiener_istft_ny_cluster")
+                "wiener_istft_ny_cluster", "wiener_istft_split", "wiener_istft_ny_split",
+                "wiener_istft_bluestein", "wiener_istft_ny_bluestein", "wiener_istft_direct",
+                "wiener_istft_ny_direct")
 
 
 def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
                  B: int = 1, ydt: str = "bfloat16", kernel: str = "wiener_istft") -> dict:
     """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16,
     on B tracks at once (the stream path's batches); each call one launch
-    of ``kernel``. On a cluster (past 8192 points) also against the float64
-    synthesis of the same float32 masks (:func:`wiener64`) within
-    ``TOL_CLUSTER_F32`` × max|stem|."""
+    of ``kernel`` ("wiener_istft_direct": through ``wiener_direct_pallas``,
+    which forces the direct sum). On a cluster (past 8192 points) also
+    against the float64 synthesis of the same float32 masks
+    (:func:`wiener64`) within ``TOL_CLUSTER_F32`` × max|stem|."""
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda import fft_plan
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
+        wiener_direct_pallas,
+        wiener_istft,
+        wiener_istft_plain,
+    )
 
+    fn = wiener_direct_pallas if kernel == "wiener_istft_direct" else wiener_istft
     w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen, B, ydt)
     if B > 1:
         name = f"{name} B {B}"
@@ -817,7 +852,7 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
     for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
         for out in ("float32", "int16"):
             before = dict(kernels.LAUNCHES)
-            got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, **kw)
+            got = fn(y, re, im, w, hop, L, output_dtype=out, **kw)
             want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, **kw)
             torch.cuda.synchronize()
             moved = {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES}
@@ -846,16 +881,18 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
                 del ref
             if out == "float32":
                 worst = max(worst, e)
-    ms = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
+    ms = cuda_ms(lambda: fn(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
-    us = host_us(lambda: wiener_istft(y, re, im, w, hop, L))
-    plan = fft_plan.wiener_plan(B, S, nf, nfft, hop)
+    us = host_us(lambda: fn(y, re, im, w, hop, L))
+    plan = (fft_plan.wiener_direct_plan if kernel == "wiener_istft_direct"
+            else fft_plan.wiener_plan)(B, S, nf, nfft, hop)
     b = bound(y.element_size() * y.numel() + 8 * re.numel() + 4 * B * S * L,
               fft_flops(B * S * nf, nfft) + 4 * y.numel())
     log(f"  wiener {name} p=1 f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes it; "
-        f"wrapper host {us:.1f} us per call; plan: {plan.groups} groups x {plan.rounds} rounds, "
-        f"{plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
+        f"wrapper host {us:.1f} us per call; plan ({plan.route}"
+        f"{', frame pairs' if plan.frame_pairs else ''}): {plan.groups} groups x {plan.rounds} "
+        f"rounds, {plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
         f"{plan.smem_bytes} B shared memory")
     return {"max_abs_err": worst, "rel_err_float64": worst64, "ms": ms, "plain_ms": plain_ms,
             **b, "library_ms": None, "host_us": us, "B": B, "y": ydt,
@@ -908,9 +945,8 @@ def phase_wiener_cluster(device, gen) -> dict:
     "auto", the iSTFT kernel on a cluster). It fails if a plan in
     ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
     import torch
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_CLUSTER_WON, wiener_istft
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_CLUSTER_WON
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
-    from convsep_tpu_torch.dsp.dft import istft_wiener, resolve_istft, resolve_masked_synthesis
 
     res = {}
     for nfft, hop, nf in ((16384, 2048, W16384_NF), (32768, 4096, W32768_NF)):
@@ -927,22 +963,78 @@ def phase_wiener_cluster(device, gen) -> dict:
                               re[..., -1].contiguous())
         r["ny_max_abs_err"] = wiener_ny_check(key, w, hop, L, y, re_b, im_b, ny,
                                               "wiener_istft_ny_cluster")
-        # the A/B: what "auto" runs on these shapes without the kernel
-        chain = resolve_istft("auto", nfft, nfft, hop, device)
-        auto = resolve_masked_synthesis("auto", nfft, nfft, hop, 1.0, device)
-        r["chain_ms"] = cuda_ms(lambda: istft_wiener(y, re, im, w, hop, L, algorithm=chain))
-        r["ms_ab"] = cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))
-        r.update(chain=chain, auto_route=auto, won=r["ms_ab"] < r["chain_ms"])
-        log(f"  wiener {key} A/B: kernel {r['ms_ab']:.4f} ms against the masked chain "
-            f"(mask + {chain}) {r['chain_ms']:.4f} ms: {'won' if r['won'] else 'lost'}; "
-            f"\"auto\" takes {auto}")
-        if (nfft, hop) in WIENER_CLUSTER_WON and r["ms_ab"] > (1 + WIENER_SPREAD) * r["chain_ms"]:
-            raise AssertionError(f"\"auto\" takes the Wiener+iSTFT cluster at {key}, hop {hop}, "
-                                 f"where it lost: {r['ms_ab']} ms > {r['chain_ms']} ms")
-        if (auto == "ct_pallas_wiener") != ((nfft, hop) in WIENER_CLUSTER_WON):
-            raise AssertionError(f"\"auto\" at {key}: {auto}, WIENER_CLUSTER_WON says otherwise")
+        r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device, WIENER_CLUSTER_WON,
+                           "WIENER_CLUSTER_WON"))
         res[key] = r
         del y, re, im, re_b, im_b, ny
+        torch.cuda.empty_cache()
+    return res
+
+
+def wiener_ab(key: str, nfft: int, hop: int, w, L: int, y, re, im, device, won,
+              won_name: str) -> dict:
+    """The A/B that keys "auto": the Wiener+iSTFT kernel against the masked
+    chain "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
+    "auto"), p = 1, float32 out. It fails if "auto" disagrees with ``won``
+    (the frozenset named ``won_name``) or takes the kernel where it lost by
+    more than ``WIENER_SPREAD``."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft
+    from convsep_tpu_torch.dsp.dft import istft_wiener, resolve_istft, resolve_masked_synthesis
+
+    chain = resolve_istft("auto", nfft, nfft, hop, device)
+    auto = resolve_masked_synthesis("auto", nfft, nfft, hop, 1.0, device)
+    r = {"chain_ms": cuda_ms(lambda: istft_wiener(y, re, im, w, hop, L, algorithm=chain)),
+         "ms_ab": cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))}
+    r.update(chain=chain, auto_route=auto, won=r["ms_ab"] < r["chain_ms"])
+    log(f"  wiener {key} A/B: kernel {r['ms_ab']:.4f} ms against the masked chain "
+        f"(mask + {chain}) {r['chain_ms']:.4f} ms: {'won' if r['won'] else 'lost'}; "
+        f"\"auto\" takes {auto}")
+    if (nfft, hop) in won and r["ms_ab"] > (1 + WIENER_SPREAD) * r["chain_ms"]:
+        raise AssertionError(f"\"auto\" takes the Wiener+iSTFT at {key}, hop {hop}, where it "
+                             f"lost: {r['ms_ab']} ms > {r['chain_ms']} ms")
+    if (auto == "ct_pallas_wiener") != ((nfft, hop) in won):
+        raise AssertionError(f"\"auto\" at {key}: {auto}, {won_name} says otherwise")
+    return r
+
+
+def phase_wiener_offcore(device, gen) -> dict:
+    """The Wiener+iSTFT at even sizes up to 8192 that are not powers of two
+    (``WIENER_OFFCORE_SHAPES``: the split, Bluestein run backwards on the
+    core, on the level and with frame pairs, the direct sum forced), 4 stems
+    of a 30 s track, bf16 y, as phase 3 (one launch of the row's kernel a
+    call), beside ``torch.istft`` of the 4 masked spectra (the synthesis
+    alone); at the split's and Bluestein's rows the A/B against the masked
+    chain that keys "auto" (``WIENER_SPLIT_BLUESTEIN_WON``); the Nyquist-row
+    input at W 768 and at W 8190's frame pairs."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_SPLIT_BLUESTEIN_WON
+    from convsep_tpu_torch.models.masks import wiener_mask
+
+    res = {}
+    for key, nfft, hop, nf, kernel in WIENER_OFFCORE_SHAPES:
+        r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel=kernel)
+        w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
+        mask = wiener_mask(y, axis=-3)
+        spec = torch.complex(mask * re.unsqueeze(-3), mask * im.unsqueeze(-3))
+        spec = spec.reshape(-1, nf, nfft // 2 + 1).transpose(-1, -2)
+        wt = torch.from_numpy(w.astype(np.float32)).to(device)
+        r.update(library_ms=cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True,
+                                                        length=L)),
+                 library="torch.istft of the 4 masked spectra (the synthesis alone)")
+        log(f"  wiener {key}: torch.istft of the masked spectra {r['library_ms']:.4f} ms")
+        del mask, spec
+        if kernel != "wiener_istft_direct":
+            r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device,
+                               WIENER_SPLIT_BLUESTEIN_WON, "WIENER_SPLIT_BLUESTEIN_WON"))
+        if key in ("W 768 split", "W 8190 Bluestein frame pairs"):
+            re_b, im_b, ny = (re[..., :-1].contiguous(), im[..., :-1].contiguous(),
+                              re[..., -1].contiguous())
+            r["ny_max_abs_err"] = wiener_ny_check(key, w, hop, L, y, re_b, im_b, ny,
+                                                  kernel.replace("_istft", "_istft_ny"))
+            del re_b, im_b, ny
+        res[key] = r
+        del y, re, im
         torch.cuda.empty_cache()
     return res
 
@@ -3598,11 +3690,10 @@ def main(argv: list[str]) -> int:
         "the split at W 768, Bluestein at W 1000 and 6000, on a cluster at W 10 000 and 20 000, "
         "the direct sum forced at W 1000 and 10 000)")
     ist = phase_istft(device, gen)
-    log("phase 7b: the Wiener+iSTFT kernel's direct sum at W 768, hop 256 (4 stems, nf "
-        f"{W768_NF}), beside torch.istft of the same spectra (phase 7)")
-    wie768 = phase_wiener("W 768 direct sum", 768, 256, W768_NF, 4, device, gen)
-    wie768.update(library_ms=ist["W 768 split"]["library_ms"],
-                  library="torch.istft of the 4 masked spectra (the synthesis alone)")
+    log("phase 7b: the Wiener+iSTFT off the core (4 stems of a 30 s track): the split at W "
+        "768 and 1280, Bluestein at W 1000, 6000 (the level) and 8190, hop 910 (frame pairs), "
+        "the direct sum forced at W 768 and 1000, each beside the masked chain (the A/B)")
+    offcore = phase_wiener_offcore(device, gen)
     torch.cuda.empty_cache()
     log("phase 7c: the iSTFT at odd nfft (W 1001, 999 Bluestein; 9999, 39 999 on a cluster), "
         "against float64")
@@ -3662,8 +3753,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 14: device times (torch.profiler, in a child) of the fused decode at TM 120 "
-        "and 360, the Wiener+iSTFT (highres4096, dsd100, W 768), Wiener mask, band decode and "
-        "adadelta kernels")
+        "and 360, the Wiener+iSTFT (highres4096, dsd100, phase 7b's sizes off the core, the "
+        "cluster), Wiener mask, band decode and adadelta kernels")
     dev = device_times("decode,others")
     for key, r in (("TM 120", dec), ("TM 360", dec360)):
         d = dev["decode"][key]
@@ -3673,7 +3764,7 @@ def main(argv: list[str]) -> int:
             f"{r['f32_simt_bound_ms']:.3f} ms (float32 SIMT)")
     others = dev["others"]
     for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
-                    ("wiener_istft W 768", wie768),
+                    *((f"wiener_istft {key}", offcore[key]) for key, *_ in WIENER_OFFCORE_SHAPES),
                     ("wiener_istft W 16384", wie_cl["W 16384"]),
                     ("wiener_istft W 32768", wie_cl["W 32768"]),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
@@ -3757,12 +3848,14 @@ def main(argv: list[str]) -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     # every path's STFT and iSTFT runs on the FFT core: the split,
-    # Bluestein and its cluster (both directions, and the Wiener+iSTFT's and
-    # the forward STFT's clusters), the dense DFT and the direct sum serve
-    # only sizes that no preset uses
+    # Bluestein and its cluster (both directions, and the Wiener+iSTFT's
+    # split, Bluestein and cluster, and the forward STFT's), the dense DFT
+    # and the direct sums serve only sizes that no preset uses
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
                    "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
+                   "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
+                   "wiener_istft_ny_bluestein", "wiener_istft_direct", "wiener_istft_ny_direct",
                    "ct_stft_level", "ct_stft_cluster"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
@@ -3779,8 +3872,41 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
          **launched("wiener_istft"), **wie, "dsd100": wie_dsd, "batches": wie_batches,
-         "w768_direct": wie768,
          "ny": {**launched("wiener_istft_ny"), **wny}},
+        {"name": "wiener_istft_split", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_split.cu (device code wiener_common.cuh, "
+                   "launched by wiener_istft.cu::wiener_istft_launch)",
+         "entry": "wiener_split_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "nfft = m 2^a, m in 3, 5, 9, 15, 2^a >= 16, nfft <= 8192 (768, 1280, ...): "
+                   "the split run backwards, a pair of sources a block, the mask in the point "
+                   "loads; no preset",
+         **launched("wiener_istft_split"), **offcore["W 768 split"],
+         "w1280_hop320": offcore["W 1280 split"],
+         "ny": {**launched("wiener_istft_ny_split"),
+                "max_abs_err_768": offcore["W 768 split"]["ny_max_abs_err"]}},
+        {"name": "wiener_istft_bluestein", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_bluestein.cu (device code "
+                   "wiener_common.cuh, launched by wiener_istft.cu::wiener_istft_launch)",
+         "entry": "wiener_bluestein_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "the other even nfft <= 8192 (1000, 2000, 6000, 8190): Bluestein run "
+                   "backwards, a pair of sources a block (past 4096 on the 16 384-point level; "
+                   "frame pairs of one source where two carries do not fit), the mask in the "
+                   "point loads; no preset",
+         **launched("wiener_istft_bluestein"), **offcore["W 1000 Bluestein"],
+         "w6000_hop1500": offcore["W 6000 Bluestein"],
+         "w8190_hop910_frame_pairs": offcore["W 8190 Bluestein frame pairs"],
+         "ny": {**launched("wiener_istft_ny_bluestein"),
+                "max_abs_err_8190": offcore["W 8190 Bluestein frame pairs"]["ny_max_abs_err"]}},
+        {"name": "wiener_istft_direct", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_direct_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "no size of wiener_istft; wiener_direct_pallas forces it at any even nfft "
+                   "<= 8192 off the core (timed forced at W 768 and 1000, beside the split and "
+                   "Bluestein that replaced it); no preset",
+         **launched("wiener_istft_direct"), **offcore["W 768 direct sum"],
+         "forced_w1000": offcore["W 1000 direct sum"]},
         {"name": "wiener_istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",

@@ -1,7 +1,9 @@
 // The Wiener+iSTFT kernels' device code shared by csrc/wiener_istft.cu and
-// the host emulation (tests/cuda_host/wiener_cluster.cpp): the launch's
-// arguments, a block's place in the grid, the masked spectrum points
-// (masked_bin), a finished sample pair (store_pair) and the kernel on a
+// the host emulations (tests/cuda_host/wiener_cluster.cpp, wiener_split.cpp,
+// wiener_bluestein.cpp): the launch's arguments, a block's place in the
+// grid, the masked spectrum points (masked_bin), a finished sample pair
+// (store_pair), and the kernels on the mixed-radix split
+// (wiener_split_block), on Bluestein (wiener_bluestein_block) and on a
 // thread-block cluster (wiener_cluster_block). wiener_istft.cu's header
 // says what the kernels compute, what bounds them and how they are built.
 
@@ -78,6 +80,16 @@ __device__ __forceinline__ float4 masked_bin(const Args& a, const Place& pl, int
   if (a.conserve_last && pl.s0 + 1 == a.S - 1) yb += a.eps;
   const float ma = ya / d, mb = pl.has1 ? yb / d : 0.f;
   return make_float4(ma * mr, ma * mi, mb * mr, mb * mi);
+}
+
+// The place of block `index` of a grid of one source a block (S blocks a
+// row range; Bluestein's frame pairs): track n, source s0 and its first hop
+// row, with no second source.
+__device__ __forceinline__ Place place_source(const Args& a, int index) {
+  const int s = index % a.S;
+  const int rest = index / a.S;
+  const int n = rest / a.per_signal;
+  return {n, s, (rest - n * a.per_signal) * a.rows, false};
 }
 
 // A finished sample of sources s0 and s1 at hop row `row`, column u.
@@ -166,6 +178,233 @@ __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& 
       }
     }
     cluster_sync();  // the peers have read this round's buffers
+  }
+}
+
+// The two sources' overlap-add of one round of `frames` frames from fr on,
+// after a block barrier: frame fr + g's samples are sample(g, t) = N conj(a[t]
+// + i b[t]) (t < N, a for source s0, b for s1), and rows fr .. fr + frames +
+// k - 2 meet them; rows below fr + frames complete with the round, the k - 1
+// above carry on in carry0 and carry1 ((k - 1) hop floats each). A thread
+// owns columns u and sums, for each row, the carry and the round's frames in
+// ascending order (no atomics); rows in [j0, j_end) are written by
+// store_pair. wiener_bluestein_block uses it; wiener_fft_kernel and
+// wiener_split_block keep the same loop written out.
+template <class Sample>
+__device__ __forceinline__ void pair_gather(Sample sample, float* carry0, float* carry1,
+                                            const Args& a, const Place& pl, int N, int fr,
+                                            int frames, int j_end) {
+  const int hop = a.hop, k = N / hop;
+  for (int u = threadIdx.x; u < hop; u += blockDim.x) {
+    for (int i = 0; i < frames + k - 1; ++i) {
+      const int row = fr + i;
+      float v0 = i < k - 1 ? carry0[i * hop + u] : 0.f;
+      float v1 = i < k - 1 ? carry1[i * hop + u] : 0.f;
+      const int f_lo = max(fr, row - k + 1), f_hi = min(fr + frames - 1, row);
+      for (int f = f_lo; f <= f_hi; ++f) {
+        const int t = (row - f) * hop + u;
+        const float2 z = sample(f - fr, t);
+        const float w = __ldg(a.win_over_n + t);
+        v0 += w * z.x;
+        v1 += w * -z.y;
+      }
+      if (i >= frames) {
+        carry0[(i - frames) * hop + u] = v0;
+        carry1[(i - frames) * hop + u] = v1;
+      } else if (row >= pl.j0 && row < j_end) {
+        store_pair(a, pl, row, u, N, v0, v1);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of a Wiener split block of `groups` groups: the P-
+// and N-point quarter tables, one N-point exchange buffer a group, the two
+// sources' carries of (N/hop - 1) hop rows.
+inline size_t wiener_split_smem_bytes(int log2p, int m, int hop, int groups) {
+  const int n = m << log2p;
+  return ((size_t)twiddle_len(log2p) + (size_t)quarter_len(n) +
+          (size_t)groups * split_exchange_len(n)) * sizeof(float2) +
+         (size_t)2 * (n - hop) * sizeof(float);
+}
+
+// The Wiener+iSTFT for N = M 2^LOG2P (M 3, 5, 9, 15; the split's sizes up to
+// 8192): istft_split_block with two changes.
+// * The points. Block index (place) is one pair of sources (s0, s0 + 1) and
+//   R hop rows of one track; a round's group g transforms frame fr + g of
+//   the pair, Z = A + i B with A and B the masked spectra of s0 and s1, each
+//   thread loading its points at the split's stride straight from y and the
+//   mixture through masked_bin (split_inverse_points): no masked spectrum,
+//   denominator or mask reaches shared or device memory.
+// * The gather. Two carries of (k - 1) hop rows, one a source; frame f's
+//   sample t, N conj(a[t] + i b[t]), lies in hop row f + t / hop, its real
+//   part goes to s0 and its imaginary part, negated, to s1; each sample sums
+//   its N/hop frames in ascending order, with no atomics; written by
+//   store_pair. pair_gather's loop written out: through a helper ptxas gave
+//   some of the split's instances larger stack frames (istft_split_block).
+// The groups share warps (M is odd), so split_run synchronizes the block;
+// every thread runs every round (a frame outside [0, nf) loads zeros).
+// a.tw is the P-point quarter table, tw_n the N-point one; smem4 the block's
+// dynamic shared memory (wiener_split_smem_bytes).
+template <int LOG2P, int M>
+__device__ __forceinline__ void wiener_split_block(float4* smem4, const Args& a,
+                                                   const float2* __restrict__ tw_n, int rounds) {
+  constexpr int P = 1 << LOG2P;
+  constexpr int N = M * P;
+  constexpr int T = N / kPoints;  // threads of one transform
+  constexpr int E = split_exchange_len(N);
+  const int groups = blockDim.x / T;
+  const int group = threadIdx.x / T;
+  const int jj = threadIdx.x - group * T;
+  const int hop = a.hop;
+  const int k = N / hop;  // frames that overlap one hop row
+  float2* twp = reinterpret_cast<float2*>(smem4);
+  float2* twn = twp + twiddle_len(LOG2P);
+  float2* bufs = twn + quarter_len(N);
+  float* carry0 = reinterpret_cast<float*>(bufs + groups * E);  // (k - 1) hop
+  float* carry1 = carry0 + (k - 1) * hop;
+  const Place pl = place(a, blockIdx.x);
+  const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
+
+  for (int i = threadIdx.x; i < P / 4; i += blockDim.x) twp[slot(i)] = __ldg(a.tw + i);
+  for (int i = threadIdx.x; i < N / 4; i += blockDim.x) twn[slot(i)] = __ldg(tw_n + i);
+  for (int i = threadIdx.x; i < 2 * (k - 1) * hop; i += blockDim.x) carry0[i] = 0.f;
+  __syncthreads();
+
+  float2* buf = bufs + group * E;
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = pl.j0 - (k - 1) + r * groups;  // first frame of the round
+    const int f = fr + group;
+    const bool live = f >= 0 && f < a.nf;
+    float2 v[kPoints];
+    split_inverse_points<LOG2P, M>(v, jj, [&](int kk, bool edge) {
+      return live ? masked_bin(a, pl, N, f, kk, edge) : make_float4(0.f, 0.f, 0.f, 0.f);
+    });
+    split_run<LOG2P, M>(v, buf, twp, twn, jj, group);  // ends in a block barrier
+    for (int u = threadIdx.x; u < hop; u += blockDim.x) {
+      for (int i = 0; i < groups + k - 1; ++i) {
+        const int row = fr + i;
+        float v0 = i < k - 1 ? carry0[i * hop + u] : 0.f;
+        float v1 = i < k - 1 ? carry1[i * hop + u] : 0.f;
+        const int f_lo = max(fr, row - k + 1), f_hi = min(fr + groups - 1, row);
+        for (int ff = f_lo; ff <= f_hi; ++ff) {
+          const int t = (row - ff) * hop + u;
+          const float2 z = bufs[(ff - fr) * E + slot(t)];
+          const float w = __ldg(a.win_over_n + t);
+          v0 += w * z.x;
+          v1 += w * -z.y;
+        }
+        if (i >= groups) {
+          carry0[(i - groups) * hop + u] = v0;
+          carry1[(i - groups) * hop + u] = v1;
+        } else if (row >= pl.j0 && row < j_end) {
+          store_pair(a, pl, row, u, N, v0, v1);
+        }
+      }
+    }
+    __syncthreads();  // the buffers are read; the next round's first pass rewrites them
+  }
+}
+
+// Dynamic shared memory of a Wiener Bluestein block of `groups` groups: the
+// tables, one M-point exchange buffer a group, `carries` carries (two: a
+// pair of sources; one: a pair of frames) of (N/hop - 1) hop rows.
+inline size_t wiener_bluestein_smem_bytes(int log2m, int n, int hop, int groups, int carries) {
+  return ((size_t)bluestein_tables_len(log2m) + (size_t)groups * exchange_len(log2m)) *
+             sizeof(float2) +
+         (size_t)carries * (n - hop) * sizeof(float);
+}
+
+// The Wiener+iSTFT at the other even N <= 8192 (M = 2^LOG2M, on the core up
+// to 8192, on the 16 384-point level past N 4096): istft_bluestein_block
+// with the same two changes as wiener_split_block. Chirp::convolve's point
+// t < N is inverse_point over masked_bin (the mirrored bin past Nyquist)
+// times chirp[t]; then the in-place chirp[t] conj pass leaves N conj(a[t] +
+// i b[t]) at at(t) for t < N.
+// * kFramePairs false: block index (place) is a pair of sources and R hop
+//   rows; a round's group g transforms frame fr + g of the pair; the two
+//   sources' carries (pair_gather).
+// * kFramePairs true (the level where two carries do not fit beside its
+//   191 488 bytes: (N/hop - 1) hop > 5120 floats, as N 8190, hop 910): block
+//   index (place_source) is one source and R hop rows, and a group
+//   transforms frames fr + 2g and fr + 2g + 1 of it, as istft_bluestein_block
+//   pairs them: A and B the masked spectra of the two frames, each block
+//   forming its frames' denominators again (the other sources' blocks read
+//   the same y from L2); one carry (gather_round, the stem as its signal).
+// Every thread runs every round and every barrier (a frame outside [0, nf)
+// loads zeros). a.tw is the M-point quarter table, chirp (N) and chat (M)
+// fft_plan.bluestein_tables; smem4 the block's dynamic shared memory
+// (wiener_bluestein_smem_bytes).
+template <int LOG2M, bool kBlockSync, bool kFramePairs>
+__device__ __forceinline__ void wiener_bluestein_block(float4* smem4, const Args& a,
+                                                       const float2* __restrict__ chirp,
+                                                       const float2* __restrict__ chat, int N,
+                                                       int rounds) {
+  using C = Chirp<LOG2M, kBlockSync>;
+  const int groups = blockDim.x / C::T;
+  const int group = threadIdx.x / C::T;
+  const int j = threadIdx.x - group * C::T;
+  const int hop = a.hop;
+  const int k = N / hop;  // frames that overlap one hop row
+  const int frames = kFramePairs ? 2 * groups : groups;  // a round's
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* bufs = tws + C::TABLES;
+  float* carry0 = reinterpret_cast<float*>(bufs + groups * C::E);  // (k - 1) hop
+  float* carry1 = carry0 + (k - 1) * hop;                           // source pairs only
+  const Place pl = kFramePairs ? place_source(a, blockIdx.x) : place(a, blockIdx.x);
+  const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
+
+  C::load_tables(tws, a.tw);
+  for (int i = threadIdx.x; i < (kFramePairs ? 1 : 2) * (k - 1) * hop; i += blockDim.x)
+    carry0[i] = 0.f;
+  __syncthreads();
+
+  float2* buf = bufs + group * C::E;
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = pl.j0 - (k - 1) + r * frames;  // first frame of the round
+    if constexpr (kFramePairs) {
+      const int fa = fr + 2 * group, fb = fa + 1;
+      const bool ha = fa >= 0 && fa < a.nf, hb = fb >= 0 && fb < a.nf;
+      C::convolve(
+          [&](int t) {
+            if (t >= N) return make_float2(0.f, 0.f);
+            const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+              const float4 p = ha ? masked_bin(a, pl, N, fa, kk, edge)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+              const float4 q = hb ? masked_bin(a, pl, N, fb, kk, edge)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+              return make_float4(p.x, p.y, q.x, q.y);
+            });
+            return cmul(z, __ldg(chirp + t));
+          },
+          buf, tws, chat, j, group);
+    } else {
+      const int f = fr + group;
+      const bool live = f >= 0 && f < a.nf;
+      C::convolve(
+          [&](int t) {
+            if (t >= N || !live) return make_float2(0.f, 0.f);
+            const float2 z = inverse_point(t, N, [&](int kk, bool edge) {
+              return masked_bin(a, pl, N, f, kk, edge);
+            });
+            return cmul(z, __ldg(chirp + t));
+          },
+          buf, tws, chat, j, group);
+    }
+    for (int t = j; t < N; t += C::T) {  // each thread its own points: in place
+      const float2 z = buf[C::at(t)];
+      buf[C::at(t)] = cmul(__ldg(chirp + t), make_float2(z.x, -z.y));
+    }
+    __syncthreads();  // every group's frames are in its buffer
+    if constexpr (kFramePairs) {
+      gather_round([&](int g, int t) { return bufs[g * C::E + C::at(t)]; }, carry0,
+                   a.win_over_n, a.inv_norm, a.out, a.out_int16, pl.n * a.S + pl.s0, fr,
+                   frames, k, hop, pl.j0, j_end, a.length);
+    } else {
+      pair_gather([&](int g, int t) { return bufs[g * C::E + C::at(t)]; }, carry0, carry1, a,
+                  pl, N, fr, frames, j_end);
+    }
+    __syncthreads();  // the buffers are read; the next round's first pass rewrites them
   }
 }
 

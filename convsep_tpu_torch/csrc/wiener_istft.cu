@@ -56,20 +56,52 @@
 // (648 frames, f32 y) its bound is bytes: 85 MB of y, 42 MB of mixture and
 // 21 MB of stems, 0.044 ms.
 //
-// Other even sizes in [16, 8192] take a direct O(N) sum per output sample in
-// one 512-thread block per pair and row range (no preset uses one), with the
-// host's float64-made table of e^{-2 pi i m / N}.
+// The split's sizes, N = m 2^a (m 3, 5, 9, 15, 2^a >= 16, N <= 8192: 768,
+// 1280, 1536, 2304, 3072, ...; wiener_split.cu::wiener_split_kernel,
+// wiener_common.cuh::wiener_split_block; no preset uses one): istft.cu's istft_split_kernel
+// with the mask in the point loads, a group one frame of a pair of sources,
+// the two sources' carries. At W 768, hop 256, 4 stems of a 30 s track
+// (5170 frames, bf16 y) its bound is bytes: 16 MB of y, 16 MB of mixture
+// and 21 MB of stems, 0.0158 ms.
+//
+// The other even sizes up to 8192 (1000, 2000, 6000, 8190, ...;
+// wiener_bluestein.cu::wiener_bluestein_kernel, wiener_common.cuh::
+// wiener_bluestein_block; no preset uses one): istft.cu's istft_bluestein_kernel (Bluestein run
+// backwards, on the core up to M 8192 and past N 4096 on the 16 384-point
+// level) with the mask in the point loads, a pair of sources a block. The
+// level's tables and exchange take 191 488 bytes, so where the two
+// sources' carries do not fit beside them ((N/hop - 1) hop > 5120 floats:
+// N 8190, hop 910) a block takes one source and a group a pair of its
+// frames, with one carry.
+//
+// wiener_direct_kernel, a direct O(N) sum per output sample in one
+// 512-thread block per pair and row range with the host's float64-made
+// table of e^{-2 pi i m / N}, served the sizes off the core before the split
+// and Bluestein did; it serves none now, and wiener_direct_pallas forces it
+// at any even size up to 8192 that is not a power of two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wiener_common.cuh"
 
+namespace wiener {
+// The split's and Bluestein's instances live in translation units of their
+// own (wiener_split.cu, wiener_bluestein.cu), which nvcc builds beside this
+// one: in one file their 37 instances kept the build past 100 s.
+cudaError_t launch_split(int m, int log2p, const Args& a, const float2* tw_n, unsigned blocks,
+                         int groups, int rounds, cudaStream_t stream);
+cudaError_t launch_bluestein(int log2m, bool frame_pairs, const Args& a, const float2* chirp,
+                             const float2* chat, int nfft, unsigned blocks, int groups,
+                             int rounds, cudaStream_t stream);
+}  // namespace wiener
+
 namespace {
 
 using namespace wiener;
 
 constexpr int kDirectThreads = 512;
+constexpr size_t kSmemMax = 227 * 1024;  // dynamic shared memory a block may use
 
 template <int LOG2N>
 __global__ void __launch_bounds__(kMaxThreads) wiener_fft_kernel(Args a, int rounds) {
@@ -130,7 +162,7 @@ __global__ void __launch_bounds__(kMaxThreads) wiener_fft_kernel(Args a, int rou
   }
 }
 
-// N even but not a power of two in [16, 8192]: z[t] = sum_k Z[k]
+// N even but not a power of two in [16, 8192], forced: z[t] = sum_k Z[k]
 // e^{+2 pi i k t / N} per sample, one frame of the pair at a time, summed
 // in shared memory over the block's R hop rows.
 __global__ void __launch_bounds__(kDirectThreads) wiener_direct_kernel(Args a, int N) {
@@ -217,15 +249,22 @@ cudaError_t launch_wiener_cluster(const Args& a, const float2* chirp, const floa
 
 }  // namespace
 
-// tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
-// [16, 8192], else the full table e^{-2 pi i m / nfft} (fft_plan.dft_table).
-// groups, rounds: fft_plan.wiener_plan (groups = 0: the direct sum, with
-// rounds hop rows per block).
+// Routes by nfft: powers of two in [16, 8192] to wiener_fft_kernel (tw the
+// quarter twiddle table, fft_plan.twiddles); the split's sizes to
+// wiener_split_kernel (tw the 2^a-point quarter table, tw_n the nfft-point
+// one); the other even sizes up to 8192 to wiener_bluestein_kernel (tw the
+// M-point quarter table, chirp (nfft) and chat (M) from
+// fft_plan.bluestein_tables; frame pairs on the level where the two carries
+// do not fit). groups, rounds: fft_plan.wiener_plan. groups = 0 forces the
+// direct sum at any even size up to 8192 off the core (tw the full table
+// e^{-2 pi i m / nfft}, fft_plan.dft_table; rounds its hop rows per block).
+// Pointers a route does not read may be null.
 extern "C" int wiener_istft_launch(
     const void* y, int y_bf16, const void* re, const void* im, const void* ny,
-    const void* win_over_n, const void* inv_norm, const void* tw, void* out, int out_int16,
-    int nt, int S, int nf, int nfft, int hop, int length, int groups, int rounds, int p2,
-    float eps, int conserve_last, void* stream) {
+    const void* win_over_n, const void* inv_norm, const void* tw, const void* tw_n,
+    const void* chirp, const void* chat, void* out, int out_int16, int nt, int S, int nf,
+    int nfft, int hop, int length, int groups, int rounds, int p2, float eps, int conserve_last,
+    void* stream) {
   if (nfft < 16 || nfft > 8192 || nfft % 2 != 0 || hop < 1 || nfft % hop != 0 || nt < 1 ||
       S < 1 || nf < 1 || rounds < 1 || groups < 0)
     return (int)cudaErrorInvalidValue;
@@ -248,7 +287,35 @@ extern "C" int wiener_istft_launch(
                            smem, s>>>(a, nfft);
     return (int)cudaGetLastError();
   }
-  if (!log2n || groups * fft_threads(log2n) > kMaxThreads ||
+  int m, log2p;
+  if (split_sizes(nfft, &m, &log2p)) {
+    const int threads = groups * (nfft / kPoints);
+    if (threads > kMaxThreads || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+    a.rows = groups * rounds - (k - 1);
+    if (a.rows < 1) return (int)cudaErrorInvalidValue;
+    a.per_signal = (nf + k - 1 + a.rows - 1) / a.rows;
+    const unsigned blocks = (unsigned)((long long)nt * a.per_signal * a.pairs);
+    return (int)launch_split(m, log2p, a, static_cast<const float2*>(tw_n), blocks, groups,
+                             rounds, s);
+  }
+  if (!log2n) {  // Bluestein
+    const int log2m = bluestein_log2(nfft);
+    const int t = bluestein_threads(log2m);
+    if (log2m > kLevelLog2 || groups * t > kMaxThreads || groups * t % 32 != 0 ||
+        (t > 32 && groups > 8))
+      return (int)cudaErrorInvalidValue;
+    const bool frame_pairs = log2m == kLevelLog2 &&
+                             wiener_bluestein_smem_bytes(log2m, nfft, hop, groups, 2) > kSmemMax;
+    a.rows = (frame_pairs ? 2 : 1) * groups * rounds - (k - 1);
+    if (a.rows < 1) return (int)cudaErrorInvalidValue;
+    a.per_signal = (nf + k - 1 + a.rows - 1) / a.rows;
+    const unsigned blocks =
+        (unsigned)((long long)nt * a.per_signal * (frame_pairs ? S : a.pairs));
+    return (int)launch_bluestein(log2m, frame_pairs, a, static_cast<const float2*>(chirp),
+                                 static_cast<const float2*>(chat), nfft, blocks, groups, rounds,
+                                 s);
+  }
+  if (groups * fft_threads(log2n) > kMaxThreads ||
       groups * fft_threads(log2n) % 32 != 0 || (fft_threads(log2n) > 32 && groups > 8))
     return (int)cudaErrorInvalidValue;
   a.rows = groups * rounds - (k - 1);
@@ -263,7 +330,6 @@ extern "C" int wiener_istft_launch(
 #undef CASE
   }
 }
-
 
 // The cluster route: even 8192 < nfft <= 32 768 (Bluestein's M = 32 768 or
 // 65 536: a cluster of 4 or 8 blocks of 512 threads a pair of sources, one

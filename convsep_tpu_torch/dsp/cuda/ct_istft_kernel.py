@@ -9,10 +9,16 @@ wrappers and plain versions.
   it, so the masked spectra never reach device memory; its header says what
   bounds it on the H100 and how the design follows. Like the reference
   (``has_ny``) it also takes the mixture as the forward STFT kernel's
-  Nyquist-separate pair. Past 8192 points, up to the reference's 32 768,
-  the same kernel runs Bluestein backwards on a thread-block cluster
-  (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_plan`),
-  counted as ``wiener_istft_cluster`` (``wiener_istft_ny_cluster``).
+  Nyquist-separate pair. At the sizes up to 8192 that are not powers of
+  two it runs on the core's mixed-radix split (m · 2^a, counted as
+  ``wiener_istft_split``) or on Bluestein run backwards (the other even
+  sizes, ``wiener_istft_bluestein``); past 8192, up to the reference's
+  32 768, Bluestein backwards on a thread-block cluster
+  (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_plan`,
+  ``wiener_istft_cluster``); with ``ny`` each counts as ``wiener_istft_ny``,
+  ``wiener_istft_ny_split``, and so on. :func:`wiener_direct_pallas` forces
+  the direct sum per sample that served the sizes off the core before
+  (``wiener_istft_direct``), to hold and time it.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -37,8 +43,10 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_tables,
     dft_table,
     fft_supported,
+    split_factors,
     synthesis_tables,
     twiddles,
+    wiener_direct_plan,
     wiener_plan,
 )
 from convsep_tpu_torch.dsp.cuda.istft_kernel import check_frames, istft_supported, launch_istft
@@ -52,6 +60,11 @@ _LANES = 128  # the reference kernel's lane-width factor of nfft
 # on an H100 (chip_smoke.py phase 3c, PERF.md row 1″): "auto" takes the
 # kernel past 8192 only there, as FUSED_DECODE_WON keys the decode.
 WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset()
+# The same for the split's and Bluestein's (nfft, hop) up to 8192 (chip_smoke.py
+# phase 7b, 4 stems of a 30 s track, PERF.md row 1′): each won, by 3.8-8.7x on an
+# H100 80GB HBM3 at 700 W.
+WIENER_SPLIT_BLUESTEIN_WON: frozenset[tuple[int, int]] = frozenset(
+    {(768, 256), (1280, 320), (1000, 250), (6000, 1500), (8190, 910)})
 
 
 def ct_pallas_supported(nfft: int, win_len: int, hop: int) -> bool:
@@ -118,10 +131,10 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     ``nfft % hop == 0``, and a launch plan within shared memory
     (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_plan`; a block
     holds two sources, so their number does not bound it). Powers of two up
-    to 8192 (every preset) run on the FFT core, other even sizes up to 8192
-    a direct sum per sample, even sizes past 8192 Bluestein run backwards
-    on a thread-block cluster. It holds every shape of the reference's
-    :func:`ct_pallas_supported`."""
+    to 8192 (every preset) run on the FFT core, m · 2^a on its split, the
+    other even sizes up to 8192 on Bluestein run backwards, even sizes past
+    8192 Bluestein run backwards on a thread-block cluster. It holds every
+    shape of the reference's :func:`ct_pallas_supported`."""
     if not (win_len == nfft and 16 <= nfft <= WIENER_CLUSTER_NFFT and nfft % 2 == 0 and hop > 0
             and nfft % hop == 0):
         return False
@@ -135,12 +148,14 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
 def wiener_auto_supported(nfft: int, win_len: int, hop: int) -> bool:
     """Where :func:`istft_wiener`'s "auto" takes the kernel: inside
     :func:`wiener_istft_supported`, on the FFT core (powers of two up to
-    8192) or at a cluster plan that won its A/B (``WIENER_CLUSTER_WON``).
-    The direct sum of the other even sizes up to 8192 lost its A/B to the
-    plain chain (PERF.md row 1′) and stays only selectable
-    (``masked_synthesis="ct_pallas_wiener"``)."""
+    8192), or at a split, Bluestein or cluster plan that won its A/B against
+    the masked chain (``WIENER_SPLIT_BLUESTEIN_WON``, ``WIENER_CLUSTER_WON``);
+    elsewhere ``masked_synthesis="ct_pallas_wiener"`` still reaches the
+    kernel. Never the direct sum, which only :func:`wiener_direct_pallas`
+    runs."""
     return wiener_istft_supported(nfft, win_len, hop) and (
-        fft_supported(nfft) or (nfft, hop) in WIENER_CLUSTER_WON)
+        fft_supported(nfft) or (nfft, hop) in WIENER_SPLIT_BLUESTEIN_WON
+        or (nfft, hop) in WIENER_CLUSTER_WON)
 
 
 def wiener_istft_plain(
@@ -199,10 +214,39 @@ def wiener_istft(
     kernel's (..., nf, nfft/2) bodies (:func:`~convsep_tpu_torch.dsp.cuda.
     ct_stft_kernel.stft_ct_pallas`); y still has nfft/2 + 1 bins. The
     kernel reads it in place of a concatenated spectrum and counts under
-    ``wiener_istft_ny``; past 8192 points the kernel counts under
-    ``wiener_istft_cluster`` (``wiener_istft_ny_cluster``).
+    ``wiener_istft_ny``; off the core the kernel counts under
+    ``wiener_istft_split``, ``wiener_istft_bluestein`` or
+    ``wiener_istft_cluster`` (``wiener_istft_ny_split``, and so on).
 
     CPU tensors: :func:`wiener_istft_plain`. CUDA tensors: the kernel."""
+    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
+                   direct=False)
+
+
+def wiener_direct_pallas(
+    y: torch.Tensor,
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    p: float = 1.0,
+    eps: float = 1e-8,
+    conserve_last: bool = False,
+    output_dtype: str = "float32",
+    ny: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`wiener_istft` through the direct sum per sample at any even
+    nfft up to 8192 that is not a power of two (CUDA tensors, counted as
+    ``wiener_istft_direct``), so that it can be held to the plain version
+    and timed beside the split and Bluestein kernels that replaced it. CPU
+    tensors: the plain version."""
+    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
+                   direct=True)
+
+
+def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
+            direct: bool):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     has_ny = ny is not None
@@ -246,6 +290,7 @@ def wiener_istft(
         raise ValueError("re/im (and ny) must be float32")
     nf = int(re.shape[-2])
     nt = math.prod(lead)
+    plan = (wiener_direct_plan if direct else wiener_plan)(nt, S, nf, nfft, hop)
     dev = y.device
     where = str(dev)
     y4 = y.reshape(nt, S, nf, bins).contiguous()
@@ -253,32 +298,42 @@ def wiener_istft(
     im3 = im.reshape(nt, nf, -1).contiguous()
     ny2 = ny.reshape(nt, nf).contiguous() if has_ny else None
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
-    plan = wiener_plan(nt, S, nf, nfft, hop)
     out_dt = torch.int16 if output_dtype == "int16" else torch.float32
     out = torch.empty((nt, S, length), dtype=out_dt, device=dev)
     lib = kernels.library()
     args = (y4.data_ptr(), int(y4.dtype == torch.bfloat16), re3.data_ptr(), im3.data_ptr(),
             ny2.data_ptr() if has_ny else None, win_n.data_ptr(), inv_norm.data_ptr())
+    tw, tw_n, chirp, chat = (t.data_ptr() if t is not None else None
+                             for t in _tables(plan.route, nfft, where))
+    tail = (int(p == 2.0), ctypes.c_float(eps), int(conserve_last))
     with kernels.on_device(dev):
         stream = torch.cuda.current_stream(dev.index).cuda_stream
-        if plan.cluster > 1:
-            chirp, chat = bluestein_tables(nfft, where)
+        if plan.route == "cluster":
             code = lib.wiener_cluster_launch(
-                *args, twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
-                chat.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf, nfft,
-                int(hop), int(length), plan.rounds, int(p == 2.0), ctypes.c_float(eps),
-                int(conserve_last), None, stream,
+                *args, tw, chirp, chat, out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
+                nfft, int(hop), int(length), plan.rounds, *tail, None, stream,
             )
         else:
-            tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
             code = lib.wiener_istft_launch(
-                *args, tw.data_ptr(), out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
-                nfft, int(hop), int(length), plan.groups,
-                plan.rounds if plan.groups else plan.rows, int(p == 2.0), ctypes.c_float(eps),
-                int(conserve_last), stream,
+                *args, tw, tw_n, chirp, chat, out.data_ptr(), int(out_dt == torch.int16), nt, S,
+                nf, nfft, int(hop), int(length), plan.groups,
+                plan.rounds if plan.groups else plan.rows, *tail, stream,
             )
     name = ("wiener_istft_ny" if has_ny else "wiener_istft") + (
-        "_cluster" if plan.cluster > 1 else "")
+        "" if plan.route == "fft" else "_" + plan.route)
     kernels.check(code, name)
     kernels.LAUNCHES[name] += 1
     return out.reshape(*lead, S, length)
+
+
+def _tables(route: str, nfft: int, where: str) -> tuple:
+    """The tables a route's launch reads, (tw, tw_n, chirp, chat), None where
+    it reads none: the quarter twiddle table of nfft on the core, of 2^a and
+    nfft on the split, of Bluestein's M beside the chirp tables on Bluestein
+    and the cluster; the full e^{−2πi m/N} table for the direct sum."""
+    if route in ("bluestein", "cluster"):
+        chirp, chat = bluestein_tables(nfft, where)
+        return twiddles(bluestein_size(nfft), where), None, chirp, chat
+    if route == "split":
+        return twiddles(split_factors(nfft)[1], where), twiddles(nfft, where), None, None
+    return twiddles(nfft, where) if route == "fft" else dft_table(nfft, where), None, None, None

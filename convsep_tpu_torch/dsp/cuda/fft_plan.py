@@ -45,8 +45,10 @@ past 65 536 on the second level run backwards (:func:`level2_plan`);
 :func:`istft_plan` sizes all five. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
-sizes it, past 8192 on the cluster run backwards (:func:`wiener_cluster_plan`,
-up to :data:`WIENER_CLUSTER_NFFT`, the reference kernel's largest size).
+sizes it on the core, the split and Bluestein, past 8192 on the cluster run
+backwards (:func:`wiener_cluster_plan`, up to :data:`WIENER_CLUSTER_NFFT`,
+the reference kernel's largest size); :func:`wiener_direct_plan` sizes its
+direct sum, which only a forced call runs.
 """
 
 from __future__ import annotations
@@ -559,6 +561,25 @@ def wiener_smem_bytes(nfft: int, hop: int, groups: int) -> int:
             + 8 * (nfft // hop - 1) * hop)
 
 
+def wiener_split_smem_bytes(nfft: int, hop: int, groups: int) -> int:
+    """The split's (``wiener_common.cuh::wiener_split_smem_bytes``): the
+    P-point and nfft-point quarter tables, one nfft-point exchange buffer
+    per group, the two sources' carries."""
+    _, p = split_factors(nfft)
+    return (8 * (twiddle_entries(p) + twiddle_entries(nfft) + groups * exchange_entries(nfft))
+            + 8 * (nfft - hop))
+
+
+def wiener_bluestein_smem_bytes(nfft: int, hop: int, groups: int, carries: int) -> int:
+    """Bluestein's (``wiener_common.cuh::wiener_bluestein_smem_bytes``): the
+    tables at M = :func:`bluestein_size`, one M-point exchange buffer per
+    group, ``carries`` carries of nfft/hop − 1 hop rows (two for a pair of
+    sources, one for a pair of frames)."""
+    m = bluestein_size(nfft)
+    return (8 * (bluestein_table_entries(m) + groups * exchange_entries(m))
+            + 4 * carries * (nfft - hop))
+
+
 def wiener_direct_smem_bytes(nfft: int, hop: int, rows: int) -> int:
     """The direct sum's: the e^{−2πi m/N} table, the spectrum, two sources'
     accumulators of ``rows`` hop rows."""
@@ -568,11 +589,11 @@ def wiener_direct_smem_bytes(nfft: int, hop: int, rows: int) -> int:
 @dataclass(frozen=True)
 class WienerPlan:
     nfft: int
-    groups: int           # FFT groups per block (one frame each); 0: the direct sum
+    groups: int           # FFT groups per block (a frame each, two with frame_pairs); 0: direct
     threads: int          # per block
     rounds: int           # rounds of ``groups`` frames per block (1 for the direct sum)
     rows: int             # hop rows a block owns
-    pairs: int            # blocks per row range: one pair of sources each
+    pairs: int            # blocks per row range: a pair of sources each (a source: frame_pairs)
     blocks_per_signal: int  # row ranges per track
     blocks: int
     smem_bytes: int
@@ -580,6 +601,8 @@ class WienerPlan:
     waves: int            # blocks over blocks_per_sm · SMS, rounded up
     halo: float           # recomputed share of the transforms: (nfft/hop − 1) / rows
     cluster: int = 1      # blocks of a cluster that share one transform (1: none)
+    route: str = "fft"    # the kernel: fft, split, bluestein, cluster or direct
+    frame_pairs: bool = False  # Bluestein on the level: a block one source, a group two frames
 
 
 @lru_cache(maxsize=64)
@@ -587,55 +610,97 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     """The Wiener+iSTFT kernel's launch, as ``csrc/wiener_istft.cu::
     wiener_istft_launch`` computes it. A block owns one pair of sources
     (ceil(S/2) blocks per row range) and R hop rows, transformed in rounds
-    of G frames (R = G·rounds − (k − 1), k = nfft/hop). Powers of two: over
-    G (a power of two, whole warps, at most 8 named-barrier groups, 512
-    threads, within shared memory) and rounds (R >= 1, up to one row range
-    a track or ``MAX_ROUNDS``), the plan with the least waves × rounds, each
-    SM holding as many blocks as shared memory, threads and
-    ``REGS_PER_THREAD`` registers allow; ties go to fewer transforms, then
-    more groups. Even sizes past 8192: :func:`wiener_cluster_plan`. Other
-    sizes: the direct sum, up to 16 hop rows per block."""
+    of G frames (R = G·rounds − (k − 1), k = nfft/hop). Powers of two (the
+    core, ``route`` "fft"): over G (a power of two, whole warps, at most 8
+    named-barrier groups, 512 threads, within shared memory) and rounds (R
+    >= 1, up to one row range a track or ``MAX_ROUNDS``), the plan with the
+    least waves × rounds, each SM holding as many blocks as shared memory,
+    threads and ``REGS_PER_THREAD`` registers allow; ties go to fewer
+    transforms, then more groups. The split's sizes ("split") and the other
+    even sizes up to 8192 ("bluestein"): G as :func:`istft_plan` takes it
+    for the split and for Bluestein (the fewest groups that make the block
+    whole warps; one 512-thread group on the level), the rounds by the same
+    rule. On the level, where the two sources' carries do not fit beside
+    its tables and exchange buffer, a block takes one source (S blocks per
+    row range) and a group two of its frames a round (``frame_pairs``, R =
+    2G·rounds − (k − 1)). Even sizes past 8192: :func:`wiener_cluster_plan`.
+    The direct sum is only forced (:func:`wiener_direct_plan`)."""
     if MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT:
         return wiener_cluster_plan(signals, S, nf, nfft, hop)
+    if nfft % 2 or not MIN_NFFT <= nfft <= MAX_NFFT or hop < 1 or nfft % hop:
+        raise ValueError(f"no Wiener+iSTFT plan for nfft={nfft} hop={hop}: even, {MIN_NFFT} to "
+                         f"{WIENER_CLUSTER_NFFT}, a multiple of the hop")
     k = nfft // hop
-    pairs = -(-S // 2)
     total_rows = nf + k - 1
-    if not fft_supported(nfft):
-        rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (8 * hop))
-        if rows < 1:
-            raise ValueError(f"no Wiener+iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
-        smem = wiener_direct_smem_bytes(nfft, hop, rows)
-        per = -(-total_rows // rows)
-        bps = wiener_blocks_per_sm(smem, DIRECT_THREADS)
-        blocks = signals * per * pairs
-        return WienerPlan(nfft, 0, DIRECT_THREADS, 1, rows, pairs, per, blocks, smem, bps,
-                          -(-blocks // (bps * SMS)), (k - 1) / rows)
-    t = threads_per_fft(nfft)
-    g_min = max(1, 32 // t)
-    g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
+    split = split_factors(nfft)
+    frame_pairs = False
+    if fft_supported(nfft):
+        route, t = "fft", threads_per_fft(nfft)
+        g_max = MAX_THREADS // t if t <= 32 else min(MAX_NAMED_GROUPS, MAX_THREADS // t)
+        groups = [1 << e for e in range(int(math.log2(max(1, 32 // t))), int(math.log2(g_max)) + 1)]
+
+        def smem(g):
+            return wiener_smem_bytes(nfft, hop, g)
+    elif split:
+        route, t = "split", threads_per_fft(nfft)
+        groups = [max(1, 32 // threads_per_fft(split[1]))]
+
+        def smem(g):
+            return wiener_split_smem_bytes(nfft, hop, g)
+    else:
+        route, t = "bluestein", bluestein_threads(bluestein_size(nfft))
+        groups = [max(1, 32 // t)]
+        frame_pairs = (bluestein_size(nfft) > MAX_NFFT
+                       and wiener_bluestein_smem_bytes(nfft, hop, groups[0], 2) > SMEM_MAX)
+
+        def smem(g):
+            return wiener_bluestein_smem_bytes(nfft, hop, g, 1 if frame_pairs else 2)
+    units = S if frame_pairs else -(-S // 2)  # blocks per row range
     best = None
-    for e in range(int(math.log2(g_min)), int(math.log2(g_max)) + 1):
-        g = 1 << e
-        smem = wiener_smem_bytes(nfft, hop, g)
-        if smem > SMEM_MAX:
+    for g in groups:
+        if smem(g) > SMEM_MAX:
             continue
-        bps = wiener_blocks_per_sm(smem, g * t)
+        bps = wiener_blocks_per_sm(smem(g), g * t)
+        frames = 2 * g if frame_pairs else g  # a round's
         # from the fewest rounds (R >= 1) to those of one row range a track
-        fewest = -(-k // g)
-        for rounds in range(fewest, max(fewest, min(-(-(total_rows + k - 1) // g), MAX_ROUNDS)) + 1):
-            rows = g * rounds - (k - 1)
-            if rows < 1:
-                continue
+        fewest = -(-k // frames)
+        for rounds in range(fewest, max(fewest, min(-(-(total_rows + k - 1) // frames),
+                                                     MAX_ROUNDS)) + 1):
+            rows = frames * rounds - (k - 1)
             per = -(-total_rows // rows)
-            blocks = signals * per * pairs
+            blocks = signals * per * units
             waves = -(-blocks // (bps * SMS))
             key = (waves * rounds, blocks * rounds * g, -g)
             if best is None or key < best[0]:
-                best = (key, WienerPlan(nfft, g, g * t, rounds, rows, pairs, per, blocks, smem,
-                                        bps, waves, (k - 1) / rows))
+                best = (key, WienerPlan(nfft, g, g * t, rounds, rows, units, per, blocks,
+                                        smem(g), bps, waves, (k - 1) / rows, route=route,
+                                        frame_pairs=frame_pairs))
     if best is None:
         raise ValueError(f"no Wiener+iSTFT plan fits shared memory: nfft={nfft} hop={hop}")
     return best[1]
+
+
+@lru_cache(maxsize=16)
+def wiener_direct_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
+    """The direct sum's launch (``wiener_istft_launch`` with groups 0), which
+    only ``wiener_direct_pallas`` forces: even nfft up to 8192 off the core,
+    one 512-thread block per pair of sources and range of up to 16 hop rows,
+    the e^{−2πi m/N} table, the spectrum and the two sources' accumulators
+    in shared memory."""
+    if nfft % 2 or not MIN_NFFT <= nfft <= MAX_NFFT or fft_supported(nfft) or hop < 1 or nfft % hop:
+        raise ValueError(f"no Wiener+iSTFT direct sum for nfft={nfft} hop={hop}: even, "
+                         f"{MIN_NFFT} to {MAX_NFFT}, not a power of two, a multiple of the hop")
+    k = nfft // hop
+    pairs = -(-S // 2)
+    rows = min(DIRECT_MAX_ROWS, (DIRECT_SMEM_BUDGET - 16 * nfft) // (8 * hop))
+    if rows < 1:
+        raise ValueError(f"no Wiener+iSTFT direct sum fits shared memory: nfft={nfft} hop={hop}")
+    smem = wiener_direct_smem_bytes(nfft, hop, rows)
+    per = -(-(nf + k - 1) // rows)
+    bps = wiener_blocks_per_sm(smem, DIRECT_THREADS)
+    blocks = signals * per * pairs
+    return WienerPlan(nfft, 0, DIRECT_THREADS, 1, rows, pairs, per, blocks, smem, bps,
+                      -(-blocks // (bps * SMS)), (k - 1) / rows, route="direct")
 
 
 @lru_cache(maxsize=64)
@@ -670,7 +735,8 @@ def wiener_cluster_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> W
         key = (waves * rounds, clusters * rounds)
         if best is None or key < best[0]:
             best = (key, WienerPlan(nfft, 1, threads_per_fft(CLUSTER_PART), rounds, rows, pairs,
-                                    per, clusters * c, smem, 1, waves, (k - 1) / rows, c))
+                                    per, clusters * c, smem, 1, waves, (k - 1) / rows, c,
+                                    route="cluster"))
     return best[1]
 
 

@@ -298,8 +298,10 @@ def resolve_masked_synthesis(
     ("ct_pallas" | "factored" | "direct"). "auto" takes the Wiener kernel
     only for CUDA tensors where it won its A/B against the masked chain
     (``ct_istft_kernel.wiener_auto_supported``: the FFT core's powers of
-    two, and the cluster plans in ``WIENER_CLUSTER_WON``; never the direct
-    sum, which an explicit "ct_pallas_wiener" still reaches); otherwise it
+    two, the split and Bluestein plans in ``WIENER_SPLIT_BLUESTEIN_WON`` and
+    the cluster plans in ``WIENER_CLUSTER_WON``; an explicit
+    "ct_pallas_wiener" reaches the kernel at the others; never the direct
+    sum, which only ``wiener_direct_pallas`` forces); otherwise it
     names what :func:`istft_matmul`'s own "auto" runs
     (:func:`resolve_istft`)."""
     if algorithm == "ct_pallas_wiener":

@@ -34,8 +34,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "wiener_istft.cu", "decoder_fused.cu", "stft_dft.cu", "fused_adadelta.cu",
-    "istft.cu", "wiener_apply.cu", "ct_stft.cu", "band_decode.cu",
+    "wiener_split.cu", "wiener_bluestein.cu", "wiener_istft.cu", "decoder_fused.cu",
+    "stft_dft.cu", "fused_adadelta.cu", "istft.cu", "wiener_apply.cu", "ct_stft.cu",
+    "band_decode.cu",
 )
 HEADERS = ("fft_common.cuh", "wiener_common.cuh")
 NVCC_FLAGS = (
@@ -45,7 +46,9 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "wiener_istft": 0, "wiener_istft_ny": 0, "wiener_istft_cluster": 0,
-    "wiener_istft_ny_cluster": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
+    "wiener_istft_ny_cluster": 0, "wiener_istft_split": 0, "wiener_istft_ny_split": 0,
+    "wiener_istft_bluestein": 0, "wiener_istft_ny_bluestein": 0, "wiener_istft_direct": 0,
+    "wiener_istft_ny_direct": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_direct": 0,
     "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
@@ -59,10 +62,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw, out, out_int16,
-    # nt, S, nf, nfft, hop, length, groups, rounds (rows for the direct sum),
-    # p2, eps, conserve_last, stream
-    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw, tw_n (the split),
+    # chirp, chat (Bluestein), out, out_int16, nt, S, nf, nfft, hop, length, groups,
+    # rounds (rows for the direct sum), p2, eps, conserve_last, stream
+    "wiener_istft_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw, chirp, chat, out,
     # out_int16, nt, S, nf, nfft, hop, length, rounds, p2, eps, conserve_last,

@@ -35,9 +35,11 @@ from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import (
 from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     istft_ct_pallas,
     istft_ct_pallas_plain,
+    wiener_direct_pallas,
     wiener_istft,
     wiener_istft_plain,
 )
+from convsep_tpu_torch.dsp.cuda.fft_plan import wiener_plan
 from convsep_tpu_torch.dsp.cuda.istft_kernel import (
     istft_direct_pallas,
     istft_pallas,
@@ -98,6 +100,17 @@ def _wiener_inputs(rng, S, length, nfft, hop, device, lead=(2,)):
     return w, torch.from_numpy(y).to(device), re, im
 
 
+WIENER_NAMES = tuple(k for k in kernels.LAUNCHES if k.startswith("wiener_istft"))
+
+
+def _wiener_kernel(nfft, hop, S, nf, has_ny=False):
+    """The launch count a Wiener+iSTFT call at this shape adds to: its plan's
+    route (the core, the split, Bluestein, the cluster)."""
+    route = wiener_plan(1, S, nf, nfft, hop).route
+    return ("wiener_istft_ny" if has_ny else "wiener_istft") + ("" if route == "fft" else
+                                                                "_" + route)
+
+
 @pytest.mark.parametrize(
     "nfft,hop,length,S,kw",
     [
@@ -108,19 +121,21 @@ def _wiener_inputs(rng, S, length, nfft, hop, device, lead=(2,)):
         (1024, 512, 30000, 4, {}),
         (4096, 1024, 60000, 4, {"p": 2.0, "conserve_last": True}),
         (4096, 1024, 60000, 5, {}),
-        (384, 96, 6000, 3, {}),                    # even, not a power of two
-        (1000, 250, 9000, 2, {"p": 2.0, "conserve_last": True}),
+        (384, 96, 6000, 3, {}),                    # even, not a power of two: the split
+        (1000, 250, 9000, 2, {"p": 2.0, "conserve_last": True}),  # Bluestein
     ],
 )
 @pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
 def test_wiener_istft_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, ydt):
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
     y = y.to(ydt)
+    name = _wiener_kernel(nfft, hop, S, re.shape[-2])
     for out in ("float32", "int16"):
-        before = kernels.LAUNCHES["wiener_istft"]
+        before = dict(kernels.LAUNCHES)
         got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["wiener_istft"] == before + 1
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+            k: int(k == name) for k in WIENER_NAMES}
         want = wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw)
         assert got.shape == want.shape == (2, S, length) and got.dtype == want.dtype
         if out == "int16":
@@ -132,21 +147,22 @@ def test_wiener_istft_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, 
 @pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 384, 1000])
 @pytest.mark.parametrize("S", [1, 2, 3, 4])
 def test_wiener_istft_kernel_every_size(rng, cuda, nfft, S):
-    """Every power of two of the FFT core and two sizes that take the
-    direct sum, S from 1 to 4 (an odd S: the last pair has no second
-    source), hop nfft/4 and a length whose last round is ragged; bf16 y at
-    odd S, f32 at even; float32 within 1e-5 and PCM16 within one LSB of the
-    plain version, one launch each."""
+    """Every power of two of the FFT core, a split size (384) and a
+    Bluestein size (1000), S from 1 to 4 (an odd S: the last pair has no
+    second source), hop nfft/4 and a length whose last round is ragged; bf16
+    y at odd S, f32 at even; float32 within 1e-5 and PCM16 within one LSB of
+    the plain version, one launch each of the plan's kernel."""
     hop = nfft // 4
     length = 37 * hop + 5
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda, lead=(1,))
     if S % 2:
         y = y.to(torch.bfloat16)
+    name = _wiener_kernel(nfft, hop, S, re.shape[-2])
     for out in ("float32", "int16"):
-        before = kernels.LAUNCHES["wiener_istft"]
+        before = kernels.LAUNCHES[name]
         got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, p=2.0 if S == 3 else 1.0)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["wiener_istft"] == before + 1
+        assert kernels.LAUNCHES[name] == before + 1
         _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out,
                                        p=2.0 if S == 3 else 1.0), out)
 
@@ -165,14 +181,87 @@ def test_wiener_istft_cluster_kernel_matches_plain(rng, cuda, nfft, hop, length,
     "wiener_istft_cluster" launch each, no other Wiener launch."""
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
     y = y.to(ydt)
-    names = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster", "wiener_istft_ny_cluster")
     for out in ("float32", "int16"):
         before = dict(kernels.LAUNCHES)
         got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
         torch.cuda.synchronize()
-        assert {k: kernels.LAUNCHES[k] - before[k] for k in names} == {
-            k: int(k == "wiener_istft_cluster") for k in names}
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+            k: int(k == "wiener_istft_cluster") for k in WIENER_NAMES}
         _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+
+
+@pytest.mark.parametrize("nfft,hop,length,S,kw,ydt,kernel", [
+    (768, 256, 30000, 4, {}, torch.bfloat16, "wiener_istft_split"),  # 3 · 256
+    (1280, 320, 30000, 3, {"p": 2.0, "conserve_last": True}, torch.float32,
+     "wiener_istft_split"),                                            # 5 · 256, S odd
+    (7680, 1920, 40000, 2, {"p": 2.0}, torch.bfloat16, "wiener_istft_split"),  # 15 · 512
+    (240, 60, 6000, 5, {"conserve_last": True}, torch.float32, "wiener_istft_split"),  # 15 · 16
+    (1000, 250, 30000, 4, {}, torch.bfloat16, "wiener_istft_bluestein"),  # M 2048
+    (18, 9, 2000, 3, {"p": 2.0}, torch.float32, "wiener_istft_bluestein"),  # M 64: 8 groups
+    (2000, 500, 30000, 4, {"conserve_last": True}, torch.float32, "wiener_istft_bluestein"),
+    (6000, 1500, 40000, 4, {"p": 2.0, "conserve_last": True}, torch.bfloat16,
+     "wiener_istft_bluestein"),                                        # the level
+    (8190, 910, 40000, 3, {"p": 2.0}, torch.bfloat16, "wiener_istft_bluestein"),  # frame pairs
+    (8190, 4095, 40000, 4, {}, torch.float32, "wiener_istft_bluestein"),  # the level, k 2
+])
+def test_wiener_istft_split_and_bluestein_kernels(rng, cuda, nfft, hop, length, S, kw, ydt,
+                                                  kernel):
+    """The Wiener+iSTFT at even sizes up to 8192 that are not powers of two:
+    the split (m · 2^a) and Bluestein run backwards (on the core, on the
+    level, and with frame pairs on the level where two carries do not fit),
+    float32 within 1e-5 and PCM16 within one LSB of the plain version, one
+    launch of the kernel each and no other Wiener launch."""
+    w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
+    y = y.to(ydt)
+    assert _wiener_kernel(nfft, hop, S, re.shape[-2]) == kernel
+    for out in ("float32", "int16"):
+        before = dict(kernels.LAUNCHES)
+        got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+            k: int(k == kernel) for k in WIENER_NAMES}
+        _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+
+
+@pytest.mark.parametrize("nfft,hop", [(768, 256), (1000, 250), (8190, 910)])
+def test_wiener_split_and_bluestein_ny_input(rng, cuda, nfft, hop):
+    """The split's and Bluestein's Nyquist-row input (the bodies cut from the
+    full spectrum): bit for bit the same kernel fed the concatenated
+    spectrum, within 1e-5 of the plain version, counted under its _ny name."""
+    S, length = 4, 30000
+    w = sinebell(nfft)
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, length))).astype(np.float32)).to(cuda)
+    fr, fi = stft_matmul(x, w, hop)
+    re, im, ny = fr[..., :-1].contiguous(), fi[..., :-1].contiguous(), fr[..., -1].contiguous()
+    y = np.abs(rng.standard_normal((2, S, re.shape[1], nfft // 2 + 1))).astype(np.float32)
+    y[..., : re.shape[1] // 3, :8] = 0.0
+    y = torch.from_numpy(y).to(cuda).to(torch.bfloat16)
+    name = _wiener_kernel(nfft, hop, S, re.shape[1], has_ny=True)
+    before = kernels.LAUNCHES[name]
+    got = wiener_istft(y, re, im, w, hop, length, ny=ny, p=2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got, wiener_istft(y, fr, fi, w, hop, length, p=2.0))
+    _close(got, wiener_istft_plain(y, re, im, w, hop, length, ny=ny, p=2.0), "float32")
+
+
+@pytest.mark.parametrize("nfft,hop", [(768, 256), (1000, 250)])
+def test_wiener_direct_pallas_forces_the_direct_sum(rng, cuda, nfft, hop):
+    """wiener_direct_pallas runs the direct sum per sample that the split and
+    Bluestein replaced (counted wiener_istft_direct, no other Wiener launch),
+    within 1e-5 of the plain version, PCM16 within one LSB; it refuses a
+    power of two."""
+    w, y, re, im = _wiener_inputs(rng, 3, 9000, nfft, hop, cuda)
+    for out in ("float32", "int16"):
+        before = dict(kernels.LAUNCHES)
+        got = wiener_direct_pallas(y, re, im, w, hop, 9000, output_dtype=out, p=2.0)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+            k: int(k == "wiener_istft_direct") for k in WIENER_NAMES}
+        _close(got, wiener_istft_plain(y, re, im, w, hop, 9000, output_dtype=out, p=2.0), out)
+    w, y, re, im = _wiener_inputs(rng, 2, 6000, 256, 64, cuda)
+    with pytest.raises(ValueError, match="direct sum"):
+        wiener_direct_pallas(y, re, im, w, 64, 6000)
 
 
 @pytest.mark.parametrize("nfft,hop", [(16384, 2048), (32768, 4096)])
@@ -289,7 +378,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
     mix = (0.2 * np.random.default_rng(1).standard_normal(9000)).astype(np.float32)
     kernels.reset_launches()
     got = Separator(p, state, device=cuda)(mix)
-    launched = {"wiener_istft": 1, "fused_decode": 1, "stft": 0, "stft_split": 0,
+    launched = {**{k: 0 for k in WIENER_NAMES}, "wiener_istft": 1, "fused_decode": 1,
+                "stft": 0, "stft_split": 0,
                 "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0,
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
                 "istft_direct": 0, "wiener_apply": 0,
@@ -1204,6 +1294,21 @@ CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel",
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
                          ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280}
+# the same for the Wiener+iSTFT's split, by (log2 P, m), and Bluestein, by
+# (log2 M, frame pairs), on an H100 build (sm_90a, 128 registers): the split holds S sources' y loads beside its 16 points and spills
+# 0-64 bytes (768 = 3 · 256, the smoke's, none); Bluestein none up to M
+# 4096 but at M 512, 64-80 on M 8192 and the level, 248 with frame pairs
+# (two frames' masks a point).
+WIENER_SPLIT_STACK_CEILING = {
+    (4, 3): 56, (4, 5): 16, (4, 9): 16, (4, 15): 0, (5, 3): 40, (5, 5): 40, (5, 9): 40,
+    (5, 15): 40, (6, 3): 40, (6, 5): 0, (6, 9): 0, (6, 15): 48, (7, 3): 40, (7, 5): 0, (7, 9): 0,
+    (7, 15): 48, (8, 3): 0, (8, 5): 0, (8, 9): 0, (8, 15): 8, (9, 3): 24, (9, 5): 32, (9, 9): 32,
+    (9, 15): 64, (10, 3): 24, (10, 5): 32, (11, 3): 16,
+}
+WIENER_BLUESTEIN_STACK_CEILING = {
+    (6, 0): 0, (7, 0): 0, (8, 0): 0, (9, 0): 24, (10, 0): 0, (11, 0): 0, (12, 0): 0, (13, 0): 64,
+    (14, 0): 80, (14, 1): 248,
+}
 # the fused forward STFT's cluster kernel at 16 384 points (C 4), and its
 # level kernel
 CT_STFT_CLUSTER_STACK_CEILING = 8
@@ -1230,8 +1335,10 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     and iSTFT FFT-kernel, inverse-split and Bluestein (both directions)
     instance at most its recorded frame (``DECODE_STACK_CEILING``,
     ``ISTFT_STACK_CEILING``, ``ISTFT_SPLIT_STACK_CEILING``,
-    ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``, and
-    the cluster's ``CLUSTER_STACK_CEILING``), every
+    ``BLUESTEIN_STACK_CEILING``, ``ISTFT_BLUESTEIN_STACK_CEILING``, the
+    Wiener+iSTFT's ``WIENER_SPLIT_STACK_CEILING`` and
+    ``WIENER_BLUESTEIN_STACK_CEILING``, and the cluster's
+    ``CLUSTER_STACK_CEILING``), every
     Wiener+iSTFT (on the core) and band decode instance none; and no band decode instance
     has its wgmma chains serialized by ptxas (warning C7520)."""
     import re as regex
@@ -1240,8 +1347,8 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA toolkit of a machine with a card")
     frames, logs = {}, {}
-    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "band_decode.cu", "stft_dft.cu",
-                "ct_stft.cu"):
+    for src in ("decoder_fused.cu", "istft.cu", "wiener_istft.cu", "wiener_split.cu",
+                "wiener_bluestein.cu", "band_decode.cu", "stft_dft.cu", "ct_stft.cu"):
         out = subprocess.run(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c", str(kernels.CSRC / src),
              "-o", str(tmp_path / "k.o")], capture_output=True, text=True, check=True)
@@ -1267,6 +1374,13 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
             inst = f"{len(kernel)}{kernel}ILi{log2m}E"
             hits = [v for k, v in frames.items() if inst in k]
             assert len(hits) == 1 and hits[0] <= most, (inst, frames)
+    for (log2p, m), most in WIENER_SPLIT_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if f"wiener_split_kernelILi{log2p}ELi{m}E" in k]
+        assert len(hits) == 1 and hits[0] <= most, (log2p, m, frames)
+    for (log2m, pairs), most in WIENER_BLUESTEIN_STACK_CEILING.items():
+        inst = f"wiener_bluestein_kernelILi{log2m}ELb{pairs}E"
+        hits = [v for k, v in frames.items() if inst in k]
+        assert len(hits) == 1 and hits[0] <= most, (log2m, pairs, frames)
     for (kernel, c), most in CLUSTER_STACK_CEILING.items():
         inst = f"{len(kernel)}{kernel}ILi{c}E"
         hits = [v for k, v in frames.items() if inst in k]

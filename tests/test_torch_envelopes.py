@@ -9,8 +9,9 @@ win/hop <= 9, at any nfft, odd ones too) up to the second level's 262 144,
 the fused decode's (``fused_decode_supported``) over J 8–512, and the band
 decode's (``band_decode_pallas`` checks only that the time kernel is
 (kh, 1, I, O)) over the model family's widths. And the masked synthesis's "auto" never takes a kernel that lost its
-timed A/B (the Wiener kernel's direct sum at the sizes that are not powers
-of two), while the presets' routes stay where they were."""
+timed A/B (the Wiener kernel off the core takes only the plans that won) nor
+the Wiener kernel's direct sum, while the presets' routes stay where they
+were."""
 
 import numpy as np
 import pytest
@@ -88,14 +89,33 @@ def test_ct_stft_card_envelope_holds_the_reference():
 @pytest.mark.parametrize("p", [1.0, 2.0])
 def test_auto_never_takes_the_wiener_direct_sum(nfft, hop, p):
     """At the even sizes that are not powers of two up to 8192 the Wiener
-    kernel is a direct sum per sample, which lost its A/B to the masked
-    chain (PERF.md row 1′): "auto" names the masked chain's iSTFT there,
-    and only the explicit "ct_pallas_wiener" reaches the kernel."""
+    kernel runs on the split or on Bluestein (PERF.md row 1′): "auto" takes
+    it only at the (nfft, hop) where it won its A/B against the masked chain
+    (WIENER_SPLIT_BLUESTEIN_WON), elsewhere the masked chain's iSTFT; the
+    explicit "ct_pallas_wiener" reaches it everywhere, and neither names
+    the direct sum, which only wiener_direct_pallas forces."""
     assert ck.wiener_istft_supported(nfft, nfft, hop)
+    assert fp.wiener_plan(1, 4, 500, nfft, hop).route in ("split", "bluestein")
     route = resolve_masked_synthesis("auto", nfft, nfft, hop, p, CUDA)
-    assert route != "ct_pallas_wiener" and route in ("direct", "factored", "ct_pallas")
+    assert (route == "ct_pallas_wiener") == ((nfft, hop) in ck.WIENER_SPLIT_BLUESTEIN_WON)
+    assert route in ("ct_pallas_wiener", "direct", "factored", "ct_pallas")
     assert resolve_masked_synthesis("ct_pallas_wiener", nfft, nfft, hop, p, CUDA) == \
         "ct_pallas_wiener"
+
+
+def test_wiener_envelope_off_the_core_holds_every_even_size():
+    """Every even nfft from 16 to 8192 that is not a power of two, at every
+    hop nfft/k (k 1–9) that divides it and at hop 2, stays inside
+    wiener_istft_supported (the direct sum took them all before the split
+    and Bluestein replaced it) and runs on the split (m · 2^a) or on
+    Bluestein, at any number of stems."""
+    for n in range(18, 8193, 2):
+        if n & (n - 1) == 0:
+            continue
+        route = "split" if fp.split_factors(n) else "bluestein"
+        for hop in {n // k for k in range(1, 10) if n % k == 0} | {2}:
+            assert ck.wiener_istft_supported(n, n, hop), (n, hop)
+            assert fp.wiener_plan(1, 4, 100, n, hop).route == route, (n, hop)
 
 
 @pytest.mark.parametrize("nfft,hop", [(16384, 2048), (16384, 4096), (32768, 4096),

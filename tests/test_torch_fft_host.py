@@ -30,11 +30,17 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
   source, bf16 or f32 y, p 1 or 2, ``conserve_last``, the ``ny`` row, and
   the two sources' carries and gather) at parts of 64 and 512 points and at
   the card's 8192 (N 10 000 and 16 384), against ``wiener_istft_plain``
-  within 1e-5 × max|out|, PCM16 within ±1 LSB.
+  within 1e-5 × max|out|, PCM16 within ±1 LSB;
+* ``wiener_split_block`` and ``wiener_bluestein_block``
+  (``wiener_istft.cu::wiener_split_kernel``, ``wiener_bluestein_kernel``:
+  the same masked loads on the split and on Bluestein run backwards, a
+  pair of sources a block, and on the level where two carries do not fit a
+  pair of one source's frames) at fft_plan.wiener_plan's launches, at the
+  same tolerances.
 
 The kernels' own index maps, twiddle and chirp reads, butterflies, block
 and cluster barriers and output guards. Built once per module under
-pytest's temporary directory, the seven programs at once."""
+pytest's temporary directory, the eleven programs at once."""
 
 import shutil
 import subprocess
@@ -54,7 +60,8 @@ from convsep_tpu_torch.dsp.windows import sinebell
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
 PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft", "cluster_stft",
-            "cluster_istft", "wiener_cluster", "level_stft", "level2")
+            "cluster_istft", "wiener_cluster", "wiener_split", "wiener_bluestein", "level_stft",
+            "level2")
 
 
 @pytest.fixture(scope="module")
@@ -356,6 +363,55 @@ def test_cluster16_stft_source_matches_numpy(tmp_path, host, rng):
     np.testing.assert_allclose(out[1], want.imag, atol=1e-5 * peak, rtol=0)
 
 
+def _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny):
+    """The Wiener programs' inputs, written to tmp_path: nt random tracks'
+    mixture spectra (the N/2-bin bodies and the Nyquist row with
+    ``has_ny``), magnitudes y with dead bins (the eps shortfall paths) in
+    ``ydt``, the window's synthesis tables. Returns (w, nf, y, re, im, ny)."""
+    from convsep_tpu_torch.dsp.dft import stft_matmul
+
+    w = sinebell(nfft)
+    x = torch.from_numpy((0.3 * rng.standard_normal((nt, length))).astype(np.float32))
+    re, im = stft_matmul(x, w, hop)
+    nf = re.shape[-2]
+    y = np.abs(rng.standard_normal((nt, S, nf, nfft // 2 + 1))).astype(np.float32)
+    y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
+    y = torch.from_numpy(y).to(torch.bfloat16 if ydt == "bfloat16" else torch.float32)
+    ny = None
+    if has_ny:
+        re, im, ny = re[..., :-1].contiguous(), im[..., :-1].contiguous(), re[..., -1].contiguous()
+    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
+    y_bits = y.view(torch.int16).numpy() if ydt == "bfloat16" else y.numpy()
+    for name, arr in (("re", re.numpy()), ("im", im.numpy()), ("wn", wn.numpy()),
+                      ("inv", inv.numpy()), *([("ny", ny.numpy())] if has_ny else [])):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    np.ascontiguousarray(y_bits).tofile(tmp_path / "y.bin")
+    return w, nf, y, re, im, ny
+
+
+def _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out):
+    """The program's stems against wiener_istft_plain: float32 within 1e-5 ×
+    max|out| with every sample written, PCM16 within ±1 LSB."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
+
+    int16 = out == "int16"
+    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32)
+    got = got.reshape(*re.shape[:-2], y.shape[-3], length)
+    want = wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, ny=ny, **kw).numpy()
+    if int16:
+        assert want.dtype == np.int16 and (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        assert np.isfinite(got).all()  # every sample of every stem written
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def _wiener_tail(kw, ydt, has_ny, out):
+    """The programs' last arguments: YBF16 P2 EPS CONSERVE HASNY INT16."""
+    return [int(ydt == "bfloat16"), int(kw.get("p", 1.0) == 2.0), repr(1e-8),
+            int(kw.get("conserve_last", False)), int(has_ny), int(out == "int16")]
+
+
 # (nfft, hop, nt, S, length, log2p, rounds (None: fft_plan.wiener_plan's),
 # y dtype, keyword arguments of wiener_istft, out): C = M / 2^LOG2P blocks
 WIENER_CLUSTER_CASES = [
@@ -377,52 +433,102 @@ def test_wiener_cluster_source_matches_plain(tmp_path, host, rng, nfft, hop, nt,
     a pair of sources and a row range, one frame a round): every sample of
     every stem written, equal to wiener_istft_plain within 1e-5 ×
     max|out|, PCM16 within ±1 LSB."""
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
-    from convsep_tpu_torch.dsp.dft import stft_matmul
-
     kw = dict(kw)
     has_ny = kw.pop("ny", False)
-    w = sinebell(nfft)
-    x = torch.from_numpy((0.3 * rng.standard_normal((nt, length))).astype(np.float32))
-    re, im = stft_matmul(x, w, hop)
-    nf = re.shape[-2]
-    y = np.abs(rng.standard_normal((nt, S, nf, nfft // 2 + 1))).astype(np.float32)
-    y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
-    y = torch.from_numpy(y).to(torch.bfloat16 if ydt == "bfloat16" else torch.float32)
-    ny = None
-    if has_ny:
-        re, im, ny = re[..., :-1].contiguous(), im[..., :-1].contiguous(), re[..., -1].contiguous()
+    w, nf, y, re, im, ny = _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny)
     m = fp.bluestein_size(nfft)
     c = m >> log2p
     if rounds is None:
         plan = fp.wiener_plan(nt, S, nf, nfft, hop)
-        assert (plan.cluster, plan.threads) == (c, 512)
+        assert (plan.cluster, plan.threads, plan.route) == (c, 512, "cluster")
         rounds = plan.rounds
-    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
     chirp, chat = fp.bluestein_tables(nfft, "cpu")
-    y_bits = y.view(torch.int16).numpy() if ydt == "bfloat16" else y.numpy()
-    for name, arr in (("re", re.numpy()), ("im", im.numpy()), ("wn", wn.numpy()),
-                      ("inv", inv.numpy()), ("tw", fp.twiddles(m, "cpu").numpy()),
-                      ("chirp", chirp.numpy()), ("chat", chat.numpy()),
-                      *([("ny", ny.numpy())] if has_ny else [])):
+    for name, arr in (("tw", fp.twiddles(m, "cpu").numpy()), ("chirp", chirp.numpy()),
+                      ("chat", chat.numpy())):
         np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
-    np.ascontiguousarray(y_bits).tofile(tmp_path / "y.bin")
-    int16 = out == "int16"
-    p, eps = kw.get("p", 1.0), 1e-8
-    args = [log2p, c, nt, S, nf, nfft, hop, length, rounds, int(ydt == "bfloat16"),
-            int(p == 2.0), repr(eps), int(kw.get("conserve_last", False)), int(has_ny),
-            int(int16)]
+    args = [log2p, c, nt, S, nf, nfft, hop, length, rounds, *_wiener_tail(kw, ydt, has_ny, out)]
     subprocess.run([str(host["wiener_cluster"]), str(tmp_path), *map(str, args)], check=True,
                    timeout=300)
-    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32)
-    got = got.reshape(nt, S, length)
-    want = wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, ny=ny, **kw).numpy()
-    if int16:
-        assert want.dtype == np.int16 and (want != 0).any()
-        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
-    else:
-        assert np.isfinite(got).all()  # every sample of every stem written
-        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out)
+
+
+# (nfft, hop, nt, S, length, y dtype, keyword arguments of wiener_istft, out)
+WIENER_SPLIT_CASES = [
+    (384, 96, 1, 4, 3000, "float32", {}, "float32"),            # 3 · 128: 4 groups of 24
+    (384, 96, 2, 3, 2000, "bfloat16", {"p": 2.0}, "int16"),     # S odd: the last pair has no s1
+    (768, 256, 1, 4, 4000, "bfloat16", {"conserve_last": True}, "float32"),  # the smoke's W, hop
+    (768, 192, 1, 3, 3000, "float32", {"p": 2.0, "ny": True}, "float32"),  # k 4, the ny row
+    (1280, 320, 1, 2, 5000, "bfloat16", {"conserve_last": True, "ny": True}, "int16"),  # 5 · 256
+    (240, 60, 1, 5, 1500, "float32", {"p": 2.0}, "float32"),    # 15 · 16: 32 groups of 15 threads
+]
+
+
+@pytest.mark.parametrize("nfft,hop,nt,S,length,ydt,kw,out", WIENER_SPLIT_CASES)
+def test_wiener_split_source_matches_plain(tmp_path, host, rng, nfft, hop, nt, S, length, ydt,
+                                           kw, out):
+    """wiener_split_block at fft_plan.wiener_plan's groups and rounds (a
+    block a pair of sources and a row range, a group one frame of the pair,
+    the masked loads at the split's stride, two carries): every sample of
+    every stem written, equal to wiener_istft_plain within 1e-5 × max|out|,
+    PCM16 within ±1 LSB."""
+    kw = dict(kw)
+    has_ny = kw.pop("ny", False)
+    w, nf, y, re, im, ny = _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny)
+    plan = fp.wiener_plan(nt, S, nf, nfft, hop)
+    m, p = fp.split_factors(nfft)
+    assert plan.route == "split" and plan.threads == plan.groups * nfft // fp.POINTS
+    for name, arr in (("twp", fp.twiddles(p, "cpu").numpy()),
+                      ("twn", fp.twiddles(nfft, "cpu").numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    args = [m, p.bit_length() - 1, nt, S, nf, hop, length, plan.groups, plan.rounds,
+            *_wiener_tail(kw, ydt, has_ny, out)]
+    subprocess.run([str(host["wiener_split"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out)
+
+
+# (nfft, hop, nt, S, length, y dtype, keyword arguments of wiener_istft, out,
+# frame pairs)
+WIENER_BLUESTEIN_CASES = [
+    (18, 9, 2, 3, 200, "float32", {}, "float32", False),        # M 64: 8 groups of 4; S odd
+    (18, 6, 1, 4, 200, "bfloat16", {"p": 2.0, "ny": True}, "int16", False),
+    (1000, 250, 1, 4, 3000, "bfloat16", {}, "float32", False),  # 8 · 125: M 2048, the smoke's
+    (1000, 250, 1, 3, 3000, "float32", {"conserve_last": True}, "int16", False),
+    (2000, 500, 1, 4, 4000, "float32", {"p": 2.0, "ny": True}, "float32", False),  # M 4096
+    (6000, 1500, 1, 4, 3000, "bfloat16", {"conserve_last": True}, "float32", False),  # the level
+    (6000, 1500, 1, 3, 3000, "float32", {"p": 2.0}, "int16", False),
+    (8190, 910, 1, 3, 3000, "bfloat16", {"p": 2.0, "conserve_last": True, "ny": True},
+     "float32", True),                                          # the level's frame pairs: k 9
+    (8190, 910, 1, 2, 2000, "float32", {}, "int16", True),
+]
+
+
+@pytest.mark.parametrize("nfft,hop,nt,S,length,ydt,kw,out,pairs", WIENER_BLUESTEIN_CASES)
+def test_wiener_bluestein_source_matches_plain(tmp_path, host, rng, nfft, hop, nt, S, length,
+                                               ydt, kw, out, pairs):
+    """wiener_bluestein_block at fft_plan.wiener_plan's groups and rounds, on
+    the core and on the level (a pair of sources a block, two carries), and
+    on the level where two carries do not fit (frame pairs: a source a
+    block, a pair of its frames a group, one carry): every sample of every
+    stem written, equal to wiener_istft_plain within 1e-5 × max|out|,
+    PCM16 within ±1 LSB."""
+    kw = dict(kw)
+    has_ny = kw.pop("ny", False)
+    w, nf, y, re, im, ny = _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny)
+    plan = fp.wiener_plan(nt, S, nf, nfft, hop)
+    m = fp.bluestein_size(nfft)
+    assert plan.route == "bluestein" and plan.frame_pairs == pairs
+    assert plan.threads == plan.groups * fp.bluestein_threads(m)
+    assert plan.pairs == (S if pairs else (S + 1) // 2)
+    chirp, chat = fp.bluestein_tables(nfft, "cpu")
+    for name, arr in (("tw", fp.twiddles(m, "cpu").numpy()), ("chirp", chirp.numpy()),
+                      ("chat", chat.numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    args = [m.bit_length() - 1, nt, S, nf, nfft, hop, length, plan.groups, plan.rounds,
+            int(pairs), *_wiener_tail(kw, ydt, has_ny, out)]
+    subprocess.run([str(host["wiener_bluestein"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out)
 
 
 def test_level_stft_source_matches_numpy(tmp_path, host, rng):

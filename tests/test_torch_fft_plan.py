@@ -1240,38 +1240,76 @@ def test_wiener_plan(signals, S, nf, nfft, hop):
     and the block limits."""
     plan = fp.wiener_plan(signals, S, nf, nfft, hop)
     k = nfft // hop
-    assert plan.smem_bytes <= fp.SMEM_MAX == 232_448
-    assert plan.pairs == (S + 1) // 2 and plan.rows >= 1
+    assert plan.smem_bytes <= fp.SMEM_MAX == 232_448 and plan.rows >= 1
     assert plan.blocks == signals * plan.blocks_per_signal * plan.pairs
     assert plan.blocks_per_signal * plan.rows >= nf + k - 1 > (plan.blocks_per_signal - 1) * plan.rows
     assert plan.halo == (k - 1) / plan.rows
     assert plan.waves == -(-plan.blocks // (plan.blocks_per_sm * fp.SMS))
-    if plan.groups == 0:  # the direct sum: other sizes
-        assert not fp.fft_supported(nfft) and plan.rows <= fp.DIRECT_MAX_ROWS
-        assert plan.smem_bytes == fp.wiener_direct_smem_bytes(nfft, hop, plan.rows)
-        assert plan.threads == fp.DIRECT_THREADS and plan.rounds == 1
-        return
-    t = fp.threads_per_fft(nfft)
-    g = plan.groups
-    assert g & (g - 1) == 0 and plan.threads == g * t
-    assert plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
-    assert t <= 32 or g <= fp.MAX_NAMED_GROUPS
-    assert plan.smem_bytes == fp.wiener_smem_bytes(nfft, hop, g)
-    assert 1 <= plan.rounds <= max(-(-k // g), fp.MAX_ROUNDS)
-    assert plan.rows == g * plan.rounds - (k - 1)
     assert plan.blocks_per_sm == fp.wiener_blocks_per_sm(plan.smem_bytes, plan.threads)
+    g = plan.groups
+    assert g & (g - 1) == 0 and plan.threads % 32 == 0 and plan.threads <= fp.MAX_THREADS
+    frames = 2 * g if plan.frame_pairs else g  # a round's
+    assert 1 <= plan.rounds <= max(-(-k // frames), fp.MAX_ROUNDS)
+    assert plan.rows == frames * plan.rounds - (k - 1)
+    split = fp.split_factors(nfft)
+    if fp.fft_supported(nfft):  # the core: the most groups of a wave
+        t = fp.threads_per_fft(nfft)
+        assert plan.route == "fft" and plan.threads == g * t and not plan.frame_pairs
+        assert t <= 32 or g <= fp.MAX_NAMED_GROUPS
+        assert plan.smem_bytes == fp.wiener_smem_bytes(nfft, hop, g)
+    elif split:  # the split: istft_plan's groups, two carries
+        assert plan.route == "split" and not plan.frame_pairs
+        assert g == fp.istft_plan(1, 100, nfft, nfft, hop).groups
+        assert plan.threads == g * nfft // fp.POINTS
+        assert plan.smem_bytes == fp.wiener_split_smem_bytes(nfft, hop, g) == (
+            8 * (fp.twiddle_entries(split[1]) + fp.twiddle_entries(nfft)
+                 + g * fp.exchange_entries(nfft)) + 8 * (k - 1) * hop)
+    else:  # Bluestein: istft_plan's groups; frame pairs where two carries do not fit
+        m = fp.bluestein_size(nfft)
+        assert plan.route == "bluestein" and nfft % 2 == 0 and m <= fp.LEVEL_NFFT
+        assert g == fp.istft_plan(1, 100, nfft, nfft, hop).groups
+        assert plan.threads == g * fp.bluestein_threads(m)
+        two = (8 * (fp.bluestein_table_entries(m) + g * fp.exchange_entries(m))
+               + 8 * (k - 1) * hop)
+        assert plan.frame_pairs == (two > fp.SMEM_MAX)
+        assert m == fp.LEVEL_NFFT or not plan.frame_pairs
+        assert plan.smem_bytes == fp.wiener_bluestein_smem_bytes(
+            nfft, hop, g, 1 if plan.frame_pairs else 2)
+    assert plan.pairs == (S if plan.frame_pairs else (S + 1) // 2)
 
 
 def test_wiener_plan_every_size():
     """Every power of two of the FFT core and every hop that divides it,
-    and even sizes off the core, have a plan within the limits."""
+    and even sizes off the core (the split's, Bluestein's on the core and
+    on the level, with frame pairs where the two carries do not fit), have
+    a plan within the limits."""
     for e in range(4, 14):
         n = 1 << e
         for hop in (n, n // 2, n // 4, n // 8, n // 16):
             for S in (1, 2, 3, 4, 5):
                 test_wiener_plan(1, S, 1442, n, hop)
-    for n, hop in ((16 + 2, 9), (384, 96), (1000, 250), (6000, 1500), (8190, 8190)):
+    for n, hop in ((16 + 2, 9), (384, 96), (1000, 250), (6000, 1500), (8190, 8190), (768, 256),
+                   (1280, 320), (240, 60), (7680, 960), (6144, 1536), (2000, 500), (8190, 910),
+                   (6000, 750), (4000, 1000), (24, 6), (8000, 8)):
         test_wiener_plan(2, 3, 500, n, hop)
+    assert fp.wiener_plan(1, 4, 200, 8190, 910).frame_pairs
+    assert not fp.wiener_plan(1, 4, 200, 6000, 1500).frame_pairs
+    assert fp.wiener_plan(1, 4, 200, 6000, 750).frame_pairs  # 5250 floats a carry
+
+
+@pytest.mark.parametrize("nfft,hop", [(768, 256), (1000, 250), (6000, 1500), (8190, 910)])
+def test_wiener_direct_plan(nfft, hop):
+    """The direct sum's plan, which only wiener_direct_pallas forces: up to
+    16 hop rows a block within its shared-memory budget; none at a power of
+    two or past 8192."""
+    plan = fp.wiener_direct_plan(1, 4, 500, nfft, hop)
+    assert (plan.route, plan.groups, plan.threads, plan.rounds) == ("direct", 0, 512, 1)
+    assert plan.rows == min(fp.DIRECT_MAX_ROWS, (fp.DIRECT_SMEM_BUDGET - 16 * nfft) // (8 * hop))
+    assert plan.smem_bytes == fp.wiener_direct_smem_bytes(nfft, hop, plan.rows)
+    assert plan.blocks == plan.blocks_per_signal * 2
+    for n, h in ((1024, 256), (16384, 2048), (1001, 143)):
+        with pytest.raises(ValueError, match="direct sum"):
+            fp.wiener_direct_plan(1, 4, 500, n, h)
 
 
 @pytest.mark.parametrize("signals,S,nf,nfft,hop", [

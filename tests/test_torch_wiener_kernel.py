@@ -73,13 +73,42 @@ def test_rejects_bad_shapes(rng):
     assert not wiener_istft_supported(1000, 1000, 300)  # nfft % hop != 0
     assert not wiener_istft_supported(1024, 512, 256)   # win != nfft
     assert wiener_plan(1, 4, 1442, 4096, 1024).groups == 2      # the FFT core
-    assert wiener_plan(1, 4, 2882, 1000, 250).groups == 0       # the direct sum
-    assert wiener_plan(1, 4, 2882, 1000, 250).rows == 16
+    assert wiener_plan(1, 4, 2882, 1000, 250).route == "bluestein"  # M 2048, one group
+    assert wiener_plan(1, 4, 2882, 1000, 250).groups == 1
+    assert wiener_plan(1, 4, 5170, 768, 256).route == "split"      # 3 · 256, two groups
+    assert wiener_plan(1, 4, 5170, 768, 256).groups == 2
     assert wiener_istft_supported(8192, 8192, 8192)  # a block holds two sources, any S
     assert wiener_istft_supported(16384, 16384, 4096)  # past the core: a thread-block cluster
     assert wiener_istft_supported(32768, 32768, 4096) and wiener_istft_supported(10000, 10000, 2500)
     assert not wiener_istft_supported(65536, 65536, 16384)  # past the reference's 32 768
     assert wiener_plan(1, 4, 648, 16384, 2048).cluster == 4
+
+
+@pytest.mark.parametrize("nfft,hop,kw", [
+    (768, 256, {}),                                   # the split's size (3 · 256)
+    (768, 256, {"p": 2.0, "conserve_last": True}),
+    (1000, 250, {}),                                  # Bluestein's (8 · 125)
+    (1000, 250, {"p": 2.0, "conserve_last": True}),
+])
+def test_istft_wiener_matches_jax_off_the_core(rng, nfft, hop, kw):
+    """At the sizes the card takes on the split and on Bluestein, which the
+    reference kernel does not take (its own "auto" runs the XLA chain), the
+    port's istft_wiener on CPU tensors against the JAX package's
+    istft_wiener within 2e-4, float32 and PCM16 (±1 LSB)."""
+    from convsep_tpu.dsp.dft import istft_wiener as jax_istft_wiener
+    from convsep_tpu_torch.dsp.dft import istft_wiener
+
+    S, length = 4, 12 * hop
+    w, re, im, y = _mk(rng, S, length, nfft, hop)
+    for out in ("float32", "int16"):
+        want = np.asarray(jax_istft_wiener(jnp.asarray(y), re, im, w, hop, length,
+                                           output_dtype=out, **kw))
+        got = istft_wiener(*_torch(y, re, im), w, hop, length, output_dtype=out, **kw).numpy()
+        assert got.shape == want.shape == (S, length) and got.dtype == want.dtype
+        if out == "int16":
+            assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+        else:
+            np.testing.assert_allclose(got, want, atol=2e-4)
 
 
 # (kw, output dtype, through the ny input): the reference kernel at its
