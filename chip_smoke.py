@@ -202,7 +202,37 @@ result line is printed):
    dsd100 --seconds 30 --runs 3`` (one JSON line, value > 0, mfu_bf16 in
    (0, 1], no section skipped, the pallas-impl section through the STFT,
    Wiener mask and iSTFT kernels); ``profile --preset highres4096`` (the
-   fused decode kernel on top).
+   fused decode kernel on top);
+22. stereo training, dsd100-stereo at full width, B 32, on 8 synthetic
+   tracks of panned stereo stems (``AudioSegmentDataset(stereo=True)``):
+   one step of the kernel route (the STFT kernel on (64, 14 336) mixture
+   and (256, 14 336) stem rows, the fused adadelta kernel) against the
+   plain route from the seeded init, beside phase 6's witnesses, at phase
+   6's limits or, where a witness itself reads past one,
+   ``WITNESS_MARGIN`` × the larger witness; ``Trainer.fit(max_steps=20)``: a finite, falling loss, two
+   STFT launches a step, the adadelta kernel; both routes' step times, the
+   Trainer's logged step and the peak device memory;
+23. multires training, multires4096 the same way on mono tracks (the STFT
+   kernel at 4096 on (32, 28 672) and (128, 28 672), the multires channels
+   by ``stft_matmul`` at 1024 and 2048 in the step);
+24. bf16 adadelta state: dsd100, B 32, the plain update, 20 feature steps
+   on one seeded batch (the reference bench's ``b32_state_bf16`` setting)
+   with bf16 accumulators against float32 ones from the same seed (cuDNN
+   deterministic): the accumulators bf16, each step's loss against the
+   reference's 2e-5 (``TOL_BF16_STATE``, printed) and gated at the larger
+   of it and bf16 storage's first-order limit (2^-9 of the float32 run's
+   descent so far), both step times; the same from audio on 20 different
+   batches, printed;
+25. ``steps_per_dispatch`` 4: dsd100 kernel route, 5 replays of the CUDA
+   graph of 4 steps against 20 eager steps from the same state (cuDNN
+   deterministic): parameters, accumulators and losses bit for bit (else
+   held at ``TOL_GRAPH`` × max|p|), the launch counts (a replay adds the
+   capture's; the warm-up's 2 steps on copies counted), then
+   ``Trainer.fit`` with K 4 and K 1, each its logged step;
+26. asynchronous checkpoints: ``Trainer(workdir=...).fit(max_steps=10)``
+   with ``checkpoint_every_steps`` 5: two saves on the writer thread, the
+   ms each held the caller, a synchronous save of the same state beside
+   them, and a fresh Trainer's restore bit for bit.
 
 Each slice expects the fused decode launched exactly where "auto" routes it
 (``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by compute dtype, TM
@@ -220,7 +250,8 @@ every parity comparison (matmul and cuDNN).
     python3 chip_smoke.py --device-times stft|ct_stft|istft|level2|decode|others[,...]
 
 is the child that phases 5, 5b, 7, 11 and 14 start: it prints one JSON line of
-device times, keyed by kind.
+device times, keyed by kind. ``training_paths`` in the result line carries
+phases 22–26's numbers.
 """
 
 from __future__ import annotations
@@ -1389,18 +1420,20 @@ def phase_adadelta(device, gen) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
 
-def train_preset(kernels_on: bool):
-    """dsd100 on the kernel route (fft_impl "pallas", optimizer_impl
-    "fused") or the plain route ("matmul", "xla"); logs every step."""
+def train_preset(kernels_on: bool, name: str = "dsd100", **train_kw):
+    """Preset ``name`` on the kernel route (fft_impl "pallas",
+    optimizer_impl "fused") or the plain route ("matmul", "xla"); logs
+    every step; ``train_kw`` overrides its training fields."""
     from convsep_tpu_torch.configs import get_preset
 
-    p = get_preset("dsd100")
+    p = get_preset(name)
     return dataclasses.replace(
         p,
         transform=dataclasses.replace(p.transform,
                                       fft_impl="pallas" if kernels_on else "matmul"),
-        train=dataclasses.replace(p.train, optimizer_impl="fused" if kernels_on else "xla",
-                                  log_every_steps=1),
+        train=dataclasses.replace(p.train, **{
+            "optimizer_impl": "fused" if kernels_on else "xla", "log_every_steps": 1,
+            **train_kw}),
     )
 
 
@@ -1506,29 +1539,30 @@ def route_step(preset, params, mix, stems, device, stft=None) -> dict:
     return out
 
 
-def route_check(params, mix, stems, wiener_eps: float, device) -> dict:
-    """One step of the kernel route, the plain route and the two witnesses
-    (:func:`witness_stfts`) from the same parameters, zero accumulators and
-    the same batch, at ``wiener_eps``. Returns each of the kernel route's
-    and the witnesses' gaps to the plain route: loss and grad_norm
-    (relative), gradients and weights after the step (absolute, in units of
-    max|g|), the mixture's spectrum (in units of its peak); and whether the
-    fused step is bit-exact."""
+def route_check(params, mix, stems, wiener_eps: float, device, name: str = "dsd100") -> dict:
+    """One step of preset ``name``'s kernel route, its plain route and the
+    two witnesses (:func:`witness_stfts`) from the same parameters, zero
+    accumulators and the same batch, at ``wiener_eps``. Returns each of the
+    kernel route's and the witnesses' gaps to the plain route: loss and
+    grad_norm (relative), gradients and weights after the step (absolute,
+    in units of max|g|), the mixture's spectrum (in units of its peak); and
+    whether the fused step is bit-exact."""
     import torch
     from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
     from convsep_tpu_torch.dsp.dft import stft_matmul
-    from convsep_tpu_torch.dsp.windows import sinebell
+    from convsep_tpu_torch.dsp.windows import hann, sinebell
 
     def at_eps(p):
         return dataclasses.replace(p, sep=dataclasses.replace(p.sep, wiener_eps=wiener_eps))
 
-    kern, plain = at_eps(train_preset(True)), at_eps(train_preset(False))
+    kern, plain = at_eps(train_preset(True, name)), at_eps(train_preset(False, name))
     t = plain.transform
-    w = sinebell(t.frame_size)
+    w = (sinebell if t.window == "sinebell" else hann)(t.frame_size)
     witnesses = witness_stfts()
-    spec = {"plain": stft_matmul(mix, w, t.hop_size, algorithm="direct"),
-            "kernel": stft_pallas(mix, w, t.hop_size),
-            **{k: f(mix, w, t.hop_size) for k, f in witnesses.items()}}
+    rows = mix.reshape(-1, mix.shape[-1])  # a stereo mixture's ears as rows
+    spec = {"plain": stft_matmul(rows, w, t.hop_size, algorithm="direct"),
+            "kernel": stft_pallas(rows, w, t.hop_size),
+            **{k: f(rows, w, t.hop_size) for k, f in witnesses.items()}}
     runs = {"plain": route_step(plain, params, mix, stems, device),
             "kernel": route_step(kern, params, mix, stems, device),
             **{k: route_step(plain, params, mix, stems, device, stft=f)
@@ -1565,7 +1599,6 @@ def phase_train(device) -> dict:
 
     import numpy as np
     import torch
-    from convsep_tpu_torch import kernels
     from convsep_tpu_torch.data.audio_dataset import AudioSegmentDataset, segment_samples
     from convsep_tpu_torch.data.pipeline import to_device
     from convsep_tpu_torch.train.e2e import make_audio_train_step
@@ -1579,18 +1612,9 @@ def phase_train(device) -> dict:
         metrics = os.path.join(root, "metrics.jsonl")
         log(f"  dataset: {len(ds)} segments of {seg} samples from {TRAIN_TRACKS} tracks")
         trainer = Trainer(preset, from_audio=True, device=device, seed=0)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        trainer.fit(ds, max_steps=TRAIN_STEPS, metrics_path=metrics)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        with open(metrics) as f:
-            recs = [json.loads(line) for line in f]
-    steps = [r for r in recs if "loss" in r]
-    losses = [r["loss"] for r in steps]
-    log(f"  fit: {trainer.state.step} steps in {fit_s:.2f} s, launches {launches}")
+        run = fit_losses(trainer, ds, TRAIN_STEPS, metrics, device)
+    losses, launches = run["losses"], run["launches"]
+    log(f"  fit: {trainer.state.step} steps in {run['fit_s']:.2f} s, launches {launches}")
     log(f"  losses by logged step: {[round(v, 6) for v in losses]}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"  mean loss, first 5 logged steps {first:.6f}, last 5 {last:.6f}")
@@ -1603,9 +1627,8 @@ def phase_train(device) -> dict:
             and launches["stft_bluestein"] == 0 and launches["stft_cluster"] == 0
             and launches["stft_dft"] == 0 and launches["fused_adadelta"] > 0):
         raise AssertionError(f"training path missed a kernel: {launches}")
-    fit_ms = float(np.median([r["step_time_ms"] for r in steps[1:]]))
-    fit_rtf = float(np.median([r["rtf_train"] for r in steps[1:]]))
-    log(f"  fit: median step_time_ms {fit_ms:.3f}, rtf_train {fit_rtf:.1f} (the Trainer's log)")
+    log(f"  fit: median step_time_ms {run['step_time_ms']:.3f}, rtf_train "
+        f"{run['rtf_train']:.1f} (the Trainer's log)")
     mix, stems = to_device(next(ds.batches(preset.train.batch_size, shuffle=True, seed=123)),
                            device)
     fitted = {k: v.detach().clone() for k, v in trainer.state.params.items()}
@@ -3318,7 +3341,7 @@ def phase_feature_train(device) -> dict:
             raise AssertionError(f"resumed parameters differ: {resume_err} × max|p|")
         del t1
         # one full-state save and one restore, timed alone
-        mgr = CheckpointManager(os.path.join(root, "timed"))
+        mgr = CheckpointManager(os.path.join(root, "timed"), async_save=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mgr.save(t2.state.step, t2.state, extra=t2.data_position)
@@ -3365,6 +3388,452 @@ def phase_feature_train(device) -> dict:
             "fit_step_ms": fit_ms, "fit_rtf_train": fit_rtf, "ms": ms, "plain_ms": plain_ms,
             "route": route, "resume_err": resume_err, "resume_exact": resume_exact,
             "checkpoint_bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_alone_ms}
+
+
+# relative, each step's loss, bf16 against float32 adadelta state: the
+# reference's bound (its v5e, 200 steps), printed; phase 24 gates at the
+# larger of it and the first-order limit of bf16 storage (the card read
+# 4.6e-5 at step 17 of 20)
+TOL_BF16_STATE = 2e-5
+# phases 22-23: phase 6's route limits were set above dsd100's witnesses; at
+# dsd100-stereo a witness itself passes them (rfft: weights 4.11e-5 against
+# 3e-5 at wiener_eps 1e-8), so a limit there is this × the larger witness's
+# reading in the same run
+WITNESS_MARGIN = 2.0
+TOL_GRAPH = 1e-6          # × max|p|, the K-step graph against eager steps, if not bit for bit
+DISPATCH_K = 4            # steps_per_dispatch of the graph phase
+
+
+def write_stereo_tracks(root: str, sources, tracks: int = TRAIN_TRACKS,
+                        seconds: int = TRAIN_SECONDS) -> None:
+    """As :func:`write_tracks`, each stem a stereo wav panned to its own
+    angle (stem s of S at (s + 1/2) · 90° / S: no two stems alike in both
+    ears)."""
+    import numpy as np
+    from convsep_tpu_torch.data.io import write_wav
+    from convsep_tpu_torch.data.synth import sine_mixture
+
+    for i in range(tracks):
+        stems, _ = sine_mixture(len(sources), seconds * FS, fs=FS, seed=i)
+        os.makedirs(os.path.join(root, f"track{i}"))
+        for s, name in enumerate(sources):
+            theta = (s + 0.5) * np.pi / (2 * len(sources))
+            write_wav(os.path.join(root, f"track{i}", f"{name}.wav"), FS,
+                      np.stack([np.cos(theta) * stems[s], np.sin(theta) * stems[s]], axis=1))
+
+
+def route_gate(name: str, mix, stems, device) -> dict:
+    """Phase 6's route check (:func:`route_check`) for preset ``name`` from
+    the seeded init, at the preset's Wiener eps and at 1e-2, gated as phase
+    6: the loss within ``TOL_ROUTE``, the fused step bit for bit, grad_norm
+    and weights within phase 6's limits (``TOL_ROUTE_GN`` /
+    ``TOL_ROUTE_GN_EPS``, ``TOL_ROUTE_WEIGHTS`` × max|g|) or, where a
+    witness (a float32-correct plain route) itself reads past them,
+    ``WITNESS_MARGIN`` × the larger witness's reading in this run."""
+    import torch
+    from convsep_tpu_torch.train.loop import create_train_state
+
+    preset = train_preset(True, name)
+    init = create_train_state(preset, 0, device)[0].params
+    out = {}
+    for weps in (preset.sep.wiener_eps, 1e-2):
+        r = route_check(init, mix, stems, weps, device, name)
+        limits = {"grad_norm": TOL_ROUTE_GN if weps == 1e-2 else TOL_ROUTE_GN_EPS,
+                  "weights": TOL_ROUTE_WEIGHTS}
+        limits = {g: max(v, WITNESS_MARGIN * max(r["witness"][g], r["rfft"][g]))
+                  for g, v in limits.items()}
+        log(f"    wiener_eps {weps:g}: limits grad_norm {limits['grad_norm']:.3e}, weights "
+            f"{limits['weights']:.3e}")
+        k = r["kernel"]
+        out[f"{weps:g}"] = {**r, "limits": limits}
+        if not (k["loss"] <= TOL_ROUTE and k["grad_norm"] <= limits["grad_norm"]
+                and k["weights"] <= limits["weights"] and r["exact"]):
+            raise AssertionError(f"the kernel route's train step disagrees with the plain "
+                                 f"route at wiener_eps {weps}: {r}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def fit_losses(trainer, ds, steps: int, metrics: str, device) -> dict:
+    """``trainer.fit(ds, max_steps=steps)`` with the launch counts taken
+    from zero just before it and read just after, the peak device memory,
+    and the logged losses and step times."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(ds, max_steps=steps, metrics_path=metrics)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    with open(metrics) as f:
+        recs = [r for r in map(json.loads, f) if "loss" in r]
+    return {"launches": launches, "fit_s": fit_s, "losses": [r["loss"] for r in recs],
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "step_time_ms": float(np.median([r["step_time_ms"] for r in recs[1:]])),
+            "rtf_train": float(np.median([r["rtf_train"] for r in recs[1:]]))}
+
+
+def phase_train_path(name: str, ds, device) -> dict:
+    """Stereo (dsd100-stereo) or multires (multires4096) training at full
+    width, B 32: the route gate from the seeded init, then
+    ``Trainer.fit(max_steps=20)`` on the kernel route (finite, falling
+    loss; two STFT launches a step, no other STFT kernel; the adadelta
+    kernel), the kernel and plain routes' step times."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.data.pipeline import to_device
+    from convsep_tpu_torch.train.e2e import make_audio_train_step
+    from convsep_tpu_torch.train.loop import Trainer, create_train_state
+
+    kern, plain = train_preset(True, name), train_preset(False, name)
+    B = kern.train.batch_size
+    mix, stems = to_device(next(ds.batches(B, shuffle=True, seed=123)), device)
+    log(f"  batch: mixtures {tuple(mix.shape)}, stems {tuple(stems.shape)}; the STFT kernel on "
+        f"({mix.numel() // mix.shape[-1]}, {mix.shape[-1]}) and "
+        f"({stems.numel() // stems.shape[-1]}, {stems.shape[-1]}) rows a step")
+    log(f"  route check from the seeded random init (gated as phase 6):")
+    route = route_gate(name, mix, stems, device)
+    with tempfile.TemporaryDirectory() as root:
+        trainer = Trainer(kern, from_audio=True, device=device, seed=0)
+        run = fit_losses(trainer, ds, TRAIN_STEPS, os.path.join(root, "m.jsonl"), device)
+    del trainer
+    losses, launches = run["losses"], run["launches"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  fit: {TRAIN_STEPS} steps in {run['fit_s']:.2f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, peak device memory "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  losses by logged step: {[round(v, 6) for v in losses]}; mean of the first 5 "
+        f"{first:.6f}, of the last 5 {last:.6f}")
+    if len(losses) < 10 or not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{name}: training loss is not finite and falling: {losses}")
+    others = [k for k in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2",
+                          "stft_dft") if launches[k]]
+    if launches["stft"] != 2 * TRAIN_STEPS or others or launches["fused_adadelta"] == 0:
+        raise AssertionError(f"{name}: the training path missed a kernel: {launches}")
+    torch.cuda.empty_cache()
+    times = {}
+    for route_name, p in (("kernel", kern), ("plain", plain)):
+        st, opt = create_train_state(p, 0, device)
+        times[route_name] = time_steps(make_audio_train_step(p, opt), st, mix, stems)
+        del st
+        torch.cuda.empty_cache()
+    audio_s = B * mix.shape[-1] / FS
+    log(f"  train step B {B}: kernel route {times['kernel']:.3f} ms (rtf_train "
+        f"{audio_s * 1e3 / times['kernel']:.1f}), plain route {times['plain']:.3f} ms; "
+        f"the Trainer's logged step {run['step_time_ms']:.3f} ms")
+    return {"launches": launches, "ms": times["kernel"], "plain_ms": times["plain"],
+            "logged_step_ms": run["step_time_ms"], "peak_bytes": run["peak_bytes"],
+            "route": route}
+
+
+def device_batches(ds, B: int, n: int, device) -> list:
+    """The first ``n`` shuffled batches of ``ds``, epoch after epoch (seeds
+    7, 8, ...), on the card."""
+    from convsep_tpu_torch.data.pipeline import to_device
+
+    out, seed = [], 7
+    while len(out) < n:
+        for b in ds.batches(B, shuffle=True, seed=seed):
+            out.append(to_device(b, device))
+            if len(out) == n:
+                break
+        seed += 1
+    return out
+
+
+def bf16_against_float32(step_of, f32, b16, batches, device) -> tuple:
+    """20 steps of ``step_of(preset, opt)`` with float32 and with bf16
+    adadelta state from the same seed on ``batches`` (cuDNN deterministic,
+    so only the state's type differs): the bf16 state's dtypes, each
+    step's relative loss gap, the bf16 run's launch counts."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.ckpt.checkpoint import flatten
+    from convsep_tpu_torch.train.loop import create_train_state
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, p in (("float32", f32), ("bfloat16", b16)):
+            st, opt = create_train_state(p, 0, device)
+            step = step_of(p, opt)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            losses = []
+            for x, y in batches:
+                st, m = step(st, x, y)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            runs[name] = (torch.stack(losses).cpu().numpy().astype(np.float64),
+                          dict(kernels.LAUNCHES),
+                          {str(t.dtype) for t in flatten(st.opt_state).values()})
+            del st
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    l32, l16 = runs["float32"][0], runs["bfloat16"][0]
+    return runs["bfloat16"][2], np.abs(l16 - l32) / np.abs(l32), l32, runs["bfloat16"][1]
+
+
+def phase_bf16_state(ds, device) -> dict:
+    """dsd100, B 32, the plain update with bf16 accumulators against
+    float32 ones from the same seed, as the reference measured its bound
+    (``convsep_tpu/benchmark.py``'s ``b32_state_bf16`` row: the feature
+    step on one seeded batch): the accumulators bf16, each of 20 steps'
+    loss within ``TOL_BF16_STATE`` relative, both step times. Then the
+    same from audio on 20 different batches of the synthetic tracks,
+    printed: there the Wiener ratio near silent bins makes any
+    perturbation grow (phase 20 saw two float32 runs part by step 7 under
+    cuDNN's default algorithms), so that gap is not the state's."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.train.e2e import make_audio_train_step
+    from convsep_tpu_torch.train.loop import create_train_state, make_train_step
+
+    f32 = train_preset(True, optimizer_impl="xla")
+    b16 = dataclasses.replace(f32, train=dataclasses.replace(
+        f32.train, optimizer_state_dtype="bfloat16"))
+    m, B = f32.model, f32.train.batch_size
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(B, m.time_context, m.feat_size, m.channels_in))
+                         .astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.normal(size=(B, m.num_sources, m.time_context, m.feat_size))
+                         .astype(np.float32)).to(device)
+    dtypes, rel, l32, launches = bf16_against_float32(make_train_step, f32, b16,
+                                                       [(x, y)] * TRAIN_STEPS, device)
+    # bf16 storage errs by at most 2^-9 of an accumulator, which moves each
+    # update by at most about 2^-9 of itself: to first order the loss at
+    # step k parts by at most 2^-9 of the float32 run's descent so far
+    descent = np.concatenate([[0.0], np.cumsum(np.abs(np.diff(l32)))])
+    limit = np.maximum(TOL_BF16_STATE, 2.0 ** -9 * descent / np.abs(l32))
+    log(f"  feature step, one seeded batch: accumulator dtypes {sorted(dtypes)}; losses "
+        f"(float32 state) {[round(float(v), 6) for v in l32]}")
+    log(f"  bf16 against float32 state, each step's loss: max {rel.max():.3e} relative at "
+        f"step {int(rel.argmax()) + 1} (the reference's bound {TOL_BF16_STATE}: "
+        f"{'met' if rel.max() <= TOL_BF16_STATE else 'not met'}); the largest share of the "
+        f"first-order limit {(rel / limit).max():.3f}")
+    if dtypes != {"torch.bfloat16"} or not np.all(rel <= limit):
+        raise AssertionError(f"bf16 state: dtypes {dtypes}, loss gaps {rel} past {limit}")
+    times = {}
+    for name, p in (("float32", f32), ("bfloat16", b16)):
+        st, opt = create_train_state(p, 0, device)
+        times[name] = time_steps(make_train_step(p, opt), st, x, y)
+        del st
+    log(f"  feature step B {B}, plain update: bf16 state {times['bfloat16']:.3f} ms, "
+        f"float32 state {times['float32']:.3f} ms")
+    _, audio_rel, _, _ = bf16_against_float32(
+        make_audio_train_step, f32, b16, device_batches(ds, B, TRAIN_STEPS, device), device)
+    log(f"  from audio, 20 batches (printed, not gated): each step's loss gap "
+        f"{[float(f'{v:.2e}') for v in audio_rel]}")
+    return {"launches": launches, "max_rel_loss_gap": float(rel.max()),
+            "limit_share": float((rel / limit).max()),
+            "audio_max_rel_loss_gap": float(audio_rel.max()), "ms": times["bfloat16"],
+            "float32_ms": times["float32"]}
+
+
+def phase_dispatch(ds, device) -> dict:
+    """dsd100 kernel route, B 32, ``steps_per_dispatch`` 4: 20 steps as 5
+    replays of the CUDA graph of 4 steps against 20 eager single steps from
+    the same state on the same batches (cuDNN deterministic): parameters
+    and accumulators bit for bit (else the largest gap, held at
+    ``TOL_GRAPH`` × max|p|); the launch counts (a replay adds the capture's
+    counts); then ``Trainer.fit`` with K 4 and with K 1, each its logged
+    step time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.ckpt.checkpoint import flatten
+    from convsep_tpu_torch.train.e2e import make_audio_train_step, make_audio_train_step_multi
+    from convsep_tpu_torch.train.loop import Trainer, create_train_state
+
+    K = DISPATCH_K
+    preset = train_preset(True)
+    batches = device_batches(ds, preset.train.batch_size, TRAIN_STEPS, device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sa, opt = create_train_state(preset, 0, device)
+        sb, _ = create_train_state(preset, 0, device)
+        multi, single = make_audio_train_step_multi(preset, opt), make_audio_train_step(preset, opt)
+        groups = [(torch.stack([b[0] for b in batches[g:g + K]]),
+                   torch.stack([b[1] for b in batches[g:g + K]]))
+                  for g in range(0, TRAIN_STEPS, K)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        graph_losses = []
+        for xs, ys in groups:
+            sa, m = multi(sa, xs, ys)
+            graph_losses.append(m["loss"])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graph_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        kernels.reset_launches()
+        eager_losses = []
+        for mix, stems in batches:
+            sb, m = single(sb, mix, stems)
+            eager_losses.append(m["loss"])
+        torch.cuda.synchronize()
+        eager_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = flatten((sa.params, sa.opt_state)), flatten((sb.params, sb.opt_state))
+    exact = all(torch.equal(a[k], b[k]) for k in a) and torch.equal(
+        torch.cat(graph_losses), torch.stack(eager_losses))
+    pmax = max(p.abs().max().item() for p in sb.params.values())
+    gap = max((a[k].float() - b[k].float()).abs().max().item() for k in a) / pmax
+    per_step = {k: v // TRAIN_STEPS for k, v in eager_launches.items()}
+    log(f"  {TRAIN_STEPS // K} replays of the {K}-step graph (capture and warm-up included: "
+        f"{capture_s:.2f} s) against {TRAIN_STEPS} eager steps: bit for bit {exact}, largest "
+        f"gap {gap:.3e} × max|p|; launches with the graph {graph_launches} (the warm-up's "
+        f"2 steps on copies of the state included), eager {eager_launches}")
+    if not (exact or gap <= TOL_GRAPH):
+        raise AssertionError(f"the K-step graph parts from eager steps by {gap} × max|p|")
+    warm = 2 if device.type == "cuda" else 0  # GraphedSteps' warm-up steps (none on a CPU)
+    if graph_launches != {k: v + warm * per_step[k] for k, v in eager_launches.items()}:
+        raise AssertionError(f"graph launches {graph_launches} against eager {eager_launches}")
+    del sa, sb, a, b, groups, batches
+    torch.cuda.empty_cache()
+    fits = {}
+    with tempfile.TemporaryDirectory() as root:
+        for k in (K, 1):
+            p = dataclasses.replace(preset, train=dataclasses.replace(
+                preset.train, steps_per_dispatch=k))
+            trainer = Trainer(p, from_audio=True, device=device, seed=0)
+            fits[k] = fit_losses(trainer, ds, TRAIN_STEPS, os.path.join(root, f"m{k}.jsonl"),
+                                 device)
+            del trainer
+            torch.cuda.empty_cache()
+    log(f"  Trainer.fit, {TRAIN_STEPS} steps: logged step {fits[K]['step_time_ms']:.3f} ms "
+        f"with the {K}-step graph, {fits[1]['step_time_ms']:.3f} ms one step a dispatch; "
+        f"launches with the graph {({k: v for k, v in fits[K]['launches'].items() if v})}")
+    if not all(np.isfinite(f["losses"]).all() for f in fits.values()):
+        raise AssertionError(f"non-finite losses: {fits}")
+    return {"launches": fits[K]["launches"], "bit_for_bit": exact, "gap_max_p": gap,
+            "logged_step_ms": fits[K]["step_time_ms"],
+            "logged_step_ms_k1": fits[1]["step_time_ms"]}
+
+
+def phase_async_checkpoint(ds, device) -> dict:
+    """``Trainer(dsd100 kernel route, workdir=...).fit(max_steps=10)`` with
+    ``checkpoint_every_steps`` 5 on the asynchronous writer: two saves, the
+    time each held the caller, a synchronous save of the same state beside
+    them, and a restore into a fresh Trainer equal to the state bit for
+    bit."""
+    import tempfile
+
+    import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.ckpt import CheckpointManager
+    from convsep_tpu_torch.ckpt.checkpoint import flatten
+    from convsep_tpu_torch.train.loop import Trainer
+
+    preset = train_preset(True, checkpoint_every_steps=5)
+    with tempfile.TemporaryDirectory() as root:
+        wd = os.path.join(root, "run")
+        trainer = Trainer(preset, workdir=wd, from_audio=True, device=device, seed=0)
+        blocked = []
+        save = trainer._ckpt.save
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wrote = save(*args, **kw)
+            if wrote:
+                blocked.append((time.perf_counter() - t0) * 1e3)
+            return wrote
+
+        trainer._ckpt.save = timed
+        kernels.reset_launches()
+        trainer.fit(ds, max_steps=10)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        steps = trainer._ckpt.all_steps()
+        # a save that finds no write in flight (saves far apart, as the
+        # presets' 500 steps are), its pinned blocks cached by the last
+        trainer._ckpt.wait()
+        timed(11, trainer.state)
+        trainer._ckpt.wait()
+        apart_ms = blocked.pop()
+        sync = CheckpointManager(os.path.join(root, "sync"), async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(trainer.state.step, trainer.state)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        fresh = Trainer(preset, workdir=wd, from_audio=True, device=device, seed=1)
+        step = fresh.restore()
+        a, b = flatten((trainer.state.params, trainer.state.opt_state)), flatten(
+            (fresh.state.params, fresh.state.opt_state))
+        same = all(torch.equal(a[k], b[k]) for k in a)
+    log(f"  checkpoints {steps}; the caller held {[round(v, 1) for v in blocked]} ms a save "
+        f"on the asynchronous writer (the second waits for the first's write: 5 steps take "
+        f"less than a write), {apart_ms:.1f} ms a save with no write in flight, "
+        f"{sync_ms:.1f} ms by a synchronous save of the same state; restored step {step}, "
+        f"bit for bit {same}")
+    if not (steps == [5, 10] and len(blocked) == 2 and step == 10 and same
+            and not trainer._ckpt.fell_back_to_sync):
+        raise AssertionError(f"asynchronous checkpoints: steps {steps}, saves {blocked}, "
+                             f"restored {step}, equal {same}")
+    return {"launches": launches, "blocked_ms": blocked, "apart_ms": apart_ms,
+            "sync_ms": sync_ms}
+
+
+def phase_training_paths(device) -> dict:
+    """Phases 22-26 on synthetic tracks written once: mono for dsd100 and
+    multires4096, panned stereo for dsd100-stereo."""
+    import tempfile
+
+    import torch
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.data.audio_dataset import AudioSegmentDataset, segment_samples
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        mono, stereo = os.path.join(root, "mono"), os.path.join(root, "stereo")
+        sources = get_preset("dsd100").sources
+        write_tracks(mono, sources)
+        write_stereo_tracks(stereo, sources)
+
+        def dataset(name, where, is_stereo=False):
+            p = get_preset(name)
+            return AudioSegmentDataset(where, p.sources, segment_samples(p), fs=FS,
+                                       stereo=is_stereo)
+
+        for label, name, where, is_stereo in (
+                ("22", "dsd100-stereo", stereo, True), ("23", "multires4096", mono, False)):
+            ds = dataset(name, where, is_stereo)
+            log(f"phase {label}: {name} training from audio, full width, B "
+                f"{get_preset(name).train.batch_size}, {len(ds)} "
+                f"segments of {TRAIN_TRACKS} synthetic {'stereo' if is_stereo else 'mono'} "
+                f"tracks, seeded weights")
+            t0 = time.perf_counter()
+            out[name] = phase_train_path(name, ds, device)
+            log(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+        ds = dataset("dsd100", mono)
+        for label, key, fn, what in (
+                ("24", "bf16_state", phase_bf16_state,
+                 "dsd100, the plain update with bf16 adadelta state against float32"),
+                ("25", "dispatch", phase_dispatch,
+                 f"dsd100 kernel route, steps_per_dispatch {DISPATCH_K} as one CUDA graph"),
+                ("26", "async_checkpoint", phase_async_checkpoint,
+                 "dsd100 kernel route, Trainer checkpoints on the asynchronous writer")):
+            log(f"phase {label}: {what}")
+            t0 = time.perf_counter()
+            out[key] = fn(ds, device)
+            log(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    return out
 
 
 CLI_EVAL_SECONDS = 5         # the head the card's evaluation is held to the CPU's on
@@ -3830,6 +4299,7 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     cli_run = phase_cli(device)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    train_paths = phase_training_paths(device)
 
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
@@ -3841,7 +4311,11 @@ def main(argv: list[str]) -> int:
              **{f"{k} chunked": r for k, r in chunked.items()},
              **{f"{k} online": r for k, r in online.items()},
              **{f"{k} stream": r for k, r in stream.items()}, "dsd100 service": service,
-             **cli_run["paths"]}
+             **cli_run["paths"], "dsd100-stereo training": train_paths["dsd100-stereo"],
+             "multires4096 training": train_paths["multires4096"],
+             "dsd100 training, bf16 adadelta state": train_paths["bf16_state"],
+             f"dsd100 training, {DISPATCH_K}-step CUDA graph": train_paths["dispatch"],
+             "dsd100 training, asynchronous checkpoints": train_paths["async_checkpoint"]}
 
     def launched(kernel: str) -> dict:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
@@ -4068,6 +4542,8 @@ def main(argv: list[str]) -> int:
                    for k, r in stream.items()},
         "service": {"dsd100 sweep of 3 tracks": service["ms"]},
     }, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"},
+        "training_paths": {k: {f: v for f, v in r.items() if f not in ("launches", "route")}
+                           for k, r in train_paths.items()},
         "cli": {k: v for k, v in cli_run.items() if k not in ("paths", "bench")},
         "bench": {"value": cli_run["bench"]["value"],
                   **{k: v for k, v in cli_run["bench"]["detail"].items()

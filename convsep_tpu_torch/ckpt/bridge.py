@@ -12,10 +12,11 @@ refused. The derived ``enc_cache`` / ``dec_cache`` collections are
 recomputed by :meth:`ConvSep.prepare_inference`, never bridged.
 
 Training state crosses too: the parameters as the same flat dict (a
-training step takes them as they are), and the adadelta accumulators, an
-``AdadeltaState`` of two parameter-shaped trees in the reference, as
-:class:`convsep_tpu_torch.train.optim.AdadeltaState` of two flat dicts
-(:func:`opt_state_from_jax` / :func:`opt_state_to_jax`).
+training step takes them as they are), and the optimizer state, the
+reference's ``AdadeltaState`` of two parameter-shaped trees (float32 or
+bf16) or optax's adam, rmsprop and sgd chain states, as the port's
+NamedTuples of flat dicts (:mod:`convsep_tpu_torch.train.optim`;
+:func:`opt_state_from_jax` / :func:`opt_state_to_jax`).
 """
 
 from __future__ import annotations
@@ -70,22 +71,54 @@ def to_jax_params(state: dict[str, torch.Tensor]) -> dict:
     return {"params": params}
 
 
-def opt_state_from_jax(state, cfg: ConvSepConfig, device=None):
-    """Reference ``AdadeltaState`` (or anything with ``accu`` and
-    ``delta_accu`` parameter trees, leaves numpy-convertible) → the port's
-    ``AdadeltaState`` of flat float32 dicts on ``device``."""
-    from convsep_tpu_torch.train.optim import AdadeltaState
+def _state_tree(tree, cfg: ConvSepConfig, device=None) -> dict[str, torch.Tensor]:
+    """A parameter-shaped state tree → flat dict, bf16 leaves kept bf16
+    (their values pass float32 exactly), others float32."""
+    flat = from_jax_params(tree, cfg, device)
+    params = tree.get("params", tree)
+    for name in flat:
+        leaf = params
+        for key in _NESTED.get(name, (name,)):
+            leaf = leaf[key]
+        if str(getattr(leaf, "dtype", "")) == "bfloat16":
+            flat[name] = flat[name].to(torch.bfloat16)
+    return flat
 
-    return AdadeltaState(
-        accu=from_jax_params(state.accu, cfg, device),
-        delta_accu=from_jax_params(state.delta_accu, cfg, device),
-    )
+
+def opt_state_from_jax(state, cfg: ConvSepConfig, device=None):
+    """A reference optimizer state, leaves numpy-convertible, → the port's:
+    an ``AdadeltaState`` (float32 or bf16 accumulators), or optax's chain
+    tuple of ``adam`` / ``adamw`` (``ScaleByAdamState`` first), ``rmsprop``
+    (``ScaleByRmsState`` first) or ``sgd`` (empty states) as ``AdamState``,
+    ``RmsState`` or ``SgdState``."""
+    from convsep_tpu_torch.train import optim
+
+    if hasattr(state, "accu"):
+        return optim.AdadeltaState(accu=_state_tree(state.accu, cfg, device),
+                                   delta_accu=_state_tree(state.delta_accu, cfg, device))
+    head = state[0] if isinstance(state, tuple) and not hasattr(state, "_fields") else state
+    if hasattr(head, "mu"):
+        count = torch.tensor(int(np.asarray(head.count)), dtype=torch.int32, device=device)
+        return optim.AdamState(count=count, mu=_state_tree(head.mu, cfg, device),
+                               nu=_state_tree(head.nu, cfg, device))
+    if hasattr(head, "nu"):
+        return optim.RmsState(nu=_state_tree(head.nu, cfg, device))
+    return optim.SgdState()
 
 
 def opt_state_to_jax(state) -> dict:
-    """Flat adadelta state → ``{"accu": tree, "delta_accu": tree}`` of
-    numpy (``AdadeltaState(**d)`` in the reference)."""
-    return {"accu": to_jax_params(state.accu), "delta_accu": to_jax_params(state.delta_accu)}
+    """The port's optimizer state → its reference fields as numpy:
+    ``{"accu": tree, "delta_accu": tree}`` (``AdadeltaState(**d)``; bf16
+    accumulators as float32 arrays of bf16 values), ``{"count": int32,
+    "mu": tree, "nu": tree}`` (``ScaleByAdamState(**d)``), ``{"nu":
+    tree}`` (``ScaleByRmsState(**d)``) or ``{}`` (SGD)."""
+    out = {}
+    for field, value in zip(state._fields, state):
+        if isinstance(value, torch.Tensor):
+            out[field] = np.int32(value.item())
+        else:
+            out[field] = to_jax_params(value)
+    return out
 
 
 def _glorot_uniform(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:

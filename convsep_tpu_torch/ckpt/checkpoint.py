@@ -10,9 +10,18 @@ temporary directory beside the others and renamed to ``<step>/`` in one
 checkpoints past ``max_to_keep`` are deleted after each save.
 
 Device tensors are copied once each into pinned host memory on the
-current stream, with one wait for all of them, before the file is
-written. The writer is synchronous: ``save`` returns once the checkpoint
-is on disk (``wait`` has nothing to wait for).
+current stream, with one wait for all of them, on the caller's thread;
+that is all a save blocks training for. The file is written, renamed into
+place and the old checkpoints pruned by one writer thread
+(``async_save=True``, the default, as the reference's orbax manager), or
+before ``save`` returns (``async_save=False``). One write is in flight at
+a time: a save, a read (``all_steps``, ``restore``, …) or ``wait`` first
+waits for the write in flight, up to ``async_timeout_s``; past it the
+manager warns (``on_warning``), abandons the wedged writer (its step is
+dropped: it is never renamed into place) and saves synchronously from then
+on (``fell_back_to_sync``), as the reference's watchdog does. A write that
+failed raises at the next save, read or wait. A write killed midway
+leaves only a temporary directory, which no read lists.
 
 A state holding inference-prepared operands (what
 ``ConvSep.prepare_inference`` builds: the composed encoder weight and the
@@ -24,12 +33,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import shutil
 import tempfile
-from typing import Any
+import threading
+from typing import Any, Callable
 
 import torch
+
+log = logging.getLogger(__name__)
 
 _STATE = "state.pt"
 _META = "meta.json"
@@ -121,18 +134,76 @@ def host_leaves(tree: Any) -> dict[str, Any]:
     return out
 
 
+class _Write:
+    """One checkpoint's write on the writer thread."""
+
+    def __init__(self, manager: "CheckpointManager", step: int, leaves: dict, extra: dict):
+        self.done = threading.Event()
+        self.abandoned = False
+        self.error: BaseException | None = None
+        # not a daemon: a script that ends without wait() still finishes its
+        # last checkpoint before the interpreter exits
+        self.thread = threading.Thread(target=self._run, args=(manager, step, leaves, extra),
+                                       name=f"checkpoint-{step}")
+        self.thread.start()
+
+    def _run(self, manager, step, leaves, extra):
+        try:
+            manager._write(step, leaves, extra, self)
+        except BaseException as e:  # raised on the caller's side at the next call
+            self.error = e
+        finally:
+            self.done.set()
+
+
 class CheckpointManager:
     """Atomic per-step checkpoints in ``directory`` (created), the newest
-    ``max_to_keep`` kept (None: all)."""
+    ``max_to_keep`` kept (None: all). ``async_save``, ``async_timeout_s``
+    and ``on_warning`` as the reference's manager (module docstring)."""
 
-    def __init__(self, directory: str, max_to_keep: int | None = 3):
+    def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = True,
+                 async_timeout_s: float = 300.0, on_warning: Callable[[str], None] | None = None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be at least 1 or None, got {max_to_keep}")
         self._dir = os.path.abspath(directory)
         self._max_to_keep = max_to_keep
+        self._async = async_save
+        self._timeout = async_timeout_s
+        self._on_warning = on_warning
+        self.fell_back_to_sync = False
+        self._pending: _Write | None = None
         os.makedirs(self._dir, exist_ok=True)
 
+    def _warn(self, msg: str) -> None:
+        log.warning(msg)
+        if self._on_warning is not None:
+            self._on_warning(msg)
+
+    def _settle(self, timeout: float | None, what: str) -> bool:
+        """Wait for the write in flight, up to ``timeout`` (None: the
+        manager's); past it fall back to synchronous saves and return
+        False. A failed write raises here."""
+        w = self._pending
+        if w is None:
+            return True
+        if not w.done.wait(self._timeout if timeout is None else timeout):
+            w.abandoned = True
+            self._pending = None
+            self._async = False
+            self.fell_back_to_sync = True
+            self._warn(
+                f"async checkpoint {what} did not finish within {self._timeout}s; abandoning "
+                f"the wedged writer and falling back to SYNCHRONOUS saves (the unfinished step "
+                f"is dropped — atomic commit keeps restores safe)")
+            return False
+        self._pending = None
+        if w.error is not None:
+            raise w.error
+        return True
+
     def all_steps(self) -> list[int]:
+        """The finished checkpoints' steps (after the write in flight)."""
+        self._settle(None, "read")
         return sorted(int(d) for d in os.listdir(self._dir)
                       if d.isdigit() and os.path.isfile(os.path.join(self._dir, d, _META)))
 
@@ -143,7 +214,8 @@ class CheckpointManager:
     def save(self, step: int, state: Any, extra: dict | None = None) -> bool:
         """Write ``state`` (and ``extra``, JSON-serializable) as checkpoint
         ``step``; False (nothing written) if a checkpoint at ``step`` or
-        later exists, as the reference's manager skips such saves."""
+        later exists, as the reference's manager skips such saves. Returns
+        once the state is on the host; the write may still be in flight."""
         if _has_prepared_leaves(state):
             raise ValueError(
                 "refusing to checkpoint an inference-prepared state (prepare_inference "
@@ -151,27 +223,42 @@ class CheckpointManager:
                 "trainable parameter dict instead"
             )
         step = int(step)
+        self._settle(None, "save")
         latest = self.latest_step()
         if latest is not None and latest >= step:
             return False
         leaves = host_leaves(state)
+        extra = dict(extra) if extra is not None else {}
+        if self._async:
+            self._pending = _Write(self, step, leaves, extra)
+        else:
+            self._write(step, leaves, extra)
+        return True
+
+    def _write(self, step: int, leaves: dict, extra: dict, job: _Write | None = None) -> None:
+        """``torch.save`` into a temporary directory, then one rename into
+        place (unless the write was abandoned meanwhile), then pruning."""
         tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self._dir)
         try:
             torch.save(leaves, os.path.join(tmp, _STATE))
             with open(os.path.join(tmp, _META), "w") as f:
-                json.dump(extra if extra is not None else {}, f)
+                json.dump(extra, f)
+            if job is not None and job.abandoned:
+                raise RuntimeError(f"checkpoint {step} abandoned by the watchdog")
             os.replace(tmp, os.path.join(self._dir, str(step)))
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         if self._max_to_keep is not None:
-            for old in self.all_steps()[: -self._max_to_keep]:
+            steps = sorted(int(d) for d in os.listdir(self._dir)
+                           if d.isdigit() and os.path.isfile(os.path.join(self._dir, d, _META)))
+            for old in steps[: -self._max_to_keep]:
                 shutil.rmtree(os.path.join(self._dir, str(old)), ignore_errors=True)
-        return True
 
     def restore(self, step: int, like: Any) -> tuple[Any, dict]:
         """Checkpoint ``step`` in the structure of ``like`` (a live state
         works; its tensors say each leaf's device) → (state, meta)."""
+        self._settle(None, "read")
         d = os.path.join(self._dir, str(int(step)))
         leaves = torch.load(os.path.join(d, _STATE), map_location="cpu", weights_only=True)
         with open(os.path.join(d, _META)) as f:
@@ -179,13 +266,15 @@ class CheckpointManager:
         return unflatten_like(like, leaves), dict(meta or {})
 
     def restore_latest(self, like: Any) -> tuple[Any, dict] | None:
-        """The newest checkpoint as (state, meta), or None if there is none."""
+        """The newest finished checkpoint as (state, meta), or None if there
+        is none."""
         step = self.latest_step()
         return None if step is None else self.restore(step, like)
 
     def wait(self, timeout: float | None = None) -> bool:
-        """Saves are synchronous: nothing is ever outstanding."""
-        return True
+        """Wait for the write in flight (``timeout`` None: the manager's);
+        on timeout fall back to synchronous saves and return False."""
+        return self._settle(timeout, "wait")
 
     def close(self) -> None:
-        pass
+        self.wait()

@@ -16,10 +16,10 @@
 GPU; ``--device cpu`` runs on the CPU. The verbs run the package's own
 entry points, so the kernels and routes are the ones the library
 resolves. ``--params`` takes a checkpoint directory of this package
-(``ckpt/checkpoint.py``, the newest step) or a reference pickle. Flags
-whose machinery is not ported yet (``--mesh-data`` > 1, ``--grain``,
-``--tensorboard``, ``--optimizer-state-dtype bfloat16``) are parsed and
-exit non-zero with the package's ``NotImplementedError``. ``--launches``
+(``ckpt/checkpoint.py``, the newest step) or a reference pickle. ``train
+--from-audio`` with a ``*-stereo`` preset trains on both channels. Flags
+whose machinery is not ported yet (``--mesh-data`` > 1, ``--grain``) are
+parsed and exit non-zero with the package's ``NotImplementedError``. ``--launches``
 (before the verb) prints the hand-written kernels' launch counts as one
 line on stderr when the verb ends.
 """
@@ -441,7 +441,7 @@ def _cmd_convert(args) -> int:
     params = convert_reference_checkpoint(args.input, preset.model,
                                           allow_unsafe=args.unsafe_pickle)
     state, _ = create_train_state(preset, 0, args.device, params=params)
-    CheckpointManager(args.out).save(0, state)
+    CheckpointManager(args.out, async_save=False).save(0, state)
     print(f"converted {args.input} -> checkpoint at {args.out} (step 0)")
     return 0
 
@@ -544,16 +544,20 @@ def main(argv=None) -> int:
     tr.add_argument("--resume", action="store_true")
     tr.add_argument("--score-informed", action="store_true")
     tr.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel mesh size (> 1: not ported, raises)")
+                    help="data-parallel mesh size (> 1: not ported, raises "
+                         "NotImplementedError)")
     tr.add_argument("--optimizer-impl", default=None, choices=["xla", "fused"],
                     help="adadelta update: the plain formula or the fused CUDA kernel")
     tr.add_argument("--optimizer-state-dtype", default=None, choices=["float32", "bfloat16"],
-                    help="adadelta accumulator dtype (bfloat16: not ported, raises)")
-    tr.add_argument("--grain", action="store_true", help="grain data loader (not ported, raises)")
+                    help="adadelta accumulator dtype (bfloat16: stored in bf16, float32 math; "
+                         "the plain update only)")
+    tr.add_argument("--grain", action="store_true",
+                    help="grain data loader (not ported, raises NotImplementedError)")
     tr.add_argument("--from-audio", action="store_true",
                     help="train from <track>/<stem>.wav dirs (STFT inside the step; "
                          "--features is the audio dir)")
-    tr.add_argument("--tensorboard", action="store_true", help="(not ported, raises)")
+    tr.add_argument("--tensorboard", action="store_true",
+                    help="also write the logged scalars to <workdir>/tb")
     tr.add_argument("--checkpoint-every-epochs", type=int, default=None,
                     help="save cadence in epochs (default: the preset's)")
     tr.add_argument("--val-features", default=None,

@@ -1,10 +1,11 @@
 """Raw-audio training dataset: wav segments, no offline feature pass.
 
-Mirror of ``convsep_tpu.data.audio_dataset`` (mono): the STFT runs inside
-the training step (:mod:`convsep_tpu_torch.train.e2e`), so training reads
-wav stems and slices fixed-size segments. ``seg_samples = (T - 2) * hop``
+Mirror of ``convsep_tpu.data.audio_dataset``: the STFT runs inside the
+training step (:mod:`convsep_tpu_torch.train.e2e`), so training reads wav
+stems and slices fixed-size segments. ``seg_samples = (T - 2) * hop``
 makes the reference's frame count land exactly on the model's
-time_context. Stereo segments are not ported.
+time_context. ``stereo=True`` keeps both channels for the joint-channel
+presets (``*-stereo``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ def segment_samples(preset: Preset) -> int:
 class AudioSegmentDataset:
     """(track, start) index over ``<root>/<track>/<stem>.wav`` stems.
 
-    Yields float32 segments: mixture (seg,) and targets (S, seg). The
-    mixture is ``mixture.wav`` if present, else the sum of the stems.
+    Yields float32 segments: mixture (seg,) and targets (S, seg), or with
+    ``stereo`` (2, seg) and (S, 2, seg). The mixture is ``mixture.wav`` if
+    present, else the sum of the stems.
     """
 
     root: str
@@ -41,11 +43,18 @@ class AudioSegmentDataset:
     _tracks: list[dict] = field(default_factory=list, init=False)
     _index: list[tuple[int, int]] = field(default_factory=list, init=False)
 
-    def __post_init__(self):
+    def _channels(self, a: np.ndarray) -> np.ndarray:
+        """wav array → mono (n,), or with ``stereo`` (2, n): a mono stem (or
+        an (n, 1) wav) centre-panned, else the first two channels."""
         if self.stereo:
-            raise NotImplementedError(
-                "stereo training segments are not ported (ROADMAP queue 1)"
-            )
+            if a.ndim == 1:
+                return np.stack([a, a])
+            if a.shape[1] == 1:
+                return np.stack([a[:, 0], a[:, 0]])
+            return np.asarray(a).T[:2]
+        return a.mean(axis=1) if a.ndim == 2 else a
+
+    def __post_init__(self):
         if not (0 <= self.overlap_samples < self.seg_samples):
             raise ValueError("overlap must be in [0, seg_samples)")
         names = sorted(
@@ -61,13 +70,13 @@ class AudioSegmentDataset:
                 fs, a = read_wav(os.path.join(tdir, f"{s}.wav"))
                 if fs != self.fs:
                     raise ValueError(f"{name}/{s}: fs {fs} != {self.fs}")
-                stems[s] = _mono(a)
+                stems[s] = self._channels(a)
             n = min(a.shape[-1] for a in stems.values())
             stems = {s: a[..., :n] for s, a in stems.items()}
             mp = os.path.join(tdir, "mixture.wav")
             if os.path.exists(mp):
                 _, mix = read_wav(mp)
-                mix = _mono(mix)[..., :n]
+                mix = self._channels(mix)[..., :n]
             else:
                 mix = np.sum(list(stems.values()), axis=0)
             ti = len(self._tracks)
@@ -101,7 +110,8 @@ class AudioSegmentDataset:
         drop_remainder: bool = True,
         start: int = 0,
     ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """(mix (B, seg), stems (B, S, seg)) float32 batches. ``start``
+        """(mix (B, seg), stems (B, S, seg)) float32 batches ((B, 2, seg) and
+        (B, S, 2, seg) with ``stereo``). ``start``
         skips the first ``start`` batches unassembled (mid-epoch resume);
         with ``drop_remainder=False`` the last batch may be short."""
         order = np.arange(len(self._index))
@@ -113,7 +123,3 @@ class AudioSegmentDataset:
             xs, ys = zip(*(self.get(int(i)) for i in idx))
             yield np.stack(xs), np.stack(ys)
 
-
-def _mono(a: np.ndarray) -> np.ndarray:
-    """wav array → mono (n,): channels averaged."""
-    return a.mean(axis=1) if a.ndim == 2 else a

@@ -121,6 +121,13 @@ def _t(x: np.ndarray, device: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
 
 
+@lru_cache(maxsize=16)
+def _window_on(window_key: bytes, device: str) -> torch.Tensor:
+    """The window as float32 on ``device``, copied once (a copy inside a
+    training step would be a host wait, and one a CUDA graph cannot hold)."""
+    return _t(_window(window_key), device)
+
+
 @lru_cache(maxsize=8)
 def _ct_forward_consts(nfft: int, device: str) -> tuple:
     """n = n1 + N1·n2, k = N2·k1 + k2: (N1, N2, inner E2 cos/sin (N2, N2),
@@ -204,7 +211,7 @@ def stft_matmul(
     frames = frame_signal(_pad_signal(sig, win_len, int(hop)), win_len, int(hop), nf)
     dev = str(sig.device)
     if _use_factored(algorithm, nfft):
-        frames = frames * _t(window, dev)
+        frames = frames * _window_on(_key(window), dev)
         if win_len < nfft:
             frames = torch.nn.functional.pad(frames, (0, nfft - win_len))
         return _dft_frames_factored(frames, nfft, nfft // 2 + 1)

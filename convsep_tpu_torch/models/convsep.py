@@ -40,6 +40,7 @@ decision-record decoders are not ported.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import torch
 from torch import nn
@@ -66,16 +67,25 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _BAND = ("band", "band_pallas")  # the two-stage decodes: no composed operands
 
 
+@lru_cache(maxsize=16)
+def _band_index(kh: int, Tp: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The banded tap matrix's (Tp, T) tap index and mask on ``device``,
+    made once: the training step builds the matrix every step, and a copy
+    from the host there is a wait that a CUDA graph cannot hold."""
+    T = Tp + kh - 1
+    delta = torch.arange(T)[None, :] - torch.arange(Tp)[:, None]
+    return delta.clamp(0, kh - 1).to(device), ((delta >= 0) & (delta < kh)).to(device)
+
+
 def _band_matrix_for(kernel: torch.Tensor, Tp: int) -> torch.Tensor:
     """(kh, 1, I, O) tied time kernel → dense (Tp·O, T·I) banded tap matrix."""
     kh, kw, I, O = kernel.shape
     if kw != 1:
         raise ValueError(f"band decode expects a (kh, 1, I, O) kernel, got {tuple(kernel.shape)}")
     T = Tp + kh - 1
-    delta = torch.arange(T)[None, :] - torch.arange(Tp)[:, None]  # (Tp, T)
-    valid = ((delta >= 0) & (delta < kh)).to(kernel.device)
+    index, valid = _band_index(kh, Tp, str(kernel.device))
     taps = kernel[:, 0].permute(0, 2, 1)  # (kh, O, I)
-    band = taps[delta.clamp(0, kh - 1).to(kernel.device)] * valid[:, :, None, None]
+    band = taps[index] * valid[:, :, None, None]
     return band.permute(0, 2, 1, 3).reshape(Tp * O, T * I)
 
 

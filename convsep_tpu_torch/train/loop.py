@@ -5,12 +5,19 @@ loss — on feature-file batches (:func:`make_train_step`, the masked
 estimate of the mixture magnitude against the stems') or on raw audio
 (:func:`convsep_tpu_torch.train.e2e.make_audio_loss_fn`, the STFT inside
 the step) — its gradients by ``torch.autograd.grad``, and the adadelta
-update: the plain formula (``optimizer_impl="xla"``) or the fused CUDA
-kernel (``"fused"``). The reference's step is one jitted program over
-donated buffers; here the state's tensors are updated in place and the
-same :class:`TrainState` object is returned. Metrics stay on the device
-and are read only at the logging cadence, one step late, so the host does
-not wait on the device every step.
+update: the plain optimizer (``optimizer_impl="xla"``) or the fused CUDA
+adadelta kernel (``"fused"``). The reference's step is one jitted program
+over donated buffers; here the state's tensors are updated in place and
+the same :class:`TrainState` object is returned. Metrics stay on the
+device and are read only at the logging cadence, one dispatch late, so
+the host does not wait on the device every step.
+
+``steps_per_dispatch`` K > 1 groups K batches into one dispatch, as the
+reference's ``lax.scan`` of K steps: on the GPU one ``torch.cuda.CUDAGraph``
+of K whole steps (forward, backward, update), captured once per (K, batch
+shapes, state tensors) and replayed, so the host launches one graph where
+it launched every kernel of K steps; on the CPU K eager steps. The tail of
+an epoch, fewer than K batches, takes single steps.
 
 With a ``workdir`` the :class:`Trainer` checkpoints (ckpt/checkpoint.py)
 every ``checkpoint_every_steps`` steps, every ``checkpoint_every_epochs``
@@ -18,8 +25,9 @@ epochs, after the last epoch and at ``max_steps``; each checkpoint carries
 the data position, so a :meth:`Trainer.restore` continues mid-epoch on
 exactly the batches the interrupted run never trained on.
 
-Not ported yet (ROADMAP queue 1): grain loading, device meshes,
-tensorboard.
+With ``tensorboard`` the logged scalars also go to ``<workdir>/tb``
+(:mod:`convsep_tpu_torch.utils.tb_events`). Not ported yet (ROADMAP queue
+1): grain loading, device meshes.
 """
 
 from __future__ import annotations
@@ -32,10 +40,12 @@ import time
 from functools import partial
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from convsep_tpu_torch import kernels
 from convsep_tpu_torch.ckpt.bridge import init_params
-from convsep_tpu_torch.ckpt.checkpoint import CheckpointManager
+from convsep_tpu_torch.ckpt.checkpoint import CheckpointManager, flatten, unflatten_like
 from convsep_tpu_torch.configs.presets import Preset
 from convsep_tpu_torch.data.audio_dataset import segment_samples
 from convsep_tpu_torch.data.pipeline import prefetch_to_device, to_device
@@ -106,14 +116,20 @@ def _feature_loss_fn(preset: Preset) -> Callable:
 
 def _apply_from_opt(opt: GradientTransformation) -> Callable:
     """Default optimizer apply: (params, grads, opt_state) → (params,
-    opt_state', grad_norm); the parameters are updated in place."""
+    opt_state, grad_norm). The parameters and the state's tensors are
+    updated in place and the same objects returned, so a CUDA graph that
+    captured them reads the new values on its next replay."""
 
     @torch.no_grad()
     def apply_fn(params, grads, opt_state):
         gnorm = global_norm(grads)
-        updates, opt_state = opt.update(grads, opt_state, params)
+        updates, new_state = opt.update(grads, opt_state, params)
         for k, u in updates.items():
             params[k].add_(u)
+        new = flatten(new_state)
+        for path, t in flatten(opt_state).items():
+            if t is not new[path]:
+                t.copy_(new[path])
         return params, opt_state, gnorm
 
     return apply_fn
@@ -144,10 +160,24 @@ def multi_step_from_loss(
     loss_fn: Callable, opt: GradientTransformation, apply_fn: Callable | None = None
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, dict]]:
     """K steps per call: (state, xs (K, B, …), ys (K, B, …)) → (state,
-    {"loss": (K,), "grad_norm": (K,)}); K single steps, the same math."""
+    {"loss": (K,), "grad_norm": (K,)}), the same math as K single steps.
+    CUDA batches replay one CUDA graph of the K steps
+    (:class:`GraphedSteps`, captured at the first call of each key); CPU
+    batches take K eager steps."""
     step = step_from_loss(loss_fn, opt, apply_fn)
+    graphs: dict[tuple, GraphedSteps] = {}
 
     def train_step_k(state: TrainState, xs, ys):
+        if xs.device.type == "cuda":
+            tensors = _state_tensors(state)
+            key = (tuple(xs.shape), tuple(ys.shape), xs.dtype, ys.dtype, xs.device,
+                   tuple(t.data_ptr() for t in tensors))
+            graph = graphs.get(key)
+            if graph is None:
+                if any(k[-1] != key[-1] for k in graphs):
+                    graphs.clear()  # a new state's tensors: the old graphs update dead ones
+                graph = graphs[key] = GraphedSteps(step, state, xs, ys)
+            return graph(state, xs, ys)
         losses, gnorms = [], []
         for x, y in zip(xs, ys):
             state, m = step(state, x, y)
@@ -156,6 +186,67 @@ def multi_step_from_loss(
         return state, {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms)}
 
     return train_step_k
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    return [t for t in flatten((state.params, state.opt_state)).values()
+            if isinstance(t, torch.Tensor)]
+
+
+class GraphedSteps:
+    """K train steps as one ``torch.cuda.CUDAGraph``, PyTorch's whole-network
+    capture: the step is warmed up on a side stream on copies of the state
+    (the kernel build, cuDNN and cuBLAS handles, every cached table and
+    window come into being there, not in the capture), then K steps are
+    captured on static input buffers (K, B, …) with the state's own
+    parameter and optimizer tensors, which every step updates in place, and
+    static (K,) loss and grad-norm outputs. A call copies its batches into
+    the static buffers on the current stream (ordered after the prefetch's
+    copies) and replays the graph. The wrappers' launch counts, which a
+    replay bypasses, are added once a replay: the counts the capture took.
+    A capture that fails raises."""
+
+    def __init__(self, step: Callable, state: TrainState, xs: torch.Tensor, ys: torch.Tensor):
+        self.K = int(xs.shape[0])
+        self.xs = torch.empty_like(xs)
+        self.ys = torch.empty_like(ys)
+        side = torch.cuda.Stream(xs.device)
+        side.wait_stream(torch.cuda.current_stream(xs.device))
+        with torch.cuda.stream(side):
+            with torch.no_grad():
+                copy = unflatten_like(state, {
+                    k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in flatten(state).items()})
+            for _ in range(2):
+                copy, _ = step(copy, xs[0], ys[0])
+        torch.cuda.current_stream(xs.device).wait_stream(side)
+        del copy
+        counts, step0 = dict(kernels.LAUNCHES), state.step
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                losses, gnorms = [], []
+                for i in range(self.K):
+                    state, m = step(state, self.xs[i], self.ys[i])
+                    losses.append(m["loss"])
+                    gnorms.append(m["grad_norm"])
+                self.loss = torch.stack(losses)
+                self.grad_norm = torch.stack(gnorms)
+        finally:  # the capture ran no step and launched nothing
+            state.step = step0
+            self.launches = {k: n - counts[k] for k, n in kernels.LAUNCHES.items()
+                             if n != counts[k]}
+            for k, n in self.launches.items():
+                kernels.LAUNCHES[k] -= n
+
+    def __call__(self, state: TrainState, xs: torch.Tensor, ys: torch.Tensor):
+        self.xs.copy_(xs)
+        self.ys.copy_(ys)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            kernels.LAUNCHES[k] += n
+        state.step += self.K
+        return state, {"loss": self.loss.clone(), "grad_norm": self.grad_norm.clone()}
 
 
 def _preset_apply_fn(preset: Preset) -> Callable | None:
@@ -201,27 +292,38 @@ def make_eval_step(preset: Preset, from_audio: bool = False) -> Callable:
 
 
 class MetricsLogger:
-    """Structured per-step metrics → JSONL + stdout."""
+    """Structured per-step metrics → JSONL + stdout, and with
+    ``tensorboard_dir`` every numeric field but ``step`` as a tensorboard
+    scalar at ``step``."""
 
     def __init__(self, path: str | None = None, print_every: int = 50,
                  tensorboard_dir: str | None = None):
-        if tensorboard_dir:
-            raise NotImplementedError(f"tensorboard logging is {_ROADMAP}")
         self.path = path
         self.print_every = print_every
         self._f = open(path, "a") if path else None
+        self._tb = None
+        if tensorboard_dir:
+            from convsep_tpu_torch.utils.tb_events import EventWriter
+
+            self._tb = EventWriter(tensorboard_dir)
 
     def log(self, **kv):
         if self._f:
             self._f.write(json.dumps(kv) + "\n")
             self._f.flush()
-        if kv.get("step", 0) % self.print_every == 0:
+        step = kv.get("step", 0)
+        if self._tb is not None:
+            self._tb.scalars(step, {k: v for k, v in kv.items()
+                                    if isinstance(v, (int, float)) and k != "step"})
+        if step % self.print_every == 0:
             print("  " + " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                                   for k, v in kv.items()))
 
     def close(self):
         if self._f:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class Trainer:
@@ -251,8 +353,13 @@ class Trainer:
         self.device = resolve_device(device)
         seed = preset.train.seed if seed is None else seed
         self.state, self.opt = create_train_state(preset, seed, self.device)
-        make = e2e.make_audio_train_step if from_audio else make_train_step
+        if from_audio:
+            make, make_multi = e2e.make_audio_train_step, e2e.make_audio_train_step_multi
+        else:
+            make, make_multi = make_train_step, make_train_step_multi
         self.train_step = make(preset, self.opt)
+        self._train_step_multi_builder = partial(make_multi, preset, self.opt)
+        self._train_step_multi = None  # built at the first fit with steps_per_dispatch > 1
         self._eval_step = None
         self._ckpt = None
         # the data position riding along with every checkpoint (mid-epoch
@@ -325,22 +432,29 @@ class Trainer:
         """Run the epoch loop; returns per-epoch mean losses. ``num_epochs``
         is the total budget: after :meth:`restore` the loop starts at the
         checkpoint's epoch and batch. ``max_steps`` stops (with a
-        checkpoint) after that many cumulative steps. Every step is a
-        single step (``steps_per_dispatch`` is ignored: the same math)."""
+        checkpoint) once that many cumulative steps are done. With
+        ``steps_per_dispatch`` K > 1, K batches go in one dispatch (the
+        tail of an epoch in single steps); the data position, checkpoints
+        and logs move at dispatch boundaries, as the reference's do.
+        ``tensorboard`` (with a ``workdir``) writes the logged scalars to
+        ``<workdir>/tb``."""
         if use_grain or grain_workers:
             raise NotImplementedError(f"grain data loading is {_ROADMAP}")
-        if tensorboard:
-            raise NotImplementedError(f"tensorboard logging is {_ROADMAP}")
         tr = self.preset.train
         num_epochs = tr.num_epochs if num_epochs is None else num_epochs
         if metrics_path is None and self.workdir:
             metrics_path = os.path.join(self.workdir, "metrics.jsonl")
-        logger = MetricsLogger(metrics_path, print_every=tr.log_every_steps)
+        tb_dir = os.path.join(self.workdir, "tb") if (tensorboard and self.workdir) else None
+        logger = MetricsLogger(metrics_path, print_every=tr.log_every_steps,
+                               tensorboard_dir=tb_dir)
         epoch_losses = []
         step = int(self.state.step)
         start_epoch = int(self._resume.get("epoch", 0))
         resume_batch = int(self._resume.get("batch_in_epoch", 0))
         self._resume = {}
+        K = max(1, int(tr.steps_per_dispatch))
+        if K > 1 and self._train_step_multi is None:
+            self._train_step_multi = self._train_step_multi_builder()
         # training RTF: audio-seconds consumed per step
         t_cfg = self.preset.transform
         if self.from_audio:
@@ -349,6 +463,18 @@ class Trainer:
             seg_sec = tr.time_context * t_cfg.hop_size / t_cfg.fs
         audio_sec_per_step = tr.batch_size * seg_sec
 
+        def grouped(batches):
+            """K batches stacked on the host into one "multi" item; the
+            tail of fewer than K as "single" items."""
+            buf = []
+            for b in batches:
+                buf.append(b)
+                if len(buf) == K:
+                    yield "multi", (np.stack([x for x, _ in buf]), np.stack([y for _, y in buf]))
+                    buf = []
+            for b in buf:
+                yield "single", b
+
         try:
             for epoch in range(start_epoch, num_epochs):
                 t0 = time.perf_counter()
@@ -356,33 +482,41 @@ class Trainer:
                 skip = resume_batch if epoch == start_epoch else 0
                 batches = dataset.batches(tr.batch_size, shuffle=True, seed=tr.seed + epoch,
                                           start=skip)
+                src = grouped(batches) if K > 1 else (("single", b) for b in batches)
                 consumed = skip
                 stop = False
                 t_win = time.perf_counter()
                 steps_win = 0
-                with contextlib.closing(prefetch_to_device(batches, self.device)) as fed:
-                    for x, y in fed:
+                with contextlib.closing(prefetch_to_device(src, self.device)) as fed:
+                    for kind, (x, y) in fed:
+                        multi = kind == "multi"
+                        fn = self._train_step_multi if multi else self.train_step
+                        n = int(x.shape[0]) if multi else 1
                         prev_step = step
-                        self.state, m = self.train_step(self.state, x, y)
-                        step += 1
-                        consumed += 1
-                        steps_win += 1
-                        losses.append(m["loss"])
-                        gnorms.append(m["grad_norm"])
+                        self.state, m = fn(self.state, x, y)
+                        step += n
+                        consumed += n
+                        steps_win += n
+                        losses.append(m["loss"].reshape(-1))
+                        gnorms.append(m["grad_norm"].reshape(-1))
                         self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed, "grain": None}
-                        if tr.debug_nans and not bool(torch.isfinite(losses[-1])):
-                            raise FloatingPointError(f"non-finite loss at step {step}")
+                        if tr.debug_nans:
+                            finite = torch.isfinite(losses[-1]).tolist()
+                            if not all(finite):
+                                raise FloatingPointError(
+                                    f"non-finite loss at step {prev_step + finite.index(False) + 1}")
                         every = tr.checkpoint_every_steps
                         if self._ckpt is not None and step // every > prev_step // every:
                             self._save(step)
-                        # read the previous step's metrics, at the print cadence
-                        # only: the current one may still be running
-                        if step % logger.print_every == 0 and len(losses) >= 2:
+                        # read the previous dispatch's metrics, at the print
+                        # cadence only: the current one may still be running
+                        every = logger.print_every
+                        if step // every > prev_step // every and len(losses) >= 2:
                             now = time.perf_counter()
                             step_s = (now - t_win) / steps_win
                             logger.log(
-                                step=step - 1, epoch=epoch, loss=float(losses[-2]),
-                                grad_norm=float(gnorms[-2]),
+                                step=step - n, epoch=epoch, loss=float(losses[-2][-1]),
+                                grad_norm=float(gnorms[-2][-1]),
                                 step_time_ms=round(step_s * 1e3, 3),
                                 rtf_train=round(audio_sec_per_step / step_s, 1),
                             )
@@ -395,7 +529,7 @@ class Trainer:
                     if self._ckpt is not None:
                         self._save(step)
                     break
-                mean_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+                mean_loss = float(torch.cat(losses).mean()) if losses else float("nan")
                 epoch_losses.append(mean_loss)
                 epoch_kv = dict(step=step, epoch=epoch, epoch_loss=mean_loss,
                                 epoch_seconds=time.perf_counter() - t0)

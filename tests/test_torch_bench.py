@@ -18,10 +18,8 @@ from convsep_tpu_torch.configs.presets import preset_from_dict
 from tests.test_cli import _tiny_ikala
 from tests.test_torch_chunked import one_intraop_thread  # noqa: F401
 
-# the reference's tunnelled-runtime workarounds (fetch_parallel) and the
-# bf16 optimizer state row (ROADMAP queue 1 item 8)
-LEFT_OUT = {"link_probe/down4_mb_s", "link_probe/fetch_streams", "link_probe/post_down4_mb_s",
-            "train/b32_state_bf16"}
+# the reference's tunnelled-runtime workarounds (fetch_parallel)
+LEFT_OUT = {"link_probe/down4_mb_s", "link_probe/fetch_streams", "link_probe/post_down4_mb_s"}
 RUN = dict(seconds=1, runs=2, matrix=True)
 
 

@@ -23,11 +23,13 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from convsep_tpu import cli as jax_cli
 from convsep_tpu.configs import presets as jax_presets
 from convsep_tpu.configs.presets import stereo_preset as jax_stereo_preset
 from convsep_tpu_torch import cli
+from convsep_tpu_torch.ckpt import CheckpointManager
 from convsep_tpu_torch.configs import presets as port_presets
 from convsep_tpu_torch.configs.presets import preset_from_dict
 from convsep_tpu_torch.data.io import load_tensor, read_wav, write_wav
@@ -190,8 +192,9 @@ def test_separate_batch_and_stereo_flag(audio_dir, tmp_path):
 
 def test_stereo_preset_cli(audio_dir, tmp_path):
     """A *-stereo preset separates through StereoSeparator (and --chunked)
-    to stereo stems; its from-audio training raises the port's
-    NotImplementedError (ROADMAP queue 1 item 8)."""
+    to stereo stems, and trains from audio on both channels: one epoch
+    ends in a checkpoint whose state holds the joint-channel model's
+    parameters."""
     root = tmp_path / "audio"
     d = root / "track0"
     d.mkdir(parents=True)
@@ -201,9 +204,15 @@ def test_stereo_preset_cli(audio_dir, tmp_path):
     write_wav(d / "vocals.wav", FS, v)
     write_wav(d / "accompaniment.wav", FS, a)
     write_wav(d / "mixture.wav", FS, v + a)
-    with pytest.raises(NotImplementedError, match="stereo"):
-        cli.main(["train", "--preset", "tinyikala-stereo", "--features", str(root),
-                  "--workdir", str(tmp_path / "run"), "--from-audio", *CPU])
+    run = tmp_path / "run"
+    assert cli.main(["train", "--preset", "tinyikala-stereo", "--features", str(root),
+                     "--workdir", str(run), "--from-audio", "--epochs", "1", *CPU]) == 0
+    ck = CheckpointManager(str(run / "checkpoints"))
+    step = ck.latest_step()
+    assert step is not None and step > 0
+    leaves = torch.load(run / "checkpoints" / str(step) / "state.pt", weights_only=True)
+    assert leaves["step"] == step and all(torch.isfinite(v).all() for k, v in leaves.items()
+                                          if k.startswith("params/"))
     pkl = _pickle(tmp_path / "m.pkl", "tinyikala-stereo", seed=3)
     whole, chunked = str(tmp_path / "whole"), str(tmp_path / "chunked")
     for out, extra in ((whole, []), (chunked, ["--chunked", "--chunk-segments", "2"])):
@@ -402,6 +411,10 @@ def test_matches_the_reference_cli(audio_dir, tmp_path):
     ["serve", "--mesh-data", "2"],
 ], ids=["train-mesh", "grain", "tensorboard", "state-bf16", "batch-mesh", "serve-mesh"])
 def test_unported_flags_raise(audio_dir, tmp_path, argv):
+    """The flags of what is not ported (meshes, grain) raise the package's
+    NotImplementedError. ``--tensorboard`` and ``--optimizer-state-dtype
+    bfloat16``, refused until they were ported, now train: the event file
+    under ``<workdir>/tb``, the bf16 accumulators in the checkpoint."""
     feats = str(tmp_path / "feats")
     cli.main(["compute-features", "--preset", "tinyikala", "--audio-dir", audio_dir, "--out",
               feats, *CPU])
@@ -411,6 +424,17 @@ def test_unported_flags_raise(audio_dir, tmp_path, argv):
                                "-o", str(tmp_path / "o")],
             "serve": ["--params", pkl, "--input-dir", os.path.join(audio_dir, "track0"),
                       "-o", str(tmp_path / "o"), "--max-sweeps", "1"]}[argv[0]]
+    if argv[1] in ("--tensorboard", "--optimizer-state-dtype"):
+        assert cli.main([argv[0], "--preset", "tinyikala", *rest, *argv[1:], *CPU]) == 0
+        run = tmp_path / "run"
+        if argv[1] == "--tensorboard":
+            assert [f for f in os.listdir(run / "tb") if ".tfevents." in f]
+        else:
+            step = CheckpointManager(str(run / "checkpoints")).latest_step()
+            leaves = torch.load(run / "checkpoints" / str(step) / "state.pt", weights_only=True)
+            accu = [v for k, v in leaves.items() if k.startswith("opt_state/")]
+            assert accu and all(v.dtype == torch.bfloat16 for v in accu)
+        return
     with pytest.raises(NotImplementedError):
         cli.main([argv[0], "--preset", "tinyikala", *rest, *argv[1:], *CPU])
 

@@ -16,7 +16,9 @@ bit at p in {1, 2} (both round every operation alike, in one order) and
 against the factored DFT's sums); the Wiener+iSTFT kernel's Nyquist-row
 input bit for bit against the same kernel fed the concatenated spectrum;
 the band decode kernel 1e-5 × max|out| against the f32 product of the
-same bf16-rounded operands."""
+same bf16-rounded operands; the CUDA graph of K train steps against eager
+steps bit for bit (cuDNN deterministic), and an asynchronous checkpoint's
+restore bit for bit."""
 
 import dataclasses
 import functools
@@ -68,6 +70,7 @@ from convsep_tpu_torch.models.decoder_fused_cuda import (
     prepare_operands,
 )
 from convsep_tpu_torch.train.fused_optim import (
+    _MIN_ELEMS,
     fused_adadelta_apply,
     fused_adadelta_leaf,
     fused_adadelta_plain,
@@ -1943,3 +1946,150 @@ def test_cli_separate_on_the_card_equals_separator(cuda, tmp_path, monkeypatch):
     for i, name in enumerate(p.sources):
         got = read_wav(str(tmp_path / "est" / f"{name}.wav"))[1]
         np.testing.assert_array_equal(np.round(got * 32768).astype(np.int16), want[i])
+
+
+K_STEP_ROUTES = {
+    # name: (preset, from audio, transform fields, train fields)
+    "dsd100 features, plain update": ("dsd100", False, {}, {"optimizer_impl": "xla"}),
+    "dsd100 features, fused update": ("dsd100", False, {}, {"optimizer_impl": "fused"}),
+    "dsd100 audio, stft + fused": ("dsd100", True, {"fft_impl": "pallas"},
+                                   {"optimizer_impl": "fused"}),
+    "multires4096 audio, stft + fused": ("multires4096", True, {"fft_impl": "pallas"},
+                                         {"optimizer_impl": "fused"}),
+    "dsd100 audio, bf16 state": ("dsd100", True, {},
+                                 {"optimizer_impl": "xla", "optimizer_state_dtype": "bfloat16"}),
+}
+
+
+def _k_step_batches(p, from_audio: bool, K: int, B: int, groups: int, device):
+    from convsep_tpu_torch.data.audio_dataset import segment_samples
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    m = p.model
+    if from_audio:
+        stems = 0.1 * torch.randn(groups, K, B, m.num_sources, segment_samples(p),
+                                  device=device, generator=gen)
+        return [(s.sum(dim=2), s) for s in stems]
+    x = 0.3 * torch.rand(groups, K, B, m.time_context, m.feat_size, m.channels_in,
+                         device=device, generator=gen)
+    y = 0.3 * torch.rand(groups, K, B, m.num_sources, m.time_context, m.feat_size,
+                         device=device, generator=gen)
+    return list(zip(x, y))
+
+
+@pytest.mark.parametrize("route", sorted(K_STEP_ROUTES))
+def test_k_step_graph_matches_eager_steps(cuda, route):
+    """``steps_per_dispatch`` on the card: two replays of the CUDA graph of
+    K = 4 whole steps against 8 eager single steps from the same seeded
+    state on the same batches, under ``cudnn.deterministic``: losses, grad
+    norms, parameters and optimizer state bit for bit, the step count, and
+    the kernels' launch counts the same both ways (a replay adds the
+    capture's counts)."""
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import e2e, loop
+
+    name, from_audio, t_kw, tr_kw = K_STEP_ROUTES[route]
+    p = get_preset(name)
+    p = dataclasses.replace(p, transform=dataclasses.replace(p.transform, **t_kw),
+                            train=dataclasses.replace(p.train, **tr_kw))
+    K, B = 4, 2
+    batches = _k_step_batches(p, from_audio, K, B, 2, cuda)
+    single = e2e.make_audio_train_step if from_audio else loop.make_train_step
+    multi = e2e.make_audio_train_step_multi if from_audio else loop.make_train_step_multi
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sa, opt = loop.create_train_state(p, 0, cuda)
+        sb, _ = loop.create_train_state(p, 0, cuda)
+        step_k, step_1 = multi(p, opt), single(p, opt)
+        kernels.reset_launches()
+        losses = []
+        for xs, ys in batches:
+            sa, m = step_k(sa, xs, ys)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        graph_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        eager = []
+        for xs, ys in batches:
+            for x, y in zip(xs, ys):
+                sb, m = step_1(sb, x, y)
+                eager.append(m["loss"])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert sa.step == sb.step == 2 * K
+    # the warm-up's two steps ran too (on copies of the state)
+    warm = {k: n for k, n in graph_launches.items() if n}
+    eager_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    assert set(warm) == set(eager_launches)
+    for k, n in eager_launches.items():
+        per_step = n // (2 * K)
+        assert warm[k] == n + 2 * per_step, (k, warm[k], n)
+    if tr_kw.get("optimizer_impl") == "fused":  # a launch a large leaf a step
+        big = sum(t.numel() >= _MIN_ELEMS for t in sb.params.values())
+        assert big >= 2 and eager_launches["fused_adadelta"] == big * 2 * K
+    if from_audio and t_kw.get("fft_impl") == "pallas":
+        assert eager_launches["stft"] == 2 * 2 * K
+    assert torch.equal(torch.cat(losses), torch.stack(eager))
+    from convsep_tpu_torch.ckpt.checkpoint import flatten
+
+    a, b = flatten((sa.params, sa.opt_state)), flatten((sb.params, sb.opt_state))
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (
+            k, (a[k].float() - b[k].float()).abs().max().item())
+
+
+def test_k_step_graph_recaptures_for_a_new_state(cuda):
+    """A state whose tensors are new (a restore) takes a new capture: the
+    old graph would update the old tensors."""
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import loop
+
+    p = get_preset("dsd100")
+    batches = _k_step_batches(p, False, 2, 2, 1, cuda)
+    sa, opt = loop.create_train_state(p, 0, cuda)
+    step_k = loop.make_train_step_multi(p, opt)
+    sa, _ = step_k(sa, *batches[0])
+    sb, _ = loop.create_train_state(p, 1, cuda)
+    # detached: a clone that keeps an autograd graph of the parameters alive
+    # keeps their gradient accumulators on the stream they were made on,
+    # which a capture on another stream cannot join
+    before = {k: v.detach().clone() for k, v in sb.params.items()}
+    kept = {k: v.detach().clone() for k, v in sa.params.items()}
+    sb, _ = step_k(sb, *batches[0])
+    torch.cuda.synchronize()
+    assert all(not torch.equal(before[k], sb.params[k]) for k in ("fc_kernel", "out_bias"))
+    assert all(torch.equal(kept[k], sa.params[k]) for k in sa.params)
+
+
+def test_async_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """The asynchronous writer with a dsd100 state on the card: ``save``
+    returns once the state is on the host; the live tensors changed right
+    after do not reach the file; the restore equals the saved state bit for
+    bit, on the card."""
+    from convsep_tpu_torch.ckpt import CheckpointManager
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.train import loop
+
+    p = get_preset("dsd100")
+    s, _ = loop.create_train_state(p, 0, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    with torch.no_grad():
+        for k in s.params:
+            s.opt_state.accu[k].copy_(torch.rand(s.params[k].shape, device=cuda, generator=gen))
+    saved = {k: v.clone() for k, v in s.params.items()}
+    saved_accu = {k: v.clone() for k, v in s.opt_state.accu.items()}
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_save=True)
+    assert mgr.save(5, s, extra={"epoch": 0, "batch_in_epoch": 5})
+    with torch.no_grad():
+        for k in s.params:
+            s.params[k].add_(1.0)
+            s.opt_state.accu[k].mul_(2.0)
+    assert mgr.wait() and not mgr.fell_back_to_sync
+    fresh, _ = loop.create_train_state(p, 1, cuda)
+    got, meta = mgr.restore_latest(fresh)
+    assert meta["batch_in_epoch"] == 5 and got.step == 0
+    for k in s.params:
+        assert got.params[k].device.type == "cuda" and torch.equal(got.params[k], saved[k]), k
+        assert torch.equal(got.opt_state.accu[k], saved_accu[k]), k

@@ -191,8 +191,14 @@ def test_data_layer_matches_jax(audio_root):
     for (x, y), (jx, jy) in zip(ds.batches(4, seed=3), jds.batches(4, seed=3)):
         np.testing.assert_array_equal(x, jx)
         np.testing.assert_array_equal(y, jy)
-    with pytest.raises(NotImplementedError, match="stereo"):
-        AudioSegmentDataset(audio_root, jp.sources, seg, fs=FS, stereo=True)
+    # stereo segments of mono stems: centre-panned, as the reference's
+    st = AudioSegmentDataset(audio_root, jp.sources, seg, fs=FS, stereo=True)
+    jst = JaxAudioSegmentDataset(audio_root, jp.sources, seg, fs=FS, stereo=True)
+    (x, y), (jx, jy) = next(st.batches(4, seed=3)), next(jst.batches(4, seed=3))
+    assert x.shape == (4, 2, seg) and y.shape == (4, 4, 2, seg)
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_array_equal(x[:, 0], x[:, 1])
     out = list(prefetch_to_device([("single", (np.ones(3), np.zeros(2)), None)] * 3, "cpu"))
     assert len(out) == 3 and isinstance(out[0][1][0], torch.Tensor) and out[0][2] is None
 
@@ -232,30 +238,37 @@ def test_trainer_refuses_what_is_not_ported(audio_root, tmp_path):
     ds = AudioSegmentDataset(audio_root, pp.sources, segment_samples(pp), fs=FS)
     with pytest.raises(NotImplementedError, match="grain"):
         trainer.fit(ds, use_grain=True)
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        trainer.fit(ds, tensorboard=True)
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        loop.MetricsLogger(tensorboard_dir=str(tmp_path))
+    # what was refused before and is ported now: tensorboard, stereo and
+    # multires losses (tests/test_torch_train_stereo.py holds them to JAX)
+    logger = loop.MetricsLogger(tensorboard_dir=str(tmp_path / "tb"))
+    logger.log(step=3, loss=0.5)
+    logger.close()
+    assert [f for f in os.listdir(tmp_path / "tb") if ".tfevents." in f]
     stereo = dataclasses.replace(pp, model=dataclasses.replace(pp.model, channels_in=2,
                                                                decoder_reduce="all"))
-    with pytest.raises(NotImplementedError, match="stereo"):
-        e2e.make_audio_loss_fn(stereo)
+    assert e2e.make_audio_loss_fn(stereo).__name__ == "stereo_loss_fn"
     multires = dataclasses.replace(pp, transform=dataclasses.replace(pp.transform,
                                                                      multires=(64, 128)))
-    with pytest.raises(NotImplementedError, match="multires"):
-        e2e.make_audio_loss_fn(multires)
+    assert callable(e2e.make_audio_loss_fn(multires))
 
 
 def test_training_never_imports_jax():
-    """A from-audio training step through the kernel routes' wrappers
-    leaves jax, flax and the JAX package out of sys.modules."""
+    """A from-audio training step through the kernel routes' wrappers, a
+    stereo and a multires step, bf16 optimizer state, a K-step dispatch, a
+    Trainer fit with tensorboard and asynchronous checkpoints, and every
+    optimizer of the registry leave jax, flax, the JAX package, tensorflow
+    and tensorboard out of sys.modules."""
     script = textwrap.dedent(
         """
-        import dataclasses, sys
+        import dataclasses, os, sys, tempfile
         import numpy as np, torch
         from convsep_tpu_torch.configs import TransformConfig, get_preset
-        from convsep_tpu_torch.train.e2e import make_audio_train_step
-        from convsep_tpu_torch.train.loop import create_train_state
+        from convsep_tpu_torch.configs.presets import stereo_preset
+        from convsep_tpu_torch.train.e2e import (make_audio_train_step,
+                                                 make_audio_train_step_multi)
+        from convsep_tpu_torch.train.loop import MetricsLogger, create_train_state
+        from convsep_tpu_torch.train.optim import make_optimizer
+        from convsep_tpu_torch.ckpt import CheckpointManager
 
         p = get_preset("dsd100")
         t = TransformConfig(fs=8000, frame_size=256, hop_size=128, fft_impl="pallas")
@@ -268,8 +281,38 @@ def test_training_never_imports_jax():
                              .astype(np.float32))
         state, m = make_audio_train_step(p, opt)(state, x.sum(1), x)
         assert np.isfinite(float(m["loss"])) and state.step == 1
+        # K steps a dispatch
+        state, m = make_audio_train_step_multi(p, opt)(state, x.sum(1)[None].repeat(2, 1, 1),
+                                                       x[None].repeat(2, 1, 1, 1))
+        assert state.step == 3 and m["loss"].shape == (2,)
+        # stereo: (B, 2, seg) mixtures
+        st = stereo_preset(p)
+        s2, o2 = create_train_state(st, 0, "cpu")
+        xs = x[:, :, None].repeat(1, 1, 2, 1)
+        s2, m = make_audio_train_step(st, o2)(s2, xs.sum(1), xs)
+        assert np.isfinite(float(m["loss"]))
+        # multires channels in the step, bf16 adadelta state on the plain update
+        mr = dataclasses.replace(
+            p, transform=dataclasses.replace(t, multires=(64, 128)),
+            model=dataclasses.replace(p.model, channels_in=3),
+            train=dataclasses.replace(p.train, optimizer_impl="xla",
+                                      optimizer_state_dtype="bfloat16"))
+        s3, o3 = create_train_state(mr, 0, "cpu")
+        s3, m = make_audio_train_step(mr, o3)(s3, x.sum(1), x)
+        assert np.isfinite(float(m["loss"]))
+        assert s3.opt_state.accu["fc_bias"].dtype == torch.bfloat16
+        for name in ("adam", "adamw", "sgd", "rmsprop"):
+            o = make_optimizer(name, learning_rate=0.1)
+            o.update(dict(state.params), o.init(state.params), state.params)
+        with tempfile.TemporaryDirectory() as d:
+            log = MetricsLogger(None, tensorboard_dir=os.path.join(d, "tb"))
+            log.log(step=1, loss=0.5)
+            log.close()
+            ck = CheckpointManager(os.path.join(d, "ck"))
+            assert ck.save(3, state) and ck.wait() and ck.all_steps() == [3]
         bad = [k for k in sys.modules
-               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "convsep_tpu")]
+               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "convsep_tpu",
+                                      "tensorflow", "tensorboard")]
         assert not bad, bad
         print("ok")
         """

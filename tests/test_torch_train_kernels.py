@@ -148,9 +148,9 @@ def test_adadelta_state_and_registry():
 
     st = lasagne_adadelta().init({"w": torch.ones(3)})
     assert isinstance(st, AdadeltaState) and not st.accu["w"].any()
-    with pytest.raises(NotImplementedError, match="float32"):
-        lasagne_adadelta(state_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="adam"):
-        make_optimizer("adam", learning_rate=1.0)
+    bf = lasagne_adadelta(state_dtype="bfloat16").init({"w": torch.ones(3)})
+    assert bf.accu["w"].dtype == bf.delta_accu["w"].dtype == torch.bfloat16
+    adam_st = make_optimizer("adam", learning_rate=1.0).init({"w": torch.ones(3)})
+    assert int(adam_st.count) == 0 and not adam_st.mu["w"].any() and not adam_st.nu["w"].any()
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("nope")
