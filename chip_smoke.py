@@ -232,7 +232,12 @@ result line is printed):
 26. asynchronous checkpoints: ``Trainer(workdir=...).fit(max_steps=10)``
    with ``checkpoint_every_steps`` 5: two saves on the writer thread, the
    ms each held the caller, a synchronous save of the same state beside
-   them, and a fresh Trainer's restore bit for bit.
+   them, and a fresh Trainer's restore bit for bit;
+27. distributed on a process group of one rank (NCCL): ``ShardedSeparator``
+   at highres4096 full width against ``Separator``, ``StreamSeparator(mesh=)``
+   bit for bit its stems without a mesh, and ``Trainer(mesh=)`` at dsd100
+   B 32 on the kernel route in grain's order, stopped and resumed on the
+   unseen batches; ms per track and per step with and without the mesh.
 
 Each slice expects the fused decode launched exactly where "auto" routes it
 (``models/decoder_fused_cuda.py::FUSED_DECODE_WON``: by compute dtype, TM
@@ -468,27 +473,33 @@ def host_us(fn, reps: int = 200) -> float:
     return t / reps * 1e6
 
 
-def profile_ms(fn, reps: int = 10, warmup: int = 3) -> dict:
+def profile_ms(fn, reps: int = 10, warmup: int = 3, sessions: int = 3) -> dict:
     """Device time per call of ``fn`` under ``torch.profiler`` over ``reps``
     calls: every kernel's and copy's own device time summed, in all and by
-    name. ``device_ms`` is None where the profiler saw no device work."""
+    name. A session that recorded no device work is run again, up to
+    ``sessions`` in all (the trace on the card's machine has dropped a
+    whole session's kernels: the adadelta leaf's, in a run that timed it
+    before and after); ``device_ms`` is None where none saw any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict[str, float] = {}
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / reps
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / reps
+        if by_name:
+            break
     return {"device_ms": sum(by_name.values()) if by_name else None, "by_kernel": by_name}
 
 
@@ -709,7 +720,8 @@ def child_other_times(device, gen) -> dict:
         g = 1e-3 * torch.randn(shape, generator=gen, device=device)
         a = 1e-6 * torch.rand(shape, generator=gen, device=device)
         d = 1e-6 * torch.rand(shape, generator=gen, device=device)
-        total += profile_ms(lambda: fused_adadelta_leaf(p, g, a, d, 1.0, 0.95, 1e-6))["device_ms"]
+        ms = profile_ms(lambda: fused_adadelta_leaf(p, g, a, d, 1.0, 0.95, 1e-6))["device_ms"]
+        total = None if total is None or ms is None else total + ms
     res["fused_adadelta"] = total
     del p, g, a, d
     # past 8192 points: the cluster (phase 3c's shapes)
@@ -3836,6 +3848,153 @@ def phase_training_paths(device) -> dict:
     return out
 
 
+TOL_SHARDED = 1e-5           # × max|stems|: ShardedSeparator vs Separator (other synthesis route)
+DIST_STOP, DIST_RESUMED = 4, 3  # mesh training: steps before the stop, steps after the restore
+
+
+def phase_distributed(device, audio) -> dict:
+    """Phase 27: the distributed layer on a process group of one rank
+    (NCCL, a ``FileStore`` in a temporary directory, destroyed at the end).
+    ``ShardedSeparator`` at highres4096 full width against ``Separator``
+    (stems within ``TOL_SHARDED`` of the peak: the sharded path
+    synthesizes by the inverse-DFT products and a halo overlap-add, the
+    whole-track one by the Wiener+iSTFT kernel); ``StreamSeparator(mesh=)``
+    against the same without a mesh, bit for bit (PCM16); and
+    ``Trainer(mesh=make_mesh(data=1))`` at dsd100 B 32 from audio on the
+    kernel route (``fft_impl="pallas"``, ``optimizer_impl="fused"``) with
+    ``use_grain=True``, stopped mid-epoch,
+    restored, and resumed on exactly the batches the host's grain order
+    gives after the stop. Each path's launch counts are taken from zero
+    just before it; the times print beside the card's line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.ckpt import init_params
+    from convsep_tpu_torch.configs import get_preset
+    from convsep_tpu_torch.data.audio_dataset import AudioSegmentDataset, segment_samples
+    from convsep_tpu_torch.data.grain_pipeline import make_loader
+    from convsep_tpu_torch.data.pipeline import to_device
+    from convsep_tpu_torch.distributed import make_mesh
+    from convsep_tpu_torch.separate import Separator, StreamSeparator
+    from convsep_tpu_torch.separate.sharded import ShardedSeparator
+    from convsep_tpu_torch.train.loop import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(data=1)
+            hi = get_preset("highres4096")
+            state = init_params(hi.model, torch.Generator(device=device).manual_seed(0), device)
+            sep = Separator(hi, state, device=device)
+            sharded = ShardedSeparator(hi, state, mesh)
+            want = np.array(sep(audio))
+            kernels.reset_launches()
+            got = np.array(sharded(audio))
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            err = float(np.abs(got - want).max())
+            peak = float(np.abs(want).max())
+            fused = auto_fused(hi, track_segments(hi, len(audio)))
+            ms, whole_ms = time_track(sharded, audio), time_track(sep, audio)
+            log(f"  highres4096 ShardedSeparator (mesh of 1): max|Δ| {err:.3e} against "
+                f"Separator (peak {peak:.4f}, limit {TOL_SHARDED} × peak); {ms:.2f} ms a track, "
+                f"Separator {whole_ms:.2f} ms | {CARD}")
+            if not (got.shape == want.shape and err <= TOL_SHARDED * peak):
+                raise AssertionError(f"sharded stems disagree: {err} of {peak}")
+            if launches["fused_decode"] != (1 if fused else 0):
+                raise AssertionError(f"the sharded path's decode launches: {launches}")
+            out["highres4096 sharded"] = {"launches": launches, "ms": ms, "whole_ms": whole_ms,
+                                          "max_abs_err": err, "peak": peak}
+            del sep, sharded, state
+            torch.cuda.empty_cache()
+
+            dsd = get_preset("dsd100")
+            state = init_params(dsd.model, torch.Generator(device=device).manual_seed(1), device)
+            tracks = stream_tracks(audio)
+            kw = dict(output_dtype="int16", input_dtype="int16", device=device)
+            plain = [np.array(o) for b in StreamSeparator(dsd, state, **kw).stream(
+                iter(tracks), STREAM_BATCH) for o in b]
+            meshed = StreamSeparator(dsd, state, mesh=mesh, **kw)
+            kernels.reset_launches()
+            got = [np.array(o) for b in meshed.stream(iter(tracks), STREAM_BATCH) for o in b]
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            same = len(got) == len(plain) and all(np.array_equal(a, b)
+                                                  for a, b in zip(got, plain))
+            log(f"  dsd100 StreamSeparator(mesh=) over {len(tracks)} tracks: bit for bit "
+                f"{same}; launches {launches}")
+            if not same:
+                raise AssertionError("the stream separator's stems under a mesh differ")
+            out["dsd100 stream"] = {"launches": launches}
+            del meshed, state
+            torch.cuda.empty_cache()
+
+            preset = train_preset(True)
+            B = preset.train.batch_size
+            seg = segment_samples(preset)
+            root = os.path.join(tmp, "tracks")
+            write_tracks(root, preset.sources)
+            ds = AudioSegmentDataset(root, preset.sources, seg, fs=FS)
+            order = [x for x, _ in make_loader(ds, B, seed=preset.train.seed, num_epochs=1)]
+            log(f"  dataset: {len(ds)} segments, {len(order)} batches of {B} an epoch")
+
+            def trainer():
+                """A mesh Trainer whose train step records each batch, the
+                batches seen, and its own step (no copy to the host)."""
+                t = Trainer(preset, workdir=os.path.join(tmp, "run"), mesh=mesh,
+                            from_audio=True, seed=0)
+                seen, step = [], t.train_step
+
+                def spy(state, x, y):
+                    seen.append(x.cpu().numpy())
+                    return step(state, x, y)
+
+                t.train_step = spy
+                return t, seen, step
+
+            first, seen, _ = trainer()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            first.fit(ds, max_steps=DIST_STOP, use_grain=True)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            again, rest, again_step = trainer()
+            step = again.restore()
+            again.fit(ds, max_steps=DIST_STOP + DIST_RESUMED, use_grain=True)
+            pos = again.data_position
+            ok = bool(step == DIST_STOP and len(seen) == DIST_STOP and len(rest) == DIST_RESUMED
+                  and all(np.array_equal(a, b) for a, b in zip(seen + rest, order))
+                  and pos["batch_in_epoch"] == DIST_STOP + DIST_RESUMED and pos["grain"])
+            log(f"  dsd100 Trainer(mesh=make_mesh(data=1)), use_grain: {DIST_STOP} steps in "
+                f"{fit_s:.2f} s, restored at step {step}, {len(rest)} more on the host's "
+                f"grain-order batches: {ok}; launches {launches}")
+            if not ok:
+                raise AssertionError("the resumed mesh Trainer did not see the unseen batches")
+            if not (launches["stft"] == 2 * DIST_STOP
+                    and launches["fused_adadelta"] == 2 * DIST_STOP):
+                raise AssertionError(f"the mesh training path's launches: {launches}")
+            mix, stems = to_device(next(ds.batches(B, shuffle=True, seed=123)), device)
+            mesh_ms = time_steps(again_step, again.state, mix, stems)
+            single = Trainer(preset, from_audio=True, device=device, seed=0)
+            single_ms = time_steps(single.train_step, single.state, mix, stems)
+            log(f"  train step B {B} (fused update): mesh of 1 {mesh_ms:.3f} ms, no mesh "
+                f"{single_ms:.3f} ms | {CARD}")
+            out["dsd100 training"] = {"launches": launches, "fit_s": fit_s, "ms": mesh_ms,
+                                      "no_mesh_ms": single_ms}
+            del first, again, single
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 CLI_EVAL_SECONDS = 5         # the head the card's evaluation is held to the CPU's on
 TOL_EVAL_DB = 1e-4           # dB, BSS Eval on the card vs the CPU route (float64 both)
 TOL_EVAL_JSON_DB = 1.5e-3    # dB, the same through the CLI, whose JSON rounds to 1e-3
@@ -4300,6 +4459,11 @@ def main(argv: list[str]) -> int:
     cli_run = phase_cli(device)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
     train_paths = phase_training_paths(device)
+    log("phase 27: distributed on a process group of one rank (NCCL): ShardedSeparator "
+        "(highres4096), StreamSeparator(mesh=) (dsd100), Trainer(mesh=) with use_grain (dsd100)")
+    t0 = time.perf_counter()
+    dist_run = phase_distributed(device, audio)
+    log(f"  phase 27 took {time.perf_counter() - t0:.1f} s")
 
     # each main path's counts, taken from zero just before it ran
     paths = {"highres4096": hi_run, "dsd100": dsd_run, "dsd100 training": train,
@@ -4315,7 +4479,10 @@ def main(argv: list[str]) -> int:
              "multires4096 training": train_paths["multires4096"],
              "dsd100 training, bf16 adadelta state": train_paths["bf16_state"],
              f"dsd100 training, {DISPATCH_K}-step CUDA graph": train_paths["dispatch"],
-             "dsd100 training, asynchronous checkpoints": train_paths["async_checkpoint"]}
+             "dsd100 training, asynchronous checkpoints": train_paths["async_checkpoint"],
+             "highres4096 sharded, mesh of 1": dist_run["highres4096 sharded"],
+             "dsd100 stream, mesh of 1": dist_run["dsd100 stream"],
+             "dsd100 training, mesh of 1, grain order": dist_run["dsd100 training"]}
 
     def launched(kernel: str) -> dict:
         by_path = {p: r["launches"][kernel] for p, r in paths.items() if r["launches"][kernel]}
@@ -4541,7 +4708,12 @@ def main(argv: list[str]) -> int:
                                          if "complement_ms" in r else {})}
                    for k, r in stream.items()},
         "service": {"dsd100 sweep of 3 tracks": service["ms"]},
-    }, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"},
+        "highres4096 sharded, mesh of 1": {
+            "sharded": dist_run["highres4096 sharded"]["ms"],
+            "whole_track": dist_run["highres4096 sharded"]["whole_ms"]},
+    }, "distributed_training_step_ms": {
+        "mesh of 1": dist_run["dsd100 training"]["ms"],
+        "no mesh": dist_run["dsd100 training"]["no_mesh_ms"]}, "feature_training": {k: v for k, v in feature_train.items() if k != "launches"},
         "training_paths": {k: {f: v for f, v in r.items() if f not in ("launches", "route")}
                            for k, r in train_paths.items()},
         "cli": {k: v for k, v in cli_run.items() if k not in ("paths", "bench")},

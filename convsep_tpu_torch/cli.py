@@ -17,9 +17,12 @@ GPU; ``--device cpu`` runs on the CPU. The verbs run the package's own
 entry points, so the kernels and routes are the ones the library
 resolves. ``--params`` takes a checkpoint directory of this package
 (``ckpt/checkpoint.py``, the newest step) or a reference pickle. ``train
---from-audio`` with a ``*-stereo`` preset trains on both channels. Flags
-whose machinery is not ported yet (``--mesh-data`` > 1, ``--grain``) are
-parsed and exit non-zero with the package's ``NotImplementedError``. ``--launches``
+--from-audio`` with a ``*-stereo`` preset trains on both channels;
+``--grain`` feeds it in grain's order. ``--mesh-data N`` (train,
+separate-batch, serve) runs on a data mesh of N ranks, one process a
+device, under a launcher that starts them (``torchrun --nproc_per_node=N
+-m convsep_tpu_torch <verb> --mesh-data N …``; NCCL on the GPUs, gloo with
+``--device cpu``); N > 1 without one raises. ``--launches``
 (before the verb) prints the hand-written kernels' launch counts as one
 line on stderr when the verb ends.
 """
@@ -36,16 +39,38 @@ import tempfile
 import numpy as np
 
 DECODER_IMPLS = ("auto", "bandconv", "bandconv_pallas", "band", "band_pallas")
+MESH_HELP = ("data-parallel mesh size: the ranks a launcher started (torchrun "
+             "--nproc_per_node=N); > 1 without a launcher raises")
 
 
 def _replace(preset, part: str, **kw):
     return dataclasses.replace(preset, **{part: dataclasses.replace(getattr(preset, part), **kw)})
 
 
-def _mesh(n: int):
-    """``--mesh-data``: None for one device; a larger count goes to the
-    entry point, which raises (distributed is not ported)."""
-    return n if n > 1 else None
+_OWN_GROUP = False  # a process group _mesh initialized, which main() destroys
+
+
+def _mesh(n: int, device: str | None):
+    """``--mesh-data``: a data mesh of ``n`` ranks over the process group a
+    launcher started (``WORLD_SIZE`` set; the group is initialized here
+    from its environment), or None for one process without a launcher."""
+    world = int(os.environ.get("WORLD_SIZE", "0") or 0)
+    if world == 0:
+        if n > 1:
+            raise ValueError(
+                f"--mesh-data {n} needs {n} processes, one a device, started by a launcher: "
+                f"torchrun --nproc_per_node={n} -m convsep_tpu_torch <verb> --mesh-data {n} …")
+        return None
+    import torch.distributed as dist
+
+    from convsep_tpu_torch.distributed import make_mesh
+
+    global _OWN_GROUP
+    cpu = str(device or "cuda").startswith("cpu")
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if cpu else "nccl")
+        _OWN_GROUP = True
+    return make_mesh(data=n, device="cpu" if cpu else None)
 
 
 def _cmd_compute_features(args) -> int:
@@ -91,7 +116,7 @@ def _cmd_train(args) -> int:
         ds = SegmentDataset(args.features, preset.sources, time_context=tr.time_context,
                             overlap=tr.overlap, mult_factor_in=tr.mult_factor_in,
                             mult_factor_out=tr.mult_factor_out, extra_channels=extra)
-    trainer = Trainer(preset, workdir=args.workdir, mesh=_mesh(args.mesh_data),
+    trainer = Trainer(preset, workdir=args.workdir, mesh=_mesh(args.mesh_data, args.device),
                       from_audio=args.from_audio, device=args.device)
     if args.resume:
         print(f"resumed from step {trainer.restore()}")
@@ -293,7 +318,8 @@ def _cmd_separate_batch(args) -> int:
     if not names:
         raise FileNotFoundError(f"no wavs under {args.input_dir}")
     stereo = preset.model.decoder_reduce == "all"
-    ss = StreamSeparator(preset, params, mesh=_mesh(args.mesh_data), output_dtype="int16",
+    ss = StreamSeparator(preset, params, mesh=_mesh(args.mesh_data, args.device),
+                         output_dtype="int16",
                          input_dtype="int16", complement_last=args.complement_last,
                          device=args.device)
 
@@ -345,7 +371,8 @@ def _cmd_serve(args) -> int:
     preset = get_preset(args.preset)
     params = _load_params(args.params, preset, allow_unsafe=args.unsafe_pickle)
     svc = WatchService(preset, params, args.input_dir, args.out, batch_size=args.batch_size,
-                       poll_s=args.poll, mesh=_mesh(args.mesh_data), score_dir=args.score_dir,
+                       poll_s=args.poll, mesh=_mesh(args.mesh_data, args.device),
+                       score_dir=args.score_dir,
                        score_filter=args.score_filter, device=args.device)
     print(f"serving {args.input_dir} -> {args.out} (ctrl-c to stop)")
     total = svc.run(max_sweeps=args.max_sweeps,
@@ -513,6 +540,7 @@ def _common(sp, params: bool = False) -> None:
 
 
 def main(argv=None) -> int:
+    global _OWN_GROUP
     p = argparse.ArgumentParser(prog="convsep-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--launches", action="store_true",
@@ -543,16 +571,14 @@ def main(argv=None) -> int:
     tr.add_argument("--epochs", type=int, default=None)
     tr.add_argument("--resume", action="store_true")
     tr.add_argument("--score-informed", action="store_true")
-    tr.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel mesh size (> 1: not ported, raises "
-                         "NotImplementedError)")
+    tr.add_argument("--mesh-data", type=int, default=1, help=MESH_HELP)
     tr.add_argument("--optimizer-impl", default=None, choices=["xla", "fused"],
                     help="adadelta update: the plain formula or the fused CUDA kernel")
     tr.add_argument("--optimizer-state-dtype", default=None, choices=["float32", "bfloat16"],
                     help="adadelta accumulator dtype (bfloat16: stored in bf16, float32 math; "
                          "the plain update only)")
     tr.add_argument("--grain", action="store_true",
-                    help="grain data loader (not ported, raises NotImplementedError)")
+                    help="batches in grain's order, grain's iterator state in the checkpoints")
     tr.add_argument("--from-audio", action="store_true",
                     help="train from <track>/<stem>.wav dirs (STFT inside the step; "
                          "--features is the audio dir)")
@@ -610,7 +636,7 @@ def main(argv=None) -> int:
     sb.add_argument("--input-dir", required=True)
     sb.add_argument("-o", "--out", required=True)
     sb.add_argument("--batch-size", type=int, default=4)
-    sb.add_argument("--mesh-data", type=int, default=1, help="(> 1: not ported, raises)")
+    sb.add_argument("--mesh-data", type=int, default=1, help=MESH_HELP)
     sb.add_argument("--decoder-impl", default=None, choices=DECODER_IMPLS)
     sb.add_argument("--score-dir", default=None,
                     help="score-informed runs: <track>/<source>.notes.txt per input wav")
@@ -627,7 +653,7 @@ def main(argv=None) -> int:
     sv.add_argument("-o", "--out", required=True)
     sv.add_argument("--batch-size", type=int, default=4)
     sv.add_argument("--poll", type=float, default=1.0, help="sweep interval seconds")
-    sv.add_argument("--mesh-data", type=int, default=1, help="(> 1: not ported, raises)")
+    sv.add_argument("--mesh-data", type=int, default=1, help=MESH_HELP)
     sv.add_argument("--max-sweeps", type=int, default=None,
                     help="stop after N sweeps (default: run forever)")
     sv.add_argument("--score-dir", default=None,
@@ -688,6 +714,11 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     finally:
+        if _OWN_GROUP:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            _OWN_GROUP = False
         if args.launches:
             from convsep_tpu_torch import kernels
 

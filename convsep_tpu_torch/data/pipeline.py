@@ -18,7 +18,7 @@ import os
 import queue
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -266,15 +266,18 @@ def _ready(item: Any, done: torch.cuda.Event | None) -> Any:
 _END = object()
 
 
-def prefetch_to_device(iterator: Iterable, device: str | torch.device, size: int = 2
-                       ) -> Iterator:
+def prefetch_to_device(iterator: Iterable, device: str | torch.device, size: int = 2,
+                       sharding: Callable[[Any], Any] | None = None) -> Iterator:
     """Yield the iterator's items on ``device``, each leaf a tensor, with
     one daemon producer thread pulling, assembling and uploading them at
     most ``size`` items ahead of the consumer (the reference's bounded
-    prefetch queue). An exception in the producer is raised here, in the
-    consumer. Closing the generator early (a ``break`` out of the loop, an
-    exception in its body) stops the producer and waits for it: no thread
-    outlives the loop. See :class:`_Uploader` for the copies."""
+    prefetch queue). ``sharding``: a placer the producer applies to each
+    host item before the upload (``distributed.mesh.host_block``: a rank's
+    block of the batch, so only that block is copied). An exception in the
+    producer is raised here, in the consumer. Closing the generator early
+    (a ``break`` out of the loop, an exception in its body) stops the
+    producer and waits for it: no thread outlives the loop. See
+    :class:`_Uploader` for the copies."""
     if size < 1:
         raise ValueError(f"prefetch size must be at least 1, got {size}")
     device = torch.device(device)
@@ -297,7 +300,7 @@ def prefetch_to_device(iterator: Iterable, device: str | torch.device, size: int
                 except StopIteration:
                     q.put(_END)
                     return
-                q.put(uploader.stage(item))
+                q.put(uploader.stage(item if sharding is None else sharding(item)))
         except Exception as e:  # surface pipeline errors on the consumer side
             q.put(_Raised(e))
 

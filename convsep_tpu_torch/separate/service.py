@@ -22,6 +22,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed
 
 from convsep_tpu_torch.configs.presets import Preset
 from convsep_tpu_torch.data.features import score_channels
@@ -39,8 +40,10 @@ class WatchService:
     ``<score_dir>/<track>/<source>.notes.txt`` must exist beside each
     incoming wav; its channels come from ``TransformFFT``,
     ``score_channels`` (``score_filter``) and ``parse_note_annotations``.
-    ``mesh=`` raises, as the stream separator's. ``device``: ``None``
-    means "cuda" (raises without a GPU).
+    ``mesh``: every rank of the mesh runs the service; rank 0 decides
+    what is pending and writes the stems, and each rank separates its block
+    of every batch (the stream separator's ``mesh``). ``device``: ``None``
+    means "cuda" (raises without a GPU), the rank's device under a mesh.
     """
 
     def __init__(
@@ -66,8 +69,10 @@ class WatchService:
             raise ValueError("score-informed serving is mono-preset only")
         self.score_dir = score_dir
         self.score_filter = score_filter
+        self.mesh = mesh
         self.sep = StreamSeparator(preset, state, mesh=mesh, output_dtype="int16",
                                    input_dtype="int16", device=device)
+        self._writer = mesh is None or torch.distributed.get_rank() == 0
         self._sizes: dict[str, int] = {}
         os.makedirs(out_dir, exist_ok=True)
 
@@ -130,14 +135,19 @@ class WatchService:
     def sweep(self) -> int:
         """Separate everything pending now; returns the tracks separated."""
         done = 0
-        names = self.pending()
+        names = self.pending() if self._writer else None
+        if self.mesh is not None:  # every rank takes rank 0's list
+            box = [names]
+            torch.distributed.broadcast_object_list(box, src=0)
+            names = box[0]
         while names:
             batch, names = names[: self.batch_size], names[self.batch_size:]
             tracks = [self._read(n) for n in batch]
             extras = ([self._extra(n, t) for n, t in zip(batch, tracks)]
                       if self.score_dir is not None else None)
             for n, stems in zip(batch, self.sep.separate_many(tracks, extras=extras)):
-                self._write(n, stems)
+                if self._writer:
+                    self._write(n, stems)
                 done += 1
         return done
 

@@ -14,9 +14,14 @@ memory, which a PyTorch loop does not have; its loop is kept as
 :func:`separate_batch_scan`. The ``fft_impl="pallas"`` route and the stereo
 route take one track at a time, as the reference's kernels do.
 
-Not ported: ``mesh=`` (ROADMAP queue 1 item 9, distributed) and
-``apply_fn=`` (no caller of the reference passes it; ROADMAP.md, "Also left
-out"); both raise.
+With ``mesh=`` (:mod:`convsep_tpu_torch.distributed.mesh`, one process a
+device) every rank is handed the same tracks; a batch is padded with
+silent tracks to a multiple of the mesh's batch axes (as the reference
+pads it), each rank uploads and separates its block of the batch, and the
+stems are gathered to every rank in the caller's order.
+
+Not ported: ``apply_fn=`` (no caller of the reference passes it;
+ROADMAP.md, "Also left out"); it raises.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from convsep_tpu_torch.configs.presets import Preset
+from convsep_tpu_torch.distributed.mesh import batch_block, gather_batch, rank_device, take_block
 from convsep_tpu_torch.dsp.stft import num_frames
 from convsep_tpu_torch.models.convsep import ConvSep
 from convsep_tpu_torch.separate.complement import derive_last_stem
@@ -175,8 +181,9 @@ class StreamSeparator:
     :class:`~convsep_tpu_torch.separate.pipeline.Separator`; neither
     conservative option runs on the ``fft_impl="pallas"`` route. The stems
     are views of pinned host memory, one block a batch, as the whole-track
-    separator's: a caller that keeps many batches copies them. ``mesh=``
-    and ``apply_fn=`` raise (see the module docstring).
+    separator's: a caller that keeps many batches copies them. ``mesh``:
+    each rank separates its block of every batch (module docstring; the
+    device defaults to the rank's). ``apply_fn=`` raises.
     """
 
     def __init__(
@@ -191,12 +198,10 @@ class StreamSeparator:
         complement_last: bool = False,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (batch sharded over several devices) is not ported; "
-                "ROADMAP queue 1 item 9 (distributed)"
-            )
         _no_apply_fn(apply_fn)
+        if mesh is not None and device is None:
+            device = rank_device(mesh)
+        self.mesh = mesh
         check_supported(preset, stereo=preset.model.decoder_reduce == "all")
         check_options(preset, output_dtype, input_dtype, conserve_last, complement_last)
         if (complement_last or conserve_last) and preset.transform.fft_impl == "pallas":
@@ -218,8 +223,12 @@ class StreamSeparator:
     def _bucket(self, batch: Sequence[np.ndarray]) -> tuple[np.ndarray, list[int]]:
         lengths = [t.shape[-1] for t in batch]
         Lb = bucket_length(max(lengths), self.preset)
+        n = len(batch)
+        if self.mesh is not None:  # the batch axis must divide the batch mesh axes
+            d = batch_block(self.mesh)[1]
+            n = -(-n // d) * d
         dt = np.int16 if self.input_dtype == "int16" else np.float32
-        shape = (len(batch), 2, Lb) if self._stereo else (len(batch), Lb)
+        shape = (n, 2, Lb) if self._stereo else (n, Lb)
         stacked = np.zeros(shape, dt)
         for i, t in enumerate(batch):
             if self._stereo and t.ndim != 2:
@@ -242,8 +251,12 @@ class StreamSeparator:
         return out
 
     def _upload(self, stacked: np.ndarray, ex: np.ndarray | None):
-        """Stage a batch (and its channels) in pinned memory and enqueue
-        the upload on the copy stream; the host does not wait."""
+        """Stage a batch (and its channels; under a mesh this rank's block
+        of them) in pinned memory and enqueue the upload on the copy
+        stream; the host does not wait."""
+        if self.mesh is not None:
+            stacked = take_block(stacked, self.mesh, 0)
+            ex = None if ex is None else take_block(ex, self.mesh, 0)
         up = upload_async(stage_pinned(stacked, self.device), self.device, self._copy)
         ex_up = None
         if ex is not None:
@@ -255,11 +268,15 @@ class StreamSeparator:
         upload: (B, S[, 2], length) stems on the device."""
         dev = wait_upload(*up)
         if self._stereo:
-            return separate_batch_stereo(self.model, dev, self.preset, length,
-                                         self.output_dtype, self.conserve_last)
-        extra = None if ex_up is None else wait_upload(*ex_up)
-        return separate_batch(self.model, dev, self.preset, length, None,
-                              self.output_dtype, extra, self.conserve_last)
+            out = separate_batch_stereo(self.model, dev, self.preset, length,
+                                        self.output_dtype, self.conserve_last)
+        else:
+            extra = None if ex_up is None else wait_upload(*ex_up)
+            out = separate_batch(self.model, dev, self.preset, length, None,
+                                 self.output_dtype, extra, self.conserve_last)
+        if self.mesh is not None:
+            out = gather_batch(self.mesh, out)
+        return out
 
     def _start_fetch(self, out_dev: torch.Tensor):
         """Enqueue the stems' copy to pinned memory on the copy stream, after

@@ -92,17 +92,21 @@ def make_audio_loss_fn(preset: Preset) -> Callable:
     return loss_fn
 
 
-def make_audio_train_step(preset: Preset, opt: GradientTransformation) -> Callable:
+def make_audio_train_step(preset: Preset, opt: GradientTransformation,
+                          reduce: Callable | None = None) -> Callable:
     """(state, mix (B, seg), stems (B, S, seg)) → (state, metrics) (stereo:
-    (B, 2, seg), (B, S, 2, seg)): STFT + forward + backward + update."""
+    (B, 2, seg), (B, S, 2, seg)): STFT + forward + backward + update.
+    ``reduce``: the loss and gradients across ranks before the update."""
     from convsep_tpu_torch.train.loop import _preset_apply_fn, step_from_loss
 
-    return step_from_loss(make_audio_loss_fn(preset), opt, _preset_apply_fn(preset))
+    return step_from_loss(make_audio_loss_fn(preset), opt, _preset_apply_fn(preset), reduce)
 
 
-def make_audio_train_step_multi(preset: Preset, opt: GradientTransformation) -> Callable:
+def make_audio_train_step_multi(preset: Preset, opt: GradientTransformation,
+                                reduce: Callable | None = None) -> Callable:
     """K steps per call: (state, mix (K, B, seg), stems (K, B, S, seg)) →
     (state, {"loss": (K,), "grad_norm": (K,)})."""
     from convsep_tpu_torch.train.loop import _preset_apply_fn, multi_step_from_loss
 
-    return multi_step_from_loss(make_audio_loss_fn(preset), opt, _preset_apply_fn(preset))
+    return multi_step_from_loss(make_audio_loss_fn(preset), opt, _preset_apply_fn(preset),
+                                reduce)

@@ -26,8 +26,23 @@ the data position, so a :meth:`Trainer.restore` continues mid-epoch on
 exactly the batches the interrupted run never trained on.
 
 With ``tensorboard`` the logged scalars also go to ``<workdir>/tb``
-(:mod:`convsep_tpu_torch.utils.tb_events`). Not ported yet (ROADMAP queue
-1): grain loading, device meshes.
+(:mod:`convsep_tpu_torch.utils.tb_events`). With ``use_grain`` the batches
+come in grain's order (:mod:`convsep_tpu_torch.data.grain_pipeline`) and
+the data position carries grain's iterator state.
+
+With a ``mesh`` (:mod:`convsep_tpu_torch.distributed.mesh`: one process a
+device) every rank holds the whole state, takes its block of each batch
+over the batch axes, and the loss and gradients are averaged over the
+ranks (one flattened buffer, all-reduced) before the update, so every rank
+applies the same update. That update is the preset's, the fused adadelta
+kernel included: each rank's leaves are whole and local, so the kernel
+updates them after the all-reduce as it does on one device (the
+reference swaps its kernel for the plain update under a mesh because a
+Pallas call takes no sharded arrays; the port has none). K steps a
+dispatch run as K eager
+steps (no CUDA graph: a capture of NCCL collectives is not shown equal to
+eager steps). Only rank 0 writes checkpoints and metrics; every rank
+restores.
 """
 
 from __future__ import annotations
@@ -42,13 +57,16 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.ckpt.bridge import init_params
 from convsep_tpu_torch.ckpt.checkpoint import CheckpointManager, flatten, unflatten_like
 from convsep_tpu_torch.configs.presets import Preset
 from convsep_tpu_torch.data.audio_dataset import segment_samples
+from convsep_tpu_torch.data.grain_pipeline import make_loader, stateful_batches
 from convsep_tpu_torch.data.pipeline import prefetch_to_device, to_device
+from convsep_tpu_torch.distributed.mesh import host_block, mean_over_ranks, rank_device
 from convsep_tpu_torch.models.convsep import train_sources, trainable_config
 from convsep_tpu_torch.models.masks import wiener_filter
 from convsep_tpu_torch.train import e2e
@@ -57,7 +75,6 @@ from convsep_tpu_torch.train.optim import GradientTransformation, global_norm, m
 from convsep_tpu_torch.utils.device import resolve_device
 from convsep_tpu_torch.utils.precision import float32_exact
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 
 
 @dataclasses.dataclass
@@ -136,11 +153,13 @@ def _apply_from_opt(opt: GradientTransformation) -> Callable:
 
 
 def step_from_loss(
-    loss_fn: Callable, opt: GradientTransformation, apply_fn: Callable | None = None
+    loss_fn: Callable, opt: GradientTransformation, apply_fn: Callable | None = None,
+    reduce: Callable | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, dict]]:
     """loss_fn → step: (state, x, y) → (state, {"loss": (), "grad_norm": ()}).
     ``apply_fn`` overrides the optimizer application (the fused kernel,
-    train/fused_optim.py)."""
+    train/fused_optim.py); ``reduce``: (loss, grads) → (loss, grads) before
+    the update (``distributed.mesh.mean_over_ranks``)."""
     if apply_fn is None:
         apply_fn = _apply_from_opt(opt)
 
@@ -149,6 +168,8 @@ def step_from_loss(
         names = list(state.params)
         loss = loss_fn(state.params, x, y)
         grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         state.params, state.opt_state, gnorm = apply_fn(state.params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -157,18 +178,19 @@ def step_from_loss(
 
 
 def multi_step_from_loss(
-    loss_fn: Callable, opt: GradientTransformation, apply_fn: Callable | None = None
+    loss_fn: Callable, opt: GradientTransformation, apply_fn: Callable | None = None,
+    reduce: Callable | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, dict]]:
     """K steps per call: (state, xs (K, B, …), ys (K, B, …)) → (state,
     {"loss": (K,), "grad_norm": (K,)}), the same math as K single steps.
     CUDA batches replay one CUDA graph of the K steps
     (:class:`GraphedSteps`, captured at the first call of each key); CPU
-    batches take K eager steps."""
-    step = step_from_loss(loss_fn, opt, apply_fn)
+    batches, and steps with a ``reduce`` across ranks, take K eager steps."""
+    step = step_from_loss(loss_fn, opt, apply_fn, reduce)
     graphs: dict[tuple, GraphedSteps] = {}
 
     def train_step_k(state: TrainState, xs, ys):
-        if xs.device.type == "cuda":
+        if xs.device.type == "cuda" and reduce is None:
             tensors = _state_tensors(state)
             key = (tuple(xs.shape), tuple(ys.shape), xs.dtype, ys.dtype, xs.device,
                    tuple(t.data_ptr() for t in tensors))
@@ -271,17 +293,20 @@ def _preset_apply_fn(preset: Preset) -> Callable | None:
     return partial(fused_adadelta_apply, learning_rate=preset.train.learning_rate)
 
 
-def make_train_step(preset: Preset, opt: GradientTransformation) -> Callable:
+def make_train_step(preset: Preset, opt: GradientTransformation,
+                    reduce: Callable | None = None) -> Callable:
     """The feature-file train step: (state, x (B, T, F, C), y (B, S, T, F))
     → (state, metrics); forward, backward and update, the state updated in
     place."""
-    return step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset))
+    return step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset), reduce)
 
 
-def make_train_step_multi(preset: Preset, opt: GradientTransformation) -> Callable:
+def make_train_step_multi(preset: Preset, opt: GradientTransformation,
+                          reduce: Callable | None = None) -> Callable:
     """K feature-file steps per call: (state, xs (K, B, …), ys (K, B, …))
     → (state, {"loss": (K,), "grad_norm": (K,)})."""
-    return multi_step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset))
+    return multi_step_from_loss(_feature_loss_fn(preset), opt, _preset_apply_fn(preset),
+                                reduce)
 
 
 def make_eval_step(preset: Preset, from_audio: bool = False) -> Callable:
@@ -329,7 +354,8 @@ class MetricsLogger:
 class Trainer:
     """Epoch loop fed by a prefetch thread (``prefetch_to_device``), with
     checkpoints and resume, on one device (``device=None``: the GPU, which
-    raises without one; the CPU only when asked for). ``from_audio=False``
+    raises without one; the CPU only when asked for), or with ``mesh`` on
+    each rank's device (module docstring). ``from_audio=False``
     trains on a feature-file
     :class:`~convsep_tpu_torch.data.pipeline.SegmentDataset`, ``True`` on
     an :class:`~convsep_tpu_torch.data.audio_dataset.AudioSegmentDataset`
@@ -345,10 +371,14 @@ class Trainer:
         from_audio: bool = False,
         device: str | torch.device | None = None,
     ):
+        reduce = None
         if mesh is not None:
-            raise NotImplementedError(f"training on a device mesh is {_ROADMAP}")
+            reduce = mean_over_ranks(mesh)
+            if device is None:
+                device = rank_device(mesh)
         self.preset = preset
         self.workdir = workdir
+        self.mesh = mesh
         self.from_audio = from_audio
         self.device = resolve_device(device)
         seed = preset.train.seed if seed is None else seed
@@ -357,13 +387,14 @@ class Trainer:
             make, make_multi = e2e.make_audio_train_step, e2e.make_audio_train_step_multi
         else:
             make, make_multi = make_train_step, make_train_step_multi
-        self.train_step = make(preset, self.opt)
-        self._train_step_multi_builder = partial(make_multi, preset, self.opt)
+        self.train_step = make(preset, self.opt, reduce)
+        self._train_step_multi_builder = partial(make_multi, preset, self.opt, reduce)
+        self._writer = mesh is None or dist.get_rank() == 0
         self._train_step_multi = None  # built at the first fit with steps_per_dispatch > 1
         self._eval_step = None
         self._ckpt = None
         # the data position riding along with every checkpoint (mid-epoch
-        # resume); "grain" is the reference's loader state, always None here
+        # resume); "grain" is the grain loader's state, None without it
         self._data_pos: dict = {"epoch": 0, "batch_in_epoch": 0, "grain": None}
         self._resume: dict = {}
         if workdir:
@@ -379,7 +410,8 @@ class Trainer:
         return {"step": self.state.step, "params": self.state.params}
 
     def _save(self, step: int) -> None:
-        self._ckpt.save(step, self._save_view(), extra=self._data_pos)
+        if self._writer:
+            self._ckpt.save(step, self._save_view(), extra=self._data_pos)
 
     def restore(self) -> int:
         """Resume from the latest checkpoint if there is one; returns the
@@ -437,20 +469,22 @@ class Trainer:
         tail of an epoch in single steps); the data position, checkpoints
         and logs move at dispatch boundaries, as the reference's do.
         ``tensorboard`` (with a ``workdir``) writes the logged scalars to
-        ``<workdir>/tb``."""
-        if use_grain or grain_workers:
-            raise NotImplementedError(f"grain data loading is {_ROADMAP}")
+        ``<workdir>/tb``. ``use_grain``: each epoch's batches from a grain-order
+        loader seeded ``seed + epoch`` (``grain_workers`` worker processes),
+        resumed from the checkpoint's ``"grain"`` state."""
         tr = self.preset.train
         num_epochs = tr.num_epochs if num_epochs is None else num_epochs
         if metrics_path is None and self.workdir:
             metrics_path = os.path.join(self.workdir, "metrics.jsonl")
         tb_dir = os.path.join(self.workdir, "tb") if (tensorboard and self.workdir) else None
+        # only the writer rank logs
         logger = MetricsLogger(metrics_path, print_every=tr.log_every_steps,
-                               tensorboard_dir=tb_dir)
+                               tensorboard_dir=tb_dir) if self._writer else None
         epoch_losses = []
         step = int(self.state.step)
         start_epoch = int(self._resume.get("epoch", 0))
         resume_batch = int(self._resume.get("batch_in_epoch", 0))
+        resume_grain = self._resume.get("grain")
         self._resume = {}
         K = max(1, int(tr.steps_per_dispatch))
         if K > 1 and self._train_step_multi is None:
@@ -464,31 +498,48 @@ class Trainer:
         audio_sec_per_step = tr.batch_size * seg_sec
 
         def grouped(batches):
-            """K batches stacked on the host into one "multi" item; the
-            tail of fewer than K as "single" items."""
+            """K (batch, grain state) items stacked on the host into one
+            "multi" item (the last one's state); the tail of fewer than K
+            as "single" items."""
             buf = []
-            for b in batches:
-                buf.append(b)
+            for b, dpos in batches:
+                buf.append((b, dpos))
                 if len(buf) == K:
-                    yield "multi", (np.stack([x for x, _ in buf]), np.stack([y for _, y in buf]))
+                    yield ("multi", (np.stack([x for (x, _), _ in buf]),
+                                     np.stack([y for (_, y), _ in buf])), dpos)
                     buf = []
-            for b in buf:
-                yield "single", b
+            for b, dpos in buf:
+                yield "single", b, dpos
+
+        place = None
+        if self.mesh is not None:
+            blocks = {False: host_block(self.mesh), True: host_block(self.mesh, stacked=True)}
+
+            def place(item):
+                kind, xy, dpos = item
+                return kind, blocks[kind == "multi"](xy), dpos
 
         try:
             for epoch in range(start_epoch, num_epochs):
                 t0 = time.perf_counter()
                 losses, gnorms = [], []
                 skip = resume_batch if epoch == start_epoch else 0
-                batches = dataset.batches(tr.batch_size, shuffle=True, seed=tr.seed + epoch,
-                                          start=skip)
-                src = grouped(batches) if K > 1 else (("single", b) for b in batches)
+                if use_grain:
+                    batches = stateful_batches(
+                        make_loader(dataset, tr.batch_size, seed=tr.seed + epoch, num_epochs=1,
+                                    worker_count=grain_workers),
+                        state=resume_grain if epoch == start_epoch else None)
+                else:
+                    batches = ((b, None) for b in dataset.batches(
+                        tr.batch_size, shuffle=True, seed=tr.seed + epoch, start=skip))
+                src = grouped(batches) if K > 1 else (("single", b, d) for b, d in batches)
                 consumed = skip
                 stop = False
                 t_win = time.perf_counter()
                 steps_win = 0
-                with contextlib.closing(prefetch_to_device(src, self.device)) as fed:
-                    for kind, (x, y) in fed:
+                with contextlib.closing(
+                        prefetch_to_device(src, self.device, sharding=place)) as fed:
+                    for kind, (x, y), dpos in fed:
                         multi = kind == "multi"
                         fn = self._train_step_multi if multi else self.train_step
                         n = int(x.shape[0]) if multi else 1
@@ -499,7 +550,8 @@ class Trainer:
                         steps_win += n
                         losses.append(m["loss"].reshape(-1))
                         gnorms.append(m["grad_norm"].reshape(-1))
-                        self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed, "grain": None}
+                        self._data_pos = {"epoch": epoch, "batch_in_epoch": consumed,
+                                          "grain": dpos}
                         if tr.debug_nans:
                             finite = torch.isfinite(losses[-1]).tolist()
                             if not all(finite):
@@ -510,8 +562,9 @@ class Trainer:
                             self._save(step)
                         # read the previous dispatch's metrics, at the print
                         # cadence only: the current one may still be running
-                        every = logger.print_every
-                        if step // every > prev_step // every and len(losses) >= 2:
+                        every = tr.log_every_steps
+                        if (logger is not None and step // every > prev_step // every
+                                and len(losses) >= 2):
                             now = time.perf_counter()
                             step_s = (now - t_win) / steps_win
                             logger.log(
@@ -535,7 +588,8 @@ class Trainer:
                                 epoch_seconds=time.perf_counter() - t0)
                 if val_dataset is not None:
                     epoch_kv["val_loss"] = self.evaluate(val_dataset)
-                logger.log(**epoch_kv)
+                if logger is not None:
+                    logger.log(**epoch_kv)
                 self._data_pos = {"epoch": epoch + 1, "batch_in_epoch": 0, "grain": None}
                 if self._ckpt is not None and (
                     epoch == num_epochs - 1 or (epoch + 1) % tr.checkpoint_every_epochs == 0
@@ -544,5 +598,6 @@ class Trainer:
         finally:
             if self._ckpt is not None:
                 self._ckpt.wait()
-            logger.close()
+            if logger is not None:
+                logger.close()
         return epoch_losses

@@ -12,7 +12,18 @@ bf16 mask tail's rounding, under PCM16's 3e-5 step); int16 stems ±1 LSB;
 a stem derived on the host (``complement_last``) 1e-4 from the direct
 conservative stem (the STFT round trip), in int16 2 LSB (the other stems'
 rounding, as the reference's test); one chunk's source magnitudes 1e-5 ×
-max|y| of the whole-track chain's (the same products at another batch)."""
+max|y| of the whole-track chain's (the same products at another batch),
+or one bf16 step apart on at most 0.1 % of them (a float32 gap of ~1e-6
+relative flips the bf16 rounding of a value that lies that close to a
+rounding boundary, about one value in 2000 where the step is 2^-8 of it;
+3 of 10 320 here). Multi-resolution stems
+``TOL_MULTIRES`` (1e-4): the reference's own chunked multires stems
+computed with its two encoder formulations (``encoder_impl`` "collapsed"
+and "conv", the same products summed in another order) part by 1.87e-5,
+and the port's products at another batch move the ratio of the Wiener
+mask where every source is near 0 by as much again; the bound is five
+times that witness and half the golden bound (2e-4;
+``tests/parity_witness.py`` prints the witness)."""
 
 import dataclasses
 
@@ -41,6 +52,7 @@ from convsep_tpu_torch.separate.chunked import chunk_source_magnitudes, inv_norm
 from tests.test_chunked import _params, tiny_preset
 
 TOL = 2e-5
+TOL_MULTIRES = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,8 +139,9 @@ def test_chunked_multires_matches_jax(rng):
     audio = noise(rng, 10_000)
     want = np.asarray(JaxChunked(jp, params, chunk_segments=2)(audio))
     got = ChunkedSeparator(pp, state, chunk_segments=2, device="cpu")(audio)
-    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
-    np.testing.assert_allclose(got, Separator(pp, state, device="cpu")(audio), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got, want, atol=TOL_MULTIRES, rtol=0)
+    np.testing.assert_allclose(got, Separator(pp, state, device="cpu")(audio),
+                               atol=TOL_MULTIRES, rtol=0)
 
 
 def test_chunked_score_informed_matches_jax(rng):
@@ -278,15 +291,31 @@ def test_chunk_source_magnitudes_equal_whole_track(rng, base):
     model = ConvSep(pp.model, state).prepare_inference()
     length = 3 * Fc * hop
     audio = noise(rng, length)
-    y_whole = source_magnitudes(model, torch.from_numpy(audio)[None], pp)[0][0].float()
+    y_whole = source_magnitudes(model, torch.from_numpy(audio)[None], pp)[0][0]
     padded = np.pad(audio, (W // 2, 0))
     sl = padded[Fc * hop: Fc * hop + Fc * hop + W - hop]
     y, re, im = chunk_source_magnitudes(model, torch.from_numpy(np.ascontiguousarray(sl)),
                                         pp, cs)
     assert y.shape == (pp.model.num_sources, Fc, t.bins) and re.shape == (Fc, t.bins)
     ref = y_whole[:, Fc:2 * Fc]
-    scale = ref.abs().max().item()
-    np.testing.assert_allclose(y.float().numpy(), ref.numpy(), atol=1e-5 * scale, rtol=0)
+    assert y.dtype == ref.dtype == torch.bfloat16
+    assert_bf16_close(y, ref, atol=1e-5 * ref.float().abs().max().item(), share=1e-3)
+
+
+def bf16_step(t: torch.Tensor) -> torch.Tensor:
+    """The gap between each bf16 value and the next one away from zero."""
+    return (torch.nextafter(t.abs(), torch.tensor(float("inf"), dtype=t.dtype)).float()
+            - t.abs().float())
+
+
+def assert_bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float, share: float):
+    """bf16 tensors equal within ``atol``, except on at most ``share`` of
+    the elements, which may differ by exactly one bf16 step."""
+    diff = (got.float() - want.float()).abs()
+    off = diff > atol
+    one_step = (diff == bf16_step(want)) | (diff == bf16_step(got))
+    assert bool(one_step[off].all()), f"a gap of more than one bf16 step: {diff[off].max()}"
+    assert int(off.sum()) <= share * off.numel(), f"{int(off.sum())} of {off.numel()} off"
 
 
 def test_separate_chunk_at_lowered_precision(rng, base):

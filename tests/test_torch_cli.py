@@ -410,11 +410,14 @@ def test_matches_the_reference_cli(audio_dir, tmp_path):
     ["train", "--optimizer-state-dtype", "bfloat16"], ["separate-batch", "--mesh-data", "2"],
     ["serve", "--mesh-data", "2"],
 ], ids=["train-mesh", "grain", "tensorboard", "state-bf16", "batch-mesh", "serve-mesh"])
-def test_unported_flags_raise(audio_dir, tmp_path, argv):
-    """The flags of what is not ported (meshes, grain) raise the package's
-    NotImplementedError. ``--tensorboard`` and ``--optimizer-state-dtype
-    bfloat16``, refused until they were ported, now train: the event file
-    under ``<workdir>/tb``, the bf16 accumulators in the checkpoint."""
+def test_unported_flags_raise(audio_dir, tmp_path, argv, monkeypatch):
+    """Flags refused until they were ported. ``--mesh-data 2`` without a
+    launcher raises the error that names ``torchrun`` (the ranks are
+    processes a launcher starts); ``--grain`` trains and saves grain's
+    iterator state in the checkpoint's data position; ``--tensorboard``
+    and ``--optimizer-state-dtype bfloat16`` train: the event file under
+    ``<workdir>/tb``, the bf16 accumulators in the checkpoint."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     feats = str(tmp_path / "feats")
     cli.main(["compute-features", "--preset", "tinyikala", "--audio-dir", audio_dir, "--out",
               feats, *CPU])
@@ -424,19 +427,68 @@ def test_unported_flags_raise(audio_dir, tmp_path, argv):
                                "-o", str(tmp_path / "o")],
             "serve": ["--params", pkl, "--input-dir", os.path.join(audio_dir, "track0"),
                       "-o", str(tmp_path / "o"), "--max-sweeps", "1"]}[argv[0]]
-    if argv[1] in ("--tensorboard", "--optimizer-state-dtype"):
+    loaders = []
+    if argv[1] == "--grain":
+        from convsep_tpu_torch.train import loop
+
+        make = loop.make_loader
+        monkeypatch.setattr(loop, "make_loader",
+                            lambda *a, **kw: loaders.append(kw) or make(*a, **kw))
+    if argv[1] in ("--tensorboard", "--optimizer-state-dtype", "--grain"):
         assert cli.main([argv[0], "--preset", "tinyikala", *rest, *argv[1:], *CPU]) == 0
         run = tmp_path / "run"
         if argv[1] == "--tensorboard":
             assert [f for f in os.listdir(run / "tb") if ".tfevents." in f]
+        elif argv[1] == "--grain":
+            # one grain-order loader an epoch; an epoch's end keeps no grain state
+            assert loaders and all(kw["num_epochs"] == 1 for kw in loaders)
+            step = CheckpointManager(str(run / "checkpoints")).latest_step()
+            meta = json.loads((run / "checkpoints" / str(step) / "meta.json").read_text())
+            assert meta["grain"] is None and meta["batch_in_epoch"] == 0
         else:
             step = CheckpointManager(str(run / "checkpoints")).latest_step()
             leaves = torch.load(run / "checkpoints" / str(step) / "state.pt", weights_only=True)
             accu = [v for k, v in leaves.items() if k.startswith("opt_state/")]
             assert accu and all(v.dtype == torch.bfloat16 for v in accu)
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         cli.main([argv[0], "--preset", "tinyikala", *rest, *argv[1:], *CPU])
+
+
+@pytest.mark.parametrize("verb", ["train", "separate-batch", "serve"])
+def test_mesh_data_under_a_launcher(audio_dir, tmp_path, monkeypatch, verb):
+    """``--mesh-data 1`` with a launcher's environment (one rank, gloo on
+    ``--device cpu``, a free localhost port): the verb builds the mesh,
+    runs on it and destroys the process group it initialized."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    pkl = _pickle(tmp_path / "m.pkl")
+    feats = str(tmp_path / "feats")
+    if verb == "train":
+        cli.main(["compute-features", "--preset", "tinyikala", "--audio-dir", audio_dir,
+                  "--out", feats, *CPU])
+    rest = {"train": ["--features", feats, "--workdir", str(tmp_path / "run"), "--grain"],
+            "separate-batch": ["--params", pkl, "--input-dir",
+                               os.path.join(audio_dir, "track0"), "-o", str(tmp_path / "o")],
+            "serve": ["--params", pkl, "--input-dir", os.path.join(audio_dir, "track0"),
+                      "-o", str(tmp_path / "o"), "--max-sweeps", "2", "--poll", "0"]}[verb]
+    assert cli.main([verb, "--preset", "tinyikala", *rest, "--mesh-data", "1", *CPU]) == 0
+    assert not dist.is_initialized()
+    if verb == "train":
+        assert CheckpointManager(str(tmp_path / "run" / "checkpoints")).latest_step()
+    else:
+        assert os.listdir(tmp_path / "o")
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        cli.main([verb, "--preset", "tinyikala", *rest, "--mesh-data", "2", *CPU])
+    assert not dist.is_initialized()
 
 
 def test_orbax_directory_refused(tmp_path):
@@ -452,7 +504,7 @@ def test_default_device_is_cuda_and_no_jax(audio_dir, tmp_path):
     """In a fresh interpreter: without --device, on a machine with no GPU,
     a verb exits non-zero with the CUDA error (no quiet move to the CPU);
     with --device cpu the CLI, bench, eval and flops modules run and leave
-    jax and the JAX package out of sys.modules."""
+    jax, grain and the JAX package out of sys.modules."""
     import torch
 
     pkl = _pickle(tmp_path / "m.pkl")
@@ -473,7 +525,8 @@ def test_default_device_is_cuda_and_no_jax(audio_dir, tmp_path):
                          "--est-dir", {os.path.join(audio_dir, "track1")!r}, "--flen", "8",
                          "--device", "cpu"]) == 0
         bad = [k for k in sys.modules
-               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "convsep_tpu")]
+               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
+                                      "convsep_tpu")]
         assert not bad, bad
         print("ok")
         """)

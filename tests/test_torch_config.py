@@ -81,7 +81,7 @@ def test_kernel_sources_match_bindings():
 
 def test_package_never_imports_jax():
     """Importing every module and running the slice on CPU leaves jax,
-    flax and the JAX package out of sys.modules."""
+    flax, grain and the JAX package out of sys.modules."""
     script = textwrap.dedent(
         """
         import dataclasses, sys
@@ -94,6 +94,8 @@ def test_package_never_imports_jax():
         import convsep_tpu_torch.utils.transfer
         import convsep_tpu_torch.benchmark, convsep_tpu_torch.cli, convsep_tpu_torch.eval
         import convsep_tpu_torch.utils.flops, convsep_tpu_torch.utils.profiling
+        import convsep_tpu_torch.data.grain_pipeline, convsep_tpu_torch.distributed
+        import convsep_tpu_torch.separate.sharded
         from convsep_tpu_torch.ckpt import init_params, to_jax_params
         from convsep_tpu_torch.configs import TransformConfig, get_preset
         from convsep_tpu_torch.separate import Separator, StereoSeparator
@@ -118,7 +120,8 @@ def test_package_never_imports_jax():
             0.1 * np.stack([x, x[::-1]], axis=1))
         assert y2.shape == (4, 5000, 2) and y2.dtype == np.float32
         bad = [k for k in sys.modules
-               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "convsep_tpu")]
+               if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
+                                      "convsep_tpu")]
         assert not bad, bad
         print("ok")
         """

@@ -8,12 +8,21 @@ Held exactly: the batches of every dispatch, the checkpoint steps and the
 data position saved with each (``step // every > prev_step // every`` at
 dispatch boundaries), the logged steps (each the previous dispatch's last
 step), the multi step used twice and the single step once. Held in
-numbers: the first step's loss and grad norm within 1e-5 relative; each of
-the 7 steps, taken by the port from the reference's state before it
-(bridged) on the batch the Trainers fed, within 1e-5 of the largest
-parameter magnitude of the reference's step (a bias that one update moved
-by 4e-3 differs by 1.4e-7: float32 gradients summed in another order pass
-through adadelta's slope-1 start unchanged); and the port's K = 3 run equal
+numbers: the first step's loss and grad norm within ``TOL_FIRST_STEP``
+(1e-4) relative, set from a witness: the reference's own float32 grad norm
+against the same function in float64 (``compute_dtype="float64"`` under
+``jax.enable_x64``) errs by 5.5e-7 to 2.6e-5 relative at this size
+(``tests/parity_witness.py``), so two float32 evaluations may part
+by twice that. Each of the 7 steps, taken by the port from the
+reference's state before it (bridged) on the batch the Trainers fed,
+within 1e-5 of the largest parameter magnitude of the reference's step (a
+bias that one update moved by 4e-3 differs by 1.4e-7: float32 gradients
+summed in another order pass through adadelta's slope-1 start unchanged),
+or on feature files within five times the reference's own float32 error on
+that step against its float64 evaluation where that is larger (the first
+feature step's reads 3.8e-6 of the peak, the port's gap 1.2e-5 of it under
+MKL_CBWR=COMPATIBLE, whose products stray further from float64 than by
+default). And the port's K = 3 run equal
 bit for bit to its K = 1 run (the same operations in the same order).
 
 The two packages' free runs are not compared past the first step: from
@@ -50,6 +59,7 @@ from tests.test_torch_train_model import PRESETS, port, tiny_dsd_preset
 FS = 8000
 K = 3
 BATCHES = 7
+TOL_FIRST_STEP = 1e-4
 
 
 def _batch_size(n: int) -> int:
@@ -96,6 +106,23 @@ def _record_dispatches(trainer, snapshot) -> list:
     return seen
 
 
+def _float64_step(jp, opt):
+    """The reference's feature step evaluated in float64
+    (``compute_dtype="float64"`` under ``jax.enable_x64``):
+    ``(state, x, y) → params`` as float64 numpy."""
+    p64 = dataclasses.replace(jp, model=dataclasses.replace(jp.model, compute_dtype="float64"))
+    with jax.enable_x64(True):
+        step = jax_loop.make_train_step(p64, opt)
+
+    def run(state, x, y):
+        with jax.enable_x64(True):
+            wide = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)), state)
+            new, _ = step(wide, jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64))
+            return jax.tree.map(lambda a: np.asarray(a, np.float64), new.params)
+
+    return run
+
+
 def _logged(path) -> list[int]:
     return [json.loads(line)["step"] for line in open(path) if '"loss"' in line]
 
@@ -133,7 +160,7 @@ def _run_both(jp, jds, pds, tmp_path, from_audio: bool):
         tmp_path / "jax" / "metrics.jsonl") == [3, 6]
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(p_seen[0][4][key][0]), float(j_seen[0][4][key][0]),
-                                   rtol=1e-5)
+                                   rtol=TOL_FIRST_STEP)
     # the same math as K single steps: the port's K = 1 run, bit for bit
     single = port_trainer("port1", 1)
     single.fit(pds)
@@ -142,6 +169,7 @@ def _run_both(jp, jds, pds, tmp_path, from_audio: bool):
     # every step, from the reference's state before it
     make = jax_e2e.make_audio_train_step if from_audio else jax_loop.make_train_step
     j_step = make(jp, jt.opt)
+    witness = None if from_audio else _float64_step(jp, jt.opt)
     p_step = (e2e.make_audio_train_step if from_audio else loop.make_train_step)(pp, pt.opt)
     checked = 0
     for kind, xs, ys, pre, _ in j_seen:
@@ -150,12 +178,18 @@ def _run_both(jp, jds, pds, tmp_path, from_audio: bool):
             ps, _ = loop.create_train_state(pp, 0, "cpu", params=from_jax_params(js.params, cfg))
             ps.opt_state = opt_state_from_jax(js.opt_state, cfg)
             ps, _ = p_step(ps, torch.from_numpy(x), torch.from_numpy(y))
+            truth = None if witness is None else witness(js, x, y)
             js, _ = j_step(js, jnp.asarray(x), jnp.asarray(y))
             want = from_jax_params(js.params, cfg)
             scale = max(float(w.abs().max()) for w in want.values())
+            atol = 1e-5 * scale
+            if truth is not None:
+                truth = from_jax_params(truth, cfg)
+                atol = max(atol, 5 * max(float((truth[k] - w.double()).abs().max())
+                                         for k, w in want.items()))
             for key, p in ps.params.items():
                 np.testing.assert_allclose(p.detach().numpy(), want[key].numpy(), rtol=0,
-                                           atol=1e-5 * scale, err_msg=f"step {checked + 1}: {key}")
+                                           atol=atol, err_msg=f"step {checked + 1}: {key}")
             checked += 1
     assert checked == BATCHES
 

@@ -24,6 +24,7 @@ from convsep_tpu_torch.data.io import read_wav, write_wav
 from convsep_tpu_torch.separate import StereoSeparator, StreamSeparator, WatchService
 from tests.test_chunked import _params, tiny_preset
 from tests.test_torch_chunked import noise, port
+from tests.torch_ranks import one_rank_mesh
 
 FS = 8000
 
@@ -163,8 +164,14 @@ def test_stereo_service_and_refusals(rng, tmp_path):
         np.testing.assert_array_equal(pcm_of(os.path.join(out, "st", f"{s}.wav"))[1], stem)
     with pytest.raises(ValueError, match="mono-preset only"):
         WatchService(pp, state, incoming, out, score_dir=incoming, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        WatchService(pp, state, incoming, out, mesh=object(), device="cpu")
+    # a mesh of one rank (refused until distributed was ported) writes the same stems
+    meshed = str(tmp_path / "meshed")
+    with one_rank_mesh(str(tmp_path / "store")) as mesh:
+        assert WatchService(pp, state, incoming, meshed, poll_s=0.0, mesh=mesh).run(
+            max_sweeps=2) == 1
+    for s in pp.sources:
+        np.testing.assert_array_equal(pcm_of(os.path.join(meshed, "st", f"{s}.wav"))[1],
+                                      pcm_of(os.path.join(out, "st", f"{s}.wav"))[1])
     mono = port(tiny_preset(name="ikala"), _params(tiny_preset(name="ikala")))
     shutil.rmtree(out)
     bad = WatchService(dataclasses.replace(

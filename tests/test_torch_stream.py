@@ -39,6 +39,7 @@ from convsep_tpu_torch.separate import (
     separate_fused,
 )
 from convsep_tpu_torch.separate.stream import separate_batch_vmap
+from tests.torch_ranks import one_rank_mesh
 from tests.test_chunked import _params, tiny_preset
 from tests.test_torch_chunked import noise, one_intraop_thread, port  # noqa: F401
 
@@ -262,10 +263,16 @@ def test_stereo_stream_matches_stereo_separator(rng):
         StreamSeparator(pp, state, device="cpu").separate_many([tracks[0][0]])
 
 
-def test_unported_options_raise(ikala):
+def test_unported_options_raise(ikala, tmp_path):
+    """``apply_fn=`` raises; ``mesh=``, refused until distributed was
+    ported, separates: on a mesh of one rank the stems equal the unsharded
+    ones bit for bit (the same batch on the same device)."""
     _, _, pp, state, model = ikala
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        StreamSeparator(pp, state, mesh=object(), device="cpu")
+    tracks = tracks_of(3)
+    with one_rank_mesh(str(tmp_path / "store")) as mesh:
+        meshed = StreamSeparator(pp, state, mesh=mesh, device="cpu").separate_many(tracks)
+    for got, want in zip(meshed, StreamSeparator(pp, state, device="cpu").separate_many(tracks)):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(NotImplementedError, match="Also left out"):
         StreamSeparator(pp, state, apply_fn=lambda *a: a, device="cpu")
     x, Lb = stacked(tracks_of(1), pp)

@@ -41,6 +41,7 @@ from convsep_tpu_torch.data.synth import sine_mixture
 from convsep_tpu_torch.models.convsep import trainable_config
 from convsep_tpu_torch.train import e2e, loop
 from tests.test_torch_train_model import PRESETS, port, tiny_dsd_preset
+from tests.torch_ranks import one_rank_mesh
 
 FS = 8000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,13 +97,22 @@ def test_audio_loss_and_grads_match_jax(rng, name):
 def test_fused_trajectory_matches_jax(rng, name):
     """One JAX step makes the adadelta state nontrivial; the state is
     bridged and both packages take 3 more steps on the same batches, each
-    on its own state. Every step's loss within 1e-4 relative; the first
-    bridged step's grad norm within 1e-5 relative.
+    on its own state. Every step's loss and the first bridged step's grad
+    norm within 1e-4 relative (the reference's own float32 grad norm errs
+    by up to 2.6e-5 relative against its float64 evaluation at these
+    sizes, so two float32 evaluations may part by twice that).
 
     The parameters are held step by step: before each step the port's
     state is also bridged afresh from the JAX state, and that one port
-    step must land within 1e-6 of the JAX step (an update moves a weight
-    by up to ~6e-3; at this seed the worst reads 6.6e-7). The two free
+    step must land within 1e-6 of the JAX step, or within ten times the
+    witness where that is larger. The witness is the reference's own step
+    from the same state on its matmul STFT route: the same step summed in
+    another order, whose gap grows with the step (1.7e-7, 6.7e-8, 3.8e-6
+    at dsd100_tiny; ``tests/parity_witness.py``). The port's step differs from the reference's in the
+    order of every product, not the STFT's alone; its gap reached 4.5
+    times the witness's over default, AVX2 and MKL_CBWR=COMPATIBLE
+    settings at 1 and 6 threads. An update moves a weight by up to ~6e-3.
+    The two free
     runs' final parameters are not compared: they part chaotically (f32
     noise flips ReLU gates and moves outputs near 0, where the Wiener
     ratio's derivative is ~1/eps), by up to 3e-2 of the three steps'
@@ -113,6 +123,7 @@ def test_fused_trajectory_matches_jax(rng, name):
     cfg = trainable_config(pp.model)
     jstate, jopt = jax_loop.create_train_state(jp, 1)
     jstep = jax_e2e.make_audio_train_step(jp, jopt)
+    witness_step = jax_e2e.make_audio_train_step(_with(PRESETS[name](), fft_impl="matmul"), jopt)
     batches = [_batch(rng, jp, 4) for _ in range(4)]
     jstate, _ = jstep(jstate, *map(jnp.asarray, batches[0]))
 
@@ -127,15 +138,19 @@ def test_fused_trajectory_matches_jax(rng, name):
     for i, (mix, stems) in enumerate(batches[1:]):
         args = torch.from_numpy(mix), torch.from_numpy(stems)
         fstate, fm = tstep(bridged(jstate)[0], *args)
+        wstate, _ = witness_step(jax.tree.map(jnp.copy, jstate), jnp.asarray(mix),
+                                 jnp.asarray(stems))
         jstate, jm = jstep(jstate, jnp.asarray(mix), jnp.asarray(stems))
         tstate, tm = tstep(tstate, *args)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4)
         if i == 0:
             np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
-                                       rtol=1e-5)
+                                       rtol=1e-4)
         want = from_jax_params(jstate.params, cfg)
+        witness = from_jax_params(wstate.params, cfg)
+        atol = max(1e-6, 10 * max(float((witness[k] - w).abs().max()) for k, w in want.items()))
         for k, p in fstate.params.items():
-            np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(), atol=1e-6,
+            np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(), atol=atol,
                                        rtol=0, err_msg=f"step {i}: {k}")
     assert tstate.step == fstate.step == int(jstate.step) == 4
 
@@ -231,15 +246,27 @@ def test_trainer_debug_nans_raises(audio_root):
 
 
 def test_trainer_refuses_what_is_not_ported(audio_root, tmp_path):
+    """What was refused before and is ported now. A mesh of one rank
+    trains as one process does, bit for bit, on the same fused update
+    (each rank's leaves are whole: the kernel updates them after the
+    all-reduce); ``use_grain`` feeds grain's order and
+    keeps grain's state in the data position (``tests/test_torch_grain.py``
+    holds both to grain); tensorboard, stereo and multires losses
+    (``tests/test_torch_train_stereo.py`` holds them to JAX)."""
     pp = port(_with(tiny_dsd_preset()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Trainer(pp, from_audio=True, device="cpu", mesh=object())
-    trainer = loop.Trainer(pp, from_audio=True, device="cpu")
     ds = AudioSegmentDataset(audio_root, pp.sources, segment_samples(pp), fs=FS)
-    with pytest.raises(NotImplementedError, match="grain"):
-        trainer.fit(ds, use_grain=True)
-    # what was refused before and is ported now: tensorboard, stereo and
-    # multires losses (tests/test_torch_train_stereo.py holds them to JAX)
+    alone = loop.Trainer(pp, from_audio=True, device="cpu")
+    alone.fit(ds, max_steps=2)
+    with one_rank_mesh(str(tmp_path / "store")) as mesh:
+        meshed = loop.Trainer(pp, from_audio=True, mesh=mesh)
+        assert meshed.preset.train.optimizer_impl == "fused"
+        meshed.fit(ds, max_steps=2)
+    for k, p in alone.state.params.items():
+        torch.testing.assert_close(meshed.state.params[k], p, rtol=0, atol=0)
+    trainer = loop.Trainer(pp, from_audio=True, device="cpu")
+    trainer.fit(ds, use_grain=True, max_steps=2)
+    pos = trainer.data_position
+    assert pos["batch_in_epoch"] == 2 and json.loads(pos["grain"])["version"] == 2
     logger = loop.MetricsLogger(tensorboard_dir=str(tmp_path / "tb"))
     logger.log(step=3, loss=0.5)
     logger.close()
