@@ -123,8 +123,12 @@ result line is printed):
    at TM 360; 11b: the fused decode at the reference rule's edges (J 128
    with ktaps 17 at TM 120 and ktaps 16 at TM 360, J 100 padded to 104; B
    49, random operands), the launcher's plan against its mirror; the band
-   decode past one block's shared memory, in pieces (multires4096's
-   geometry at 100 channels each way);
+   decode past one block's shared memory (multires4096's geometry at C2
+   128, I 64 and at C2 100, I 100) on the streamed kernel, one launch a
+   call, beside the pieces it replaced (forced), the plain version, a bf16
+   ``torch.matmul`` and the bound, and faster than the pieces; its A/B
+   against the taps-resident kernel at C2 32, I 100, a band that fits it,
+   which keys ``BAND_STREAM_WON``;
 12. the multires4096 slice, ``Separator(multires4096)`` at full width on
    the phase 4 mixture, three routes: (a) "auto" (plain multires channels,
    the fused decode at TM 360, the Wiener+iSTFT kernel) against the plain
@@ -139,8 +143,9 @@ result line is printed):
    "blend", each against the plain route as phase 4;
 14. device times (``torch.profiler``, in a child) of the fused decode and
    its plain version at TM 120 and 360, and of the Wiener+iSTFT (both phase
-   3 shapes, phase 3c's and phase 7b's), Wiener mask, band decode and fused
-   adadelta kernels;
+   3 shapes, phase 3c's and phase 7b's), Wiener mask, band decode (phase
+   11's shape, and the streamed kernel at phase 11b's) and fused adadelta
+   kernels;
 15. chunked: ``ChunkedSeparator`` (chunk_segments 32) for highres4096 (2
    chunks of 960 frames) and dsd100 (4 chunks) on the phase 4 mixture,
    against ``Separator`` as phase 4 holds two routes (the f32 tail's model
@@ -689,8 +694,8 @@ def child_other_times(device, gen) -> dict:
     (highres4096 and dsd100, phase 3's inputs; the cluster, phase 3c's;
     phase 7b's split, Bluestein and forced direct sum), the Wiener mask kernel (the
     dsd100 pallas route's shape), the band decode kernel (phase 11's shape,
-    the prepared operand) and the fused adadelta kernel (phase 5's two
-    leaves)."""
+    the prepared operand), the streamed band decode kernel (phase 11b's
+    shapes) and the fused adadelta kernel (phase 5's two leaves)."""
     import torch
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_direct_pallas, wiener_istft
     from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas
@@ -714,6 +719,13 @@ def child_other_times(device, gen) -> dict:
     band = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
     res["band_decode"] = profile_ms(lambda: band_decode_wmajor(z, band, T))["device_ms"]
     del z, band
+    for N, Tp, W, C2, kh, I in BAND_STREAM_SHAPES:  # the streamed kernel (phase 11b's shapes)
+        T = Tp + kh - 1
+        z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
+        band = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+        res[f"band_decode_stream C2 {C2} I {I}"] = profile_ms(
+            lambda: band_decode_wmajor(z, band, T))["device_ms"]
+        del z, band
     total = 0.0
     for shape in ((128, 518400), (129600, 128)):
         p = 0.01 * torch.randn(shape, generator=gen, device=device)
@@ -2485,6 +2497,15 @@ DECODE_EDGE_SHAPES = (("J 128 ktaps 17 TM 120", 128, 17, 120),
 # geometry (N 196, Tp 16, W 505, kh 15) at 128 input channels and 64 output
 # channels (8 pieces of 4 depths × 8 or 7 taps; 64 columns a product)
 BAND_PIECES_SHAPE = (196, 16, 505, 128, 15, 64)
+# the streamed band decode's shapes (phase 11b): BAND_PIECES_SHAPE and the
+# same geometry at C2 100, I 100 (6 pieces; 104 columns a product)
+BAND_STREAM_SHAPES = (BAND_PIECES_SHAPE, (196, 16, 505, 100, 15, 100))
+# its A/B against band_decode.cu where the band fits (phase 11b): I 100 runs
+# there as thirteen products of 8 columns a column block
+BAND_STREAM_AB_SHAPE = (196, 16, 505, 32, 15, 100)
+# the spread of the two band kernels' times between runs: BAND_STREAM_WON
+# may route a band where one run reads the streamed kernel this much slower
+BAND_SPREAD = 0.05
 
 
 def phase_decode_edges(device, gen) -> dict:
@@ -2546,50 +2567,121 @@ def phase_decode_edges(device, gen) -> dict:
     return res
 
 
-def phase_band_pieces(device, gen) -> dict:
-    """The band decode kernel on a band its taps and z tile do not fit one
-    block's shared memory for (``BAND_PIECES_SHAPE``): cut by band_pieces,
-    each piece added into its columns, within ``TOL_BAND`` of the plain
-    version, one count; its time beside the plain version's and a bf16
-    ``torch.matmul``."""
+def band_flops(N: int, W: int, Tp: int, C2: int, kh: int, I: int) -> float:
+    """The band's nonzero products: each column block t reads the taps h
+    with 0 <= t - h < kh, Tp·kh (h, t) pairs of C2 × I products a row."""
+    return 2.0 * N * W * Tp * kh * C2 * I
+
+
+def phase_band_stream(device, gen) -> dict:
+    """The streamed band decode kernel (``csrc/band_stream.cu``) at
+    ``BAND_STREAM_SHAPES``, bands whose taps and z tile do not fit one
+    block's shared memory: routed by ``band_decode_wmajor``, exactly one
+    ``band_decode_stream`` launch a call and no ``band_decode``, within
+    ``TOL_BAND`` of the plain version; its card ms and wrapper host µs
+    beside the pieces it replaced (``band_decode_pieces_pallas``, forced,
+    also held to the plain version), the plain version, a bf16
+    ``torch.matmul`` of the dense band and the bound; it must beat the
+    pieces. Then the A/B at ``BAND_STREAM_AB_SHAPE``, a band that fits
+    ``csrc/band_decode.cu``: the streamed kernel against the taps-resident
+    one (``band_decode_resident_pallas``); where ``BAND_STREAM_WON`` routes
+    the streamed kernel, it may read at most ``BAND_SPREAD`` slower."""
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.models.decoder_band_cuda import (
+        BAND_STREAM_WON,
+        band_decode_pieces_pallas,
+        band_decode_resident_pallas,
+        band_decode_stream_pallas,
         band_decode_wmajor,
         band_decode_wmajor_plain,
         band_operand,
         band_pieces,
+        band_stream_plan,
     )
 
-    N, Tp, W, C2, kh, I = BAND_PIECES_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for N, Tp, W, C2, kh, I in BAND_STREAM_SHAPES:
+        key = f"C2 {C2} I {I}"
+        T = Tp + kh - 1
+        split = band_pieces(Tp, C2, kh, I)
+        plan = band_stream_plan(N * W, Tp, C2, kh, I, sms)
+        z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
+        op = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
+        before = dict(kernels.LAUNCHES)
+        got = band_decode_wmajor(z, op, T)
+        want = band_decode_wmajor_plain(z, op)
+        torch.cuda.synchronize()
+        if (kernels.LAUNCHES["band_decode_stream"] != before["band_decode_stream"] + 1
+                or kernels.LAUNCHES["band_decode"] != before["band_decode"]):
+            raise AssertionError(f"band stream {key}: not one band_decode_stream launch")
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item()
+        before = kernels.LAUNCHES["band_decode"]
+        pieces = band_decode_pieces_pallas(z, op, T)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["band_decode"] != before + 1:
+            raise AssertionError(f"band pieces {key}: no band_decode count")
+        ep = (pieces - want).abs().max().item() if torch.isfinite(pieces).all() else float("inf")
+        del pieces
+        log(f"  band_decode_stream {key} z {tuple(z.shape)}: max_abs_err {e:.3e}, the forced "
+            f"pieces ({len(split.pieces)} of at most {split.tp} depths x {split.kh} taps) "
+            f"{ep:.3e} (tol {TOL_BAND * scale:.3e})")
+        if not torch.isfinite(got).all():
+            e = float("inf")
+        for name, err in (("stream", e), ("pieces", ep)):
+            if not err <= TOL_BAND * scale:
+                raise AssertionError(f"band decode {name} {key} disagrees: {err} > "
+                                     f"{TOL_BAND * scale}")
+        zb, bb = z.reshape(N * W, -1), op.band.reshape(Tp * C2, -1).to(torch.bfloat16)
+        ms = cuda_ms(lambda: band_decode_wmajor(z, op, T))
+        pieces_ms = cuda_ms(lambda: band_decode_pieces_pallas(z, op, T), reps=3, rounds=3)
+        plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, op), reps=3, rounds=3)
+        lib_ms = cuda_ms(lambda: torch.matmul(zb, bb))
+        us = host_us(lambda: band_decode_wmajor(z, op, T), reps=50)
+        flops = band_flops(N, W, Tp, C2, kh, I)
+        b = bound(2 * z.numel() + 2 * kh * C2 * I + 4 * got.numel(), flops, BF16_FLOPS)
+        log(f"  band_decode_stream {key}: kernel {ms:.4f} ms, the forced pieces {pieces_ms:.4f} "
+            f"ms, plain {plain_ms:.3f} ms, torch.matmul bf16 {lib_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {flops:.4e} operations, "
+            f"{plan.executed_ops:.4e} run); wrapper host {us:.1f} us per call; plan: N "
+            f"{plan.n}, G {plan.g}, {plan.items} items on {plan.grid} blocks, "
+            f"{plan.smem_bytes} B")
+        if not ms < pieces_ms:
+            raise AssertionError(f"band stream {key}: {ms} ms, not under the pieces' {pieces_ms}")
+        res[key] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+                    "host_us": us, "operations": flops, "executed_operations": plan.executed_ops,
+                    "shape": [N, Tp, W, C2, kh, I], "n": plan.n, "g": plan.g,
+                    "pieces_forced": {"ms": pieces_ms, "max_abs_err": ep,
+                                      "pieces": len(split.pieces), "piece_depths": split.tp,
+                                      "piece_taps": split.kh}}
+        del z, op, got, want, zb, bb
+        torch.cuda.empty_cache()
+    N, Tp, W, C2, kh, I = BAND_STREAM_AB_SHAPE
     T = Tp + kh - 1
-    split = band_pieces(Tp, C2, kh, I)
     z = torch.relu(torch.randn(N, W, Tp * C2, generator=gen, device=device)).to(torch.bfloat16)
     op = band_operand(0.05 * torch.randn(kh, 1, I, C2, generator=gen, device=device), T)
-    before = kernels.LAUNCHES["band_decode"]
-    got = band_decode_wmajor(z, op, T)
     want = band_decode_wmajor_plain(z, op)
-    torch.cuda.synchronize()
-    if kernels.LAUNCHES["band_decode"] != before + 1:
-        raise AssertionError("band pieces: no band_decode count")
     scale = want.abs().max().item()
-    e = (got - want).abs().max().item()
-    log(f"  band_decode pieces z {tuple(z.shape)}: {len(split.pieces)} pieces of at most "
-        f"{split.tp} depths x {split.kh} taps ({split.smem_bytes} B); max_abs_err {e:.3e} (tol "
-        f"{TOL_BAND * scale:.3e})")
-    if not (e <= TOL_BAND * scale and torch.isfinite(got).all()):
-        raise AssertionError(f"band decode pieces disagree: {e} > {TOL_BAND * scale}")
-    zb, bb = z.reshape(N * W, -1), op.band.reshape(Tp * C2, -1).to(torch.bfloat16)
-    ms = cuda_ms(lambda: band_decode_wmajor(z, op, T))
-    plain_ms = cuda_ms(lambda: band_decode_wmajor_plain(z, op))
-    lib_ms = cuda_ms(lambda: torch.matmul(zb, bb))
-    flops = 2.0 * N * W * Tp * kh * C2 * I
-    b = bound(2 * z.numel() + 2 * kh * C2 * I + 4 * got.numel(), flops, BF16_FLOPS)
-    log(f"  band_decode pieces: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.matmul bf16 "
-        f"{lib_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
-            "pieces": len(split.pieces), "piece_depths": split.tp, "piece_taps": split.kh,
-            "shape": list(BAND_PIECES_SHAPE)}
+    errs = {}
+    for name, fn in (("stream", band_decode_stream_pallas), ("resident", band_decode_resident_pallas)):
+        errs[name] = (fn(z, op, T) - want).abs().max().item()
+        if not errs[name] <= TOL_BAND * scale:
+            raise AssertionError(f"band A/B {name} disagrees: {errs[name]} > {TOL_BAND * scale}")
+    stream_ms = cuda_ms(lambda: band_decode_stream_pallas(z, op, T))
+    resident_ms = cuda_ms(lambda: band_decode_resident_pallas(z, op, T))
+    won = (Tp, C2, kh, I) in BAND_STREAM_WON
+    log(f"  band A/B at N {N}, Tp {Tp}, W {W}, C2 {C2}, kh {kh}, I {I} (fits band_decode.cu): "
+        f"streamed {stream_ms:.4f} ms, taps-resident {resident_ms:.4f} ms; routed to the "
+        f"{'streamed' if won else 'taps-resident'} kernel (BAND_STREAM_WON)")
+    if won and stream_ms > (1 + BAND_SPREAD) * resident_ms:
+        raise AssertionError(f"BAND_STREAM_WON routes a band where the streamed kernel lost: "
+                             f"{stream_ms} > {resident_ms}")
+    res["ab"] = {"shape": [N, Tp, W, C2, kh, I], "stream_ms": stream_ms,
+                 "resident_ms": resident_ms, "routed_to_stream": won,
+                 "stream_max_abs_err": errs["stream"], "resident_max_abs_err": errs["resident"]}
+    return res
 
 
 def auto_fused(preset, batch: int) -> bool:
@@ -4353,9 +4445,10 @@ def main(argv: list[str]) -> int:
     band = phase_band_decode(device, gen)
     torch.cuda.empty_cache()
     log("phase 11b: the fused decode at the reference rule's edges (ktaps 17 at TM 120, 16 at "
-        "TM 360, J 100) and the band decode past one block's shared memory (in pieces)")
+        "TM 360, J 100) and the band decode past one block's shared memory (streamed, beside "
+        "the forced pieces), the streamed kernel's A/B where the band fits")
     dec_edges = phase_decode_edges(device, gen)
-    band_split = phase_band_pieces(device, gen)
+    band_stream = phase_band_stream(device, gen)
     torch.cuda.empty_cache()
     mr = get_preset("multires4096")
     mr_state = init_params(mr.model, torch.Generator(device=device).manual_seed(4), device)
@@ -4396,6 +4489,8 @@ def main(argv: list[str]) -> int:
                     ("wiener_istft W 16384", wie_cl["W 16384"]),
                     ("wiener_istft W 32768", wie_cl["W 32768"]),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
+                    *((f"band_decode_stream {key}", band_stream[key])
+                      for key in (f"C2 {c2} I {i}" for _, _, _, c2, _, i in BAND_STREAM_SHAPES)),
                     ("fused_adadelta", ada)):
         r["device_ms"] = others[name]
         log(f"  {name}: device {ms_str(others[name])} (events {r['ms']:.4f} ms), bound "
@@ -4497,7 +4592,7 @@ def main(argv: list[str]) -> int:
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
                    "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
                    "wiener_istft_ny_bluestein", "wiener_istft_direct", "wiener_istft_ny_direct",
-                   "ct_stft_level", "ct_stft_cluster"):
+                   "ct_stft_level", "ct_stft_cluster", "band_decode_stream"):
         if launched(kernel)["launches"]:
             raise AssertionError(f"a main path ran {kernel}: {launched(kernel)}")
 
@@ -4692,7 +4787,20 @@ def main(argv: list[str]) -> int:
         {"name": "band_decode", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/band_decode.cu",
          "replaces": "convsep_tpu/models/decoder_pallas.py:80",
-         **launched("band_decode"), **band, "pieces": band_split},
+         **launched("band_decode"), **band,
+         "pieces_forced": {k: band_stream[k]["pieces_forced"] for k in band_stream if k != "ab"},
+         "ab_resident_ms": band_stream["ab"]["resident_ms"]},
+        {"name": "band_decode_stream", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/band_stream.cu (kernel in band_stream.cuh; widths "
+                   "72-256 in band_stream_n128.cu, band_stream_n192.cu, band_stream_n256.cu)",
+         "entry": "band_stream_kernel",
+         "replaces": "convsep_tpu/models/decoder_pallas.py:80",
+         "serves": "bands whose taps and 64-row z tile do not fit one block's shared memory "
+                   "(twice a preset's channels or more) and the shapes in BAND_STREAM_WON: "
+                   "slabs of z and of the taps streamed by TMA through a ring, one launch; "
+                   "no preset",
+         **launched("band_decode_stream"), **band_stream["C2 128 I 64"],
+         "c2_100_i100": band_stream["C2 100 I 100"], "ab": band_stream["ab"]},
     ], "slices_ms_per_track": {
         "highres4096-stereo": {"kernel": st_run["ms"], "plain": st_run["plain_ms"]},
         "dsd100 fft_impl=pallas": {"pallas": pl_run["ms"], "matmul": pl_run["matmul_ms"]},

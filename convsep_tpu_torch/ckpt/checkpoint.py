@@ -47,7 +47,8 @@ log = logging.getLogger(__name__)
 _STATE = "state.pt"
 _META = "meta.json"
 # the buffers ConvSep.prepare_inference adds (models/convsep.py::ConvSep._operands)
-PREPARED_NAMES = frozenset({"w_eff", "bias_eff", "k4", "b3", "kcat", "band", "band_taps"})
+PREPARED_NAMES = frozenset({"w_eff", "bias_eff", "k4", "b3", "kcat", "band", "band_taps",
+                            "band_stream"})
 
 
 def _has_prepared_leaves(tree: Any) -> bool:

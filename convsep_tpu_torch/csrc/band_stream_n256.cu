@@ -1,0 +1,6 @@
+// The streamed band decode's instances of widths 200-256
+// (band_stream.cuh; launched by band_stream.cu::band_stream_launch).
+
+#include "band_stream.cuh"
+
+BAND_STREAM_INSTANCES(launch_n256, 192)

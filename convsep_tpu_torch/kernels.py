@@ -36,9 +36,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "wiener_split.cu", "wiener_bluestein.cu", "wiener_istft.cu", "decoder_fused.cu",
     "stft_dft.cu", "fused_adadelta.cu", "istft.cu", "wiener_apply.cu", "ct_stft.cu",
-    "band_decode.cu",
+    "band_decode.cu", "band_stream.cu", "band_stream_n128.cu", "band_stream_n192.cu",
+    "band_stream_n256.cu",
 )
-HEADERS = ("fft_common.cuh", "wiener_common.cuh")
+HEADERS = ("fft_common.cuh", "wiener_common.cuh", "band_stream.cuh", "wgmma_bf16.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -52,7 +53,7 @@ LAUNCHES: dict[str, int] = {
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_direct": 0,
     "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
-    "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0,
+    "band_decode_stream": 0, "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0,
 }
 
 _lock = threading.Lock()
@@ -124,6 +125,12 @@ _SIGNATURES = {
     # z, packed taps, out, M, Tp, C2, kh, I, z row stride, out row stride, accumulate,
     # grid, stream
     "band_decode_piece_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _I, _I, _P),
+    # z, stream-packed taps, out, M, Tp, C2, kh, I, grid, stream
+    "band_stream_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # M, Tp, C2, kh, I, info (10 ints out)
+    "band_stream_plan": (_L, _I, _I, _I, _I, _P),
+    # N, active (1 int out: the clusters the card holds at once)
+    "band_stream_clusters": (_I, _P),
 }
 
 

@@ -344,9 +344,10 @@ class ConvSep(nn.Module):
             self.fc_kernel, self.fc_bias, self.conv1_kernel, self.conv1_bias,
             self.conv2_kernel, self.conv2_bias, cfg,
         )
-        if cfg.decoder_impl == "band_pallas":  # the band and the kernel's packed taps
+        if cfg.decoder_impl == "band_pallas":  # the band and the kernels' packed taps
             op = band_operand(self.conv2_kernel, cfg.time_context)
-            return {"w_eff": w_eff, "bias_eff": c, "band": op.band, "band_taps": op.packed}
+            return {"w_eff": w_eff, "bias_eff": c, "band": op.band, "band_taps": op.packed,
+                    "band_stream": op.stream}
         if cfg.decoder_impl in _BAND:
             return {"w_eff": w_eff, "bias_eff": c}
         KC, _, _, _ = band_freq_conv_kernel(
@@ -434,7 +435,8 @@ class ConvSep(nn.Module):
         e = torch.addmm(self.fc_expand_bias, fc, self.fc_expand_kernel).relu_()
         e = e.reshape(B * S, W, Tp * cfg.conv2_filters)
         if route == "band_pallas":
-            d2 = band_decode_kernel(e, BandOperand(ops["band"], ops["band_taps"]), T)
+            d2 = band_decode_kernel(e, BandOperand(ops["band"], ops["band_taps"],
+                                                       ops["band_stream"]), T)
         else:
             d2 = e.reshape(B * S * W, -1) @ _band_matrix_for(self.conv2_kernel, Tp)
         d1 = freq_decode_wmajor(d2.reshape(B * S, W, T, cfg.conv1_filters), self.conv1_kernel,

@@ -288,3 +288,141 @@ def test_band_pieces_emulation_matches_plain(rng, M, Tp, C2, kh, I):
     want = tdb.band_decode_wmajor_plain(z[None], band)[0]
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5 * want.abs().max().item(),
                                rtol=0)
+
+
+# -- the streamed kernel (csrc/band_stream.cu): packed taps, plan, reads ------
+
+
+def stream_emulation(z, packed, Tp, C2, kh, I):
+    """band_stream_kernel's arithmetic in float32, item by item in the
+    launcher's order: a unit (128-row tile, column block t, chunk of N
+    columns) sums, over its 64-depth slabs j of z's own row order (depths
+    past Tp·C2 zero), slab j of z against the packed taps' 64 rows from 64
+    + (kh − 1 − t)·C2 + 64·j, read in the shifted copy where they start
+    16-byte aligned. Each output element must be written exactly once."""
+    M = z.shape[0]
+    T, S = Tp + kh - 1, Tp * C2
+    plan = tdb.band_stream_plan(M, Tp, C2, kh, I)
+    zb = z.to(torch.bfloat16).float()
+    q = packed.float().reshape(plan.copies, plan.np, plan.lq)
+    div = 8 // plan.copies
+    out = torch.zeros(M, T * I)
+    written = torch.zeros(M, T * I, dtype=torch.int32)
+    for rt, ch, t0, t1 in tdb.stream_items(plan, T):
+        rows = slice(rt * 128, min(M, rt * 128 + 128))
+        n0 = ch * plan.n
+        cols = min(plan.n, I - n0)
+        for t in range(t0, t1 + 1):
+            lo, hi = plan.slabs[t]
+            assert plan.slabs[t0][0] <= lo and hi <= plan.slabs[t1][1]
+            acc = torch.zeros(rows.stop - rows.start, plan.n)
+            for j in range(lo, hi + 1):
+                a = torch.zeros(rows.stop - rows.start, 64)
+                a[:, :min(S, 64 * j + 64) - 64 * j] = zb[rows, 64 * j:64 * j + 64]
+                rho = 64 + (kh - 1 - t) * C2 + 64 * j
+                pos = rho + (8 - rho % 8) % 8
+                assert pos % 8 == 0 and 0 <= pos and pos + 64 <= plan.lq
+                acc += a @ q[rho % 8 // div, n0:n0 + plan.n, pos:pos + 64].t()
+            if cols > 0:
+                out[rows, t * I + n0:t * I + n0 + cols] = acc[:, :cols]
+                written[rows, t * I + n0:t * I + n0 + cols] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("M,Tp,C2,kh,I", [(70, 30, 128, 1, 128), (64, 1, 128, 30, 100),
+                                          (40, 12, 100, 9, 128), (300, 16, 128, 15, 64),
+                                          (70, 4, 50, 3, 300), (130, 3, 7, 2, 5),
+                                          (40, 4, 1100, 4, 200)])
+def test_stream_emulation_matches_plain(rng, M, Tp, C2, kh, I):
+    """The streamed kernel's reads (test_band_pieces_emulation_matches_plain's
+    three shapes; BAND_PIECES_SHAPE's Tp, C2, kh, I at 300 rows, an odd
+    count of row tiles; 300 columns in two chunks; C2 odd; a deep band,
+    4400 depths a column block, in its fold's two chunks of 104) give the
+    plain version's output within 1e-5 × max|out| (f32 sums in another
+    order)."""
+    assert tdb.band_stream_plan(M, Tp, C2, kh, I).fold == (C2 == 1100)
+    T = Tp + kh - 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((M, Tp * C2)).astype(np.float32)))
+    k = torch.from_numpy((0.3 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32))
+    op = tdb.band_operand(k, T)
+    got = stream_emulation(z, op.stream, Tp, C2, kh, I)
+    want = tdb.band_decode_wmajor_plain(z[None], op)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * want.abs().max().item(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("Tp,C2,kh,I", [(16, 128, 15, 64), (16, 100, 15, 100), (4, 50, 3, 300),
+                                        (3, 7, 2, 5), (16, 32, 15, 100), (4, 1100, 4, 200)])
+def test_stream_packing_is_the_band(rng, Tp, C2, kh, I):
+    """Every copy of pack_stream_taps holds the band: row 64 + (kh − 1 −
+    d)·C2 + c of column i is tap d's (c, i) in bf16 at the copy's shift,
+    zero elsewhere (the 64 rows before and after, columns past I)."""
+    k = torch.from_numpy(rng.uniform(0.5, 1.0, (kh, 1, I, C2)).astype(np.float32))
+    sh = tdb.stream_shape(Tp, kh, C2, I)
+    q = tdb.pack_stream_taps(k[:, 0].permute(0, 2, 1), Tp).float().reshape(sh.copies, sh.np,
+                                                                           sh.lq)
+    taps = k[:, 0].permute(0, 2, 1).to(torch.bfloat16).float()  # (kh, C2, I)
+    assert sh.copies == 8 // np.gcd(C2, 8) and sh.lq % 8 == 0 and sh.np == sh.n * sh.chunks
+    for c in range(sh.copies):
+        shift = (8 - c * (8 // sh.copies)) % 8
+        want = torch.zeros(sh.np, sh.lq)
+        want[:I, shift + 64:shift + 64 + kh * C2] = taps.flip(0).reshape(kh * C2, I).t()
+        assert torch.equal(q[c], want)
+
+
+def test_stream_plan_at_the_pieces_shapes():
+    """BAND_PIECES_SHAPE (C2 128, I 64) and C2 100, I 100 at multires4096's
+    rows: one launch of 132 blocks (66 clusters of 2) over pairs of 128-row
+    tiles, N the whole of Ip (64; 104: one m64n104k16 chain, not thirteen
+    n8 products), groups of 4 and 2 column blocks, 221 184 and 196 608
+    bytes of shared memory; the operations run are the band's products up
+    to the rows' and columns' padding."""
+    M = 196 * 505
+    a = tdb.band_stream_plan(M, 16, 128, 15, 64)
+    assert (a.n, a.g, a.chunks, a.copies, a.row_tiles, a.items, a.grid, a.smem_bytes,
+            a.fold) == (64, 4, 1, 1, 774, 387 * 8, 132, 221_184, False)
+    assert a.executed_ops == 2.0 * 774 * 128 * 64 * 64 * 480
+    b = tdb.band_stream_plan(M, 16, 100, 15, 100)
+    assert (b.n, b.g, b.chunks, b.copies, b.grid, b.smem_bytes) == (104, 2, 1, 2, 132, 196_608)
+    assert tdb.streams(16, 128, 15, 64) and tdb.streams(16, 100, 15, 100)
+    assert not tdb.streams(16, 50, 15, 50)  # multires4096 keeps band_decode.cu
+
+
+def test_port_band_decode_matches_jax_past_shared_memory(rng):
+    """The port's band_decode_pallas (on CPU its plain version) against
+    the JAX package's kernel in Pallas interpret mode at a band past one
+    block's shared memory (Tp 16, C2 128, kh 15, I 64: the streamed
+    kernel's shape on the card), N·W 26 rows, the same numpy inputs: both
+    round z and the band to bf16 and sum in f32, 1e-5 × max|out|."""
+    N, W, Tp, O, kh, I = 2, 13, 16, 128, 15, 64
+    T = Tp + kh - 1
+    assert tdb.streams(Tp, O, kh, I)
+    z = np.maximum(rng.standard_normal((N, Tp, W, O)), 0).astype(np.float32)
+    k = (0.1 * rng.standard_normal((kh, 1, I, O))).astype(np.float32)
+    want = np.asarray(jdp.band_decode_pallas(jnp.asarray(z), jnp.asarray(k), T, interpret=True))
+    got = tdb.band_decode_pallas(torch.from_numpy(z), torch.from_numpy(k), T)
+    assert got.shape == want.shape == (N, W, T * I)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_forced_kernels_refuse_cpu_tensors():
+    """band_decode_stream_pallas and band_decode_pieces_pallas take CUDA
+    tensors only: on the CPU they raise instead of falling back."""
+    band = tdb.band_tensor(torch.zeros(3, 1, 2, 5), 6)
+    for fn in (tdb.band_decode_stream_pallas, tdb.band_decode_pieces_pallas):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.zeros(2, 3, 20), band, 6)
+
+
+def test_stream_plan_folds_deep_bands():
+    """A column block past 64 slabs of 64 depths (4096) folds: chunks of at
+    most 128 columns, half the column blocks an item (one where the group
+    was one), within shared memory; the model family's widths never fold
+    (at most 40 slabs: 20 depths of 128 channels)."""
+    deep = tdb.band_stream_plan(130, 16, 1000, 15, 300)
+    assert deep.fold and (deep.chunks, deep.n, deep.g) == (3, 104, 1)
+    assert deep.smem_bytes <= tdb.SMEM_MAX
+    assert tdb.band_stream_plan(130, 16, 1000, 15, 64).g == 2
+    assert not tdb.band_stream_plan(130, 21, 128, 20, 128).fold
+    assert max(hi - lo + 1 for lo, hi in tdb.band_stream_plan(130, 21, 128, 20, 128).slabs) == 40

@@ -15,8 +15,9 @@ bit at p in {1, 2} (both round every operation alike, in one order) and
 1e-6 relative through powf; the forward STFT kernel 1e-5 × max|X| (an FFT
 against the factored DFT's sums); the Wiener+iSTFT kernel's Nyquist-row
 input bit for bit against the same kernel fed the concatenated spectrum;
-the band decode kernel 1e-5 × max|out| against the f32 product of the
-same bf16-rounded operands; the CUDA graph of K train steps against eager
+the band decode kernels (the one-piece, the streamed and the forced
+pieces) 1e-5 × max|out| against the f32 product of the same bf16-rounded
+operands; the CUDA graph of K train steps against eager
 steps bit for bit (cuDNN deterministic), and an asynchronous checkpoint's
 restore bit for bit."""
 
@@ -55,12 +56,18 @@ from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.convsep import band_freq_conv_kernel
 from convsep_tpu_torch.models.decoder_band_cuda import (
+    BAND_STREAM_WON,
     BandOperand,
     band_decode_pallas,
+    band_decode_pieces_pallas,
+    band_decode_stream_pallas,
     band_operand,
     band_decode_wmajor,
     band_decode_wmajor_plain,
+    band_pieces,
+    band_stream_plan,
     band_tensor,
+    streams,
 )
 from convsep_tpu_torch.models.decoder_fused_cuda import (
     band_freq_decode,
@@ -387,8 +394,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
                 "istft_direct": 0, "wiener_apply": 0,
                 "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
-                "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "stft_level2": 0,
-                "istft_level2": 0, "ct_stft_level": 0}
+                "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "band_decode_stream": 0,
+                "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -1117,10 +1124,16 @@ def test_band_decode_kernel_matches_plain(rng, cuda, N, Tp, W, C2, kh, I):
 
 
 def test_band_decode_kernel_refuses(cuda):
-    # depth 16 x 1000: not even one depth's z tile and one tap fit shared memory
+    # depth 16 x 1000: not even one depth's z tile and one tap fit shared
+    # memory, so the forced pieces refuse it (the streamed kernel takes it:
+    # test_band_stream_takes_any_band)
     band = band_tensor(torch.zeros(15, 1, 50, 1000, device=cuda), 30)
     with pytest.raises(ValueError, match="shared memory"):
-        band_decode_wmajor(torch.zeros(2, 3, 16000, device=cuda), band, 30)
+        band_decode_pieces_pallas(torch.zeros(2, 3, 16000, device=cuda), band, 30)
+    op = band_operand(torch.zeros(15, 1, 50, 1000, device=cuda), 30)
+    with pytest.raises(ValueError, match="stream-packed taps"):
+        band_decode_wmajor(torch.zeros(2, 3, 16000, device=cuda),
+                           BandOperand(op.band, op.packed, op.stream[:-8]), 30)
     band = band_tensor(torch.zeros(3, 1, 2, 5, device=cuda), 6)
     with pytest.raises(ValueError, match="mixed devices"):
         band_decode_wmajor(torch.zeros(2, 3, 20), band, 6)
@@ -1157,6 +1170,161 @@ def test_band_decode_kernel_shapes(rng, cuda, N, Tp, W, C2, kh, I):
     assert got.shape == want.shape == (N, W, T * I)
     torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
     assert torch.equal(band_decode_wmajor(z, op.band, T), got)
+
+
+# the band decode's shapes past one block's shared memory over the model
+# family's widths (tests/test_torch_envelopes.py's BAND_SWEEP, 1896 of its
+# 4900): time context T, kh taps (Tp = T − kh + 1), C2 in and I out channels
+BAND_SWEEP = [(T - kh + 1, c2, kh, i) for T in (10, 20, 30, 40) for kh in range(1, T + 1)
+              for c2 in (8, 16, 32, 50, 64, 100, 128) for i in (8, 16, 32, 50, 64, 100, 128)]
+
+
+def test_band_stream_matches_plain_over_the_sweep(cuda):
+    """Every band of the sweep past one block's shared memory, at M 130 (a
+    full 128-row tile and a ragged one): band_decode_wmajor launches the
+    streamed kernel once (and band_decode.cu never) on the operand the
+    model builds once, within 1e-5 × max|out| of the plain version."""
+    past = [s for s in BAND_SWEEP if streams(*s) and (s not in BAND_STREAM_WON)]
+    assert len(past) == 1896
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bad = []
+    for tp, c2, kh, i in past:
+        T = tp + kh - 1
+        z = torch.relu(torch.randn(1, 130, tp * c2, generator=gen, device=cuda)).to(torch.bfloat16)
+        op = band_operand(0.1 * torch.randn(kh, 1, i, c2, generator=gen, device=cuda), T)
+        before = dict(kernels.LAUNCHES)
+        got = band_decode_wmajor(z, op, T)
+        want = band_decode_wmajor_plain(z, op)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if (kernels.LAUNCHES["band_decode_stream"] != before["band_decode_stream"] + 1
+                or kernels.LAUNCHES["band_decode"] != before["band_decode"]
+                or not err <= 1e-5 * scale):
+            bad.append((tp, c2, kh, i, err / scale))
+    assert not bad, bad[:10]
+
+
+@pytest.mark.parametrize(
+    "N,Tp,W,C2,kh,I",
+    [
+        (2, 16, 65, 128, 15, 64),   # BAND_PIECES_SHAPE's band: 8 pieces
+        (2, 16, 65, 100, 15, 100),  # 6 pieces; 104 columns a product
+        (1, 4, 70, 32, 3, 300),     # 300 columns: two chunks of 152 (fits band_decode.cu)
+        (3, 15, 43, 50, 3, 50),     # Tp·C2 750: z by 4-byte copies
+        (1, 3, 130, 7, 2, 5),       # Tp·C2 21: z by element loads
+        (2, 16, 65, 32, 15, 100),   # fits band_decode.cu; routed by BAND_STREAM_WON
+    ],
+)
+def test_band_stream_kernel_shapes(rng, cuda, N, Tp, W, C2, kh, I):
+    """The streamed kernel forced, and routed where ``streams`` says so:
+    within 1e-5 × max|out| of the plain version, one band_decode_stream
+    launch a call, bit-equal from a bf16 z, a float32 z, a bare band
+    (packed on the call) and a z that starts 2 bytes past a 16-byte
+    boundary (element loads)."""
+    T = Tp + kh - 1
+    z = torch.relu(torch.from_numpy(rng.standard_normal((N, W, Tp * C2)).astype(np.float32))).to(cuda)
+    k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32)).to(cuda)
+    op = band_operand(k, T)
+    before = kernels.LAUNCHES["band_decode_stream"]
+    got = band_decode_stream_pallas(z, op, T)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_decode_stream"] == before + 1
+    want = band_decode_wmajor_plain(z, op)
+    assert got.shape == want.shape == (N, W, T * I) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    zb = z.to(torch.bfloat16)
+    assert torch.equal(band_decode_stream_pallas(zb, op, T), got)
+    assert torch.equal(band_decode_stream_pallas(z, op.band, T), got)
+    shifted = torch.empty(zb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(zb.shape)
+    shifted.copy_(zb)
+    assert torch.equal(band_decode_stream_pallas(shifted, op, T), got)
+    if streams(Tp, C2, kh, I):  # routed: band_decode_wmajor launches the same kernel
+        assert torch.equal(band_decode_wmajor(z, op, T), got)
+
+
+def test_band_decode_routes(rng, cuda):
+    """band_decode_wmajor on the card: multires4096's band keeps
+    band_decode.cu (one band_decode launch, no stream); a band past shared
+    memory takes the streamed kernel once; band_decode_pieces_pallas forces
+    the pieces there (one band_decode count a call, within 1e-5 ×
+    max|out|)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for tp, c2, kh, i, name in ((16, 50, 15, 50, "band_decode"),
+                                (16, 128, 15, 64, "band_decode_stream")):
+        T = tp + kh - 1
+        z = torch.relu(torch.randn(2, 65, tp * c2, generator=gen, device=cuda))
+        op = band_operand(0.1 * torch.randn(kh, 1, i, c2, generator=gen, device=cuda), T)
+        kernels.reset_launches()
+        got = band_decode_wmajor(z, op, T)
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {name: 1}
+        want = band_decode_wmajor_plain(z, op)
+        tol = 1e-5 * want.abs().max().item()
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+        if name == "band_decode_stream":
+            assert len(band_pieces(tp, c2, kh, i).pieces) == 8
+            pieces = band_decode_pieces_pallas(z, op, T)
+            assert kernels.LAUNCHES["band_decode"] == 1
+            torch.testing.assert_close(pieces, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("W,C2,I", [(6, 1000, 50), (130, 1000, 300), (130, 512, 64)])
+def test_band_stream_takes_any_band(cuda, W, C2, I):
+    """Bands no piece of band_decode.cu fits (depth 16 × 1000) or deep ones
+    (15 000 and 7680 depths a column block, past the 4096 where the
+    kernel folds its accumulators into float32 sums: one chain drifted to
+    1.4e-5 of the peak): the streamed kernel takes each in one launch,
+    within 1e-5 × max|out| of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    z = torch.relu(torch.randn(1, W, 16 * C2, generator=gen, device=cuda))
+    op = band_operand(0.05 * torch.randn(15, 1, I, C2, generator=gen, device=cuda), 30)
+    assert band_stream_plan(W, 16, C2, 15, I).fold
+    before = kernels.LAUNCHES["band_decode_stream"]
+    got = band_decode_wmajor(z, op, 30)
+    assert kernels.LAUNCHES["band_decode_stream"] == before + 1
+    want = band_decode_wmajor_plain(z, op)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+def test_band_stream_plan_is_the_launchers(cuda):
+    """band_stream_plan mirrors csrc/band_stream.cu's plan (band_stream_plan
+    there) at the two measured shapes, a two-chunk one and a deep band that
+    folds, and the card holds every cluster the plan launches at once."""
+    import ctypes
+
+    lib = kernels.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, tp, c2, kh, i in ((98980, 16, 128, 15, 64), (98980, 16, 100, 15, 100),
+                             (70, 4, 32, 3, 300), (130, 16, 1000, 15, 300)):
+        info = (ctypes.c_int * 11)()
+        kernels.check(lib.band_stream_plan(M, tp, c2, kh, i, info), "band_stream_plan")
+        p = band_stream_plan(M, tp, c2, kh, i, sms)
+        assert list(info) == [p.n, p.g, p.chunks, p.groups, p.lq, p.np, p.copies, p.smem_bytes,
+                              p.row_tiles, p.items, int(p.fold)]
+        active = ctypes.c_int(0)
+        kernels.check(lib.band_stream_clusters(p.n, ctypes.byref(active)), "band_stream")
+        assert p.grid // 2 <= active.value, (p.grid, active.value)
+
+
+def test_band_stream_keeps_registers_off_the_stack(tmp_path):
+    """ptxas gives every streamed-kernel instance no stack frame and no
+    spills, and serializes no wgmma chain (warning C7520)."""
+    import re as regex
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA toolkit of a machine with a card")
+    srcs = [s for s in kernels.SOURCES if s.startswith("band_stream")]
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-c",
+                               str(kernels.CSRC / s), "-o", str(tmp_path / f"{s}.o")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s in srcs]
+    log = "".join(p.communicate()[0] for p in procs)
+    assert all(p.returncode == 0 for p in procs), log[-3000:]
+    frames = regex.findall(r"Function properties for (\S*band_stream_kernel\S*)\n\s+(\d+) bytes "
+                           r"stack frame, (\d+) bytes spill stores", log)
+    assert len(frames) == 32, frames
+    assert all(f == "0" and sp == "0" for _, f, sp in frames), frames
+    assert "C7520" not in log
 
 
 def _tiny_multires(**model_kw):
@@ -1582,10 +1750,11 @@ def test_ct_stft_level_kernel_matches_plain(rng, cuda, hop, B, length):
     ],
 )
 def test_band_decode_pieces_match_plain(rng, cuda, N, Tp, W, C2, kh, I):
-    """A band whose taps and z tile do not fit one block's shared memory:
-    band_pieces cuts it, each piece adds its columns
-    (band_decode_piece_launch), within 1e-5 × max|out| of the plain version,
-    one "band_decode" count a call."""
+    """A band whose taps and z tile do not fit one block's shared memory,
+    forced through the pieces (band_decode_pieces_pallas; band_decode_wmajor
+    streams such a band since the streamed kernel came): band_pieces cuts
+    it, each piece adds its columns (band_decode_piece_launch), within 1e-5
+    × max|out| of the plain version, one "band_decode" count a call."""
     from convsep_tpu_torch.models.decoder_band_cuda import band_pieces, band_plan
 
     T = Tp + kh - 1
@@ -1596,7 +1765,7 @@ def test_band_decode_pieces_match_plain(rng, cuda, N, Tp, W, C2, kh, I):
     k = torch.from_numpy((0.2 * rng.standard_normal((kh, 1, I, C2))).astype(np.float32)).to(cuda)
     op = band_operand(k, T)
     before = kernels.LAUNCHES["band_decode"]
-    got = band_decode_wmajor(z, op, T)
+    got = band_decode_pieces_pallas(z, op, T)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["band_decode"] == before + 1
     want = band_decode_wmajor_plain(z, op)

@@ -223,8 +223,10 @@ def test_band_card_envelope_holds_the_reference():
     """The reference's band_decode_pallas checks only that the time kernel
     is (kh, 1, I, O), so it takes every shape of BAND_SWEEP; 1896 of its
     4900 shapes do not fit one block's shared memory at once (the presets'
-    Tp 16, C2 50, kh 15, I 50 takes 225 024 of 232 448 bytes), and the card
-    cuts those into pieces that do (band_pieces): every shape has a plan."""
+    Tp 16, C2 50, kh 15, I 50 takes 225 024 of 232 448 bytes). The card
+    streams those (test_band_stream_plans_hold_the_sweep); the pieces that
+    served them before, still forced by band_decode_pieces_pallas, cut each
+    into pieces that fit (band_pieces): every shape has a plan."""
     whole = [s for s in BAND_SWEEP if dbc._band_smem(*s) <= dbc.SMEM_MAX]
     assert len(BAND_SWEEP) == 4900 and len(BAND_SWEEP) - len(whole) == 1896
     for tp, c2, kh, i in BAND_SWEEP:
@@ -237,3 +239,31 @@ def test_band_card_envelope_holds_the_reference():
         assert sum(h1 - h0 for h0, h1 in hs) == tp and sum(d1 - d0 for d0, d1 in ds) == kh
         for h0, h1, d0, d1 in split.pieces:
             dbc.band_plan(64, h1 - h0, c2, d1 - d0, i)  # raises where a piece does not fit
+
+
+def test_band_stream_plans_hold_the_sweep():
+    """Every one of BAND_SWEEP's 1896 shapes past one block's shared memory
+    routes to the streamed kernel (and no other shape but the won ones),
+    and its plan (band_stream_plan, the launcher's mirror) is one launch:
+    shared memory within 232 448 bytes whatever the band, at most one block
+    an SM in clusters of 2, products N = Ip columns wide up to 256 (else
+    equal chunks, two up to 512), and every output column (t, i) of every
+    row tile (M 130: a full tile and a ragged one) in exactly one unit."""
+    M, sms = 130, 132
+    past = [s for s in BAND_SWEEP if dbc._band_smem(*s) > dbc.SMEM_MAX]
+    assert len(past) == 1896
+    assert {s for s in BAND_SWEEP if dbc.streams(*s)} == set(past) | (
+        dbc.BAND_STREAM_WON & set(BAND_SWEEP))
+    for tp, c2, kh, i in past:
+        T = tp + kh - 1
+        plan = dbc.band_stream_plan(M, tp, c2, kh, i, sms)
+        ip = -(-i // 8) * 8
+        assert plan.smem_bytes <= dbc.SMEM_MAX
+        assert plan.grid % 2 == 0 and 2 <= plan.grid <= sms and plan.items >= plan.grid // 2
+        assert plan.n % 8 == 0 and plan.n * plan.chunks >= ip
+        assert (plan.chunks, plan.n) == ((1, ip) if ip <= 256 else (2, -(-ip // 16) * 8))
+        assert plan.g * plan.n <= 256 and 1 <= plan.g <= 4
+        seen = np.zeros((plan.row_tiles, T, plan.n * plan.chunks), np.int32)
+        for rt, ch, t0, t1 in dbc.stream_items(plan, T):
+            seen[rt, t0:t1 + 1, ch * plan.n:(ch + 1) * plan.n] += 1
+        assert (seen[:, :, :i] == 1).all(), (tp, c2, kh, i)
