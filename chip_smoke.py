@@ -22,15 +22,20 @@ result line is printed):
 3. Wiener+iSTFT kernel vs its plain version at highres4096 (nfft 4096,
    hop 1024, nf 1442, bf16 y) and dsd100 (nfft 1024, hop 512, nf 2882):
    p = 1 and 2, conserve_last, float32 and int16 output; at both shapes its
-   time, the plain version's, the bound, the wrapper's host time and the
-   launch plan (``fft_plan.wiener_plan``); then the same at the stream
+   time, the plain version's, the bound, the wrapper's host time, the
+   launch plan (``fft_plan.wiener_plan``), the masked chain's time and
+   ``torch.istft``'s of the masked spectra; then the same at the stream
    path's batches (phase 17): 2 and 8 tracks a launch, each track its own
    random mixture and magnitudes; 3c: past 8192 points on a thread-block
    cluster at the reference kernel's 16 384 (hop 2048) and 32 768 (hop
-   4096), 4 stems of a 30 s track, bf16 and f32 y and the Nyquist-row
-   input (at 16 384 the forward STFT kernel's own pair), also against the
-   float64 synthesis, and the A/B against the masked chain that keys
-   "auto" (``WIENER_CLUSTER_WON``);
+   4096), 4 stems of a 30 s track: the direct transform on 2 and 4 blocks,
+   bf16 and f32 y and the Nyquist-row input (at 16 384 the forward STFT
+   kernel's own pair), also against the float64 synthesis, the A/B against
+   the masked chain that keys "auto" (``WIENER_CLUSTER_WON``) and
+   ``torch.istft`` of the masked spectra; Bluestein's cluster forced at 16
+   384 (the kernel the direct one replaced) and on its route at W 20 000,
+   hop 5000 with its A/B and Nyquist-row input; the clusters of 2 the card
+   holds at once;
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
    right shape, kernel launch counters above zero, the kernel route
@@ -736,11 +741,15 @@ def child_other_times(device, gen) -> dict:
         total = None if total is None or ms is None else total + ms
     res["fused_adadelta"] = total
     del p, g, a, d
-    # past 8192 points: the cluster (phase 3c's shapes)
-    for nfft, hop, nf in ((16384, 2048, W16384_NF), (32768, 4096, W32768_NF)):
+    # past 8192 points: the clusters (phase 3c's shapes), Bluestein's forced at 16 384
+    for key, nfft, hop, nf, kernel in (
+            ("W 16384", 16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
+            ("W 32768", 32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
+            ("W 20000", 20000, 5000, W20000_NF, "wiener_istft_cluster"),
+            ("W 16384 Bluestein", 16384, 2048, W16384_NF, "wiener_istft_cluster")):
+        fn = wiener_fn(kernel)[0]
         w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
-        res[f"wiener_istft W {nfft}"] = profile_ms(
-            lambda: wiener_istft(y, re, im, w, hop, L))["device_ms"]
+        res[f"wiener_istft {key}"] = profile_ms(lambda: fn(y, re, im, w, hop, L))["device_ms"]
         del y, re, im
     # last: measured before the Wiener mask kernel, the direct sum at W 768
     # left that kernel's profiler session with no device work recorded
@@ -877,29 +886,31 @@ def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1,
 
 
 WIENER_NAMES = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster",
-                "wiener_istft_ny_cluster", "wiener_istft_split", "wiener_istft_ny_split",
+                "wiener_istft_ny_cluster", "wiener_istft_cluster_dit",
+                "wiener_istft_ny_cluster_dit", "wiener_istft_split", "wiener_istft_ny_split",
                 "wiener_istft_bluestein", "wiener_istft_ny_bluestein", "wiener_istft_direct",
                 "wiener_istft_ny_direct")
 
 
 def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
-                 B: int = 1, ydt: str = "bfloat16", kernel: str = "wiener_istft") -> dict:
+                 B: int = 1, ydt: str = "bfloat16", kernel: str = "wiener_istft",
+                 chain: bool = False) -> dict:
     """Wiener+iSTFT kernel vs plain: p ∈ {1, 2}, conserve_last, f32/int16,
     on B tracks at once (the stream path's batches); each call one launch
-    of ``kernel`` ("wiener_istft_direct": through ``wiener_direct_pallas``,
-    which forces the direct sum). On a cluster (past 8192 points) also
+    of ``kernel`` (:func:`wiener_fn`: "wiener_istft_direct" through
+    ``wiener_direct_pallas``, which forces the direct sum,
+    "wiener_istft_cluster" through ``wiener_bluestein_cluster_pallas``,
+    which forces Bluestein's cluster). On a cluster (past 8192 points) also
     against the float64 synthesis of the same float32 masks
-    (:func:`wiener64`) within ``TOL_CLUSTER_F32`` × max|stem|."""
+    (:func:`wiener64`) within ``TOL_CLUSTER_F32`` × max|stem|. With
+    ``chain``, also the masked chain's time (the f32 mask, then the iSTFT
+    ``istft_matmul``'s "auto" resolves) and ``torch.istft``'s of the
+    masked spectra (``library_ms``)."""
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda import fft_plan
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
-        wiener_direct_pallas,
-        wiener_istft,
-        wiener_istft_plain,
-    )
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
 
-    fn = wiener_direct_pallas if kernel == "wiener_istft_direct" else wiener_istft
+    fn, plan_of = wiener_fn(kernel)
     w, L, y, re, im = wiener_inputs(nfft, hop, nf, S, device, gen, B, ydt)
     if B > 1:
         name = f"{name} B {B}"
@@ -921,7 +932,7 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
             log(f"  wiener {name} {kw} {out}: max_abs_err {e:.3e}{unit} (tol {tol})")
             if not e <= tol:
                 raise AssertionError(f"wiener_istft {name} {kw} {out}: {e} > {tol}")
-            if kernel.endswith("_cluster"):
+            if "_cluster" in kernel:
                 ref = wiener64(y, re, im, w, hop, L, output_dtype=out, **kw)
                 e64 = (got.float() - ref.float()).abs().max().item()
                 tol64 = (TOL_WIENER_I16 if out == "int16"
@@ -939,8 +950,7 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
     ms = cuda_ms(lambda: fn(y, re, im, w, hop, L))
     plain_ms = cuda_ms(lambda: wiener_istft_plain(y, re, im, w, hop, L))
     us = host_us(lambda: fn(y, re, im, w, hop, L))
-    plan = (fft_plan.wiener_direct_plan if kernel == "wiener_istft_direct"
-            else fft_plan.wiener_plan)(B, S, nf, nfft, hop)
+    plan = plan_of(B, S, nf, nfft, hop)
     b = bound(y.element_size() * y.numel() + 8 * re.numel() + 4 * B * S * L,
               fft_flops(B * S * nf, nfft) + 4 * y.numel())
     log(f"  wiener {name} p=1 f32 out: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
@@ -949,9 +959,59 @@ def phase_wiener(name: str, nfft: int, hop: int, nf: int, S: int, device, gen,
         f"{', frame pairs' if plan.frame_pairs else ''}): {plan.groups} groups x {plan.rounds} "
         f"rounds, {plan.rows} hop rows, {plan.blocks} blocks ({plan.waves} wave(s)), "
         f"{plan.smem_bytes} B shared memory")
-    return {"max_abs_err": worst, "rel_err_float64": worst64, "ms": ms, "plain_ms": plain_ms,
-            **b, "library_ms": None, "host_us": us, "B": B, "y": ydt,
-            "plan": dataclasses.asdict(plan)}
+    r = {"max_abs_err": worst, "rel_err_float64": worst64, "ms": ms, "plain_ms": plain_ms,
+         **b, "library_ms": None, "host_us": us, "B": B, "y": ydt,
+         "plan": dataclasses.asdict(plan)}
+    if chain:
+        algorithm, chain_ms = masked_chain_ms(nfft, hop, w, L, y, re, im, device)
+        r.update(chain=algorithm, chain_ms=chain_ms,
+                 library_ms=masked_istft_ms(nfft, hop, nf, w, L, y, re, im, device),
+                 library=f"torch.istft of the {B * S} masked spectra (the synthesis alone)")
+        log(f"  wiener {name}: the masked chain (mask + {algorithm}) {r['chain_ms']:.4f} ms, "
+            f"torch.istft of the masked spectra {r['library_ms']:.4f} ms")
+    return r
+
+
+def wiener_fn(kernel: str):
+    """The wrapper that launches Wiener+iSTFT ``kernel`` at any size it
+    takes, and the plan it launches: ``wiener_istft`` and ``wiener_plan``
+    (its route), or the forced direct sum and Bluestein's forced cluster."""
+    from convsep_tpu_torch.dsp.cuda import fft_plan
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
+        wiener_bluestein_cluster_pallas,
+        wiener_direct_pallas,
+        wiener_istft,
+    )
+
+    return {"wiener_istft_direct": (wiener_direct_pallas, fft_plan.wiener_direct_plan),
+            "wiener_istft_cluster": (wiener_bluestein_cluster_pallas,
+                                     fft_plan.wiener_cluster_plan)}.get(
+        kernel, (wiener_istft, fft_plan.wiener_plan))
+
+
+def masked_chain_ms(nfft: int, hop: int, w, L: int, y, re, im, device) -> tuple[str, float]:
+    """The masked chain "auto" takes where it does not take the Wiener+iSTFT
+    kernel (the f32 mask, then the iSTFT ``istft_matmul``'s "auto"
+    resolves): its algorithm and its time, ms by events."""
+    from convsep_tpu_torch.dsp.dft import istft_wiener, resolve_istft
+
+    chain = resolve_istft("auto", nfft, nfft, hop, device)
+    return chain, cuda_ms(lambda: istft_wiener(y, re, im, w, hop, L, algorithm=chain))
+
+
+def masked_istft_ms(nfft: int, hop: int, nf: int, w, L: int, y, re, im, device) -> float:
+    """``torch.istft`` of the masked spectra (the f32 Wiener mask of ``y``
+    times the mixture): the synthesis alone, ms by events."""
+    import numpy as np
+    import torch
+    from convsep_tpu_torch.models.masks import wiener_mask
+
+    mask = wiener_mask(y, axis=-3)
+    spec = torch.complex(mask * re.unsqueeze(-3), mask * im.unsqueeze(-3))
+    spec = spec.reshape(-1, nf, nfft // 2 + 1).transpose(-1, -2)
+    del mask
+    wt = torch.from_numpy(w.astype(np.float32)).to(device)
+    return cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
 
 
 def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str) -> float:
@@ -990,25 +1050,37 @@ def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str) 
 
 
 def phase_wiener_cluster(device, gen) -> dict:
-    """The Wiener+iSTFT past 8192 points, at the reference kernel's 16 384
-    (hop 2048) and 32 768 (hop 4096), 4 stems of a 30 s track: bf16 and f32
-    y as phase 3 (one "wiener_istft_cluster" launch a call, also held to the
+    """The Wiener+iSTFT past 8192 points, 4 stems of a 30 s track. At the
+    reference kernel's 16 384 (hop 2048) and 32 768 (hop 4096), its route,
+    the direct transform on a cluster of 2 and 4 blocks: bf16 and f32 y as
+    phase 3 (one "wiener_istft_cluster_dit" launch a call, also held to the
     float64 synthesis), the Nyquist-row input (at 16 384 the forward STFT
-    kernel's own pair) as phase 11 (one "wiener_istft_ny_cluster" launch),
-    and the A/B that keys "auto": the kernel against the masked chain
-    "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
-    "auto", the iSTFT kernel on a cluster). It fails if a plan in
+    kernel's own pair) as phase 11 (one "wiener_istft_ny_cluster_dit"
+    launch), ``torch.istft`` of the masked spectra, and the A/B that keys
+    "auto": the kernel against the masked chain "auto" takes otherwise (the
+    f32 mask, then ``istft_matmul``'s own "auto", the iSTFT kernel on a
+    cluster). Bluestein's cluster ("wiener_istft_cluster"), which the
+    direct transform replaced there, forced at 16 384 (bf16 y), and on its
+    route at W 20 000, hop 5000 (bf16 and f32 y) with its Nyquist-row
+    input and A/B. The
+    clusters of 2 the card holds at once. It fails if a plan in
     ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
+    import ctypes
+
     import torch
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda import fft_plan
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_CLUSTER_WON
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
 
     res = {}
-    for nfft, hop, nf in ((16384, 2048, W16384_NF), (32768, 4096, W32768_NF)):
+    for nfft, hop, nf, kernel in ((16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
+                                  (32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
+                                  (20000, 5000, W20000_NF, "wiener_istft_cluster")):
         key = f"W {nfft}"
-        r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel="wiener_istft_cluster")
-        r["float32_y"] = phase_wiener(key + " f32 y", nfft, hop, nf, 4, device, gen, ydt="float32",
-                                      kernel="wiener_istft_cluster")
+        r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel=kernel)
+        r["float32_y"] = phase_wiener(key + " f32 y", nfft, hop, nf, 4, device, gen,
+                                      ydt="float32", kernel=kernel)
         w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
         if nfft == 16384:  # the forward STFT kernel's own Nyquist-separate pair
             x = 0.3 * torch.randn(1, L, generator=gen, device=device)
@@ -1017,12 +1089,30 @@ def phase_wiener_cluster(device, gen) -> dict:
             re_b, im_b, ny = (re[..., :-1].contiguous(), im[..., :-1].contiguous(),
                               re[..., -1].contiguous())
         r["ny_max_abs_err"] = wiener_ny_check(key, w, hop, L, y, re_b, im_b, ny,
-                                              "wiener_istft_ny_cluster")
+                                              kernel.replace("_istft", "_istft_ny"))
         r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device, WIENER_CLUSTER_WON,
                            "WIENER_CLUSTER_WON"))
+        r.update(library_ms=masked_istft_ms(nfft, hop, nf, w, L, y, re, im, device),
+                 library="torch.istft of the 4 masked spectra (the synthesis alone)")
+        log(f"  wiener {key}: torch.istft of the masked spectra {r['library_ms']:.4f} ms")
         res[key] = r
         del y, re, im, re_b, im_b, ny
         torch.cuda.empty_cache()
+    log("  Bluestein's cluster forced at W 16384, the kernel the direct transform replaced:")
+    res["W 16384 Bluestein"] = phase_wiener("W 16384 Bluestein", 16384, 2048, W16384_NF, 4,
+                                            device, gen, kernel="wiener_istft_cluster")
+    plan = fft_plan.wiener_cluster_dit_plan(1, 4, W16384_NF, 16384, 2048)
+    active = ctypes.c_int(0)
+    kernels.check(kernels.library().wiener_cluster_dit_launch(
+        None, 0, None, None, None, None, None, None, None, 0, 1, 4, W16384_NF, 16384, 2048, 1,
+        plan.rounds, 0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None),
+        "wiener_cluster_dit_launch")
+    res["clusters_at_once_2"] = {"card": active.value, "plan": fft_plan.CLUSTERS_AT_ONCE[2]}
+    log(f"  clusters of 2 at once (wiener_cluster_dit_kernel, W 16384): the card's "
+        f"{active.value}, CLUSTERS_AT_ONCE[2] {fft_plan.CLUSTERS_AT_ONCE[2]}")
+    if active.value != fft_plan.CLUSTERS_AT_ONCE[2]:
+        raise AssertionError(f"the card holds {active.value} clusters of 2 at once, the plan "
+                             f"weighs {fft_plan.CLUSTERS_AT_ONCE[2]}")
     return res
 
 
@@ -1034,12 +1124,11 @@ def wiener_ab(key: str, nfft: int, hop: int, w, L: int, y, re, im, device, won,
     (the frozenset named ``won_name``) or takes the kernel where it lost by
     more than ``WIENER_SPREAD``."""
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft
-    from convsep_tpu_torch.dsp.dft import istft_wiener, resolve_istft, resolve_masked_synthesis
+    from convsep_tpu_torch.dsp.dft import resolve_masked_synthesis
 
-    chain = resolve_istft("auto", nfft, nfft, hop, device)
+    chain, chain_ms = masked_chain_ms(nfft, hop, w, L, y, re, im, device)
     auto = resolve_masked_synthesis("auto", nfft, nfft, hop, 1.0, device)
-    r = {"chain_ms": cuda_ms(lambda: istft_wiener(y, re, im, w, hop, L, algorithm=chain)),
-         "ms_ab": cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))}
+    r = {"chain_ms": chain_ms, "ms_ab": cuda_ms(lambda: wiener_istft(y, re, im, w, hop, L))}
     r.update(chain=chain, auto_route=auto, won=r["ms_ab"] < r["chain_ms"])
     log(f"  wiener {key} A/B: kernel {r['ms_ab']:.4f} ms against the masked chain "
         f"(mask + {chain}) {r['chain_ms']:.4f} ms: {'won' if r['won'] else 'lost'}; "
@@ -1061,24 +1150,16 @@ def phase_wiener_offcore(device, gen) -> dict:
     alone); at the split's and Bluestein's rows the A/B against the masked
     chain that keys "auto" (``WIENER_SPLIT_BLUESTEIN_WON``); the Nyquist-row
     input at W 768 and at W 8190's frame pairs."""
-    import numpy as np
     import torch
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import WIENER_SPLIT_BLUESTEIN_WON
-    from convsep_tpu_torch.models.masks import wiener_mask
 
     res = {}
     for key, nfft, hop, nf, kernel in WIENER_OFFCORE_SHAPES:
         r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel=kernel)
         w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
-        mask = wiener_mask(y, axis=-3)
-        spec = torch.complex(mask * re.unsqueeze(-3), mask * im.unsqueeze(-3))
-        spec = spec.reshape(-1, nf, nfft // 2 + 1).transpose(-1, -2)
-        wt = torch.from_numpy(w.astype(np.float32)).to(device)
-        r.update(library_ms=cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True,
-                                                        length=L)),
+        r.update(library_ms=masked_istft_ms(nfft, hop, nf, w, L, y, re, im, device),
                  library="torch.istft of the 4 masked spectra (the synthesis alone)")
         log(f"  wiener {key}: torch.istft of the masked spectra {r['library_ms']:.4f} ms")
-        del mask, spec
         if kernel != "wiener_istft_direct":
             r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device,
                                WIENER_SPLIT_BLUESTEIN_WON, "WIENER_SPLIT_BLUESTEIN_WON"))
@@ -4365,8 +4446,8 @@ def main(argv: list[str]) -> int:
     bf16 = phase_bf16_compute(hi_state, hi, 49, device, gen)
     torch.cuda.empty_cache()
     log("phase 3: Wiener+iSTFT kernel vs plain")
-    wie = phase_wiener("highres4096", 4096, 1024, 1442, 4, device, gen)
-    wie_dsd = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen)
+    wie = phase_wiener("highres4096", 4096, 1024, 1442, 4, device, gen, chain=True)
+    wie_dsd = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, chain=True)
     torch.cuda.empty_cache()
     # the stream path's batches (phase 17): STREAM_BATCH tracks, and 8
     wie_batches = {}
@@ -4376,8 +4457,9 @@ def main(argv: list[str]) -> int:
         wie_batches[f"dsd100 B {B}"] = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, B)
         torch.cuda.empty_cache()
     log("phase 3c: the Wiener+iSTFT past 8192 points on a thread-block cluster (W 16 384, hop "
-        "2048 and W 32 768, hop 4096; 4 stems of a 30 s track; bf16 and f32 y, the Nyquist-row "
-        "input), and its A/B against the masked chain")
+        "2048 and W 32 768, hop 4096 on the direct transform; 4 stems of a 30 s track; bf16 and "
+        "f32 y, the Nyquist-row input), its A/B against the masked chain, torch.istft of the "
+        "masked spectra; Bluestein's cluster forced at W 16 384 and on its route at W 20 000")
     wie_cl = phase_wiener_cluster(device, gen)
     torch.cuda.empty_cache()
 
@@ -4486,8 +4568,8 @@ def main(argv: list[str]) -> int:
     others = dev["others"]
     for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
                     *((f"wiener_istft {key}", offcore[key]) for key, *_ in WIENER_OFFCORE_SHAPES),
-                    ("wiener_istft W 16384", wie_cl["W 16384"]),
-                    ("wiener_istft W 32768", wie_cl["W 32768"]),
+                    *((f"wiener_istft {key}", wie_cl[key])
+                      for key in ("W 16384", "W 32768", "W 20000", "W 16384 Bluestein")),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
                     *((f"band_decode_stream {key}", band_stream[key])
                       for key in (f"C2 {c2} I {i}" for _, _, _, c2, _, i in BAND_STREAM_SHAPES)),
@@ -4590,6 +4672,7 @@ def main(argv: list[str]) -> int:
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
                    "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
+                   "wiener_istft_cluster_dit", "wiener_istft_ny_cluster_dit",
                    "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
                    "wiener_istft_ny_bluestein", "wiener_istft_direct", "wiener_istft_ny_direct",
                    "ct_stft_level", "ct_stft_cluster", "band_decode_stream"):
@@ -4643,17 +4726,31 @@ def main(argv: list[str]) -> int:
                    "Bluestein that replaced it); no preset",
          **launched("wiener_istft_direct"), **offcore["W 768 direct sum"],
          "forced_w1000": offcore["W 1000 direct sum"]},
+        {"name": "wiener_istft_cluster_dit", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_istft.cu (device code wiener_common.cuh, "
+                   "fft_common.cuh::ClusterDit)", "entry": "wiener_cluster_dit_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "the powers of two past 8192, the reference kernel's 16 384 and 32 768: the "
+                   "direct transform by decimation in time on a thread-block cluster of 2 or 4 "
+                   "blocks, a pair of sources a cluster; no preset",
+         **launched("wiener_istft_cluster_dit"), **wie_cl["W 16384"],
+         "w32768_hop4096": wie_cl["W 32768"],
+         "bluestein_forced_w16384": wie_cl["W 16384 Bluestein"],
+         "clusters_at_once_2": wie_cl["clusters_at_once_2"],
+         "ny": {**launched("wiener_istft_ny_cluster_dit"),
+                "max_abs_err_16384": wie_cl["W 16384"]["ny_max_abs_err"],
+                "max_abs_err_32768": wie_cl["W 32768"]["ny_max_abs_err"]}},
         {"name": "wiener_istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "serves": "even 8192 < nfft <= 32 768, the reference kernel's 16 384 and 32 768: "
+         "serves": "even 8192 < nfft < 32 768 that are not powers of two (10 000, 20 000): "
                    "Bluestein run backwards on a thread-block cluster of 4 or 8 blocks, a pair "
-                   "of sources a cluster; no preset",
-         **launched("wiener_istft_cluster"), **wie_cl["W 16384"],
-         "w32768_hop4096": wie_cl["W 32768"],
+                   "of sources a cluster; wiener_bluestein_cluster_pallas forces it at the "
+                   "powers of two; no preset",
+         **launched("wiener_istft_cluster"), **wie_cl["W 20000"],
+         "forced_w16384_hop2048": wie_cl["W 16384 Bluestein"],
          "ny": {**launched("wiener_istft_ny_cluster"),
-                "max_abs_err_16384": wie_cl["W 16384"]["ny_max_abs_err"],
-                "max_abs_err_32768": wie_cl["W 32768"]["ny_max_abs_err"]}},
+                "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"]}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",

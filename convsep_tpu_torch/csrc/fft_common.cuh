@@ -77,7 +77,10 @@
 // istft_cluster_block, and wiener_common.cuh's wiener_cluster_block): each
 // block runs the core's 8192-point transform on its part, and the one
 // exchange between them is read through distributed shared memory (peer)
-// where it is consumed. launch_clusters launches them.
+// where it is consumed. launch_clusters launches them. A power of two past
+// 8192 needs no chirp: its N = 8192 C points are one transform by
+// decimation in time over the cluster (ClusterDit, the Wiener+iSTFT's
+// wiener_cluster_dit_block), each block forming only 1/C of them.
 //
 // Past 65 536 points (N <= 262 144) Bluestein's M = 262 144 or 524 288 lives
 // in a scratch in device memory: the second level (level2_first,
@@ -1220,6 +1223,98 @@ inline size_t cluster_smem_bytes(int log2p, int carry) {
 // the hop columns each block of a cluster of c owns in the inverse's gather
 __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop + c - 1) / c; }
 
+// The FFT of M = C P points (P = 2^LOG2P, C = 2, 4, 8 or 16) on the C
+// blocks of a cluster by decimation in time, one group of P / 16 threads a
+// block, each block holding one P-point exchange buffer. With w =
+// e^{-2 pi i / M} and W = w^P = e^{-2 pi i / C}, block r (its rank) holds
+// the points u[C n + r], n < P, and
+//
+// 1. (run) the core's Fft<LOG2P> gives V_r[k1] at slot(k1); the owner
+//    applies the combine's twiddle, w^{r k1} V_r[k1], in place; a cluster
+//    barrier;
+// 2. (point) the radix-C combine, computed where it is consumed:
+//    Z[k1 + P q] = sum_r W^{r q} w^{r k1} V_r[k1], read from the C blocks'
+//    buffers through distributed shared memory (peer), summed by Horner in
+//    W^q.
+//
+// A caller that makes the points in another order stages them first: put
+// stores u[t] in its owner's buffer (block t mod C, slot(t / C)) through
+// distributed shared memory, and after a cluster barrier run_staged reads
+// each thread's points back and runs step 1. The Wiener+iSTFT at the powers
+// of two past 8192 (wiener_common.cuh::wiener_cluster_dit_block) stages
+// the inverse's points this way: each block forms a contiguous 1/C of the
+// masked bins, read coalesced, and puts both points a bin gives.
+// ClusterChirp's second transform runs on the points its first one left in
+// registers. A block's buffer is read by its peers until the cluster's next
+// barrier, which the caller places before the buffer is written again or
+// the block exits. tw is the M-point quarter table in global memory (the
+// P-point table in shared memory is its entries at stride C, bit for bit:
+// the same float64 angles), read through L1. The core's transforms
+// synchronize the whole block (it is one group), so the host emulation
+// runs the same code.
+template <int LOG2P, int C>
+struct ClusterDit {
+  static_assert(C == 2 || C == 4 || C == 8 || C == 16, "a cluster of 2, 4, 8 or 16 blocks");
+  static constexpr int P = 1 << LOG2P;
+  static constexpr int M = C * P;
+  static constexpr int T = fft_threads(LOG2P);
+  static constexpr int TABLES = twiddle_len(LOG2P);
+  using F = Fft<LOG2P, true>;
+
+  __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw) {
+    for (int i = threadIdx.x; i < P / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + C * i);
+  }
+
+  // step 1 on v, thread j's points of block `rank` (v[m] = u[C (j + T m) + rank])
+  __device__ __forceinline__ static void run(float2 (&v)[kPoints], float2* buf, const float2* tws,
+                                             const float2* __restrict__ tw, int rank, int j) {
+    F::run(v, buf, tws, j, 0);
+    if (rank) {
+#pragma unroll
+      for (int m = 0; m < kPoints; ++m) {
+        const int k1 = j + T * m;
+        buf[slot(k1)] = cmul(buf[slot(k1)], ldg_twiddle<M>(tw, rank * k1));
+      }
+    }
+    cluster_sync();
+  }
+
+  // u[t] into the buffer of its owner, block t mod C, at slot(t / C)
+  __device__ __forceinline__ static void put(float2* buf, int t, float2 u) {
+    peer(buf, t & (C - 1))[slot(t >> ilog2(C))] = u;
+  }
+
+  // step 1 on the points put into this block's buffer (after a cluster
+  // barrier that follows the puts)
+  __device__ __forceinline__ static void run_staged(float2* buf, const float2* tws,
+                                                    const float2* __restrict__ tw, int rank,
+                                                    int j) {
+    float2 v[kPoints];
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) v[m] = buf[slot(j + T * m)];
+    F::sync(0);  // every point is read; the first pass rewrites buf
+    run(v, buf, tws, tw, rank, j);
+  }
+
+  // Z[t], t < M, after run: the radix-C sum over the C buffers, by Horner
+  // in W^q
+  __device__ __forceinline__ static float2 point(const float2* buf,
+                                                 const float2* __restrict__ tw, int t) {
+    const int k1 = t & (P - 1);
+    const float2 wq = ldg_twiddle<M>(tw, P * (t >> LOG2P));
+    float2 v[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) v[r] = peer(buf, r)[slot(k1)];
+    float2 z = v[C - 1];
+#pragma unroll
+    for (int r = C - 2; r >= 0; --r) {
+      const float2 b = cmul(z, wq);
+      z = make_float2(v[r].x + b.x, v[r].y + b.y);
+    }
+    return z;
+  }
+};
+
 // Bluestein's cyclic convolution of M = C P points (P = 2^LOG2P, C = 2, 4,
 // 8 or 16) on the C blocks of a cluster, one group of P / 16 threads a block,
 // each block holding one P-point exchange buffer: Chirp::convolve with the
@@ -1236,32 +1331,21 @@ __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop 
 // 2. times chat[C k + r] (the FFT of the wrapped chirp with 1/M folded in),
 //    conjugated, in place;
 // 3. the inverse by conjugation, decimation in time: block r holds the
-//    points = r (mod C), Fft<LOG2P> gives V_r[k1], and the owner applies
-//    the combine's twiddle, w^{r k1} V_r[k1], in place; a cluster barrier;
-// 4. the radix-C combine, computed where it is consumed (point):
-//    Z[k1 + P q] = sum_r W^{r q} w^{r k1} V_r[k1], read from the C blocks'
-//    buffers through distributed shared memory (peer), summed by Horner in
-//    W^q. Z = conj(u * c), as Chirp leaves its buffer.
+//    points = r (mod C), and ClusterDit runs them (Fft<LOG2P>, the
+//    combine's twiddle in place, a cluster barrier);
+// 4. the radix-C combine, computed where it is consumed (point,
+//    ClusterDit::point). Z = conj(u * c), as Chirp leaves its buffer.
 //
-// A block's buffer is read by its peers until the cluster's next barrier,
-// which the caller places before the buffer is written again or the block
-// exits. tw is the M-point quarter table in global memory (the P-point
-// table in shared memory is its entries at stride C, bit for bit: the same
-// float64 angles), read through L1 as chat is. The core's transforms
-// synchronize the whole block (it is one group), so the host emulation runs
-// the same code.
+// Every block reads all N points of the frame in step 1 (the Horner sum
+// over q), so a power-of-two N, which needs no chirp, runs on ClusterDit
+// alone. The buffers, barriers, tables and point are ClusterDit's.
 template <int LOG2P, int C>
-struct ClusterChirp {
-  static_assert(C == 2 || C == 4 || C == 8 || C == 16, "a cluster of 2, 4, 8 or 16 blocks");
-  static constexpr int P = 1 << LOG2P;
-  static constexpr int M = C * P;
-  static constexpr int T = fft_threads(LOG2P);
-  static constexpr int TABLES = twiddle_len(LOG2P);
-  using F = Fft<LOG2P, true>;
-
-  __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw) {
-    for (int i = threadIdx.x; i < P / 4; i += blockDim.x) tws[slot(i)] = __ldg(tw + C * i);
-  }
+struct ClusterChirp : ClusterDit<LOG2P, C> {
+  using D = ClusterDit<LOG2P, C>;
+  using D::M;
+  using D::P;
+  using D::T;
+  using typename D::F;
 
   template <class Point>
   __device__ __forceinline__ static void convolve(Point point, float2* buf, const float2* tws,
@@ -1289,33 +1373,7 @@ struct ClusterChirp {
       v[m] = make_float2(p.x, -p.y);
     }
     F::sync(0);  // every point is read; the first pass rewrites buf
-    F::run(v, buf, tws, j, 0);
-    if (rank) {
-#pragma unroll
-      for (int m = 0; m < kPoints; ++m) {
-        const int k1 = j + T * m;
-        buf[slot(k1)] = cmul(buf[slot(k1)], ldg_twiddle<M>(tw, rank * k1));
-      }
-    }
-    cluster_sync();
-  }
-
-  // Z[t], t < M, after convolve: the radix-C sum over the C buffers, by
-  // Horner in W^q
-  __device__ __forceinline__ static float2 point(const float2* buf,
-                                                 const float2* __restrict__ tw, int t) {
-    const int k1 = t & (P - 1);
-    const float2 wq = ldg_twiddle<M>(tw, P * (t >> LOG2P));
-    float2 v[C];
-#pragma unroll
-    for (int r = 0; r < C; ++r) v[r] = peer(buf, r)[slot(k1)];
-    float2 z = v[C - 1];
-#pragma unroll
-    for (int r = C - 2; r >= 0; --r) {
-      const float2 b = cmul(z, wq);
-      z = make_float2(v[r].x + b.x, v[r].y + b.y);
-    }
-    return z;
+    D::run(v, buf, tws, tw, rank, j);
   }
 };
 

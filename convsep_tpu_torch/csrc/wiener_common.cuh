@@ -4,8 +4,10 @@
 // grid, the masked spectrum points (masked_bin), a finished sample pair
 // (store_pair), and the kernels on the mixed-radix split
 // (wiener_split_block), on Bluestein (wiener_bluestein_block) and on a
-// thread-block cluster (wiener_cluster_block). wiener_istft.cu's header
-// says what the kernels compute, what bounds them and how they are built.
+// thread-block cluster (wiener_cluster_block, Bluestein;
+// wiener_cluster_dit_block, the powers of two by decimation in time).
+// wiener_istft.cu's header says what the kernels compute, what bounds them
+// and how they are built.
 
 #pragma once
 
@@ -52,11 +54,28 @@ __device__ __forceinline__ Place place(const Args& a, int index) {
   return {n, 2 * pair, (rest - n * a.per_signal) * a.rows, 2 * pair + 1 < a.S};
 }
 
+// The relu'd magnitude (squared with p2) of source row offset i of y.
+__device__ __forceinline__ float y_at(const Args& a, long long i) {
+  return relu_pow(a.y_bf16 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(a.y) + i))
+                           : __ldg(static_cast<const float*>(a.y) + i), a.p2);
+}
+
+// The masks of sources s0 and s1 from the denominator's source sum d and
+// their magnitudes ya, yb, times the mixture bin (mr, mi): (Re A, Im A, Re
+// B, Im B). The ratio follows models/masks.py::wiener_mask: the denominator
+// sums the sources in order, then adds eps; conserve_last adds eps to the
+// last source's numerator.
+__device__ __forceinline__ float4 mask_pair(const Args& a, const Place& pl, float d, float ya,
+                                            float yb, float mr, float mi) {
+  d += a.eps;
+  if (a.conserve_last && pl.s0 == a.S - 1) ya += a.eps;
+  if (a.conserve_last && pl.s0 + 1 == a.S - 1) yb += a.eps;
+  const float ma = ya / d, mb = pl.has1 ? yb / d : 0.f;
+  return make_float4(ma * mr, ma * mi, mb * mr, mb * mi);
+}
+
 // The masked half-spectra of sources s0 (A) and s1 (B) at bin kk of frame f
 // of track n, as (Re A, Im A, Re B, Im B); imaginary parts 0 at the edges.
-// The ratio follows models/masks.py::wiener_mask: the denominator sums the
-// sources in order, then adds eps; conserve_last adds eps to the last
-// source's numerator.
 __device__ __forceinline__ float4 masked_bin(const Args& a, const Place& pl, int N, int f,
                                              int kk, bool edge) {
   const int half = N / 2, bins = half + 1;
@@ -68,18 +87,44 @@ __device__ __forceinline__ float4 masked_bin(const Args& a, const Place& pl, int
   const long long y0 = ((long long)pl.n * a.S * a.nf + f) * bins + kk;
   float d = 0.f, ya = 0.f, yb = 0.f;
   for (int s = 0; s < a.S; ++s) {
-    const long long i = y0 + s * src;
-    const float q = relu_pow(a.y_bf16 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(a.y) + i))
-                                      : __ldg(static_cast<const float*>(a.y) + i), a.p2);
+    const float q = y_at(a, y0 + s * src);
     d += q;
     ya = s == pl.s0 ? q : ya;
     yb = s == pl.s0 + 1 ? q : yb;
   }
-  d += a.eps;
-  if (a.conserve_last && pl.s0 == a.S - 1) ya += a.eps;
-  if (a.conserve_last && pl.s0 + 1 == a.S - 1) yb += a.eps;
-  const float ma = ya / d, mb = pl.has1 ? yb / d : 0.f;
-  return make_float4(ma * mr, ma * mi, mb * mr, mb * mi);
+  return mask_pair(a, pl, d, ya, yb, mr, mi);
+}
+
+// masked_bin at the K bins k0 + stride i (i < K) of frame f, all below
+// Nyquist (bin 0 an edge), the same arithmetic in the same order: the
+// loads go source by source, each source's K bins at once, so they are in
+// flight together; neighbouring threads' k0 are neighbouring bins.
+template <int K>
+__device__ __forceinline__ void masked_bins(float4 (&ab)[K], const Args& a, const Place& pl,
+                                            int N, int f, int k0, int stride) {
+  const int half = N / 2, bins = half + 1;
+  const long long frame = (long long)pl.n * a.nf + f;
+  const long long mix = frame * (a.ny ? half : bins) + k0;
+  const long long src = (long long)a.nf * bins;
+  const long long y0 = ((long long)pl.n * a.S * a.nf + f) * bins + k0;
+  float d[K], ya[K], yb[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) d[i] = ya[i] = yb[i] = 0.f;
+  for (int s = 0; s < a.S; ++s) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float q = y_at(a, y0 + s * src + i * stride);
+      d[i] += q;
+      ya[i] = s == pl.s0 ? q : ya[i];
+      yb[i] = s == pl.s0 + 1 ? q : yb[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float mr = __ldg(a.re + mix + i * stride);
+    const float mi = k0 + i * stride == 0 ? 0.f : __ldg(a.im + mix + i * stride);
+    ab[i] = mask_pair(a, pl, d[i], ya[i], yb[i], mr, mi);
+  }
 }
 
 // The place of block `index` of a grid of one source a block (S blocks a
@@ -104,6 +149,37 @@ __device__ __forceinline__ void store_pair(const Args& a, const Place& pl, int r
   if (pl.has1) write_sample(a.out, a.out_int16, o + a.length, v1 * inv);
 }
 
+// One round's overlap-add on a cluster block's columns [u0, u0 + ncols) of
+// every hop row (cluster_columns, cols a row): frame f's sample t = i hop +
+// u, sample(t) = N conj(a[t] + i b[t]) read across the cluster as it is
+// consumed, lies in hop row f + i; its real part goes to s0, its imaginary
+// part, negated, to s1; row f completes with it and rows f + 1 .. f + k - 1
+// carry on in carry0 and carry1 ((k - 1) cols floats each), so each sample
+// sums its win/hop frames in ascending order, with no atomics; rows in
+// [j0, j_end) are written by store_pair.
+template <class Sample>
+__device__ __forceinline__ void cluster_pair_gather(Sample sample, float* carry0, float* carry1,
+                                                    const Args& a, const Place& pl, int N, int f,
+                                                    int cols, int u0, int ncols, int j_end) {
+  const int hop = a.hop, k = N / hop;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    const int u = u0 + c;
+    for (int i = 0; i < k; ++i) {
+      const int t = i * hop + u;
+      const float2 z = sample(t);
+      const float w = __ldg(a.win_over_n + t);
+      const float v0 = (i < k - 1 ? carry0[i * cols + c] : 0.f) + w * z.x;
+      const float v1 = (i < k - 1 ? carry1[i * cols + c] : 0.f) + w * -z.y;
+      if (i >= 1) {
+        carry0[(i - 1) * cols + c] = v0;
+        carry1[(i - 1) * cols + c] = v1;
+      } else if (f >= pl.j0 && f < j_end) {
+        store_pair(a, pl, f, u, N, v0, v1);
+      }
+    }
+  }
+}
+
 // The Wiener+iSTFT for even 8192 < N <= 32 768 on a cluster of C blocks
 // (M = 8192 C, C 4 or 8): istft_cluster_block with two changes.
 // * The points. Cluster q = blockIdx.x / C is one pair of sources (s0, s0 +
@@ -115,16 +191,14 @@ __device__ __forceinline__ void store_pair(const Args& a, const Place& pl, int r
 //   conj c_t for t < N (inverse_point, the mirrored bin past Nyquist).
 // * The gather. Block r owns the r-th 1/C of every hop row's columns
 //   (cluster_columns) and keeps two carries of (k - 1) of them, one a
-//   source: frame f's sample t = i hop + u, chirp[t] conj(Z[t]) = N conj(a[t]
-//   + i b[t]) read across the cluster as it is consumed, lies in hop row f +
-//   i; its real part goes to s0, its imaginary part to s1; row f completes
-//   with it and rows f + 1 .. f + k - 1 carry on, so each sample sums its
-//   win/hop frames in ascending order, with no atomics.
+//   source (cluster_pair_gather), each sample chirp[t] conj(Z[t]) = N
+//   conj(a[t] + i b[t]).
 // A cluster barrier ends each round (the peers have read the buffers the
 // next round rewrites). Every thread runs every round and every barrier (a
 // frame outside [0, nf) loads zeros). a.tw is the M-point quarter table,
 // chirp (N) and chat (M) fft_plan.bluestein_tables; smem4 the block's
 // dynamic shared memory (cluster_smem_bytes with 2 (k - 1) columns' carry).
+// The power-of-two sizes run wiener_cluster_dit_block.
 template <int LOG2P, int C>
 __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& a,
                                                      const float2* __restrict__ chirp,
@@ -133,11 +207,10 @@ __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& 
   using CC = ClusterChirp<LOG2P, C>;
   const int rank = blockIdx.x % C;
   const Place pl = place(a, blockIdx.x / C);
-  const int hop = a.hop;
-  const int k = N / hop;  // frames that overlap one hop row
-  const int cols = cluster_columns(hop, C);
+  const int k = N / a.hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(a.hop, C);
   const int u0 = rank * cols;
-  const int ncols = max(0, min(cols, hop - u0));
+  const int ncols = max(0, min(cols, a.hop - u0));
   float2* tws = reinterpret_cast<float2*>(smem4);
   float2* buf = tws + CC::TABLES;
   float* carry0 = reinterpret_cast<float*>(buf + exchange_len(LOG2P));  // (k - 1) cols
@@ -160,23 +233,88 @@ __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& 
           return cmul(z, __ldg(chirp + t));
         },
         buf, tws, a.tw, chat, rank, threadIdx.x);
-    for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
-      const int u = u0 + c;
-      for (int i = 0; i < k; ++i) {
-        const int t = i * hop + u;
-        const float2 zb = CC::point(buf, a.tw, t);
-        const float2 z = cmul(__ldg(chirp + t), make_float2(zb.x, -zb.y));
-        const float w = __ldg(a.win_over_n + t);
-        const float v0 = (i < k - 1 ? carry0[i * cols + c] : 0.f) + w * z.x;
-        const float v1 = (i < k - 1 ? carry1[i * cols + c] : 0.f) + w * -z.y;
-        if (i >= 1) {
-          carry0[(i - 1) * cols + c] = v0;
-          carry1[(i - 1) * cols + c] = v1;
-        } else if (f >= pl.j0 && f < j_end) {
-          store_pair(a, pl, f, u, N, v0, v1);
-        }
-      }
+    cluster_pair_gather(
+        [&](int t) {
+          const float2 zb = CC::point(buf, a.tw, t);
+          return cmul(__ldg(chirp + t), make_float2(zb.x, -zb.y));
+        },
+        carry0, carry1, a, pl, N, f, cols, u0, ncols, j_end);
+    cluster_sync();  // the peers have read this round's buffers
+  }
+}
+
+// The Wiener+iSTFT at the powers of two past 8192, N = 2^LOG2P C (the
+// reference's 16 384 on C = 2 blocks, 32 768 on C = 4): the direct inverse
+// by decimation in time over the cluster (ClusterDit), without Bluestein's
+// chirp and first transform. Cluster q = blockIdx.x / C is one pair of
+// sources and R hop rows of a track (place), one frame f of the pair a
+// round, as wiener_cluster_block. A round:
+// 1. block r masks its contiguous 1/C of the bins, [r P/2, (r + 1) P/2)
+//    (the last block also Nyquist), eight a thread at a stride of the
+//    block (masked_bins: neighbouring threads read neighbouring bins, and
+//    each bin's mask is formed once a frame), and puts both points of conj
+//    Z, Z = A + i B, a bin gives (k and N - k, as inverse_point forms them)
+//    into the blocks that own them (ClusterDit::put); a cluster barrier;
+// 2. ClusterDit::run_staged: each block's Fft<LOG2P> on its points t = r
+//    (mod C), the combine's twiddle in place, a cluster barrier;
+// 3. the gather reads Z[t] = N conj(a[t] + i b[t]) across the cluster
+//    (ClusterDit::point) for the block's 1/C of the hop columns, with the
+//    two sources' carries (cluster_pair_gather); a cluster barrier (the
+//    peers have read the buffers the next round's puts rewrite).
+// Every thread runs every round and every barrier (a frame outside [0, nf)
+// puts zeros). a.tw is the N-point quarter table (fft_plan.twiddles);
+// smem4 the block's dynamic shared memory (cluster_smem_bytes with 2 (k -
+// 1) columns' carry).
+template <int LOG2P, int C>
+__device__ __forceinline__ void wiener_cluster_dit_block(float4* smem4, const Args& a,
+                                                         int rounds) {
+  using D = ClusterDit<LOG2P, C>;
+  constexpr int N = D::M;
+  constexpr int K = D::P / 2 / D::T;  // bins a thread masks: 8
+  const int rank = blockIdx.x % C;
+  const Place pl = place(a, blockIdx.x / C);
+  const int k = N / a.hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(a.hop, C);
+  const int u0 = rank * cols;
+  const int ncols = max(0, min(cols, a.hop - u0));
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + D::TABLES;
+  float* carry0 = reinterpret_cast<float*>(buf + exchange_len(LOG2P));  // (k - 1) cols
+  float* carry1 = carry0 + (k - 1) * cols;
+  const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
+  const int k0 = rank * (D::P / 2) + threadIdx.x;  // the thread's first bin
+
+  D::load_tables(tws, a.tw);
+  for (int i = threadIdx.x; i < 2 * (k - 1) * cols; i += blockDim.x) carry0[i] = 0.f;
+  // A cluster barrier, not a block one: the first round's puts write the
+  // peers' shared memory, so every block of the cluster must be running.
+  cluster_sync();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int f = pl.j0 - (k - 1) + r;  // the round's frame
+    const bool live = f >= 0 && f < a.nf;
+    float4 ab[K];
+    if (live) {
+      masked_bins(ab, a, pl, N, f, k0, D::T);
+    } else {
+#pragma unroll
+      for (int i = 0; i < K; ++i) ab[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
+      const int kk = k0 + i * D::T;
+      D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+      if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+    }
+    if (rank == C - 1 && threadIdx.x == 0) {  // Nyquist: real parts only
+      const float4 q = live ? masked_bin(a, pl, N, f, N / 2, true)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      D::put(buf, N / 2, make_float2(q.x, -q.z));
+    }
+    cluster_sync();  // every block's points are in place
+    D::run_staged(buf, tws, a.tw, rank, threadIdx.x);  // ends in a cluster barrier
+    cluster_pair_gather([&](int t) { return D::point(buf, a.tw, t); }, carry0, carry1, a, pl,
+                        N, f, cols, u0, ncols, j_end);
     cluster_sync();  // the peers have read this round's buffers
   }
 }

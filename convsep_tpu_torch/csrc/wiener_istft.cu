@@ -42,19 +42,32 @@
 // block transforms the k - 1 frames before j0 too (the halo); block counts
 // and rounds come from fft_plan.wiener_plan, which mirrors this launcher.
 //
-// Even sizes past 8192, up to the reference's 32 768 (wiener_cluster_kernel,
-// wiener_common.cuh::wiener_cluster_block; no preset uses one): Bluestein
-// run backwards on a thread-block cluster of 4 or 8 blocks (M 32 768 or
-// 65 536, fft_common.cuh::ClusterChirp), istft.cu's istft_cluster_kernel
-// with the mask in the point loads: a cluster owns one pair of sources and
-// R hop rows of a track and transforms one frame of the pair a round, each
-// block loading its first stage's masked points straight from y and the
-// mixture; each block gathers its 1/C of every hop row's columns for both
-// sources, two carries in its shared memory. The plan
-// (fft_plan.wiener_cluster_plan) weighs waves of the clusters the card holds
-// at once against rounds. At W 16 384, hop 2048, 4 stems of a 30 s track
-// (648 frames, f32 y) its bound is bytes: 85 MB of y, 42 MB of mixture and
-// 21 MB of stems, 0.044 ms.
+// Even sizes past 8192, up to the reference's 32 768 (no preset uses one):
+// a thread-block cluster owns one pair of sources and R hop rows of a
+// track and transforms one frame of the pair a round; each block gathers
+// its 1/C of every hop row's columns for both sources, two carries in its
+// shared memory, reading the transform across the cluster through
+// distributed shared memory as it is consumed.
+// * The powers of two, the reference's 16 384 and 32 768
+//   (wiener_cluster_dit_kernel, wiener_common.cuh::wiener_cluster_dit_block):
+//   the direct N-point inverse by decimation in time over C = N / 8192
+//   blocks (2 at 16 384, 4 at 32 768; fft_common.cuh::ClusterDit): each
+//   block masks a contiguous 1/C of the bins, read coalesced, each bin's
+//   mask formed once a frame, and puts the two points a bin gives into the
+//   blocks that own them through distributed shared memory; block r then
+//   runs one Fft<13> on its points t = r (mod C) and applies the combine's
+//   twiddle; the radix-C combine is read in the gather. 144 384 bytes of
+//   shared memory a block at hop N/8.
+// * The other even sizes (wiener_cluster_kernel,
+//   wiener_common.cuh::wiener_cluster_block): Bluestein run backwards on a
+//   cluster of 4 or 8 blocks (M 32 768 or 65 536,
+//   fft_common.cuh::ClusterChirp), istft.cu's istft_cluster_kernel with the
+//   mask in the point loads; every block's first stage reads the whole
+//   frame, and each round runs two 8192-point transforms a block.
+// The plans (fft_plan.wiener_cluster_dit_plan, wiener_cluster_plan) weigh
+// waves of the clusters the card holds at once against rounds. At W 16 384,
+// hop 2048, 4 stems of a 30 s track (648 frames, f32 y) the bound is bytes:
+// 85 MB of y, 42 MB of mixture and 21 MB of stems, 0.044 ms.
 //
 // The split's sizes, N = m 2^a (m 3, 5, 9, 15, 2^a >= 16, N <= 8192: 768,
 // 1280, 1536, 2304, 3072, ...; wiener_split.cu::wiener_split_kernel,
@@ -234,6 +247,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_kernel(
   wiener_cluster_block<kMaxLog2, C>(smem4, a, chirp, chat, nfft, rounds);
 }
 
+// One block an SM, as wiener_cluster_kernel.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_dit_kernel(Args a, int rounds) {
+  extern __shared__ float4 smem4[];
+  wiener_cluster_dit_block<kMaxLog2, C>(smem4, a, rounds);
+}
+
 // clusters of C blocks, one pair of sources and a.rows hop rows of a track
 // each, a.pairs clusters a row range; with `active`, launches nothing and
 // sets how many such clusters the card holds at once
@@ -245,6 +265,25 @@ cudaError_t launch_wiener_cluster(const Args& a, const float2* chirp, const floa
   return launch_clusters<C>(wiener_cluster_kernel<C>, clusters,
                             cluster_smem_bytes(kMaxLog2, 2 * (k - 1) * cluster_columns(a.hop, C)),
                             stream, active, a, chirp, chat, nfft, rounds);
+}
+
+// the same for the powers of two, N = 8192 C (C 2 or 4)
+template <int C>
+cudaError_t launch_wiener_cluster_dit(const Args& a, long long clusters, int rounds,
+                                      cudaStream_t stream, int* active) {
+  const int k = (C << kMaxLog2) / a.hop;
+  return launch_clusters<C>(wiener_cluster_dit_kernel<C>, clusters,
+                            cluster_smem_bytes(kMaxLog2, 2 * (k - 1) * cluster_columns(a.hop, C)),
+                            stream, active, a, rounds);
+}
+
+// The cluster launches' common arguments: R = rounds - (k - 1) hop rows a
+// cluster, a.pairs clusters a row range; false where R < 1.
+bool cluster_args(Args* a, int nf, int nfft, int hop, int rounds) {
+  a->rows = rounds - (nfft / hop - 1);
+  if (a->rows < 1) return false;
+  a->per_signal = (nf + nfft / hop - 1 + a->rows - 1) / a->rows;
+  return true;
 }
 
 }  // namespace
@@ -335,10 +374,10 @@ extern "C" int wiener_istft_launch(
 // 65 536: a cluster of 4 or 8 blocks of 512 threads a pair of sources, one
 // frame a round); tw the M-point quarter table (fft_plan.twiddles), chirp
 // (nfft) and chat (M) from fft_plan.bluestein_tables; rounds from
-// fft_plan.wiener_plan (wiener_cluster_plan), each cluster owning rounds -
-// (nfft/hop - 1) hop rows. With `active` (y and the other arrays may then
-// be null), launches nothing and sets how many clusters of the launch the
-// card holds at once (cudaOccupancyMaxActiveClusters).
+// fft_plan.wiener_cluster_plan, each cluster owning rounds - (nfft/hop - 1)
+// hop rows. With `active` (y and the other arrays may then be null),
+// launches nothing and sets how many clusters of the launch the card holds
+// at once (cudaOccupancyMaxActiveClusters).
 extern "C" int wiener_cluster_launch(
     const void* y, int y_bf16, const void* re, const void* im, const void* ny,
     const void* win_over_n, const void* inv_norm, const void* tw, const void* chirp,
@@ -348,14 +387,11 @@ extern "C" int wiener_cluster_launch(
   if (nfft <= (1 << kMaxLog2) || nfft % 2 != 0 || log2m < kMaxLog2 + 2 || log2m > kMaxLog2 + 3 ||
       hop < 1 || nfft % hop != 0 || nt < 1 || S < 1 || nf < 1)
     return (int)cudaErrorInvalidValue;
-  const int k = nfft / hop;
   Args a{y, static_cast<const float*>(re), static_cast<const float*>(im),
          static_cast<const float*>(ny), static_cast<const float*>(win_over_n),
          static_cast<const float*>(inv_norm), static_cast<const float2*>(tw), out, y_bf16,
-         out_int16, S, nf, hop, length, p2, conserve_last, eps, rounds - (k - 1), 0,
-         (S + 1) / 2};
-  if (a.rows < 1) return (int)cudaErrorInvalidValue;
-  a.per_signal = (nf + k - 1 + a.rows - 1) / a.rows;
+         out_int16, S, nf, hop, length, p2, conserve_last, eps, 0, 0, (S + 1) / 2};
+  if (!cluster_args(&a, nf, nfft, hop, rounds)) return (int)cudaErrorInvalidValue;
   const long long clusters = (long long)nt * a.per_signal * a.pairs;
   const auto* cc = static_cast<const float2*>(chirp);
   const auto* ch = static_cast<const float2*>(chat);
@@ -363,4 +399,30 @@ extern "C" int wiener_cluster_launch(
   if (log2m == kMaxLog2 + 2)
     return (int)launch_wiener_cluster<4>(a, cc, ch, clusters, nfft, rounds, s, active);
   return (int)launch_wiener_cluster<8>(a, cc, ch, clusters, nfft, rounds, s, active);
+}
+
+// The powers of two past 8192, nfft 16 384 or 32 768: the direct inverse by
+// decimation in time on a cluster of nfft / 8192 blocks (2 or 4) of 512
+// threads a pair of sources, one frame a round; tw the nfft-point quarter
+// table (fft_plan.twiddles); rounds from fft_plan.wiener_cluster_dit_plan,
+// each cluster owning rounds - (nfft/hop - 1) hop rows. `active` as
+// wiener_cluster_launch's.
+extern "C" int wiener_cluster_dit_launch(
+    const void* y, int y_bf16, const void* re, const void* im, const void* ny,
+    const void* win_over_n, const void* inv_norm, const void* tw, void* out, int out_int16,
+    int nt, int S, int nf, int nfft, int hop, int length, int rounds, int p2, float eps,
+    int conserve_last, int* active, void* stream) {
+  if ((nfft != 2 << kMaxLog2 && nfft != 4 << kMaxLog2) || hop < 1 || nfft % hop != 0 || nt < 1 ||
+      S < 1 || nf < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{y, static_cast<const float*>(re), static_cast<const float*>(im),
+         static_cast<const float*>(ny), static_cast<const float*>(win_over_n),
+         static_cast<const float*>(inv_norm), static_cast<const float2*>(tw), out, y_bf16,
+         out_int16, S, nf, hop, length, p2, conserve_last, eps, 0, 0, (S + 1) / 2};
+  if (!cluster_args(&a, nf, nfft, hop, rounds)) return (int)cudaErrorInvalidValue;
+  const long long clusters = (long long)nt * a.per_signal * a.pairs;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (nfft == 2 << kMaxLog2)
+    return (int)launch_wiener_cluster_dit<2>(a, clusters, rounds, s, active);
+  return (int)launch_wiener_cluster_dit<4>(a, clusters, rounds, s, active);
 }

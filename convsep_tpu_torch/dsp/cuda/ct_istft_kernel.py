@@ -15,10 +15,15 @@ wrappers and plain versions.
   sizes, ``wiener_istft_bluestein``); past 8192, up to the reference's
   32 768, Bluestein backwards on a thread-block cluster
   (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_plan`,
-  ``wiener_istft_cluster``); with ``ny`` each counts as ``wiener_istft_ny``,
-  ``wiener_istft_ny_split``, and so on. :func:`wiener_direct_pallas` forces
-  the direct sum per sample that served the sizes off the core before
-  (``wiener_istft_direct``), to hold and time it.
+  ``wiener_istft_cluster``), at the powers of two there (16 384, 32 768)
+  the direct transform by decimation in time over a cluster of 2 or 4
+  blocks (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
+  wiener_cluster_dit_plan`, ``wiener_istft_cluster_dit``); with ``ny`` each
+  counts as ``wiener_istft_ny``, ``wiener_istft_ny_split``, and so on.
+  :func:`wiener_direct_pallas` forces the direct sum per sample that served
+  the sizes off the core before (``wiener_istft_direct``), and
+  :func:`wiener_bluestein_cluster_pallas` Bluestein's cluster at the powers
+  of two past 8192, to hold and time them.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -46,6 +51,7 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     split_factors,
     synthesis_tables,
     twiddles,
+    wiener_cluster_plan,
     wiener_direct_plan,
     wiener_plan,
 )
@@ -58,8 +64,11 @@ _LANES = 128  # the reference kernel's lane-width factor of nfft
 # The cluster plans' (nfft, hop) at which the Wiener+iSTFT kernel beat the
 # plain masked chain (the mask, then the iSTFT "auto" takes) in a timed A/B
 # on an H100 (chip_smoke.py phase 3c, PERF.md row 1″): "auto" takes the
-# kernel past 8192 only there, as FUSED_DECODE_WON keys the decode.
-WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset()
+# kernel past 8192 only there, as FUSED_DECODE_WON keys the decode. The
+# direct transform on a cluster won at the reference's two shapes, by
+# 3.7-4.5x (tools/torch_wiener_cluster_study.py, H100 80GB HBM3 at 700 W);
+# Bluestein's cluster lost at every size it was timed.
+WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({(16384, 2048), (32768, 4096)})
 # The same for the split's and Bluestein's (nfft, hop) up to 8192 (chip_smoke.py
 # phase 7b, 4 stems of a 30 s track, PERF.md row 1′): each won, by 3.8-8.7x on an
 # H100 80GB HBM3 at 700 W.
@@ -133,8 +142,9 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     holds two sources, so their number does not bound it). Powers of two up
     to 8192 (every preset) run on the FFT core, m · 2^a on its split, the
     other even sizes up to 8192 on Bluestein run backwards, even sizes past
-    8192 Bluestein run backwards on a thread-block cluster. It holds every
-    shape of the reference's :func:`ct_pallas_supported`."""
+    8192 Bluestein run backwards on a thread-block cluster, the powers of
+    two there the direct transform over a cluster. It holds every shape of
+    the reference's :func:`ct_pallas_supported`."""
     if not (win_len == nfft and 16 <= nfft <= WIENER_CLUSTER_NFFT and nfft % 2 == 0 and hop > 0
             and nfft % hop == 0):
         return False
@@ -215,12 +225,12 @@ def wiener_istft(
     ct_stft_kernel.stft_ct_pallas`); y still has nfft/2 + 1 bins. The
     kernel reads it in place of a concatenated spectrum and counts under
     ``wiener_istft_ny``; off the core the kernel counts under
-    ``wiener_istft_split``, ``wiener_istft_bluestein`` or
-    ``wiener_istft_cluster`` (``wiener_istft_ny_split``, and so on).
+    ``wiener_istft_split``, ``wiener_istft_bluestein``,
+    ``wiener_istft_cluster`` or ``wiener_istft_cluster_dit``
+    (``wiener_istft_ny_split``, and so on).
 
     CPU tensors: :func:`wiener_istft_plain`. CUDA tensors: the kernel."""
-    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
-                   direct=False)
+    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny)
 
 
 def wiener_direct_pallas(
@@ -242,11 +252,33 @@ def wiener_direct_pallas(
     and timed beside the split and Bluestein kernels that replaced it. CPU
     tensors: the plain version."""
     return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
-                   direct=True)
+                   wiener_direct_plan)
+
+
+def wiener_bluestein_cluster_pallas(
+    y: torch.Tensor,
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    p: float = 1.0,
+    eps: float = 1e-8,
+    conserve_last: bool = False,
+    output_dtype: str = "float32",
+    ny: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`wiener_istft` through Bluestein's cluster at any even nfft past
+    8192 up to the reference's 32 768 (CUDA tensors, counted as
+    ``wiener_istft_cluster``), the powers of two too, where the direct
+    transform (``wiener_istft_cluster_dit``) replaced it, so that it can be
+    held and timed beside that kernel. CPU tensors: the plain version."""
+    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
+                   wiener_cluster_plan)
 
 
 def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
-            direct: bool):
+            plan_of=wiener_plan):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     has_ny = ny is not None
@@ -290,7 +322,7 @@ def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype,
         raise ValueError("re/im (and ny) must be float32")
     nf = int(re.shape[-2])
     nt = math.prod(lead)
-    plan = (wiener_direct_plan if direct else wiener_plan)(nt, S, nf, nfft, hop)
+    plan = plan_of(nt, S, nf, nfft, hop)
     dev = y.device
     where = str(dev)
     y4 = y.reshape(nt, S, nf, bins).contiguous()
@@ -313,6 +345,11 @@ def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype,
                 *args, tw, chirp, chat, out.data_ptr(), int(out_dt == torch.int16), nt, S, nf,
                 nfft, int(hop), int(length), plan.rounds, *tail, None, stream,
             )
+        elif plan.route == "cluster_dit":
+            code = lib.wiener_cluster_dit_launch(
+                *args, tw, out.data_ptr(), int(out_dt == torch.int16), nt, S, nf, nfft, int(hop),
+                int(length), plan.rounds, *tail, None, stream,
+            )
         else:
             code = lib.wiener_istft_launch(
                 *args, tw, tw_n, chirp, chat, out.data_ptr(), int(out_dt == torch.int16), nt, S,
@@ -328,12 +365,15 @@ def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype,
 
 def _tables(route: str, nfft: int, where: str) -> tuple:
     """The tables a route's launch reads, (tw, tw_n, chirp, chat), None where
-    it reads none: the quarter twiddle table of nfft on the core, of 2^a and
-    nfft on the split, of Bluestein's M beside the chirp tables on Bluestein
-    and the cluster; the full e^{−2πi m/N} table for the direct sum."""
+    it reads none: the quarter twiddle table of nfft on the core and the
+    direct cluster, of 2^a and nfft on the split, of Bluestein's M beside
+    the chirp tables on Bluestein and its cluster; the full e^{−2πi m/N}
+    table for the direct sum."""
     if route in ("bluestein", "cluster"):
         chirp, chat = bluestein_tables(nfft, where)
         return twiddles(bluestein_size(nfft), where), None, chirp, chat
     if route == "split":
         return twiddles(split_factors(nfft)[1], where), twiddles(nfft, where), None, None
-    return twiddles(nfft, where) if route == "fft" else dft_table(nfft, where), None, None, None
+    if route == "direct":
+        return dft_table(nfft, where), None, None, None
+    return twiddles(nfft, where), None, None, None

@@ -47,7 +47,9 @@ Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it on the core, the split and Bluestein, past 8192 on the cluster run
 backwards (:func:`wiener_cluster_plan`, up to :data:`WIENER_CLUSTER_NFFT`,
-the reference kernel's largest size); :func:`wiener_direct_plan` sizes its
+the reference kernel's largest size), at the powers of two there on the
+direct transform split by decimation in time over the cluster
+(:func:`wiener_cluster_dit_plan`); :func:`wiener_direct_plan` sizes its
 direct sum, which only a forced call runs.
 """
 
@@ -187,12 +189,13 @@ def cluster_smem_bytes(carry: int = 0) -> int:
     return 8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)) + 4 * carry
 
 
-# Clusters of 4, 8 and 16 blocks an H100 SXM holds at once: one block an SM
-# (512 threads at 128 registers take an SM's 65 536), a cluster's blocks in
-# one GPC, which leaves 12 of the 132 SMs idle at 4 and 8
+# Clusters of 2, 4, 8 and 16 blocks an H100 SXM holds at once: one block an
+# SM (512 threads at 128 registers take an SM's 65 536), a cluster's blocks
+# in one GPC, which leaves 12 of the 132 SMs idle at 4 and 8
 # (cudaOccupancyMaxActiveClusters through csrc/istft.cu::
-# istft_cluster_occupancy; tests/test_torch_cuda.py holds the card to it).
-CLUSTERS_AT_ONCE = {4: 30, 8: 15, 16: 7}
+# istft_cluster_occupancy, and at 2 through wiener_cluster_dit_launch;
+# tests/test_torch_cuda.py holds the card to it).
+CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
 
 
 @dataclass(frozen=True)
@@ -601,7 +604,7 @@ class WienerPlan:
     waves: int            # blocks over blocks_per_sm · SMS, rounded up
     halo: float           # recomputed share of the transforms: (nfft/hop − 1) / rows
     cluster: int = 1      # blocks of a cluster that share one transform (1: none)
-    route: str = "fft"    # the kernel: fft, split, bluestein, cluster or direct
+    route: str = "fft"    # the kernel: fft, split, bluestein, cluster, cluster_dit or direct
     frame_pairs: bool = False  # Bluestein on the level: a block one source, a group two frames
 
 
@@ -623,9 +626,12 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     rule. On the level, where the two sources' carries do not fit beside
     its tables and exchange buffer, a block takes one source (S blocks per
     row range) and a group two of its frames a round (``frame_pairs``, R =
-    2G·rounds − (k − 1)). Even sizes past 8192: :func:`wiener_cluster_plan`.
-    The direct sum is only forced (:func:`wiener_direct_plan`)."""
+    2G·rounds − (k − 1)). Even sizes past 8192: :func:`wiener_cluster_plan`,
+    the powers of two there :func:`wiener_cluster_dit_plan`. The direct sum
+    is only forced (:func:`wiener_direct_plan`)."""
     if MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT:
+        if nfft & (nfft - 1) == 0:
+            return wiener_cluster_dit_plan(signals, S, nf, nfft, hop)
         return wiener_cluster_plan(signals, S, nf, nfft, hop)
     if nfft % 2 or not MIN_NFFT <= nfft <= MAX_NFFT or hop < 1 or nfft % hop:
         raise ValueError(f"no Wiener+iSTFT plan for nfft={nfft} hop={hop}: even, {MIN_NFFT} to "
@@ -705,24 +711,48 @@ def wiener_direct_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> Wi
 
 @lru_cache(maxsize=64)
 def wiener_cluster_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
-    """The Wiener+iSTFT cluster kernel's launch, as ``csrc/wiener_istft.cu::
+    """The Wiener+iSTFT's Bluestein cluster launch, as ``csrc/wiener_istft.cu::
     wiener_cluster_launch`` computes it: even nfft past 8192 up to
-    :data:`WIENER_CLUSTER_NFFT`, a cluster of C = M / 8192 blocks (4 or 8)
-    of 512 threads owns one pair of sources and R hop rows of a track and
-    transforms one frame of the pair a round, R = rounds − (k − 1), k =
-    nfft/hop; each block keeps the two sources' carries of its 1/C of the
-    columns. The grid is tracks × row ranges × pairs clusters, and the
-    rounds are weighed as :func:`istft_cluster_plan` weighs them: over
-    every rounds with R >= 1, up to one row range a track or
-    ``MAX_ROUNDS``, the least waves × rounds (:data:`CLUSTERS_AT_ONCE` a
-    wave: one block an SM, as the kernel's launch bound of one block an SM
-    lets each instance take 128 registers), ties to fewer transforms.
-    ``blocks`` counts blocks, ``waves`` clusters over the card's count."""
+    :data:`WIENER_CLUSTER_NFFT` (``wiener_plan`` sends the powers of two to
+    :func:`wiener_cluster_dit_plan`; a forced call runs this kernel there
+    too), a cluster of C = M / 8192 blocks (4 or 8) of 512 threads owns one
+    pair of sources and R hop rows of a track and transforms one frame of
+    the pair a round, R = rounds − (k − 1), k = nfft/hop; each block keeps
+    the two sources' carries of its 1/C of the columns. The rounds are
+    weighed by :func:`_cluster_rounds`."""
     if not MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT or nfft % 2 or hop < 1 or nfft % hop:
         raise ValueError(f"no Wiener+iSTFT cluster plan for nfft={nfft} hop={hop}: even, past "
                          f"{MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, a multiple of the hop")
+    return _cluster_rounds(signals, S, nf, nfft, hop, cluster_blocks(nfft), "cluster")
+
+
+@lru_cache(maxsize=64)
+def wiener_cluster_dit_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
+    """The Wiener+iSTFT's launch at the powers of two past 8192 (16 384 and
+    32 768), as ``csrc/wiener_istft.cu::wiener_cluster_dit_launch`` computes
+    it: the direct transform by decimation in time over a cluster of C =
+    nfft / 8192 blocks (2 or 4) of 512 threads, a cluster a pair of sources
+    and R hop rows, one frame a round, the rounds weighed by
+    :func:`_cluster_rounds` (route "cluster_dit")."""
+    if not MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT or nfft & (nfft - 1) or hop < 1 or nfft % hop:
+        raise ValueError(f"no Wiener+iSTFT cluster_dit plan for nfft={nfft} hop={hop}: a power "
+                         f"of two past {MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, a multiple of "
+                         "the hop")
+    return _cluster_rounds(signals, S, nf, nfft, hop, nfft // CLUSTER_PART, "cluster_dit")
+
+
+def _cluster_rounds(signals: int, S: int, nf: int, nfft: int, hop: int, c: int,
+                    route: str) -> WienerPlan:
+    """A Wiener cluster launch of C = ``c`` blocks a cluster: the grid is
+    tracks × row ranges × pairs clusters, each block's shared memory
+    :func:`cluster_smem_bytes` with the two sources' carries of its 1/C of
+    the columns, and over every rounds with R >= 1, up to one row range a
+    track or ``MAX_ROUNDS``, the least waves × rounds
+    (:data:`CLUSTERS_AT_ONCE` a wave: one block an SM, as the kernels'
+    launch bound of one block an SM lets each instance take 128
+    registers), ties to fewer transforms. ``blocks`` counts blocks,
+    ``waves`` clusters over the card's count."""
     k = nfft // hop
-    c = cluster_blocks(nfft)
     pairs = -(-S // 2)
     total_rows = nf + k - 1
     smem = cluster_smem_bytes(2 * (k - 1) * -(-hop // c))
@@ -736,7 +766,7 @@ def wiener_cluster_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> W
         if best is None or key < best[0]:
             best = (key, WienerPlan(nfft, 1, threads_per_fft(CLUSTER_PART), rounds, rows, pairs,
                                     per, clusters * c, smem, 1, waves, (k - 1) / rows, c,
-                                    route="cluster"))
+                                    route=route))
     return best[1]
 
 

@@ -38,6 +38,7 @@ from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import (
 from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     istft_ct_pallas,
     istft_ct_pallas_plain,
+    wiener_bluestein_cluster_pallas,
     wiener_direct_pallas,
     wiener_istft,
     wiener_istft_plain,
@@ -115,7 +116,8 @@ WIENER_NAMES = tuple(k for k in kernels.LAUNCHES if k.startswith("wiener_istft")
 
 def _wiener_kernel(nfft, hop, S, nf, has_ny=False):
     """The launch count a Wiener+iSTFT call at this shape adds to: its plan's
-    route (the core, the split, Bluestein, the cluster)."""
+    route (the core, the split, Bluestein, Bluestein's cluster, the direct
+    cluster)."""
     route = wiener_plan(1, S, nf, nfft, hop).route
     return ("wiener_istft_ny" if has_ny else "wiener_istft") + ("" if route == "fft" else
                                                                 "_" + route)
@@ -178,26 +180,33 @@ def test_wiener_istft_kernel_every_size(rng, cuda, nfft, S):
 
 
 @pytest.mark.parametrize("nfft,hop,length,S,kw,ydt", [
-    (16384, 2048, 60000, 4, {}, torch.float32),    # the reference's 16 384: C 4, k 8
+    (16384, 2048, 60000, 4, {}, torch.float32),    # the reference's 16 384: C 2 (C 4), k 8
     (16384, 4096, 50000, 3, {"p": 2.0, "conserve_last": True}, torch.bfloat16),  # S odd
-    (32768, 4096, 90000, 4, {}, torch.bfloat16),   # the reference's 32 768: C 8
+    (32768, 4096, 90000, 4, {}, torch.bfloat16),   # the reference's 32 768: C 4 (C 8)
     (10000, 2500, 40000, 2, {"p": 2.0}, torch.float32),  # even, not a power of two
     (20000, 5000, 60000, 5, {"conserve_last": True}, torch.float32),  # C 8, S odd
 ])
 def test_wiener_istft_cluster_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, ydt):
-    """The Wiener+iSTFT past 8192 points (Bluestein run backwards on a
-    thread-block cluster, a pair of sources a cluster), float32 within 1e-5
-    and PCM16 within one LSB of the plain version: one
-    "wiener_istft_cluster" launch each, no other Wiener launch."""
+    """The Wiener+iSTFT past 8192 points on a thread-block cluster, a pair of
+    sources a cluster: the route's kernel (the direct transform at the
+    powers of two, "wiener_istft_cluster_dit"; Bluestein's elsewhere,
+    "wiener_istft_cluster") and Bluestein's forced
+    (wiener_bluestein_cluster_pallas), float32 within 1e-5 and PCM16 within
+    one LSB of the plain version: one launch each, no other Wiener launch."""
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
     y = y.to(ydt)
-    for out in ("float32", "int16"):
-        before = dict(kernels.LAUNCHES)
-        got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
-        torch.cuda.synchronize()
-        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
-            k: int(k == "wiener_istft_cluster") for k in WIENER_NAMES}
-        _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+    route = "wiener_istft_cluster" + ("_dit" if nfft & (nfft - 1) == 0 else "")
+    assert _wiener_kernel(nfft, hop, S, re.shape[-2]) == route
+    for fn, name in ((wiener_istft, route), (wiener_bluestein_cluster_pallas,
+                                             "wiener_istft_cluster")):
+        for out in ("float32", "int16"):
+            before = dict(kernels.LAUNCHES)
+            got = fn(y, re, im, w, hop, length, output_dtype=out, **kw)
+            torch.cuda.synchronize()
+            assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+                k: int(k == name) for k in WIENER_NAMES}
+            _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw),
+                   out)
 
 
 @pytest.mark.parametrize("nfft,hop,length,S,kw,ydt,kernel", [
@@ -276,10 +285,11 @@ def test_wiener_direct_pallas_forces_the_direct_sum(rng, cuda, nfft, hop):
 
 @pytest.mark.parametrize("nfft,hop", [(16384, 2048), (32768, 4096)])
 def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
-    """The cluster kernel's Nyquist-row input (the forward STFT kernel's
-    pair at 16 384; the bodies cut from the full spectrum at 32 768): bit
-    for bit the same kernel fed the concatenated spectrum, within 1e-5 of
-    the plain version, counted as "wiener_istft_ny_cluster"."""
+    """The direct cluster kernel's Nyquist-row input (the forward STFT
+    kernel's pair at 16 384; the bodies cut from the full spectrum at 32
+    768): bit for bit the same kernel fed the concatenated spectrum, within
+    1e-5 of the plain version, counted as "wiener_istft_ny_cluster_dit";
+    Bluestein's cluster forced the same, counted "wiener_istft_ny_cluster"."""
     S, length = 4, 70000
     w = sinebell(nfft)
     x = torch.from_numpy((0.3 * rng.standard_normal((2, length))).astype(np.float32)).to(cuda)
@@ -293,31 +303,38 @@ def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
     y = torch.from_numpy(y).to(cuda).to(torch.bfloat16)
     full_re = torch.cat([re, ny[..., None]], -1)
     full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
-    before = kernels.LAUNCHES["wiener_istft_ny_cluster"]
-    got = wiener_istft(y, re, im, w, hop, length, ny=ny, p=2.0)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wiener_istft_ny_cluster"] == before + 1
-    assert torch.equal(got, wiener_istft(y, full_re, full_im, w, hop, length, p=2.0))
-    _close(got, wiener_istft_plain(y, re, im, w, hop, length, ny=ny, p=2.0), "float32")
+    for fn, name in ((wiener_istft, "wiener_istft_ny_cluster_dit"),
+                     (wiener_bluestein_cluster_pallas, "wiener_istft_ny_cluster")):
+        before = kernels.LAUNCHES[name]
+        got = fn(y, re, im, w, hop, length, ny=ny, p=2.0)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert torch.equal(got, fn(y, full_re, full_im, w, hop, length, p=2.0))
+        _close(got, wiener_istft_plain(y, re, im, w, hop, length, ny=ny, p=2.0), "float32")
 
 
 def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
-    """wiener_cluster_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
-    clusters: the card's own cudaOccupancyMaxActiveClusters for the Wiener
-    cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points, one
-    block an SM (the kernel's launch bound)."""
+    """The Wiener cluster plans weigh waves of fft_plan.CLUSTERS_AT_ONCE
+    clusters: the card's own cudaOccupancyMaxActiveClusters for Bluestein's
+    cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points and for
+    the direct one's at 16 384 (C 2) and 32 768 (C 4), one block an SM (the
+    kernels' launch bound)."""
     import ctypes
 
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
 
+    lib = kernels.library()
     for nfft, hop in ((16384, 2048), (32768, 4096), (32768, 2048)):
-        plan = fp.wiener_plan(1, 4, 648, nfft, hop)
-        active = ctypes.c_int(0)
-        kernels.check(kernels.library().wiener_cluster_launch(
-            None, 0, None, None, None, None, None, None, None, None, None, 0, 1, 4, 648, nfft,
-            hop, 1, plan.rounds, 0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None),
-            "wiener_cluster_launch")
-        assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, active.value)
+        for plan_of, launch, tables in ((fp.wiener_cluster_plan, lib.wiener_cluster_launch, 3),
+                                        (fp.wiener_cluster_dit_plan, lib.wiener_cluster_dit_launch,
+                                         1)):
+            plan = plan_of(1, 4, 648, nfft, hop)
+            active = ctypes.c_int(0)
+            kernels.check(launch(None, 0, None, None, None, None, None, *(None,) * tables, None,
+                                 0, 1, 4, 648, nfft, hop, 1, plan.rounds, 0, ctypes.c_float(1e-8),
+                                 0, ctypes.byref(active), None), plan.route)
+            assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, plan.route,
+                                                                       active.value)
 
 
 def test_wiener_istft_kernel_refuses(rng, cuda):
@@ -1460,11 +1477,14 @@ BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 0, 7: 0, 8: 0, 9: 8, 10: 0, 11: 0, 12:
 ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11: 0, 12: 120,
                                  13: 120, 14: 120}
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
-# cluster (an 8192-point part a block, 128 registers)
+# cluster (an 8192-point part a block, 128 registers), and for the
+# Wiener+iSTFT's direct transform on a cluster (126 registers, no stack)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
-                         ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280}
+                         ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280,
+                         ("wiener_cluster_dit_kernel", 2): 0,
+                         ("wiener_cluster_dit_kernel", 4): 0}
 # the same for the Wiener+iSTFT's split, by (log2 P, m), and Bluestein, by
 # (log2 M, frame pairs), on an H100 build (sm_90a, 128 registers): the split holds S sources' y loads beside its 16 points and spills
 # 0-64 bytes (768 = 3 · 256, the smoke's, none); Bluestein none up to M

@@ -31,6 +31,13 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
   the two sources' carries and gather) at parts of 64 and 512 points and at
   the card's 8192 (N 10 000 and 16 384), against ``wiener_istft_plain``
   within 1e-5 × max|out|, PCM16 within ±1 LSB;
+* ``wiener_common.cuh::wiener_cluster_dit_block``
+  (``wiener_istft.cu::wiener_cluster_dit_kernel``: the direct transform by
+  decimation in time over the cluster, ``ClusterDit``, at the powers of two
+  past 8192; each block loading its 1/C of the masked points) at parts of 64
+  and 512 points (C 2 and 4) and at the card's 8192 (N 16 384 on C 2, N
+  32 768 on C 4), against ``wiener_istft_plain`` within 1e-5 × max|out|,
+  PCM16 within ±1 LSB;
 * ``wiener_split_block`` and ``wiener_bluestein_block``
   (``wiener_istft.cu::wiener_split_kernel``, ``wiener_bluestein_kernel``:
   the same masked loads on the split and on Bluestein run backwards, a
@@ -40,7 +47,7 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
 
 The kernels' own index maps, twiddle and chirp reads, butterflies, block
 and cluster barriers and output guards. Built once per module under
-pytest's temporary directory, the eleven programs at once."""
+pytest's temporary directory, the twelve programs at once."""
 
 import shutil
 import subprocess
@@ -60,8 +67,8 @@ from convsep_tpu_torch.dsp.windows import sinebell
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
 PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft", "cluster_stft",
-            "cluster_istft", "wiener_cluster", "wiener_split", "wiener_bluestein", "level_stft",
-            "level2")
+            "cluster_istft", "wiener_cluster", "wiener_cluster_dit", "wiener_split",
+            "wiener_bluestein", "level_stft", "level2")
 
 
 @pytest.fixture(scope="module")
@@ -424,6 +431,9 @@ WIENER_CLUSTER_CASES = [
     (16_384, 2048, 1, 4, 6144, 13, None, "bfloat16",  # the reference's 16 384: 5 frames
      {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),
 ]
+# the plan of the cases whose rounds are None: wiener_cluster_plan's, which
+# wiener_plan takes at the even sizes past 8192 that are not powers of two
+# and wiener_bluestein_cluster_pallas forces at the powers of two
 
 
 @pytest.mark.parametrize("nfft,hop,nt,S,length,log2p,rounds,ydt,kw,out", WIENER_CLUSTER_CASES)
@@ -439,8 +449,9 @@ def test_wiener_cluster_source_matches_plain(tmp_path, host, rng, nfft, hop, nt,
     m = fp.bluestein_size(nfft)
     c = m >> log2p
     if rounds is None:
-        plan = fp.wiener_plan(nt, S, nf, nfft, hop)
+        plan = fp.wiener_cluster_plan(nt, S, nf, nfft, hop)
         assert (plan.cluster, plan.threads, plan.route) == (c, 512, "cluster")
+        assert fp.wiener_plan(nt, S, nf, nfft, hop) == plan or nfft & (nfft - 1) == 0
         rounds = plan.rounds
     chirp, chat = fp.bluestein_tables(nfft, "cpu")
     for name, arr in (("tw", fp.twiddles(m, "cpu").numpy()), ("chirp", chirp.numpy()),
@@ -448,6 +459,47 @@ def test_wiener_cluster_source_matches_plain(tmp_path, host, rng, nfft, hop, nt,
         np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
     args = [log2p, c, nt, S, nf, nfft, hop, length, rounds, *_wiener_tail(kw, ydt, has_ny, out)]
     subprocess.run([str(host["wiener_cluster"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out)
+
+
+# (nfft, hop, nt, S, length, log2p, rounds (None: fft_plan.wiener_plan's),
+# y dtype, keyword arguments of wiener_istft, out): C = nfft / 2^LOG2P blocks
+WIENER_CLUSTER_DIT_CASES = [
+    (128, 32, 1, 4, 600, 6, 5, "float32", {}, "float32"),  # C 2; 2 rows a cluster
+    (256, 64, 2, 3, 900, 6, 6, "bfloat16", {"p": 2.0}, "float32"),  # C 4; S odd: no s1
+    (128, 64, 1, 2, 700, 6, 4, "float32", {"conserve_last": True, "ny": True}, "int16"),
+    (256, 2, 1, 2, 300, 6, 160, "float32", {"p": 2.0}, "float32"),  # hop 2: blocks 2, 3 idle
+    (1024, 256, 1, 4, 3000, 9, 7, "bfloat16", {"conserve_last": True}, "int16"),  # C 2
+    (2048, 512, 1, 5, 4000, 9, 9, "float32", {"p": 2.0, "ny": True}, "float32"),  # C 4
+    (2048, 128, 1, 1, 3000, 9, 24, "bfloat16", {}, "float32"),  # k 16, one source
+    (16_384, 2048, 1, 4, 6144, 13, None, "bfloat16",  # the reference's 16 384 on C 2
+     {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),
+    (16_384, 4096, 1, 3, 8192, 13, None, "float32", {"p": 2.0}, "int16"),  # S odd, PCM16
+    (32_768, 8192, 1, 2, 8192, 13, None, "float32", {"conserve_last": True}, "float32"),  # C 4
+]
+
+
+@pytest.mark.parametrize("nfft,hop,nt,S,length,log2p,rounds,ydt,kw,out",
+                         WIENER_CLUSTER_DIT_CASES)
+def test_wiener_cluster_dit_source_matches_plain(tmp_path, host, rng, nfft, hop, nt, S, length,
+                                                 log2p, rounds, ydt, kw, out):
+    """wiener_cluster_dit_block as wiener_cluster_dit_kernel launches it (a
+    cluster of C blocks a pair of sources and a row range, one frame a
+    round, block r the points r mod C): every sample of every stem written,
+    equal to wiener_istft_plain within 1e-5 × max|out|, PCM16 within ±1
+    LSB."""
+    kw = dict(kw)
+    has_ny = kw.pop("ny", False)
+    w, nf, y, re, im, ny = _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny)
+    c = nfft >> log2p
+    if rounds is None:
+        plan = fp.wiener_plan(nt, S, nf, nfft, hop)
+        assert (plan.cluster, plan.threads, plan.route) == (c, 512, "cluster_dit")
+        rounds = plan.rounds
+    np.ascontiguousarray(fp.twiddles(nfft, "cpu").numpy(), np.float32).tofile(tmp_path / "tw.bin")
+    args = [log2p, c, nt, S, nf, hop, length, rounds, *_wiener_tail(kw, ydt, has_ny, out)]
+    subprocess.run([str(host["wiener_cluster_dit"]), str(tmp_path), *map(str, args)], check=True,
                    timeout=300)
     _wiener_check(tmp_path, y, re, im, ny, w, hop, length, kw, out)
 

@@ -1318,45 +1318,77 @@ def test_wiener_direct_plan(nfft, hop):
     (1, 1, 5, 32768, 32768), (1, 4, 3000, 16384, 4096),
 ])
 def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
-    """wiener_plan past 8192 is wiener_cluster_plan, the launcher's
-    arithmetic: a cluster of M / 8192 blocks (4 up to 16 384 points, 8 up to
-    32 768) of 512 threads a pair of sources and row range, one frame a
-    round (R = rounds − (k − 1) rows), the two sources' carries of a block's
-    1/C of the columns within shared memory, the fewest waves × rounds over
-    every rounds it may (CLUSTERS_AT_ONCE a wave: one block an SM)."""
+    """wiener_cluster_plan (Bluestein's cluster) and wiener_cluster_dit_plan
+    (the powers of two) are the launchers' arithmetic: a cluster of C
+    blocks (Bluestein's M / 8192, 4 up to 16 384 points and 8 up to 32 768;
+    the direct transform's nfft / 8192, 2 or 4) of 512 threads a pair of
+    sources and row range, one frame a round (R = rounds − (k − 1) rows),
+    the two sources' carries of a block's 1/C of the columns within shared
+    memory, the fewest waves × rounds over every rounds it may
+    (CLUSTERS_AT_ONCE a wave: one block an SM). wiener_plan past 8192 is
+    the direct one at the powers of two and Bluestein's elsewhere."""
+    k = nfft // hop
+    pow2 = nfft & (nfft - 1) == 0
+    plans = [(fp.wiener_cluster_plan(signals, S, nf, nfft, hop), fp.cluster_blocks(nfft),
+              "cluster")]
+    if pow2:
+        plans.append((fp.wiener_cluster_dit_plan(signals, S, nf, nfft, hop),
+                      nfft // fp.CLUSTER_PART, "cluster_dit"))
+    assert fp.wiener_plan(signals, S, nf, nfft, hop) == plans[-1][0]
+    for plan, c, route in plans:
+        assert plan.route == route and plan.cluster == c
+        assert c == ((2 if nfft <= 16384 else 4) if pow2 and route == "cluster_dit"
+                     else 4 if nfft <= 16384 else 8)
+        assert plan.smem_bytes == 87_040 + 8 * (k - 1) * -(-hop // c) <= fp.SMEM_MAX
+        at_once = fp.CLUSTERS_AT_ONCE[c]
+        assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
+        assert plan.pairs == (S + 1) // 2 and plan.rows == plan.rounds - (k - 1) >= 1
+        assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+        clusters = signals * plan.blocks_per_signal * plan.pairs
+        assert plan.blocks == clusters * c
+        assert plan.waves == -(-clusters // at_once)
+
+        def cost(rounds):
+            per = -(-(nf + k - 1) // (rounds - (k - 1)))
+            return -(-signals * per * plan.pairs // at_once) * rounds
+
+        assert all(cost(plan.rounds) <= cost(r) for r in range(k, nf + 2 * k))
+
+
+@pytest.mark.parametrize("signals,S,nf,nfft,hop,route,cluster,rounds,rows", [
+    (1, 4, 648, 16384, 2048, "cluster_dit", 2, 27, 20),   # the smoke's 16 384: 66 clusters
+    (1, 4, 325, 32768, 4096, "cluster_dit", 4, 30, 23),   # the smoke's 32 768: 30 clusters
+    (1, 4, 532, 10000, 2500, "cluster", 4, 39, 36),       # not a power of two: Bluestein's
+    (1, 4, 267, 20000, 5000, "cluster", 8, 42, 39),
+])
+def test_wiener_cluster_routes(signals, S, nf, nfft, hop, route, cluster, rounds, rows):
+    """wiener_plan's route past 8192: the direct transform ("cluster_dit")
+    on 2 blocks at the reference's 16 384 and 4 at 32 768, Bluestein's
+    cluster ("cluster") at 10 000 and 20 000; each plan one wave of the
+    card's clusters at once."""
     plan = fp.wiener_plan(signals, S, nf, nfft, hop)
-    k, c = nfft // hop, fp.cluster_blocks(nfft)
-    assert plan == fp.wiener_cluster_plan(signals, S, nf, nfft, hop)
-    assert plan.cluster == c == (4 if nfft <= 16384 else 8)
-    assert plan.smem_bytes == 87_040 + 8 * (k - 1) * -(-hop // c) <= fp.SMEM_MAX
-    at_once = fp.CLUSTERS_AT_ONCE[c]
-    assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
-    assert plan.pairs == (S + 1) // 2 and plan.rows == plan.rounds - (k - 1) >= 1
-    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
-    clusters = signals * plan.blocks_per_signal * plan.pairs
-    assert plan.blocks == clusters * c
-    assert plan.waves == -(-clusters // at_once)
-
-    def cost(rounds):
-        per = -(-(nf + k - 1) // (rounds - (k - 1)))
-        return -(-signals * per * plan.pairs // at_once) * rounds
-
-    assert all(cost(plan.rounds) <= cost(r) for r in range(k, nf + 2 * k))
+    assert (plan.route, plan.cluster, plan.rounds, plan.rows, plan.waves) == (
+        route, cluster, rounds, rows, 1)
 
 
 def test_wiener_cluster_envelope():
     """The Wiener+iSTFT cluster plans every even size past 8192 up to the
-    reference's 32 768, at any hop that divides it, and nothing else; the
-    smoke's highres-like shape (4 stems of a 30 s track at W 16 384, hop
-    2048) fills one wave of clusters of 4."""
+    reference's 32 768, at any hop that divides it, and nothing else (the
+    direct transform's plan the powers of two only); the smoke's
+    highres-like shape (4 stems of a 30 s track at W 16 384, hop 2048)
+    fills one wave of clusters of 2."""
     assert fp.wiener_plan(1, 4, 648, 16384, 2048).waves == 1
     for n in (8194, 10_000, 16_384, 20_000, 32_768):
         for hop in (n, n // 2):
-            assert fp.wiener_plan(1, 4, 100, n, hop).cluster == fp.cluster_blocks(n)
+            want = n // fp.CLUSTER_PART if n & (n - 1) == 0 else fp.cluster_blocks(n)
+            assert fp.wiener_plan(1, 4, 100, n, hop).cluster == want
     for n, hop in ((8192, 2048), (32_770, 16_385), (65_536, 16_384), (16_385, 16_385),
                    (16_384, 3000)):
         with pytest.raises(ValueError, match="no Wiener.iSTFT cluster plan"):
             fp.wiener_cluster_plan(1, 4, 100, n, hop)
+    for n, hop in ((8192, 2048), (10_000, 2500), (65_536, 16_384), (16_384, 3000)):
+        with pytest.raises(ValueError, match="no Wiener.iSTFT cluster_dit plan"):
+            fp.wiener_cluster_dit_plan(1, 4, 100, n, hop)
 
 
 def masked_bins(y, re, im, s0, p, eps, conserve_last, ny=None):
@@ -1388,12 +1420,13 @@ def masked_bins(y, re, im, s0, p, eps, conserve_last, ny=None):
 
 
 def core_wiener_istft(y, re, im, window, hop, length, p=1.0, eps=1e-8, conserve_last=False,
-                      ny=None):
+                      ny=None, fft=core_fft):
     """wiener_fft_kernel in float32: per pair of sources, each frame's
     conj Z = conj(A + iB) loaded point by point (the mirrored bins past
-    Nyquist), run through the forward core, windowed with window / N; each
-    sample sums its frames in ascending order; inverse window-power
-    envelope, N/2 front trim. (B, S, nf, bins) y → (B, S, L) stems."""
+    Nyquist), run through the forward core (``fft``: ``cluster_dit_fft``
+    for wiener_cluster_dit_block), windowed with window / N; each sample
+    sums its frames in ascending order; inverse window-power envelope, N/2
+    front trim. (B, S, nf, bins) y → (B, S, L) stems."""
     from convsep_tpu_torch.dsp.dft import _key, inverse_norm
 
     B, S, nf, bins = y.shape
@@ -1404,7 +1437,7 @@ def core_wiener_istft(y, re, im, window, hop, length, p=1.0, eps=1e-8, conserve_
     stems = []
     for s0 in range(0, S, 2):
         ar, ai, br, bi = masked_bins(y, re, im, s0, p, eps, conserve_last, ny)
-        zz = core_fft(inverse_input(ar, ai, br, bi))  # (B, nf, N)
+        zz = fft(inverse_input(ar, ai, br, bi))  # (B, nf, N)
         for src, frames in ((s0, zz.real * wn), (s0 + 1, -zz.imag * wn)):
             if src >= S:
                 continue
@@ -1446,6 +1479,58 @@ def test_core_wiener_istft_matches_plain(rng, nfft, hop, nf, S, kw, ny, bf16):
     want = wiener_istft_plain(y, re, im, w, hop, length, ny=nyq, **kw)
     assert got.shape == want.shape == (2, S, length)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def cluster_dit_fft(u: torch.Tensor, c: int = 2) -> torch.Tensor:
+    """fft_common.cuh::ClusterDit on (..., N) complex in natural order, N = c
+    P: block r holds the points u[c n + r] (its residues, where
+    ClusterDit::put stages them: block t mod c, slot t / c), transforms
+    them and applies w^{r k1}; Z[k1 + P q] is the radix-c combine across
+    the blocks (``cluster_dit``). (..., N) natural order."""
+    N = u.shape[-1]
+    return cluster_dit(u.reshape(*u.shape[:-1], N // c, c).transpose(-1, -2), c)
+
+
+@pytest.mark.parametrize("nfft,c", [(128, 2), (256, 4), (16384, 2), (32768, 4)])
+def test_cluster_dit_inverse_matches_torch_fft(rng, nfft, c):
+    """The Wiener kernel's transform at the powers of two past 8192 (and at
+    the host emulation's parts of 64 points): conj Z of two real frames'
+    half-spectra, Z = A + iB (inverse_input), run through ClusterDit's
+    residues, twiddle and radix-c combine, gives N conj(a + ib), a and b
+    the frames' inverse real FFTs (torch.fft), within 1e-6 × max."""
+    bins = nfft // 2 + 1
+    spec = rng.standard_normal((4, 2, bins)) + 1j * rng.standard_normal((4, 2, bins))
+    A, B = (torch.from_numpy(spec[:, i]) for i in (0, 1))
+    z = cluster_dit_fft(inverse_input(A.real, A.imag, B.real, B.imag), c)
+    want = nfft * torch.complex(torch.fft.irfft(A, nfft), -torch.fft.irfft(B, nfft))
+    torch.testing.assert_close(z, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft,c,hop,nf,S,kw,ny", [
+    (128, 2, 32, 9, 4, {}, False),
+    (256, 4, 64, 8, 3, {"p": 2.0}, True),
+    (16384, 2, 2048, 5, 4, {"conserve_last": True}, True),
+])
+def test_cluster_dit_wiener_istft_matches_plain(rng, nfft, c, hop, nf, S, kw, ny):
+    """wiener_cluster_dit_block's arithmetic in float32 (the masked points,
+    ClusterDit's residues, twiddle and combine, the two sources' overlap-add)
+    against wiener_istft_plain within 1e-5 × max|out|."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(nfft)
+    bins = nfft // 2 + 1
+    y = np.abs(rng.standard_normal((1, S, nf, bins))).astype(np.float32)
+    y[..., : nf // 3, :8] = 0.0
+    y = torch.from_numpy(y)
+    cols = bins - 1 if ny else bins
+    re = torch.from_numpy(rng.standard_normal((1, nf, cols)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((1, nf, cols)).astype(np.float32))
+    nyq = torch.from_numpy(rng.standard_normal((1, nf)).astype(np.float32)) if ny else None
+    got = core_wiener_istft(y, re, im, w, hop, length, ny=nyq, fft=lambda u: cluster_dit_fft(u, c),
+                            **kw)
+    want = wiener_istft_plain(y, re, im, w, hop, length, ny=nyq, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
 
 
 @pytest.mark.parametrize("signals,S,nf,nfft,hop,groups,rounds,rows,blocks", [

@@ -81,7 +81,9 @@ def test_rejects_bad_shapes(rng):
     assert wiener_istft_supported(16384, 16384, 4096)  # past the core: a thread-block cluster
     assert wiener_istft_supported(32768, 32768, 4096) and wiener_istft_supported(10000, 10000, 2500)
     assert not wiener_istft_supported(65536, 65536, 16384)  # past the reference's 32 768
-    assert wiener_plan(1, 4, 648, 16384, 2048).cluster == 4
+    assert wiener_plan(1, 4, 648, 16384, 2048).cluster == 2  # the direct transform's
+    assert wiener_plan(1, 4, 648, 16384, 2048).route == "cluster_dit"
+    assert wiener_plan(1, 4, 648, 10000, 2500).route == "cluster"  # Bluestein's, C 4
 
 
 @pytest.mark.parametrize("nfft,hop,kw", [
