@@ -359,7 +359,10 @@ MAX_CORE_NFFT = 8192     # the FFT core's largest transform (fft_common.cuh::kMa
 WIENER_SPREAD = 0.05
 # the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
 # istft_ct_pallas (else istft_pallas, or istft_direct_pallas where the
-# kernel is "istft_direct"), the kernel it must launch)
+# kernel is "istft_direct", or istft_bluestein_cluster_pallas where it is
+# "istft_cluster" at a power of two), the kernel it must launch). At the
+# powers of two past 8192 (the reference's 16 384 and 32 768, and 65 536)
+# the direct transform on a cluster, Bluestein's cluster forced beside it.
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
                 ("W 768 split", 768, 256, W768_NF, 4, False, "istft_split"),
@@ -370,8 +373,18 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"),
                 ("W 20000 cluster", 20000, 5000, W20000_NF, 1, False, "istft_cluster"),
                 ("W 40000 cluster", 40000, 10000, W40000_NF, 1, False, "istft_cluster"),
-                ("W 65536 cluster", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
-ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_direct")
+                ("W 16384 cluster_dit", 16384, 2048, W16384_NF, 4, True, "istft_cluster_dit"),
+                ("W 16384 Bluestein", 16384, 2048, W16384_NF, 4, False, "istft_cluster"),
+                ("W 32768 cluster_dit", 32768, 4096, W32768_NF, 4, True, "istft_cluster_dit"),
+                ("W 32768 Bluestein", 32768, 4096, W32768_NF, 4, False, "istft_cluster"),
+                ("W 65536 cluster_dit", 65536, 16384, W65536_NF, 1, False, "istft_cluster_dit"),
+                ("W 65536 Bluestein", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
+               "istft_direct")
+# the direct transform's rows and the Bluestein rows forced at their shapes
+ISTFT_DIT_AB = (("W 16384 cluster_dit", "W 16384 Bluestein"),
+                ("W 32768 cluster_dit", "W 32768 Bluestein"),
+                ("W 65536 cluster_dit", "W 65536 Bluestein"))
 # phase 7b: the Wiener+iSTFT at even sizes up to 8192 that are not powers
 # of two, 4 stems of a 30 s track, bf16 y: (key, nfft, hop, nf, the kernel
 # it must launch). The split at W 768 and 1280, Bluestein run backwards at W
@@ -657,7 +670,7 @@ def child_istft_times(device, gen, pair) -> dict:
     res = {}
     for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
-        kern = istft_fn(ct, kernel)
+        kern = istft_fn(ct, kernel, nfft)
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
         spec = torch.complex(re, im).transpose(-1, -2)
         res[name] = pair(lambda: kern(re, im, w, hop, L),
@@ -1792,13 +1805,28 @@ def phase_train(device) -> dict:
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "route": route}
 
 
-def istft_fn(ct: bool, kernel: str):
-    """The wrapper an ``ISTFT_SHAPES`` row calls: ``istft_ct_pallas``, the
-    direct sum forced (``istft_direct_pallas``) or ``istft_pallas``."""
-    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_direct_pallas, istft_pallas
+def forced_bluestein(kernel: str, nfft: int) -> bool:
+    """An ``ISTFT_SHAPES`` row that forces Bluestein's cluster at a power of
+    two, where the wrapper takes the direct transform."""
+    return kernel == "istft_cluster" and nfft & (nfft - 1) == 0
 
-    return istft_ct_pallas if ct else istft_direct_pallas if kernel == "istft_direct" else istft_pallas
+
+def istft_fn(ct: bool, kernel: str, nfft: int):
+    """The wrapper an ``ISTFT_SHAPES`` row calls: ``istft_ct_pallas``, the
+    direct sum forced (``istft_direct_pallas``), Bluestein's cluster forced
+    (``istft_bluestein_cluster_pallas``) or ``istft_pallas``."""
+    from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+        istft_bluestein_cluster_pallas,
+        istft_direct_pallas,
+        istft_pallas,
+    )
+
+    if ct:
+        return istft_ct_pallas
+    if forced_bluestein(kernel, nfft):
+        return istft_bluestein_cluster_pallas
+    return istft_direct_pallas if kernel == "istft_direct" else istft_pallas
 
 
 def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
@@ -1815,19 +1843,21 @@ def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
     return w, L, re * mask, im * mask
 
 
-def cluster_plan_check(N: int, nf: int, nfft: int, hop: int) -> dict:
-    """The iSTFT cluster plan at a phase 7 shape beside the clusters the
-    card holds at once (cudaOccupancyMaxActiveClusters), which the plan's
+def cluster_plan_check(N: int, nf: int, nfft: int, hop: int, bluestein: bool = False) -> dict:
+    """The iSTFT cluster plan at a phase 7 shape (``bluestein``: Bluestein's
+    cluster forced) beside the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters of the plan's kernel), which the plan's
     waves assume: a plan past the card's count runs a second wave."""
     import ctypes
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
 
-    plan = fp.istft_plan(N, nf, nfft, nfft, hop)
+    plan = (fp.istft_cluster_plan if bluestein else fp.istft_plan)(N, nf, nfft, nfft, hop)
     active = ctypes.c_int(0)
-    kernels.check(kernels.library().istft_cluster_occupancy(nfft, nfft, hop, ctypes.byref(active)),
-                  "istft_cluster_occupancy")
-    out = {"cluster": plan.cluster, "rounds": plan.rounds, "rows": plan.rows,
+    kernels.check(kernels.library().istft_cluster_occupancy(
+        nfft, nfft, hop, int(plan.route == "cluster_dit"), ctypes.byref(active)),
+        "istft_cluster_occupancy")
+    out = {"route": plan.route, "cluster": plan.cluster, "rounds": plan.rounds, "rows": plan.rows,
            "clusters": N * plan.blocks_per_signal, "clusters_at_once_plan":
            fp.CLUSTERS_AT_ONCE[plan.cluster], "clusters_at_once_card": active.value}
     log(f"  istft cluster plan W {nfft}: {json.dumps(out)}")
@@ -1839,10 +1869,13 @@ def phase_istft(device, gen) -> dict:
     path A's shapes (``istft_ct_pallas``), path B's (``istft_pallas``; its
     int16 through ``launch_istft``, against the direct synthesis quantized),
     the split run backwards at W 768, Bluestein run backwards at W 1000, W
-    6000 (the level), W 10 000 and W 20 000 (a cluster of 4 and of 8
-    blocks), the direct sum forced at W 1000 and W 10 000 (the times
-    Bluestein and the cluster replace). Each call must launch its kernel
-    once and no other iSTFT kernel."""
+    6000 (the level), W 10 000, W 20 000 and W 40 000 (a cluster of 4, 8
+    and 16 blocks), the direct transform on a cluster of 2, 4 and 8 blocks
+    at W 16 384, 32 768 and 65 536 with Bluestein's cluster forced there,
+    the direct sum forced at W 1000 and W 10 000 (the times Bluestein and
+    the cluster replace). Each call must launch its kernel once and no
+    other iSTFT kernel; each direct transform on a cluster must beat the
+    forced Bluestein cluster's device time at its shape."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
@@ -1853,8 +1886,12 @@ def phase_istft(device, gen) -> dict:
     names = ISTFT_NAMES
     res = {}
     for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
-        kern, plain = istft_fn(ct, kernel), istft_ct_pallas_plain if ct else istft_pallas_plain
-        if nfft > DIRECT_MAX_NFFT:  # the direct matrices pass 6 GB: the float64 synthesis
+        kern = istft_fn(ct, kernel, nfft)
+        plain = istft_ct_pallas_plain if ct else istft_pallas_plain
+        # past 32 768 the direct matrices pass 6 GB (4.3 GB at 32 768, made on
+        # the host): the float64 synthesis
+        huge = nfft > DIRECT_MAX_NFFT or (not ct and nfft == DIRECT_MAX_NFFT)
+        if huge:
             plain = istft64
         w, L, re, im = istft_inputs(nfft, hop, nf, N, device, gen)
         err = {}
@@ -1866,8 +1903,9 @@ def phase_istft(device, gen) -> dict:
                 got = kern(re, im, w, hop, L, output_dtype=out)
                 want = plain(re, im, w, hop, L, output_dtype=out)
             else:
-                got = launch_istft(re, im, w, hop, L, nfft, out, direct=kernel == "istft_direct")
-                want = (istft64(re, im, w, hop, L, out) if nfft > DIRECT_MAX_NFFT else
+                got = launch_istft(re, im, w, hop, L, nfft, out, direct=kernel == "istft_direct",
+                                   bluestein_cluster=forced_bluestein(kernel, nfft))
+                want = (istft64(re, im, w, hop, L, out) if huge else
                         istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
                                      output_dtype=out))
             torch.cuda.synchronize()
@@ -1883,8 +1921,8 @@ def phase_istft(device, gen) -> dict:
             if not e <= tol:
                 raise AssertionError(f"istft kernel {name} {out} disagrees: {e} > {tol}")
             err[out] = e
-            if kernel == "istft_cluster" and out == "float32":
-                ref = want if nfft > DIRECT_MAX_NFFT else istft64(re, im, w, hop, L)
+            if kernel in ("istft_cluster", "istft_cluster_dit") and out == "float32":
+                ref = want if huge else istft64(re, im, w, hop, L)
                 peak = ref.abs().max().item()
                 e64 = (got - ref).abs().max().item()
                 log(f"  istft {name}: {e64:.3e} from the float64 synthesis (tol "
@@ -1913,8 +1951,9 @@ def phase_istft(device, gen) -> dict:
         res[name] = {"max_abs_err": err["float32"], "max_abs_err_int16": err.get("int16"),
                      "rel_err_float64": err.get("rel_float64"),
                      "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "host_us": us}
-        if kernel == "istft_cluster":
-            res[name]["plan"] = cluster_plan_check(N, nf, nfft, hop)
+        if kernel in ("istft_cluster", "istft_cluster_dit"):
+            res[name]["plan"] = cluster_plan_check(N, nf, nfft, hop,
+                                                   forced_bluestein(kernel, nfft))
         del re, im, spec, want
         torch.cuda.empty_cache()
     dev = device_times("istft")["istft"]
@@ -1930,6 +1969,16 @@ def phase_istft(device, gen) -> dict:
         r, d = res[key], res[direct]
         log(f"  istft {key}: device {ms_str(r['device_ms'])} against torch.istft's "
             f"{ms_str(r['library_device_ms'])} and the {direct}'s {ms_str(d['device_ms'])}")
+    for key, blue in ISTFT_DIT_AB:
+        r, b = res[key], res[blue]
+        log(f"  istft {key}: device {ms_str(r['device_ms'])} against torch.istft's "
+            f"{ms_str(r['library_device_ms'])} and Bluestein's cluster forced, "
+            f"{ms_str(b['device_ms'])}")
+        r["bluestein_forced"] = {k: b[k] for k in ("device_ms", "ms", "max_abs_err",
+                                                   "rel_err_float64", "plan")}
+        if None in (r["device_ms"], b["device_ms"]) or not r["device_ms"] < b["device_ms"]:
+            raise AssertionError(f"istft {key}: device {r['device_ms']} ms, not under the "
+                                 f"forced Bluestein cluster's {b['device_ms']}")
     return res
 
 
@@ -4670,7 +4719,8 @@ def main(argv: list[str]) -> int:
     # split, Bluestein and cluster, and the forward STFT's), the dense DFT
     # and the direct sums serve only sizes that no preset uses
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
-                   "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
+                   "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
+                   "istft_level2",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
                    "wiener_istft_cluster_dit", "wiener_istft_ny_cluster_dit",
                    "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
@@ -4832,14 +4882,30 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even 8192 < nfft <= 65 536 (10 000, 20 000, 40 000): Bluestein run "
-                   "backwards on a thread-block cluster of 4, 8 or 16 blocks; no preset",
+         "serves": "8192 < nfft <= 65 536 off the powers of two (10 000, 20 000, 40 000, "
+                   "odd sizes): Bluestein run backwards on a thread-block cluster of 4, 8 or "
+                   "16 blocks; istft_bluestein_cluster_pallas forces it at the powers of two; "
+                   "no preset",
          **launched("istft_cluster"), **ist["W 10000 cluster"],
          "w20000_hop5000": ist["W 20000 cluster"],
          "w40000_hop10000": ist["W 40000 cluster"],
-         "w65536_hop16384": ist["W 65536 cluster"],
+         "forced_w16384_hop2048": ist["W 16384 Bluestein"],
+         "forced_w32768_hop4096": ist["W 32768 Bluestein"],
+         "forced_w65536_hop16384": ist["W 65536 Bluestein"],
          "odd_w9999_hop1111": odd["W 9999 odd cluster"],
          "odd_w39999_hop13333": odd["W 39999 odd cluster"]},
+        {"name": "istft_cluster_dit", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu (device code "
+                   "fft_common.cuh::istft_cluster_dit_block)",
+         "entry": "istft_cluster_dit_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "the powers of two past 8192 (the reference's 16 384 and 32 768, and "
+                   "65 536): the direct inverse by decimation in time on a thread-block "
+                   "cluster of 2, 4 or 8 blocks; no preset",
+         **launched("istft_cluster_dit"), **ist["W 16384 cluster_dit"],
+         "w32768_hop4096": ist["W 32768 cluster_dit"],
+         "w65536_hop16384": ist["W 65536 cluster_dit"]},
         {"name": "istft_level2", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu",
          "entry": "istft_level2_first_kernel, istft_level2_middle_kernel, "

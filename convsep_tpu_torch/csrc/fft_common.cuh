@@ -1240,10 +1240,11 @@ __host__ __device__ constexpr int cluster_columns(int hop, int c) { return (hop 
 // A caller that makes the points in another order stages them first: put
 // stores u[t] in its owner's buffer (block t mod C, slot(t / C)) through
 // distributed shared memory, and after a cluster barrier run_staged reads
-// each thread's points back and runs step 1. The Wiener+iSTFT at the powers
-// of two past 8192 (wiener_common.cuh::wiener_cluster_dit_block) stages
-// the inverse's points this way: each block forms a contiguous 1/C of the
-// masked bins, read coalesced, and puts both points a bin gives.
+// each thread's points back and runs step 1. The inverses at the powers of
+// two past 8192 (wiener_common.cuh::wiener_cluster_dit_block,
+// istft_cluster_dit_block) stage their points this way: each block forms a
+// contiguous 1/C of the bins, read coalesced, and puts both points a bin
+// gives.
 // ClusterChirp's second transform runs on the points its first one left in
 // registers. A block's buffer is read by its peers until the cluster's next
 // barrier, which the caller places before the buffer is written again or
@@ -1430,6 +1431,51 @@ __device__ __forceinline__ void stft_cluster_block(
   cluster_sync();  // the peers have read this block's buffer
 }
 
+// The inverse clusters' overlap-add of one round's pair of frames (fr, fr +
+// 1) on a block's columns [u0, u0 + ncols) of every hop row
+// (cluster_columns, cols a row), after the pair's transform: sample(t) =
+// N conj(a[t] + i b[t]), read across the cluster once, serves frame a at
+// row fr + i (t = i hop + u) and frame b at row fr + i + 1; a row sums the
+// carry, frame a, then frame b (ascending frames, as gather_round); rows fr
+// and fr + 1 complete, the k - 1 above carry on in carry ((k - 1) cols
+// floats). A complete row of signal n in [j0, j_end) is written times
+// inv_norm, the win/2 front trim, by write_sample.
+template <class Sample>
+__device__ __forceinline__ void cluster_pair_round(Sample sample, float* carry,
+                                                   const float* __restrict__ win_over_n,
+                                                   const float* __restrict__ inv_norm,
+                                                   void* __restrict__ out, int out_int16, int n,
+                                                   int fr, int k, int hop, int win, int cols,
+                                                   int u0, int ncols, int j0, int j_end,
+                                                   int length) {
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    const int u = u0 + c;
+    float b_term = 0.f;  // frame b's term of row fr + i, from Z[(i - 1) hop + u]
+    for (int i = 0; i <= k; ++i) {
+      const int row = fr + i;
+      float acc = i < k - 1 ? carry[i * cols + c] : 0.f;
+      float b_next = 0.f;
+      if (i < k) {
+        const int t = i * hop + u;
+        const float2 z = sample(t);
+        const float w = __ldg(win_over_n + t);
+        acc += w * z.x;
+        b_next = w * -z.y;
+      }
+      if (i >= 1) acc += b_term;
+      b_term = b_next;
+      if (i >= 2) {
+        carry[(i - 2) * cols + c] = acc;
+      } else if (row >= j0 && row < j_end) {
+        const long long nabs = (long long)row * hop + u;
+        const long long tpos = nabs - win / 2;
+        if (tpos >= 0 && tpos < length)
+          write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + nabs));
+      }
+    }
+  }
+}
+
 // istft_bluestein_block for even 8192 < N <= 65 536 on a cluster of C
 // blocks: cluster q = blockIdx.x / C owns hop rows [j0, j0 + rows) of
 // signal n and walks frames j0 - (win/hop - 1) on in rounds of one pair (a
@@ -1487,40 +1533,98 @@ __device__ __forceinline__ void istft_cluster_block(
           return cmul(z, __ldg(chirp + t));
         },
         buf, tws, tw, chat, rank, j);
-    // gather_round for one pair, on this block's columns: row fr + i takes
-    // frame a's sample t = i hop + u and frame b's t - hop, so each Z[t],
-    // read across the cluster once, serves frame a at row fr + i and frame
-    // b at row fr + i + 1; a row sums the carry, frame a, then frame b
-    // (ascending frames, as gather_round); rows fr and fr + 1 complete,
-    // the k - 1 above carry on
-    for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
-      const int u = u0 + c;
-      float b_term = 0.f;  // frame b's term of row fr + i, from Z[(i - 1) hop + u]
-      for (int i = 0; i <= k; ++i) {
-        const int row = fr + i;
-        float acc = i < k - 1 ? carry[i * cols + c] : 0.f;
-        float b_next = 0.f;
-        if (i < k) {
-          const int t = i * hop + u;
+    cluster_pair_round(
+        [&](int t) {
           const float2 zb = CC::point(buf, tw, t);
-          const float2 z = cmul(__ldg(chirp + t), make_float2(zb.x, -zb.y));
-          const float w = __ldg(win_over_n + t);
-          acc += w * z.x;
-          b_next = w * -z.y;
-        }
-        if (i >= 1) acc += b_term;
-        b_term = b_next;
-        if (i >= 2) {
-          carry[(i - 2) * cols + c] = acc;
-        } else if (row >= j0 && row < j_end) {
-          const long long nabs = (long long)row * hop + u;
-          const long long tpos = nabs - win / 2;
-          if (tpos >= 0 && tpos < length)
-            write_sample(out, out_int16, (long long)n * length + tpos,
-                         acc * __ldg(inv_norm + nabs));
-        }
-      }
+          return cmul(__ldg(chirp + t), make_float2(zb.x, -zb.y));
+        },
+        carry, win_over_n, inv_norm, out, out_int16, n, fr, k, hop, win, cols, u0, ncols, j0,
+        j_end, length);
+    cluster_sync();  // the peers have read this round's buffers
+  }
+}
+
+// istft_cluster_block at the powers of two past 8192, N = 2^LOG2P C (the
+// reference's 16 384 on C = 2 blocks, 32 768 on C = 4, and 65 536 on C = 8):
+// the direct inverse by decimation in time over the cluster (ClusterDit),
+// without Bluestein's chirp and first transform. Cluster q = blockIdx.x / C
+// owns hop rows [j0, j0 + rows) of signal n and walks frames j0 - (win/hop
+// - 1) on in rounds of one pair (fr, fr + 1), as istft_cluster_block. A
+// round:
+// 1. block r reads its contiguous 1/C of both frames' bins, [r P/2, (r + 1)
+//    P/2) (the last block also Nyquist), eight a thread at a stride of the
+//    block (neighbouring threads read neighbouring bins), and puts both
+//    points of conj Z, Z = A + i B, that a bin gives (k and N - k, as
+//    inverse_point forms them) into the blocks that own them
+//    (ClusterDit::put); a cluster barrier;
+// 2. ClusterDit::run_staged: each block's Fft<LOG2P> on its points t = r
+//    (mod C), the combine's twiddle in place, a cluster barrier;
+// 3. istft_cluster_block's gather (cluster_pair_round) on the block's 1/C
+//    of the hop columns, each sample Z[t] = N conj(a[t] + i b[t]) read
+//    across the cluster (ClusterDit::point); a cluster barrier (the peers
+//    have read the buffers the next round's puts rewrite).
+// Every thread runs every round and every barrier (a frame outside [0, nf)
+// puts zeros). tw is the N-point quarter table (fft_plan.twiddles); smem4
+// the block's dynamic shared memory (cluster_smem_bytes with (k - 1)
+// columns' carry).
+template <int LOG2P, int C>
+__device__ __forceinline__ void istft_cluster_dit_block(
+    float4* smem4, const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int win,
+    int hop, int length, int rounds, int rows, int per_signal) {
+  using D = ClusterDit<LOG2P, C>;
+  constexpr int N = D::M;
+  constexpr int bins = N / 2 + 1;
+  constexpr int K = D::P / 2 / D::T;  // bins a thread reads: 8
+  const int rank = blockIdx.x % C;
+  const int cl = blockIdx.x / C;
+  const int j = threadIdx.x;
+  const int k = win / hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(hop, C);
+  const int u0 = rank * cols;
+  const int ncols = max(0, min(cols, hop - u0));
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + D::TABLES;
+  float* carry = reinterpret_cast<float*>(buf + exchange_len(LOG2P));  // (k - 1) cols
+  const int n = cl / per_signal;
+  const int j0 = (cl - n * per_signal) * rows;  // first hop row of the cluster
+  const int j_end = min(j0 + rows, nf + k - 1);
+  const long long track = (long long)n * nf * bins;
+  const int k0 = rank * (D::P / 2) + j;  // the thread's first bin
+
+  D::load_tables(tws, tw);
+  for (int i = threadIdx.x; i < (k - 1) * cols; i += blockDim.x) carry[i] = 0.f;
+  // A cluster barrier, not a block one: the first round's puts write the
+  // peers' shared memory, so every block of the cluster must be running.
+  cluster_sync();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + 2 * r;  // the round's pair: frames fr, fr + 1
+    const bool ha = fr >= 0 && fr < nf, hb = fr + 1 >= 0 && fr + 1 < nf;
+    const float* ra = ha ? re + track + (long long)fr * bins : nullptr;
+    const float* ia = ha ? im + track + (long long)fr * bins : nullptr;
+    const float* rb = hb ? re + track + (long long)(fr + 1) * bins : nullptr;
+    const float* ib = hb ? im + track + (long long)(fr + 1) * bins : nullptr;
+    float4 ab[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // DC's imaginary parts are ignored
+      const int kk = k0 + i * D::T;
+      ab[i] = make_float4(ra ? __ldg(ra + kk) : 0.f, ra && kk ? __ldg(ia + kk) : 0.f,
+                          rb ? __ldg(rb + kk) : 0.f, rb && kk ? __ldg(ib + kk) : 0.f);
     }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
+      const int kk = k0 + i * D::T;
+      D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+      if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+    }
+    if (rank == C - 1 && j == 0)  // Nyquist: real parts only
+      D::put(buf, N / 2, make_float2(ra ? __ldg(ra + N / 2) : 0.f, rb ? -__ldg(rb + N / 2) : 0.f));
+    cluster_sync();  // every block's points are in place
+    D::run_staged(buf, tws, tw, rank, j);  // ends in a cluster barrier
+    cluster_pair_round([&](int t) { return D::point(buf, tw, t); }, carry, win_over_n, inv_norm,
+                       out, out_int16, n, fr, k, hop, win, cols, u0, ncols, j0, j_end, length);
     cluster_sync();  // the peers have read this round's buffers
   }
 }

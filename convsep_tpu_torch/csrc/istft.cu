@@ -75,6 +75,19 @@
 // fft_plan.istft_cluster_plan weighs waves against rounds. Its bound is
 // bytes: 26.6 MB, 7.9 us, at W 10 000 for one signal of 532 frames.
 //
+// istft_cluster_dit_kernel (the powers of two past 8192: the reference's
+// 16 384 and 32 768, and 65 536; no preset uses one) is the direct inverse
+// by decimation in time over a cluster of C = nfft / 8192 blocks (2, 4 or
+// 8; fft_common.cuh::istft_cluster_dit_block on ClusterDit), without
+// Bluestein's chirp and its transforms of twice the points: each round
+// every block reads a contiguous 1/C of the pair's bins, coalesced, and
+// puts the two points a bin gives into the blocks that own them through
+// distributed shared memory; block r then runs one Fft<13> on its points t
+// = r (mod C) and applies the combine's twiddle, and the radix-C combine is
+// read in istft_cluster_kernel's gather. Its bound is bytes: 4 signals of
+// 648 frames at 16 384, hop 2048, read 170 MB of spectra and write 21 MB
+// of samples, 0.057 ms.
+//
 // An odd nfft has no Nyquist bin: inverse_point mirrors its last bin (N -
 // 1) / 2 as any other, so every bin but DC counts twice, as the reference's
 // inverse matrices weight them (convsep_tpu/dsp/dft.py::_inverse_mats).
@@ -365,6 +378,38 @@ cudaError_t launch_cluster(const BluesteinArgs& a, int* active = nullptr) {
                             rows, per_signal);
 }
 
+// One block an SM, as wiener_cluster_dit_kernel: 128 registers a thread.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1) istft_cluster_dit_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int win,
+    int hop, int length, int rounds, int rows, int per_signal) {
+  extern __shared__ float4 smem4[];
+  istft_cluster_dit_block<kMaxLog2, C>(smem4, re, im, win_over_n, inv_norm, tw, out, out_int16,
+                                       nf, win, hop, length, rounds, rows, per_signal);
+}
+
+// the same for the direct transform, N = 8192 C (C 2, 4 or 8)
+template <int C>
+cudaError_t launch_cluster_dit(const BluesteinArgs& a, int* active) {
+  const int k = a.win / a.hop;
+  const int rows = 2 * a.rounds - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
+  return launch_clusters<C>(istft_cluster_dit_kernel<C>, (long long)a.nt * per_signal,
+                            cluster_smem_bytes(kMaxLog2, (k - 1) * cluster_columns(a.hop, C)),
+                            a.stream, active, a.re, a.im, a.wn, a.inv, a.tw, a.out, a.out_int16,
+                            a.nf, a.win, a.hop, a.length, a.rounds, rows, per_signal);
+}
+
+cudaError_t dispatch_cluster_dit(int nfft, const BluesteinArgs& a, int* active = nullptr) {
+  if (nfft == 2 << kMaxLog2) return launch_cluster_dit<2>(a, active);
+  if (nfft == 4 << kMaxLog2) return launch_cluster_dit<4>(a, active);
+  if (nfft == 8 << kMaxLog2) return launch_cluster_dit<8>(a, active);
+  return cudaErrorInvalidValue;
+}
+
 // the cluster instance for Bluestein's M = 2^log2m: C = M / 8192
 cudaError_t dispatch_cluster(int log2m, const BluesteinArgs& a, int* active = nullptr) {
   switch (log2m - kMaxLog2) {
@@ -582,6 +627,30 @@ extern "C" int istft_cluster_launch(const void* re, const void* im, const void* 
   return (int)dispatch_cluster(log2m, a);
 }
 
+// The powers of two past 8192: nfft 16 384, 32 768 or 65 536, the direct
+// inverse by decimation in time on a cluster of nfft / 8192 blocks (2, 4 or
+// 8) of 512 threads, one pair of frames a round; tw the nfft-point quarter
+// table (fft_plan.twiddles); rounds from fft_plan.istft_plan
+// (istft_cluster_dit_plan).
+extern "C" int istft_cluster_dit_launch(const void* re, const void* im, const void* win_over_n,
+                                        const void* inv_norm, const void* tw, void* out,
+                                        int out_int16, int nt, int nf, int nfft, int win, int hop,
+                                        int length, int rounds, void* stream) {
+  if (win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nf < 1 || rounds < 1)
+    return (int)cudaErrorInvalidValue;
+  const BluesteinArgs a{static_cast<const float*>(re),
+                        static_cast<const float*>(im),
+                        static_cast<const float*>(win_over_n),
+                        static_cast<const float*>(inv_norm),
+                        static_cast<const float2*>(tw),
+                        nullptr,
+                        nullptr,
+                        out,
+                        out_int16, nt, nf, nfft, win, hop, length, 1, rounds,
+                        static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_cluster_dit(nfft, a);
+}
+
 // The second level: 65 536 < nfft <= 262 144, any parity (Bluestein's M
 // 262 144 or 524 288 over two passes through device memory, fft_common.cuh's
 // level2_*): the pairs of the flattened (nt x nf) frames in rounds of
@@ -615,16 +684,17 @@ extern "C" int istft_level2_launch(const void* re, const void* im, const void* w
                                                    nt, nf, win, hop, length, per_round, s));
 }
 
-// How many clusters of istft_cluster_kernel a launch at (nfft, win, hop)
-// finds room for at once (cudaOccupancyMaxActiveClusters: one block an SM,
-// the clusters' blocks within one GPC); fft_plan.CLUSTERS_AT_ONCE is this
-// reading. Launches nothing.
-extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int* active) {
+// How many clusters of istft_cluster_kernel (Bluestein's, `dit` 0) or of
+// istft_cluster_dit_kernel (`dit` 1, the powers of two past 8192) a launch
+// at (nfft, win, hop) finds room for at once (cudaOccupancyMaxActiveClusters:
+// one block an SM, the clusters' blocks within one GPC);
+// fft_plan.CLUSTERS_AT_ONCE is this reading. Launches nothing.
+extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int dit, int* active) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
   if (log2m <= kLevelLog2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || !active)
     return (int)cudaErrorInvalidValue;
   const int k = win / hop;
   const BluesteinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         0, 1, 1, nfft, win, hop, 1, 1, k, nullptr};
-  return (int)dispatch_cluster(log2m, a, active);
+  return (int)(dit ? dispatch_cluster_dit(nfft, a, active) : dispatch_cluster(log2m, a, active));
 }

@@ -193,8 +193,9 @@ def cluster_smem_bytes(carry: int = 0) -> int:
 # SM (512 threads at 128 registers take an SM's 65 536), a cluster's blocks
 # in one GPC, which leaves 12 of the 132 SMs idle at 4 and 8
 # (cudaOccupancyMaxActiveClusters through csrc/istft.cu::
-# istft_cluster_occupancy, and at 2 through wiener_cluster_dit_launch;
-# tests/test_torch_cuda.py holds the card to it).
+# istft_cluster_occupancy for Bluestein's cluster and the direct one, and at
+# 2 through wiener_cluster_dit_launch; tests/test_torch_cuda.py holds the
+# card to it).
 CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
 
 
@@ -439,6 +440,7 @@ class IstftPlan:
     halo: float           # recomputed share of the transforms: (win/hop − 1) / rows
     note: str             # why a block has an SM to itself, where it does
     cluster: int = 1      # blocks of a cluster that share one transform (1: none)
+    route: str = "fft"    # the kernel: fft, split, bluestein, cluster, cluster_dit or direct
 
 
 @lru_cache(maxsize=64)
@@ -458,11 +460,15 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     ``istft_bluestein_launch``): the fewest groups of
     :func:`bluestein_threads` that make the block whole warps, as
     :func:`bluestein_plan`, one on the level, the rounds by the same rule.
-    Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`; up to
-    :data:`LEVEL2_NFFT`: the second level's :func:`level2_plan`. Other
-    sizes: the direct sum, up to 16 hop rows per block. A plan that
-    does not fit shared memory raises ``ValueError``."""
+    Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`, the
+    powers of two there (16 384, 32 768, 65 536)
+    :func:`istft_cluster_dit_plan`; up to :data:`LEVEL2_NFFT`: the second
+    level's :func:`level2_plan`. Other sizes: the direct sum, up to 16 hop
+    rows per block. ``route`` names the kernel. A plan that does not fit
+    shared memory raises ``ValueError``."""
     if cluster_supported(nfft):
+        if nfft & (nfft - 1) == 0:
+            return istft_cluster_dit_plan(signals, nf, nfft, win, hop)
         return istft_cluster_plan(signals, nf, nfft, win, hop)
     if level2_supported(nfft):
         return level2_plan(signals, nf, nfft, win, hop)
@@ -496,7 +502,8 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
         note = "" if two else (f"one block per SM: {smem} bytes of shared memory (the "
                                f"exchange buffer and the {k - 1}-row carry)")
         return IstftPlan(nfft, g, g * t, rounds, rows, per, signals * per, smem,
-                         blocks_per_sm(smem, g * t), (k - 1) / rows, note)
+                         blocks_per_sm(smem, g * t), (k - 1) / rows, note,
+                         route="split" if split else "bluestein" if blue else "fft")
 
     # the most groups whose grid still gives every SM two blocks; else the
     # fewest (the most blocks)
@@ -516,12 +523,39 @@ def istft_cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> 
     hop 2500, 532 frames) into a second wave, so the rounds are weighed as
     :func:`wiener_plan` weighs them: over every rounds with R >= 1, up to
     one row range a signal or ``MAX_ROUNDS``, the least waves × rounds
-    (:data:`CLUSTERS_AT_ONCE` a wave), ties to fewer transforms."""
+    (:data:`CLUSTERS_AT_ONCE` a wave), ties to fewer transforms (route
+    "cluster"). :func:`istft_plan` takes it off the powers of two;
+    ``istft_bluestein_cluster_pallas`` forces it there too."""
     if not cluster_supported(nfft) or win > nfft:
         raise ValueError(f"no iSTFT cluster plan for nfft={nfft}: past {MAX_NFFT}, at most "
                          f"{CLUSTER_NFFT}, and at least the window")
+    return _istft_cluster_rounds(signals, nf, nfft, win, hop, cluster_blocks(nfft), "cluster")
+
+
+@lru_cache(maxsize=64)
+def istft_cluster_dit_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
+    """The inverse's launch at the powers of two past 8192 (16 384, 32 768
+    and 65 536), as ``csrc/istft.cu::istft_cluster_dit_launch`` computes
+    it: the direct transform by decimation in time over a cluster of C =
+    nfft / 8192 blocks (2, 4 or 8) of 512 threads, no chirp; a cluster owns
+    R hop rows of a signal and transforms one pair of frames a round, the
+    rounds weighed as :func:`istft_cluster_plan` weighs them (route
+    "cluster_dit")."""
+    if not MAX_NFFT < nfft <= CLUSTER_NFFT or nfft & (nfft - 1) or win > nfft:
+        raise ValueError(f"no iSTFT cluster_dit plan for nfft={nfft}: a power of two past "
+                         f"{MAX_NFFT}, at most {CLUSTER_NFFT}, and at least the window")
+    return _istft_cluster_rounds(signals, nf, nfft, win, hop, nfft // CLUSTER_PART,
+                                 "cluster_dit")
+
+
+def _istft_cluster_rounds(signals: int, nf: int, nfft: int, win: int, hop: int, c: int,
+                          route: str) -> IstftPlan:
+    """An inverse cluster launch of C = ``c`` blocks a cluster: each
+    block's shared memory :func:`cluster_smem_bytes` with the carry of its
+    1/C of the columns; over every rounds with R >= 1, up to one row range a
+    signal or ``MAX_ROUNDS``, the least waves × rounds, ties to fewer
+    transforms."""
     k = win // hop
-    c = cluster_blocks(nfft)
     total_rows = nf + k - 1
     smem = cluster_smem_bytes((k - 1) * -(-hop // c))  # at most 116 KB: win/hop <= 9
     fewest = -(-k // 2)  # the fewest rounds with R >= 1
@@ -534,7 +568,7 @@ def istft_cluster_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> 
         if best is None or key < best[0]:
             best = (key, IstftPlan(nfft, 1, threads_per_fft(CLUSTER_PART), rounds, rows, per,
                                    signals * per * c, smem, 1, (k - 1) / rows,
-                                   "one block per SM: 512 threads at 128 registers", c))
+                                   "one block per SM: 512 threads at 128 registers", c, route))
     return best[1]
 
 
@@ -553,7 +587,8 @@ def istft_direct_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> I
     smem = 16 * nfft + 4 * rows * hop
     per = -(-(nf + k - 1) // rows)
     return IstftPlan(nfft, 0, DIRECT_THREADS, 1, rows, per, signals * per, smem,
-                     blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum")
+                     blocks_per_sm(smem, DIRECT_THREADS), (k - 1) / rows, "direct sum",
+                     route="direct")
 
 
 def wiener_smem_bytes(nfft: int, hop: int, groups: int) -> int:

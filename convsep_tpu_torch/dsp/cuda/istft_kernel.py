@@ -14,7 +14,11 @@ split run backwards for m · 2^a (m 3, 5, 9, 15; counted as
 ``LAUNCHES["istft_split"]``), Bluestein run backwards for the other sizes up
 to 8192, odd ones too (``LAUNCHES["istft_bluestein"]``), Bluestein over a
 thread-block cluster run backwards past 8192, up to 65 536
-(``LAUNCHES["istft_cluster"]``), and Bluestein on the core's second level
+(``LAUNCHES["istft_cluster"]``), at the powers of two there (16 384, 32 768,
+65 536) the direct transform by decimation in time over a cluster of 2, 4
+or 8 blocks (``LAUNCHES["istft_cluster_dit"]``;
+:func:`istft_bluestein_cluster_pallas` forces Bluestein's cluster there, to
+hold and time it), and Bluestein on the core's second level
 run backwards past that, up to 262 144 (``LAUNCHES["istft_level2"]``, one
 count a call: its phases are several launches). An odd nfft has no Nyquist
 bin: every bin but DC counts twice, as in the reference's inverse matrices.
@@ -37,11 +41,9 @@ import torch
 from convsep_tpu_torch import kernels
 from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_size,
-    bluestein_supported,
     bluestein_tables,
-    cluster_supported,
     dft_table,
-    fft_supported,
+    istft_cluster_plan,
     istft_direct_plan,
     istft_plan,
     level2_chat,
@@ -81,11 +83,14 @@ def launch_istft(
     nfft: int,
     output_dtype: str = "float32",
     direct: bool = False,
+    bluestein_cluster: bool = False,
 ) -> torch.Tensor:
     """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
     (..., length) float32 or int16. Raises outside the envelope. The window's
     tables, the twiddles and the plan are found again per call, not made.
-    ``direct``: the direct sum (:func:`istft_direct_pallas`)."""
+    ``direct``: the direct sum (:func:`istft_direct_pallas`);
+    ``bluestein_cluster``: Bluestein's cluster past 8192, the powers of two
+    too (:func:`istft_bluestein_cluster_pallas`)."""
     win_len, hop, length = len(window), int(hop), int(length)
     if re.device.type != "cuda" or im.device != re.device:
         raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
@@ -105,17 +110,12 @@ def launch_istft(
     re3 = re.reshape(nt, nf, bins).contiguous()
     im3 = im.reshape(nt, nf, bins).contiguous()
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
-    plan = (istft_direct_plan if direct else istft_plan)(nt, nf, nfft, win_len, hop)
-    if direct:
-        name = "istft_direct"
-    elif level2_supported(nfft):
+    plan = (istft_direct_plan if direct else istft_cluster_plan if bluestein_cluster
+            else istft_plan)(nt, nf, nfft, win_len, hop)
+    if level2_supported(nfft) and not direct:
         name = "istft_level2"
-    elif fft_supported(nfft):
-        name = "istft"
-    elif cluster_supported(nfft):
-        name = "istft_cluster"
     else:
-        name = "istft_bluestein" if bluestein_supported(nfft) else "istft_split"
+        name = "istft" if plan.route == "fft" else "istft_" + plan.route
     int16 = output_dtype == "int16"
     out = torch.empty((nt, length), dtype=torch.int16 if int16 else torch.float32, device=dev)
     lib = kernels.library()
@@ -143,6 +143,12 @@ def launch_istft(
                 twiddles(bluestein_size(nfft), where).data_ptr(), chirp.data_ptr(),
                 chat.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
                 plan.rounds, stream,
+            )
+        elif name == "istft_cluster_dit":
+            code = lib.istft_cluster_dit_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                twiddles(nfft, where).data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft,
+                win_len, hop, length, plan.rounds, stream,
             )
         elif name == "istft_level2":
             chirp, _ = bluestein_tables(nfft, where)
@@ -216,7 +222,25 @@ def istft_direct_pallas(
     return _istft(re, im, window, hop, length, nfft, direct=True)
 
 
-def _istft(re, im, window, hop, length, nfft, direct: bool):
+def istft_bluestein_cluster_pallas(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """:func:`istft_pallas` through Bluestein's cluster at any nfft past 8192
+    up to 65 536 (CUDA tensors, counted as ``istft_cluster``), the powers of
+    two too, where the direct transform (``istft_cluster_dit``) replaced
+    it, so that it can be held and timed beside that kernel (PCM16:
+    ``launch_istft(..., bluestein_cluster=True)``). CPU tensors: the plain
+    version."""
+    return _istft(re, im, window, hop, length, nfft, bluestein_cluster=True)
+
+
+def _istft(re, im, window, hop, length, nfft, direct: bool = False,
+           bluestein_cluster: bool = False):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     hop = int(hop)
@@ -232,4 +256,5 @@ def _istft(re, im, window, hop, length, nfft, direct: bool):
     check_frames(re, length, hop)
     if {re.device.type, im.device.type} == {"cpu"}:
         return istft_pallas_plain(re, im, window, hop, length, nfft)
-    return launch_istft(re, im, window, hop, length, nfft, direct=direct)
+    return launch_istft(re, im, window, hop, length, nfft, direct=direct,
+                        bluestein_cluster=bluestein_cluster)

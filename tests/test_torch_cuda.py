@@ -45,6 +45,7 @@ from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
 )
 from convsep_tpu_torch.dsp.cuda.fft_plan import wiener_plan
 from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+    istft_bluestein_cluster_pallas,
     istft_direct_pallas,
     istft_pallas,
     istft_pallas_plain,
@@ -409,7 +410,7 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "stft": 0, "stft_split": 0,
                 "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0,
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
-                "istft_direct": 0, "wiener_apply": 0,
+                "istft_cluster_dit": 0, "istft_direct": 0, "wiener_apply": 0,
                 "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
                 "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "band_decode_stream": 0,
                 "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0}
@@ -771,8 +772,10 @@ def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, leng
     _close(got, istft_pallas_plain(re, im, w, hop, length, nfft=nfft), "float32")
 
 
-ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_level2",
-               "istft_direct")
+ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
+               "istft_level2", "istft_direct")
+# × max|out|: the cluster kernels against the float64 synthesis (chip_smoke.py's)
+TOL_CLUSTER_F32 = 2e-6
 
 
 def _istft_name(nfft: int) -> str:
@@ -780,10 +783,11 @@ def _istft_name(nfft: int) -> str:
     from convsep_tpu_torch.dsp.cuda.fft_plan import (bluestein_supported, cluster_supported,
                                                      split_supported)
 
-    return ("istft" if nfft & (nfft - 1) == 0 and nfft <= 8192 else "istft_split"
+    pow2 = nfft & (nfft - 1) == 0
+    return ("istft" if pow2 and nfft <= 8192 else "istft_split"
             if split_supported(nfft) else "istft_bluestein" if bluestein_supported(nfft)
-            else "istft_cluster" if cluster_supported(nfft) else "istft_level2"
-            if 65536 < nfft <= 262144 else "istft_direct")
+            else ("istft_cluster_dit" if pow2 else "istft_cluster") if cluster_supported(nfft)
+            else "istft_level2" if 65536 < nfft <= 262144 else "istft_direct")
 
 
 @pytest.mark.parametrize("nfft,win,hop,lead,length", [
@@ -800,17 +804,18 @@ def _istft_name(nfft: int) -> str:
 ])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_cluster_istft_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
-    """Bluestein on a thread-block cluster run backwards, float32 within
-    1e-5 and PCM16 within one LSB of the plain synthesis: one
-    "istft_cluster" launch and no other iSTFT kernel. Past 32 768 points
-    the plain synthesis is the factored chain (the direct one's matrices
-    pass 6 GB)."""
+    """The cluster run backwards past 8192, float32 within 1e-5 and PCM16
+    within one LSB of the plain synthesis: one launch of its kernel and no
+    other iSTFT kernel, "istft_cluster" (Bluestein's) off the powers of two
+    and "istft_cluster_dit" (the direct transform) at 16 384, 32 768 and 65
+    536. Past 32 768 points the plain synthesis is the factored chain (the
+    direct one's matrices pass 6 GB)."""
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = dict(kernels.LAUNCHES)
     got = launch_istft(re, im, w, hop, length, nfft, out)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
-        k: int(k == "istft_cluster") for k in ISTFT_NAMES}
+        k: int(k == _istft_name(nfft)) for k in ISTFT_NAMES}
     _close(got, istft_matmul(re, im, w, hop, length, nfft=nfft,
                              algorithm="factored" if nfft > 32768 else "direct",
                              output_dtype=out), out)
@@ -848,10 +853,86 @@ def test_cluster_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
 
     active = ctypes.c_int(0)
-    kernels.check(kernels.library().istft_cluster_occupancy(nfft, win, hop,
+    kernels.check(kernels.library().istft_cluster_occupancy(nfft, win, hop, 0,
                                                             ctypes.byref(active)),
                   "istft_cluster_occupancy")
     assert active.value == fp.CLUSTERS_AT_ONCE[fp.cluster_blocks(nfft)]
+
+
+@pytest.mark.parametrize("nfft,win,hop", [(16384, 16384, 2048), (32768, 32768, 4096),
+                                          (32768, 16384, 4096), (65536, 65536, 16384)])
+def test_cluster_dit_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
+    """istft_cluster_dit_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
+    clusters of nfft / 8192 blocks: the card's own
+    cudaOccupancyMaxActiveClusters for istft_cluster_dit_kernel's launch (on
+    an H100 SXM 66 clusters of 2, 30 of 4 and 15 of 8)."""
+    import ctypes
+
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    active = ctypes.c_int(0)
+    kernels.check(kernels.library().istft_cluster_occupancy(nfft, win, hop, 1,
+                                                            ctypes.byref(active)),
+                  "istft_cluster_occupancy")
+    plan = fp.istft_plan(1, 100, nfft, win, hop)
+    assert plan.route == "cluster_dit" and plan.cluster == nfft // 8192
+    assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster]
+
+
+@pytest.mark.parametrize("nfft,win,hop,lead,length", [
+    (16384, 16384, 2048, (4,), 150000),   # the reference's 16 384 on C 2, k 8
+    (16384, 16384, 4096, (1,), 60000),
+    (16384, 16384, 8192, (3,), 60001),    # k 2
+    (32768, 32768, 4096, (2,), 150000),   # the reference's 32 768 on C 4
+    (32768, 16384, 4096, (1,), 60000),    # a half window
+    (65536, 65536, 16384, (1,), 150000),  # C 8
+])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_istft_cluster_dit_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
+    """The direct transform by decimation in time over a cluster of nfft /
+    8192 blocks at the powers of two past 8192: one "istft_cluster_dit"
+    launch a call and no other iSTFT kernel; float32 within TOL_CLUSTER_F32
+    × max|out| of the float64 synthesis and 1e-5 of the plain one (the
+    factored chain past a 16 384-point window, whose direct matrices grow
+    large), PCM16 within one LSB of both."""
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == "istft_cluster_dit") for k in ISTFT_NAMES}
+    want64 = _istft64(re, im, w, hop, length, nfft, out)
+    plain = istft_matmul(re, im, w, hop, length, nfft=nfft,
+                         algorithm="factored" if win > 16384 else "direct", output_dtype=out)
+    _close(got, plain, out)
+    if out == "int16":
+        _close(got, want64, out)
+    else:
+        assert got.shape == want64.shape == (*lead, length)
+        assert (got - want64).abs().max().item() <= TOL_CLUSTER_F32 * want64.abs().max().item()
+
+
+@pytest.mark.parametrize("nfft,hop", [(16384, 2048), (32768, 4096), (65536, 16384)])
+def test_istft_bluestein_cluster_forced_at_powers_of_two(rng, cuda, nfft, hop):
+    """istft_bluestein_cluster_pallas still launches Bluestein's cluster
+    ("istft_cluster") at the powers of two, where istft_pallas takes the
+    direct transform ("istft_cluster_dit"): one launch each, the two within
+    TOL_CLUSTER_F32 × max|out| of each other, and PCM16 through
+    launch_istft(bluestein_cluster=True) within one LSB of the new kernel's."""
+    length = 12 * nfft
+    w, re, im = _spectra(rng, (1,), length, nfft, hop, cuda)
+    outs = {}
+    for fn, name in ((istft_bluestein_cluster_pallas, "istft_cluster"),
+                     (istft_pallas, "istft_cluster_dit")):
+        before = dict(kernels.LAUNCHES)
+        outs[name] = fn(re, im, w, hop, length)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+            k: int(k == name) for k in ISTFT_NAMES}
+    a, b = outs["istft_cluster"], outs["istft_cluster_dit"]
+    assert (a - b).abs().max().item() <= TOL_CLUSTER_F32 * b.abs().max().item()
+    _close(launch_istft(re, im, w, hop, length, nfft, "int16", bluestein_cluster=True),
+           launch_istft(re, im, w, hop, length, nfft, "int16"), "int16")
 
 
 @pytest.mark.parametrize("nfft,hop", [(1000, 250), (768, 256), (6000, 1500), (10000, 2500)])
@@ -1478,13 +1559,16 @@ ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11
                                  13: 120, 14: 120}
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
 # cluster (an 8192-point part a block, 128 registers), and for the
-# Wiener+iSTFT's direct transform on a cluster (126 registers, no stack)
+# Wiener+iSTFT's and the iSTFT's direct transform on a cluster (126 and 128
+# registers, no stack)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
                          ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280,
                          ("wiener_cluster_dit_kernel", 2): 0,
-                         ("wiener_cluster_dit_kernel", 4): 0}
+                         ("wiener_cluster_dit_kernel", 4): 0,
+                         ("istft_cluster_dit_kernel", 2): 0, ("istft_cluster_dit_kernel", 4): 0,
+                         ("istft_cluster_dit_kernel", 8): 0}
 # the same for the Wiener+iSTFT's split, by (log2 P, m), and Bluestein, by
 # (log2 M, frame pairs), on an H100 build (sm_90a, 128 registers): the split holds S sources' y loads beside its 16 points and spills
 # 0-64 bytes (768 = 3 · 256, the smoke's, none); Bluestein none up to M

@@ -25,6 +25,12 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
   points (C 2, 4, 8 and 16) and at the card's 8192 (C 4; and C 16, M 131
   072, on one transform pair against numpy's float64 FFT), against the
   plain STFT and iSTFT at the same tolerances;
+* ``istft_cluster_dit_block`` (``istft.cu::istft_cluster_dit_kernel``: the
+  direct inverse by decimation in time over the cluster, ``ClusterDit``, at
+  the powers of two past 8192; each block putting the points of its 1/C of
+  both frames' bins) at parts of 64 and 512 points (C 2, 4 and 8) and at the
+  card's 8192 (N 16 384 on C 2, N 32 768 on C 4), against the plain
+  iSTFT within 1e-5 × max|out|, PCM16 within ±1 LSB;
 * ``wiener_common.cuh::wiener_cluster_block``
   (``wiener_istft.cu::wiener_cluster_kernel``: the masked loads of every
   source, bf16 or f32 y, p 1 or 2, ``conserve_last``, the ``ny`` row, and
@@ -47,7 +53,7 @@ launched as the kernels launch them, with the plans of ``fft_plan``:
 
 The kernels' own index maps, twiddle and chirp reads, butterflies, block
 and cluster barriers and output guards. Built once per module under
-pytest's temporary directory, the twelve programs at once."""
+pytest's temporary directory, the thirteen programs at once."""
 
 import shutil
 import subprocess
@@ -67,8 +73,8 @@ from convsep_tpu_torch.dsp.windows import sinebell
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "convsep_tpu_torch" / "csrc"
 PROGRAMS = ("split_stft", "split_istft", "bluestein_stft", "bluestein_istft", "cluster_stft",
-            "cluster_istft", "wiener_cluster", "wiener_cluster_dit", "wiener_split",
-            "wiener_bluestein", "level_stft", "level2")
+            "cluster_istft", "istft_cluster_dit", "wiener_cluster", "wiener_cluster_dit",
+            "wiener_split", "wiener_bluestein", "level_stft", "level2")
 
 
 @pytest.fixture(scope="module")
@@ -328,6 +334,61 @@ def test_cluster_istft_source_matches_plain(tmp_path, host, rng, nfft, win, hop,
     int16 = out == "int16"
     args = [log2p, m >> log2p, nt, nf, nfft, win, hop, length, rounds, int(int16)]
     subprocess.run([str(host["cluster_istft"]), str(tmp_path), *map(str, args)], check=True,
+                   timeout=300)
+    got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32).reshape(nt, length)
+    ret, imt = torch.from_numpy(re), torch.from_numpy(im)
+    if int16:
+        want = istft_matmul(ret, imt, w, hop, length, nfft=nfft, algorithm="direct",
+                            output_dtype="int16").numpy()
+        assert want.dtype == np.int16 and (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        want = istft_pallas_plain(ret, imt, w, hop, length, nfft=nfft).numpy()
+        assert np.isfinite(got).all()  # every sample written
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+# (nfft, win, hop, nt, length, log2p, rounds (None: fft_plan.istft_plan's),
+# out): C = nfft / 2^LOG2P blocks
+ISTFT_CLUSTER_DIT_CASES = [
+    (128, 128, 32, 2, 600, 6, 3, "float32"),   # C 2, k 4: 3 rows a cluster; nf 21, odd
+    (256, 256, 64, 1, 900, 6, 4, "int16"),     # C 4: 5 rows a cluster; nf 17
+    (256, 192, 48, 1, 700, 6, 3, "float32"),   # C 4, nfft past the window
+    (512, 512, 128, 2, 2000, 6, 5, "float32"),  # C 8: 16 columns a block
+    (512, 256, 64, 1, 1500, 6, 4, "int16"),    # C 8, nfft past the window
+    (128, 128, 2, 1, 300, 6, 70, "float32"),   # hop 2 on C 2: a column a block, k 64
+    (1024, 1024, 256, 1, 3000, 9, 4, "float32"),  # C 2
+    (2048, 1024, 128, 1, 3000, 9, 6, "int16"),  # C 4, nfft past the window, k 8
+    (16_384, 16_384, 2048, 1, 6144, 13, None, "float32"),  # the reference's 16 384 on C 2
+    (32_768, 16_384, 4096, 1, 8192, 13, None, "int16"),  # 32 768 on C 4, a half window
+]
+
+
+@pytest.mark.parametrize("nfft,win,hop,nt,length,log2p,rounds,out", ISTFT_CLUSTER_DIT_CASES)
+def test_istft_cluster_dit_source_matches_plain(tmp_path, host, rng, nfft, win, hop, nt, length,
+                                                log2p, rounds, out):
+    """istft_cluster_dit_block as istft_cluster_dit_kernel launches it (a
+    cluster of C blocks a row range, one pair of frames a round, block r the
+    points r mod C; a pair past the last frame loads zeros for its frame b):
+    every sample of every signal written, equal to the plain synthesis
+    within 1e-5 × max|out|, PCM16 within ±1 LSB."""
+    nf = num_frames(length, hop)
+    bins = nfft // 2 + 1
+    c = nfft >> log2p
+    if rounds is None:
+        plan = fp.istft_plan(nt, nf, nfft, win, hop)
+        assert (plan.route, plan.cluster, plan.threads) == ("cluster_dit", c, 512)
+        rounds = plan.rounds
+    re = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    im = rng.standard_normal((nt, nf, bins)).astype(np.float32)
+    w = sinebell(win)
+    wn, inv = fp.synthesis_tables(w, nfft, hop, nf, "cpu")
+    for name, arr in (("re", re), ("im", im), ("wn", wn.numpy()), ("inv", inv.numpy()),
+                      ("tw", fp.twiddles(nfft, "cpu").numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    int16 = out == "int16"
+    args = [log2p, c, nt, nf, win, hop, length, rounds, int(int16)]
+    subprocess.run([str(host["istft_cluster_dit"]), str(tmp_path), *map(str, args)], check=True,
                    timeout=300)
     got = np.fromfile(tmp_path / "out.bin", np.int16 if int16 else np.float32).reshape(nt, length)
     ret, imt = torch.from_numpy(re), torch.from_numpy(im)

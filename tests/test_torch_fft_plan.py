@@ -666,11 +666,15 @@ def test_istft_cluster_plan(signals, nf, nfft, win, hop):
     """istft_cluster_plan mirrors istft_cluster_launch (one pair a round, a
     cluster owning 2 · rounds − (k − 1) hop rows, each block the carry of
     its 1/C of the columns, within shared memory) and takes the fewest
-    waves × rounds (CLUSTERS_AT_ONCE a wave) over every rounds it may."""
-    plan = fp.istft_plan(signals, nf, nfft, win, hop)
+    waves × rounds (CLUSTERS_AT_ONCE a wave) over every rounds it may;
+    istft_plan takes it off the powers of two (at 16 384, 32 768 and 65 536
+    the direct transform's plan, test_istft_cluster_dit_plan)."""
+    plan = fp.istft_cluster_plan(signals, nf, nfft, win, hop)
     k = win // hop
     c = fp.cluster_blocks(nfft)
-    assert plan == fp.istft_cluster_plan(signals, nf, nfft, win, hop)
+    if nfft & (nfft - 1):
+        assert plan == fp.istft_plan(signals, nf, nfft, win, hop)
+    assert plan.route == "cluster"
     assert plan.cluster == c and plan.groups == 1 and plan.threads == 512
     assert plan.rows == 2 * plan.rounds - (k - 1) >= 1
     assert plan.blocks_per_signal * plan.rows >= nf + k - 1
@@ -684,6 +688,58 @@ def test_istft_cluster_plan(signals, nf, nfft, win, hop):
 
     assert all(cost(plan.rounds) <= cost(r) for r in range(-(-k // 2), 300)
                if 2 * r - (k - 1) >= 1)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (4, 648, 16384, 16384, 2048), (4, 325, 32768, 32768, 4096), (1, 83, 65536, 65536, 16384),
+    (3, 90, 16384, 16384, 2048), (1, 60, 32768, 16384, 4096), (2, 40, 65536, 32768, 8192),
+    (1, 5, 16384, 16384, 16384), (1, 300, 16384, 16384, 2), (2, 17, 32768, 32768, 32768),
+])
+def test_istft_cluster_dit_plan(signals, nf, nfft, win, hop):
+    """istft_cluster_dit_plan mirrors istft_cluster_dit_launch: C = nfft /
+    8192 blocks (2, 4, 8), one pair a round, a cluster owning 2 · rounds −
+    (k − 1) hop rows, each block the carry of its 1/C of the columns within
+    shared memory, the fewest waves × rounds (CLUSTERS_AT_ONCE[C] a wave);
+    istft_plan takes it at the powers of two past 8192."""
+    plan = fp.istft_cluster_dit_plan(signals, nf, nfft, win, hop)
+    k = win // hop
+    c = nfft // 8192
+    assert plan == fp.istft_plan(signals, nf, nfft, win, hop)
+    assert (plan.route, plan.cluster, plan.groups, plan.threads) == ("cluster_dit", c, 1, 512)
+    assert plan.rows == 2 * plan.rounds - (k - 1) >= 1
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+    assert plan.blocks == signals * plan.blocks_per_signal * c
+    assert plan.smem_bytes == 87_040 + 4 * (k - 1) * -(-hop // c) <= fp.SMEM_MAX
+
+    def cost(rounds):
+        rows = 2 * rounds - (k - 1)
+        per = -(-(nf + k - 1) // rows)
+        return -(-signals * per // fp.CLUSTERS_AT_ONCE[c]) * rounds
+
+    assert all(cost(plan.rounds) <= cost(r) for r in range(-(-k // 2), 400)
+               if 2 * r - (k - 1) >= 1)
+
+
+@pytest.mark.parametrize("nfft,hop,route,cluster", [
+    (16384, 2048, "cluster_dit", 2), (32768, 4096, "cluster_dit", 4),
+    (65536, 16384, "cluster_dit", 8), (10000, 2500, "cluster", 4), (20000, 5000, "cluster", 8),
+    (40000, 10000, "cluster", 16),
+])
+def test_istft_cluster_routes(nfft, hop, route, cluster):
+    """istft_plan's route past 8192: the direct transform ("cluster_dit")
+    on nfft / 8192 blocks at the powers of two (the reference's 16 384 and
+    32 768, and 65 536), Bluestein's cluster ("cluster") on M / 8192 blocks
+    at 10 000, 20 000 and 40 000; Bluestein's plan still exists at the
+    powers of two, for the forced A/B."""
+    plan = fp.istft_plan(2, 100, nfft, nfft, hop)
+    assert (plan.route, plan.cluster) == (route, cluster)
+    blue = fp.istft_cluster_plan(2, 100, nfft, nfft, hop)
+    assert (blue.route, blue.cluster) == ("cluster", fp.cluster_blocks(nfft))
+    if route == "cluster":
+        assert blue == plan
+    else:
+        with pytest.raises(ValueError, match="no iSTFT cluster_dit plan"):
+            fp.istft_cluster_dit_plan(2, 100, nfft + 2, nfft + 2, hop)
 
 
 def test_istft_cluster_main_plans():
@@ -716,9 +772,11 @@ def test_cluster_envelope():
         fp.cluster_plan(1, 4, 10000, 10001, 10001)  # a window past nfft
     assert fp.istft_plan(1, 4, 8192, 8192, 2048).cluster == 1
     assert fp.istft_plan(1, 4, 8194, 8194, 4097).cluster == 4
-    assert fp.istft_plan(1, 4, 32768, 32768, 4096).cluster == 8
+    assert fp.istft_plan(1, 4, 32768, 32768, 4096).cluster == 4  # the direct transform's
+    assert fp.istft_cluster_plan(1, 4, 32768, 32768, 4096).cluster == 8
     assert fp.istft_plan(1, 4, 32770, 32770, 16385).cluster == 16
-    assert fp.istft_plan(1, 4, 65536, 65536, 16384).cluster == 16
+    assert fp.istft_plan(1, 4, 65536, 65536, 16384).cluster == 8
+    assert fp.istft_cluster_plan(1, 4, 65536, 65536, 16384).cluster == 16
     assert istft_supported(8194, 8194, 4097) and istft_supported(32768, 32768, 4096)
     assert istft_supported(32770, 32770, 16385) and istft_supported(65536, 65536, 16384)
     assert istft_supported(8193, 8193, 8193) and istft_supported(65535, 65535, 13107)  # odd
@@ -1504,6 +1562,27 @@ def test_cluster_dit_inverse_matches_torch_fft(rng, nfft, c):
     z = cluster_dit_fft(inverse_input(A.real, A.imag, B.real, B.imag), c)
     want = nfft * torch.complex(torch.fft.irfft(A, nfft), -torch.fft.irfft(B, nfft))
     torch.testing.assert_close(z, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("nfft,c,win,hop,nf", [
+    (128, 2, 128, 32, 9), (512, 8, 256, 64, 8), (16384, 2, 16384, 2048, 11),
+    (32768, 4, 16384, 4096, 7),
+])
+def test_cluster_dit_istft_matches_plain(rng, nfft, c, win, hop, nf):
+    """istft_cluster_dit_block's arithmetic in float32 (inverse_input's
+    points of a pair, ClusterDit's residues, twiddle and combine, the
+    frames' overlap-add in ascending order) against istft_pallas_plain
+    within 1e-5 × max|out|."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas_plain
+
+    length = (nf - 2) * hop
+    w = sinebell(win)
+    bins = nfft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((2, nf, bins)).astype(np.float32))
+    got = core_istft(re, im, w, hop, length, nfft, fft=lambda u: cluster_dit_fft(u, c))
+    want = istft_pallas_plain(re, im, w, hop, length, nfft=nfft)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
 
 
 @pytest.mark.parametrize("nfft,c,hop,nf,S,kw,ny", [

@@ -21,6 +21,7 @@ from convsep_tpu.dsp.windows import sinebell
 from convsep_tpu_torch.dsp import dft as tdft
 from convsep_tpu_torch.dsp.cuda import ct_istft_kernel as tct
 from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, istft_supported
+from convsep_tpu_torch.dsp.stft import num_frames
 
 CUDA = torch.device("cuda")  # a device name only: routing is decided from it
 CPU = torch.device("cpu")
@@ -75,6 +76,33 @@ def test_istft_pallas_matches_jax(rng, lead, nfft, win, hop):
     _check(got, want, "float32")
 
 
+@pytest.mark.parametrize("nfft,hop,out", [(16384, 2048, "float32"), (32768, 4096, "int16")])
+def test_istft_ct_pallas_matches_jax_past_8192(rng, nfft, hop, out):
+    """The reference's two sizes past the FFT core, which the card runs on
+    the direct transform over a cluster of 2 and 4 blocks: the port's
+    ``istft_ct_pallas`` (its plain version, as CPU tensors take) against
+    the JAX kernel in interpret mode on the same random spectra of 2
+    signals of 3 · nfft samples, float32 within 1e-5 × max|out|, PCM16
+    within ±1 LSB."""
+    length = 3 * nfft
+    nf = num_frames(length, hop)
+    bins = nfft // 2 + 1
+    re = (0.01 * rng.standard_normal((2, nf, bins))).astype(np.float32)
+    im = (0.01 * rng.standard_normal((2, nf, bins))).astype(np.float32)
+    w = sinebell(nfft)
+    assert tct.ct_pallas_supported(nfft, nfft, hop) and jax_ct_supported(nfft, nfft, hop)
+    want = np.asarray(jax_istft_ct_pallas(re, im, w, hop, length, interpret=True,
+                                          output_dtype=out))
+    got = tct.istft_ct_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length,
+                              output_dtype=out).numpy()
+    assert got.shape == want.shape == (2, length) and got.dtype == want.dtype
+    if out == "int16":
+        assert (want != 0).any()
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
 def test_istft_wrappers_refuse_like_jax():
     w = sinebell(128)
     z = np.zeros((10, 65), np.float32)
@@ -93,7 +121,8 @@ def test_istft_wrappers_refuse_like_jax():
         tct.istft_ct_pallas(torch.zeros(5, 129), torch.zeros(5, 129), sinebell(256), 64, 44100)
 
 
-@pytest.mark.parametrize("nfft", [64, 128, 256, 512, 1024, 2048, 4096, 8192, 1000, 3072])
+@pytest.mark.parametrize("nfft", [64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
+                                  1000, 3072])
 @pytest.mark.parametrize("ratio", [1, 2, 4, 8, 9, 16])
 def test_ct_pallas_supported_equals_jax(nfft, ratio):
     hop = max(1, nfft // ratio)
