@@ -88,8 +88,11 @@ result line is printed):
    (beside the direct sum forced there), W 20 000, hop 5000, W 40 000, hop
    10 000 and W 65 536, hop 16 384 (one stem each; the plan beside the
    clusters the card holds at once; past 32 768 the plain version is the
-   float64 synthesis, and every cluster row is also held to it); each call
-   launching its kernel once and no other; 7b: the Wiener+iSTFT at even
+   float64 synthesis, and every cluster row is also held to it); at W
+   10 000, 20 000 and 40 000 the direct transform on the 5-smooth block
+   core (2, 4 and 8 blocks of n 5000), under Bluestein's cluster forced at
+   each, ``istft_plan`` taking it exactly where ``ISTFT_MIXED_WON`` says;
+   each call launching its kernel once and no other; 7b: the Wiener+iSTFT at even
    sizes up to 8192 that are not powers of two, 4 stems of a 30 s track, as
    phase 3: the split at W 768 and 1280, Bluestein run backwards at W 1000,
    on the level at W 6000 and with frame pairs at W 8190, hop 910, the
@@ -360,9 +363,13 @@ WIENER_SPREAD = 0.05
 # the iSTFT kernels' shapes: (path, nfft, hop, nf, signals, through
 # istft_ct_pallas (else istft_pallas, or istft_direct_pallas where the
 # kernel is "istft_direct", or istft_bluestein_cluster_pallas where it is
-# "istft_cluster" at a power of two), the kernel it must launch). At the
-# powers of two past 8192 (the reference's 16 384 and 32 768, and 65 536)
-# the direct transform on a cluster, Bluestein's cluster forced beside it.
+# "istft_cluster" at a power of two or a won 5-smooth size, or
+# launch_istft(cluster_mixed=True) where it is "istft_cluster_mixed" at a
+# size off ISTFT_MIXED_WON), the kernel it must launch). At the powers of
+# two past 8192 (the reference's 16 384 and 32 768, and 65 536) the direct
+# transform on a cluster, at W 10 000, 20 000 and 40 000 the same on the
+# 5-smooth block core (C 2, 4, 8 of n 5000), Bluestein's cluster forced
+# beside each.
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
                 ("W 768 split", 768, 256, W768_NF, 4, False, "istft_split"),
@@ -373,6 +380,12 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 10000 direct sum", 10000, 2500, W10000_NF, 1, False, "istft_direct"),
                 ("W 20000 cluster", 20000, 5000, W20000_NF, 1, False, "istft_cluster"),
                 ("W 40000 cluster", 40000, 10000, W40000_NF, 1, False, "istft_cluster"),
+                ("W 10000 cluster_mixed", 10000, 2500, W10000_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 20000 cluster_mixed", 20000, 5000, W20000_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 40000 cluster_mixed", 40000, 10000, W40000_NF, 1, False,
+                 "istft_cluster_mixed"),
                 ("W 16384 cluster_dit", 16384, 2048, W16384_NF, 4, True, "istft_cluster_dit"),
                 ("W 16384 Bluestein", 16384, 2048, W16384_NF, 4, False, "istft_cluster"),
                 ("W 32768 cluster_dit", 32768, 4096, W32768_NF, 4, True, "istft_cluster_dit"),
@@ -380,11 +393,16 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 65536 cluster_dit", 65536, 16384, W65536_NF, 1, False, "istft_cluster_dit"),
                 ("W 65536 Bluestein", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-               "istft_direct")
+               "istft_cluster_mixed", "istft_direct")
 # the direct transform's rows and the Bluestein rows forced at their shapes
 ISTFT_DIT_AB = (("W 16384 cluster_dit", "W 16384 Bluestein"),
                 ("W 32768 cluster_dit", "W 32768 Bluestein"),
-                ("W 65536 cluster_dit", "W 65536 Bluestein"))
+                ("W 65536 cluster_dit", "W 65536 Bluestein"),
+                ("W 10000 cluster_mixed", "W 10000 cluster"),
+                ("W 20000 cluster_mixed", "W 20000 cluster"),
+                ("W 40000 cluster_mixed", "W 40000 cluster"))
+# the cluster routes' codes of csrc/istft.cu::istft_cluster_occupancy
+CLUSTER_ROUTES = {"cluster": 0, "cluster_dit": 1, "cluster_mixed": 2}
 # phase 7b: the Wiener+iSTFT at even sizes up to 8192 that are not powers
 # of two, 4 stems of a 30 s track, bf16 y: (key, nfft, hop, nf, the kernel
 # it must launch). The split at W 768 and 1280, Bluestein run backwards at W
@@ -1807,25 +1825,41 @@ def phase_train(device) -> dict:
 
 def forced_bluestein(kernel: str, nfft: int) -> bool:
     """An ``ISTFT_SHAPES`` row that forces Bluestein's cluster at a power of
-    two, where the wrapper takes the direct transform."""
-    return kernel == "istft_cluster" and nfft & (nfft - 1) == 0
+    two or a 5-smooth size in ``ISTFT_MIXED_WON``, where the wrapper takes
+    the direct transform."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import ISTFT_MIXED_WON
+
+    return kernel == "istft_cluster" and (nfft & (nfft - 1) == 0 or nfft in ISTFT_MIXED_WON)
+
+
+def forced_mixed(kernel: str, nfft: int) -> bool:
+    """An ``ISTFT_SHAPES`` row of the mixed cluster at a size off
+    ``ISTFT_MIXED_WON``, where the wrapper takes Bluestein's cluster: the
+    row forces the mixed one, to time it."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import ISTFT_MIXED_WON
+
+    return kernel == "istft_cluster_mixed" and nfft not in ISTFT_MIXED_WON
 
 
 def istft_fn(ct: bool, kernel: str, nfft: int):
     """The wrapper an ``ISTFT_SHAPES`` row calls: ``istft_ct_pallas``, the
     direct sum forced (``istft_direct_pallas``), Bluestein's cluster forced
-    (``istft_bluestein_cluster_pallas``) or ``istft_pallas``."""
+    (``istft_bluestein_cluster_pallas``), the mixed cluster forced
+    (``launch_istft(cluster_mixed=True)``) or ``istft_pallas``."""
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
     from convsep_tpu_torch.dsp.cuda.istft_kernel import (
         istft_bluestein_cluster_pallas,
         istft_direct_pallas,
         istft_pallas,
+        launch_istft,
     )
 
     if ct:
         return istft_ct_pallas
     if forced_bluestein(kernel, nfft):
         return istft_bluestein_cluster_pallas
+    if forced_mixed(kernel, nfft):
+        return lambda re, im, w, hop, L: launch_istft(re, im, w, hop, L, nfft, cluster_mixed=True)
     return istft_direct_pallas if kernel == "istft_direct" else istft_pallas
 
 
@@ -1843,19 +1877,22 @@ def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
     return w, L, re * mask, im * mask
 
 
-def cluster_plan_check(N: int, nf: int, nfft: int, hop: int, bluestein: bool = False) -> dict:
+def cluster_plan_check(N: int, nf: int, nfft: int, hop: int, bluestein: bool = False,
+                       mixed: bool = False) -> dict:
     """The iSTFT cluster plan at a phase 7 shape (``bluestein``: Bluestein's
-    cluster forced) beside the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters of the plan's kernel), which the plan's
-    waves assume: a plan past the card's count runs a second wave."""
+    cluster forced; ``mixed``: the mixed one forced) beside the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters of the plan's
+    kernel), which the plan's waves assume: a plan past the card's count
+    runs a second wave."""
     import ctypes
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
 
-    plan = (fp.istft_cluster_plan if bluestein else fp.istft_plan)(N, nf, nfft, nfft, hop)
+    plan = (fp.istft_cluster_plan if bluestein else fp.istft_cluster_mixed_plan if mixed
+            else fp.istft_plan)(N, nf, nfft, nfft, hop)
     active = ctypes.c_int(0)
     kernels.check(kernels.library().istft_cluster_occupancy(
-        nfft, nfft, hop, int(plan.route == "cluster_dit"), ctypes.byref(active)),
+        nfft, nfft, hop, CLUSTER_ROUTES[plan.route], ctypes.byref(active)),
         "istft_cluster_occupancy")
     out = {"route": plan.route, "cluster": plan.cluster, "rounds": plan.rounds, "rows": plan.rows,
            "clusters": N * plan.blocks_per_signal, "clusters_at_once_plan":
@@ -1870,12 +1907,15 @@ def phase_istft(device, gen) -> dict:
     int16 through ``launch_istft``, against the direct synthesis quantized),
     the split run backwards at W 768, Bluestein run backwards at W 1000, W
     6000 (the level), W 10 000, W 20 000 and W 40 000 (a cluster of 4, 8
-    and 16 blocks), the direct transform on a cluster of 2, 4 and 8 blocks
-    at W 16 384, 32 768 and 65 536 with Bluestein's cluster forced there,
-    the direct sum forced at W 1000 and W 10 000 (the times Bluestein and
-    the cluster replace). Each call must launch its kernel once and no
-    other iSTFT kernel; each direct transform on a cluster must beat the
-    forced Bluestein cluster's device time at its shape."""
+    and 16 blocks; forced where the mixed cluster won), the direct transform
+    on a cluster of 2, 4 and 8 blocks at W 16 384, 32 768 and 65 536 and on
+    the 5-smooth block core at W 10 000, 20 000 and 40 000, with Bluestein's
+    cluster forced there, the direct sum forced at W 1000 and W 10 000 (the
+    times Bluestein and the cluster replace). Each call must launch its
+    kernel once and no other iSTFT kernel; each direct transform on a
+    cluster must beat the forced Bluestein cluster's device time at its
+    shape, and ``istft_plan`` must take the mixed one exactly at the sizes
+    of ``ISTFT_MIXED_WON``."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
@@ -1904,7 +1944,8 @@ def phase_istft(device, gen) -> dict:
                 want = plain(re, im, w, hop, L, output_dtype=out)
             else:
                 got = launch_istft(re, im, w, hop, L, nfft, out, direct=kernel == "istft_direct",
-                                   bluestein_cluster=forced_bluestein(kernel, nfft))
+                                   bluestein_cluster=forced_bluestein(kernel, nfft),
+                                   cluster_mixed=forced_mixed(kernel, nfft))
                 want = (istft64(re, im, w, hop, L, out) if huge else
                         istft_matmul(re, im, w, hop, L, nfft=nfft, algorithm="direct",
                                      output_dtype=out))
@@ -1921,7 +1962,7 @@ def phase_istft(device, gen) -> dict:
             if not e <= tol:
                 raise AssertionError(f"istft kernel {name} {out} disagrees: {e} > {tol}")
             err[out] = e
-            if kernel in ("istft_cluster", "istft_cluster_dit") and out == "float32":
+            if kernel.startswith("istft_cluster") and out == "float32":
                 ref = want if huge else istft64(re, im, w, hop, L)
                 peak = ref.abs().max().item()
                 e64 = (got - ref).abs().max().item()
@@ -1951,9 +1992,10 @@ def phase_istft(device, gen) -> dict:
         res[name] = {"max_abs_err": err["float32"], "max_abs_err_int16": err.get("int16"),
                      "rel_err_float64": err.get("rel_float64"),
                      "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "host_us": us}
-        if kernel in ("istft_cluster", "istft_cluster_dit"):
+        if kernel.startswith("istft_cluster"):
             res[name]["plan"] = cluster_plan_check(N, nf, nfft, hop,
-                                                   forced_bluestein(kernel, nfft))
+                                                   forced_bluestein(kernel, nfft),
+                                                   forced_mixed(kernel, nfft))
         del re, im, spec, want
         torch.cuda.empty_cache()
     dev = device_times("istft")["istft"]
@@ -1979,6 +2021,14 @@ def phase_istft(device, gen) -> dict:
         if None in (r["device_ms"], b["device_ms"]) or not r["device_ms"] < b["device_ms"]:
             raise AssertionError(f"istft {key}: device {r['device_ms']} ms, not under the "
                                  f"forced Bluestein cluster's {b['device_ms']}")
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    for name, nfft, hop, nf, N, _, kernel in ISTFT_SHAPES:
+        if kernel == "istft_cluster_mixed":
+            route = fp.istft_plan(N, nf, nfft, nfft, hop).route
+            if (route == "cluster_mixed") != (nfft in fp.ISTFT_MIXED_WON):
+                raise AssertionError(f"istft_plan at {name} takes {route}; ISTFT_MIXED_WON "
+                                     f"says otherwise")
     return res
 
 
@@ -4720,7 +4770,7 @@ def main(argv: list[str]) -> int:
     # and the direct sums serve only sizes that no preset uses
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
                    "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-                   "istft_level2",
+                   "istft_cluster_mixed", "istft_level2",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
                    "wiener_istft_cluster_dit", "wiener_istft_ny_cluster_dit",
                    "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
@@ -4906,6 +4956,19 @@ def main(argv: list[str]) -> int:
          **launched("istft_cluster_dit"), **ist["W 16384 cluster_dit"],
          "w32768_hop4096": ist["W 32768 cluster_dit"],
          "w65536_hop16384": ist["W 65536 cluster_dit"]},
+        {"name": "istft_cluster_mixed", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu (device code "
+                   "fft_common.cuh::istft_cluster_mixed_block)",
+         "entry": "istft_cluster_mixed_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "even nfft = C n past 8192, C 2, 4 or 8, n 5-smooth (10 000, 20 000, "
+                   "40 000; 87 sizes), where it won its A/B (fft_plan.ISTFT_MIXED_WON): the "
+                   "direct inverse by decimation in time on a thread-block cluster, each "
+                   "block's n points on a mixed-radix core; no preset",
+         **launched("istft_cluster_mixed"), **ist["W 10000 cluster_mixed"],
+         "w20000_hop5000": ist["W 20000 cluster_mixed"],
+         "w40000_hop10000": ist["W 40000 cluster_mixed"]},
         {"name": "istft_level2", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu",
          "entry": "istft_level2_first_kernel, istft_level2_middle_kernel, "

@@ -80,7 +80,10 @@
 // where it is consumed. launch_clusters launches them. A power of two past
 // 8192 needs no chirp: its N = 8192 C points are one transform by
 // decimation in time over the cluster (ClusterDit, the Wiener+iSTFT's
-// wiener_cluster_dit_block), each block forming only 1/C of them.
+// wiener_cluster_dit_block), each block forming only 1/C of them. So does
+// an even N = C n with n 5-smooth (10 000, 20 000, 40 000): ClusterMixed,
+// each block's n points on a mixed-radix core of radix-2 to 16, 3, 5 and 9
+// passes (mixed_fft, istft_cluster_mixed_block).
 //
 // Past 65 536 points (N <= 262 144) Bluestein's M = 262 144 or 524 288 lives
 // in a scratch in device memory: the second level (level2_first,
@@ -1625,6 +1628,309 @@ __device__ __forceinline__ void istft_cluster_dit_block(
     D::run_staged(buf, tws, tw, rank, j);  // ends in a cluster barrier
     cluster_pair_round([&](int t) { return D::point(buf, tw, t); }, carry, win_over_n, inv_norm,
                        out, out_int16, n, fr, k, hop, win, cols, u0, ncols, j0, j_end, length);
+    cluster_sync();  // the peers have read this round's buffers
+  }
+}
+
+// ---- the 5-smooth block core over a cluster ---------------------------------
+//
+// The even sizes past 8192 that are not powers of two but factor as N = C n,
+// C in {2, 4, 8} the fewest blocks with n <= 8192 and n = 2^a 3^b 5^c (10 000,
+// 20 000 and 40 000 are C 5000; 87 sizes up to 65 536, fft_plan.
+// mixed_factors), run the direct inverse by decimation in time over the
+// cluster as ClusterDit does at the powers of two, each block's n points on
+// a mixed-radix core (mixed_fft):
+//
+// * Stockham passes of radix r in {2, 3, 4, 5, 8, 9, 16} through the block's
+//   exchange buffer (slot(i)), a schedule the host plans and passes in
+//   (fft_plan.mixed_radices, kMixedRadixBits a radix), so one instance per
+//   C serves every n; the pass of radix r after passes whose radices
+//   multiply to Ns reads butterfly j's points j + s n / r, s < r,
+//   multiplies point s by e^{-2 pi i s (j mod Ns) / (Ns r)}, runs an r-point
+//   DFT in registers (dft, dft_odd) and writes its outputs to (j - j mod Ns)
+//   r + j mod Ns + s Ns: natural order out, no reordering;
+// * thread tid takes the butterflies j = tid + b T, b < ceil(16 / r), so n
+//   <= 16 T (8192 at the card's 512 threads), and holds their points in
+//   registers (kMixedPoints) across the barrier between the pass's reads
+//   and its writes: one buffer serves;
+// * every pass's twiddles are entries of one n-point table e^{-2 pi i m / n},
+//   m < n, in shared memory: the N-point table's entries at stride C (the
+//   host rounds it once from float64, fft_plan.dft_table). The table is
+//   whole, not a quarter, so n need not be a multiple of 4 (4374, 6250, the
+//   odd 5625, 6075 and 6561);
+// * the combine is ClusterDit's with P = n: block r holds u[C m + r], m < n,
+//   its transform V_r is multiplied by w^{r k1} (w = e^{-2 pi i / N}, the
+//   N-point table in global memory, read through L1), and Z[k1 + n q] =
+//   sum_r W^{r q} w^{r k1} V_r[k1] (W = e^{-2 pi i / C}) is summed by Horner
+//   in W^q where it is consumed.
+
+constexpr int kMixedRadixBits = 5;  // the bits of one radix in a schedule
+
+// float2 slots of a mixed block's table and exchange buffer (n + n + n / 16)
+__host__ __device__ constexpr int mixed_tables_len(int n) { return n + split_exchange_len(n); }
+
+// Dynamic shared memory of a mixed cluster's block: the n-point table, the
+// exchange buffer and `carry` floats (the inverse's carry of its columns).
+inline size_t cluster_mixed_smem_bytes(int n, int carry) {
+  return (size_t)mixed_tables_len(n) * sizeof(float2) + (size_t)carry * sizeof(float);
+}
+
+// C and n of a size the mixed cluster takes (fft_plan.mixed_factors): an
+// even nfft in (8192, 65 536], not a power of two, C the fewest of 2, 4, 8
+// with nfft / C <= 8192, C | nfft, n = nfft / C 5-smooth.
+inline bool mixed_sizes(int nfft, int* c, int* n) {
+  if (nfft <= (1 << kMaxLog2) || nfft > (8 << kMaxLog2) || (nfft & (nfft - 1)) == 0) return false;
+  *c = nfft <= (2 << kMaxLog2) ? 2 : nfft <= (4 << kMaxLog2) ? 4 : 8;
+  if (nfft % *c) return false;
+  *n = nfft / *c;
+  int m = *n;
+  while (m % 2 == 0) m /= 2;
+  while (m % 3 == 0) m /= 3;
+  while (m % 5 == 0) m /= 5;
+  return m == 1;
+}
+
+// The schedule's radices are each one the core has and multiply to n.
+inline bool mixed_schedule_ok(int n, unsigned long long sched) {
+  long long prod = 1;
+  for (; sched; sched >>= kMixedRadixBits) {
+    const int r = (int)(sched & ((1u << kMixedRadixBits) - 1));
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8 && r != 9 && r != 16) return false;
+    prod *= r;
+  }
+  return prod == n;
+}
+
+template <int R>
+__device__ __forceinline__ void dft_any(float2 (&u)[R]) {
+  if constexpr (R == 3 || R == 5 || R == 9) {
+    dft_odd<R>(u);
+  } else {
+    dft<R>(u);
+  }
+}
+
+constexpr int kMixedPoints = 20;  // a thread's points in a pass at most: 4 radix-5 butterflies
+
+// One Stockham pass of radix R over the block's n points in buf (after a
+// barrier that follows their writes); ends behind a barrier. tws is the
+// n-point table, ns the product of the earlier passes' radices; v holds the
+// thread's points between the pass's reads and its writes, one array that
+// every pass shares (as the core's passes share theirs).
+template <int R>
+__device__ __forceinline__ void mixed_pass(float2 (&v)[kMixedPoints], float2* buf,
+                                           const float2* tws, int n, int ns) {
+  constexpr int B = (kPoints + R - 1) / R;  // butterflies a thread at most: n <= 16 T
+  static_assert(B * R <= kMixedPoints, "a pass's points fit the thread's array");
+  const int T = blockDim.x;
+  const int nb = n / R;              // the pass's butterflies
+  const int step = n / (ns * R);     // e^{-2 pi i s k / (ns R)} = tws[s k step]
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int j = threadIdx.x + b * T;
+    if (j < nb) {
+      const int k = j % ns;
+      float2 u[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) u[s] = buf[slot(j + s * nb)];
+      if (k) {
+#pragma unroll
+        for (int s = 1; s < R; ++s) u[s] = cmul(u[s], tws[s * k * step]);
+      }
+      dft_any<R>(u);
+#pragma unroll
+      for (int s = 0; s < R; ++s) v[b * R + s] = u[s];
+    }
+  }
+  __syncthreads();  // every point is read; the writes below overwrite them
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int j = threadIdx.x + b * T;
+    if (j < nb) {
+      const int k = j % ns;
+      const int base = (j - k) * R + k;
+#pragma unroll
+      for (int s = 0; s < R; ++s) buf[slot(base + s * ns)] = v[b * R + s];
+    }
+  }
+  __syncthreads();
+}
+
+// The forward DFT of the n points at buf[slot(i)] (natural order, in
+// place) by the whole block, in the passes of `sched`; every point must be
+// in place behind a barrier, and the result is, behind the last pass's.
+// The passes run grouped by radix, 16, 8, 4, 2, 5, 9, 3 (the order
+// fft_plan.mixed_radices plans them in; any order is the same transform),
+// one loop a radix, all on one array of points: one loop that switched on
+// the radix, or an array a pass, spilled 700-1100 bytes at 128 registers
+// inside istft_cluster_mixed_block's rounds, where each pass alone takes
+// 56-72.
+__device__ __forceinline__ void mixed_fft(float2* buf, const float2* tws, int n,
+                                          unsigned long long sched) {
+  int c16 = 0, c8 = 0, c4 = 0, c2 = 0, c5 = 0, c9 = 0, c3 = 0;  // passes of each radix
+#pragma unroll 1
+  for (; sched; sched >>= kMixedRadixBits) {
+    const int r = (int)(sched & ((1u << kMixedRadixBits) - 1));
+    c16 += r == 16;
+    c8 += r == 8;
+    c4 += r == 4;
+    c2 += r == 2;
+    c5 += r == 5;
+    c9 += r == 9;
+    c3 += r == 3;
+  }
+  float2 v[kMixedPoints];
+  int ns = 1;
+#pragma unroll 1
+  for (int i = 0; i < c16; ++i, ns *= 16) mixed_pass<16>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c8; ++i, ns *= 8) mixed_pass<8>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c4; ++i, ns *= 4) mixed_pass<4>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c2; ++i, ns *= 2) mixed_pass<2>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c5; ++i, ns *= 5) mixed_pass<5>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c9; ++i, ns *= 9) mixed_pass<9>(v, buf, tws, n, ns);
+#pragma unroll 1
+  for (int i = 0; i < c3; ++i, ns *= 3) mixed_pass<3>(v, buf, tws, n, ns);
+}
+
+// ClusterDit for N = C n, n 5-smooth (the header above): block r holds u[C m
+// + r], m < n, in its exchange buffer at slot(m); tw is the N-point table
+// e^{-2 pi i m / N}, m < N, in global memory (fft_plan.dft_table).
+template <int C>
+struct ClusterMixed {
+  static_assert(C == 2 || C == 4 || C == 8, "a cluster of 2, 4 or 8 blocks");
+
+  // tws (shared, n entries): the N-point table's entries at stride C
+  __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw,
+                                                     int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) tws[i] = __ldg(tw + C * i);
+  }
+
+  // u[t] into the buffer of its owner, block t mod C, at slot(t / C)
+  __device__ __forceinline__ static void put(float2* buf, int t, float2 u) {
+    peer(buf, t & (C - 1))[slot(t >> ilog2(C))] = u;
+  }
+
+  // after the puts and a cluster barrier: the block's transform, the
+  // combine's twiddle w^{rank k1} in place, a cluster barrier
+  __device__ __forceinline__ static void run_staged(float2* buf, const float2* tws,
+                                                    const float2* __restrict__ tw, int n,
+                                                    unsigned long long sched, int rank) {
+    mixed_fft(buf, tws, n, sched);
+    if (rank) {
+      for (int k1 = threadIdx.x; k1 < n; k1 += blockDim.x)
+        buf[slot(k1)] = cmul(buf[slot(k1)], __ldg(tw + rank * k1));
+    }
+    cluster_sync();
+  }
+
+  // Z[t], t < N, after run_staged: the radix-C sum over the C buffers, by
+  // Horner in W^q
+  __device__ __forceinline__ static float2 point(const float2* buf,
+                                                 const float2* __restrict__ tw, int n, int t) {
+    const int q = t / n;
+    const int k1 = t - q * n;
+    const float2 wq = __ldg(tw + n * q);
+    float2 v[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) v[r] = peer(buf, r)[slot(k1)];
+    float2 z = v[C - 1];
+#pragma unroll
+    for (int r = C - 2; r >= 0; --r) {
+      const float2 b = cmul(z, wq);
+      z = make_float2(v[r].x + b.x, v[r].y + b.y);
+    }
+    return z;
+  }
+};
+
+// istft_cluster_dit_block for N = C n, n 5-smooth (ClusterMixed, the
+// header above): the same rounds of one pair (fr, fr + 1), a cluster owning
+// hop rows [j0, j0 + rows) of signal n_sig. A round:
+// 1. block r reads its contiguous 1/C of both frames' bins, [r S, (r + 1) S)
+//    with S = ceil(N / 2 / C) (n / 2 at even n; the last block also
+//    Nyquist), at most eight a thread at a stride of the block, and puts the
+//    two points of conj Z a bin gives (k and N - k) into their owners
+//    (ClusterMixed::put); a cluster barrier;
+// 2. ClusterMixed::run_staged: the block's n-point transform on its points
+//    t = r (mod C), the combine's twiddle, a cluster barrier;
+// 3. the gather (cluster_pair_round) on the block's 1/C of the hop columns,
+//    each sample read across the cluster (ClusterMixed::point); a cluster
+//    barrier.
+// sched is the block transform's schedule (fft_plan.mixed_schedule), tw the
+// N-point table (fft_plan.dft_table); smem4 holds cluster_mixed_smem_bytes
+// with (k - 1) columns' carry. n <= 16 blockDim.x.
+template <int C>
+__device__ __forceinline__ void istft_cluster_mixed_block(
+    float4* smem4, const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int n,
+    int win, int hop, int length, int rounds, int rows, int per_signal,
+    unsigned long long sched) {
+  using D = ClusterMixed<C>;
+  constexpr int K = kPoints / 2;  // bins a thread reads at most: S <= 8 T
+  const int N = C * n;
+  const int half = N / 2;
+  const int bins = half + 1;
+  const int share = (half + C - 1) / C;
+  const int rank = blockIdx.x % C;
+  const int cl = blockIdx.x / C;
+  const int j = threadIdx.x;
+  const int T = blockDim.x;
+  const int k = win / hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(hop, C);
+  const int u0 = rank * cols;
+  const int ncols = max(0, min(cols, hop - u0));
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + n;
+  float* carry = reinterpret_cast<float*>(buf + split_exchange_len(n));  // (k - 1) cols
+  const int sig = cl / per_signal;
+  const int j0 = (cl - sig * per_signal) * rows;  // first hop row of the cluster
+  const int j_end = min(j0 + rows, nf + k - 1);
+  const long long track = (long long)sig * nf * bins;
+  const int k0 = rank * share;                    // the block's first bin
+  const int k_end = min(half, k0 + share);
+
+  D::load_tables(tws, tw, n);
+  for (int i = threadIdx.x; i < (k - 1) * cols; i += blockDim.x) carry[i] = 0.f;
+  // A cluster barrier, not a block one: the first round's puts write the
+  // peers' shared memory, so every block of the cluster must be running.
+  cluster_sync();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int fr = j0 - (k - 1) + 2 * r;  // the round's pair: frames fr, fr + 1
+    const bool ha = fr >= 0 && fr < nf, hb = fr + 1 >= 0 && fr + 1 < nf;
+    const float* ra = ha ? re + track + (long long)fr * bins : nullptr;
+    const float* ia = ha ? im + track + (long long)fr * bins : nullptr;
+    const float* rb = hb ? re + track + (long long)(fr + 1) * bins : nullptr;
+    const float* ib = hb ? im + track + (long long)(fr + 1) * bins : nullptr;
+    float4 ab[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // DC's imaginary parts are ignored
+      const int kk = k0 + j + i * T;
+      const bool in = kk < k_end;
+      ab[i] = make_float4(in && ra ? __ldg(ra + kk) : 0.f, in && ra && kk ? __ldg(ia + kk) : 0.f,
+                          in && rb ? __ldg(rb + kk) : 0.f, in && rb && kk ? __ldg(ib + kk) : 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
+      const int kk = k0 + j + i * T;
+      if (kk < k_end) {
+        D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+        if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+      }
+    }
+    if (rank == C - 1 && j == 0)  // Nyquist: real parts only
+      D::put(buf, half, make_float2(ra ? __ldg(ra + half) : 0.f, rb ? -__ldg(rb + half) : 0.f));
+    cluster_sync();  // every block's points are in place
+    D::run_staged(buf, tws, tw, n, sched, rank);  // ends in a cluster barrier
+    cluster_pair_round([&](int t) { return D::point(buf, tw, n, t); }, carry, win_over_n,
+                       inv_norm, out, out_int16, sig, fr, k, hop, win, cols, u0, ncols, j0,
+                       j_end, length);
     cluster_sync();  // the peers have read this round's buffers
   }
 }

@@ -88,6 +88,18 @@
 // 648 frames at 16 384, hop 2048, read 170 MB of spectra and write 21 MB
 // of samples, 0.057 ms.
 //
+// istft_cluster_mixed_kernel (the even sizes past 8192 whose nfft = C n
+// has a 5-smooth n <= 8192 on the fewest C of 2, 4, 8: 10 000, 20 000,
+// 40 000, 87 sizes in all; no preset uses one) is istft_cluster_dit_kernel
+// on a mixed-radix block core (fft_common.cuh::istft_cluster_mixed_block on
+// ClusterMixed): each block's n points in Stockham passes of radix 2, 3, 4,
+// 5, 8, 9 and 16 through its exchange buffer, in a schedule the host plans
+// and passes in, so one instance per C serves every n, the twiddles from a
+// whole n-point table in shared memory. fft_plan.istft_plan takes it at the
+// sizes in ISTFT_MIXED_WON, where it beat Bluestein's cluster on the card.
+// Its bound is bytes: one signal of 532 frames at 10 000, hop 2500, reads
+// 21.3 MB of spectra and writes 5.3 MB of samples.
+//
 // An odd nfft has no Nyquist bin: inverse_point mirrors its last bin (N -
 // 1) / 2 as any other, so every bin but DC counts twice, as the reference's
 // inverse matrices weight them (convsep_tpu/dsp/dft.py::_inverse_mats).
@@ -410,6 +422,43 @@ cudaError_t dispatch_cluster_dit(int nfft, const BluesteinArgs& a, int* active =
   return cudaErrorInvalidValue;
 }
 
+// One block an SM, as istft_cluster_dit_kernel.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1) istft_cluster_mixed_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
+    const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int n, int win,
+    int hop, int length, int rounds, int rows, int per_signal, unsigned long long sched) {
+  extern __shared__ float4 smem4[];
+  istft_cluster_mixed_block<C>(smem4, re, im, win_over_n, inv_norm, tw, out, out_int16, nf, n,
+                               win, hop, length, rounds, rows, per_signal, sched);
+}
+
+// the same for the 5-smooth block core, N = C n
+template <int C>
+cudaError_t launch_cluster_mixed(const BluesteinArgs& a, int n, unsigned long long sched,
+                                 int* active) {
+  const int k = a.win / a.hop;
+  const int rows = 2 * a.rounds - (k - 1);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int per_signal = (a.nf + k - 1 + rows - 1) / rows;
+  return launch_clusters<C>(istft_cluster_mixed_kernel<C>, (long long)a.nt * per_signal,
+                            cluster_mixed_smem_bytes(n, (k - 1) * cluster_columns(a.hop, C)),
+                            a.stream, active, a.re, a.im, a.wn, a.inv, a.tw, a.out, a.out_int16,
+                            a.nf, n, a.win, a.hop, a.length, a.rounds, rows, per_signal, sched);
+}
+
+cudaError_t dispatch_cluster_mixed(int nfft, const BluesteinArgs& a, unsigned long long sched,
+                                   int* active = nullptr) {
+  int c, n;
+  if (!mixed_sizes(nfft, &c, &n)) return cudaErrorInvalidValue;
+  switch (c) {
+    case 2: return launch_cluster_mixed<2>(a, n, sched, active);
+    case 4: return launch_cluster_mixed<4>(a, n, sched, active);
+    default: return launch_cluster_mixed<8>(a, n, sched, active);
+  }
+}
+
 // the cluster instance for Bluestein's M = 2^log2m: C = M / 8192
 cudaError_t dispatch_cluster(int log2m, const BluesteinArgs& a, int* active = nullptr) {
   switch (log2m - kMaxLog2) {
@@ -651,6 +700,35 @@ extern "C" int istft_cluster_dit_launch(const void* re, const void* im, const vo
   return (int)dispatch_cluster_dit(nfft, a);
 }
 
+// The 5-smooth sizes past 8192 (fft_plan.mixed_factors: even nfft = C n,
+// C 2, 4 or 8 the fewest with n <= 8192, n = 2^a 3^b 5^c; 10 000, 20 000,
+// 40 000), the direct inverse by decimation in time on a cluster of C
+// blocks of 512 threads, each block's n points on the mixed-radix core in
+// the passes of `sched` (fft_plan.mixed_schedule: their radices multiply to
+// n), one pair of frames a round; tw the nfft-point table e^{-2 pi i m /
+// nfft} (fft_plan.dft_table); rounds from fft_plan.istft_cluster_mixed_plan.
+extern "C" int istft_cluster_mixed_launch(const void* re, const void* im, const void* win_over_n,
+                                          const void* inv_norm, const void* tw, void* out,
+                                          int out_int16, int nt, int nf, int nfft, int win,
+                                          int hop, int length, int rounds, long long sched,
+                                          void* stream) {
+  int c, n;
+  if (!mixed_sizes(nfft, &c, &n) || !mixed_schedule_ok(n, (unsigned long long)sched) || win < 1 ||
+      win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nf < 1 || rounds < 1)
+    return (int)cudaErrorInvalidValue;
+  const BluesteinArgs a{static_cast<const float*>(re),
+                        static_cast<const float*>(im),
+                        static_cast<const float*>(win_over_n),
+                        static_cast<const float*>(inv_norm),
+                        static_cast<const float2*>(tw),
+                        nullptr,
+                        nullptr,
+                        out,
+                        out_int16, nt, nf, nfft, win, hop, length, 1, rounds,
+                        static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_cluster_mixed(nfft, a, (unsigned long long)sched);
+}
+
 // The second level: 65 536 < nfft <= 262 144, any parity (Bluestein's M
 // 262 144 or 524 288 over two passes through device memory, fft_common.cuh's
 // level2_*): the pairs of the flattened (nt x nf) frames in rounds of
@@ -684,17 +762,22 @@ extern "C" int istft_level2_launch(const void* re, const void* im, const void* w
                                                    nt, nf, win, hop, length, per_round, s));
 }
 
-// How many clusters of istft_cluster_kernel (Bluestein's, `dit` 0) or of
-// istft_cluster_dit_kernel (`dit` 1, the powers of two past 8192) a launch
-// at (nfft, win, hop) finds room for at once (cudaOccupancyMaxActiveClusters:
+// How many clusters of istft_cluster_kernel (Bluestein's, `route` 0), of
+// istft_cluster_dit_kernel (`route` 1, the powers of two past 8192) or of
+// istft_cluster_mixed_kernel (`route` 2, the 5-smooth sizes) a launch at
+// (nfft, win, hop) finds room for at once (cudaOccupancyMaxActiveClusters:
 // one block an SM, the clusters' blocks within one GPC);
 // fft_plan.CLUSTERS_AT_ONCE is this reading. Launches nothing.
-extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int dit, int* active) {
+extern "C" int istft_cluster_occupancy(int nfft, int win, int hop, int route, int* active) {
   const int log2m = nfft >= 2 ? bluestein_log2(nfft) : 0;
   if (log2m <= kLevelLog2 || win < 1 || win > nfft || hop < 1 || win % hop != 0 || !active)
     return (int)cudaErrorInvalidValue;
   const int k = win / hop;
   const BluesteinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         0, 1, 1, nfft, win, hop, 1, 1, k, nullptr};
-  return (int)(dit ? dispatch_cluster_dit(nfft, a, active) : dispatch_cluster(log2m, a, active));
+  switch (route) {
+    case 0: return (int)dispatch_cluster(log2m, a, active);
+    case 1: return (int)dispatch_cluster_dit(nfft, a, active);
+    default: return (int)dispatch_cluster_mixed(nfft, a, 0, active);
+  }
 }

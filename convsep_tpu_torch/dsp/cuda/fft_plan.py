@@ -40,9 +40,13 @@ The inverse STFT kernel (``csrc/istft.cu``) runs the same passes backwards
 (by conjugation) on groups of a block that walk the block's frames in rounds
 and overlap-add them by a gather, at the split's sizes on the split run
 backwards, at the other sizes up to 8192 (odd ones too) on Bluestein run
-backwards, past 8192 on the cluster run backwards (:func:`istft_cluster_plan`),
-past 65 536 on the second level run backwards (:func:`level2_plan`);
-:func:`istft_plan` sizes all five. The
+backwards, past 8192 on the cluster run backwards (:func:`istft_cluster_plan`;
+at the powers of two the direct transform over the cluster,
+:func:`istft_cluster_dit_plan`, and at the 5-smooth sizes of
+:func:`mixed_factors` the same on a mixed-radix block core whose passes
+:func:`mixed_radices` plans, :func:`istft_cluster_mixed_plan`), past 65 536
+on the second level run backwards (:func:`level2_plan`); :func:`istft_plan`
+sizes them all. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it on the core, the split and Bluestein, past 8192 on the cluster run
@@ -137,6 +141,68 @@ def cluster_supported(nfft: int) -> bool:
     return MAX_NFFT < nfft <= CLUSTER_NFFT
 
 
+MIXED_RADICES = (2, 3, 4, 5, 8, 9, 16)  # the mixed-radix block core's passes (mixed_fft)
+MIXED_RADIX_BITS = 5  # fft_common::kMixedRadixBits: the bits of one radix in a schedule
+
+
+def smooth5(n: int) -> bool:
+    """n = 2^a · 3^b · 5^c."""
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def mixed_factors(nfft: int) -> tuple[int, int] | None:
+    """(C, n) for a size the mixed cluster takes (``fft_common.cuh::
+    mixed_sizes``, ``ClusterMixed``): an even nfft in (8192, 65 536] that is
+    not a power of two, C the fewest of 2, 4, 8 blocks with nfft / C <= 8192,
+    C dividing nfft, and n = nfft / C 5-smooth (4096 < n < 8192). 87 sizes:
+    10 000, 20 000 and 40 000 are C · 5000. Nine of them have an odd n (11
+    250, 12 150 and 13 122 on 2 blocks, and twice and four times each); the
+    core serves them as any other, its n-point twiddle table whole. None for
+    any other size: a prime factor past 5, an odd nfft, or too few factors
+    of two for C (2 · 3^9 = 39 366 would need C 8)."""
+    if not MAX_NFFT < nfft <= CLUSTER_NFFT or nfft & (nfft - 1) == 0:
+        return None
+    c = 2 if nfft <= 2 * MAX_NFFT else 4 if nfft <= 4 * MAX_NFFT else 8
+    if nfft % c or not smooth5(nfft // c):
+        return None
+    return c, nfft // c
+
+
+def mixed_radices(n: int) -> tuple[int, ...]:
+    """The passes of the mixed-radix core for a 5-smooth n, in order: radix
+    16 while four factors of two remain, the rest of the power of two in one
+    radix-2, 4 or 8 pass, then radix 5, then radix 9 and a last radix 3
+    (5000: 8, 5, 5, 5, 5; 6561: 9, 9, 9, 9), the order in which the kernel
+    runs a schedule's passes (``mixed_fft``: grouped by radix, 16, 8, 4, 2,
+    5, 9, 3). Each pass costs a round trip through the exchange buffer and
+    two block barriers, so the fewest passes the radices allow."""
+    if n < 2 or not smooth5(n):
+        raise ValueError(f"no mixed-radix passes for n={n}: 5-smooth, at least 2")
+    out = []
+    a = (n & -n).bit_length() - 1
+    out += [16] * (a // 4) + ([1 << a % 4] if a % 4 else [])
+    m = n >> a
+    while m % 5 == 0:
+        out.append(5)
+        m //= 5
+    while m % 9 == 0:
+        out.append(9)
+        m //= 9
+    if m == 3:
+        out.append(3)
+    return tuple(out)
+
+
+def mixed_schedule(radices: tuple[int, ...]) -> int:
+    """The radices as the kernel reads them: :data:`MIXED_RADIX_BITS` a
+    radix, the first pass in the lowest bits (``istft_cluster_mixed_launch``
+    checks that they multiply to n)."""
+    return sum(r << (MIXED_RADIX_BITS * i) for i, r in enumerate(radices))
+
+
 def level2_supported(nfft: int) -> bool:
     """A size past the cluster's 65 536 that the second level takes:
     Bluestein's M = :func:`bluestein_size` is 262 144 (nfft up to 131 072)
@@ -181,6 +247,13 @@ def cluster_blocks(nfft: int) -> int:
     return bluestein_size(nfft) // CLUSTER_PART
 
 
+def cluster_mixed_smem_bytes(n: int, carry: int = 0) -> int:
+    """Dynamic shared memory of a mixed cluster's block (``fft_common.cuh::
+    cluster_mixed_smem_bytes``): the whole n-point table, one n-point
+    exchange buffer and ``carry`` floats."""
+    return 8 * (n + exchange_entries(n)) + 4 * carry
+
+
 def cluster_smem_bytes(carry: int = 0) -> int:
     """Dynamic shared memory of a cluster's block: the 8192-point quarter
     table, one 8192-point exchange buffer and ``carry`` floats (the
@@ -197,6 +270,23 @@ def cluster_smem_bytes(carry: int = 0) -> int:
 # 2 through wiener_cluster_dit_launch; tests/test_torch_cuda.py holds the
 # card to it).
 CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
+
+# The sizes at which istft_plan takes the mixed cluster (route
+# "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced
+# at hop nfft / 4 (nfft / 5, nfft / 3 where 4 does not divide it) on a 30 s
+# track, by 2.1-5.3x in card ms, in one run on an H100 80GB HBM3 at 700 W
+# (tools/torch_istft_mixed_ab.py, PERF.md row 3‴ (5-smooth)): all 87 of
+# mixed_factors. Keyed by nfft alone: both routes run the same rounds and
+# gather, so the hop moves them alike. A size that loses stays on
+# Bluestein's cluster.
+ISTFT_MIXED_WON: frozenset[int] = frozenset({
+    8640, 8748, 9000, 9216, 9600, 9720, 10000, 10240, 10368, 10800, 11250, 11520, 11664, 12000,
+    12150, 12288, 12500, 12800, 12960, 13122, 13500, 13824, 14400, 14580, 15000, 15360, 15552,
+    16000, 16200, 17280, 17496, 18000, 18432, 19200, 19440, 20000, 20480, 20736, 21600, 22500,
+    23040, 23328, 24000, 24300, 24576, 25000, 25600, 25920, 26244, 27000, 27648, 28800, 29160,
+    30000, 30720, 31104, 32000, 32400, 34560, 34992, 36000, 36864, 38400, 38880, 40000, 40960,
+    41472, 43200, 45000, 46080, 46656, 48000, 48600, 49152, 50000, 51200, 51840, 52488, 54000,
+    55296, 57600, 58320, 60000, 61440, 62208, 64000, 64800})
 
 
 @dataclass(frozen=True)
@@ -440,7 +530,8 @@ class IstftPlan:
     halo: float           # recomputed share of the transforms: (win/hop − 1) / rows
     note: str             # why a block has an SM to itself, where it does
     cluster: int = 1      # blocks of a cluster that share one transform (1: none)
-    route: str = "fft"    # the kernel: fft, split, bluestein, cluster, cluster_dit or direct
+    route: str = "fft"    # the kernel: fft, split, bluestein, cluster, cluster_dit,
+                          # cluster_mixed or direct
 
 
 @lru_cache(maxsize=64)
@@ -462,13 +553,17 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     :func:`bluestein_plan`, one on the level, the rounds by the same rule.
     Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`, the
     powers of two there (16 384, 32 768, 65 536)
-    :func:`istft_cluster_dit_plan`; up to :data:`LEVEL2_NFFT`: the second
+    :func:`istft_cluster_dit_plan`, the 5-smooth sizes in
+    :data:`ISTFT_MIXED_WON` :func:`istft_cluster_mixed_plan`; up to
+    :data:`LEVEL2_NFFT`: the second
     level's :func:`level2_plan`. Other sizes: the direct sum, up to 16 hop
     rows per block. ``route`` names the kernel. A plan that does not fit
     shared memory raises ``ValueError``."""
     if cluster_supported(nfft):
         if nfft & (nfft - 1) == 0:
             return istft_cluster_dit_plan(signals, nf, nfft, win, hop)
+        if nfft in ISTFT_MIXED_WON:
+            return istft_cluster_mixed_plan(signals, nf, nfft, win, hop)
         return istft_cluster_plan(signals, nf, nfft, win, hop)
     if level2_supported(nfft):
         return level2_plan(signals, nf, nfft, win, hop)
@@ -548,16 +643,37 @@ def istft_cluster_dit_plan(signals: int, nf: int, nfft: int, win: int, hop: int)
                                  "cluster_dit")
 
 
+@lru_cache(maxsize=64)
+def istft_cluster_mixed_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
+    """The inverse's launch at the 5-smooth sizes past 8192
+    (:func:`mixed_factors`: 10 000, 20 000, 40 000, ...), as ``csrc/istft.cu::
+    istft_cluster_mixed_launch`` computes it: the direct transform by
+    decimation in time over a cluster of C blocks (2, 4 or 8) of 512
+    threads, each block's n = nfft / C points on the mixed-radix core, its
+    shared memory :func:`cluster_mixed_smem_bytes`; the rounds weighed as
+    :func:`istft_cluster_plan` weighs them (route "cluster_mixed").
+    :func:`istft_plan` takes it at :data:`ISTFT_MIXED_WON`;
+    ``launch_istft(cluster_mixed=True)`` forces it at any of its sizes."""
+    f = mixed_factors(nfft)
+    if f is None or win > nfft:
+        raise ValueError(f"no iSTFT cluster_mixed plan for nfft={nfft}: even, past {MAX_NFFT}, "
+                         f"at most {CLUSTER_NFFT}, not a power of two, C · n with n 5-smooth, "
+                         "and at least the window")
+    c, n = f
+    return _istft_cluster_rounds(signals, nf, nfft, win, hop, c, "cluster_mixed",
+                                 lambda carry: cluster_mixed_smem_bytes(n, carry))
+
+
 def _istft_cluster_rounds(signals: int, nf: int, nfft: int, win: int, hop: int, c: int,
-                          route: str) -> IstftPlan:
+                          route: str, smem_of=cluster_smem_bytes) -> IstftPlan:
     """An inverse cluster launch of C = ``c`` blocks a cluster: each
-    block's shared memory :func:`cluster_smem_bytes` with the carry of its
-    1/C of the columns; over every rounds with R >= 1, up to one row range a
-    signal or ``MAX_ROUNDS``, the least waves × rounds, ties to fewer
-    transforms."""
+    block's shared memory ``smem_of`` (:func:`cluster_smem_bytes`) the carry
+    of its 1/C of the columns; over every rounds with R >= 1, up to one row
+    range a signal or ``MAX_ROUNDS``, the least waves × rounds, ties to
+    fewer transforms."""
     k = win // hop
     total_rows = nf + k - 1
-    smem = cluster_smem_bytes((k - 1) * -(-hop // c))  # at most 116 KB: win/hop <= 9
+    smem = smem_of((k - 1) * -(-hop // c))  # at most 166 KB: win/hop <= 9
     fewest = -(-k // 2)  # the fewest rounds with R >= 1
     best = None
     for rounds in range(fewest, max(fewest, min(-(-(total_rows + k - 1) // 2), MAX_ROUNDS)) + 1):

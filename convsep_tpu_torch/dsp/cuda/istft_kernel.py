@@ -16,9 +16,13 @@ to 8192, odd ones too (``LAUNCHES["istft_bluestein"]``), Bluestein over a
 thread-block cluster run backwards past 8192, up to 65 536
 (``LAUNCHES["istft_cluster"]``), at the powers of two there (16 384, 32 768,
 65 536) the direct transform by decimation in time over a cluster of 2, 4
-or 8 blocks (``LAUNCHES["istft_cluster_dit"]``;
-:func:`istft_bluestein_cluster_pallas` forces Bluestein's cluster there, to
-hold and time it), and Bluestein on the core's second level
+or 8 blocks (``LAUNCHES["istft_cluster_dit"]``), at the 5-smooth sizes there
+that won their A/B (``fft_plan.ISTFT_MIXED_WON``: 10 000, 20 000, 40 000,
+...) the same transform on a mixed-radix block core
+(``LAUNCHES["istft_cluster_mixed"]``; ``launch_istft(cluster_mixed=True)``
+forces it at any of its sizes; :func:`istft_bluestein_cluster_pallas`
+forces Bluestein's cluster at both, to hold and time it), and Bluestein on
+the core's second level
 run backwards past that, up to 262 144 (``LAUNCHES["istft_level2"]``, one
 count a call: its phases are several launches). An odd nfft has no Nyquist
 bin: every bin but DC counts twice, as in the reference's inverse matrices.
@@ -43,11 +47,15 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_size,
     bluestein_tables,
     dft_table,
+    istft_cluster_mixed_plan,
     istft_cluster_plan,
     istft_direct_plan,
     istft_plan,
     level2_chat,
     level2_supported,
+    mixed_factors,
+    mixed_radices,
+    mixed_schedule,
     split_factors,
     synthesis_tables,
     twiddles,
@@ -62,7 +70,8 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     shared memory, at any parity: powers of two from 16 to 8192 run on the
     FFT core, m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split,
     the other sizes up to 8192 on Bluestein run backwards, up to 65 536 on
-    Bluestein over a thread-block cluster, up to 262 144 on the core's
+    a thread-block cluster (Bluestein's, or the direct transform at the
+    powers of two and the won 5-smooth sizes), up to 262 144 on the core's
     second level; past that none (the direct sum per sample fits shared
     memory only up to 12 800 points)."""
     if not (2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
@@ -84,13 +93,17 @@ def launch_istft(
     output_dtype: str = "float32",
     direct: bool = False,
     bluestein_cluster: bool = False,
+    cluster_mixed: bool = False,
 ) -> torch.Tensor:
     """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
     (..., length) float32 or int16. Raises outside the envelope. The window's
     tables, the twiddles and the plan are found again per call, not made.
     ``direct``: the direct sum (:func:`istft_direct_pallas`);
     ``bluestein_cluster``: Bluestein's cluster past 8192, the powers of two
-    too (:func:`istft_bluestein_cluster_pallas`)."""
+    and the 5-smooth sizes too (:func:`istft_bluestein_cluster_pallas`);
+    ``cluster_mixed``: the mixed cluster at any size of
+    :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.mixed_factors`, won or not
+    (its A/B)."""
     win_len, hop, length = len(window), int(hop), int(length)
     if re.device.type != "cuda" or im.device != re.device:
         raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
@@ -111,6 +124,7 @@ def launch_istft(
     im3 = im.reshape(nt, nf, bins).contiguous()
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
     plan = (istft_direct_plan if direct else istft_cluster_plan if bluestein_cluster
+            else istft_cluster_mixed_plan if cluster_mixed
             else istft_plan)(nt, nf, nfft, win_len, hop)
     if level2_supported(nfft) and not direct:
         name = "istft_level2"
@@ -149,6 +163,13 @@ def launch_istft(
                 re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
                 twiddles(nfft, where).data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft,
                 win_len, hop, length, plan.rounds, stream,
+            )
+        elif name == "istft_cluster_mixed":
+            n = mixed_factors(nfft)[1]
+            code = lib.istft_cluster_mixed_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                dft_table(nfft, where).data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft,
+                win_len, hop, length, plan.rounds, mixed_schedule(mixed_radices(n)), stream,
             )
         elif name == "istft_level2":
             chirp, _ = bluestein_tables(nfft, where)
@@ -232,8 +253,9 @@ def istft_bluestein_cluster_pallas(
 ) -> torch.Tensor:
     """:func:`istft_pallas` through Bluestein's cluster at any nfft past 8192
     up to 65 536 (CUDA tensors, counted as ``istft_cluster``), the powers of
-    two too, where the direct transform (``istft_cluster_dit``) replaced
-    it, so that it can be held and timed beside that kernel (PCM16:
+    two and the won 5-smooth sizes too, where the direct transform
+    (``istft_cluster_dit``, ``istft_cluster_mixed``) replaced it, so that
+    it can be held and timed beside those kernels (PCM16:
     ``launch_istft(..., bluestein_cluster=True)``). CPU tensors: the plain
     version."""
     return _istft(re, im, window, hop, length, nfft, bluestein_cluster=True)

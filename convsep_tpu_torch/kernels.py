@@ -53,7 +53,7 @@ LAUNCHES: dict[str, int] = {
     "wiener_istft_ny_direct": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_cluster_dit": 0,
-    "istft_direct": 0,
+    "istft_cluster_mixed": 0, "istft_direct": 0,
     "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
     "band_decode_stream": 0, "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0,
 }
@@ -115,11 +115,16 @@ _SIGNATURES = {
     # re, im, win_over_n, inv_norm, tw, out, out_int16, nt, nf, nfft, win, hop,
     # length, rounds, stream
     "istft_cluster_dit_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # re, im, win_over_n, inv_norm, tw (the nfft-point table), out, out_int16, nt, nf,
+    # nfft, win, hop, length, rounds, schedule (the block core's radices), stream
+    "istft_cluster_mixed_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                                   _P),
     # re, im, win_over_n, inv_norm, tw, chirp, chat, scratch, frames, out, out_int16,
     # nt, nf, nfft, win, hop, length, per_round, stream
     "istft_level2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P),
-    # nfft, win, hop, dit (0: Bluestein's cluster, 1: the direct one), active (1 int out)
+    # nfft, win, hop, route (0: Bluestein's cluster, 1: the direct one at the powers of
+    # two, 2: the mixed one), active (1 int out)
     "istft_cluster_occupancy": (_I, _I, _I, _I, _P),
     # y, y_bf16, re, im, out_re, out_im, S, n, pmode, p, eps, stream
     "wiener_apply_launch": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _F, _F, _P),

@@ -56,3 +56,30 @@ def test_istft_past_8192_matches_jax(rng):
     got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
     assert got.shape == want.shape == (2, length)
     np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_istft_5smooth_past_8192_matches_jax(rng):
+    """W 10 000, hop 2500: a 5-smooth size past 8192 (10 000 = 2 · 5000,
+    5000 = 2^3 · 5^4), which the card runs on the mixed cluster where
+    ``fft_plan.ISTFT_MIXED_WON`` holds it (else Bluestein's). The reference's
+    ``istft_pallas`` takes no such window (its large path wants the window
+    and hop in whole 256-sample blocks), so the JAX side is its
+    ``dft.istft_matmul`` on the factored chain; the port's ``istft_pallas``
+    (its plain version, as CPU tensors take) on the same masked spectra of
+    2 signals of 12 000 samples, within 1e-5 × the peak sample."""
+    from convsep_tpu.dsp import dft as jdft
+    from convsep_tpu_torch.dsp.cuda.fft_plan import mixed_factors
+
+    nfft, hop, length = 10_000, 2500, 12_000
+    assert mixed_factors(nfft) == (2, 5000)
+    w = sinebell(nfft)
+    x = (0.3 * rng.standard_normal((2, length))).astype(np.float32)
+    re, im = (np.asarray(a) for a in jdft.stft_matmul(x, w, hop, precision="highest",
+                                                     algorithm="factored"))
+    mask = rng.uniform(0.0, 1.0, re.shape).astype(np.float32)
+    re, im = re * mask, im * mask
+    want = np.asarray(jdft.istft_matmul(jnp.asarray(re), jnp.asarray(im), w, hop, length,
+                                        algorithm="factored"))
+    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
+    assert got.shape == want.shape == (2, length)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

@@ -410,7 +410,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "stft": 0, "stft_split": 0,
                 "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0,
                 "istft": 0, "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0,
-                "istft_cluster_dit": 0, "istft_direct": 0, "wiener_apply": 0,
+                "istft_cluster_dit": 0, "istft_cluster_mixed": 0, "istft_direct": 0,
+                "wiener_apply": 0,
                 "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
                 "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "band_decode_stream": 0,
                 "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0}
@@ -760,8 +761,9 @@ def test_istft_ct_kernel_matches_plain(rng, cuda, lead, nfft, hop, length, out):
 def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, length):
     """The FFT kernel at powers of two counts as "istft", the split's sizes
     (384 = 3 · 128, 768) as "istft_split", Bluestein (1000; 6000 on the
-    level) as "istft_bluestein", Bluestein on a cluster past 8192 (10 000)
-    as "istft_cluster"."""
+    level) as "istft_bluestein", and past 8192 (10 000) the cluster that
+    fft_plan.istft_plan takes: the mixed one, "istft_cluster_mixed", where
+    ISTFT_MIXED_WON holds the size, else Bluestein's, "istft_cluster"."""
     name = _istft_name(nfft)
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = {k: kernels.LAUNCHES[k] for k in ISTFT_NAMES}
@@ -773,20 +775,21 @@ def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, leng
 
 
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-               "istft_level2", "istft_direct")
+               "istft_cluster_mixed", "istft_level2", "istft_direct")
 # × max|out|: the cluster kernels against the float64 synthesis (chip_smoke.py's)
 TOL_CLUSTER_F32 = 2e-6
 
 
 def _istft_name(nfft: int) -> str:
     """The iSTFT kernel launch_istft takes at nfft."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import (bluestein_supported, cluster_supported,
-                                                     split_supported)
+    from convsep_tpu_torch.dsp.cuda.fft_plan import (ISTFT_MIXED_WON, bluestein_supported,
+                                                     cluster_supported, split_supported)
 
     pow2 = nfft & (nfft - 1) == 0
     return ("istft" if pow2 and nfft <= 8192 else "istft_split"
             if split_supported(nfft) else "istft_bluestein" if bluestein_supported(nfft)
-            else ("istft_cluster_dit" if pow2 else "istft_cluster") if cluster_supported(nfft)
+            else ("istft_cluster_dit" if pow2 else "istft_cluster_mixed"
+                  if nfft in ISTFT_MIXED_WON else "istft_cluster") if cluster_supported(nfft)
             else "istft_level2" if 65536 < nfft <= 262144 else "istft_direct")
 
 
@@ -807,9 +810,11 @@ def test_cluster_istft_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, len
     """The cluster run backwards past 8192, float32 within 1e-5 and PCM16
     within one LSB of the plain synthesis: one launch of its kernel and no
     other iSTFT kernel, "istft_cluster" (Bluestein's) off the powers of two
-    and "istft_cluster_dit" (the direct transform) at 16 384, 32 768 and 65
-    536. Past 32 768 points the plain synthesis is the factored chain (the
-    direct one's matrices pass 6 GB)."""
+    and the won 5-smooth sizes, "istft_cluster_dit" (the direct transform)
+    at 16 384, 32 768 and 65 536, and "istft_cluster_mixed" (the same on the
+    5-smooth block core) at fft_plan.ISTFT_MIXED_WON. Past 32 768 points
+    the plain synthesis is the factored chain (the direct one's matrices
+    pass 6 GB)."""
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = dict(kernels.LAUNCHES)
     got = launch_istft(re, im, w, hop, length, nfft, out)
@@ -933,6 +938,96 @@ def test_istft_bluestein_cluster_forced_at_powers_of_two(rng, cuda, nfft, hop):
     assert (a - b).abs().max().item() <= TOL_CLUSTER_F32 * b.abs().max().item()
     _close(launch_istft(re, im, w, hop, length, nfft, "int16", bluestein_cluster=True),
            launch_istft(re, im, w, hop, length, nfft, "int16"), "int16")
+
+
+@pytest.mark.parametrize("nfft,win,hop", [(10000, 10000, 2500), (12000, 12000, 3000),
+                                          (20000, 20000, 5000), (40000, 40000, 10000),
+                                          (60000, 60000, 15000), (11250, 11250, 2250)])
+def test_cluster_mixed_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
+    """istft_cluster_mixed_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
+    clusters of C blocks: the card's own cudaOccupancyMaxActiveClusters for
+    istft_cluster_mixed_kernel's launch (route 2; on an H100 SXM 66
+    clusters of 2, 30 of 4 and 15 of 8, as the other cluster kernels)."""
+    import ctypes
+
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+
+    active = ctypes.c_int(0)
+    kernels.check(kernels.library().istft_cluster_occupancy(nfft, win, hop, 2,
+                                                            ctypes.byref(active)),
+                  "istft_cluster_occupancy")
+    plan = fp.istft_cluster_mixed_plan(1, 100, nfft, win, hop)
+    assert plan.route == "cluster_mixed" and plan.cluster == fp.mixed_factors(nfft)[0]
+    assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster]
+
+
+@pytest.mark.parametrize("nfft,win,hop,lead,length", [
+    (10000, 10000, 2500, (1,), 60000),   # C 2 of n 5000, the smoke's W and hop
+    (12000, 12000, 3000, (2,), 50000),   # C 2 of n 6000 = 16·5·5·5·3
+    (20000, 20000, 5000, (3,), 80000),   # C 4 of n 5000
+    (20000, 16000, 4000, (1,), 50000),   # nfft past the window
+    (40000, 40000, 10000, (1,), 150000),  # C 8 of n 5000
+    (60000, 60000, 15000, (1,), 120000),  # C 8 of n 7500 = 4·5·5·5·5·3
+    (11250, 11250, 2250, (2,), 40000),   # C 2 of the odd n 5625 = 5·5·5·5·9
+])
+@pytest.mark.parametrize("out", ["float32", "int16"])
+def test_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
+    """The direct transform on the 5-smooth block core over a cluster of 2,
+    4 or 8 blocks, forced (launch_istft(cluster_mixed=True)) so that it runs
+    whatever ISTFT_MIXED_WON holds: one "istft_cluster_mixed" launch a call
+    and no other iSTFT kernel; float32 within TOL_CLUSTER_F32 × max|out| of
+    the float64 synthesis and 1e-5 of the plain one (the factored chain past
+    a 16 384-point window, whose direct matrices grow large), PCM16 within
+    one LSB of both."""
+    w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
+    before = dict(kernels.LAUNCHES)
+    got = launch_istft(re, im, w, hop, length, nfft, out, cluster_mixed=True)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == "istft_cluster_mixed") for k in ISTFT_NAMES}
+    want64 = _istft64(re, im, w, hop, length, nfft, out)
+    plain = istft_matmul(re, im, w, hop, length, nfft=nfft,
+                         algorithm="factored" if win > 16384 else "direct", output_dtype=out)
+    _close(got, plain, out)
+    if out == "int16":
+        _close(got, want64, out)
+    else:
+        assert got.shape == want64.shape == (*lead, length)
+        assert (got - want64).abs().max().item() <= TOL_CLUSTER_F32 * want64.abs().max().item()
+
+
+@pytest.mark.parametrize("nfft,hop", [(10000, 2500), (12000, 3000), (20000, 5000),
+                                      (40000, 10000), (60000, 15000)])
+def test_istft_bluestein_cluster_forced_at_mixed_sizes(rng, cuda, nfft, hop):
+    """Bluestein's cluster forced (istft_bluestein_cluster_pallas, counted
+    "istft_cluster") and the mixed cluster forced at the same 5-smooth size:
+    one launch each, the two within TOL_CLUSTER_F32 × max|out| of each
+    other, PCM16 within one LSB; istft_pallas launches the mixed one
+    exactly where ISTFT_MIXED_WON holds the size."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import ISTFT_MIXED_WON
+
+    length = 12 * nfft
+    w, re, im = _spectra(rng, (1,), length, nfft, hop, cuda)
+    outs = {}
+    for name, fn in (("istft_cluster", lambda: istft_bluestein_cluster_pallas(re, im, w, hop,
+                                                                               length)),
+                     ("istft_cluster_mixed", lambda: launch_istft(re, im, w, hop, length, nfft,
+                                                                  cluster_mixed=True))):
+        before = dict(kernels.LAUNCHES)
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+            k: int(k == name) for k in ISTFT_NAMES}
+    a, b = outs["istft_cluster"], outs["istft_cluster_mixed"]
+    assert (a - b).abs().max().item() <= TOL_CLUSTER_F32 * b.abs().max().item()
+    _close(launch_istft(re, im, w, hop, length, nfft, "int16", bluestein_cluster=True),
+           launch_istft(re, im, w, hop, length, nfft, "int16", cluster_mixed=True), "int16")
+    before = dict(kernels.LAUNCHES)
+    istft_pallas(re, im, w, hop, length)
+    torch.cuda.synchronize()
+    routed = "istft_cluster_mixed" if nfft in ISTFT_MIXED_WON else "istft_cluster"
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+        k: int(k == routed) for k in ISTFT_NAMES}
 
 
 @pytest.mark.parametrize("nfft,hop", [(1000, 250), (768, 256), (6000, 1500), (10000, 2500)])
@@ -1559,8 +1654,9 @@ ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11
                                  13: 120, 14: 120}
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
 # cluster (an 8192-point part a block, 128 registers), and for the
-# Wiener+iSTFT's and the iSTFT's direct transform on a cluster (126 and 128
-# registers, no stack)
+# Wiener+iSTFT's and the iSTFT's direct transform on a cluster, at the
+# powers of two and on the 5-smooth block core (126 and 128 registers, no
+# stack)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
@@ -1568,7 +1664,10 @@ CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel",
                          ("wiener_cluster_dit_kernel", 2): 0,
                          ("wiener_cluster_dit_kernel", 4): 0,
                          ("istft_cluster_dit_kernel", 2): 0, ("istft_cluster_dit_kernel", 4): 0,
-                         ("istft_cluster_dit_kernel", 8): 0}
+                         ("istft_cluster_dit_kernel", 8): 0,
+                         ("istft_cluster_mixed_kernel", 2): 0,
+                         ("istft_cluster_mixed_kernel", 4): 0,
+                         ("istft_cluster_mixed_kernel", 8): 0}
 # the same for the Wiener+iSTFT's split, by (log2 P, m), and Bluestein, by
 # (log2 M, frame pairs), on an H100 build (sm_90a, 128 registers): the split holds S sources' y loads beside its 16 points and spills
 # 0-64 bytes (768 = 3 · 256, the smoke's, none); Bluestein none up to M

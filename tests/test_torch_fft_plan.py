@@ -667,12 +667,14 @@ def test_istft_cluster_plan(signals, nf, nfft, win, hop):
     cluster owning 2 · rounds − (k − 1) hop rows, each block the carry of
     its 1/C of the columns, within shared memory) and takes the fewest
     waves × rounds (CLUSTERS_AT_ONCE a wave) over every rounds it may;
-    istft_plan takes it off the powers of two (at 16 384, 32 768 and 65 536
-    the direct transform's plan, test_istft_cluster_dit_plan)."""
+    istft_plan takes it off the powers of two and ISTFT_MIXED_WON (at 16
+    384, 32 768 and 65 536 the direct transform's plan,
+    test_istft_cluster_dit_plan; at 10 000, 20 000, 40 000 and 50 000 the
+    mixed cluster's, test_istft_cluster_mixed_plan)."""
     plan = fp.istft_cluster_plan(signals, nf, nfft, win, hop)
     k = win // hop
     c = fp.cluster_blocks(nfft)
-    if nfft & (nfft - 1):
+    if nfft & (nfft - 1) and nfft not in fp.ISTFT_MIXED_WON:
         assert plan == fp.istft_plan(signals, nf, nfft, win, hop)
     assert plan.route == "cluster"
     assert plan.cluster == c and plan.groups == 1 and plan.threads == 512
@@ -722,34 +724,178 @@ def test_istft_cluster_dit_plan(signals, nf, nfft, win, hop):
 
 @pytest.mark.parametrize("nfft,hop,route,cluster", [
     (16384, 2048, "cluster_dit", 2), (32768, 4096, "cluster_dit", 4),
-    (65536, 16384, "cluster_dit", 8), (10000, 2500, "cluster", 4), (20000, 5000, "cluster", 8),
-    (40000, 10000, "cluster", 16),
+    (65536, 16384, "cluster_dit", 8), (10000, 2500, "cluster_mixed", 2),
+    (20000, 5000, "cluster_mixed", 4), (40000, 10000, "cluster_mixed", 8),
+    (12000, 3000, "cluster_mixed", 2), (60000, 15000, "cluster_mixed", 8),
+    (14000, 3500, "cluster", 4), (20250, 10125, "cluster", 8), (10125, 3375, "cluster", 4),
+    (40002, 20001, "cluster", 16),
 ])
 def test_istft_cluster_routes(nfft, hop, route, cluster):
     """istft_plan's route past 8192: the direct transform ("cluster_dit")
     on nfft / 8192 blocks at the powers of two (the reference's 16 384 and
-    32 768, and 65 536), Bluestein's cluster ("cluster") on M / 8192 blocks
-    at 10 000, 20 000 and 40 000; Bluestein's plan still exists at the
-    powers of two, for the forced A/B."""
+    32 768, and 65 536), the same on the 5-smooth block core
+    ("cluster_mixed") on C = 2, 4, 8 blocks at the sizes that won their A/B
+    (ISTFT_MIXED_WON: 10 000, 12 000, 20 000, 40 000, 60 000, ...),
+    Bluestein's cluster ("cluster") on M / 8192 blocks at the rest (a
+    factor 7, too few factors of two for C, odd, a prime past 5);
+    Bluestein's plan still exists at the direct sizes, for the forced
+    A/B."""
     plan = fp.istft_plan(2, 100, nfft, nfft, hop)
     assert (plan.route, plan.cluster) == (route, cluster)
     blue = fp.istft_cluster_plan(2, 100, nfft, nfft, hop)
     assert (blue.route, blue.cluster) == ("cluster", fp.cluster_blocks(nfft))
     if route == "cluster":
-        assert blue == plan
+        assert blue == plan and nfft not in fp.ISTFT_MIXED_WON
+    elif route == "cluster_mixed":
+        assert plan == fp.istft_cluster_mixed_plan(2, 100, nfft, nfft, hop)
+        assert nfft in fp.ISTFT_MIXED_WON and fp.mixed_factors(nfft)[0] == cluster
+        with pytest.raises(ValueError, match="no iSTFT cluster_dit plan"):
+            fp.istft_cluster_dit_plan(2, 100, nfft, nfft, hop)
     else:
         with pytest.raises(ValueError, match="no iSTFT cluster_dit plan"):
             fp.istft_cluster_dit_plan(2, 100, nfft + 2, nfft + 2, hop)
 
 
+MIXED_SIZES = [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2) if fp.mixed_factors(n)]
+
+
+def test_mixed_factors_sizes():
+    """mixed_factors takes 87 even sizes past 8192: N = C · n with C the
+    fewest of 2, 4, 8 blocks that makes n <= 8192, n one of the 29 5-smooth
+    numbers in (4096, 8192) off the powers of two; nine have an odd n, which
+    the core serves with its whole n-point table (no quarter turns); every
+    n other than those nine that is not a multiple of 4 too (4374, 6250,
+    6750, 7290)."""
+    assert len(MIXED_SIZES) == 87
+    assert {10_000, 12_000, 15_000, 20_000, 24_000, 30_000, 40_000, 48_000,
+            60_000} <= set(MIXED_SIZES)
+    ns = sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES})
+    assert len(ns) == 29 and 5000 in ns and all(4096 < n < 8192 for n in ns)
+    assert all(n & (n - 1) and fp.smooth5(n) for n in ns)
+    for nfft in MIXED_SIZES:
+        c, n = fp.mixed_factors(nfft)
+        assert c * n == nfft and c == (2 if nfft <= 16384 else 4 if nfft <= 32768 else 8)
+    odd = [nfft for nfft in MIXED_SIZES if fp.mixed_factors(nfft)[1] % 2]
+    assert odd == [11_250, 12_150, 13_122, 22_500, 24_300, 26_244, 45_000, 48_600, 52_488]
+    assert [n for n in ns if n % 4 == 2] == [4374, 6250, 6750, 7290]
+    assert [fp.mixed_factors(n) for n in (10_000, 20_000, 40_000)] == [(2, 5000), (4, 5000),
+                                                                        (8, 5000)]
+
+
+@pytest.mark.parametrize("nfft,why", [
+    (8192, "a power of two on the core"), (16384, "a power of two: cluster_dit"),
+    (65536, "a power of two: cluster_dit"), (10_002, "a prime past 5 (1667)"),
+    (14_000, "a factor 7"), (10_125, "odd"), (9_999, "odd"), (20_250, "2 · 3^4 · 5^3: C 4 "
+     "does not divide it"), (39_366, "2 · 3^9: C 8 does not divide it"),
+    (40_500, "4 · 3^4 · 5^3: C 8 does not divide it"), (8_100, "on the core's Bluestein"),
+    (65_538, "past the cluster"), (70_000, "past the cluster"),
+])
+def test_mixed_factors_refuses(nfft, why):
+    """Sizes the mixed cluster leaves alone: Bluestein's cluster keeps the
+    even ones past 8192, the powers of two stay on the direct cluster."""
+    assert fp.mixed_factors(nfft) is None, why
+    with pytest.raises(ValueError, match="no iSTFT cluster_mixed plan"):
+        fp.istft_cluster_mixed_plan(1, 40, nfft, min(nfft, 8192), min(nfft, 8192) // 4)
+    if fp.cluster_supported(nfft):
+        route = fp.istft_plan(1, 40, nfft, nfft, nfft // 4 if nfft % 4 == 0 else nfft).route
+        assert route == ("cluster_dit" if nfft & (nfft - 1) == 0 else "cluster")
+
+
+@pytest.mark.parametrize("n", sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES}) + [
+    60, 90, 135, 250, 2, 3, 5, 16, 81])
+def test_mixed_radices(n):
+    """The core's passes multiply to n, each a radix the kernel has, radix
+    16 while four factors of two remain and one pass for the rest of the
+    power of two; the schedule packs them 5 bits a pass, the first lowest,
+    as istft_cluster_mixed_launch reads them."""
+    rad = fp.mixed_radices(n)
+    assert math.prod(rad) == n and set(rad) <= set(fp.MIXED_RADICES)
+    twos = [r for r in rad if r in (2, 4, 8, 16)]
+    assert twos == sorted(twos, reverse=True) and twos.count(2) + twos.count(4) + twos.count(
+        8) <= 1
+    sched = fp.mixed_schedule(rad)
+    back = []
+    while sched:
+        back.append(sched & 31)
+        sched >>= fp.MIXED_RADIX_BITS
+    assert tuple(back) == rad
+
+
+def test_mixed_radices_refuses():
+    for n in (1, 7, 14, 4104):
+        with pytest.raises(ValueError, match="no mixed-radix passes"):
+            fp.mixed_radices(n)
+    assert fp.mixed_radices(5000) == (8, 5, 5, 5, 5) and fp.mixed_radices(6561) == (9, 9, 9, 9)
+
+
+@pytest.mark.parametrize("signals,nf,nfft,win,hop", [
+    (1, 532, 10_000, 10_000, 2500), (1, 267, 20_000, 20_000, 5000),
+    (1, 135, 40_000, 40_000, 10_000), (4, 460, 12_000, 12_000, 3000), (2, 90, 60_000, 60_000, 6000),
+    (1, 300, 11_250, 11_250, 1250), (3, 40, 45_000, 22_500, 2500), (1, 200, 10_000, 10_000, 2),
+])
+def test_istft_cluster_mixed_plan(signals, nf, nfft, win, hop):
+    """istft_cluster_mixed_plan mirrors istft_cluster_mixed_launch: C and n
+    of mixed_factors, one pair a round, a cluster owning 2 · rounds − (k −
+    1) hop rows, each block the n-point table, the n-point exchange buffer
+    and the carry of its 1/C of the columns within shared memory, the
+    fewest waves × rounds (CLUSTERS_AT_ONCE[C] a wave)."""
+    plan = fp.istft_cluster_mixed_plan(signals, nf, nfft, win, hop)
+    c, n = fp.mixed_factors(nfft)
+    k = win // hop
+    assert (plan.route, plan.cluster, plan.groups, plan.threads) == ("cluster_mixed", c, 1, 512)
+    assert plan.rows == 2 * plan.rounds - (k - 1) >= 1
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+    assert plan.blocks == signals * plan.blocks_per_signal * c
+    carry = (k - 1) * -(-hop // c)
+    assert plan.smem_bytes == 8 * (n + n + n // 16) + 4 * carry <= fp.SMEM_MAX
+    assert plan.smem_bytes == fp.cluster_mixed_smem_bytes(n, carry)
+
+    def cost(rounds):
+        rows = 2 * rounds - (k - 1)
+        per = -(-(nf + k - 1) // rows)
+        return -(-signals * per // fp.CLUSTERS_AT_ONCE[c]) * rounds
+
+    assert all(cost(plan.rounds) <= cost(r) for r in range(-(-k // 2), 300)
+               if 2 * r - (k - 1) >= 1)
+
+
+def test_istft_plan_mixed_routes():
+    """istft_plan takes the mixed cluster exactly at the sizes of
+    ISTFT_MIXED_WON (each a mixed_factors size, won on the card), Bluestein's
+    cluster at the other 5-smooth sizes and every other even size off the
+    powers of two; the powers of two stay on the direct cluster; Bluestein's
+    plan and the mixed plan exist at every mixed size, for the forced A/B."""
+    assert fp.ISTFT_MIXED_WON <= set(MIXED_SIZES)
+    for nfft in MIXED_SIZES:
+        plan = fp.istft_plan(1, 100, nfft, nfft, nfft // 4)
+        won = nfft in fp.ISTFT_MIXED_WON
+        assert (plan.route, plan.cluster) == (
+            ("cluster_mixed", fp.mixed_factors(nfft)[0]) if won
+            else ("cluster", fp.cluster_blocks(nfft)))
+        assert fp.istft_cluster_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster"
+        assert fp.istft_cluster_mixed_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster_mixed"
+    for nfft in (16384, 32768, 65536):
+        assert fp.istft_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster_dit"
+
+
 def test_istft_cluster_main_plans():
-    """The smoke's W 10 000, hop 2500 (one signal, nf 532): eleven rounds for
-    19 rows, 29 clusters of 4, one wave of the card's 30; W 20 000, hop 5000
-    (nf 267): 15 clusters of 8, the card's 15, eleven rounds."""
-    a = fp.istft_plan(1, 532, 10000, 10000, 2500)
+    """The smoke's W 10 000, hop 2500 (one signal, nf 532) on Bluestein's
+    cluster (forced there since the mixed one won): eleven rounds for 19
+    rows, 29 clusters of 4, one wave of the card's 30; W 20 000, hop 5000
+    (nf 267): 15 clusters of 8, the card's 15, eleven rounds. istft_plan's
+    mixed cluster at the same shapes: 60 clusters of 2 (one wave of 66) and
+    30 of 4 (the card's 30), six rounds for 9 rows; at W 40 000, hop 10 000
+    (nf 135) 13 clusters of 8, seven rounds for 11 rows."""
+    a = fp.istft_cluster_plan(1, 532, 10000, 10000, 2500)
     assert (a.cluster, a.rounds, a.rows, a.blocks_per_signal, a.blocks) == (4, 11, 19, 29, 116)
-    b = fp.istft_plan(1, 267, 20000, 20000, 5000)
+    b = fp.istft_cluster_plan(1, 267, 20000, 20000, 5000)
     assert (b.cluster, b.rounds, b.rows, b.blocks_per_signal, b.blocks) == (8, 11, 19, 15, 120)
+    shapes = [(532, 10000, 2500, (2, 6, 9, 60, 120)), (267, 20000, 5000, (4, 6, 9, 30, 120)),
+              (135, 40000, 10000, (8, 7, 11, 13, 104))]
+    for nf, nfft, hop, want in shapes:
+        m = fp.istft_plan(1, nf, nfft, nfft, hop)
+        assert m.route == "cluster_mixed"
+        assert (m.cluster, m.rounds, m.rows, m.blocks_per_signal, m.blocks) == want
 
 
 def test_cluster_envelope():
@@ -1119,11 +1265,20 @@ def test_istft_plan(signals, nf, nfft, win, hop):
         assert nfft > fp.CLUSTER_NFFT and not fp.bluestein_supported(nfft)
         assert plan.smem_bytes == 16 * nfft + 4 * plan.rows * hop
         return
-    if plan.cluster > 1:  # Bluestein on a cluster: even sizes past 8192
-        assert fp.cluster_supported(nfft) and plan.cluster == fp.cluster_blocks(nfft) <= 16
+    if plan.cluster > 1:  # a cluster: sizes past 8192
         assert (plan.groups, plan.threads, plan.blocks_per_sm) == (1, fp.MAX_THREADS, 1)
         assert plan.rows == 2 * plan.rounds - (k - 1)
-        assert plan.smem_bytes == fp.cluster_smem_bytes((k - 1) * -(-hop // plan.cluster))
+        carry = (k - 1) * -(-hop // plan.cluster)
+        if plan.route == "cluster_mixed":  # the 5-smooth sizes that won their A/B
+            c, n = fp.mixed_factors(nfft)
+            assert nfft in fp.ISTFT_MIXED_WON and plan.cluster == c
+            assert plan.smem_bytes == fp.cluster_mixed_smem_bytes(n, carry)
+            return
+        # Bluestein's, or the direct one at the powers of two
+        assert fp.cluster_supported(nfft) and nfft not in fp.ISTFT_MIXED_WON
+        assert plan.cluster == (nfft // fp.CLUSTER_PART if plan.route == "cluster_dit"
+                                else fp.cluster_blocks(nfft)) <= 16
+        assert plan.smem_bytes == fp.cluster_smem_bytes(carry)
         return
     assert plan.cluster == 1
     blue = fp.bluestein_supported(nfft)
@@ -1237,13 +1392,15 @@ def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
     """istft_plan raises, and istft_supported says no, where a plan does not
     fit shared memory: the direct sum past 12 800 points (its table and
     spectrum alone), which serves only past the cluster's 65 536 (13 000,
-    20 000 and 40 000 run on a cluster), and, with the card's limit cut
-    below the level's 191 488 bytes, the level."""
+    20 000 and 40 000 run on a cluster: Bluestein's at 13 000, the mixed
+    one at the others), and, with the card's limit cut below the level's
+    191 488 bytes, the level."""
     from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_supported
 
     for n in (13_000, 20_000, 40_000):
         assert fp.cluster_supported(n) and istft_supported(n, n, n // 4)
-        assert fp.istft_plan(1, 10, n, n, n // 4).cluster == fp.cluster_blocks(n)
+        assert fp.istft_plan(1, 10, n, n, n // 4).cluster == (
+            fp.mixed_factors(n)[0] if n in fp.ISTFT_MIXED_WON else fp.cluster_blocks(n))
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
             fp.istft_direct_plan(1, 10, n, n, n // 4)
     for n in (65_540, 80_000):  # past the cluster: the second level, no shared-memory table

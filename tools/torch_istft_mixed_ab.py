@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""The mixed cluster's A/B on one CUDA GPU (no JAX): at every size it takes
+(``fft_plan.mixed_factors``, 87 even sizes from 8640 to 64 800), or at the
+sizes given, the iSTFT of one 30 s track at hop nfft / 4 (11 250 and
+12 150 at nfft / 5, 13 122 at nfft / 3) on the mixed cluster
+(``launch_istft(cluster_mixed=True)``) against Bluestein's cluster forced
+(``bluestein_cluster=True``) on the same random spectra.
+
+    python3 tools/torch_istft_mixed_ab.py [nfft ...]
+
+Builds the kernels and prints ptxas's registers and stack frames of the
+cluster iSTFT kernels, the clusters the card holds at once for the mixed
+kernel at C 2, 4 and 8 (``istft_cluster_occupancy`` route 2), then a line a
+size: both routes' card ms (CUDA events, in turns: mixed, Bluestein,
+Bluestein, mixed, the median of each) and their largest error against the
+float64 synthesis over its peak. Fails if either route is off by more than
+2e-6 × the peak. Writes every number to chiprun_out/istft_mixed_ab.json and
+prints the sizes the mixed cluster won, ``fft_plan.ISTFT_MIXED_WON``'s
+candidates. Run it from the root of the checkout.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import io
+import json
+import os
+import re
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, os.getcwd())
+
+SECONDS = 30      # one track
+TOL = 2e-6        # × max|out| against the float64 synthesis (chip_smoke.TOL_CLUSTER_F32)
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from convsep_tpu_torch import kernels
+    from convsep_tpu_torch.dsp.cuda import fft_plan as fp
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import launch_istft
+    from convsep_tpu_torch.dsp.stft import num_frames
+    from convsep_tpu_torch.dsp.windows import sinebell
+
+    if cs.setup():
+        return 1
+    card = cs.smi_line()
+    print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):  # nvcc's ptxas lines
+        lib = kernels.build(verbose=True)
+    kernels.library()
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = {}
+    for m in re.finditer(r"Function properties for (\S*istft_cluster\S*)\n\s+(\d+) bytes stack "
+                         r"frame.*\n.*Used (\d+) registers", buf.getvalue()):
+        ptxas[m[1]] = {"stack": int(m[2]), "registers": int(m[3])}
+        print(f"ptxas {m[1]}: {m[2]} bytes stack, {m[3]} registers")
+
+    occupancy = {}
+    for nfft in (10000, 20000, 40000):
+        active = ctypes.c_int(0)
+        kernels.check(kernels.library().istft_cluster_occupancy(nfft, nfft, nfft // 4, 2,
+                                                                ctypes.byref(active)),
+                      "istft_cluster_occupancy")
+        c = fp.mixed_factors(nfft)[0]
+        occupancy[c] = active.value
+        print(f"clusters of {c} at once (istft_cluster_mixed_kernel, W {nfft}): the card's "
+              f"{active.value}, CLUSTERS_AT_ONCE {fp.CLUSTERS_AT_ONCE[c]}", flush=True)
+
+    sizes = ([int(a) for a in sys.argv[1:]] or
+             [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2) if fp.mixed_factors(n)])
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    for nfft in sizes:
+        hop = nfft // next(k for k in (4, 5, 3, 2) if nfft % k == 0)
+        nf = num_frames(SECONDS * cs.FS, hop)
+        L = (nf - 2) * hop
+        w = sinebell(nfft)
+        re_ = torch.randn(1, nf, nfft // 2 + 1, generator=gen, device=device)
+        im_ = torch.randn(1, nf, nfft // 2 + 1, generator=gen, device=device)
+        want = cs.istft64(re_, im_, w, hop, L)
+        peak = want.abs().max().item()
+        fns = {"mixed": lambda: launch_istft(re_, im_, w, hop, L, nfft, cluster_mixed=True),
+               "bluestein": lambda: launch_istft(re_, im_, w, hop, L, nfft,
+                                                 bluestein_cluster=True)}
+        row = {"c": fp.mixed_factors(nfft)[0], "n": fp.mixed_factors(nfft)[1],
+               "radices": fp.mixed_radices(fp.mixed_factors(nfft)[1]), "hop": hop, "nf": nf}
+        for key, fn in fns.items():
+            row[f"{key}_rel_err"] = (fn() - want).abs().max().item() / peak
+        times = {k: [] for k in fns}
+        for key in ("mixed", "bluestein", "bluestein", "mixed"):
+            times[key].append(cs.cuda_ms(fns[key], reps=5, rounds=3))
+        for key, t in times.items():
+            row[f"{key}_ms"] = sorted(t)[len(t) // 2] if len(t) % 2 else sum(t) / len(t)
+        row["won"] = row["mixed_ms"] < row["bluestein_ms"]
+        rows[nfft] = row
+        print(f"W {nfft} (C {row['c']}, n {row['n']} = {'·'.join(map(str, row['radices']))}): "
+              f"mixed {row['mixed_ms']:.4f} ms, Bluestein {row['bluestein_ms']:.4f} ms, "
+              f"{row['bluestein_ms'] / row['mixed_ms']:.2f}x; rel err {row['mixed_rel_err']:.2e} "
+              f"/ {row['bluestein_rel_err']:.2e}", flush=True)
+        if not (row["mixed_rel_err"] <= TOL and row["bluestein_rel_err"] <= TOL):
+            raise AssertionError(f"W {nfft}: past {TOL} × max|out| from the float64 synthesis")
+        del re_, im_, want
+    won = sorted(n for n, r in rows.items() if r["won"])
+    lost = sorted(n for n, r in rows.items() if not r["won"])
+    print(f"won {len(won)}: {won}")
+    print(f"lost {len(lost)}: {lost}")
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "istft_mixed_ab.json").write_text(json.dumps(
+        {"card": card, "ptxas": ptxas, "occupancy": occupancy, "rows": rows, "won": won,
+         "lost": lost}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
