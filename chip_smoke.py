@@ -29,13 +29,14 @@ result line is printed):
    random mixture and magnitudes; 3c: past 8192 points on a thread-block
    cluster at the reference kernel's 16 384 (hop 2048) and 32 768 (hop
    4096), 4 stems of a 30 s track: the direct transform on 2 and 4 blocks,
-   bf16 and f32 y and the Nyquist-row input (at 16 384 the forward STFT
-   kernel's own pair), also against the float64 synthesis, the A/B against
-   the masked chain that keys "auto" (``WIENER_CLUSTER_WON``) and
-   ``torch.istft`` of the masked spectra; Bluestein's cluster forced at 16
-   384 (the kernel the direct one replaced) and on its route at W 20 000,
-   hop 5000 with its A/B and Nyquist-row input; the clusters of 2 the card
-   holds at once;
+   and at W 10 000 (hop 2500) and 20 000 (hop 5000) the same on the
+   5-smooth block core (C 2 and 4): bf16 and f32 y and the Nyquist-row
+   input (at 16 384 the forward STFT kernel's own pair), also against the
+   float64 synthesis, the A/B against the masked chain that keys "auto"
+   (``WIENER_CLUSTER_WON``) and ``torch.istft`` of the masked spectra;
+   Bluestein's cluster forced at 16 384, 10 000 and 20 000 (the kernel the
+   direct ones replaced; at 20 000 also f32 y and its Nyquist-row input);
+   the clusters of 2 and 4 the card holds at once;
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
    right shape, kernel launch counters above zero, the kernel route
@@ -418,6 +419,21 @@ WIENER_OFFCORE_SHAPES = (
     ("W 768 direct sum", 768, 256, W768_NF, "wiener_istft_direct"),
     ("W 1000 direct sum", 1000, 250, W1000_NF, "wiener_istft_direct"),
 )
+# phase 3c: the Wiener+iSTFT past 8192 points, 4 stems of a 30 s track, bf16
+# y: (key, nfft, hop, nf, the kernel it must launch). The direct transform on
+# a cluster at the reference's 16 384 and 32 768, the same on the 5-smooth
+# block core at W 10 000 (C 2) and 20 000 (C 4), each "auto"'s route there;
+# Bluestein's cluster, which both replaced, forced at 16 384, 10 000 and 20
+# 000.
+WIENER_CLUSTER_SHAPES = (
+    ("W 16384", 16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
+    ("W 32768", 32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
+    ("W 10000", 10000, 2500, W10000_NF, "wiener_istft_cluster_mixed"),
+    ("W 20000", 20000, 5000, W20000_NF, "wiener_istft_cluster_mixed"),
+    ("W 16384 Bluestein", 16384, 2048, W16384_NF, "wiener_istft_cluster"),
+    ("W 10000 Bluestein", 10000, 2500, W10000_NF, "wiener_istft_cluster"),
+    ("W 20000 Bluestein", 20000, 5000, W20000_NF, "wiener_istft_cluster"),
+)
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
@@ -772,12 +788,8 @@ def child_other_times(device, gen) -> dict:
         total = None if total is None or ms is None else total + ms
     res["fused_adadelta"] = total
     del p, g, a, d
-    # past 8192 points: the clusters (phase 3c's shapes), Bluestein's forced at 16 384
-    for key, nfft, hop, nf, kernel in (
-            ("W 16384", 16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
-            ("W 32768", 32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
-            ("W 20000", 20000, 5000, W20000_NF, "wiener_istft_cluster"),
-            ("W 16384 Bluestein", 16384, 2048, W16384_NF, "wiener_istft_cluster")):
+    # past 8192 points: the clusters and Bluestein's forced (phase 3c's shapes)
+    for key, nfft, hop, nf, kernel in WIENER_CLUSTER_SHAPES:
         fn = wiener_fn(kernel)[0]
         w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
         res[f"wiener_istft {key}"] = profile_ms(lambda: fn(y, re, im, w, hop, L))["device_ms"]
@@ -918,7 +930,8 @@ def wiener_inputs(nfft: int, hop: int, nf: int, S: int, device, gen, B: int = 1,
 
 WIENER_NAMES = ("wiener_istft", "wiener_istft_ny", "wiener_istft_cluster",
                 "wiener_istft_ny_cluster", "wiener_istft_cluster_dit",
-                "wiener_istft_ny_cluster_dit", "wiener_istft_split", "wiener_istft_ny_split",
+                "wiener_istft_ny_cluster_dit", "wiener_istft_cluster_mixed",
+                "wiener_istft_ny_cluster_mixed", "wiener_istft_split", "wiener_istft_ny_split",
                 "wiener_istft_bluestein", "wiener_istft_ny_bluestein", "wiener_istft_direct",
                 "wiener_istft_ny_direct")
 
@@ -1045,27 +1058,30 @@ def masked_istft_ms(nfft: int, hop: int, nf: int, w, L: int, y, re, im, device) 
     return cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
 
 
-def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str) -> float:
+def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str,
+                    fn=None) -> float:
     """The Wiener+iSTFT kernel's Nyquist-row input against its plain version
     (p = 1 and 2, conserve_last, f32 and int16) and, bit for bit, against
-    the same kernel fed the concatenated spectrum; each call one launch of
-    ``kernel``. Returns the worst float32 error."""
+    the same kernel fed the concatenated spectrum; each call (through
+    ``fn``, ``wiener_istft`` by default) one launch of ``kernel``. Returns
+    the worst float32 error."""
     import torch
     from convsep_tpu_torch import kernels
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import wiener_istft, wiener_istft_plain
 
+    fn = fn or wiener_istft
     full_re = torch.cat([re, ny[..., None]], -1)
     full_im = torch.cat([im, torch.zeros_like(ny)[..., None]], -1)
     worst = 0.0
     for kw in ({"p": 1.0}, {"p": 2.0}, {"p": 1.0, "conserve_last": True}):
         for out in ("float32", "int16"):
             before = dict(kernels.LAUNCHES)
-            got = wiener_istft(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
+            got = fn(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
             torch.cuda.synchronize()
             moved = {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES}
             if moved != {k: int(k == kernel) for k in WIENER_NAMES}:
                 raise AssertionError(f"wiener ny {name}: launched {moved}, want one {kernel}")
-            cat = wiener_istft(y, full_re, full_im, w, hop, L, output_dtype=out, **kw)
+            cat = fn(y, full_re, full_im, w, hop, L, output_dtype=out, **kw)
             want = wiener_istft_plain(y, re, im, w, hop, L, output_dtype=out, ny=ny, **kw)
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
@@ -1081,20 +1097,22 @@ def wiener_ny_check(name: str, w, hop: int, L: int, y, re, im, ny, kernel: str) 
 
 
 def phase_wiener_cluster(device, gen) -> dict:
-    """The Wiener+iSTFT past 8192 points, 4 stems of a 30 s track. At the
-    reference kernel's 16 384 (hop 2048) and 32 768 (hop 4096), its route,
-    the direct transform on a cluster of 2 and 4 blocks: bf16 and f32 y as
-    phase 3 (one "wiener_istft_cluster_dit" launch a call, also held to the
-    float64 synthesis), the Nyquist-row input (at 16 384 the forward STFT
-    kernel's own pair) as phase 11 (one "wiener_istft_ny_cluster_dit"
-    launch), ``torch.istft`` of the masked spectra, and the A/B that keys
-    "auto": the kernel against the masked chain "auto" takes otherwise (the
-    f32 mask, then ``istft_matmul``'s own "auto", the iSTFT kernel on a
-    cluster). Bluestein's cluster ("wiener_istft_cluster"), which the
-    direct transform replaced there, forced at 16 384 (bf16 y), and on its
-    route at W 20 000, hop 5000 (bf16 and f32 y) with its Nyquist-row
-    input and A/B. The
-    clusters of 2 the card holds at once. It fails if a plan in
+    """The Wiener+iSTFT past 8192 points, 4 stems of a 30 s track
+    (``WIENER_CLUSTER_SHAPES``). At each shape of a route, the reference
+    kernel's 16 384 (hop 2048) and 32 768 (hop 4096) on the direct transform
+    on a cluster of 2 and 4 blocks ("wiener_istft_cluster_dit"), W 10 000
+    (hop 2500) and 20 000 (hop 5000) on the same over the 5-smooth block
+    core, C 2 and 4 ("wiener_istft_cluster_mixed"): bf16 and f32 y as phase
+    3 (one launch a call, also held to the float64 synthesis), the
+    Nyquist-row input (at 16 384 the forward STFT kernel's own pair) as phase
+    11 (one launch of the ``_ny_`` kernel), ``torch.istft`` of the masked
+    spectra, and the A/B that keys "auto": the kernel against the masked
+    chain "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
+    "auto": the iSTFT kernel on a cluster at the powers of two, the factored
+    products at 10 000 and 20 000). Bluestein's cluster
+    ("wiener_istft_cluster"), which both replaced, forced at 16 384, 10 000
+    and 20 000 (bf16 y; at 20 000 also f32 y and its Nyquist-row input). The
+    clusters of 2 and 4 the card holds at once. It fails if a plan in
     ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
     import ctypes
 
@@ -1105,11 +1123,15 @@ def phase_wiener_cluster(device, gen) -> dict:
     from convsep_tpu_torch.dsp.cuda.ct_stft_kernel import stft_ct_pallas
 
     res = {}
-    for nfft, hop, nf, kernel in ((16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
-                                  (32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
-                                  (20000, 5000, W20000_NF, "wiener_istft_cluster")):
-        key = f"W {nfft}"
+    for key, nfft, hop, nf, kernel in WIENER_CLUSTER_SHAPES:
+        forced = kernel == "wiener_istft_cluster"
+        if forced:
+            log(f"  Bluestein's cluster forced at {key.split()[1]}, the kernel the direct "
+                "transform replaced:")
         r = phase_wiener(key, nfft, hop, nf, 4, device, gen, kernel=kernel)
+        res[key] = r
+        if forced and nfft != 20000:
+            continue
         r["float32_y"] = phase_wiener(key + " f32 y", nfft, hop, nf, 4, device, gen,
                                       ydt="float32", kernel=kernel)
         w, L, y, re, im = wiener_inputs(nfft, hop, nf, 4, device, gen)
@@ -1120,30 +1142,37 @@ def phase_wiener_cluster(device, gen) -> dict:
             re_b, im_b, ny = (re[..., :-1].contiguous(), im[..., :-1].contiguous(),
                               re[..., -1].contiguous())
         r["ny_max_abs_err"] = wiener_ny_check(key, w, hop, L, y, re_b, im_b, ny,
-                                              kernel.replace("_istft", "_istft_ny"))
-        r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device, WIENER_CLUSTER_WON,
-                           "WIENER_CLUSTER_WON"))
-        r.update(library_ms=masked_istft_ms(nfft, hop, nf, w, L, y, re, im, device),
-                 library="torch.istft of the 4 masked spectra (the synthesis alone)")
-        log(f"  wiener {key}: torch.istft of the masked spectra {r['library_ms']:.4f} ms")
-        res[key] = r
+                                              kernel.replace("_istft", "_istft_ny"),
+                                              wiener_fn(kernel)[0])
+        if not forced:
+            r.update(wiener_ab(key, nfft, hop, w, L, y, re, im, device, WIENER_CLUSTER_WON,
+                               "WIENER_CLUSTER_WON"))
+            r.update(library_ms=masked_istft_ms(nfft, hop, nf, w, L, y, re, im, device),
+                     library="torch.istft of the 4 masked spectra (the synthesis alone)")
+            log(f"  wiener {key}: torch.istft of the masked spectra {r['library_ms']:.4f} ms")
         del y, re, im, re_b, im_b, ny
         torch.cuda.empty_cache()
-    log("  Bluestein's cluster forced at W 16384, the kernel the direct transform replaced:")
-    res["W 16384 Bluestein"] = phase_wiener("W 16384 Bluestein", 16384, 2048, W16384_NF, 4,
-                                            device, gen, kernel="wiener_istft_cluster")
-    plan = fft_plan.wiener_cluster_dit_plan(1, 4, W16384_NF, 16384, 2048)
-    active = ctypes.c_int(0)
-    kernels.check(kernels.library().wiener_cluster_dit_launch(
-        None, 0, None, None, None, None, None, None, None, 0, 1, 4, W16384_NF, 16384, 2048, 1,
-        plan.rounds, 0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None),
-        "wiener_cluster_dit_launch")
-    res["clusters_at_once_2"] = {"card": active.value, "plan": fft_plan.CLUSTERS_AT_ONCE[2]}
-    log(f"  clusters of 2 at once (wiener_cluster_dit_kernel, W 16384): the card's "
-        f"{active.value}, CLUSTERS_AT_ONCE[2] {fft_plan.CLUSTERS_AT_ONCE[2]}")
-    if active.value != fft_plan.CLUSTERS_AT_ONCE[2]:
-        raise AssertionError(f"the card holds {active.value} clusters of 2 at once, the plan "
-                             f"weighs {fft_plan.CLUSTERS_AT_ONCE[2]}")
+    lib = kernels.library()
+    for nfft, hop, nf, launch, c in (
+            (16384, 2048, W16384_NF, lib.wiener_cluster_dit_launch, 2),
+            (10000, 2500, W10000_NF, lib.wiener_cluster_mixed_launch, 2),
+            (20000, 5000, W20000_NF, lib.wiener_cluster_mixed_launch, 4)):
+        plan = fft_plan.wiener_plan(1, 4, nf, nfft, hop)
+        sched = ((fft_plan.mixed_schedule(fft_plan.mixed_radices(nfft // c)),)
+                 if plan.route == "cluster_mixed" else ())
+        active = ctypes.c_int(0)
+        kernels.check(launch(
+            None, 0, None, None, None, None, None, None, None, 0, 1, 4, nf, nfft, hop, 1,
+            plan.rounds, *sched, 0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None),
+            plan.route)
+        res[f"clusters_at_once_{plan.route}_{c}"] = {"card": active.value,
+                                                      "plan": fft_plan.CLUSTERS_AT_ONCE[c]}
+        log(f"  clusters of {c} at once ({plan.route}, W {nfft}): the card's {active.value}, "
+            f"CLUSTERS_AT_ONCE[{c}] {fft_plan.CLUSTERS_AT_ONCE[c]}")
+        if (plan.cluster, active.value) != (c, fft_plan.CLUSTERS_AT_ONCE[c]):
+            raise AssertionError(f"the card holds {active.value} clusters of {plan.cluster} at "
+                                 f"once ({plan.route}, W {nfft}), the plan weighs "
+                                 f"{fft_plan.CLUSTERS_AT_ONCE[c]} of {c}")
     return res
 
 
@@ -4556,9 +4585,10 @@ def main(argv: list[str]) -> int:
         wie_batches[f"dsd100 B {B}"] = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, B)
         torch.cuda.empty_cache()
     log("phase 3c: the Wiener+iSTFT past 8192 points on a thread-block cluster (W 16 384, hop "
-        "2048 and W 32 768, hop 4096 on the direct transform; 4 stems of a 30 s track; bf16 and "
-        "f32 y, the Nyquist-row input), its A/B against the masked chain, torch.istft of the "
-        "masked spectra; Bluestein's cluster forced at W 16 384 and on its route at W 20 000")
+        "2048 and W 32 768, hop 4096 on the direct transform; W 10 000, hop 2500 and W 20 000, "
+        "hop 5000 on the 5-smooth block core; 4 stems of a 30 s track; bf16 and f32 y, the "
+        "Nyquist-row input), its A/B against the masked chain, torch.istft of the masked "
+        "spectra; Bluestein's cluster forced at W 16 384, 10 000 and 20 000")
     wie_cl = phase_wiener_cluster(device, gen)
     torch.cuda.empty_cache()
 
@@ -4667,8 +4697,7 @@ def main(argv: list[str]) -> int:
     others = dev["others"]
     for name, r in (("wiener_istft", wie), ("wiener_istft dsd100", wie_dsd),
                     *((f"wiener_istft {key}", offcore[key]) for key, *_ in WIENER_OFFCORE_SHAPES),
-                    *((f"wiener_istft {key}", wie_cl[key])
-                      for key in ("W 16384", "W 32768", "W 20000", "W 16384 Bluestein")),
+                    *((f"wiener_istft {key}", wie_cl[key]) for key, *_ in WIENER_CLUSTER_SHAPES),
                     ("wiener_apply", wap["dsd100 pallas route"]), ("band_decode", band),
                     *((f"band_decode_stream {key}", band_stream[key])
                       for key in (f"C2 {c2} I {i}" for _, _, _, c2, _, i in BAND_STREAM_SHAPES)),
@@ -4773,6 +4802,7 @@ def main(argv: list[str]) -> int:
                    "istft_cluster_mixed", "istft_level2",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
                    "wiener_istft_cluster_dit", "wiener_istft_ny_cluster_dit",
+                   "wiener_istft_cluster_mixed", "wiener_istft_ny_cluster_mixed",
                    "wiener_istft_split", "wiener_istft_ny_split", "wiener_istft_bluestein",
                    "wiener_istft_ny_bluestein", "wiener_istft_direct", "wiener_istft_ny_direct",
                    "ct_stft_level", "ct_stft_cluster", "band_decode_stream"):
@@ -4836,21 +4866,40 @@ def main(argv: list[str]) -> int:
          **launched("wiener_istft_cluster_dit"), **wie_cl["W 16384"],
          "w32768_hop4096": wie_cl["W 32768"],
          "bluestein_forced_w16384": wie_cl["W 16384 Bluestein"],
-         "clusters_at_once_2": wie_cl["clusters_at_once_2"],
+         "clusters_at_once_2": wie_cl["clusters_at_once_cluster_dit_2"],
          "ny": {**launched("wiener_istft_ny_cluster_dit"),
                 "max_abs_err_16384": wie_cl["W 16384"]["ny_max_abs_err"],
                 "max_abs_err_32768": wie_cl["W 32768"]["ny_max_abs_err"]}},
+        {"name": "wiener_istft_cluster_mixed", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/wiener_istft.cu (device code wiener_common.cuh, "
+                   "fft_common.cuh::ClusterMixed)", "entry": "wiener_cluster_mixed_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
+         "serves": "the 5-smooth even nfft = C n, C 2 or 4, from 8640 to 32 400 "
+                   "(fft_plan.WIENER_MIXED_WON: 10 000, 20 000 and 56 more): the direct "
+                   "transform by decimation in time on a thread-block cluster, each block's n "
+                   "points on the mixed-radix core, a pair of sources a cluster; no preset",
+         **launched("wiener_istft_cluster_mixed"), **wie_cl["W 10000"],
+         "w20000_hop5000": wie_cl["W 20000"],
+         "bluestein_forced_w10000": wie_cl["W 10000 Bluestein"],
+         "bluestein_forced_w20000": wie_cl["W 20000 Bluestein"],
+         "clusters_at_once_2": wie_cl["clusters_at_once_cluster_mixed_2"],
+         "clusters_at_once_4": wie_cl["clusters_at_once_cluster_mixed_4"],
+         "ny": {**launched("wiener_istft_ny_cluster_mixed"),
+                "max_abs_err_10000": wie_cl["W 10000"]["ny_max_abs_err"],
+                "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"]}},
         {"name": "wiener_istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "serves": "even 8192 < nfft < 32 768 that are not powers of two (10 000, 20 000): "
-                   "Bluestein run backwards on a thread-block cluster of 4 or 8 blocks, a pair "
-                   "of sources a cluster; wiener_bluestein_cluster_pallas forces it at the "
-                   "powers of two; no preset",
-         **launched("wiener_istft_cluster"), **wie_cl["W 20000"],
+         "serves": "even 8192 < nfft < 32 768 that are neither powers of two nor 5-smooth "
+                   "(8194, 14 000): Bluestein run backwards on a thread-block cluster of 4 or 8 "
+                   "blocks, a pair of sources a cluster; wiener_bluestein_cluster_pallas forces "
+                   "it at the powers of two and the 5-smooth sizes (timed forced at W 20 000, "
+                   "10 000 and 16 384); no preset",
+         **launched("wiener_istft_cluster"), **wie_cl["W 20000 Bluestein"],
+         "forced_w10000_hop2500": wie_cl["W 10000 Bluestein"],
          "forced_w16384_hop2048": wie_cl["W 16384 Bluestein"],
          "ny": {**launched("wiener_istft_ny_cluster"),
-                "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"]}},
+                "max_abs_err_20000": wie_cl["W 20000 Bluestein"]["ny_max_abs_err"]}},
         {"name": "stft", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/stft_dft.cu", "entry": "stft_fft_kernel",
          "replaces": "convsep_tpu/dsp/pallas/stft_kernel.py:88",

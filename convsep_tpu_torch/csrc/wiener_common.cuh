@@ -5,7 +5,8 @@
 // (store_pair), and the kernels on the mixed-radix split
 // (wiener_split_block), on Bluestein (wiener_bluestein_block) and on a
 // thread-block cluster (wiener_cluster_block, Bluestein;
-// wiener_cluster_dit_block, the powers of two by decimation in time).
+// wiener_cluster_dit_block, the powers of two by decimation in time;
+// wiener_cluster_mixed_block, the same on the 5-smooth block core).
 // wiener_istft.cu's header says what the kernels compute, what bounds them
 // and how they are built.
 
@@ -60,6 +61,14 @@ __device__ __forceinline__ float y_at(const Args& a, long long i) {
                            : __ldg(static_cast<const float*>(a.y) + i), a.p2);
 }
 
+// y_at through one byte address for either dtype: a load needs one
+// address register pair where y_at's two dtypes need two.
+__device__ __forceinline__ float y_shift(const Args& a, long long i) {
+  const char* p = static_cast<const char*>(a.y) + (i << (a.y_bf16 ? 1 : 2));
+  return relu_pow(a.y_bf16 ? __bfloat162float(__ldg(reinterpret_cast<const __nv_bfloat16*>(p)))
+                           : __ldg(reinterpret_cast<const float*>(p)), a.p2);
+}
+
 // The masks of sources s0 and s1 from the denominator's source sum d and
 // their magnitudes ya, yb, times the mixture bin (mr, mi): (Re A, Im A, Re
 // B, Im B). The ratio follows models/masks.py::wiener_mask: the denominator
@@ -98,10 +107,21 @@ __device__ __forceinline__ float4 masked_bin(const Args& a, const Place& pl, int
 // masked_bin at the K bins k0 + stride i (i < K) of frame f, all below
 // Nyquist (bin 0 an edge), the same arithmetic in the same order: the
 // loads go source by source, each source's K bins at once, so they are in
-// flight together; neighbouring threads' k0 are neighbouring bins.
-template <int K>
+// flight together; neighbouring threads' k0 are neighbouring bins. Only
+// the first KF bins (all K by default) are read unguarded: bin k0 + stride i
+// for i >= KF is read only below k_end (the others come out 0), for a share
+// of bins that is not K strides of every thread. Such a bin's load is never
+// skipped by a branch, which would serialize the loads behind it: it reads
+// min(bin, k_end - 1) and selects 0 past k_end. With kLean the source loop
+// keeps only the denominators, and the pair's own magnitudes are read again
+// after it (from L1), each y load through one address (y_shift): in
+// wiener_cluster_mixed_block, whose share needs the guards' registers, the
+// loads then spill nothing (48 bytes without); wiener_cluster_dit_block,
+// which spills nothing either way, keeps the one pass (4-5 % faster on an
+// H100).
+template <int K, int KF = K, bool kLean = false>
 __device__ __forceinline__ void masked_bins(float4 (&ab)[K], const Args& a, const Place& pl,
-                                            int N, int f, int k0, int stride) {
+                                            int N, int f, int k0, int stride, int k_end = 0) {
   const int half = N / 2, bins = half + 1;
   const long long frame = (long long)pl.n * a.nf + f;
   const long long mix = frame * (a.ny ? half : bins) + k0;
@@ -110,20 +130,37 @@ __device__ __forceinline__ void masked_bins(float4 (&ab)[K], const Args& a, cons
   float d[K], ya[K], yb[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) d[i] = ya[i] = yb[i] = 0.f;
+  // the offset of bin i from k0 that is read, and whether it counts
+  const auto at = [&](int i) {
+    return i < KF ? i * stride : min(k0 + i * stride, k_end - 1) - k0;
+  };
+  const auto in = [&](int i) { return i < KF || k0 + i * stride < k_end; };
   for (int s = 0; s < a.S; ++s) {
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      const float q = y_at(a, y0 + s * src + i * stride);
+      const float q0 = kLean ? y_shift(a, y0 + s * src + at(i)) : y_at(a, y0 + s * src + at(i));
+      const float q = in(i) ? q0 : 0.f;
       d[i] += q;
-      ya[i] = s == pl.s0 ? q : ya[i];
-      yb[i] = s == pl.s0 + 1 ? q : yb[i];
+      if constexpr (!kLean) {
+        ya[i] = s == pl.s0 ? q : ya[i];
+        yb[i] = s == pl.s0 + 1 ? q : yb[i];
+      }
+    }
+  }
+  if constexpr (kLean) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float qa = y_shift(a, y0 + pl.s0 * src + at(i));
+      const float qb = pl.has1 ? y_shift(a, y0 + (pl.s0 + 1) * src + at(i)) : 0.f;
+      ya[i] = in(i) ? qa : 0.f;
+      yb[i] = in(i) ? qb : 0.f;
     }
   }
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    const float mr = __ldg(a.re + mix + i * stride);
-    const float mi = k0 + i * stride == 0 ? 0.f : __ldg(a.im + mix + i * stride);
-    ab[i] = mask_pair(a, pl, d[i], ya[i], yb[i], mr, mi);
+    const float mr = __ldg(a.re + mix + at(i));
+    const float mi = k0 + at(i) == 0 ? 0.f : __ldg(a.im + mix + at(i));
+    ab[i] = mask_pair(a, pl, d[i], ya[i], yb[i], in(i) ? mr : 0.f, in(i) ? mi : 0.f);
   }
 }
 
@@ -198,7 +235,8 @@ __device__ __forceinline__ void cluster_pair_gather(Sample sample, float* carry0
 // frame outside [0, nf) loads zeros). a.tw is the M-point quarter table,
 // chirp (N) and chat (M) fft_plan.bluestein_tables; smem4 the block's
 // dynamic shared memory (cluster_smem_bytes with 2 (k - 1) columns' carry).
-// The power-of-two sizes run wiener_cluster_dit_block.
+// The power-of-two sizes run wiener_cluster_dit_block, the 5-smooth ones
+// that won their A/B wiener_cluster_mixed_block.
 template <int LOG2P, int C>
 __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& a,
                                                      const float2* __restrict__ chirp,
@@ -315,6 +353,89 @@ __device__ __forceinline__ void wiener_cluster_dit_block(float4* smem4, const Ar
     D::run_staged(buf, tws, a.tw, rank, threadIdx.x);  // ends in a cluster barrier
     cluster_pair_gather([&](int t) { return D::point(buf, a.tw, t); }, carry0, carry1, a, pl,
                         N, f, cols, u0, ncols, j_end);
+    cluster_sync();  // the peers have read this round's buffers
+  }
+}
+
+// wiener_cluster_dit_block for N = C n, n 5-smooth (C 2 or 4, 8640 ... 32
+// 400; fft_common.cuh's ClusterMixed): the same rounds of one frame of a
+// pair of sources, each block's n points on the mixed-radix core. A round:
+// 1. block r masks its contiguous share of the bins, [r S, (r + 1) S) with
+//    S = ceil(N / 2 / C) (n / 2 at even n; the last block also Nyquist), at
+//    most eight a thread at a stride of the block (masked_bins, guarded at
+//    the share's end), and puts conj Z[k] and conj Z[N - k] into their
+//    owners (ClusterMixed::put); a cluster barrier;
+// 2. ClusterMixed::run_staged: the block's n-point transform in the passes
+//    of `sched` on its points t = r (mod C), the combine's twiddle, a
+//    cluster barrier;
+// 3. the gather of the block's 1/C of the hop columns, each sample read
+//    across the cluster (ClusterMixed::point), with the two sources'
+//    carries (cluster_pair_gather); a cluster barrier.
+// a.tw is the N-point table e^{-2 pi i m / N} (fft_plan.dft_table), sched
+// fft_plan.mixed_schedule(mixed_radices(n)); smem4 holds
+// cluster_mixed_smem_bytes with 2 (k - 1) columns' carry. T is blockDim.x
+// (the card's 512), n <= 16 T: a stride the compiler knows keeps the mask
+// loads' addresses in immediates (a stride read from blockDim.x spilled 72
+// bytes at 128 registers).
+template <int C, int T>
+__device__ __forceinline__ void wiener_cluster_mixed_block(float4* smem4, const Args& a, int n,
+                                                           int rounds, unsigned long long sched) {
+  using D = ClusterMixed<C>;
+  constexpr int K = kPoints / 2;  // bins a thread masks at most: S <= 8 T
+  // bins every thread masks: at the card's 512 threads each block's share
+  // is at least 2048 bins (2160 at 8640; wiener_cluster_mixed_launch
+  // checks), so the first four strides need no guard
+  constexpr int KF = T == kMaxThreads ? 4 : 0;
+  const int N = C * n;
+  const int half = N / 2;
+  const int share = (half + C - 1) / C;
+  const int rank = blockIdx.x % C;
+  const Place pl = place(a, blockIdx.x / C);
+  const int k = N / a.hop;  // frames that overlap one hop row
+  const int cols = cluster_columns(a.hop, C);
+  const int u0 = rank * cols;
+  const int ncols = max(0, min(cols, a.hop - u0));
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + n;
+  float* carry0 = reinterpret_cast<float*>(buf + split_exchange_len(n));  // (k - 1) cols
+  float* carry1 = carry0 + (k - 1) * cols;
+  const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
+  const int k0 = rank * share + threadIdx.x;  // the thread's first bin
+  const int k_end = min(half, (rank + 1) * share);
+
+  D::load_tables(tws, a.tw, n);
+  for (int i = threadIdx.x; i < 2 * (k - 1) * cols; i += blockDim.x) carry0[i] = 0.f;
+  // A cluster barrier, not a block one: the first round's puts write the
+  // peers' shared memory, so every block of the cluster must be running.
+  cluster_sync();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int f = pl.j0 - (k - 1) + r;  // the round's frame
+    const bool live = f >= 0 && f < a.nf;
+    float4 ab[K];
+    if (live) {
+      masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);
+    } else {
+#pragma unroll
+      for (int i = 0; i < K; ++i) ab[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
+      const int kk = k0 + i * T;
+      if (kk < k_end) {
+        D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+        if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+      }
+    }
+    if (rank == C - 1 && threadIdx.x == 0) {  // Nyquist: real parts only
+      const float4 q = live ? masked_bin(a, pl, N, f, half, true)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      D::put(buf, half, make_float2(q.x, -q.z));
+    }
+    cluster_sync();  // every block's points are in place
+    D::run_staged(buf, tws, a.tw, n, sched, rank);  // ends in a cluster barrier
+    cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
+                        pl, N, f, cols, u0, ncols, j_end);
     cluster_sync();  // the peers have read this round's buffers
   }
 }

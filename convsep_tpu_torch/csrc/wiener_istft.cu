@@ -58,16 +58,23 @@
 //   runs one Fft<13> on its points t = r (mod C) and applies the combine's
 //   twiddle; the radix-C combine is read in the gather. 144 384 bytes of
 //   shared memory a block at hop N/8.
+// * The 5-smooth sizes, N = C n with n = 2^a 3^b 5^c (10 000, 20 000 and 56
+//   more from 8640 to 32 400; wiener_cluster_mixed_kernel,
+//   wiener_common.cuh::wiener_cluster_mixed_block): the same rounds, each
+//   block's n points on the mixed-radix core (fft_common.cuh::ClusterMixed,
+//   mixed_fft: Stockham passes of radix 2-16, 3, 5 and 9 in a schedule the
+//   host plans), the whole N-point table in global memory for the combine.
 // * The other even sizes (wiener_cluster_kernel,
 //   wiener_common.cuh::wiener_cluster_block): Bluestein run backwards on a
 //   cluster of 4 or 8 blocks (M 32 768 or 65 536,
 //   fft_common.cuh::ClusterChirp), istft.cu's istft_cluster_kernel with the
 //   mask in the point loads; every block's first stage reads the whole
 //   frame, and each round runs two 8192-point transforms a block.
-// The plans (fft_plan.wiener_cluster_dit_plan, wiener_cluster_plan) weigh
-// waves of the clusters the card holds at once against rounds. At W 16 384,
-// hop 2048, 4 stems of a 30 s track (648 frames, f32 y) the bound is bytes:
-// 85 MB of y, 42 MB of mixture and 21 MB of stems, 0.044 ms.
+// The plans (fft_plan.wiener_cluster_dit_plan, wiener_cluster_mixed_plan,
+// wiener_cluster_plan) weigh waves of the clusters the card holds at once
+// against rounds. At W 16 384, hop 2048, 4 stems of a 30 s track (648
+// frames, f32 y) the bound is bytes: 85 MB of y, 42 MB of mixture and 21 MB
+// of stems, 0.044 ms.
 //
 // The split's sizes, N = m 2^a (m 3, 5, 9, 15, 2^a >= 16, N <= 8192: 768,
 // 1280, 1536, 2304, 3072, ...; wiener_split.cu::wiener_split_kernel,
@@ -277,6 +284,25 @@ cudaError_t launch_wiener_cluster_dit(const Args& a, long long clusters, int rou
                             stream, active, a, rounds);
 }
 
+// One block an SM, as wiener_cluster_kernel.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_mixed_kernel(
+    Args a, int n, int rounds, unsigned long long sched) {
+  extern __shared__ float4 smem4[];
+  wiener_cluster_mixed_block<C, kMaxThreads>(smem4, a, n, rounds, sched);
+}
+
+// the same for the 5-smooth block core, N = C n (C 2 or 4)
+template <int C>
+cudaError_t launch_wiener_cluster_mixed(const Args& a, long long clusters, int n, int rounds,
+                                        unsigned long long sched, cudaStream_t stream,
+                                        int* active) {
+  const int k = C * n / a.hop;
+  return launch_clusters<C>(wiener_cluster_mixed_kernel<C>, clusters,
+                            cluster_mixed_smem_bytes(n, 2 * (k - 1) * cluster_columns(a.hop, C)),
+                            stream, active, a, n, rounds, sched);
+}
+
 // The cluster launches' common arguments: R = rounds - (k - 1) hop rows a
 // cluster, a.pairs clusters a row range; false where R < 1.
 bool cluster_args(Args* a, int nf, int nfft, int hop, int rounds) {
@@ -425,4 +451,37 @@ extern "C" int wiener_cluster_dit_launch(
   if (nfft == 2 << kMaxLog2)
     return (int)launch_wiener_cluster_dit<2>(a, clusters, rounds, s, active);
   return (int)launch_wiener_cluster_dit<4>(a, clusters, rounds, s, active);
+}
+
+// The 5-smooth even sizes past 8192 up to 32 768 (fft_plan.mixed_factors:
+// nfft = C n, C 2 or 4, n = 2^a 3^b 5^c; 10 000, 20 000 and 56 more): the
+// direct inverse by decimation in time on a cluster of C blocks of 512
+// threads a pair of sources, one frame a round, each block's n points on
+// the mixed-radix core in the passes of `sched` (fft_plan.mixed_schedule:
+// their radices multiply to n); tw the nfft-point table e^{-2 pi i m /
+// nfft} (fft_plan.dft_table); rounds from fft_plan.wiener_cluster_mixed_plan,
+// each cluster owning rounds - (nfft/hop - 1) hop rows. `active` as
+// wiener_cluster_launch's.
+extern "C" int wiener_cluster_mixed_launch(
+    const void* y, int y_bf16, const void* re, const void* im, const void* ny,
+    const void* win_over_n, const void* inv_norm, const void* tw, void* out, int out_int16,
+    int nt, int S, int nf, int nfft, int hop, int length, int rounds, long long sched, int p2,
+    float eps, int conserve_last, int* active, void* stream) {
+  int c, n;
+  if (!mixed_sizes(nfft, &c, &n) || c > 4 || !mixed_schedule_ok(n, (unsigned long long)sched) ||
+      hop < 1 || nfft % hop != 0 || nt < 1 || S < 1 || nf < 1)
+    return (int)cudaErrorInvalidValue;
+  const int half = nfft / 2, share = (half + c - 1) / c;
+  if (half - (c - 1) * share < 4 * kMaxThreads)  // the last block's bins: each unguarded stride
+    return (int)cudaErrorInvalidValue;
+  Args a{y, static_cast<const float*>(re), static_cast<const float*>(im),
+         static_cast<const float*>(ny), static_cast<const float*>(win_over_n),
+         static_cast<const float*>(inv_norm), static_cast<const float2*>(tw), out, y_bf16,
+         out_int16, S, nf, hop, length, p2, conserve_last, eps, 0, 0, (S + 1) / 2};
+  if (!cluster_args(&a, nf, nfft, hop, rounds)) return (int)cudaErrorInvalidValue;
+  const long long clusters = (long long)nt * a.per_signal * a.pairs;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto q = (unsigned long long)sched;
+  if (c == 2) return (int)launch_wiener_cluster_mixed<2>(a, clusters, n, rounds, q, s, active);
+  return (int)launch_wiener_cluster_mixed<4>(a, clusters, n, rounds, q, s, active);
 }

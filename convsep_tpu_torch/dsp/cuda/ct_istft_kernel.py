@@ -18,12 +18,16 @@ wrappers and plain versions.
   ``wiener_istft_cluster``), at the powers of two there (16 384, 32 768)
   the direct transform by decimation in time over a cluster of 2 or 4
   blocks (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
-  wiener_cluster_dit_plan`, ``wiener_istft_cluster_dit``); with ``ny`` each
-  counts as ``wiener_istft_ny``, ``wiener_istft_ny_split``, and so on.
+  wiener_cluster_dit_plan`, ``wiener_istft_cluster_dit``), at the 5-smooth
+  sizes in ``fft_plan.WIENER_MIXED_WON`` (10 000, 20 000, ...) the same with
+  each block's points on a mixed-radix core
+  (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_mixed_plan`,
+  ``wiener_istft_cluster_mixed``); with ``ny`` each counts as
+  ``wiener_istft_ny``, ``wiener_istft_ny_split``, and so on.
   :func:`wiener_direct_pallas` forces the direct sum per sample that served
   the sizes off the core before (``wiener_istft_direct``), and
   :func:`wiener_bluestein_cluster_pallas` Bluestein's cluster at the powers
-  of two past 8192, to hold and time them.
+  of two and the 5-smooth sizes past 8192, to hold and time them.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -48,6 +52,8 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     bluestein_tables,
     dft_table,
     fft_supported,
+    mixed_radices,
+    mixed_schedule,
     split_factors,
     synthesis_tables,
     twiddles,
@@ -63,12 +69,26 @@ _LANES = 128  # the reference kernel's lane-width factor of nfft
 
 # The cluster plans' (nfft, hop) at which the Wiener+iSTFT kernel beat the
 # plain masked chain (the mask, then the iSTFT "auto" takes) in a timed A/B
-# on an H100 (chip_smoke.py phase 3c, PERF.md row 1″): "auto" takes the
-# kernel past 8192 only there, as FUSED_DECODE_WON keys the decode. The
-# direct transform on a cluster won at the reference's two shapes, by
-# 3.7-4.5x (tools/torch_wiener_cluster_study.py, H100 80GB HBM3 at 700 W);
-# Bluestein's cluster lost at every size it was timed.
-WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({(16384, 2048), (32768, 4096)})
+# on an H100 80GB HBM3 at 700 W, 4 stems of a 30 s track, bf16 y
+# (tools/torch_wiener_mixed_ab.py; chip_smoke.py phase 3c repeats it at 10
+# 000, 16 384, 20 000 and 32 768; PERF.md row 1″): "auto" takes the kernel
+# past 8192 only there, as FUSED_DECODE_WON keys the decode. The direct
+# cluster at the reference's 16 384 and 32 768 against the mask and the
+# iSTFT's direct cluster, by 1.5-1.7x; the mixed cluster at each of its 58
+# sizes at the sweep's hop against the mask and the factored products (the
+# direct ones at 11 250), by 5.1-35.7x. Bluestein's cluster lost at every
+# size it was timed.
+WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({
+    (8640, 2160), (8748, 2187), (9000, 2250), (9216, 2304), (9600, 2400), (9720, 2430), (10000,
+    2500), (10240, 2560), (10368, 2592), (10800, 2700), (11250, 2250), (11520, 2880), (11664,
+    2916), (12000, 3000), (12150, 2430), (12288, 3072), (12500, 3125), (12800, 3200), (12960,
+    3240), (13122, 4374), (13500, 3375), (13824, 3456), (14400, 3600), (14580, 3645), (15000,
+    3750), (15360, 3840), (15552, 3888), (16000, 4000), (16200, 4050), (16384, 2048), (17280,
+    4320), (17496, 4374), (18000, 4500), (18432, 4608), (19200, 4800), (19440, 4860), (20000,
+    5000), (20480, 5120), (20736, 5184), (21600, 5400), (22500, 5625), (23040, 5760), (23328,
+    5832), (24000, 6000), (24300, 6075), (24576, 6144), (25000, 6250), (25600, 6400), (25920,
+    6480), (26244, 6561), (27000, 6750), (27648, 6912), (28800, 7200), (29160, 7290), (30000,
+    7500), (30720, 7680), (31104, 7776), (32000, 8000), (32400, 8100), (32768, 4096)})
 # The same for the split's and Bluestein's (nfft, hop) up to 8192 (chip_smoke.py
 # phase 7b, 4 stems of a 30 s track, PERF.md row 1′): each won, by 3.8-8.7x on an
 # H100 80GB HBM3 at 700 W.
@@ -143,8 +163,8 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     to 8192 (every preset) run on the FFT core, m · 2^a on its split, the
     other even sizes up to 8192 on Bluestein run backwards, even sizes past
     8192 Bluestein run backwards on a thread-block cluster, the powers of
-    two there the direct transform over a cluster. It holds every shape of
-    the reference's :func:`ct_pallas_supported`."""
+    two and the 5-smooth sizes there the direct transform over a cluster. It
+    holds every shape of the reference's :func:`ct_pallas_supported`."""
     if not (win_len == nfft and 16 <= nfft <= WIENER_CLUSTER_NFFT and nfft % 2 == 0 and hop > 0
             and nfft % hop == 0):
         return False
@@ -226,8 +246,8 @@ def wiener_istft(
     kernel reads it in place of a concatenated spectrum and counts under
     ``wiener_istft_ny``; off the core the kernel counts under
     ``wiener_istft_split``, ``wiener_istft_bluestein``,
-    ``wiener_istft_cluster`` or ``wiener_istft_cluster_dit``
-    (``wiener_istft_ny_split``, and so on).
+    ``wiener_istft_cluster``, ``wiener_istft_cluster_dit`` or
+    ``wiener_istft_cluster_mixed`` (``wiener_istft_ny_split``, and so on).
 
     CPU tensors: :func:`wiener_istft_plain`. CUDA tensors: the kernel."""
     return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny)
@@ -270,9 +290,10 @@ def wiener_bluestein_cluster_pallas(
 ) -> torch.Tensor:
     """:func:`wiener_istft` through Bluestein's cluster at any even nfft past
     8192 up to the reference's 32 768 (CUDA tensors, counted as
-    ``wiener_istft_cluster``), the powers of two too, where the direct
-    transform (``wiener_istft_cluster_dit``) replaced it, so that it can be
-    held and timed beside that kernel. CPU tensors: the plain version."""
+    ``wiener_istft_cluster``), the powers of two and the 5-smooth sizes
+    too, where the direct transforms (``wiener_istft_cluster_dit``,
+    ``wiener_istft_cluster_mixed``) replaced it, so that it can be held and
+    timed beside them. CPU tensors: the plain version."""
     return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
                    wiener_cluster_plan)
 
@@ -350,6 +371,12 @@ def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype,
                 *args, tw, out.data_ptr(), int(out_dt == torch.int16), nt, S, nf, nfft, int(hop),
                 int(length), plan.rounds, *tail, None, stream,
             )
+        elif plan.route == "cluster_mixed":
+            code = lib.wiener_cluster_mixed_launch(
+                *args, tw, out.data_ptr(), int(out_dt == torch.int16), nt, S, nf, nfft, int(hop),
+                int(length), plan.rounds, mixed_schedule(mixed_radices(nfft // plan.cluster)),
+                *tail, None, stream,
+            )
         else:
             code = lib.wiener_istft_launch(
                 *args, tw, tw_n, chirp, chat, out.data_ptr(), int(out_dt == torch.int16), nt, S,
@@ -366,14 +393,14 @@ def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype,
 def _tables(route: str, nfft: int, where: str) -> tuple:
     """The tables a route's launch reads, (tw, tw_n, chirp, chat), None where
     it reads none: the quarter twiddle table of nfft on the core and the
-    direct cluster, of 2^a and nfft on the split, of Bluestein's M beside
+    power-of-two cluster, of 2^a and nfft on the split, of Bluestein's M beside
     the chirp tables on Bluestein and its cluster; the full e^{−2πi m/N}
-    table for the direct sum."""
+    table for the direct sum and the mixed cluster."""
     if route in ("bluestein", "cluster"):
         chirp, chat = bluestein_tables(nfft, where)
         return twiddles(bluestein_size(nfft), where), None, chirp, chat
     if route == "split":
         return twiddles(split_factors(nfft)[1], where), twiddles(nfft, where), None, None
-    if route == "direct":
+    if route in ("direct", "cluster_mixed"):
         return dft_table(nfft, where), None, None, None
     return twiddles(nfft, where), None, None, None

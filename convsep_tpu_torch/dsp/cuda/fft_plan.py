@@ -271,6 +271,21 @@ def cluster_smem_bytes(carry: int = 0) -> int:
 # card to it).
 CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
 
+# The sizes at which wiener_plan takes the mixed cluster (route
+# "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced,
+# 4 stems of a 30 s track, bf16 y, at hop nfft / 4 (nfft / 5, nfft / 3
+# where 4 does not divide it), by 2.98-6.15x in card ms, in one run on an
+# H100 80GB HBM3 at 700 W (tools/torch_wiener_mixed_ab.py, PERF.md row 1″
+# (5-smooth)): all 58 of mixed_factors up to the reference's 32 768 (C 2 or
+# 4). Keyed by nfft alone, as ISTFT_MIXED_WON: both routes run the same
+# rounds and gather. A size that loses stays on Bluestein's cluster.
+WIENER_MIXED_WON: frozenset[int] = frozenset({
+    8640, 8748, 9000, 9216, 9600, 9720, 10000, 10240, 10368, 10800, 11250, 11520, 11664, 12000,
+    12150, 12288, 12500, 12800, 12960, 13122, 13500, 13824, 14400, 14580, 15000, 15360, 15552,
+    16000, 16200, 17280, 17496, 18000, 18432, 19200, 19440, 20000, 20480, 20736, 21600, 22500,
+    23040, 23328, 24000, 24300, 24576, 25000, 25600, 25920, 26244, 27000, 27648, 28800, 29160,
+    30000, 30720, 31104, 32000, 32400})
+
 # The sizes at which istft_plan takes the mixed cluster (route
 # "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced
 # at hop nfft / 4 (nfft / 5, nfft / 3 where 4 does not divide it) on a 30 s
@@ -778,11 +793,14 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     its tables and exchange buffer, a block takes one source (S blocks per
     row range) and a group two of its frames a round (``frame_pairs``, R =
     2G·rounds − (k − 1)). Even sizes past 8192: :func:`wiener_cluster_plan`,
-    the powers of two there :func:`wiener_cluster_dit_plan`. The direct sum
-    is only forced (:func:`wiener_direct_plan`)."""
+    the powers of two there :func:`wiener_cluster_dit_plan`, the 5-smooth
+    sizes in :data:`WIENER_MIXED_WON` :func:`wiener_cluster_mixed_plan`. The
+    direct sum is only forced (:func:`wiener_direct_plan`)."""
     if MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT:
         if nfft & (nfft - 1) == 0:
             return wiener_cluster_dit_plan(signals, S, nf, nfft, hop)
+        if nfft in WIENER_MIXED_WON:
+            return wiener_cluster_mixed_plan(signals, S, nf, nfft, hop)
         return wiener_cluster_plan(signals, S, nf, nfft, hop)
     if nfft % 2 or not MIN_NFFT <= nfft <= MAX_NFFT or hop < 1 or nfft % hop:
         raise ValueError(f"no Wiener+iSTFT plan for nfft={nfft} hop={hop}: even, {MIN_NFFT} to "
@@ -892,21 +910,47 @@ def wiener_cluster_dit_plan(signals: int, S: int, nf: int, nfft: int, hop: int) 
     return _cluster_rounds(signals, S, nf, nfft, hop, nfft // CLUSTER_PART, "cluster_dit")
 
 
+@lru_cache(maxsize=64)
+def wiener_cluster_mixed_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
+    """The Wiener+iSTFT's launch at the 5-smooth sizes past 8192 up to
+    :data:`WIENER_CLUSTER_NFFT` (:func:`mixed_factors` with C 2 or 4: 58
+    sizes from 8640 to 32 400, 10 000 and 20 000 among them), as
+    ``csrc/wiener_istft.cu::wiener_cluster_mixed_launch`` computes it: the
+    direct transform by decimation in time over a cluster of C blocks of
+    512 threads, each block's n = nfft / C points on the mixed-radix core,
+    a cluster a pair of sources and R hop rows, one frame a round, each
+    block's shared memory :func:`cluster_mixed_smem_bytes` with the two
+    sources' carries; the rounds weighed by :func:`_cluster_rounds` (route
+    "cluster_mixed"). :func:`wiener_plan` takes it at
+    :data:`WIENER_MIXED_WON`."""
+    f = mixed_factors(nfft) if nfft <= WIENER_CLUSTER_NFFT else None
+    if f is None or hop < 1 or nfft % hop:
+        raise ValueError(f"no Wiener+iSTFT cluster_mixed plan for nfft={nfft} hop={hop}: even, "
+                         f"past {MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, not a power of two, "
+                         "C · n with n 5-smooth, a multiple of the hop")
+    c, n = f
+    return _cluster_rounds(signals, S, nf, nfft, hop, c, "cluster_mixed",
+                           lambda carry: cluster_mixed_smem_bytes(n, carry))
+
+
 def _cluster_rounds(signals: int, S: int, nf: int, nfft: int, hop: int, c: int,
-                    route: str) -> WienerPlan:
+                    route: str, smem_of=cluster_smem_bytes) -> WienerPlan:
     """A Wiener cluster launch of C = ``c`` blocks a cluster: the grid is
     tracks × row ranges × pairs clusters, each block's shared memory
-    :func:`cluster_smem_bytes` with the two sources' carries of its 1/C of
-    the columns, and over every rounds with R >= 1, up to one row range a
-    track or ``MAX_ROUNDS``, the least waves × rounds
-    (:data:`CLUSTERS_AT_ONCE` a wave: one block an SM, as the kernels'
-    launch bound of one block an SM lets each instance take 128
-    registers), ties to fewer transforms. ``blocks`` counts blocks,
-    ``waves`` clusters over the card's count."""
+    ``smem_of`` (:func:`cluster_smem_bytes`) the two sources' carries of its
+    1/C of the columns (``ValueError`` past :data:`SMEM_MAX`), and over
+    every rounds with R >= 1, up to one row range a track or
+    ``MAX_ROUNDS``, the least waves × rounds (:data:`CLUSTERS_AT_ONCE` a
+    wave: one block an SM, as the kernels' launch bound of one block an SM
+    lets each instance take 128 registers), ties to fewer transforms.
+    ``blocks`` counts blocks, ``waves`` clusters over the card's count."""
     k = nfft // hop
     pairs = -(-S // 2)
     total_rows = nf + k - 1
-    smem = cluster_smem_bytes(2 * (k - 1) * -(-hop // c))
+    smem = smem_of(2 * (k - 1) * -(-hop // c))
+    if smem > SMEM_MAX:
+        raise ValueError(f"no Wiener+iSTFT {route} plan fits shared memory: nfft={nfft} "
+                         f"hop={hop} needs {smem} bytes a block")
     best = None
     for rounds in range(k, max(k, min(total_rows + k - 1, MAX_ROUNDS)) + 1):
         rows = rounds - (k - 1)

@@ -48,7 +48,8 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "wiener_istft": 0, "wiener_istft_ny": 0, "wiener_istft_cluster": 0,
     "wiener_istft_ny_cluster": 0, "wiener_istft_cluster_dit": 0,
-    "wiener_istft_ny_cluster_dit": 0, "wiener_istft_split": 0, "wiener_istft_ny_split": 0,
+    "wiener_istft_ny_cluster_dit": 0, "wiener_istft_cluster_mixed": 0,
+    "wiener_istft_ny_cluster_mixed": 0, "wiener_istft_split": 0, "wiener_istft_ny_split": 0,
     "wiener_istft_bluestein": 0, "wiener_istft_ny_bluestein": 0, "wiener_istft_direct": 0,
     "wiener_istft_ny_direct": 0, "fused_decode": 0, "stft": 0, "stft_split": 0,
     "stft_bluestein": 0, "stft_cluster": 0, "stft_dft": 0, "fused_adadelta": 0, "istft": 0,
@@ -79,6 +80,11 @@ _SIGNATURES = {
     # nf, nfft, hop, length, rounds, p2, eps, conserve_last, active (as above), stream
     "wiener_cluster_dit_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _P, _P),
+    # y, y_bf16, re, im, ny (or NULL), win_over_n, inv_norm, tw (the nfft-point table), out,
+    # out_int16, nt, S, nf, nfft, hop, length, rounds, schedule (the block core's radices),
+    # p2, eps, conserve_last, active (as above), stream
+    "wiener_cluster_mixed_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _L, _I, _F, _I, _P, _P),
     # fc, k4, bias, kcat, out, out_bf16, B, J, S, W_pad, TpC, ktaps, TM, stream
     "fused_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P),

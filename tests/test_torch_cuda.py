@@ -184,19 +184,20 @@ def test_wiener_istft_kernel_every_size(rng, cuda, nfft, S):
     (16384, 2048, 60000, 4, {}, torch.float32),    # the reference's 16 384: C 2 (C 4), k 8
     (16384, 4096, 50000, 3, {"p": 2.0, "conserve_last": True}, torch.bfloat16),  # S odd
     (32768, 4096, 90000, 4, {}, torch.bfloat16),   # the reference's 32 768: C 4 (C 8)
-    (10000, 2500, 40000, 2, {"p": 2.0}, torch.float32),  # even, not a power of two
-    (20000, 5000, 60000, 5, {"conserve_last": True}, torch.float32),  # C 8, S odd
+    (10000, 2500, 40000, 2, {"p": 2.0}, torch.float32),  # 5-smooth: C 2 of n 5000 (C 4)
+    (20000, 5000, 60000, 5, {"conserve_last": True}, torch.float32),  # C 4 (C 8), S odd
 ])
 def test_wiener_istft_cluster_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw, ydt):
     """The Wiener+iSTFT past 8192 points on a thread-block cluster, a pair of
     sources a cluster: the route's kernel (the direct transform at the
-    powers of two, "wiener_istft_cluster_dit"; Bluestein's elsewhere,
-    "wiener_istft_cluster") and Bluestein's forced
+    powers of two, "wiener_istft_cluster_dit"; the same on the 5-smooth
+    block core at 10 000 and 20 000, "wiener_istft_cluster_mixed";
+    Bluestein's elsewhere, "wiener_istft_cluster") and Bluestein's forced
     (wiener_bluestein_cluster_pallas), float32 within 1e-5 and PCM16 within
     one LSB of the plain version: one launch each, no other Wiener launch."""
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
     y = y.to(ydt)
-    route = "wiener_istft_cluster" + ("_dit" if nfft & (nfft - 1) == 0 else "")
+    route = "wiener_istft_cluster" + ("_dit" if nfft & (nfft - 1) == 0 else "_mixed")
     assert _wiener_kernel(nfft, hop, S, re.shape[-2]) == route
     for fn, name in ((wiener_istft, route), (wiener_bluestein_cluster_pallas,
                                              "wiener_istft_cluster")):
@@ -314,11 +315,48 @@ def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
         _close(got, wiener_istft_plain(y, re, im, w, hop, length, ny=ny, p=2.0), "float32")
 
 
+@pytest.mark.parametrize("nfft,hop,length,S,kw,ydt", [
+    (8640, 2160, 40000, 4, {}, torch.bfloat16),              # the smallest: C 2 of n 4320
+    (11250, 2250, 40000, 3, {"p": 2.0, "conserve_last": True}, torch.float32),  # n 5625, odd
+    (13122, 6561, 50000, 2, {"conserve_last": True}, torch.bfloat16),  # n 6561 = 3^8, k 2
+    (24300, 2025, 60000, 4, {"p": 2.0}, torch.float32),     # C 4 of n 6075, odd; k 12
+    (32400, 8100, 90000, 5, {}, torch.bfloat16),            # the largest: C 4 of n 8100, S odd
+])
+def test_wiener_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw,
+                                                         ydt):
+    """The Wiener+iSTFT on the 5-smooth block core over a cluster of 2 or 4
+    blocks ("wiener_istft_cluster_mixed", wiener_plan's route at
+    WIENER_MIXED_WON) at sizes off the smoke's: odd n (each block ceil(N / 2
+    / C) bins), C 2 and 4, k 2 to 12, float32 within 1e-5 and PCM16 within
+    one LSB of the plain version, one launch a call and no other Wiener
+    launch; Bluestein's cluster forced at the same shape within 1e-5 of it;
+    the Nyquist-row input bit for bit the concatenated spectrum's."""
+    w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
+    y = y.to(ydt)
+    assert _wiener_kernel(nfft, hop, S, re.shape[-2]) == "wiener_istft_cluster_mixed"
+    for out in ("float32", "int16"):
+        before = dict(kernels.LAUNCHES)
+        got = wiener_istft(y, re, im, w, hop, length, output_dtype=out, **kw)
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
+            k: int(k == "wiener_istft_cluster_mixed") for k in WIENER_NAMES}
+        _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+    blue = wiener_bluestein_cluster_pallas(y, re, im, w, hop, length, **kw)
+    _close(wiener_istft(y, re, im, w, hop, length, **kw), blue, "float32")
+    body_re, body_im, ny = re[..., :-1].contiguous(), im[..., :-1].contiguous(), re[..., -1]
+    before = kernels.LAUNCHES["wiener_istft_ny_cluster_mixed"]
+    got = wiener_istft(y, body_re, body_im, w, hop, length, ny=ny.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wiener_istft_ny_cluster_mixed"] == before + 1
+    assert torch.equal(got, wiener_istft(y, re, im, w, hop, length, **kw))
+
+
 def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
     """The Wiener cluster plans weigh waves of fft_plan.CLUSTERS_AT_ONCE
     clusters: the card's own cudaOccupancyMaxActiveClusters for Bluestein's
-    cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points and for
-    the direct one's at 16 384 (C 2) and 32 768 (C 4), one block an SM (the
+    cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points, for
+    the direct one's at 16 384 (C 2) and 32 768 (C 4), and for the mixed
+    one's at 10 000 (C 2) and 20 000, 32 400 (C 4), one block an SM (the
     kernels' launch bound)."""
     import ctypes
 
@@ -336,6 +374,14 @@ def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
                                  0, ctypes.byref(active), None), plan.route)
             assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, plan.route,
                                                                        active.value)
+    for nfft, hop in ((10000, 2500), (20000, 5000), (32400, 2025)):
+        plan = fp.wiener_cluster_mixed_plan(1, 4, 648, nfft, hop)
+        active = ctypes.c_int(0)
+        kernels.check(lib.wiener_cluster_mixed_launch(
+            None, 0, None, None, None, None, None, None, None, 0, 1, 4, 648, nfft, hop, 1,
+            plan.rounds, fp.mixed_schedule(fp.mixed_radices(nfft // plan.cluster)), 0,
+            ctypes.c_float(1e-8), 0, ctypes.byref(active), None), plan.route)
+        assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, active.value)
 
 
 def test_wiener_istft_kernel_refuses(rng, cuda):
@@ -1663,6 +1709,8 @@ CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel",
                          ("wiener_cluster_kernel", 4): 264, ("wiener_cluster_kernel", 8): 280,
                          ("wiener_cluster_dit_kernel", 2): 0,
                          ("wiener_cluster_dit_kernel", 4): 0,
+                         ("wiener_cluster_mixed_kernel", 2): 0,
+                         ("wiener_cluster_mixed_kernel", 4): 0,
                          ("istft_cluster_dit_kernel", 2): 0, ("istft_cluster_dit_kernel", 4): 0,
                          ("istft_cluster_dit_kernel", 8): 0,
                          ("istft_cluster_mixed_kernel", 2): 0,

@@ -1541,7 +1541,8 @@ def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
     the two sources' carries of a block's 1/C of the columns within shared
     memory, the fewest waves × rounds over every rounds it may
     (CLUSTERS_AT_ONCE a wave: one block an SM). wiener_plan past 8192 is
-    the direct one at the powers of two and Bluestein's elsewhere."""
+    the direct one at the powers of two, the mixed one at WIENER_MIXED_WON
+    (test_wiener_cluster_mixed_plan) and Bluestein's elsewhere."""
     k = nfft // hop
     pow2 = nfft & (nfft - 1) == 0
     plans = [(fp.wiener_cluster_plan(signals, S, nf, nfft, hop), fp.cluster_blocks(nfft),
@@ -1549,7 +1550,9 @@ def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
     if pow2:
         plans.append((fp.wiener_cluster_dit_plan(signals, S, nf, nfft, hop),
                       nfft // fp.CLUSTER_PART, "cluster_dit"))
-    assert fp.wiener_plan(signals, S, nf, nfft, hop) == plans[-1][0]
+    assert fp.wiener_plan(signals, S, nf, nfft, hop) == (
+        fp.wiener_cluster_mixed_plan(signals, S, nf, nfft, hop) if nfft in fp.WIENER_MIXED_WON
+        else plans[-1][0])
     for plan, c, route in plans:
         assert plan.route == route and plan.cluster == c
         assert c == ((2 if nfft <= 16384 else 4) if pow2 and route == "cluster_dit"
@@ -1573,15 +1576,21 @@ def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
 @pytest.mark.parametrize("signals,S,nf,nfft,hop,route,cluster,rounds,rows", [
     (1, 4, 648, 16384, 2048, "cluster_dit", 2, 27, 20),   # the smoke's 16 384: 66 clusters
     (1, 4, 325, 32768, 4096, "cluster_dit", 4, 30, 23),   # the smoke's 32 768: 30 clusters
-    (1, 4, 532, 10000, 2500, "cluster", 4, 39, 36),       # not a power of two: Bluestein's
+    (1, 4, 532, 10000, 2500, "cluster", 4, 39, 36),       # Bluestein's, forced
     (1, 4, 267, 20000, 5000, "cluster", 8, 42, 39),
+    (1, 4, 532, 10000, 2500, "cluster_mixed", 2, 20, 17),  # 5-smooth: C 2 of n 5000, 64 clusters
+    (1, 4, 267, 20000, 5000, "cluster_mixed", 4, 21, 18),  # C 4: 30 clusters
+    (1, 4, 292, 14000, 3500, "cluster", 4, 23, 20),       # a factor 7: Bluestein's
 ])
 def test_wiener_cluster_routes(signals, S, nf, nfft, hop, route, cluster, rounds, rows):
     """wiener_plan's route past 8192: the direct transform ("cluster_dit")
-    on 2 blocks at the reference's 16 384 and 4 at 32 768, Bluestein's
-    cluster ("cluster") at 10 000 and 20 000; each plan one wave of the
+    on 2 blocks at the reference's 16 384 and 4 at 32 768, the same on the
+    mixed-radix core ("cluster_mixed") on 2 blocks at 10 000 and 4 at 20
+    000, Bluestein's cluster ("cluster") at 14 000 (and forced,
+    wiener_cluster_plan, at 10 000 and 20 000); each plan one wave of the
     card's clusters at once."""
-    plan = fp.wiener_plan(signals, S, nf, nfft, hop)
+    plan = (fp.wiener_cluster_plan if route == "cluster" and nfft in fp.WIENER_MIXED_WON
+            else fp.wiener_plan)(signals, S, nf, nfft, hop)
     assert (plan.route, plan.cluster, plan.rounds, plan.rows, plan.waves) == (
         route, cluster, rounds, rows, 1)
 
@@ -1595,7 +1604,9 @@ def test_wiener_cluster_envelope():
     assert fp.wiener_plan(1, 4, 648, 16384, 2048).waves == 1
     for n in (8194, 10_000, 16_384, 20_000, 32_768):
         for hop in (n, n // 2):
-            want = n // fp.CLUSTER_PART if n & (n - 1) == 0 else fp.cluster_blocks(n)
+            want = (n // fp.CLUSTER_PART if n & (n - 1) == 0
+                    else fp.mixed_factors(n)[0] if n in fp.WIENER_MIXED_WON
+                    else fp.cluster_blocks(n))
             assert fp.wiener_plan(1, 4, 100, n, hop).cluster == want
     for n, hop in ((8192, 2048), (32_770, 16_385), (65_536, 16_384), (16_385, 16_385),
                    (16_384, 3000)):
@@ -1604,6 +1615,84 @@ def test_wiener_cluster_envelope():
     for n, hop in ((8192, 2048), (10_000, 2500), (65_536, 16_384), (16_384, 3000)):
         with pytest.raises(ValueError, match="no Wiener.iSTFT cluster_dit plan"):
             fp.wiener_cluster_dit_plan(1, 4, 100, n, hop)
+
+
+WIENER_MIXED_SIZES = [n for n in MIXED_SIZES if n <= fp.WIENER_CLUSTER_NFFT]
+
+
+@pytest.mark.parametrize("signals,S,nf,nfft,hop", [
+    (1, 4, 532, 10_000, 2500), (1, 4, 267, 20_000, 5000),  # the smoke's: C 2 and 4 of n 5000
+    (2, 3, 40, 11_250, 2250),     # n 5625, odd: S = ceil(N/2/C) bins a block
+    (1, 5, 90, 26_244, 6561),     # n 6561 = 3^8 on C 4, S odd
+    (1, 2, 300, 8640, 540),       # the smallest, k 16
+    (1, 4, 120, 32_400, 2025),    # the largest, k 16: the most carry
+    (3, 1, 7, 12_000, 12_000),    # k 1: no carry, one source
+])
+def test_wiener_cluster_mixed_plan(signals, S, nf, nfft, hop):
+    """wiener_cluster_mixed_plan is wiener_cluster_mixed_launch's
+    arithmetic: C and n of mixed_factors (C 2 or 4), a cluster of 512-thread
+    blocks a pair of sources and row range, one frame a round (R = rounds −
+    (k − 1) rows), each block the n-point table, the n-point exchange buffer
+    and the two sources' carries of its 1/C of the columns within shared
+    memory, the fewest waves × rounds (CLUSTERS_AT_ONCE[C] a wave)."""
+    plan = fp.wiener_cluster_mixed_plan(signals, S, nf, nfft, hop)
+    c, n = fp.mixed_factors(nfft)
+    k = nfft // hop
+    assert c in (2, 4) and n <= 16 * fp.MAX_THREADS
+    assert (plan.route, plan.cluster, plan.groups, plan.threads, plan.blocks_per_sm) == (
+        "cluster_mixed", c, 1, fp.MAX_THREADS, 1)
+    carry = 2 * (k - 1) * -(-hop // c)
+    assert plan.smem_bytes == 8 * (n + n + n // 16) + 4 * carry <= fp.SMEM_MAX
+    assert plan.smem_bytes == fp.cluster_mixed_smem_bytes(n, carry)
+    assert plan.pairs == (S + 1) // 2 and plan.rows == plan.rounds - (k - 1) >= 1
+    assert plan.blocks_per_signal * plan.rows >= nf + k - 1
+    clusters = signals * plan.blocks_per_signal * plan.pairs
+    assert plan.blocks == clusters * c and plan.waves == -(-clusters // fp.CLUSTERS_AT_ONCE[c])
+
+    def cost(rounds):
+        per = -(-(nf + k - 1) // (rounds - (k - 1)))
+        return -(-signals * per * plan.pairs // fp.CLUSTERS_AT_ONCE[c]) * rounds
+
+    assert all(cost(plan.rounds) <= cost(r) for r in range(k, nf + 2 * k))
+
+
+def test_wiener_cluster_mixed_sizes_and_routes():
+    """The mixed Wiener cluster serves the 58 5-smooth even sizes of
+    mixed_factors up to the reference's 32 768, 8640 to 32 400 (six with an
+    odd n), on C 2 or 4; wiener_plan takes it exactly at WIENER_MIXED_WON
+    and Bluestein's cluster at the other even sizes past 8192 off the powers
+    of two; every one fits shared memory at k up to 16 (hop N / k)."""
+    assert len(WIENER_MIXED_SIZES) == 58
+    assert (WIENER_MIXED_SIZES[0], WIENER_MIXED_SIZES[-1]) == (8640, 32_400)
+    assert sorted(n for n in WIENER_MIXED_SIZES if fp.mixed_factors(n)[1] % 2) == [
+        11_250, 12_150, 13_122, 22_500, 24_300, 26_244]
+    assert fp.WIENER_MIXED_WON <= set(WIENER_MIXED_SIZES)
+    for nfft in WIENER_MIXED_SIZES:
+        c, n = fp.mixed_factors(nfft)
+        assert c == (2 if nfft <= 16_384 else 4) and 4096 < n <= 8192
+        for k in (1, 2, 4, 8, 16):
+            if nfft % k == 0:
+                plan = fp.wiener_cluster_mixed_plan(1, 4, 100, nfft, nfft // k)
+                assert plan.smem_bytes <= fp.SMEM_MAX and plan.cluster == c
+        route = fp.wiener_plan(1, 4, 100, nfft, nfft // 2).route
+        assert route == ("cluster_mixed" if nfft in fp.WIENER_MIXED_WON else "cluster")
+        assert fp.wiener_cluster_plan(1, 4, 100, nfft, nfft // 2).route == "cluster"
+    for nfft in (8194, 14_000, 16_386, 30_002):
+        assert fp.wiener_plan(1, 4, 100, nfft, nfft // 2).route == "cluster"
+
+
+@pytest.mark.parametrize("nfft,hop", [
+    (10_001, 10_001),   # odd
+    (14_000, 3500),     # 7-smooth: 2 · 7000
+    (8194, 4097),       # a prime past 5
+    (16_384, 2048),     # a power of two: the direct cluster
+    (34_560, 8640),     # 5-smooth, past 32 768 (C 8)
+    (8192, 2048),       # the core's
+    (10_000, 3000),     # the hop does not divide it
+])
+def test_wiener_cluster_mixed_plan_refuses(nfft, hop):
+    with pytest.raises(ValueError, match="no Wiener.iSTFT cluster_mixed plan"):
+        fp.wiener_cluster_mixed_plan(1, 4, 100, nfft, hop)
 
 
 def masked_bins(y, re, im, s0, p, eps, conserve_last, ny=None):

@@ -28,6 +28,23 @@ def _mk(rng, S, length, nfft, hop, lead=()):
     return w, np.array(re), np.array(im), y
 
 
+def _mk_rfft(rng, S, length, nfft, hop):
+    """_mk with the mixture's spectra from numpy's FFT of the centred,
+    windowed frames: past 8192 points the JAX package's stft_matmul builds
+    an nfft × (nfft/2 + 1) DFT matrix (about 7 s at 11 250 on one CPU
+    core), which the test of the synthesis does not need."""
+    from convsep_tpu_torch.dsp.stft import num_frames
+
+    w = sinebell(nfft)
+    x = (0.3 * rng.standard_normal(length)).astype(np.float32)
+    nf = num_frames(length, hop)
+    padded = np.concatenate([np.zeros(nfft // 2), x, np.zeros(nfft)])
+    spec = np.fft.rfft(np.stack([padded[f * hop:f * hop + nfft] for f in range(nf)]) * w)
+    y = np.abs(rng.standard_normal((S, nf, nfft // 2 + 1))).astype(np.float32)
+    y[..., : nf // 3, :8] = 0.0  # ReLU-dead patches: eps shortfall paths
+    return w, spec.real.astype(np.float32), spec.imag.astype(np.float32), y
+
+
 def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
@@ -83,7 +100,9 @@ def test_rejects_bad_shapes(rng):
     assert not wiener_istft_supported(65536, 65536, 16384)  # past the reference's 32 768
     assert wiener_plan(1, 4, 648, 16384, 2048).cluster == 2  # the direct transform's
     assert wiener_plan(1, 4, 648, 16384, 2048).route == "cluster_dit"
-    assert wiener_plan(1, 4, 648, 10000, 2500).route == "cluster"  # Bluestein's, C 4
+    assert wiener_plan(1, 4, 648, 10000, 2500).route == "cluster_mixed"  # C 2 of n 5000
+    assert wiener_plan(1, 4, 648, 10000, 2500).cluster == 2
+    assert wiener_plan(1, 4, 648, 14000, 3500).route == "cluster"  # a factor 7: Bluestein's, C 4
 
 
 @pytest.mark.parametrize("nfft,hop,kw", [
@@ -91,17 +110,22 @@ def test_rejects_bad_shapes(rng):
     (768, 256, {"p": 2.0, "conserve_last": True}),
     (1000, 250, {}),                                  # Bluestein's (8 · 125)
     (1000, 250, {"p": 2.0, "conserve_last": True}),
+    (10000, 2500, {}),                                # the mixed cluster's (C 2 of 5000)
+    (10000, 2500, {"p": 2.0, "conserve_last": True}),
+    (11250, 2250, {}),                                # an odd n: C 2 of 5625
+    (11250, 2250, {"p": 2.0, "conserve_last": True}),
 ])
 def test_istft_wiener_matches_jax_off_the_core(rng, nfft, hop, kw):
-    """At the sizes the card takes on the split and on Bluestein, which the
-    reference kernel does not take (its own "auto" runs the XLA chain), the
+    """At the sizes the card takes on the split, on Bluestein and on the
+    mixed cluster, which the reference kernel does not take (its own "auto"
+    runs the XLA chain), the
     port's istft_wiener on CPU tensors against the JAX package's
     istft_wiener within 2e-4, float32 and PCM16 (±1 LSB)."""
     from convsep_tpu.dsp.dft import istft_wiener as jax_istft_wiener
     from convsep_tpu_torch.dsp.dft import istft_wiener
 
     S, length = 4, 12 * hop
-    w, re, im, y = _mk(rng, S, length, nfft, hop)
+    w, re, im, y = (_mk_rfft if nfft > 8192 else _mk)(rng, S, length, nfft, hop)
     for out in ("float32", "int16"):
         want = np.asarray(jax_istft_wiener(jnp.asarray(y), re, im, w, hop, length,
                                            output_dtype=out, **kw))

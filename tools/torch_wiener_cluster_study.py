@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Where the direct Wiener+iSTFT cluster kernel's time goes, on one CUDA
+"""Where a direct Wiener+iSTFT cluster kernel's time goes, on one CUDA
 GPU (no JAX): copies of it with one part cut out each.
 
-    python3 tools/torch_wiener_cluster_study.py [--out FILE] [--variants NAME ...]
+    python3 tools/torch_wiener_cluster_study.py [--route dit|mixed] [--out FILE]
+                                                [--variants NAME ...]
 
-At the reference kernel's 16 384 points (hop 2048) and 32 768 (hop 4096),
-4 stems of a 30 s track (``chip_smoke.W16384_NF``, ``W32768_NF``), bf16 y,
-it times by CUDA events (``chip_smoke.cuda_ms``) copies of
-``csrc/wiener_istft.cu`` built from the checkout's sources with one change
-to ``wiener_cluster_dit_block`` each: ``base`` (none), ``no_mask`` (no bin
-is loaded or masked: no y, mixture or mask; the points are still put),
-``no_gather`` (no overlap-add: nothing read across the cluster, no
-stores), ``no_transform`` (no Fft<13>, no twiddle; the puts and the
-cluster barriers stay) and ``prefetch`` (the next round's bins asked into
-L2, ``prefetch.global.L2``, before the gather). ``base`` and ``prefetch``
+``--route dit`` (the default): at the reference kernel's 16 384 points
+(hop 2048) and 32 768 (hop 4096), 4 stems of a 30 s track
+(``chip_smoke.W16384_NF``, ``W32768_NF``), bf16 y, it times by CUDA events
+(``chip_smoke.cuda_ms``) copies of ``csrc/wiener_istft.cu`` built from the
+checkout's sources with one change to ``wiener_cluster_dit_block`` each:
+``base`` (none), ``no_mask`` (no bin is loaded or masked: no y, mixture or
+mask; the points are still put), ``no_gather`` (no overlap-add: nothing
+read across the cluster, no stores), ``no_transform`` (no Fft<13>, no
+twiddle; the puts and the cluster barriers stay) and ``prefetch`` (the
+next round's bins asked into L2, ``prefetch.global.L2``, before the
+gather). ``--route mixed``: the same cuts (but ``prefetch``) of
+``wiener_cluster_mixed_block`` at W 10 000 (hop 2500) and 20 000 (hop
+5000), ``no_transform`` cutting ``mixed_fft``. ``base`` and ``prefetch``
 are held to the plain version; the others are wrong by design. The
 kernel on its route, Bluestein's forced, the masked chain and
 ``torch.istft`` are timed by ``chip_smoke.py`` phase 3c, not here.
 
 Each change replaces an exact line of the sources: a source that no
 longer holds it stops the tool with the variant's name. It prints each
-copy's ptxas lines for ``wiener_cluster_dit_kernel`` (registers, stack,
-spills) and the card's nvidia-smi line. The copies go to
+copy's ptxas lines for the route's kernel (registers, stack, spills) and
+the card's nvidia-smi line. The copies go to
 ``build/wiener_cluster_study/`` (git-ignored), one ``nvcc`` a copy, all at
 once. ``--out`` writes the measurements as JSON.
 """
@@ -67,17 +71,33 @@ PREFETCH = """    if (f + 1 >= 0 && f + 1 < a.nf) {
       }
     }
 """
-# each copy: [(text in csrc/wiener_common.cuh or fft_common.cuh, what replaces it)]
+MIXED_MASK = "      masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);"
+MIXED_GATHER = """    cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
+                        pl, N, f, cols, u0, ncols, j_end);"""
+MIXED_TRANSFORM = """    mixed_fft(buf, tws, n, sched);
+    if (rank) {"""
+FAKE_MASK = ("      for (int i = 0; i < K; ++i)\n"
+             "        ab[i] = make_float4(1e-3f * i, 0.f, 0.f, 0.f);")
+# each route's copies: [(text in csrc/wiener_common.cuh or fft_common.cuh, what replaces it)]
 CUTS = {
-    "base": [],
-    "no_mask": [(MASK, "      for (int i = 0; i < K; ++i)\n"
-                       "        ab[i] = make_float4(1e-3f * i, 0.f, 0.f, 0.f);")],
-    "no_gather": [(GATHER, "    if (a.hop < 0)\n" + GATHER)],
-    "no_transform": [(TRANSFORM,
-                      "    if (M < 0) F::run(v, buf, tws, j, 0);\n    if (rank) {")],
-    "prefetch": [(GATHER, PREFETCH + GATHER)],
+    "dit": {
+        "base": [],
+        "no_mask": [(MASK, FAKE_MASK)],
+        "no_gather": [(GATHER, "    if (a.hop < 0)\n" + GATHER)],
+        "no_transform": [(TRANSFORM,
+                          "    if (M < 0) F::run(v, buf, tws, j, 0);\n    if (rank) {")],
+        "prefetch": [(GATHER, PREFETCH + GATHER)],
+    },
+    "mixed": {
+        "base": [],
+        "no_mask": [(MIXED_MASK, FAKE_MASK)],
+        "no_gather": [(MIXED_GATHER, "    if (a.hop < 0)\n" + MIXED_GATHER)],
+        "no_transform": [(MIXED_TRANSFORM,
+                          "    if (n < 0) mixed_fft(buf, tws, n, sched);\n    if (rank) {")],
+    },
 }
 CHECKED = ("base", "prefetch")
+KERNEL = {"dit": "wiener_cluster_dit_kernel", "mixed": "wiener_cluster_mixed_kernel"}
 # the split's and Bluestein's launchers live in other sources; a copy
 # serves only the cluster routes
 STUBS = """
@@ -91,18 +111,19 @@ cudaError_t launch_bluestein(int, bool, const Args&, const float2*, const float2
 }
 }  // namespace wiener
 """
-SHAPES = ((16384, 2048, cs.W16384_NF), (32768, 4096, cs.W32768_NF))
+SHAPES = {"dit": ((16384, 2048, cs.W16384_NF), (32768, 4096, cs.W32768_NF)),
+          "mixed": ((10000, 2500, cs.W10000_NF), (20000, 5000, cs.W20000_NF))}
 
 
-def build(names: list[str]) -> dict[str, ctypes.CDLL]:
-    out = ROOT / "build" / "wiener_cluster_study"
+def build(route: str, names: list[str]) -> dict[str, ctypes.CDLL]:
+    out = ROOT / "build" / "wiener_cluster_study" / route
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         d = out / name
         d.mkdir(exist_ok=True)
         text = {f: (kernels.CSRC / f).read_text() for f in (BODY, "fft_common.cuh")}
-        for old, new in CUTS[name]:
+        for old, new in CUTS[route][name]:
             where = [f for f, t in text.items() if old in t]
             if not where:
                 raise RuntimeError(f"{name}: {old!r} is in neither source")
@@ -121,22 +142,23 @@ def build(names: list[str]) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "wiener_cluster_dit_kernel" in line and "Compiling" in line:
+            if KERNEL[route] in line and "Compiling" in line:
                 for follow in lines[i + 1:i + 4]:
                     print(f"  ptxas {name} {line.split()[-1][-40:]}: {follow.strip()}",
                           flush=True)
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        lib.wiener_cluster_dit_launch.argtypes = list(
-            kernels._SIGNATURES["wiener_cluster_dit_launch"])
-        lib.wiener_cluster_dit_launch.restype = ctypes.c_int
+        for entry in ("wiener_cluster_dit_launch", "wiener_cluster_mixed_launch"):
+            getattr(lib, entry).argtypes = list(kernels._SIGNATURES[entry])
+            getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--route", choices=list(CUTS), default="dit")
     ap.add_argument("--out")
-    ap.add_argument("--variants", nargs="*", default=list(CUTS))
+    ap.add_argument("--variants", nargs="*")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -145,11 +167,11 @@ def main() -> int:
 
     smi = cs.smi_line()
     print(smi, flush=True)
-    libs = build(args.variants)
+    libs = build(args.route, args.variants or list(CUTS[args.route]))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = {"card": smi}
-    for nfft, hop, nf in SHAPES:
+    res = {"card": smi, "route": args.route}
+    for nfft, hop, nf in SHAPES[args.route]:
         key = f"W {nfft}"
         w, L, y, re, im = cs.wiener_inputs(nfft, hop, nf, 4, dev, gen)
         want = wiener_istft_plain(y, re, im, w, hop, L)
@@ -158,13 +180,17 @@ def main() -> int:
         re, im = re.contiguous(), im.contiguous()  # the copies read rows of nfft/2 + 1 bins
         args_ = (y.data_ptr(), 1, re.data_ptr(), im.data_ptr(), None)
         win_n, inv_norm = fp.synthesis_tables(w, nfft, hop, nf, str(dev))
-        tw = fp.twiddles(nfft, str(dev))
+        mixed = args.route == "mixed"
+        tw = (fp.dft_table if mixed else fp.twiddles)(nfft, str(dev))
+        sched = (fp.mixed_schedule(fp.mixed_radices(nfft // plan.cluster)),) if mixed else ()
         out = torch.empty(1, 4, L, device=dev)
         for name, vlib in libs.items():
             def run(vlib=vlib):
-                kernels.check(vlib.wiener_cluster_dit_launch(
+                launch = (vlib.wiener_cluster_mixed_launch if mixed
+                          else vlib.wiener_cluster_dit_launch)
+                kernels.check(launch(
                     *args_, win_n.data_ptr(), inv_norm.data_ptr(), tw.data_ptr(),
-                    out.data_ptr(), 0, 1, 4, nf, nfft, hop, L, plan.rounds, 0,
+                    out.data_ptr(), 0, 1, 4, nf, nfft, hop, L, plan.rounds, *sched, 0,
                     ctypes.c_float(1e-8), 0, None, torch.cuda.current_stream().cuda_stream),
                     name)
             run()
