@@ -29,13 +29,15 @@ result line is printed):
    random mixture and magnitudes; 3c: past 8192 points on a thread-block
    cluster at the reference kernel's 16 384 (hop 2048) and 32 768 (hop
    4096), 4 stems of a 30 s track: the direct transform on 2 and 4 blocks,
-   and at W 10 000 (hop 2500) and 20 000 (hop 5000) the same on the
-   5-smooth block core (C 2 and 4): bf16 and f32 y and the Nyquist-row
+   and at W 10 000 (hop 2500), 20 000 (hop 5000) and 14 000 (hop 3500, a
+   radix-7 pass) the same on the 7-smooth block core (C 2, 4 and 2): bf16
+   and f32 y and the Nyquist-row
    input (at 16 384 the forward STFT kernel's own pair), also against the
    float64 synthesis, the A/B against the masked chain that keys "auto"
    (``WIENER_CLUSTER_WON``) and ``torch.istft`` of the masked spectra;
-   Bluestein's cluster forced at 16 384, 10 000 and 20 000 (the kernel the
-   direct ones replaced; at 20 000 also f32 y and its Nyquist-row input);
+   Bluestein's cluster forced at 16 384, 10 000, 20 000 and 14 000 (the
+   kernel the direct ones replaced; at 20 000 also f32 y and its
+   Nyquist-row input);
    the clusters of 2 and 4 the card holds at once;
 4. the slice: ``Separator`` for highres4096 and dsd100 at full width with
    seeded random weights on a 30 s 44.1 kHz mixture: finite stems of the
@@ -90,9 +92,11 @@ result line is printed):
    10 000 and W 65 536, hop 16 384 (one stem each; the plan beside the
    clusters the card holds at once; past 32 768 the plain version is the
    float64 synthesis, and every cluster row is also held to it); at W
-   10 000, 20 000 and 40 000 the direct transform on the 5-smooth block
-   core (2, 4 and 8 blocks of n 5000), under Bluestein's cluster forced at
-   each, ``istft_plan`` taking it exactly where ``ISTFT_MIXED_WON`` says;
+   10 000, 20 000 and 40 000 the direct transform on the 7-smooth block
+   core (2, 4 and 8 blocks of n 5000), at W 14 000, hop 3500 and W 56 000,
+   hop 14 000 on its radix-7 pass (2 and 8 blocks of n 7000), under
+   Bluestein's cluster forced at each, ``istft_plan`` taking it exactly
+   where ``ISTFT_MIXED_WON`` says;
    each call launching its kernel once and no other; 7b: the Wiener+iSTFT at even
    sizes up to 8192 that are not powers of two, 4 stems of a 30 s track, as
    phase 3: the split at W 768 and 1280, Bluestein run backwards at W 1000,
@@ -338,6 +342,10 @@ W8190_NF = 1456
 W6000_NF = 884
 W10000_NF = 532
 W20000_NF = 267
+# the same at W 14 000, hop 3500 and W 56 000, hop 14 000 (7-smooth: C 2
+# and C 8 of n 7000 on the mixed cluster's radix-7 pass)
+W14000_NF = 380
+W56000_NF = 97
 # past 32 768 points (W 40 000, hop 10 000 and W 65 536, hop 16 384: 16 blocks
 # a cluster) the frames of a 30 s track; the Wiener+iSTFT's cluster at the
 # reference's 16 384 (hop 2048) and 32 768 (hop 4096)
@@ -369,8 +377,9 @@ WIENER_SPREAD = 0.05
 # size off ISTFT_MIXED_WON), the kernel it must launch). At the powers of
 # two past 8192 (the reference's 16 384 and 32 768, and 65 536) the direct
 # transform on a cluster, at W 10 000, 20 000 and 40 000 the same on the
-# 5-smooth block core (C 2, 4, 8 of n 5000), Bluestein's cluster forced
-# beside each.
+# 7-smooth block core (C 2, 4, 8 of n 5000), at W 14 000 and 56 000 on its
+# radix-7 pass (C 2 and 8 of n 7000), Bluestein's cluster forced beside
+# each.
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
                 ("W 768 split", 768, 256, W768_NF, 4, False, "istft_split"),
@@ -387,6 +396,12 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                  "istft_cluster_mixed"),
                 ("W 40000 cluster_mixed", 40000, 10000, W40000_NF, 1, False,
                  "istft_cluster_mixed"),
+                ("W 14000 cluster_mixed", 14000, 3500, W14000_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 14000 cluster", 14000, 3500, W14000_NF, 1, False, "istft_cluster"),
+                ("W 56000 cluster_mixed", 56000, 14000, W56000_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 56000 cluster", 56000, 14000, W56000_NF, 1, False, "istft_cluster"),
                 ("W 16384 cluster_dit", 16384, 2048, W16384_NF, 4, True, "istft_cluster_dit"),
                 ("W 16384 Bluestein", 16384, 2048, W16384_NF, 4, False, "istft_cluster"),
                 ("W 32768 cluster_dit", 32768, 4096, W32768_NF, 4, True, "istft_cluster_dit"),
@@ -401,7 +416,9 @@ ISTFT_DIT_AB = (("W 16384 cluster_dit", "W 16384 Bluestein"),
                 ("W 65536 cluster_dit", "W 65536 Bluestein"),
                 ("W 10000 cluster_mixed", "W 10000 cluster"),
                 ("W 20000 cluster_mixed", "W 20000 cluster"),
-                ("W 40000 cluster_mixed", "W 40000 cluster"))
+                ("W 40000 cluster_mixed", "W 40000 cluster"),
+                ("W 14000 cluster_mixed", "W 14000 cluster"),
+                ("W 56000 cluster_mixed", "W 56000 cluster"))
 # the cluster routes' codes of csrc/istft.cu::istft_cluster_occupancy
 CLUSTER_ROUTES = {"cluster": 0, "cluster_dit": 1, "cluster_mixed": 2}
 # phase 7b: the Wiener+iSTFT at even sizes up to 8192 that are not powers
@@ -421,18 +438,20 @@ WIENER_OFFCORE_SHAPES = (
 )
 # phase 3c: the Wiener+iSTFT past 8192 points, 4 stems of a 30 s track, bf16
 # y: (key, nfft, hop, nf, the kernel it must launch). The direct transform on
-# a cluster at the reference's 16 384 and 32 768, the same on the 5-smooth
-# block core at W 10 000 (C 2) and 20 000 (C 4), each "auto"'s route there;
-# Bluestein's cluster, which both replaced, forced at 16 384, 10 000 and 20
-# 000.
+# a cluster at the reference's 16 384 and 32 768, the same on the 7-smooth
+# block core at W 10 000 (C 2), 20 000 (C 4) and 14 000 (C 2 of n 7000, a
+# radix-7 pass), each "auto"'s route there; Bluestein's cluster, which both
+# replaced, forced at 16 384, 10 000, 20 000 and 14 000.
 WIENER_CLUSTER_SHAPES = (
     ("W 16384", 16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
     ("W 32768", 32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
     ("W 10000", 10000, 2500, W10000_NF, "wiener_istft_cluster_mixed"),
     ("W 20000", 20000, 5000, W20000_NF, "wiener_istft_cluster_mixed"),
+    ("W 14000", 14000, 3500, W14000_NF, "wiener_istft_cluster_mixed"),
     ("W 16384 Bluestein", 16384, 2048, W16384_NF, "wiener_istft_cluster"),
     ("W 10000 Bluestein", 10000, 2500, W10000_NF, "wiener_istft_cluster"),
     ("W 20000 Bluestein", 20000, 5000, W20000_NF, "wiener_istft_cluster"),
+    ("W 14000 Bluestein", 14000, 3500, W14000_NF, "wiener_istft_cluster"),
 )
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
@@ -1101,17 +1120,19 @@ def phase_wiener_cluster(device, gen) -> dict:
     (``WIENER_CLUSTER_SHAPES``). At each shape of a route, the reference
     kernel's 16 384 (hop 2048) and 32 768 (hop 4096) on the direct transform
     on a cluster of 2 and 4 blocks ("wiener_istft_cluster_dit"), W 10 000
-    (hop 2500) and 20 000 (hop 5000) on the same over the 5-smooth block
-    core, C 2 and 4 ("wiener_istft_cluster_mixed"): bf16 and f32 y as phase
+    (hop 2500), 20 000 (hop 5000) and 14 000 (hop 3500) on the same over the
+    7-smooth block core, C 2, 4 and 2 ("wiener_istft_cluster_mixed"): bf16
+    and f32 y as phase
     3 (one launch a call, also held to the float64 synthesis), the
     Nyquist-row input (at 16 384 the forward STFT kernel's own pair) as phase
     11 (one launch of the ``_ny_`` kernel), ``torch.istft`` of the masked
     spectra, and the A/B that keys "auto": the kernel against the masked
     chain "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
     "auto": the iSTFT kernel on a cluster at the powers of two, the factored
-    products at 10 000 and 20 000). Bluestein's cluster
-    ("wiener_istft_cluster"), which both replaced, forced at 16 384, 10 000
-    and 20 000 (bf16 y; at 20 000 also f32 y and its Nyquist-row input). The
+    products at 10 000 and 20 000, the direct ones at 14 000). Bluestein's
+    cluster ("wiener_istft_cluster"), which both replaced, forced at 16 384,
+    10 000, 20 000 and 14 000 (bf16 y; at 20 000 also f32 y and its
+    Nyquist-row input). The
     clusters of 2 and 4 the card holds at once. It fails if a plan in
     ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
     import ctypes
@@ -1938,8 +1959,8 @@ def phase_istft(device, gen) -> dict:
     6000 (the level), W 10 000, W 20 000 and W 40 000 (a cluster of 4, 8
     and 16 blocks; forced where the mixed cluster won), the direct transform
     on a cluster of 2, 4 and 8 blocks at W 16 384, 32 768 and 65 536 and on
-    the 5-smooth block core at W 10 000, 20 000 and 40 000, with Bluestein's
-    cluster forced there, the direct sum forced at W 1000 and W 10 000 (the
+    the 7-smooth block core at W 10 000, 20 000 and 40 000 (n 5000) and
+    14 000 and 56 000 (n 7000), with Bluestein's cluster forced there, the direct sum forced at W 1000 and W 10 000 (the
     times Bluestein and the cluster replace). Each call must launch its
     kernel once and no other iSTFT kernel; each direct transform on a
     cluster must beat the forced Bluestein cluster's device time at its
@@ -4585,10 +4606,11 @@ def main(argv: list[str]) -> int:
         wie_batches[f"dsd100 B {B}"] = phase_wiener("dsd100", 1024, 512, 2882, 4, device, gen, B)
         torch.cuda.empty_cache()
     log("phase 3c: the Wiener+iSTFT past 8192 points on a thread-block cluster (W 16 384, hop "
-        "2048 and W 32 768, hop 4096 on the direct transform; W 10 000, hop 2500 and W 20 000, "
-        "hop 5000 on the 5-smooth block core; 4 stems of a 30 s track; bf16 and f32 y, the "
-        "Nyquist-row input), its A/B against the masked chain, torch.istft of the masked "
-        "spectra; Bluestein's cluster forced at W 16 384, 10 000 and 20 000")
+        "2048 and W 32 768, hop 4096 on the direct transform; W 10 000, hop 2500, W 20 000, "
+        "hop 5000 and W 14 000, hop 3500 on the 7-smooth block core; 4 stems of a 30 s track; "
+        "bf16 and f32 y, the Nyquist-row input), its A/B against the masked chain, torch.istft "
+        "of the masked spectra; Bluestein's cluster forced at W 16 384, 10 000, 20 000 and "
+        "14 000")
     wie_cl = phase_wiener_cluster(device, gen)
     torch.cuda.empty_cache()
 
@@ -4618,8 +4640,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     log("phase 7: iSTFT kernels vs plain (stereo highres4096 and dsd100 pallas-route shapes, "
-        "the split at W 768, Bluestein at W 1000 and 6000, on a cluster at W 10 000 and 20 000, "
-        "the direct sum forced at W 1000 and 10 000)")
+        "the split at W 768, Bluestein at W 1000 and 6000, on a cluster at W 10 000 to 65 536, "
+        "the direct and mixed clusters beside Bluestein's forced, the mixed one's radix-7 pass "
+        "at W 14 000 and 56 000, the direct sum forced at W 1000 and 10 000)")
     ist = phase_istft(device, gen)
     log("phase 7b: the Wiener+iSTFT off the core (4 stems of a 30 s track): the split at W "
         "768 and 1280, Bluestein at W 1000, 6000 (the level) and 8190, hop 910 (frame pairs), "
@@ -4874,30 +4897,35 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu (device code wiener_common.cuh, "
                    "fft_common.cuh::ClusterMixed)", "entry": "wiener_cluster_mixed_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "serves": "the 5-smooth even nfft = C n, C 2 or 4, from 8640 to 32 400 "
-                   "(fft_plan.WIENER_MIXED_WON: 10 000, 20 000 and 56 more): the direct "
-                   "transform by decimation in time on a thread-block cluster, each block's n "
-                   "points on the mixed-radix core, a pair of sources a cluster; no preset",
+         "serves": "the 7-smooth even nfft = C n, C 2 or 4, from 8232 to 32 400 where it "
+                   "won its A/B (fft_plan.WIENER_MIXED_WON: 10 000, 14 000, 20 000, ...): the "
+                   "direct transform by decimation in time on a thread-block cluster, each "
+                   "block's n points on the mixed-radix core, a pair of sources a cluster; no "
+                   "preset",
          **launched("wiener_istft_cluster_mixed"), **wie_cl["W 10000"],
-         "w20000_hop5000": wie_cl["W 20000"],
+         "w20000_hop5000": wie_cl["W 20000"], "w14000_hop3500": wie_cl["W 14000"],
          "bluestein_forced_w10000": wie_cl["W 10000 Bluestein"],
          "bluestein_forced_w20000": wie_cl["W 20000 Bluestein"],
+         "bluestein_forced_w14000": wie_cl["W 14000 Bluestein"],
          "clusters_at_once_2": wie_cl["clusters_at_once_cluster_mixed_2"],
          "clusters_at_once_4": wie_cl["clusters_at_once_cluster_mixed_4"],
          "ny": {**launched("wiener_istft_ny_cluster_mixed"),
                 "max_abs_err_10000": wie_cl["W 10000"]["ny_max_abs_err"],
-                "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"]}},
+                "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"],
+                "max_abs_err_14000": wie_cl["W 14000"]["ny_max_abs_err"]}},
         {"name": "wiener_istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "serves": "even 8192 < nfft < 32 768 that are neither powers of two nor 5-smooth "
-                   "(8194, 14 000): Bluestein run backwards on a thread-block cluster of 4 or 8 "
-                   "blocks, a pair of sources a cluster; wiener_bluestein_cluster_pallas forces "
-                   "it at the powers of two and the 5-smooth sizes (timed forced at W 20 000, "
-                   "10 000 and 16 384); no preset",
+         "serves": "even 8192 < nfft < 32 768 off the powers of two and the mixed cluster's "
+                   "won sizes (8194, 11 264): Bluestein run backwards on a thread-block cluster "
+                   "of 4 or 8 blocks, a pair of sources a cluster; "
+                   "wiener_bluestein_cluster_pallas forces it at the powers of two and the "
+                   "7-smooth sizes (timed forced at W 20 000, 10 000, 16 384 and 14 000); no "
+                   "preset",
          **launched("wiener_istft_cluster"), **wie_cl["W 20000 Bluestein"],
          "forced_w10000_hop2500": wie_cl["W 10000 Bluestein"],
          "forced_w16384_hop2048": wie_cl["W 16384 Bluestein"],
+         "forced_w14000_hop3500": wie_cl["W 14000 Bluestein"],
          "ny": {**launched("wiener_istft_ny_cluster"),
                 "max_abs_err_20000": wie_cl["W 20000 Bluestein"]["ny_max_abs_err"]}},
         {"name": "stft", "route": "cuda",
@@ -4981,13 +5009,16 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "8192 < nfft <= 65 536 off the powers of two (10 000, 20 000, 40 000, "
-                   "odd sizes): Bluestein run backwards on a thread-block cluster of 4, 8 or "
-                   "16 blocks; istft_bluestein_cluster_pallas forces it at the powers of two; "
-                   "no preset",
+         "serves": "8192 < nfft <= 65 536 off the powers of two and the mixed cluster's won "
+                   "sizes (8194, 11 264, odd sizes): Bluestein run backwards on a thread-block "
+                   "cluster of 4, 8 or 16 blocks; istft_bluestein_cluster_pallas forces it at "
+                   "the powers of two and the won sizes (timed forced at W 10 000, 20 000, "
+                   "40 000, 14 000 and 56 000); no preset",
          **launched("istft_cluster"), **ist["W 10000 cluster"],
          "w20000_hop5000": ist["W 20000 cluster"],
          "w40000_hop10000": ist["W 40000 cluster"],
+         "w14000_hop3500": ist["W 14000 cluster"],
+         "w56000_hop14000": ist["W 56000 cluster"],
          "forced_w16384_hop2048": ist["W 16384 Bluestein"],
          "forced_w32768_hop4096": ist["W 32768 Bluestein"],
          "forced_w65536_hop16384": ist["W 65536 Bluestein"],
@@ -5011,13 +5042,16 @@ def main(argv: list[str]) -> int:
          "entry": "istft_cluster_mixed_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even nfft = C n past 8192, C 2, 4 or 8, n 5-smooth (10 000, 20 000, "
-                   "40 000; 87 sizes), where it won its A/B (fft_plan.ISTFT_MIXED_WON): the "
-                   "direct inverse by decimation in time on a thread-block cluster, each "
-                   "block's n points on a mixed-radix core; no preset",
+         "serves": "even nfft = C n past 8192, C 2, 4 or 8, n 7-smooth (10 000, 14 000, "
+                   "20 000, 40 000, 56 000; 204 sizes), where it won its A/B "
+                   "(fft_plan.ISTFT_MIXED_WON): the direct inverse by decimation in time on a "
+                   "thread-block cluster, each block's n points on a mixed-radix core; no "
+                   "preset",
          **launched("istft_cluster_mixed"), **ist["W 10000 cluster_mixed"],
          "w20000_hop5000": ist["W 20000 cluster_mixed"],
-         "w40000_hop10000": ist["W 40000 cluster_mixed"]},
+         "w40000_hop10000": ist["W 40000 cluster_mixed"],
+         "w14000_hop3500": ist["W 14000 cluster_mixed"],
+         "w56000_hop14000": ist["W 56000 cluster_mixed"]},
         {"name": "istft_level2", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu",
          "entry": "istft_level2_first_kernel, istft_level2_middle_kernel, "

@@ -81,9 +81,9 @@
 // 8192 needs no chirp: its N = 8192 C points are one transform by
 // decimation in time over the cluster (ClusterDit, the Wiener+iSTFT's
 // wiener_cluster_dit_block), each block forming only 1/C of them. So does
-// an even N = C n with n 5-smooth (10 000, 20 000, 40 000): ClusterMixed,
-// each block's n points on a mixed-radix core of radix-2 to 16, 3, 5 and 9
-// passes (mixed_fft, istft_cluster_mixed_block).
+// an even N = C n with n 7-smooth (10 000, 14 000, 20 000, 40 000):
+// ClusterMixed, each block's n points on a mixed-radix core of radix-2 to
+// 16, 3, 5, 7 and 9 passes (mixed_fft, istft_cluster_mixed_block).
 //
 // Past 65 536 points (N <= 262 144) Bluestein's M = 262 144 or 524 288 lives
 // in a scratch in device memory: the second level (level2_first,
@@ -99,6 +99,15 @@
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
+
+// blockIdx.x read through volatile asm: the compiler neither hoists nor
+// merges the read, so what a kernel derives from it is derived again where
+// it is used instead of held in registers across a loop's heavier parts.
+__device__ __forceinline__ int fresh_block_index() {
+  int b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
 
 // Distributed shared memory: p's address in block `rank` of the cluster.
 // The host emulation (tests/cuda_host/cuda_runtime.h) defines its own.
@@ -491,8 +500,10 @@ __device__ __forceinline__ float2 odd_root(int e) {
   return make_float2(c, -s);
 }
 
-// In-register forward DFT of M points (M = 3, 5, 9, 15), natural order in
-// and out: the radix-3 and radix-5 butterflies; 9 = 3 x 3 and 15 = 3 x 5
+// In-register forward DFT of M points (M = 3, 5, 7, 9, 15), natural order in
+// and out: the radix-3, radix-5 and radix-7 butterflies (the symmetric
+// form: sums and differences of the partners s and M - s, cosines on the
+// sums, sines on the differences); 9 = 3 x 3 and 15 = 3 x 5
 // by Cooley-Tukey (3 sub-DFTs of M / 3 points at stride 3, the twiddles
 // e^{-2 pi i n1 k1 / M}, then M / 3 DFTs of 3), every index a constant.
 template <int M>
@@ -521,6 +532,35 @@ __device__ __forceinline__ void dft_odd(float2 (&u)[M]) {
     u[4] = make_float2(r1.x - i1.y, r1.y + i1.x);  // r1 + i i1
     u[2] = make_float2(r2.x + i2.y, r2.y - i2.x);
     u[3] = make_float2(r2.x - i2.y, r2.y + i2.x);
+  } else if constexpr (M == 7) {
+    constexpr float c1 = 0.6234898018587336f, s1 = 0.7818314824680298f;    // 2 pi / 7
+    constexpr float c2 = -0.22252093395631434f, s2 = 0.9749279121818236f;  // 4 pi / 7
+    constexpr float c3 = -0.900968867902419f, s3 = 0.43388373911755823f;   // 6 pi / 7
+    const float2 a1 = make_float2(u[1].x + u[6].x, u[1].y + u[6].y);
+    const float2 b1 = make_float2(u[1].x - u[6].x, u[1].y - u[6].y);
+    const float2 a2 = make_float2(u[2].x + u[5].x, u[2].y + u[5].y);
+    const float2 b2 = make_float2(u[2].x - u[5].x, u[2].y - u[5].y);
+    const float2 a3 = make_float2(u[3].x + u[4].x, u[3].y + u[4].y);
+    const float2 b3 = make_float2(u[3].x - u[4].x, u[3].y - u[4].y);
+    const float2 r1 = make_float2(u[0].x + c1 * a1.x + c2 * a2.x + c3 * a3.x,
+                                  u[0].y + c1 * a1.y + c2 * a2.y + c3 * a3.y);
+    const float2 r2 = make_float2(u[0].x + c2 * a1.x + c3 * a2.x + c1 * a3.x,
+                                  u[0].y + c2 * a1.y + c3 * a2.y + c1 * a3.y);
+    const float2 r3 = make_float2(u[0].x + c3 * a1.x + c1 * a2.x + c2 * a3.x,
+                                  u[0].y + c3 * a1.y + c1 * a2.y + c2 * a3.y);
+    const float2 i1 = make_float2(s1 * b1.x + s2 * b2.x + s3 * b3.x,
+                                  s1 * b1.y + s2 * b2.y + s3 * b3.y);
+    const float2 i2 = make_float2(s2 * b1.x - s3 * b2.x - s1 * b3.x,
+                                  s2 * b1.y - s3 * b2.y - s1 * b3.y);
+    const float2 i3 = make_float2(s3 * b1.x - s1 * b2.x + s2 * b3.x,
+                                  s3 * b1.y - s1 * b2.y + s2 * b3.y);
+    u[0] = make_float2(u[0].x + a1.x + a2.x + a3.x, u[0].y + a1.y + a2.y + a3.y);
+    u[1] = make_float2(r1.x + i1.y, r1.y - i1.x);  // r1 - i i1
+    u[6] = make_float2(r1.x - i1.y, r1.y + i1.x);  // r1 + i i1
+    u[2] = make_float2(r2.x + i2.y, r2.y - i2.x);
+    u[5] = make_float2(r2.x - i2.y, r2.y + i2.x);
+    u[3] = make_float2(r3.x + i3.y, r3.y - i3.x);
+    u[4] = make_float2(r3.x - i3.y, r3.y + i3.x);
   } else {
     constexpr int R2 = M / 3;
     float2 t[M];
@@ -1632,16 +1672,16 @@ __device__ __forceinline__ void istft_cluster_dit_block(
   }
 }
 
-// ---- the 5-smooth block core over a cluster ---------------------------------
+// ---- the 7-smooth block core over a cluster ---------------------------------
 //
 // The even sizes past 8192 that are not powers of two but factor as N = C n,
-// C in {2, 4, 8} the fewest blocks with n <= 8192 and n = 2^a 3^b 5^c (10 000,
-// 20 000 and 40 000 are C 5000; 87 sizes up to 65 536, fft_plan.
-// mixed_factors), run the direct inverse by decimation in time over the
-// cluster as ClusterDit does at the powers of two, each block's n points on
-// a mixed-radix core (mixed_fft):
+// C in {2, 4, 8} the fewest blocks with n <= 8192 and n = 2^a 3^b 5^c 7^d
+// (10 000, 20 000 and 40 000 are C 5000, 14 000, 28 000 and 56 000 C 7000;
+// 204 sizes up to 65 536, fft_plan.mixed_factors), run the direct inverse
+// by decimation in time over the cluster as ClusterDit does at the powers
+// of two, each block's n points on a mixed-radix core (mixed_fft):
 //
-// * Stockham passes of radix r in {2, 3, 4, 5, 8, 9, 16} through the block's
+// * Stockham passes of radix r in {2, 3, 4, 5, 7, 8, 9, 16} through the block's
 //   exchange buffer (slot(i)), a schedule the host plans and passes in
 //   (fft_plan.mixed_radices, kMixedRadixBits a radix), so one instance per
 //   C serves every n; the pass of radix r after passes whose radices
@@ -1651,13 +1691,14 @@ __device__ __forceinline__ void istft_cluster_dit_block(
 //   r + j mod Ns + s Ns: natural order out, no reordering;
 // * thread tid takes the butterflies j = tid + b T, b < ceil(16 / r), so n
 //   <= 16 T (8192 at the card's 512 threads), and holds their points in
-//   registers (kMixedPoints) across the barrier between the pass's reads
-//   and its writes: one buffer serves;
+//   registers (kMixedPoints: 21, three radix-7 butterflies where n / 7 >
+//   1024 at 512 threads, as n 7203 or 8064) across the barrier between the
+//   pass's reads and its writes: one buffer serves;
 // * every pass's twiddles are entries of one n-point table e^{-2 pi i m / n},
 //   m < n, in shared memory: the N-point table's entries at stride C (the
 //   host rounds it once from float64, fft_plan.dft_table). The table is
 //   whole, not a quarter, so n need not be a multiple of 4 (4374, 6250, the
-//   odd 5625, 6075 and 6561);
+//   odd 4375, 5625, 6075, 6561 and 7203);
 // * the combine is ClusterDit's with P = n: block r holds u[C m + r], m < n,
 //   its transform V_r is multiplied by w^{r k1} (w = e^{-2 pi i / N}, the
 //   N-point table in global memory, read through L1), and Z[k1 + n q] =
@@ -1677,7 +1718,7 @@ inline size_t cluster_mixed_smem_bytes(int n, int carry) {
 
 // C and n of a size the mixed cluster takes (fft_plan.mixed_factors): an
 // even nfft in (8192, 65 536], not a power of two, C the fewest of 2, 4, 8
-// with nfft / C <= 8192, C | nfft, n = nfft / C 5-smooth.
+// with nfft / C <= 8192, C | nfft, n = nfft / C 7-smooth.
 inline bool mixed_sizes(int nfft, int* c, int* n) {
   if (nfft <= (1 << kMaxLog2) || nfft > (8 << kMaxLog2) || (nfft & (nfft - 1)) == 0) return false;
   *c = nfft <= (2 << kMaxLog2) ? 2 : nfft <= (4 << kMaxLog2) ? 4 : 8;
@@ -1687,6 +1728,7 @@ inline bool mixed_sizes(int nfft, int* c, int* n) {
   while (m % 2 == 0) m /= 2;
   while (m % 3 == 0) m /= 3;
   while (m % 5 == 0) m /= 5;
+  while (m % 7 == 0) m /= 7;
   return m == 1;
 }
 
@@ -1695,7 +1737,8 @@ inline bool mixed_schedule_ok(int n, unsigned long long sched) {
   long long prod = 1;
   for (; sched; sched >>= kMixedRadixBits) {
     const int r = (int)(sched & ((1u << kMixedRadixBits) - 1));
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8 && r != 9 && r != 16) return false;
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8 && r != 9 && r != 16)
+      return false;
     prod *= r;
   }
   return prod == n;
@@ -1703,14 +1746,14 @@ inline bool mixed_schedule_ok(int n, unsigned long long sched) {
 
 template <int R>
 __device__ __forceinline__ void dft_any(float2 (&u)[R]) {
-  if constexpr (R == 3 || R == 5 || R == 9) {
+  if constexpr (R == 3 || R == 5 || R == 7 || R == 9) {
     dft_odd<R>(u);
   } else {
     dft<R>(u);
   }
 }
 
-constexpr int kMixedPoints = 20;  // a thread's points in a pass at most: 4 radix-5 butterflies
+constexpr int kMixedPoints = 21;  // a thread's points in a pass at most: 3 radix-7 butterflies
 
 // One Stockham pass of radix R over the block's n points in buf (after a
 // barrier that follows their writes); ends behind a barrier. tws is the
@@ -1759,15 +1802,16 @@ __device__ __forceinline__ void mixed_pass(float2 (&v)[kMixedPoints], float2* bu
 // The forward DFT of the n points at buf[slot(i)] (natural order, in
 // place) by the whole block, in the passes of `sched`; every point must be
 // in place behind a barrier, and the result is, behind the last pass's.
-// The passes run grouped by radix, 16, 8, 4, 2, 5, 9, 3 (the order
+// The passes run grouped by radix, 16, 8, 4, 2, 5, 7, 9, 3 (the order
 // fft_plan.mixed_radices plans them in; any order is the same transform),
 // one loop a radix, all on one array of points: one loop that switched on
 // the radix, or an array a pass, spilled 700-1100 bytes at 128 registers
 // inside istft_cluster_mixed_block's rounds, where each pass alone takes
-// 56-72.
+// 56-72. Loops that ran while the schedule's next radix was theirs, in
+// place of the counts, spilled in wiener_cluster_mixed_block.
 __device__ __forceinline__ void mixed_fft(float2* buf, const float2* tws, int n,
                                           unsigned long long sched) {
-  int c16 = 0, c8 = 0, c4 = 0, c2 = 0, c5 = 0, c9 = 0, c3 = 0;  // passes of each radix
+  int c16 = 0, c8 = 0, c4 = 0, c2 = 0, c5 = 0, c7 = 0, c9 = 0, c3 = 0;  // passes of each radix
 #pragma unroll 1
   for (; sched; sched >>= kMixedRadixBits) {
     const int r = (int)(sched & ((1u << kMixedRadixBits) - 1));
@@ -1776,6 +1820,7 @@ __device__ __forceinline__ void mixed_fft(float2* buf, const float2* tws, int n,
     c4 += r == 4;
     c2 += r == 2;
     c5 += r == 5;
+    c7 += r == 7;
     c9 += r == 9;
     c3 += r == 3;
   }
@@ -1792,12 +1837,14 @@ __device__ __forceinline__ void mixed_fft(float2* buf, const float2* tws, int n,
 #pragma unroll 1
   for (int i = 0; i < c5; ++i, ns *= 5) mixed_pass<5>(v, buf, tws, n, ns);
 #pragma unroll 1
+  for (int i = 0; i < c7; ++i, ns *= 7) mixed_pass<7>(v, buf, tws, n, ns);
+#pragma unroll 1
   for (int i = 0; i < c9; ++i, ns *= 9) mixed_pass<9>(v, buf, tws, n, ns);
 #pragma unroll 1
   for (int i = 0; i < c3; ++i, ns *= 3) mixed_pass<3>(v, buf, tws, n, ns);
 }
 
-// ClusterDit for N = C n, n 5-smooth (the header above): block r holds u[C m
+// ClusterDit for N = C n, n 7-smooth (the header above): block r holds u[C m
 // + r], m < n, in its exchange buffer at slot(m); tw is the N-point table
 // e^{-2 pi i m / N}, m < N, in global memory (fft_plan.dft_table).
 template <int C>
@@ -1848,7 +1895,7 @@ struct ClusterMixed {
   }
 };
 
-// istft_cluster_dit_block for N = C n, n 5-smooth (ClusterMixed, the
+// istft_cluster_dit_block for N = C n, n 7-smooth (ClusterMixed, the
 // header above): the same rounds of one pair (fr, fr + 1), a cluster owning
 // hop rows [j0, j0 + rows) of signal n_sig. A round:
 // 1. block r reads its contiguous 1/C of both frames' bins, [r S, (r + 1) S)

@@ -89,11 +89,12 @@
 // of samples, 0.057 ms.
 //
 // istft_cluster_mixed_kernel (the even sizes past 8192 whose nfft = C n
-// has a 5-smooth n <= 8192 on the fewest C of 2, 4, 8: 10 000, 20 000,
-// 40 000, 87 sizes in all; no preset uses one) is istft_cluster_dit_kernel
-// on a mixed-radix block core (fft_common.cuh::istft_cluster_mixed_block on
-// ClusterMixed): each block's n points in Stockham passes of radix 2, 3, 4,
-// 5, 8, 9 and 16 through its exchange buffer, in a schedule the host plans
+// has a 7-smooth n <= 8192 on the fewest C of 2, 4, 8: 10 000, 14 000,
+// 20 000, 40 000, 56 000, 204 sizes in all; no preset uses one) is
+// istft_cluster_dit_kernel on a mixed-radix block core
+// (fft_common.cuh::istft_cluster_mixed_block on ClusterMixed): each block's
+// n points in Stockham passes of radix 2, 3, 4, 5, 7, 8, 9 and 16 through
+// its exchange buffer, in a schedule the host plans
 // and passes in, so one instance per C serves every n, the twiddles from a
 // whole n-point table in shared memory. fft_plan.istft_plan takes it at the
 // sizes in ISTFT_MIXED_WON, where it beat Bluestein's cluster on the card.
@@ -434,7 +435,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) istft_cluster_mixed_kernel(
                                win, hop, length, rounds, rows, per_signal, sched);
 }
 
-// the same for the 5-smooth block core, N = C n
+// the same for the 7-smooth block core, N = C n
 template <int C>
 cudaError_t launch_cluster_mixed(const BluesteinArgs& a, int n, unsigned long long sched,
                                  int* active) {
@@ -700,13 +701,14 @@ extern "C" int istft_cluster_dit_launch(const void* re, const void* im, const vo
   return (int)dispatch_cluster_dit(nfft, a);
 }
 
-// The 5-smooth sizes past 8192 (fft_plan.mixed_factors: even nfft = C n,
-// C 2, 4 or 8 the fewest with n <= 8192, n = 2^a 3^b 5^c; 10 000, 20 000,
-// 40 000), the direct inverse by decimation in time on a cluster of C
-// blocks of 512 threads, each block's n points on the mixed-radix core in
-// the passes of `sched` (fft_plan.mixed_schedule: their radices multiply to
-// n), one pair of frames a round; tw the nfft-point table e^{-2 pi i m /
-// nfft} (fft_plan.dft_table); rounds from fft_plan.istft_cluster_mixed_plan.
+// The 7-smooth sizes past 8192 (fft_plan.mixed_factors: even nfft = C n,
+// C 2, 4 or 8 the fewest with n <= 8192, n = 2^a 3^b 5^c 7^d; 10 000,
+// 14 000, 20 000, 40 000, 56 000), the direct inverse by decimation in
+// time on a cluster of C blocks of 512 threads, each block's n points on
+// the mixed-radix core in the passes of `sched` (fft_plan.mixed_schedule:
+// their radices multiply to n), one pair of frames a round; tw the
+// nfft-point table e^{-2 pi i m / nfft} (fft_plan.dft_table); rounds from
+// fft_plan.istft_cluster_mixed_plan.
 extern "C" int istft_cluster_mixed_launch(const void* re, const void* im, const void* win_over_n,
                                           const void* inv_norm, const void* tw, void* out,
                                           int out_int16, int nt, int nf, int nfft, int win,
@@ -764,7 +766,7 @@ extern "C" int istft_level2_launch(const void* re, const void* im, const void* w
 
 // How many clusters of istft_cluster_kernel (Bluestein's, `route` 0), of
 // istft_cluster_dit_kernel (`route` 1, the powers of two past 8192) or of
-// istft_cluster_mixed_kernel (`route` 2, the 5-smooth sizes) a launch at
+// istft_cluster_mixed_kernel (`route` 2, the 7-smooth sizes) a launch at
 // (nfft, win, hop) finds room for at once (cudaOccupancyMaxActiveClusters:
 // one block an SM, the clusters' blocks within one GPC);
 // fft_plan.CLUSTERS_AT_ONCE is this reading. Launches nothing.

@@ -6,7 +6,7 @@
 // (wiener_split_block), on Bluestein (wiener_bluestein_block) and on a
 // thread-block cluster (wiener_cluster_block, Bluestein;
 // wiener_cluster_dit_block, the powers of two by decimation in time;
-// wiener_cluster_mixed_block, the same on the 5-smooth block core).
+// wiener_cluster_mixed_block, the same on the 7-smooth block core).
 // wiener_istft.cu's header says what the kernels compute, what bounds them
 // and how they are built.
 
@@ -235,7 +235,7 @@ __device__ __forceinline__ void cluster_pair_gather(Sample sample, float* carry0
 // frame outside [0, nf) loads zeros). a.tw is the M-point quarter table,
 // chirp (N) and chat (M) fft_plan.bluestein_tables; smem4 the block's
 // dynamic shared memory (cluster_smem_bytes with 2 (k - 1) columns' carry).
-// The power-of-two sizes run wiener_cluster_dit_block, the 5-smooth ones
+// The power-of-two sizes run wiener_cluster_dit_block, the 7-smooth ones
 // that won their A/B wiener_cluster_mixed_block.
 template <int LOG2P, int C>
 __device__ __forceinline__ void wiener_cluster_block(float4* smem4, const Args& a,
@@ -357,7 +357,7 @@ __device__ __forceinline__ void wiener_cluster_dit_block(float4* smem4, const Ar
   }
 }
 
-// wiener_cluster_dit_block for N = C n, n 5-smooth (C 2 or 4, 8640 ... 32
+// wiener_cluster_dit_block for N = C n, n 7-smooth (C 2 or 4, 8232 ... 32
 // 400; fft_common.cuh's ClusterMixed): the same rounds of one frame of a
 // pair of sources, each block's n points on the mixed-radix core. A round:
 // 1. block r masks its contiguous share of the bins, [r S, (r + 1) S) with
@@ -376,32 +376,30 @@ __device__ __forceinline__ void wiener_cluster_dit_block(float4* smem4, const Ar
 // cluster_mixed_smem_bytes with 2 (k - 1) columns' carry. T is blockDim.x
 // (the card's 512), n <= 16 T: a stride the compiler knows keeps the mask
 // loads' addresses in immediates (a stride read from blockDim.x spilled 72
-// bytes at 128 registers).
+// bytes at 128 registers). The cluster's place (place, the round's frame,
+// the gather's columns and rows) is derived from fresh_block_index twice a
+// round, for the mask and again for the gather, not held across the
+// transform: held, with the radix-7 pass in mixed_fft, it spilled at 128
+// registers.
 template <int C, int T>
 __device__ __forceinline__ void wiener_cluster_mixed_block(float4* smem4, const Args& a, int n,
                                                            int rounds, unsigned long long sched) {
   using D = ClusterMixed<C>;
   constexpr int K = kPoints / 2;  // bins a thread masks at most: S <= 8 T
   // bins every thread masks: at the card's 512 threads each block's share
-  // is at least 2048 bins (2160 at 8640; wiener_cluster_mixed_launch
+  // is at least 2048 bins (2058 at 8232; wiener_cluster_mixed_launch
   // checks), so the first four strides need no guard
   constexpr int KF = T == kMaxThreads ? 4 : 0;
   const int N = C * n;
   const int half = N / 2;
   const int share = (half + C - 1) / C;
   const int rank = blockIdx.x % C;
-  const Place pl = place(a, blockIdx.x / C);
   const int k = N / a.hop;  // frames that overlap one hop row
   const int cols = cluster_columns(a.hop, C);
-  const int u0 = rank * cols;
-  const int ncols = max(0, min(cols, a.hop - u0));
   float2* tws = reinterpret_cast<float2*>(smem4);
   float2* buf = tws + n;
   float* carry0 = reinterpret_cast<float*>(buf + split_exchange_len(n));  // (k - 1) cols
   float* carry1 = carry0 + (k - 1) * cols;
-  const int j_end = min(pl.j0 + a.rows, a.nf + k - 1);
-  const int k0 = rank * share + threadIdx.x;  // the thread's first bin
-  const int k_end = min(half, (rank + 1) * share);
 
   D::load_tables(tws, a.tw, n);
   for (int i = threadIdx.x; i < 2 * (k - 1) * cols; i += blockDim.x) carry0[i] = 0.f;
@@ -410,32 +408,42 @@ __device__ __forceinline__ void wiener_cluster_mixed_block(float4* smem4, const 
   cluster_sync();
 
   for (int r = 0; r < rounds; ++r) {
-    const int f = pl.j0 - (k - 1) + r;  // the round's frame
-    const bool live = f >= 0 && f < a.nf;
-    float4 ab[K];
-    if (live) {
-      masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);
-    } else {
+    {
+      const Place pl = place(a, fresh_block_index() / C);
+      const int f = pl.j0 - (k - 1) + r;  // the round's frame
+      const bool live = f >= 0 && f < a.nf;
+      const int k0 = rank * share + threadIdx.x;  // the thread's first bin
+      const int k_end = min(half, (rank + 1) * share);
+      float4 ab[K];
+      if (live) {
+        masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);
+      } else {
 #pragma unroll
-      for (int i = 0; i < K; ++i) ab[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
-      const int kk = k0 + i * T;
-      if (kk < k_end) {
-        D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
-        if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+        for (int i = 0; i < K; ++i) ab[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-    }
-    if (rank == C - 1 && threadIdx.x == 0) {  // Nyquist: real parts only
-      const float4 q = live ? masked_bin(a, pl, N, f, half, true)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-      D::put(buf, half, make_float2(q.x, -q.z));
+#pragma unroll
+      for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
+        const int kk = k0 + i * T;
+        if (kk < k_end) {
+          D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+          if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+        }
+      }
+      if (rank == C - 1 && threadIdx.x == 0) {  // Nyquist: real parts only
+        const float4 q = live ? masked_bin(a, pl, N, f, half, true)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        D::put(buf, half, make_float2(q.x, -q.z));
+      }
     }
     cluster_sync();  // every block's points are in place
     D::run_staged(buf, tws, a.tw, n, sched, rank);  // ends in a cluster barrier
-    cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
-                        pl, N, f, cols, u0, ncols, j_end);
+    {
+      const Place pl = place(a, fresh_block_index() / C);
+      const int u0 = rank * cols;
+      cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
+                          pl, N, pl.j0 - (k - 1) + r, cols, u0, max(0, min(cols, a.hop - u0)),
+                          min(pl.j0 + a.rows, a.nf + k - 1));
+    }
     cluster_sync();  // the peers have read this round's buffers
   }
 }

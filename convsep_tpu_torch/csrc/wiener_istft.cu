@@ -58,12 +58,13 @@
 //   runs one Fft<13> on its points t = r (mod C) and applies the combine's
 //   twiddle; the radix-C combine is read in the gather. 144 384 bytes of
 //   shared memory a block at hop N/8.
-// * The 5-smooth sizes, N = C n with n = 2^a 3^b 5^c (10 000, 20 000 and 56
-//   more from 8640 to 32 400; wiener_cluster_mixed_kernel,
+// * The 7-smooth sizes, N = C n with n = 2^a 3^b 5^c 7^d (10 000, 14 000,
+//   20 000 and 133 more from 8232 to 32 400; wiener_cluster_mixed_kernel,
 //   wiener_common.cuh::wiener_cluster_mixed_block): the same rounds, each
 //   block's n points on the mixed-radix core (fft_common.cuh::ClusterMixed,
-//   mixed_fft: Stockham passes of radix 2-16, 3, 5 and 9 in a schedule the
-//   host plans), the whole N-point table in global memory for the combine.
+//   mixed_fft: Stockham passes of radix 2-16, 3, 5, 7 and 9 in a schedule
+//   the host plans), the whole N-point table in global memory for the
+//   combine.
 // * The other even sizes (wiener_cluster_kernel,
 //   wiener_common.cuh::wiener_cluster_block): Bluestein run backwards on a
 //   cluster of 4 or 8 blocks (M 32 768 or 65 536,
@@ -292,7 +293,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_mixed_kernel(
   wiener_cluster_mixed_block<C, kMaxThreads>(smem4, a, n, rounds, sched);
 }
 
-// the same for the 5-smooth block core, N = C n (C 2 or 4)
+// the same for the 7-smooth block core, N = C n (C 2 or 4)
 template <int C>
 cudaError_t launch_wiener_cluster_mixed(const Args& a, long long clusters, int n, int rounds,
                                         unsigned long long sched, cudaStream_t stream,
@@ -453,8 +454,9 @@ extern "C" int wiener_cluster_dit_launch(
   return (int)launch_wiener_cluster_dit<4>(a, clusters, rounds, s, active);
 }
 
-// The 5-smooth even sizes past 8192 up to 32 768 (fft_plan.mixed_factors:
-// nfft = C n, C 2 or 4, n = 2^a 3^b 5^c; 10 000, 20 000 and 56 more): the
+// The 7-smooth even sizes past 8192 up to 32 768 (fft_plan.mixed_factors:
+// nfft = C n, C 2 or 4, n = 2^a 3^b 5^c 7^d; 10 000, 14 000, 20 000 and
+// 133 more): the
 // direct inverse by decimation in time on a cluster of C blocks of 512
 // threads a pair of sources, one frame a round, each block's n points on
 // the mixed-radix core in the passes of `sched` (fft_plan.mixed_schedule:

@@ -18,16 +18,18 @@ wrappers and plain versions.
   ``wiener_istft_cluster``), at the powers of two there (16 384, 32 768)
   the direct transform by decimation in time over a cluster of 2 or 4
   blocks (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.
-  wiener_cluster_dit_plan`, ``wiener_istft_cluster_dit``), at the 5-smooth
-  sizes in ``fft_plan.WIENER_MIXED_WON`` (10 000, 20 000, ...) the same with
+  wiener_cluster_dit_plan`, ``wiener_istft_cluster_dit``), at the 7-smooth
+  sizes in ``fft_plan.WIENER_MIXED_WON`` (10 000, 14 000, ...) the same with
   each block's points on a mixed-radix core
   (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_mixed_plan`,
   ``wiener_istft_cluster_mixed``); with ``ny`` each counts as
   ``wiener_istft_ny``, ``wiener_istft_ny_split``, and so on.
   :func:`wiener_direct_pallas` forces the direct sum per sample that served
-  the sizes off the core before (``wiener_istft_direct``), and
+  the sizes off the core before (``wiener_istft_direct``),
   :func:`wiener_bluestein_cluster_pallas` Bluestein's cluster at the powers
-  of two and the 5-smooth sizes past 8192, to hold and time them.
+  of two and the 7-smooth sizes past 8192, and
+  :func:`wiener_cluster_mixed_pallas` the mixed cluster at any of its sizes,
+  to hold and time them.
 * :func:`istft_ct_pallas` replaces ``istft_ct_pallas``: the same iSTFT
   without the mask, through the kernel of ``csrc/istft.cu``
   (:func:`convsep_tpu_torch.dsp.cuda.istft_kernel.launch_istft`), which
@@ -57,6 +59,7 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     split_factors,
     synthesis_tables,
     twiddles,
+    wiener_cluster_mixed_plan,
     wiener_cluster_plan,
     wiener_direct_plan,
     wiener_plan,
@@ -71,24 +74,37 @@ _LANES = 128  # the reference kernel's lane-width factor of nfft
 # plain masked chain (the mask, then the iSTFT "auto" takes) in a timed A/B
 # on an H100 80GB HBM3 at 700 W, 4 stems of a 30 s track, bf16 y
 # (tools/torch_wiener_mixed_ab.py; chip_smoke.py phase 3c repeats it at 10
-# 000, 16 384, 20 000 and 32 768; PERF.md row 1″): "auto" takes the kernel
+# 000, 14 000, 16 384, 20 000 and 32 768; PERF.md row 1″): "auto" takes the kernel
 # past 8192 only there, as FUSED_DECODE_WON keys the decode. The direct
 # cluster at the reference's 16 384 and 32 768 against the mask and the
-# iSTFT's direct cluster, by 1.5-1.7x; the mixed cluster at each of its 58
+# iSTFT's direct cluster, by 1.5-1.7x; the mixed cluster at each of its 136
 # sizes at the sweep's hop against the mask and the factored products (the
-# direct ones at 11 250), by 5.1-35.7x. Bluestein's cluster lost at every
-# size it was timed.
+# direct ones where those do not factor, as at 11 250 and 14 000), by
+# 4.97-53.1x. Bluestein's cluster lost at every size it was timed.
 WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({
-    (8640, 2160), (8748, 2187), (9000, 2250), (9216, 2304), (9600, 2400), (9720, 2430), (10000,
-    2500), (10240, 2560), (10368, 2592), (10800, 2700), (11250, 2250), (11520, 2880), (11664,
-    2916), (12000, 3000), (12150, 2430), (12288, 3072), (12500, 3125), (12800, 3200), (12960,
-    3240), (13122, 4374), (13500, 3375), (13824, 3456), (14400, 3600), (14580, 3645), (15000,
-    3750), (15360, 3840), (15552, 3888), (16000, 4000), (16200, 4050), (16384, 2048), (17280,
-    4320), (17496, 4374), (18000, 4500), (18432, 4608), (19200, 4800), (19440, 4860), (20000,
-    5000), (20480, 5120), (20736, 5184), (21600, 5400), (22500, 5625), (23040, 5760), (23328,
-    5832), (24000, 6000), (24300, 6075), (24576, 6144), (25000, 6250), (25600, 6400), (25920,
-    6480), (26244, 6561), (27000, 6750), (27648, 6912), (28800, 7200), (29160, 7290), (30000,
-    7500), (30720, 7680), (31104, 7776), (32000, 8000), (32400, 8100), (32768, 4096)})
+    (8232, 2058), (8400, 2100), (8640, 2160), (8748, 2187), (8750, 1750), (8820, 2205), (8960,
+    2240), (9000, 2250), (9072, 2268), (9216, 2304), (9408, 2352), (9450, 1890), (9600, 2400),
+    (9604, 2401), (9720, 2430), (9800, 2450), (10000, 2500), (10080, 2520), (10206, 3402), (10240,
+    2560), (10290, 2058), (10368, 2592), (10500, 2625), (10584, 2646), (10752, 2688), (10800,
+    2700), (10976, 2744), (11200, 2800), (11250, 2250), (11340, 2835), (11520, 2880), (11664,
+    2916), (11760, 2940), (12000, 3000), (12096, 3024), (12150, 2430), (12250, 2450), (12288,
+    3072), (12348, 3087), (12500, 3125), (12544, 3136), (12600, 3150), (12800, 3200), (12960,
+    3240), (13122, 4374), (13230, 2646), (13440, 3360), (13500, 3375), (13608, 3402), (13720,
+    3430), (13824, 3456), (14000, 3500), (14112, 3528), (14336, 3584), (14400, 3600), (14406,
+    4802), (14580, 3645), (14700, 3675), (15000, 3750), (15120, 3780), (15360, 3840), (15552,
+    3888), (15680, 3920), (15750, 3150), (15876, 3969), (16000, 4000), (16128, 4032), (16200,
+    4050), (16384, 2048), (16464, 4116), (16800, 4200), (17280, 4320), (17496, 4374), (17500,
+    4375), (17640, 4410), (17920, 4480), (18000, 4500), (18144, 4536), (18432, 4608), (18816,
+    4704), (18900, 4725), (19200, 4800), (19208, 4802), (19440, 4860), (19600, 4900), (20000,
+    5000), (20160, 5040), (20412, 5103), (20480, 5120), (20580, 5145), (20736, 5184), (21000,
+    5250), (21168, 5292), (21504, 5376), (21600, 5400), (21952, 5488), (22400, 5600), (22500,
+    5625), (22680, 5670), (23040, 5760), (23328, 5832), (23520, 5880), (24000, 6000), (24192,
+    6048), (24300, 6075), (24500, 6125), (24576, 6144), (24696, 6174), (25000, 6250), (25088,
+    6272), (25200, 6300), (25600, 6400), (25920, 6480), (26244, 6561), (26460, 6615), (26880,
+    6720), (27000, 6750), (27216, 6804), (27440, 6860), (27648, 6912), (28000, 7000), (28224,
+    7056), (28672, 7168), (28800, 7200), (28812, 7203), (29160, 7290), (29400, 7350), (30000,
+    7500), (30240, 7560), (30720, 7680), (31104, 7776), (31360, 7840), (31500, 7875), (31752,
+    7938), (32000, 8000), (32256, 8064), (32400, 8100), (32768, 4096)})
 # The same for the split's and Bluestein's (nfft, hop) up to 8192 (chip_smoke.py
 # phase 7b, 4 stems of a 30 s track, PERF.md row 1′): each won, by 3.8-8.7x on an
 # H100 80GB HBM3 at 700 W.
@@ -163,7 +179,7 @@ def wiener_istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     to 8192 (every preset) run on the FFT core, m · 2^a on its split, the
     other even sizes up to 8192 on Bluestein run backwards, even sizes past
     8192 Bluestein run backwards on a thread-block cluster, the powers of
-    two and the 5-smooth sizes there the direct transform over a cluster. It
+    two and the 7-smooth sizes there the direct transform over a cluster. It
     holds every shape of the reference's :func:`ct_pallas_supported`."""
     if not (win_len == nfft and 16 <= nfft <= WIENER_CLUSTER_NFFT and nfft % 2 == 0 and hop > 0
             and nfft % hop == 0):
@@ -290,12 +306,35 @@ def wiener_bluestein_cluster_pallas(
 ) -> torch.Tensor:
     """:func:`wiener_istft` through Bluestein's cluster at any even nfft past
     8192 up to the reference's 32 768 (CUDA tensors, counted as
-    ``wiener_istft_cluster``), the powers of two and the 5-smooth sizes
+    ``wiener_istft_cluster``), the powers of two and the 7-smooth sizes
     too, where the direct transforms (``wiener_istft_cluster_dit``,
     ``wiener_istft_cluster_mixed``) replaced it, so that it can be held and
     timed beside them. CPU tensors: the plain version."""
     return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
                    wiener_cluster_plan)
+
+
+def wiener_cluster_mixed_pallas(
+    y: torch.Tensor,
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    p: float = 1.0,
+    eps: float = 1e-8,
+    conserve_last: bool = False,
+    output_dtype: str = "float32",
+    ny: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`wiener_istft` through the mixed cluster at any of its sizes
+    (:func:`~convsep_tpu_torch.dsp.cuda.fft_plan.wiener_cluster_mixed_plan`,
+    CUDA tensors, counted as ``wiener_istft_cluster_mixed``), in
+    ``fft_plan.WIENER_MIXED_WON`` or not, so that a size can be timed
+    against Bluestein's cluster before "auto" takes it. CPU tensors: the
+    plain version."""
+    return _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,
+                   wiener_cluster_mixed_plan)
 
 
 def _wiener(y, re, im, window, hop, length, p, eps, conserve_last, output_dtype, ny,

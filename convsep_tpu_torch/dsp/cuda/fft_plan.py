@@ -42,7 +42,7 @@ and overlap-add them by a gather, at the split's sizes on the split run
 backwards, at the other sizes up to 8192 (odd ones too) on Bluestein run
 backwards, past 8192 on the cluster run backwards (:func:`istft_cluster_plan`;
 at the powers of two the direct transform over the cluster,
-:func:`istft_cluster_dit_plan`, and at the 5-smooth sizes of
+:func:`istft_cluster_dit_plan`, and at the 7-smooth sizes of
 :func:`mixed_factors` the same on a mixed-radix block core whose passes
 :func:`mixed_radices` plans, :func:`istft_cluster_mixed_plan`), past 65 536
 on the second level run backwards (:func:`level2_plan`); :func:`istft_plan`
@@ -141,13 +141,13 @@ def cluster_supported(nfft: int) -> bool:
     return MAX_NFFT < nfft <= CLUSTER_NFFT
 
 
-MIXED_RADICES = (2, 3, 4, 5, 8, 9, 16)  # the mixed-radix block core's passes (mixed_fft)
+MIXED_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)  # the mixed-radix block core's passes (mixed_fft)
 MIXED_RADIX_BITS = 5  # fft_common::kMixedRadixBits: the bits of one radix in a schedule
 
 
-def smooth5(n: int) -> bool:
-    """n = 2^a · 3^b · 5^c."""
-    for p in (2, 3, 5):
+def smooth7(n: int) -> bool:
+    """n = 2^a · 3^b · 5^c · 7^d."""
+    for p in (2, 3, 5, 7):
         while n % p == 0:
             n //= p
     return n == 1
@@ -157,37 +157,42 @@ def mixed_factors(nfft: int) -> tuple[int, int] | None:
     """(C, n) for a size the mixed cluster takes (``fft_common.cuh::
     mixed_sizes``, ``ClusterMixed``): an even nfft in (8192, 65 536] that is
     not a power of two, C the fewest of 2, 4, 8 blocks with nfft / C <= 8192,
-    C dividing nfft, and n = nfft / C 5-smooth (4096 < n < 8192). 87 sizes:
-    10 000, 20 000 and 40 000 are C · 5000. Nine of them have an odd n (11
-    250, 12 150 and 13 122 on 2 blocks, and twice and four times each); the
-    core serves them as any other, its n-point twiddle table whole. None for
-    any other size: a prime factor past 5, an odd nfft, or too few factors
-    of two for C (2 · 3^9 = 39 366 would need C 8)."""
+    C dividing nfft, and n = nfft / C 7-smooth (4096 < n < 8192). 204 sizes
+    on 68 block sizes n: the 87 5-smooth ones (10 000, 20 000 and 40 000 are
+    C · 5000) and 117 with a factor 7 (14 000, 28 000 and 56 000 are C ·
+    7000). 33 of them have one of 11 odd n (11 250, 12 150, 13 122, 8750 =
+    2 · 4375, 14 406 = 2 · 7203 and six more on 2 blocks, and twice and four
+    times each); the core serves them as any other, its n-point twiddle
+    table whole. None for any other size: a prime factor past 7, an
+    odd nfft, or too few factors of two for C (2 · 3^9 = 39 366 and 2^2 ·
+    3^2 · 5^2 · 7^2 = 44 100 would need C 8)."""
     if not MAX_NFFT < nfft <= CLUSTER_NFFT or nfft & (nfft - 1) == 0:
         return None
     c = 2 if nfft <= 2 * MAX_NFFT else 4 if nfft <= 4 * MAX_NFFT else 8
-    if nfft % c or not smooth5(nfft // c):
+    if nfft % c or not smooth7(nfft // c):
         return None
     return c, nfft // c
 
 
 def mixed_radices(n: int) -> tuple[int, ...]:
-    """The passes of the mixed-radix core for a 5-smooth n, in order: radix
+    """The passes of the mixed-radix core for a 7-smooth n, in order: radix
     16 while four factors of two remain, the rest of the power of two in one
-    radix-2, 4 or 8 pass, then radix 5, then radix 9 and a last radix 3
-    (5000: 8, 5, 5, 5, 5; 6561: 9, 9, 9, 9), the order in which the kernel
-    runs a schedule's passes (``mixed_fft``: grouped by radix, 16, 8, 4, 2,
-    5, 9, 3). Each pass costs a round trip through the exchange buffer and
-    two block barriers, so the fewest passes the radices allow."""
-    if n < 2 or not smooth5(n):
-        raise ValueError(f"no mixed-radix passes for n={n}: 5-smooth, at least 2")
+    radix-2, 4 or 8 pass, then radix 5, then radix 7, then radix 9 and a
+    last radix 3 (5000: 8, 5, 5, 5, 5; 7000: 8, 5, 5, 5, 7; 7203: 7, 7, 7,
+    7, 3; 6561: 9, 9, 9, 9), the order in which the kernel runs a
+    schedule's passes (``mixed_fft``: grouped by radix, 16, 8, 4, 2, 5, 7,
+    9, 3). Each pass costs a round trip through the exchange buffer and two
+    block barriers, so the fewest passes the radices allow."""
+    if n < 2 or not smooth7(n):
+        raise ValueError(f"no mixed-radix passes for n={n}: 7-smooth, at least 2")
     out = []
     a = (n & -n).bit_length() - 1
     out += [16] * (a // 4) + ([1 << a % 4] if a % 4 else [])
     m = n >> a
-    while m % 5 == 0:
-        out.append(5)
-        m //= 5
+    for r in (5, 7):
+        while m % r == 0:
+            out.append(r)
+            m //= r
     while m % 9 == 0:
         out.append(9)
         m //= 9
@@ -274,34 +279,50 @@ CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
 # The sizes at which wiener_plan takes the mixed cluster (route
 # "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced,
 # 4 stems of a 30 s track, bf16 y, at hop nfft / 4 (nfft / 5, nfft / 3
-# where 4 does not divide it), by 2.98-6.15x in card ms, in one run on an
-# H100 80GB HBM3 at 700 W (tools/torch_wiener_mixed_ab.py, PERF.md row 1″
-# (5-smooth)): all 58 of mixed_factors up to the reference's 32 768 (C 2 or
-# 4). Keyed by nfft alone, as ISTFT_MIXED_WON: both routes run the same
-# rounds and gather. A size that loses stays on Bluestein's cluster.
+# where 4 does not divide it), by 2.85-6.04x in card ms, in one run on an
+# H100 80GB HBM3 at 700 W (tools/torch_wiener_mixed_ab.py, PERF.md rows 1″
+# (5-smooth) and 1″ (7-smooth)): all 136 of mixed_factors up to the
+# reference's 32 768 (C 2 or 4), the 78 with a factor 7 among them. Keyed
+# by nfft alone, as ISTFT_MIXED_WON: both routes run the same rounds and
+# gather. A size that loses stays on Bluestein's cluster.
 WIENER_MIXED_WON: frozenset[int] = frozenset({
-    8640, 8748, 9000, 9216, 9600, 9720, 10000, 10240, 10368, 10800, 11250, 11520, 11664, 12000,
-    12150, 12288, 12500, 12800, 12960, 13122, 13500, 13824, 14400, 14580, 15000, 15360, 15552,
-    16000, 16200, 17280, 17496, 18000, 18432, 19200, 19440, 20000, 20480, 20736, 21600, 22500,
-    23040, 23328, 24000, 24300, 24576, 25000, 25600, 25920, 26244, 27000, 27648, 28800, 29160,
-    30000, 30720, 31104, 32000, 32400})
+    8232, 8400, 8640, 8748, 8750, 8820, 8960, 9000, 9072, 9216, 9408, 9450, 9600, 9604, 9720, 9800,
+    10000, 10080, 10206, 10240, 10290, 10368, 10500, 10584, 10752, 10800, 10976, 11200, 11250,
+    11340, 11520, 11664, 11760, 12000, 12096, 12150, 12250, 12288, 12348, 12500, 12544, 12600,
+    12800, 12960, 13122, 13230, 13440, 13500, 13608, 13720, 13824, 14000, 14112, 14336, 14400,
+    14406, 14580, 14700, 15000, 15120, 15360, 15552, 15680, 15750, 15876, 16000, 16128, 16200,
+    16464, 16800, 17280, 17496, 17500, 17640, 17920, 18000, 18144, 18432, 18816, 18900, 19200,
+    19208, 19440, 19600, 20000, 20160, 20412, 20480, 20580, 20736, 21000, 21168, 21504, 21600,
+    21952, 22400, 22500, 22680, 23040, 23328, 23520, 24000, 24192, 24300, 24500, 24576, 24696,
+    25000, 25088, 25200, 25600, 25920, 26244, 26460, 26880, 27000, 27216, 27440, 27648, 28000,
+    28224, 28672, 28800, 28812, 29160, 29400, 30000, 30240, 30720, 31104, 31360, 31500, 31752,
+    32000, 32256, 32400})
 
 # The sizes at which istft_plan takes the mixed cluster (route
 # "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced
 # at hop nfft / 4 (nfft / 5, nfft / 3 where 4 does not divide it) on a 30 s
-# track, by 2.1-5.3x in card ms, in one run on an H100 80GB HBM3 at 700 W
-# (tools/torch_istft_mixed_ab.py, PERF.md row 3‴ (5-smooth)): all 87 of
-# mixed_factors. Keyed by nfft alone: both routes run the same rounds and
-# gather, so the hop moves them alike. A size that loses stays on
-# Bluestein's cluster.
+# track, by 1.97-5.23x in card ms, in one run on an H100 80GB HBM3 at 700 W
+# (tools/torch_istft_mixed_ab.py, PERF.md rows 3‴, 3⁗ (5-smooth) and
+# (7-smooth)): all 204 of mixed_factors, the 117 with a factor 7 among
+# them. Keyed by nfft alone: both routes run the same rounds and gather, so
+# the hop moves them alike. A size that loses stays on Bluestein's cluster.
 ISTFT_MIXED_WON: frozenset[int] = frozenset({
-    8640, 8748, 9000, 9216, 9600, 9720, 10000, 10240, 10368, 10800, 11250, 11520, 11664, 12000,
-    12150, 12288, 12500, 12800, 12960, 13122, 13500, 13824, 14400, 14580, 15000, 15360, 15552,
-    16000, 16200, 17280, 17496, 18000, 18432, 19200, 19440, 20000, 20480, 20736, 21600, 22500,
-    23040, 23328, 24000, 24300, 24576, 25000, 25600, 25920, 26244, 27000, 27648, 28800, 29160,
-    30000, 30720, 31104, 32000, 32400, 34560, 34992, 36000, 36864, 38400, 38880, 40000, 40960,
-    41472, 43200, 45000, 46080, 46656, 48000, 48600, 49152, 50000, 51200, 51840, 52488, 54000,
-    55296, 57600, 58320, 60000, 61440, 62208, 64000, 64800})
+    8232, 8400, 8640, 8748, 8750, 8820, 8960, 9000, 9072, 9216, 9408, 9450, 9600, 9604, 9720, 9800,
+    10000, 10080, 10206, 10240, 10290, 10368, 10500, 10584, 10752, 10800, 10976, 11200, 11250,
+    11340, 11520, 11664, 11760, 12000, 12096, 12150, 12250, 12288, 12348, 12500, 12544, 12600,
+    12800, 12960, 13122, 13230, 13440, 13500, 13608, 13720, 13824, 14000, 14112, 14336, 14400,
+    14406, 14580, 14700, 15000, 15120, 15360, 15552, 15680, 15750, 15876, 16000, 16128, 16200,
+    16464, 16800, 17280, 17496, 17500, 17640, 17920, 18000, 18144, 18432, 18816, 18900, 19200,
+    19208, 19440, 19600, 20000, 20160, 20412, 20480, 20580, 20736, 21000, 21168, 21504, 21600,
+    21952, 22400, 22500, 22680, 23040, 23328, 23520, 24000, 24192, 24300, 24500, 24576, 24696,
+    25000, 25088, 25200, 25600, 25920, 26244, 26460, 26880, 27000, 27216, 27440, 27648, 28000,
+    28224, 28672, 28800, 28812, 29160, 29400, 30000, 30240, 30720, 31104, 31360, 31500, 31752,
+    32000, 32256, 32400, 32928, 33600, 34560, 34992, 35000, 35280, 35840, 36000, 36288, 36864,
+    37632, 37800, 38400, 38416, 38880, 39200, 40000, 40320, 40824, 40960, 41160, 41472, 42000,
+    42336, 43008, 43200, 43904, 44800, 45000, 45360, 46080, 46656, 47040, 48000, 48384, 48600,
+    49000, 49152, 49392, 50000, 50176, 50400, 51200, 51840, 52488, 52920, 53760, 54000, 54432,
+    54880, 55296, 56000, 56448, 57344, 57600, 57624, 58320, 58800, 60000, 60480, 61440, 62208,
+    62720, 63000, 63504, 64000, 64512, 64800})
 
 
 @dataclass(frozen=True)
@@ -568,7 +589,7 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     :func:`bluestein_plan`, one on the level, the rounds by the same rule.
     Past 8192, up to :data:`CLUSTER_NFFT`: :func:`istft_cluster_plan`, the
     powers of two there (16 384, 32 768, 65 536)
-    :func:`istft_cluster_dit_plan`, the 5-smooth sizes in
+    :func:`istft_cluster_dit_plan`, the 7-smooth sizes in
     :data:`ISTFT_MIXED_WON` :func:`istft_cluster_mixed_plan`; up to
     :data:`LEVEL2_NFFT`: the second
     level's :func:`level2_plan`. Other sizes: the direct sum, up to 16 hop
@@ -660,8 +681,8 @@ def istft_cluster_dit_plan(signals: int, nf: int, nfft: int, win: int, hop: int)
 
 @lru_cache(maxsize=64)
 def istft_cluster_mixed_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
-    """The inverse's launch at the 5-smooth sizes past 8192
-    (:func:`mixed_factors`: 10 000, 20 000, 40 000, ...), as ``csrc/istft.cu::
+    """The inverse's launch at the 7-smooth sizes past 8192
+    (:func:`mixed_factors`: 10 000, 14 000, 20 000, 40 000, ...), as ``csrc/istft.cu::
     istft_cluster_mixed_launch`` computes it: the direct transform by
     decimation in time over a cluster of C blocks (2, 4 or 8) of 512
     threads, each block's n = nfft / C points on the mixed-radix core, its
@@ -672,7 +693,7 @@ def istft_cluster_mixed_plan(signals: int, nf: int, nfft: int, win: int, hop: in
     f = mixed_factors(nfft)
     if f is None or win > nfft:
         raise ValueError(f"no iSTFT cluster_mixed plan for nfft={nfft}: even, past {MAX_NFFT}, "
-                         f"at most {CLUSTER_NFFT}, not a power of two, C · n with n 5-smooth, "
+                         f"at most {CLUSTER_NFFT}, not a power of two, C · n with n 7-smooth, "
                          "and at least the window")
     c, n = f
     return _istft_cluster_rounds(signals, nf, nfft, win, hop, c, "cluster_mixed",
@@ -793,7 +814,7 @@ def wiener_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPla
     its tables and exchange buffer, a block takes one source (S blocks per
     row range) and a group two of its frames a round (``frame_pairs``, R =
     2G·rounds − (k − 1)). Even sizes past 8192: :func:`wiener_cluster_plan`,
-    the powers of two there :func:`wiener_cluster_dit_plan`, the 5-smooth
+    the powers of two there :func:`wiener_cluster_dit_plan`, the 7-smooth
     sizes in :data:`WIENER_MIXED_WON` :func:`wiener_cluster_mixed_plan`. The
     direct sum is only forced (:func:`wiener_direct_plan`)."""
     if MAX_NFFT < nfft <= WIENER_CLUSTER_NFFT:
@@ -912,9 +933,9 @@ def wiener_cluster_dit_plan(signals: int, S: int, nf: int, nfft: int, hop: int) 
 
 @lru_cache(maxsize=64)
 def wiener_cluster_mixed_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
-    """The Wiener+iSTFT's launch at the 5-smooth sizes past 8192 up to
-    :data:`WIENER_CLUSTER_NFFT` (:func:`mixed_factors` with C 2 or 4: 58
-    sizes from 8640 to 32 400, 10 000 and 20 000 among them), as
+    """The Wiener+iSTFT's launch at the 7-smooth sizes past 8192 up to
+    :data:`WIENER_CLUSTER_NFFT` (:func:`mixed_factors` with C 2 or 4: 136
+    sizes from 8232 to 32 400, 10 000, 14 000 and 20 000 among them), as
     ``csrc/wiener_istft.cu::wiener_cluster_mixed_launch`` computes it: the
     direct transform by decimation in time over a cluster of C blocks of
     512 threads, each block's n = nfft / C points on the mixed-radix core,
@@ -927,7 +948,7 @@ def wiener_cluster_mixed_plan(signals: int, S: int, nf: int, nfft: int, hop: int
     if f is None or hop < 1 or nfft % hop:
         raise ValueError(f"no Wiener+iSTFT cluster_mixed plan for nfft={nfft} hop={hop}: even, "
                          f"past {MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, not a power of two, "
-                         "C · n with n 5-smooth, a multiple of the hop")
+                         "C · n with n 7-smooth, a multiple of the hop")
     c, n = f
     return _cluster_rounds(signals, S, nf, nfft, hop, c, "cluster_mixed",
                            lambda carry: cluster_mixed_smem_bytes(n, carry))

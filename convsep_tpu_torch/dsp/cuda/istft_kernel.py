@@ -16,9 +16,9 @@ to 8192, odd ones too (``LAUNCHES["istft_bluestein"]``), Bluestein over a
 thread-block cluster run backwards past 8192, up to 65 536
 (``LAUNCHES["istft_cluster"]``), at the powers of two there (16 384, 32 768,
 65 536) the direct transform by decimation in time over a cluster of 2, 4
-or 8 blocks (``LAUNCHES["istft_cluster_dit"]``), at the 5-smooth sizes there
-that won their A/B (``fft_plan.ISTFT_MIXED_WON``: 10 000, 20 000, 40 000,
-...) the same transform on a mixed-radix block core
+or 8 blocks (``LAUNCHES["istft_cluster_dit"]``), at the 7-smooth sizes there
+that won their A/B (``fft_plan.ISTFT_MIXED_WON``: 10 000, 14 000, 20 000,
+40 000, ...) the same transform on a mixed-radix block core
 (``LAUNCHES["istft_cluster_mixed"]``; ``launch_istft(cluster_mixed=True)``
 forces it at any of its sizes; :func:`istft_bluestein_cluster_pallas`
 forces Bluestein's cluster at both, to hold and time it), and Bluestein on
@@ -71,7 +71,7 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     FFT core, m · 2^a (m 3, 5, 9, 15, 2^a >= 16, up to 8192) on its split,
     the other sizes up to 8192 on Bluestein run backwards, up to 65 536 on
     a thread-block cluster (Bluestein's, or the direct transform at the
-    powers of two and the won 5-smooth sizes), up to 262 144 on the core's
+    powers of two and the won 7-smooth sizes), up to 262 144 on the core's
     second level; past that none (the direct sum per sample fits shared
     memory only up to 12 800 points)."""
     if not (2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
@@ -100,7 +100,7 @@ def launch_istft(
     tables, the twiddles and the plan are found again per call, not made.
     ``direct``: the direct sum (:func:`istft_direct_pallas`);
     ``bluestein_cluster``: Bluestein's cluster past 8192, the powers of two
-    and the 5-smooth sizes too (:func:`istft_bluestein_cluster_pallas`);
+    and the 7-smooth sizes too (:func:`istft_bluestein_cluster_pallas`);
     ``cluster_mixed``: the mixed cluster at any size of
     :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.mixed_factors`, won or not
     (its A/B)."""
@@ -253,7 +253,7 @@ def istft_bluestein_cluster_pallas(
 ) -> torch.Tensor:
     """:func:`istft_pallas` through Bluestein's cluster at any nfft past 8192
     up to 65 536 (CUDA tensors, counted as ``istft_cluster``), the powers of
-    two and the won 5-smooth sizes too, where the direct transform
+    two and the won 7-smooth sizes too, where the direct transform
     (``istft_cluster_dit``, ``istft_cluster_mixed``) replaced it, so that
     it can be held and timed beside those kernels (PCM16:
     ``launch_istft(..., bluestein_cluster=True)``). CPU tensors: the plain

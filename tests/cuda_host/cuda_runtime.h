@@ -192,6 +192,9 @@ inline std::vector<std::vector<float4>>* cluster_smem = nullptr;  // a block's e
 
 inline void cluster_sync() { host_fiber::arrive(cluster_barrier); }
 
+// the card reads %ctaid.x through volatile asm (fft_common.cuh)
+inline int fresh_block_index() { return blockIdx.x; }
+
 // this thread's block's shared memory
 #define block_smem (static_cast<float4*>(host_fiber::current->smem))
 

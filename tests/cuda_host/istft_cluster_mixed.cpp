@@ -17,7 +17,13 @@
 // float32), DIR/wn.bin (window / NFFT), DIR/inv.bin (the inverse
 // window-power envelope) and DIR/tw.bin (the NFFT-point table) and writes
 // DIR/out.bin: NT x LENGTH float32, or int16 when INT16 is 1.
+//
+//   istft_cluster_mixed sizes
+//
+// prints "NFFT C N" for every even NFFT in (8192, 65 536] that mixed_sizes
+// (the launchers' check) takes.
 #include <cmath>
+#include <cstdio>
 #include <cstring>
 
 #include "cuda_runtime.h"
@@ -97,7 +103,16 @@ static int istft_main(char** argv) {
   return 0;
 }
 
+static int sizes_main() {
+  for (int nfft = (1 << kMaxLog2) + 2; nfft <= (8 << kMaxLog2); nfft += 2) {
+    int c, n;
+    if (mixed_sizes(nfft, &c, &n)) printf("%d %d %d\n", nfft, c, n);
+  }
+  return 0;
+}
+
 int main(int argc, char** argv) {
+  if (argc == 2 && !strcmp(argv[1], "sizes")) return sizes_main();
   if (argc == 6 && !strcmp(argv[1], "fft")) return fft_main(argv);
   if (argc == 14 && !strcmp(argv[1], "istft")) return istft_main(argv);
   return 2;

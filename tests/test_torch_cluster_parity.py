@@ -1,9 +1,11 @@
 """The STFT and iSTFT past 8192 points, port against reference, on CPU: the
 port's ``stft_pallas`` and ``istft_pallas`` (their plain versions, as CPU
 tensors take; on a card these sizes run Bluestein on a thread-block
-cluster, ``stft_cluster`` / ``istft_cluster``) against the JAX package's
-``stft_pallas`` and ``istft_pallas`` in Pallas interpret mode, on the same
-numpy inputs.
+cluster, ``stft_cluster`` / ``istft_cluster``, or the iSTFT's mixed
+cluster at its 7-smooth sizes) against the JAX package's ``stft_pallas``
+and ``istft_pallas`` in Pallas interpret mode, or its factored
+``istft_matmul`` where the reference kernel takes no such window, on the
+same numpy inputs.
 
 Tolerances: spectra 1e-5 × the peak magnitude (float32 sums of an
 8000-long DFT in another order), signals 2e-5 × the peak sample (the
@@ -58,6 +60,22 @@ def test_istft_past_8192_matches_jax(rng):
     np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(), rtol=0)
 
 
+def _istft_mixed_matches_jax(rng, re, im, nfft, hop, length, algorithm):
+    """The port's ``istft_pallas`` (its plain version, as CPU tensors take)
+    against the JAX package's ``dft.istft_matmul`` on ``algorithm``'s chain,
+    on the same masked spectra, within 1e-5 × the peak sample."""
+    from convsep_tpu.dsp import dft as jdft
+
+    w = sinebell(nfft)
+    mask = rng.uniform(0.0, 1.0, re.shape).astype(np.float32)
+    re, im = re * mask, im * mask
+    want = np.asarray(jdft.istft_matmul(jnp.asarray(re), jnp.asarray(im), w, hop, length,
+                                        algorithm=algorithm))
+    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
+    assert got.shape == want.shape == (re.shape[0], length)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
 def test_istft_5smooth_past_8192_matches_jax(rng):
     """W 10 000, hop 2500: a 5-smooth size past 8192 (10 000 = 2 · 5000,
     5000 = 2^3 · 5^4), which the card runs on the mixed cluster where
@@ -72,14 +90,32 @@ def test_istft_5smooth_past_8192_matches_jax(rng):
 
     nfft, hop, length = 10_000, 2500, 12_000
     assert mixed_factors(nfft) == (2, 5000)
-    w = sinebell(nfft)
     x = (0.3 * rng.standard_normal((2, length))).astype(np.float32)
-    re, im = (np.asarray(a) for a in jdft.stft_matmul(x, w, hop, precision="highest",
-                                                     algorithm="factored"))
-    mask = rng.uniform(0.0, 1.0, re.shape).astype(np.float32)
-    re, im = re * mask, im * mask
-    want = np.asarray(jdft.istft_matmul(jnp.asarray(re), jnp.asarray(im), w, hop, length,
-                                        algorithm="factored"))
-    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
-    assert got.shape == want.shape == (2, length)
-    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    re, im = (np.asarray(a) for a in jdft.stft_matmul(x, sinebell(nfft), hop,
+                                                     precision="highest", algorithm="factored"))
+    _istft_mixed_matches_jax(rng, re, im, nfft, hop, length, "factored")
+
+
+@pytest.mark.parametrize("nfft,hop,length,factors", [
+    (14_000, 3500, 16_000, (2, 7000)),  # 7000 = 2^3 · 5^3 · 7: a radix-7 pass
+])
+def test_istft_7smooth_past_8192_matches_jax(rng, nfft, hop, length, factors):
+    """The same at a 7-smooth size past 8192 (W 14 000, hop 3500), which the
+    card runs on the mixed cluster's radix-7 pass where
+    ``fft_plan.ISTFT_MIXED_WON`` holds it. The JAX package's factored chain
+    refuses 14 000 (its balanced factor 112 does not divide 7000), so its
+    "auto" takes the direct one, as its ``istft_wiener`` does there; the
+    spectra are numpy's FFT of the centred, windowed frames of 2 signals of
+    16 000 samples (``stft_matmul``'s direct matrices are not needed),
+    within 1e-5 × the peak sample."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import mixed_factors
+    from convsep_tpu_torch.dsp.stft import num_frames
+
+    assert mixed_factors(nfft) == factors
+    x = (0.3 * rng.standard_normal((2, length))).astype(np.float32)
+    nf = num_frames(length, hop)
+    padded = np.concatenate([np.zeros((2, nfft // 2)), x, np.zeros((2, nfft))], axis=-1)
+    spec = np.fft.rfft(np.stack([padded[:, f * hop:f * hop + nfft] for f in range(nf)], 1)
+                       * sinebell(nfft))
+    _istft_mixed_matches_jax(rng, spec.real.astype(np.float32), spec.imag.astype(np.float32),
+                             nfft, hop, length, "auto")

@@ -39,6 +39,7 @@ from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
     istft_ct_pallas,
     istft_ct_pallas_plain,
     wiener_bluestein_cluster_pallas,
+    wiener_cluster_mixed_pallas,
     wiener_direct_pallas,
     wiener_istft,
     wiener_istft_plain,
@@ -53,7 +54,7 @@ from convsep_tpu_torch.dsp.cuda.istft_kernel import (
 )
 from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas, stft_pallas_plain
 from convsep_tpu_torch.dsp.cuda.wiener_kernel import wiener_apply_pallas, wiener_apply_plain
-from convsep_tpu_torch.dsp.dft import istft_matmul, stft_matmul
+from convsep_tpu_torch.dsp.dft import _ct_supported, istft_matmul, stft_matmul
 from convsep_tpu_torch.dsp.windows import sinebell
 from convsep_tpu_torch.models.config import ConvSepConfig
 from convsep_tpu_torch.models.convsep import band_freq_conv_kernel
@@ -321,16 +322,20 @@ def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
     (13122, 6561, 50000, 2, {"conserve_last": True}, torch.bfloat16),  # n 6561 = 3^8, k 2
     (24300, 2025, 60000, 4, {"p": 2.0}, torch.float32),     # C 4 of n 6075, odd; k 12
     (32400, 8100, 90000, 5, {}, torch.bfloat16),            # the largest: C 4 of n 8100, S odd
+    (14000, 3500, 40000, 4, {}, torch.bfloat16),            # C 2 of n 7000: a radix-7 pass
+    (28000, 7000, 80000, 3, {"p": 2.0}, torch.float32),     # C 4 of n 7000, S odd
+    (8750, 1750, 40000, 4, {"conserve_last": True}, torch.bfloat16),  # n 4375 = 5^4·7, odd
 ])
 def test_wiener_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw,
                                                          ydt):
-    """The Wiener+iSTFT on the 5-smooth block core over a cluster of 2 or 4
+    """The Wiener+iSTFT on the 7-smooth block core over a cluster of 2 or 4
     blocks ("wiener_istft_cluster_mixed", wiener_plan's route at
     WIENER_MIXED_WON) at sizes off the smoke's: odd n (each block ceil(N / 2
-    / C) bins), C 2 and 4, k 2 to 12, float32 within 1e-5 and PCM16 within
-    one LSB of the plain version, one launch a call and no other Wiener
-    launch; Bluestein's cluster forced at the same shape within 1e-5 of it;
-    the Nyquist-row input bit for bit the concatenated spectrum's."""
+    / C) bins), C 2 and 4, k 2 to 12, radix-7 passes, float32 within 1e-5
+    and PCM16 within one LSB of the plain version, one launch a call and no
+    other Wiener launch; the same kernel forced (wiener_cluster_mixed_pallas)
+    bit for bit; Bluestein's cluster forced at the same shape within 1e-5 of
+    it; the Nyquist-row input bit for bit the concatenated spectrum's."""
     w, y, re, im = _wiener_inputs(rng, S, length, nfft, hop, cuda)
     y = y.to(ydt)
     assert _wiener_kernel(nfft, hop, S, re.shape[-2]) == "wiener_istft_cluster_mixed"
@@ -341,6 +346,11 @@ def test_wiener_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, hop, l
         assert {k: kernels.LAUNCHES[k] - before[k] for k in WIENER_NAMES} == {
             k: int(k == "wiener_istft_cluster_mixed") for k in WIENER_NAMES}
         _close(got, wiener_istft_plain(y, re, im, w, hop, length, output_dtype=out, **kw), out)
+    before = kernels.LAUNCHES["wiener_istft_cluster_mixed"]
+    forced = wiener_cluster_mixed_pallas(y, re, im, w, hop, length, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wiener_istft_cluster_mixed"] == before + 1
+    assert torch.equal(forced, wiener_istft(y, re, im, w, hop, length, **kw))
     blue = wiener_bluestein_cluster_pallas(y, re, im, w, hop, length, **kw)
     _close(wiener_istft(y, re, im, w, hop, length, **kw), blue, "float32")
     body_re, body_im, ny = re[..., :-1].contiguous(), im[..., :-1].contiguous(), re[..., -1]
@@ -988,7 +998,8 @@ def test_istft_bluestein_cluster_forced_at_powers_of_two(rng, cuda, nfft, hop):
 
 @pytest.mark.parametrize("nfft,win,hop", [(10000, 10000, 2500), (12000, 12000, 3000),
                                           (20000, 20000, 5000), (40000, 40000, 10000),
-                                          (60000, 60000, 15000), (11250, 11250, 2250)])
+                                          (60000, 60000, 15000), (11250, 11250, 2250),
+                                          (14000, 14000, 3500), (56000, 56000, 14000)])
 def test_cluster_mixed_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     """istft_cluster_mixed_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
     clusters of C blocks: the card's own cudaOccupancyMaxActiveClusters for
@@ -1015,15 +1026,21 @@ def test_cluster_mixed_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     (40000, 40000, 10000, (1,), 150000),  # C 8 of n 5000
     (60000, 60000, 15000, (1,), 120000),  # C 8 of n 7500 = 4·5·5·5·5·3
     (11250, 11250, 2250, (2,), 40000),   # C 2 of the odd n 5625 = 5·5·5·5·9
+    (14000, 14000, 3500, (1,), 60000),   # C 2 of n 7000 = 8·5·5·5·7: a radix-7 pass
+    (28000, 28000, 7000, (2,), 80000),   # C 4 of n 7000
+    (56000, 56000, 14000, (1,), 150000),  # C 8 of n 7000
+    (8750, 8750, 1750, (1,), 40000),     # C 2 of the odd n 4375 = 5·5·5·5·7
+    (16128, 16128, 4032, (1,), 50000),   # C 2 of n 8064 = 16·8·7·9: three radix-7 butterflies
 ])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
-    """The direct transform on the 5-smooth block core over a cluster of 2,
+    """The direct transform on the 7-smooth block core over a cluster of 2,
     4 or 8 blocks, forced (launch_istft(cluster_mixed=True)) so that it runs
     whatever ISTFT_MIXED_WON holds: one "istft_cluster_mixed" launch a call
     and no other iSTFT kernel; float32 within TOL_CLUSTER_F32 × max|out| of
     the float64 synthesis and 1e-5 of the plain one (the factored chain past
-    a 16 384-point window, whose direct matrices grow large), PCM16 within
+    a 16 384-point window where it factors, whose direct matrices grow
+    large; the direct one at 28 000, which it does not factor), PCM16 within
     one LSB of both."""
     w, re, im = _spectra(rng, lead, length, nfft, hop, cuda, win)
     before = dict(kernels.LAUNCHES)
@@ -1033,7 +1050,8 @@ def test_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, win, hop, lea
         k: int(k == "istft_cluster_mixed") for k in ISTFT_NAMES}
     want64 = _istft64(re, im, w, hop, length, nfft, out)
     plain = istft_matmul(re, im, w, hop, length, nfft=nfft,
-                         algorithm="factored" if win > 16384 else "direct", output_dtype=out)
+                         algorithm="factored" if win > 16384 and _ct_supported(nfft)
+                         else "direct", output_dtype=out)
     _close(got, plain, out)
     if out == "int16":
         _close(got, want64, out)
@@ -1043,10 +1061,11 @@ def test_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, win, hop, lea
 
 
 @pytest.mark.parametrize("nfft,hop", [(10000, 2500), (12000, 3000), (20000, 5000),
-                                      (40000, 10000), (60000, 15000)])
+                                      (40000, 10000), (60000, 15000), (14000, 3500),
+                                      (56000, 14000)])
 def test_istft_bluestein_cluster_forced_at_mixed_sizes(rng, cuda, nfft, hop):
     """Bluestein's cluster forced (istft_bluestein_cluster_pallas, counted
-    "istft_cluster") and the mixed cluster forced at the same 5-smooth size:
+    "istft_cluster") and the mixed cluster forced at the same 7-smooth size:
     one launch each, the two within TOL_CLUSTER_F32 × max|out| of each
     other, PCM16 within one LSB; istft_pallas launches the mixed one
     exactly where ISTFT_MIXED_WON holds the size."""
@@ -1701,7 +1720,7 @@ ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
 # cluster (an 8192-point part a block, 128 registers), and for the
 # Wiener+iSTFT's and the iSTFT's direct transform on a cluster, at the
-# powers of two and on the 5-smooth block core (126 and 128 registers, no
+# powers of two and on the 7-smooth block core (123 to 128 registers, no
 # stack)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,

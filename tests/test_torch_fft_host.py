@@ -19,7 +19,7 @@ that a test run spreads them over its workers, each file building only the
   the core and on the 16 384-point level;
 * ``test_torch_fft_host_cluster.py``: Bluestein over a thread-block cluster,
   forward and inverse, and the iSTFT's direct cluster at the powers of two;
-* ``test_torch_fft_host_mixed.py``: the 5-smooth block core and the iSTFT's
+* ``test_torch_fft_host_mixed.py``: the 7-smooth block core and the iSTFT's
   mixed cluster;
 * ``test_torch_fft_host_wiener.py``: the Wiener+iSTFT's masked loads on the
   split, on Bluestein and on the three cluster routes;

@@ -1,14 +1,15 @@
-"""The 5-smooth block core on the CPU (the stand-in runtime and
+"""The 7-smooth block core on the CPU (the stand-in runtime and
 :func:`tests.test_torch_fft_host.programs`): ``mixed_fft`` (the
-mixed-radix block core's Stockham passes of radix 2, 3, 4, 5, 8, 9 and 16
-in a host-planned schedule) at every 5-smooth n it serves, against numpy's
-float64 FFT within 1e-6 × max|X|, and ``istft_cluster_mixed_block``
+mixed-radix block core's Stockham passes of radix 2, 3, 4, 5, 7, 8, 9 and
+16 in a host-planned schedule) at every 7-smooth n it serves, against
+numpy's float64 FFT within 1e-6 × max|X|, and ``istft_cluster_mixed_block``
 (``istft.cu::istft_cluster_mixed_kernel``: the direct inverse over the
 cluster on that core, ``ClusterMixed``) at small parts (C 2, 4 and 8, an
-odd n), against the plain iSTFT, and at the card's W 10 000, 20 000 and 40
-000 (C 2, 4, 8 of n 5000) and W 11 250 (an odd n), against the plain iSTFT
-or, past its matrices' memory, the float64 synthesis, within 1e-5 ×
-max|out|, PCM16 within ±1 LSB."""
+odd n, a factor 7), against the plain iSTFT, and at the card's W 10 000,
+20 000 and 40 000 (C 2, 4, 8 of n 5000), W 14 000 (C 2 of n 7000 = 8·5³·7),
+W 11 250 and W 8750 (the odd n 5625 and 4375), against the plain iSTFT or,
+past its matrices' memory, the float64 synthesis, within 1e-5 × max|out|,
+PCM16 within ±1 LSB."""
 
 import subprocess
 
@@ -25,10 +26,22 @@ from tests.test_torch_fft_host import _istft64, programs
 host = programs("istft_cluster_mixed")
 
 
-# every block size n of the mixed cluster's 87 sizes (fft_plan.mixed_factors)
+# every block size n of the mixed cluster's 204 sizes (fft_plan.mixed_factors): 68
 MIXED_BLOCK_SIZES = sorted({fp.mixed_factors(n)[1] for n in range(fp.MAX_NFFT + 2,
                                                                   fp.CLUSTER_NFFT + 1, 2)
                             if fp.mixed_factors(n)})
+
+
+def test_mixed_sizes_source_matches_plan(host):
+    """fft_common.cuh::mixed_sizes, the launchers' check, takes exactly the
+    even sizes past 8192 that fft_plan.mixed_factors takes, with the same C
+    and n: 204 up to 65 536."""
+    out = subprocess.run([str(host["istft_cluster_mixed"]), "sizes"], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    got = {int(a): (int(b), int(c)) for a, b, c in (line.split() for line in out.splitlines())}
+    want = {n: fp.mixed_factors(n) for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2)
+            if fp.mixed_factors(n)}
+    assert got == want and len(got) == 204
 
 
 @pytest.mark.parametrize("n", MIXED_BLOCK_SIZES)
@@ -57,6 +70,8 @@ ISTFT_CLUSTER_MIXED_CASES = [
     (540, 540, 135, 1, 2000, 4, 32, 3, "int16"),    # n 135 = 5·9·3, odd: no quarter table
     (2000, 1000, 250, 1, 4000, 8, 32, 4, "float32"),  # n 250 = 2·5·5·5; nfft past the window
     (60, 60, 2, 1, 80, 2, 4, 16, "float32"),        # hop 2: a column a block, k 30
+    (280, 280, 70, 2, 1500, 4, 32, 4, "float32"),   # n 70 = 2·5·7: a radix-7 pass, C 4
+    (490, 490, 98, 1, 1500, 2, 16, 5, "int16"),     # n 245 = 5·7·7, odd: two radix-7 passes
     (10_000, 10_000, 2500, 1, 6000, 2, 512, None, "float32"),  # the card's: C 2 of n 5000
     (10_000, 10_000, 2500, 1, 6000, 2, 512, None, "int16"),
     (20_000, 20_000, 5000, 1, 10_000, 4, 512, None, "float32"),  # C 4
@@ -64,6 +79,9 @@ ISTFT_CLUSTER_MIXED_CASES = [
     (40_000, 40_000, 10_000, 1, 20_000, 8, 512, None, "float32"),  # C 8
     (40_000, 40_000, 10_000, 1, 20_000, 8, 512, None, "int16"),
     (11_250, 11_250, 2250, 1, 6000, 2, 512, None, "float32"),  # n 5625 = 5^4·9, odd
+    (14_000, 14_000, 3500, 1, 8000, 2, 512, None, "float32"),  # C 2 of n 7000 = 8·5·5·5·7
+    (14_000, 14_000, 3500, 1, 8000, 2, 512, None, "int16"),
+    (8750, 8750, 1750, 1, 5000, 2, 512, None, "float32"),    # n 4375 = 5^4·7, odd
 ]
 
 

@@ -16,9 +16,10 @@ stem written, PCM16 within ±1 LSB:
   32 768 on C 4);
 * ``wiener_common.cuh::wiener_cluster_mixed_block``
   (``wiener_istft.cu::wiener_cluster_mixed_kernel``: the same over the
-  5-smooth block core, ``ClusterMixed``; each block masking its ceil(N / 2
+  7-smooth block core, ``ClusterMixed``; each block masking its ceil(N / 2
   / C) bins, guarded at the share's end) at small parts (C 2 and 4, odd n,
-  k up to 16) and at the card's W 10 000 (C 2 of n 5000, 512 threads);
+  k up to 16, radix-7 passes) and at the card's W 10 000 and 14 000 (C 2 of
+  n 5000 and 7000, 512 threads);
 * ``wiener_split_block`` and ``wiener_bluestein_block``
   (``wiener_istft.cu::wiener_split_kernel``, ``wiener_bluestein_kernel``:
   the same masked loads on the split and on Bluestein run backwards, a
@@ -138,6 +139,10 @@ WIENER_CLUSTER_MIXED_CASES = [
     (2250, 450, 1, 4, 4000, 2, 128, 9, "float32", {"ny": True}, "int16"),  # n 1125 = 9·125, odd
     (10_000, 2500, 1, 3, 6000, 2, 512, None, "bfloat16",        # the card's W 10 000: C 2 of n
      {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),  # 5000, 512 threads
+    (280, 70, 1, 3, 1400, 2, 16, 6, "float32", {"p": 2.0}, "float32"),  # n 140 = 4·5·7
+    (490, 98, 1, 2, 1500, 2, 16, 6, "bfloat16", {"ny": True}, "int16"),  # n 245 = 5·7·7, odd
+    (14_000, 3500, 1, 3, 8000, 2, 512, None, "bfloat16",        # the card's W 14 000: C 2 of n
+     {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),  # 7000 = 8·5·5·5·7
 ]
 
 

@@ -727,17 +727,19 @@ def test_istft_cluster_dit_plan(signals, nf, nfft, win, hop):
     (65536, 16384, "cluster_dit", 8), (10000, 2500, "cluster_mixed", 2),
     (20000, 5000, "cluster_mixed", 4), (40000, 10000, "cluster_mixed", 8),
     (12000, 3000, "cluster_mixed", 2), (60000, 15000, "cluster_mixed", 8),
-    (14000, 3500, "cluster", 4), (20250, 10125, "cluster", 8), (10125, 3375, "cluster", 4),
+    (14000, 3500, "cluster_mixed", 2), (56000, 14000, "cluster_mixed", 8),
+    (11264, 2816, "cluster", 4), (22000, 5500, "cluster", 8),
+    (20250, 10125, "cluster", 8), (10125, 3375, "cluster", 4),
     (40002, 20001, "cluster", 16),
 ])
 def test_istft_cluster_routes(nfft, hop, route, cluster):
     """istft_plan's route past 8192: the direct transform ("cluster_dit")
     on nfft / 8192 blocks at the powers of two (the reference's 16 384 and
-    32 768, and 65 536), the same on the 5-smooth block core
+    32 768, and 65 536), the same on the 7-smooth block core
     ("cluster_mixed") on C = 2, 4, 8 blocks at the sizes that won their A/B
-    (ISTFT_MIXED_WON: 10 000, 12 000, 20 000, 40 000, 60 000, ...),
-    Bluestein's cluster ("cluster") on M / 8192 blocks at the rest (a
-    factor 7, too few factors of two for C, odd, a prime past 5);
+    (ISTFT_MIXED_WON: 10 000, 12 000, 14 000, 20 000, 40 000, 56 000,
+    60 000, ...), Bluestein's cluster ("cluster") on M / 8192 blocks at the
+    rest (a prime past 7, too few factors of two for C, odd);
     Bluestein's plan still exists at the direct sizes, for the forced
     A/B."""
     plan = fp.istft_plan(2, 100, nfft, nfft, hop)
@@ -760,33 +762,46 @@ MIXED_SIZES = [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2) if fp.m
 
 
 def test_mixed_factors_sizes():
-    """mixed_factors takes 87 even sizes past 8192: N = C · n with C the
-    fewest of 2, 4, 8 blocks that makes n <= 8192, n one of the 29 5-smooth
-    numbers in (4096, 8192) off the powers of two; nine have an odd n, which
-    the core serves with its whole n-point table (no quarter turns); every
-    n other than those nine that is not a multiple of 4 too (4374, 6250,
-    6750, 7290)."""
-    assert len(MIXED_SIZES) == 87
-    assert {10_000, 12_000, 15_000, 20_000, 24_000, 30_000, 40_000, 48_000,
-            60_000} <= set(MIXED_SIZES)
+    """mixed_factors takes 204 even sizes past 8192: N = C · n with C the
+    fewest of 2, 4, 8 blocks that makes n <= 8192, n one of the 68 7-smooth
+    numbers in (4096, 8192) off the powers of two: the 87 sizes of 29
+    5-smooth n, and 117 of 39 n with a factor 7 (14 000, 28 000, 56 000 of
+    7000). 33 have an odd n (eleven n, each at C 2, 4 and 8), which the core
+    serves with its whole n-point table (no quarter turns); every n other
+    than those that is not a multiple of 4 too (4374, 4410, 6250, ...).
+    Exactly the even sizes whose n = N / C is 7-smooth, C the rule's."""
+    assert len(MIXED_SIZES) == 204
+    assert {10_000, 12_000, 14_000, 15_000, 20_000, 24_000, 28_000, 30_000, 40_000, 48_000,
+            56_000, 60_000} <= set(MIXED_SIZES)
     ns = sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES})
-    assert len(ns) == 29 and 5000 in ns and all(4096 < n < 8192 for n in ns)
-    assert all(n & (n - 1) and fp.smooth5(n) for n in ns)
-    for nfft in MIXED_SIZES:
-        c, n = fp.mixed_factors(nfft)
-        assert c * n == nfft and c == (2 if nfft <= 16384 else 4 if nfft <= 32768 else 8)
+    assert len(ns) == 68 and {5000, 7000, 4375, 7203, 4116} <= set(ns)
+    assert all(4096 < n < 8192 for n in ns)
+    assert all(n & (n - 1) and fp.smooth7(n) for n in ns)
+    assert len([n for n in ns if fp.smooth7(n) and n % 7]) == 29
+    for nfft in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2):
+        c = 2 if nfft <= 16384 else 4 if nfft <= 32768 else 8
+        want = (nfft & (nfft - 1) and nfft % c == 0 and fp.smooth7(nfft // c))
+        assert (fp.mixed_factors(nfft) == (c, nfft // c)) if want else (
+            fp.mixed_factors(nfft) is None), nfft
     odd = [nfft for nfft in MIXED_SIZES if fp.mixed_factors(nfft)[1] % 2]
-    assert odd == [11_250, 12_150, 13_122, 22_500, 24_300, 26_244, 45_000, 48_600, 52_488]
-    assert [n for n in ns if n % 4 == 2] == [4374, 6250, 6750, 7290]
+    assert len(odd) == 33 and {11_250, 12_150, 13_122, 8750, 14_406, 57_624} <= set(odd)
+    assert sorted({fp.mixed_factors(n)[1] for n in odd}) == [
+        4375, 4725, 5103, 5145, 5625, 6075, 6125, 6561, 6615, 7203, 7875]
+    assert [n for n in ns if n % 4 == 2] == [4374, 4410, 4802, 5250, 5670, 6174, 6250, 6750,
+                                             7290, 7350, 7938]
     assert [fp.mixed_factors(n) for n in (10_000, 20_000, 40_000)] == [(2, 5000), (4, 5000),
                                                                         (8, 5000)]
+    assert [fp.mixed_factors(n) for n in (14_000, 28_000, 56_000)] == [(2, 7000), (4, 7000),
+                                                                        (8, 7000)]
 
 
 @pytest.mark.parametrize("nfft,why", [
     (8192, "a power of two on the core"), (16384, "a power of two: cluster_dit"),
     (65536, "a power of two: cluster_dit"), (10_002, "a prime past 5 (1667)"),
-    (14_000, "a factor 7"), (10_125, "odd"), (9_999, "odd"), (20_250, "2 · 3^4 · 5^3: C 4 "
+    (11_264, "2^10 · 11: a prime past 7"), (22_000, "2^4 · 5^3 · 11: a prime past 7"),
+    (10_125, "odd"), (9_999, "odd"), (20_250, "2 · 3^4 · 5^3: C 4 "
      "does not divide it"), (39_366, "2 · 3^9: C 8 does not divide it"),
+    (44_100, "2^2 · 3^2 · 5^2 · 7^2: C 8 does not divide it"),
     (40_500, "4 · 3^4 · 5^3: C 8 does not divide it"), (8_100, "on the core's Bluestein"),
     (65_538, "past the cluster"), (70_000, "past the cluster"),
 ])
@@ -802,7 +817,7 @@ def test_mixed_factors_refuses(nfft, why):
 
 
 @pytest.mark.parametrize("n", sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES}) + [
-    60, 90, 135, 250, 2, 3, 5, 16, 81])
+    60, 90, 135, 250, 2, 3, 5, 16, 81, 7, 14, 49, 70, 245, 343])
 def test_mixed_radices(n):
     """The core's passes multiply to n, each a radix the kernel has, radix
     16 while four factors of two remain and one pass for the rest of the
@@ -822,10 +837,14 @@ def test_mixed_radices(n):
 
 
 def test_mixed_radices_refuses():
-    for n in (1, 7, 14, 4104):
+    for n in (1, 11, 22, 4104):  # 4104 = 2^3 · 3^3 · 19
         with pytest.raises(ValueError, match="no mixed-radix passes"):
             fp.mixed_radices(n)
     assert fp.mixed_radices(5000) == (8, 5, 5, 5, 5) and fp.mixed_radices(6561) == (9, 9, 9, 9)
+    # radix 7 after 5, before 9 and 3, as mixed_fft runs them
+    assert fp.mixed_radices(7000) == (8, 5, 5, 5, 7) and fp.mixed_radices(7203) == (7, 7, 7, 7, 3)
+    assert fp.mixed_radices(4375) == (5, 5, 5, 5, 7) and fp.mixed_radices(4116) == (4, 7, 7, 7, 3)
+    assert fp.mixed_radices(8064) == (16, 8, 7, 9)
 
 
 @pytest.mark.parametrize("signals,nf,nfft,win,hop", [
@@ -862,7 +881,7 @@ def test_istft_cluster_mixed_plan(signals, nf, nfft, win, hop):
 def test_istft_plan_mixed_routes():
     """istft_plan takes the mixed cluster exactly at the sizes of
     ISTFT_MIXED_WON (each a mixed_factors size, won on the card), Bluestein's
-    cluster at the other 5-smooth sizes and every other even size off the
+    cluster at the other 7-smooth sizes and every other even size off the
     powers of two; the powers of two stay on the direct cluster; Bluestein's
     plan and the mixed plan exist at every mixed size, for the forced A/B."""
     assert fp.ISTFT_MIXED_WON <= set(MIXED_SIZES)
@@ -1580,13 +1599,14 @@ def test_wiener_cluster_plan(signals, S, nf, nfft, hop):
     (1, 4, 267, 20000, 5000, "cluster", 8, 42, 39),
     (1, 4, 532, 10000, 2500, "cluster_mixed", 2, 20, 17),  # 5-smooth: C 2 of n 5000, 64 clusters
     (1, 4, 267, 20000, 5000, "cluster_mixed", 4, 21, 18),  # C 4: 30 clusters
-    (1, 4, 292, 14000, 3500, "cluster", 4, 23, 20),       # a factor 7: Bluestein's
+    (1, 4, 292, 14000, 3500, "cluster_mixed", 2, 12, 9),  # 7-smooth: C 2 of n 7000
+    (1, 4, 209, 22000, 5500, "cluster", 8, 34, 31),       # a prime past 7 (11): Bluestein's
 ])
 def test_wiener_cluster_routes(signals, S, nf, nfft, hop, route, cluster, rounds, rows):
     """wiener_plan's route past 8192: the direct transform ("cluster_dit")
     on 2 blocks at the reference's 16 384 and 4 at 32 768, the same on the
-    mixed-radix core ("cluster_mixed") on 2 blocks at 10 000 and 4 at 20
-    000, Bluestein's cluster ("cluster") at 14 000 (and forced,
+    mixed-radix core ("cluster_mixed") on 2 blocks at 10 000 and 14 000 and
+    4 at 20 000, Bluestein's cluster ("cluster") at 22 000 (and forced,
     wiener_cluster_plan, at 10 000 and 20 000); each plan one wave of the
     card's clusters at once."""
     plan = (fp.wiener_cluster_plan if route == "cluster" and nfft in fp.WIENER_MIXED_WON
@@ -1657,15 +1677,16 @@ def test_wiener_cluster_mixed_plan(signals, S, nf, nfft, hop):
 
 
 def test_wiener_cluster_mixed_sizes_and_routes():
-    """The mixed Wiener cluster serves the 58 5-smooth even sizes of
-    mixed_factors up to the reference's 32 768, 8640 to 32 400 (six with an
+    """The mixed Wiener cluster serves the 136 7-smooth even sizes of
+    mixed_factors up to the reference's 32 768, 8232 to 32 400 (22 with an
     odd n), on C 2 or 4; wiener_plan takes it exactly at WIENER_MIXED_WON
     and Bluestein's cluster at the other even sizes past 8192 off the powers
     of two; every one fits shared memory at k up to 16 (hop N / k)."""
-    assert len(WIENER_MIXED_SIZES) == 58
-    assert (WIENER_MIXED_SIZES[0], WIENER_MIXED_SIZES[-1]) == (8640, 32_400)
-    assert sorted(n for n in WIENER_MIXED_SIZES if fp.mixed_factors(n)[1] % 2) == [
-        11_250, 12_150, 13_122, 22_500, 24_300, 26_244]
+    assert len(WIENER_MIXED_SIZES) == 136
+    assert (WIENER_MIXED_SIZES[0], WIENER_MIXED_SIZES[-1]) == (8232, 32_400)
+    odd = sorted(n for n in WIENER_MIXED_SIZES if fp.mixed_factors(n)[1] % 2)
+    assert len(odd) == 22 and {11_250, 12_150, 13_122, 22_500, 24_300, 26_244, 8750, 14_406,
+                               28_812} <= set(odd)
     assert fp.WIENER_MIXED_WON <= set(WIENER_MIXED_SIZES)
     for nfft in WIENER_MIXED_SIZES:
         c, n = fp.mixed_factors(nfft)
@@ -1677,13 +1698,13 @@ def test_wiener_cluster_mixed_sizes_and_routes():
         route = fp.wiener_plan(1, 4, 100, nfft, nfft // 2).route
         assert route == ("cluster_mixed" if nfft in fp.WIENER_MIXED_WON else "cluster")
         assert fp.wiener_cluster_plan(1, 4, 100, nfft, nfft // 2).route == "cluster"
-    for nfft in (8194, 14_000, 16_386, 30_002):
+    for nfft in (8194, 11_264, 16_386, 22_000, 30_002):
         assert fp.wiener_plan(1, 4, 100, nfft, nfft // 2).route == "cluster"
 
 
 @pytest.mark.parametrize("nfft,hop", [
     (10_001, 10_001),   # odd
-    (14_000, 3500),     # 7-smooth: 2 · 7000
+    (22_000, 5500),     # a prime past 7: 2^4 · 5^3 · 11
     (8194, 4097),       # a prime past 5
     (16_384, 2048),     # a power of two: the direct cluster
     (34_560, 8640),     # 5-smooth, past 32 768 (C 8)

@@ -102,7 +102,10 @@ def test_rejects_bad_shapes(rng):
     assert wiener_plan(1, 4, 648, 16384, 2048).route == "cluster_dit"
     assert wiener_plan(1, 4, 648, 10000, 2500).route == "cluster_mixed"  # C 2 of n 5000
     assert wiener_plan(1, 4, 648, 10000, 2500).cluster == 2
-    assert wiener_plan(1, 4, 648, 14000, 3500).route == "cluster"  # a factor 7: Bluestein's, C 4
+    assert wiener_plan(1, 4, 648, 14000, 3500).route == "cluster_mixed"  # C 2 of n 7000
+    assert wiener_plan(1, 4, 648, 14000, 3500).cluster == 2
+    assert wiener_plan(1, 4, 648, 22000, 5500).route == "cluster"  # a prime past 7: Bluestein's
+    assert wiener_plan(1, 4, 648, 22000, 5500).cluster == 8
 
 
 @pytest.mark.parametrize("nfft,hop,kw", [
@@ -114,6 +117,8 @@ def test_rejects_bad_shapes(rng):
     (10000, 2500, {"p": 2.0, "conserve_last": True}),
     (11250, 2250, {}),                                # an odd n: C 2 of 5625
     (11250, 2250, {"p": 2.0, "conserve_last": True}),
+    (14000, 3500, {}),                                # a radix-7 pass: C 2 of 7000
+    (14000, 3500, {"p": 2.0, "conserve_last": True}),
 ])
 def test_istft_wiener_matches_jax_off_the_core(rng, nfft, hop, kw):
     """At the sizes the card takes on the split, on Bluestein and on the

@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """The mixed cluster's A/B on one CUDA GPU (no JAX): at every size it takes
-(``fft_plan.mixed_factors``, 87 even sizes from 8640 to 64 800), or at the
-sizes given, the iSTFT of one 30 s track at hop nfft / 4 (11 250 and
-12 150 at nfft / 5, 13 122 at nfft / 3) on the mixed cluster
-(``launch_istft(cluster_mixed=True)``) against Bluestein's cluster forced
-(``bluestein_cluster=True``) on the same random spectra.
+(``fft_plan.mixed_factors``, 204 even sizes from 8232 to 64 800), at the
+117 whose block size n has a factor 7 (``--radix7``), or at the sizes
+given, the iSTFT of one 30 s track at hop nfft / 4 (nfft / 5, / 3 or / 7
+where 4 does not divide it, as 11 250, 13 122 and 14 406) on the mixed
+cluster (``launch_istft(cluster_mixed=True)``) against Bluestein's cluster
+forced (``bluestein_cluster=True``) and ``torch.istft`` on the same random
+spectra.
 
-    python3 tools/torch_istft_mixed_ab.py [nfft ...]
+    python3 tools/torch_istft_mixed_ab.py [--out FILE] [--radix7] [nfft ...]
 
-Builds the kernels and prints ptxas's registers and stack frames of the
-cluster iSTFT kernels, the clusters the card holds at once for the mixed
-kernel at C 2, 4 and 8 (``istft_cluster_occupancy`` route 2), then a line a
-size: both routes' card ms (CUDA events, in turns: mixed, Bluestein,
-Bluestein, mixed, the median of each) and their largest error against the
-float64 synthesis over its peak. Fails if either route is off by more than
-2e-6 × the peak. Writes every number to chiprun_out/istft_mixed_ab.json and
-prints the sizes the mixed cluster won, ``fft_plan.ISTFT_MIXED_WON``'s
-candidates. Run it from the root of the checkout.
+Prints the card's name and power limit, builds the kernels and prints
+ptxas's registers, spills and stack frames of the cluster iSTFT kernels,
+the clusters the card holds at once for the mixed kernel at C 2, 4 and 8
+(``istft_cluster_occupancy`` route 2), then a line a size: both routes'
+card ms and ``torch.istft``'s (CUDA events, in turns: mixed, Bluestein,
+``torch.istft``, Bluestein, mixed, the median of each), the bytes bound (spectra read once,
+samples written once) and both routes' largest error against the float64
+synthesis over its peak. Fails if either route is off by more than 2e-6 ×
+the peak. ``--out`` writes every number to FILE as JSON. It prints the
+sizes the mixed cluster won, ``fft_plan.ISTFT_MIXED_WON``'s candidates. Run
+it from the root of the checkout.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import io
@@ -38,6 +43,7 @@ TOL = 2e-6        # × max|out| against the float64 synthesis (chip_smoke.TOL_CL
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -47,6 +53,12 @@ def main() -> int:
     from convsep_tpu_torch.dsp.stft import num_frames
     from convsep_tpu_torch.dsp.windows import sinebell
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out")
+    ap.add_argument("--radix7", action="store_true",
+                    help="only the sizes whose block size has a factor 7")
+    ap.add_argument("sizes", nargs="*", type=int)
+    args = ap.parse_args()
     if cs.setup():
         return 1
     card = cs.smi_line()
@@ -59,9 +71,12 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = {}
     for m in re.finditer(r"Function properties for (\S*istft_cluster\S*)\n\s+(\d+) bytes stack "
-                         r"frame.*\n.*Used (\d+) registers", buf.getvalue()):
-        ptxas[m[1]] = {"stack": int(m[2]), "registers": int(m[3])}
-        print(f"ptxas {m[1]}: {m[2]} bytes stack, {m[3]} registers")
+                         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n.*Used "
+                         r"(\d+) registers", buf.getvalue()):
+        ptxas[m[1]] = {"stack": int(m[2]), "spill_stores": int(m[3]), "spill_loads": int(m[4]),
+                       "registers": int(m[5])}
+        print(f"ptxas {m[1]}: {m[2]} bytes stack, {m[3]}/{m[4]} bytes spilled, {m[5]} "
+              "registers")
 
     occupancy = {}
     for nfft in (10000, 20000, 40000):
@@ -74,13 +89,14 @@ def main() -> int:
         print(f"clusters of {c} at once (istft_cluster_mixed_kernel, W {nfft}): the card's "
               f"{active.value}, CLUSTERS_AT_ONCE {fp.CLUSTERS_AT_ONCE[c]}", flush=True)
 
-    sizes = ([int(a) for a in sys.argv[1:]] or
-             [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2) if fp.mixed_factors(n)])
+    sizes = args.sizes or [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2)
+                           if fp.mixed_factors(n)
+                           and (not args.radix7 or fp.mixed_factors(n)[1] % 7 == 0)]
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
     rows = {}
     for nfft in sizes:
-        hop = nfft // next(k for k in (4, 5, 3, 2) if nfft % k == 0)
+        hop = nfft // next(k for k in (4, 5, 3, 7, 2) if nfft % k == 0)
         nf = num_frames(SECONDS * cs.FS, hop)
         L = (nf - 2) * hop
         w = sinebell(nfft)
@@ -88,36 +104,42 @@ def main() -> int:
         im_ = torch.randn(1, nf, nfft // 2 + 1, generator=gen, device=device)
         want = cs.istft64(re_, im_, w, hop, L)
         peak = want.abs().max().item()
+        wt = torch.from_numpy(w.astype(np.float32)).to(device)
+        spec = torch.complex(re_, im_).transpose(-1, -2)  # torch.istft's (..., bins, frames)
         fns = {"mixed": lambda: launch_istft(re_, im_, w, hop, L, nfft, cluster_mixed=True),
                "bluestein": lambda: launch_istft(re_, im_, w, hop, L, nfft,
-                                                 bluestein_cluster=True)}
+                                                 bluestein_cluster=True),
+               "library": lambda: torch.istft(spec, nfft, hop, window=wt, center=True,
+                                              length=L)}
         row = {"c": fp.mixed_factors(nfft)[0], "n": fp.mixed_factors(nfft)[1],
                "radices": fp.mixed_radices(fp.mixed_factors(nfft)[1]), "hop": hop, "nf": nf}
         for key, fn in fns.items():
             row[f"{key}_rel_err"] = (fn() - want).abs().max().item() / peak
         times = {k: [] for k in fns}
-        for key in ("mixed", "bluestein", "bluestein", "mixed"):
+        for key in ("mixed", "bluestein", "library", "bluestein", "mixed"):
             times[key].append(cs.cuda_ms(fns[key], reps=5, rounds=3))
         for key, t in times.items():
             row[f"{key}_ms"] = sorted(t)[len(t) // 2] if len(t) % 2 else sum(t) / len(t)
+        row.update(cs.bound(8 * re_.numel() + 4 * L, cs.fft_flops(nf, nfft)))
         row["won"] = row["mixed_ms"] < row["bluestein_ms"]
         rows[nfft] = row
-        print(f"W {nfft} (C {row['c']}, n {row['n']} = {'·'.join(map(str, row['radices']))}): "
-              f"mixed {row['mixed_ms']:.4f} ms, Bluestein {row['bluestein_ms']:.4f} ms, "
-              f"{row['bluestein_ms'] / row['mixed_ms']:.2f}x; rel err {row['mixed_rel_err']:.2e} "
-              f"/ {row['bluestein_rel_err']:.2e}", flush=True)
+        print(f"W {nfft} (C {row['c']}, n {row['n']} = {'·'.join(map(str, row['radices']))}, "
+              f"hop {hop}): mixed {row['mixed_ms']:.4f} ms, Bluestein {row['bluestein_ms']:.4f} "
+              f"ms, {row['bluestein_ms'] / row['mixed_ms']:.2f}x; torch.istft "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms; rel err "
+              f"{row['mixed_rel_err']:.2e} / {row['bluestein_rel_err']:.2e}", flush=True)
         if not (row["mixed_rel_err"] <= TOL and row["bluestein_rel_err"] <= TOL):
             raise AssertionError(f"W {nfft}: past {TOL} × max|out| from the float64 synthesis")
-        del re_, im_, want
+        del re_, im_, want, spec
     won = sorted(n for n, r in rows.items() if r["won"])
     lost = sorted(n for n, r in rows.items() if not r["won"])
     print(f"won {len(won)}: {won}")
     print(f"lost {len(lost)}: {lost}")
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    (out / "istft_mixed_ab.json").write_text(json.dumps(
-        {"card": card, "ptxas": ptxas, "occupancy": occupancy, "rows": rows, "won": won,
-         "lost": lost}, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"card": card, "ptxas": ptxas, "occupancy": occupancy, "rows": rows, "won": won,
+             "lost": lost}, indent=1))
     return 0
 
 

@@ -71,9 +71,10 @@ PREFETCH = """    if (f + 1 >= 0 && f + 1 < a.nf) {
       }
     }
 """
-MIXED_MASK = "      masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);"
-MIXED_GATHER = """    cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
-                        pl, N, f, cols, u0, ncols, j_end);"""
+MIXED_MASK = "        masked_bins<K, KF, true>(ab, a, pl, N, f, k0, T, k_end);"
+MIXED_GATHER = """      cluster_pair_gather([&](int t) { return D::point(buf, a.tw, n, t); }, carry0, carry1, a,
+                          pl, N, pl.j0 - (k - 1) + r, cols, u0, max(0, min(cols, a.hop - u0)),
+                          min(pl.j0 + a.rows, a.nf + k - 1));"""
 MIXED_TRANSFORM = """    mixed_fft(buf, tws, n, sched);
     if (rank) {"""
 FAKE_MASK = ("      for (int i = 0; i < K; ++i)\n"

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """The Wiener+iSTFT's mixed cluster A/B on one CUDA GPU (no JAX): at every
-size it takes (``fft_plan.mixed_factors`` up to 32 768, 58 even sizes from
-8640 to 32 400), or at the sizes given, 4 stems of one 30 s track at hop
-nfft / 4 (nfft / 5 or / 3 where 4 does not divide it), bf16 y, on the mixed
-cluster (``wiener_istft``'s route there, ``fft_plan.
-wiener_cluster_mixed_plan``) against Bluestein's cluster forced
-(``wiener_bluestein_cluster_pallas``) and against the masked chain "auto"
-takes where it does not take the kernel (the float32 mask, then
-``istft_matmul``'s own "auto": the factored products at these sizes), on
-the same random spectra and magnitudes; then the same A/B against the chain
-at the powers of two's shapes in ``WIENER_CLUSTER_WON`` (16 384, hop 2048
-and 32 768, hop 4096: the direct cluster against the mask and the iSTFT's
+size it takes (``fft_plan.mixed_factors`` up to 32 768, 136 even sizes from
+8232 to 32 400), at the 78 whose block size n has a factor 7
+(``--radix7``), or at the sizes given, 4 stems of one 30 s track at hop
+nfft / 4 (nfft / 5, / 3 or / 7 where 4 does not divide it), bf16 y, on the
+mixed cluster forced (``wiener_cluster_mixed_pallas``, ``fft_plan.
+wiener_cluster_mixed_plan``: "auto"'s route where the size won) against
+Bluestein's cluster forced (``wiener_bluestein_cluster_pallas``) and
+against the masked chain "auto" takes where it does not take the kernel
+(the float32 mask, then ``istft_matmul``'s own "auto": the factored
+products at these sizes), on the same random spectra and magnitudes; then
+(with neither sizes nor ``--radix7``) the same A/B against the chain at the
+powers of two's shapes in ``WIENER_CLUSTER_WON`` (16 384, hop 2048 and
+32 768, hop 4096: the direct cluster against the mask and the iSTFT's
 direct cluster).
 
-    python3 tools/torch_wiener_mixed_ab.py [--out FILE] [nfft ...]
+    python3 tools/torch_wiener_mixed_ab.py [--out FILE] [--radix7] [nfft ...]
 
-Builds the kernels and prints ptxas's registers and stack frames of the
+Prints the card's name and power limit, builds the kernels and prints
+ptxas's registers and stack frames of the
 Wiener cluster kernels and the clusters the card holds at once for the
 mixed kernel at C 2 and 4 (``wiener_cluster_mixed_launch`` with
 ``active``), then a line a size: the kernel's, Bluestein's and the chain's
@@ -64,6 +67,7 @@ def main() -> int:
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import (
         wiener_bluestein_cluster_pallas,
+        wiener_cluster_mixed_pallas,
         wiener_istft,
     )
     from convsep_tpu_torch.dsp.stft import num_frames
@@ -71,6 +75,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
+    ap.add_argument("--radix7", action="store_true",
+                    help="only the sizes whose block size has a factor 7")
     ap.add_argument("sizes", nargs="*", type=int)
     args = ap.parse_args()
     if cs.setup():
@@ -106,12 +112,13 @@ def main() -> int:
               flush=True)
 
     sizes = args.sizes or [n for n in range(fp.MAX_NFFT + 2, fp.WIENER_CLUSTER_NFFT + 1, 2)
-                           if fp.mixed_factors(n)]
+                           if fp.mixed_factors(n)
+                           and (not args.radix7 or fp.mixed_factors(n)[1] % 7 == 0)]
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
     rows, dit_rows = {}, {}
-    shapes = [(n, n // next(k for k in (4, 5, 3, 2) if n % k == 0), True) for n in sizes]
-    shapes += [(n, hop, False) for n, hop in DIT_SHAPES if not args.sizes]
+    shapes = [(n, n // next(k for k in (4, 5, 3, 7, 2) if n % k == 0), True) for n in sizes]
+    shapes += [(n, hop, False) for n, hop in DIT_SHAPES if not (args.sizes or args.radix7)]
     for nfft, hop, mixed in shapes:
         nf = num_frames(SECONDS * cs.FS, hop)
         L = (nf - 2) * hop
@@ -122,12 +129,14 @@ def main() -> int:
         y = torch.randn(1, SOURCES, nf, bins, generator=gen, device=device).abs()
         y[..., : nf // 3, :8] = 0.0  # dead bins: the eps shortfall paths
         y = y.to(torch.bfloat16)
-        plan = fp.wiener_plan(1, SOURCES, nf, nfft, hop)
+        plan = (fp.wiener_cluster_mixed_plan if mixed else fp.wiener_plan)(1, SOURCES, nf, nfft,
+                                                                           hop)
         row = {"route": plan.route, "c": plan.cluster, "hop": hop, "nf": nf,
                "rounds": plan.rounds, "clusters": plan.blocks // plan.cluster}
         want = cs.wiener64(y, re_, im_, w, hop, L)
         peak = want.abs().max().item()
-        fns = {"kernel": lambda: wiener_istft(y, re_, im_, w, hop, L)}
+        fns = {"kernel": lambda: (wiener_cluster_mixed_pallas if mixed else wiener_istft)(
+            y, re_, im_, w, hop, L)}
         if mixed:
             row.update(n=nfft // plan.cluster, radices=fp.mixed_radices(nfft // plan.cluster))
             fns["bluestein"] = lambda: wiener_bluestein_cluster_pallas(y, re_, im_, w, hop, L)
