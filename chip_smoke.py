@@ -409,7 +409,7 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 65536 cluster_dit", 65536, 16384, W65536_NF, 1, False, "istft_cluster_dit"),
                 ("W 65536 Bluestein", 65536, 16384, W65536_NF, 1, False, "istft_cluster"))
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-               "istft_cluster_mixed", "istft_direct")
+               "istft_cluster_mixed", "istft_level2", "istft_level2_direct", "istft_direct")
 # the direct transform's rows and the Bluestein rows forced at their shapes
 ISTFT_DIT_AB = (("W 16384 cluster_dit", "W 16384 Bluestein"),
                 ("W 32768 cluster_dit", "W 32768 Bluestein"),
@@ -2505,14 +2505,27 @@ ODD_ISTFT_SHAPES = (("W 1001 odd", 1001, 143, 9254, 4, "istft_bluestein"),
                     ("W 9999 odd cluster", 9999, 1111, 1193, 1, "istft_cluster"),
                     ("W 39999 odd cluster", 39999, 13333, 101, 1, "istft_cluster"))
 # the second level's rows (phase 5b): STFT (key, nfft, hop, B) on B training
-# segments of 14 336 samples; iSTFT (key, nfft, hop, nf, signals), nf a 30 s
-# track's frames
+# segments of 14 336 samples; iSTFT (key, nfft, hop, nf, signals, the kernel
+# it must launch), nf a 30 s track's frames: the direct level at its 7-smooth
+# sizes (R 16 at W 70 000 and 131 072, R 32 at W 200 000), Bluestein's level
+# at the odd W 99 999 and forced (istft_level2_bluestein_pallas) at the
+# direct level's shapes
 LEVEL2_STFT_SHAPES = (("stft_level2", 70000, 17500, 32),
                       ("stft_level2 W 131072", 131072, 32768, 32),
                       ("stft_level2 W 99999", 99999, 33333, 32))
-LEVEL2_ISTFT_SHAPES = (("istft_level2", 70000, 17500, 78, 1),
-                       ("istft_level2 W 131072", 131072, 32768, 43, 1),
-                       ("istft_level2 W 99999", 99999, 33333, 42, 1))
+LEVEL2_ISTFT_SHAPES = (("istft_level2_direct", 70000, 17500, 78, 1, "istft_level2_direct"),
+                       ("istft_level2_direct W 131072", 131072, 32768, 43, 1,
+                        "istft_level2_direct"),
+                       ("istft_level2_direct W 200000", 200000, 50000, 29, 1,
+                        "istft_level2_direct"),
+                       ("istft_level2 W 99999", 99999, 33333, 42, 1, "istft_level2"),
+                       ("istft_level2", 70000, 17500, 78, 1, "istft_level2"),
+                       ("istft_level2 W 131072", 131072, 32768, 43, 1, "istft_level2"),
+                       ("istft_level2 W 200000", 200000, 50000, 29, 1, "istft_level2"))
+# the direct level's rows and Bluestein's level forced at their shapes
+LEVEL2_DIRECT_AB = (("istft_level2_direct", "istft_level2"),
+                    ("istft_level2_direct W 131072", "istft_level2 W 131072"),
+                    ("istft_level2_direct W 200000", "istft_level2 W 200000"))
 
 
 def random_spectra(nfft: int, hop: int, nf: int, N: int, device, gen):
@@ -2528,25 +2541,49 @@ def random_spectra(nfft: int, hop: int, nf: int, N: int, device, gen):
     return sinebell(nfft), (nf - 2) * hop, re, im
 
 
+def level2_bluestein_forced(kernel: str, nfft: int) -> bool:
+    """A ``LEVEL2_ISTFT_SHAPES`` row that forces Bluestein's second level at
+    a size in ``ISTFT_LEVEL2_DIRECT_WON``, where the wrapper takes the
+    direct level."""
+    from convsep_tpu_torch.dsp.cuda.fft_plan import ISTFT_LEVEL2_DIRECT_WON
+
+    return kernel == "istft_level2" and nfft in ISTFT_LEVEL2_DIRECT_WON
+
+
+def level2_istft_fn(kernel: str, nfft: int):
+    """The wrapper a ``LEVEL2_ISTFT_SHAPES`` row calls: Bluestein's level
+    forced (``istft_level2_bluestein_pallas``) or ``istft_pallas``."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_level2_bluestein_pallas, istft_pallas
+
+    return istft_level2_bluestein_pallas if level2_bluestein_forced(kernel, nfft) else istft_pallas
+
+
 def istft_row(name: str, kernel: str, nfft: int, hop: int, w, L: int, re, im, plain, tol64,
-              device) -> dict:
+              device, level2_bluestein: bool = False) -> dict:
     """One iSTFT row: ``istft_pallas`` (float32) and ``launch_istft``
     (PCM16) against the float64 synthesis (float32 within ``tol64`` ×
     max|out|, PCM16 within ``TOL_WIENER_I16``), one launch of ``kernel``
     and no other iSTFT kernel; the kernel, ``plain`` and ``torch.istft``
-    timed; the bound."""
+    timed; the bound. ``level2_bluestein``: Bluestein's second level forced
+    (``istft_level2_bluestein_pallas``, ``launch_istft(level2_bluestein=
+    True)``)."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas, launch_istft
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import (
+        istft_level2_bluestein_pallas,
+        istft_pallas,
+        launch_istft,
+    )
 
     names = ISTFT_NAMES
     N = re.shape[0]
     err = {}
+    f32 = istft_level2_bluestein_pallas if level2_bluestein else istft_pallas
     for out in ("float32", "int16"):
         before = dict(kernels.LAUNCHES)
-        got = (istft_pallas(re, im, w, hop, L, nfft=nfft) if out == "float32"
-               else launch_istft(re, im, w, hop, L, nfft, out))
+        got = (f32(re, im, w, hop, L, nfft=nfft) if out == "float32"
+               else launch_istft(re, im, w, hop, L, nfft, out, level2_bluestein=level2_bluestein))
         want = istft64(re, im, w, hop, L, out)
         torch.cuda.synchronize()
         moved = {k: kernels.LAUNCHES[k] - before[k] for k in names}
@@ -2571,11 +2608,11 @@ def istft_row(name: str, kernel: str, nfft: int, hop: int, w, L: int, re, im, pl
             err["plain"] = ep
     wt = torch.from_numpy(np.asarray(w, np.float32)).to(device)
     spec = torch.complex(re, im).transpose(-1, -2)
-    ms = cuda_ms(lambda: istft_pallas(re, im, w, hop, L, nfft=nfft))
+    ms = cuda_ms(lambda: f32(re, im, w, hop, L, nfft=nfft))
     plain_ms = cuda_ms(lambda: plain(re, im, w, hop, L, **({} if plain is istft64 else
                                                            {"nfft": nfft})))
     lib_ms = cuda_ms(lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
-    us = host_us(lambda: istft_pallas(re, im, w, hop, L, nfft=nfft), reps=20)
+    us = host_us(lambda: f32(re, im, w, hop, L, nfft=nfft), reps=20)
     b = bound(8 * re.numel() + 4 * N * L, fft_flops(N * re.shape[1], nfft))
     log(f"  istft {name} f32 out: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"({'float64' if plain is istft64 else 'the direct matrices'}), torch.istft "
@@ -2617,11 +2654,14 @@ def phase_level2(device, gen) -> dict:
     each way, against the float64 transforms within ``TOL_LEVEL2``, beside
     ``torch.stft`` / ``torch.istft``; then the dense DFT kernel forced at W
     70 000 (its 19.6 GB of matrices made on the card and freed at once), the
-    time the level replaces. Device times from a profiler child."""
+    time the level replaces. The iSTFT's direct level at its three shapes
+    beside Bluestein's level forced at each (``LEVEL2_DIRECT_AB``): the
+    phase fails unless the direct level's device time is under it. Device
+    times from a profiler child."""
     import numpy as np
     import torch
     from convsep_tpu_torch import kernels
-    from convsep_tpu_torch.dsp.cuda.fft_plan import level2_plan
+    from convsep_tpu_torch.dsp.cuda.fft_plan import level2_direct_plan, level2_plan
     from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_dft_pallas, stft_pallas
     from convsep_tpu_torch.dsp.dft import _forward_mats
 
@@ -2680,28 +2720,45 @@ def phase_level2(device, gen) -> dict:
             _forward_mats.cache_clear()
         del re, im, r64, i64, x, padded
         torch.cuda.empty_cache()
-    for key, nfft, hop, nf, N in LEVEL2_ISTFT_SHAPES:
+    for key, nfft, hop, nf, N, kernel in LEVEL2_ISTFT_SHAPES:
         w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
-        res[key] = istft_row(key, "istft_level2", nfft, hop, w, L, re, im, istft64, TOL_LEVEL2,
-                             device)
+        res[key] = istft_row(key, kernel, nfft, hop, w, L, re, im, istft64, TOL_LEVEL2, device,
+                             level2_bluestein_forced(kernel, nfft))
+        plan = (level2_plan if kernel == "istft_level2" else level2_direct_plan)(N, nf, nfft,
+                                                                                 nfft, hop)
+        res[key]["plan"] = {"m": plan.m, "radix": plan.radix, "pairs": plan.pairs,
+                            "pairs_per_round": plan.pairs_per_round, "rounds": plan.rounds,
+                            "scratch_bytes": plan.scratch_bytes}
+        log(f"  {key}: plan {res[key]['plan']}")
         del re, im
         torch.cuda.empty_cache()
     dev = device_times("level2")["level2"]
     for key, r in res.items():
         d = dev.get(key)
         if d:
-            r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"])
+            r.update(device_ms=d["device_ms"], library_device_ms=d["library_device_ms"],
+                     device_kernels=d["kernels"])
             log(f"  {key}: device {ms_str(d['device_ms'])} (torch's device "
                 f"{ms_str(d['library_device_ms'])}); kernels {json.dumps(d['kernels'])}")
+    for key, blue in LEVEL2_DIRECT_AB:
+        r, b = res[key], res[blue]
+        log(f"  {key}: device {ms_str(r['device_ms'])} against torch.istft's "
+            f"{ms_str(r['library_device_ms'])} and Bluestein's level forced, "
+            f"{ms_str(b['device_ms'])}")
+        r["bluestein_forced"] = {k: b[k] for k in ("device_ms", "ms", "max_abs_err",
+                                                   "max_abs_err_int16", "rel_err_float64")}
+        if None in (r["device_ms"], b["device_ms"]) or not r["device_ms"] < b["device_ms"]:
+            raise AssertionError(f"{key}: device {r['device_ms']} ms, not under the forced "
+                                 f"Bluestein level's {b['device_ms']}")
     return res
 
 
 def child_level2_times(device, gen, pair) -> dict:
-    """Device ms of the second level at the first row of each direction
-    (W 70 000, hop 17 500) beside ``torch.stft`` / ``torch.istft``."""
+    """Device ms of the second level: the STFT's first row (W 70 000, hop
+    17 500) and every ``LEVEL2_ISTFT_SHAPES`` row, each beside
+    ``torch.stft`` / ``torch.istft``."""
     import numpy as np
     import torch
-    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_pallas
     from convsep_tpu_torch.dsp.cuda.stft_kernel import stft_pallas
 
     key, win, hop, B = LEVEL2_STFT_SHAPES[0]
@@ -2709,12 +2766,15 @@ def child_level2_times(device, gen, pair) -> dict:
     res = {key: pair(lambda: stft_pallas(x, w, hop),
                      lambda: torch.stft(padded, win, hop, window=wt, center=False,
                                         return_complex=True))}
-    key, nfft, hop, nf, N = LEVEL2_ISTFT_SHAPES[0]
-    w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
-    wt = torch.from_numpy(np.asarray(w, np.float32)).to(device)
-    spec = torch.complex(re, im).transpose(-1, -2)
-    res[key] = pair(lambda: istft_pallas(re, im, w, hop, L),
-                    lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
+    for key, nfft, hop, nf, N, kernel in LEVEL2_ISTFT_SHAPES:
+        w, L, re, im = random_spectra(nfft, hop, nf, N, device, gen)
+        wt = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+        spec = torch.complex(re, im).transpose(-1, -2)
+        fn = level2_istft_fn(kernel, nfft)
+        res[key] = pair(lambda: fn(re, im, w, hop, L, nfft=nfft),
+                        lambda: torch.istft(spec, nfft, hop, window=wt, center=True, length=L))
+        del re, im, spec
+        torch.cuda.empty_cache()
     return res
 
 
@@ -4822,7 +4882,7 @@ def main(argv: list[str]) -> int:
     # and the direct sums serve only sizes that no preset uses
     for kernel in ("stft_split", "stft_bluestein", "stft_cluster", "stft_level2", "stft_dft",
                    "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-                   "istft_cluster_mixed", "istft_level2",
+                   "istft_cluster_mixed", "istft_level2", "istft_level2_direct",
                    "istft_direct", "wiener_istft_cluster", "wiener_istft_ny_cluster",
                    "wiener_istft_cluster_dit", "wiener_istft_ny_cluster_dit",
                    "wiener_istft_cluster_mixed", "wiener_istft_ny_cluster_mixed",
@@ -5058,12 +5118,30 @@ def main(argv: list[str]) -> int:
                   "istft_level2_last_kernel, istft_level2_ola_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "65 536 < nfft <= 262 144, any parity: Bluestein run backwards on the second "
-                   "level, then an overlap-add of the frames' samples; one count a call; no "
-                   "preset",
-         **launched("istft_level2"), **lvl2["istft_level2"],
-         "w131072_hop32768": lvl2["istft_level2 W 131072"],
-         "w99999_hop33333": lvl2["istft_level2 W 99999"]},
+         "serves": "65 536 < nfft <= 262 144, any parity, off fft_plan.ISTFT_LEVEL2_DIRECT_WON "
+                   "(99 999, 131 073, 70 001): Bluestein run backwards on the second level, "
+                   "then an overlap-add of the frames' samples; one count a call; timed forced "
+                   "(istft_level2_bluestein_pallas) at W 70 000, 131 072 and 200 000; no preset",
+         **launched("istft_level2"), **lvl2["istft_level2 W 99999"],
+         "forced_w70000_hop17500": lvl2["istft_level2"],
+         "forced_w131072_hop32768": lvl2["istft_level2 W 131072"],
+         "forced_w200000_hop50000": lvl2["istft_level2 W 200000"]},
+        {"name": "istft_level2_direct", "route": "cuda",
+         "source": "convsep_tpu_torch/csrc/istft.cu (device code "
+                   "fft_common.cuh::level2_direct_combine, level2_direct_rows, "
+                   "level2_direct_overlap_add)",
+         "entry": "istft_level2_direct_combine_kernel, istft_level2_direct_rows_kernel, "
+                  "istft_level2_direct_ola_kernel",
+         "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
+                     "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
+         "serves": "nfft = R n past 65 536 up to 262 144, R 16 or 32, n 7-smooth (70 000, "
+                   "131 072, 200 000; 138 sizes) where it won its A/B "
+                   "(fft_plan.ISTFT_LEVEL2_DIRECT_WON): the direct inverse on the second level, "
+                   "a radix-R combine and R rows on the mixed-radix core, no chirp; one count "
+                   "a call; no preset",
+         **launched("istft_level2_direct"), **lvl2["istft_level2_direct"],
+         "w131072_hop32768": lvl2["istft_level2_direct W 131072"],
+         "w200000_hop50000": lvl2["istft_level2_direct W 200000"]},
         {"name": "istft_direct", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu", "entry": "istft_direct_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "

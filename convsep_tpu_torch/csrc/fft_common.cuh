@@ -88,7 +88,10 @@
 // Past 65 536 points (N <= 262 144) Bluestein's M = 262 144 or 524 288 lives
 // in a scratch in device memory: the second level (level2_first,
 // level2_middle, level2_last), ClusterChirp's factorization with two passes
-// through that scratch in place of distributed shared memory. The fused
+// through that scratch in place of distributed shared memory; its 7-smooth
+// sizes N = R n (R 16 or 32) need no chirp: one N-point transform a pair of
+// frames, a radix-R combine and R rows of the mixed-radix core through the
+// same kind of scratch (level2_direct_combine, level2_direct_rows). The fused
 // forward STFT's 16 384 points run as one transform a pair of frames on the
 // level itself (stft_level_block), without a chirp.
 
@@ -1716,6 +1719,15 @@ inline size_t cluster_mixed_smem_bytes(int n, int carry) {
   return (size_t)mixed_tables_len(n) * sizeof(float2) + (size_t)carry * sizeof(float);
 }
 
+// m = 2^a 3^b 5^c 7^d
+inline bool smooth7(int m) {
+  while (m % 2 == 0) m /= 2;
+  while (m % 3 == 0) m /= 3;
+  while (m % 5 == 0) m /= 5;
+  while (m % 7 == 0) m /= 7;
+  return m == 1;
+}
+
 // C and n of a size the mixed cluster takes (fft_plan.mixed_factors): an
 // even nfft in (8192, 65 536], not a power of two, C the fewest of 2, 4, 8
 // with nfft / C <= 8192, C | nfft, n = nfft / C 7-smooth.
@@ -1724,12 +1736,7 @@ inline bool mixed_sizes(int nfft, int* c, int* n) {
   *c = nfft <= (2 << kMaxLog2) ? 2 : nfft <= (4 << kMaxLog2) ? 4 : 8;
   if (nfft % *c) return false;
   *n = nfft / *c;
-  int m = *n;
-  while (m % 2 == 0) m /= 2;
-  while (m % 3 == 0) m /= 3;
-  while (m % 5 == 0) m /= 5;
-  while (m % 7 == 0) m /= 7;
-  return m == 1;
+  return smooth7(*n);
 }
 
 // The schedule's radices are each one the core has and multiply to n.
@@ -2074,12 +2081,11 @@ inline int level2_log2(int n) {
 
 // In-register forward DFT of R = 16 B points (B = 2 or 4), natural order in
 // and out: B DFTs of 16 points over x[B m + j] (literal roots), the twiddles
-// W_R^{j k} from the M-point quarter table tw in global memory (read through
-// L1: W_R^e = w^{e M / R}), then 16 DFTs of B points: X[k + 16 l].
-template <int R, int LOG2M>
-__device__ __forceinline__ void dft_wide(float2 (&x)[R], const float2* __restrict__ tw) {
+// turn(u, e) = u W_R^e (W_R = e^{-2 pi i / R}, 0 < e < 16 (B - 1)), then 16
+// DFTs of B points: X[k + 16 l].
+template <int R, class Turn>
+__device__ __forceinline__ void dft_wide(float2 (&x)[R], Turn turn) {
   constexpr int B = R / 16;
-  constexpr int M = 1 << LOG2M;
   static_assert(B == 2 || B == 4, "R = 32 or 64");
   float2 y[R];
 #pragma unroll
@@ -2089,8 +2095,7 @@ __device__ __forceinline__ void dft_wide(float2 (&x)[R], const float2* __restric
     for (int m = 0; m < 16; ++m) u[m] = x[B * m + j];
     dft<16>(u);
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      y[j * 16 + k] = j * k ? cmul(u[k], ldg_twiddle<M>(tw, j * k * (M / R))) : u[k];
+    for (int k = 0; k < 16; ++k) y[j * 16 + k] = j * k ? turn(u[k], j * k) : u[k];
   }
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -2101,6 +2106,14 @@ __device__ __forceinline__ void dft_wide(float2 (&x)[R], const float2* __restric
 #pragma unroll
     for (int l = 0; l < B; ++l) x[k + 16 * l] = c[l];
   }
+}
+
+// dft_wide with W_R^e from the M-point quarter table tw in global memory
+// (read through L1: W_R^e = w^{e M / R})
+template <int R, int LOG2M>
+__device__ __forceinline__ void dft_wide(float2 (&x)[R], const float2* __restrict__ tw) {
+  constexpr int M = 1 << LOG2M;
+  dft_wide<R>(x, [&](float2 u, int e) { return cmul(u, ldg_twiddle<M>(tw, e * (M / R))); });
 }
 
 // Phase A for column n1 of one pair's scratch (M float2): point(t), t < M/2.
@@ -2204,9 +2217,24 @@ __device__ __forceinline__ void level2_split(const float2* __restrict__ xs, int 
       make_float2(0.5f * (z.y + w.y), 0.5f * (w.x - z.x)));
 }
 
+// conj Z[t], t < N, of frames g and g + 1 of the flattened (signals x nf)
+// spectrum rows re, im (inverse_point, the mirrored bin past N/2; frame b
+// absent past `frames`)
+__device__ __forceinline__ float2 level2_bin_point(const float* __restrict__ re,
+                                                   const float* __restrict__ im, int N,
+                                                   int frames, int g, int t) {
+  const long long bins = N / 2 + 1;
+  const float* ra = re + g * bins;
+  const float* ia = im + g * bins;
+  const bool hb = g + 1 < frames;
+  return inverse_point<true>(t, N, [&](int kk, bool edge) {
+    return make_float4(__ldg(ra + kk), edge ? 0.f : __ldg(ia + kk),
+                       hb ? __ldg(ra + bins + kk) : 0.f, hb && !edge ? __ldg(ia + bins + kk) : 0.f);
+  });
+}
+
 // The inverse STFT's points of a pair on the second level: conj Z[t] conj
-// c_t of frames g and g + 1 of the flattened (signals x nf) spectrum rows
-// (inverse_point, the mirrored bin past N/2; frame b absent past `frames`).
+// c_t of frames g and g + 1 (level2_bin_point), 0 from N on.
 struct Level2Spectra {
   const float* re;
   const float* im;
@@ -2214,16 +2242,7 @@ struct Level2Spectra {
   int N, frames;
   __device__ __forceinline__ float2 operator()(int g, int t) const {
     if (t >= N) return make_float2(0.f, 0.f);
-    const long long bins = N / 2 + 1;
-    const float* ra = re + g * bins;
-    const float* ia = im + g * bins;
-    const bool hb = g + 1 < frames;
-    const float2 z = inverse_point<true>(t, N, [&](int kk, bool edge) {
-      return make_float4(__ldg(ra + kk), edge ? 0.f : __ldg(ia + kk),
-                         hb ? __ldg(ra + bins + kk) : 0.f,
-                         hb && !edge ? __ldg(ia + bins + kk) : 0.f);
-    });
-    return cmul(z, __ldg(chirp + t));
+    return cmul(level2_bin_point(re, im, N, frames, g, t), __ldg(chirp + t));
   }
 };
 
@@ -2245,6 +2264,136 @@ __device__ __forceinline__ void level2_overlap_add(const float* __restrict__ fra
   for (int f = f_lo; f <= f_hi; ++f)
     acc += __ldg(frames + ((long long)n * nf + f) * win + (s - (long long)f * hop));
   write_sample(out, out_int16, (long long)n * length + tpos, acc * __ldg(inv_norm + s));
+}
+
+// ---- the second level's direct transform: 7-smooth sizes past 65 536 --------
+//
+// N = R n with R = 16 (N <= 131 072) or 32 (past it) and n <= 8192 7-smooth,
+// any parity (70 000 = 16 x 4375, 131 072 = 16 x 8192, 200 000 = 32 x 6250;
+// 138 sizes, fft_plan.level2_direct_factors) needs no chirp: the inverse of
+// a pair of frames is one N-point transform of u = conj Z, by decimation in
+// frequency over R, with the second level's scratch in device memory (a
+// pair's N float2) in place of a cluster's distributed shared memory. With
+// t = n2 + n q (n2 < n, q < R), k = k1 + R k2 (k1 < R, k2 < n), w = e^{-2 pi
+// i / N}:
+//
+//   y[k1 + R k2] = sum_{n2} w^{R n2 k2} (w^{n2 k1} sum_q W_R^{q k1} u[n2 + n q])
+//
+// 1. (level2_direct_combine) for each n2 < n, one thread: the points u[n2 +
+//    n q] straight from the pair's spectrum rows (level2_bin_point; a warp's
+//    32 consecutive n2 read consecutive bins, coalesced), the radix-R DFT over
+//    q in registers (dft<16>, or dft_wide<32> on literal roots), times
+//    w^{n2 k1} (the host's (R, n) table w^{n2 k1} at k1 n + n2, read
+//    coalesced), to scratch[k1 n + n2];
+// 2. (level2_direct_rows) for each k1 < R, one block of 512 threads: the
+//    row's n points from the scratch into the exchange buffer, mixed_fft on
+//    the n-point table w^{R m} (the N-point table's entries at stride R,
+//    stored contiguous by the host), and y[k1 + R k2] at slot(k2);
+// 3. (level2_direct_overlap_add) every output sample sums its frames' y[t]
+//    in ascending frame order, t = s - f hop, each times win[t] / N.
+//
+// Decimation in time (the radix-R combine last) would read each point's four
+// floats at a stride of R bins in the rows' loads, one float of each 32-byte
+// sector: 128 bytes of sectors for 8 of point (W 70 000: 350 MB a call); here
+// the loads are coalesced and the strided access moves to the overlap-add,
+// which reads a row's samples t = k1 + R k2 through L1: a block of 256
+// consecutive samples reads whole sectors of R rows. So the frames buffer
+// holds a frame's samples by rows, y[k1 + R k2] at k1 n + k2 (frame a's N
+// Re y, frame b's -N Im y, before the window), and the rows write whole
+// rows.
+
+constexpr int kLevel2DirectMinR = 16;  // R up to 131 072 points
+constexpr int kLevel2DirectMaxR = 32;  // R past it, up to 262 144
+
+// R and n of a size the direct second level takes (fft_plan.
+// level2_direct_factors): 65 536 < nfft <= 262 144, R 16 up to 131 072 and
+// 32 past it, R | nfft, n = nfft / R 7-smooth.
+inline bool level2_direct_sizes(int nfft, int* r, int* n) {
+  if (nfft <= (8 << kMaxLog2) || nfft > (32 << kMaxLog2)) return false;
+  *r = nfft <= (16 << kMaxLog2) ? kLevel2DirectMinR : kLevel2DirectMaxR;
+  *n = nfft / *r;
+  return nfft % *r == 0 && smooth7(*n);
+}
+
+// u * e^{-2 pi i e / 32}, 0 <= e < 16; e is a constant after unrolling, so
+// the switch folds to literals (the even e are rot16's).
+__device__ __forceinline__ float2 rot32(float2 u, int e) {
+  float c, s;  // e^{-2 pi i e / 32} = c - i s
+  switch (e) {
+    case 1: c = 0.98078528040323044f; s = 0.19509032201612825f; break;
+    case 3: c = 0.83146961230254524f; s = 0.55557023301960222f; break;
+    case 5: c = 0.55557023301960222f; s = 0.83146961230254524f; break;
+    case 7: c = 0.19509032201612825f; s = 0.98078528040323044f; break;
+    case 9: c = -0.19509032201612825f; s = 0.98078528040323044f; break;
+    case 11: c = -0.55557023301960222f; s = 0.83146961230254524f; break;
+    case 13: c = -0.83146961230254524f; s = 0.55557023301960222f; break;
+    case 15: c = -0.98078528040323044f; s = 0.19509032201612825f; break;
+    default: return rot16(u, e / 2);
+  }
+  return make_float2(u.x * c + u.y * s, u.y * c - u.x * s);
+}
+
+// Phase 1 for column n2 < n of one pair: point(t) the pair's points, tw2
+// the (R, n) table w^{n2 k1} (fft_plan.level2_direct_tables' first N
+// entries), scratch the pair's N float2.
+template <int R, class Point>
+__device__ __forceinline__ void level2_direct_combine(Point point, float2* __restrict__ scratch,
+                                                      const float2* __restrict__ tw2, int n,
+                                                      int n2) {
+  float2 u[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) u[q] = point(n2 + n * q);
+  if constexpr (R == kLevel2DirectMinR) {
+    dft<R>(u);
+  } else {
+    dft_wide<R>(u, [](float2 v, int e) { return rot32(v, e); });
+  }
+  scratch[n2] = u[0];
+#pragma unroll
+  for (int k1 = 1; k1 < R; ++k1)
+    scratch[k1 * n + n2] = cmul(u[k1], __ldg(tw2 + k1 * n + n2));
+}
+
+// Phase 2 for one row of n points (row = scratch + k1 n) on the whole block
+// (n <= 16 blockDim.x): tw the n-point table w^{R m} in global memory,
+// smem4 mixed_tables_len(n) float2 (the table and the exchange buffer);
+// store(k2, y[k1 + R k2]) for k2 < n.
+template <class Store>
+__device__ __forceinline__ void level2_direct_rows(float4* smem4, const float2* __restrict__ row,
+                                                   const float2* __restrict__ tw, int n,
+                                                   unsigned long long sched, Store store) {
+  float2* tws = reinterpret_cast<float2*>(smem4);
+  float2* buf = tws + n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    tws[i] = __ldg(tw + i);
+    buf[slot(i)] = row[i];
+  }
+  __syncthreads();
+  mixed_fft(buf, tws, n, sched);
+  for (int k2 = threadIdx.x; k2 < n; k2 += blockDim.x) store(k2, buf[slot(k2)]);
+}
+
+// Phase 3: out[sig, tpos] = inv_norm[s] sum_f win_over_n[t] y_f[t], t = s -
+// f hop, s = tpos + win / 2, over the frames f with 0 <= t < win in
+// ascending order (level2_overlap_add's order); y_f[t] read from frame f's
+// row of `frames` (N floats by rows: t = k1 + R k2 at k1 n + k2).
+template <int R>
+__device__ __forceinline__ void level2_direct_overlap_add(
+    const float* __restrict__ frames, const float* __restrict__ win_over_n,
+    const float* __restrict__ inv_norm, void* __restrict__ out, int out_int16, int sig, int nf,
+    int N, int win, int hop, int length, int tpos) {
+  const int n = N / R;
+  const long long s = (long long)tpos + win / 2;
+  const int f_hi = min(nf - 1, (int)(s / hop));
+  const long long lo = (s - win + hop) / hop;
+  const int f_lo = lo > 0 ? (int)lo : 0;
+  float acc = 0.f;
+  for (int f = f_lo; f <= f_hi; ++f) {
+    const int t = (int)(s - (long long)f * hop);
+    acc += __ldg(win_over_n + t) *
+           __ldg(frames + ((long long)sig * nf + f) * N + (t % R) * n + t / R);
+  }
+  write_sample(out, out_int16, (long long)sig * length + tpos, acc * __ldg(inv_norm + s));
 }
 
 #ifdef __CUDACC__

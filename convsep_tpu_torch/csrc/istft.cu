@@ -117,6 +117,22 @@
 // at W 70 000, hop 17 500 (78 frames) reads 21.8 MB of spectra and writes
 // 5.3 MB of samples, 8.1 us.
 //
+// The istft_level2_direct_* kernels (nfft = R n past 65 536, R 16 up to
+// 131 072 and 32 past it, n <= 8192 7-smooth of either parity: 70 000 = 16
+// x 4375, 131 072, 200 000 = 32 x 6250; 138 sizes; no preset uses one) are
+// the direct inverse without Bluestein's chirp and its two transforms of
+// 262 144 or 524 288 points (fft_common.cuh::level2_direct_combine,
+// level2_direct_rows, level2_direct_overlap_add): the pair's N points by
+// decimation in frequency over R, the radix-R combine a column in
+// registers with the spectrum rows read coalesced, R rows of n points on
+// the mixed-radix block core (mixed_fft, one 512-thread block a row) in a
+// scratch of N float2 a pair, the rounds of pairs within half the L2
+// (fft_plan.level2_direct_plan), the samples by rows into a frames buffer,
+// then an overlap-add that reads them back and applies the window.
+// fft_plan.istft_plan takes it at the sizes in ISTFT_LEVEL2_DIRECT_WON.
+// Its bound is bytes, the second level's: 8.1 us at W 70 000, hop 17 500
+// for one 30 s signal.
+//
 // istft_direct_kernel, a direct O(nfft) sum per output sample in one
 // 512-thread block, a pair of frames at a time, with the host's
 // float64-made table of e^{-2 pi i m / nfft}, serves no size of the
@@ -548,6 +564,86 @@ cudaError_t launch_level2(const Level2Spectra& sp, const float2* tw, const float
   return cudaGetLastError();
 }
 
+// ---- the second level's direct transform (7-smooth sizes past 65 536) ---
+
+// phase 1 (level2_direct_combine) for columns n2 of the round's pairs
+template <int R>
+__global__ void __launch_bounds__(kLevel2Threads) istft_level2_direct_combine_kernel(
+    const float* __restrict__ re, const float* __restrict__ im, const float2* __restrict__ tw2,
+    float2* __restrict__ scratch, int n, int nframes, int pair0) {
+  const int n2 = blockIdx.x * kLevel2Threads + threadIdx.x;
+  if (n2 >= n) return;
+  const int g = 2 * (pair0 + (int)blockIdx.y);  // the pair's frame a
+  const int N = R * n;
+  level2_direct_combine<R>([&](int t) { return level2_bin_point(re, im, N, nframes, g, t); },
+                           scratch + (long long)blockIdx.y * N, tw2, n, n2);
+}
+
+// phase 2 (level2_direct_rows) for row k1 = blockIdx.x of R = gridDim.x:
+// frame a's samples N Re y[t] and frame b's -N Im y[t], t = k1 + R k2 <
+// win, at k1 n + k2 of rows g and g + 1 of `frames` (N floats a frame). One
+// block an SM: mixed_fft takes 128 registers of 512 threads.
+__global__ void __launch_bounds__(kMaxThreads, 1) istft_level2_direct_rows_kernel(
+    const float2* __restrict__ scratch, const float2* __restrict__ tw, float* __restrict__ frames,
+    int n, int win, int nframes, int pair0, unsigned long long sched) {
+  extern __shared__ float4 smem4[];
+  const long long N = (long long)gridDim.x * n;
+  level2_direct_rows(smem4, scratch + blockIdx.y * N + (long long)blockIdx.x * n, tw, n, sched,
+                     [&](int k2, float2 y) {
+                       const int k1 = blockIdx.x;
+                       const int g = 2 * (pair0 + (int)blockIdx.y);
+                       if (k1 + (int)gridDim.x * k2 >= win) return;
+                       float* fa = frames + g * N + (long long)k1 * n + k2;
+                       fa[0] = y.x;
+                       if (g + 1 < nframes) fa[N] = -y.y;
+                     });
+}
+
+// phase 3 (level2_direct_overlap_add) for samples tpos of signal blockIdx.y
+template <int R>
+__global__ void __launch_bounds__(kLevel2Threads) istft_level2_direct_ola_kernel(
+    const float* __restrict__ frames, const float* __restrict__ win_over_n,
+    const float* __restrict__ inv_norm, void* __restrict__ out, int out_int16, int nf, int N,
+    int win, int hop, int length) {
+  const int tpos = blockIdx.x * kLevel2Threads + threadIdx.x;
+  if (tpos < length)
+    level2_direct_overlap_add<R>(frames, win_over_n, inv_norm, out, out_int16, blockIdx.y, nf, N,
+                                 win, hop, length, tpos);
+}
+
+struct Level2DirectArgs {
+  const float *re, *im, *wn, *inv;
+  const float2* tables;  // the (R, n) table w^{n2 k1}, then the n-point table w^{R m}
+  float2* scratch;
+  float* frames;
+  void* out;
+  int out_int16, nt, nf, n, win, hop, length, per_round;
+  unsigned long long sched;
+  cudaStream_t stream;
+};
+
+template <int R>
+cudaError_t launch_level2_direct(const Level2DirectArgs& a) {
+  const int N = R * a.n, count = a.nt * a.nf, pairs = (count + 1) / 2;
+  const size_t smem = (size_t)mixed_tables_len(a.n) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(istft_level2_direct_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  for (int p0 = 0; p0 < pairs; p0 += a.per_round) {
+    const unsigned cnt = (unsigned)min(a.per_round, pairs - p0);
+    istft_level2_direct_combine_kernel<R>
+        <<<dim3((a.n + kLevel2Threads - 1) / kLevel2Threads, cnt), kLevel2Threads, 0, a.stream>>>(
+            a.re, a.im, a.tables, a.scratch, a.n, count, p0);
+    istft_level2_direct_rows_kernel<<<dim3(R, cnt), kMaxThreads, smem, a.stream>>>(
+        a.scratch, a.tables + N, a.frames, a.n, a.win, count, p0, a.sched);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  istft_level2_direct_ola_kernel<R>
+      <<<dim3((a.length + kLevel2Threads - 1) / kLevel2Threads, a.nt), kLevel2Threads, 0,
+          a.stream>>>(a.frames, a.wn, a.inv, a.out, a.out_int16, a.nf, N, a.win, a.hop, a.length);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // tw: the quarter twiddle table (fft_plan.twiddles) for a power of two in
@@ -762,6 +858,40 @@ extern "C" int istft_level2_launch(const void* re, const void* im, const void* w
                                                    nt, nf, win, hop, length, per_round, s)
                    : launch_level2<kLevel2MaxLog2>(sp, t, c, h, wn, inv, sc, fr, out, out_int16,
                                                    nt, nf, win, hop, length, per_round, s));
+}
+
+// The second level's direct transform: nfft = R n past 65 536, up to 262
+// 144, R 16 up to 131 072 and 32 past it, n 7-smooth (fft_plan.
+// level2_direct_factors: 70 000, 131 072, 200 000; 138 sizes): the pairs of
+// the flattened (nt x nf) frames in rounds of `per_round`
+// (fft_plan.level2_direct_plan), each pair's radix-R combine into `scratch`
+// (per_round nfft float2), its R rows of n points on the mixed-radix core
+// in the passes of `sched` (fft_plan.mixed_schedule) into `frames` (nt nf
+// nfft floats, a frame's samples by rows), then the overlap-add of every
+// signal. tables: fft_plan.level2_direct_tables (nfft + n float2).
+extern "C" int istft_level2_direct_launch(const void* re, const void* im, const void* win_over_n,
+                                          const void* inv_norm, const void* tables, void* scratch,
+                                          void* frames, void* out, int out_int16, int nt, int nf,
+                                          int nfft, int win, int hop, int length, int per_round,
+                                          long long sched, void* stream) {
+  int r, n;
+  if (!level2_direct_sizes(nfft, &r, &n) || !mixed_schedule_ok(n, (unsigned long long)sched) ||
+      win < 1 || win > nfft || hop < 1 || win % hop != 0 || nt < 1 || nt > 65535 || nf < 1 ||
+      length < 1 || per_round < 1 || per_round > 65535 || (long long)nt * nf > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const Level2DirectArgs a{static_cast<const float*>(re),
+                           static_cast<const float*>(im),
+                           static_cast<const float*>(win_over_n),
+                           static_cast<const float*>(inv_norm),
+                           static_cast<const float2*>(tables),
+                           static_cast<float2*>(scratch),
+                           static_cast<float*>(frames),
+                           out,
+                           out_int16, nt, nf, n, win, hop, length, per_round,
+                           (unsigned long long)sched,
+                           static_cast<cudaStream_t>(stream)};
+  return (int)(r == kLevel2DirectMinR ? launch_level2_direct<kLevel2DirectMinR>(a)
+                                      : launch_level2_direct<kLevel2DirectMaxR>(a));
 }
 
 // How many clusters of istft_cluster_kernel (Bluestein's, `route` 0), of

@@ -45,8 +45,11 @@ at the powers of two the direct transform over the cluster,
 :func:`istft_cluster_dit_plan`, and at the 7-smooth sizes of
 :func:`mixed_factors` the same on a mixed-radix block core whose passes
 :func:`mixed_radices` plans, :func:`istft_cluster_mixed_plan`), past 65 536
-on the second level run backwards (:func:`level2_plan`); :func:`istft_plan`
-sizes them all. The
+on the second level run backwards (:func:`level2_plan`; at the 7-smooth
+sizes of :func:`level2_direct_factors` the direct transform on the second
+level without a chirp, :func:`level2_direct_plan`, a radix-R combine and R
+rows of the mixed-radix core, its tables :func:`level2_direct_tables`);
+:func:`istft_plan` sizes them all. The
 Wiener+iSTFT kernel (``csrc/wiener_istft.cu``) does the same for one pair of
 sources a block, the mask formed as the points load; :func:`wiener_plan`
 sizes it on the core, the split and Bluestein, past 8192 on the cluster run
@@ -59,6 +62,7 @@ direct sum, which only a forced call runs.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 from dataclasses import dataclass
@@ -220,13 +224,16 @@ def level2_supported(nfft: int) -> bool:
 @dataclass(frozen=True)
 class Level2Plan:
     nfft: int
-    m: int                # the convolution's length: 262 144 or 524 288
-    radix: int            # R = M / 8192: phase A's and D's in-register DFTs, phase B/C's blocks a pair
+    m: int                # the transform's length: Bluestein's 262 144 or 524 288; the direct nfft
+    radix: int            # R: M / 8192 (phase A's and D's in-register DFTs, phase B/C's blocks a
+                          # pair); the direct level's 16 or 32 (its combine, its rows a pair)
     pairs: int            # pairs of the flattened (signals × nf) frames
     pairs_per_round: int  # pairs whose scratch is in flight at once
-    rounds: int           # rounds of four (STFT) or three (iSTFT) phase launches
+    rounds: int           # rounds of four (STFT) or three (iSTFT) phase launches; two (direct)
     scratch_bytes: int    # M float2 a pair of a round
-    middle_smem_bytes: int  # phase B/C's block: the 8192-point table and exchange buffer
+    middle_smem_bytes: int  # phase B/C's block: the 8192-point table and exchange buffer; the
+                            # direct level's rows: the n-point table and exchange buffer
+    route: str = "level2"  # the kernels: level2 (Bluestein's) or level2_direct
 
 
 @lru_cache(maxsize=64)
@@ -245,6 +252,45 @@ def level2_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> Level2P
     per = max(1, min(pairs, LEVEL2_SCRATCH_BYTES // (8 * m)))
     return Level2Plan(nfft, m, m // CLUSTER_PART, pairs, per, -(-pairs // per), per * 8 * m,
                       8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)))
+
+
+def level2_direct_factors(nfft: int) -> tuple[int, int] | None:
+    """(R, n) for a size the direct second level takes (``fft_common.cuh::
+    level2_direct_sizes``): 65 536 < nfft <= :data:`LEVEL2_NFFT`, R 16 up to
+    131 072 and 32 past it, R dividing nfft, n = nfft / R 7-smooth (n <=
+    8192 by the bounds), of either parity. 138 sizes, 69 at each R: 65 856
+    = 16 · 4116 to 131 072 = 16 · 8192 (70 000 = 16 · 4375), 131 712 = 32 ·
+    4116 to 262 144 = 32 · 8192 (200 000 = 32 · 6250); 11 odd n at each R.
+    None for any other size: odd, a prime factor past 7, or too few factors
+    of two for R (99 999, 131 073, 70 001, 65 538)."""
+    if not level2_supported(nfft):
+        return None
+    r = 16 if nfft <= 2 * CLUSTER_NFFT else 32
+    if nfft % r or not smooth7(nfft // r):
+        return None
+    return r, nfft // r
+
+
+@lru_cache(maxsize=64)
+def level2_direct_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> Level2Plan:
+    """The direct second level's launch, as ``csrc/istft.cu::
+    istft_level2_direct_launch`` runs it: the pairs of the flattened frames
+    in rounds of as many as :data:`LEVEL2_SCRATCH_BYTES` holds at nfft
+    float2 a pair (39 pairs of W 70 000 in one round), each round a combine
+    launch of one thread a column and a rows launch of R blocks of 512
+    threads a pair, each with :func:`cluster_mixed_smem_bytes` of n (route
+    "level2_direct"). :func:`istft_plan` takes it at
+    :data:`ISTFT_LEVEL2_DIRECT_WON`; ``launch_istft(level2_direct=True)``
+    forces it at any size of :func:`level2_direct_factors`."""
+    f = level2_direct_factors(nfft)
+    if f is None or win > nfft:
+        raise ValueError(f"no direct second-level plan for nfft={nfft}: R n past {CLUSTER_NFFT}, "
+                         f"at most {LEVEL2_NFFT}, R 16 or 32, n 7-smooth, and at least the window")
+    r, n = f
+    pairs = -(-signals * nf // 2)
+    per = max(1, min(pairs, LEVEL2_SCRATCH_BYTES // (8 * nfft)))
+    return Level2Plan(nfft, nfft, r, pairs, per, -(-pairs // per), per * 8 * nfft,
+                      cluster_mixed_smem_bytes(n), "level2_direct")
 
 
 def cluster_blocks(nfft: int) -> int:
@@ -323,6 +369,29 @@ ISTFT_MIXED_WON: frozenset[int] = frozenset({
     49000, 49152, 49392, 50000, 50176, 50400, 51200, 51840, 52488, 52920, 53760, 54000, 54432,
     54880, 55296, 56000, 56448, 57344, 57600, 57624, 58320, 58800, 60000, 60480, 61440, 62208,
     62720, 63000, 63504, 64000, 64512, 64800})
+
+# The sizes at which istft_plan takes the direct second level (route
+# "level2_direct") over Bluestein's: each beat Bluestein's second level
+# forced in device ms, by 2.09-4.86x, its card ms not over Bluestein's by
+# more than 5 % (both wrappers' host time bounds the card ms past about
+# 100 000 points), one 30 s track at hop nfft / 4, in one run on an H100
+# 80GB HBM3 at 700 W (tools/torch_istft_level2_ab.py, PERF.md row 3⁵
+# (7-smooth)): all 138 of level2_direct_factors. Keyed by nfft alone: both
+# routes' work grows with the frames alike. A size that loses stays on
+# Bluestein's level.
+ISTFT_LEVEL2_DIRECT_WON: frozenset[int] = frozenset({
+    65856, 67200, 69120, 69984, 70000, 70560, 71680, 72000, 72576, 73728, 75264, 75600, 76800,
+    76832, 77760, 78400, 80000, 80640, 81648, 81920, 82320, 82944, 84000, 84672, 86016, 86400,
+    87808, 89600, 90000, 90720, 92160, 93312, 94080, 96000, 96768, 97200, 98000, 98304, 98784,
+    100000, 100352, 100800, 102400, 103680, 104976, 105840, 107520, 108000, 108864, 109760, 110592,
+    112000, 112896, 114688, 115200, 115248, 116640, 117600, 120000, 120960, 122880, 124416, 125440,
+    126000, 127008, 128000, 129024, 129600, 131072, 131712, 134400, 138240, 139968, 140000, 141120,
+    143360, 144000, 145152, 147456, 150528, 151200, 153600, 153664, 155520, 156800, 160000, 161280,
+    163296, 163840, 164640, 165888, 168000, 169344, 172032, 172800, 175616, 179200, 180000, 181440,
+    184320, 186624, 188160, 192000, 193536, 194400, 196000, 196608, 197568, 200000, 200704, 201600,
+    204800, 207360, 209952, 211680, 215040, 216000, 217728, 219520, 221184, 224000, 225792, 229376,
+    230400, 230496, 233280, 235200, 240000, 241920, 245760, 248832, 250880, 252000, 254016, 256000,
+    258048, 259200, 262144})
 
 
 @dataclass(frozen=True)
@@ -591,8 +660,9 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
     powers of two there (16 384, 32 768, 65 536)
     :func:`istft_cluster_dit_plan`, the 7-smooth sizes in
     :data:`ISTFT_MIXED_WON` :func:`istft_cluster_mixed_plan`; up to
-    :data:`LEVEL2_NFFT`: the second
-    level's :func:`level2_plan`. Other sizes: the direct sum, up to 16 hop
+    :data:`LEVEL2_NFFT`: the second level's :func:`level2_plan`, the
+    7-smooth sizes in :data:`ISTFT_LEVEL2_DIRECT_WON` its direct transform's
+    :func:`level2_direct_plan`. Other sizes: the direct sum, up to 16 hop
     rows per block. ``route`` names the kernel. A plan that does not fit
     shared memory raises ``ValueError``."""
     if cluster_supported(nfft):
@@ -602,6 +672,8 @@ def istft_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPla
             return istft_cluster_mixed_plan(signals, nf, nfft, win, hop)
         return istft_cluster_plan(signals, nf, nfft, win, hop)
     if level2_supported(nfft):
+        if nfft in ISTFT_LEVEL2_DIRECT_WON:
+            return level2_direct_plan(signals, nf, nfft, win, hop)
         return level2_plan(signals, nf, nfft, win, hop)
     k = win // hop
     split = split_factors(nfft)
@@ -1047,6 +1119,20 @@ def level2_chat(nfft: int, device: str) -> torch.Tensor:
     return chat.reshape(CLUSTER_PART, r, 2).transpose(0, 1).reshape(m, 2).to(device)
 
 
+@lru_cache(maxsize=4)
+def level2_direct_tables(nfft: int, device: str) -> torch.Tensor:
+    """(nfft + n, 2) float32 on ``device``, made once per (nfft, device):
+    the direct second level's tables, entries of :func:`dft_table` (rounded
+    once from float64), R and n from :func:`level2_direct_factors`: the (R,
+    n) table w^{n2 k1} at k1 · n + n2 (the combine's twiddles, read
+    coalesced over n2), then the n-point table w^{R m}, m < n (the rows'
+    ``mixed_fft``: the nfft-point table's entries at stride R)."""
+    r, n = level2_direct_factors(nfft)
+    tab = dft_table(nfft, "cpu")
+    combine = tab[(torch.arange(r)[:, None] * torch.arange(n)[None, :]).reshape(-1)]
+    return torch.cat([combine, tab[::r]]).to(device)
+
+
 @lru_cache(maxsize=8)
 def dft_table(nfft: int, device: str) -> torch.Tensor:
     """(nfft, 2) float32 e^{−2πi m / nfft}, m < nfft, made in float64: the
@@ -1056,28 +1142,38 @@ def dft_table(nfft: int, device: str) -> torch.Tensor:
     return torch.from_numpy(tab).to(device)
 
 
-_windows: list[tuple[bytes, str, torch.Tensor]] = []
+_windows: list[tuple[np.ndarray, str, torch.Tensor]] = []
 _windows_lock = threading.Lock()
+_memcmp = ctypes.CDLL(None).memcmp
+_memcmp.restype = ctypes.c_int
+_memcmp.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t)
+
+
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two contiguous float64 windows hold the same values, by a memcmp of
+    their bytes: no copy, so no fresh pages to fault in (a copy of a 262
+    144-point window cost more host time than the kernels' launches)."""
+    return a.size == b.size and _memcmp(a.ctypes.data, b.ctypes.data, a.nbytes) == 0
 
 
 def window_f32(window: np.ndarray, device: str) -> torch.Tensor:
     """The window as float32 on ``device``, copied once. Callers build a
     fresh array per call, so it is found again by comparing its bytes with
-    the last few windows' (a memcmp), not by hashing them."""
-    key = np.ascontiguousarray(window, np.float64).tobytes()
+    the last few windows' (:func:`_same`), not by hashing them."""
+    key = np.ascontiguousarray(window, np.float64)
     with _windows_lock:
         for i, (k, d, t) in enumerate(_windows):
-            if d == device and k == key:
+            if d == device and _same(k, key):
                 if i:
                     _windows.insert(0, _windows.pop(i))
                 return t
-        t = torch.from_numpy(np.frombuffer(key, np.float64).astype(np.float32)).to(device)
-        _windows.insert(0, (key, device, t))
+        t = torch.from_numpy(key.astype(np.float32)).to(device)
+        _windows.insert(0, (key.copy(), device, t))
         del _windows[8:]
         return t
 
 
-_synthesis: list[tuple[bytes, tuple, tuple[torch.Tensor, torch.Tensor]]] = []
+_synthesis: list[tuple[np.ndarray, tuple, tuple[torch.Tensor, torch.Tensor]]] = []
 
 
 def synthesis_tables(window: np.ndarray, nfft: int, hop: int, nf: int,
@@ -1085,18 +1181,19 @@ def synthesis_tables(window: np.ndarray, nfft: int, hop: int, nf: int,
     """(window / nfft, 1 / window-power envelope of nf frames) as float32 on
     ``device``: the inverse kernel's two tables, made once per window and
     shape. A call's window is found again by comparing its float64 bytes
-    with the last few (no conversion to float32, no second key per call)."""
-    key = np.ascontiguousarray(window, np.float64).tobytes()
+    with the last few (:func:`_same`; no conversion to float32, no second
+    key per call)."""
+    w = np.ascontiguousarray(window, np.float64)
     shape = (nfft, hop, nf, device)
     with _windows_lock:
         for i, (k, s, tabs) in enumerate(_synthesis):
-            if s == shape and k == key:
+            if s == shape and _same(k, w):
                 if i:
                     _synthesis.insert(0, _synthesis.pop(i))
                 return tabs
-    w = np.frombuffer(key, np.float64)
-    tabs = (torch.from_numpy((w / float(nfft)).astype(np.float32)).to(device),
-            inverse_norm(_key(w.astype(np.float32)), hop, nf, device))
+    key = w.copy()
+    tabs = (torch.from_numpy((key / float(nfft)).astype(np.float32)).to(device),
+            inverse_norm(_key(key.astype(np.float32)), hop, nf, device))
     with _windows_lock:
         _synthesis.insert(0, (key, shape, tabs))
         del _synthesis[8:]

@@ -24,7 +24,14 @@ forces it at any of its sizes; :func:`istft_bluestein_cluster_pallas`
 forces Bluestein's cluster at both, to hold and time it), and Bluestein on
 the core's second level
 run backwards past that, up to 262 144 (``LAUNCHES["istft_level2"]``, one
-count a call: its phases are several launches). An odd nfft has no Nyquist
+count a call: its phases are several launches), at the 7-smooth sizes there
+that won their A/B (``fft_plan.ISTFT_LEVEL2_DIRECT_WON``: 70 000, 131 072,
+200 000, ...) the direct transform on the second level, a radix-16 or 32
+combine and rows on the mixed-radix block core
+(``LAUNCHES["istft_level2_direct"]``, one count a call;
+``launch_istft(level2_direct=True)`` forces it at any of its sizes;
+:func:`istft_level2_bluestein_pallas` forces Bluestein's level there, to
+hold and time it). An odd nfft has no Nyquist
 bin: every bin but DC counts twice, as in the reference's inverse matrices.
 The direct sum per sample (``LAUNCHES["istft_direct"]``) serves no size of
 the wrapper: :func:`istft_direct_pallas` forces it up to 12 800 points (its
@@ -52,7 +59,9 @@ from convsep_tpu_torch.dsp.cuda.fft_plan import (
     istft_direct_plan,
     istft_plan,
     level2_chat,
-    level2_supported,
+    level2_direct_plan,
+    level2_direct_tables,
+    level2_plan,
     mixed_factors,
     mixed_radices,
     mixed_schedule,
@@ -72,7 +81,8 @@ def istft_supported(nfft: int, win_len: int, hop: int) -> bool:
     the other sizes up to 8192 on Bluestein run backwards, up to 65 536 on
     a thread-block cluster (Bluestein's, or the direct transform at the
     powers of two and the won 7-smooth sizes), up to 262 144 on the core's
-    second level; past that none (the direct sum per sample fits shared
+    second level (Bluestein's, or the direct transform at the won 7-smooth
+    sizes); past that none (the direct sum per sample fits shared
     memory only up to 12 800 points)."""
     if not (2 <= win_len <= nfft and hop > 0 and win_len % hop == 0):
         return False
@@ -94,6 +104,8 @@ def launch_istft(
     direct: bool = False,
     bluestein_cluster: bool = False,
     cluster_mixed: bool = False,
+    level2_direct: bool = False,
+    level2_bluestein: bool = False,
 ) -> torch.Tensor:
     """The kernel on CUDA tensors re/im (..., nf, nfft//2 + 1) float32 →
     (..., length) float32 or int16. Raises outside the envelope. The window's
@@ -103,7 +115,10 @@ def launch_istft(
     and the 7-smooth sizes too (:func:`istft_bluestein_cluster_pallas`);
     ``cluster_mixed``: the mixed cluster at any size of
     :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.mixed_factors`, won or not
-    (its A/B)."""
+    (its A/B); ``level2_direct``: the direct second level at any size of
+    :func:`~convsep_tpu_torch.dsp.cuda.fft_plan.level2_direct_factors`, won
+    or not (its A/B); ``level2_bluestein``: Bluestein's second level past
+    65 536, the direct level's sizes too (:func:`istft_level2_bluestein_pallas`)."""
     win_len, hop, length = len(window), int(hop), int(length)
     if re.device.type != "cuda" or im.device != re.device:
         raise ValueError(f"istft kernel: re/im must share one CUDA device, got {re.device}, {im.device}")
@@ -125,11 +140,10 @@ def launch_istft(
     win_n, inv_norm = synthesis_tables(window, nfft, hop, nf, where)
     plan = (istft_direct_plan if direct else istft_cluster_plan if bluestein_cluster
             else istft_cluster_mixed_plan if cluster_mixed
+            else level2_direct_plan if level2_direct
+            else level2_plan if level2_bluestein
             else istft_plan)(nt, nf, nfft, win_len, hop)
-    if level2_supported(nfft) and not direct:
-        name = "istft_level2"
-    else:
-        name = "istft" if plan.route == "fft" else "istft_" + plan.route
+    name = "istft" if plan.route == "fft" else "istft_" + plan.route
     int16 = output_dtype == "int16"
     out = torch.empty((nt, length), dtype=torch.int16 if int16 else torch.float32, device=dev)
     lib = kernels.library()
@@ -181,6 +195,15 @@ def launch_istft(
                 level2_chat(nfft, where).data_ptr(), scratch.data_ptr(), frames.data_ptr(),
                 out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
                 plan.pairs_per_round, stream,
+            )
+        elif name == "istft_level2_direct":
+            scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev)
+            frames = torch.empty(nt * nf * nfft, dtype=torch.float32, device=dev)
+            code = lib.istft_level2_direct_launch(
+                re3.data_ptr(), im3.data_ptr(), win_n.data_ptr(), inv_norm.data_ptr(),
+                level2_direct_tables(nfft, where).data_ptr(), scratch.data_ptr(),
+                frames.data_ptr(), out.data_ptr(), int(int16), nt, nf, nfft, win_len, hop, length,
+                plan.pairs_per_round, mixed_schedule(mixed_radices(nfft // plan.radix)), stream,
             )
         else:
             tw = twiddles(nfft, where) if plan.groups else dft_table(nfft, where)
@@ -261,8 +284,25 @@ def istft_bluestein_cluster_pallas(
     return _istft(re, im, window, hop, length, nfft, bluestein_cluster=True)
 
 
+def istft_level2_bluestein_pallas(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    window: np.ndarray,
+    hop: int,
+    length: int,
+    nfft: int | None = None,
+) -> torch.Tensor:
+    """:func:`istft_pallas` through Bluestein's second level at any nfft
+    past 65 536 up to 262 144 (CUDA tensors, counted as ``istft_level2``),
+    the direct level's won sizes too, where ``istft_level2_direct``
+    replaced it, so that it can be held and timed beside that kernel
+    (PCM16: ``launch_istft(..., level2_bluestein=True)``). CPU tensors: the
+    plain version."""
+    return _istft(re, im, window, hop, length, nfft, level2_bluestein=True)
+
+
 def _istft(re, im, window, hop, length, nfft, direct: bool = False,
-           bluestein_cluster: bool = False):
+           bluestein_cluster: bool = False, level2_bluestein: bool = False):
     window = np.asarray(window, np.float64)
     win_len = len(window)
     hop = int(hop)
@@ -279,4 +319,4 @@ def _istft(re, im, window, hop, length, nfft, direct: bool = False,
     if {re.device.type, im.device.type} == {"cpu"}:
         return istft_pallas_plain(re, im, window, hop, length, nfft)
     return launch_istft(re, im, window, hop, length, nfft, direct=direct,
-                        bluestein_cluster=bluestein_cluster)
+                        bluestein_cluster=bluestein_cluster, level2_bluestein=level2_bluestein)

@@ -56,7 +56,8 @@ LAUNCHES: dict[str, int] = {
     "istft_split": 0, "istft_bluestein": 0, "istft_cluster": 0, "istft_cluster_dit": 0,
     "istft_cluster_mixed": 0, "istft_direct": 0,
     "wiener_apply": 0, "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0,
-    "band_decode_stream": 0, "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0,
+    "band_decode_stream": 0, "stft_level2": 0, "istft_level2": 0, "istft_level2_direct": 0,
+    "ct_stft_level": 0,
 }
 
 _lock = threading.Lock()
@@ -129,6 +130,10 @@ _SIGNATURES = {
     # nt, nf, nfft, win, hop, length, per_round, stream
     "istft_level2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P),
+    # re, im, win_over_n, inv_norm, tables, scratch, frames, out, out_int16, nt, nf, nfft,
+    # win, hop, length, per_round, schedule (the block core's radices), stream
+    "istft_level2_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _L, _P),
     # nfft, win, hop, route (0: Bluestein's cluster, 1: the direct one at the powers of
     # two, 2: the mixed one), active (1 int out)
     "istft_cluster_occupancy": (_I, _I, _I, _I, _P),

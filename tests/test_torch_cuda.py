@@ -470,7 +470,8 @@ def test_tiny_highres_slice_kernel_route_matches_plain(cuda):
                 "wiener_apply": 0,
                 "wiener_istft_ny": 0, "wiener_istft_cluster": 0, "wiener_istft_ny_cluster": 0,
                 "ct_stft": 0, "ct_stft_cluster": 0, "band_decode": 0, "band_decode_stream": 0,
-                "stft_level2": 0, "istft_level2": 0, "ct_stft_level": 0}
+                "stft_level2": 0, "istft_level2": 0, "istft_level2_direct": 0,
+                "ct_stft_level": 0}
     assert kernels.LAUNCHES == launched
     plain = dataclasses.replace(
         p, model=dataclasses.replace(p.model, decoder_impl="bandconv"),
@@ -831,22 +832,24 @@ def test_istft_pallas_kernel_matches_plain(rng, cuda, lead, nfft, win, hop, leng
 
 
 ISTFT_NAMES = ("istft", "istft_split", "istft_bluestein", "istft_cluster", "istft_cluster_dit",
-               "istft_cluster_mixed", "istft_level2", "istft_direct")
+               "istft_cluster_mixed", "istft_level2", "istft_level2_direct", "istft_direct")
 # × max|out|: the cluster kernels against the float64 synthesis (chip_smoke.py's)
 TOL_CLUSTER_F32 = 2e-6
 
 
 def _istft_name(nfft: int) -> str:
     """The iSTFT kernel launch_istft takes at nfft."""
-    from convsep_tpu_torch.dsp.cuda.fft_plan import (ISTFT_MIXED_WON, bluestein_supported,
-                                                     cluster_supported, split_supported)
+    from convsep_tpu_torch.dsp.cuda.fft_plan import (ISTFT_LEVEL2_DIRECT_WON, ISTFT_MIXED_WON,
+                                                     bluestein_supported, cluster_supported,
+                                                     split_supported)
 
     pow2 = nfft & (nfft - 1) == 0
     return ("istft" if pow2 and nfft <= 8192 else "istft_split"
             if split_supported(nfft) else "istft_bluestein" if bluestein_supported(nfft)
             else ("istft_cluster_dit" if pow2 else "istft_cluster_mixed"
                   if nfft in ISTFT_MIXED_WON else "istft_cluster") if cluster_supported(nfft)
-            else "istft_level2" if 65536 < nfft <= 262144 else "istft_direct")
+            else ("istft_level2_direct" if nfft in ISTFT_LEVEL2_DIRECT_WON else "istft_level2")
+            if 65536 < nfft <= 262144 else "istft_direct")
 
 
 @pytest.mark.parametrize("nfft,win,hop,lead,length", [
@@ -1759,6 +1762,11 @@ CT_STFT_LEVEL_STACK_CEILING = 0
 # threads); phase B/C (Fft<13> on 512 threads at 128 registers) spills
 LEVEL2_STACK_CEILING = {"level2_first_kernel": 0, "level2_middle_kernel": 144,
                         "level2_last_kernel": 0, "level2_split_kernel": 0}
+# the direct second level's kernels (instances at R 16 and 32, the rows one
+# for both): none spills
+LEVEL2_DIRECT_STACK_CEILING = {"istft_level2_direct_combine_kernel": 0,
+                               "istft_level2_direct_rows_kernel": 0,
+                               "istft_level2_direct_ola_kernel": 0}
 
 
 # the same for the fused decode kernel's instances (MI, NI, warps, split
@@ -1837,6 +1845,9 @@ def test_redesigned_kernels_keep_registers_off_the_stack(tmp_path):
             assert max(hits) <= most, (phase, log2m, frames)
     hits = [v for k, v in frames.items() if "istft_level2_ola_kernel" in k]
     assert len(hits) == 1 and hits[0] == 0, frames
+    for kernel, most in LEVEL2_DIRECT_STACK_CEILING.items():
+        hits = [v for k, v in frames.items() if f"{len(kernel)}{kernel}" in k]
+        assert len(hits) == (1 if "rows" in kernel else 2) and max(hits) <= most, (kernel, frames)
 
 
 # (B, J, S, W_pad, TpC, ktaps, TM): the presets' three TMs, and the
@@ -1961,12 +1972,16 @@ def test_level2_stft_kernel_matches_float64(rng, cuda, nfft, win, hop, B, length
     (131_072, 131_072, 32_768, (1,), 400_000),
     (262_144, 262_143, 29_127, (1,), 500_000),  # M 524 288, k 9 (a window of 9 hops)
     (100_000, 80_000, 20_000, (2,), 150_000),   # nfft past the window
+    (200_000, 200_000, 50_000, (1,), 1_323_000),  # R 32 on the direct level: 29 frames
 ])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_level2_istft_kernel_matches_float64(rng, cuda, nfft, win, hop, lead, length, out):
     """The second level run backwards (every parity) against the float64
-    synthesis within 2e-6 × max|y|, PCM16 within one LSB: one
-    "istft_level2" count, no other iSTFT kernel."""
+    synthesis within 2e-6 × max|y|, PCM16 within one LSB: one count of the
+    kernel ``_istft_name`` names, no other iSTFT kernel: "istft_level2"
+    (Bluestein's) off ``fft_plan.ISTFT_LEVEL2_DIRECT_WON``,
+    "istft_level2_direct" (the direct transform) at its sizes (70 000, 131
+    072, 262 144, 100 000 and 200 000 where won)."""
     w = sinebell(win)
     nf = -(-length // hop) + 2
     re = torch.randn(*lead, nf, nfft // 2 + 1, device=cuda)
@@ -1975,13 +1990,44 @@ def test_level2_istft_kernel_matches_float64(rng, cuda, nfft, win, hop, lead, le
     got = launch_istft(re, im, w, hop, length, nfft, out)
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
-        k: int(k == "istft_level2") for k in ISTFT_NAMES}
+        k: int(k == _istft_name(nfft)) for k in ISTFT_NAMES}
     want = _istft64(re, im, w, hop, length, nfft, out)
     if out == "int16":
         _close(got, want, out)
     else:
         assert got.shape == want.shape
         assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("nfft,hop", [(70_000, 17_500), (200_000, 50_000)])
+def test_istft_level2_bluestein_forced_at_direct_sizes(rng, cuda, nfft, hop):
+    """istft_level2_bluestein_pallas still launches Bluestein's second level
+    ("istft_level2") at the direct level's sizes, and
+    launch_istft(level2_direct=True) the direct one ("istft_level2_direct"),
+    won or not: one launch each, each within 2e-6 × max|out| of the float64
+    synthesis (chip_smoke.TOL_LEVEL2), and PCM16 through
+    launch_istft(level2_bluestein=True) within one LSB of the direct
+    kernel's."""
+    from convsep_tpu_torch.dsp.cuda.istft_kernel import istft_level2_bluestein_pallas
+
+    length = 1_323_000  # one 30 s signal at 44.1 kHz
+    w = sinebell(nfft)
+    nf = -(-length // hop) + 2
+    re = torch.randn(1, nf, nfft // 2 + 1, device=cuda)
+    im = torch.randn(1, nf, nfft // 2 + 1, device=cuda)
+    want = _istft64(re, im, w, hop, length, nfft)
+    for name, fn in (("istft_level2", lambda: istft_level2_bluestein_pallas(re, im, w, hop,
+                                                                             length)),
+                     ("istft_level2_direct", lambda: launch_istft(re, im, w, hop, length, nfft,
+                                                                  level2_direct=True))):
+        before = dict(kernels.LAUNCHES)
+        got = fn()
+        torch.cuda.synchronize()
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in ISTFT_NAMES} == {
+            k: int(k == name) for k in ISTFT_NAMES}
+        assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+    _close(launch_istft(re, im, w, hop, length, nfft, "int16", level2_bluestein=True),
+           launch_istft(re, im, w, hop, length, nfft, "int16", level2_direct=True), "int16")
 
 
 @pytest.mark.parametrize("hop,B,length", [(4096, 1, 1_474_560), (2048, 2, 60_001),

@@ -1424,7 +1424,9 @@ def test_istft_refusals_where_shared_memory_does_not_fit(monkeypatch):
             fp.istft_direct_plan(1, 10, n, n, n // 4)
     for n in (65_540, 80_000):  # past the cluster: the second level, no shared-memory table
         assert not fp.cluster_supported(n) and istft_supported(n, n, n // 4)
-        assert fp.istft_plan(1, 10, n, n, n // 4) == fp.level2_plan(1, 10, n, n, n // 4)
+        assert fp.istft_plan(1, 10, n, n, n // 4) == (  # 80 000 = 16 · 5000 on the direct one
+            fp.level2_direct_plan if n in fp.ISTFT_LEVEL2_DIRECT_WON else fp.level2_plan)(
+                1, 10, n, n, n // 4)
     for n in (262_148, 300_000):  # past the second level: the direct sum's table does not fit
         assert not fp.level2_supported(n) and not istft_supported(n, n, n // 4)
         with pytest.raises(ValueError, match="no iSTFT plan fits"):
@@ -1915,7 +1917,9 @@ def test_level2_plan(signals, nf, nfft, win, hop):
     assert plan.scratch_bytes == 8 * m * plan.pairs_per_round
     assert plan.scratch_bytes <= fp.LEVEL2_SCRATCH_BYTES <= fp.L2_BYTES // 2
     assert plan.middle_smem_bytes == 87_040 <= fp.SMEM_MAX
-    assert fp.istft_plan(signals, nf, nfft, win, hop) == plan
+    assert fp.istft_plan(signals, nf, nfft, win, hop) == (  # the won 7-smooth sizes moved
+        fp.level2_direct_plan(signals, nf, nfft, win, hop)
+        if nfft in fp.ISTFT_LEVEL2_DIRECT_WON else plan)
 
 
 def test_level2_rounds_fit_the_l2():
@@ -1941,6 +1945,74 @@ def test_level2_envelope():
             fp.level2_plan(1, 4, n, n, n)
     with pytest.raises(ValueError, match="no second-level plan"):
         fp.level2_plan(1, 4, 70_000, 70_001, 70_001)  # a window past nfft
+
+
+def test_level2_direct_factors_takes_the_138_sizes():
+    """level2_direct_factors: nfft = R n past 65 536 up to 262 144, R 16 up
+    to 131 072 and 32 past it, n 7-smooth of either parity: 138 sizes, 69
+    at each R (from 65 856 = 16 · 4116 and 131 712 = 32 · 4116), 11 odd n at
+    each; none for an odd size, a prime factor past 7, or too few factors
+    of two for R. ISTFT_LEVEL2_DIRECT_WON is a subset."""
+    sizes = {n: fp.level2_direct_factors(n)
+             for n in range(fp.CLUSTER_NFFT + 1, fp.LEVEL2_NFFT + 1) if fp.level2_direct_factors(n)}
+    assert len(sizes) == 138 and min(sizes) == 65_856 and max(sizes) == 262_144
+    for r in (16, 32):
+        mine = {n: m for n, (q, m) in sizes.items() if q == r}
+        assert len(mine) == 69 and sum(m % 2 for m in mine.values()) == 11
+    for n, (r, m) in sizes.items():
+        assert n == r * m and r == (16 if n <= 131_072 else 32) and m <= 8192 and fp.smooth7(m)
+    assert sizes[70_000] == (16, 4375) and sizes[131_072] == (16, 8192)
+    assert sizes[200_000] == (32, 6250) and sizes[131_712] == (32, 4116)
+    for n in (99_999, 131_073, 70_001, 65_538, 65_536, 262_145, 131_088, 72_864):
+        assert fp.level2_direct_factors(n) is None, n  # 131 088 = 16 · 8193; 72 864 = 16 · 4554
+    assert fp.ISTFT_LEVEL2_DIRECT_WON <= set(sizes)
+
+
+@pytest.mark.parametrize("nfft,hop", [
+    (70_000, 17_500), (131_072, 32_768), (200_000, 50_000),  # the direct level where won
+    (99_999, 33_333), (131_073, 131_073), (70_001, 70_001), (65_538, 32_769),  # Bluestein's
+])
+def test_istft_plan_routes_the_second_level(nfft, hop):
+    """istft_plan takes the direct level (route "level2_direct") at the
+    sizes in ISTFT_LEVEL2_DIRECT_WON, which holds the smoke's 70 000, 131
+    072 and 200 000, and Bluestein's level (route "level2") at every other
+    size past 65 536: odd, a factor past 7, or too few factors of two."""
+    nf = -(-1_323_000 // hop) + 2  # one 30 s signal
+    plan = fp.istft_plan(1, nf, nfft, nfft, hop)
+    if fp.level2_direct_factors(nfft):
+        assert nfft in fp.ISTFT_LEVEL2_DIRECT_WON
+        assert plan == fp.level2_direct_plan(1, nf, nfft, nfft, hop)
+        assert plan.route == "level2_direct"
+    else:
+        assert plan == fp.level2_plan(1, nf, nfft, nfft, hop) and plan.route == "level2"
+
+
+@pytest.mark.parametrize("signals,nf,nfft,per,rounds", [
+    (1, 78, 70_000, 39, 1),     # the smoke's: every pair of a 30 s signal in one round
+    (1, 43, 131_072, 22, 1),
+    (1, 29, 200_000, 15, 1),    # R 32: 15 pairs of 1.6 MB
+    (1, 23, 262_144, 12, 1),
+    (32, 3, 262_144, 12, 4),    # 48 pairs of 2 MiB: rounds of 12
+    (4, 100, 65_856, 47, 5),    # 200 pairs of 527 kB: rounds of 47
+])
+def test_level2_direct_plan_keeps_the_scratch_in_the_l2(signals, nf, nfft, per, rounds):
+    """level2_direct_plan mirrors istft_level2_direct_launch: the flattened
+    frames in pairs, nfft float2 of scratch a pair, as many pairs a round as
+    keep the round's scratch within LEVEL2_SCRATCH_BYTES (half the L2), the
+    rows' block the n-point table and exchange buffer within SMEM_MAX."""
+    r, n = fp.level2_direct_factors(nfft)
+    plan = fp.level2_direct_plan(signals, nf, nfft, nfft, nfft // 4)
+    assert plan.route == "level2_direct" and plan.m == nfft and plan.radix == r
+    assert plan.pairs == -(-signals * nf // 2)
+    assert (plan.pairs_per_round, plan.rounds) == (per, rounds)
+    assert plan.pairs_per_round == min(plan.pairs, fp.LEVEL2_SCRATCH_BYTES // (8 * nfft))
+    assert plan.scratch_bytes == 8 * nfft * per <= fp.LEVEL2_SCRATCH_BYTES <= fp.L2_BYTES // 2
+    assert plan.middle_smem_bytes == fp.cluster_mixed_smem_bytes(n) <= fp.SMEM_MAX
+    for bad in (99_999, 65_536, 262_145):
+        with pytest.raises(ValueError, match="no direct second-level plan"):
+            fp.level2_direct_plan(1, 4, bad, bad, bad)
+    with pytest.raises(ValueError, match="no direct second-level plan"):
+        fp.level2_direct_plan(1, 4, 70_000, 70_001, 70_001)  # a window past nfft
 
 
 @pytest.mark.parametrize("nfft", [70_000, 131_073])
