@@ -280,6 +280,7 @@ phases 22–26's numbers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -346,6 +347,12 @@ W20000_NF = 267
 # and C 8 of n 7000 on the mixed cluster's radix-7 pass)
 W14000_NF = 380
 W56000_NF = 97
+# the 44.1 kHz windows of 250 ms, 500 ms and 1 s at hop N/5, N/5 and N/4
+# (W 11 025 odd, C 3 of n 3675; W 22 050, C 3 of n 7350; W 44 100, C 6 of
+# n 7350: the mixed cluster's clusters of 3 and 6 blocks)
+W11025_NF = 602
+W22050_NF = 302
+W44100_NF = 122
 # past 32 768 points (W 40 000, hop 10 000 and W 65 536, hop 16 384: 16 blocks
 # a cluster) the frames of a 30 s track; the Wiener+iSTFT's cluster at the
 # reference's 16 384 (hop 2048) and 32 768 (hop 4096)
@@ -378,7 +385,8 @@ WIENER_SPREAD = 0.05
 # two past 8192 (the reference's 16 384 and 32 768, and 65 536) the direct
 # transform on a cluster, at W 10 000, 20 000 and 40 000 the same on the
 # 7-smooth block core (C 2, 4, 8 of n 5000), at W 14 000 and 56 000 on its
-# radix-7 pass (C 2 and 8 of n 7000), Bluestein's cluster forced beside
+# radix-7 pass (C 2 and 8 of n 7000), at W 11 025 (odd), 22 050 and 44 100
+# on clusters of 3, 3 and 6 blocks, Bluestein's cluster forced beside
 # each.
 ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("dsd100 pallas route", 1024, 512, 2882, 4, False, "istft"),
@@ -402,6 +410,15 @@ ISTFT_SHAPES = (("highres4096-stereo", 4096, 1024, 1442, 8, True, "istft"),
                 ("W 56000 cluster_mixed", 56000, 14000, W56000_NF, 1, False,
                  "istft_cluster_mixed"),
                 ("W 56000 cluster", 56000, 14000, W56000_NF, 1, False, "istft_cluster"),
+                ("W 11025 cluster_mixed", 11025, 2205, W11025_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 11025 cluster", 11025, 2205, W11025_NF, 1, False, "istft_cluster"),
+                ("W 22050 cluster_mixed", 22050, 4410, W22050_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 22050 cluster", 22050, 4410, W22050_NF, 1, False, "istft_cluster"),
+                ("W 44100 cluster_mixed", 44100, 11025, W44100_NF, 1, False,
+                 "istft_cluster_mixed"),
+                ("W 44100 cluster", 44100, 11025, W44100_NF, 1, False, "istft_cluster"),
                 ("W 16384 cluster_dit", 16384, 2048, W16384_NF, 4, True, "istft_cluster_dit"),
                 ("W 16384 Bluestein", 16384, 2048, W16384_NF, 4, False, "istft_cluster"),
                 ("W 32768 cluster_dit", 32768, 4096, W32768_NF, 4, True, "istft_cluster_dit"),
@@ -418,7 +435,13 @@ ISTFT_DIT_AB = (("W 16384 cluster_dit", "W 16384 Bluestein"),
                 ("W 20000 cluster_mixed", "W 20000 cluster"),
                 ("W 40000 cluster_mixed", "W 40000 cluster"),
                 ("W 14000 cluster_mixed", "W 14000 cluster"),
-                ("W 56000 cluster_mixed", "W 56000 cluster"))
+                ("W 56000 cluster_mixed", "W 56000 cluster"),
+                ("W 11025 cluster_mixed", "W 11025 cluster"),
+                ("W 22050 cluster_mixed", "W 22050 cluster"),
+                ("W 44100 cluster_mixed", "W 44100 cluster"))
+# the mixed cluster's sizes on clusters of 5 and 7 blocks, whose clusters at
+# once phase 7 reads beside CLUSTERS_AT_ONCE: (nfft, hop)
+MIXED_OCCUPANCY_ONLY = ((30870, 6174), (16807, 2401))
 # the cluster routes' codes of csrc/istft.cu::istft_cluster_occupancy
 CLUSTER_ROUTES = {"cluster": 0, "cluster_dit": 1, "cluster_mixed": 2}
 # phase 7b: the Wiener+iSTFT at even sizes up to 8192 that are not powers
@@ -439,19 +462,22 @@ WIENER_OFFCORE_SHAPES = (
 # phase 3c: the Wiener+iSTFT past 8192 points, 4 stems of a 30 s track, bf16
 # y: (key, nfft, hop, nf, the kernel it must launch). The direct transform on
 # a cluster at the reference's 16 384 and 32 768, the same on the 7-smooth
-# block core at W 10 000 (C 2), 20 000 (C 4) and 14 000 (C 2 of n 7000, a
-# radix-7 pass), each "auto"'s route there; Bluestein's cluster, which both
-# replaced, forced at 16 384, 10 000, 20 000 and 14 000.
+# block core at W 10 000 (C 2), 20 000 (C 4), 14 000 (C 2 of n 7000, a
+# radix-7 pass) and 22 050 (C 3 of n 7350), each "auto"'s route there;
+# Bluestein's cluster, which both replaced, forced at 16 384, 10 000, 20 000,
+# 14 000 and 22 050.
 WIENER_CLUSTER_SHAPES = (
     ("W 16384", 16384, 2048, W16384_NF, "wiener_istft_cluster_dit"),
     ("W 32768", 32768, 4096, W32768_NF, "wiener_istft_cluster_dit"),
     ("W 10000", 10000, 2500, W10000_NF, "wiener_istft_cluster_mixed"),
     ("W 20000", 20000, 5000, W20000_NF, "wiener_istft_cluster_mixed"),
     ("W 14000", 14000, 3500, W14000_NF, "wiener_istft_cluster_mixed"),
+    ("W 22050", 22050, 4410, W22050_NF, "wiener_istft_cluster_mixed"),
     ("W 16384 Bluestein", 16384, 2048, W16384_NF, "wiener_istft_cluster"),
     ("W 10000 Bluestein", 10000, 2500, W10000_NF, "wiener_istft_cluster"),
     ("W 20000 Bluestein", 20000, 5000, W20000_NF, "wiener_istft_cluster"),
     ("W 14000 Bluestein", 14000, 3500, W14000_NF, "wiener_istft_cluster"),
+    ("W 22050 Bluestein", 22050, 4410, W22050_NF, "wiener_istft_cluster"),
 )
 # the Wiener mask kernel's (path, S, nf, bins)
 WIENER_APPLY_SHAPES = (("dsd100 pallas route", 4, 2882, 513), ("highres4096", 4, 1442, 2049))
@@ -1120,8 +1146,9 @@ def phase_wiener_cluster(device, gen) -> dict:
     (``WIENER_CLUSTER_SHAPES``). At each shape of a route, the reference
     kernel's 16 384 (hop 2048) and 32 768 (hop 4096) on the direct transform
     on a cluster of 2 and 4 blocks ("wiener_istft_cluster_dit"), W 10 000
-    (hop 2500), 20 000 (hop 5000) and 14 000 (hop 3500) on the same over the
-    7-smooth block core, C 2, 4 and 2 ("wiener_istft_cluster_mixed"): bf16
+    (hop 2500), 20 000 (hop 5000), 14 000 (hop 3500) and 22 050 (hop 4410)
+    on the same over the 7-smooth block core, C 2, 4, 2 and 3
+    ("wiener_istft_cluster_mixed"): bf16
     and f32 y as phase
     3 (one launch a call, also held to the float64 synthesis), the
     Nyquist-row input (at 16 384 the forward STFT kernel's own pair) as phase
@@ -1129,11 +1156,11 @@ def phase_wiener_cluster(device, gen) -> dict:
     spectra, and the A/B that keys "auto": the kernel against the masked
     chain "auto" takes otherwise (the f32 mask, then ``istft_matmul``'s own
     "auto": the iSTFT kernel on a cluster at the powers of two, the factored
-    products at 10 000 and 20 000, the direct ones at 14 000). Bluestein's
-    cluster ("wiener_istft_cluster"), which both replaced, forced at 16 384,
-    10 000, 20 000 and 14 000 (bf16 y; at 20 000 also f32 y and its
-    Nyquist-row input). The
-    clusters of 2 and 4 the card holds at once. It fails if a plan in
+    products at 10 000, 20 000 and 22 050, the direct ones at 14 000).
+    Bluestein's cluster ("wiener_istft_cluster"), which both replaced, forced
+    at 16 384, 10 000, 20 000, 14 000 and 22 050 (bf16 y; at 20 000 also f32
+    y and its Nyquist-row input). The clusters of 2 to 6 the card holds at
+    once. It fails if a plan in
     ``WIENER_CLUSTER_WON`` loses by more than ``WIENER_SPREAD``."""
     import ctypes
 
@@ -1177,7 +1204,10 @@ def phase_wiener_cluster(device, gen) -> dict:
     for nfft, hop, nf, launch, c in (
             (16384, 2048, W16384_NF, lib.wiener_cluster_dit_launch, 2),
             (10000, 2500, W10000_NF, lib.wiener_cluster_mixed_launch, 2),
-            (20000, 5000, W20000_NF, lib.wiener_cluster_mixed_launch, 4)):
+            (20000, 5000, W20000_NF, lib.wiener_cluster_mixed_launch, 4),
+            (22050, 4410, W22050_NF, lib.wiener_cluster_mixed_launch, 3),
+            (30870, 6174, 100, lib.wiener_cluster_mixed_launch, 5),
+            (30618, 10206, 100, lib.wiener_cluster_mixed_launch, 6)):
         plan = fft_plan.wiener_plan(1, 4, nf, nfft, hop)
         sched = ((fft_plan.mixed_schedule(fft_plan.mixed_radices(nfft // c)),)
                  if plan.route == "cluster_mixed" else ())
@@ -1895,7 +1925,8 @@ def istft_fn(ct: bool, kernel: str, nfft: int):
     """The wrapper an ``ISTFT_SHAPES`` row calls: ``istft_ct_pallas``, the
     direct sum forced (``istft_direct_pallas``), Bluestein's cluster forced
     (``istft_bluestein_cluster_pallas``), the mixed cluster forced
-    (``launch_istft(cluster_mixed=True)``) or ``istft_pallas``."""
+    (``launch_istft(cluster_mixed=True)``) or ``istft_pallas``, each but the
+    first given nfft."""
     from convsep_tpu_torch.dsp.cuda.ct_istft_kernel import istft_ct_pallas
     from convsep_tpu_torch.dsp.cuda.istft_kernel import (
         istft_bluestein_cluster_pallas,
@@ -1906,11 +1937,11 @@ def istft_fn(ct: bool, kernel: str, nfft: int):
 
     if ct:
         return istft_ct_pallas
-    if forced_bluestein(kernel, nfft):
-        return istft_bluestein_cluster_pallas
     if forced_mixed(kernel, nfft):
         return lambda re, im, w, hop, L: launch_istft(re, im, w, hop, L, nfft, cluster_mixed=True)
-    return istft_direct_pallas if kernel == "istft_direct" else istft_pallas
+    fn = (istft_bluestein_cluster_pallas if forced_bluestein(kernel, nfft)
+          else istft_direct_pallas if kernel == "istft_direct" else istft_pallas)
+    return functools.partial(fn, nfft=nfft)  # an odd nfft is not told by its bins
 
 
 def istft_inputs(nfft: int, hop: int, nf: int, N: int, device, gen):
@@ -1959,9 +1990,11 @@ def phase_istft(device, gen) -> dict:
     6000 (the level), W 10 000, W 20 000 and W 40 000 (a cluster of 4, 8
     and 16 blocks; forced where the mixed cluster won), the direct transform
     on a cluster of 2, 4 and 8 blocks at W 16 384, 32 768 and 65 536 and on
-    the 7-smooth block core at W 10 000, 20 000 and 40 000 (n 5000) and
-    14 000 and 56 000 (n 7000), with Bluestein's cluster forced there, the direct sum forced at W 1000 and W 10 000 (the
-    times Bluestein and the cluster replace). Each call must launch its
+    the 7-smooth block core at W 10 000, 20 000 and 40 000 (n 5000),
+    14 000 and 56 000 (n 7000), 11 025 (odd, C 3), 22 050 (C 3) and 44 100
+    (C 6), with Bluestein's cluster forced there, the direct sum forced at W
+    1000 and W 10 000 (the times Bluestein and the cluster replace); the
+    clusters of 5 and 7 the card holds at once. Each call must launch its
     kernel once and no other iSTFT kernel; each direct transform on a
     cluster must beat the forced Bluestein cluster's device time at its
     shape, and ``istft_plan`` must take the mixed one exactly at the sizes
@@ -1977,7 +2010,7 @@ def phase_istft(device, gen) -> dict:
     res = {}
     for name, nfft, hop, nf, N, ct, kernel in ISTFT_SHAPES:
         kern = istft_fn(ct, kernel, nfft)
-        plain = istft_ct_pallas_plain if ct else istft_pallas_plain
+        plain = istft_ct_pallas_plain if ct else functools.partial(istft_pallas_plain, nfft=nfft)
         # past 32 768 the direct matrices pass 6 GB (4.3 GB at 32 768, made on
         # the host): the float64 synthesis
         huge = nfft > DIRECT_MAX_NFFT or (not ct and nfft == DIRECT_MAX_NFFT)
@@ -2016,11 +2049,11 @@ def phase_istft(device, gen) -> dict:
                 ref = want if huge else istft64(re, im, w, hop, L)
                 peak = ref.abs().max().item()
                 e64 = (got - ref).abs().max().item()
-                log(f"  istft {name}: {e64:.3e} from the float64 synthesis (tol "
-                    f"{TOL_CLUSTER_F32 * peak:.3e})")
-                if not e64 <= TOL_CLUSTER_F32 * peak:
-                    raise AssertionError(f"istft {name}: {e64} > {TOL_CLUSTER_F32 * peak} from "
-                                         f"the float64 synthesis")
+                tol64 = (TOL_ODD_ISTFT if nfft % 2 else TOL_CLUSTER_F32) * peak
+                log(f"  istft {name}: {e64:.3e} from the float64 synthesis (tol {tol64:.3e})")
+                if not e64 <= tol64:
+                    raise AssertionError(f"istft {name}: {e64} > {tol64} from the float64 "
+                                         "synthesis")
                 err["rel_float64"] = e64 / peak
         want = plain(re, im, w, hop, L)
         wt = torch.from_numpy(w.astype(np.float32)).to(device)
@@ -2079,6 +2112,22 @@ def phase_istft(device, gen) -> dict:
             if (route == "cluster_mixed") != (nfft in fp.ISTFT_MIXED_WON):
                 raise AssertionError(f"istft_plan at {name} takes {route}; ISTFT_MIXED_WON "
                                      f"says otherwise")
+    import ctypes
+
+    for nfft, hop in MIXED_OCCUPANCY_ONLY:  # the clusters of 5 and 7 no row launches
+        c = fp.mixed_factors(nfft)[0]
+        active = ctypes.c_int(0)
+        kernels.check(kernels.library().istft_cluster_occupancy(
+            nfft, nfft, hop, CLUSTER_ROUTES["cluster_mixed"], ctypes.byref(active)),
+            "istft_cluster_occupancy")
+        res[f"clusters_at_once_cluster_mixed_{c}"] = {"card": active.value,
+                                                      "plan": fp.CLUSTERS_AT_ONCE[c]}
+        log(f"  clusters of {c} at once (istft_cluster_mixed_kernel, W {nfft}): the card's "
+            f"{active.value}, CLUSTERS_AT_ONCE[{c}] {fp.CLUSTERS_AT_ONCE[c]}")
+        if active.value != fp.CLUSTERS_AT_ONCE[c]:
+            raise AssertionError(f"the card holds {active.value} clusters of {c} at once "
+                                 f"(istft_cluster_mixed_kernel), the plans weigh "
+                                 f"{fp.CLUSTERS_AT_ONCE[c]}")
     return res
 
 
@@ -4957,22 +5006,26 @@ def main(argv: list[str]) -> int:
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu (device code wiener_common.cuh, "
                    "fft_common.cuh::ClusterMixed)", "entry": "wiener_cluster_mixed_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
-         "serves": "the 7-smooth even nfft = C n, C 2 or 4, from 8232 to 32 400 where it "
-                   "won its A/B (fft_plan.WIENER_MIXED_WON: 10 000, 14 000, 20 000, ...): the "
+         "serves": "the 7-smooth even nfft = C n, C 2 to 6, from 8232 to 32 400 where it "
+                   "won its A/B (fft_plan.WIENER_MIXED_WON: 10 000, 14 000, 20 000, 22 050, "
+                   "...): the "
                    "direct transform by decimation in time on a thread-block cluster, each "
                    "block's n points on the mixed-radix core, a pair of sources a cluster; no "
                    "preset",
          **launched("wiener_istft_cluster_mixed"), **wie_cl["W 10000"],
          "w20000_hop5000": wie_cl["W 20000"], "w14000_hop3500": wie_cl["W 14000"],
+         "w22050_hop4410": wie_cl["W 22050"],
          "bluestein_forced_w10000": wie_cl["W 10000 Bluestein"],
          "bluestein_forced_w20000": wie_cl["W 20000 Bluestein"],
          "bluestein_forced_w14000": wie_cl["W 14000 Bluestein"],
-         "clusters_at_once_2": wie_cl["clusters_at_once_cluster_mixed_2"],
-         "clusters_at_once_4": wie_cl["clusters_at_once_cluster_mixed_4"],
+         "bluestein_forced_w22050": wie_cl["W 22050 Bluestein"],
+         **{f"clusters_at_once_{c}": wie_cl[f"clusters_at_once_cluster_mixed_{c}"]
+            for c in (2, 3, 4, 5, 6)},
          "ny": {**launched("wiener_istft_ny_cluster_mixed"),
                 "max_abs_err_10000": wie_cl["W 10000"]["ny_max_abs_err"],
                 "max_abs_err_20000": wie_cl["W 20000"]["ny_max_abs_err"],
-                "max_abs_err_14000": wie_cl["W 14000"]["ny_max_abs_err"]}},
+                "max_abs_err_14000": wie_cl["W 14000"]["ny_max_abs_err"],
+                "max_abs_err_22050": wie_cl["W 22050"]["ny_max_abs_err"]}},
         {"name": "wiener_istft_cluster", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/wiener_istft.cu", "entry": "wiener_cluster_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:571",
@@ -4980,12 +5033,13 @@ def main(argv: list[str]) -> int:
                    "won sizes (8194, 11 264): Bluestein run backwards on a thread-block cluster "
                    "of 4 or 8 blocks, a pair of sources a cluster; "
                    "wiener_bluestein_cluster_pallas forces it at the powers of two and the "
-                   "7-smooth sizes (timed forced at W 20 000, 10 000, 16 384 and 14 000); no "
-                   "preset",
+                   "7-smooth sizes (timed forced at W 20 000, 10 000, 16 384, 14 000 and "
+                   "22 050); no preset",
          **launched("wiener_istft_cluster"), **wie_cl["W 20000 Bluestein"],
          "forced_w10000_hop2500": wie_cl["W 10000 Bluestein"],
          "forced_w16384_hop2048": wie_cl["W 16384 Bluestein"],
          "forced_w14000_hop3500": wie_cl["W 14000 Bluestein"],
+         "forced_w22050_hop4410": wie_cl["W 22050 Bluestein"],
          "ny": {**launched("wiener_istft_ny_cluster"),
                 "max_abs_err_20000": wie_cl["W 20000 Bluestein"]["ny_max_abs_err"]}},
         {"name": "stft", "route": "cuda",
@@ -5073,12 +5127,15 @@ def main(argv: list[str]) -> int:
                    "sizes (8194, 11 264, odd sizes): Bluestein run backwards on a thread-block "
                    "cluster of 4, 8 or 16 blocks; istft_bluestein_cluster_pallas forces it at "
                    "the powers of two and the won sizes (timed forced at W 10 000, 20 000, "
-                   "40 000, 14 000 and 56 000); no preset",
+                   "40 000, 14 000, 56 000, 11 025, 22 050 and 44 100); no preset",
          **launched("istft_cluster"), **ist["W 10000 cluster"],
          "w20000_hop5000": ist["W 20000 cluster"],
          "w40000_hop10000": ist["W 40000 cluster"],
          "w14000_hop3500": ist["W 14000 cluster"],
          "w56000_hop14000": ist["W 56000 cluster"],
+         "w11025_hop2205": ist["W 11025 cluster"],
+         "w22050_hop4410": ist["W 22050 cluster"],
+         "w44100_hop11025": ist["W 44100 cluster"],
          "forced_w16384_hop2048": ist["W 16384 Bluestein"],
          "forced_w32768_hop4096": ist["W 32768 Bluestein"],
          "forced_w65536_hop16384": ist["W 65536 Bluestein"],
@@ -5102,16 +5159,21 @@ def main(argv: list[str]) -> int:
          "entry": "istft_cluster_mixed_kernel",
          "replaces": "convsep_tpu/dsp/pallas/ct_istft_kernel.py:315; "
                      "convsep_tpu/dsp/pallas/istft_kernel.py:107, :146",
-         "serves": "even nfft = C n past 8192, C 2, 4 or 8, n 7-smooth (10 000, 14 000, "
-                   "20 000, 40 000, 56 000; 204 sizes), where it won its A/B "
-                   "(fft_plan.ISTFT_MIXED_WON): the direct inverse by decimation in time on a "
-                   "thread-block cluster, each block's n points on a mixed-radix core; no "
-                   "preset",
+         "serves": "nfft = C n past 8192, C 2 to 8, n 7-smooth (10 000, 14 000, 20 000, "
+                   "40 000, 56 000, the odd 11 025, 22 050, 44 100; 281 sizes, 40 odd), where "
+                   "it won its A/B (fft_plan.ISTFT_MIXED_WON): the direct inverse by "
+                   "decimation in time on a thread-block cluster, each block's n points on a "
+                   "mixed-radix core; no preset",
          **launched("istft_cluster_mixed"), **ist["W 10000 cluster_mixed"],
          "w20000_hop5000": ist["W 20000 cluster_mixed"],
          "w40000_hop10000": ist["W 40000 cluster_mixed"],
          "w14000_hop3500": ist["W 14000 cluster_mixed"],
-         "w56000_hop14000": ist["W 56000 cluster_mixed"]},
+         "w56000_hop14000": ist["W 56000 cluster_mixed"],
+         "w11025_hop2205": ist["W 11025 cluster_mixed"],
+         "w22050_hop4410": ist["W 22050 cluster_mixed"],
+         "w44100_hop11025": ist["W 44100 cluster_mixed"],
+         **{f"clusters_at_once_{c}": ist[f"clusters_at_once_cluster_mixed_{c}"]
+            for c in (5, 7)}},
         {"name": "istft_level2", "route": "cuda",
          "source": "convsep_tpu_torch/csrc/istft.cu",
          "entry": "istft_level2_first_kernel, istft_level2_middle_kernel, "

@@ -118,6 +118,29 @@ template <class T>
 __device__ __forceinline__ T* peer(T* p, int rank) {
   return cooperative_groups::this_cluster().map_shared_rank(p, rank);
 }
+// u into p's address in block `rank` of the cluster, and the float2 there,
+// through a 32-bit shared::cluster address (mapa.shared::cluster.u32)
+// where peer's generic pointer takes two registers. The host emulation
+// defines its own through peer.
+__device__ __forceinline__ unsigned peer_address(const float2* p, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void peer_store(float2* p, int rank, float2 u) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(peer_address(p, rank)),
+               "f"(u.x), "f"(u.y)
+               : "memory");
+}
+__device__ __forceinline__ float2 peer_load(const float2* p, int rank) {
+  float2 u;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(u.x), "=f"(u.y)
+               : "r"(peer_address(p, rank))
+               : "memory");
+  return u;
+}
 // A barrier of the cluster's blocks: shared-memory writes before it are
 // visible to every block of the cluster after it.
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
@@ -1677,12 +1700,15 @@ __device__ __forceinline__ void istft_cluster_dit_block(
 
 // ---- the 7-smooth block core over a cluster ---------------------------------
 //
-// The even sizes past 8192 that are not powers of two but factor as N = C n,
-// C in {2, 4, 8} the fewest blocks with n <= 8192 and n = 2^a 3^b 5^c 7^d
-// (10 000, 20 000 and 40 000 are C 5000, 14 000, 28 000 and 56 000 C 7000;
-// 204 sizes up to 65 536, fft_plan.mixed_factors), run the direct inverse
-// by decimation in time over the cluster as ClusterDit does at the powers
-// of two, each block's n points on a mixed-radix core (mixed_fft):
+// The sizes past 8192 that are not powers of two but factor as N = C n, n
+// <= 8192 and n = 2^a 3^b 5^c 7^d, run the direct inverse by decimation in
+// time over a cluster of C blocks as ClusterDit does at the powers of two,
+// each block's n points on a mixed-radix core (mixed_fft). C is the fewest
+// of 2, 4, 8 with n <= 8192 for the 204 even sizes that rule takes (10 000,
+// 20 000 and 40 000 are C 5000, 14 000, 28 000 and 56 000 C 7000), else
+// the fewest blocks from ceil(N / 8192) to 8 that divide N (11 025 = 3 x
+// 3675, 22 050 = 3 x 7350, 44 100 = 6 x 7350, 16 807 = 7 x 2401): 281
+// sizes up to 65 536, 40 of them odd (fft_plan.mixed_factors):
 //
 // * Stockham passes of radix r in {2, 3, 4, 5, 7, 8, 9, 16} through the block's
 //   exchange buffer (slot(i)), a schedule the host plans and passes in
@@ -1728,15 +1754,23 @@ inline bool smooth7(int m) {
   return m == 1;
 }
 
-// C and n of a size the mixed cluster takes (fft_plan.mixed_factors): an
-// even nfft in (8192, 65 536], not a power of two, C the fewest of 2, 4, 8
-// with nfft / C <= 8192, C | nfft, n = nfft / C 7-smooth.
+// C and n of a size the mixed cluster takes (fft_plan.mixed_factors): a
+// 7-smooth nfft in (8192, 65 536], not a power of two, n = nfft / C. C is
+// the fewest of 2, 4, 8 with nfft / C <= 8192 where that C divides nfft
+// (the 204 even sizes of clusters of 2, 4 and 8), else the fewest blocks
+// from ceil(nfft / 8192) to 8 that divide it (77 more on 3, 5, 6 and 7,
+// odd sizes among them); none past 8 (46 875, 59 049 and 11 more).
 inline bool mixed_sizes(int nfft, int* c, int* n) {
-  if (nfft <= (1 << kMaxLog2) || nfft > (8 << kMaxLog2) || (nfft & (nfft - 1)) == 0) return false;
+  if (nfft <= (1 << kMaxLog2) || nfft > (8 << kMaxLog2) || (nfft & (nfft - 1)) == 0 ||
+      !smooth7(nfft))
+    return false;
   *c = nfft <= (2 << kMaxLog2) ? 2 : nfft <= (4 << kMaxLog2) ? 4 : 8;
-  if (nfft % *c) return false;
+  for (int b = (nfft + (1 << kMaxLog2) - 1) >> kMaxLog2; nfft % *c; ++b) {
+    if (b > 8) return false;
+    *c = b;
+  }
   *n = nfft / *c;
-  return smooth7(*n);
+  return true;
 }
 
 // The schedule's radices are each one the core has and multiply to n.
@@ -1853,10 +1887,25 @@ __device__ __forceinline__ void mixed_fft(float2* buf, const float2* tws, int n,
 
 // ClusterDit for N = C n, n 7-smooth (the header above): block r holds u[C m
 // + r], m < n, in its exchange buffer at slot(m); tw is the N-point table
-// e^{-2 pi i m / N}, m < N, in global memory (fft_plan.dft_table).
+// e^{-2 pi i m / N}, m < N, in global memory (fft_plan.dft_table). Nothing
+// asks C to be a power of two: the owner and slot of a point are t mod C
+// and t / C, and the combine sums by Horner in W^q with q = t / n.
+//
+// At 2, 4 and 8 the owner and slot are a mask and a shift and a thread's
+// bins a stride of 512 apart share their owner, so the puts go through
+// peer's pointers. At 3, 5, 6 and 7 they go through 32-bit shared::cluster
+// addresses (peer_store), each bin's owner and slot advanced from the last
+// one's (put_bins), and the combine's loads too at 3, 5 and 7 (peer_load):
+// with peer's generic pointers and a division a point, ptxas spilled 92-104
+// bytes in wiener_cluster_mixed_kernel<3>, <5> and <6> and 8-24 in
+// istft_cluster_mixed_kernel<5> and <7> at 128 registers; these forms
+// spill none. At 6 the combine keeps peer's loads: with peer_load the
+// Wiener instance spilled 64 bytes.
 template <int C>
 struct ClusterMixed {
-  static_assert(C == 2 || C == 4 || C == 8, "a cluster of 2, 4 or 8 blocks");
+  static_assert(C >= 2 && C <= 8, "a cluster of 2 to 8 blocks (the portable cluster size)");
+  static constexpr bool kPow2 = (C & (C - 1)) == 0;
+  static constexpr bool kLoad32 = !kPow2 && C != 6;  // the combine's loads by peer_load
 
   // tws (shared, n entries): the N-point table's entries at stride C
   __device__ __forceinline__ static void load_tables(float2* tws, const float2* __restrict__ tw,
@@ -1866,7 +1915,58 @@ struct ClusterMixed {
 
   // u[t] into the buffer of its owner, block t mod C, at slot(t / C)
   __device__ __forceinline__ static void put(float2* buf, int t, float2 u) {
-    peer(buf, t & (C - 1))[slot(t >> ilog2(C))] = u;
+    const unsigned v = (unsigned)t;
+    if constexpr (kPow2) {
+      peer(buf, (int)(v % C))[slot((int)(v / C))] = u;
+    } else {
+      peer_store(buf + slot((int)(v / C)), (int)(v % C), u);
+    }
+  }
+
+  // the two points of conj Z a bin gives (inverse_point), ab[i] = (A re, A
+  // im, B re, B im) of Z = A + i B at bin kk = kk0 + i stride: conj Z[kk]
+  // and, but at DC, conj Z[N - kk], for each kk < k_end
+  template <int K>
+  __device__ __forceinline__ static void put_bins(float2* buf, const float4 (&ab)[K], int kk0,
+                                                  int stride, int k_end, int N) {
+    if constexpr (kPow2) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int kk = kk0 + i * stride;
+        if (kk < k_end) {
+          put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+          if (kk) put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+        }
+      }
+    } else {
+      // kk = C q1 + r1 and N - kk = C q2 + r2, a stride = C sq + sr on
+      const unsigned sq = (unsigned)stride / C, sr = (unsigned)stride % C;
+      unsigned q1 = (unsigned)kk0 / C, r1 = (unsigned)kk0 % C;
+      unsigned q2 = (unsigned)(N - kk0) / C, r2 = (unsigned)(N - kk0) % C;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int kk = kk0 + i * stride;
+        if (kk < k_end) {
+          peer_store(buf + slot((int)q1), (int)r1,
+                     make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
+          if (kk)
+            peer_store(buf + slot((int)q2), (int)r2,
+                       make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
+        }
+        r1 += sr;
+        q1 += sq;
+        if (r1 >= C) {
+          r1 -= C;
+          ++q1;
+        }
+        if (r2 < sr) {
+          r2 += C;
+          --q2;
+        }
+        r2 -= sr;
+        q2 -= sq;
+      }
+    }
   }
 
   // after the puts and a cluster barrier: the block's transform, the
@@ -1891,7 +1991,13 @@ struct ClusterMixed {
     const float2 wq = __ldg(tw + n * q);
     float2 v[C];
 #pragma unroll
-    for (int r = 0; r < C; ++r) v[r] = peer(buf, r)[slot(k1)];
+    for (int r = 0; r < C; ++r) {
+      if constexpr (kLoad32) {
+        v[r] = peer_load(buf + slot(k1), r);
+      } else {
+        v[r] = peer(buf, r)[slot(k1)];
+      }
+    }
     float2 z = v[C - 1];
 #pragma unroll
     for (int r = C - 2; r >= 0; --r) {
@@ -1906,9 +2012,12 @@ struct ClusterMixed {
 // header above): the same rounds of one pair (fr, fr + 1), a cluster owning
 // hop rows [j0, j0 + rows) of signal n_sig. A round:
 // 1. block r reads its contiguous 1/C of both frames' bins, [r S, (r + 1) S)
-//    with S = ceil(N / 2 / C) (n / 2 at even n; the last block also
-//    Nyquist), at most eight a thread at a stride of the block, and puts the
-//    two points of conj Z a bin gives (k and N - k) into their owners
+//    with S = ceil(H / C), H the bins that give two points: N / 2 at even N
+//    (S = n / 2 at even n; the last block also Nyquist, real parts only),
+//    (N + 1) / 2 at odd N, which has no Nyquist bin (its last bin (N - 1) /
+//    2 gives two points as any other, as inverse_point<true> forms them); at
+//    most eight a thread at a stride of the block, and puts the two points
+//    of conj Z a bin gives (k and N - k) into their owners
 //    (ClusterMixed::put); a cluster barrier;
 // 2. ClusterMixed::run_staged: the block's n-point transform on its points
 //    t = r (mod C), the combine's twiddle, a cluster barrier;
@@ -1917,20 +2026,23 @@ struct ClusterMixed {
 //    barrier.
 // sched is the block transform's schedule (fft_plan.mixed_schedule), tw the
 // N-point table (fft_plan.dft_table); smem4 holds cluster_mixed_smem_bytes
-// with (k - 1) columns' carry. n <= 16 blockDim.x.
-template <int C>
+// with (k - 1) columns' carry. n <= 16 blockDim.x. D is the cluster's
+// exchange (ClusterMixed<C>; the host emulation swaps in other forms of
+// its put to hold them to it bit for bit).
+template <int C, class D = ClusterMixed<C>>
 __device__ __forceinline__ void istft_cluster_mixed_block(
     float4* smem4, const float* __restrict__ re, const float* __restrict__ im,
     const float* __restrict__ win_over_n, const float* __restrict__ inv_norm,
     const float2* __restrict__ tw, void* __restrict__ out, int out_int16, int nf, int n,
     int win, int hop, int length, int rounds, int rows, int per_signal,
     unsigned long long sched) {
-  using D = ClusterMixed<C>;
   constexpr int K = kPoints / 2;  // bins a thread reads at most: S <= 8 T
   const int N = C * n;
   const int half = N / 2;
   const int bins = half + 1;
-  const int share = (half + C - 1) / C;
+  const bool odd = N & 1;
+  const int pairs = odd ? bins : half;  // the bins that give two points (DC one)
+  const int share = (pairs + C - 1) / C;
   const int rank = blockIdx.x % C;
   const int cl = blockIdx.x / C;
   const int j = threadIdx.x;
@@ -1947,7 +2059,7 @@ __device__ __forceinline__ void istft_cluster_mixed_block(
   const int j_end = min(j0 + rows, nf + k - 1);
   const long long track = (long long)sig * nf * bins;
   const int k0 = rank * share;                    // the block's first bin
-  const int k_end = min(half, k0 + share);
+  const int k_end = min(pairs, k0 + share);
 
   D::load_tables(tws, tw, n);
   for (int i = threadIdx.x; i < (k - 1) * cols; i += blockDim.x) carry[i] = 0.f;
@@ -1970,15 +2082,8 @@ __device__ __forceinline__ void istft_cluster_mixed_block(
       ab[i] = make_float4(in && ra ? __ldg(ra + kk) : 0.f, in && ra && kk ? __ldg(ia + kk) : 0.f,
                           in && rb ? __ldg(rb + kk) : 0.f, in && rb && kk ? __ldg(ib + kk) : 0.f);
     }
-#pragma unroll
-    for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
-      const int kk = k0 + j + i * T;
-      if (kk < k_end) {
-        D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
-        if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
-      }
-    }
-    if (rank == C - 1 && j == 0)  // Nyquist: real parts only
+    D::template put_bins<K>(buf, ab, k0 + j, T, k_end, N);  // conj Z[kk], conj Z[N - kk]
+    if (!odd && rank == C - 1 && j == 0)  // Nyquist: real parts only
       D::put(buf, half, make_float2(ra ? __ldg(ra + half) : 0.f, rb ? -__ldg(rb + half) : 0.f));
     cluster_sync();  // every block's points are in place
     D::run_staged(buf, tws, tw, n, sched, rank);  // ends in a cluster barrier

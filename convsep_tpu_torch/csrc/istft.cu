@@ -88,9 +88,11 @@
 // 648 frames at 16 384, hop 2048, read 170 MB of spectra and write 21 MB
 // of samples, 0.057 ms.
 //
-// istft_cluster_mixed_kernel (the even sizes past 8192 whose nfft = C n
-// has a 7-smooth n <= 8192 on the fewest C of 2, 4, 8: 10 000, 14 000,
-// 20 000, 40 000, 56 000, 204 sizes in all; no preset uses one) is
+// istft_cluster_mixed_kernel (the 7-smooth sizes past 8192 whose nfft = C n
+// has n <= 8192 on a cluster of C <= 8: the 204 even ones on the fewest C
+// of 2, 4, 8, as 10 000, 14 000, 20 000, 40 000, 56 000; 77 more on the
+// fewest C of 3, 5, 6, 7 that divides nfft, 40 of them odd, as 11 025 = 3
+// x 3675, 22 050 = 3 x 7350, 44 100 = 6 x 7350; no preset uses one) is
 // istft_cluster_dit_kernel on a mixed-radix block core
 // (fft_common.cuh::istft_cluster_mixed_block on ClusterMixed): each block's
 // n points in Stockham passes of radix 2, 3, 4, 5, 7, 8, 9 and 16 through
@@ -471,7 +473,11 @@ cudaError_t dispatch_cluster_mixed(int nfft, const BluesteinArgs& a, unsigned lo
   if (!mixed_sizes(nfft, &c, &n)) return cudaErrorInvalidValue;
   switch (c) {
     case 2: return launch_cluster_mixed<2>(a, n, sched, active);
+    case 3: return launch_cluster_mixed<3>(a, n, sched, active);
     case 4: return launch_cluster_mixed<4>(a, n, sched, active);
+    case 5: return launch_cluster_mixed<5>(a, n, sched, active);
+    case 6: return launch_cluster_mixed<6>(a, n, sched, active);
+    case 7: return launch_cluster_mixed<7>(a, n, sched, active);
     default: return launch_cluster_mixed<8>(a, n, sched, active);
   }
 }
@@ -797,9 +803,11 @@ extern "C" int istft_cluster_dit_launch(const void* re, const void* im, const vo
   return (int)dispatch_cluster_dit(nfft, a);
 }
 
-// The 7-smooth sizes past 8192 (fft_plan.mixed_factors: even nfft = C n,
-// C 2, 4 or 8 the fewest with n <= 8192, n = 2^a 3^b 5^c 7^d; 10 000,
-// 14 000, 20 000, 40 000, 56 000), the direct inverse by decimation in
+// The 7-smooth sizes past 8192 (fft_plan.mixed_factors: nfft = C n, n <=
+// 8192, n = 2^a 3^b 5^c 7^d, C 2, 4 or 8 the fewest at the even sizes that
+// rule takes, else the fewest from ceil(nfft / 8192) to 8 that divides
+// nfft; 10 000, 14 000, 20 000, 40 000, 56 000, the odd 11 025 on C 3 and
+// 44 100 on C 6), the direct inverse by decimation in
 // time on a cluster of C blocks of 512 threads, each block's n points on
 // the mixed-radix core in the passes of `sched` (fft_plan.mixed_schedule:
 // their radices multiply to n), one pair of frames a round; tw the

@@ -357,8 +357,9 @@ __device__ __forceinline__ void wiener_cluster_dit_block(float4* smem4, const Ar
   }
 }
 
-// wiener_cluster_dit_block for N = C n, n 7-smooth (C 2 or 4, 8232 ... 32
-// 400; fft_common.cuh's ClusterMixed): the same rounds of one frame of a
+// wiener_cluster_dit_block for even N = C n, n 7-smooth (C 2 or 4, 8232 ...
+// 32 400; C 3, 5 or 6, 17 010 ... 31 250; fft_common.cuh's ClusterMixed):
+// the same rounds of one frame of a
 // pair of sources, each block's n points on the mixed-radix core. A round:
 // 1. block r masks its contiguous share of the bins, [r S, (r + 1) S) with
 //    S = ceil(N / 2 / C) (n / 2 at even n; the last block also Nyquist), at
@@ -387,8 +388,9 @@ __device__ __forceinline__ void wiener_cluster_mixed_block(float4* smem4, const 
   using D = ClusterMixed<C>;
   constexpr int K = kPoints / 2;  // bins a thread masks at most: S <= 8 T
   // bins every thread masks: at the card's 512 threads each block's share
-  // is at least 2048 bins (2058 at 8232; wiener_cluster_mixed_launch
-  // checks), so the first four strides need no guard
+  // is at least 2048 bins (2058 at 8232, the last block's 2549 at 30 618 on
+  // C 6; wiener_cluster_mixed_launch checks), so the first four strides
+  // need no guard
   constexpr int KF = T == kMaxThreads ? 4 : 0;
   const int N = C * n;
   const int half = N / 2;
@@ -421,14 +423,7 @@ __device__ __forceinline__ void wiener_cluster_mixed_block(float4* smem4, const 
 #pragma unroll
         for (int i = 0; i < K; ++i) ab[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-#pragma unroll
-      for (int i = 0; i < K; ++i) {  // conj Z[kk] and conj Z[N - kk] (inverse_point)
-        const int kk = k0 + i * T;
-        if (kk < k_end) {
-          D::put(buf, kk, make_float2(ab[i].x - ab[i].w, -(ab[i].y + ab[i].z)));
-          if (kk) D::put(buf, N - kk, make_float2(ab[i].x + ab[i].w, ab[i].y - ab[i].z));
-        }
-      }
+      D::template put_bins<K>(buf, ab, k0, T, k_end, N);  // conj Z[kk], conj Z[N - kk]
       if (rank == C - 1 && threadIdx.x == 0) {  // Nyquist: real parts only
         const float4 q = live ? masked_bin(a, pl, N, f, half, true)
                               : make_float4(0.f, 0.f, 0.f, 0.f);

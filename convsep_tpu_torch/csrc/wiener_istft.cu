@@ -59,7 +59,8 @@
 //   twiddle; the radix-C combine is read in the gather. 144 384 bytes of
 //   shared memory a block at hop N/8.
 // * The 7-smooth sizes, N = C n with n = 2^a 3^b 5^c 7^d (10 000, 14 000,
-//   20 000 and 133 more from 8232 to 32 400; wiener_cluster_mixed_kernel,
+//   20 000 and 133 more from 8232 to 32 400 on C 2 or 4; 22 050 and 12 more
+//   from 17 010 to 31 250 on C 3, 5 or 6; wiener_cluster_mixed_kernel,
 //   wiener_common.cuh::wiener_cluster_mixed_block): the same rounds, each
 //   block's n points on the mixed-radix core (fft_common.cuh::ClusterMixed,
 //   mixed_fft: Stockham passes of radix 2-16, 3, 5, 7 and 9 in a schedule
@@ -293,7 +294,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) wiener_cluster_mixed_kernel(
   wiener_cluster_mixed_block<C, kMaxThreads>(smem4, a, n, rounds, sched);
 }
 
-// the same for the 7-smooth block core, N = C n (C 2 or 4)
+// the same for the 7-smooth block core, N = C n (C 2 to 6)
 template <int C>
 cudaError_t launch_wiener_cluster_mixed(const Args& a, long long clusters, int n, int rounds,
                                         unsigned long long sched, cudaStream_t stream,
@@ -455,8 +456,10 @@ extern "C" int wiener_cluster_dit_launch(
 }
 
 // The 7-smooth even sizes past 8192 up to 32 768 (fft_plan.mixed_factors:
-// nfft = C n, C 2 or 4, n = 2^a 3^b 5^c 7^d; 10 000, 14 000, 20 000 and
-// 133 more): the
+// nfft = C n, n = 2^a 3^b 5^c 7^d; C 2 or 4 at 10 000, 14 000, 20 000 and
+// 133 more, C 3, 5 or 6 at 22 050 = 3 x 7350, 30 618 = 6 x 5103 and 11
+// more; not 17 150 = 5 x 3430, whose last block's 1715 bins are under the
+// four unguarded strides of the mask loads): the
 // direct inverse by decimation in time on a cluster of C blocks of 512
 // threads a pair of sources, one frame a round, each block's n points on
 // the mixed-radix core in the passes of `sched` (fft_plan.mixed_schedule:
@@ -470,8 +473,9 @@ extern "C" int wiener_cluster_mixed_launch(
     int nt, int S, int nf, int nfft, int hop, int length, int rounds, long long sched, int p2,
     float eps, int conserve_last, int* active, void* stream) {
   int c, n;
-  if (!mixed_sizes(nfft, &c, &n) || c > 4 || !mixed_schedule_ok(n, (unsigned long long)sched) ||
-      hop < 1 || nfft % hop != 0 || nt < 1 || S < 1 || nf < 1)
+  if (!mixed_sizes(nfft, &c, &n) || nfft % 2 || nfft > (4 << kMaxLog2) ||
+      !mixed_schedule_ok(n, (unsigned long long)sched) || hop < 1 || nfft % hop != 0 || nt < 1 ||
+      S < 1 || nf < 1)
     return (int)cudaErrorInvalidValue;
   const int half = nfft / 2, share = (half + c - 1) / c;
   if (half - (c - 1) * share < 4 * kMaxThreads)  // the last block's bins: each unguarded stride
@@ -484,6 +488,11 @@ extern "C" int wiener_cluster_mixed_launch(
   const long long clusters = (long long)nt * a.per_signal * a.pairs;
   auto s = static_cast<cudaStream_t>(stream);
   const auto q = (unsigned long long)sched;
-  if (c == 2) return (int)launch_wiener_cluster_mixed<2>(a, clusters, n, rounds, q, s, active);
-  return (int)launch_wiener_cluster_mixed<4>(a, clusters, n, rounds, q, s, active);
+  switch (c) {  // an even nfft <= 32 768 takes C 2 to 6
+    case 2: return (int)launch_wiener_cluster_mixed<2>(a, clusters, n, rounds, q, s, active);
+    case 3: return (int)launch_wiener_cluster_mixed<3>(a, clusters, n, rounds, q, s, active);
+    case 4: return (int)launch_wiener_cluster_mixed<4>(a, clusters, n, rounds, q, s, active);
+    case 5: return (int)launch_wiener_cluster_mixed<5>(a, clusters, n, rounds, q, s, active);
+    default: return (int)launch_wiener_cluster_mixed<6>(a, clusters, n, rounds, q, s, active);
+  }
 }

@@ -74,13 +74,15 @@ _LANES = 128  # the reference kernel's lane-width factor of nfft
 # plain masked chain (the mask, then the iSTFT "auto" takes) in a timed A/B
 # on an H100 80GB HBM3 at 700 W, 4 stems of a 30 s track, bf16 y
 # (tools/torch_wiener_mixed_ab.py; chip_smoke.py phase 3c repeats it at 10
-# 000, 14 000, 16 384, 20 000 and 32 768; PERF.md row 1″): "auto" takes the kernel
+# 000, 14 000, 16 384, 20 000, 22 050 and 32 768; PERF.md row 1″): "auto" takes the kernel
 # past 8192 only there, as FUSED_DECODE_WON keys the decode. The direct
 # cluster at the reference's 16 384 and 32 768 against the mask and the
 # iSTFT's direct cluster, by 1.5-1.7x; the mixed cluster at each of its 136
-# sizes at the sweep's hop against the mask and the factored products (the
-# direct ones where those do not factor, as at 11 250 and 14 000), by
-# 4.97-53.1x. Bluestein's cluster lost at every size it was timed.
+# sizes on C 2 or 4 at the sweep's hop against the mask and the factored
+# products (the direct ones where those do not factor, as at 11 250 and
+# 14 000), by 4.97-53.1x, and at its 13 on C 3, 5 or 6 (22 050, hop 4410
+# among them; tools/torch_wiener_mixed_ab.py --new) by 5.14-39.8x.
+# Bluestein's cluster lost at every size it was timed.
 WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({
     (8232, 2058), (8400, 2100), (8640, 2160), (8748, 2187), (8750, 1750), (8820, 2205), (8960,
     2240), (9000, 2250), (9072, 2268), (9216, 2304), (9408, 2352), (9450, 1890), (9600, 2400),
@@ -93,18 +95,20 @@ WIENER_CLUSTER_WON: frozenset[tuple[int, int]] = frozenset({
     3430), (13824, 3456), (14000, 3500), (14112, 3528), (14336, 3584), (14400, 3600), (14406,
     4802), (14580, 3645), (14700, 3675), (15000, 3750), (15120, 3780), (15360, 3840), (15552,
     3888), (15680, 3920), (15750, 3150), (15876, 3969), (16000, 4000), (16128, 4032), (16200,
-    4050), (16384, 2048), (16464, 4116), (16800, 4200), (17280, 4320), (17496, 4374), (17500,
-    4375), (17640, 4410), (17920, 4480), (18000, 4500), (18144, 4536), (18432, 4608), (18816,
-    4704), (18900, 4725), (19200, 4800), (19208, 4802), (19440, 4860), (19600, 4900), (20000,
-    5000), (20160, 5040), (20412, 5103), (20480, 5120), (20580, 5145), (20736, 5184), (21000,
-    5250), (21168, 5292), (21504, 5376), (21600, 5400), (21952, 5488), (22400, 5600), (22500,
-    5625), (22680, 5670), (23040, 5760), (23328, 5832), (23520, 5880), (24000, 6000), (24192,
-    6048), (24300, 6075), (24500, 6125), (24576, 6144), (24696, 6174), (25000, 6250), (25088,
-    6272), (25200, 6300), (25600, 6400), (25920, 6480), (26244, 6561), (26460, 6615), (26880,
-    6720), (27000, 6750), (27216, 6804), (27440, 6860), (27648, 6912), (28000, 7000), (28224,
-    7056), (28672, 7168), (28800, 7200), (28812, 7203), (29160, 7290), (29400, 7350), (30000,
-    7500), (30240, 7560), (30720, 7680), (31104, 7776), (31360, 7840), (31500, 7875), (31752,
-    7938), (32000, 8000), (32256, 8064), (32400, 8100), (32768, 4096)})
+    4050), (16384, 2048), (16464, 4116), (16800, 4200), (17010, 3402), (17280, 4320), (17496,
+    4374), (17500, 4375), (17640, 4410), (17920, 4480), (18000, 4500), (18144, 4536), (18432,
+    4608), (18522, 6174), (18750, 3750), (18816, 4704), (18900, 4725), (19200, 4800), (19208,
+    4802), (19440, 4860), (19600, 4900), (20000, 5000), (20160, 5040), (20250, 4050), (20412,
+    5103), (20480, 5120), (20580, 5145), (20736, 5184), (21000, 5250), (21168, 5292), (21504,
+    5376), (21600, 5400), (21870, 4374), (21952, 5488), (22050, 4410), (22400, 5600), (22500,
+    5625), (22680, 5670), (23040, 5760), (23328, 5832), (23520, 5880), (23814, 7938), (24000,
+    6000), (24010, 4802), (24192, 6048), (24300, 6075), (24500, 6125), (24576, 6144), (24696,
+    6174), (25000, 6250), (25088, 6272), (25200, 6300), (25600, 6400), (25920, 6480), (26244,
+    6561), (26250, 5250), (26460, 6615), (26880, 6720), (27000, 6750), (27216, 6804), (27440,
+    6860), (27648, 6912), (28000, 7000), (28224, 7056), (28350, 5670), (28672, 7168), (28800,
+    7200), (28812, 7203), (29160, 7290), (29400, 7350), (30000, 7500), (30240, 7560), (30618,
+    10206), (30720, 7680), (30870, 6174), (31104, 7776), (31250, 6250), (31360, 7840), (31500,
+    7875), (31752, 7938), (32000, 8000), (32256, 8064), (32400, 8100), (32768, 4096)})
 # The same for the split's and Bluestein's (nfft, hop) up to 8192 (chip_smoke.py
 # phase 7b, 4 stems of a 30 s track, PERF.md row 1′): each won, by 3.8-8.7x on an
 # H100 80GB HBM3 at 700 W.

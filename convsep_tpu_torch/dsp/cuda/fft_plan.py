@@ -159,22 +159,34 @@ def smooth7(n: int) -> bool:
 
 def mixed_factors(nfft: int) -> tuple[int, int] | None:
     """(C, n) for a size the mixed cluster takes (``fft_common.cuh::
-    mixed_sizes``, ``ClusterMixed``): an even nfft in (8192, 65 536] that is
-    not a power of two, C the fewest of 2, 4, 8 blocks with nfft / C <= 8192,
-    C dividing nfft, and n = nfft / C 7-smooth (4096 < n < 8192). 204 sizes
-    on 68 block sizes n: the 87 5-smooth ones (10 000, 20 000 and 40 000 are
-    C · 5000) and 117 with a factor 7 (14 000, 28 000 and 56 000 are C ·
-    7000). 33 of them have one of 11 odd n (11 250, 12 150, 13 122, 8750 =
-    2 · 4375, 14 406 = 2 · 7203 and six more on 2 blocks, and twice and four
-    times each); the core serves them as any other, its n-point twiddle
-    table whole. None for any other size: a prime factor past 7, an
-    odd nfft, or too few factors of two for C (2 · 3^9 = 39 366 and 2^2 ·
-    3^2 · 5^2 · 7^2 = 44 100 would need C 8)."""
-    if not MAX_NFFT < nfft <= CLUSTER_NFFT or nfft & (nfft - 1) == 0:
+    mixed_sizes``, ``ClusterMixed``): a 7-smooth nfft in (8192, 65 536]
+    that is not a power of two, n = nfft / C <= 8192 (7-smooth with it).
+
+    * C is the fewest of 2, 4, 8 blocks with nfft / C <= 8192 where that C
+      divides nfft: 204 even sizes on 68 block sizes n (4096 < n < 8192),
+      the 87 5-smooth ones (10 000, 20 000 and 40 000 are C · 5000) and 117
+      with a factor 7 (14 000, 28 000 and 56 000 are C · 7000); 33 of them
+      on one of 11 odd n (11 250, 12 150, 13 122, 8750 = 2 · 4375, 14 406 =
+      2 · 7203 and six more on 2 blocks, and twice and four times each).
+    * Else C is the fewest blocks from ceil(nfft / 8192) to 8 that divides
+      nfft: 77 sizes more, on C 3 (25: 11 025 = 3 · 3675, 22 050 = 3 ·
+      7350), 5 (27: 30 870 = 5 · 6174, 33 075 = 5 · 6615), 6 (8: 44 100 =
+      6 · 7350, 39 366 = 6 · 6561) and 7 (17: 16 807 = 7 · 2401); 40 of
+      them odd (11 025, 12 005, 15 625, 33 075), which only the iSTFT
+      takes (the Wiener+iSTFT's nfft is even).
+
+    281 sizes in all. The core serves an odd n as any other, its n-point
+    twiddle table whole. None for any other size: a prime factor past 7
+    (11 264, 22 000, 9999), a power of two, or a 7-smooth size that needs
+    more than 8 blocks (46 875, 50 625, 54 675, 56 250, 59 049, 59 535, 60
+    025, 60 750, 61 236, 61 250, 61 740, 62 500 and 64 827)."""
+    if not MAX_NFFT < nfft <= CLUSTER_NFFT or nfft & (nfft - 1) == 0 or not smooth7(nfft):
         return None
     c = 2 if nfft <= 2 * MAX_NFFT else 4 if nfft <= 4 * MAX_NFFT else 8
-    if nfft % c or not smooth7(nfft // c):
-        return None
+    if nfft % c:
+        c = next((b for b in range(-(-nfft // MAX_NFFT), 9) if nfft % b == 0), None)
+        if c is None:
+            return None
     return c, nfft // c
 
 
@@ -313,14 +325,15 @@ def cluster_smem_bytes(carry: int = 0) -> int:
     return 8 * (twiddle_entries(CLUSTER_PART) + exchange_entries(CLUSTER_PART)) + 4 * carry
 
 
-# Clusters of 2, 4, 8 and 16 blocks an H100 SXM holds at once: one block an
+# Clusters of 2 to 8 and 16 blocks an H100 SXM holds at once: one block an
 # SM (512 threads at 128 registers take an SM's 65 536), a cluster's blocks
-# in one GPC, which leaves 12 of the 132 SMs idle at 4 and 8
-# (cudaOccupancyMaxActiveClusters through csrc/istft.cu::
-# istft_cluster_occupancy for Bluestein's cluster and the direct one, and at
-# 2 through wiener_cluster_dit_launch; tests/test_torch_cuda.py holds the
-# card to it).
-CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
+# in one GPC, which leaves 12 of the 132 SMs idle at 4 and 8, 15 at 3, 22
+# at 6, 27 at 7 (cudaOccupancyMaxActiveClusters through csrc/istft.cu::
+# istft_cluster_occupancy for Bluestein's cluster, the direct one and the
+# mixed one, and through wiener_cluster_dit_launch and
+# wiener_cluster_mixed_launch, on an H100 80GB HBM3; tests/test_torch_cuda.py
+# holds the card to it).
+CLUSTERS_AT_ONCE = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 16: 7}
 
 # The sizes at which wiener_plan takes the mixed cluster (route
 # "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced,
@@ -328,8 +341,10 @@ CLUSTERS_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
 # where 4 does not divide it), by 2.85-6.04x in card ms, in one run on an
 # H100 80GB HBM3 at 700 W (tools/torch_wiener_mixed_ab.py, PERF.md rows 1″
 # (5-smooth) and 1″ (7-smooth)): all 136 of mixed_factors up to the
-# reference's 32 768 (C 2 or 4), the 78 with a factor 7 among them. Keyed
-# by nfft alone, as ISTFT_MIXED_WON: both routes run the same rounds and
+# reference's 32 768 on C 2 or 4, the 78 with a factor 7 among them; and,
+# by 3.65-5.75x in another such run (--new, PERF.md row 1″ (any C)), all
+# 13 of wiener_mixed_factors on C 3, 5 or 6 (22 050 among them). Keyed by
+# nfft alone, as ISTFT_MIXED_WON: both routes run the same rounds and
 # gather. A size that loses stays on Bluestein's cluster.
 WIENER_MIXED_WON: frozenset[int] = frozenset({
     8232, 8400, 8640, 8748, 8750, 8820, 8960, 9000, 9072, 9216, 9408, 9450, 9600, 9604, 9720, 9800,
@@ -337,38 +352,48 @@ WIENER_MIXED_WON: frozenset[int] = frozenset({
     11340, 11520, 11664, 11760, 12000, 12096, 12150, 12250, 12288, 12348, 12500, 12544, 12600,
     12800, 12960, 13122, 13230, 13440, 13500, 13608, 13720, 13824, 14000, 14112, 14336, 14400,
     14406, 14580, 14700, 15000, 15120, 15360, 15552, 15680, 15750, 15876, 16000, 16128, 16200,
-    16464, 16800, 17280, 17496, 17500, 17640, 17920, 18000, 18144, 18432, 18816, 18900, 19200,
-    19208, 19440, 19600, 20000, 20160, 20412, 20480, 20580, 20736, 21000, 21168, 21504, 21600,
-    21952, 22400, 22500, 22680, 23040, 23328, 23520, 24000, 24192, 24300, 24500, 24576, 24696,
-    25000, 25088, 25200, 25600, 25920, 26244, 26460, 26880, 27000, 27216, 27440, 27648, 28000,
-    28224, 28672, 28800, 28812, 29160, 29400, 30000, 30240, 30720, 31104, 31360, 31500, 31752,
+    16464, 16800, 17010, 17280, 17496, 17500, 17640, 17920, 18000, 18144, 18432, 18522, 18750,
+    18816, 18900, 19200, 19208, 19440, 19600, 20000, 20160, 20250, 20412, 20480, 20580, 20736,
+    21000, 21168, 21504, 21600, 21870, 21952, 22050, 22400, 22500, 22680, 23040, 23328, 23520,
+    23814, 24000, 24010, 24192, 24300, 24500, 24576, 24696, 25000, 25088, 25200, 25600, 25920,
+    26244, 26250, 26460, 26880, 27000, 27216, 27440, 27648, 28000, 28224, 28350, 28672, 28800,
+    28812, 29160, 29400, 30000, 30240, 30618, 30720, 30870, 31104, 31250, 31360, 31500, 31752,
     32000, 32256, 32400})
 
 # The sizes at which istft_plan takes the mixed cluster (route
 # "cluster_mixed") over Bluestein's: each beat Bluestein's cluster forced
-# at hop nfft / 4 (nfft / 5, nfft / 3 where 4 does not divide it) on a 30 s
-# track, by 1.97-5.23x in card ms, in one run on an H100 80GB HBM3 at 700 W
-# (tools/torch_istft_mixed_ab.py, PERF.md rows 3‴, 3⁗ (5-smooth) and
-# (7-smooth)): all 204 of mixed_factors, the 117 with a factor 7 among
-# them. Keyed by nfft alone: both routes run the same rounds and gather, so
-# the hop moves them alike. A size that loses stays on Bluestein's cluster.
+# at hop nfft / 4 (nfft / 5, nfft / 3 or nfft / 7 where 4 does not divide
+# it) on a 30 s track, by 1.97-5.23x in card ms, in one run on an H100
+# 80GB HBM3 at 700 W (tools/torch_istft_mixed_ab.py, PERF.md rows 3‴, 3⁗
+# (5-smooth) and (7-smooth)): all 204 of mixed_factors on C 2, 4 or 8, the
+# 117 with a factor 7 among them; and, by 1.67-5.97x in another such run
+# (--new, PERF.md row 3‴, 3⁗ (any C)), all 77 on C 3, 5, 6 or 7, 40 of
+# them odd (11 025, 22 050 and 44 100 among them). Keyed by nfft alone:
+# both routes run the same rounds and gather, so the hop moves them alike.
+# A size that loses stays on Bluestein's cluster.
 ISTFT_MIXED_WON: frozenset[int] = frozenset({
-    8232, 8400, 8640, 8748, 8750, 8820, 8960, 9000, 9072, 9216, 9408, 9450, 9600, 9604, 9720, 9800,
-    10000, 10080, 10206, 10240, 10290, 10368, 10500, 10584, 10752, 10800, 10976, 11200, 11250,
-    11340, 11520, 11664, 11760, 12000, 12096, 12150, 12250, 12288, 12348, 12500, 12544, 12600,
-    12800, 12960, 13122, 13230, 13440, 13500, 13608, 13720, 13824, 14000, 14112, 14336, 14400,
-    14406, 14580, 14700, 15000, 15120, 15360, 15552, 15680, 15750, 15876, 16000, 16128, 16200,
-    16464, 16800, 17280, 17496, 17500, 17640, 17920, 18000, 18144, 18432, 18816, 18900, 19200,
-    19208, 19440, 19600, 20000, 20160, 20412, 20480, 20580, 20736, 21000, 21168, 21504, 21600,
-    21952, 22400, 22500, 22680, 23040, 23328, 23520, 24000, 24192, 24300, 24500, 24576, 24696,
-    25000, 25088, 25200, 25600, 25920, 26244, 26460, 26880, 27000, 27216, 27440, 27648, 28000,
-    28224, 28672, 28800, 28812, 29160, 29400, 30000, 30240, 30720, 31104, 31360, 31500, 31752,
-    32000, 32256, 32400, 32928, 33600, 34560, 34992, 35000, 35280, 35840, 36000, 36288, 36864,
-    37632, 37800, 38400, 38416, 38880, 39200, 40000, 40320, 40824, 40960, 41160, 41472, 42000,
-    42336, 43008, 43200, 43904, 44800, 45000, 45360, 46080, 46656, 47040, 48000, 48384, 48600,
-    49000, 49152, 49392, 50000, 50176, 50400, 51200, 51840, 52488, 52920, 53760, 54000, 54432,
-    54880, 55296, 56000, 56448, 57344, 57600, 57624, 58320, 58800, 60000, 60480, 61440, 62208,
-    62720, 63000, 63504, 64000, 64512, 64800})
+    8232, 8400, 8505, 8575, 8640, 8748, 8750, 8820, 8960, 9000, 9072, 9216, 9261, 9375, 9408, 9450,
+    9600, 9604, 9720, 9800, 10000, 10080, 10125, 10206, 10240, 10290, 10368, 10500, 10584, 10752,
+    10800, 10935, 10976, 11025, 11200, 11250, 11340, 11520, 11664, 11760, 11907, 12000, 12005,
+    12096, 12150, 12250, 12288, 12348, 12500, 12544, 12600, 12800, 12960, 13122, 13125, 13230,
+    13440, 13500, 13608, 13720, 13824, 14000, 14112, 14175, 14336, 14400, 14406, 14580, 14700,
+    15000, 15120, 15309, 15360, 15435, 15552, 15625, 15680, 15750, 15876, 16000, 16128, 16200,
+    16464, 16800, 16807, 16875, 17010, 17150, 17280, 17496, 17500, 17640, 17920, 18000, 18144,
+    18225, 18375, 18432, 18522, 18750, 18816, 18900, 19200, 19208, 19440, 19600, 19683, 19845,
+    20000, 20160, 20250, 20412, 20480, 20580, 20736, 21000, 21168, 21504, 21600, 21609, 21870,
+    21875, 21952, 22050, 22400, 22500, 22680, 23040, 23328, 23520, 23625, 23814, 24000, 24010,
+    24192, 24300, 24500, 24576, 24696, 25000, 25088, 25200, 25515, 25600, 25725, 25920, 26244,
+    26250, 26460, 26880, 27000, 27216, 27440, 27648, 27783, 28000, 28125, 28224, 28350, 28672,
+    28800, 28812, 29160, 29400, 30000, 30240, 30375, 30618, 30625, 30720, 30870, 31104, 31250,
+    31360, 31500, 31752, 32000, 32256, 32400, 32805, 32928, 33075, 33600, 33614, 33750, 34020,
+    34300, 34560, 34992, 35000, 35280, 35721, 35840, 36000, 36015, 36288, 36450, 36750, 36864,
+    37044, 37500, 37632, 37800, 38400, 38416, 38880, 39200, 39366, 39375, 39690, 40000, 40320,
+    40500, 40824, 40960, 41160, 41472, 42000, 42336, 42525, 42875, 43008, 43200, 43218, 43740,
+    43750, 43904, 44100, 44800, 45000, 45360, 45927, 46080, 46305, 46656, 47040, 47250, 47628,
+    48000, 48020, 48384, 48600, 49000, 49152, 49392, 50000, 50176, 50400, 50421, 51030, 51200,
+    51450, 51840, 52488, 52500, 52920, 53760, 54000, 54432, 54880, 55125, 55296, 55566, 56000,
+    56448, 56700, 57344, 57600, 57624, 58320, 58800, 60000, 60480, 61440, 62208, 62720, 63000,
+    63504, 64000, 64512, 64800})
 
 # The sizes at which istft_plan takes the direct second level (route
 # "level2_direct") over Bluestein's: each beat Bluestein's second level
@@ -754,9 +779,10 @@ def istft_cluster_dit_plan(signals: int, nf: int, nfft: int, win: int, hop: int)
 @lru_cache(maxsize=64)
 def istft_cluster_mixed_plan(signals: int, nf: int, nfft: int, win: int, hop: int) -> IstftPlan:
     """The inverse's launch at the 7-smooth sizes past 8192
-    (:func:`mixed_factors`: 10 000, 14 000, 20 000, 40 000, ...), as ``csrc/istft.cu::
-    istft_cluster_mixed_launch`` computes it: the direct transform by
-    decimation in time over a cluster of C blocks (2, 4 or 8) of 512
+    (:func:`mixed_factors`: 10 000, 14 000, 20 000, 40 000, the odd 11 025,
+    44 100, ...), as ``csrc/istft.cu::istft_cluster_mixed_launch`` computes
+    it: the direct transform by decimation in time over a cluster of C
+    blocks (2 to 8) of 512
     threads, each block's n = nfft / C points on the mixed-radix core, its
     shared memory :func:`cluster_mixed_smem_bytes`; the rounds weighed as
     :func:`istft_cluster_plan` weighs them (route "cluster_mixed").
@@ -764,9 +790,9 @@ def istft_cluster_mixed_plan(signals: int, nf: int, nfft: int, win: int, hop: in
     ``launch_istft(cluster_mixed=True)`` forces it at any of its sizes."""
     f = mixed_factors(nfft)
     if f is None or win > nfft:
-        raise ValueError(f"no iSTFT cluster_mixed plan for nfft={nfft}: even, past {MAX_NFFT}, "
-                         f"at most {CLUSTER_NFFT}, not a power of two, C · n with n 7-smooth, "
-                         "and at least the window")
+        raise ValueError(f"no iSTFT cluster_mixed plan for nfft={nfft}: past {MAX_NFFT}, at "
+                         f"most {CLUSTER_NFFT}, not a power of two, C · n with C <= 8 and n "
+                         "7-smooth, and at least the window")
     c, n = f
     return _istft_cluster_rounds(signals, nf, nfft, win, hop, c, "cluster_mixed",
                                  lambda carry: cluster_mixed_smem_bytes(n, carry))
@@ -1003,24 +1029,47 @@ def wiener_cluster_dit_plan(signals: int, S: int, nf: int, nfft: int, hop: int) 
     return _cluster_rounds(signals, S, nf, nfft, hop, nfft // CLUSTER_PART, "cluster_dit")
 
 
+WIENER_MIXED_MIN_SHARE = 4 * MAX_THREADS  # bins: the mask loads' four unguarded strides a thread
+
+
+def wiener_mixed_factors(nfft: int) -> tuple[int, int] | None:
+    """(C, n) for a size the Wiener+iSTFT's mixed cluster takes
+    (``csrc/wiener_istft.cu::wiener_cluster_mixed_launch``):
+    :func:`mixed_factors` of an even nfft up to :data:`WIENER_CLUSTER_NFFT`
+    whose last block masks at least :data:`WIENER_MIXED_MIN_SHARE` bins
+    (its mask loads read four strides of 512 threads unguarded). 149
+    sizes: the 136 on C 2 or 4 (8232 to 32 400) and 13 on C 3, 5 or 6
+    (17 010, 18 522, 18 750, 20 250, 21 870, 22 050 and 23 814 on 3;
+    24 010, 26 250, 28 350, 30 870 and 31 250 on 5; 30 618 on 6). Not 17 150 =
+    5 · 3430, whose last block's share is 1715 bins."""
+    f = mixed_factors(nfft) if nfft % 2 == 0 and nfft <= WIENER_CLUSTER_NFFT else None
+    if f is None:
+        return None
+    half = nfft // 2
+    if half - (f[0] - 1) * -(-half // f[0]) < WIENER_MIXED_MIN_SHARE:
+        return None
+    return f
+
+
 @lru_cache(maxsize=64)
 def wiener_cluster_mixed_plan(signals: int, S: int, nf: int, nfft: int, hop: int) -> WienerPlan:
     """The Wiener+iSTFT's launch at the 7-smooth sizes past 8192 up to
-    :data:`WIENER_CLUSTER_NFFT` (:func:`mixed_factors` with C 2 or 4: 136
-    sizes from 8232 to 32 400, 10 000, 14 000 and 20 000 among them), as
-    ``csrc/wiener_istft.cu::wiener_cluster_mixed_launch`` computes it: the
-    direct transform by decimation in time over a cluster of C blocks of
-    512 threads, each block's n = nfft / C points on the mixed-radix core,
-    a cluster a pair of sources and R hop rows, one frame a round, each
-    block's shared memory :func:`cluster_mixed_smem_bytes` with the two
-    sources' carries; the rounds weighed by :func:`_cluster_rounds` (route
-    "cluster_mixed"). :func:`wiener_plan` takes it at
-    :data:`WIENER_MIXED_WON`."""
-    f = mixed_factors(nfft) if nfft <= WIENER_CLUSTER_NFFT else None
+    :data:`WIENER_CLUSTER_NFFT` (:func:`wiener_mixed_factors`: 149 even
+    sizes from 8232 to 32 400, 10 000, 14 000, 20 000 and 22 050 among
+    them), as ``csrc/wiener_istft.cu::wiener_cluster_mixed_launch``
+    computes it: the direct transform by decimation in time over a cluster
+    of C blocks (2 to 6) of 512 threads, each block's n = nfft / C points
+    on the mixed-radix core, a cluster a pair of sources and R hop rows, one
+    frame a round, each block's shared memory :func:`cluster_mixed_smem_bytes`
+    with the two sources' carries; the rounds weighed by
+    :func:`_cluster_rounds` (route "cluster_mixed"). :func:`wiener_plan`
+    takes it at :data:`WIENER_MIXED_WON`."""
+    f = wiener_mixed_factors(nfft)
     if f is None or hop < 1 or nfft % hop:
         raise ValueError(f"no Wiener+iSTFT cluster_mixed plan for nfft={nfft} hop={hop}: even, "
                          f"past {MAX_NFFT}, at most {WIENER_CLUSTER_NFFT}, not a power of two, "
-                         "C · n with n 7-smooth, a multiple of the hop")
+                         "C · n with n 7-smooth, the last block's share at least "
+                         f"{WIENER_MIXED_MIN_SHARE} bins, a multiple of the hop")
     c, n = f
     return _cluster_rounds(signals, S, nf, nfft, hop, c, "cluster_mixed",
                            lambda carry: cluster_mixed_smem_bytes(n, carry))

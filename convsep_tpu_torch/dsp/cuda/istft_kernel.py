@@ -18,8 +18,9 @@ thread-block cluster run backwards past 8192, up to 65 536
 65 536) the direct transform by decimation in time over a cluster of 2, 4
 or 8 blocks (``LAUNCHES["istft_cluster_dit"]``), at the 7-smooth sizes there
 that won their A/B (``fft_plan.ISTFT_MIXED_WON``: 10 000, 14 000, 20 000,
-40 000, ...) the same transform on a mixed-radix block core
-(``LAUNCHES["istft_cluster_mixed"]``; ``launch_istft(cluster_mixed=True)``
+40 000, the odd 11 025, 44 100, ...) the same transform on a mixed-radix
+block core over 2 to 8 blocks (``LAUNCHES["istft_cluster_mixed"]``;
+``launch_istft(cluster_mixed=True)``
 forces it at any of its sizes; :func:`istft_bluestein_cluster_pallas`
 forces Bluestein's cluster at both, to hold and time it), and Bluestein on
 the core's second level

@@ -205,6 +205,10 @@ inline T* peer(T* p, int rank) {
   return reinterpret_cast<T*>(reinterpret_cast<char*>((*cluster_smem)[rank].data()) + off);
 }
 
+// the card's 32-bit shared::cluster store and load (fft_common.cuh)
+inline void peer_store(float2* p, int rank, float2 u) { *peer(p, rank) = u; }
+inline float2 peer_load(const float2* p, int rank) { return *peer(p, rank); }
+
 // Run fn as `clusters` clusters of c blocks of `threads` threads, a cluster
 // at a time, its blocks at once: block r of cluster q is blockIdx.x = q c +
 // r, with `smem_bytes` of shared memory of its own (filled with NaN: a read

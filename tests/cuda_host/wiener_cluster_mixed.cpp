@@ -1,8 +1,9 @@
 // wiener_cluster_mixed_block (convsep_tpu_torch/csrc/wiener_common.cuh) run
 // on CPU threads through the stand-in cuda_runtime.h beside this file: a
-// cluster's C blocks at once, each with its own shared memory and THREADS
-// threads (4, 16, 32, 128 or 512; the card runs 512), each block's N points
-// on the mixed-radix core, NFFT = C N.
+// cluster's C blocks at once (C 2 to 6), each with its own shared memory and
+// THREADS threads (4, 16, 32, 128 or 512; 16, 32 or 512 at C 3, 5 and 6;
+// the card runs 512), each block's N points on the mixed-radix core, NFFT =
+// C N.
 //
 //   wiener_cluster_mixed DIR C N THREADS NT S NF HOP LENGTH ROUNDS YBF16 P2 EPS CONSERVE HASNY
 //                        INT16 SCHED
@@ -63,7 +64,10 @@ int main(int argc, char** argv) {
 #define CASE(C, T) \
   case C * 1024 + T: run<C, T>(a, nt, n, rounds, sched); break;
     CASE(2, 4) CASE(2, 16) CASE(2, 32) CASE(2, 128) CASE(2, 512)
+    CASE(3, 16) CASE(3, 32) CASE(3, 512)
     CASE(4, 4) CASE(4, 16) CASE(4, 32) CASE(4, 128) CASE(4, 512)
+    CASE(5, 16) CASE(5, 32) CASE(5, 512)
+    CASE(6, 16) CASE(6, 32) CASE(6, 512)
 #undef CASE
     default: return 3;
   }

@@ -70,8 +70,9 @@ def _istft_mixed_matches_jax(rng, re, im, nfft, hop, length, algorithm):
     mask = rng.uniform(0.0, 1.0, re.shape).astype(np.float32)
     re, im = re * mask, im * mask
     want = np.asarray(jdft.istft_matmul(jnp.asarray(re), jnp.asarray(im), w, hop, length,
-                                        algorithm=algorithm))
-    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length).numpy()
+                                        nfft=nfft, algorithm=algorithm))
+    got = istft_pallas(torch.from_numpy(re), torch.from_numpy(im), w, hop, length,
+                       nfft=nfft).numpy()
     assert got.shape == want.shape == (re.shape[0], length)
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
@@ -98,13 +99,15 @@ def test_istft_5smooth_past_8192_matches_jax(rng):
 
 @pytest.mark.parametrize("nfft,hop,length,factors", [
     (14_000, 3500, 16_000, (2, 7000)),  # 7000 = 2^3 · 5^3 · 7: a radix-7 pass
+    (11_025, 2205, 16_000, (3, 3675)),  # 250 ms at 44.1 kHz: odd, a cluster of 3
 ])
 def test_istft_7smooth_past_8192_matches_jax(rng, nfft, hop, length, factors):
-    """The same at a 7-smooth size past 8192 (W 14 000, hop 3500), which the
-    card runs on the mixed cluster's radix-7 pass where
-    ``fft_plan.ISTFT_MIXED_WON`` holds it. The JAX package's factored chain
-    refuses 14 000 (its balanced factor 112 does not divide 7000), so its
-    "auto" takes the direct one, as its ``istft_wiener`` does there; the
+    """The same at a 7-smooth size past 8192 (W 14 000, hop 3500; the odd W
+    11 025, hop 2205, on a cluster of 3), which the card runs on the mixed
+    cluster's radix-7 pass where ``fft_plan.ISTFT_MIXED_WON`` holds it. The
+    JAX package's factored chain refuses 14 000 (its balanced factor 112
+    does not divide 7000) and odd sizes, so its "auto" takes the direct one,
+    as its ``istft_wiener`` does there; the
     spectra are numpy's FFT of the centred, windowed frames of 2 signals of
     16 000 samples (``stft_matmul``'s direct matrices are not needed),
     within 1e-5 × the peak sample."""
@@ -119,3 +122,36 @@ def test_istft_7smooth_past_8192_matches_jax(rng, nfft, hop, length, factors):
                        * sinebell(nfft))
     _istft_mixed_matches_jax(rng, spec.real.astype(np.float32), spec.imag.astype(np.float32),
                              nfft, hop, length, "auto")
+
+
+def test_istft_on_three_blocks_matches_jax(rng):
+    """W 22 050, hop 4410 (500 ms at 44.1 kHz): a 7-smooth size that the
+    card runs on a cluster of 3 blocks of n 7350 where
+    ``fft_plan.ISTFT_MIXED_WON`` holds it. The port's inverse DFT chain
+    (``dsp.dft.istft_matmul``, the factored products its "auto" takes at
+    this size; ``istft_pallas``'s plain version builds the direct matrices,
+    twice 11 026 × 22 050 floats) against the JAX package's
+    ``dft.istft_matmul`` on the same chain, on numpy's FFT of the centred,
+    windowed frames of 2 signals of 24 000 samples, masked, within 1e-5 ×
+    the peak sample."""
+    from convsep_tpu.dsp import dft as jdft
+    from convsep_tpu_torch.dsp.cuda.fft_plan import mixed_factors
+    from convsep_tpu_torch.dsp.dft import istft_matmul
+    from convsep_tpu_torch.dsp.stft import num_frames
+
+    nfft, hop, length = 22_050, 4410, 24_000
+    assert mixed_factors(nfft) == (3, 7350)
+    x = (0.3 * rng.standard_normal((2, length))).astype(np.float32)
+    nf = num_frames(length, hop)
+    padded = np.concatenate([np.zeros((2, nfft // 2)), x, np.zeros((2, nfft))], axis=-1)
+    spec = np.fft.rfft(np.stack([padded[:, f * hop:f * hop + nfft] for f in range(nf)], 1)
+                       * sinebell(nfft))
+    mask = rng.uniform(0.0, 1.0, spec.shape)
+    re, im = (a.astype(np.float32) for a in (spec.real * mask, spec.imag * mask))
+    w = sinebell(nfft)
+    want = np.asarray(jdft.istft_matmul(jnp.asarray(re), jnp.asarray(im), w, hop, length,
+                                        algorithm="factored"))
+    got = istft_matmul(torch.from_numpy(re), torch.from_numpy(im), w, hop, length,
+                       algorithm="factored").numpy()
+    assert got.shape == want.shape == (2, length)
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

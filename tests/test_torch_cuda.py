@@ -325,13 +325,16 @@ def test_wiener_istft_cluster_ny_input(rng, cuda, nfft, hop):
     (14000, 3500, 40000, 4, {}, torch.bfloat16),            # C 2 of n 7000: a radix-7 pass
     (28000, 7000, 80000, 3, {"p": 2.0}, torch.float32),     # C 4 of n 7000, S odd
     (8750, 1750, 40000, 4, {"conserve_last": True}, torch.bfloat16),  # n 4375 = 5^4·7, odd
+    (22050, 4410, 60000, 4, {}, torch.bfloat16),            # C 3 of n 7350
+    (30870, 6174, 60000, 3, {"p": 2.0}, torch.float32),     # C 5 of n 6174, S odd
+    (30618, 10206, 60000, 4, {"conserve_last": True}, torch.bfloat16),  # C 6 of 5103, odd n
 ])
 def test_wiener_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, hop, length, S, kw,
                                                          ydt):
-    """The Wiener+iSTFT on the 7-smooth block core over a cluster of 2 or 4
+    """The Wiener+iSTFT on the 7-smooth block core over a cluster of 2 to 6
     blocks ("wiener_istft_cluster_mixed", wiener_plan's route at
     WIENER_MIXED_WON) at sizes off the smoke's: odd n (each block ceil(N / 2
-    / C) bins), C 2 and 4, k 2 to 12, radix-7 passes, float32 within 1e-5
+    / C) bins), C 2 to 6, k 2 to 12, radix-7 passes, float32 within 1e-5
     and PCM16 within one LSB of the plain version, one launch a call and no
     other Wiener launch; the same kernel forced (wiener_cluster_mixed_pallas)
     bit for bit; Bluestein's cluster forced at the same shape within 1e-5 of
@@ -366,8 +369,8 @@ def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
     clusters: the card's own cudaOccupancyMaxActiveClusters for Bluestein's
     cluster kernel's launch at 16 384 (C 4) and 32 768 (C 8) points, for
     the direct one's at 16 384 (C 2) and 32 768 (C 4), and for the mixed
-    one's at 10 000 (C 2) and 20 000, 32 400 (C 4), one block an SM (the
-    kernels' launch bound)."""
+    one's at 10 000 (C 2), 20 000, 32 400 (C 4), 22 050 (C 3), 30 870 (C 5)
+    and 30 618 (C 6), one block an SM (the kernels' launch bound)."""
     import ctypes
 
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
@@ -384,7 +387,8 @@ def test_wiener_cluster_plan_reads_the_card_occupancy(cuda):
                                  0, ctypes.byref(active), None), plan.route)
             assert active.value == fp.CLUSTERS_AT_ONCE[plan.cluster], (nfft, hop, plan.route,
                                                                        active.value)
-    for nfft, hop in ((10000, 2500), (20000, 5000), (32400, 2025)):
+    for nfft, hop in ((10000, 2500), (20000, 5000), (32400, 2025), (22050, 4410),
+                      (30870, 6174), (30618, 10206)):
         plan = fp.wiener_cluster_mixed_plan(1, 4, 648, nfft, hop)
         active = ctypes.c_int(0)
         kernels.check(lib.wiener_cluster_mixed_launch(
@@ -1002,12 +1006,16 @@ def test_istft_bluestein_cluster_forced_at_powers_of_two(rng, cuda, nfft, hop):
 @pytest.mark.parametrize("nfft,win,hop", [(10000, 10000, 2500), (12000, 12000, 3000),
                                           (20000, 20000, 5000), (40000, 40000, 10000),
                                           (60000, 60000, 15000), (11250, 11250, 2250),
-                                          (14000, 14000, 3500), (56000, 56000, 14000)])
+                                          (14000, 14000, 3500), (56000, 56000, 14000),
+                                          (11025, 11025, 2205), (22050, 22050, 4410),
+                                          (30870, 30870, 6174), (44100, 44100, 11025),
+                                          (16807, 16807, 2401)])
 def test_cluster_mixed_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     """istft_cluster_mixed_plan weighs waves of fft_plan.CLUSTERS_AT_ONCE
     clusters of C blocks: the card's own cudaOccupancyMaxActiveClusters for
     istft_cluster_mixed_kernel's launch (route 2; on an H100 SXM 66
-    clusters of 2, 30 of 4 and 15 of 8, as the other cluster kernels)."""
+    clusters of 2, 30 of 4 and 15 of 8, as the other cluster kernels, and
+    39 of 3, 22 of 5, 17 of 6 and 15 of 7)."""
     import ctypes
 
     from convsep_tpu_torch.dsp.cuda import fft_plan as fp
@@ -1034,11 +1042,17 @@ def test_cluster_mixed_plan_reads_the_card_occupancy(cuda, nfft, win, hop):
     (56000, 56000, 14000, (1,), 150000),  # C 8 of n 7000
     (8750, 8750, 1750, (1,), 40000),     # C 2 of the odd n 4375 = 5·5·5·5·7
     (16128, 16128, 4032, (1,), 50000),   # C 2 of n 8064 = 16·8·7·9: three radix-7 butterflies
+    (11025, 11025, 2205, (2,), 40000),   # odd: C 3 of n 3675, no Nyquist bin
+    (22050, 22050, 4410, (1,), 60000),   # C 3 of n 7350
+    (30870, 30870, 6174, (1,), 80000),   # C 5 of n 6174
+    (44100, 44100, 11025, (1,), 120000),  # C 6 of n 7350
+    (16807, 16807, 2401, (1,), 50000),   # odd: C 7 of n 2401 = 7^4
+    (33075, 22050, 4410, (1,), 60000),   # odd: C 5 of n 6615, nfft past the window
 ])
 @pytest.mark.parametrize("out", ["float32", "int16"])
 def test_istft_cluster_mixed_kernel_matches_plain(rng, cuda, nfft, win, hop, lead, length, out):
-    """The direct transform on the 7-smooth block core over a cluster of 2,
-    4 or 8 blocks, forced (launch_istft(cluster_mixed=True)) so that it runs
+    """The direct transform on the 7-smooth block core over a cluster of 2
+    to 8 blocks, odd sizes too, forced (launch_istft(cluster_mixed=True)) so that it runs
     whatever ISTFT_MIXED_WON holds: one "istft_cluster_mixed" launch a call
     and no other iSTFT kernel; float32 within TOL_CLUSTER_F32 × max|out| of
     the float64 synthesis and 1e-5 of the plain one (the factored chain past
@@ -1723,8 +1737,9 @@ ISTFT_BLUESTEIN_STACK_CEILING = {4: 0, 5: 0, 6: 8, 7: 0, 8: 0, 9: 104, 10: 0, 11
 # the same for Bluestein on a thread-block cluster, by kernel and blocks a
 # cluster (an 8192-point part a block, 128 registers), and for the
 # Wiener+iSTFT's and the iSTFT's direct transform on a cluster, at the
-# powers of two and on the 7-smooth block core (123 to 128 registers, no
-# stack)
+# powers of two and on the 7-smooth block core (120 to 128 registers, no
+# stack; at 3, 5, 6 and 7 blocks the puts and loads through 32-bit
+# shared::cluster addresses kept them there)
 CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel", 8): 16,
                          ("stft_cluster_kernel", 16): 16, ("istft_cluster_kernel", 4): 192,
                          ("istft_cluster_kernel", 8): 192, ("istft_cluster_kernel", 16): 192,
@@ -1732,11 +1747,18 @@ CLUSTER_STACK_CEILING = {("stft_cluster_kernel", 4): 24, ("stft_cluster_kernel",
                          ("wiener_cluster_dit_kernel", 2): 0,
                          ("wiener_cluster_dit_kernel", 4): 0,
                          ("wiener_cluster_mixed_kernel", 2): 0,
+                         ("wiener_cluster_mixed_kernel", 3): 0,
                          ("wiener_cluster_mixed_kernel", 4): 0,
+                         ("wiener_cluster_mixed_kernel", 5): 0,
+                         ("wiener_cluster_mixed_kernel", 6): 0,
                          ("istft_cluster_dit_kernel", 2): 0, ("istft_cluster_dit_kernel", 4): 0,
                          ("istft_cluster_dit_kernel", 8): 0,
                          ("istft_cluster_mixed_kernel", 2): 0,
+                         ("istft_cluster_mixed_kernel", 3): 0,
                          ("istft_cluster_mixed_kernel", 4): 0,
+                         ("istft_cluster_mixed_kernel", 5): 0,
+                         ("istft_cluster_mixed_kernel", 6): 0,
+                         ("istft_cluster_mixed_kernel", 7): 0,
                          ("istft_cluster_mixed_kernel", 8): 0}
 # the same for the Wiener+iSTFT's split, by (log2 P, m), and Bluestein, by
 # (log2 M, frame pairs), on an H100 build (sm_90a, 128 registers): the split holds S sources' y loads beside its 16 points and spills

@@ -4,12 +4,14 @@ mixed-radix block core's Stockham passes of radix 2, 3, 4, 5, 7, 8, 9 and
 16 in a host-planned schedule) at every 7-smooth n it serves, against
 numpy's float64 FFT within 1e-6 × max|X|, and ``istft_cluster_mixed_block``
 (``istft.cu::istft_cluster_mixed_kernel``: the direct inverse over the
-cluster on that core, ``ClusterMixed``) at small parts (C 2, 4 and 8, an
-odd n, a factor 7), against the plain iSTFT, and at the card's W 10 000,
+cluster on that core, ``ClusterMixed``) at small parts (C 2 to 8, odd n,
+odd N, a factor 7), against the plain iSTFT, and at the card's W 10 000,
 20 000 and 40 000 (C 2, 4, 8 of n 5000), W 14 000 (C 2 of n 7000 = 8·5³·7),
-W 11 250 and W 8750 (the odd n 5625 and 4375), against the plain iSTFT or,
-past its matrices' memory, the float64 synthesis, within 1e-5 × max|out|,
-PCM16 within ±1 LSB."""
+W 11 250 and W 8750 (the odd n 5625 and 4375), W 11 025 (odd, C 3 of 3675)
+and W 22 050 (C 3 of 7350), against the plain iSTFT or, past its
+matrices' memory, the float64 synthesis, within 1e-5 × max|out|, PCM16
+within ±1 LSB; at clusters of 2, 4 and 8, bit for bit what the power-of-two
+form of ``ClusterMixed::put`` (a mask and a shift) gives."""
 
 import subprocess
 
@@ -26,22 +28,25 @@ from tests.test_torch_fft_host import _istft64, programs
 host = programs("istft_cluster_mixed")
 
 
-# every block size n of the mixed cluster's 204 sizes (fft_plan.mixed_factors): 68
-MIXED_BLOCK_SIZES = sorted({fp.mixed_factors(n)[1] for n in range(fp.MAX_NFFT + 2,
-                                                                  fp.CLUSTER_NFFT + 1, 2)
+# every block size n of the mixed cluster's 281 sizes (fft_plan.mixed_factors):
+# 78, the 68 of clusters of 2, 4 and 8 and ten under 4096 of the others
+MIXED_BLOCK_SIZES = sorted({fp.mixed_factors(n)[1] for n in range(fp.MAX_NFFT + 1,
+                                                                  fp.CLUSTER_NFFT + 1)
                             if fp.mixed_factors(n)})
 
 
 def test_mixed_sizes_source_matches_plan(host):
     """fft_common.cuh::mixed_sizes, the launchers' check, takes exactly the
-    even sizes past 8192 that fft_plan.mixed_factors takes, with the same C
-    and n: 204 up to 65 536."""
+    sizes past 8192 that fft_plan.mixed_factors takes, with the same C and
+    n: 281 up to 65 536, 40 of them odd, 77 on clusters of 3, 5, 6 or 7."""
     out = subprocess.run([str(host["istft_cluster_mixed"]), "sizes"], check=True,
                          capture_output=True, text=True, timeout=60).stdout
     got = {int(a): (int(b), int(c)) for a, b, c in (line.split() for line in out.splitlines())}
-    want = {n: fp.mixed_factors(n) for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2)
+    want = {n: fp.mixed_factors(n) for n in range(fp.MAX_NFFT + 1, fp.CLUSTER_NFFT + 1)
             if fp.mixed_factors(n)}
-    assert got == want and len(got) == 204
+    assert got == want and len(got) == 281 and len(MIXED_BLOCK_SIZES) == 78
+    assert sum(n % 2 for n in got) == 40
+    assert sum(c not in (2, 4, 8) for c, _ in got.values()) == 77
 
 
 @pytest.mark.parametrize("n", MIXED_BLOCK_SIZES)
@@ -82,6 +87,16 @@ ISTFT_CLUSTER_MIXED_CASES = [
     (14_000, 14_000, 3500, 1, 8000, 2, 512, None, "float32"),  # C 2 of n 7000 = 8·5·5·5·7
     (14_000, 14_000, 3500, 1, 8000, 2, 512, None, "int16"),
     (8750, 8750, 1750, 1, 5000, 2, 512, None, "float32"),    # n 4375 = 5^4·7, odd
+    (135, 135, 27, 2, 700, 3, 16, 4, "float32"),    # C 3 of n 45 = 5·9: N odd, no Nyquist
+    (135, 135, 27, 1, 700, 5, 16, 3, "int16"),      # C 5 of n 27 = 9·3: N odd
+    (300, 300, 75, 2, 1500, 6, 16, 3, "float32"),   # C 6 of n 50 = 2·5·5
+    (245, 245, 49, 1, 1200, 7, 16, 4, "float32"),   # C 7 of n 35 = 5·7: N odd, radix 7
+    (336, 168, 42, 1, 1500, 7, 16, 3, "int16"),     # C 7 of n 48 = 16·3: nfft past the window
+    (105, 105, 3, 1, 150, 3, 4, 20, "float32"),     # N odd, hop 3: a column a block, k 35
+    (11_025, 11_025, 2205, 1, 8000, 3, 512, None, "float32"),  # 250 ms at 44.1 kHz: odd, C 3
+    (11_025, 11_025, 2205, 1, 8000, 3, 512, None, "int16"),
+    (22_050, 22_050, 4410, 1, 12_000, 3, 512, None, "float32"),  # 500 ms: C 3 of n 7350
+    (22_050, 22_050, 4410, 1, 12_000, 3, 512, None, "int16"),
 ]
 
 
@@ -128,3 +143,40 @@ def test_istft_cluster_mixed_source_matches_plain(tmp_path, host, rng, nfft, win
     else:
         assert np.isfinite(got).all()  # every sample written
         np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+# (nfft, win, hop, length, C, threads a block, rounds): clusters of 2, 4 and
+# 8, whose owner and slot t mod C, t / C are a mask and a shift
+POW2_PUT_CASES = [
+    (120, 120, 30, 600, 2, 32, 3),
+    (540, 540, 135, 2000, 4, 32, 3),
+    (2000, 1000, 250, 4000, 8, 32, 4),
+    (10_000, 10_000, 2500, 6000, 2, 512, 6),
+]
+
+
+@pytest.mark.parametrize("nfft,win,hop,length,c,threads,rounds", POW2_PUT_CASES)
+def test_istft_cluster_mixed_put_keeps_pow2_bits(tmp_path, host, rng, nfft, win, hop, length, c,
+                                                 threads, rounds):
+    """ClusterMixed::put finds a point's owner and slot as t mod C and t / C
+    for any C from 2 to 8; at clusters of 2, 4 and 8 istft_cluster_mixed_block
+    writes every sample bit for bit as with the put's power-of-two form (t &
+    (C - 1), t >> log2 C) swapped in, float32 and int16."""
+    nf = num_frames(length, hop)
+    bins = nfft // 2 + 1
+    n = nfft // c
+    re = rng.standard_normal((1, nf, bins)).astype(np.float32)
+    im = rng.standard_normal((1, nf, bins)).astype(np.float32)
+    wn, inv = fp.synthesis_tables(sinebell(win), nfft, hop, nf, "cpu")
+    for name, arr in (("re", re), ("im", im), ("wn", wn.numpy()), ("inv", inv.numpy()),
+                      ("tw", fp.dft_table(nfft, "cpu").numpy())):
+        np.ascontiguousarray(arr, np.float32).tofile(tmp_path / f"{name}.bin")
+    for int16 in (0, 1):
+        outs = []
+        for verb in ("istft", "istft_mask"):
+            args = [c, n, threads, 1, nf, win, hop, length, rounds, int16,
+                    fp.mixed_schedule(fp.mixed_radices(n))]
+            subprocess.run([str(host["istft_cluster_mixed"]), verb, str(tmp_path),
+                            *map(str, args)], check=True, timeout=300)
+            outs.append((tmp_path / "out.bin").read_bytes())
+        assert outs[0] == outs[1] and len(outs[0]) == length * (2 if int16 else 4)

@@ -17,9 +17,9 @@ stem written, PCM16 within ±1 LSB:
 * ``wiener_common.cuh::wiener_cluster_mixed_block``
   (``wiener_istft.cu::wiener_cluster_mixed_kernel``: the same over the
   7-smooth block core, ``ClusterMixed``; each block masking its ceil(N / 2
-  / C) bins, guarded at the share's end) at small parts (C 2 and 4, odd n,
+  / C) bins, guarded at the share's end) at small parts (C 2 to 6, odd n,
   k up to 16, radix-7 passes) and at the card's W 10 000 and 14 000 (C 2 of
-  n 5000 and 7000, 512 threads);
+  n 5000 and 7000) and W 22 050 (C 3 of n 7350), 512 threads;
 * ``wiener_split_block`` and ``wiener_bluestein_block``
   (``wiener_istft.cu::wiener_split_kernel``, ``wiener_bluestein_kernel``:
   the same masked loads on the split and on Bluestein run backwards, a
@@ -143,6 +143,13 @@ WIENER_CLUSTER_MIXED_CASES = [
     (490, 98, 1, 2, 1500, 2, 16, 6, "bfloat16", {"ny": True}, "int16"),  # n 245 = 5·7·7, odd
     (14_000, 3500, 1, 3, 8000, 2, 512, None, "bfloat16",        # the card's W 14 000: C 2 of n
      {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),  # 7000 = 8·5·5·5·7
+    (90, 30, 1, 4, 600, 3, 16, 5, "float32", {}, "float32"),    # C 3 of n 30 = 2·3·5
+    (150, 30, 2, 3, 900, 5, 16, 7, "bfloat16", {"p": 2.0}, "float32"),  # C 5 of 30; S odd
+    (180, 45, 1, 2, 800, 6, 16, 6, "float32", {"conserve_last": True, "ny": True},
+     "int16"),                                                  # C 6 of n 30, the ny row
+    (210, 42, 1, 3, 900, 3, 32, 7, "bfloat16", {"ny": True}, "float32"),  # C 3 of n 70 = 2·5·7
+    (22_050, 4410, 1, 4, 12_000, 3, 512, None, "bfloat16",      # 500 ms at 44.1 kHz: C 3 of n
+     {"p": 2.0, "conserve_last": True, "ny": True}, "float32"),  # 7350, shares of 3675
 ]
 
 
@@ -161,9 +168,11 @@ def test_wiener_cluster_mixed_source_matches_plain(tmp_path, host, rng, nfft, ho
     w, nf, y, re, im, ny = _wiener_inputs(tmp_path, rng, nfft, hop, nt, S, length, ydt, has_ny)
     n = nfft // c
     if rounds is None:
-        plan = fp.wiener_plan(nt, S, nf, nfft, hop)
-        assert fp.mixed_factors(nfft) == (c, n)
+        plan = fp.wiener_cluster_mixed_plan(nt, S, nf, nfft, hop)
+        assert fp.wiener_mixed_factors(nfft) == (c, n)
         assert (plan.cluster, plan.threads, plan.route) == (c, 512, "cluster_mixed")
+        if nfft in fp.WIENER_MIXED_WON:
+            assert fp.wiener_plan(nt, S, nf, nfft, hop) == plan
         rounds = plan.rounds
     np.ascontiguousarray(fp.dft_table(nfft, "cpu").numpy(), np.float32).tofile(tmp_path / "tw.bin")
     args = [c, n, threads, nt, S, nf, hop, length, rounds, *_wiener_tail(kw, ydt, has_ny, out),

@@ -12,6 +12,7 @@ float32 twiddles' rounding, ~6e-8 relative, over log2 N stages); in
 complex64 within 1e-5 × max|X| of the plain STFTs (float32 sums in another
 order, the CUDA tests' tolerance)."""
 
+import collections
 import math
 
 import numpy as np
@@ -729,17 +730,21 @@ def test_istft_cluster_dit_plan(signals, nf, nfft, win, hop):
     (12000, 3000, "cluster_mixed", 2), (60000, 15000, "cluster_mixed", 8),
     (14000, 3500, "cluster_mixed", 2), (56000, 14000, "cluster_mixed", 8),
     (11264, 2816, "cluster", 4), (22000, 5500, "cluster", 8),
-    (20250, 10125, "cluster", 8), (10125, 3375, "cluster", 4),
-    (40002, 20001, "cluster", 16),
+    (20250, 10125, "cluster_mixed", 3), (10125, 3375, "cluster_mixed", 3),
+    (40002, 20001, "cluster", 16), (11025, 2205, "cluster_mixed", 3),
+    (44100, 11025, "cluster_mixed", 6), (16807, 2401, "cluster_mixed", 7),
+    (30870, 6174, "cluster_mixed", 5), (9999, 1111, "cluster", 4),
+    (46875, 9375, "cluster", 16),
 ])
 def test_istft_cluster_routes(nfft, hop, route, cluster):
     """istft_plan's route past 8192: the direct transform ("cluster_dit")
     on nfft / 8192 blocks at the powers of two (the reference's 16 384 and
     32 768, and 65 536), the same on the 7-smooth block core
-    ("cluster_mixed") on C = 2, 4, 8 blocks at the sizes that won their A/B
+    ("cluster_mixed") on C = 2 to 8 blocks at the sizes that won their A/B
     (ISTFT_MIXED_WON: 10 000, 12 000, 14 000, 20 000, 40 000, 56 000,
-    60 000, ...), Bluestein's cluster ("cluster") on M / 8192 blocks at the
-    rest (a prime past 7, too few factors of two for C, odd);
+    60 000, and on 3, 5, 6 or 7 blocks 10 125, 11 025, 20 250, 30 870,
+    44 100, 16 807, ...), Bluestein's cluster ("cluster") on M / 8192 blocks
+    at the rest (a prime past 7, a 7-smooth size past 8 blocks);
     Bluestein's plan still exists at the direct sizes, for the forced
     A/B."""
     plan = fp.istft_plan(2, 100, nfft, nfft, hop)
@@ -758,22 +763,25 @@ def test_istft_cluster_routes(nfft, hop, route, cluster):
             fp.istft_cluster_dit_plan(2, 100, nfft + 2, nfft + 2, hop)
 
 
-MIXED_SIZES = [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2) if fp.mixed_factors(n)]
+MIXED_SIZES = [n for n in range(fp.MAX_NFFT + 1, fp.CLUSTER_NFFT + 1) if fp.mixed_factors(n)]
+# the sizes on clusters of 2, 4 and 8 blocks (the rule's first choice of C)
+MIXED_POW2_SIZES = [n for n in MIXED_SIZES if fp.mixed_factors(n)[0] in (2, 4, 8)]
 
 
 def test_mixed_factors_sizes():
-    """mixed_factors takes 204 even sizes past 8192: N = C · n with C the
+    """mixed_factors takes 281 sizes past 8192. 204 even ones on C the
     fewest of 2, 4, 8 blocks that makes n <= 8192, n one of the 68 7-smooth
     numbers in (4096, 8192) off the powers of two: the 87 sizes of 29
     5-smooth n, and 117 of 39 n with a factor 7 (14 000, 28 000, 56 000 of
-    7000). 33 have an odd n (eleven n, each at C 2, 4 and 8), which the core
-    serves with its whole n-point table (no quarter turns); every n other
-    than those that is not a multiple of 4 too (4374, 4410, 6250, ...).
-    Exactly the even sizes whose n = N / C is 7-smooth, C the rule's."""
-    assert len(MIXED_SIZES) == 204
+    7000). 33 of those have an odd n (eleven n, each at C 2, 4 and 8),
+    which the core serves with its whole n-point table (no quarter turns);
+    every n other than those that is not a multiple of 4 too (4374, 4410,
+    6250, ...). Exactly the even sizes whose n = N / C is 7-smooth, C that
+    rule's; the other 77 in test_mixed_factors_other_clusters."""
+    assert len(MIXED_SIZES) == 281 and len(MIXED_POW2_SIZES) == 204
     assert {10_000, 12_000, 14_000, 15_000, 20_000, 24_000, 28_000, 30_000, 40_000, 48_000,
-            56_000, 60_000} <= set(MIXED_SIZES)
-    ns = sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES})
+            56_000, 60_000} <= set(MIXED_POW2_SIZES)
+    ns = sorted({fp.mixed_factors(n)[1] for n in MIXED_POW2_SIZES})
     assert len(ns) == 68 and {5000, 7000, 4375, 7203, 4116} <= set(ns)
     assert all(4096 < n < 8192 for n in ns)
     assert all(n & (n - 1) and fp.smooth7(n) for n in ns)
@@ -782,8 +790,8 @@ def test_mixed_factors_sizes():
         c = 2 if nfft <= 16384 else 4 if nfft <= 32768 else 8
         want = (nfft & (nfft - 1) and nfft % c == 0 and fp.smooth7(nfft // c))
         assert (fp.mixed_factors(nfft) == (c, nfft // c)) if want else (
-            fp.mixed_factors(nfft) is None), nfft
-    odd = [nfft for nfft in MIXED_SIZES if fp.mixed_factors(nfft)[1] % 2]
+            fp.mixed_factors(nfft) is None or fp.mixed_factors(nfft)[0] not in (2, 4, 8)), nfft
+    odd = [nfft for nfft in MIXED_POW2_SIZES if fp.mixed_factors(nfft)[1] % 2]
     assert len(odd) == 33 and {11_250, 12_150, 13_122, 8750, 14_406, 57_624} <= set(odd)
     assert sorted({fp.mixed_factors(n)[1] for n in odd}) == [
         4375, 4725, 5103, 5145, 5625, 6075, 6125, 6561, 6615, 7203, 7875]
@@ -799,21 +807,50 @@ def test_mixed_factors_sizes():
     (8192, "a power of two on the core"), (16384, "a power of two: cluster_dit"),
     (65536, "a power of two: cluster_dit"), (10_002, "a prime past 5 (1667)"),
     (11_264, "2^10 · 11: a prime past 7"), (22_000, "2^4 · 5^3 · 11: a prime past 7"),
-    (10_125, "odd"), (9_999, "odd"), (20_250, "2 · 3^4 · 5^3: C 4 "
-     "does not divide it"), (39_366, "2 · 3^9: C 8 does not divide it"),
-    (44_100, "2^2 · 3^2 · 5^2 · 7^2: C 8 does not divide it"),
-    (40_500, "4 · 3^4 · 5^3: C 8 does not divide it"), (8_100, "on the core's Bluestein"),
+    (9_999, "3^2 · 11 · 101: a prime past 7"), (8_100, "on the core's Bluestein"),
+    (46_875, "3 · 5^6: none of 6, 7, 8 blocks divides it"),
+    (59_049, "3^10: 8 blocks do not divide it"),
+    (64_827, "3^3 · 7^4: 8 blocks do not divide it"),
+    (62_500, "2^2 · 5^6: 8 blocks do not divide it"),
     (65_538, "past the cluster"), (70_000, "past the cluster"),
 ])
 def test_mixed_factors_refuses(nfft, why):
     """Sizes the mixed cluster leaves alone: Bluestein's cluster keeps the
-    even ones past 8192, the powers of two stay on the direct cluster."""
+    sizes past 8192 off the 7-smooth ones and the 13 7-smooth ones that
+    need more than 8 blocks, the powers of two stay on the direct cluster."""
     assert fp.mixed_factors(nfft) is None, why
     with pytest.raises(ValueError, match="no iSTFT cluster_mixed plan"):
         fp.istft_cluster_mixed_plan(1, 40, nfft, min(nfft, 8192), min(nfft, 8192) // 4)
     if fp.cluster_supported(nfft):
         route = fp.istft_plan(1, 40, nfft, nfft, nfft // 4 if nfft % 4 == 0 else nfft).route
         assert route == ("cluster_dit" if nfft & (nfft - 1) == 0 else "cluster")
+
+
+def test_mixed_factors_other_clusters():
+    """The 77 7-smooth sizes past 8192 that no cluster of 2, 4 or 8 holds
+    take the fewest blocks from ceil(N / 8192) to 8 that divide N: 25 on 3,
+    27 on 5, 8 on 6 and 17 on 7; 40 of them odd (the iSTFT's alone). The 44.1
+    kHz windows of 250 ms, 500 ms and 1 s among them, and 39 366 = 2 · 3^9;
+    13 more 7-smooth sizes would need more than 8 blocks and stay None."""
+    other = [n for n in MIXED_SIZES if fp.mixed_factors(n)[0] not in (2, 4, 8)]
+    assert len(other) == 77 and sum(n % 2 for n in other) == 40
+    assert collections.Counter(fp.mixed_factors(n)[0] for n in other) == {3: 25, 5: 27, 6: 8,
+                                                                          7: 17}
+    assert [fp.mixed_factors(n) for n in (11_025, 22_050, 44_100, 39_366)] == [
+        (3, 3675), (3, 7350), (6, 7350), (6, 6561)]
+    assert [fp.mixed_factors(n) for n in (30_870, 33_075, 39_690, 16_807, 12_005, 15_625)] == [
+        (5, 6174), (5, 6615), (5, 7938), (7, 2401), (5, 2401), (5, 3125)]
+    assert [fp.mixed_factors(n) for n in (10_125, 20_250, 40_500)] == [(3, 3375), (3, 6750),
+                                                                       (5, 8100)]
+    for nfft in other:
+        c, n = fp.mixed_factors(nfft)
+        assert c * n == nfft and n <= fp.MAX_NFFT and fp.smooth7(n)
+        assert all(nfft % b for b in range(-(-nfft // fp.MAX_NFFT), c))
+    left = [n for n in range(fp.MAX_NFFT + 1, fp.CLUSTER_NFFT + 1)
+            if fp.smooth7(n) and n & (n - 1) and fp.mixed_factors(n) is None]
+    assert left == [46_875, 50_625, 54_675, 56_250, 59_049, 59_535, 60_025, 60_750, 61_236,
+                    61_250, 61_740, 62_500, 64_827]
+    assert fp.mixed_factors(59_049) is None
 
 
 @pytest.mark.parametrize("n", sorted({fp.mixed_factors(n)[1] for n in MIXED_SIZES}) + [
@@ -851,6 +888,9 @@ def test_mixed_radices_refuses():
     (1, 532, 10_000, 10_000, 2500), (1, 267, 20_000, 20_000, 5000),
     (1, 135, 40_000, 40_000, 10_000), (4, 460, 12_000, 12_000, 3000), (2, 90, 60_000, 60_000, 6000),
     (1, 300, 11_250, 11_250, 1250), (3, 40, 45_000, 22_500, 2500), (1, 200, 10_000, 10_000, 2),
+    (1, 602, 11_025, 11_025, 2205), (1, 302, 22_050, 22_050, 4410),  # odd, C 3; C 3
+    (1, 122, 44_100, 44_100, 11_025), (2, 60, 16_807, 16_807, 2401),  # C 6; odd, C 7
+    (1, 135, 30_870, 30_870, 6174),                                   # C 5
 ])
 def test_istft_cluster_mixed_plan(signals, nf, nfft, win, hop):
     """istft_cluster_mixed_plan mirrors istft_cluster_mixed_launch: C and n
@@ -886,13 +926,14 @@ def test_istft_plan_mixed_routes():
     plan and the mixed plan exist at every mixed size, for the forced A/B."""
     assert fp.ISTFT_MIXED_WON <= set(MIXED_SIZES)
     for nfft in MIXED_SIZES:
-        plan = fp.istft_plan(1, 100, nfft, nfft, nfft // 4)
+        hop = nfft // next(k for k in (4, 5, 3, 7) if nfft % k == 0)
+        plan = fp.istft_plan(1, 100, nfft, nfft, hop)
         won = nfft in fp.ISTFT_MIXED_WON
         assert (plan.route, plan.cluster) == (
             ("cluster_mixed", fp.mixed_factors(nfft)[0]) if won
             else ("cluster", fp.cluster_blocks(nfft)))
-        assert fp.istft_cluster_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster"
-        assert fp.istft_cluster_mixed_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster_mixed"
+        assert fp.istft_cluster_plan(1, 100, nfft, nfft, hop).route == "cluster"
+        assert fp.istft_cluster_mixed_plan(1, 100, nfft, nfft, hop).route == "cluster_mixed"
     for nfft in (16384, 32768, 65536):
         assert fp.istft_plan(1, 100, nfft, nfft, nfft // 4).route == "cluster_dit"
 
@@ -1639,7 +1680,7 @@ def test_wiener_cluster_envelope():
             fp.wiener_cluster_dit_plan(1, 4, 100, n, hop)
 
 
-WIENER_MIXED_SIZES = [n for n in MIXED_SIZES if n <= fp.WIENER_CLUSTER_NFFT]
+WIENER_MIXED_SIZES = [n for n in MIXED_SIZES if fp.wiener_mixed_factors(n)]
 
 
 @pytest.mark.parametrize("signals,S,nf,nfft,hop", [
@@ -1649,10 +1690,13 @@ WIENER_MIXED_SIZES = [n for n in MIXED_SIZES if n <= fp.WIENER_CLUSTER_NFFT]
     (1, 2, 300, 8640, 540),       # the smallest, k 16
     (1, 4, 120, 32_400, 2025),    # the largest, k 16: the most carry
     (3, 1, 7, 12_000, 12_000),    # k 1: no carry, one source
+    (1, 4, 302, 22_050, 4410),    # 500 ms at 44.1 kHz: C 3 of n 7350
+    (1, 4, 302, 30_618, 10_206),  # C 6 of n 5103 = 3^6 · 7, odd: the last share 2549 bins
+    (2, 3, 135, 30_870, 6174),    # C 5 of n 6174
 ])
 def test_wiener_cluster_mixed_plan(signals, S, nf, nfft, hop):
     """wiener_cluster_mixed_plan is wiener_cluster_mixed_launch's
-    arithmetic: C and n of mixed_factors (C 2 or 4), a cluster of 512-thread
+    arithmetic: C and n of mixed_factors (C 2 to 6), a cluster of 512-thread
     blocks a pair of sources and row range, one frame a round (R = rounds −
     (k − 1) rows), each block the n-point table, the n-point exchange buffer
     and the two sources' carries of its 1/C of the columns within shared
@@ -1660,7 +1704,8 @@ def test_wiener_cluster_mixed_plan(signals, S, nf, nfft, hop):
     plan = fp.wiener_cluster_mixed_plan(signals, S, nf, nfft, hop)
     c, n = fp.mixed_factors(nfft)
     k = nfft // hop
-    assert c in (2, 4) and n <= 16 * fp.MAX_THREADS
+    assert fp.wiener_mixed_factors(nfft) == (c, n)
+    assert c in (2, 3, 4, 5, 6) and n <= 16 * fp.MAX_THREADS
     assert (plan.route, plan.cluster, plan.groups, plan.threads, plan.blocks_per_sm) == (
         "cluster_mixed", c, 1, fp.MAX_THREADS, 1)
     carry = 2 * (k - 1) * -(-hop // c)
@@ -1679,20 +1724,31 @@ def test_wiener_cluster_mixed_plan(signals, S, nf, nfft, hop):
 
 
 def test_wiener_cluster_mixed_sizes_and_routes():
-    """The mixed Wiener cluster serves the 136 7-smooth even sizes of
-    mixed_factors up to the reference's 32 768, 8232 to 32 400 (22 with an
-    odd n), on C 2 or 4; wiener_plan takes it exactly at WIENER_MIXED_WON
-    and Bluestein's cluster at the other even sizes past 8192 off the powers
-    of two; every one fits shared memory at k up to 16 (hop N / k)."""
-    assert len(WIENER_MIXED_SIZES) == 136
+    """The mixed Wiener cluster serves 149 7-smooth even sizes of
+    mixed_factors up to the reference's 32 768: 136 from 8232 to 32 400 (22
+    with an odd n) on C 2 or 4, and 13 from 17 010 to 31 250 on C 3, 5 or 6
+    (not 17 150 = 5 · 3430: its last block's 1715 bins are under the mask
+    loads' four unguarded strides, WIENER_MIXED_MIN_SHARE); wiener_plan takes
+    it exactly at WIENER_MIXED_WON and Bluestein's cluster at the other even
+    sizes past 8192 off the powers of two; every one fits shared memory at
+    k up to 16 (hop N / k)."""
+    assert len(WIENER_MIXED_SIZES) == 149
     assert (WIENER_MIXED_SIZES[0], WIENER_MIXED_SIZES[-1]) == (8232, 32_400)
-    odd = sorted(n for n in WIENER_MIXED_SIZES if fp.mixed_factors(n)[1] % 2)
+    pow2 = [n for n in WIENER_MIXED_SIZES if fp.mixed_factors(n)[0] in (2, 4)]
+    assert len(pow2) == 136 and [n for n in WIENER_MIXED_SIZES if n not in pow2] == [
+        17_010, 18_522, 18_750, 20_250, 21_870, 22_050, 23_814, 24_010, 26_250, 28_350, 30_618,
+        30_870, 31_250]
+    assert fp.mixed_factors(17_150) == (5, 3430) and fp.wiener_mixed_factors(17_150) is None
+    odd = sorted(n for n in pow2 if fp.mixed_factors(n)[1] % 2)
     assert len(odd) == 22 and {11_250, 12_150, 13_122, 22_500, 24_300, 26_244, 8750, 14_406,
                                28_812} <= set(odd)
     assert fp.WIENER_MIXED_WON <= set(WIENER_MIXED_SIZES)
     for nfft in WIENER_MIXED_SIZES:
         c, n = fp.mixed_factors(nfft)
-        assert c == (2 if nfft <= 16_384 else 4) and 4096 < n <= 8192
+        half = nfft // 2
+        assert half - (c - 1) * -(-half // c) >= fp.WIENER_MIXED_MIN_SHARE
+        assert (c == (2 if nfft <= 16_384 else 4) and 4096 < n <= 8192) if nfft in pow2 else (
+            c in (3, 5, 6) and n <= 8192)
         for k in (1, 2, 4, 8, 16):
             if nfft % k == 0:
                 plan = fp.wiener_cluster_mixed_plan(1, 4, 100, nfft, nfft // k)
@@ -1712,6 +1768,9 @@ def test_wiener_cluster_mixed_sizes_and_routes():
     (34_560, 8640),     # 5-smooth, past 32 768 (C 8)
     (8192, 2048),       # the core's
     (10_000, 3000),     # the hop does not divide it
+    (11_025, 2205),     # odd: the iSTFT's alone
+    (17_150, 3430),     # C 5 of n 3430: the last block's 1715 bins
+    (33_075, 6615),     # past 32 768 (C 5)
 ])
 def test_wiener_cluster_mixed_plan_refuses(nfft, hop):
     with pytest.raises(ValueError, match="no Wiener.iSTFT cluster_mixed plan"):

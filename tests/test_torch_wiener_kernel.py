@@ -119,6 +119,8 @@ def test_rejects_bad_shapes(rng):
     (11250, 2250, {"p": 2.0, "conserve_last": True}),
     (14000, 3500, {}),                                # a radix-7 pass: C 2 of 7000
     (14000, 3500, {"p": 2.0, "conserve_last": True}),
+    (22050, 4410, {}),                                # 500 ms at 44.1 kHz: C 3 of 7350
+    (22050, 4410, {"p": 2.0, "conserve_last": True}),
 ])
 def test_istft_wiener_matches_jax_off_the_core(rng, nfft, hop, kw):
     """At the sizes the card takes on the split, on Bluestein and on the

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """The mixed cluster's A/B on one CUDA GPU (no JAX): at every size it takes
-(``fft_plan.mixed_factors``, 204 even sizes from 8232 to 64 800), at the
-117 whose block size n has a factor 7 (``--radix7``), or at the sizes
-given, the iSTFT of one 30 s track at hop nfft / 4 (nfft / 5, / 3 or / 7
-where 4 does not divide it, as 11 250, 13 122 and 14 406) on the mixed
+(``fft_plan.mixed_factors``, 281 sizes from 8232 to 64 827), at the 117 on
+clusters of 2, 4 or 8 whose block size n has a factor 7 (``--radix7``),
+at the 77 on clusters of 3, 5, 6 or 7 blocks, 40 of them odd (``--new``),
+or at the sizes given, the iSTFT of one 30 s track at hop nfft / 4 (nfft /
+5, / 3 or / 7 where 4 does not divide it, as 11 250, 13 122, 14 406, 11
+025 and 16 807) on the mixed
 cluster (``launch_istft(cluster_mixed=True)``) against Bluestein's cluster
 forced (``bluestein_cluster=True``) and ``torch.istft`` on the same random
 spectra.
 
-    python3 tools/torch_istft_mixed_ab.py [--out FILE] [--radix7] [nfft ...]
+    python3 tools/torch_istft_mixed_ab.py [--out FILE] [--radix7 | --new] [nfft ...]
 
 Prints the card's name and power limit, builds the kernels and prints
 ptxas's registers, spills and stack frames of the cluster iSTFT kernels,
-the clusters the card holds at once for the mixed kernel at C 2, 4 and 8
-(``istft_cluster_occupancy`` route 2), then a line a size: both routes'
+the clusters the card holds at once for the mixed kernel at C 2 to 8
+(``istft_cluster_occupancy`` route 2) beside ``fft_plan.CLUSTERS_AT_ONCE``,
+then a line a size: both routes'
 card ms and ``torch.istft``'s (CUDA events, in turns: mixed, Bluestein,
 ``torch.istft``, Bluestein, mixed, the median of each), the bytes bound (spectra read once,
 samples written once) and both routes' largest error against the float64
@@ -55,8 +58,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
-    ap.add_argument("--radix7", action="store_true",
-                    help="only the sizes whose block size has a factor 7")
+    pick = ap.add_mutually_exclusive_group()
+    pick.add_argument("--radix7", action="store_true",
+                      help="only the sizes on C 2, 4 or 8 whose block size has a factor 7")
+    pick.add_argument("--new", action="store_true",
+                      help="only the sizes on clusters of 3, 5, 6 or 7 blocks")
     ap.add_argument("sizes", nargs="*", type=int)
     args = ap.parse_args()
     if cs.setup():
@@ -79,9 +85,10 @@ def main() -> int:
               "registers")
 
     occupancy = {}
-    for nfft in (10000, 20000, 40000):
+    for nfft in (10000, 11025, 20000, 30870, 44100, 16807, 40000):  # C 2, 3, 4, 5, 6, 7, 8
         active = ctypes.c_int(0)
-        kernels.check(kernels.library().istft_cluster_occupancy(nfft, nfft, nfft // 4, 2,
+        hop = nfft // next(k for k in (4, 5, 3, 7) if nfft % k == 0)
+        kernels.check(kernels.library().istft_cluster_occupancy(nfft, nfft, hop, 2,
                                                                 ctypes.byref(active)),
                       "istft_cluster_occupancy")
         c = fp.mixed_factors(nfft)[0]
@@ -89,9 +96,11 @@ def main() -> int:
         print(f"clusters of {c} at once (istft_cluster_mixed_kernel, W {nfft}): the card's "
               f"{active.value}, CLUSTERS_AT_ONCE {fp.CLUSTERS_AT_ONCE[c]}", flush=True)
 
-    sizes = args.sizes or [n for n in range(fp.MAX_NFFT + 2, fp.CLUSTER_NFFT + 1, 2)
-                           if fp.mixed_factors(n)
-                           and (not args.radix7 or fp.mixed_factors(n)[1] % 7 == 0)]
+    sizes = args.sizes or [
+        n for n in range(fp.MAX_NFFT + 1, fp.CLUSTER_NFFT + 1) if fp.mixed_factors(n)
+        and (not args.radix7 or (fp.mixed_factors(n)[0] in (2, 4, 8)
+                                 and fp.mixed_factors(n)[1] % 7 == 0))
+        and (not args.new or fp.mixed_factors(n)[0] in (3, 5, 6, 7))]
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
     rows = {}

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The Wiener+iSTFT's mixed cluster A/B on one CUDA GPU (no JAX): at every
-size it takes (``fft_plan.mixed_factors`` up to 32 768, 136 even sizes from
-8232 to 32 400), at the 78 whose block size n has a factor 7
-(``--radix7``), or at the sizes given, 4 stems of one 30 s track at hop
+size it takes (``fft_plan.wiener_mixed_factors``, 149 even sizes from 8232
+to 32 400), at the 78 on clusters of 2 or 4 whose block size n has a
+factor 7 (``--radix7``), at the 13 on clusters of 3, 5 or 6 (``--new``),
+or at the sizes given, 4 stems of one 30 s track at hop
 nfft / 4 (nfft / 5, / 3 or / 7 where 4 does not divide it), bf16 y, on the
 mixed cluster forced (``wiener_cluster_mixed_pallas``, ``fft_plan.
 wiener_cluster_mixed_plan``: "auto"'s route where the size won) against
@@ -10,18 +11,19 @@ Bluestein's cluster forced (``wiener_bluestein_cluster_pallas``) and
 against the masked chain "auto" takes where it does not take the kernel
 (the float32 mask, then ``istft_matmul``'s own "auto": the factored
 products at these sizes), on the same random spectra and magnitudes; then
-(with neither sizes nor ``--radix7``) the same A/B against the chain at the
+(with no sizes, ``--radix7`` or ``--new``) the same A/B against the chain at the
 powers of two's shapes in ``WIENER_CLUSTER_WON`` (16 384, hop 2048 and
 32 768, hop 4096: the direct cluster against the mask and the iSTFT's
 direct cluster).
 
-    python3 tools/torch_wiener_mixed_ab.py [--out FILE] [--radix7] [nfft ...]
+    python3 tools/torch_wiener_mixed_ab.py [--out FILE] [--radix7 | --new] [nfft ...]
 
 Prints the card's name and power limit, builds the kernels and prints
 ptxas's registers and stack frames of the
 Wiener cluster kernels and the clusters the card holds at once for the
-mixed kernel at C 2 and 4 (``wiener_cluster_mixed_launch`` with
-``active``), then a line a size: the kernel's, Bluestein's and the chain's
+mixed kernel at C 2 to 6 (``wiener_cluster_mixed_launch`` with
+``active``) beside ``fft_plan.CLUSTERS_AT_ONCE``, then a line a size: the
+kernel's, Bluestein's and the chain's
 card ms (CUDA events; kernel and Bluestein in turns: mixed, Bluestein,
 Bluestein, mixed, the median of each) and both kernels' largest error
 against the float64 synthesis over its peak. A chain whose products do not
@@ -75,8 +77,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
-    ap.add_argument("--radix7", action="store_true",
-                    help="only the sizes whose block size has a factor 7")
+    pick = ap.add_mutually_exclusive_group()
+    pick.add_argument("--radix7", action="store_true",
+                      help="only the sizes on C 2 or 4 whose block size has a factor 7")
+    pick.add_argument("--new", action="store_true",
+                      help="only the sizes on clusters of 3, 5 or 6 blocks")
     ap.add_argument("sizes", nargs="*", type=int)
     args = ap.parse_args()
     if cs.setup():
@@ -99,26 +104,31 @@ def main() -> int:
               "registers")
 
     occupancy = {}
-    for nfft in (10000, 20000):
-        plan = fp.wiener_cluster_mixed_plan(1, SOURCES, 100, nfft, nfft // 4)
+    for nfft in (10000, 22050, 20000, 30870, 30618):  # C 2, 3, 4, 5, 6
+        hop = nfft // next(k for k in (4, 5, 3) if nfft % k == 0)
+        plan = fp.wiener_cluster_mixed_plan(1, SOURCES, 100, nfft, hop)
         active = ctypes.c_int(0)
         kernels.check(kernels.library().wiener_cluster_mixed_launch(
             None, 0, None, None, None, None, None, None, None, 0, 1, SOURCES, 100, nfft,
-            nfft // 4, 1, plan.rounds, fp.mixed_schedule(fp.mixed_radices(nfft // plan.cluster)),
+            hop, 1, plan.rounds, fp.mixed_schedule(fp.mixed_radices(nfft // plan.cluster)),
             0, ctypes.c_float(1e-8), 0, ctypes.byref(active), None), "wiener_cluster_mixed")
         occupancy[plan.cluster] = active.value
         print(f"clusters of {plan.cluster} at once (wiener_cluster_mixed_kernel, W {nfft}): the "
               f"card's {active.value}, CLUSTERS_AT_ONCE {fp.CLUSTERS_AT_ONCE[plan.cluster]}",
               flush=True)
 
-    sizes = args.sizes or [n for n in range(fp.MAX_NFFT + 2, fp.WIENER_CLUSTER_NFFT + 1, 2)
-                           if fp.mixed_factors(n)
-                           and (not args.radix7 or fp.mixed_factors(n)[1] % 7 == 0)]
+    sizes = args.sizes or [
+        n for n in range(fp.MAX_NFFT + 2, fp.WIENER_CLUSTER_NFFT + 1, 2)
+        if fp.wiener_mixed_factors(n)
+        and (not args.radix7 or (fp.mixed_factors(n)[0] in (2, 4)
+                                 and fp.mixed_factors(n)[1] % 7 == 0))
+        and (not args.new or fp.mixed_factors(n)[0] in (3, 5, 6))]
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
     rows, dit_rows = {}, {}
     shapes = [(n, n // next(k for k in (4, 5, 3, 7, 2) if n % k == 0), True) for n in sizes]
-    shapes += [(n, hop, False) for n, hop in DIT_SHAPES if not (args.sizes or args.radix7)]
+    shapes += [(n, hop, False) for n, hop in DIT_SHAPES
+               if not (args.sizes or args.radix7 or args.new)]
     for nfft, hop, mixed in shapes:
         nf = num_frames(SECONDS * cs.FS, hop)
         L = (nf - 2) * hop
